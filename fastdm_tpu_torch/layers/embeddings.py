@@ -1,0 +1,99 @@
+"""Embeddings: timesteps, text projections, RoPE tables (port of
+fastdm_tpu/layers/embeddings.py, the parts FLUX uses).
+
+RoPE tables are computed on the host in float64 numpy (positions are fixed
+per resolution, so this runs once per generation) and moved to the device as
+float32 — the same precision path as the JAX package and the reference's
+float64 freqs.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fastdm_tpu_torch.device import resolve_device
+from fastdm_tpu_torch.layers.qlinear import QLinear
+
+Tensor = torch.Tensor
+
+
+def get_timestep_embedding(
+    timesteps: Tensor, embedding_dim: int, flip_sin_to_cos: bool = False,
+    downscale_freq_shift: float = 1.0, scale: float = 1.0, max_period: int = 10000,
+) -> Tensor:
+    """Sinusoidal timestep embedding of timesteps (N,), float32 math."""
+    half_dim = embedding_dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half_dim, dtype=torch.float32, device=timesteps.device)
+    exponent = exponent / (half_dim - downscale_freq_shift)
+    emb = timesteps.float()[:, None] * torch.exp(exponent)[None, :]
+    emb = scale * emb
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if flip_sin_to_cos:
+        emb = torch.cat([emb[:, half_dim:], emb[:, :half_dim]], dim=-1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """linear1 -> SiLU -> linear2: the timestep/guidance MLP and, with the same
+    shape, FLUX's pooled-text projection (PixArtAlphaTextProjection, silu)."""
+
+    def __init__(self, linear1: QLinear, linear2: QLinear):
+        super().__init__()
+        self.linear1 = linear1
+        self.linear2 = linear2
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.linear2(F.silu(self.linear1(x)))
+
+
+class CombinedTimestepTextProj(nn.Module):
+    """Timestep (+ optional guidance) sinusoid -> MLP, plus pooled-text MLP
+    (port of combined_timestep_text_proj_apply)."""
+
+    def __init__(self, timestep_embedder: TimestepEmbedding, text_embedder: TimestepEmbedding,
+                 guidance_embedder: Optional[TimestepEmbedding] = None):
+        super().__init__()
+        self.timestep_embedder = timestep_embedder
+        self.text_embedder = text_embedder
+        self.guidance_embedder = guidance_embedder
+
+    def forward(self, timestep: Tensor, pooled_projection: Tensor,
+                guidance: Optional[Tensor] = None) -> Tensor:
+        dt = pooled_projection.dtype
+        t_proj = get_timestep_embedding(timestep, 256, flip_sin_to_cos=True,
+                                        downscale_freq_shift=0.0)
+        emb = self.timestep_embedder(t_proj.to(dt))
+        if guidance is not None:
+            g_proj = get_timestep_embedding(guidance, 256, flip_sin_to_cos=True,
+                                            downscale_freq_shift=0.0)
+            emb = emb + self.guidance_embedder(g_proj.to(dt))
+        return emb + self.text_embedder(pooled_projection)
+
+
+def rope_1d_freqs(dim: int, pos: np.ndarray, theta: float = 10000.0) -> np.ndarray:
+    """(S, dim/2) float64 angles."""
+    inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+    return np.outer(np.asarray(pos, np.float64), inv)
+
+
+def flux_rope_cos_sin(
+    ids, axes_dim: Sequence[int], theta: int = 10000, device="cuda",
+) -> Tuple[Tensor, Tensor]:
+    """3-axis RoPE tables for FLUX: ids (S, n_axes) position ids ->
+    (cos, sin), each (S, sum(axes_dim)/2) float32 on `device`, one entry per
+    rotation pair (interleaved application)."""
+    ids_np = np.asarray(ids, np.float64)
+    a = np.concatenate(
+        [rope_1d_freqs(d, ids_np[:, i], theta) for i, d in enumerate(axes_dim)], axis=-1)
+    dev = resolve_device(device)
+    return (torch.from_numpy(np.cos(a).astype(np.float32)).to(dev),
+            torch.from_numpy(np.sin(a).astype(np.float32)).to(dev))

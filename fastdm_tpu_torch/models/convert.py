@@ -1,0 +1,111 @@
+"""Move parameter trees of the JAX package into the port.
+
+The JAX random inits (jax.random) cannot be reproduced by a torch.Generator,
+so tests that compare the two packages hand the JAX tree across instead of
+re-drawing it. The converters take that tree as numpy arrays — the caller
+runs jax.device_get — and import nothing of JAX: numpy bfloat16 goes through
+its uint16 bit pattern (models/loader.as_tensor).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from fastdm_tpu_torch.device import resolve_device
+from fastdm_tpu_torch.layers.attention import JointAttention
+from fastdm_tpu_torch.layers.embeddings import CombinedTimestepTextProj, TimestepEmbedding
+from fastdm_tpu_torch.layers.feedforward import FeedForward
+from fastdm_tpu_torch.layers.normalization import (
+    AdaLayerNormContinuous,
+    AdaLayerNormZero,
+    AdaLayerNormZeroSingle,
+)
+from fastdm_tpu_torch.layers.qlinear import QLinear
+from fastdm_tpu_torch.models.flux import FluxDualBlock, FluxSingleBlock, FluxTransformer
+from fastdm_tpu_torch.models.loader import as_tensor
+
+
+def unstack_blocks(tree: Dict, n: int):
+    """Split a tree of layer-stacked leaves (leading axis n) into n trees."""
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return node[i]
+
+    return [take(tree, i) for i in range(n)]
+
+
+def _n_layers(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
+    """FLUX param tree of fastdm_tpu.models.flux (bf16 QLinears, numpy
+    leaves, stacked block axis) -> FluxTransformer on `device`."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return as_tensor(a).to(dev)
+
+    def lin(p) -> QLinear:
+        if set(p) - {"w", "bias"}:
+            raise NotImplementedError(f"only bf16 QLinears convert in this slice; got {sorted(p)}")
+        return QLinear(t(p["w"]), t(p["bias"]) if "bias" in p else None)
+
+    def mlp(p) -> TimestepEmbedding:
+        return TimestepEmbedding(lin(p["linear1"]), lin(p["linear2"]))
+
+    tte = tree["time_text_embed"]
+    dual = []
+    if tree.get("dual_blocks") is not None:
+        for blk in unstack_blocks(tree["dual_blocks"], _n_layers(tree["dual_blocks"])):
+            a = blk["attn"]
+            dual.append(FluxDualBlock(
+                AdaLayerNormZero(lin(blk["norm1"]["linear"])),
+                AdaLayerNormZero(lin(blk["norm1_context"]["linear"])),
+                JointAttention(qkv=lin(a["qkv"]), add_qkv=lin(a["add_qkv"]),
+                               to_out=lin(a["to_out"]), to_add_out=lin(a["to_add_out"]),
+                               norm_q=t(a["norm_q"]), norm_k=t(a["norm_k"]),
+                               norm_added_q=t(a["norm_added_q"]),
+                               norm_added_k=t(a["norm_added_k"])),
+                FeedForward(lin(blk["ff"]["proj"]), lin(blk["ff"]["out"])),
+                FeedForward(lin(blk["ff_context"]["proj"]), lin(blk["ff_context"]["out"]))))
+    single = []
+    if tree.get("single_blocks") is not None:
+        for blk in unstack_blocks(tree["single_blocks"], _n_layers(tree["single_blocks"])):
+            single.append(FluxSingleBlock(
+                AdaLayerNormZeroSingle(lin(blk["norm"]["linear"])), lin(blk["qkv_mlp"]),
+                lin(blk["proj_out"]),
+                JointAttention(norm_q=t(blk["attn"]["norm_q"]), norm_k=t(blk["attn"]["norm_k"]))))
+    return FluxTransformer(
+        x_embedder=lin(tree["x_embedder"]), context_embedder=lin(tree["context_embedder"]),
+        time_text_embed=CombinedTimestepTextProj(
+            mlp(tte["timestep_embedder"]), mlp(tte["text_embedder"]),
+            mlp(tte["guidance_embedder"]) if "guidance_embedder" in tte else None),
+        dual_blocks=dual, single_blocks=single,
+        norm_out=AdaLayerNormContinuous(lin(tree["norm_out"]["linear"])),
+        proj_out=lin(tree["proj_out"]))
+
+
+def vae_params_from_numpy(tree: Dict, device="cuda") -> Dict:
+    """AutoencoderKL param tree of fastdm_tpu.pipeline.vae (numpy leaves,
+    HWIO convs) -> the port's dict (OIHW convs) on `device`."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        return node.get("w") is not None and getattr(node["w"], "ndim", 0) == 4
+
+    def walk(node):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if isinstance(node, dict):
+            if conv(node):
+                w = as_tensor(node["w"]).permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
+                return {"w": w.to(dev), "b": as_tensor(node["b"]).to(dev)}
+            return {k: walk(v) for k, v in node.items()}
+        return as_tensor(node).to(dev)
+
+    return walk(tree)
+

@@ -1,0 +1,338 @@
+"""FLUX.1 (dev/Krea) transformer core (port of fastdm_tpu/models/flux.py).
+
+PyTorch layout: the 19 dual-stream (MMDiT) and 38 single-stream blocks are
+nn.Modules in two nn.ModuleLists, walked by a Python loop (the JAX package
+stacks them and runs lax.scan). RoPE cos/sin are computed on the host once
+per resolution in float64 and handed to the forward as float32 tensors.
+The pipeline-parallel branch, ControlNet residuals and Kontext reference
+tokens of the JAX module arrive with later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fastdm_tpu_torch.device import resolve_device
+from fastdm_tpu_torch.layers.attention import JointAttention, attention_apply
+from fastdm_tpu_torch.layers.embeddings import (
+    CombinedTimestepTextProj,
+    TimestepEmbedding,
+    flux_rope_cos_sin,
+)
+from fastdm_tpu_torch.layers.feedforward import FeedForward
+from fastdm_tpu_torch.layers.normalization import (
+    AdaLayerNormContinuous,
+    AdaLayerNormZero,
+    AdaLayerNormZeroSingle,
+    layer_norm,
+)
+from fastdm_tpu_torch.layers.qlinear import QLinear, qlinear_random
+from fastdm_tpu_torch.models.loader import TensorSource
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class FluxConfig:
+    patch_size: int = 1
+    in_channels: int = 64
+    out_channels: int = 64
+    num_layers: int = 19
+    num_single_layers: int = 38
+    attention_head_dim: int = 128
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096
+    pooled_projection_dim: int = 768
+    guidance_embeds: bool = True
+    axes_dims_rope: Tuple[int, ...] = (16, 56, 56)
+    mlp_ratio: float = 4.0
+    # None/"bf16" is this slice's path (the JAX engine's default too);
+    # "int8"/"fp8" need the W8A8 kernels and raise NotImplementedError
+    quant: Optional[str] = None
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+    @property
+    def mlp_hidden_dim(self) -> int:
+        return int(self.inner_dim * self.mlp_ratio)
+
+
+# ---------------------------------------------------------------- modules
+
+
+class FluxDualBlock(nn.Module):
+    """MMDiT block: image and context streams with joint attention; forward
+    is the port of flux_dual_block."""
+
+    def __init__(self, norm1: AdaLayerNormZero, norm1_context: AdaLayerNormZero,
+                 attn: JointAttention, ff: FeedForward, ff_context: FeedForward):
+        super().__init__()
+        self.norm1, self.norm1_context = norm1, norm1_context
+        self.attn = attn
+        self.ff, self.ff_context = ff, ff_context
+
+    def forward(self, hidden: Tensor, encoder: Tensor, temb: Tensor, cos: Tensor,
+                sin: Tensor, cfg: FluxConfig) -> Tuple[Tensor, Tensor]:
+        h_norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(hidden, temb)
+        e_norm, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = self.norm1_context(
+            encoder, temb)
+        attn_out, ctx_attn_out = attention_apply(
+            self.attn, h_norm, e_norm, heads=cfg.num_attention_heads,
+            head_dim=cfg.attention_head_dim, rope_cos=cos, rope_sin=sin,
+            context_pre_only=False)
+        hidden = hidden + gate_msa[:, None] * attn_out
+        h2 = layer_norm(hidden) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
+        hidden = hidden + gate_mlp[:, None] * self.ff(h2, "gelu-approximate")
+        encoder = encoder + c_gate_msa[:, None] * ctx_attn_out
+        e2 = layer_norm(encoder) * (1 + c_scale_mlp[:, None]) + c_shift_mlp[:, None]
+        encoder = encoder + c_gate_mlp[:, None] * self.ff_context(e2, "gelu-approximate")
+        return hidden, encoder
+
+
+class FluxSingleBlock(nn.Module):
+    """Single-stream block (forward = the port of flux_single_block);
+    q|k|v|mlp_in share one matmul of the normalized input (qkv_mlp), the MLP
+    gate is exact erf GELU."""
+
+    def __init__(self, norm: AdaLayerNormZeroSingle, qkv_mlp: QLinear, proj_out: QLinear,
+                 attn: JointAttention):
+        super().__init__()
+        self.norm = norm
+        self.qkv_mlp, self.proj_out = qkv_mlp, proj_out
+        self.attn = attn
+
+    def forward(self, hidden: Tensor, temb: Tensor, cos: Tensor, sin: Tensor,
+                cfg: FluxConfig) -> Tensor:
+        h_norm, gate = self.norm(hidden, temb)
+        fused = self.qkv_mlp(h_norm)
+        qkv = fused[..., :3 * cfg.inner_dim]
+        mlp = F.gelu(fused[..., 3 * cfg.inner_dim:])
+        attn_out = attention_apply(
+            self.attn, h_norm, None, heads=cfg.num_attention_heads,
+            head_dim=cfg.attention_head_dim, rope_cos=cos, rope_sin=sin, pre_only=True,
+            qkv_override=qkv)
+        return hidden + gate[:, None] * self.proj_out(torch.cat([attn_out, mlp], dim=-1))
+
+
+class FluxTransformer(nn.Module):
+    """The FLUX denoiser's parameters; the forward is flux_forward()."""
+
+    def __init__(self, *, x_embedder: QLinear, context_embedder: QLinear,
+                 time_text_embed: CombinedTimestepTextProj, dual_blocks: List[FluxDualBlock],
+                 single_blocks: List[FluxSingleBlock], norm_out: AdaLayerNormContinuous,
+                 proj_out: QLinear):
+        super().__init__()
+        self.x_embedder, self.context_embedder = x_embedder, context_embedder
+        self.time_text_embed = time_text_embed
+        self.dual_blocks = nn.ModuleList(dual_blocks)
+        self.single_blocks = nn.ModuleList(single_blocks)
+        self.norm_out, self.proj_out = norm_out, proj_out
+
+
+# ---------------------------------------------------------------- params
+
+
+def _check_cfg(cfg: FluxConfig) -> None:
+    if cfg.quant not in (None, "bf16"):
+        raise NotImplementedError(
+            f"FluxConfig.quant={cfg.quant!r} needs the W8A8 kernels (next slice of the "
+            "port); this slice runs FLUX in bf16")
+
+
+def flux_init_random(seed: int, cfg: FluxConfig, device="cuda") -> FluxTransformer:
+    """Random-weight FLUX (benchmarks and smoke runs without checkpoints): every
+    weight is drawn by a torch.Generator seeded with `seed`, on `device`,
+    straight into bf16 (N(0,1)*0.02 weights, N(0,1)*0.01 biases, unit q/k norm
+    weights, as the JAX flux_init_random). The JAX and torch generators give
+    different numbers for the same seed."""
+    _check_cfg(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, hd, mlp = cfg.inner_dim, cfg.attention_head_dim, cfg.mlp_hidden_dim
+
+    def lin(k, n):
+        return qlinear_random(gen, k, n, device=dev)
+
+    def ones():
+        return torch.ones(hd, dtype=torch.bfloat16, device=dev)
+
+    def mlp_embed(k):
+        return TimestepEmbedding(lin(k, d), lin(d, d))
+
+    tte = CombinedTimestepTextProj(
+        mlp_embed(256), mlp_embed(cfg.pooled_projection_dim),
+        mlp_embed(256) if cfg.guidance_embeds else None)
+    dual = [FluxDualBlock(
+        AdaLayerNormZero(lin(d, 6 * d)), AdaLayerNormZero(lin(d, 6 * d)),
+        JointAttention(qkv=lin(d, 3 * d), add_qkv=lin(d, 3 * d), to_out=lin(d, d),
+                       to_add_out=lin(d, d), norm_q=ones(), norm_k=ones(),
+                       norm_added_q=ones(), norm_added_k=ones()),
+        FeedForward(lin(d, mlp), lin(mlp, d)), FeedForward(lin(d, mlp), lin(mlp, d)))
+        for _ in range(cfg.num_layers)]
+    single = [FluxSingleBlock(
+        AdaLayerNormZeroSingle(lin(d, 3 * d)), lin(d, 3 * d + mlp), lin(d + mlp, d),
+        JointAttention(norm_q=ones(), norm_k=ones()))
+        for _ in range(cfg.num_single_layers)]
+    return FluxTransformer(
+        x_embedder=lin(cfg.in_channels, d), context_embedder=lin(cfg.joint_attention_dim, d),
+        time_text_embed=tte, dual_blocks=dual, single_blocks=single,
+        norm_out=AdaLayerNormContinuous(lin(d, 2 * d)),
+        proj_out=lin(d, cfg.patch_size**2 * cfg.out_channels))
+
+
+def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
+    """Load a diffusers FLUX transformer checkpoint onto src.device."""
+    _check_cfg(cfg)
+    q = cfg.quant
+
+    def mlp_embed(p):
+        return TimestepEmbedding(src.linear(f"{p}.linear_1", None),
+                                 src.linear(f"{p}.linear_2", None))
+
+    tte = CombinedTimestepTextProj(
+        mlp_embed("time_text_embed.timestep_embedder"),
+        mlp_embed("time_text_embed.text_embedder"),
+        mlp_embed("time_text_embed.guidance_embedder") if cfg.guidance_embeds else None)
+
+    dual = []
+    for i in range(cfg.num_layers):
+        p = f"transformer_blocks.{i}"
+        dual.append(FluxDualBlock(
+            AdaLayerNormZero(src.linear(f"{p}.norm1.linear", None)),
+            AdaLayerNormZero(src.linear(f"{p}.norm1_context.linear", None)),
+            JointAttention(
+                qkv=src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v"], q),
+                add_qkv=src.fused_linear(
+                    [f"{p}.attn.add_q_proj", f"{p}.attn.add_k_proj", f"{p}.attn.add_v_proj"], q),
+                to_out=src.linear(f"{p}.attn.to_out.0", q),
+                to_add_out=src.linear(f"{p}.attn.to_add_out", q),
+                norm_q=src.tensor(f"{p}.attn.norm_q.weight"),
+                norm_k=src.tensor(f"{p}.attn.norm_k.weight"),
+                norm_added_q=src.tensor(f"{p}.attn.norm_added_q.weight"),
+                norm_added_k=src.tensor(f"{p}.attn.norm_added_k.weight")),
+            FeedForward(src.linear(f"{p}.ff.net.0.proj", q), src.linear(f"{p}.ff.net.2", q)),
+            FeedForward(src.linear(f"{p}.ff_context.net.0.proj", q),
+                        src.linear(f"{p}.ff_context.net.2", q))))
+
+    single = []
+    for i in range(cfg.num_single_layers):
+        p = f"single_transformer_blocks.{i}"
+        single.append(FluxSingleBlock(
+            AdaLayerNormZeroSingle(src.linear(f"{p}.norm.linear", None)),
+            # q|k|v|mlp_in concatenated along N
+            src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v",
+                              f"{p}.proj_mlp"], q),
+            src.linear(f"{p}.proj_out", q),
+            JointAttention(norm_q=src.tensor(f"{p}.attn.norm_q.weight"),
+                           norm_k=src.tensor(f"{p}.attn.norm_k.weight"))))
+
+    model = FluxTransformer(
+        x_embedder=src.linear("x_embedder", None),
+        context_embedder=src.linear("context_embedder", None),
+        time_text_embed=tte, dual_blocks=dual, single_blocks=single,
+        norm_out=AdaLayerNormContinuous(src.linear("norm_out.linear", None)),
+        proj_out=src.linear("proj_out", None))
+    src.assert_consumed()
+    return model
+
+
+# ---------------------------------------------------------------- forward
+
+
+def _flux_embed(params: FluxTransformer, cfg: FluxConfig, hidden_states, encoder_hidden_states,
+                pooled_projections, timestep, guidance):
+    """x/context embedders and the combined time-text-guidance embedding."""
+    if cfg.guidance_embeds and guidance is None:
+        raise ValueError("cfg.guidance_embeds=True (FLUX-dev style) requires guidance=")
+    hidden = params.x_embedder(hidden_states)
+    temb = params.time_text_embed(
+        timestep.float() * 1000.0, pooled_projections,
+        guidance.float() * 1000.0 if cfg.guidance_embeds else None)
+    encoder = params.context_embedder(encoder_hidden_states)
+    return hidden, temb, encoder
+
+
+def flux_run_blocks(params: FluxTransformer, cfg: FluxConfig, hidden, encoder, temb, cos,
+                    sin) -> Tensor:
+    """Dual then single blocks; returns the final image-stream hidden."""
+    for block in params.dual_blocks:
+        hidden, encoder = block(hidden, encoder, temb, cos, sin, cfg)
+    ctx_len = encoder.shape[1]
+    joint = torch.cat([encoder, hidden], dim=1)
+    for block in params.single_blocks:
+        joint = block(joint, temb, cos, sin, cfg)
+    return joint[:, ctx_len:]
+
+
+def flux_forward(
+    params: FluxTransformer, cfg: FluxConfig,
+    hidden_states: Tensor,          # (B, S_img, in_channels) packed latents
+    encoder_hidden_states: Tensor,  # (B, S_txt, joint_attention_dim)
+    pooled_projections: Tensor,     # (B, pooled_projection_dim)
+    timestep: Tensor,               # (B,) in [0, 1]
+    rope_cos: Tensor,               # (S_txt + S_img, head_dim / 2)
+    rope_sin: Tensor,
+    guidance: Optional[Tensor] = None,
+) -> Tensor:
+    """Denoiser forward -> (B, S_img, patch^2 * out_channels)."""
+    hidden, temb, encoder = _flux_embed(params, cfg, hidden_states, encoder_hidden_states,
+                                        pooled_projections, timestep, guidance)
+    hidden = flux_run_blocks(params, cfg, hidden, encoder, temb, rope_cos, rope_sin)
+    return params.proj_out(params.norm_out(hidden, temb))
+
+
+def flux_forward_cached(
+    params: FluxTransformer, cfg: FluxConfig, cache_cfg, cache_state: dict, step: int,
+    total_steps: int, hidden_states: Tensor, encoder_hidden_states: Tensor,
+    pooled_projections: Tensor, timestep: Tensor, rope_cos: Tensor, rope_sin: Tensor,
+    guidance: Optional[Tensor] = None,
+) -> Tuple[Tensor, dict]:
+    """flux_forward under a step-skipping cache -> (output, new_cache_state).
+    TeaCache probes block 0's modulated input; FBCache and DiCache wait."""
+    from fastdm_tpu_torch.caching.config import TeaCacheConfig
+    from fastdm_tpu_torch.caching.xcaching import cached_run
+
+    if not isinstance(cache_cfg, TeaCacheConfig):
+        raise NotImplementedError(
+            f"{type(cache_cfg).__name__} is not in this slice of the port (TeaCache is)")
+    hidden, temb, encoder = _flux_embed(params, cfg, hidden_states, encoder_hidden_states,
+                                        pooled_projections, timestep, guidance)
+    block0_norm1 = params.dual_blocks[0].norm1
+
+    def probe_fn(h, e):
+        probe, *_ = block0_norm1(h, temb)
+        return probe, (h, e)
+
+    def rest_fn(h, e):
+        return flux_run_blocks(params, cfg, h, e, temb, rope_cos, rope_sin)
+
+    hidden, new_state = cached_run(cache_cfg, cache_state, step, total_steps, hidden, encoder,
+                                   probe_fn, rest_fn)
+    return params.proj_out(params.norm_out(hidden, temb)), new_state
+
+
+# ---------------------------------------------------------------- helpers
+
+
+def flux_img_ids(height_tokens: int, width_tokens: int) -> np.ndarray:
+    """Packed-latent position ids, (H*W, 3) — axis0=0, axis1=row, axis2=col."""
+    ids = np.zeros((height_tokens, width_tokens, 3), np.float64)
+    ids[..., 1] = np.arange(height_tokens)[:, None]
+    ids[..., 2] = np.arange(width_tokens)[None, :]
+    return ids.reshape(-1, 3)
+
+
+def flux_rope_cache(cfg: FluxConfig, txt_len: int, height_tokens: int, width_tokens: int,
+                    device="cuda") -> Tuple[Tensor, Tensor]:
+    """(cos, sin) for the joint [txt, img] sequence; text ids are all zero."""
+    ids = np.concatenate([np.zeros((txt_len, 3), np.float64),
+                          flux_img_ids(height_tokens, width_tokens)], axis=0)
+    return flux_rope_cos_sin(ids, cfg.axes_dims_rope, device=device)

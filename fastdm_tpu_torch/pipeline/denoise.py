@@ -1,0 +1,72 @@
+"""FLUX denoise loop (port of fastdm_tpu/pipeline/denoise.py make_flux_denoiser
+and the latent packing helpers).
+
+The JAX package jits the whole N-step loop into one lax.scan; here it is a
+Python loop over eager PyTorch ops under torch.inference_mode(), with the
+TeaCache branch taken on the host once per step.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from fastdm_tpu_torch.models.flux import FluxConfig, FluxTransformer, flux_forward, \
+    flux_forward_cached
+from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler
+
+Tensor = torch.Tensor
+
+
+def make_flux_denoiser(cfg: FluxConfig, scheduler: FlowMatchEulerScheduler, num_steps: int,
+                       cache_cfg=None, guidance_scale: float = 3.5):
+    """Returns run(params, latents, encoder, pooled, cos, sin) -> (latents, skips).
+
+    latents: (B, S_img, in_channels) packed float32 noise; the conditioning is
+    already encoded. FLUX-dev is guidance-distilled: the scale enters through
+    the guidance embedding, one forward per step. (The JAX loop's start_step,
+    for img2img, arrives with that task.)"""
+
+    @torch.inference_mode()
+    def run(params: FluxTransformer, latents: Tensor, encoder: Tensor, pooled: Tensor,
+            cos: Tensor, sin: Tensor) -> Tuple[Tensor, int]:
+        b = latents.shape[0]
+        guidance = torch.full((b,), guidance_scale, dtype=torch.float32, device=latents.device)
+        cached = cache_cfg is not None and cache_cfg.enable_caching
+        if cached:
+            from fastdm_tpu_torch.caching.xcaching import cache_init_state
+
+            hidden_shape = (b, latents.shape[1], cfg.inner_dim)
+            state = cache_init_state(cache_cfg, hidden_shape, hidden_shape,
+                                     device=latents.device)
+        for step in range(num_steps):
+            t = torch.full((b,), float(scheduler.sigmas[step]), dtype=torch.float32,
+                           device=latents.device)
+            x = latents.to(torch.bfloat16)
+            if cached:
+                out, state = flux_forward_cached(
+                    params, cfg, cache_cfg, state, step, num_steps, x, encoder,
+                    pooled, t, cos, sin, guidance=guidance)
+            else:
+                out = flux_forward(params, cfg, x, encoder, pooled, t, cos, sin,
+                                   guidance=guidance)
+            latents = scheduler.step(out, step, latents)
+        return latents, state["skips"] if cached else 0
+
+    return run
+
+
+def flux_pack_latents(x: Tensor) -> Tensor:
+    """(B, C, H, W) latent -> (B, H/2*W/2, C*4) packed tokens (FLUX layout)."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 2, 4, 1, 3, 5)
+    return x.reshape(b, (h // 2) * (w // 2), c * 4)
+
+
+def flux_unpack_latents(x: Tensor, height_tokens: int, width_tokens: int) -> Tensor:
+    """(B, S, C*4) -> (B, C, H, W)."""
+    b, _, c4 = x.shape
+    c = c4 // 4
+    x = x.reshape(b, height_tokens, width_tokens, c, 2, 2).permute(0, 3, 1, 4, 2, 5)
+    return x.reshape(b, c, height_tokens * 2, width_tokens * 2)

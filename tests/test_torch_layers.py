@@ -1,0 +1,259 @@
+"""The port's layers (fastdm_tpu_torch.layers) against the JAX package's on
+the same parameters and inputs (numpy seeds, bf16 weights on both sides).
+
+Tolerances: float32 activations, rtol 1e-4 / atol 1e-5 (the layers end in
+matmuls whose f32 sums run in another order in torch and in XLA); bf16
+activations, within one bf16 ulp (QLinear) or stated per test; parameter
+conversion, RoPE tables and the chunked/sliced QLinear identities are exact.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fastdm_tpu.layers import attention as jattn
+from fastdm_tpu.layers import embeddings as jemb
+from fastdm_tpu.layers import feedforward as jff
+from fastdm_tpu.layers import normalization as jnorm
+from fastdm_tpu.layers import qlinear as jql
+from fastdm_tpu_torch.layers import attention as tattn
+from fastdm_tpu_torch.layers import embeddings as temb
+from fastdm_tpu_torch.layers import normalization as tnorm
+from fastdm_tpu_torch.layers import qlinear as tql
+from fastdm_tpu_torch.layers.feedforward import FeedForward
+from fastdm_tpu_torch.models.loader import as_tensor
+
+F32 = dict(rtol=1e-4, atol=1e-5)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _lin_pair(rng, k, n, bias=True):
+    """One bf16 QLinear built from the same f32 numpy draw on both sides."""
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(n) * 0.02).astype(np.float32) if bias else None
+    jp = jql.quantize_weight(jnp.asarray(w), None, None if b is None else jnp.asarray(b))
+    tp = tql.quantize_weight(torch.from_numpy(w), None, None if b is None else torch.from_numpy(b))
+    return jp, tp
+
+
+def _x_pair(rng, shape, dtype="f32", scale=1.0):
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    if dtype == "f32":
+        return jnp.asarray(a), torch.from_numpy(a)
+    return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(a).bfloat16()
+
+
+def _bf16_ulp(x):
+    return np.exp2(np.floor(np.log2(np.maximum(np.abs(x), 2.0**-126))) - 7)
+
+
+# ------------------------------------------------------------------ qlinear
+
+
+def test_quantize_weight_and_fuse_match_jax():
+    rng = np.random.default_rng(0)
+    jp, tp = _lin_pair(rng, 24, 40)
+    np.testing.assert_array_equal(_np(tp.w), _np(jp["w"]))
+    np.testing.assert_array_equal(_np(tp.bias), _np(jp["bias"]))
+    assert tp.w.dtype == tp.bias.dtype == torch.bfloat16
+    # fused projections with a bias-free segment: zero-filled, not dropped
+    ws = [rng.standard_normal((8, n)).astype(np.float32) for n in (4, 6)]
+    bs = [rng.standard_normal(4).astype(np.float32), None]
+    jf = jql.fuse_and_quantize([jnp.asarray(w) for w in ws],
+                               [jnp.asarray(bs[0]), None], None)
+    tf = tql.fuse_and_quantize([torch.from_numpy(w) for w in ws],
+                               [torch.from_numpy(bs[0]), None], None)
+    np.testing.assert_array_equal(_np(tf.w), _np(jf["w"]))
+    np.testing.assert_array_equal(_np(tf.bias), _np(jf["bias"]))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("chunk_tokens", [0, 4])
+@pytest.mark.parametrize("bias", [True, False])
+def test_qlinear_apply_matches_jax(dtype, chunk_tokens, bias):
+    rng = np.random.default_rng(1)
+    jp, tp = _lin_pair(rng, 32, 48, bias)
+    xj, xt = _x_pair(rng, (2, 8, 32), dtype)
+    got = tql.qlinear_apply(tp, xt, chunk_tokens)
+    want = jql.qlinear_apply(jp, xj, chunk_tokens)
+    assert got.dtype == xt.dtype and tuple(got.shape) == want.shape
+    if dtype == "f32":
+        np.testing.assert_allclose(_np(got), _np(want), **F32)
+    else:
+        assert (np.abs(_np(got) - _np(want)) <= _bf16_ulp(_np(want))).all()
+    # chunking is an exact rewrite
+    np.testing.assert_array_equal(_np(got), _np(tql.qlinear_apply(tp, xt)))
+
+
+def test_qlinear_slice_out_is_exact_view():
+    rng = np.random.default_rng(2)
+    jp, tp = _lin_pair(rng, 16, 30)
+    xj, xt = _x_pair(rng, (5, 16))
+    part = tql.qlinear_slice_out(tp, 10, 22)
+    assert part.w.data_ptr() == tp.w[:, 10:].data_ptr()  # no weight copy
+    np.testing.assert_array_equal(_np(part(xt)), _np(tp(xt))[:, 10:22])
+    np.testing.assert_allclose(_np(part(xt)),
+                               _np(jql.qlinear_apply(jql.qlinear_slice_out(jp, 10, 22), xj)), **F32)
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8", "int4"])
+def test_qlinear_w8a8_waits_for_its_slice(quant):
+    with pytest.raises(NotImplementedError, match="W8A8"):
+        tql.quantize_weight(torch.zeros(4, 4), quant)
+    with pytest.raises(NotImplementedError, match="W8A8"):
+        tql.qlinear_random(torch.Generator().manual_seed(0), 4, 4, quant=quant, device="cpu")
+
+
+# ------------------------------------------------------------ normalization
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 32), (1, 5, 3072)])
+def test_layer_norm_matches_jax(shape):
+    rng = np.random.default_rng(3)
+    xj, xt = _x_pair(rng, shape, scale=3.0)
+    np.testing.assert_allclose(_np(tnorm.layer_norm(xt)), _np(jnorm.layer_norm(xj)), **F32)
+
+
+@pytest.mark.parametrize("kind", ["zero", "zero_single", "continuous"])
+def test_ada_layer_norm_family_matches_jax(kind):
+    rng = np.random.default_rng(4)
+    d = 32
+    chunks = {"zero": 6, "zero_single": 3, "continuous": 2}[kind]
+    jp, tp = _lin_pair(rng, d, chunks * d)
+    xj, xt = _x_pair(rng, (2, 9, d), scale=2.0)
+    ej, et = _x_pair(rng, (2, d))
+    if kind == "zero":
+        want = jnorm.ada_layer_norm_zero({"linear": jp}, xj, ej)
+        got = tnorm.AdaLayerNormZero(tp)(xt, et)
+    elif kind == "zero_single":
+        want = jnorm.ada_layer_norm_zero_single({"linear": jp}, xj, ej)
+        got = tnorm.AdaLayerNormZeroSingle(tp)(xt, et)
+    else:
+        want = (jnorm.ada_layer_norm_continuous({"linear": jp}, xj, ej),)
+        got = (tnorm.AdaLayerNormContinuous(tp)(xt, et),)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **F32)
+
+
+# --------------------------------------------------------------- embeddings
+
+
+def test_timestep_embedding_matches_jax():
+    """FLUX feeds timesteps in [0, 1000]; sin/cos of arguments up to 1e3 in
+    float32 agree to ~1 ulp of the argument (6e-5)."""
+    t = np.array([0.0, 1.0, 250.5, 999.0], np.float32)
+    for flip, shift in ((True, 0.0), (False, 1.0)):
+        want = jemb.get_timestep_embedding(jnp.asarray(t), 256, flip, shift)
+        got = temb.get_timestep_embedding(torch.from_numpy(t), 256, flip, shift)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("guidance", [True, False])
+def test_combined_timestep_text_proj_matches_jax(guidance):
+    rng = np.random.default_rng(5)
+    d, pooled_dim = 32, 24
+    names = ["timestep_embedder", "text_embedder"] + (["guidance_embedder"] if guidance else [])
+    jparams, tmods = {}, {}
+    for n in names:
+        j1, t1 = _lin_pair(rng, pooled_dim if n == "text_embedder" else 256, d)
+        j2, t2 = _lin_pair(rng, d, d)
+        jparams[n] = {"linear1": j1, "linear2": j2}
+        tmods[n] = temb.TimestepEmbedding(t1, t2)
+    mod = temb.CombinedTimestepTextProj(tmods["timestep_embedder"], tmods["text_embedder"],
+                                        tmods.get("guidance_embedder"))
+    t = np.array([0.3, 0.9], np.float32) * 1000
+    g = np.array([3.5, 3.5], np.float32) * 1000
+    pj, pt = _x_pair(rng, (2, pooled_dim))
+    want = jemb.combined_timestep_text_proj_apply(
+        jparams, jnp.asarray(t), pj, jnp.asarray(g) if guidance else None)
+    got = mod(torch.from_numpy(t), pt, torch.from_numpy(g) if guidance else None)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=2e-4)
+
+
+def test_flux_rope_tables_equal_jax():
+    """Host float64 angles -> float32: bit-identical tables."""
+    ids = np.stack([np.zeros(60), np.repeat(np.arange(6), 10), np.tile(np.arange(10), 6)], -1)
+    jc, js = jemb.flux_rope_cos_sin(ids, (8, 12, 12))
+    tc, ts = temb.flux_rope_cos_sin(ids, (8, 12, 12), device="cpu")
+    assert tc.dtype == torch.float32 and tuple(tc.shape) == (60, 16)
+    np.testing.assert_array_equal(_np(tc), _np(jc))
+    np.testing.assert_array_equal(_np(ts), _np(js))
+    np.testing.assert_array_equal(temb.rope_1d_freqs(16, np.arange(5)),
+                                  jemb.rope_1d_freqs(16, np.arange(5)))
+
+
+# -------------------------------------------------------------- feedforward
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_feedforward_matches_jax(dtype):
+    """tanh-GELU FFN. bf16: XLA and PyTorch round the bf16 GELU differently
+    on many elements (one ulp each), so the bound is relative L2 <= 1e-2."""
+    rng = np.random.default_rng(6)
+    jp1, tp1 = _lin_pair(rng, 16, 64)
+    jp2, tp2 = _lin_pair(rng, 64, 16)
+    xj, xt = _x_pair(rng, (2, 8, 16), dtype)
+    want = _np(jff.feedforward_apply({"proj": jp1, "out": jp2}, xj, "gelu-approximate"))
+    ff = FeedForward(tp1, tp2)
+    got = _np(ff(xt, "gelu-approximate"))
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, **F32)
+    else:
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-2
+    with pytest.raises(NotImplementedError):
+        ff(xt, "geglu")
+
+
+# ---------------------------------------------------------------- attention
+
+
+def _attn_pair(rng, heads, hd, joint):
+    d = heads * hd
+    jp, tkw = {}, {}
+    names = ["qkv", "to_out"] + (["add_qkv", "to_add_out"] if joint else [])
+    for n in names:
+        j, t = _lin_pair(rng, d, 3 * d if n.endswith("qkv") else d)
+        jp[n], tkw[n] = j, t
+    norms = ["norm_q", "norm_k"] + (["norm_added_q", "norm_added_k"] if joint else [])
+    for n in norms:
+        w = (1 + 0.1 * rng.standard_normal(hd)).astype(np.float32)
+        jp[n] = jnp.asarray(w, jnp.bfloat16)
+        tkw[n] = as_tensor(jax.device_get(jp[n]))
+    return jp, tattn.JointAttention(**tkw)
+
+
+@pytest.mark.parametrize("joint", [True, False])
+def test_attention_apply_matches_jax(joint):
+    """Joint: context tokens first in the concat, per-head q/k norms, RoPE,
+    split and both output projections. Single: precomputed fused qkv."""
+    rng = np.random.default_rng(7)
+    heads, hd, s_img, s_txt = 2, 16, 12, 5
+    jp, tp = _attn_pair(rng, heads, hd, joint)
+    hj, ht = _x_pair(rng, (1, s_img, heads * hd))
+    s = s_img + (s_txt if joint else 0)
+    freqs = rng.uniform(0, 6, (s, hd // 2))
+    cos, sin = np.cos(freqs).astype(np.float32), np.sin(freqs).astype(np.float32)
+    kw_j = dict(heads=heads, head_dim=hd, rope_cos=jnp.asarray(cos), rope_sin=jnp.asarray(sin))
+    kw_t = dict(heads=heads, head_dim=hd, rope_cos=torch.from_numpy(cos),
+                rope_sin=torch.from_numpy(sin))
+    if joint:
+        ej, et = _x_pair(rng, (1, s_txt, heads * hd))
+        want = jattn.attention_apply(jp, hj, ej, **kw_j)
+        got = tattn.attention_apply(tp, ht, et, **kw_t)
+    else:
+        qj, qt = _x_pair(rng, (1, s_img, 3 * heads * hd))
+        want = (jattn.attention_apply(jp, hj, None, pre_only=True, qkv_override=qj, **kw_j),)
+        got = (tattn.attention_apply(tp, ht, None, pre_only=True, qkv_override=qt, **kw_t),)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **F32)
+    if joint:
+        with pytest.raises(ValueError, match="add_qkv"):
+            tattn.attention_apply(tattn.JointAttention(qkv=tp.qkv), ht, et, **kw_t)
