@@ -8,16 +8,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
      all at once), run each at the FLUX.1-dev 1024x2048 main-path shapes and
      hold it to its plain PyTorch version with a stated tolerance; time the
      kernel, the plain version and, where one PyTorch call computes the same
-     function, that call (a yardstick the port never calls).
+     function, that call (a yardstick the port never calls). The W8A8 kernels
+     are also timed at every GEMM / quantize shape of a forward, which gives
+     the forward's GEMM and quantize time.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
-     heads, random bf16 weights from a seed) serves three 1024x2048 requests
-     through make_flux_denoiser with TeaCache, then the full-size FLUX VAE
-     decoder; launch counters are zeroed before and read after, and each
-     kernel must have run. One full-width forward on the kernels is then held
-     to the same forward on the plain versions.
+     heads, random weights from a seed) three times: in bf16, in int8 and in
+     fp8 (W8A8 block linears drawn straight into int8 / e4m3). Each serves
+     1024x2048 requests through make_flux_denoiser with TeaCache, then the
+     full-size FLUX VAE decoder; launch counters are zeroed just before each
+     path and read just after: every kernel of the path must have run, and the
+     W8A8 quantize and GEMM exactly 228 times per computed forward. One
+     full-width forward on the kernels is then held to the same forward on
+     the plain versions and, for W8A8, to the forward with only the W8A8 ops
+     on their plain versions (bit-identical for int8).
   3. engine: a synthetic diffusers-layout FLUX checkpoint (full width, one
-     dual and one single block, full-size VAE) is written to a scratch dir and
-     FastDMEngine.generate() is called twice.
+     dual and one single block, full-size VAE) is written to a scratch dir;
+     FastDMEngine loads it in bf16, with use_int8 and with use_fp8 (load-time
+     quantization) and calls generate() once each.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -34,11 +41,23 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
+INT8_FP8_OPS = 1979e12       # H100 SXM dense int8 / fp8 tensor cores
 F32_FLOPS = 67e12            # H100 SXM f32 outside the tensor cores
 
 # FLUX.1-dev at 1024x2048: 64x128 latent tokens, 512 text tokens
 IMG_TOKENS, TXT_TOKENS = 64 * 128, 512
 HEADS, HEAD_DIM = 24, 128
+DIM, MLP = HEADS * HEAD_DIM, 4 * HEADS * HEAD_DIM
+DUAL, SINGLE = 19, 38
+# the W8A8 linears of one forward (quant_mods=False): (M, K, N) -> count
+W8A8_GEMMS = {}
+for _m, _n in ((IMG_TOKENS, DUAL), (TXT_TOKENS, DUAL)):
+    for _kn in ((DIM, 3 * DIM), (DIM, DIM), (DIM, MLP), (MLP, DIM)):
+        W8A8_GEMMS[(_m, *_kn)] = _n
+W8A8_GEMMS[(IMG_TOKENS + TXT_TOKENS, DIM, 3 * DIM + MLP)] = SINGLE  # qkv_mlp
+W8A8_GEMMS[(IMG_TOKENS + TXT_TOKENS, DIM + MLP, DIM)] = SINGLE      # proj_out
+W8A8_PER_FORWARD = sum(W8A8_GEMMS.values())                        # 228
+QKV_MLP = (IMG_TOKENS + TXT_TOKENS, DIM, 3 * DIM + MLP)            # the timing shape
 
 
 def log(*a):
@@ -194,9 +213,157 @@ def phase_kernels(dev) -> dict:
         replaces="fastdm_tpu/kernels/pallas/attention.py:429",
         max_abs_err=flux_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms)
+    del q, k, v, cases
+    torch.cuda.empty_cache()
+    results.update(_w8a8_kernels(dev, g))
     for r in results.values():
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']})")
+    return results
+
+
+def _quantize_bytes(m: int, k: int, fp8: bool) -> int:
+    # x read once (bf16), q written once, scale (and zp) per row
+    return 3 * m * k + m * (4 if fp8 else 8)
+
+
+def _gemm_bytes(m: int, k: int, n: int) -> int:
+    # a, b read once, bf16 out written once, scales/colsum/bias/azp once
+    return m * k + k * n + 2 * m * n + 8 * m + 10 * n
+
+
+def _w8a8_operands(quant: str, m: int, k: int, n: int, g, dev):
+    """A bf16 activation quantized per token by the plain version, a random
+    W8A8 QLinear drawn as flux_init_random draws it, and the GEMM's arguments."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import torch_backend
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+
+    x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+    lin = qlinear_random(g, k, n, quant=quant, device=dev)
+    if quant == "int8":
+        a, sa, azp = torch_backend.quantize_to_int8_torch(x, symmetric=False)
+        args = (a, lin.w, sa, lin.scale, torch.bfloat16, lin.colsum, azp, lin.bias)
+    else:
+        a, sa = torch_backend.quantize_to_fp8_torch(x)
+        args = (a, lin.w, sa, lin.scale, torch.bfloat16, lin.bias)
+    return a, sa, lin, args
+
+
+def _w8a8_kernels(dev, g) -> dict:
+    """The per-token quantizers and the W8A8 GEMMs against their plain
+    versions at the FLUX single-block shapes (K = 3072 and K = 15360, the
+    longest on the path), timed at the qkv_mlp shape and at every GEMM and
+    quantize shape of a forward. Quantizers and the int8 GEMM are held
+    bit-exact; the fp8 GEMM (f32 sums in another order) to 1 bf16 ulp of
+    |plain| plus 2^-16 * scale_a*scale_b*(|a| @ |b|) for outputs that cancel."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+
+    m_single = IMG_TOKENS + TXT_TOKENS
+    results = {}
+    quantizers = {
+        "quantize_to_int8": (lambda x: cb.quantize_to_int8_cuda(x, symmetric=False),
+                             lambda x: tb.quantize_to_int8_torch(x, symmetric=False),
+                             "elementwise.py:162", False),
+        "quantize_to_fp8": (cb.quantize_to_fp8_cuda, tb.quantize_to_fp8_torch,
+                            "elementwise.py:208", True),
+    }
+    for name, (kern, plain, replaces, fp8) in quantizers.items():
+        for k in (DIM, DIM + MLP):
+            x = torch.randn(m_single, k, generator=g, device=dev, dtype=torch.bfloat16)
+            x[0] = 0  # an all-zero row
+            got, want = kern(x), plain(x)
+            same = all(torch.equal(a.view(torch.uint8) if a.dtype.itemsize == 1 else a,
+                                   b.view(torch.uint8) if b.dtype.itemsize == 1 else b)
+                       for a, b in zip(got, want))
+            log(f"[{name}] ({m_single}, {k}) bf16: q, scale{'' if fp8 else ', zp'} "
+                f"bit-exact with the plain version: {same}")
+            if not same:
+                raise AssertionError(f"{name} disagrees with its plain version at K={k}")
+        x = torch.randn(m_single, DIM, generator=g, device=dev, dtype=torch.bfloat16)
+        b_ms, b_by = bound(_quantize_bytes(m_single, DIM, fp8), 8 * m_single * DIM, F32_FLOPS)
+        results[name] = dict(
+            name=name, route="cuda", source="fastdm_tpu_torch/csrc/quant.cu",
+            replaces=f"fastdm_tpu/kernels/pallas/{replaces}", max_abs_err=0.0,
+            ms=cuda_ms(lambda: kern(x), 50), plain_ms=cuda_ms(lambda: plain(x), 10),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del x, got, want
+
+    m, k, n = QKV_MLP
+    w16 = torch.randn(k, n, generator=g, device=dev, dtype=torch.bfloat16)
+    x16 = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+    log(f"[w8a8] bf16 torch.matmul at the qkv_mlp shape ({m}x{k} @ {k}x{n}): "
+        f"{cuda_ms(lambda: x16 @ w16, 20):.4f} ms (yardstick)")
+    del w16, x16
+    for quant in ("int8", "fp8"):
+        name = f"{quant}_matmul"
+        kern = getattr(cb, f"{name}_cuda")
+        plain = getattr(tb, f"{name}_torch")
+        worst = 0.0
+        for k_, n_ in ((DIM, 3 * DIM + MLP), (DIM + MLP, DIM)):
+            a, sa, lin, args = _w8a8_operands(quant, m, k_, n_, g, dev)
+            got, want = kern(*args).float(), plain(*args).float()
+            err = (got - want).abs()
+            worst = max(worst, err.max().item())
+            if quant == "int8":
+                ok, stated = torch.equal(got, want), "bit-exact"
+            else:
+                mag = (a.float().abs() @ lin.w.float().abs()) * (sa * lin.scale[None, :])
+                ok = bool((err <= bf16_ulp(want) + 2.0**-16 * mag).all())
+                stated = "1 bf16 ulp + 2^-16 * sa*sb*(|a|@|b|)"
+                del mag
+            log(f"[{name}] {m}x{k_} @ {k_}x{n_}: max_abs_err {err.max().item():.3e} "
+                f"(tolerance {stated}): {ok}")
+            if not ok or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} disagrees with its plain version at K={k_}")
+            del got, want, err
+        a, sa, lin, args = _w8a8_operands(quant, m, k, n, g, dev)
+        ms = cuda_ms(lambda: kern(*args), 20)
+        plain_ms = cuda_ms(lambda: plain(*args), 2, 1)
+        if quant == "int8":  # the s32 product alone: no azp, scales or bias
+            lib_call = lambda: torch._int_mm(a, lin.w)  # noqa: E731
+            lib = "torch._int_mm, s32 product only"
+        else:
+            lib_call = lambda: torch._scaled_mm(  # noqa: E731
+                a, lin.w, scale_a=sa, scale_b=lin.scale.reshape(1, -1), bias=lin.bias,
+                out_dtype=torch.bfloat16)
+            lib = "torch._scaled_mm, row-wise scales, bias, bf16 out"
+        try:  # a yardstick only; the port never calls it
+            lib_ms = cuda_ms(lib_call, 20)
+        except RuntimeError as e:
+            lib_ms, lib = None, f"{lib}: not available here ({str(e).splitlines()[0]})"
+        b_ms, b_by = bound(_gemm_bytes(m, k, n), 2 * m * n * k, INT8_FP8_OPS)
+        log(f"[{name}] qkv_mlp {m}x{k} @ {k}x{n}: {ms:.4f} ms "
+            f"({2 * m * n * k / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, "
+            f"library {lib_ms} ms ({lib})")
+        results[name] = dict(
+            name=name, route="cuda", source="fastdm_tpu_torch/csrc/w8a8_gemm.cu",
+            replaces=f"fastdm_tpu/kernels/pallas/matmul.py:{158 if quant == 'int8' else 182}",
+            max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms)
+        del a, sa, lin, args
+
+        # every GEMM and quantize shape of one forward, for the forward's split
+        gemm_ms = quant_ms = gemm_bound = quant_bound = 0.0
+        for (mm, kk, nn), count in W8A8_GEMMS.items():
+            _, _, _, args = _w8a8_operands(quant, mm, kk, nn, g, dev)
+            gemm_ms += count * cuda_ms(lambda: kern(*args), 5)
+            gemm_bound += count * bound(_gemm_bytes(mm, kk, nn), 2 * mm * nn * kk,
+                                        INT8_FP8_OPS)[0]
+            x = torch.randn(mm, kk, generator=g, device=dev, dtype=torch.bfloat16)
+            qk = quantizers[f"quantize_to_{quant}"][0]
+            quant_ms += count * cuda_ms(lambda: qk(x), 5)
+            quant_bound += count * bound(_quantize_bytes(mm, kk, quant == "fp8"),
+                                         8 * mm * kk, F32_FLOPS)[0]
+            del args, x
+        log(f"[w8a8] {quant} forward ({W8A8_PER_FORWARD} linears, from kernel times at each "
+            f"shape): GEMMs {gemm_ms:.3f} ms (bound {gemm_bound:.3f} ms), quantize "
+            f"{quant_ms:.3f} ms (bound {quant_bound:.3f} ms)")
+        torch.cuda.empty_cache()
     return results
 
 
@@ -208,7 +375,20 @@ TEACACHE = dict(cache_algorithm="teacache", enable_caching=True, threshold=0.25,
                 coefficients=(4.98651651e02, -2.83781631e02, 5.58554382e01,
                               -3.82021401e00, 2.64230861e-01))
 STEPS = 4
-FORWARD_REL_L2_TOL = 3e-2
+# Relative L2 of a full-width forward on the kernels against the same forward
+# on the plain versions, per weight format: twice the first value measured on
+# an H100 80GB HBM3 (bf16 1.533e-2, int8 2.895e-2, fp8 5.336e-2). The W8A8
+# formats sit higher although their kernels match their plain versions (int8
+# bit for bit): each per-token quantization turns a one-ulp difference
+# upstream (rmsnorm, sdpa) into a whole quantization step in a few elements,
+# and e4m3's steps are the coarsest. A wrong tile, scale or layout gives O(1).
+FORWARD_REL_L2_TOL = {None: 3e-2, "int8": 6e-2, "fp8": 1.1e-1}
+W8A8_OPS = ("quantize_to_int8", "quantize_to_fp8", "int8_matmul", "fp8_matmul")
+# (quant, request seeds): the bf16 path of the first slice, then W8A8
+PATHS = ((None, (11, 12, 13)), ("int8", (21, 22, 23)), ("fp8", (31,)))
+PATH_KERNELS = {None: ("rmsnorm", "rotembd", "sdpa"),
+                "int8": ("rmsnorm", "rotembd", "sdpa", "quantize_to_int8", "int8_matmul"),
+                "fp8": ("rmsnorm", "rotembd", "sdpa", "quantize_to_fp8", "fp8_matmul")}
 
 
 def _conditioning(dev, seed: int, cfg, seq: int):
@@ -223,7 +403,18 @@ def _conditioning(dev, seed: int, cfg, seq: int):
     return latents, encoder, pooled
 
 
-def phase_slice(dev) -> dict:
+def _launch_counts():
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+
+    return {"rmsnorm": cb.rms_norm_cuda.launches, "rotembd": cb.rotary_pos_embedding_cuda.launches,
+            "sdpa": cb.sdpa_cuda.launches, "quantize_to_int8": cb.quantize_to_int8_cuda.launches,
+            "quantize_to_fp8": cb.quantize_to_fp8_cuda.launches,
+            "int8_matmul": cb.int8_matmul_cuda.launches, "fp8_matmul": cb.fp8_matmul_cuda.launches}
+
+
+def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
+    """FLUX.1-dev at full width in one weight format: requests, launch check,
+    kernel forward vs plain forward. Returns the launches of the path's kernels."""
     import torch
 
     from fastdm_tpu_torch.caching.config import TeaCacheConfig
@@ -233,26 +424,27 @@ def phase_slice(dev) -> dict:
     from fastdm_tpu_torch.pipeline.denoise import flux_unpack_latents, make_flux_denoiser
     from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, \
         flow_match_shift_mu
-    from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_decoder_random
+    from fastdm_tpu_torch.pipeline.vae import vae_decode
 
-    cfg = FluxConfig()  # FLUX.1-dev: 19 dual + 38 single blocks, 24x128 heads
-    ht, wt = 64, 128    # 1024x2048 pixels
+    label = quant or "bf16"
+    cfg = FluxConfig(quant=quant)  # FLUX.1-dev: 19 dual + 38 single blocks, 24x128 heads
+    ht, wt = 64, 128               # 1024x2048 pixels
     t0 = time.perf_counter()
     params = flux_init_random(0, cfg, device=dev)
     torch.cuda.synchronize()
     n = sum(p.numel() for p in params.parameters())
-    log(f"[slice] FLUX.1-dev bf16 random init: {n / 1e9:.3f} B params "
-        f"({2 * n / 2**30:.1f} GiB) in {time.perf_counter() - t0:.1f} s")
-    vae_cfg = VAEConfig(latent_channels=16)
-    vae = vae_decoder_random(1, vae_cfg, device=dev)
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[slice {label}] FLUX.1-dev {label} random init: {n / 1e9:.3f} B params "
+        f"({nbytes / 2**30:.1f} GiB) in {time.perf_counter() - t0:.1f} s")
     sched = FlowMatchEulerScheduler.create(STEPS, use_dynamic_shifting=True,
                                            mu=flow_match_shift_mu(ht * wt))
     run = make_flux_denoiser(cfg, sched, STEPS, TeaCacheConfig(**TEACACHE), guidance_scale=3.5)
     cos, sin = flux_rope_cache(cfg, TXT_TOKENS, ht, wt, device=dev)
 
+    torch.cuda.reset_peak_memory_stats()
+    computed = 0
     cuda_backend.reset_launch_counts()
-    requests = []
-    for seed in (11, 12, 13):
+    for seed in seeds:
         latents, encoder, pooled = _conditioning(dev, seed, cfg, ht * wt)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -262,43 +454,87 @@ def phase_slice(dev) -> dict:
         img = vae_decode(vae, vae_cfg, flux_unpack_latents(lat, ht, wt))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        computed += STEPS - skips
         finite = bool(torch.isfinite(img).all())
-        requests.append(dict(seed=seed, seconds=t2 - t0, denoise_s=t1 - t0, vae_s=t2 - t1,
-                             skips=skips, finite=finite))
-        log(f"[slice] request seed={seed} 1024x2048 {STEPS} steps: {t2 - t0:.3f} s "
+        log(f"[slice {label}] request seed={seed} 1024x2048 {STEPS} steps: {t2 - t0:.3f} s "
             f"(denoise {t1 - t0:.3f} s, VAE decode {t2 - t1:.3f} s), TeaCache skipped "
             f"{skips}/{STEPS}, image {tuple(img.shape)} finite={finite}")
         if not finite or tuple(img.shape) != (1, 1024, 2048, 3):
-            raise AssertionError(f"request seed={seed} produced a bad image")
-    launches = {"rmsnorm": cuda_backend.rms_norm_cuda.launches,
-                "rotembd": cuda_backend.rotary_pos_embedding_cuda.launches,
-                "sdpa": cuda_backend.sdpa_cuda.launches}
-    log(f"[slice] kernel launches over the three requests: {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    log(f"[slice] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            raise AssertionError(f"{label} request seed={seed} produced a bad image")
+    counts = _launch_counts()
+    log(f"[slice {label}] kernel launches over {len(seeds)} requests ({computed} computed "
+        f"forwards): {counts}")
+    mine = {k: counts[k] for k in PATH_KERNELS[quant]}
+    if min(mine.values()) <= 0:
+        raise AssertionError(f"a kernel of the {label} path never launched: {counts}")
+    if quant is not None:
+        want = W8A8_PER_FORWARD * computed
+        other = "fp8" if quant == "int8" else "int8"
+        if (counts[f"quantize_to_{quant}"], counts[f"{quant}_matmul"]) != (want, want) \
+                or counts[f"quantize_to_{other}"] or counts[f"{other}_matmul"]:
+            raise AssertionError(f"{label}: expected {W8A8_PER_FORWARD} x {computed} = {want} "
+                                 f"quantize and GEMM launches, got {counts}")
+        log(f"[slice {label}] W8A8 launch check: {W8A8_PER_FORWARD} x {computed} computed "
+            f"forwards = {want} quantize and {want} GEMM launches, as counted")
+    log(f"[slice {label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
-    # one full-width forward on the kernels vs the same forward on the plain versions
+    # one full-width forward on the kernels vs the same forward on the plain
+    # versions; for W8A8 also vs the forward with only the W8A8 ops plain,
+    # which the int8 kernels must match bit for bit
     latents, encoder, pooled = _conditioning(dev, 99, cfg, ht * wt)
     t = torch.full((1,), float(sched.sigmas[0]), device=dev)
     guidance = torch.full((1,), 3.5, device=dev)
     x = latents.to(torch.bfloat16)
+
+    def forward(plain_ops=()):
+        with kernel_registry.plain_on_device(plain_ops):
+            return flux_forward(params, cfg, x, encoder, pooled, t, cos, sin, guidance).float()
+
+    rel_l2 = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    tol = FORWARD_REL_L2_TOL[quant]
     with torch.inference_mode():
+        forward()  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out_k = flux_forward(params, cfg, x, encoder, pooled, t, cos, sin, guidance).float()
+        out_k = forward()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        with kernel_registry.plain_on_device():
-            out_p = flux_forward(params, cfg, x, encoder, pooled, t, cos, sin, guidance).float()
+        out_p = forward(plain_ops=None)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    rel = ((out_k - out_p).norm() / out_p.norm()).item()
-    log(f"[slice] full-width forward: kernels {t1 - t0:.3f} s, plain versions {t2 - t1:.3f} s, "
-        f"relative L2 difference {rel:.3e} (tolerance {FORWARD_REL_L2_TOL})")
-    if not rel <= FORWARD_REL_L2_TOL:
-        raise AssertionError(f"kernel forward departs from the plain forward: {rel}")
-    del params, vae
+        if quant is not None:
+            out_w = forward(plain_ops=W8A8_OPS)
+            rel_w, same_w = rel_l2(out_k, out_w), torch.equal(out_k, out_w)
+            log(f"[slice {label}] full-width forward with only the W8A8 ops plain: relative L2 "
+                f"difference {rel_w:.3e}, bit-identical {same_w} (required: "
+                f"{'bit-identical' if quant == 'int8' else f'<= {tol}'})")
+            if not (same_w if quant == "int8" else rel_w <= tol):
+                raise AssertionError(f"{label} W8A8 kernels change the forward: {rel_w}")
+            del out_w
+    rel = rel_l2(out_k, out_p)
+    log(f"[slice {label}] full-width forward: kernels {t1 - t0:.3f} s, plain versions "
+        f"{t2 - t1:.3f} s, relative L2 difference {rel:.3e} (tolerance {tol})")
+    if not rel <= tol or not torch.isfinite(out_k).all():
+        raise AssertionError(f"{label} kernel forward departs from the plain forward: {rel}")
+    del params, out_k, out_p
+    torch.cuda.empty_cache()
+    return mine
+
+
+def phase_slice(dev) -> dict:
+    """Every weight format's path; returns {kernel: launches} (the bf16 path's
+    counts for the first slice's kernels, each W8A8 path's for its own)."""
+    import torch
+
+    from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decoder_random
+
+    vae_cfg = VAEConfig(latent_channels=16)
+    vae = vae_decoder_random(1, vae_cfg, device=dev)
+    launches = {}
+    for quant, seeds in PATHS:
+        for k, v in _serve_path(dev, quant, seeds, vae, vae_cfg).items():
+            launches.setdefault(k, v)
+    del vae
     torch.cuda.empty_cache()
     return launches
 
@@ -412,12 +648,18 @@ def phase_engine(dev) -> None:
         t0 = time.perf_counter()
         _write_checkpoint(root, dev)
         log(f"[engine] wrote the synthetic checkpoint in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        eng = FastDMEngine(root, architecture="flux", cache_config=dict(TEACACHE), verbose=False)
-        log(f"[engine] FastDMEngine loaded in {time.perf_counter() - t0:.1f} s "
-            f"({eng.cfg.num_layers} dual + {eng.cfg.num_single_layers} single blocks, "
-            f"inner dim {eng.cfg.inner_dim})")
-        for seed in (1, 2):
+        for seed, flags in ((1, {}), (2, {"use_int8": True}), (3, {"use_fp8": True})):
+            t0 = time.perf_counter()
+            eng = FastDMEngine(root, architecture="flux", cache_config=dict(TEACACHE),
+                               verbose=False, **flags)
+            label = eng.cfg.quant or "bf16"
+            log(f"[engine {label}] FastDMEngine loaded in {time.perf_counter() - t0:.1f} s "
+                f"({eng.cfg.num_layers} dual + {eng.cfg.num_single_layers} single blocks, "
+                f"inner dim {eng.cfg.inner_dim}, block linears "
+                f"{eng.params.single_blocks[0].qkv_mlp.w.dtype})")
+            want = {None: torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+            if eng.params.dual_blocks[0].attn.qkv.w.dtype != want[eng.cfg.quant]:
+                raise AssertionError(f"engine {flags} loaded the wrong weight format")
             g = torch.Generator(device=dev).manual_seed(100 + seed)
             embeds = torch.randn(1, TXT_TOKENS, eng.cfg.joint_attention_dim, generator=g,
                                  device=dev, dtype=torch.bfloat16)
@@ -426,14 +668,14 @@ def phase_engine(dev) -> None:
             t0 = time.perf_counter()
             img = eng.generate(prompt_embeds=embeds, pooled_prompt_embeds=pooled, height=1024,
                                width=1024, num_inference_steps=STEPS, seed=seed)
-            log(f"[engine] generate seed={seed} 1024x1024 {STEPS} steps: "
+            log(f"[engine {label}] generate seed={seed} 1024x1024 {STEPS} steps: "
                 f"{time.perf_counter() - t0:.3f} s, image {img.shape} {img.dtype}, "
                 f"TeaCache skipped {eng.last_cache_skips}")
             if not (isinstance(img, np.ndarray) and img.dtype == np.uint8
                     and img.shape == (1, 1024, 1024, 3)):
                 raise AssertionError(f"generate returned {type(img)} {getattr(img, 'shape', '')}")
-        del eng
-        torch.cuda.empty_cache()
+            del eng
+            torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------- main
@@ -448,6 +690,8 @@ def main() -> int:
     import fastdm_tpu_torch  # noqa: F401  (fails here when run outside the repo)
 
     dev = torch.device("cuda")
+    # the plain versions' f32 products (fp8 GEMM) in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()

@@ -8,9 +8,11 @@ of fastdm_tpu/engine.py).
 
 Reads a diffusers-layout checkpoint directory (transformer/ and vae/, each
 with optional config.json overrides) onto the GPU ("cuda" unless the caller
-passes device="cpu") in bf16. The T5/CLIP text encoders, the W8A8 weight
-formats, img2img/Kontext, ControlNet and the other model families arrive
-with later slices and raise NotImplementedError here.
+passes device="cpu"): in bf16, or with use_int8 / use_fp8 the transformer
+blocks' linears quantized at load time to W8A8 (quant_mods=True quantizes the
+AdaLN modulations too). The T5/CLIP text encoders, int4, img2img/Kontext,
+ControlNet and the other model families arrive with later slices and raise
+NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -47,16 +49,16 @@ class FastDMEngine:
     def __init__(
         self, model_path: str, architecture: str = "flux", use_fp8: bool = False,
         use_int8: bool = False, cache_config: Optional[Union[str, Dict[str, Any]]] = None,
-        verbose: bool = True, device="cuda",
+        verbose: bool = True, device="cuda", quant_mods: bool = False,
     ):
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"architecture {architecture!r} is not in this slice of the port "
                 f"(have {ARCHITECTURES})")
-        if use_fp8 or use_int8:
-            raise NotImplementedError(
-                "use_int8/use_fp8 need the per-token quantize and W8A8 GEMM kernels "
-                "(next slice of the port); this slice runs bf16")
+        if use_fp8 and use_int8:
+            raise ValueError("use_fp8 / use_int8 are mutually exclusive")
+        self.quant = "fp8" if use_fp8 else ("int8" if use_int8 else None)
+        self.quant_mods = quant_mods
         self.architecture = architecture
         self.model_path = model_path
         self.device = resolve_device(device)
@@ -74,7 +76,7 @@ class FastDMEngine:
         self.last_cache_skips = 0
         if verbose:
             print(f"FastDMEngine[{architecture}] loaded in {time.perf_counter() - t0:.1f}s "
-                  f"(bf16, device={self.device})")
+                  f"({self.quant or 'bf16'}, device={self.device})")
 
     # ------------------------------------------------------------ loaders
 
@@ -99,7 +101,7 @@ class FastDMEngine:
              "attention_head_dim", "num_attention_heads", "joint_attention_dim",
              "pooled_projection_dim", "guidance_embeds"),
             {"axes_dims_rope": lambda v: {"axes_dims_rope": tuple(v)}})
-        self.cfg = FluxConfig(quant=None, **kw)
+        self.cfg = FluxConfig(quant=self.quant, quant_mods=self.quant_mods, **kw)
         self.params = flux_load(TensorSource.from_path(
             os.path.join(self.model_path, "transformer"), self.device), self.cfg)
         vae_kw = self._cfg_overrides(

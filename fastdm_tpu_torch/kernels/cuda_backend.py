@@ -186,7 +186,131 @@ def sdpa_cuda(
 
 sdpa_cuda.launches = 0
 
-KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, sdpa_cuda)
+
+# -------------------------------------------------------------- quantize
+
+_QUANT_MODES = {"int8_sym": 0, "int8_asym": 1, "fp8": 2}
+
+
+def _quantize_rows(x: Tensor, kernel: str, mode: str,
+                   wrapper) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """Launch the per-row quantizer on a 2D bf16 x: (q, scale (M,1), zp (M,1) | None);
+    counts the launch on `wrapper`."""
+    dev = x.device
+    _check_tensor(x, kernel, "x", dev)
+    _require(x.dim() == 2, kernel, f"x must be 2D (M, K), got {tuple(x.shape)}")
+    m, k = x.shape
+    _require(k > 0 and k % 8 == 0, kernel, f"K = {k} must be a positive multiple of 8")
+    _require(x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0, kernel,
+             "x rows must be 16-byte aligned")
+    q = torch.empty(m, k, dtype=torch.float8_e4m3fn if mode == "fp8" else torch.int8, device=dev)
+    scale = torch.empty(m, 1, dtype=torch.float32, device=dev)
+    zp = torch.empty(m, 1, dtype=torch.int32, device=dev) if mode == "int8_asym" else None
+    if m == 0:
+        return q, scale, zp
+    lib, fn = _entry("quant", "fdm_quantize_rows", [_P, _L, _L, _I, _P, _P, _P, _I, _P])
+    with torch.cuda.device(dev):
+        code = fn(x.data_ptr(), x.stride(0), m, k, q.data_ptr(), scale.data_ptr(),
+                  zp.data_ptr() if zp is not None else None, _QUANT_MODES[mode], _stream(dev))
+    _check_launch(lib, "fdm_quantize", code, kernel)
+    wrapper.launches += 1
+    return q, scale, zp
+
+
+@kernel_registry.register("quantize_to_int8", "cuda")
+def quantize_to_int8_cuda(x: Tensor, symmetric: bool = True
+                          ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    return _quantize_rows(x, "quantize_to_int8", "int8_sym" if symmetric else "int8_asym",
+                          quantize_to_int8_cuda)
+
+
+quantize_to_int8_cuda.launches = 0
+
+
+@kernel_registry.register("quantize_to_fp8", "cuda")
+def quantize_to_fp8_cuda(x: Tensor) -> Tuple[Tensor, Tensor]:
+    q, scale, _ = _quantize_rows(x, "quantize_to_fp8", "fp8", quantize_to_fp8_cuda)
+    return q, scale
+
+
+quantize_to_fp8_cuda.launches = 0
+
+
+# ------------------------------------------------------------- W8A8 GEMM
+
+
+def _check_vector(t: Optional[Tensor], kernel: str, name: str, n: int, dtype,
+                  device: torch.device) -> None:
+    if t is None:
+        return
+    _require(t.device == device and t.dtype == dtype and t.numel() == n and t.is_contiguous(),
+             kernel, f"{name} must be a contiguous {dtype} tensor of {n} elements on {device}, "
+                     f"got {t.dtype} {tuple(t.shape)}")
+
+
+def _w8a8_gemm(kernel: str, wrapper, a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor,
+               out_dtype, azp_adj: Optional[Tensor], azp: Optional[Tensor],
+               bias: Optional[Tensor], fp8: bool) -> Tensor:
+    """Checks, then one launch of the W8A8 GEMM, counted on `wrapper`."""
+    contracts.check_scaled_mm(kernel, a, b, scale_a, scale_b, azp_adj=azp_adj, azp=azp,
+                              bias=bias, int8=not fp8)
+    dev = a.device
+    op_dtype = torch.float8_e4m3fn if fp8 else torch.int8
+    m, k = a.shape
+    n = b.shape[1]
+    _require(a.is_cuda and b.device == dev, kernel, "a and b must lie on one CUDA device")
+    _require(a.dtype == op_dtype and b.dtype == op_dtype, kernel,
+             f"a/b must be {op_dtype}, got {a.dtype}/{b.dtype}")
+    _require(out_dtype == torch.bfloat16, kernel, f"out_dtype must be bfloat16, got {out_dtype}")
+    _require(k > 0 and k % 16 == 0, kernel, f"K = {k} must be a positive multiple of 16")
+    _require(a.stride(1) == 1 and a.stride(0) % 16 == 0 and a.data_ptr() % 16 == 0, kernel,
+             "a must be K-contiguous with 16-byte aligned rows")
+    _require(b.stride(0) == 1 and b.stride(1) % 16 == 0 and b.data_ptr() % 16 == 0, kernel,
+             "b (K, N) must be a view of a K-contiguous (N, K) buffer (stride(0) == 1) with "
+             "16-byte aligned columns; a (K, N) N-contiguous weight is not taken")
+    _check_vector(scale_a, kernel, "scale_a", m, torch.float32, dev)
+    _check_vector(scale_b, kernel, "scale_b", n, torch.float32, dev)
+    _check_vector(azp, kernel, "azp", m, torch.int32, dev)
+    if azp is not None:
+        _check_vector(azp_adj, kernel, "azp_adj", n, torch.int32, dev)
+    _check_vector(bias, kernel, "bias", n, torch.bfloat16, dev)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+    if m == 0 or n == 0:
+        return out
+    lib, fn = _entry("w8a8_gemm", "fdm_w8a8_gemm", [_P] * 8 + [_I] * 3 + [_L] * 2 + [_I, _P])
+    with torch.cuda.device(dev):
+        code = fn(a.data_ptr(), b.data_ptr(), scale_a.data_ptr(), scale_b.data_ptr(),
+                  azp.data_ptr() if azp is not None else None,
+                  azp_adj.data_ptr() if azp is not None else None,
+                  bias.data_ptr() if bias is not None else None, out.data_ptr(),
+                  m, n, k, a.stride(0), b.stride(1), int(fp8), _stream(dev))
+    _check_launch(lib, "fdm_w8a8_gemm", code, kernel)
+    wrapper.launches += 1
+    return out
+
+
+@kernel_registry.register("int8_matmul", "cuda")
+def int8_matmul_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                     azp_adj: Tensor, azp: Optional[Tensor], bias: Optional[Tensor] = None
+                     ) -> Tensor:
+    return _w8a8_gemm("int8_matmul", int8_matmul_cuda, a, b, scale_a, scale_b, out_dtype,
+                      azp_adj, azp, bias, fp8=False)
+
+
+int8_matmul_cuda.launches = 0
+
+
+@kernel_registry.register("fp8_matmul", "cuda")
+def fp8_matmul_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                    bias: Optional[Tensor] = None) -> Tensor:
+    return _w8a8_gemm("fp8_matmul", fp8_matmul_cuda, a, b, scale_a, scale_b, out_dtype,
+                      None, None, bias, fp8=True)
+
+
+fp8_matmul_cuda.launches = 0
+
+KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, sdpa_cuda, quantize_to_int8_cuda,
+                   quantize_to_fp8_cuda, int8_matmul_cuda, fp8_matmul_cuda)
 
 
 def reset_launch_counts() -> None:

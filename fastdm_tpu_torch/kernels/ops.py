@@ -1,9 +1,11 @@
-"""Kernel-op interface: the ops of this slice (port of the rmsnorm, rotembd
-and sdpa contracts of fastdm_tpu/kernels/ops.py:29-60, :216).
+"""Kernel-op interface: the ported ops (port of the rmsnorm, rotembd, W8A8
+and sdpa contracts of fastdm_tpu/kernels/ops.py:29-60, :126-213, :216).
 
 Same argument lists and semantics as the JAX ops: RoPE returns new (q, k)
 instead of writing into its inputs, cos/sin are two (S, head_size/2) float32
-tables, attention takes and returns the flattened-head (B, S, H*D) layout.
+tables, attention takes and returns the flattened-head (B, S, H*D) layout,
+the W8A8 GEMMs take b as a (K, N) tensor (on the card a view of a
+K-contiguous (N, K) buffer, see layers/qlinear.py).
 Each call dispatches on the device of its first tensor (see registry.py).
 """
 
@@ -36,6 +38,46 @@ def rotary_pos_embedding(
     is_neox=False (interleaved): pairs are (x[..., 0::2], x[..., 1::2]);
     is_neox=True (half-split):   pairs are (x[..., :d/2], x[..., d/2:]).
     Returns rotated (query, key) in the input dtype."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("quantize_to_int8")
+def quantize_to_int8(x: Tensor, symmetric: bool = True
+                     ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """Per-token (row) int8 quantization of a 2D tensor.
+
+    symmetric: scale = rowmax(|x|)/127, zp None.
+    asymmetric: scale = (rowmax-rowmin)/255, zp = -128 - round(rowmin/scale).
+    Scales are floored at 1e-12. Returns (q int8 (M,K), scale f32 (M,1),
+    zp int32 (M,1) | None)."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("quantize_to_fp8")
+def quantize_to_fp8(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-token float8_e4m3fn quantization: scale = rowmax(|x|)/448.
+    Returns (q fp8 (M,K), scale f32 (M,1))."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("int8_matmul")
+def int8_matmul(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                azp_adj: Tensor, azp: Optional[Tensor], bias: Optional[Tensor] = None
+                ) -> Tensor:
+    """W8A8 int8 matmul with asymmetric activation zero points.
+
+    a: (M,K) int8 (per-token quantized), b: (K,N) int8 (per-channel sym).
+    azp_adj: (N,) int32 column sums of b; azp: (M,1) int32 zero points.
+    out = (a.b - azp (x) azp_adj) * (scale_a (x) scale_b) + bias, in out_dtype;
+    the s32 accumulate is exact."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("fp8_matmul")
+def fp8_matmul(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+               bias: Optional[Tensor] = None) -> Tensor:
+    """(M,K) e4m3 @ (K,N) e4m3 with per-token (M,1) x per-channel (N,) f32
+    scales, f32 accumulation: out = (a.b) * (scale_a (x) scale_b) + bias."""
     raise NotImplementedError
 
 

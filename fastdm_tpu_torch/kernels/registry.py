@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Callable, Dict
+from typing import Callable, Dict, FrozenSet, Iterable, Optional
 
 import torch
 
@@ -28,7 +28,7 @@ BACKENDS = ("torch", "cuda")
 class KernelRegistry:
     def __init__(self) -> None:
         self._ops: Dict[str, Dict[str, Callable]] = {}
-        self._plain_on_device = False
+        self._plain_on_device: FrozenSet[str] = frozenset()
 
     def register(self, op_name: str, backend: str) -> Callable:
         if backend not in BACKENDS:
@@ -41,7 +41,7 @@ class KernelRegistry:
         return deco
 
     def backend_for(self, op_name: str, device: torch.device) -> str:
-        if device.type == "cpu" or (device.type == "cuda" and self._plain_on_device):
+        if device.type == "cpu" or (device.type == "cuda" and op_name in self._plain_on_device):
             return "torch"
         if device.type == "cuda":
             return "cuda"
@@ -72,12 +72,14 @@ class KernelRegistry:
         return deco
 
     @contextlib.contextmanager
-    def plain_on_device(self):
-        """Run the plain PyTorch versions on CUDA tensors inside the block.
+    def plain_on_device(self, ops: Optional[Iterable[str]] = None):
+        """Run the plain PyTorch versions of `ops` (all ops when None) on CUDA
+        tensors inside the block.
 
         For measuring a whole model on the kernels against the same model on
         the plain versions (chip_smoke.py); the serving path never enters it."""
-        prev, self._plain_on_device = self._plain_on_device, True
+        plain = frozenset(self._ops if ops is None else ops)
+        prev, self._plain_on_device = self._plain_on_device, plain
         try:
             yield
         finally:

@@ -1,10 +1,16 @@
-"""Plain PyTorch versions of the slice's ops (port of
+"""Plain PyTorch versions of the ported ops (port of
 fastdm_tpu/kernels/jnp_backend/impl.py: rms_norm_jnp :19-26, _rotate and
-rotary_pos_embedding_jnp :29-54/:100-114, sdpa_jnp :248-280).
+rotary_pos_embedding_jnp :29-54/:100-114, quantize_to_int8_jnp :123-140,
+quantize_to_fp8_jnp :191-197, fp8_matmul_jnp :200-218, int8_matmul_jnp
+:221-240, sdpa_jnp :248-280).
 
 They keep the oracle's rounding points — float32 math, one cast back to the
 input dtype — so the CPU tests can hold them to the JAX package, and
-chip_smoke.py holds each Hopper kernel to them on the card.
+chip_smoke.py holds each Hopper kernel to them on the card. The W8A8 versions
+are bit-exact with jnp wherever the math is integer: the int8 product is
+taken in float64, where every partial sum of s8*s8 products over K <= 2^38
+is an integer below 2^53 and therefore exact in any summation order (torch
+has no integer matmul on CUDA, and int8 @ int8 on the CPU wraps in int8).
 """
 
 from __future__ import annotations
@@ -17,6 +23,23 @@ from fastdm_tpu_torch.kernels import contracts
 from fastdm_tpu_torch.kernels.registry import kernel_registry
 
 Tensor = torch.Tensor
+
+_EPS_SCALE = 1e-12  # scale floor of the jnp oracle (impl.py:16)
+_FP8_MAX = 448.0    # float8_e4m3fn finfo.max
+
+
+def true_div(x: Tensor, c: float) -> Tensor:
+    """x / c correctly rounded on every device. PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal, which is one ulp off for
+    c = 127, 255 or 448 on some inputs; a 0-dim tensor divisor is divided."""
+    return x / x.new_full((), c)
+
+
+def _to_int32_saturating(x: Tensor) -> Tensor:
+    """float -> int32 as XLA and the card's cvt do it: out-of-range values
+    clamp to the int32 range, NaN becomes 0 (a plain .to(int32) is undefined
+    there)."""
+    return x.double().nan_to_num(0.0).clamp(-2.0**31, 2.0**31 - 1).to(torch.int32)
 
 
 @kernel_registry.register("rmsnorm", "torch")
@@ -57,6 +80,60 @@ def rotary_pos_embedding_torch(
     q4 = _rotate(query.reshape(qs[0], qs[1], -1, head_size), cos, sin, is_neox)
     k4 = _rotate(key.reshape(ks[0], ks[1], -1, head_size), cos, sin, is_neox)
     return q4.reshape(qs), k4.reshape(ks)
+
+
+@kernel_registry.register("quantize_to_int8", "torch")
+def quantize_to_int8_torch(x: Tensor, symmetric: bool = True
+                           ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    x32 = x.float()
+    row_min = x32.amin(dim=-1, keepdim=True)
+    row_max = x32.amax(dim=-1, keepdim=True)
+    if symmetric:
+        abs_max = torch.maximum(row_min.abs(), row_max.abs())
+        scale = true_div(abs_max.clamp_min(_EPS_SCALE), 127.0)
+        q = torch.round(x32 / scale).clamp(-128, 127).to(torch.int8)
+        return q, scale, None
+    scale = true_div((row_max - row_min).clamp_min(_EPS_SCALE), 255.0)
+    zp = _to_int32_saturating(-128.0 - torch.round(row_min / scale))
+    q = (torch.round(x32 / scale) + zp.float()).clamp(-128, 127).to(torch.int8)
+    return q, scale, zp
+
+
+@kernel_registry.register("quantize_to_fp8", "torch")
+def quantize_to_fp8_torch(x: Tensor) -> Tuple[Tensor, Tensor]:
+    x32 = x.float()
+    scale = true_div(x32.abs().amax(dim=-1, keepdim=True).clamp_min(_EPS_SCALE), _FP8_MAX)
+    q = (x32 / scale).clamp(-_FP8_MAX, _FP8_MAX).to(torch.float8_e4m3fn)
+    return q, scale
+
+
+def _dequant_epilogue(acc: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                      bias: Optional[Tensor]) -> Tensor:
+    # jnp's order: f32(acc) * (sa (x) sb), then + f32(bias), one cast
+    out = acc.float() * (scale_a.float().reshape(-1, 1) * scale_b.float().reshape(1, -1))
+    if bias is not None:
+        out = out + bias.float().reshape(1, -1)
+    return out.to(out_dtype)
+
+
+@kernel_registry.register("int8_matmul", "torch")
+def int8_matmul_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                      azp_adj: Tensor, azp: Optional[Tensor], bias: Optional[Tensor] = None
+                      ) -> Tensor:
+    contracts.check_scaled_mm("int8_matmul_torch", a, b, scale_a, scale_b, azp_adj=azp_adj,
+                              azp=azp, bias=bias, int8=True)
+    acc = (a.double() @ b.double()).to(torch.int32)  # exact: see the module note
+    if azp is not None:
+        acc = acc - azp.to(torch.int32).reshape(-1, 1) * azp_adj.to(torch.int32).reshape(1, -1)
+    return _dequant_epilogue(acc, scale_a, scale_b, out_dtype, bias)
+
+
+@kernel_registry.register("fp8_matmul", "torch")
+def fp8_matmul_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                     bias: Optional[Tensor] = None) -> Tensor:
+    contracts.check_scaled_mm("fp8_matmul_torch", a, b, scale_a, scale_b, bias=bias)
+    acc = a.float() @ b.float()  # e4m3 -> f32 is exact; f32 accumulation
+    return _dequant_epilogue(acc, scale_a, scale_b, out_dtype, bias)
 
 
 @kernel_registry.register("sdpa", "torch")

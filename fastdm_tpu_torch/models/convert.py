@@ -3,8 +3,8 @@
 The JAX random inits (jax.random) cannot be reproduced by a torch.Generator,
 so tests that compare the two packages hand the JAX tree across instead of
 re-drawing it. The converters take that tree as numpy arrays — the caller
-runs jax.device_get — and import nothing of JAX: numpy bfloat16 goes through
-its uint16 bit pattern (models/loader.as_tensor).
+runs jax.device_get — and import nothing of JAX: numpy bfloat16 and
+float8_e4m3fn go through their bit patterns (models/loader.as_tensor).
 """
 
 from __future__ import annotations
@@ -42,17 +42,21 @@ def _n_layers(tree) -> int:
 
 
 def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
-    """FLUX param tree of fastdm_tpu.models.flux (bf16 QLinears, numpy
-    leaves, stacked block axis) -> FluxTransformer on `device`."""
+    """FLUX param tree of fastdm_tpu.models.flux (bf16, int8 or fp8 QLinears,
+    numpy leaves, stacked block axis) -> FluxTransformer on `device`. An 8-bit
+    JAX weight is (K, N) N-contiguous; QLinear copies it once into its
+    K-contiguous (N, K) buffer."""
     dev = resolve_device(device)
 
     def t(a):
         return as_tensor(a).to(dev)
 
     def lin(p) -> QLinear:
-        if set(p) - {"w", "bias"}:
-            raise NotImplementedError(f"only bf16 QLinears convert in this slice; got {sorted(p)}")
-        return QLinear(t(p["w"]), t(p["bias"]) if "bias" in p else None)
+        if set(p) - {"w", "bias", "scale", "colsum"}:
+            raise NotImplementedError(
+                f"only bf16, int8 and fp8 QLinears convert (int4 waits for its slice); "
+                f"got {sorted(p)}")
+        return QLinear(*(t(p[k]) if k in p else None for k in ("w", "bias", "scale", "colsum")))
 
     def mlp(p) -> TimestepEmbedding:
         return TimestepEmbedding(lin(p["linear1"]), lin(p["linear2"]))

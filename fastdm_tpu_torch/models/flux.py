@@ -52,9 +52,10 @@ class FluxConfig:
     guidance_embeds: bool = True
     axes_dims_rope: Tuple[int, ...] = (16, 56, 56)
     mlp_ratio: float = 4.0
-    # None/"bf16" is this slice's path (the JAX engine's default too);
-    # "int8"/"fp8" need the W8A8 kernels and raise NotImplementedError
-    quant: Optional[str] = None
+    quant: Optional[str] = "int8"  # None/"bf16" | "int8" | "fp8", as the JAX FluxConfig
+    # also quantize the AdaLN modulation projections (bf16 otherwise), as
+    # fastdm_tpu/models/flux.py:56-60
+    quant_mods: bool = False
 
     @property
     def inner_dim(self) -> int:
@@ -140,26 +141,21 @@ class FluxTransformer(nn.Module):
 # ---------------------------------------------------------------- params
 
 
-def _check_cfg(cfg: FluxConfig) -> None:
-    if cfg.quant not in (None, "bf16"):
-        raise NotImplementedError(
-            f"FluxConfig.quant={cfg.quant!r} needs the W8A8 kernels (next slice of the "
-            "port); this slice runs FLUX in bf16")
-
-
 def flux_init_random(seed: int, cfg: FluxConfig, device="cuda") -> FluxTransformer:
     """Random-weight FLUX (benchmarks and smoke runs without checkpoints): every
     weight is drawn by a torch.Generator seeded with `seed`, on `device`,
-    straight into bf16 (N(0,1)*0.02 weights, N(0,1)*0.01 biases, unit q/k norm
-    weights, as the JAX flux_init_random). The JAX and torch generators give
-    different numbers for the same seed."""
-    _check_cfg(cfg)
+    straight into its storage dtype (qlinear_random; unit q/k norm weights),
+    as the JAX flux_init_random: the block projections in cfg.quant, the
+    AdaLN modulations too when cfg.quant_mods, the embedders and the output
+    head in bf16. The JAX and torch generators give different numbers for the
+    same seed."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, hd, mlp = cfg.inner_dim, cfg.attention_head_dim, cfg.mlp_hidden_dim
+    q, qm = cfg.quant, cfg.quant if cfg.quant_mods else None
 
-    def lin(k, n):
-        return qlinear_random(gen, k, n, device=dev)
+    def lin(k, n, quant=None):
+        return qlinear_random(gen, k, n, quant=quant, device=dev)
 
     def ones():
         return torch.ones(hd, dtype=torch.bfloat16, device=dev)
@@ -171,14 +167,14 @@ def flux_init_random(seed: int, cfg: FluxConfig, device="cuda") -> FluxTransform
         mlp_embed(256), mlp_embed(cfg.pooled_projection_dim),
         mlp_embed(256) if cfg.guidance_embeds else None)
     dual = [FluxDualBlock(
-        AdaLayerNormZero(lin(d, 6 * d)), AdaLayerNormZero(lin(d, 6 * d)),
-        JointAttention(qkv=lin(d, 3 * d), add_qkv=lin(d, 3 * d), to_out=lin(d, d),
-                       to_add_out=lin(d, d), norm_q=ones(), norm_k=ones(),
+        AdaLayerNormZero(lin(d, 6 * d, qm)), AdaLayerNormZero(lin(d, 6 * d, qm)),
+        JointAttention(qkv=lin(d, 3 * d, q), add_qkv=lin(d, 3 * d, q), to_out=lin(d, d, q),
+                       to_add_out=lin(d, d, q), norm_q=ones(), norm_k=ones(),
                        norm_added_q=ones(), norm_added_k=ones()),
-        FeedForward(lin(d, mlp), lin(mlp, d)), FeedForward(lin(d, mlp), lin(mlp, d)))
+        FeedForward(lin(d, mlp, q), lin(mlp, d, q)), FeedForward(lin(d, mlp, q), lin(mlp, d, q)))
         for _ in range(cfg.num_layers)]
     single = [FluxSingleBlock(
-        AdaLayerNormZeroSingle(lin(d, 3 * d)), lin(d, 3 * d + mlp), lin(d + mlp, d),
+        AdaLayerNormZeroSingle(lin(d, 3 * d, qm)), lin(d, 3 * d + mlp, q), lin(d + mlp, d, q),
         JointAttention(norm_q=ones(), norm_k=ones()))
         for _ in range(cfg.num_single_layers)]
     return FluxTransformer(
@@ -189,9 +185,11 @@ def flux_init_random(seed: int, cfg: FluxConfig, device="cuda") -> FluxTransform
 
 
 def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
-    """Load a diffusers FLUX transformer checkpoint onto src.device."""
-    _check_cfg(cfg)
+    """Load a diffusers FLUX transformer checkpoint onto src.device, quantizing
+    the block projections to cfg.quant (and the AdaLN modulations when
+    cfg.quant_mods) as the JAX flux_load does."""
     q = cfg.quant
+    qm = q if cfg.quant_mods else None
 
     def mlp_embed(p):
         return TimestepEmbedding(src.linear(f"{p}.linear_1", None),
@@ -206,8 +204,8 @@ def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
     for i in range(cfg.num_layers):
         p = f"transformer_blocks.{i}"
         dual.append(FluxDualBlock(
-            AdaLayerNormZero(src.linear(f"{p}.norm1.linear", None)),
-            AdaLayerNormZero(src.linear(f"{p}.norm1_context.linear", None)),
+            AdaLayerNormZero(src.linear(f"{p}.norm1.linear", qm)),
+            AdaLayerNormZero(src.linear(f"{p}.norm1_context.linear", qm)),
             JointAttention(
                 qkv=src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v"], q),
                 add_qkv=src.fused_linear(
@@ -226,7 +224,7 @@ def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
     for i in range(cfg.num_single_layers):
         p = f"single_transformer_blocks.{i}"
         single.append(FluxSingleBlock(
-            AdaLayerNormZeroSingle(src.linear(f"{p}.norm.linear", None)),
+            AdaLayerNormZeroSingle(src.linear(f"{p}.norm.linear", qm)),
             # q|k|v|mlp_in concatenated along N
             src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v",
                               f"{p}.proj_mlp"], q),

@@ -30,13 +30,15 @@ Tensor = torch.Tensor
 
 def as_tensor(x) -> Tensor:
     """A CPU torch tensor from a torch tensor or a numpy array. numpy bfloat16
-    (ml_dtypes) is not accepted by torch.from_numpy; it goes through its
-    uint16 bit pattern."""
+    and float8_e4m3fn (ml_dtypes) are not accepted by torch.from_numpy; they
+    go through their uint16 / uint8 bit patterns."""
     if isinstance(x, Tensor):
         return x
     a = np.require(x, requirements=["C", "W"])  # torch wants writable memory
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     return torch.from_numpy(a)
 
 
@@ -81,7 +83,13 @@ class TensorSource:
         return self.fused_linear([prefix], quant)
 
     def fused_linear(self, prefixes: Sequence[str], quant: Optional[str]) -> QLinear:
-        """Claim several projections and fuse them along the output dim."""
+        """Claim several projections and fuse them along the output dim.
+        int8/fp8 weights are quantized here, on the source's device, by
+        layers.qlinear.quantize_weight — the reference's jnp path
+        (fastdm_tpu/layers/qlinear.py:121-135). The JAX loader's native host
+        quantizer (fastdm_tpu/native/quant.cpp:148-153) multiplies by a
+        reciprocal for fp8 and so differs by one e4m3 step on a few weights;
+        the port does not copy that."""
         ws, bs = [], []
         for p in prefixes:
             ws.append(self.tensor(f"{p}.weight", torch.float32).t())

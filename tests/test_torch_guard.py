@@ -28,8 +28,12 @@ def _imports(path: Path):
 
 
 def _sources():
+    """chip_smoke.py and the package's sources; the git-ignored build
+    directory holds kernel build outputs (and, for GPU runs, unpacked copies
+    of the whole tree), not sources of the port."""
     yield REPO / "chip_smoke.py"
-    yield from sorted((REPO / "fastdm_tpu_torch").rglob("*.py"))
+    pkg = REPO / "fastdm_tpu_torch"
+    yield from sorted(p for p in pkg.rglob("*.py") if "_build" not in p.relative_to(pkg).parts)
 
 
 def test_port_sources_import_no_jax():

@@ -11,7 +11,16 @@ value; bfloat16 attention (outputs of order 1), within 2e-3 absolute of the
 jnp oracle (the probabilities are rounded at the same point; only the f32 sum
 order differs, which moves a few outputs by one bf16 step) and within
 1e-2 + 1e-2*|x| of the Pallas kernel (which also rounds q*scale*log2(e) to
-bf16 before the product).
+bf16 before the product). W8A8: the int8 and fp8 quantizers (q, scale, zp)
+and the int8 GEMM (s32 accumulate, azp and bias epilogue) bit-exact with the
+jnp oracle, and the int8 GEMM with the Pallas kernel too; the fp8 GEMM (f32
+sums in another order) within 1 bf16 ulp of |JAX| plus 2^-16 *
+scale_a*scale_b * (|a| @ |b|) for outputs near zero after cancellation. The
+Pallas quantizers, run by the interpreter, differ from the oracle in two
+stated ways: their scale floor is 1e-8, not 1e-12 (all-zero rows), and XLA
+compiles their division by 127/255/448 as a product with the reciprocal, so
+a scale may sit one f32 ulp away; q (and zp) then differ by at most one step,
+and only in those rows — each of their q is round(x / their own scale).
 
 tests/test_torch_cuda_kernels.py holds the hand-written kernels themselves
 to these plain versions on the card.
@@ -23,21 +32,33 @@ import pytest
 import torch
 
 from fastdm_tpu.kernels.jnp_backend.impl import (
+    fp8_matmul_jnp,
+    int8_matmul_jnp,
+    quantize_to_fp8_jnp,
+    quantize_to_int8_jnp,
     rms_norm_jnp,
     rotary_pos_embedding_jnp,
     sdpa_jnp,
 )
 from fastdm_tpu.kernels.pallas.attention import sdpa_pallas
 from fastdm_tpu.kernels.pallas.elementwise import (
+    quantize_to_fp8_pallas,
+    quantize_to_int8_pallas,
     rms_norm_pallas,
     rotary_pos_embedding_pallas,
 )
+from fastdm_tpu.kernels.pallas.matmul import fp8_matmul_pallas, int8_matmul_pallas
 from fastdm_tpu_torch.kernels import (
+    fp8_matmul,
+    int8_matmul,
     kernel_registry,
+    quantize_to_fp8,
+    quantize_to_int8,
     rms_norm,
     rotary_pos_embedding,
     scaled_dot_product_attention,
 )
+from fastdm_tpu_torch.models.loader import as_tensor
 
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -138,13 +159,18 @@ def test_sdpa_matches_jax(dtype, case, ref):
 
 def test_dispatch_follows_device():
     """CPU tensors take the plain version, CUDA tensors the kernel; the
-    comparison context routes CUDA tensors to the plain version too."""
+    comparison context routes CUDA tensors to the plain version too, for all
+    ops or for the ops it names."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    for op in ("rmsnorm", "rotembd", "sdpa"):
+    w8a8 = ("quantize_to_int8", "quantize_to_fp8", "int8_matmul", "fp8_matmul")
+    for op in ("rmsnorm", "rotembd", "sdpa") + w8a8:
         assert kernel_registry.backend_for(op, cpu) == "torch"
         assert kernel_registry.backend_for(op, cuda) == "cuda"
         with kernel_registry.plain_on_device():
             assert kernel_registry.backend_for(op, cuda) == "torch"
+        with kernel_registry.plain_on_device(w8a8):
+            assert kernel_registry.backend_for(op, cuda) == ("torch" if op in w8a8 else "cuda")
+            assert kernel_registry.backend_for(op, cpu) == "torch"
         assert kernel_registry.backend_for(op, cuda) == "cuda"
     with pytest.raises(KeyError):
         kernel_registry.select("no_such_op", cpu)
@@ -164,8 +190,152 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
     replaces, and what bounds it on the card."""
     from fastdm_tpu_torch.kernels.build import CSRC, SOURCES
 
-    replaces = {"rmsnorm": "rms_norm_pallas", "rope": "rotary_pos_embedding_pallas",
-                "flash_attn": "sdpa_pallas"}
+    replaces = {"rmsnorm": ("rms_norm_pallas",), "rope": ("rotary_pos_embedding_pallas",),
+                "flash_attn": ("sdpa_pallas",),
+                "quant": ("quantize_to_int8_pallas", "quantize_to_fp8_pallas"),
+                "w8a8_gemm": ("int8_matmul_pallas", "fp8_matmul_pallas")}
+    assert set(SOURCES) == set(replaces)
     for name in SOURCES:
         text = (CSRC / f"{name}.cu").read_text()
-        assert replaces[name] in text and "What bounds it on the H100" in text
+        assert all(f in text for f in replaces[name]) and "What bounds it on the H100" in text
+
+
+# ------------------------------------------------------------------- W8A8
+
+
+def _activations(seed: int, m: int = 77, k: int = 256):
+    """bf16 rows with an all-zero row and an all-positive row (a zero point
+    far from -128) among random ones."""
+    a = np.random.default_rng(seed).standard_normal((m, k)).astype(np.float32) * 3
+    a[3] = 0
+    a[5] = np.abs(a[5]) + 1
+    return _pair(a, "bf16")
+
+
+def _to_np_bits(x) -> np.ndarray:
+    """Exact numpy view: integers as they are, fp8 through its bit pattern."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.uint8).numpy() if x.dtype == torch.float8_e4m3fn else x.numpy()
+    a = np.asarray(x)
+    return a.view(np.uint8) if a.dtype.name == "float8_e4m3fn" else a
+
+
+def _pallas_scale_rows(scale: torch.Tensor, pallas_scale, divisor: int) -> np.ndarray:
+    """Check the Pallas scales against the port's (see the module note) and
+    return the mask of rows where the two are equal."""
+    s, ps = scale.numpy()[:, 0], np.asarray(pallas_scale)[:, 0]
+    assert s[3] == np.float32(1e-12) / np.float32(divisor)  # the all-zero row
+    assert ps[3] == np.float32(1e-8) * (np.float32(1) / np.float32(divisor))
+    rest = np.arange(len(s)) != 3
+    assert (np.abs(s - ps)[rest] <= np.spacing(s)[rest]).all()
+    return s == ps
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("ref", ["jnp", "pallas"])
+def test_quantize_to_int8_matches_jax(symmetric, ref):
+    x_t, x_j = _activations(3)
+    got = quantize_to_int8(x_t, symmetric)
+    want = (quantize_to_int8_jnp if ref == "jnp" else quantize_to_int8_pallas)(x_j, symmetric)
+    assert got[0].dtype == torch.int8 and got[1].dtype == torch.float32
+    assert tuple(got[1].shape) == (77, 1) and (got[2] is None) == symmetric
+    if not symmetric:
+        assert got[2].dtype == torch.int32
+    if ref == "jnp":
+        for g, w in zip(got, want):
+            if w is not None:
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        return
+    same = _pallas_scale_rows(got[1], want[1], 255 if not symmetric else 127)
+    for g, w in zip(got, want):
+        if w is not None:
+            g, w = g.numpy().astype(np.int32), np.asarray(w).astype(np.int32)
+            np.testing.assert_array_equal(g[same], w[same])
+            assert np.abs(g - w).max() <= 1
+    # Pallas's q is the oracle's formula applied to its own scale
+    x32, ps = _np(x_t), np.asarray(want[1])
+    zp = np.asarray(want[2]).astype(np.float32) if not symmetric else 0
+    q = np.clip(np.round(x32 / ps) + zp, -128, 127)
+    np.testing.assert_array_equal(q, np.asarray(want[0]))
+
+
+@pytest.mark.parametrize("ref", ["jnp", "pallas"])
+def test_quantize_to_fp8_matches_jax(ref):
+    x_t, x_j = _activations(4)
+    q, scale = quantize_to_fp8(x_t)
+    wq, wscale = (quantize_to_fp8_jnp if ref == "jnp" else quantize_to_fp8_pallas)(x_j)
+    assert q.dtype == torch.float8_e4m3fn
+    if ref == "jnp":
+        np.testing.assert_array_equal(_to_np_bits(q), _to_np_bits(wq))
+        np.testing.assert_array_equal(scale.numpy(), np.asarray(wscale))
+        return
+    same = _pallas_scale_rows(scale, wscale, 448)
+    np.testing.assert_array_equal(_to_np_bits(q)[same], _to_np_bits(wq)[same])
+    ps = np.asarray(wscale)
+    want_q = jnp.asarray(np.clip(_np(x_t) / ps, -448, 448)).astype(jnp.float8_e4m3fn)
+    np.testing.assert_array_equal(_to_np_bits(want_q), _to_np_bits(wq))
+
+
+def _gemm_operands(seed: int, quant: str, m=77, k=96, n=40):
+    """A per-token quantized activation (from the jnp oracle) and a per-channel
+    weight, as numpy; scales positive."""
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.standard_normal((m, k)) * 2, jnp.bfloat16)
+    if quant == "int8":
+        a, sa, azp = (np.asarray(v) for v in quantize_to_int8_jnp(x, symmetric=False))
+        b = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    else:
+        a, sa = (np.asarray(v) for v in quantize_to_fp8_jnp(x))
+        azp = None
+        b = np.asarray(jnp.asarray(np.clip(rng.standard_normal((k, n)) * 150, -448, 448),
+                                   jnp.float8_e4m3fn))
+    sb = rng.uniform(1e-4, 1e-3, n).astype(np.float32)
+    bias = np.asarray(jnp.asarray(rng.standard_normal(n) * 0.1, jnp.bfloat16))
+    return a, b, sa, sb, azp, bias
+
+
+@pytest.mark.parametrize("azp", [True, False])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("ref", ["jnp", "pallas"])
+def test_int8_matmul_matches_jax(azp, bias, ref):
+    a, b, sa, sb, zp, bi = _gemm_operands(5, "int8")
+    colsum = b.astype(np.int32).sum(0)
+    zp = zp if azp else None
+    bi = bi if bias else None
+    t = lambda v: None if v is None else as_tensor(v)  # noqa: E731
+    j = lambda v: None if v is None else jnp.asarray(v)  # noqa: E731
+    got = int8_matmul(t(a), t(b), t(sa), t(sb), torch.bfloat16, t(colsum), t(zp), t(bi))
+    fn = int8_matmul_jnp if ref == "jnp" else int8_matmul_pallas
+    want = fn(j(a), j(b), j(sa), j(sb), jnp.bfloat16, j(colsum), j(zp), j(bi))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("ref", ["jnp", "pallas"])
+def test_fp8_matmul_matches_jax(bias, ref):
+    a, b, sa, sb, _, bi = _gemm_operands(6, "fp8")
+    bi = bi if bias else None
+    t = lambda v: None if v is None else as_tensor(v)  # noqa: E731
+    j = lambda v: None if v is None else jnp.asarray(v)  # noqa: E731
+    got = _np(fp8_matmul(t(a), t(b), t(sa), t(sb), torch.bfloat16, t(bi)))
+    fn = fp8_matmul_jnp if ref == "jnp" else fp8_matmul_pallas
+    want = _np(fn(j(a), j(b), j(sa), j(sb), jnp.bfloat16, j(bi)))
+    mag = (np.abs(a.astype(np.float32)) @ np.abs(b.astype(np.float32))) * (sa * sb[None, :])
+    assert (np.abs(got - want) <= _bf16_ulp(want) + 2.0**-16 * mag).all()
+
+
+def test_scaled_mm_contract_rejects_bad_shapes():
+    a, b = torch.zeros(4, 32, dtype=torch.int8), torch.zeros(32, 8, dtype=torch.int8)
+    sa, sb, cs = torch.ones(4, 1), torch.ones(8), torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="inner dims"):
+        int8_matmul(a, torch.zeros(16, 8, dtype=torch.int8), sa, sb, torch.bfloat16, cs, None)
+    with pytest.raises(ValueError, match="scale_b"):
+        int8_matmul(a, b, sa, torch.ones(7), torch.bfloat16, cs, None)
+    with pytest.raises(ValueError, match="int8 operands"):
+        int8_matmul(a.float(), b, sa, sb, torch.bfloat16, cs, None)
+    with pytest.raises(ValueError, match="azp"):
+        int8_matmul(a, b, sa, sb, torch.bfloat16, cs, torch.zeros(3, 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="bias"):
+        fp8_matmul(a.to(torch.float8_e4m3fn), b.to(torch.float8_e4m3fn), sa, sb, torch.bfloat16,
+                   torch.zeros(5))

@@ -5,6 +5,10 @@ Tolerances: float32 activations, rtol 1e-4 / atol 1e-5 (the layers end in
 matmuls whose f32 sums run in another order in torch and in XLA); bf16
 activations, within one bf16 ulp (QLinear) or stated per test; parameter
 conversion, RoPE tables and the chunked/sliced QLinear identities are exact.
+W8A8 QLinear: quantize_weight / fuse_and_quantize bit-exact in int8 and fp8
+(w, scale, colsum); qlinear_apply bit-exact in int8 (integer GEMM, the same
+per-token quantization and epilogue) and, in fp8, within 1 bf16 ulp of |JAX|
+plus 2^-16 of the output's absolute-product scale (f32 sums in another order).
 """
 
 import jax
@@ -24,6 +28,7 @@ from fastdm_tpu_torch.layers import normalization as tnorm
 from fastdm_tpu_torch.layers import qlinear as tql
 from fastdm_tpu_torch.layers.feedforward import FeedForward
 from fastdm_tpu_torch.models.loader import as_tensor
+from fastdm_tpu_torch.kernels import quantize_to_fp8
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 
@@ -105,10 +110,109 @@ def test_qlinear_slice_out_is_exact_view():
 
 @pytest.mark.parametrize("quant", ["int8", "fp8", "int4"])
 def test_qlinear_w8a8_waits_for_its_slice(quant):
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        tql.quantize_weight(torch.zeros(4, 4), quant)
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        tql.qlinear_random(torch.Generator().manual_seed(0), 4, 4, quant=quant, device="cpu")
+    """int8 and fp8 have arrived (8-bit w as the (K, N) view of a K-contiguous
+    buffer, per-channel f32 scale, int8 colsum); int4 still waits for its slice."""
+    gen = torch.Generator().manual_seed(0)
+    if quant == "int4":
+        with pytest.raises(NotImplementedError, match="int4"):
+            tql.quantize_weight(torch.zeros(4, 4), quant)
+        with pytest.raises(NotImplementedError, match="int4"):
+            tql.qlinear_random(gen, 4, 4, quant=quant, device="cpu")
+        return
+    dtype = torch.int8 if quant == "int8" else torch.float8_e4m3fn
+    for lin in (tql.quantize_weight(torch.randn(32, 16), quant),
+                tql.qlinear_random(gen, 32, 16, quant=quant, device="cpu")):
+        assert lin.w.dtype == dtype and tuple(lin.w.shape) == (32, 16) and lin.w.stride(0) == 1
+        assert lin.scale.dtype == torch.float32 and tuple(lin.scale.shape) == (16,)
+        assert (lin.colsum is not None) == (quant == "int8")
+        if quant == "int8":
+            assert torch.equal(lin.colsum, lin.w.sum(0, dtype=torch.int32))
+        y = lin(torch.randn(3, 32).bfloat16())
+        assert y.dtype == torch.bfloat16 and tuple(y.shape) == (3, 16) and torch.isfinite(y).all()
+    with pytest.raises(ValueError, match="unsupported"):
+        tql.quantize_weight(torch.zeros(4, 4), "int3")
+
+
+def _bits(x) -> np.ndarray:
+    """Exact bit patterns: 16-bit floats as uint16, fp8 as uint8, the rest as is."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+            x = x.view(torch.uint16 if x.dtype == torch.bfloat16 else torch.uint8)
+        return x.numpy()
+    a = np.asarray(x)
+    if a.dtype.name in ("bfloat16", "float8_e4m3fn"):
+        return a.view(np.uint16 if a.dtype.name == "bfloat16" else np.uint8)
+    return a
+
+
+def _assert_qlinear_equal(tp, jp):
+    """Every leaf of the port's QLinear bit-identical to the JAX param dict."""
+    assert {k for k, _ in tp.named_parameters()} == set(jp)
+    for k in jp:
+        np.testing.assert_array_equal(_bits(getattr(tp, k)), _bits(jax.device_get(jp[k])),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_quantize_weight_w8a8_matches_jax(quant):
+    rng = np.random.default_rng(10)
+    w = (rng.standard_normal((48, 40)) * 0.05).astype(np.float32)
+    w[:, 7] = 0  # an all-zero column: the 1e-12 scale floor
+    b = (rng.standard_normal(40) * 0.02).astype(np.float32)
+    _assert_qlinear_equal(tql.quantize_weight(torch.from_numpy(w), quant, torch.from_numpy(b)),
+                          jql.quantize_weight(jnp.asarray(w), quant, jnp.asarray(b)))
+    # fused projections, as the loader hands them over: transposed views
+    ws = [rng.standard_normal((n, 24)).astype(np.float32) for n in (16, 8, 24)]
+    bs = [rng.standard_normal(n).astype(np.float32) for n in (16, 8, 24)]
+    tf = tql.fuse_and_quantize([torch.from_numpy(x).t() for x in ws],
+                               [torch.from_numpy(x) for x in bs], quant)
+    jf = jql.fuse_and_quantize([jnp.asarray(x.T) for x in ws], [jnp.asarray(x) for x in bs], quant)
+    _assert_qlinear_equal(tf, jf)
+
+
+def _w8a8_pair(rng, quant, k, n, bias=True):
+    """A W8A8 QLinear quantized by JAX and carried across by the converter's rule."""
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(n) * 0.02).astype(np.float32) if bias else None
+    jp = jql.quantize_weight(jnp.asarray(w), quant, None if b is None else jnp.asarray(b))
+    leaves = {key: as_tensor(jax.device_get(v)) for key, v in jp.items()}
+    return jp, tql.QLinear(**leaves)
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+@pytest.mark.parametrize("chunk_tokens", [0, 4])
+@pytest.mark.parametrize("bias", [True, False])
+def test_qlinear_w8a8_apply_matches_jax(quant, chunk_tokens, bias):
+    rng = np.random.default_rng(11)
+    jp, tp = _w8a8_pair(rng, quant, 64, 48, bias)
+    xj, xt = _x_pair(rng, (2, 8, 64), "bf16", scale=2.0)
+    got = tql.qlinear_apply(tp, xt, chunk_tokens)
+    want = jql.qlinear_apply(jp, xj, chunk_tokens)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    if quant == "int8":
+        np.testing.assert_array_equal(_np(got), _np(want))
+    else:
+        xq = np.abs(_np(quantize_to_fp8(xt.reshape(-1, 64))[0]))
+        xs = _np(quantize_to_fp8(xt.reshape(-1, 64))[1])
+        mag = (xq @ np.abs(_np(tp.w))) * xs * _np(tp.scale)[None, :]
+        err = np.abs(_np(got) - _np(want)).reshape(-1, 48)
+        assert (err <= _bf16_ulp(_np(want)).reshape(-1, 48) + 2.0**-16 * mag).all()
+    np.testing.assert_array_equal(_np(got), _np(tql.qlinear_apply(tp, xt)))  # chunking is exact
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_qlinear_w8a8_slice_out_is_exact_view(quant):
+    rng = np.random.default_rng(12)
+    jp, tp = _w8a8_pair(rng, quant, 32, 30)
+    xj, xt = _x_pair(rng, (5, 32), "bf16")
+    part = tql.qlinear_slice_out(tp, 10, 22)
+    assert part.w.data_ptr() == tp.w[:, 10:].data_ptr() and part.w.stride(0) == 1  # no copy
+    np.testing.assert_array_equal(_np(part(xt)), _np(tp(xt))[:, 10:22])
+    _assert_qlinear_equal(part, jql.qlinear_slice_out(jp, 10, 22))
+    if quant == "int8":
+        np.testing.assert_array_equal(
+            _np(part(xt)), _np(jql.qlinear_apply(jql.qlinear_slice_out(jp, 10, 22), xj)))
 
 
 # ------------------------------------------------------------ normalization

@@ -210,7 +210,7 @@ def test_vae_decoder_random_is_seeded():
 def test_make_flux_denoiser_matches_jax(cached):
     """Same params, same numpy latents and conditioning, three steps."""
     fcfg = {k: v for k, v in TINY.items()}
-    jcfg, tcfg = jflux.FluxConfig(quant=None, **fcfg), tflux.FluxConfig(**fcfg)
+    jcfg, tcfg = jflux.FluxConfig(quant=None, **fcfg), tflux.FluxConfig(quant=None, **fcfg)
     jparams = jflux.flux_init_random(jax.random.key(1), jcfg)
     tparams = flux_params_from_numpy(jax.device_get(jparams), device="cpu")
     ht = wt = 4
@@ -279,14 +279,49 @@ def test_engine_end_to_end(tmp_path, monkeypatch):
     assert lat.shape == (1, 16, TINY["in_channels"]) and np.isfinite(lat).all()
 
 
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+@pytest.mark.parametrize("quant_mods", [False, True])
+def test_engine_w8a8_end_to_end(tmp_path, monkeypatch, quant, quant_mods):
+    """use_int8 / use_fp8: the engine quantizes the checkpoint at load exactly
+    as flux_load does (quant_mods decides the AdaLN linears) and generates
+    finite images; the W8A8 image stays close to the bf16 one (the same
+    checkpoint and noise; mean absolute difference under 2 of 255 levels)."""
+    import fastdm_tpu_torch.engine as engine_mod
+    from fastdm_tpu_torch.engine import FastDMEngine
+
+    root, rng = _tiny_checkpoint(tmp_path)
+    monkeypatch.setitem(engine_mod.VAE_CONFIGS, "flux", tvae.VAEConfig(**VAE_TINY))
+    eng = FastDMEngine(root, verbose=False, device="cpu", quant_mods=quant_mods,
+                       use_int8=quant == "int8", use_fp8=quant == "fp8")
+    assert (eng.cfg.quant, eng.cfg.quant_mods) == (quant, quant_mods)
+    want = tflux.flux_load(TSource.from_path(os.path.join(root, "transformer"), "cpu"), eng.cfg)
+    for (k, a), (_, b) in zip(eng.params.state_dict().items(), want.state_dict().items()):
+        assert a.dtype == b.dtype and torch.equal(a.view(torch.uint8) if a.dtype.itemsize == 1
+                                                  else a, b.view(torch.uint8)
+                                                  if b.dtype.itemsize == 1 else b), k
+    dtype = torch.int8 if quant == "int8" else torch.float8_e4m3fn
+    assert eng.params.single_blocks[0].qkv_mlp.w.dtype == dtype
+    assert (eng.params.dual_blocks[0].norm1.linear.w.dtype == dtype) == quant_mods
+    embeds = rng.standard_normal((1, 12, TINY["joint_attention_dim"])).astype(np.float32)
+    pooled = rng.standard_normal((1, TINY["pooled_projection_dim"])).astype(np.float32)
+    kw = dict(prompt_embeds=embeds, pooled_prompt_embeds=pooled, height=64, width=64,
+              num_inference_steps=2, seed=1)
+    images = eng.generate(**kw)
+    assert images.shape == (1, 64, 64, 3) and images.dtype == np.uint8
+    ref = FastDMEngine(root, verbose=False, device="cpu").generate(**kw)
+    assert np.abs(images.astype(np.float32) - ref.astype(np.float32)).mean() < 2
+
+
 def test_engine_rejects_what_later_slices_bring(tmp_path, monkeypatch):
     import fastdm_tpu_torch.engine as engine_mod
     from fastdm_tpu_torch.engine import FastDMEngine
 
     root, _ = _tiny_checkpoint(tmp_path)
     monkeypatch.setitem(engine_mod.VAE_CONFIGS, "flux", tvae.VAEConfig(**VAE_TINY))
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        FastDMEngine(root, use_int8=True, device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        FastDMEngine(root, use_int8=True, use_fp8=True, device="cpu")
+    with pytest.raises(TypeError, match="use_int4"):
+        FastDMEngine(root, use_int4=True, device="cpu")
     with pytest.raises(NotImplementedError):
         FastDMEngine(root, architecture="sdxl", device="cpu")
     eng = FastDMEngine(root, verbose=False, device="cpu")
