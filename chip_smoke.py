@@ -5,12 +5,13 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. kernels: build every hand-written kernel from csrc/ (one nvcc per source,
-     all at once), run each at the FLUX.1-dev 1024x2048 main-path shapes and
-     hold it to its plain PyTorch version with a stated tolerance; time the
-     kernel, the plain version and, where one PyTorch call computes the same
-     function, that call (a yardstick the port never calls). The W8A8 kernels
-     are also timed at every GEMM / quantize shape of a forward, which gives
-     the forward's GEMM and quantize time.
+     all at once), run each at its main-path shapes (FLUX.1-dev 1024x2048;
+     Wan2.2-A14B 480x832x81, 32760 tokens, for qk_norm_rope, qk_norm_rope2 and
+     gather_super) and hold it to its plain PyTorch version with a stated
+     tolerance; time the kernel, the plain version and, where one PyTorch call
+     computes the same function, that call (a yardstick the port never calls).
+     The W8A8 kernels are also timed at every GEMM / quantize shape of a FLUX
+     forward, which gives the forward's GEMM and quantize time.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
      heads, random weights from a seed) three times: in bf16, in int8 and in
      fp8 (W8A8 block linears drawn straight into int8 / e4m3). Each serves
@@ -21,10 +22,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      full-width forward on the kernels is then held to the same forward on
      the plain versions and, for W8A8, to the forward with only the W8A8 ops
      on their plain versions (bit-identical for int8).
-  3. engine: a synthetic diffusers-layout FLUX checkpoint (full width, one
-     dual and one single block, full-size VAE) is written to a scratch dir;
-     FastDMEngine loads it in bf16, with use_int8 and with use_fp8 (load-time
-     quantization) and calls generate() once each.
+  3. wan: frees FLUX, draws the two Wan2.2-T2V-A14B experts in int8 at full
+     width and depth (40 blocks, 40x128 heads) from seeds and serves one
+     480x832, 81-frame request through make_wan_dual_phase_denoiser (UniPC
+     shift 5, CFG 4.0 / 3.0, boundary 0.875, 4 steps: 2 per expert, radial
+     sparse attention on the superblock tables with one dense warmup step),
+     then the full-size chunked Wan VAE decode; exact launch counts derived
+     from the code; one full-size forward on the kernels held to the same
+     forward on the plain versions; the split-QKV forward (qk_norm_rope2)
+     held bit for bit to the fused one; each kernel timed at every shape of
+     a forward, for the forward's split.
+  4. engine: synthetic diffusers-layout checkpoints are written to a scratch
+     dir — FLUX (full width, one dual and one single block, full-size VAE),
+     loaded in bf16, with use_int8 and with use_fp8; Wan2.2-A14B (two experts
+     at full width with one block each, model_index.json, full-size VAE),
+     loaded with use_int8 and the radial config — and generate() is called
+     once each.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -33,6 +46,7 @@ Imports nothing of JAX or of fastdm_tpu.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -43,6 +57,16 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
 INT8_FP8_OPS = 1979e12       # H100 SXM dense int8 / fp8 tensor cores
 F32_FLOPS = 67e12            # H100 SXM f32 outside the tensor cores
+
+# Wan2.2-T2V-A14B at 480x832, 81 frames: 21 x 60 x 104 latents, 21 x 30 x 52
+# = 32760 patch tokens (1x2x2 patches), 40 heads of 128; the engine's
+# one-block checkpoint generates a 17-frame clip
+WAN_H, WAN_W, WAN_FRAMES, WAN_ENGINE_FRAMES = 480, 832, 81, 17
+WAN_HEADS, WAN_DIM, WAN_TEXT = 40, 40 * 128, 512
+WAN_STEPS, WAN_CFG, WAN_BOUNDARY = 4, (4.0, 3.0), 0.875
+# the radial config of examples/sparse/radial_attn_wan.json, with dense_steps
+# cut from 11 to 1 so that the sparse kernel runs within the 4 steps
+WAN_DENSE_STEPS = 1
 
 # FLUX.1-dev at 1024x2048: 64x128 latent tokens, 512 text tokens
 IMG_TOKENS, TXT_TOKENS = 64 * 128, 512
@@ -216,6 +240,7 @@ def phase_kernels(dev) -> dict:
     del q, k, v, cases
     torch.cuda.empty_cache()
     results.update(_w8a8_kernels(dev, g))
+    results.update(_wan_kernels(dev, g))
     for r in results.values():
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']})")
@@ -367,6 +392,186 @@ def _w8a8_kernels(dev, g) -> dict:
     return results
 
 
+def _radial():
+    """examples/sparse/radial_attn_wan.json (radial, block_size 128, decay 0.3,
+    dense_layers 1), with dense_steps cut to WAN_DENSE_STEPS."""
+    from fastdm_tpu_torch.sparse.xsparse import SparseAttn
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "sparse", "radial_attn_wan.json")) as f:
+        cfg = json.load(f)
+    cfg["dense_steps"] = WAN_DENSE_STEPS
+    return SparseAttn.from_dict(cfg)
+
+
+def _wan_shape(frames: int):
+    """(latent frames, latent height, latent width, patch tokens) of a
+    WAN_H x WAN_W clip."""
+    lf, lh, lw = (frames - 1) // 4 + 1, WAN_H // 8, WAN_W // 8
+    return lf, lh, lw, lf * (lh // 2) * (lw // 2)
+
+
+def _qk_excess(got, want):
+    """(max of |got - want| minus its tolerance, max |got - want|): the
+    tolerance is one bf16 ulp of the value plus two of its rotation pair's
+    magnitude — the normalized value, rounded to bf16 before the rotation,
+    may sit one ulp away (f32 sum order), and the rotation mixes the pair."""
+    worst = err = 0.0
+    for a, w in zip(got, want):
+        w = w.float()
+        pair = w.reshape(*w.shape[:-1], -1, 2)
+        mag = pair.norm(dim=-1, keepdim=True).expand_as(pair).reshape(w.shape)
+        e = (a.float() - w).abs()
+        worst = max(worst, (e - bf16_ulp(w) - 2 * bf16_ulp(mag)).max().item())
+        err = max(err, e.max().item())
+    return worst, err
+
+
+def _wan_kernels(dev, g) -> dict:
+    """qk_norm_rope on the fused QKV output of a Wan2.2-A14B self-attention at
+    480x832x81 (32760 tokens, q|k read in place from (1, S, 15360)),
+    qk_norm_rope2 on the split path's per-chunk q and k ((1, 4095, 5120) at
+    480p, (1, 9450, 5120) as a 720p chunk), gather_super on the radial
+    superblock tables of that video (40 heads of 128), with the real 3D RoPE
+    tables; plus: all-active tables equal the dense sdpa kernel bit for bit,
+    and an emptied table row gives zeros."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fastdm_tpu_torch.engine import wan_super_tables
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.models.wan import WanConfig, wan_rope_cos_sin
+    from fastdm_tpu_torch.sparse.xsparse import super_tables_from_mask
+
+    results = {}
+    lf, lh, lw, s = _wan_shape(WAN_FRAMES)
+    d, hd = WAN_DIM, HEAD_DIM
+    cos, sin = wan_rope_cos_sin(WanConfig(), lf, lh, lw, device=dev)
+    gq = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).bfloat16()
+    gk = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).bfloat16()
+    qk_ops = 7  # per element: square-add, two multiplies, then 3 of the pair's rotation
+
+    # --- qk_norm_rope, the fused form
+    qkv = (torch.randn(1, s, 3 * d, generator=g, device=dev) * 2).bfloat16()
+    kern = lambda: cb.qk_norm_rope_cuda(qkv, gq, gk, hd, cos, sin, inner_dim=d)  # noqa: E731
+    plain = lambda: tb.qk_norm_rope_torch(qkv, gq, gk, hd, cos, sin, inner_dim=d)  # noqa: E731
+    worst, err = _qk_excess(kern(), plain())
+    log(f"[qk_norm_rope] qkv (1, {s}, {3 * d}) inner_dim {d}: max_abs_err {err:.3e}, "
+        f"excess over 1 ulp + 2 ulp of the pair's magnitude {worst:.3e} (must be <= 0)")
+    if not worst <= 0:
+        raise AssertionError("qk_norm_rope disagrees with its plain version")
+    nbytes = 4 * s * d * 2 + 2 * s * (hd // 2) * 4 + 2 * d * 2
+    b_ms, b_by = bound(nbytes, qk_ops * 2 * s * d, F32_FLOPS)
+    results["qk_norm_rope"] = dict(
+        name="qk_norm_rope", route="cuda", source="fastdm_tpu_torch/csrc/qk_norm_rope.cu",
+        replaces="fastdm_tpu/kernels/pallas/elementwise.py:341", max_abs_err=err,
+        ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 3, 1), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    del qkv
+
+    # --- qk_norm_rope2, the split form's per-chunk operands
+    for s2 in (4095, 9450):
+        q = (torch.randn(1, s2, d, generator=g, device=dev) * 2).bfloat16()
+        k = (torch.randn(1, s2, d, generator=g, device=dev) * 2).bfloat16()
+        c2, n2 = cos[:s2], sin[:s2]
+        kern = lambda: cb.qk_norm_rope2_cuda(q, k, gq, gk, hd, c2, n2)  # noqa: E731
+        plain = lambda: tb.qk_norm_rope2_torch(q, k, gq, gk, hd, c2, n2)  # noqa: E731
+        worst, err = _qk_excess(kern(), plain())
+        ms = cuda_ms(kern, 50)
+        log(f"[qk_norm_rope2] q, k (1, {s2}, {d}): max_abs_err {err:.3e}, excess {worst:.3e} "
+            f"(must be <= 0); {ms:.4f} ms")
+        if not worst <= 0:
+            raise AssertionError(f"qk_norm_rope2 disagrees with its plain version at S={s2}")
+        if s2 == 4095:
+            b_ms, b_by = bound(4 * s2 * d * 2 + 2 * s2 * (hd // 2) * 4 + 2 * d * 2,
+                               qk_ops * 2 * s2 * d, F32_FLOPS)
+            results["qk_norm_rope2"] = dict(
+                name="qk_norm_rope2", route="cuda",
+                source="fastdm_tpu_torch/csrc/qk_norm_rope.cu",
+                replaces="fastdm_tpu/kernels/pallas/elementwise.py:416", max_abs_err=err,
+                ms=ms, plain_ms=cuda_ms(plain, 5, 1), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+        del q, k
+
+    # --- gather_super on the radial tables of the 81-frame video
+    cfg, tables = wan_super_tables(_radial(), WanConfig(), s, lf, dev)
+    bq, grp, fine = cfg.sparse_gather_fine_blocks
+    sb = cfg.sparse_gather_superblock
+    kw = dict(block_q=bq, group=grp // sb, fine=fine, superblock=sb)
+    q, k, v = (torch.randn(1, s, d, generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    h = WAN_HEADS
+
+    def kern(t=tables):
+        return cb.gather_super_attention_cuda(q, k, v, *t, h, h, hd, **kw)
+
+    plain = lambda: tb.sdpa_gather_super_torch(q, k, v, *tables, h, h, hd, **kw)  # noqa: E731
+    got = kern()
+    want = plain()
+    e = (got.float() - want.float()).abs()
+    rel = (e.norm() / want.float().norm()).item()
+    excess = (e - 1e-3 - 2 * bf16_ulp(want)).max().item()
+    gather_err = e.max().item()
+    log(f"[gather_super] q/k/v (1, {s}, {d}), {h} heads, tables {tuple(tables[0].shape)} "
+        f"entries x {tuple(tables[2].shape)} rows (block_q {bq}, group {grp // sb}, fine {fine}, "
+        f"superblock {sb}): max_abs_err {gather_err:.3e}, rel L2 {rel:.3e} "
+        f"(tolerance 1e-3 + 2 ulp, rel L2 5e-3)")
+    if not (excess <= 0 and rel <= 5e-3 and torch.isfinite(got).all()):
+        raise AssertionError("gather_super disagrees with its plain version")
+    del want, e
+    # all-active tables walk every tile in order: the dense kernel's result
+    nq, nfine = tables[2].shape[0], -(-s // fine)
+    full = tuple(torch.from_numpy(t).to(dev) for t in
+                 super_tables_from_mask(np.ones((nq, nfine), bool), grp // sb, sb))
+    dense = cb.sdpa_cuda(q, k, v, h, h, hd)
+    same_dense = torch.equal(kern(full), dense)
+    # an emptied table row: zeros there, every other row unchanged
+    rows = tables[2].clone()
+    rows[5, 1] = 0
+    empty = kern((tables[0], tables[1], rows))
+    zero_row = not empty[:, 5 * bq:6 * bq].any()
+    others = torch.equal(empty[:, :5 * bq], got[:, :5 * bq]) and \
+        torch.equal(empty[:, 6 * bq:], got[:, 6 * bq:])
+    log(f"[gather_super] all-active tables == dense sdpa kernel bit for bit: {same_dense}; "
+        f"emptied row 5 gives zeros: {zero_row}, other rows unchanged: {others}")
+    if not (same_dense and zero_row and others):
+        raise AssertionError("gather_super: all-active or empty-row check failed")
+    del empty, full
+
+    allowed = tb.gather_super_allowed(*tables, s, fine, sb)           # (nq, S) bool
+    q_rows = torch.clamp(s - torch.arange(nq, device=dev) * bq, max=bq)
+    active = (allowed.sum(dim=1) * q_rows).sum().item()               # allowed (q, k) pairs
+    entries = tables[2][:, 1].sum().item()
+    log(f"[gather_super] density vs dense attention: allowed keys {active / s**2:.4f}, "
+        f"whole superblocks {entries * sb * fine * bq / s**2:.4f} ({entries} entries over "
+        f"{nq} table rows)")
+    ms = cuda_ms(kern, 5)
+    dense_ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, hd), 5)
+    plain_ms = cuda_ms(plain, 1, 0)
+    heads = lambda t: t.view(1, s, h, hd).transpose(1, 2)  # noqa: E731
+    mask = allowed[torch.arange(s, device=dev) // bq][None, None]
+    lib = "F.scaled_dot_product_attention with the dense boolean mask"
+    try:  # a yardstick only; the port never calls it
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            heads(q), heads(k), heads(v), attn_mask=mask), 3)
+    except RuntimeError as exc:
+        lib_ms, lib = None, f"{lib}: not available here ({str(exc).splitlines()[0]})"
+    del mask
+    b_ms, b_by = bound(4 * q.numel() * 2, 4 * active * hd * h, BF16_FLOPS)
+    log(f"[gather_super] {ms:.4f} ms; the dense sdpa kernel at the same shape {dense_ms:.4f} "
+        f"ms (sparse/dense {ms / dense_ms:.3f}); plain {plain_ms:.1f} ms; library "
+        f"{lib_ms} ms ({lib}); bound {b_ms:.4f} ms by {b_by}")
+    results["gather_super"] = dict(
+        name="gather_super", route="cuda", source="fastdm_tpu_torch/csrc/gather_attn.cu",
+        replaces="fastdm_tpu/kernels/pallas/attention.py:1002", max_abs_err=gather_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------------ phase 2
 
 # TeaCache as bench.py's FLUX default (threshold 0.25 with random weights,
@@ -406,10 +611,15 @@ def _conditioning(dev, seed: int, cfg, seq: int):
 def _launch_counts():
     from fastdm_tpu_torch.kernels import cuda_backend as cb
 
-    return {"rmsnorm": cb.rms_norm_cuda.launches, "rotembd": cb.rotary_pos_embedding_cuda.launches,
-            "sdpa": cb.sdpa_cuda.launches, "quantize_to_int8": cb.quantize_to_int8_cuda.launches,
+    return {"qk_norm_rope": cb.qk_norm_rope_cuda.launches,
+            "qk_norm_rope2": cb.qk_norm_rope2_cuda.launches,
+            "gather_super": cb.gather_super_attention_cuda.launches,
+            "sdpa": cb.sdpa_cuda.launches, "rmsnorm": cb.rms_norm_cuda.launches,
+            "rotembd": cb.rotary_pos_embedding_cuda.launches,
+            "quantize_to_int8": cb.quantize_to_int8_cuda.launches,
+            "int8_matmul": cb.int8_matmul_cuda.launches,
             "quantize_to_fp8": cb.quantize_to_fp8_cuda.launches,
-            "int8_matmul": cb.int8_matmul_cuda.launches, "fp8_matmul": cb.fp8_matmul_cuda.launches}
+            "fp8_matmul": cb.fp8_matmul_cuda.launches}
 
 
 def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
@@ -541,6 +751,239 @@ def phase_slice(dev) -> dict:
 
 # ------------------------------------------------------------------ phase 3
 
+# Relative L2 of a full-depth Wan int8 forward on the kernels against the same
+# forward on the plain versions (sparse layers on the superblock tables): twice
+# the first value measured on an H100 80GB HBM3 (1.448e-2, at 17 frames). A
+# wrong tile, table or layout gives O(1).
+WAN_FORWARD_REL_L2_TOL = 3e-2
+WAN_PATH = ("qk_norm_rope", "gather_super", "sdpa", "rmsnorm", "quantize_to_int8",
+            "int8_matmul")
+
+
+def wan_forward_launches(cfg, tokens: int, sparse: bool) -> dict:
+    """Kernel launches of one Wan forward, read off models/wan.py: per block,
+    the self-attention's qk_norm_rope (fused QKV) or one qk_norm_rope2 per
+    token chunk (split QKV); gather_super in the blocks from dense_layers on
+    when sparse, else sdpa; the cross-attention's q and k rmsnorm and one sdpa
+    per token chunk; W8A8 linears: qkv (1, or q, k, v per chunk when split),
+    self to_out, cross q, cross to_out and the two FFN linears once per token
+    chunk each, and cross kv once (the 512 text tokens are one chunk)."""
+    ct = cfg.ffn_chunk_tokens
+    n = tokens // ct if ct and tokens > ct and tokens % ct == 0 else 1
+    layers = cfg.num_layers
+    sparse_layers = layers - cfg.dense_layers if sparse else 0
+    w8a8 = layers * ((3 * n if cfg.split_qkv_proj else 1) + 5 * n + 1)
+    return {"qk_norm_rope": 0 if cfg.split_qkv_proj else layers,
+            "qk_norm_rope2": layers * n if cfg.split_qkv_proj else 0,
+            "gather_super": sparse_layers, "sdpa": layers - sparse_layers + layers * n,
+            "rmsnorm": 2 * layers, "rotembd": 0, "quantize_to_int8": w8a8,
+            "int8_matmul": w8a8, "quantize_to_fp8": 0, "fp8_matmul": 0}
+
+
+def _wan_forward_split(dev, cfg, tokens: int, tables, secs: dict) -> None:
+    """Each kernel of a Wan forward timed alone at every shape the forward
+    gives it, times its launches per forward (wan_forward_launches): the
+    forward's kernel split, dense and sparse; the rest is the measured
+    forward minus these."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+
+    g = torch.Generator(device=dev).manual_seed(77)
+    d, ffn, layers = cfg.inner_dim, cfg.ffn_dim, cfg.num_layers
+    ct = cfg.ffn_chunk_tokens or tokens
+    n = tokens // ct
+    h, hd = cfg.num_attention_heads, cfg.attention_head_dim
+    # W8A8 linears of one block: (M, K, N) -> count (qkv once, cross kv on
+    # the text, the rest per token chunk)
+    linears = {(tokens, d, 3 * d): 1, (ct, d, d): 3 * n, (WAN_TEXT, d, 2 * d): 1,
+               (ct, d, ffn): n, (ct, ffn, d): n}
+    gemm = quant = gemm_bound = 0.0
+    for (m, k, nn), count in linears.items():
+        x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+        lin = qlinear_random(g, k, nn, quant="int8", device=dev)
+        a, sa, azp = tb.quantize_to_int8_torch(x, symmetric=False)
+        args = (a, lin.w, sa, lin.scale, torch.bfloat16, lin.colsum, azp, lin.bias)
+        gemm += layers * count * cuda_ms(lambda: cb.int8_matmul_cuda(*args), 5)
+        quant += layers * count * cuda_ms(lambda: cb.quantize_to_int8_cuda(x, False), 5)
+        gemm_bound += layers * count * bound(_gemm_bytes(m, k, nn), 2 * m * nn * k,
+                                             INT8_FP8_OPS)[0]
+        del x, lin, a, args
+    q = torch.randn(1, ct, d, generator=g, device=dev, dtype=torch.bfloat16)
+    kv = torch.randn(1, WAN_TEXT, 2 * d, generator=g, device=dev, dtype=torch.bfloat16)
+    cross = layers * n * cuda_ms(lambda: cb.sdpa_cuda(q, kv[..., :d], kv[..., d:], h, h, hd), 5)
+    xq = torch.randn(1, tokens, d, generator=g, device=dev, dtype=torch.bfloat16)
+    w = torch.ones(d, device=dev, dtype=torch.bfloat16)
+    norms = layers * (cuda_ms(lambda: cb.rms_norm_cuda(xq, w, 1e-6), 5)
+                      + cuda_ms(lambda: cb.rms_norm_cuda(kv[..., :d], w, 1e-6), 5))
+    qkv = torch.randn(1, tokens, 3 * d, generator=g, device=dev, dtype=torch.bfloat16)
+    cos = torch.zeros(tokens, hd // 2, device=dev)
+    qk = layers * cuda_ms(lambda: cb.qk_norm_rope_cuda(qkv, w, w, hd, cos, cos, inner_dim=d), 5)
+    v = qkv[..., 2 * d:]
+    dense_attn = cuda_ms(lambda: cb.sdpa_cuda(xq, xq, v, h, h, hd), 3)
+    sparse_attn = cuda_ms(lambda: cb.gather_super_attention_cuda(
+        xq, xq, v, *tables, h, h, hd, block_q=cfg.sparse_gather_fine_blocks[0],
+        group=cfg.sparse_gather_fine_blocks[1] // cfg.sparse_gather_superblock,
+        fine=cfg.sparse_gather_fine_blocks[2], superblock=cfg.sparse_gather_superblock), 3)
+    del q, kv, xq, qkv, v
+    torch.cuda.empty_cache()
+    shared = gemm + quant + cross + norms + qk
+    for label, attn in (("dense", layers * dense_attn),
+                        ("sparse", cfg.dense_layers * dense_attn
+                         + (layers - cfg.dense_layers) * sparse_attn)):
+        total = secs[label] * 1e3
+        log(f"[wan] {label} forward {total:.1f} ms, from the kernels timed alone x launches: "
+            f"int8 GEMMs {gemm:.1f} (bound {gemm_bound:.1f}), int8 quantize {quant:.1f}, "
+            f"self-attention {attn:.1f}, cross-attention sdpa {cross:.1f}, rmsnorm {norms:.1f}, "
+            f"qk_norm_rope {qk:.1f}; the rest by subtraction {total - shared - attn:.1f} ms")
+
+
+def phase_wan(dev) -> dict:
+    """Wan2.2-T2V-A14B int8 at full width and depth: one 480x832x81 request
+    through the dual-expert phase denoiser and the chunked VAE, launch and
+    expert checks, the kernel-vs-plain and split-vs-fused forwards. Returns
+    {kernel: launches} of the new kernels (qk_norm_rope2 from the split run)."""
+    import torch
+
+    from fastdm_tpu_torch.engine import wan_capacity_config, wan_super_tables
+    from fastdm_tpu_torch.kernels import cuda_backend, kernel_registry
+    from fastdm_tpu_torch.models.wan import WanConfig, wan_forward, wan_init_random, \
+        wan_rope_cos_sin
+    from fastdm_tpu_torch.pipeline.denoise_wan import make_wan_dual_phase_denoiser
+    from fastdm_tpu_torch.pipeline.schedulers import UniPCMultistepScheduler
+    from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_decode_chunked, \
+        wan_vae_decoder_random
+
+    radial = _radial()
+    lf, lh, lw, tokens = _wan_shape(WAN_FRAMES)
+    cfg = wan_capacity_config(WanConfig(quant="int8", dense_layers=radial.config.dense_layers),
+                              tokens, dual=True)
+    cfg, tables = wan_super_tables(radial, cfg, tokens, lf, dev)
+    log(f"[wan] Wan2.2-T2V-A14B int8, {cfg.num_layers} blocks, {cfg.num_attention_heads}x"
+        f"{cfg.attention_head_dim} heads, ffn {cfg.ffn_dim}; {WAN_H}x{WAN_W}x{WAN_FRAMES} = "
+        f"{tokens} tokens: ffn_chunk_tokens {cfg.ffn_chunk_tokens}, split_qkv_proj "
+        f"{cfg.split_qkv_proj}, radial superblock tables (block_q, group, fine) "
+        f"{cfg.sparse_gather_fine_blocks} x {cfg.sparse_gather_superblock}, dense_layers "
+        f"{cfg.dense_layers}, dense_steps {radial.config.dense_steps} (cut from 11 so the "
+        f"sparse kernel runs within {WAN_STEPS} steps)")
+    t0 = time.perf_counter()
+    experts = [wan_init_random(seed, cfg, device=dev) for seed in (1, 2)]
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in experts[0].parameters())
+    nbytes = sum(p.numel() * p.element_size() for e in experts for p in e.parameters())
+    log(f"[wan] two experts drawn in int8 in {time.perf_counter() - t0:.1f} s: {n / 1e9:.3f} B "
+        f"params each, {nbytes / 2**30:.1f} GiB both")
+    vae_cfg = WanVAEConfig()
+    vae = wan_vae_decoder_random(3, vae_cfg, device=dev)
+    sched = UniPCMultistepScheduler.create(WAN_STEPS, shift=5.0)
+    run = make_wan_dual_phase_denoiser(cfg, sched, WAN_STEPS, *WAN_CFG, WAN_BOUNDARY,
+                                       radial.config.dense_steps)
+    log(f"[wan] UniPC shift 5 sigmas {[round(float(x), 4) for x in sched.sigmas[:WAN_STEPS]]}, "
+        f"boundary {WAN_BOUNDARY}: steps per expert {run.phase_steps}")
+    if run.phase_steps != (2, 2):
+        raise AssertionError(f"expected 2 + 2 steps per expert, got {run.phase_steps}")
+    cos, sin = wan_rope_cos_sin(cfg, lf, lh, lw, device=dev)
+
+    # the request: each expert's forwards counted by a hook on its patch embedding
+    calls = [0, 0]
+    hooks = [e.patch_embedding.register_forward_hook(
+        lambda *_, i=i: calls.__setitem__(i, calls[i] + 1)) for i, e in enumerate(experts)]
+    g = torch.Generator(device=dev).manual_seed(41)
+    latents = torch.randn(1, cfg.out_channels, lf, lh, lw, generator=g, device=dev)
+    pos, neg = (torch.randn(1, WAN_TEXT, cfg.text_dim, generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    lat, _ = run(*experts, latents, pos, neg, cos, sin, tables)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    video = wan_vae_decode_chunked(vae, vae_cfg, lat)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _launch_counts()
+    for hk in hooks:
+        hk.remove()
+    finite = bool(torch.isfinite(video).all())
+    shape = (1, WAN_FRAMES, WAN_H, WAN_W, 3)
+    log(f"[wan] request {WAN_H}x{WAN_W}x{WAN_FRAMES}, {WAN_STEPS} steps, CFG {WAN_CFG}: "
+        f"{t2 - t0:.3f} s (denoise {t1 - t0:.3f} s, VAE decode {t2 - t1:.3f} s), video "
+        f"{tuple(video.shape)} finite={finite}, |x| max {video.abs().max().item():.3f}; forwards "
+        f"per expert {calls}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if not finite or tuple(video.shape) != shape or calls != [4, 4]:
+        raise AssertionError("the Wan request produced a bad video or skipped an expert")
+    dense_fwd, sparse_fwd = 2 * WAN_DENSE_STEPS, 2 * (WAN_STEPS - WAN_DENSE_STEPS)
+    want = {k: dense_fwd * a + sparse_fwd * b for (k, a), b in zip(
+        wan_forward_launches(cfg, tokens, False).items(),
+        wan_forward_launches(cfg, tokens, True).values())}
+    log(f"[wan] kernel launches over the request ({dense_fwd} dense + {sparse_fwd} sparse "
+        f"forwards): {counts}")
+    if counts != want:
+        raise AssertionError(f"Wan launch counts {counts} != derived {want}")
+    log(f"[wan] launch check: counts equal the ones derived from the code (qk_norm_rope "
+        f"{cfg.num_layers} per forward, gather_super {cfg.num_layers - cfg.dense_layers} per "
+        f"sparse forward)")
+    del video, lat, vae
+
+    # one dense and one sparse forward alone; then the split-QKV forward
+    # (qk_norm_rope2, its own path: counts zeroed before it) held to the fused
+    t = torch.full((1,), float(sched.sigmas[2]) * 1000.0, device=dev)
+    x = latents.to(torch.bfloat16)
+
+    def forward(c, mask):
+        with torch.inference_mode():
+            return wan_forward(experts[1], c, x, t, pos, rope_cos=cos, rope_sin=sin,
+                               sparse_mask=mask).float()
+
+    secs = {}
+    for label, mask in (("dense", None), ("sparse", tables)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(cfg, mask)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+    out_k = out
+    split_cfg = dataclasses.replace(cfg, split_qkv_proj=True)
+    cuda_backend.reset_launch_counts()
+    split = forward(split_cfg, tables)
+    split_counts = _launch_counts()
+    same = torch.equal(split, out_k)
+    rel = ((split - out_k).norm() / out_k.norm()).item()
+    log(f"[wan] full-depth forward at {tokens} tokens: dense {secs['dense']:.3f} s, sparse "
+        f"{secs['sparse']:.3f} s; split-QKV (chunks of {cfg.ffn_chunk_tokens}) vs fused: "
+        f"bit-identical {same}, relative L2 {rel:.3e} (required: bit-identical); split-path "
+        f"launches {split_counts}")
+    want_split = wan_forward_launches(split_cfg, tokens, True)
+    if not same or split_counts != want_split:
+        raise AssertionError(f"split-QKV forward: equal {same}, launches {split_counts} != "
+                             f"{want_split}")
+    del split, out
+    _wan_forward_split(dev, cfg, tokens, tables, secs)
+
+    # the same sparse forward on the plain versions
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with kernel_registry.plain_on_device():
+        out_p = forward(cfg, tables)
+    torch.cuda.synchronize()
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    log(f"[wan] full-depth sparse forward at {tokens} tokens: kernels vs plain versions "
+        f"({time.perf_counter() - t0:.1f} s) relative L2 difference {rel:.3e} (tolerance "
+        f"{WAN_FORWARD_REL_L2_TOL})")
+    if not rel <= WAN_FORWARD_REL_L2_TOL or not torch.isfinite(out_k).all():
+        raise AssertionError(f"the Wan kernel forward departs from the plain forward: {rel}")
+    del experts, out_k, out_p
+    torch.cuda.empty_cache()
+    return {"qk_norm_rope": counts["qk_norm_rope"], "gather_super": counts["gather_super"],
+            "qk_norm_rope2": split_counts["qk_norm_rope2"]}
+
+
+# ------------------------------------------------------------------ phase 4
+
 
 def _write_checkpoint(root: str, dev) -> None:
     """Synthetic diffusers-layout FLUX checkpoint: FLUX.1-dev widths with one
@@ -635,6 +1078,108 @@ def _write_checkpoint(root: str, dev) -> None:
     save_file(sd, os.path.join(root, "vae", "model.safetensors"))
 
 
+def _write_wan_checkpoint(root: str, dev) -> None:
+    """Synthetic diffusers-layout Wan2.2-T2V-A14B checkpoint: transformer/ and
+    transformer_2/ at the published widths with one block each (bf16, the
+    engine quantizes at load), model_index.json with the published
+    boundary_ratio, and the full-size AutoencoderKLWan decoder in vae/."""
+    import torch
+    from safetensors.torch import save_file
+
+    from fastdm_tpu_torch.models.wan import WanConfig
+    from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_decoder_random
+
+    cfg = WanConfig()
+    d, ffn = cfg.inner_dim, cfg.ffn_dim
+    for sub, seed in (("transformer", 6), ("transformer_2", 7)):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        sd = {}
+
+        def lin(name, k, n, std=0.02):
+            w = torch.randn(n, k, generator=g, device=dev) * std
+            sd[f"{name}.weight"] = w.bfloat16().cpu()
+            sd[f"{name}.bias"] = (torch.randn(n, generator=g, device=dev) * 0.01).bfloat16().cpu()
+
+        sd["patch_embedding.weight"] = (torch.randn(d, cfg.in_channels, 1, 2, 2, generator=g,
+                                                    device=dev) * 0.05).bfloat16().cpu()
+        sd["patch_embedding.bias"] = torch.zeros(d, dtype=torch.bfloat16)
+        ce = "condition_embedder"
+        lin(f"{ce}.time_embedder.linear_1", cfg.freq_dim, d)
+        lin(f"{ce}.time_embedder.linear_2", d, d)
+        lin(f"{ce}.time_proj", d, 6 * d)
+        lin(f"{ce}.text_embedder.linear_1", cfg.text_dim, d)
+        lin(f"{ce}.text_embedder.linear_2", d, d)
+        sd["scale_shift_table"] = torch.randn(1, 2, d, generator=g, device=dev).cpu() / d**0.5
+        lin("proj_out", d, cfg.out_channels * 4)
+        p = "blocks.0"
+        sd[f"{p}.scale_shift_table"] = torch.randn(1, 6, d, generator=g, device=dev).cpu() / d**0.5
+        for a in ("attn1", "attn2"):
+            for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+                lin(f"{p}.{a}.{nm}", d, d)
+            for nm in ("norm_q", "norm_k"):
+                sd[f"{p}.{a}.{nm}.weight"] = torch.ones(d, dtype=torch.bfloat16)
+        lin(f"{p}.ffn.net.0.proj", d, ffn)
+        lin(f"{p}.ffn.net.2", ffn, d)
+        sd[f"{p}.norm2.weight"], sd[f"{p}.norm2.bias"] = torch.ones(d), torch.zeros(d)
+        os.makedirs(os.path.join(root, sub))
+        save_file(sd, os.path.join(root, sub, "model.safetensors"))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump({"num_layers": 1, "num_attention_heads": cfg.num_attention_heads,
+                       "attention_head_dim": cfg.attention_head_dim, "ffn_dim": ffn,
+                       "patch_size": list(cfg.patch_size)}, f)
+    with open(os.path.join(root, "model_index.json"), "w") as f:
+        json.dump({"boundary_ratio": WAN_BOUNDARY}, f)
+
+    # the decoder of a full-size AutoencoderKLWan, under diffusers' names
+    vcfg = WanVAEConfig()
+    vae = wan_vae_decoder_random(8, vcfg, device=dev)
+    sd = {}
+
+    def conv(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["w"].cpu(), p["b"].cpu()
+
+    def norm(name, p, dims=3):
+        sd[f"{name}.gamma"] = p["gamma"].reshape(-1, *([1] * dims)).cpu()
+
+    def res(name, p):
+        norm(f"{name}.norm1", p["norm1"])
+        conv(f"{name}.conv1", p["conv1"])
+        norm(f"{name}.norm2", p["norm2"])
+        conv(f"{name}.conv2", p["conv2"])
+        if "shortcut" in p:
+            conv(f"{name}.conv_shortcut", p["shortcut"])
+
+    dec, m = vae["decoder"], "decoder.mid_block"
+    conv("decoder.conv_in", dec["conv_in"])
+    res(f"{m}.resnets.0", dec["mid"]["res0"])
+    res(f"{m}.resnets.1", dec["mid"]["res1"])
+    attn = dec["mid"]["attn"]
+    norm(f"{m}.attentions.0.norm", attn["norm"], dims=2)
+    for nm in ("qkv", "proj"):
+        key = f"{m}.attentions.0.{'to_qkv' if nm == 'qkv' else 'proj'}"
+        sd[f"{key}.weight"] = attn[nm]["w"].t().contiguous()[:, :, None, None].cpu()
+        sd[f"{key}.bias"] = attn[nm]["b"].cpu()
+    idx = 0
+    for blk in dec["up"]:
+        for r in blk["resnets"]:
+            res(f"decoder.up_blocks.{idx}", r)
+            idx += 1
+        if "upsample" in blk:
+            if "time_conv" in blk:
+                conv(f"decoder.up_blocks.{idx}.time_conv", blk["time_conv"])
+            conv(f"decoder.up_blocks.{idx}.resample.1", blk["upsample"])
+            idx += 1
+    norm("decoder.norm_out", dec["norm_out"])
+    conv("decoder.conv_out", dec["conv_out"])
+    conv("post_quant_conv", vae["post_quant_conv"])
+    os.makedirs(os.path.join(root, "vae"))
+    save_file(sd, os.path.join(root, "vae", "model.safetensors"))
+    with open(os.path.join(root, "vae", "config.json"), "w") as f:
+        json.dump({"base_dim": vcfg.base_dim, "z_dim": vcfg.z_dim,
+                   "dim_mult": list(vcfg.dim_mult), "num_res_blocks": vcfg.num_res_blocks,
+                   "temperal_downsample": list(vcfg.temporal_downsample)}, f)
+
+
 def phase_engine(dev) -> None:
     import tempfile
 
@@ -676,6 +1221,52 @@ def phase_engine(dev) -> None:
                 raise AssertionError(f"generate returned {type(img)} {getattr(img, 'shape', '')}")
             del eng
             torch.cuda.empty_cache()
+    _engine_wan(dev, here)
+
+
+def _engine_wan(dev, here: str) -> None:
+    """FastDMEngine on the synthetic Wan2.2-A14B checkpoint: use_int8, the
+    radial config; one 17-frame 480x832 generate."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.engine import FastDMEngine
+
+    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
+        t0 = time.perf_counter()
+        _write_wan_checkpoint(root, dev)
+        log(f"[engine wan] wrote the synthetic two-expert checkpoint in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        eng = FastDMEngine(root, architecture="wan2.2-t2v", use_int8=True,
+                           sparse_attn_config=dataclasses.asdict(_radial().config),
+                           verbose=False, device=dev)
+        log(f"[engine wan] FastDMEngine loaded in {time.perf_counter() - t0:.1f} s: two experts "
+            f"{eng.params_2 is not None}, {eng.cfg.num_layers} block each, inner dim "
+            f"{eng.cfg.inner_dim}, block linears {eng.params.blocks[0].attn1.qkv.w.dtype}, "
+            f"boundary {eng.boundary_ratio}, VAE loaded {eng.vae_params is not None}")
+        if eng.params_2 is None or eng.vae_params is None or \
+                eng.params.blocks[0].attn1.qkv.w.dtype != torch.int8:
+            raise AssertionError("the Wan engine did not load both int8 experts and the VAE")
+        g = torch.Generator(device=dev).manual_seed(200)
+        pos, neg = (torch.randn(1, WAN_TEXT, eng.cfg.text_dim, generator=g, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+        t0 = time.perf_counter()
+        video = eng.generate(prompt_embeds=pos, negative_prompt_embeds=neg, height=WAN_H,
+                             width=WAN_W, num_frames=WAN_ENGINE_FRAMES,
+                             num_inference_steps=WAN_STEPS, guidance_scale=WAN_CFG[0],
+                             guidance_scale_2=WAN_CFG[1], seed=9)
+        log(f"[engine wan] generate {WAN_H}x{WAN_W}x{WAN_ENGINE_FRAMES} {WAN_STEPS} steps: "
+            f"{time.perf_counter() - t0:.3f} s, video {video.shape} {video.dtype}, steps per "
+            f"expert {eng.last_phase_steps}")
+        if not (isinstance(video, np.ndarray) and video.dtype == np.uint8
+                and video.shape == (1, WAN_ENGINE_FRAMES, WAN_H, WAN_W, 3)):
+            raise AssertionError(f"the Wan generate returned {type(video)} "
+                                 f"{getattr(video, 'shape', '')}")
+        del eng
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------- main
@@ -700,6 +1291,7 @@ def main() -> int:
 
     kernels = phase_kernels(dev)
     launches = phase_slice(dev)
+    launches.update(phase_wan(dev))
     phase_engine(dev)
     for name, r in kernels.items():
         r["launches"] = launches[name]

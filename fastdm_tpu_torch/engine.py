@@ -1,18 +1,24 @@
-"""FastDMEngine — the end-user engine of the port (FLUX text-to-image subset
-of fastdm_tpu/engine.py).
+"""FastDMEngine — the end-user engine of the port (the FLUX text-to-image
+and Wan2.2 text-to-video subsets of fastdm_tpu/engine.py).
 
     eng = FastDMEngine("/path/to/FLUX.1-dev", architecture="flux",
                        cache_config={"cache_algorithm": "teacache", ...})
     images = eng.generate(prompt_embeds=..., pooled_prompt_embeds=...,
                           height=1024, width=1024, num_inference_steps=25)
 
-Reads a diffusers-layout checkpoint directory (transformer/ and vae/, each
-with optional config.json overrides) onto the GPU ("cuda" unless the caller
-passes device="cpu"): in bf16, or with use_int8 / use_fp8 the transformer
-blocks' linears quantized at load time to W8A8 (quant_mods=True quantizes the
-AdaLN modulations too). The T5/CLIP text encoders, int4, img2img/Kontext,
-ControlNet and the other model families arrive with later slices and raise
-NotImplementedError here.
+    eng = FastDMEngine("/path/to/Wan2.2-T2V-A14B", architecture="wan2.2-t2v",
+                       use_int8=True, sparse_attn_config="radial_attn_wan.json")
+    video = eng.generate(prompt_embeds=..., negative_prompt_embeds=...,
+                         height=480, width=832, num_frames=81)
+
+Reads a diffusers-layout checkpoint directory (transformer/ — and, for the
+Wan2.2-A14B dual expert, transformer_2/ — and vae/, with their config.json
+and model_index.json) onto the GPU ("cuda" unless the caller passes
+device="cpu"): in bf16, or with use_int8 / use_fp8 the transformer blocks'
+linears quantized at load time to W8A8 (quant_mods=True quantizes FLUX's
+AdaLN modulations too). The T5/CLIP/UMT5 text encoders, int4, img2img,
+Kontext, ControlNet, Wan i2v/ti2v, step caches for Wan and the other model
+families arrive with later slices and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -32,12 +38,49 @@ from fastdm_tpu_torch.models.loader import TensorSource, as_tensor
 from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, flow_match_shift_mu
 from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_load
 
-ARCHITECTURES = ("flux",)
+ARCHITECTURES = ("flux", "wan2.2-t2v", "wan")
+
+# Long-video capacity thresholds (tokens) at which a Wan generate turns on
+# FFN token chunking and, for the dual expert, the split-QKV projection; kept
+# as the JAX engine's (fastdm_tpu/engine.py:45-46)
+_FFN_CHUNK_MIN_TOKENS = 30000
+_SPLIT_QKV_MIN_TOKENS = 60000
 
 # per-model VAE configs (diffusers AutoencoderKL variants)
 VAE_CONFIGS = {
     "flux": VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159),
 }
+
+
+def wan_capacity_config(cfg, tokens: int, dual: bool):
+    """The long-video capacity knobs for a `tokens`-token video, derived per
+    generate as the JAX engine does (fastdm_tpu/engine.py:1345-1369): FFN token
+    chunks of tokens/8 from _FFN_CHUNK_MIN_TOKENS on, and for the dual expert
+    the split-QKV projection from _SPLIT_QKV_MIN_TOKENS on."""
+    chunk = tokens // 8 if tokens >= _FFN_CHUNK_MIN_TOKENS and tokens % 8 == 0 else 0
+    return dataclasses.replace(
+        cfg, ffn_chunk_tokens=chunk,
+        split_qkv_proj=bool(chunk) and dual and tokens >= _SPLIT_QKV_MIN_TOKENS)
+
+
+def wan_super_tables(sparse_attn, cfg, tokens: int, num_frame: int, device):
+    """The radial superblock gather tables of a video shape -> (cfg synced to
+    them, (indices, valbits, rows) int32 tensors on `device`): q tiles of 256
+    tokens, groups of 32 fine blocks (8 superblock entries), fine = the radial
+    config's block_size, superblocks of 4 — the JAX engine's default "super"
+    mode (fastdm_tpu/engine.py:1384-1430). The strict value checks run here,
+    once, on the host's numpy tables; the kernel wrapper never reads them."""
+    from fastdm_tpu_torch.kernels import contracts
+
+    bq, grp, sb = 256, 32, 4
+    fine = sparse_attn.config.block_size
+    cfg = dataclasses.replace(cfg, sparse_gather_fine_blocks=(bq, grp, fine),
+                              sparse_gather_superblock=sb)
+    sparse_attn.post_init(video_token_num=tokens, num_frame=num_frame)
+    tables = sparse_attn.block_lists_super(bq, grp // sb, sb)
+    contracts.check_gather_super("engine.wan super-gather tables", *tables, tokens, tokens, bq,
+                                 grp // sb, fine, sb, strict=True)
+    return cfg, tuple(torch.from_numpy(t).to(device) for t in tables)
 
 
 def _read_json(path):
@@ -50,6 +93,7 @@ class FastDMEngine:
         self, model_path: str, architecture: str = "flux", use_fp8: bool = False,
         use_int8: bool = False, cache_config: Optional[Union[str, Dict[str, Any]]] = None,
         verbose: bool = True, device="cuda", quant_mods: bool = False,
+        sparse_attn_config: Optional[Union[str, Dict[str, Any]]] = None,
     ):
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
@@ -59,7 +103,7 @@ class FastDMEngine:
             raise ValueError("use_fp8 / use_int8 are mutually exclusive")
         self.quant = "fp8" if use_fp8 else ("int8" if use_int8 else None)
         self.quant_mods = quant_mods
-        self.architecture = architecture
+        self.architecture = "wan" if architecture.startswith("wan") else architecture
         self.model_path = model_path
         self.device = resolve_device(device)
         self.verbose = verbose
@@ -70,7 +114,22 @@ class FastDMEngine:
             self.cache_config = (CacheConfig.from_json(cache_config)
                                  if isinstance(cache_config, str)
                                  else CacheConfig.from_dict(cache_config))
-        self._init_flux()
+        self.sparse_attn = None
+        if sparse_attn_config is not None:
+            from fastdm_tpu_torch.sparse.xsparse import SparseAttn
+
+            if self.architecture != "wan":
+                raise ValueError("sparse_attn_config applies to Wan only")
+            self.sparse_attn = (SparseAttn.from_json(sparse_attn_config)
+                                if isinstance(sparse_attn_config, str)
+                                else SparseAttn.from_dict(sparse_attn_config))
+        if self.architecture == "wan":
+            if self.cache_config is not None:
+                raise NotImplementedError(
+                    "step caches for Wan (FBCache / DiCache) are not in this slice of the port")
+            self._init_wan()
+        else:
+            self._init_flux()
         self._denoisers: Dict[tuple, Any] = {}
         # skip count of the most recent generate() under a step cache
         self.last_cache_skips = 0
@@ -112,15 +171,69 @@ class FastDMEngine:
         self.vae_params = vae_load(TensorSource.from_path(
             os.path.join(self.model_path, "vae"), self.device), self.vae_cfg)
 
+    def _init_wan(self) -> None:
+        from fastdm_tpu_torch.models.wan import WanConfig, wan_load
+        from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_load
+
+        kw = self._cfg_overrides(
+            "transformer",
+            ("num_attention_heads", "attention_head_dim", "in_channels", "out_channels",
+             "ffn_dim", "num_layers", "freq_dim", "text_dim", "image_dim",
+             "added_kv_proj_dim"),
+            {"patch_size": lambda v: {"patch_size": tuple(v)},
+             "pos_embed_seq_len": lambda v: {"per_token_timestep": bool(v)}})
+        dense_layers = self.sparse_attn.config.dense_layers if self.sparse_attn else 0
+        self.cfg = WanConfig(quant=self.quant, dense_layers=dense_layers, **kw)
+        self.params = wan_load(TensorSource.from_path(
+            os.path.join(self.model_path, "transformer"), self.device), self.cfg)
+        # Wan2.2-A14B: the low-noise expert, both resident (28 GB in int8
+        # fits one 80 GB card; the JAX engine's host offload was for 16 GB)
+        self.params_2 = None
+        if os.path.isdir(os.path.join(self.model_path, "transformer_2")):
+            self.params_2 = wan_load(TensorSource.from_path(
+                os.path.join(self.model_path, "transformer_2"), self.device), self.cfg)
+        index = os.path.join(self.model_path, "model_index.json")
+        self.boundary_ratio = (_read_json(index).get("boundary_ratio")
+                               if os.path.exists(index) else None)
+        vae_kw = self._cfg_overrides(
+            "vae", ("base_dim", "z_dim", "num_res_blocks", "patch_size", "is_residual"),
+            {"latents_mean": lambda v: {"latents_mean": tuple(v)},
+             "latents_std": lambda v: {"latents_std": tuple(v)},
+             "dim_mult": lambda v: {"dim_mult": tuple(v)},
+             # diffusers spells it 'temperal_downsample'
+             "temperal_downsample": lambda v: {"temporal_downsample": tuple(v)}})
+        self.vae_cfg = WanVAEConfig(**vae_kw)
+        # as the JAX engine: a VAE that does not load leaves generate() with
+        # latent output, and says so
+        try:
+            self.vae_params = wan_vae_load(TensorSource.from_path(
+                os.path.join(self.model_path, "vae"), self.device), self.vae_cfg)
+        except (NotImplementedError, FileNotFoundError, OSError, KeyError, ValueError) as e:
+            print(f"FastDMEngine: the Wan VAE did not load ({e!r}); generate() returns "
+                  "latents", flush=True)
+            self.vae_params = None
+
     # ------------------------------------------------------------ generate
 
-    def generate(self, prompt=None, task: str = "t2i", **kw):
-        """Text-to-image (height, width, num_inference_steps, guidance_scale,
-        seed, prompt_embeds, pooled_prompt_embeds, output_type)."""
-        if task != "t2i" or kw.get("image") is not None:
-            raise NotImplementedError(f"task {task!r} is not in this slice of the port (t2i is)")
+    def generate(self, prompt=None, task: Optional[str] = None, **kw):
+        """FLUX text-to-image (height, width, num_inference_steps,
+        guidance_scale, seed, prompt_embeds, pooled_prompt_embeds,
+        output_type) or Wan text-to-video (height, width, num_frames,
+        num_inference_steps, guidance_scale, guidance_scale_2, seed,
+        prompt_embeds, negative_prompt_embeds, output_type)."""
+        want = "t2v" if self.architecture == "wan" else "t2i"
+        if (task or want) != want or kw.get("image") is not None:
+            raise NotImplementedError(
+                f"task {task!r} is not in this slice of the port ({want} is)")
         kw.pop("image", None)
+        if self.architecture == "wan":
+            return self._generate_wan(prompt, **kw)
         return self._generate_flux(prompt, **kw)
+
+    def _to_uint8(self, x: torch.Tensor) -> np.ndarray:
+        """[-1, 1] float -> uint8 in [0, 255] on the host."""
+        x = (x * 0.5 + 0.5).clamp(0.0, 1.0)
+        return (x * 255).round().to(torch.uint8).cpu().numpy()
 
     def _device_tensor(self, x, dtype) -> torch.Tensor:
         return as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x).to(
@@ -163,5 +276,60 @@ class FastDMEngine:
         if output_type == "latent":
             return latents.cpu().numpy()
         img = vae_decode(self.vae_params, self.vae_cfg, flux_unpack_latents(latents, ht, wt))
-        img = (img * 0.5 + 0.5).clamp(0.0, 1.0)
-        return (img * 255).round().to(torch.uint8).cpu().numpy()
+        return self._to_uint8(img)
+
+    def _generate_wan(self, prompt=None, height: int = 480, width: int = 832,
+                      num_frames: int = 81, num_inference_steps: int = 40,
+                      guidance_scale: float = 5.0, guidance_scale_2: Optional[float] = None,
+                      seed: int = 42, prompt_embeds=None, negative_prompt_embeds=None,
+                      output_type: str = "np"):
+        from fastdm_tpu_torch.models.wan import wan_rope_cos_sin
+        from fastdm_tpu_torch.pipeline.denoise_wan import (
+            make_wan_denoiser,
+            make_wan_dual_phase_denoiser,
+        )
+        from fastdm_tpu_torch.pipeline.schedulers import UniPCMultistepScheduler
+        from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_decode, wan_vae_decode_chunked
+
+        if prompt_embeds is None or negative_prompt_embeds is None:
+            raise NotImplementedError(
+                "the UMT5 text encoder is not in this slice of the port; pass prompt_embeds "
+                "and negative_prompt_embeds")
+        del prompt
+        pos = self._device_tensor(prompt_embeds, torch.bfloat16)
+        neg = self._device_tensor(negative_prompt_embeds, torch.bfloat16)
+        # 4k+1 frames: the VAE's temporal stride (diffusers does the same)
+        num_frames = max(1, 4 * ((num_frames - 1) // 4) + 1)
+        lf, lh, lw = (num_frames - 1) // 4 + 1, height // 8, width // 8
+        pt, ph, pw = self.cfg.patch_size
+        tokens = (lf // pt) * (lh // ph) * (lw // pw)
+        self.cfg = wan_capacity_config(self.cfg, tokens, dual=self.params_2 is not None)
+        sparse_mask, dense_steps = None, 0
+        if self.sparse_attn is not None:
+            self.cfg, sparse_mask = wan_super_tables(self.sparse_attn, self.cfg, tokens,
+                                                     lf // pt, self.device)
+            dense_steps = self.sparse_attn.config.dense_steps
+        cos, sin = wan_rope_cos_sin(self.cfg, lf, lh, lw, device=self.device)
+
+        sched = UniPCMultistepScheduler.create(num_inference_steps, shift=5.0)
+        if self.params_2 is not None:
+            boundary = self.boundary_ratio if self.boundary_ratio is not None else 0.875
+            run = make_wan_dual_phase_denoiser(self.cfg, sched, num_inference_steps,
+                                               guidance_scale, guidance_scale_2, boundary,
+                                               dense_steps)
+            experts = (self.params, self.params_2)
+        else:
+            run = make_wan_denoiser(self.cfg, sched, num_inference_steps, guidance_scale,
+                                    dense_steps)
+            experts = (self.params,)
+        self.last_phase_steps = getattr(run, "phase_steps", (num_inference_steps,))
+        # a seeded torch.Generator: the same seed gives other noise than the
+        # JAX engine's jax.random key
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        latents = torch.randn((1, self.cfg.out_channels, lf, lh, lw), generator=gen,
+                              device=self.device, dtype=torch.float32)
+        latents, _ = run(*experts, latents, pos, neg, cos, sin, sparse_mask)
+        if output_type == "latent" or self.vae_params is None:
+            return latents.cpu().numpy()
+        decode = wan_vae_decode_chunked if lf > 8 else wan_vae_decode
+        return self._to_uint8(decode(self.vae_params, self.vae_cfg, latents))

@@ -1,12 +1,16 @@
-"""Kernel ops of the port: rms_norm, rotary_pos_embedding,
-scaled_dot_product_attention and the W8A8 ops (quantize_to_int8,
-quantize_to_fp8, int8_matmul, fp8_matmul), dispatched by tensor device to the
-plain PyTorch versions (CPU) or the hand-written Hopper kernels (CUDA)."""
+"""Kernel ops of the port: rms_norm, rotary_pos_embedding, qk_norm_rope,
+qk_norm_rope2, scaled_dot_product_attention, gather_super_attention and the
+W8A8 ops (quantize_to_int8, quantize_to_fp8, int8_matmul, fp8_matmul),
+dispatched by tensor device to the plain PyTorch versions (CPU) or the
+hand-written Hopper kernels (CUDA)."""
 
 from fastdm_tpu_torch.kernels import cuda_backend, torch_backend  # noqa: F401  (registration)
 from fastdm_tpu_torch.kernels.ops import (
     fp8_matmul,
+    gather_super_attention,
     int8_matmul,
+    qk_norm_rope,
+    qk_norm_rope2,
     quantize_to_fp8,
     quantize_to_int8,
     rms_norm,
@@ -17,8 +21,11 @@ from fastdm_tpu_torch.kernels.registry import kernel_registry
 
 __all__ = [
     "fp8_matmul",
+    "gather_super_attention",
     "int8_matmul",
     "kernel_registry",
+    "qk_norm_rope",
+    "qk_norm_rope2",
     "quantize_to_fp8",
     "quantize_to_int8",
     "rms_norm",

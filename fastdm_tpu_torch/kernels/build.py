@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rmsnorm", "rope", "flash_attn", "quant", "w8a8_gemm")
+SOURCES = ("rmsnorm", "rope", "qk_norm_rope", "flash_attn", "gather_attn", "quant",
+           "w8a8_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,7 +45,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha1()
-    for f in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for f in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"

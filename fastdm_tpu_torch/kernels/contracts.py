@@ -1,10 +1,12 @@
 """Kernel-boundary contract checks (port of fastdm_tpu/kernels/contracts.py,
-the checks the ported ops need: check_sdpa, check_scaled_mm :230-249). Shape checks run in Python before any
-pointer reaches a kernel, so a bad call dies with a message instead of an
+the checks the ported ops need: check_sdpa, check_gather_super :159-213,
+check_scaled_mm :230-249). Shape checks run in Python before any pointer
+reaches a kernel, so a bad call dies with a message instead of an
 out-of-bounds access on the card."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -33,6 +35,53 @@ def check_sdpa(kernel: str, query, key, value, num_q_heads: int,
                       f"num_kv_heads {num_kv_heads}")
     if head_dim % 8:
         _fail(kernel, f"head_dim {head_dim} must be a multiple of 8")
+
+
+def check_gather_super(kernel: str, block_indices, block_valbits, block_rows, sq: int,
+                       skv: int, block_q: int, group: int, fine: int, superblock: int,
+                       strict: bool = False) -> None:
+    """Superblock gather tables (RadialAttn.block_lists_super): flat (T,)
+    int32 superblock ids and valbits, (ceil(sq/block_q), 2) int32 rows of
+    [group-aligned start, count]. Shapes and dtypes always; with strict=True
+    also the values (indices in range, valbits within `superblock` bits,
+    segments inside the table), which reads them on the host — the engine
+    runs it once on its numpy tables, never per launch."""
+    if superblock < 1 or group < 1 or fine < 1 or block_q < 1:
+        _fail(kernel, f"superblock {superblock}, group {group}, fine {fine} and block_q "
+                      f"{block_q} must be >= 1")
+    ni = -(-sq // block_q)
+    nsuper = -(-(-(-skv // fine)) // superblock)
+    if block_indices.ndim != 1:
+        _fail(kernel, f"block_indices must be flat (T,), got {tuple(block_indices.shape)}")
+    t = block_indices.shape[0]
+    if t % group:
+        _fail(kernel, f"flat table length {t} not a multiple of group {group}")
+    if tuple(block_valbits.shape) != tuple(block_indices.shape):
+        _fail(kernel, f"block_valbits {tuple(block_valbits.shape)} != block_indices "
+                      f"{tuple(block_indices.shape)}")
+    if tuple(block_rows.shape) != (ni, 2):
+        _fail(kernel, f"block_rows must be ({ni}, 2) [start, count], got "
+                      f"{tuple(block_rows.shape)} — q-tile granularity mismatch")
+    for name, arr in (("block_indices", block_indices), ("block_valbits", block_valbits),
+                      ("block_rows", block_rows)):
+        if str(arr.dtype) not in ("int32", "torch.int32"):
+            _fail(kernel, f"{name} dtype {arr.dtype} != int32")
+    if not strict:
+        return
+    idx, val, rows = (np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+                      for a in (block_indices, block_valbits, block_rows))
+    if idx.size and (int(idx.max()) >= nsuper or int(idx.min()) < 0):
+        _fail(kernel, f"superblock index out of range [0, {nsuper}) for skv={skv} at "
+                      f"fine={fine} x superblock={superblock}")
+    if val.size and (int(val.max()) >= (1 << superblock) or int(val.min()) < 0):
+        _fail(kernel, f"valbits out of [0, {(1 << superblock) - 1}]")
+    starts, cnts = rows[:, 0], rows[:, 1]
+    if (starts % group).any():
+        _fail(kernel, f"row starts must be group-aligned (group={group})")
+    if (cnts < 0).any():
+        _fail(kernel, "negative row count")
+    if (starts + -(-cnts // group) * group > t).any():
+        _fail(kernel, f"row segment exceeds flat table length {t}")
 
 
 def check_scaled_mm(kernel: str, a, b, scale_a, scale_b, azp_adj=None,

@@ -147,6 +147,92 @@ def rotary_pos_embedding_cuda(
 rotary_pos_embedding_cuda.launches = 0
 
 
+# ---------------------------------------------------------- qk_norm_rope
+
+
+def _qk_norm_rope_launch(wrapper, entry: str, lead_args, lead_types, q: Tensor, k: Tensor,
+                         d: int, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor],
+                         head_size: int, cos: Tensor, sin: Tensor, is_neox: bool,
+                         eps: float) -> Tuple[Tensor, Tensor]:
+    """The checks both forms share, then one launch of `entry` (q/k given by
+    `lead_args`, their pointers and strides), counted on `wrapper`."""
+    kernel = wrapper.__name__[:-len("_cuda")]
+    if is_neox:
+        raise NotImplementedError(
+            f"[{kernel}] the CUDA kernel rotates interleaved pairs (Wan); the half-split "
+            "(neox) layout has only its plain version until a slice that runs it")
+    dev = q.device
+    for name, t in (("q", q), ("k", k)):
+        _check_tensor(t, kernel, name, dev)
+        _require(t.dim() == 3 and t.shape[:2] == q.shape[:2], kernel,
+                 f"{name} must be (B, S, W) with q's (B, S), got {tuple(t.shape)}")
+        _require(t.data_ptr() % 4 == 0 and t.stride(0) % 2 == 0 and t.stride(1) % 2 == 0,
+                 kernel, f"{name} rows must be 4-byte aligned")
+    b, s = q.shape[:2]
+    _require(head_size % 2 == 0 and d % head_size == 0, kernel,
+             f"width {d} must be a multiple of an even head_size {head_size}")
+    half = head_size // 2
+    cos = cos.to(device=dev, dtype=torch.float32).contiguous()
+    sin = sin.to(device=dev, dtype=torch.float32).contiguous()
+    _require(tuple(cos.shape) == (s, half) and tuple(sin.shape) == (s, half), kernel,
+             f"cos/sin must be ({s}, {half})")
+    _require((gamma_q is None) == (gamma_k is None), kernel, "gamma_q/gamma_k: both or neither")
+    gq = gk = None
+    if gamma_q is not None:
+        _require(gamma_q.numel() == d and gamma_k.numel() == d and gamma_q.device == dev
+                 and gamma_k.device == dev, kernel, f"gamma_q/gamma_k must be ({d},) on {dev}")
+        gq = gamma_q.reshape(d).float().contiguous()
+        gk = gamma_k.reshape(d).float().contiguous()
+    qo = torch.empty(b, s, d, dtype=q.dtype, device=dev)
+    ko = torch.empty(b, s, d, dtype=q.dtype, device=dev)
+    if b * s == 0:
+        return qo, ko
+    lib, fn = _entry("qk_norm_rope", entry, list(lead_types) + [_P] * 6 + [_I] * 4 + [_F, _P])
+    with torch.cuda.device(dev):
+        code = fn(*lead_args, gq.data_ptr() if gq is not None else None,
+                  gk.data_ptr() if gk is not None else None, cos.data_ptr(), sin.data_ptr(),
+                  qo.data_ptr(), ko.data_ptr(), b, s, d, head_size, float(eps), _stream(dev))
+    _check_launch(lib, "fdm_qk_norm_rope", code, kernel)
+    wrapper.launches += 1
+    return qo, ko
+
+
+@kernel_registry.register("qk_norm_rope", "cuda")
+def qk_norm_rope_cuda(
+    qk: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor], head_size: int,
+    cos: Tensor, sin: Tensor, is_neox: bool = False, eps: float = 1e-6,
+    inner_dim: Optional[int] = None,
+) -> Tuple[Tensor, Tensor]:
+    _require(qk.dim() == 3, "qk_norm_rope", f"qk must be (B, S, W), got {tuple(qk.shape)}")
+    d = qk.shape[-1] // 2 if inner_dim is None else inner_dim
+    _require(0 < d and 2 * d <= qk.shape[-1] and d % 2 == 0, "qk_norm_rope",
+             f"inner_dim {d} must be even and fit twice in a row of width {qk.shape[-1]}")
+    # the kernel reads q = columns [0, d) and k = [d, 2d) of each strided row
+    return _qk_norm_rope_launch(
+        qk_norm_rope_cuda, "fdm_qk_norm_rope_bf16", (qk.data_ptr(), qk.stride(0), qk.stride(1)),
+        (_P, _L, _L), qk, qk, d, gamma_q, gamma_k, head_size, cos, sin, is_neox, eps)
+
+
+qk_norm_rope_cuda.launches = 0
+
+
+@kernel_registry.register("qk_norm_rope2", "cuda")
+def qk_norm_rope2_cuda(
+    q: Tensor, k: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor],
+    head_size: int, cos: Tensor, sin: Tensor, is_neox: bool = False, eps: float = 1e-6,
+) -> Tuple[Tensor, Tensor]:
+    _require(q.dim() == 3 and tuple(k.shape) == tuple(q.shape), "qk_norm_rope2",
+             f"q and k must be (B, S, D) of one shape, got {tuple(q.shape)}/{tuple(k.shape)}")
+    return _qk_norm_rope_launch(
+        qk_norm_rope2_cuda, "fdm_qk_norm_rope2_bf16",
+        (q.data_ptr(), k.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1)),
+        (_P, _P, _L, _L, _L, _L), q, k, q.shape[2], gamma_q, gamma_k, head_size, cos, sin,
+        is_neox, eps)
+
+
+qk_norm_rope2_cuda.launches = 0
+
+
 # ------------------------------------------------------------------- sdpa
 
 
@@ -185,6 +271,58 @@ def sdpa_cuda(
 
 
 sdpa_cuda.launches = 0
+
+
+@kernel_registry.register("sdpa_gather_super", "cuda")
+def gather_super_attention_cuda(
+    query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_valbits: Tensor,
+    block_rows: Tensor, num_q_heads: int, num_kv_heads: int, head_dim: int,
+    scale: Optional[float] = None, block_q: int = 512, group: int = 8, fine: int = 64,
+    superblock: int = 4,
+) -> Tensor:
+    """Shapes, dtypes and devices are checked here; the table VALUES are not
+    read (that would sync the card): the kernel clamps its table reads, and
+    the engine checks its tables once on the host (check_gather_super strict)."""
+    kernel = "gather_super"
+    contracts.check_sdpa("gather_super_attention_cuda", query, key, value, num_q_heads,
+                         num_kv_heads, head_dim)
+    b, sq, _ = query.shape
+    skv = key.shape[1]
+    contracts.check_gather_super("gather_super_attention_cuda", block_indices, block_valbits,
+                                 block_rows, sq, skv, block_q, group, fine, superblock)
+    dev = query.device
+    for name, t in (("query", query), ("key", key), ("value", value)):
+        _check_tensor(t, kernel, name, dev)
+        _require(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0,
+                 kernel, f"{name} must be 16-byte aligned with strides multiple of 8")
+    for name, t in (("block_indices", block_indices), ("block_valbits", block_valbits),
+                    ("block_rows", block_rows)):
+        _require(t.device == dev and t.is_contiguous(), kernel,
+                 f"{name} must be a contiguous int32 tensor on {dev}")
+    _require(head_dim in (64, 128), kernel, f"head_dim {head_dim} not in (64, 128)")
+    _require(block_q % 64 == 0 and fine % 64 == 0 and 1 <= superblock <= 30, kernel,
+             f"block_q {block_q} and fine {fine} must be multiples of 64, superblock "
+             f"{superblock} in [1, 30]")
+    if scale is None:
+        scale = head_dim**-0.5
+    out = torch.empty(query.shape, dtype=query.dtype, device=dev)
+    if b * sq == 0:
+        return out
+    lib, fn = _entry("gather_attn", "fdm_gather_super_fwd",
+                     [_P] * 7 + [_I] * 10 + [_L] * 8 + [_F, _P])
+    with torch.cuda.device(dev):
+        code = fn(query.data_ptr(), key.data_ptr(), value.data_ptr(), out.data_ptr(),
+                  block_indices.data_ptr(), block_valbits.data_ptr(), block_rows.data_ptr(),
+                  block_indices.shape[0], block_q, fine, superblock, b, sq, skv, num_q_heads,
+                  num_kv_heads, head_dim, query.stride(0), query.stride(1), key.stride(0),
+                  key.stride(1), value.stride(0), value.stride(1), out.stride(0),
+                  out.stride(1), float(scale * _LOG2E), _stream(dev))
+    _check_launch(lib, "fdm_gather_super", code, kernel)
+    gather_super_attention_cuda.launches += 1
+    return out
+
+
+gather_super_attention_cuda.launches = 0
 
 
 # -------------------------------------------------------------- quantize
@@ -309,8 +447,9 @@ def fp8_matmul_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_
 
 fp8_matmul_cuda.launches = 0
 
-KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, sdpa_cuda, quantize_to_int8_cuda,
-                   quantize_to_fp8_cuda, int8_matmul_cuda, fp8_matmul_cuda)
+KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, qk_norm_rope_cuda,
+                   qk_norm_rope2_cuda, sdpa_cuda, gather_super_attention_cuda,
+                   quantize_to_int8_cuda, quantize_to_fp8_cuda, int8_matmul_cuda, fp8_matmul_cuda)
 
 
 def reset_launch_counts() -> None:

@@ -1,5 +1,6 @@
-"""Kernel-op interface: the ported ops (port of the rmsnorm, rotembd, W8A8
-and sdpa contracts of fastdm_tpu/kernels/ops.py:29-60, :126-213, :216).
+"""Kernel-op interface: the ported ops (port of the rmsnorm, rotembd,
+qk_norm_rope, qk_norm_rope2, W8A8, sdpa and sdpa_gather_super contracts of
+fastdm_tpu/kernels/ops.py:29-119, :126-213, :216, :313).
 
 Same argument lists and semantics as the JAX ops: RoPE returns new (q, k)
 instead of writing into its inputs, cos/sin are two (S, head_size/2) float32
@@ -38,6 +39,30 @@ def rotary_pos_embedding(
     is_neox=False (interleaved): pairs are (x[..., 0::2], x[..., 1::2]);
     is_neox=True (half-split):   pairs are (x[..., :d/2], x[..., d/2:]).
     Returns rotated (query, key) in the input dtype."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("qk_norm_rope")
+def qk_norm_rope(
+    qk: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor], head_size: int,
+    cos: Tensor, sin: Tensor, is_neox: bool = False, eps: float = 1e-6,
+    inner_dim: Optional[int] = None,
+) -> Tuple[Tensor, Tensor]:
+    """RMSNorm(q) and RMSNorm(k) over the full width D (gamma (D,), None = no
+    affine), each rounded to qk's dtype, then rotary embedding with the
+    (S, head_size/2) float32 tables. qk: (B, S, 2D) [q|k], or the full
+    (B, S, 3D) qkv with inner_dim=D (q and k are read in place). Returns
+    (q, k), each (B, S, D) in qk's dtype."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("qk_norm_rope2")
+def qk_norm_rope2(
+    q: Tensor, k: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor],
+    head_size: int, cos: Tensor, sin: Tensor, is_neox: bool = False, eps: float = 1e-6,
+) -> Tuple[Tensor, Tensor]:
+    """qk_norm_rope with q and k (B, S, D) as separate operands (the
+    split-QKV projection path). Same semantics."""
     raise NotImplementedError
 
 
@@ -89,4 +114,24 @@ def scaled_dot_product_attention(
 ) -> Tensor:
     """Attention over flattened-head layouts: query (B, Sq, Hq*D), key/value
     (B, Skv, Hkv*D), GQA when Hkv < Hq. Returns (B, Sq, Hq*D)."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("sdpa_gather_super")
+def gather_super_attention(
+    query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_valbits: Tensor,
+    block_rows: Tensor, num_q_heads: int, num_kv_heads: int, head_dim: int,
+    scale: Optional[float] = None, block_q: int = 512, group: int = 8, fine: int = 64,
+    superblock: int = 4,
+) -> Tensor:
+    """Superblock gather-sparse attention over flattened-head layouts.
+
+    Query rows [i*block_q, (i+1)*block_q) attend to the keys that table row i
+    allows: block_rows[i] = [start, count] names the entries
+    block_indices[start : start + count] (superblock ids; a superblock is the
+    aligned run of `superblock` fine blocks of `fine` tokens) with
+    block_valbits (bit j set = fine sub-block j is allowed). Segments are
+    padded to a multiple of `group` entries (padding: valbits 0). Keys past
+    the sequence end are never allowed; a query row that sees no key returns
+    0. Tables: sparse.xsparse.RadialAttn.block_lists_super."""
     raise NotImplementedError

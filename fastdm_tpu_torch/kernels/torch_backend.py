@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the ported ops (port of
 fastdm_tpu/kernels/jnp_backend/impl.py: rms_norm_jnp :19-26, _rotate and
-rotary_pos_embedding_jnp :29-54/:100-114, quantize_to_int8_jnp :123-140,
-quantize_to_fp8_jnp :191-197, fp8_matmul_jnp :200-218, int8_matmul_jnp
-:221-240, sdpa_jnp :248-280).
+rotary_pos_embedding_jnp :29-54/:100-114, qk_norm_rope_jnp and
+qk_norm_rope2_jnp :57-97, quantize_to_int8_jnp :123-140, quantize_to_fp8_jnp
+:191-197, fp8_matmul_jnp :200-218, int8_matmul_jnp :221-240, sdpa_jnp
+:248-280, sdpa_gather_super_jnp :373-437).
 
 They keep the oracle's rounding points — float32 math, one cast back to the
 input dtype — so the CPU tests can hold them to the JAX package, and
@@ -82,6 +83,32 @@ def rotary_pos_embedding_torch(
     return q4.reshape(qs), k4.reshape(ks)
 
 
+@kernel_registry.register("qk_norm_rope", "torch")
+def qk_norm_rope_torch(
+    qk: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor], head_size: int,
+    cos: Tensor, sin: Tensor, is_neox: bool = False, eps: float = 1e-6,
+    inner_dim: Optional[int] = None,
+) -> Tuple[Tensor, Tensor]:
+    d = qk.shape[-1] // 2 if inner_dim is None else inner_dim
+    return qk_norm_rope2_torch(qk[..., :d], qk[..., d:2 * d], gamma_q, gamma_k, head_size,
+                               cos, sin, is_neox, eps)
+
+
+@kernel_registry.register("qk_norm_rope2", "torch")
+def qk_norm_rope2_torch(
+    q: Tensor, k: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor],
+    head_size: int, cos: Tensor, sin: Tensor, is_neox: bool = False, eps: float = 1e-6,
+) -> Tuple[Tensor, Tensor]:
+    # the oracle's composition: a full-width RMSNorm of each, rounded to the
+    # I/O dtype, then the rotation (impl.py:57-97)
+    b, s, d = q.shape
+    qn = rms_norm_torch(q, gamma_q, eps)
+    kn = rms_norm_torch(k, gamma_k, eps)
+    qn = _rotate(qn.reshape(b, s, -1, head_size), cos, sin, is_neox)
+    kn = _rotate(kn.reshape(b, s, -1, head_size), cos, sin, is_neox)
+    return qn.reshape(b, s, d), kn.reshape(b, s, d)
+
+
 @kernel_registry.register("quantize_to_int8", "torch")
 def quantize_to_int8_torch(x: Tensor, symmetric: bool = True
                            ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
@@ -136,6 +163,37 @@ def fp8_matmul_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out
     return _dequant_epilogue(acc, scale_a, scale_b, out_dtype, bias)
 
 
+def _masked_attention(query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
+                      num_kv_heads: int, head_dim: int, scale: float,
+                      allowed: Optional[Tensor], zero_empty_rows: bool = False) -> Tensor:
+    """sdpa_jnp's math one head at a time (the (Sq, Skv) float32 logits of a
+    single head alive at once): f32 logits, masked entries set to the f32
+    minimum, softmax, probabilities rounded to v's dtype, f32 sums, one cast.
+    allowed: (Sq, Skv) bool or None. zero_empty_rows: a row with no allowed
+    key returns 0 (the gather kernels' l == 0 rule) instead of the uniform
+    average the softmax of equal minima gives."""
+    b, sq, _ = query.shape
+    skv = key.shape[1]
+    q = query.reshape(b, sq, num_q_heads, head_dim)
+    k = key.reshape(b, skv, num_kv_heads, head_dim)
+    v = value.reshape(b, skv, num_kv_heads, head_dim)
+    rep = num_q_heads // num_kv_heads
+    out = torch.empty(b, sq, num_q_heads, head_dim, dtype=query.dtype, device=query.device)
+    blocked = None if allowed is None else ~allowed
+    empty_rows = ~allowed.any(dim=-1) if zero_empty_rows else None
+    for h in range(num_q_heads):
+        kh, vh = k[:, :, h // rep].float(), v[:, :, h // rep]
+        logits = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(), kh) * scale
+        if blocked is not None:
+            logits = logits.masked_fill(blocked, torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits, dim=-1)
+        if empty_rows is not None:
+            probs = probs.masked_fill(empty_rows[:, None], 0.0)
+        out[:, :, h] = torch.einsum(
+            "bqk,bkd->bqd", probs.to(vh.dtype).float(), vh.float()).to(query.dtype)
+    return out.reshape(b, sq, num_q_heads * head_dim)
+
+
 @kernel_registry.register("sdpa", "torch")
 def sdpa_torch(
     query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
@@ -144,26 +202,58 @@ def sdpa_torch(
 ) -> Tensor:
     contracts.check_sdpa("sdpa_torch", query, key, value, num_q_heads,
                          num_kv_heads, head_dim)
-    b, sq, _ = query.shape
-    skv = key.shape[1]
-    q = query.reshape(b, sq, num_q_heads, head_dim)
-    k = key.reshape(b, skv, num_kv_heads, head_dim)
-    v = value.reshape(b, skv, num_kv_heads, head_dim)
-    rep = num_q_heads // num_kv_heads
+    sq, skv = query.shape[1], key.shape[1]
     if scale is None:
         scale = head_dim**-0.5
     mask = None
     if is_causal:
         mask = torch.ones(sq, skv, dtype=torch.bool, device=query.device).tril(skv - sq)
-    out = torch.empty(b, sq, num_q_heads, head_dim, dtype=query.dtype, device=query.device)
-    # one head at a time: the same math as the all-heads einsum of sdpa_jnp,
-    # with the (Sq, Skv) float32 logits of a single head alive at once
-    for h in range(num_q_heads):
-        kh, vh = k[:, :, h // rep].float(), v[:, :, h // rep]
-        logits = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(), kh) * scale
-        if mask is not None:
-            logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-        probs = torch.softmax(logits, dim=-1)
-        out[:, :, h] = torch.einsum(
-            "bqk,bkd->bqd", probs.to(vh.dtype).float(), vh.float()).to(query.dtype)
-    return out.reshape(b, sq, num_q_heads * head_dim)
+    return _masked_attention(query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
+                             mask)
+
+
+def gather_super_allowed(block_indices: Tensor, block_valbits: Tensor, block_rows: Tensor,
+                         skv: int, fine: int, superblock: int) -> Tensor:
+    """(nq, skv) bool: the keys each table row allows (sdpa_gather_super_jnp's
+    table expansion, impl.py:397-417). A key is allowed when the bit of its
+    fine block is set in one of the row's `count` entries; padding slots
+    (valbits 0) allow nothing, and keys past skv do not exist, which caps
+    the global tail fine block at its remainder."""
+    dev = block_indices.device
+    nq, t = block_rows.shape[0], block_indices.shape[0]
+    sb = superblock
+    nsup = -(-(-(-skv // fine)) // sb)
+    starts = block_rows[:, 0].long()
+    slot = torch.arange(t, device=dev)
+    row_of_slot = (torch.searchsorted(starts.contiguous(), slot, right=True) - 1).clamp_min(0)
+    in_row = slot - starts[row_of_slot] < block_rows[:, 1].long()[row_of_slot]
+    sub = torch.arange(sb, device=dev)
+    fids = block_indices.long()[:, None] * sb + sub[None, :]                    # (T, sb)
+    active = ((block_valbits.long()[:, None] >> sub[None, :]) & 1) == 1       # (T, sb)
+    active &= in_row[:, None]
+    grid = torch.zeros(nq, nsup * sb, dtype=torch.bool, device=dev)
+    rows = row_of_slot[:, None].expand(-1, sb)
+    grid[rows[active], fids[active]] = True
+    tok = torch.arange(skv, device=dev)
+    return grid[:, tok // fine]
+
+
+@kernel_registry.register("sdpa_gather_super", "torch")
+def sdpa_gather_super_torch(
+    query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_valbits: Tensor,
+    block_rows: Tensor, num_q_heads: int, num_kv_heads: int, head_dim: int,
+    scale: Optional[float] = None, block_q: int = 512, group: int = 8, fine: int = 64,
+    superblock: int = 4,
+) -> Tensor:
+    contracts.check_sdpa("sdpa_gather_super_torch", query, key, value, num_q_heads,
+                         num_kv_heads, head_dim)
+    sq, skv = query.shape[1], key.shape[1]
+    contracts.check_gather_super("sdpa_gather_super_torch", block_indices, block_valbits,
+                                 block_rows, sq, skv, block_q, group, fine, superblock)
+    allowed = gather_super_allowed(block_indices, block_valbits, block_rows, skv, fine,
+                                   superblock)
+    rows = torch.arange(sq, device=query.device) // block_q
+    if scale is None:
+        scale = head_dim**-0.5
+    return _masked_attention(query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
+                             allowed[rows], zero_empty_rows=True)

@@ -1,5 +1,5 @@
 """Embeddings: timesteps, text projections, RoPE tables (port of
-fastdm_tpu/layers/embeddings.py, the parts FLUX uses).
+fastdm_tpu/layers/embeddings.py, the parts FLUX and Wan use).
 
 RoPE tables are computed on the host in float64 numpy (positions are fixed
 per resolution, so this runs once per generation) and moved to the device as
@@ -53,6 +53,20 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         return self.linear2(F.silu(self.linear1(x)))
+
+
+class PixArtTextProjection(nn.Module):
+    """linear1 -> tanh-GELU -> linear2: the Wan text embedder
+    (PixArtAlphaTextProjection with act_fn "gelu_tanh", port of
+    pixart_text_projection_apply; its SiLU form is TimestepEmbedding)."""
+
+    def __init__(self, linear1: QLinear, linear2: QLinear):
+        super().__init__()
+        self.linear1 = linear1
+        self.linear2 = linear2
+
+    def forward(self, caption: Tensor) -> Tensor:
+        return self.linear2(F.gelu(self.linear1(caption), approximate="tanh"))
 
 
 class CombinedTimestepTextProj(nn.Module):

@@ -1,7 +1,7 @@
 """FeedForward (port of fastdm_tpu/layers/feedforward.py, the tanh-GELU
-activation of the FLUX blocks). The GEGLU family needs the gelu_and_mul kernel
-and arrives with the SDXL slice; the other activations and token chunking
-arrive with the models that use them."""
+activation of the FLUX and Wan blocks, with token chunking). The GEGLU family
+needs the gelu_and_mul kernel and arrives with the SDXL slice; the other
+activations arrive with the models that use them."""
 
 from __future__ import annotations
 
@@ -20,9 +20,17 @@ class FeedForward(nn.Module):
         self.proj = proj
         self.out = out
 
-    def forward(self, x: Tensor, activation_fn: str = "gelu-approximate") -> Tensor:
+    def forward(self, x: Tensor, activation_fn: str = "gelu-approximate",
+                chunk_tokens: int = 0) -> Tensor:
+        """chunk_tokens > 0 and dividing the token count (dim -2): run the
+        FFN over token chunks and concatenate. Exact (every op is per row); the
+        (tokens, ffn_dim) intermediates then exist at chunk size only."""
         if activation_fn != "gelu-approximate":
             raise NotImplementedError(
                 f"activation_fn {activation_fn!r} is not in this slice of the port "
                 "(gelu-approximate is)")
+        s = x.shape[-2]
+        if chunk_tokens and s > chunk_tokens and s % chunk_tokens == 0:
+            return torch.cat([self(x[..., i:i + chunk_tokens, :], activation_fn)
+                              for i in range(0, s, chunk_tokens)], dim=-2)
         return self.out(F.gelu(self.proj(x), approximate="tanh"))

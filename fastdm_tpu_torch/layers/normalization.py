@@ -1,11 +1,12 @@
 """Normalization layers (port of fastdm_tpu/layers/normalization.py, the FLUX
-family). LayerNorm runs in float32 and casts back; the AdaLN modules hold a
-QLinear modulation projection and return the modulated input plus the
-gate/shift/scale chunks, in the JAX functions' order."""
+and Wan families). LayerNorm runs in float32 and casts back (fp32_layer_norm
+returns the float32 result: the fp32 island the Wan modulation reads); the
+AdaLN modules hold a QLinear modulation projection and return the modulated
+input plus the gate/shift/scale chunks, in the JAX functions' order."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -16,10 +17,24 @@ from fastdm_tpu_torch.layers.qlinear import QLinear
 Tensor = torch.Tensor
 
 
-def layer_norm(x: Tensor, eps: float = 1e-6) -> Tensor:
-    """LayerNorm over the last dim, no affine (the FLUX blocks' form), in f32
-    with the biased variance, one cast back."""
-    return F.layer_norm(x.float(), (x.shape[-1],), None, None, eps).to(x.dtype)
+def layer_norm(x: Tensor, gamma: Optional[Tensor] = None, beta: Optional[Tensor] = None,
+               eps: float = 1e-6) -> Tensor:
+    """LayerNorm over the last dim in f32 with the biased variance, then the
+    optional affine (gamma, beta) in f32, one cast back to x's dtype."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), None, None, eps)
+    if gamma is not None:
+        y = y * gamma.float()
+    if beta is not None:
+        y = y + beta.float()
+    return y.to(x.dtype)
+
+
+def fp32_layer_norm(x: Tensor, gamma: Optional[Tensor] = None, beta: Optional[Tensor] = None,
+                    eps: float = 1e-5) -> Tensor:
+    """layer_norm computed and RETURNED in float32 (no round trip through x's
+    dtype): the reference's FP32LayerNorm, whose output feeds the f32
+    modulation (fastdm_tpu/layers/normalization.py:36-44)."""
+    return layer_norm(x.float(), gamma, beta, eps)
 
 
 class AdaLayerNormZero(nn.Module):

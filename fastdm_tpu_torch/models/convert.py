@@ -13,7 +13,11 @@ from typing import Dict
 
 from fastdm_tpu_torch.device import resolve_device
 from fastdm_tpu_torch.layers.attention import JointAttention
-from fastdm_tpu_torch.layers.embeddings import CombinedTimestepTextProj, TimestepEmbedding
+from fastdm_tpu_torch.layers.embeddings import (
+    CombinedTimestepTextProj,
+    PixArtTextProjection,
+    TimestepEmbedding,
+)
 from fastdm_tpu_torch.layers.feedforward import FeedForward
 from fastdm_tpu_torch.layers.normalization import (
     AdaLayerNormContinuous,
@@ -23,6 +27,12 @@ from fastdm_tpu_torch.layers.normalization import (
 from fastdm_tpu_torch.layers.qlinear import QLinear
 from fastdm_tpu_torch.models.flux import FluxDualBlock, FluxSingleBlock, FluxTransformer
 from fastdm_tpu_torch.models.loader import as_tensor
+from fastdm_tpu_torch.models.wan import (
+    WanBlock,
+    WanCrossAttention,
+    WanSelfAttention,
+    WanTransformer,
+)
 
 
 def unstack_blocks(tree: Dict, n: int):
@@ -41,6 +51,18 @@ def _n_layers(tree) -> int:
     return tree.shape[0]
 
 
+def _linear_converter(dev):
+    def lin(p) -> QLinear:
+        if set(p) - {"w", "bias", "scale", "colsum"}:
+            raise NotImplementedError(
+                f"only bf16, int8 and fp8 QLinears convert (int4 waits for its slice); "
+                f"got {sorted(p)}")
+        return QLinear(*(as_tensor(p[k]).to(dev) if k in p else None
+                         for k in ("w", "bias", "scale", "colsum")))
+
+    return lin
+
+
 def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
     """FLUX param tree of fastdm_tpu.models.flux (bf16, int8 or fp8 QLinears,
     numpy leaves, stacked block axis) -> FluxTransformer on `device`. An 8-bit
@@ -51,12 +73,7 @@ def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
     def t(a):
         return as_tensor(a).to(dev)
 
-    def lin(p) -> QLinear:
-        if set(p) - {"w", "bias", "scale", "colsum"}:
-            raise NotImplementedError(
-                f"only bf16, int8 and fp8 QLinears convert (int4 waits for its slice); "
-                f"got {sorted(p)}")
-        return QLinear(*(t(p[k]) if k in p else None for k in ("w", "bias", "scale", "colsum")))
+    lin = _linear_converter(dev)
 
     def mlp(p) -> TimestepEmbedding:
         return TimestepEmbedding(lin(p["linear1"]), lin(p["linear2"]))
@@ -93,6 +110,46 @@ def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
         proj_out=lin(tree["proj_out"]))
 
 
+def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
+    """Wan param tree of fastdm_tpu.models.wan (numpy leaves; the layer-stacked
+    "dense_blocks" then "blocks" groups, either may be None) -> WanTransformer
+    on `device` with one block list in layer order."""
+    dev = resolve_device(device)
+    lin = _linear_converter(dev)
+
+    def t(a):
+        return as_tensor(a).to(dev)
+
+    blocks = []
+    for group in ("dense_blocks", "blocks"):
+        if tree.get(group) is None:
+            continue
+        for blk in unstack_blocks(tree[group], _n_layers(tree[group])):
+            a1, a2 = blk["attn1"], blk["attn2"]
+            if set(a2) - {"q", "kv", "norm_q", "norm_k", "to_out"}:
+                raise NotImplementedError("the Wan image-KV branch (I2V) converts with its slice")
+            norm2 = (t(blk["norm2"]["gamma"]), t(blk["norm2"]["beta"])) if "norm2" in blk else None
+            blocks.append(WanBlock(
+                t(blk["scale_shift_table"]),
+                WanSelfAttention(lin(a1["qkv"]), t(a1["norm_q"]), t(a1["norm_k"]),
+                                 lin(a1["to_out"])),
+                WanCrossAttention(lin(a2["q"]), lin(a2["kv"]), t(a2["norm_q"]), t(a2["norm_k"]),
+                                  lin(a2["to_out"])),
+                FeedForward(lin(blk["ffn"]["proj"]), lin(blk["ffn"]["out"])), norm2))
+    ce = tree["condition_embedder"]
+    if "image_embedder" in ce:
+        raise NotImplementedError("the Wan image embedder (I2V) converts with its slice")
+    return WanTransformer(
+        patch_embedding=lin(tree["patch_embedding"]),
+        time_embedder=TimestepEmbedding(lin(ce["time_embedder"]["linear1"]),
+                                        lin(ce["time_embedder"]["linear2"])),
+        time_proj=lin(ce["time_proj"]),
+        text_embedder=PixArtTextProjection(lin(ce["text_embedder"]["linear1"]),
+                                           lin(ce["text_embedder"]["linear2"])),
+        scale_shift_table=t(tree["scale_shift_table"]), proj_out=lin(tree["proj_out"]),
+        blocks=blocks)
+
+
 def vae_params_from_numpy(tree: Dict, device="cuda") -> Dict:
     """AutoencoderKL param tree of fastdm_tpu.pipeline.vae (numpy leaves,
     HWIO convs) -> the port's dict (OIHW convs) on `device`."""
@@ -113,3 +170,25 @@ def vae_params_from_numpy(tree: Dict, device="cuda") -> Dict:
 
     return walk(tree)
 
+
+
+def wan_vae_params_from_numpy(tree: Dict, device="cuda") -> Dict:
+    """Wan VAE param tree of fastdm_tpu.pipeline.wan_vae (numpy leaves, DHWIO
+    conv3d / HWIO conv2d kernels) -> the port's decoder dict (PyTorch's
+    (out, in, ...) conv layout) on `device`; the encoder and quant_conv are
+    left out, as wan_vae_load does."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if isinstance(node, dict):
+            w = node.get("w")
+            if w is not None and getattr(w, "ndim", 0) in (4, 5):
+                perm = (4, 3, 0, 1, 2) if w.ndim == 5 else (3, 2, 0, 1)
+                return {"w": as_tensor(w).permute(*perm).contiguous().to(dev),
+                        "b": as_tensor(node["b"]).to(dev)}
+            return {k: walk(v) for k, v in node.items()}
+        return as_tensor(node).to(dev)
+
+    return {k: walk(v) for k, v in tree.items() if k in ("decoder", "post_quant_conv")}

@@ -68,6 +68,10 @@ class TensorSource:
     def __contains__(self, name: str) -> bool:
         return name in self._tensors
 
+    def names(self):
+        """Every tensor name of the checkpoint, sorted."""
+        return sorted(self._tensors)
+
     def take(self, name: str) -> Tensor:
         if name not in self._tensors:
             raise KeyError(f"checkpoint tensor {name!r} not found")

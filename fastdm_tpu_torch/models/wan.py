@@ -1,0 +1,447 @@
+"""Wan2.1 / Wan2.2 text-to-video transformer core (port of
+fastdm_tpu/models/wan.py).
+
+PyTorch layout: the blocks are nn.Modules in one nn.ModuleList walked by a
+Python loop; block i < cfg.dense_layers runs dense self-attention, the rest
+take the sparse mask (the JAX package stacks the two groups and scans them).
+The f32 islands of the JAX module are kept: the modulation, the residual adds
+and norm1/norm3/norm_out run in f32, and norm2's output is cast back before
+cross-attention. RoPE tables are computed on the host in float64. Two experts
+(Wan2.2-A14B) are two WanTransformer instances; the denoise loop switches
+between them (pipeline/denoise_wan.py).
+
+Sparse self-attention takes the superblock gather tables (idx, valbits, rows)
+of sparse.xsparse.RadialAttn.block_lists_super with
+cfg.sparse_gather_superblock > 1. The image branch (I2V), per-token timesteps
+(TI2V), the other sparse-mask forms and the cached forward (FBCache/DiCache)
+raise NotImplementedError until their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fastdm_tpu_torch.device import resolve_device
+from fastdm_tpu_torch.kernels import (
+    gather_super_attention,
+    qk_norm_rope,
+    qk_norm_rope2,
+    rms_norm,
+    scaled_dot_product_attention,
+)
+from fastdm_tpu_torch.layers.embeddings import (
+    PixArtTextProjection,
+    TimestepEmbedding,
+    get_timestep_embedding,
+    rope_1d_freqs,
+)
+from fastdm_tpu_torch.layers.feedforward import FeedForward
+from fastdm_tpu_torch.layers.normalization import fp32_layer_norm
+from fastdm_tpu_torch.layers.qlinear import QLinear, qlinear_random, qlinear_slice_out
+from fastdm_tpu_torch.models.loader import TensorSource
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class WanConfig:
+    """Wan2.2-A14B's published transformer (Wan-AI/Wan2.2-T2V-A14B-Diffusers,
+    transformer/config.json) by default, as the JAX WanConfig."""
+
+    patch_size: Tuple[int, int, int] = (1, 2, 2)
+    num_attention_heads: int = 40
+    attention_head_dim: int = 128
+    in_channels: int = 16
+    out_channels: int = 16
+    text_dim: int = 4096
+    freq_dim: int = 256
+    ffn_dim: int = 13824
+    num_layers: int = 40
+    cross_attn_norm: bool = True
+    eps: float = 1e-6
+    image_dim: Optional[int] = None          # I2V image branch: a later slice
+    added_kv_proj_dim: Optional[int] = None  # I2V image-KV branch: a later slice
+    text_len: int = 512                      # fixed text context length
+    dense_layers: int = 0                    # the first N blocks attend densely
+    # > 0: run the FFN, the output projections and the cross-attention over
+    # chunks of this many tokens when it divides the sequence (exact; bounds
+    # the (tokens, ffn_dim) intermediates). The engine derives it.
+    ffn_chunk_tokens: int = 0
+    # project q, k, v separately (column slices of the fused QKV weight, per
+    # token chunk) and use the two-operand qk_norm_rope2: no (S, 3D) buffer
+    split_qkv_proj: bool = False
+    # (block_q, group, fine) of the gather tables; fine = the radial mask's
+    # block_size (the engine syncs it); group counts fine blocks, so a
+    # superblock table is padded to group // superblock entries
+    sparse_gather_fine_blocks: Tuple[int, int, int] = (512, 32, 64)
+    # > 1: a 3-tuple sparse mask holds superblock tables of this many fine
+    # blocks per entry (gather_super_attention)
+    sparse_gather_superblock: int = 1
+    per_token_timestep: bool = False         # Wan2.2-TI2V: a later slice
+    quant: Optional[str] = "int8"            # block linears: None/"bf16" | "int8" | "fp8"
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+def _later_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not in this slice of the port (Wan2.2 "
+                               "text-to-video is); it arrives with a later slice")
+
+
+def check_wan_config(cfg: WanConfig) -> None:
+    if cfg.image_dim is not None or cfg.added_kv_proj_dim is not None:
+        raise _later_slice("the Wan image-conditioning branch (I2V, image_dim / add_k)")
+    if cfg.per_token_timestep:
+        raise _later_slice("per-token timesteps (Wan2.2-TI2V)")
+
+
+def _param(t: Optional[Tensor]) -> Optional[nn.Parameter]:
+    return None if t is None else nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------- modules
+
+
+class WanSelfAttention(nn.Module):
+    """Fused q|k|v projection, full-width q/k RMSNorm weights (D,), output."""
+
+    def __init__(self, qkv: QLinear, norm_q: Tensor, norm_k: Tensor, to_out: QLinear):
+        super().__init__()
+        self.qkv, self.to_out = qkv, to_out
+        self.norm_q, self.norm_k = _param(norm_q), _param(norm_k)
+
+
+class WanCrossAttention(nn.Module):
+    """q from the video tokens, fused k|v from the text context."""
+
+    def __init__(self, q: QLinear, kv: QLinear, norm_q: Tensor, norm_k: Tensor, to_out: QLinear):
+        super().__init__()
+        self.q, self.kv, self.to_out = q, kv, to_out
+        self.norm_q, self.norm_k = _param(norm_q), _param(norm_k)
+
+
+class WanBlock(nn.Module):
+    def __init__(self, scale_shift_table: Tensor, attn1: WanSelfAttention,
+                 attn2: WanCrossAttention, ffn: FeedForward,
+                 norm2: Optional[Tuple[Tensor, Tensor]] = None):
+        super().__init__()
+        self.scale_shift_table = _param(scale_shift_table)  # (6, D) f32
+        self.attn1, self.attn2, self.ffn = attn1, attn2, ffn
+        self.norm2_gamma = _param(None if norm2 is None else norm2[0])
+        self.norm2_beta = _param(None if norm2 is None else norm2[1])
+
+
+class WanTransformer(nn.Module):
+    """The Wan denoiser's parameters; the forward is wan_forward()."""
+
+    def __init__(self, *, patch_embedding: QLinear, time_embedder: TimestepEmbedding,
+                 time_proj: QLinear, text_embedder: PixArtTextProjection,
+                 scale_shift_table: Tensor, proj_out: QLinear, blocks: List[WanBlock]):
+        super().__init__()
+        self.patch_embedding = patch_embedding
+        self.time_embedder, self.time_proj = time_embedder, time_proj
+        self.text_embedder = text_embedder
+        self.scale_shift_table = _param(scale_shift_table)  # (2, D) f32
+        self.proj_out = proj_out
+        self.blocks = nn.ModuleList(blocks)
+
+
+# ---------------------------------------------------------------- params
+
+
+def wan_init_random(seed: int, cfg: WanConfig, device="cuda") -> WanTransformer:
+    """Random-weight Wan transformer (benchmarks and smoke runs without
+    checkpoints): every weight drawn by a torch.Generator seeded with `seed`
+    on `device`, straight into its storage dtype (qlinear_random): the seven
+    linears of each block in cfg.quant, the embedders and the output head in
+    bf16, unit q/k norm weights, modulation tables ~ N(0, 1/D) in f32, as the
+    JAX wan_init_random. The JAX and torch generators give different numbers
+    for the same seed."""
+    check_wan_config(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, q = cfg.inner_dim, cfg.quant
+
+    def lin(k, n, quant=None):
+        return qlinear_random(gen, k, n, quant=quant, device=dev)
+
+    def table(rows):
+        return torch.randn(rows, d, generator=gen, device=dev) / d**0.5
+
+    def ones(dtype=torch.bfloat16):
+        return torch.ones(d, dtype=dtype, device=dev)
+
+    blocks = []
+    for _ in range(cfg.num_layers):
+        norm2 = (ones(torch.float32), torch.zeros(d, device=dev)) if cfg.cross_attn_norm else None
+        blocks.append(WanBlock(
+            table(6),
+            WanSelfAttention(lin(d, 3 * d, q), ones(), ones(), lin(d, d, q)),
+            WanCrossAttention(lin(d, d, q), lin(d, 2 * d, q), ones(), ones(), lin(d, d, q)),
+            FeedForward(lin(d, cfg.ffn_dim, q), lin(cfg.ffn_dim, d, q)), norm2))
+    return WanTransformer(
+        patch_embedding=lin(cfg.in_channels * math.prod(cfg.patch_size), d),
+        time_embedder=TimestepEmbedding(lin(cfg.freq_dim, d), lin(d, d)),
+        time_proj=lin(d, 6 * d),
+        text_embedder=PixArtTextProjection(lin(cfg.text_dim, d), lin(d, d)),
+        scale_shift_table=table(2),
+        proj_out=lin(d, cfg.out_channels * math.prod(cfg.patch_size)),
+        blocks=blocks)
+
+
+def wan_load(src: TensorSource, cfg: WanConfig) -> WanTransformer:
+    """Load a diffusers Wan transformer checkpoint onto src.device (port of
+    the JAX wan_load): the conv3d patch embedding becomes a (C*pt*ph*pw, D)
+    bf16 linear, attn1 q|k|v and attn2 k|v are fused, the block linears are
+    quantized to cfg.quant."""
+    check_wan_config(cfg)
+    if "condition_embedder.image_embedder.norm1.weight" in src:
+        raise _later_slice("the Wan image-conditioning branch (I2V checkpoint)")
+    q = cfg.quant
+    conv_w = src.tensor("patch_embedding.weight", torch.float32)  # (D, C, pt, ph, pw)
+    # patch vector order (C, pt, ph, pw) matches wan_patchify
+    patch_w = conv_w.reshape(conv_w.shape[0], -1).t().to(torch.bfloat16).contiguous()
+    blocks = []
+    for i in range(cfg.num_layers):
+        p = f"blocks.{i}"
+        if f"{p}.attn2.add_k_proj.weight" in src:
+            raise _later_slice("the Wan image-KV branch (add_k_proj)")
+        norm2 = None
+        if cfg.cross_attn_norm:
+            norm2 = (src.tensor(f"{p}.norm2.weight", torch.float32),
+                     src.tensor(f"{p}.norm2.bias", torch.float32))
+        blocks.append(WanBlock(
+            src.tensor(f"{p}.scale_shift_table", torch.float32).reshape(6, -1),
+            WanSelfAttention(
+                src.fused_linear([f"{p}.attn1.to_q", f"{p}.attn1.to_k", f"{p}.attn1.to_v"], q),
+                src.tensor(f"{p}.attn1.norm_q.weight"), src.tensor(f"{p}.attn1.norm_k.weight"),
+                src.linear(f"{p}.attn1.to_out.0", q)),
+            WanCrossAttention(
+                src.linear(f"{p}.attn2.to_q", q),
+                src.fused_linear([f"{p}.attn2.to_k", f"{p}.attn2.to_v"], q),
+                src.tensor(f"{p}.attn2.norm_q.weight"), src.tensor(f"{p}.attn2.norm_k.weight"),
+                src.linear(f"{p}.attn2.to_out.0", q)),
+            FeedForward(src.linear(f"{p}.ffn.net.0.proj", q), src.linear(f"{p}.ffn.net.2", q)),
+            norm2))
+    ce = "condition_embedder"
+    model = WanTransformer(
+        patch_embedding=QLinear(patch_w, src.tensor("patch_embedding.bias")),
+        time_embedder=TimestepEmbedding(src.linear(f"{ce}.time_embedder.linear_1", None),
+                                        src.linear(f"{ce}.time_embedder.linear_2", None)),
+        time_proj=src.linear(f"{ce}.time_proj", None),
+        text_embedder=PixArtTextProjection(src.linear(f"{ce}.text_embedder.linear_1", None),
+                                           src.linear(f"{ce}.text_embedder.linear_2", None)),
+        scale_shift_table=src.tensor("scale_shift_table", torch.float32).reshape(2, -1),
+        proj_out=src.linear("proj_out", None),
+        blocks=blocks)
+    src.assert_consumed()
+    return model
+
+
+# ---------------------------------------------------------------- forward
+
+
+def _chunks(s: int, ct: int):
+    """Token ranges of the chunked path, or None when chunking is off or
+    does not divide s (the JAX module's rule)."""
+    if ct and s > ct and s % ct == 0:
+        return [(i, i + ct) for i in range(0, s, ct)]
+    return None
+
+
+def _wan_self_attention(attn: WanSelfAttention, x: Tensor, cos: Tensor, sin: Tensor,
+                        cfg: WanConfig, sparse_mask) -> Tensor:
+    d, hd = cfg.inner_dim, cfg.attention_head_dim
+    if cfg.split_qkv_proj:
+        # three column-sliced projections, per token chunk, and the
+        # two-operand norm+rope: no (S, 3D) buffer exists
+        qp, kp, vp = (qlinear_slice_out(attn.qkv, i * d, (i + 1) * d) for i in range(3))
+        ranges = _chunks(x.shape[1], cfg.ffn_chunk_tokens) or [(0, x.shape[1])]
+        qs, ks, vs = [], [], []
+        for lo, hi in ranges:
+            xc = x[:, lo:hi]
+            qc, kc = qk_norm_rope2(qp(xc), kp(xc), attn.norm_q, attn.norm_k, hd, cos[lo:hi],
+                                   sin[lo:hi], False, cfg.eps)
+            qs.append(qc)
+            ks.append(kc)
+            vs.append(vp(xc))
+        q, k, v = (t[0] if len(t) == 1 else torch.cat(t, dim=1) for t in (qs, ks, vs))
+    else:
+        qkv = attn.qkv(x)
+        # q and k are normalized and rotated straight out of the fused
+        # projection; v stays a strided view of it
+        q, k = qk_norm_rope(qkv, attn.norm_q, attn.norm_k, hd, cos, sin, False, cfg.eps,
+                            inner_dim=d)
+        v = qkv[..., 2 * d:]
+    return _wan_self_attention_core(attn, x, q, k, v, cfg, sparse_mask)
+
+
+def _wan_self_attention_core(attn: WanSelfAttention, x: Tensor, q: Tensor, k: Tensor,
+                             v: Tensor, cfg: WanConfig, sparse_mask) -> Tensor:
+    h, hd = cfg.num_attention_heads, cfg.attention_head_dim
+    if sparse_mask is None:
+        out = scaled_dot_product_attention(q, k, v, h, h, hd, False, hd**-0.5)
+    elif (isinstance(sparse_mask, (tuple, list)) and len(sparse_mask) == 3
+          and cfg.sparse_gather_superblock > 1):
+        idx, val, rows = sparse_mask
+        bq, grp, fine = cfg.sparse_gather_fine_blocks
+        sb = cfg.sparse_gather_superblock
+        out = gather_super_attention(q, k, v, idx, val, rows, h, h, hd, scale=hd**-0.5,
+                                     block_q=bq, group=max(1, grp // sb), fine=fine,
+                                     superblock=sb)
+    else:
+        raise _later_slice("this sparse-mask form (the block mask, the coarse and the fine "
+                           "gather tables; the superblock tables are ported)")
+    return attn.to_out(out.to(x.dtype), chunk_tokens=cfg.ffn_chunk_tokens)
+
+
+def _wan_cross_attention(attn: WanCrossAttention, x: Tensor, encoder: Tensor,
+                         cfg: WanConfig) -> Tensor:
+    d, h, hd = cfg.inner_dim, cfg.num_attention_heads, cfg.attention_head_dim
+    ct = cfg.ffn_chunk_tokens
+    q = rms_norm(attn.q(x, chunk_tokens=ct), attn.norm_q, cfg.eps)
+    kv = attn.kv(encoder)
+    k = rms_norm(kv[..., :d], attn.norm_k, cfg.eps)
+    v = kv[..., d:]
+    ranges = _chunks(q.shape[1], ct)
+    if ranges is None:
+        out = scaled_dot_product_attention(q, k, v, h, h, hd, False, hd**-0.5)
+    else:  # rows are independent: the text context is the same for every chunk
+        out = torch.cat([scaled_dot_product_attention(q[:, lo:hi], k, v, h, h, hd, False,
+                                                      hd**-0.5) for lo, hi in ranges], dim=1)
+    return attn.to_out(out.to(x.dtype), chunk_tokens=ct)
+
+
+def wan_block(block: WanBlock, hidden: Tensor, encoder: Tensor, temb6: Tensor, cos: Tensor,
+              sin: Tensor, cfg: WanConfig, sparse_mask) -> Tensor:
+    """temb6: (B, 6, D); the modulation and the residual adds in f32."""
+    mod = block.scale_shift_table[None] + temb6.float()
+    shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = (
+        mod[:, i][:, None] for i in range(6))
+    dt = hidden.dtype
+
+    h32 = fp32_layer_norm(hidden, eps=cfg.eps)
+    norm_h = (h32 * (1 + scale_msa) + shift_msa).to(dt)
+    attn_out = _wan_self_attention(block.attn1, norm_h, cos, sin, cfg, sparse_mask)
+    hidden = (hidden.float() + attn_out.float() * gate_msa).to(dt)
+
+    if block.norm2_gamma is not None:
+        # cast back before cross-attention, unlike norm1/norm3/norm_out
+        norm_h = fp32_layer_norm(hidden, block.norm2_gamma, block.norm2_beta, cfg.eps).to(dt)
+    else:
+        norm_h = hidden
+    hidden = hidden + _wan_cross_attention(block.attn2, norm_h, encoder, cfg)
+
+    h32 = fp32_layer_norm(hidden, eps=cfg.eps)
+    norm_h = (h32 * (1 + c_scale) + c_shift).to(dt)
+    ff_out = block.ffn(norm_h, "gelu-approximate", chunk_tokens=cfg.ffn_chunk_tokens)
+    return (hidden.float() + ff_out.float() * c_gate).to(dt)
+
+
+def wan_run_blocks(params: WanTransformer, cfg: WanConfig, hidden: Tensor, encoder: Tensor,
+                   temb6: Tensor, cos: Tensor, sin: Tensor, sparse_mask=None) -> Tensor:
+    """Every block in order; blocks below cfg.dense_layers ignore the mask."""
+    for i, block in enumerate(params.blocks):
+        mask = None if i < cfg.dense_layers else sparse_mask
+        hidden = wan_block(block, hidden, encoder, temb6, cos, sin, cfg, mask)
+    return hidden
+
+
+def wan_patchify(params: WanTransformer, cfg: WanConfig, video: Tensor) -> Tensor:
+    """(B, C, F, H, W) -> (B, N, D) patch tokens: the conv3d as a per-patch
+    matmul on (C, pt, ph, pw)-ordered patch vectors."""
+    b, c, f, h, w = video.shape
+    pt, ph, pw = cfg.patch_size
+    x = video.reshape(b, c, f // pt, pt, h // ph, ph, w // pw, pw)
+    x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+    x = x.reshape(b, (f // pt) * (h // ph) * (w // pw), c * pt * ph * pw)
+    return params.patch_embedding(x.to(torch.bfloat16))
+
+
+def wan_unpatchify(cfg: WanConfig, tokens: Tensor, f: int, h: int, w: int) -> Tensor:
+    """(B, N, C*prod(p)) -> (B, C, F, H, W)."""
+    b = tokens.shape[0]
+    pt, ph, pw = cfg.patch_size
+    x = tokens.reshape(b, f // pt, h // ph, w // pw, pt, ph, pw, cfg.out_channels)
+    x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)
+    return x.reshape(b, cfg.out_channels, f, h, w)
+
+
+def wan_condition(params: WanTransformer, cfg: WanConfig, timestep: Tensor,
+                  encoder_text: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """-> (temb (B, D), temb6 (B, 6D), encoder (B, S_txt, D))."""
+    t_proj = get_timestep_embedding(timestep.reshape(-1).float(), cfg.freq_dim,
+                                    flip_sin_to_cos=True, downscale_freq_shift=0.0)
+    temb = params.time_embedder(t_proj.float()).to(encoder_text.dtype)
+    t6 = params.time_proj(F.silu(temb))
+    encoder = params.text_embedder(encoder_text)
+    return temb, t6, encoder
+
+
+def wan_forward(
+    params: WanTransformer, cfg: WanConfig,
+    hidden_states: Tensor,          # (B, C, F, H, W) video latent
+    timestep: Tensor,               # (B,) train-timestep units (sigma * 1000)
+    encoder_hidden_states: Tensor,  # (B, text_len, text_dim)
+    encoder_hidden_states_image: Optional[Tensor] = None,
+    rope_cos: Optional[Tensor] = None,
+    rope_sin: Optional[Tensor] = None,
+    sparse_mask=None,
+) -> Tensor:
+    """Denoiser forward -> (B, C_out, F, H, W)."""
+    if encoder_hidden_states_image is not None:
+        raise _later_slice("the Wan image-conditioning branch (I2V)")
+    check_wan_config(cfg)
+    b, _, f, h, w = hidden_states.shape
+    if rope_cos is None:
+        rope_cos, rope_sin = wan_rope_cos_sin(cfg, f, h, w, device=hidden_states.device)
+    hidden = wan_patchify(params, cfg, hidden_states)
+    temb, t6, encoder = wan_condition(params, cfg, timestep, encoder_hidden_states)
+    t6 = t6.reshape(b, 6, cfg.inner_dim)
+    hidden = wan_run_blocks(params, cfg, hidden, encoder, t6, rope_cos, rope_sin, sparse_mask)
+    # output modulation: norm_out stays f32 through it
+    mod = params.scale_shift_table[None] + temb.float()[:, None, :]
+    shift, scale = mod[:, 0][:, None], mod[:, 1][:, None]
+    h32 = fp32_layer_norm(hidden, eps=cfg.eps)
+    hidden = (h32 * (1 + scale) + shift).to(hidden.dtype)
+    return wan_unpatchify(cfg, params.proj_out(hidden), f, h, w)
+
+
+def wan_forward_cached(*args, **kwargs):
+    raise _later_slice("the cached Wan forward (FBCache / DiCache)")
+
+
+# ---------------------------------------------------------------- rope
+
+
+def wan_rope_cos_sin(cfg: WanConfig, f: int, h: int, w: int,
+                     device="cuda") -> Tuple[Tensor, Tensor]:
+    """3D RoPE tables (port of the JAX wan_rope_cos_sin): head_dim splits into
+    h_dim = w_dim = 2*(d//6) and t_dim = d - h_dim - w_dim, per-pair angles
+    concatenated (t, h, w) in float64 on the host; returns (cos, sin), each
+    (N, d/2) float32 on `device`."""
+    d = cfg.attention_head_dim
+    pt, ph, pw = cfg.patch_size
+    pf, phh, pww = f // pt, h // ph, w // pw
+    h_dim = w_dim = 2 * (d // 6)
+    t_dim = d - h_dim - w_dim
+    at = rope_1d_freqs(t_dim, np.arange(pf))
+    ah = rope_1d_freqs(h_dim, np.arange(phh))
+    aw = rope_1d_freqs(w_dim, np.arange(pww))
+    a = np.concatenate([
+        np.broadcast_to(at[:, None, None, :], (pf, phh, pww, at.shape[-1])),
+        np.broadcast_to(ah[None, :, None, :], (pf, phh, pww, ah.shape[-1])),
+        np.broadcast_to(aw[None, None, :, :], (pf, phh, pww, aw.shape[-1])),
+    ], axis=-1).reshape(pf * phh * pww, -1)
+    dev = resolve_device(device)
+    return (torch.from_numpy(np.cos(a).astype(np.float32)).to(dev),
+            torch.from_numpy(np.sin(a).astype(np.float32)).to(dev))

@@ -1,7 +1,10 @@
-"""FlowMatch-Euler scheduler (port of fastdm_tpu/pipeline/schedulers.py:31-86).
+"""FlowMatch-Euler and UniPC schedulers (port of
+fastdm_tpu/pipeline/schedulers.py:31-86 and :147-300).
 
-The sigma ladder is computed on the host in numpy (float64, stored float32),
-as in the JAX package; the step is one fused-in-float32 tensor update."""
+The sigma ladders are computed on the host in numpy (float64, stored
+float32), as in the JAX package. The step index is a Python int here (the
+loops are Python loops), so a step's scalar coefficients are computed on the
+host in float64 and only the tensor updates run on the device, in float32."""
 
 from __future__ import annotations
 
@@ -58,3 +61,89 @@ class FlowMatchEulerScheduler:
         JAX package's on-device subtraction."""
         dt = float(self.sigmas[step_index + 1]) - float(self.sigmas[step_index])
         return sample + np.float32(dt).item() * model_output.float()
+
+
+def _flow_lambda(sigma: float) -> float:
+    """log(alpha) - log(sigma) with alpha = 1 - sigma, clamped as the JAX
+    _lambda (the clamp only matters at the ladder's ends)."""
+    s = min(max(float(sigma), 1e-9), 1.0 - 1e-9)
+    return math.log1p(-s) - math.log(s)
+
+
+@dataclasses.dataclass(frozen=True)
+class UniPCMultistepScheduler:
+    """UniPC multistep, order 2, data prediction, the bh2 variant, flow sigmas,
+    lower_order_final: diffusers' WanPipeline default (port of the JAX
+    UniPCMultistepScheduler). The model predicts velocity; x0 = sample -
+    sigma * v is what UniPC integrates. State: the last two x0 predictions
+    (m0, m1) and the pre-predictor sample. The predictor runs order 2 on steps
+    [1, N-2], the corrector order 2 from step 2."""
+
+    sigmas: np.ndarray  # (num_steps + 1,) descending float32, sigmas[-1] = 0
+    num_train_timesteps: int = 1000
+    solver_order: int = 2
+
+    @classmethod
+    def create(cls, num_steps: int, *, shift: float = 5.0, solver_order: int = 2,
+               num_train_timesteps: int = 1000) -> "UniPCMultistepScheduler":
+        if solver_order != 2:
+            raise ValueError("only the order-2 solver (the Wan default) is built")
+        alphas = np.linspace(1.0, 1.0 / num_train_timesteps, num_steps + 1, dtype=np.float64)
+        s = 1.0 - alphas
+        s = np.flip(shift * s / (1.0 + (shift - 1.0) * s))[:-1]
+        sigmas = np.append(s, 0.0).astype(np.float32)
+        return cls(sigmas=sigmas, num_train_timesteps=num_train_timesteps,
+                   solver_order=solver_order)
+
+    @property
+    def timesteps(self) -> np.ndarray:
+        """Model-facing timesteps in [0, 1] (the model multiplies by 1000)."""
+        return self.sigmas[:-1]
+
+    def init_state(self, like: Tensor) -> dict:
+        z = torch.zeros(like.shape, dtype=torch.float32, device=like.device)
+        return {"m0": z, "m1": z, "last_sample": z}
+
+    def step(self, model_output: Tensor, step_index: int, sample: Tensor, state: dict,
+             num_steps: int):
+        """One UniPC predictor (+ corrector from step 1) update ->
+        (prev_sample, new_state); model_output is the velocity at (sample,
+        sigmas[step_index])."""
+        i = int(step_index)
+        sig = [float(v) for v in self.sigmas]
+        sig_i, sig_next = sig[i], sig[i + 1]
+        sig_im1, sig_im2 = sig[max(i - 1, 0)], sig[max(i - 2, 0)]
+        x = sample.float()
+        m0_prev, m1_prev = state["m0"], state["m1"]
+        model_t = x - sig_i * model_output.float()
+
+        if i >= 1:  # corrector (uni_c) on the current sample, from step i-1
+            lam_s0 = _flow_lambda(sig_im1)
+            h_c = _flow_lambda(sig_i) - lam_s0
+            h_phi_1 = math.expm1(-h_c)
+            alpha_t = 1.0 - sig_i
+            x_t = (sig_i / max(sig_im1, 1e-9)) * state["last_sample"] \
+                - alpha_t * h_phi_1 * m0_prev
+            d1_t = model_t - m0_prev
+            if i == 1:
+                x = x_t - alpha_t * h_phi_1 * (0.5 * d1_t)
+            else:
+                b1 = (h_phi_1 / -h_c - 1.0) / h_phi_1
+                b2 = ((h_phi_1 / -h_c - 1.0) / -h_c - 0.5) * 2.0 / h_phi_1
+                r1 = (_flow_lambda(sig_im2) - lam_s0) / h_c
+                rho1 = (b1 - b2) / (1.0 if abs(1.0 - r1) < 1e-12 else 1.0 - r1)
+                d1_1 = (m1_prev - m0_prev) / (1.0 if abs(r1) < 1e-12 else r1)
+                x = x_t - alpha_t * h_phi_1 * (rho1 * d1_1 + (b1 - rho1) * d1_t)
+
+        # predictor (uni_p) from the corrected sample to step i+1
+        lam_s0 = _flow_lambda(sig_i)
+        h = _flow_lambda(sig_next) - lam_s0
+        # exact endpoint: at sigma_next = 0 the order-1 step returns model_t
+        h_phi_1 = -1.0 if sig_next <= 0.0 else math.expm1(-h)
+        alpha_t = 1.0 - sig_next
+        prev = (sig_next / max(sig_i, 1e-9)) * x - alpha_t * h_phi_1 * model_t
+        if 1 <= i <= num_steps - 2:
+            r1 = (_flow_lambda(sig_im1) - lam_s0) / (1.0 if abs(h) < 1e-12 else h)
+            d1_1 = (m0_prev - model_t) / (1.0 if abs(r1) < 1e-12 else r1)
+            prev = prev - alpha_t * h_phi_1 * (0.5 * d1_1)
+        return prev, {"m0": model_t, "m1": m0_prev, "last_sample": x}

@@ -16,6 +16,12 @@ contraction); the fp8 GEMM (f32 sums in another order) within 1 bf16 ulp of
 |plain| plus 2^-16 * scale_a*scale_b * (|a| @ |b|) for outputs that cancel
 towards zero — about twice the random-walk rounding of a K-term f32 sum
 relative to its absolute sum, and 60x under the worst case at K = 15360.
+The Wan kernels: qk_norm_rope / qk_norm_rope2 within one bf16 ulp of the
+value plus two of its rotation pair's magnitude (the normalized value may sit
+one ulp away before the bit-exact rotation mixes the pair), and the fused and
+two-operand forms bit-identical; gather_super as sdpa's FLUX-heads case, and
+bit-identical to the dense sdpa kernel on all-active tables (the same tiles in
+the same order through the same tile code).
 """
 
 import numpy as np
@@ -232,3 +238,141 @@ def test_qlinear_w8a8_launches_its_kernels(cuda_device):
     assert (cuda_backend.quantize_to_int8_cuda.launches, cuda_backend.int8_matmul_cuda.launches,
             cuda_backend.quantize_to_fp8_cuda.launches, cuda_backend.fp8_matmul_cuda.launches) \
         == (1, 1, 1, 1)
+
+
+# ------------------------------------------------------------ Wan kernels
+
+
+def _pair_ulp_excess(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| minus the qk_norm_rope tolerance: one bf16 ulp of the
+    value plus two of its interleaved rotation pair's magnitude (the
+    normalized input may sit one ulp away, and the rotation mixes the pair)."""
+    w = want.float()
+    pair = w.reshape(*w.shape[:-1], -1, 2)
+    mag = pair.norm(dim=-1, keepdim=True).expand_as(pair).reshape(w.shape)
+    return (got.float() - w).abs() - (_bf16_ulp(w) + 2 * _bf16_ulp(mag))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("affine", [True, False])
+def test_qk_norm_rope_kernels_match_plain_on_card(cuda_device, affine):
+    """The fused form reads q|k in place from a strided (B, S, 3D) qkv
+    (inner_dim) and from a (B, S, 2D) one; the two-operand form takes strided
+    q and k views; both forms give the same bits on the same rows."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    b, s, heads, hd = 2, 77, 6, 128
+    d = heads * hd
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    qkv = (torch.randn(b, s, 3 * d, generator=g, device=cuda_device) * 2).bfloat16()
+    gq = gk = None
+    if affine:
+        gq = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).bfloat16()
+        gk = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).bfloat16()
+    cos, sin = _rope_tables(s, hd, cuda_device)
+    want = torch_backend.qk_norm_rope_torch(qkv, gq, gk, hd, cos, sin, inner_dim=d)
+    fused = cuda_backend.qk_norm_rope_cuda(qkv, gq, gk, hd, cos, sin, inner_dim=d)
+    two_d = cuda_backend.qk_norm_rope_cuda(qkv[..., :2 * d].contiguous(), gq, gk, hd, cos, sin)
+    split = cuda_backend.qk_norm_rope2_cuda(qkv[..., :d], qkv[..., d:2 * d], gq, gk, hd, cos, sin)
+    for got in (fused, two_d, split):
+        for a, w in zip(got, want):
+            assert a.shape == (b, s, d) and a.dtype == torch.bfloat16 and a.is_contiguous()
+            assert (_pair_ulp_excess(a, w) <= 0).all()
+    for a, c, e in zip(fused, two_d, split):
+        assert torch.equal(a, c) and torch.equal(a, e)
+    with pytest.raises(NotImplementedError, match="neox"):
+        cuda_backend.qk_norm_rope2_cuda(qkv[..., :d], qkv[..., d:2 * d], gq, gk, hd, cos, sin,
+                                        is_neox=True)
+
+
+def _random_super_tables(nq, skv, fine, group, sb, density, seed, empty_rows=()):
+    from fastdm_tpu_torch.sparse.xsparse import super_tables_from_mask
+
+    rng = np.random.default_rng(seed)
+    nfine = -(-skv // fine)
+    m = rng.random((nq, nfine)) < density
+    m[:, 0] = True
+    m[:, -1] |= rng.random(nq) < 0.5  # the partial tail fine block, in about half the rows
+    for r in empty_rows:
+        m[r] = False
+    return super_tables_from_mask(m, group, sb)
+
+
+# name: (batch, sq, skv, heads_q, heads_kv, head_dim, block_q, fine, group, superblock,
+#        density, empty rows)
+GATHER_CASES = {
+    "ragged-tail": (1, 700, 961, 4, 4, 128, 256, 64, 2, 4, 0.4, ()),
+    "fine128-empty-rows": (2, 1000, 1000, 2, 2, 128, 256, 128, 3, 4, 0.3, (1,)),
+    "gqa-d64-pad": (1, 513, 1500, 8, 2, 64, 128, 64, 4, 2, 0.5, (0,)),
+    "wan-heads": (1, 2048, 2048, 40, 40, 128, 256, 128, 8, 4, 0.4, ()),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_gather_super_kernel_matches_plain_on_card(cuda_device, case):
+    """Ragged sq and skv (a partial tail q tile and a partial tail fine
+    block), rows with no allowed key (0 out), padding slots (segments not a
+    multiple of `group`), GQA and head_dim 64; tolerance as sdpa's FLUX-heads
+    case: 1e-3 + 2 bf16 ulp of |plain| and relative L2 5e-3."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    b, sq, skv, hq, hkv, d, bq, fine, group, sb, density, empty = GATHER_CASES[case]
+    nq = -(-sq // bq)
+    tables = [torch.from_numpy(t).to(cuda_device) for t in
+              _random_super_tables(nq, skv, fine, group, sb, density, 7, empty)]
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    mk = lambda s, h: torch.randn(b, s, h * d, generator=g, device=cuda_device,  # noqa: E731
+                                  dtype=torch.bfloat16)
+    q, k, v = mk(sq, hq), mk(skv, hkv), mk(skv, hkv)
+    kw = dict(block_q=bq, group=group, fine=fine, superblock=sb)
+    got = cuda_backend.gather_super_attention_cuda(q, k, v, *tables, hq, hkv, d, **kw).float()
+    want = torch_backend.sdpa_gather_super_torch(q, k, v, *tables, hq, hkv, d, **kw).float()
+    assert ((got - want).abs() <= 1e-3 + 2 * _bf16_ulp(want)).all()
+    assert (got - want).norm() / want.norm() <= 5e-3
+    for r in empty:
+        assert not got[:, r * bq:(r + 1) * bq].any()
+
+
+@pytest.mark.gpu
+def test_gather_super_all_active_equals_dense_kernel(cuda_device):
+    """Tables that allow every key give the dense sdpa kernel's result: the
+    same tiles in the same order through the same tile code, so bit for bit."""
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.sparse.xsparse import super_tables_from_mask
+
+    b, sq, skv, h, d, bq, fine, sb = 1, 1000, 1000, 4, 128, 256, 128, 4
+    nq = -(-sq // bq)
+    tables = [torch.from_numpy(t).to(cuda_device) for t in
+              super_tables_from_mask(np.ones((nq, -(-skv // fine)), bool), 2, sb)]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(b, s, h * d, generator=g, device=cuda_device, dtype=torch.bfloat16)
+               for s in (sq, skv, skv))
+    got = cuda_backend.gather_super_attention_cuda(q, k, v, *tables, h, h, d, block_q=bq,
+                                                   group=2, fine=fine, superblock=sb)
+    assert torch.equal(got, cuda_backend.sdpa_cuda(q, k, v, h, h, d))
+
+
+@pytest.mark.gpu
+def test_wan_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.sparse.xsparse import super_tables_from_mask
+
+    q = torch.zeros(1, 300, 2 * 128, device=cuda_device, dtype=torch.bfloat16)
+    tables = [torch.from_numpy(t).to(cuda_device) for t in
+              super_tables_from_mask(np.ones((2, 5), bool), 2, 4)]
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cuda_backend.gather_super_attention_cuda(q, q, q, *tables, 2, 2, 128, block_q=256,
+                                                 group=2, fine=32, superblock=4)
+    with pytest.raises(ValueError, match="block_rows"):
+        cuda_backend.gather_super_attention_cuda(q, q, q, *tables, 2, 2, 128, block_q=128,
+                                                 group=2, fine=64, superblock=4)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_backend.gather_super_attention_cuda(q, q, q, tables[0].long(), *tables[1:], 2, 2,
+                                                 128, block_q=256, group=2, fine=64,
+                                                 superblock=4)
+    cos = torch.zeros(300, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="cos/sin"):
+        cuda_backend.qk_norm_rope2_cuda(q, q, None, None, 128, cos[:10], cos[:10])
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_backend.qk_norm_rope2_cuda(q.float(), q.float(), None, None, 128, cos, cos)

@@ -36,12 +36,17 @@ from fastdm_tpu.kernels.jnp_backend.impl import (
     int8_matmul_jnp,
     quantize_to_fp8_jnp,
     quantize_to_int8_jnp,
+    qk_norm_rope2_jnp,
+    qk_norm_rope_jnp,
     rms_norm_jnp,
     rotary_pos_embedding_jnp,
+    sdpa_gather_super_jnp,
     sdpa_jnp,
 )
-from fastdm_tpu.kernels.pallas.attention import sdpa_pallas
+from fastdm_tpu.kernels.pallas.attention import sdpa_gather_super_pallas, sdpa_pallas
 from fastdm_tpu.kernels.pallas.elementwise import (
+    qk_norm_rope2_pallas,
+    qk_norm_rope_pallas,
     quantize_to_fp8_pallas,
     quantize_to_int8_pallas,
     rms_norm_pallas,
@@ -50,8 +55,11 @@ from fastdm_tpu.kernels.pallas.elementwise import (
 from fastdm_tpu.kernels.pallas.matmul import fp8_matmul_pallas, int8_matmul_pallas
 from fastdm_tpu_torch.kernels import (
     fp8_matmul,
+    gather_super_attention,
     int8_matmul,
     kernel_registry,
+    qk_norm_rope,
+    qk_norm_rope2,
     quantize_to_fp8,
     quantize_to_int8,
     rms_norm,
@@ -163,7 +171,8 @@ def test_dispatch_follows_device():
     ops or for the ops it names."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     w8a8 = ("quantize_to_int8", "quantize_to_fp8", "int8_matmul", "fp8_matmul")
-    for op in ("rmsnorm", "rotembd", "sdpa") + w8a8:
+    for op in ("rmsnorm", "rotembd", "qk_norm_rope", "qk_norm_rope2", "sdpa",
+               "sdpa_gather_super") + w8a8:
         assert kernel_registry.backend_for(op, cpu) == "torch"
         assert kernel_registry.backend_for(op, cuda) == "cuda"
         with kernel_registry.plain_on_device():
@@ -191,7 +200,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
     from fastdm_tpu_torch.kernels.build import CSRC, SOURCES
 
     replaces = {"rmsnorm": ("rms_norm_pallas",), "rope": ("rotary_pos_embedding_pallas",),
-                "flash_attn": ("sdpa_pallas",),
+                "qk_norm_rope": ("qk_norm_rope_pallas", "qk_norm_rope2_pallas"),
+                "flash_attn": ("sdpa_pallas",), "gather_attn": ("sdpa_gather_super_pallas",),
                 "quant": ("quantize_to_int8_pallas", "quantize_to_fp8_pallas"),
                 "w8a8_gemm": ("int8_matmul_pallas", "fp8_matmul_pallas")}
     assert set(SOURCES) == set(replaces)
@@ -339,3 +349,143 @@ def test_scaled_mm_contract_rejects_bad_shapes():
     with pytest.raises(ValueError, match="bias"):
         fp8_matmul(a.to(torch.float8_e4m3fn), b.to(torch.float8_e4m3fn), sa, sb, torch.bfloat16,
                    torch.zeros(5))
+
+
+
+# ------------------------------------------------------------ Wan kernels
+#
+# qk_norm_rope / qk_norm_rope2: f32 within 1e-5; bf16 within one bf16 ulp of
+# the JAX value plus two of its rotation pair's magnitude (the normalized
+# value, rounded to bf16 before the rotation, may sit one ulp away: f32 sum
+# order; the rotation mixes the pair). gather_super: as sdpa above — f32 within
+# 1e-5 of the jnp oracle, within 2e-2 of the Pallas kernel (which rounds
+# q*scale*log2(e) to the input dtype, attention.py:838) as
+# tests/test_gather_super.py holds it.
+
+
+def _qk_close(port, ref, dtype: str):
+    p, r = _np(port), _np(ref)
+    assert p.shape == r.shape
+    if dtype == "f32":
+        np.testing.assert_allclose(p, r, rtol=1e-5, atol=1e-5)
+        return
+    pair = r.reshape(*r.shape[:-1], -1, 2)
+    mag = np.repeat(np.linalg.norm(pair, axis=-1), 2, axis=-1).reshape(r.shape)
+    assert (np.abs(p - r) <= _bf16_ulp(r) + 2 * _bf16_ulp(mag)).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("form", ["qkv-inner-dim", "qk", "two-operand"])
+@pytest.mark.parametrize("ref", ["jnp", "pallas"])
+def test_qk_norm_rope_matches_jax(dtype, form, ref):
+    """Full-width RMSNorm of q and k (3 heads of 32, gamma of length 96), then
+    interleaved RoPE; the fused form reads q|k in place from a (B, S, 3D)
+    qkv, from a (B, S, 2D) one, or q and k come as two operands."""
+    rng = np.random.default_rng(4)
+    b, s, hd, heads = 2, 37, 32, 3
+    d = heads * hd
+    x_t, x_j = _pair(rng.standard_normal((b, s, 3 * d)) * 2, dtype)
+    gq_t, gq_j = _pair(1 + 0.1 * rng.standard_normal(d), dtype)
+    gk_t, gk_j = _pair(1 + 0.1 * rng.standard_normal(d), dtype)
+    (cos_t, sin_t), (cos_j, sin_j) = _rope_tables(s, hd)
+    args_t = (gq_t, gk_t, hd, cos_t, sin_t, False, 1e-6)
+    args_j = (gq_j, gk_j, hd, cos_j, sin_j, False, 1e-6)
+    if form == "two-operand":
+        got = qk_norm_rope2(x_t[..., :d], x_t[..., d:2 * d], *args_t)
+        fn = qk_norm_rope2_jnp if ref == "jnp" else qk_norm_rope2_pallas
+        want = fn(x_j[..., :d], x_j[..., d:2 * d], *args_j)
+    else:
+        xt, xj, inner = (x_t, x_j, d) if form == "qkv-inner-dim" else \
+            (x_t[..., :2 * d], x_j[..., :2 * d], None)
+        got = qk_norm_rope(xt, *args_t, inner_dim=inner)
+        fn = qk_norm_rope_jnp if ref == "jnp" else qk_norm_rope_pallas
+        want = fn(xj, *args_j, inner_dim=inner)
+    for g, w in zip(got, want):
+        assert g.dtype == x_t.dtype
+        _qk_close(g, w, dtype)
+
+
+def _super_tables(nq, nfine, group, sb, density, seed, full=False):
+    from fastdm_tpu_torch.sparse.xsparse import super_tables_from_mask
+
+    rng = np.random.default_rng(seed)
+    m = np.ones((nq, nfine), bool) if full else rng.random((nq, nfine)) < density
+    m[:, 0] = True
+    return super_tables_from_mask(m, group, sb)
+
+
+def _gather_pair(sq, skv, h, d, fine, bq, group, sb, density, seed, full=False):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((1, n, h * d)) for n in (sq, skv, skv))
+    tables = _super_tables(-(-sq // bq), -(-skv // fine), group, sb, density, seed, full)
+    kw = dict(block_q=bq, group=group, fine=fine, superblock=sb)
+    got = gather_super_attention(*(_pair(a, "f32")[0] for a in (q, k, v)),
+                                 *(torch.from_numpy(t) for t in tables), h, h, d, **kw)
+    jargs = tuple(jnp.asarray(a, jnp.float32) for a in (q, k, v)) + tuple(
+        jnp.asarray(t) for t in tables)
+    return got, jargs, kw, (q, k, v)
+
+
+@pytest.mark.parametrize("skv,group,sb", [(1024, 2, 4), (961, 2, 4), (1024, 4, 2), (900, 1, 8)])
+@pytest.mark.parametrize("ref", ["jnp", "pallas"])
+def test_gather_super_matches_jax(skv, group, sb, ref):
+    """tests/test_gather_super.py:83 on the port: random fine masks packed
+    into superblock tables (ragged skv: a partial tail fine block)."""
+    h, d = 2, 64
+    got, jargs, kw, _ = _gather_pair(512, skv, h, d, 64, 256, group, sb, 0.4, 0)
+    fn = sdpa_gather_super_jnp if ref == "jnp" else sdpa_gather_super_pallas
+    want = fn(*jargs, h, h, d, **kw)
+    if ref == "jnp":
+        _assert_close(got, want, "f32")
+    else:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+
+
+def test_gather_super_full_tables_equal_dense():
+    """tests/test_gather_super.py:121: tables that allow every key give sdpa."""
+    h, d = 2, 64
+    got, _, _, (q, k, v) = _gather_pair(256, 512, h, d, 64, 128, 2, 4, 1.0, 2, full=True)
+    want = scaled_dot_product_attention(*(_pair(a, "f32")[0] for a in (q, k, v)), h, h, d)
+    _assert_close(got, want, "f32")
+
+
+@pytest.mark.parametrize("sq", [480, 300])
+def test_gather_super_partial_tail_q_block(sq):
+    """tests/test_gather_super.py:230: sq % block_q != 0. The tail q tile's
+    row is emptied (count 0) and must give 0; the first tile matches the
+    oracle (which reads every slot of a segment, not only `count` of them, so
+    its tail rows keep their old entries)."""
+    h, d, bq = 2, 64, 256
+    rng = np.random.default_rng(21)
+    q, k, v = (rng.standard_normal((1, n, h * d)) for n in (sq, 1024, 1024))
+    idx, val, rows = _super_tables(-(-sq // bq), 16, 2, 4, 0.5, 21)
+    rows = rows.copy()
+    rows[1, 1] = 0  # the tail q tile sees nothing
+    kw = dict(block_q=bq, group=2, fine=64, superblock=4)
+    got = gather_super_attention(*(_pair(a, "f32")[0] for a in (q, k, v)),
+                                 *(torch.from_numpy(t) for t in (idx, val, rows)), h, h, d, **kw)
+    want = sdpa_gather_super_jnp(*(jnp.asarray(a, jnp.float32) for a in (q, k, v)),
+                                 jnp.asarray(idx), jnp.asarray(val), jnp.asarray(rows),
+                                 h, h, d, **kw)
+    assert tuple(got.shape) == (1, sq, h * d)
+    assert not got[:, bq:].any()
+    np.testing.assert_allclose(_np(got)[:, :bq], _np(want)[:, :bq], rtol=1e-5, atol=1e-5)
+
+
+def test_gather_super_contract_rejects_bad_tables():
+    from fastdm_tpu_torch.kernels.contracts import check_gather_super
+
+    idx, val, rows = _super_tables(2, 16, 2, 4, 0.5, 3)
+    ok = dict(sq=512, skv=1024, block_q=256, group=2, fine=64, superblock=4)
+    check_gather_super("t", idx, val, rows, strict=True, **ok)
+    bad = {"block_rows": (idx, val, rows[:1]), "int32": (idx.astype(np.int64), val, rows),
+           "multiple of group": (idx[:-1], val[:-1], rows)}
+    for msg, tables in bad.items():
+        with pytest.raises(ValueError, match=msg):
+            check_gather_super("t", *tables, **ok)
+    wrong = {"out of range": (idx + 4, val, rows), "valbits": (idx, val + 16, rows),
+             "group-aligned": (idx, val, rows + np.array([[1, 0]], np.int32))}
+    for msg, tables in wrong.items():
+        check_gather_super("t", *tables, **ok)  # shapes only: values are not read
+        with pytest.raises(ValueError, match=msg):
+            check_gather_super("t", *tables, strict=True, **ok)

@@ -225,6 +225,37 @@ def test_layer_norm_matches_jax(shape):
     np.testing.assert_allclose(_np(tnorm.layer_norm(xt)), _np(jnorm.layer_norm(xj)), **F32)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fp32_layer_norm_affine_matches_jax(dtype):
+    """Wan's norm2 (gamma, beta) and norm1/norm3 (no affine): f32 out from
+    either input dtype."""
+    rng = np.random.default_rng(13)
+    xj, xt = _x_pair(rng, (2, 9, 48), dtype, scale=3.0)
+    g = (1 + 0.1 * rng.standard_normal(48)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(48)).astype(np.float32)
+    for gb in ((None, None), (g, b)):
+        gj, bj = (None if a is None else jnp.asarray(a) for a in gb)
+        gt, bt = (None if a is None else torch.from_numpy(a) for a in gb)
+        got = tnorm.fp32_layer_norm(xt, gt, bt, 1e-6)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), _np(jnorm.fp32_layer_norm(xj, gj, bj, 1e-6)), **F32)
+
+
+def test_feedforward_chunks_are_exact():
+    """Token chunks of the FFN (Wan's ffn_chunk_tokens) give the unchunked
+    result bit for bit, in bf16 and in int8; a chunk that does not divide the
+    token count runs unchunked, as in JAX."""
+    rng = np.random.default_rng(14)
+    _, xt = _x_pair(rng, (1, 12, 32), "bf16")
+    for quant in (None, "int8"):
+        g = torch.Generator().manual_seed(5)
+        ff = FeedForward(tql.qlinear_random(g, 32, 64, quant=quant, device="cpu"),
+                         tql.qlinear_random(g, 64, 32, quant=quant, device="cpu"))
+        full = ff(xt)
+        for chunk in (4, 6, 5):
+            assert torch.equal(ff(xt, chunk_tokens=chunk), full)
+
+
 @pytest.mark.parametrize("kind", ["zero", "zero_single", "continuous"])
 def test_ada_layer_norm_family_matches_jax(kind):
     rng = np.random.default_rng(4)
