@@ -7,11 +7,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
   1. kernels: build every hand-written kernel from csrc/ (one nvcc per source,
      all at once), run each at its main-path shapes (FLUX.1-dev 1024x2048;
      Wan2.2-A14B 480x832x81, 32760 tokens, for qk_norm_rope, qk_norm_rope2 and
-     gather_super) and hold it to its plain PyTorch version with a stated
-     tolerance; time the kernel, the plain version and, where one PyTorch call
-     computes the same function, that call (a yardstick the port never calls).
-     The W8A8 kernels are also timed at every GEMM / quantize shape of a FLUX
-     forward, which gives the forward's GEMM and quantize time.
+     the four sparse-attention walks, each on its mode's radial tables) and
+     hold it to its plain PyTorch version with a stated tolerance; time the
+     kernel, the plain version and, where one PyTorch call computes the same
+     function, that call (a yardstick the port never calls). The W8A8 kernels
+     are also timed at every GEMM / quantize shape of a FLUX forward, which
+     gives the forward's GEMM and quantize time.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
      heads, random weights from a seed) three times: in bf16, in int8 and in
      fp8 (W8A8 block linears drawn straight into int8 / e4m3). Each serves
@@ -31,13 +32,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
      from the code; one full-size forward on the kernels held to the same
      forward on the plain versions; the split-QKV forward (qk_norm_rope2)
      held bit for bit to the fused one; each kernel timed at every shape of
-     a forward, for the forward's split.
+     a forward, for the forward's split. Then one full-size forward in each
+     other sparse mode (fine, coarse, mask), timed, with exact launch counts,
+     and each held to its plain forward at 17 frames; the request again under
+     FBCache (fbcache_wan.json, warmup cut to 1) and DiCache (dicache_wan.json)
+     with skips, block stacks and launches equal to the counts derived from
+     the code; and a forced skip that must replay the cached residual.
   4. engine: synthetic diffusers-layout checkpoints are written to a scratch
      dir — FLUX (full width, one dual and one single block, full-size VAE),
      loaded in bf16, with use_int8 and with use_fp8; Wan2.2-A14B (two experts
      at full width with one block each, model_index.json, full-size VAE),
      loaded with use_int8 and the radial config — and generate() is called
-     once each.
+     once each; for Wan once in each sparse mode (FASTDM_SPARSE_GATHER) and
+     once under each cache JSON.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -431,19 +438,13 @@ def _wan_kernels(dev, g) -> dict:
     """qk_norm_rope on the fused QKV output of a Wan2.2-A14B self-attention at
     480x832x81 (32760 tokens, q|k read in place from (1, S, 15360)),
     qk_norm_rope2 on the split path's per-chunk q and k ((1, 4095, 5120) at
-    480p, (1, 9450, 5120) as a 720p chunk), gather_super on the radial
-    superblock tables of that video (40 heads of 128), with the real 3D RoPE
-    tables; plus: all-active tables equal the dense sdpa kernel bit for bit,
-    and an emptied table row gives zeros."""
-    import numpy as np
+    480p, (1, 9450, 5120) as a 720p chunk), with the real 3D RoPE tables; then
+    the four sparse-attention walks (_sparse_walks)."""
     import torch
-    import torch.nn.functional as F
 
-    from fastdm_tpu_torch.engine import wan_super_tables
     from fastdm_tpu_torch.kernels import cuda_backend as cb
     from fastdm_tpu_torch.kernels import torch_backend as tb
     from fastdm_tpu_torch.models.wan import WanConfig, wan_rope_cos_sin
-    from fastdm_tpu_torch.sparse.xsparse import super_tables_from_mask
 
     results = {}
     lf, lh, lw, s = _wan_shape(WAN_FRAMES)
@@ -495,79 +496,158 @@ def _wan_kernels(dev, g) -> dict:
                 library_ms=None)
         del q, k
 
-    # --- gather_super on the radial tables of the 81-frame video
-    cfg, tables = wan_super_tables(_radial(), WanConfig(), s, lf, dev)
+    del cos, sin
+    results.update(_sparse_walks(dev, g))
+    return results
+
+
+# the sparse mode -> (its kernel's name in the counts and the kernels line,
+# the TPU kernel it replaces)
+SPARSE_KERNEL = {"super": ("gather_super", "attention.py:1002"),
+                 "fine": ("gather_fine", "attention.py:759"),
+                 "coarse": ("gather_coarse", "attention.py:1069"),
+                 "mask": ("sparse_mask", "attention.py:1122")}
+
+
+def _walk(mode: str, cfg, tables, q, k, v, plain: bool = False):
+    """One self-attention of the mode on its tables (kernel or plain version)."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+
+    h, hd = cfg.num_attention_heads, cfg.attention_head_dim
     bq, grp, fine = cfg.sparse_gather_fine_blocks
     sb = cfg.sparse_gather_superblock
-    kw = dict(block_q=bq, group=grp // sb, fine=fine, superblock=sb)
-    q, k, v = (torch.randn(1, s, d, generator=g, device=dev, dtype=torch.bfloat16)
-               for _ in range(3))
-    h = WAN_HEADS
+    if mode == "mask":
+        fn = tb.sdpa_sparse_torch if plain else cb.sparse_attention_cuda
+        return fn(q, k, v, h, h, hd, sparse_mask=tables, block_q=128, block_k=128)
+    if mode == "coarse":
+        fn = tb.sdpa_gather_torch if plain else cb.gather_sparse_attention_cuda
+        bq, bk = cfg.sparse_gather_blocks
+        return fn(q, k, v, *tables, h, h, hd, block_q=bq, block_k=bk)
+    if mode == "fine":
+        fn = tb.sdpa_gather_fine_torch if plain else cb.gather_fine_attention_cuda
+        return fn(q, k, v, *tables, h, h, hd, block_q=bq, group=grp, fine=fine)
+    fn = tb.sdpa_gather_super_torch if plain else cb.gather_super_attention_cuda
+    return fn(q, k, v, *tables, h, h, hd, block_q=bq, group=grp // sb, fine=fine, superblock=sb)
 
-    def kern(t=tables):
-        return cb.gather_super_attention_cuda(q, k, v, *t, h, h, hd, **kw)
 
-    plain = lambda: tb.sdpa_gather_super_torch(q, k, v, *tables, h, h, hd, **kw)  # noqa: E731
-    got = kern()
-    want = plain()
-    e = (got.float() - want.float()).abs()
-    rel = (e.norm() / want.float().norm()).item()
-    excess = (e - 1e-3 - 2 * bf16_ulp(want)).max().item()
-    gather_err = e.max().item()
-    log(f"[gather_super] q/k/v (1, {s}, {d}), {h} heads, tables {tuple(tables[0].shape)} "
-        f"entries x {tuple(tables[2].shape)} rows (block_q {bq}, group {grp // sb}, fine {fine}, "
-        f"superblock {sb}): max_abs_err {gather_err:.3e}, rel L2 {rel:.3e} "
-        f"(tolerance 1e-3 + 2 ulp, rel L2 5e-3)")
-    if not (excess <= 0 and rel <= 5e-3 and torch.isfinite(got).all()):
-        raise AssertionError("gather_super disagrees with its plain version")
-    del want, e
-    # all-active tables walk every tile in order: the dense kernel's result
+def _walk_tables(mode: str, cfg, tables, s: int):
+    """(allowed (nq, S) bool: the keys each table row allows, block_q,
+    tables that allow every key, the tables with row 5 emptied)."""
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.sparse.xsparse import fine_tables_from_mask, mask_to_block_lists, \
+        super_tables_from_mask
+
+    dev = tables[0].device
+    to = lambda ts: tuple(torch.from_numpy(t).to(dev) for t in ts)  # noqa: E731
+    tok = torch.arange(s, device=dev)
+    bq, grp, fine = cfg.sparse_gather_fine_blocks
+    sb = cfg.sparse_gather_superblock
+    if mode == "mask":
+        m = tables[0, 0].bool()
+        empty = tables.clone()
+        empty[:, :, 5] = 0
+        return m[:, tok // 128], 128, torch.ones_like(tables), empty
+    if mode == "coarse":
+        bq, bk = cfg.sparse_gather_blocks
+        m = tb.gather_lists_allowed(*tables, s, bk)
+        full = to(mask_to_block_lists(np.ones(tuple(m.shape), bool))[:2])
+        counts = tables[1].clone()
+        counts[5, 0] = 0
+        return m[:, tok // bk], bq, full, (tables[0], counts)
     nq, nfine = tables[2].shape[0], -(-s // fine)
-    full = tuple(torch.from_numpy(t).to(dev) for t in
-                 super_tables_from_mask(np.ones((nq, nfine), bool), grp // sb, sb))
-    dense = cb.sdpa_cuda(q, k, v, h, h, hd)
-    same_dense = torch.equal(kern(full), dense)
-    # an emptied table row: zeros there, every other row unchanged
     rows = tables[2].clone()
     rows[5, 1] = 0
-    empty = kern((tables[0], tables[1], rows))
-    zero_row = not empty[:, 5 * bq:6 * bq].any()
-    others = torch.equal(empty[:, :5 * bq], got[:, :5 * bq]) and \
-        torch.equal(empty[:, 6 * bq:], got[:, 6 * bq:])
-    log(f"[gather_super] all-active tables == dense sdpa kernel bit for bit: {same_dense}; "
-        f"emptied row 5 gives zeros: {zero_row}, other rows unchanged: {others}")
-    if not (same_dense and zero_row and others):
-        raise AssertionError("gather_super: all-active or empty-row check failed")
-    del empty, full
+    empty = (tables[0], tables[1], rows)
+    if mode == "fine":
+        full = to(fine_tables_from_mask(np.ones((nq, nfine), bool), grp, fine, s))
+        return tb.gather_fine_allowed(*tables, s, fine), bq, full, empty
+    full = to(super_tables_from_mask(np.ones((nq, nfine), bool), grp // sb, sb))
+    return tb.gather_super_allowed(*tables, s, fine, sb), bq, full, empty
 
-    allowed = tb.gather_super_allowed(*tables, s, fine, sb)           # (nq, S) bool
-    q_rows = torch.clamp(s - torch.arange(nq, device=dev) * bq, max=bq)
-    active = (allowed.sum(dim=1) * q_rows).sum().item()               # allowed (q, k) pairs
-    entries = tables[2][:, 1].sum().item()
-    log(f"[gather_super] density vs dense attention: allowed keys {active / s**2:.4f}, "
-        f"whole superblocks {entries * sb * fine * bq / s**2:.4f} ({entries} entries over "
-        f"{nq} table rows)")
-    ms = cuda_ms(kern, 5)
+
+def _sparse_walks(dev, g) -> dict:
+    """The sparse-attention kernel in each mode of the engine
+    (FASTDM_SPARSE_GATHER: super, fine, coarse, mask) on that mode's radial
+    tables of the 81-frame 480x832 video (32760 tokens, 40 heads of 128),
+    held to its plain version with sdpa's tolerance (1e-3 + 2 bf16 ulp, rel
+    L2 5e-3); tables that allow every key give the dense sdpa kernel's result
+    bit for bit, and an emptied table row gives zeros. Timed beside the dense
+    kernel, the plain version and F.scaled_dot_product_attention with the
+    mode's dense boolean mask (the same for every head here); the bound counts
+    the allowed keys only."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastdm_tpu_torch.engine import wan_sparse_tables
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.models.wan import WanConfig
+
+    results = {}
+    lf, _, _, s = _wan_shape(WAN_FRAMES)
+    h, hd = WAN_HEADS, HEAD_DIM
+    q, k, v = (torch.randn(1, s, WAN_DIM, generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    dense = cb.sdpa_cuda(q, k, v, h, h, hd)
     dense_ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, hd), 5)
-    plain_ms = cuda_ms(plain, 1, 0)
     heads = lambda t: t.view(1, s, h, hd).transpose(1, 2)  # noqa: E731
-    mask = allowed[torch.arange(s, device=dev) // bq][None, None]
-    lib = "F.scaled_dot_product_attention with the dense boolean mask"
-    try:  # a yardstick only; the port never calls it
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            heads(q), heads(k), heads(v), attn_mask=mask), 3)
-    except RuntimeError as exc:
-        lib_ms, lib = None, f"{lib}: not available here ({str(exc).splitlines()[0]})"
-    del mask
-    b_ms, b_by = bound(4 * q.numel() * 2, 4 * active * hd * h, BF16_FLOPS)
-    log(f"[gather_super] {ms:.4f} ms; the dense sdpa kernel at the same shape {dense_ms:.4f} "
-        f"ms (sparse/dense {ms / dense_ms:.3f}); plain {plain_ms:.1f} ms; library "
-        f"{lib_ms} ms ({lib}); bound {b_ms:.4f} ms by {b_by}")
-    results["gather_super"] = dict(
-        name="gather_super", route="cuda", source="fastdm_tpu_torch/csrc/gather_attn.cu",
-        replaces="fastdm_tpu/kernels/pallas/attention.py:1002", max_abs_err=gather_err, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    del q, k, v, got
+    log(f"[sparse] the dense sdpa kernel at (1, {s}, {WAN_DIM}), {h} heads: {dense_ms:.4f} ms")
+    for mode, (name, replaces) in SPARSE_KERNEL.items():
+        cfg, tables = wan_sparse_tables(_radial(), WanConfig(), s, lf, dev, mode)
+        allowed, bq, full, empty = _walk_tables(mode, cfg, tables, s)
+        kern = lambda t=tables: _walk(mode, cfg, t, q, k, v)  # noqa: E731
+        plain = lambda: _walk(mode, cfg, tables, q, k, v, plain=True)  # noqa: E731
+        got = kern()
+        want = plain()
+        e = (got.float() - want.float()).abs()
+        rel = (e.norm() / want.float().norm()).item()
+        excess = (e - 1e-3 - 2 * bf16_ulp(want)).max().item()
+        err = e.max().item()
+        shapes = (tuple(tables.shape) if mode == "mask"
+                  else " ".join(str(tuple(t.shape)) for t in tables))
+        log(f"[{name}] {mode} tables {shapes}: max_abs_err {err:.3e}, rel L2 {rel:.3e} "
+            f"(tolerance 1e-3 + 2 ulp, rel L2 5e-3)")
+        if not (excess <= 0 and rel <= 5e-3 and torch.isfinite(got).all()):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        del want, e
+        same_dense = torch.equal(kern(full), dense)
+        emptied = kern(empty)
+        rows = slice(5 * bq, 6 * bq)
+        zero_row = not emptied[:, rows].any()
+        others = (torch.equal(emptied[:, :rows.start], got[:, :rows.start])
+                  and torch.equal(emptied[:, rows.stop:], got[:, rows.stop:]))
+        log(f"[{name}] tables allowing every key == dense sdpa kernel bit for bit: "
+            f"{same_dense}; emptied row 5 gives zeros: {zero_row}, other rows unchanged: "
+            f"{others}")
+        if not (same_dense and zero_row and others):
+            raise AssertionError(f"{name}: all-active or empty-row check failed")
+        del emptied, full, empty
+        q_rows = torch.clamp(s - torch.arange(allowed.shape[0], device=dev) * bq, max=bq)
+        active = (allowed.sum(dim=1) * q_rows).sum().item()  # allowed (q, k) pairs per head
+        ms = cuda_ms(kern, 5)
+        plain_ms = cuda_ms(plain, 1, 0)
+        mask = allowed[torch.arange(s, device=dev) // bq][None, None]
+        lib = "F.scaled_dot_product_attention with the dense boolean mask"
+        try:  # a yardstick only; the port never calls it
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v), attn_mask=mask), 3)
+        except RuntimeError as exc:
+            lib_ms, lib = None, f"{lib}: not available here ({str(exc).splitlines()[0]})"
+        del mask, allowed
+        b_ms, b_by = bound(4 * q.numel() * 2, 4 * active * hd * h, BF16_FLOPS)
+        log(f"[{name}] {mode}: allowed keys {active / s**2:.4f} of dense attention; {ms:.4f} ms "
+            f"(sparse/dense {ms / dense_ms:.3f}); plain {plain_ms:.1f} ms; library {lib_ms} ms "
+            f"({lib}); bound {b_ms:.4f} ms by {b_by}")
+        results[name] = dict(
+            name=name, route="cuda", source="fastdm_tpu_torch/csrc/gather_attn.cu",
+            replaces=f"fastdm_tpu/kernels/pallas/{replaces}", max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del got
+        torch.cuda.empty_cache()
+    del q, k, v, dense
     torch.cuda.empty_cache()
     return results
 
@@ -614,6 +694,9 @@ def _launch_counts():
     return {"qk_norm_rope": cb.qk_norm_rope_cuda.launches,
             "qk_norm_rope2": cb.qk_norm_rope2_cuda.launches,
             "gather_super": cb.gather_super_attention_cuda.launches,
+            "gather_fine": cb.gather_fine_attention_cuda.launches,
+            "gather_coarse": cb.gather_sparse_attention_cuda.launches,
+            "sparse_mask": cb.sparse_attention_cuda.launches,
             "sdpa": cb.sdpa_cuda.launches, "rmsnorm": cb.rms_norm_cuda.launches,
             "rotembd": cb.rotary_pos_embedding_cuda.launches,
             "quantize_to_int8": cb.quantize_to_int8_cuda.launches,
@@ -756,28 +839,42 @@ def phase_slice(dev) -> dict:
 # the first value measured on an H100 80GB HBM3 (1.448e-2, at 17 frames). A
 # wrong tile, table or layout gives O(1).
 WAN_FORWARD_REL_L2_TOL = 3e-2
-WAN_PATH = ("qk_norm_rope", "gather_super", "sdpa", "rmsnorm", "quantize_to_int8",
-            "int8_matmul")
+# The same at 17 frames (7800 tokens) in the other three sparse modes, each on
+# its own tables: twice the first value measured on an H100 80GB HBM3 (fine
+# 1.450e-2, coarse 1.455e-2, mask 1.448e-2).
+WAN_MODE_REL_L2_TOL = {"fine": 2.9e-2, "coarse": 2.91e-2, "mask": 2.9e-2}
 
 
-def wan_forward_launches(cfg, tokens: int, sparse: bool) -> dict:
-    """Kernel launches of one Wan forward, read off models/wan.py: per block,
-    the self-attention's qk_norm_rope (fused QKV) or one qk_norm_rope2 per
-    token chunk (split QKV); gather_super in the blocks from dense_layers on
-    when sparse, else sdpa; the cross-attention's q and k rmsnorm and one sdpa
-    per token chunk; W8A8 linears: qkv (1, or q, k, v per chunk when split),
-    self to_out, cross q, cross to_out and the two FFN linears once per token
-    chunk each, and cross kv once (the 512 text tokens are one chunk)."""
+def wan_block_launches(cfg, tokens: int, attention: str) -> dict:
+    """Kernel launches of one Wan block, read off models/wan.py: the
+    self-attention's qk_norm_rope (fused QKV) or one qk_norm_rope2 per token
+    chunk (split QKV); one launch of `attention` (sdpa in a dense block, else
+    the sparse mode's kernel); the cross-attention's q and k rmsnorm and one
+    sdpa per token chunk; W8A8 linears: qkv (1, or q, k, v per chunk when
+    split), self to_out, cross q, cross to_out and the two FFN linears once per
+    token chunk each, and cross kv once (the 512 text tokens are one chunk).
+    The embedders and the output head are bf16 (no kernel)."""
     ct = cfg.ffn_chunk_tokens
     n = tokens // ct if ct and tokens > ct and tokens % ct == 0 else 1
-    layers = cfg.num_layers
-    sparse_layers = layers - cfg.dense_layers if sparse else 0
-    w8a8 = layers * ((3 * n if cfg.split_qkv_proj else 1) + 5 * n + 1)
-    return {"qk_norm_rope": 0 if cfg.split_qkv_proj else layers,
-            "qk_norm_rope2": layers * n if cfg.split_qkv_proj else 0,
-            "gather_super": sparse_layers, "sdpa": layers - sparse_layers + layers * n,
-            "rmsnorm": 2 * layers, "rotembd": 0, "quantize_to_int8": w8a8,
-            "int8_matmul": w8a8, "quantize_to_fp8": 0, "fp8_matmul": 0}
+    w8a8 = (3 * n if cfg.split_qkv_proj else 1) + 5 * n + 1
+    counts = dict.fromkeys(_launch_counts(), 0)
+    counts.update(qk_norm_rope=0 if cfg.split_qkv_proj else 1,
+                  qk_norm_rope2=n if cfg.split_qkv_proj else 0, sdpa=n, rmsnorm=2,
+                  quantize_to_int8=w8a8, int8_matmul=w8a8)
+    counts[attention] += 1
+    return counts
+
+
+def wan_forward_launches(cfg, tokens: int, mode=None, blocks=None) -> dict:
+    """Kernel launches of the Wan blocks `blocks` (default: every block) in one
+    forward, dense (mode None) or in a sparse mode, where the blocks from
+    cfg.dense_layers on run the mode's kernel."""
+    total = dict.fromkeys(_launch_counts(), 0)
+    for i in range(cfg.num_layers) if blocks is None else blocks:
+        attention = "sdpa" if mode is None or i < cfg.dense_layers else SPARSE_KERNEL[mode][0]
+        for name, n in wan_block_launches(cfg, tokens, attention).items():
+            total[name] += n
+    return total
 
 
 def _wan_forward_split(dev, cfg, tokens: int, tables, secs: dict) -> None:
@@ -847,7 +944,7 @@ def phase_wan(dev) -> dict:
     {kernel: launches} of the new kernels (qk_norm_rope2 from the split run)."""
     import torch
 
-    from fastdm_tpu_torch.engine import wan_capacity_config, wan_super_tables
+    from fastdm_tpu_torch.engine import wan_capacity_config, wan_sparse_tables
     from fastdm_tpu_torch.kernels import cuda_backend, kernel_registry
     from fastdm_tpu_torch.models.wan import WanConfig, wan_forward, wan_init_random, \
         wan_rope_cos_sin
@@ -858,9 +955,11 @@ def phase_wan(dev) -> dict:
 
     radial = _radial()
     lf, lh, lw, tokens = _wan_shape(WAN_FRAMES)
-    cfg = wan_capacity_config(WanConfig(quant="int8", dense_layers=radial.config.dense_layers),
-                              tokens, dual=True)
-    cfg, tables = wan_super_tables(radial, cfg, tokens, lf, dev)
+    # the capacity knobs as the engine derives them; each sparse mode syncs its
+    # own table geometry into a copy (wan_sparse_tables)
+    capacity = wan_capacity_config(
+        WanConfig(quant="int8", dense_layers=radial.config.dense_layers), tokens, dual=True)
+    cfg, tables = wan_sparse_tables(radial, capacity, tokens, lf, dev)
     log(f"[wan] Wan2.2-T2V-A14B int8, {cfg.num_layers} blocks, {cfg.num_attention_heads}x"
         f"{cfg.attention_head_dim} heads, ffn {cfg.ffn_dim}; {WAN_H}x{WAN_W}x{WAN_FRAMES} = "
         f"{tokens} tokens: ffn_chunk_tokens {cfg.ffn_chunk_tokens}, split_qkv_proj "
@@ -918,8 +1017,8 @@ def phase_wan(dev) -> dict:
         raise AssertionError("the Wan request produced a bad video or skipped an expert")
     dense_fwd, sparse_fwd = 2 * WAN_DENSE_STEPS, 2 * (WAN_STEPS - WAN_DENSE_STEPS)
     want = {k: dense_fwd * a + sparse_fwd * b for (k, a), b in zip(
-        wan_forward_launches(cfg, tokens, False).items(),
-        wan_forward_launches(cfg, tokens, True).values())}
+        wan_forward_launches(cfg, tokens).items(),
+        wan_forward_launches(cfg, tokens, "super").values())}
     log(f"[wan] kernel launches over the request ({dense_fwd} dense + {sparse_fwd} sparse "
         f"forwards): {counts}")
     if counts != want:
@@ -957,7 +1056,7 @@ def phase_wan(dev) -> dict:
         f"{secs['sparse']:.3f} s; split-QKV (chunks of {cfg.ffn_chunk_tokens}) vs fused: "
         f"bit-identical {same}, relative L2 {rel:.3e} (required: bit-identical); split-path "
         f"launches {split_counts}")
-    want_split = wan_forward_launches(split_cfg, tokens, True)
+    want_split = wan_forward_launches(split_cfg, tokens, "super")
     if not same or split_counts != want_split:
         raise AssertionError(f"split-QKV forward: equal {same}, launches {split_counts} != "
                              f"{want_split}")
@@ -976,10 +1075,185 @@ def phase_wan(dev) -> dict:
         f"{WAN_FORWARD_REL_L2_TOL})")
     if not rel <= WAN_FORWARD_REL_L2_TOL or not torch.isfinite(out_k).all():
         raise AssertionError(f"the Wan kernel forward departs from the plain forward: {rel}")
-    del experts, out_k, out_p
+    del out_k, out_p
     torch.cuda.empty_cache()
-    return {"qk_norm_rope": counts["qk_norm_rope"], "gather_super": counts["gather_super"],
-            "qk_norm_rope2": split_counts["qk_norm_rope2"]}
+    launches = {"qk_norm_rope": counts["qk_norm_rope"], "gather_super": counts["gather_super"],
+                "qk_norm_rope2": split_counts["qk_norm_rope2"]}
+    launches.update(_wan_modes(dev, experts[1], capacity, radial, secs, x, t, pos, cos, sin))
+    _wan_cached_requests(dev, experts, cfg, tables, latents, pos, neg, cos, sin, tokens)
+    _wan_forced_skip(dev, experts[1], cfg, tables, x, t, pos, cos, sin, tokens)
+    del experts
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _wan_modes(dev, expert, cfg, radial, secs, x, t, pos, cos, sin) -> dict:
+    """The full-depth 480x832x81 forward in each of the other sparse modes
+    (fine, coarse, mask), on the engine's table geometry of the mode (cfg:
+    the capacity config before any mode synced it), timed, with exact launch
+    counts (the mode's kernel 39 times, no other sparse kernel); then each
+    mode's kernel forward against its plain forward at 17 frames. Returns
+    {kernel: launches in its forward}."""
+    import torch
+
+    from fastdm_tpu_torch.engine import wan_capacity_config, wan_sparse_tables
+    from fastdm_tpu_torch.kernels import cuda_backend, kernel_registry
+    from fastdm_tpu_torch.models.wan import wan_forward, wan_rope_cos_sin
+
+    tokens = cos.shape[0]
+    lf = _wan_shape(WAN_FRAMES)[0]
+    launches = {}
+    for mode in ("fine", "coarse", "mask"):
+        name = SPARSE_KERNEL[mode][0]
+        cfg_m, tables = wan_sparse_tables(radial, cfg, tokens, lf, dev, mode)
+        torch.cuda.synchronize()
+        cuda_backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = wan_forward(expert, cfg_m, x, t, pos, rope_cos=cos, rope_sin=sin,
+                              sparse_mask=tables)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = _launch_counts()
+        want = wan_forward_launches(cfg_m, tokens, mode)
+        shapes = (tuple(tables.shape) if mode == "mask"
+                  else " ".join(str(tuple(a.shape)) for a in tables))
+        log(f"[wan {mode}] full-depth forward at {tokens} tokens on the {mode} tables {shapes}: "
+            f"{sec:.3f} s (superblock tables {secs['sparse']:.3f} s, dense {secs['dense']:.3f} "
+            f"s); {name} launched {counts[name]} times; launches {counts}")
+        if counts != want or not torch.isfinite(out).all():
+            raise AssertionError(f"{mode} forward: launches {counts} != derived {want}")
+        launches[name] = counts[name]
+        del out
+
+    lf, lh, lw, tokens = _wan_shape(WAN_ENGINE_FRAMES)
+    cfg17 = wan_capacity_config(cfg, tokens, dual=True)
+    cos, sin = wan_rope_cos_sin(cfg17, lf, lh, lw, device=dev)
+    g = torch.Generator(device=dev).manual_seed(43)
+    x = torch.randn(1, cfg.out_channels, lf, lh, lw, generator=g, device=dev).bfloat16()
+    for mode in ("fine", "coarse", "mask"):
+        cfg_m, tables = wan_sparse_tables(radial, cfg17, tokens, lf, dev, mode)
+
+        def forward():
+            with torch.inference_mode():
+                return wan_forward(expert, cfg_m, x, t, pos, rope_cos=cos, rope_sin=sin,
+                                   sparse_mask=tables).float()
+
+        out_k = forward()
+        with kernel_registry.plain_on_device():
+            out_p = forward()
+        rel = ((out_k - out_p).norm() / out_p.norm()).item()
+        log(f"[wan {mode}] full-depth forward at {tokens} tokens ({WAN_ENGINE_FRAMES} frames): "
+            f"kernels vs plain versions relative L2 difference {rel:.3e} (tolerance "
+            f"{WAN_MODE_REL_L2_TOL[mode]})")
+        if not rel <= WAN_MODE_REL_L2_TOL[mode] or not torch.isfinite(out_k).all():
+            raise AssertionError(f"the {mode} kernel forward departs from the plain one: {rel}")
+        del out_k, out_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _cache_json(name: str, **cuts) -> dict:
+    """A published cache config (examples/xcaching/configs/), with `cuts`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "xcaching", "configs", name)) as f:
+        return dict(json.load(f), **cuts)
+
+
+# the published Wan cache configs; FBCache's 8 warmup steps cut to 1 so that
+# a skip can happen within the 4 steps
+WAN_CACHES = (("fbcache_wan.json", {"warmup_steps": 1}), ("dicache_wan.json", {}))
+
+
+def _wan_cached_requests(dev, experts, cfg, tables, latents, pos, neg, cos, sin,
+                         tokens: int) -> None:
+    """The 480x832x81 request of phase_wan again (superblock tables, no VAE
+    decode) under FBCache and under DiCache: both experts run 4 forwards; the
+    skip count equals the forwards whose remaining blocks did not run (hooks);
+    the launches equal those derived from the code: every forward runs its
+    probe blocks, a computed one the rest too (skips fall on sparse steps:
+    step 0, the dense one, always computes)."""
+    import torch
+
+    from fastdm_tpu_torch.caching.config import CacheConfig, FBCacheConfig
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.pipeline.denoise_wan import make_wan_dual_phase_denoiser
+    from fastdm_tpu_torch.pipeline.schedulers import UniPCMultistepScheduler
+
+    sched = UniPCMultistepScheduler.create(WAN_STEPS, shift=5.0)
+    for name, cuts in WAN_CACHES:
+        cc = CacheConfig.from_dict(_cache_json(name, **cuts))
+        depth = 1 if isinstance(cc, FBCacheConfig) else cc.probe_depth
+        run = make_wan_dual_phase_denoiser(cfg, sched, WAN_STEPS, *WAN_CFG, WAN_BOUNDARY,
+                                           WAN_DENSE_STEPS, cache_cfg=cc)
+        calls, rest = [0, 0], [0, 0]
+        hooks = [e.patch_embedding.register_forward_hook(
+            lambda *_, i=i: calls.__setitem__(i, calls[i] + 1)) for i, e in enumerate(experts)]
+        hooks += [e.blocks[depth].attn1.to_out.register_forward_hook(
+            lambda *_, i=i: rest.__setitem__(i, rest[i] + 1)) for i, e in enumerate(experts)]
+        torch.cuda.synchronize()
+        cuda_backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        lat, skips = run(*experts, latents, pos, neg, cos, sin, tables)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = _launch_counts()
+        for hk in hooks:
+            hk.remove()
+        dense_fwd, sparse_fwd = 2 * WAN_DENSE_STEPS, 2 * (WAN_STEPS - WAN_DENSE_STEPS)
+        parts = (wan_forward_launches(cfg, tokens),
+                 wan_forward_launches(cfg, tokens, "super", range(depth)),
+                 wan_forward_launches(cfg, tokens, "super", range(depth, cfg.num_layers)))
+        want = {k: dense_fwd * a + sparse_fwd * b + (sparse_fwd - skips) * c
+                for k, a, b, c in zip(parts[0], *(p.values() for p in parts))}
+        log(f"[wan cache] {name} ({cc}; cut: {cuts or 'none'}): request {WAN_STEPS} steps "
+            f"{sec:.3f} s denoise, skipped {skips} of {sum(calls)} forwards; forwards per expert "
+            f"{calls}, remaining-block stacks run per expert {rest}; launches {counts}")
+        if (calls != [4, 4] or skips != sum(calls) - sum(rest) or counts != want
+                or not torch.isfinite(lat).all()):
+            raise AssertionError(f"{name} request: forwards {calls}, stacks {rest}, skips {skips}, "
+                                 f"launches {counts} != derived {want}")
+        log(f"[wan cache] {name}: skips, block stacks and launches equal the counts derived "
+            f"from the code")
+        del lat
+
+
+def _wan_forced_skip(dev, expert, cfg, tables, x, t, pos, cos, sin, tokens: int) -> None:
+    """FBCache that skips every step it may (threshold 1e9, no warmup): the
+    second of two forwards on the same input must skip, launch only block 0's
+    kernels, and return exactly the embedded input plus the stored residual
+    through the output head -- the replay path, on the card."""
+    import torch
+
+    from fastdm_tpu_torch.caching.config import FBCacheConfig
+    from fastdm_tpu_torch.caching.xcaching import cache_init_state
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.wan import _wan_embed, _wan_output, wan_forward_cached
+
+    cc = FBCacheConfig(enable_caching=True, threshold=1e9, warmup_steps=0)
+    shape = (1, tokens, cfg.inner_dim)
+    with torch.inference_mode():
+        st0 = cache_init_state(cc, shape, shape, device=dev)
+        out0, st1 = wan_forward_cached(expert, cfg, cc, st0, 0, 2, x, t, pos, rope_cos=cos,
+                                       rope_sin=sin, sparse_mask=tables)
+        torch.cuda.synchronize()
+        cuda_backend.reset_launch_counts()
+        out1, st2 = wan_forward_cached(expert, cfg, cc, st1, 1, 2, x, t, pos, rope_cos=cos,
+                                       rope_sin=sin, sparse_mask=tables)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        hidden, temb, *_ = _wan_embed(expert, cfg, x, t, pos, None, cos, sin)
+        replay = _wan_output(expert, cfg, (hidden + st1["prev_residual"]).to(hidden.dtype), temb,
+                             x.shape[2:])
+    same = torch.equal(out1, replay)
+    rel = ((out1.float() - out0.float()).norm() / out0.float().norm()).item()
+    want = wan_forward_launches(cfg, tokens, "super", range(1))
+    log(f"[wan cache] forced skip (FBCache threshold 1e9, no warmup): skips {st1['skips']} -> "
+        f"{st2['skips']}; the skipped forward launched {counts}; its output is the replay bit "
+        f"for bit: {same}; relative L2 to the computed forward on the same input {rel:.3e}")
+    if not (st1["skips"] == 0 and st2["skips"] == 1 and same and counts == want
+            and st2["prev_residual"] is st1["prev_residual"] and rel <= 1e-2):
+        raise AssertionError("the forced skip did not replay the cached residual")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1225,46 +1499,72 @@ def phase_engine(dev) -> None:
 
 
 def _engine_wan(dev, here: str) -> None:
-    """FastDMEngine on the synthetic Wan2.2-A14B checkpoint: use_int8, the
-    radial config; one 17-frame 480x832 generate."""
+    """FastDMEngine on the synthetic Wan2.2-A14B checkpoint with use_int8: one
+    17-frame 480x832 generate in each sparse mode (FASTDM_SPARSE_GATHER; the
+    radial config with dense_layers 0, so the checkpoint's one block per
+    expert takes the mode's kernel), then one under each published cache
+    JSON."""
     import tempfile
 
     import numpy as np
     import torch
 
     from fastdm_tpu_torch.engine import FastDMEngine
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.wan import WanConfig
 
+    radial = dict(dataclasses.asdict(_radial().config), dense_layers=0)
     with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
         t0 = time.perf_counter()
         _write_wan_checkpoint(root, dev)
         log(f"[engine wan] wrote the synthetic two-expert checkpoint in "
             f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        eng = FastDMEngine(root, architecture="wan2.2-t2v", use_int8=True,
-                           sparse_attn_config=dataclasses.asdict(_radial().config),
-                           verbose=False, device=dev)
-        log(f"[engine wan] FastDMEngine loaded in {time.perf_counter() - t0:.1f} s: two experts "
-            f"{eng.params_2 is not None}, {eng.cfg.num_layers} block each, inner dim "
-            f"{eng.cfg.inner_dim}, block linears {eng.params.blocks[0].attn1.qkv.w.dtype}, "
-            f"boundary {eng.boundary_ratio}, VAE loaded {eng.vae_params is not None}")
-        if eng.params_2 is None or eng.vae_params is None or \
-                eng.params.blocks[0].attn1.qkv.w.dtype != torch.int8:
-            raise AssertionError("the Wan engine did not load both int8 experts and the VAE")
         g = torch.Generator(device=dev).manual_seed(200)
-        pos, neg = (torch.randn(1, WAN_TEXT, eng.cfg.text_dim, generator=g, device=dev,
+        text_dim = WanConfig().text_dim
+        pos, neg = (torch.randn(1, WAN_TEXT, text_dim, generator=g, device=dev,
                                 dtype=torch.bfloat16) for _ in range(2))
-        t0 = time.perf_counter()
-        video = eng.generate(prompt_embeds=pos, negative_prompt_embeds=neg, height=WAN_H,
-                             width=WAN_W, num_frames=WAN_ENGINE_FRAMES,
-                             num_inference_steps=WAN_STEPS, guidance_scale=WAN_CFG[0],
-                             guidance_scale_2=WAN_CFG[1], seed=9)
-        log(f"[engine wan] generate {WAN_H}x{WAN_W}x{WAN_ENGINE_FRAMES} {WAN_STEPS} steps: "
-            f"{time.perf_counter() - t0:.3f} s, video {video.shape} {video.dtype}, steps per "
-            f"expert {eng.last_phase_steps}")
-        if not (isinstance(video, np.ndarray) and video.dtype == np.uint8
-                and video.shape == (1, WAN_ENGINE_FRAMES, WAN_H, WAN_W, 3)):
-            raise AssertionError(f"the Wan generate returned {type(video)} "
-                                 f"{getattr(video, 'shape', '')}")
+        kw = dict(prompt_embeds=pos, negative_prompt_embeds=neg, height=WAN_H, width=WAN_W,
+                  num_frames=WAN_ENGINE_FRAMES, num_inference_steps=WAN_STEPS,
+                  guidance_scale=WAN_CFG[0], guidance_scale_2=WAN_CFG[1], seed=9)
+        shape = (1, WAN_ENGINE_FRAMES, WAN_H, WAN_W, 3)
+        runs = [(mode, None) for mode in SPARSE_KERNEL] + [("super", name)
+                                                           for name, _ in WAN_CACHES]
+        eng, loaded = None, None
+        for mode, cache in runs:
+            if loaded != cache or eng is None:
+                del eng
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                eng = FastDMEngine(root, architecture="wan2.2-t2v", use_int8=True,
+                                   sparse_attn_config=radial, verbose=False, device=dev,
+                                   cache_config=None if cache is None else _cache_json(cache))
+                loaded = cache
+                log(f"[engine wan] FastDMEngine loaded in {time.perf_counter() - t0:.1f} s "
+                    f"(cache {cache}): two experts {eng.params_2 is not None}, "
+                    f"{eng.cfg.num_layers} block each, inner dim {eng.cfg.inner_dim}, block "
+                    f"linears {eng.params.blocks[0].attn1.qkv.w.dtype}, boundary "
+                    f"{eng.boundary_ratio}, VAE loaded {eng.vae_params is not None}")
+                if eng.params_2 is None or eng.vae_params is None or \
+                        eng.params.blocks[0].attn1.qkv.w.dtype != torch.int8:
+                    raise AssertionError("the Wan engine did not load both int8 experts and "
+                                         "the VAE")
+            os.environ["FASTDM_SPARSE_GATHER"] = mode
+            cuda_backend.reset_launch_counts()
+            t0 = time.perf_counter()
+            video = eng.generate(**kw)
+            sec = time.perf_counter() - t0
+            counts = {name: _launch_counts()[name] for name, _ in SPARSE_KERNEL.values()}
+            log(f"[engine wan] generate {WAN_H}x{WAN_W}x{WAN_ENGINE_FRAMES} {WAN_STEPS} steps, "
+                f"mode {mode}, cache {cache}: {sec:.3f} s, video {video.shape} {video.dtype}, "
+                f"steps per expert {eng.last_phase_steps}, cache skips {eng.last_cache_skips}, "
+                f"sparse kernel launches {counts}")
+            mine = SPARSE_KERNEL[mode][0]
+            if not (isinstance(video, np.ndarray) and video.dtype == np.uint8
+                    and video.shape == shape) or counts[mine] <= 0 or \
+                    sum(counts.values()) != counts[mine]:
+                raise AssertionError(f"the Wan generate in mode {mode} returned "
+                                     f"{getattr(video, 'shape', type(video))}, launches {counts}")
+        os.environ.pop("FASTDM_SPARSE_GATHER")
         del eng
         torch.cuda.empty_cache()
 
@@ -1289,12 +1589,14 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
 
+    t0 = time.perf_counter()
     kernels = phase_kernels(dev)
     launches = phase_slice(dev)
     launches.update(phase_wan(dev))
     phase_engine(dev)
     for name, r in kernels.items():
         r["launches"] = launches[name]
+    log(f"[done] {len(kernels)} kernels, all phases in {time.perf_counter() - t0:.1f} s")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1,57 +1,80 @@
-// Superblock gather-sparse flash attention, bf16 q/k/v/out, f32 softmax
-// state, tensor cores.
+// Block-sparse flash attention, bf16 q/k/v/out, f32 softmax state, tensor
+// cores: one kernel, four table walks (the radial sparse modes of the Wan
+// engine).
 //
-// Replaces: fastdm_tpu/kernels/pallas/attention.py sdpa_gather_super_pallas
-// (:1002), which runs _gather_super_attention (:934, pallas_call :989) ->
-// _gather_super_kernel (:806). Query rows [i*block_q, (i+1)*block_q) attend
-// only to the keys that row i of the CSR tables allows
-// (sparse/xsparse.py block_lists_super):
-// rows[i] = [start, count] names the entries idx[start .. start+count), each
-// an aligned superblock of `superblock` fine blocks of `fine` tokens, and
-// valbits[e] says which of its fine sub-blocks are active. Keys past skv do
-// not exist (the global tail fine block is partial: 120 of 128 tokens at the
-// Wan2.2-A14B 480x832x81 shape), and a row that sees no key returns 0, as the
-// plain version (fastdm_tpu_torch/kernels/torch_backend.py
-// sdpa_gather_super_torch) and the jnp oracle do.
+// Replaces, in fastdm_tpu/kernels/pallas/attention.py:
+//   super  -- sdpa_gather_super_pallas (:1002; _gather_super_attention :934,
+//             pallas_call :989, kernel :806): CSR rows [start, count] of
+//             superblock ids, each an aligned run of `superblock` fine blocks
+//             of `fine` tokens, with a bitmask of the active fine sub-blocks
+//             (sparse/xsparse.py block_lists_super);
+//   fine   -- sdpa_gather_fine_pallas (:759; _gather_fine_attention :696,
+//             pallas_call :746, kernel :570): CSR rows of fine block ids with
+//             the valid tokens of each entry (block_lists_fine);
+//   coarse -- sdpa_gather_pallas (:1069; _gather_sparse_attention :515,
+//             pallas_call :561, kernel :473): per-q-tile lists of block_k-token
+//             KV tiles and their counts (block_lists);
+//   mask   -- sdpa_sparse_pallas (:1122; _flash_attention :338, pallas_call
+//             :390, kernel _sparse_flash_kernel :155): a (B, H, nq, nk) block
+//             mask, per batch entry and head (block_mask).
+// Query rows [i*block_q, (i+1)*block_q) attend only to the keys row i of the
+// table allows. Keys past skv do not exist (the global tail fine block is
+// partial: 120 of 128 tokens at the Wan2.2-A14B 480x832x81 shape), and a row
+// that sees no key returns 0, as the plain versions
+// (fastdm_tpu_torch/kernels/torch_backend.py) and the jnp oracles do.
 //
 // What bounds it on the H100: operations, counted on the allowed keys only
-// (per table row: allowed tokens x query rows x 4 x head_dim, per head). The
-// radial tables of the A14B shape allow 0.40 of dense attention's work at
-// 128-token granularity; whole superblocks hold 0.61 of it.
+// (allowed (query, key) pairs x 4 x head_dim, per head). At the A14B shape
+// the radial tables allow 0.326 (mask, 128x128 tiles), 0.400 (super, bq 256),
+// 0.544 (fine, bq 512) and 0.982 (coarse, 512x1024 tiles) of dense
+// attention's work.
 //
 // Design: the dense kernel's machinery (attn_tile.cuh: 64-query blocks of 4
-// warps, mma.sync, 64-key tiles through two cp.async buffers) with a
-// different walk. Each block takes one (64-query tile, head, batch) and reads
-// its own table row i = q0 / block_q (block_q a multiple of 64, so several
-// blocks walk one row). It visits, in table order (full superblocks first,
-// as block_lists_super sorts them), every 64-key tile of every entry whose fine
-// sub-block bit is set and that starts before skv; a cleared sub-block is
-// skipped, which is exact (a fully masked tile leaves m, l and O unchanged).
+// warps, mma.sync, 64-key tiles through two cp.async buffers) with a walk
+// over the table in place of the dense KV loop. Each block takes one
+// (64-query tile, head, batch) and reads its own table row i = q0 / block_q
+// (block_q a multiple of 64, so several blocks walk one row). The walk yields,
+// in table order, the first key of every 64-key tile the row allows together
+// with that tile's column limit; a tile the table does not allow is skipped,
+// which is exact (a fully masked tile leaves m, l and O unchanged), and only a
+// tile crossing its limit is masked per column:
+//   super  -- every tile of an entry whose fine sub-block bit is set; limit skv;
+//   fine   -- the tiles of entries [start, start+count) below fid*fine + valid,
+//             which is also the limit (capped at skv): the kernel honours each
+//             entry's valid count, as the jnp oracle does (impl.py:343-348);
+//             the Pallas kernel derives validity from the global tail alone
+//             (attention.py:654-681);
+//   coarse -- the block_k/64 tiles of entries j < counts[row]; padding entries
+//             are never visited; limit skv;
+//   mask   -- the block_k/64 tiles of every set bit of mask row q0/block_q of
+//             mask[b, h] (per head: no row is shared); limit skv.
 // Tiles are loaded straight from the model's (B, S, H*D) tensors (no
-// transposed, padded K/V copy as the Pallas wrapper's DMAs needed,
-// attention.py:956-957), the next active tile streaming in while the current
-// one is computed; only a tile crossing skv is masked per column. The softmax
-// scale multiplies the f32 logits, as in the plain version (the Pallas kernel
-// rounds q*scale*log2(e) to bf16 first, attention.py:838). fine must be
-// a multiple of 64, so a tile never straddles two fine blocks. The walk
-// clamps every table read to the table, so a malformed table gives a wrong
-// answer, never an out-of-bounds access; the strict value checks run on the
-// host where the tables are built (contracts.check_gather_super).
+// transposed, padded K/V copy as the Pallas wrappers' DMAs needed), the next
+// allowed tile streaming in while the current one is computed. The softmax
+// scale multiplies the f32 logits, as in the plain versions (the Pallas
+// kernels round q*scale*log2(e) to bf16 first). Every tile size is a multiple
+// of 64, so a 64-key tile never straddles two table entries. The walks clamp
+// every table read to the table, so a malformed table gives a wrong answer,
+// never an out-of-bounds access; the strict value checks run on the host where
+// the tables are built (kernels/contracts.py, strict=True).
 #include "attn_tile.cuh"
 
 namespace {
 
 using namespace fdm_attn;
 
-// The walk over one table row: entry e of the row, tile t of the entry.
-struct TileWalk {
+// Each walk: next(e, t, limit) returns, from entry e and tile t of the entry
+// on, the first key of the next allowed tile and sets `limit` (keys at or past
+// it are masked), or returns -1 when the row is exhausted. Every thread of the
+// block runs it alike (uniform control flow).
+
+struct SuperWalk {
   const int* idx;
   const int* val;
   int start, count, tiles_per_entry, tiles_per_fine, superblock_tokens, skv;
 
-  // From (e, t) on, the first allowed tile: its first key, or -1 when the row
-  // is exhausted. Every thread runs it alike (uniform control flow).
-  __device__ __forceinline__ int next(int& e, int& t) const {
+  __device__ __forceinline__ int next(int& e, int& t, int& limit) const {
+    limit = skv;
     for (; e < count; ++e, t = 0) {
       const int sid = idx[start + e], bits = val[start + e];
       for (; t < tiles_per_entry; ++t) {
@@ -64,16 +87,124 @@ struct TileWalk {
   }
 };
 
-template <int D>
+struct SuperTables {  // idx, val: (n_slots,); rows: (ceil(sq/block_q), 2)
+  const int* idx;
+  const int* val;
+  const int* rows;
+  int n_slots, block_q, fine, superblock;
+
+  __device__ __forceinline__ SuperWalk walk(int q0, int, int, int skv) const {
+    const int row = q0 / block_q;
+    const int start = min(max(rows[2 * row], 0), n_slots);
+    const int count = min(max(rows[2 * row + 1], 0), n_slots - start);
+    return SuperWalk{idx, val, start, count, superblock * fine / kBK, fine / kBK,
+                     superblock * fine, skv};
+  }
+};
+
+struct FineWalk {
+  const int* idx;
+  const int* valid;
+  int start, count, tiles_per_entry, fine, skv;
+
+  __device__ __forceinline__ int next(int& e, int& t, int& limit) const {
+    for (; e < count; ++e, t = 0) {
+      const long long base = static_cast<long long>(idx[start + e]) * fine;
+      const long long lim = min(base + min(max(valid[start + e], 0), fine),
+                                static_cast<long long>(skv));
+      for (; t < tiles_per_entry; ++t) {
+        const long long key0 = base + t * kBK;
+        if (key0 >= lim) break;
+        if (key0 >= 0) {
+          limit = static_cast<int>(lim);
+          return static_cast<int>(key0);
+        }
+      }
+    }
+    return -1;
+  }
+};
+
+struct FineTables {  // idx, valid: (n_slots,); rows: (ceil(sq/block_q), 2)
+  const int* idx;
+  const int* valid;
+  const int* rows;
+  int n_slots, block_q, fine;
+
+  __device__ __forceinline__ FineWalk walk(int q0, int, int, int skv) const {
+    const int row = q0 / block_q;
+    const int start = min(max(rows[2 * row], 0), n_slots);
+    const int count = min(max(rows[2 * row + 1], 0), n_slots - start);
+    return FineWalk{idx, valid, start, count, fine / kBK, fine, skv};
+  }
+};
+
+struct CoarseWalk {
+  const int* idx;  // this row's max_nb entries
+  int count, nk, tiles_per_entry, block_k, skv;
+
+  __device__ __forceinline__ int next(int& e, int& t, int& limit) const {
+    limit = skv;
+    for (; e < count; ++e, t = 0) {
+      const long long base = static_cast<long long>(min(max(idx[e], 0), nk - 1)) * block_k;
+      for (; t < tiles_per_entry; ++t) {
+        const long long key0 = base + t * kBK;
+        if (key0 < skv) return static_cast<int>(key0);
+      }
+    }
+    return -1;
+  }
+};
+
+struct CoarseTables {  // idx: (nq, max_nb); counts: (nq, 1)
+  const int* idx;
+  const int* counts;
+  int nq, max_nb, block_q, block_k;
+
+  __device__ __forceinline__ CoarseWalk walk(int q0, int, int, int skv) const {
+    const int row = min(q0 / block_q, nq - 1);
+    const int count = min(max(counts[row], 0), max_nb);
+    return CoarseWalk{idx + static_cast<long long>(row) * max_nb, count,
+                      (skv + block_k - 1) / block_k, block_k / kBK, block_k, skv};
+  }
+};
+
+struct MaskWalk {
+  const int* mrow;  // mask[b, h, row, :]
+  int nj, tiles_per_block, block_k, skv;
+
+  __device__ __forceinline__ int next(int& e, int& t, int& limit) const {
+    limit = skv;
+    for (; e < nj; ++e, t = 0) {
+      if (mrow[e] == 0) continue;
+      for (; t < tiles_per_block; ++t) {
+        const long long key0 = static_cast<long long>(e) * block_k + t * kBK;
+        if (key0 < skv) return static_cast<int>(key0);
+      }
+    }
+    return -1;
+  }
+};
+
+struct MaskTables {  // mask: (batch, heads, ni, nj)
+  const int* mask;
+  int heads, ni, nj, block_q, block_k;
+
+  __device__ __forceinline__ MaskWalk walk(int q0, int h, int b, int skv) const {
+    const int row = min(q0 / block_q, ni - 1);
+    const int* mrow = mask + ((static_cast<long long>(b) * heads + h) * ni + row) * nj;
+    return MaskWalk{mrow, nj, block_k / kBK, block_k, skv};
+  }
+};
+
+template <int D, class Tables>
 __global__ void __launch_bounds__(kThreads)
-gather_super_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                        const int* __restrict__ idx, const int* __restrict__ val,
-                        const int* __restrict__ rows, int n_slots, int block_q, int fine,
-                        int superblock, int sq, int skv, int hq, int hkv,
-                        int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-                        int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
-                        float scale_log2) {
+sparse_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                       const Tables tables, int sq, int skv, int hq, int hkv,
+                       int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                       int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
+                       float scale_log2) {
   constexpr int LD = D + 8;
   constexpr int kTile = kBK * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -87,13 +218,9 @@ gather_super_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const __nv_bfloat16* kb = k + b * k_sb + static_cast<int64_t>(hk) * D;
   const __nv_bfloat16* vb = v + b * v_sb + static_cast<int64_t>(hk) * D;
 
-  const int row = q0 / block_q;
-  const int start = min(max(rows[2 * row], 0), n_slots);
-  const int count = min(max(rows[2 * row + 1], 0), n_slots - start);
-  const TileWalk walk{idx, val, start, count, superblock * fine / kBK, fine / kBK,
-                      superblock * fine, skv};
-  int e = 0, t = 0;
-  int key0 = walk.next(e, t);
+  const auto walk = tables.walk(q0, h, b, skv);
+  int e = 0, t = 0, limit = skv;
+  int key0 = walk.next(e, t, limit);
 
   // Q tile (staged in V's second buffer) and the first allowed KV tile
   load_tile_async<D, LD>(v_s + kTile, qb, q_ss, q0, sq);
@@ -113,70 +240,115 @@ gather_super_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   st.init();
   for (int buf = 0; key0 >= 0; buf ^= 1) {
     ++t;
-    const int next0 = walk.next(e, t);
+    int next_limit = skv;
+    const int next0 = walk.next(e, t, next_limit);
     if (next0 >= 0) {  // prefetch the next allowed tile into the other buffer
       load_tile_async<D, LD>(k_s + (buf ^ 1) * kTile, kb, k_ss, next0, skv);
       load_tile_async<D, LD>(v_s + (buf ^ 1) * kTile, vb, v_ss, next0, skv);
     }
     cp_async_commit();
     attend_tile<D, LD>(st, qf, k_s + buf * kTile, v_s + buf * kTile, scale_log2,
-                       key0 + kBK > skv, key0, skv, false, q0, 0);
+                       key0 + kBK > limit, key0, limit, false, q0, 0);
     cp_async_wait_all();  // the next tile has landed (this thread's copies) ...
     __syncthreads();      // ... for every thread, and this tile's buffer is free
     key0 = next0;
+    limit = next_limit;
   }
   store_rows<D>(st, out + b * o_sb + static_cast<int64_t>(h) * D, o_ss, q0, sq);
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, const void* idx,
-           const void* val, const void* rows, int n_slots, int block_q, int fine,
-           int superblock, int batch, int sq, int skv, int hq, int hkv, long long q_sb,
-           long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-           long long o_sb, long long o_ss, float scale_log2, cudaStream_t stream) {
+// The operands every entry shares: q: (B, sq, hq*D), k/v: (B, skv, hkv*D),
+// out: (B, sq, hq*D), bf16 with the given batch/sequence strides in elements
+// and a contiguous last dim; strides multiples of 8 and pointers 16-byte
+// aligned. scale_log2 = softmax scale * log2(e). D is 64 or 128.
+struct Operands {
+  const void *q, *k, *v;
+  void* out;
+  int batch, sq, skv, hq, hkv, head_dim;
+  long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
+template <int D, class Tables>
+int launch(const Tables& tables, const Operands& a) {
   const cudaError_t attr = cudaFuncSetAttribute(
-      gather_super_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+      sparse_attn_fwd_kernel<D, Tables>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<D>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>((sq + kBQ - 1) / kBQ), static_cast<unsigned>(hq),
-                  static_cast<unsigned>(batch));
-  gather_super_fwd_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<const int*>(idx), static_cast<const int*>(val), static_cast<const int*>(rows),
-      n_slots, block_q, fine, superblock, sq, skv, hq, hkv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-      o_sb, o_ss, scale_log2);
+  const dim3 grid(static_cast<unsigned>((a.sq + kBQ - 1) / kBQ), static_cast<unsigned>(a.hq),
+                  static_cast<unsigned>(a.batch));
+  sparse_attn_fwd_kernel<D, Tables><<<grid, kThreads, smem_bytes<D>(), a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.out), tables, a.sq,
+      a.skv, a.hq, a.hkv, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.o_sb, a.o_ss,
+      a.scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Tables>
+int run(const Tables& tables, const Operands& a) {
+  if (a.batch <= 0 || a.sq <= 0) return 0;
+  if (a.hkv <= 0 || a.hq % a.hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.head_dim == 128) return launch<128>(tables, a);
+  if (a.head_dim == 64) return launch<64>(tables, a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q: (B, sq, hq*D), k/v: (B, skv, hkv*D), out: (B, sq, hq*D), bf16 with the
-// given batch/sequence strides in elements and a contiguous last dim; strides
-// multiples of 8 and pointers 16-byte aligned. idx/val: int32 (n_slots,)
-// superblock ids and sub-block bitmasks; rows: int32 (ceil(sq/block_q), 2)
-// [start, count]. block_q and fine multiples of 64. D is 64 or 128.
-FDM_EXPORT int fdm_gather_super_fwd(const void* q, const void* k, const void* v, void* out,
-                                    const void* idx, const void* val, const void* rows,
+#define FDM_OPERANDS_PARAMS                                                                   \
+  const void *q, const void *k, const void *v, void *out, int batch, int sq, int skv, int hq, \
+      int hkv, int head_dim, long long q_sb, long long q_ss, long long k_sb, long long k_ss,  \
+      long long v_sb, long long v_ss, long long o_sb, long long o_ss, float scale_log2,       \
+      void *stream
+#define FDM_OPERANDS                                                                          \
+  Operands {                                                                                  \
+    q, k, v, out, batch, sq, skv, hq, hkv, head_dim, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, \
+        o_ss, scale_log2, static_cast<cudaStream_t>(stream)                                   \
+  }
+
+// idx/val: int32 (n_slots,) superblock ids and sub-block bitmasks; rows: int32
+// (ceil(sq/block_q), 2) [start, count]. block_q and fine multiples of 64.
+FDM_EXPORT int fdm_gather_super_fwd(const void* idx, const void* val, const void* rows,
                                     int n_slots, int block_q, int fine, int superblock,
-                                    int batch, int sq, int skv, int hq, int hkv, int head_dim,
-                                    long long q_sb, long long q_ss, long long k_sb,
-                                    long long k_ss, long long v_sb, long long v_ss,
-                                    long long o_sb, long long o_ss, float scale_log2,
-                                    void* stream) {
-  if (batch <= 0 || sq <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0 || block_q % kBQ != 0 || fine % kBK != 0 || superblock < 1 ||
-      superblock > 30)
+                                    FDM_OPERANDS_PARAMS) {
+  if (block_q % kBQ != 0 || fine % kBK != 0 || superblock < 1 || superblock > 30)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128)
-    return launch<128>(q, k, v, out, idx, val, rows, n_slots, block_q, fine, superblock, batch,
-                       sq, skv, hq, hkv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss,
-                       scale_log2, st);
-  if (head_dim == 64)
-    return launch<64>(q, k, v, out, idx, val, rows, n_slots, block_q, fine, superblock, batch,
-                      sq, skv, hq, hkv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss,
-                      scale_log2, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const SuperTables t{static_cast<const int*>(idx), static_cast<const int*>(val),
+                      static_cast<const int*>(rows), n_slots, block_q, fine, superblock};
+  return run(t, FDM_OPERANDS);
 }
 
-FDM_DEFINE_ERROR_STRING(fdm_gather_super)
+// idx/valid: int32 (n_slots,) fine block ids and their valid tokens; rows:
+// int32 (ceil(sq/block_q), 2) [start, count]. block_q and fine multiples of 64.
+FDM_EXPORT int fdm_gather_fine_fwd(const void* idx, const void* valid, const void* rows,
+                                   int n_slots, int block_q, int fine, FDM_OPERANDS_PARAMS) {
+  if (block_q % kBQ != 0 || fine % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const FineTables t{static_cast<const int*>(idx), static_cast<const int*>(valid),
+                     static_cast<const int*>(rows), n_slots, block_q, fine};
+  return run(t, FDM_OPERANDS);
+}
+
+// idx: int32 (nq, max_nb) KV tile ids of block_k tokens; counts: int32 (nq, 1),
+// nq = ceil(sq/block_q). block_q and block_k multiples of 64.
+FDM_EXPORT int fdm_gather_coarse_fwd(const void* idx, const void* counts, int nq, int max_nb,
+                                     int block_q, int block_k, FDM_OPERANDS_PARAMS) {
+  if (block_q % kBQ != 0 || block_k % kBK != 0 || nq < 1 || max_nb < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CoarseTables t{static_cast<const int*>(idx), static_cast<const int*>(counts), nq, max_nb,
+                       block_q, block_k};
+  return run(t, FDM_OPERANDS);
+}
+
+// mask: int32 (batch, hq, ni, nj) block mask, ni = ceil(sq/block_q), nj =
+// ceil(skv/block_k); nonzero computes a tile. block_q and block_k multiples of 64.
+FDM_EXPORT int fdm_sparse_mask_fwd(const void* mask, int ni, int nj, int block_q, int block_k,
+                                   FDM_OPERANDS_PARAMS) {
+  if (block_q % kBQ != 0 || block_k % kBK != 0 || ni < 1 || nj < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MaskTables t{static_cast<const int*>(mask), hq, ni, nj, block_q, block_k};
+  return run(t, FDM_OPERANDS);
+}
+
+FDM_DEFINE_ERROR_STRING(fdm_gather_attn)

@@ -7,7 +7,8 @@ and Wan2.2 text-to-video subsets of fastdm_tpu/engine.py).
                           height=1024, width=1024, num_inference_steps=25)
 
     eng = FastDMEngine("/path/to/Wan2.2-T2V-A14B", architecture="wan2.2-t2v",
-                       use_int8=True, sparse_attn_config="radial_attn_wan.json")
+                       use_int8=True, sparse_attn_config="radial_attn_wan.json",
+                       cache_config="fbcache_wan.json")
     video = eng.generate(prompt_embeds=..., negative_prompt_embeds=...,
                          height=480, width=832, num_frames=81)
 
@@ -16,9 +17,11 @@ Wan2.2-A14B dual expert, transformer_2/ — and vae/, with their config.json
 and model_index.json) onto the GPU ("cuda" unless the caller passes
 device="cpu"): in bf16, or with use_int8 / use_fp8 the transformer blocks'
 linears quantized at load time to W8A8 (quant_mods=True quantizes FLUX's
-AdaLN modulations too). The T5/CLIP/UMT5 text encoders, int4, img2img,
-Kontext, ControlNet, Wan i2v/ti2v, step caches for Wan and the other model
-families arrive with later slices and raise NotImplementedError here.
+AdaLN modulations too). FLUX takes TeaCache, Wan FBCache or DiCache. Wan's
+radial sparse attention runs in the mode FASTDM_SPARSE_GATHER names: super
+(the default), fine, coarse or mask. The T5/CLIP/UMT5 text encoders, int4,
+img2img, Kontext, ControlNet, Wan i2v/ti2v and the other model families
+arrive with later slices and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -63,23 +66,50 @@ def wan_capacity_config(cfg, tokens: int, dual: bool):
         split_qkv_proj=bool(chunk) and dual and tokens >= _SPLIT_QKV_MIN_TOKENS)
 
 
-def wan_super_tables(sparse_attn, cfg, tokens: int, num_frame: int, device):
-    """The radial superblock gather tables of a video shape -> (cfg synced to
-    them, (indices, valbits, rows) int32 tensors on `device`): q tiles of 256
-    tokens, groups of 32 fine blocks (8 superblock entries), fine = the radial
-    config's block_size, superblocks of 4 — the JAX engine's default "super"
-    mode (fastdm_tpu/engine.py:1384-1430). The strict value checks run here,
-    once, on the host's numpy tables; the kernel wrapper never reads them."""
+SPARSE_GATHER_MODES = ("super", "fine", "coarse", "mask")
+
+
+def wan_sparse_tables(sparse_attn, cfg, tokens: int, num_frame: int, device, mode: str = "super"):
+    """The radial sparse tables of a video shape in one of the four modes of
+    the JAX engine (fastdm_tpu/engine.py:1384-1452) -> (cfg synced to them,
+    the sparse mask wan_forward takes, as tensors on `device`):
+      super  -- superblock tables: q tiles of 256 tokens, groups of 32 fine
+                blocks (8 superblock entries), fine = the radial config's
+                block_size, superblocks of 4;
+      fine   -- fine tables at cfg.sparse_gather_fine_blocks (block_q, group)
+                with fine = block_size, superblock 1;
+      coarse -- coarse lists at cfg.sparse_gather_blocks (block_q, block_k);
+      mask   -- the block mask of every head at 128x128 tiles.
+    The strict value checks run here, once, on the host's numpy tables; the
+    kernel wrappers never read them."""
     from fastdm_tpu_torch.kernels import contracts
 
-    bq, grp, sb = 256, 32, 4
     fine = sparse_attn.config.block_size
-    cfg = dataclasses.replace(cfg, sparse_gather_fine_blocks=(bq, grp, fine),
-                              sparse_gather_superblock=sb)
     sparse_attn.post_init(video_token_num=tokens, num_frame=num_frame)
-    tables = sparse_attn.block_lists_super(bq, grp // sb, sb)
-    contracts.check_gather_super("engine.wan super-gather tables", *tables, tokens, tokens, bq,
-                                 grp // sb, fine, sb, strict=True)
+    what = f"engine.wan {mode} tables"
+    if mode in ("super", "fine"):
+        bq, grp, sb = (256, 32, 4) if mode == "super" else (*cfg.sparse_gather_fine_blocks[:2], 1)
+        cfg = dataclasses.replace(cfg, sparse_gather_fine_blocks=(bq, grp, fine),
+                                  sparse_gather_superblock=sb)
+        if sb > 1:
+            tables = sparse_attn.block_lists_super(bq, grp // sb, sb)
+            contracts.check_gather_super(what, *tables, tokens, tokens, bq, grp // sb, fine, sb,
+                                         strict=True)
+        else:
+            tables = sparse_attn.block_lists_fine(bq, grp)
+            contracts.check_gather_fine(what, *tables, tokens, tokens, bq, grp, fine,
+                                        strict=True)
+    elif mode == "coarse":
+        bq, bk = cfg.sparse_gather_blocks
+        tables = sparse_attn.block_lists(bq, bk)
+        contracts.check_gather_lists(what, *tables, tokens, tokens, bq, bk, strict=True)
+    elif mode == "mask":
+        mask = sparse_attn.block_mask(1, cfg.num_attention_heads, block_tokens=128)
+        contracts.check_sparse_mask(what, mask, 1, cfg.num_attention_heads, tokens, tokens, 128,
+                                    128, strict=True)
+        return cfg, torch.from_numpy(mask).to(device)
+    else:
+        raise ValueError(f"FASTDM_SPARSE_GATHER={mode!r}: expected one of {SPARSE_GATHER_MODES}")
     return cfg, tuple(torch.from_numpy(t).to(device) for t in tables)
 
 
@@ -124,9 +154,12 @@ class FastDMEngine:
                                 if isinstance(sparse_attn_config, str)
                                 else SparseAttn.from_dict(sparse_attn_config))
         if self.architecture == "wan":
-            if self.cache_config is not None:
-                raise NotImplementedError(
-                    "step caches for Wan (FBCache / DiCache) are not in this slice of the port")
+            from fastdm_tpu_torch.caching.config import DiCacheConfig, FBCacheConfig
+
+            if self.cache_config is not None and not isinstance(
+                    self.cache_config, (FBCacheConfig, DiCacheConfig)):
+                raise ValueError("Wan caching supports FBCache / DiCache, got "
+                                 f"{type(self.cache_config).__name__}")
             self._init_wan()
         else:
             self._init_flux()
@@ -184,6 +217,8 @@ class FastDMEngine:
              "pos_embed_seq_len": lambda v: {"per_token_timestep": bool(v)}})
         dense_layers = self.sparse_attn.config.dense_layers if self.sparse_attn else 0
         self.cfg = WanConfig(quant=self.quant, dense_layers=dense_layers, **kw)
+        # each generate derives its config (capacity knobs, sparse tables) from this one
+        self._wan_cfg = self.cfg
         self.params = wan_load(TensorSource.from_path(
             os.path.join(self.model_path, "transformer"), self.device), self.cfg)
         # Wan2.2-A14B: the low-noise expert, both resident (28 GB in int8
@@ -285,7 +320,7 @@ class FastDMEngine:
                       output_type: str = "np"):
         from fastdm_tpu_torch.models.wan import wan_rope_cos_sin
         from fastdm_tpu_torch.pipeline.denoise_wan import (
-            make_wan_denoiser,
+            make_wan_cached_denoiser,
             make_wan_dual_phase_denoiser,
         )
         from fastdm_tpu_torch.pipeline.schedulers import UniPCMultistepScheduler
@@ -303,11 +338,12 @@ class FastDMEngine:
         lf, lh, lw = (num_frames - 1) // 4 + 1, height // 8, width // 8
         pt, ph, pw = self.cfg.patch_size
         tokens = (lf // pt) * (lh // ph) * (lw // pw)
-        self.cfg = wan_capacity_config(self.cfg, tokens, dual=self.params_2 is not None)
+        self.cfg = wan_capacity_config(self._wan_cfg, tokens, dual=self.params_2 is not None)
         sparse_mask, dense_steps = None, 0
         if self.sparse_attn is not None:
-            self.cfg, sparse_mask = wan_super_tables(self.sparse_attn, self.cfg, tokens,
-                                                     lf // pt, self.device)
+            mode = os.environ.get("FASTDM_SPARSE_GATHER", "super")
+            self.cfg, sparse_mask = wan_sparse_tables(self.sparse_attn, self.cfg, tokens,
+                                                      lf // pt, self.device, mode)
             dense_steps = self.sparse_attn.config.dense_steps
         cos, sin = wan_rope_cos_sin(self.cfg, lf, lh, lw, device=self.device)
 
@@ -316,11 +352,11 @@ class FastDMEngine:
             boundary = self.boundary_ratio if self.boundary_ratio is not None else 0.875
             run = make_wan_dual_phase_denoiser(self.cfg, sched, num_inference_steps,
                                                guidance_scale, guidance_scale_2, boundary,
-                                               dense_steps)
+                                               dense_steps, cache_cfg=self.cache_config)
             experts = (self.params, self.params_2)
         else:
-            run = make_wan_denoiser(self.cfg, sched, num_inference_steps, guidance_scale,
-                                    dense_steps)
+            run = make_wan_cached_denoiser(self.cfg, sched, num_inference_steps,
+                                           self.cache_config, guidance_scale, dense_steps)
             experts = (self.params,)
         self.last_phase_steps = getattr(run, "phase_steps", (num_inference_steps,))
         # a seeded torch.Generator: the same seed gives other noise than the
@@ -328,7 +364,11 @@ class FastDMEngine:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         latents = torch.randn((1, self.cfg.out_channels, lf, lh, lw), generator=gen,
                               device=self.device, dtype=torch.float32)
-        latents, _ = run(*experts, latents, pos, neg, cos, sin, sparse_mask)
+        latents, skips = run(*experts, latents, pos, neg, cos, sin, sparse_mask)
+        if self.cache_config is not None:
+            self.last_cache_skips = int(skips)
+            if self.verbose:
+                print(f"cache skipped {self.last_cache_skips} transformer passes")
         if output_type == "latent" or self.vae_params is None:
             return latents.cpu().numpy()
         decode = wan_vae_decode_chunked if lf > 8 else wan_vae_decode

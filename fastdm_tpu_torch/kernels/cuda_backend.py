@@ -273,6 +273,52 @@ def sdpa_cuda(
 sdpa_cuda.launches = 0
 
 
+# --------------------------------------------------------- sparse attention
+#
+# One kernel with four table walks (csrc/gather_attn.cu). The wrappers check
+# shapes, dtypes and devices; the table VALUES are not read (that would sync
+# the card): the kernel clamps its table reads, and the engine checks its
+# tables once on the host (contracts, strict=True).
+
+_OPERAND_TYPES = [_P] * 4 + [_I] * 6 + [_L] * 8 + [_F, _P]
+
+
+def _sparse_attention(wrapper, kernel: str, entry: str, table_args, table_types, tables,
+                      query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
+                      num_kv_heads: int, head_dim: int, scale: Optional[float],
+                      tiles: dict) -> Tensor:
+    """The checks every walk shares, then one launch of `entry` with the
+    table arguments first, counted on `wrapper`. tiles: {name: size} of the
+    tile sizes that must be multiples of 64."""
+    dev = query.device
+    for name, t in (("query", query), ("key", key), ("value", value)):
+        _check_tensor(t, kernel, name, dev)
+        _require(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0,
+                 kernel, f"{name} must be 16-byte aligned with strides multiple of 8")
+    for name, t in tables.items():
+        _require(t.device == dev and t.is_contiguous(), kernel,
+                 f"{name} must be a contiguous int32 tensor on {dev}")
+    _require(head_dim in (64, 128), kernel, f"head_dim {head_dim} not in (64, 128)")
+    _require(all(v >= 64 and v % 64 == 0 for v in tiles.values()), kernel,
+             " and ".join(f"{k} {v}" for k, v in tiles.items()) + " must be multiples of 64")
+    b, sq, _ = query.shape
+    if scale is None:
+        scale = head_dim**-0.5
+    out = torch.empty(query.shape, dtype=query.dtype, device=dev)
+    if b * sq == 0:
+        return out
+    lib, fn = _entry("gather_attn", entry, list(table_types) + _OPERAND_TYPES)
+    with torch.cuda.device(dev):
+        code = fn(*table_args, query.data_ptr(), key.data_ptr(), value.data_ptr(),
+                  out.data_ptr(), b, sq, key.shape[1], num_q_heads, num_kv_heads, head_dim,
+                  query.stride(0), query.stride(1), key.stride(0), key.stride(1),
+                  value.stride(0), value.stride(1), out.stride(0), out.stride(1),
+                  float(scale * _LOG2E), _stream(dev))
+    _check_launch(lib, "fdm_gather_attn", code, kernel)
+    wrapper.launches += 1
+    return out
+
+
 @kernel_registry.register("sdpa_gather_super", "cuda")
 def gather_super_attention_cuda(
     query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_valbits: Tensor,
@@ -280,49 +326,97 @@ def gather_super_attention_cuda(
     scale: Optional[float] = None, block_q: int = 512, group: int = 8, fine: int = 64,
     superblock: int = 4,
 ) -> Tensor:
-    """Shapes, dtypes and devices are checked here; the table VALUES are not
-    read (that would sync the card): the kernel clamps its table reads, and
-    the engine checks its tables once on the host (check_gather_super strict)."""
     kernel = "gather_super"
     contracts.check_sdpa("gather_super_attention_cuda", query, key, value, num_q_heads,
                          num_kv_heads, head_dim)
-    b, sq, _ = query.shape
-    skv = key.shape[1]
     contracts.check_gather_super("gather_super_attention_cuda", block_indices, block_valbits,
-                                 block_rows, sq, skv, block_q, group, fine, superblock)
-    dev = query.device
-    for name, t in (("query", query), ("key", key), ("value", value)):
-        _check_tensor(t, kernel, name, dev)
-        _require(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0,
-                 kernel, f"{name} must be 16-byte aligned with strides multiple of 8")
-    for name, t in (("block_indices", block_indices), ("block_valbits", block_valbits),
-                    ("block_rows", block_rows)):
-        _require(t.device == dev and t.is_contiguous(), kernel,
-                 f"{name} must be a contiguous int32 tensor on {dev}")
-    _require(head_dim in (64, 128), kernel, f"head_dim {head_dim} not in (64, 128)")
-    _require(block_q % 64 == 0 and fine % 64 == 0 and 1 <= superblock <= 30, kernel,
-             f"block_q {block_q} and fine {fine} must be multiples of 64, superblock "
-             f"{superblock} in [1, 30]")
-    if scale is None:
-        scale = head_dim**-0.5
-    out = torch.empty(query.shape, dtype=query.dtype, device=dev)
-    if b * sq == 0:
-        return out
-    lib, fn = _entry("gather_attn", "fdm_gather_super_fwd",
-                     [_P] * 7 + [_I] * 10 + [_L] * 8 + [_F, _P])
-    with torch.cuda.device(dev):
-        code = fn(query.data_ptr(), key.data_ptr(), value.data_ptr(), out.data_ptr(),
-                  block_indices.data_ptr(), block_valbits.data_ptr(), block_rows.data_ptr(),
-                  block_indices.shape[0], block_q, fine, superblock, b, sq, skv, num_q_heads,
-                  num_kv_heads, head_dim, query.stride(0), query.stride(1), key.stride(0),
-                  key.stride(1), value.stride(0), value.stride(1), out.stride(0),
-                  out.stride(1), float(scale * _LOG2E), _stream(dev))
-    _check_launch(lib, "fdm_gather_super", code, kernel)
-    gather_super_attention_cuda.launches += 1
-    return out
+                                 block_rows, query.shape[1], key.shape[1], block_q, group, fine,
+                                 superblock)
+    _require(1 <= superblock <= 30, kernel, f"superblock {superblock} not in [1, 30]")
+    return _sparse_attention(
+        gather_super_attention_cuda, kernel, "fdm_gather_super_fwd",
+        (block_indices.data_ptr(), block_valbits.data_ptr(), block_rows.data_ptr(),
+         block_indices.shape[0], block_q, fine, superblock), [_P] * 3 + [_I] * 4,
+        {"block_indices": block_indices, "block_valbits": block_valbits,
+         "block_rows": block_rows}, query, key, value, num_q_heads, num_kv_heads, head_dim,
+        scale, {"block_q": block_q, "fine": fine})
 
 
 gather_super_attention_cuda.launches = 0
+
+
+@kernel_registry.register("sdpa_gather_fine", "cuda")
+def gather_fine_attention_cuda(
+    query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_valid: Tensor,
+    block_rows: Tensor, num_q_heads: int, num_kv_heads: int, head_dim: int,
+    scale: Optional[float] = None, block_q: int = 512, group: int = 8, fine: int = 64,
+) -> Tensor:
+    contracts.check_sdpa("gather_fine_attention_cuda", query, key, value, num_q_heads,
+                         num_kv_heads, head_dim)
+    contracts.check_gather_fine("gather_fine_attention_cuda", block_indices, block_valid,
+                                block_rows, query.shape[1], key.shape[1], block_q, group, fine)
+    return _sparse_attention(
+        gather_fine_attention_cuda, "gather_fine", "fdm_gather_fine_fwd",
+        (block_indices.data_ptr(), block_valid.data_ptr(), block_rows.data_ptr(),
+         block_indices.shape[0], block_q, fine), [_P] * 3 + [_I] * 3,
+        {"block_indices": block_indices, "block_valid": block_valid, "block_rows": block_rows},
+        query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
+        {"block_q": block_q, "fine": fine})
+
+
+gather_fine_attention_cuda.launches = 0
+
+
+@kernel_registry.register("sdpa_gather", "cuda")
+def gather_sparse_attention_cuda(
+    query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_counts: Tensor,
+    num_q_heads: int, num_kv_heads: int, head_dim: int, scale: Optional[float] = None,
+    block_q: int = 512, block_k: int = 1024,
+) -> Tensor:
+    contracts.check_sdpa("gather_sparse_attention_cuda", query, key, value, num_q_heads,
+                         num_kv_heads, head_dim)
+    contracts.check_gather_lists("gather_sparse_attention_cuda", block_indices, block_counts,
+                                 query.shape[1], key.shape[1], block_q, block_k)
+    nq, max_nb = block_indices.shape
+    return _sparse_attention(
+        gather_sparse_attention_cuda, "gather_coarse", "fdm_gather_coarse_fwd",
+        (block_indices.data_ptr(), block_counts.data_ptr(), nq, max_nb, block_q, block_k),
+        [_P] * 2 + [_I] * 4, {"block_indices": block_indices, "block_counts": block_counts},
+        query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
+        {"block_q": block_q, "block_k": block_k})
+
+
+gather_sparse_attention_cuda.launches = 0
+
+
+@kernel_registry.register("sdpa_sparse", "cuda")
+def sparse_attention_cuda(
+    query: Tensor, key: Tensor, value: Tensor, num_q_heads: int, num_kv_heads: int,
+    head_dim: int, is_causal: bool = False, scale: Optional[float] = None,
+    sparse_mask: Optional[Tensor] = None, block_q: int = 128, block_k: int = 128,
+) -> Tensor:
+    """Without a mask the op is dense attention: the sdpa kernel."""
+    if sparse_mask is None:
+        return sdpa_cuda(query, key, value, num_q_heads, num_kv_heads, head_dim, is_causal,
+                         scale)
+    kernel = "sparse_mask"
+    _require(not is_causal, kernel, "the block-sparse kernel is non-causal (radial video "
+                                    "attention), as the Pallas kernel it replaces")
+    contracts.check_sdpa("sparse_attention_cuda", query, key, value, num_q_heads, num_kv_heads,
+                         head_dim)
+    contracts.check_sparse_mask("sparse_attention_cuda", sparse_mask, query.shape[0],
+                                num_q_heads, query.shape[1], key.shape[1], block_q, block_k)
+    _require(sparse_mask.dtype == torch.int32, kernel,
+             f"sparse_mask must be int32, got {sparse_mask.dtype}")
+    ni, nj = sparse_mask.shape[2:]
+    return _sparse_attention(
+        sparse_attention_cuda, kernel, "fdm_sparse_mask_fwd",
+        (sparse_mask.data_ptr(), ni, nj, block_q, block_k), [_P] + [_I] * 4,
+        {"sparse_mask": sparse_mask}, query, key, value, num_q_heads, num_kv_heads, head_dim,
+        scale, {"block_q": block_q, "block_k": block_k})
+
+
+sparse_attention_cuda.launches = 0
 
 
 # -------------------------------------------------------------- quantize
@@ -449,7 +543,9 @@ fp8_matmul_cuda.launches = 0
 
 KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, qk_norm_rope_cuda,
                    qk_norm_rope2_cuda, sdpa_cuda, gather_super_attention_cuda,
-                   quantize_to_int8_cuda, quantize_to_fp8_cuda, int8_matmul_cuda, fp8_matmul_cuda)
+                   gather_fine_attention_cuda, gather_sparse_attention_cuda,
+                   sparse_attention_cuda, quantize_to_int8_cuda, quantize_to_fp8_cuda,
+                   int8_matmul_cuda, fp8_matmul_cuda)
 
 
 def reset_launch_counts() -> None:

@@ -1,6 +1,6 @@
 """Kernel-op interface: the ported ops (port of the rmsnorm, rotembd,
-qk_norm_rope, qk_norm_rope2, W8A8, sdpa and sdpa_gather_super contracts of
-fastdm_tpu/kernels/ops.py:29-119, :126-213, :216, :313).
+qk_norm_rope, qk_norm_rope2, W8A8, sdpa and the four sparse-attention
+contracts of fastdm_tpu/kernels/ops.py:29-338).
 
 Same argument lists and semantics as the JAX ops: RoPE returns new (q, k)
 instead of writing into its inputs, cos/sin are two (S, head_size/2) float32
@@ -134,4 +134,50 @@ def gather_super_attention(
     padded to a multiple of `group` entries (padding: valbits 0). Keys past
     the sequence end are never allowed; a query row that sees no key returns
     0. Tables: sparse.xsparse.RadialAttn.block_lists_super."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("sdpa_sparse")
+def sparse_scaled_dot_product_attention(
+    query: Tensor, key: Tensor, value: Tensor, num_q_heads: int, num_kv_heads: int,
+    head_dim: int, is_causal: bool = False, scale: Optional[float] = None,
+    sparse_mask: Optional[Tensor] = None, block_q: int = 128, block_k: int = 128,
+) -> Tensor:
+    """Block-sparse attention over flattened-head layouts.
+
+    sparse_mask: (B, num_q_heads, ceil(Sq/block_q), ceil(Skv/block_k)) int
+    (or bool), one mask per batch entry and head: 1 computes the (block_q,
+    block_k) tile, 0 skips it. A query row with no allowed key returns 0.
+    sparse_mask=None is dense attention (the sdpa op). Tables:
+    sparse.xsparse.RadialAttn.block_mask."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("sdpa_gather")
+def gather_sparse_attention(
+    query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_counts: Tensor,
+    num_q_heads: int, num_kv_heads: int, head_dim: int, scale: Optional[float] = None,
+    block_q: int = 512, block_k: int = 1024,
+) -> Tensor:
+    """Gather-form block-sparse attention, one table for every batch entry
+    and head: query rows [i*block_q, (i+1)*block_q) attend to the KV tiles
+    block_indices[i, :block_counts[i, 0]] of block_k tokens (padding entries
+    past the count are never computed). A query row with no allowed key
+    returns 0. Tables: sparse.xsparse.RadialAttn.block_lists."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("sdpa_gather_fine")
+def gather_fine_attention(
+    query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_valid: Tensor,
+    block_rows: Tensor, num_q_heads: int, num_kv_heads: int, head_dim: int,
+    scale: Optional[float] = None, block_q: int = 512, group: int = 8, fine: int = 64,
+) -> Tensor:
+    """Fine-granularity gather-sparse attention: query rows [i*block_q,
+    (i+1)*block_q) attend to the fine KV blocks (`fine` tokens) of the
+    entries block_indices[start : start + count], block_rows[i] = [start,
+    count]; of fine block f an entry allows tokens [f*fine, f*fine +
+    block_valid[e]). Segments are padded to a multiple of `group` entries
+    (padding: valid 0). A query row with no allowed key returns 0. Tables:
+    sparse.xsparse.RadialAttn.block_lists_fine."""
     raise NotImplementedError

@@ -3,7 +3,8 @@ fastdm_tpu/kernels/jnp_backend/impl.py: rms_norm_jnp :19-26, _rotate and
 rotary_pos_embedding_jnp :29-54/:100-114, qk_norm_rope_jnp and
 qk_norm_rope2_jnp :57-97, quantize_to_int8_jnp :123-140, quantize_to_fp8_jnp
 :191-197, fp8_matmul_jnp :200-218, int8_matmul_jnp :221-240, sdpa_jnp
-:248-280, sdpa_gather_super_jnp :373-437).
+:248-280, sdpa_gather_jnp :283-311, sdpa_gather_fine_jnp :314-370,
+sdpa_gather_super_jnp :373-437, sdpa_sparse_jnp :440-486).
 
 They keep the oracle's rounding points — float32 math, one cast back to the
 input dtype — so the CPU tests can hold them to the JAX package, and
@@ -165,13 +166,15 @@ def fp8_matmul_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out
 
 def _masked_attention(query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
                       num_kv_heads: int, head_dim: int, scale: float,
-                      allowed: Optional[Tensor], zero_empty_rows: bool = False) -> Tensor:
+                      allowed=None, zero_empty_rows: bool = False) -> Tensor:
     """sdpa_jnp's math one head at a time (the (Sq, Skv) float32 logits of a
     single head alive at once): f32 logits, masked entries set to the f32
     minimum, softmax, probabilities rounded to v's dtype, f32 sums, one cast.
-    allowed: (Sq, Skv) bool or None. zero_empty_rows: a row with no allowed
-    key returns 0 (the gather kernels' l == 0 rule) instead of the uniform
-    average the softmax of equal minima gives."""
+    allowed: None, an (Sq, Skv) bool mask shared by every batch entry and
+    head, or a function of the query head giving its (B, Sq, Skv) bool mask.
+    zero_empty_rows: a row with no allowed key returns 0 (the sparse kernels'
+    l == 0 rule) instead of the uniform average the softmax of equal minima
+    gives."""
     b, sq, _ = query.shape
     skv = key.shape[1]
     q = query.reshape(b, sq, num_q_heads, head_dim)
@@ -179,16 +182,20 @@ def _masked_attention(query: Tensor, key: Tensor, value: Tensor, num_q_heads: in
     v = value.reshape(b, skv, num_kv_heads, head_dim)
     rep = num_q_heads // num_kv_heads
     out = torch.empty(b, sq, num_q_heads, head_dim, dtype=query.dtype, device=query.device)
-    blocked = None if allowed is None else ~allowed
-    empty_rows = ~allowed.any(dim=-1) if zero_empty_rows else None
+    per_head = callable(allowed)
+    shared = None if per_head or allowed is None else (~allowed, ~allowed.any(dim=-1))
     for h in range(num_q_heads):
+        blocked, empty_rows = shared or (None, None)
+        if per_head:
+            a = allowed(h)
+            blocked, empty_rows = ~a, ~a.any(dim=-1)
         kh, vh = k[:, :, h // rep].float(), v[:, :, h // rep]
         logits = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(), kh) * scale
         if blocked is not None:
             logits = logits.masked_fill(blocked, torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1)
-        if empty_rows is not None:
-            probs = probs.masked_fill(empty_rows[:, None], 0.0)
+        if zero_empty_rows:
+            probs = probs.masked_fill(empty_rows[..., None], 0.0)
         out[:, :, h] = torch.einsum(
             "bqk,bkd->bqd", probs.to(vh.dtype).float(), vh.float()).to(query.dtype)
     return out.reshape(b, sq, num_q_heads * head_dim)
@@ -205,11 +212,131 @@ def sdpa_torch(
     sq, skv = query.shape[1], key.shape[1]
     if scale is None:
         scale = head_dim**-0.5
-    mask = None
-    if is_causal:
-        mask = torch.ones(sq, skv, dtype=torch.bool, device=query.device).tril(skv - sq)
     return _masked_attention(query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
-                             mask)
+                             _causal_mask(sq, skv, query.device) if is_causal else None)
+
+
+def _causal_mask(sq: int, skv: int, device) -> Tensor:
+    """Bottom-right aligned, as sdpa_jnp: tril(k = skv - sq)."""
+    return torch.ones(sq, skv, dtype=torch.bool, device=device).tril(skv - sq)
+
+
+@kernel_registry.register("sdpa_sparse", "torch")
+def sdpa_sparse_torch(
+    query: Tensor, key: Tensor, value: Tensor, num_q_heads: int, num_kv_heads: int,
+    head_dim: int, is_causal: bool = False, scale: Optional[float] = None,
+    sparse_mask: Optional[Tensor] = None, block_q: int = 128, block_k: int = 128,
+) -> Tensor:
+    if sparse_mask is None:
+        return sdpa_torch(query, key, value, num_q_heads, num_kv_heads, head_dim, is_causal,
+                          scale)
+    contracts.check_sdpa("sdpa_sparse_torch", query, key, value, num_q_heads, num_kv_heads,
+                         head_dim)
+    b, sq, _ = query.shape
+    skv = key.shape[1]
+    contracts.check_sparse_mask("sdpa_sparse_torch", sparse_mask, b, num_q_heads, sq, skv,
+                                block_q, block_k)
+    dev = query.device
+    m = sparse_mask.to(device=dev, dtype=torch.bool)
+    rq = torch.arange(sq, device=dev) // block_q
+    rk = torch.arange(skv, device=dev) // block_k
+    causal = _causal_mask(sq, skv, dev) if is_causal else None
+
+    def allowed(h: int) -> Tensor:  # head h's (B, Sq, Skv) token mask
+        a = m[:, h][:, rq][:, :, rk]
+        return a if causal is None else a & causal
+
+    if scale is None:
+        scale = head_dim**-0.5
+    return _masked_attention(query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
+                             allowed, zero_empty_rows=True)
+
+
+def gather_lists_allowed(block_indices: Tensor, block_counts: Tensor, skv: int,
+                         block_k: int) -> Tensor:
+    """(nq, ceil(skv/block_k)) bool block mask of the coarse gather lists
+    (sdpa_gather_jnp's reconstruction, impl.py:299-305): entries past a
+    row's count allow nothing; indices are clipped to the KV tiles, as the
+    Pallas wrapper clips them."""
+    dev = block_indices.device
+    nq, max_nb = block_indices.shape
+    nk = -(-skv // block_k)
+    valid = torch.arange(max_nb, device=dev)[None, :] < block_counts.long().reshape(nq, 1)
+    rows = torch.arange(nq, device=dev)[:, None].expand(nq, max_nb)
+    mask = torch.zeros(nq, nk, dtype=torch.bool, device=dev)
+    mask[rows[valid], block_indices.long().clamp(0, nk - 1)[valid]] = True
+    return mask
+
+
+@kernel_registry.register("sdpa_gather", "torch")
+def sdpa_gather_torch(
+    query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_counts: Tensor,
+    num_q_heads: int, num_kv_heads: int, head_dim: int, scale: Optional[float] = None,
+    block_q: int = 512, block_k: int = 1024,
+) -> Tensor:
+    contracts.check_sdpa("sdpa_gather_torch", query, key, value, num_q_heads, num_kv_heads,
+                         head_dim)
+    sq, skv = query.shape[1], key.shape[1]
+    contracts.check_gather_lists("sdpa_gather_torch", block_indices, block_counts, sq, skv,
+                                 block_q, block_k)
+    dev = query.device
+    mask = gather_lists_allowed(block_indices, block_counts, skv, block_k)
+    allowed = mask[torch.arange(sq, device=dev) // block_q][
+        :, torch.arange(skv, device=dev) // block_k]
+    if scale is None:
+        scale = head_dim**-0.5
+    return _masked_attention(query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
+                             allowed, zero_empty_rows=True)
+
+
+def _rows_of_slots(block_rows: Tensor, t: int) -> Tuple[Tensor, Tensor]:
+    """For each of the t slots of a CSR-flat table: its row (the last row
+    whose start is at or before it) and whether it lies within that row's
+    `count` entries."""
+    dev = block_rows.device
+    starts = block_rows[:, 0].long()
+    slot = torch.arange(t, device=dev)
+    row_of_slot = (torch.searchsorted(starts.contiguous(), slot, right=True) - 1).clamp_min(0)
+    in_row = slot - starts[row_of_slot] < block_rows[:, 1].long()[row_of_slot]
+    return row_of_slot, in_row
+
+
+def gather_fine_allowed(block_indices: Tensor, block_valid: Tensor, block_rows: Tensor,
+                        skv: int, fine: int) -> Tensor:
+    """(nq, skv) bool: the keys each fine-table row allows
+    (sdpa_gather_fine_jnp's expansion, impl.py:341-347): of fine block f an
+    entry allows tokens f*fine + [0, valid); only a row's first `count`
+    entries count, indices outside the sequence allow nothing, and keys past
+    skv do not exist."""
+    dev = block_indices.device
+    nq, nfine = block_rows.shape[0], -(-skv // fine)
+    idx = block_indices.long()
+    row_of_slot, use = _rows_of_slots(block_rows, idx.shape[0])
+    use &= (idx >= 0) & (idx < nfine)
+    grid = torch.zeros(nq * nfine, dtype=torch.long, device=dev)
+    grid.scatter_reduce_(0, (row_of_slot * nfine + idx.clamp(0, nfine - 1))[use],
+                         block_valid.long()[use], "amax")
+    tok = torch.arange(skv, device=dev)
+    return (tok % fine)[None, :] < grid.view(nq, nfine)[:, tok // fine]
+
+
+@kernel_registry.register("sdpa_gather_fine", "torch")
+def sdpa_gather_fine_torch(
+    query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_valid: Tensor,
+    block_rows: Tensor, num_q_heads: int, num_kv_heads: int, head_dim: int,
+    scale: Optional[float] = None, block_q: int = 512, group: int = 8, fine: int = 64,
+) -> Tensor:
+    contracts.check_sdpa("sdpa_gather_fine_torch", query, key, value, num_q_heads,
+                         num_kv_heads, head_dim)
+    sq, skv = query.shape[1], key.shape[1]
+    contracts.check_gather_fine("sdpa_gather_fine_torch", block_indices, block_valid,
+                                block_rows, sq, skv, block_q, group, fine)
+    allowed = gather_fine_allowed(block_indices, block_valid, block_rows, skv, fine)
+    rows = torch.arange(sq, device=query.device) // block_q
+    if scale is None:
+        scale = head_dim**-0.5
+    return _masked_attention(query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
+                             allowed[rows], zero_empty_rows=True)
 
 
 def gather_super_allowed(block_indices: Tensor, block_valbits: Tensor, block_rows: Tensor,
@@ -223,10 +350,7 @@ def gather_super_allowed(block_indices: Tensor, block_valbits: Tensor, block_row
     nq, t = block_rows.shape[0], block_indices.shape[0]
     sb = superblock
     nsup = -(-(-(-skv // fine)) // sb)
-    starts = block_rows[:, 0].long()
-    slot = torch.arange(t, device=dev)
-    row_of_slot = (torch.searchsorted(starts.contiguous(), slot, right=True) - 1).clamp_min(0)
-    in_row = slot - starts[row_of_slot] < block_rows[:, 1].long()[row_of_slot]
+    row_of_slot, in_row = _rows_of_slots(block_rows, t)
     sub = torch.arange(sb, device=dev)
     fids = block_indices.long()[:, None] * sb + sub[None, :]                    # (T, sb)
     active = ((block_valbits.long()[:, None] >> sub[None, :]) & 1) == 1       # (T, sb)

@@ -294,13 +294,14 @@ def flux_forward_cached(
     guidance: Optional[Tensor] = None,
 ) -> Tuple[Tensor, dict]:
     """flux_forward under a step-skipping cache -> (output, new_cache_state).
-    TeaCache probes block 0's modulated input; FBCache and DiCache wait."""
+    TeaCache probes block 0's modulated input; FLUX's FBCache and DiCache
+    probes are not ported yet (Wan's are, models/wan.py)."""
     from fastdm_tpu_torch.caching.config import TeaCacheConfig
     from fastdm_tpu_torch.caching.xcaching import cached_run
 
     if not isinstance(cache_cfg, TeaCacheConfig):
         raise NotImplementedError(
-            f"{type(cache_cfg).__name__} is not in this slice of the port (TeaCache is)")
+            f"{type(cache_cfg).__name__} for FLUX is not in the port yet (TeaCache is)")
     hidden, temb, encoder = _flux_embed(params, cfg, hidden_states, encoder_hidden_states,
                                         pooled_projections, timestep, guidance)
     block0_norm1 = params.dual_blocks[0].norm1

@@ -10,11 +10,14 @@ cross-attention. RoPE tables are computed on the host in float64. Two experts
 (Wan2.2-A14B) are two WanTransformer instances; the denoise loop switches
 between them (pipeline/denoise_wan.py).
 
-Sparse self-attention takes the superblock gather tables (idx, valbits, rows)
-of sparse.xsparse.RadialAttn.block_lists_super with
-cfg.sparse_gather_superblock > 1. The image branch (I2V), per-token timesteps
-(TI2V), the other sparse-mask forms and the cached forward (FBCache/DiCache)
-raise NotImplementedError until their slices.
+Sparse self-attention takes any of the four forms of the radial mask
+(sparse.xsparse.RadialAttn): a 3-tuple of superblock tables (block_lists_super,
+cfg.sparse_gather_superblock > 1) or of fine tables (block_lists_fine,
+superblock 1), a 2-tuple of coarse lists (block_lists, tiles
+cfg.sparse_gather_blocks), or a (B, H, nq, nk) block mask at 128x128 tiles
+(block_mask). wan_forward_cached runs the forward under FBCache or DiCache.
+The image branch (I2V) and per-token timesteps (TI2V) raise
+NotImplementedError until their slice.
 """
 
 from __future__ import annotations
@@ -30,11 +33,14 @@ from torch import nn
 
 from fastdm_tpu_torch.device import resolve_device
 from fastdm_tpu_torch.kernels import (
+    gather_fine_attention,
+    gather_sparse_attention,
     gather_super_attention,
     qk_norm_rope,
     qk_norm_rope2,
     rms_norm,
     scaled_dot_product_attention,
+    sparse_scaled_dot_product_attention,
 )
 from fastdm_tpu_torch.layers.embeddings import (
     PixArtTextProjection,
@@ -77,12 +83,15 @@ class WanConfig:
     # project q, k, v separately (column slices of the fused QKV weight, per
     # token chunk) and use the two-operand qk_norm_rope2: no (S, 3D) buffer
     split_qkv_proj: bool = False
-    # (block_q, group, fine) of the gather tables; fine = the radial mask's
+    # (block_q, block_k) tiles of the coarse gather lists (a 2-tuple mask)
+    sparse_gather_blocks: Tuple[int, int] = (512, 1024)
+    # (block_q, group, fine) of the fine and superblock gather tables; fine = the radial mask's
     # block_size (the engine syncs it); group counts fine blocks, so a
     # superblock table is padded to group // superblock entries
     sparse_gather_fine_blocks: Tuple[int, int, int] = (512, 32, 64)
-    # > 1: a 3-tuple sparse mask holds superblock tables of this many fine
-    # blocks per entry (gather_super_attention)
+    # a 3-tuple sparse mask holds superblock tables of this many fine blocks
+    # per entry when > 1 (gather_super_attention), fine tables when 1
+    # (gather_fine_attention)
     sparse_gather_superblock: int = 1
     per_token_timestep: bool = False         # Wan2.2-TI2V: a later slice
     quant: Optional[str] = "int8"            # block linears: None/"bf16" | "int8" | "fp8"
@@ -290,17 +299,26 @@ def _wan_self_attention_core(attn: WanSelfAttention, x: Tensor, q: Tensor, k: Te
     h, hd = cfg.num_attention_heads, cfg.attention_head_dim
     if sparse_mask is None:
         out = scaled_dot_product_attention(q, k, v, h, h, hd, False, hd**-0.5)
-    elif (isinstance(sparse_mask, (tuple, list)) and len(sparse_mask) == 3
-          and cfg.sparse_gather_superblock > 1):
+    elif isinstance(sparse_mask, (tuple, list)) and len(sparse_mask) == 3:
         idx, val, rows = sparse_mask
         bq, grp, fine = cfg.sparse_gather_fine_blocks
         sb = cfg.sparse_gather_superblock
-        out = gather_super_attention(q, k, v, idx, val, rows, h, h, hd, scale=hd**-0.5,
-                                     block_q=bq, group=max(1, grp // sb), fine=fine,
-                                     superblock=sb)
+        if sb > 1:
+            out = gather_super_attention(q, k, v, idx, val, rows, h, h, hd, scale=hd**-0.5,
+                                         block_q=bq, group=max(1, grp // sb), fine=fine,
+                                         superblock=sb)
+        else:
+            out = gather_fine_attention(q, k, v, idx, val, rows, h, h, hd, scale=hd**-0.5,
+                                        block_q=bq, group=grp, fine=fine)
+    elif isinstance(sparse_mask, (tuple, list)):
+        idx, cnt = sparse_mask
+        bq, bk = cfg.sparse_gather_blocks
+        out = gather_sparse_attention(q, k, v, idx, cnt, h, h, hd, scale=hd**-0.5, block_q=bq,
+                                      block_k=bk)
     else:
-        raise _later_slice("this sparse-mask form (the block mask, the coarse and the fine "
-                           "gather tables; the superblock tables are ported)")
+        out = sparse_scaled_dot_product_attention(q, k, v, h, h, hd, False, hd**-0.5,
+                                                  sparse_mask=sparse_mask, block_q=128,
+                                                  block_k=128)
     return attn.to_out(out.to(x.dtype), chunk_tokens=cfg.ffn_chunk_tokens)
 
 
@@ -348,11 +366,13 @@ def wan_block(block: WanBlock, hidden: Tensor, encoder: Tensor, temb6: Tensor, c
 
 
 def wan_run_blocks(params: WanTransformer, cfg: WanConfig, hidden: Tensor, encoder: Tensor,
-                   temb6: Tensor, cos: Tensor, sin: Tensor, sparse_mask=None) -> Tensor:
-    """Every block in order; blocks below cfg.dense_layers ignore the mask."""
-    for i, block in enumerate(params.blocks):
+                   temb6: Tensor, cos: Tensor, sin: Tensor, sparse_mask=None,
+                   start_block: int = 0, end_block: Optional[int] = None) -> Tensor:
+    """Blocks [start_block, end_block) in order (all by default); blocks
+    below cfg.dense_layers ignore the mask."""
+    for i in range(start_block, len(params.blocks) if end_block is None else end_block):
         mask = None if i < cfg.dense_layers else sparse_mask
-        hidden = wan_block(block, hidden, encoder, temb6, cos, sin, cfg, mask)
+        hidden = wan_block(params.blocks[i], hidden, encoder, temb6, cos, sin, cfg, mask)
     return hidden
 
 
@@ -387,6 +407,32 @@ def wan_condition(params: WanTransformer, cfg: WanConfig, timestep: Tensor,
     return temb, t6, encoder
 
 
+def _wan_embed(params: WanTransformer, cfg: WanConfig, hidden_states: Tensor, timestep: Tensor,
+               encoder_hidden_states: Tensor, encoder_hidden_states_image, rope_cos, rope_sin):
+    """The preamble the plain and cached forwards share: RoPE tables (when
+    not given), patchify, conditioning -> (hidden, temb, temb6 (B, 6, D),
+    encoder, cos, sin)."""
+    if encoder_hidden_states_image is not None:
+        raise _later_slice("the Wan image-conditioning branch (I2V)")
+    check_wan_config(cfg)
+    b, _, f, h, w = hidden_states.shape
+    if rope_cos is None:
+        rope_cos, rope_sin = wan_rope_cos_sin(cfg, f, h, w, device=hidden_states.device)
+    hidden = wan_patchify(params, cfg, hidden_states)
+    temb, t6, encoder = wan_condition(params, cfg, timestep, encoder_hidden_states)
+    return hidden, temb, t6.reshape(b, 6, cfg.inner_dim), encoder, rope_cos, rope_sin
+
+
+def _wan_output(params: WanTransformer, cfg: WanConfig, hidden: Tensor, temb: Tensor,
+                fhw) -> Tensor:
+    """Output modulation (norm_out stays f32 through it), projection, unpatchify."""
+    mod = params.scale_shift_table[None] + temb.float()[:, None, :]
+    shift, scale = mod[:, 0][:, None], mod[:, 1][:, None]
+    h32 = fp32_layer_norm(hidden, eps=cfg.eps)
+    hidden = (h32 * (1 + scale) + shift).to(hidden.dtype)
+    return wan_unpatchify(cfg, params.proj_out(hidden), *fhw)
+
+
 def wan_forward(
     params: WanTransformer, cfg: WanConfig,
     hidden_states: Tensor,          # (B, C, F, H, W) video latent
@@ -398,26 +444,44 @@ def wan_forward(
     sparse_mask=None,
 ) -> Tensor:
     """Denoiser forward -> (B, C_out, F, H, W)."""
-    if encoder_hidden_states_image is not None:
-        raise _later_slice("the Wan image-conditioning branch (I2V)")
-    check_wan_config(cfg)
-    b, _, f, h, w = hidden_states.shape
-    if rope_cos is None:
-        rope_cos, rope_sin = wan_rope_cos_sin(cfg, f, h, w, device=hidden_states.device)
-    hidden = wan_patchify(params, cfg, hidden_states)
-    temb, t6, encoder = wan_condition(params, cfg, timestep, encoder_hidden_states)
-    t6 = t6.reshape(b, 6, cfg.inner_dim)
-    hidden = wan_run_blocks(params, cfg, hidden, encoder, t6, rope_cos, rope_sin, sparse_mask)
-    # output modulation: norm_out stays f32 through it
-    mod = params.scale_shift_table[None] + temb.float()[:, None, :]
-    shift, scale = mod[:, 0][:, None], mod[:, 1][:, None]
-    h32 = fp32_layer_norm(hidden, eps=cfg.eps)
-    hidden = (h32 * (1 + scale) + shift).to(hidden.dtype)
-    return wan_unpatchify(cfg, params.proj_out(hidden), f, h, w)
+    hidden, temb, t6, encoder, cos, sin = _wan_embed(
+        params, cfg, hidden_states, timestep, encoder_hidden_states,
+        encoder_hidden_states_image, rope_cos, rope_sin)
+    hidden = wan_run_blocks(params, cfg, hidden, encoder, t6, cos, sin, sparse_mask)
+    return _wan_output(params, cfg, hidden, temb, hidden_states.shape[2:])
 
 
-def wan_forward_cached(*args, **kwargs):
-    raise _later_slice("the cached Wan forward (FBCache / DiCache)")
+def wan_forward_cached(
+    params: WanTransformer, cfg: WanConfig, cache_cfg, cache_state, step: int,
+    total_steps: int, hidden_states: Tensor, timestep: Tensor, encoder_hidden_states: Tensor,
+    encoder_hidden_states_image: Optional[Tensor] = None, rope_cos: Optional[Tensor] = None,
+    rope_sin: Optional[Tensor] = None, sparse_mask=None,
+):
+    """wan_forward under FBCache or DiCache (caching/xcaching.py cached_run)
+    -> (output, new cache state). The probe is the output of the first block
+    (FBCache) or of the first probe_depth blocks (DiCache); the rest of the
+    blocks run only on a computed step. Dense layers take no mask in either
+    part."""
+    from fastdm_tpu_torch.caching.config import DiCacheConfig, FBCacheConfig
+    from fastdm_tpu_torch.caching.xcaching import cached_run
+
+    if not isinstance(cache_cfg, (FBCacheConfig, DiCacheConfig)):
+        raise ValueError(f"Wan caching supports FBCache / DiCache, got {type(cache_cfg).__name__}")
+    hidden, temb, t6, encoder, cos, sin = _wan_embed(
+        params, cfg, hidden_states, timestep, encoder_hidden_states,
+        encoder_hidden_states_image, rope_cos, rope_sin)
+    depth = 1 if isinstance(cache_cfg, FBCacheConfig) else cache_cfg.probe_depth
+
+    def probe_fn(hh, ee):
+        hh = wan_run_blocks(params, cfg, hh, ee, t6, cos, sin, sparse_mask, end_block=depth)
+        return hh, (hh, ee)
+
+    def rest_fn(hh, ee):
+        return wan_run_blocks(params, cfg, hh, ee, t6, cos, sin, sparse_mask, start_block=depth)
+
+    hidden, new_state = cached_run(cache_cfg, cache_state, step, total_steps, hidden, encoder,
+                                   probe_fn, rest_fn)
+    return _wan_output(params, cfg, hidden, temb, hidden_states.shape[2:]), new_state
 
 
 # ---------------------------------------------------------------- rope

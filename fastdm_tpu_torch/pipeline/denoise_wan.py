@@ -1,14 +1,19 @@
 """Wan denoise loops (port of the Wan part of
 fastdm_tpu/pipeline/denoise_more.py: _warmup_scans :402-423,
-make_wan_denoiser :426-496 and make_wan_dual_phase_denoiser :854-1019,
-uncached).
+make_wan_denoiser :426-496, make_wan_cached_denoiser :499-647 and
+make_wan_dual_phase_denoiser :854-1019).
 
 True classifier-free guidance: two forwards per step (text, then negative
 text), combined in float32. Python loops take the place of lax.scan /
 lax.cond; the radial sparse mask is skipped on the first dense-warmup steps.
 Wan2.2-A14B's two experts run phase-split: the boundary step comes from the
 sigma ladder (the high-noise expert runs while sigma >= boundary_ratio), and
-the scheduler state carries across the phase boundary.
+the scheduler state carries across the phase boundary. Under FBCache or
+DiCache each forward is wan_forward_cached with a (pos, neg) pair of cache
+states (the negative stream on negative_stream_config); the dual loop makes a
+fresh pair at the start of each expert's phase, and step indices stay global
+(the warmup tests compare them). The loops return the number of skipped
+forwards.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from fastdm_tpu_torch.models.wan import WanConfig, WanTransformer, wan_forward
+from fastdm_tpu_torch.models.wan import WanConfig, WanTransformer, wan_forward, \
+    wan_forward_cached
 
 Tensor = torch.Tensor
 
@@ -36,28 +42,55 @@ def expert_boundary_step(sigmas: np.ndarray, num_steps: int, boundary_ratio: flo
 
 
 def _make_step(cfg: WanConfig, scheduler, num_steps: int, sparse_mask, dense_cut: int,
-               do_cfg: bool):
+               do_cfg: bool, cache_cfg=None):
     sigmas = np.asarray(scheduler.sigmas, np.float32)
+    if cache_cfg is not None:
+        from fastdm_tpu_torch.caching.xcaching import negative_stream_config
+
+        stream_cfgs = (cache_cfg, negative_stream_config(cache_cfg))
 
     def step(params: WanTransformer, guidance: float, latents: Tensor, state, step_i: int,
-             pos_text: Tensor, neg_text: Tensor, cos: Tensor, sin: Tensor):
+             pos_text: Tensor, neg_text: Tensor, cos: Tensor, sin: Tensor, caches=None):
+        """One step; `caches`, a [pos, neg] list of cache states, is updated
+        in place under a step cache."""
         b = latents.shape[0]
         t = torch.full((b,), float(sigmas[step_i] * np.float32(1000.0)), dtype=torch.float32,
                        device=latents.device)
         mask = None if step_i < dense_cut else sparse_mask
         x = latents.to(torch.bfloat16)
 
-        def one(text):
-            return wan_forward(params, cfg, x, t, text, rope_cos=cos, rope_sin=sin,
-                               sparse_mask=mask).float()
+        def one(text, stream: int):
+            if cache_cfg is None:
+                return wan_forward(params, cfg, x, t, text, rope_cos=cos, rope_sin=sin,
+                                   sparse_mask=mask).float()
+            out, caches[stream] = wan_forward_cached(
+                params, cfg, stream_cfgs[stream], caches[stream], step_i, num_steps, x, t, text,
+                rope_cos=cos, rope_sin=sin, sparse_mask=mask)
+            return out.float()
 
-        out = one(pos_text)
+        out = one(pos_text, 0)
         if do_cfg:
-            neg = one(neg_text)
+            neg = one(neg_text, 1)
             out = neg + guidance * (out - neg)
         return scheduler.step(out, step_i, latents, state, num_steps)
 
     return step
+
+
+def _fresh_caches(cfg: WanConfig, cache_cfg, latents: Tensor):
+    """A zeroed [pos, neg] pair of cache states for `latents`' token count."""
+    from fastdm_tpu_torch.caching.xcaching import cache_init_state
+
+    if cache_cfg is None:
+        return None
+    b, _, f, h, w = latents.shape
+    pt, ph, pw = cfg.patch_size
+    shape = (b, (f // pt) * (h // ph) * (w // pw), cfg.inner_dim)
+    return [cache_init_state(cache_cfg, shape, shape, device=latents.device) for _ in range(2)]
+
+
+def _skips(caches) -> int:
+    return 0 if caches is None else sum(c["skips"] for c in caches)
 
 
 def make_wan_denoiser(cfg: WanConfig, scheduler, num_steps: int, guidance_scale: float = 5.0,
@@ -66,30 +99,44 @@ def make_wan_denoiser(cfg: WanConfig, scheduler, num_steps: int, guidance_scale:
     pos_text, neg_text (B, text_len, text_dim), cos, sin, sparse_mask) ->
     (latents, skips = 0). With guidance_scale <= 1 the negative branch is not
     run. The scheduler is a UniPCMultistepScheduler (the Wan default)."""
+    return make_wan_cached_denoiser(cfg, scheduler, num_steps, None, guidance_scale,
+                                    dense_warmup_steps)
+
+
+def make_wan_cached_denoiser(cfg: WanConfig, scheduler, num_steps: int, cache_cfg,
+                             guidance_scale: float = 5.0, dense_warmup_steps: int = 0):
+    """One expert under FBCache / DiCache (cache_cfg; None runs uncached):
+    run(params, latents, pos_text, neg_text, cos, sin, sparse_mask) ->
+    (latents, skipped forwards of both CFG streams)."""
 
     @torch.inference_mode()
     def run(params: WanTransformer, latents: Tensor, pos_text: Tensor, neg_text: Tensor,
             cos: Tensor, sin: Tensor, sparse_mask=None) -> Tuple[Tensor, int]:
         step = _make_step(cfg, scheduler, num_steps, sparse_mask,
-                          dense_warmup_cut(dense_warmup_steps, num_steps), guidance_scale > 1.0)
+                          dense_warmup_cut(dense_warmup_steps, num_steps), guidance_scale > 1.0,
+                          cache_cfg)
         state = scheduler.init_state(latents)
+        caches = _fresh_caches(cfg, cache_cfg, latents)
         for i in range(num_steps):
             latents, state = step(params, guidance_scale, latents, state, i, pos_text, neg_text,
-                                  cos, sin)
-        return latents, 0
+                                  cos, sin, caches)
+        return latents, _skips(caches)
 
     return run
 
 
 def make_wan_dual_phase_denoiser(cfg: WanConfig, scheduler, num_steps: int,
                                  guidance_scale: float, guidance_scale_2: Optional[float],
-                                 boundary_ratio: float, dense_warmup_steps: int = 0):
+                                 boundary_ratio: float, dense_warmup_steps: int = 0,
+                                 cache_cfg=None):
     """Wan2.2-A14B: the high-noise expert (params) on steps [0, b) with
     guidance_scale, the low-noise expert (params_2) on [b, num_steps) with
     guidance_scale_2 (default: guidance_scale), b =
-    expert_boundary_step(...). Returns run(params, params_2, latents,
-    pos_text, neg_text, cos, sin, sparse_mask) -> (latents, skips = 0); the
-    run's per-expert step counts are left in run.phase_steps."""
+    expert_boundary_step(...); under a step cache (cache_cfg) each phase
+    starts from a fresh (pos, neg) pair of cache states. Returns run(params,
+    params_2, latents, pos_text, neg_text, cos, sin, sparse_mask) ->
+    (latents, skipped forwards); the run's per-expert step counts are left in
+    run.phase_steps."""
     g2 = guidance_scale if guidance_scale_2 is None else guidance_scale_2
     b_step = expert_boundary_step(scheduler.sigmas, num_steps, boundary_ratio)
 
@@ -99,12 +146,18 @@ def make_wan_dual_phase_denoiser(cfg: WanConfig, scheduler, num_steps: int,
             sparse_mask=None) -> Tuple[Tensor, int]:
         # CFG on or off for both phases by the first scale, as in JAX
         step = _make_step(cfg, scheduler, num_steps, sparse_mask,
-                          dense_warmup_cut(dense_warmup_steps, num_steps), guidance_scale > 1.0)
+                          dense_warmup_cut(dense_warmup_steps, num_steps), guidance_scale > 1.0,
+                          cache_cfg)
         state = scheduler.init_state(latents)
-        for i in range(num_steps):
-            expert, g = (params, guidance_scale) if i < b_step else (params_2, g2)
-            latents, state = step(expert, g, latents, state, i, pos_text, neg_text, cos, sin)
-        return latents, 0
+        skips = 0
+        for lo, hi, expert, g in ((0, b_step, params, guidance_scale),
+                                  (b_step, num_steps, params_2, g2)):
+            caches = _fresh_caches(cfg, cache_cfg, latents)
+            for i in range(lo, hi):
+                latents, state = step(expert, g, latents, state, i, pos_text, neg_text, cos,
+                                      sin, caches)
+            skips += _skips(caches)
+        return latents, skips
 
     run.phase_steps = (b_step, num_steps - b_step)
     return run

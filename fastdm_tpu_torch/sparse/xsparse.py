@@ -1,15 +1,22 @@
 """Radial block-sparse attention tables (port of fastdm_tpu/sparse/xsparse.py
-:25-105 and :275-330, numpy on the host: the mask is static per video shape).
+and of mask_to_block_lists, fastdm_tpu/kernels/pallas/attention.py:1100-1118;
+numpy on the host: the mask is static per video shape).
 
 radial_block_mask builds the (ceil(S/bs), ceil(S/bs)) bool mask at the
 config's block_size, bit for bit the JAX function: frame-pair windows halve
 with log2 of the inter-frame distance (scaled by decay_factor), frames whose
 window shrank below one block keep every split_factor-th diagonal, frame 0 is
 an attention sink for wan, and a block is kept when more than 60% of its
-non-zero columns have density above 1/3. RadialAttn.block_lists_super packs
-it into the CSR superblock tables of the gather_super_attention op.
-block_lists_fine, block_lists and block_mask (the fine, coarse and masked
-sparse modes) arrive with the slice that ports their kernels.
+non-zero columns have density above 1/3. RadialAttn packs it for the four
+sparse modes of the Wan engine (FASTDM_SPARSE_GATHER):
+  mask   -- block_mask: the (B, H, nq, nk) block mask of
+            sparse_scaled_dot_product_attention;
+  coarse -- block_lists: per-q-tile lists of coarse KV blocks
+            (gather_sparse_attention);
+  fine   -- block_lists_fine: CSR lists of native fine blocks
+            (gather_fine_attention);
+  super  -- block_lists_super: CSR lists of superblocks with bitmasks
+            (gather_super_attention).
 """
 
 from __future__ import annotations
@@ -146,6 +153,50 @@ def super_tables_from_mask(m: np.ndarray, group: int, superblock: int
     return np.concatenate(idx_segs), np.concatenate(val_segs), rows
 
 
+def mask_to_block_lists(mask_2d, q_factor: int = 1, k_factor: int = 1):
+    """(nq, nk) bool block mask -> (indices (nq', max_nb) int32, counts (nq', 1)
+    int32, max_nb): each row's active KV blocks in order, after OR-coarsening
+    by (q_factor, k_factor); padding entries repeat index 0 and lie past the
+    row's count, so they are never computed."""
+    m = coarsen_block_mask(mask_2d, q_factor, k_factor)
+    nq = m.shape[0]
+    counts = m.sum(1).astype(np.int32)
+    max_nb = max(1, int(counts.max()))
+    idx = np.zeros((nq, max_nb), np.int32)
+    for i in range(nq):
+        active = np.nonzero(m[i])[0]
+        idx[i, : len(active)] = active
+    return idx, counts.reshape(nq, 1), max_nb
+
+
+def fine_tables_from_mask(m: np.ndarray, group: int, fine: int, tokens: int
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pack a (nq, nfine) bool mask (q tiles x fine KV blocks of `fine`
+    tokens) into the CSR fine tables: (indices (T,) int32 fine block ids,
+    valid (T,) int32 -- `fine`, or for the global last block the tokens of
+    `tokens` it holds; 0 for padding slots -- rows (nq, 2) int32 [start,
+    count]). Each row's segment is padded to a multiple of `group` entries
+    (at least one group)."""
+    nq, nfine = m.shape
+    tail_id = nfine - 1
+    tail_valid = tokens - tail_id * fine if tokens > tail_id * fine else fine
+    idx_segs, val_segs = [], []
+    rows = np.zeros((nq, 2), np.int32)
+    start = 0
+    for r in range(nq):
+        active = np.nonzero(m[r])[0].astype(np.int32)
+        padded = -(-max(1, len(active)) // group) * group
+        seg_i = np.zeros(padded, np.int32)
+        seg_v = np.zeros(padded, np.int32)
+        seg_i[: len(active)] = active
+        seg_v[: len(active)] = np.where(active == tail_id, min(tail_valid, fine), fine)
+        rows[r] = (start, len(active))
+        start += padded
+        idx_segs.append(seg_i)
+        val_segs.append(seg_v)
+    return np.concatenate(idx_segs), np.concatenate(val_segs), rows
+
+
 class SparseAttn:
     """Config-driven factory (SparseAttn.from_dict / from_json)."""
 
@@ -191,6 +242,55 @@ class RadialAttn(SparseAttn):
             self._mask_cache[key] = radial_block_mask(
                 self.video_token_num, self.num_frame, self.config)
         return self._mask_cache[key]
+
+    def block_mask(self, batch: int = 1, heads: int = 1,
+                   block_tokens: Optional[int] = None) -> np.ndarray:
+        """(batch, heads, nb, nb) int32 block mask at the consumer's tile size
+        block_tokens (default: the config's block_size): a coarser tile ORs
+        blocks together (a superset, never drops attention), a finer one
+        repeats them."""
+        m = self._mask2d()
+        bs = self.config.block_size
+        bt = bs if block_tokens is None else block_tokens
+        if bt < 1:
+            raise ValueError(f"block_tokens must be >= 1, got {bt}")
+        if bt != bs:
+            if bt % bs == 0:
+                m = coarsen_block_mask(m, bt // bs, bt // bs)
+            elif bs % bt == 0:
+                f = bs // bt
+                m = np.repeat(np.repeat(m, f, axis=0), f, axis=1)
+            else:
+                raise ValueError(f"block_tokens {bt} incompatible with mask block_size {bs}")
+        m = m.astype(np.int32)
+        return np.broadcast_to(m[None, None], (batch, heads, *m.shape)).copy()
+
+    def block_lists(self, q_tokens: int = 512, k_tokens: int = 1024):
+        """Per-q-tile lists of the active KV tiles of gather_sparse_attention,
+        tiles of (q_tokens, k_tokens) tokens (multiples of block_size; the mask
+        is OR-coarsened to them): (indices (nq, max_nb) int32, counts (nq, 1)
+        int32)."""
+        bs = self.config.block_size
+        if q_tokens % bs or k_tokens % bs:
+            raise ValueError(f"gather tile sizes ({q_tokens}, {k_tokens}) must be multiples of "
+                             f"the radial mask block_size {bs}")
+        idx, cnt, _ = mask_to_block_lists(self._mask2d(), q_tokens // bs, k_tokens // bs)
+        return idx, cnt
+
+    def block_lists_fine(self, q_tokens: int = 512, group: int = 8):
+        """CSR tables of gather_fine_attention: the mask OR-coarsened to q tiles
+        of q_tokens and kept at the native block_size along the keys. Returns
+        (indices (T,) int32 fine block ids, valid (T,) int32 tokens of each
+        entry -- block_size, the remainder for the global last block, 0 for
+        padding slots -- and rows (nq, 2) int32 [start, count]); each row's
+        segment is padded to a multiple of `group` entries (at least one
+        group)."""
+        bs = self.config.block_size
+        if q_tokens % bs:
+            raise ValueError(f"q_tokens {q_tokens} must be a multiple of the radial mask "
+                             f"block_size {bs}")
+        m = coarsen_block_mask(self._mask2d(), q_tokens // bs, 1)
+        return fine_tables_from_mask(m, group, bs, self.video_token_num)
 
     def block_lists_super(self, q_tokens: int = 512, group: int = 8, superblock: int = 4):
         """Superblock gather tables for gather_super_attention: the radial mask

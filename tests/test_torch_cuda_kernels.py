@@ -19,9 +19,11 @@ relative to its absolute sum, and 60x under the worst case at K = 15360.
 The Wan kernels: qk_norm_rope / qk_norm_rope2 within one bf16 ulp of the
 value plus two of its rotation pair's magnitude (the normalized value may sit
 one ulp away before the bit-exact rotation mixes the pair), and the fused and
-two-operand forms bit-identical; gather_super as sdpa's FLUX-heads case, and
-bit-identical to the dense sdpa kernel on all-active tables (the same tiles in
-the same order through the same tile code).
+two-operand forms bit-identical; gather_super as sdpa's FLUX-heads case, the
+other three sparse-attention walks (gather_fine, gather_coarse, sparse_mask)
+as sdpa's small cases plus relative L2 5e-3 (see _close_to_plain), and all
+four bit-identical to the dense sdpa kernel on tables that allow every key
+(the same tiles in the same order through the same tile code).
 """
 
 import numpy as np
@@ -376,3 +378,160 @@ def test_wan_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         cuda_backend.qk_norm_rope2_cuda(q, q, None, None, 128, cos[:10], cos[:10])
     with pytest.raises(ValueError, match="bfloat16"):
         cuda_backend.qk_norm_rope2_cuda(q.float(), q.float(), None, None, 128, cos, cos)
+
+
+# -------------------------------------------------- mask / coarse / fine walks
+
+# name: (batch, sq, skv, heads_q, heads_kv, head_dim, block_q, block_k or fine, group,
+#        density, empty row)
+WALK_CASES = {
+    "ragged-tail": (1, 700, 961, 4, 4, 128, 256, 128, 4, 0.4, None),
+    "empty-row-batch2": (2, 1000, 1000, 2, 2, 128, 128, 128, 3, 0.3, 1),
+    "gqa-d64": (1, 513, 1500, 8, 2, 64, 128, 64, 8, 0.5, 0),
+    "wan-heads": (1, 2048, 2048, 40, 40, 128, 512, 128, 32, 0.4, None),
+}
+
+
+def _walk_operands(case, device, seed=8):
+    b, sq, skv, hq, hkv, d = case[:6]
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda s, h: torch.randn(b, s, h * d, generator=g, device=device,  # noqa: E731
+                                  dtype=torch.bfloat16)
+    return mk(sq, hq), mk(skv, hkv), mk(skv, hkv)
+
+
+def _close_to_plain(got, want, empty, bq):
+    """Within sdpa's small-case tolerance, 1e-2 + 1e-2*|x|: rows that see a
+    single 104-key tail block average few keys, and the kernel's and the plain
+    version's bf16 rounding of p (unnormalized, normalized) moves such outputs
+    by up to ~1e-3. Over the whole output, relative L2 <= 5e-3 (a dropped or
+    doubled 64-key tile gives ~5e-2)."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    assert (got - want).norm() / want.norm() <= 5e-3
+    if empty is not None:
+        assert not got[:, empty * bq:(empty + 1) * bq].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_sparse_mask_kernel_matches_plain_on_card(cuda_device, case):
+    """A different random 128-tile mask per batch entry and head (ragged skv,
+    a partial tail q tile, an empty row, GQA, head_dim 64)."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    b, sq, skv, hq, hkv, d, bq, bk, _, density, empty = WALK_CASES[case]
+    q, k, v = _walk_operands(WALK_CASES[case], cuda_device)
+    rng = np.random.default_rng(9)
+    mask = (rng.random((b, hq, -(-sq // bq), -(-skv // bk))) < density).astype(np.int32)
+    mask[..., -1] = 1
+    if empty is not None:
+        mask[:, :, empty] = 0
+    m = torch.from_numpy(mask).to(cuda_device)
+    kw = dict(sparse_mask=m, block_q=bq, block_k=bk)
+    got = cuda_backend.sparse_attention_cuda(q, k, v, hq, hkv, d, **kw)
+    _close_to_plain(got, torch_backend.sdpa_sparse_torch(q, k, v, hq, hkv, d, **kw), empty, bq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_gather_coarse_kernel_matches_plain_on_card(cuda_device, case):
+    """Coarse lists with padding entries past each row's count (index 0
+    repeated, never computed), a ragged last KV tile, an empty row."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+    from fastdm_tpu_torch.sparse.xsparse import mask_to_block_lists
+
+    b, sq, skv, hq, hkv, d, bq, bk, _, density, empty = WALK_CASES[case]
+    bk *= 2
+    q, k, v = _walk_operands(WALK_CASES[case], cuda_device)
+    m = np.random.default_rng(10).random((-(-sq // bq), -(-skv // bk))) < density
+    m[:, -1] = True
+    if empty is not None:
+        m[empty] = False
+    idx, cnt, _ = mask_to_block_lists(m)
+    tables = [torch.from_numpy(t).to(cuda_device) for t in (idx, cnt)]
+    kw = dict(block_q=bq, block_k=bk)
+    got = cuda_backend.gather_sparse_attention_cuda(q, k, v, *tables, hq, hkv, d, **kw)
+    _close_to_plain(got, torch_backend.sdpa_gather_torch(q, k, v, *tables, hq, hkv, d, **kw),
+                    empty, bq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_gather_fine_kernel_matches_plain_on_card(cuda_device, case):
+    """Fine tables with padding slots, the partial tail fine block, an empty
+    row, and a third of the entries cut to a partial `valid` (the kernel
+    honours it, as the plain version and the jnp oracle do)."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+    from fastdm_tpu_torch.sparse.xsparse import fine_tables_from_mask
+
+    b, sq, skv, hq, hkv, d, bq, fine, group, density, empty = WALK_CASES[case]
+    q, k, v = _walk_operands(WALK_CASES[case], cuda_device)
+    rng = np.random.default_rng(11)
+    m = rng.random((-(-sq // bq), -(-skv // fine))) < density
+    m[:, -1] = True
+    if empty is not None:
+        m[empty] = False
+    idx, val, rows = fine_tables_from_mask(m, group, fine, skv)
+    val[::3] = np.minimum(val[::3], rng.integers(1, fine, size=val[::3].shape))
+    tables = [torch.from_numpy(t).to(cuda_device) for t in (idx, val, rows)]
+    kw = dict(block_q=bq, group=group, fine=fine)
+    got = cuda_backend.gather_fine_attention_cuda(q, k, v, *tables, hq, hkv, d, **kw)
+    _close_to_plain(got, torch_backend.sdpa_gather_fine_torch(q, k, v, *tables, hq, hkv, d,
+                                                              **kw), empty, bq)
+
+
+@pytest.mark.gpu
+def test_walks_allowing_every_key_equal_dense_kernel(cuda_device):
+    """All-ones mask, coarse lists of every tile and fine tables of every
+    block give the dense sdpa kernel's result bit for bit (skv = 1000: the
+    last tile is partial)."""
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.sparse.xsparse import fine_tables_from_mask, mask_to_block_lists
+
+    b, s, h, d = 1, 1000, 4, 128
+    q, k, v = _walk_operands((b, s, s, h, h, d), cuda_device, seed=12)
+    dense = cuda_backend.sdpa_cuda(q, k, v, h, h, d)
+    to = lambda ts: [torch.from_numpy(t).to(cuda_device) for t in ts]  # noqa: E731
+    mask = torch.ones(b, h, 8, 8, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(cuda_backend.sparse_attention_cuda(q, k, v, h, h, d, sparse_mask=mask),
+                       dense)
+    idx, cnt, _ = mask_to_block_lists(np.ones((4, 4), bool))
+    assert torch.equal(cuda_backend.gather_sparse_attention_cuda(
+        q, k, v, *to((idx, cnt)), h, h, d, block_q=256, block_k=256), dense)
+    tables = to(fine_tables_from_mask(np.ones((2, 8), bool), 4, 128, s))
+    assert torch.equal(cuda_backend.gather_fine_attention_cuda(
+        q, k, v, *tables, h, h, d, block_q=512, group=4, fine=128), dense)
+
+
+@pytest.mark.gpu
+def test_sparse_walk_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    q = torch.zeros(1, 300, 2 * 128, device=cuda_device, dtype=torch.bfloat16)
+    mask = torch.ones(1, 2, 3, 3, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_backend.sparse_attention_cuda(q.float(), q.float(), q.float(), 2, 2, 128,
+                                           sparse_mask=mask)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_backend.sparse_attention_cuda(q, q, q, 2, 2, 128, sparse_mask=mask.bool())
+    with pytest.raises(ValueError, match="lie on"):
+        cuda_backend.sparse_attention_cuda(q, q.cpu(), q, 2, 2, 128, sparse_mask=mask)
+    with pytest.raises(ValueError, match="non-causal"):
+        cuda_backend.sparse_attention_cuda(q, q, q, 2, 2, 128, True, sparse_mask=mask)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cuda_backend.sparse_attention_cuda(q, q, q, 2, 2, 128, sparse_mask=torch.ones(
+            1, 2, 10, 10, dtype=torch.int32, device=cuda_device), block_q=32, block_k=32)
+    idx = torch.zeros(3, 2, dtype=torch.int32, device=cuda_device)
+    cnt = torch.ones(3, 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous int32 tensor on"):
+        cuda_backend.gather_sparse_attention_cuda(q, q, q, idx.cpu(), cnt, 2, 2, 128,
+                                                  block_q=128, block_k=256)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_backend.gather_sparse_attention_cuda(q, q, q, idx.long(), cnt, 2, 2, 128,
+                                                  block_q=128, block_k=256)
+    rows = torch.zeros(3, 2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cuda_backend.gather_fine_attention_cuda(q, q, q, idx[:, 0].contiguous(), idx[:, 0].
+                                                contiguous(), rows, 2, 2, 128, block_q=128,
+                                                group=1, fine=32)

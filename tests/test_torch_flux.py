@@ -165,7 +165,8 @@ def test_flux_load_matches_jax_loader():
 
 def test_w8a8_and_other_caches_wait_for_their_slices(models):
     """W8A8 has arrived (an int8 model builds and runs); FBCache and DiCache
-    still wait for their slices."""
+    configs load (Wan runs them), but FLUX's cached forward still waits for
+    their FLUX probes."""
     _, _, tcfg, tparams = models
     import dataclasses
 
@@ -174,8 +175,9 @@ def test_w8a8_and_other_caches_wait_for_their_slices(models):
     from fastdm_tpu_torch.caching.config import CacheConfig
 
     for algo in ("fbcache", "dicache"):
+        cfg = CacheConfig.from_dict({"cache_algorithm": algo})
         with pytest.raises(NotImplementedError):
-            CacheConfig.from_dict({"cache_algorithm": algo})
+            tflux.flux_forward_cached(tparams, tcfg, cfg, {}, 0, 1, *([None] * 6))
 
 
 def test_flux_init_random_is_seeded_bf16(models):

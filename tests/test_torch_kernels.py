@@ -40,10 +40,19 @@ from fastdm_tpu.kernels.jnp_backend.impl import (
     qk_norm_rope_jnp,
     rms_norm_jnp,
     rotary_pos_embedding_jnp,
+    sdpa_gather_fine_jnp,
+    sdpa_gather_jnp,
     sdpa_gather_super_jnp,
     sdpa_jnp,
+    sdpa_sparse_jnp,
 )
-from fastdm_tpu.kernels.pallas.attention import sdpa_gather_super_pallas, sdpa_pallas
+from fastdm_tpu.kernels.pallas.attention import (
+    sdpa_gather_fine_pallas,
+    sdpa_gather_pallas,
+    sdpa_gather_super_pallas,
+    sdpa_pallas,
+    sdpa_sparse_pallas,
+)
 from fastdm_tpu.kernels.pallas.elementwise import (
     qk_norm_rope2_pallas,
     qk_norm_rope_pallas,
@@ -55,6 +64,8 @@ from fastdm_tpu.kernels.pallas.elementwise import (
 from fastdm_tpu.kernels.pallas.matmul import fp8_matmul_pallas, int8_matmul_pallas
 from fastdm_tpu_torch.kernels import (
     fp8_matmul,
+    gather_fine_attention,
+    gather_sparse_attention,
     gather_super_attention,
     int8_matmul,
     kernel_registry,
@@ -65,6 +76,7 @@ from fastdm_tpu_torch.kernels import (
     rms_norm,
     rotary_pos_embedding,
     scaled_dot_product_attention,
+    sparse_scaled_dot_product_attention,
 )
 from fastdm_tpu_torch.models.loader import as_tensor
 
@@ -171,8 +183,8 @@ def test_dispatch_follows_device():
     ops or for the ops it names."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     w8a8 = ("quantize_to_int8", "quantize_to_fp8", "int8_matmul", "fp8_matmul")
-    for op in ("rmsnorm", "rotembd", "qk_norm_rope", "qk_norm_rope2", "sdpa",
-               "sdpa_gather_super") + w8a8:
+    for op in ("rmsnorm", "rotembd", "qk_norm_rope", "qk_norm_rope2", "sdpa", "sdpa_sparse",
+               "sdpa_gather", "sdpa_gather_fine", "sdpa_gather_super") + w8a8:
         assert kernel_registry.backend_for(op, cpu) == "torch"
         assert kernel_registry.backend_for(op, cuda) == "cuda"
         with kernel_registry.plain_on_device():
@@ -201,7 +213,9 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
 
     replaces = {"rmsnorm": ("rms_norm_pallas",), "rope": ("rotary_pos_embedding_pallas",),
                 "qk_norm_rope": ("qk_norm_rope_pallas", "qk_norm_rope2_pallas"),
-                "flash_attn": ("sdpa_pallas",), "gather_attn": ("sdpa_gather_super_pallas",),
+                "flash_attn": ("sdpa_pallas",),
+                "gather_attn": ("sdpa_gather_super_pallas", "sdpa_gather_fine_pallas",
+                                "sdpa_gather_pallas", "sdpa_sparse_pallas"),
                 "quant": ("quantize_to_int8_pallas", "quantize_to_fp8_pallas"),
                 "w8a8_gemm": ("int8_matmul_pallas", "fp8_matmul_pallas")}
     assert set(SOURCES) == set(replaces)
@@ -489,3 +503,184 @@ def test_gather_super_contract_rejects_bad_tables():
         check_gather_super("t", *tables, **ok)  # shapes only: values are not read
         with pytest.raises(ValueError, match=msg):
             check_gather_super("t", *tables, strict=True, **ok)
+
+
+# ------------------------------------------------- mask / coarse / fine modes
+#
+# The other three sparse ops, against the jnp oracle (f32, within 1e-5) and
+# the Pallas kernel in interpret mode (within 2e-2, as gather_super above: it
+# rounds q*scale*log2(e) to the input dtype). Cases: ragged skv (a partial
+# last KV tile or fine block), a partial tail q tile, rows with no allowed key
+# (0 out), GQA, a per-head mask, and a fine table whose entries allow only
+# part of their block (interior `valid` < fine: jnp only -- the Pallas kernel
+# derives validity from the global tail alone, attention.py:654-681).
+
+# name: (batch, sq, skv, heads_q, heads_kv, block_q, block_k or fine, group, empty row)
+SPARSE_OP_CASES = {
+    "ragged-gqa": (1, 300, 450, 4, 2, 128, 128, 2, None),
+    "tail-q-empty-row": (2, 200, 640, 2, 2, 128, 128, 2, 1),
+    "wide-tiles": (1, 256, 961, 2, 2, 128, 256, 1, 0),
+}
+
+
+def _qkv(seed, b, sq, skv, hq, hkv, d=64):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, n, h * d)) for n, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+
+
+def _sparse_ref(fn, ref, jargs, *rest, **kw):
+    """The JAX side: jnp oracle or Pallas interpreter, same numpy inputs."""
+    return fn(*(jnp.asarray(a, jnp.float32) for a in jargs[:3]),
+              *(jnp.asarray(a) for a in jargs[3:]), *rest, **kw)
+
+
+def _check_sparse(got, want, ref, empty_rows=(), bq=None):
+    if ref == "jnp":
+        _assert_close(got, want, "f32")
+    else:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+    for r in empty_rows:
+        assert not got[:, r * bq:(r + 1) * bq].any()
+
+
+@pytest.mark.parametrize("case", sorted(SPARSE_OP_CASES))
+@pytest.mark.parametrize("ref", ["jnp", "pallas"])
+def test_sparse_mask_matches_jax(case, ref):
+    """A different random block mask per batch entry and head."""
+    b, sq, skv, hq, hkv, bq, bk, _, empty = SPARSE_OP_CASES[case]
+    d = 64
+    q, k, v = _qkv(30, b, sq, skv, hq, hkv, d)
+    ni, nj = -(-sq // bq), -(-skv // bk)
+    mask = (np.random.default_rng(31).random((b, hq, ni, nj)) < 0.5).astype(np.int32)
+    mask[..., 0] = 1
+    mask[:, 1, -1, -1] = 1 - mask[:, 0, -1, -1]  # the heads' masks differ
+    if empty is not None:
+        mask[:, :, empty] = 0
+    got = sparse_scaled_dot_product_attention(
+        *(_pair(a, "f32")[0] for a in (q, k, v)), hq, hkv, d, sparse_mask=torch.from_numpy(mask),
+        block_q=bq, block_k=bk)
+    fn = sdpa_sparse_jnp if ref == "jnp" else sdpa_sparse_pallas
+    want = fn(*(jnp.asarray(a, jnp.float32) for a in (q, k, v)), hq, hkv, d,
+              sparse_mask=jnp.asarray(mask), block_q=bq, block_k=bk)
+    _check_sparse(got, want, ref, () if empty is None else (empty,), bq)
+
+
+def test_sparse_mask_none_is_dense_sdpa():
+    q, k, v = (_pair(a, "f32")[0] for a in _qkv(32, 1, 100, 130, 2, 2))
+    assert torch.equal(sparse_scaled_dot_product_attention(q, k, v, 2, 2, 64),
+                       scaled_dot_product_attention(q, k, v, 2, 2, 64))
+
+
+def _coarse_lists(nq, nk, seed, empty=None):
+    from fastdm_tpu_torch.sparse.xsparse import mask_to_block_lists
+
+    m = np.random.default_rng(seed).random((nq, nk)) < 0.5
+    m[:, -1] = True  # the ragged last KV tile
+    if empty is not None:
+        m[empty] = False
+    idx, cnt, _ = mask_to_block_lists(m)
+    return idx, cnt
+
+
+@pytest.mark.parametrize("case", sorted(SPARSE_OP_CASES))
+@pytest.mark.parametrize("ref", ["jnp", "pallas"])
+def test_gather_coarse_matches_jax(case, ref):
+    b, sq, skv, hq, hkv, bq, bk, _, empty = SPARSE_OP_CASES[case]
+    d = 64
+    q, k, v = _qkv(33, b, sq, skv, hq, hkv, d)
+    idx, cnt = _coarse_lists(-(-sq // bq), -(-skv // bk), 34, empty)
+    got = gather_sparse_attention(*(_pair(a, "f32")[0] for a in (q, k, v)),
+                                  torch.from_numpy(idx), torch.from_numpy(cnt), hq, hkv, d,
+                                  block_q=bq, block_k=bk)
+    fn = sdpa_gather_jnp if ref == "jnp" else sdpa_gather_pallas
+    want = _sparse_ref(fn, ref, (q, k, v, idx, cnt), hq, hkv, d, block_q=bq, block_k=bk)
+    _check_sparse(got, want, ref, () if empty is None else (empty,), bq)
+
+
+def _fine_tables(nq, skv, fine, group, seed, empty=None):
+    from fastdm_tpu_torch.sparse.xsparse import fine_tables_from_mask
+
+    nfine = -(-skv // fine)
+    m = np.random.default_rng(seed).random((nq, nfine)) < 0.4
+    m[:, -1] = True  # the partial tail fine block
+    if empty is not None:
+        m[empty] = False
+    return fine_tables_from_mask(m, group, fine, skv)
+
+
+@pytest.mark.parametrize("case", sorted(SPARSE_OP_CASES))
+@pytest.mark.parametrize("ref", ["jnp", "pallas"])
+def test_gather_fine_matches_jax(case, ref):
+    b, sq, skv, hq, hkv, bq, fine, group, empty = SPARSE_OP_CASES[case]
+    fine, d = 64, 64  # the Pallas kernel's group * fine must be a multiple of 128
+    group = 2 * group
+    q, k, v = _qkv(35, b, sq, skv, hq, hkv, d)
+    tables = _fine_tables(-(-sq // bq), skv, fine, group, 36, empty)
+    kw = dict(block_q=bq, group=group, fine=fine)
+    got = gather_fine_attention(*(_pair(a, "f32")[0] for a in (q, k, v)),
+                                *(torch.from_numpy(t) for t in tables), hq, hkv, d, **kw)
+    fn = sdpa_gather_fine_jnp if ref == "jnp" else sdpa_gather_fine_pallas
+    want = _sparse_ref(fn, ref, (q, k, v, *tables), hq, hkv, d, **kw)
+    _check_sparse(got, want, ref, () if empty is None else (empty,), bq)
+
+
+def test_gather_fine_honours_partial_interior_valid():
+    """Entries whose valid count is below `fine` allow only that many tokens
+    of their block, as the jnp oracle reads block_valid; with every valid
+    cut to 10 the result differs from the full tables'."""
+    b, sq, skv, h, d, bq, fine, group = 1, 256, 700, 2, 64, 128, 64, 4
+    q, k, v = _qkv(37, b, sq, skv, h, h, d)
+    idx, val, rows = _fine_tables(2, skv, fine, group, 38)
+    cut = val.copy()
+    cut[::3] = np.minimum(cut[::3], 10)  # padding slots stay 0
+    kw = dict(block_q=bq, group=group, fine=fine)
+    tq = tuple(_pair(a, "f32")[0] for a in (q, k, v))
+    got = gather_fine_attention(*tq, *(torch.from_numpy(t) for t in (idx, cut, rows)), h, h, d,
+                                **kw)
+    want = _sparse_ref(sdpa_gather_fine_jnp, "jnp", (q, k, v, idx, cut, rows), h, h, d, **kw)
+    _assert_close(got, want, "f32")
+    full = gather_fine_attention(*tq, *(torch.from_numpy(t) for t in (idx, val, rows)), h, h,
+                                 d, **kw)
+    assert (got - full).abs().max() > 1e-2
+
+
+def test_sparse_contracts_reject_bad_tables():
+    from fastdm_tpu_torch.kernels import contracts
+
+    idx, cnt = _coarse_lists(3, 4, 40)
+    ok = dict(sq=300, skv=450, block_q=128, block_k=128)
+    contracts.check_gather_lists("t", idx, cnt, strict=True, **ok)
+    for msg, (i, c) in {"block_indices": (idx[:2], cnt), "block_counts": (idx, cnt[:2]),
+                        "int32": (idx.astype(np.int64), cnt),
+                        "multiples of 16": (idx, cnt)}.items():
+        kw = dict(ok, block_k=100) if msg == "multiples of 16" else ok
+        with pytest.raises(ValueError, match=msg):
+            contracts.check_gather_lists("t", i, c, **kw)
+    for msg, (i, c) in {"out of range": (idx + 4, cnt), "block_counts out": (idx, cnt + 9)}.items():
+        contracts.check_gather_lists("t", i, c, **ok)  # shapes only: values are not read
+        with pytest.raises(ValueError, match=msg):
+            contracts.check_gather_lists("t", i, c, strict=True, **ok)
+
+    tables = _fine_tables(2, 700, 64, 4, 41)
+    ok = dict(sq=256, skv=700, block_q=128, group=4, fine=64)
+    contracts.check_gather_fine("t", *tables, strict=True, **ok)
+    i, val, rows = tables
+    for msg, t in {"block_rows": (i, val, rows[:1]), "int32": (i, val.astype(np.int64), rows),
+                   "multiple of group": (i[:-1], val[:-1], rows)}.items():
+        with pytest.raises(ValueError, match=msg):
+            contracts.check_gather_fine("t", *t, **ok)
+    for msg, t in {"out of range": (i + 11, val, rows), "block_valid": (i, val + 65, rows),
+                   "group-aligned": (i, val, rows + np.array([[1, 0]], np.int32)),
+                   "exceeds": (i, val, rows + np.array([[0, 99]], np.int32))}.items():
+        contracts.check_gather_fine("t", *t, **ok)
+        with pytest.raises(ValueError, match=msg):
+            contracts.check_gather_fine("t", *t, strict=True, **ok)
+
+    mask = np.ones((1, 2, 3, 4), np.int32)
+    ok = dict(batch=1, heads=2, sq=300, skv=450, block_q=128, block_k=128)
+    contracts.check_sparse_mask("t", mask, strict=True, **ok)
+    with pytest.raises(ValueError, match="retile"):
+        contracts.check_sparse_mask("t", mask[:, :, :2], **ok)
+    contracts.check_sparse_mask("t", mask * 2, **ok)
+    with pytest.raises(ValueError, match="0 .skip. or 1"):
+        contracts.check_sparse_mask("t", mask * 2, strict=True, **ok)

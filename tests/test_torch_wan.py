@@ -250,14 +250,16 @@ def test_later_slices_raise(models):
     with pytest.raises(NotImplementedError, match="TI2V"):
         twan.wan_init_random(0, dataclasses.replace(tcfg, per_token_timestep=True),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="FBCache"):
-        twan.wan_forward_cached()
     video, text = _inputs(0)
-    with pytest.raises(NotImplementedError, match="sparse-mask form"):
-        twan.wan_forward(tparams, dataclasses.replace(tcfg, dense_layers=0),
-                         torch.from_numpy(video), torch.full((1,), 1.0),
-                         torch.from_numpy(text).bfloat16(),
-                         sparse_mask=torch.ones(1, 2, 4, 4, dtype=torch.int32))
+    args = (torch.from_numpy(video).bfloat16(), torch.full((1,), 1.0),
+            torch.from_numpy(text).bfloat16())
+    with pytest.raises(NotImplementedError, match="I2V"):
+        twan.wan_forward(tparams, tcfg, *args, encoder_hidden_states_image=args[2])
+    # the step caches of Wan are FBCache and DiCache; TeaCache is refused, as in JAX
+    from fastdm_tpu_torch.caching.config import TeaCacheConfig
+
+    with pytest.raises(ValueError, match="FBCache / DiCache"):
+        twan.wan_forward_cached(tparams, tcfg, TeaCacheConfig(), {}, 0, 1, *args)
 
 
 # ------------------------------------------------------------- scheduler
@@ -442,6 +444,6 @@ def test_engine_without_a_vae_returns_latents_and_says_so(tmp_path, capsys):
         eng.generate(prompt="a cat", height=64, width=64)
     with pytest.raises(NotImplementedError, match="t2v"):
         eng.generate(task="i2v", prompt_embeds=pos, negative_prompt_embeds=neg)
-    with pytest.raises(NotImplementedError, match="FBCache"):
+    with pytest.raises(ValueError, match="FBCache / DiCache"):
         FastDMEngine(str(tmp_path), architecture="wan", device="cpu", verbose=False,
                      cache_config={"cache_algorithm": "teacache", "enable_caching": True})
