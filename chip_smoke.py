@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      kernel, the plain version and, where one PyTorch call computes the same
      function, that call (a yardstick the port never calls). The W8A8 kernels
      are also timed at every GEMM / quantize shape of a FLUX forward, which
-     gives the forward's GEMM and quantize time.
+     gives the forward's GEMM and quantize time. SDXL-base at 1024x2048 with
+     CFG: gelu_and_mul at both GEGLU shapes, sdpa at its four attention shapes
+     (head dim 64, q|k|v read in place from the fused projections), and the
+     int8 and fp8 GEMM and quantize at every W8A8 shape of its forward.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
      heads, random weights from a seed) three times: in bf16, in int8 and in
      fp8 (W8A8 block linears drawn straight into int8 / e4m3). Each serves
@@ -38,13 +41,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
      FBCache (fbcache_wan.json, warmup cut to 1) and DiCache (dicache_wan.json)
      with skips, block stacks and launches equal to the counts derived from
      the code; and a forced skip that must replay the cached residual.
+  sdxl: frees Wan, draws SDXL-base at full width and depth (70 transformer
+     blocks, 2.57 B params) from a seed and serves 1024x2048 requests through
+     make_sdxl_denoiser (batched CFG 5.0, Euler, 25 steps cut to 4) and the
+     full-size VAE decode: two in int8, then one each in bf16 and fp8, with
+     launch counts per forward equal to sdxl_forward_launches (int8: 529
+     quantize, 529 GEMM, 140 sdpa, 70 gelu_and_mul); one full-width forward
+     on the kernels held to the plain one in each format, the int8 one bit
+     for bit to the forward with only the W8A8 ops plain; the int8 forward's
+     split (each kernel and conv call of a recorded forward replayed alone,
+     times its count).
   4. engine: synthetic diffusers-layout checkpoints are written to a scratch
      dir — FLUX (full width, one dual and one single block, full-size VAE),
      loaded in bf16, with use_int8 and with use_fp8; Wan2.2-A14B (two experts
      at full width with one block each, model_index.json, full-size VAE),
      loaded with use_int8 and the radial config — and generate() is called
      once each; for Wan once in each sparse mode (FASTDM_SPARSE_GATHER) and
-     once under each cache JSON.
+     once under each cache JSON; SDXL-base (the full UNet in bf16, 5.1 GB,
+     full-size VAE), loaded with use_int8, one 1024x2048 generate.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -89,6 +103,13 @@ W8A8_GEMMS[(IMG_TOKENS + TXT_TOKENS, DIM, 3 * DIM + MLP)] = SINGLE  # qkv_mlp
 W8A8_GEMMS[(IMG_TOKENS + TXT_TOKENS, DIM + MLP, DIM)] = SINGLE      # proj_out
 W8A8_PER_FORWARD = sum(W8A8_GEMMS.values())                        # 228
 QKV_MLP = (IMG_TOKENS + TXT_TOKENS, DIM, 3 * DIM + MLP)            # the timing shape
+
+# SDXL-base at 1024x2048 with batched CFG (batch 2): 128x256 latents, the
+# Transformer2Ds at 64x128 = 8192 tokens (640 wide, 10 heads of 64) and at
+# 32x64 = 2048 tokens (1280 wide, 20 heads), 77 text tokens of 2048
+SDXL_H, SDXL_W, SDXL_TEXT, SDXL_BATCH = 1024, 2048, 77, 2
+SDXL_STEPS, SDXL_CFG = 4, 5.0
+GELU_MUL_OPS = 20  # f32 operations per output: erff's polynomial, the gate's scale, products
 
 
 def log(*a):
@@ -248,6 +269,7 @@ def phase_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     results.update(_w8a8_kernels(dev, g))
     results.update(_wan_kernels(dev, g))
+    results.update(_sdxl_kernels(dev, g))
     for r in results.values():
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']})")
@@ -652,6 +674,170 @@ def _sparse_walks(dev, g) -> dict:
     return results
 
 
+def sdxl_levels(cfg):
+    """(tokens per image, width) of SDXL's two Transformer2D levels at
+    SDXL_H x SDXL_W: down1/up1, then down2/mid/up0."""
+    lh, lw = SDXL_H // 8, SDXL_W // 8
+    return ((lh // 2) * (lw // 2), cfg.block_channels[1]), \
+        ((lh // 4) * (lw // 4), cfg.block_channels[2])
+
+
+def sdxl_level_blocks(cfg):
+    """(BasicTransformerBlocks, Transformer2Ds) per level, read off
+    models/sdxl.py: down1 2 and up1 3 Transformer2Ds of attn_layers[1]
+    blocks; down2 2, mid 1 and up0 3 of attn_layers[2]."""
+    n1, n2 = cfg.attn_layers[1], cfg.attn_layers[2]
+    return (5 * n1, 5), (6 * n2, 6)
+
+
+def sdxl_w8a8_gemms(cfg) -> dict:
+    """The W8A8 linears of one CFG forward (batch SDXL_BATCH): (M, K, N) ->
+    count. Per block self qkv, self out, cross q, cross kv (on the text),
+    cross out, ff proj (GEGLU, 8C), ff out; per Transformer2D proj_in and
+    proj_out; per resnet time_emb_proj (M = batch: one row per image). The
+    time and add embedders stay bf16."""
+    b, gemms = SDXL_BATCH, {}
+
+    def add(key, n):
+        gemms[key] = gemms.get(key, 0) + n
+
+    for (tokens, c), (blocks, t2ds) in zip(sdxl_levels(cfg), sdxl_level_blocks(cfg)):
+        m = b * tokens
+        add((m, c, 3 * c), blocks)
+        add((m, c, c), 3 * blocks + 2 * t2ds)
+        add((b * SDXL_TEXT, cfg.cross_attention_dim, 2 * c), blocks)
+        add((m, c, 8 * c), blocks)
+        add((m, 4 * c, c), blocks)
+    c0, c1, c2 = cfg.block_channels
+    # resnets by output width: down0 2 + up2 3; down1 2 + up1 3; down2 2, mid 2, up0 3
+    for cout, n in ((c0, 5), (c1, 5), (c2, 7)):
+        add((b, cfg.time_embed_dim, cout), n)
+    return gemms
+
+
+def sdxl_forward_launches(cfg) -> dict:
+    """Kernel launches of one SDXL UNet forward (no IP-Adapter tokens): per
+    block two sdpa (self, cross) and one gelu_and_mul; the W8A8 linears of
+    sdxl_w8a8_gemms in cfg.quant. Convs, GroupNorms, LayerNorms and the
+    embedders launch no kernel of the port."""
+    blocks = sum(n for n, _ in sdxl_level_blocks(cfg))
+    counts = dict.fromkeys(_launch_counts(), 0)
+    counts.update(sdpa=2 * blocks, gelu_and_mul=blocks)
+    if cfg.quant is not None:
+        w8a8 = sum(sdxl_w8a8_gemms(cfg).values())
+        counts[f"quantize_to_{cfg.quant}"] = counts[f"{cfg.quant}_matmul"] = w8a8
+    return counts
+
+
+def _sdxl_kernels(dev, g) -> dict:
+    """gelu_and_mul on the GEGLU projection outputs of both levels, held
+    within one bf16 ulp of its plain version (both round once from f32; erff
+    and ATen's erf may differ by an f32 ulp); sdpa at SDXL's four attention
+    shapes with q|k|v read in place from the fused projections, the
+    self-attentions held to the FLUX shape's tolerance, the 77-key
+    cross-attentions to the small cases' plus relative L2 5e-3 (as the
+    sparse walks' short rows); the int8 and fp8 quantizers and GEMMs at every
+    W8A8 shape of the forward (quantizers and the int8 GEMM bit-exact, fp8 as
+    in _w8a8_kernels). Returns the gelu_and_mul entry of the kernels line
+    (timed at the larger shape); the sdpa times at D 64 are logged."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.models.sdxl import SDXLConfig
+
+    cfg = SDXLConfig()
+    b, hd = SDXL_BATCH, cfg.head_dim
+    results = {}
+    for (tokens, c), (blocks, _) in zip(sdxl_levels(cfg), sdxl_level_blocks(cfg)):
+        x = (torch.randn(b, tokens, 8 * c, generator=g, device=dev) * 2).bfloat16()
+        got, want = cb.gelu_and_mul_cuda(x), tb.gelu_and_mul_torch(x)
+        e = (got.float() - want.float()).abs()
+        ulps = (e / bf16_ulp(want)).max().item()
+        ms = cuda_ms(lambda: cb.gelu_and_mul_cuda(x), 50)
+        plain_ms = cuda_ms(lambda: tb.gelu_and_mul_torch(x), 10)
+        n = want.numel()
+        b_ms, b_by = bound(3 * n * 2, GELU_MUL_OPS * n, F32_FLOPS)
+        log(f"[gelu_and_mul] {tuple(x.shape)} -> {tuple(got.shape)} bf16 ({blocks} per forward): "
+            f"max_abs_err {e.max().item():.3e}, max {ulps:.2f} bf16 ulp (tolerance 1 ulp); "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+            f"({3 * n * 2 / ms / 1e6:.0f} GB/s)")
+        if not ulps <= 1.0 or not torch.isfinite(got).all():
+            raise AssertionError(f"gelu_and_mul disagrees with its plain version: {ulps} ulp")
+        results.setdefault("gelu_and_mul", dict(
+            name="gelu_and_mul", route="cuda", source="fastdm_tpu_torch/csrc/gelu_mul.cu",
+            replaces="fastdm_tpu/kernels/pallas/elementwise.py:123",
+            max_abs_err=e.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
+        del x, got, want, e
+
+        # sdpa, self- and cross-attention, on strided views of the projections
+        h = c // hd
+        qkv = torch.randn(b, tokens, 3 * c, generator=g, device=dev, dtype=torch.bfloat16)
+        kv = torch.randn(b, SDXL_TEXT, 2 * c, generator=g, device=dev, dtype=torch.bfloat16)
+        q = qkv[..., :c]
+        for kind, k, v in (("self", qkv[..., c:2 * c], qkv[..., 2 * c:]),
+                           ("cross", kv[..., :c], kv[..., c:])):
+            got = cb.sdpa_cuda(q, k, v, h, h, hd)
+            want = tb.sdpa_torch(q, k, v, h, h, hd)
+            e = (got.float() - want.float()).abs()
+            rel = (e.norm() / want.float().norm()).item()
+            if kind == "self":
+                tol, stated = 1e-3 + 2 * bf16_ulp(want), "1e-3 + 2 ulp, rel L2 5e-3"
+            else:  # 77 keys: larger outputs, p rounded to bf16 against another max per tile
+                tol, stated = 1e-2 + 1e-2 * want.float().abs(), "1e-2 + 1e-2*|plain|, rel L2 5e-3"
+            excess = (e - tol).max().item()
+            skv = k.shape[1]
+            ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, hd), 10)
+            plain_ms = cuda_ms(lambda: tb.sdpa_torch(q, k, v, h, h, hd), 1, 1)
+            heads = lambda t: t.unflatten(-1, (h, hd)).transpose(1, 2)  # noqa: E731
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k),
+                                                                    heads(v)), 10)
+            b_ms, b_by = bound(2 * (2 * q.numel() + 2 * b * skv * c), 4 * b * tokens * skv * c,
+                               BF16_FLOPS)
+            log(f"[sdpa] SDXL {kind} q{tuple(q.shape)} k{tuple(k.shape)} {h}x{hd} heads "
+                f"({blocks} per forward): max_abs_err {e.max().item():.3e}, rel L2 {rel:.3e} "
+                f"(tolerance {stated}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+            if not (excess <= 0 and rel <= 5e-3 and torch.isfinite(got).all()):
+                raise AssertionError(f"sdpa disagrees with its plain version at SDXL {kind} "
+                                     f"{tokens}x{c}")
+            del got, want, e
+        del qkv, kv, q
+        torch.cuda.empty_cache()
+
+    for quant in ("int8", "fp8"):
+        quantize = getattr(cb, f"quantize_to_{quant}_cuda")
+        quantize_plain = getattr(tb, f"quantize_to_{quant}_torch")
+        kw = {"symmetric": False} if quant == "int8" else {}
+        kern, plain = getattr(cb, f"{quant}_matmul_cuda"), getattr(tb, f"{quant}_matmul_torch")
+        for (m, k, n), count in sdxl_w8a8_gemms(cfg).items():
+            a, sa, lin, args = _w8a8_operands(quant, m, k, n, g, dev)
+            x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+            same_q = all(torch.equal(u.view(torch.uint8) if u.dtype.itemsize == 1 else u,
+                                     w.view(torch.uint8) if w.dtype.itemsize == 1 else w)
+                         for u, w in zip(quantize(x, **kw), quantize_plain(x, **kw)))
+            got, want = kern(*args).float(), plain(*args).float()
+            err = (got - want).abs()
+            if quant == "int8":
+                ok = torch.equal(got, want)
+            else:
+                mag = (a.float().abs() @ lin.w.float().abs()) * (sa * lin.scale[None, :])
+                ok = bool((err <= bf16_ulp(want) + 2.0**-16 * mag).all())
+                del mag
+            log(f"[{quant} w8a8] SDXL {m}x{k} @ {k}x{n} ({count} per forward): quantize "
+                f"bit-exact {same_q}, GEMM max_abs_err {err.max().item():.3e} "
+                f"({'bit-exact' if quant == 'int8' else 'within 1 ulp + 2^-16 sa*sb*(|a|@|b|)'}"
+                f": {ok})")
+            if not (same_q and ok and torch.isfinite(got).all()):
+                raise AssertionError(f"{quant} W8A8 kernels disagree with their plain versions "
+                                     f"at SDXL {m}x{k} @ {k}x{n}")
+            del a, sa, lin, args, x, got, want, err
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------------ phase 2
 
 # TeaCache as bench.py's FLUX default (threshold 0.25 with random weights,
@@ -702,7 +888,8 @@ def _launch_counts():
             "quantize_to_int8": cb.quantize_to_int8_cuda.launches,
             "int8_matmul": cb.int8_matmul_cuda.launches,
             "quantize_to_fp8": cb.quantize_to_fp8_cuda.launches,
-            "fp8_matmul": cb.fp8_matmul_cuda.launches}
+            "fp8_matmul": cb.fp8_matmul_cuda.launches,
+            "gelu_and_mul": cb.gelu_and_mul_cuda.launches}
 
 
 def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
@@ -1256,6 +1443,228 @@ def _wan_forced_skip(dev, expert, cfg, tables, x, t, pos, cos, sin, tokens: int)
         raise AssertionError("the forced skip did not replay the cached residual")
 
 
+# ------------------------------------------------------------------ sdxl
+
+# Relative L2 of a full-width SDXL CFG forward on the kernels against the
+# same forward on the plain versions, per weight format: twice the first value
+# measured on an H100 80GB HBM3 (bf16 1.975e-2, int8 1.620e-2, fp8 1.485e-2;
+# fp8 with only its W8A8 ops plain 1.444e-2, under the same bound). A wrong
+# tile, scale or layout gives O(1).
+SDXL_FORWARD_REL_L2_TOL = {None: 3.95e-2, "int8": 3.24e-2, "fp8": 2.97e-2}
+# (quant, request seeds): int8, the main path, first
+SDXL_PATHS = (("int8", (51, 52)), (None, (53,)), ("fp8", (54,)))
+
+
+def _sdxl_conditioning(dev, seed: int, cfg, init_noise_sigma: float):
+    """Seeded latents (1, 4, H/8, W/8) times init_noise_sigma and random
+    [neg; pos] text embeddings, pooled embeddings and time ids, as
+    FastDMEngine._generate_sdxl builds them from precomputed embeddings."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    latents = torch.randn(1, cfg.in_channels, SDXL_H // 8, SDXL_W // 8, generator=g,
+                          device=dev) * init_noise_sigma
+    embeds = torch.randn(SDXL_BATCH, SDXL_TEXT, cfg.cross_attention_dim, generator=g,
+                         device=dev, dtype=torch.bfloat16)
+    pooled = torch.randn(SDXL_BATCH, cfg.add_embedding_in_dim - 6 * cfg.addition_time_embed_dim,
+                         generator=g, device=dev, dtype=torch.bfloat16)
+    time_ids = torch.tensor([[SDXL_H, SDXL_W, 0, 0, SDXL_H, SDXL_W]] * SDXL_BATCH,
+                            dtype=torch.float32, device=dev)
+    return latents, embeds, pooled, time_ids
+
+
+def _record_calls(forward) -> dict:
+    """Run forward() once with every kernel op of the port and the UNet's
+    conv2d wrapped: {(label, argument shapes, strides, dtypes and values):
+    [label, function, args, kwargs, calls]}, one set of arguments kept per
+    distinct call, for replaying each alone."""
+    import torch
+
+    import fastdm_tpu_torch.models.sdxl as sdxl_mod
+    from fastdm_tpu_torch.kernels import kernel_registry
+
+    calls = {}
+
+    def key_of(a):
+        if isinstance(a, torch.Tensor):
+            return tuple(a.shape), a.stride(), a.dtype
+        if isinstance(a, (list, tuple)):
+            return tuple(key_of(x) for x in a)
+        if isinstance(a, (dict, torch.nn.ParameterDict)):
+            return tuple((k, key_of(v)) for k, v in a.items())
+        return a
+
+    def wrap(label, fn):
+        def recorded(*args, **kw):
+            key = (label, key_of(args), key_of(kw))
+            if key in calls:
+                calls[key][4] += 1
+            else:
+                calls[key] = [label, fn, args, kw, 1]
+            return fn(*args, **kw)
+        return recorded
+
+    saved = {op: impls["cuda"] for op, impls in kernel_registry._ops.items() if "cuda" in impls}
+    conv = sdxl_mod.conv2d
+    try:
+        for op, fn in saved.items():
+            kernel_registry._ops[op]["cuda"] = wrap(op, fn)
+        sdxl_mod.conv2d = wrap("conv2d", conv)
+        forward()
+    finally:
+        for op, fn in saved.items():
+            kernel_registry._ops[op]["cuda"] = fn
+        sdxl_mod.conv2d = conv
+    return calls
+
+
+def _sdxl_forward_split(forward, sec: float, label: str) -> dict:
+    """The forward's split: each kernel and conv call of one recorded
+    forward timed alone on its recorded arguments, times its count per
+    forward; the rest (GroupNorm, LayerNorm, SiLU, residual adds, embedders,
+    layout copies) by subtraction from the measured forward. Returns the
+    launches per op of the recorded forward."""
+    import torch
+
+    calls = _record_calls(forward)
+    total, launches, shapes = {}, {}, {}
+    for key, (op, fn, args, kw, count) in calls.items():
+        ms = cuda_ms(lambda: fn(*args, **kw), 5)
+        total[op] = total.get(op, 0.0) + count * ms
+        launches[op] = launches.get(op, 0) + count
+        shapes[op] = shapes.get(op, 0) + 1
+    del calls
+    torch.cuda.empty_cache()
+    fwd = sec * 1e3
+    parts = ", ".join(f"{op} {ms:.1f} ms ({launches[op]} calls, {shapes[op]} shapes)"
+                      for op, ms in sorted(total.items(), key=lambda kv: -kv[1]))
+    log(f"[sdxl {label}] forward {fwd:.1f} ms; each call of a recorded forward replayed alone "
+        f"x its count: {parts}; the rest by subtraction {fwd - sum(total.values()):.1f} ms")
+    return launches
+
+
+def _serve_sdxl(dev, quant, seeds, vae, vae_cfg) -> dict:
+    """SDXL-base at full width and depth in one weight format: requests,
+    launch check, kernel forward vs plain forward (and, for int8, vs the
+    forward with only the W8A8 ops plain), the int8 forward's split. Returns
+    the launches of the path's kernels over its requests."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend, kernel_registry
+    from fastdm_tpu_torch.models.sdxl import SDXLConfig, sdxl_forward, sdxl_init_random
+    from fastdm_tpu_torch.pipeline.denoise_sdxl import make_sdxl_denoiser
+    from fastdm_tpu_torch.pipeline.schedulers import EulerDiscreteScheduler
+    from fastdm_tpu_torch.pipeline.vae import vae_decode
+
+    label = quant or "bf16"
+    cfg = SDXLConfig(quant=quant)
+    t0 = time.perf_counter()
+    params = sdxl_init_random(5, cfg, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    blocks = sum(nb for nb, _ in sdxl_level_blocks(cfg))
+    log(f"[sdxl {label}] SDXL-base {label} random init: {n / 1e9:.3f} B params "
+        f"({nbytes / 2**30:.2f} GiB), {blocks} transformer blocks, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sched = EulerDiscreteScheduler.create(SDXL_STEPS)
+    run = make_sdxl_denoiser(cfg, sched, SDXL_STEPS, SDXL_CFG)
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    for seed in seeds:
+        latents, embeds, pooled, time_ids = _sdxl_conditioning(dev, seed, cfg,
+                                                               sched.init_noise_sigma)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat, _ = run(params, latents, embeds, pooled, time_ids)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = vae_decode(vae, vae_cfg, lat)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        finite = bool(torch.isfinite(img).all())
+        log(f"[sdxl {label}] request seed={seed} {SDXL_H}x{SDXL_W} {SDXL_STEPS} steps, CFG "
+            f"{SDXL_CFG}: {t2 - t0:.3f} s (denoise {t1 - t0:.3f} s, VAE decode {t2 - t1:.3f} s), "
+            f"image {tuple(img.shape)} finite={finite}, |x| max {img.abs().max().item():.3f}")
+        if not finite or tuple(img.shape) != (1, SDXL_H, SDXL_W, 3):
+            raise AssertionError(f"SDXL {label} request seed={seed} produced a bad image")
+    counts = _launch_counts()
+    forwards = SDXL_STEPS * len(seeds)
+    want = {k: v * forwards for k, v in sdxl_forward_launches(cfg).items()}
+    log(f"[sdxl {label}] kernel launches over {len(seeds)} requests ({forwards} forwards): "
+        f"{counts}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != want:
+        raise AssertionError(f"SDXL {label} launch counts {counts} != derived {want}")
+    log(f"[sdxl {label}] launch check: {sdxl_forward_launches(cfg)} per forward, as derived")
+
+    # one full-width CFG forward on the kernels vs the plain versions
+    x = torch.cat([sched.scale_model_input(latents, 0)] * 2).to(torch.bfloat16)
+    t = torch.full((SDXL_BATCH,), float(sched.timesteps[0]), device=dev)
+
+    def forward(plain_ops=()):
+        with torch.inference_mode(), kernel_registry.plain_on_device(plain_ops):
+            return sdxl_forward(params, cfg, x, t, embeds, pooled, time_ids).float()
+
+    rel_l2 = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    tol = SDXL_FORWARD_REL_L2_TOL[quant]
+    forward()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_k = forward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out_p = forward(plain_ops=None)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if quant is not None:
+        out_w = forward(plain_ops=W8A8_OPS)
+        rel_w, same_w = rel_l2(out_k, out_w), torch.equal(out_k, out_w)
+        log(f"[sdxl {label}] full-width forward with only the W8A8 ops plain: relative L2 "
+            f"difference {rel_w:.3e}, bit-identical {same_w} (required: "
+            f"{'bit-identical' if quant == 'int8' else f'<= {tol}'})")
+        if not (same_w if quant == "int8" else rel_w <= tol):
+            raise AssertionError(f"SDXL {label} W8A8 kernels change the forward: {rel_w}")
+        del out_w
+    rel = rel_l2(out_k, out_p)
+    log(f"[sdxl {label}] full-width CFG forward (batch {SDXL_BATCH}, {SDXL_H // 8}x"
+        f"{SDXL_W // 8} latents): kernels {t1 - t0:.3f} s, plain versions {t2 - t1:.3f} s, "
+        f"relative L2 difference {rel:.3e} (tolerance {tol})")
+    if not rel <= tol or not torch.isfinite(out_k).all():
+        raise AssertionError(f"SDXL {label} kernel forward departs from the plain forward: {rel}")
+    del out_k, out_p
+    torch.cuda.empty_cache()
+    if quant == "int8":
+        split = _sdxl_forward_split(forward, t1 - t0, label)
+        per_forward = {k: v for k, v in sdxl_forward_launches(cfg).items() if v}
+        if {k: split.get(k, 0) for k in per_forward} != per_forward:
+            raise AssertionError(f"the recorded forward's calls {split} != {per_forward}")
+    del params
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k, v in want.items() if v}
+
+
+def phase_sdxl(dev) -> dict:
+    """SDXL-base at full width and depth in int8, bf16 and fp8 (one format
+    resident at a time) with the full-size SDXL VAE decoder. Returns
+    {kernel: launches} of the int8 path, the main one."""
+    import torch
+
+    from fastdm_tpu_torch.engine import VAE_CONFIGS
+    from fastdm_tpu_torch.pipeline.vae import vae_decoder_random
+
+    vae_cfg = VAE_CONFIGS["sdxl"]
+    vae = vae_decoder_random(6, vae_cfg, device=dev)
+    launches = {}
+    for quant, seeds in SDXL_PATHS:
+        mine = _serve_sdxl(dev, quant, seeds, vae, vae_cfg)
+        if quant == "int8":
+            launches = mine
+    del vae
+    torch.cuda.empty_cache()
+    return {"gelu_and_mul": launches["gelu_and_mul"]}
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -1309,7 +1718,16 @@ def _write_checkpoint(root: str, dev) -> None:
     with open(os.path.join(root, "transformer", "config.json"), "w") as f:
         json.dump({"num_layers": 1, "num_single_layers": 1}, f)
 
-    vcfg = VAEConfig(latent_channels=16)
+    os.makedirs(os.path.join(root, "vae"))
+    save_file(_vae_state_dict(VAEConfig(latent_channels=16), g, dev),
+              os.path.join(root, "vae", "model.safetensors"))
+
+
+def _vae_state_dict(vcfg, g, dev) -> dict:
+    """The decoder of a diffusers AutoencoderKL of config vcfg, under
+    diffusers' names, f32 on the host."""
+    import torch
+
     sd = {}
 
     def conv(name, cin, cout, k=3):
@@ -1348,8 +1766,7 @@ def _write_checkpoint(root: str, dev) -> None:
     norm("decoder.conv_norm_out", rev[-1])
     conv("decoder.conv_out", rev[-1], 3)
     conv("post_quant_conv", vcfg.latent_channels, vcfg.latent_channels, k=1)
-    os.makedirs(os.path.join(root, "vae"))
-    save_file(sd, os.path.join(root, "vae", "model.safetensors"))
+    return sd
 
 
 def _write_wan_checkpoint(root: str, dev) -> None:
@@ -1454,6 +1871,153 @@ def _write_wan_checkpoint(root: str, dev) -> None:
                    "temperal_downsample": list(vcfg.temporal_downsample)}, f)
 
 
+def _write_sdxl_checkpoint(root: str, dev) -> None:
+    """Synthetic diffusers-layout SDXL-base checkpoint: the whole UNet at the
+    published widths and depth in bf16 (the engine quantizes at load) in
+    unet/, and the full-size AutoencoderKL decoder with 4 latent channels in
+    vae/. Names as diffusers' UNet2DConditionModel."""
+    import torch
+    from safetensors.torch import save_file
+
+    from fastdm_tpu_torch.models.sdxl import SDXLConfig
+    from fastdm_tpu_torch.pipeline.vae import VAEConfig
+
+    cfg = SDXLConfig(quant=None)
+    g = torch.Generator(device=dev).manual_seed(12)
+    sd = {}
+
+    def rand(*shape, std):
+        return (torch.randn(*shape, generator=g, device=dev) * std).bfloat16().cpu()
+
+    def conv(name, cin, cout, k=3):
+        sd[f"{name}.weight"] = rand(cout, cin, k, k, std=0.03)
+        sd[f"{name}.bias"] = torch.zeros(cout, dtype=torch.bfloat16)
+
+    def lin(name, cin, cout, bias=True):
+        sd[f"{name}.weight"] = rand(cout, cin, std=cin**-0.5)
+        if bias:
+            sd[f"{name}.bias"] = torch.zeros(cout, dtype=torch.bfloat16)
+
+    def norm(name, c):
+        sd[f"{name}.weight"] = torch.ones(c, dtype=torch.bfloat16)
+        sd[f"{name}.bias"] = torch.zeros(c, dtype=torch.bfloat16)
+
+    def resnet(name, cin, cout):
+        norm(f"{name}.norm1", cin)
+        conv(f"{name}.conv1", cin, cout)
+        lin(f"{name}.time_emb_proj", cfg.time_embed_dim, cout)
+        norm(f"{name}.norm2", cout)
+        conv(f"{name}.conv2", cout, cout)
+        if cin != cout:
+            conv(f"{name}.conv_shortcut", cin, cout, k=1)
+
+    def t2d(name, c, n_layers):
+        norm(f"{name}.norm", c)
+        lin(f"{name}.proj_in", c, c)
+        for j in range(n_layers):
+            p = f"{name}.transformer_blocks.{j}"
+            for nm in ("norm1", "norm2", "norm3"):
+                norm(f"{p}.{nm}", c)
+            for nm in ("to_q", "to_k", "to_v"):
+                lin(f"{p}.attn1.{nm}", c, c, bias=False)
+            lin(f"{p}.attn1.to_out.0", c, c)
+            lin(f"{p}.attn2.to_q", c, c, bias=False)
+            for nm in ("to_k", "to_v"):
+                lin(f"{p}.attn2.{nm}", cfg.cross_attention_dim, c, bias=False)
+            lin(f"{p}.attn2.to_out.0", c, c)
+            lin(f"{p}.ff.net.0.proj", c, 8 * c)
+            lin(f"{p}.ff.net.2", 4 * c, c)
+        lin(f"{name}.proj_out", c, c)
+
+    c0, c1, c2 = cfg.block_channels
+    n1, n2 = cfg.attn_layers[1], cfg.attn_layers[2]
+    te = cfg.time_embed_dim
+    conv("conv_in", cfg.in_channels, c0)
+    lin("time_embedding.linear_1", c0, te)
+    lin("time_embedding.linear_2", te, te)
+    lin("add_embedding.linear_1", cfg.add_embedding_in_dim, te)
+    lin("add_embedding.linear_2", te, te)
+    for i, (cin, c, nl) in enumerate(((c0, c0, 0), (c0, c1, n1), (c1, c2, n2))):
+        for j in range(2):
+            resnet(f"down_blocks.{i}.resnets.{j}", cin if j == 0 else c, c)
+            if nl:
+                t2d(f"down_blocks.{i}.attentions.{j}", c, nl)
+        if i < 2:
+            conv(f"down_blocks.{i}.downsamplers.0.conv", c, c)
+    resnet("mid_block.resnets.0", c2, c2)
+    t2d("mid_block.attentions.0", c2, n2)
+    resnet("mid_block.resnets.1", c2, c2)
+    for i, (c, nl, cins) in enumerate(((c2, n2, (2 * c2, 2 * c2, c2 + c1)),
+                                       (c1, n1, (c2 + c1, 2 * c1, c1 + c0)),
+                                       (c0, 0, (c1 + c0, 2 * c0, 2 * c0)))):
+        for j, cin in enumerate(cins):
+            resnet(f"up_blocks.{i}.resnets.{j}", cin, c)
+            if nl:
+                t2d(f"up_blocks.{i}.attentions.{j}", c, nl)
+        if i < 2:
+            conv(f"up_blocks.{i}.upsamplers.0.conv", c, c)
+    norm("conv_norm_out", c0)
+    conv("conv_out", c0, cfg.out_channels)
+    os.makedirs(os.path.join(root, "unet"))
+    save_file(sd, os.path.join(root, "unet", "model.safetensors"))
+    del sd
+    os.makedirs(os.path.join(root, "vae"))
+    save_file(_vae_state_dict(VAEConfig(latent_channels=4), g, dev),
+              os.path.join(root, "vae", "model.safetensors"))
+
+
+def _engine_sdxl(dev, here: str) -> None:
+    """FastDMEngine on the synthetic SDXL-base checkpoint with use_int8: one
+    1024x2048 CFG generate, its launches equal to sdxl_forward_launches per
+    step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.engine import FastDMEngine
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
+        t0 = time.perf_counter()
+        _write_sdxl_checkpoint(root, dev)
+        size = os.path.getsize(os.path.join(root, "unet", "model.safetensors"))
+        log(f"[engine sdxl] wrote the synthetic SDXL-base checkpoint (unet/ {size / 1e9:.2f} GB "
+            f"in bf16, full-size vae/) in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        eng = FastDMEngine(root, architecture="sdxl", use_int8=True, verbose=False, device=dev)
+        cfg = eng.cfg
+        qkv = eng.params.down[2].attns[1].blocks[-1].attn1.qkv.w
+        log(f"[engine sdxl] FastDMEngine loaded in {time.perf_counter() - t0:.1f} s: block "
+            f"channels {cfg.block_channels}, attn layers {cfg.attn_layers}, block linears "
+            f"{qkv.dtype}, VAE latent channels {eng.vae_cfg.latent_channels}")
+        if qkv.dtype != torch.int8 or eng.vae_cfg.latent_channels != 4:
+            raise AssertionError("the SDXL engine did not load an int8 UNet and a 4-channel VAE")
+        g = torch.Generator(device=dev).manual_seed(300)
+        pooled_dim = cfg.add_embedding_in_dim - 6 * cfg.addition_time_embed_dim
+        pos, neg = (torch.randn(1, SDXL_TEXT, cfg.cross_attention_dim, generator=g, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+        pos_pooled, neg_pooled = (torch.randn(1, pooled_dim, generator=g, device=dev,
+                                              dtype=torch.bfloat16) for _ in range(2))
+        cuda_backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        img = eng.generate(prompt_embeds=pos, pooled_prompt_embeds=pos_pooled,
+                           negative_prompt_embeds=neg, negative_pooled_prompt_embeds=neg_pooled,
+                           height=SDXL_H, width=SDXL_W, num_inference_steps=SDXL_STEPS,
+                           guidance_scale=SDXL_CFG, seed=7)
+        sec = time.perf_counter() - t0
+        counts = _launch_counts()
+        want = {k: v * SDXL_STEPS for k, v in sdxl_forward_launches(cfg).items()}
+        log(f"[engine sdxl] generate {SDXL_H}x{SDXL_W} {SDXL_STEPS} steps CFG {SDXL_CFG}: "
+            f"{sec:.3f} s, image {img.shape} {img.dtype}; launches {counts}")
+        if not (isinstance(img, np.ndarray) and img.dtype == np.uint8
+                and img.shape == (1, SDXL_H, SDXL_W, 3)) or counts != want:
+            raise AssertionError(f"the SDXL generate returned {getattr(img, 'shape', type(img))}, "
+                                 f"launches {counts} != derived {want}")
+        del eng
+        torch.cuda.empty_cache()
+
+
 def phase_engine(dev) -> None:
     import tempfile
 
@@ -1496,6 +2060,7 @@ def phase_engine(dev) -> None:
             del eng
             torch.cuda.empty_cache()
     _engine_wan(dev, here)
+    _engine_sdxl(dev, here)
 
 
 def _engine_wan(dev, here: str) -> None:
@@ -1593,6 +2158,7 @@ def main() -> int:
     kernels = phase_kernels(dev)
     launches = phase_slice(dev)
     launches.update(phase_wan(dev))
+    launches.update(phase_sdxl(dev))
     phase_engine(dev)
     for name, r in kernels.items():
         r["launches"] = launches[name]

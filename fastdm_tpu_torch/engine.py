@@ -1,10 +1,16 @@
-"""FastDMEngine — the end-user engine of the port (the FLUX text-to-image
-and Wan2.2 text-to-video subsets of fastdm_tpu/engine.py).
+"""FastDMEngine — the end-user engine of the port (the FLUX and SDXL
+text-to-image and Wan2.2 text-to-video subsets of fastdm_tpu/engine.py).
 
     eng = FastDMEngine("/path/to/FLUX.1-dev", architecture="flux",
                        cache_config={"cache_algorithm": "teacache", ...})
     images = eng.generate(prompt_embeds=..., pooled_prompt_embeds=...,
                           height=1024, width=1024, num_inference_steps=25)
+
+    eng = FastDMEngine("/path/to/stable-diffusion-xl-base-1.0", architecture="sdxl",
+                       use_int8=True)
+    images = eng.generate(prompt_embeds=..., pooled_prompt_embeds=...,
+                          negative_prompt_embeds=..., negative_pooled_prompt_embeds=...,
+                          height=1024, width=2048, guidance_scale=5.0)
 
     eng = FastDMEngine("/path/to/Wan2.2-T2V-A14B", architecture="wan2.2-t2v",
                        use_int8=True, sparse_attn_config="radial_attn_wan.json",
@@ -13,15 +19,17 @@ and Wan2.2 text-to-video subsets of fastdm_tpu/engine.py).
                          height=480, width=832, num_frames=81)
 
 Reads a diffusers-layout checkpoint directory (transformer/ — and, for the
-Wan2.2-A14B dual expert, transformer_2/ — and vae/, with their config.json
-and model_index.json) onto the GPU ("cuda" unless the caller passes
-device="cpu"): in bf16, or with use_int8 / use_fp8 the transformer blocks'
-linears quantized at load time to W8A8 (quant_mods=True quantizes FLUX's
-AdaLN modulations too). FLUX takes TeaCache, Wan FBCache or DiCache. Wan's
+Wan2.2-A14B dual expert, transformer_2/ — or SDXL's unet/, and vae/, with
+their config.json and model_index.json) onto the GPU ("cuda" unless the
+caller passes device="cpu"): in bf16, or with use_int8 / use_fp8 the
+transformer blocks' linears (SDXL: also proj_in/out and the resnets'
+time_emb_proj) quantized at load time to W8A8 (quant_mods=True quantizes
+FLUX's AdaLN modulations too). FLUX takes TeaCache, Wan FBCache or DiCache;
+SDXL has no step cache (a cache_config raises). Wan's
 radial sparse attention runs in the mode FASTDM_SPARSE_GATHER names: super
 (the default), fine, coarse or mask. The T5/CLIP/UMT5 text encoders, int4,
-img2img, Kontext, ControlNet, Wan i2v/ti2v and the other model families
-arrive with later slices and raise NotImplementedError here.
+img2img, Kontext, ControlNet, the SDXL IP-Adapter, Wan i2v/ti2v and the other
+model families arrive with later slices and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from fastdm_tpu_torch.models.loader import TensorSource, as_tensor
 from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, flow_match_shift_mu
 from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_load
 
-ARCHITECTURES = ("flux", "wan2.2-t2v", "wan")
+ARCHITECTURES = ("flux", "sdxl", "wan2.2-t2v", "wan")
 
 # Long-video capacity thresholds (tokens) at which a Wan generate turns on
 # FFN token chunking and, for the dual expert, the split-QKV projection; kept
@@ -52,6 +60,7 @@ _SPLIT_QKV_MIN_TOKENS = 60000
 # per-model VAE configs (diffusers AutoencoderKL variants)
 VAE_CONFIGS = {
     "flux": VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159),
+    "sdxl": VAEConfig(latent_channels=4, scaling_factor=0.13025, shift_factor=0.0),
 }
 
 
@@ -161,6 +170,11 @@ class FastDMEngine:
                 raise ValueError("Wan caching supports FBCache / DiCache, got "
                                  f"{type(self.cache_config).__name__}")
             self._init_wan()
+        elif self.architecture == "sdxl":
+            if self.cache_config is not None:
+                raise ValueError("the SDXL denoiser has no step cache (the JAX one ignores a "
+                                 "cache_config); pass cache_config=None")
+            self._init_sdxl()
         else:
             self._init_flux()
         self._denoisers: Dict[tuple, Any] = {}
@@ -196,6 +210,11 @@ class FastDMEngine:
         self.cfg = FluxConfig(quant=self.quant, quant_mods=self.quant_mods, **kw)
         self.params = flux_load(TensorSource.from_path(
             os.path.join(self.model_path, "transformer"), self.device), self.cfg)
+        self._load_vae()
+
+    def _load_vae(self) -> None:
+        """The AutoencoderKL of vae/, VAE_CONFIGS[architecture] overridden by
+        its config.json."""
         vae_kw = self._cfg_overrides(
             "vae", ("latent_channels", "layers_per_block", "norm_num_groups",
                     "scaling_factor", "shift_factor", "mid_block_add_attention"),
@@ -203,6 +222,16 @@ class FastDMEngine:
         self.vae_cfg = dataclasses.replace(VAE_CONFIGS[self.architecture], **vae_kw)
         self.vae_params = vae_load(TensorSource.from_path(
             os.path.join(self.model_path, "vae"), self.device), self.vae_cfg)
+
+    def _init_sdxl(self) -> None:
+        # the module's SDXLConfig, looked up here so that tests can shrink it;
+        # as in JAX, unet/config.json is not read
+        from fastdm_tpu_torch.models import sdxl
+
+        self.cfg = sdxl.SDXLConfig(quant=self.quant)
+        self.params = sdxl.sdxl_load(TensorSource.from_path(
+            os.path.join(self.model_path, "unet"), self.device), self.cfg)
+        self._load_vae()
 
     def _init_wan(self) -> None:
         from fastdm_tpu_torch.models.wan import WanConfig, wan_load
@@ -253,7 +282,9 @@ class FastDMEngine:
     def generate(self, prompt=None, task: Optional[str] = None, **kw):
         """FLUX text-to-image (height, width, num_inference_steps,
         guidance_scale, seed, prompt_embeds, pooled_prompt_embeds,
-        output_type) or Wan text-to-video (height, width, num_frames,
+        output_type), SDXL text-to-image (the same, plus
+        negative_prompt_embeds and negative_pooled_prompt_embeds for CFG) or
+        Wan text-to-video (height, width, num_frames,
         num_inference_steps, guidance_scale, guidance_scale_2, seed,
         prompt_embeds, negative_prompt_embeds, output_type)."""
         want = "t2v" if self.architecture == "wan" else "t2i"
@@ -263,6 +294,8 @@ class FastDMEngine:
         kw.pop("image", None)
         if self.architecture == "wan":
             return self._generate_wan(prompt, **kw)
+        if self.architecture == "sdxl":
+            return self._generate_sdxl(prompt, **kw)
         return self._generate_flux(prompt, **kw)
 
     def _to_uint8(self, x: torch.Tensor) -> np.ndarray:
@@ -312,6 +345,52 @@ class FastDMEngine:
             return latents.cpu().numpy()
         img = vae_decode(self.vae_params, self.vae_cfg, flux_unpack_latents(latents, ht, wt))
         return self._to_uint8(img)
+
+    def _generate_sdxl(self, prompt=None, height: int = 1024, width: int = 1024,
+                       num_inference_steps: int = 25, guidance_scale: float = 5.0,
+                       seed: int = 42, prompt_embeds=None, pooled_prompt_embeds=None,
+                       negative_prompt_embeds=None, negative_pooled_prompt_embeds=None,
+                       output_type: str = "np", control_image=None, ip_adapter_image=None):
+        from fastdm_tpu_torch.pipeline.denoise_sdxl import make_sdxl_denoiser
+        from fastdm_tpu_torch.pipeline.schedulers import EulerDiscreteScheduler
+
+        if control_image is not None or ip_adapter_image is not None:
+            raise NotImplementedError(
+                "the SDXL ControlNet and IP-Adapter are not in this slice of the port")
+        do_cfg = guidance_scale > 1.0
+        if prompt_embeds is None or pooled_prompt_embeds is None or (do_cfg and (
+                negative_prompt_embeds is None or negative_pooled_prompt_embeds is None)):
+            raise NotImplementedError(
+                "the CLIP text encoders are not in this slice of the port; pass prompt_embeds "
+                "and pooled_prompt_embeds (and, for CFG, negative_prompt_embeds and "
+                "negative_pooled_prompt_embeds)")
+        del prompt
+        embeds = self._device_tensor(prompt_embeds, torch.bfloat16)
+        pooled = self._device_tensor(pooled_prompt_embeds, torch.bfloat16)
+        b = embeds.shape[0]
+        if do_cfg:  # one batch of 2B, the negative half first (diffusers order)
+            embeds = torch.cat([self._device_tensor(negative_prompt_embeds, torch.bfloat16),
+                                embeds])
+            pooled = torch.cat([self._device_tensor(negative_pooled_prompt_embeds,
+                                                    torch.bfloat16), pooled])
+        time_ids = torch.tensor([[height, width, 0, 0, height, width]] * embeds.shape[0],
+                                dtype=torch.float32, device=self.device)
+        lh, lw = height // 8, width // 8
+        key = ("sdxl", lh, lw, num_inference_steps, guidance_scale)
+        if key not in self._denoisers:
+            sched = EulerDiscreteScheduler.create(num_inference_steps)
+            self._denoisers[key] = (make_sdxl_denoiser(self.cfg, sched, num_inference_steps,
+                                                       guidance_scale), sched.init_noise_sigma)
+        run, init_noise_sigma = self._denoisers[key]
+        # a seeded torch.Generator: the same seed gives other noise than the
+        # JAX engine's jax.random key
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        latents = torch.randn((b, self.cfg.in_channels, lh, lw), generator=gen,
+                              device=self.device, dtype=torch.float32) * init_noise_sigma
+        latents, _ = run(self.params, latents, embeds, pooled, time_ids)
+        if output_type == "latent":
+            return latents.cpu().numpy()
+        return self._to_uint8(vae_decode(self.vae_params, self.vae_cfg, latents))
 
     def _generate_wan(self, prompt=None, height: int = 480, width: int = 832,
                       num_frames: int = 81, num_inference_steps: int = 40,

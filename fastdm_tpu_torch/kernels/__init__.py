@@ -1,6 +1,6 @@
 """Kernel ops of the port: rms_norm, rotary_pos_embedding, qk_norm_rope,
-qk_norm_rope2, scaled_dot_product_attention, the sparse attentions
-(sparse_scaled_dot_product_attention, gather_sparse_attention,
+qk_norm_rope2, gelu_and_mul, scaled_dot_product_attention, the sparse
+attentions (sparse_scaled_dot_product_attention, gather_sparse_attention,
 gather_fine_attention, gather_super_attention) and the W8A8 ops
 (quantize_to_int8, quantize_to_fp8, int8_matmul, fp8_matmul), dispatched by
 tensor device to the plain PyTorch versions (CPU) or the hand-written Hopper
@@ -12,6 +12,7 @@ from fastdm_tpu_torch.kernels.ops import (
     gather_fine_attention,
     gather_sparse_attention,
     gather_super_attention,
+    gelu_and_mul,
     int8_matmul,
     qk_norm_rope,
     qk_norm_rope2,
@@ -29,6 +30,7 @@ __all__ = [
     "gather_fine_attention",
     "gather_sparse_attention",
     "gather_super_attention",
+    "gelu_and_mul",
     "int8_matmul",
     "kernel_registry",
     "qk_norm_rope",

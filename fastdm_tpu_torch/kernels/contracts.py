@@ -1,7 +1,8 @@
 """Kernel-boundary contract checks (port of fastdm_tpu/kernels/contracts.py:
 check_sdpa, the sparse-attention table checks check_block_tiles,
 check_gather_lists, check_gather_fine, check_gather_super and
-check_sparse_mask :54-227, check_scaled_mm :230-249). Shape checks run in
+check_sparse_mask :54-227, check_scaled_mm :230-249; check_gelu_and_mul is
+the port's own: the JAX op checks nothing). Shape checks run in
 Python before any pointer reaches a kernel, so a bad call dies with a message
 instead of an out-of-bounds access on the card. The table checks take
 strict=True to read the VALUES too (on the host: the engine runs them once on
@@ -40,6 +41,15 @@ def check_sdpa(kernel: str, query, key, value, num_q_heads: int,
                       f"num_kv_heads {num_kv_heads}")
     if head_dim % 8:
         _fail(kernel, f"head_dim {head_dim} must be a multiple of 8")
+
+
+def check_gelu_and_mul(kernel: str, x) -> None:
+    """(..., 2d) with d > 0, bfloat16 or float32 (the dtypes the JAX op is fed)."""
+    if x.dim() < 1 or x.shape[-1] == 0 or x.shape[-1] % 2:
+        _fail(kernel, f"last dim of {tuple(x.shape)} must be even and positive "
+                      "(hidden | gate halves)")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        _fail(kernel, f"dtype {x.dtype} not in (bfloat16, float32)")
 
 
 def _int32(kernel: str, **arrays) -> None:

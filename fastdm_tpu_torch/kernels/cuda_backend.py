@@ -233,6 +233,37 @@ def qk_norm_rope2_cuda(
 qk_norm_rope2_cuda.launches = 0
 
 
+# ----------------------------------------------------------- gelu_and_mul
+
+
+@kernel_registry.register("gelu_and_mul", "cuda")
+def gelu_and_mul_cuda(x: Tensor) -> Tensor:
+    kernel = "gelu_and_mul"
+    contracts.check_gelu_and_mul("gelu_and_mul_cuda", x)
+    dev = x.device
+    _require(x.is_cuda, kernel, f"x must lie on a CUDA device, got {dev}")
+    _require(x.stride(-1) == 1, kernel, "x must have a contiguous last dim")
+    d2 = x.shape[-1]
+    d = d2 // 2
+    out = torch.empty(*x.shape[:-1], d, dtype=x.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    # a view whenever the leading dims collapse at one row stride (a column
+    # slice of a wider tensor included); a copy otherwise
+    x2 = x.reshape(-1, d2)
+    _require(x2.shape[0] < 2**31, kernel, f"{x2.shape[0]} rows exceed the grid")
+    lib, fn = _entry("gelu_mul", "fdm_gelu_and_mul", [_P, _P, _L, _L, _I, _I, _P])
+    with torch.cuda.device(dev):
+        code = fn(x2.data_ptr(), out.data_ptr(), x2.shape[0], x2.stride(0), d,
+                  int(x.dtype == torch.float32), _stream(dev))
+    _check_launch(lib, "fdm_gelu_and_mul", code, kernel)
+    gelu_and_mul_cuda.launches += 1
+    return out
+
+
+gelu_and_mul_cuda.launches = 0
+
+
 # ------------------------------------------------------------------- sdpa
 
 
@@ -542,7 +573,7 @@ def fp8_matmul_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_
 fp8_matmul_cuda.launches = 0
 
 KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, qk_norm_rope_cuda,
-                   qk_norm_rope2_cuda, sdpa_cuda, gather_super_attention_cuda,
+                   qk_norm_rope2_cuda, gelu_and_mul_cuda, sdpa_cuda, gather_super_attention_cuda,
                    gather_fine_attention_cuda, gather_sparse_attention_cuda,
                    sparse_attention_cuda, quantize_to_int8_cuda, quantize_to_fp8_cuda,
                    int8_matmul_cuda, fp8_matmul_cuda)

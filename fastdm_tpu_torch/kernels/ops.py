@@ -1,6 +1,6 @@
 """Kernel-op interface: the ported ops (port of the rmsnorm, rotembd,
-qk_norm_rope, qk_norm_rope2, W8A8, sdpa and the four sparse-attention
-contracts of fastdm_tpu/kernels/ops.py:29-338).
+qk_norm_rope, qk_norm_rope2, gelu_and_mul, W8A8, sdpa and the four
+sparse-attention contracts of fastdm_tpu/kernels/ops.py:29-338).
 
 Same argument lists and semantics as the JAX ops: RoPE returns new (q, k)
 instead of writing into its inputs, cos/sin are two (S, head_size/2) float32
@@ -63,6 +63,14 @@ def qk_norm_rope2(
 ) -> Tuple[Tensor, Tensor]:
     """qk_norm_rope with q and k (B, S, D) as separate operands (the
     split-QKV projection path). Same semantics."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("gelu_and_mul")
+def gelu_and_mul(x: Tensor) -> Tensor:
+    """x[..., :d] * GELU(x[..., d:]) with d = x.shape[-1] // 2, exact (erf)
+    GELU, f32 math, one cast back to x's dtype (bf16 or f32). The gate is the
+    SECOND half, as in the reference. Returns (..., d)."""
     raise NotImplementedError
 
 

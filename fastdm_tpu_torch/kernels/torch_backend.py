@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the ported ops (port of
 fastdm_tpu/kernels/jnp_backend/impl.py: rms_norm_jnp :19-26, _rotate and
 rotary_pos_embedding_jnp :29-54/:100-114, qk_norm_rope_jnp and
-qk_norm_rope2_jnp :57-97, quantize_to_int8_jnp :123-140, quantize_to_fp8_jnp
-:191-197, fp8_matmul_jnp :200-218, int8_matmul_jnp :221-240, sdpa_jnp
+qk_norm_rope2_jnp :57-97, gelu_and_mul_jnp :117-120, quantize_to_int8_jnp
+:123-140, quantize_to_fp8_jnp :191-197, fp8_matmul_jnp :200-218,
+int8_matmul_jnp :221-240, sdpa_jnp
 :248-280, sdpa_gather_jnp :283-311, sdpa_gather_fine_jnp :314-370,
 sdpa_gather_super_jnp :373-437, sdpa_sparse_jnp :440-486).
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from fastdm_tpu_torch.kernels import contracts
 from fastdm_tpu_torch.kernels.registry import kernel_registry
@@ -108,6 +110,16 @@ def qk_norm_rope2_torch(
     qn = _rotate(qn.reshape(b, s, -1, head_size), cos, sin, is_neox)
     kn = _rotate(kn.reshape(b, s, -1, head_size), cos, sin, is_neox)
     return qn.reshape(b, s, d), kn.reshape(b, s, d)
+
+
+@kernel_registry.register("gelu_and_mul", "torch")
+def gelu_and_mul_torch(x: Tensor) -> Tensor:
+    # one rounding from f32, as the Pallas kernel and csrc/gelu_mul.cu; the
+    # jnp oracle rounds GELU(gate) to x's dtype before the product
+    contracts.check_gelu_and_mul("gelu_and_mul_torch", x)
+    d = x.shape[-1] // 2
+    x32 = x.float()
+    return (x32[..., :d] * F.gelu(x32[..., d:], approximate="none")).to(x.dtype)
 
 
 @kernel_registry.register("quantize_to_int8", "torch")

@@ -1,4 +1,5 @@
-"""Conv / GroupNorm primitives of the VAE (port of fastdm_tpu/layers/conv2d.py).
+"""Conv / GroupNorm primitives of the VAEs and the SDXL UNet (port of
+fastdm_tpu/layers/conv2d.py).
 
 PyTorch idiom inside: NCHW activations and (out, in, kh, kw) weights, the
 checkpoints' own layout. The numerics follow the JAX package: bf16 operands,
@@ -10,7 +11,7 @@ still forms exact products with f32 accumulation.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -18,11 +19,33 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 
-def conv2d(params: Dict[str, Tensor], x: Tensor, stride: int = 1) -> Tensor:
-    """'SAME'-padded conv (odd kernels), bf16 out."""
+def same_padding(size: int, k: int, stride: int) -> tuple:
+    """(before, after) padding of one spatial dim under XLA's "SAME": the
+    output has ceil(size / stride) positions, the total padding is split with
+    the smaller half first. For stride 1 and an odd kernel that is k // 2 on
+    both sides; for the stride-2 3x3 downsampler of an even size it is 0
+    before and 1 after (diffusers' Downsample2D pads 1 on both sides)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(params: Dict[str, Tensor], x: Tensor, stride: int = 1,
+           padding: Union[str, int] = "SAME") -> Tensor:
+    """Conv with bf16 out. padding "SAME" is the JAX package's geometry
+    (same_padding; symmetric k // 2 at stride 1); an int pads that many on
+    every side."""
     w = params["w"]
-    out = F.conv2d(x.float(), w.float(), params["b"].float(), stride=stride,
-                   padding=w.shape[-1] // 2)
+    x = x.float()
+    if padding == "SAME":
+        (top, bottom), (left, right) = (same_padding(x.shape[d], w.shape[d], stride)
+                                        for d in (2, 3))
+        if top == bottom and left == right:
+            padding = (top, left)
+        else:
+            x = F.pad(x, (left, right, top, bottom))
+            padding = 0
+    out = F.conv2d(x, w.float(), params["b"].float(), stride=stride, padding=padding)
     return out.to(torch.bfloat16)
 
 

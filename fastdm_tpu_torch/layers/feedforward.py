@@ -1,7 +1,8 @@
-"""FeedForward (port of fastdm_tpu/layers/feedforward.py, the tanh-GELU
-activation of the FLUX and Wan blocks, with token chunking). The GEGLU family
-needs the gelu_and_mul kernel and arrives with the SDXL slice; the other
-activations arrive with the models that use them."""
+"""FeedForward (port of fastdm_tpu/layers/feedforward.py, with token
+chunking): the tanh-GELU activation of the FLUX and Wan blocks and the GEGLU
+of the SDXL blocks (hidden * GELU(gate), the gate in the second half of the
+projection, through the gelu_and_mul kernel). The other activations of the
+JAX module arrive with the models that use them."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fastdm_tpu_torch.kernels import gelu_and_mul
 from fastdm_tpu_torch.layers.qlinear import QLinear
 
 Tensor = torch.Tensor
@@ -25,12 +27,15 @@ class FeedForward(nn.Module):
         """chunk_tokens > 0 and dividing the token count (dim -2): run the
         FFN over token chunks and concatenate. Exact (every op is per row); the
         (tokens, ffn_dim) intermediates then exist at chunk size only."""
-        if activation_fn != "gelu-approximate":
+        if activation_fn not in ("gelu-approximate", "geglu"):
             raise NotImplementedError(
-                f"activation_fn {activation_fn!r} is not in this slice of the port "
-                "(gelu-approximate is)")
+                f"activation_fn {activation_fn!r} is not in the port yet (gelu-approximate "
+                "and geglu are)")
         s = x.shape[-2]
         if chunk_tokens and s > chunk_tokens and s % chunk_tokens == 0:
             return torch.cat([self(x[..., i:i + chunk_tokens, :], activation_fn)
                               for i in range(0, s, chunk_tokens)], dim=-2)
-        return self.out(F.gelu(self.proj(x), approximate="tanh"))
+        h = self.proj(x)
+        if activation_fn == "geglu":
+            return self.out(gelu_and_mul(h))
+        return self.out(F.gelu(h, approximate="tanh"))

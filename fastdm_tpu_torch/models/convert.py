@@ -27,6 +27,15 @@ from fastdm_tpu_torch.layers.normalization import (
 from fastdm_tpu_torch.layers.qlinear import QLinear
 from fastdm_tpu_torch.models.flux import FluxDualBlock, FluxSingleBlock, FluxTransformer
 from fastdm_tpu_torch.models.loader import as_tensor
+from fastdm_tpu_torch.models.sdxl import (
+    SDXLAttention,
+    SDXLResnet,
+    SDXLStage,
+    SDXLTransformer2D,
+    SDXLTransformerBlock,
+    SDXLUNet,
+    frozen_params,
+)
 from fastdm_tpu_torch.models.wan import (
     WanBlock,
     WanCrossAttention,
@@ -148,6 +157,58 @@ def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
                                            lin(ce["text_embedder"]["linear2"])),
         scale_shift_table=t(tree["scale_shift_table"]), proj_out=lin(tree["proj_out"]),
         blocks=blocks)
+
+
+def sdxl_params_from_numpy(tree: Dict, device="cuda") -> SDXLUNet:
+    """SDXL UNet param tree of fastdm_tpu.models.sdxl (numpy leaves, HWIO
+    convs, each Transformer2D's blocks stacked) -> SDXLUNet on `device`, with
+    (out, in, kh, kw) convs and one module per block."""
+    dev = resolve_device(device)
+    lin = _linear_converter(dev)
+
+    def t(a):
+        return as_tensor(a).to(dev)
+
+    def conv(p):  # HWIO -> (out, in, kh, kw)
+        return frozen_params(w=as_tensor(p["w"]).permute(3, 2, 0, 1).contiguous().to(dev),
+                             b=t(p["b"]))
+
+    def norm(p):
+        return frozen_params(gamma=t(p["gamma"]), beta=t(p["beta"]))
+
+    def resnet(p):
+        return SDXLResnet(norm(p["norm1"]), conv(p["conv1"]), lin(p["time_emb_proj"]),
+                          norm(p["norm2"]), conv(p["conv2"]),
+                          conv(p["shortcut"]) if "shortcut" in p else None)
+
+    def t2d(p):
+        blocks = []
+        for blk in unstack_blocks(p["blocks"], _n_layers(p["blocks"])):
+            a1, a2 = blk["attn1"], blk["attn2"]
+            blocks.append(SDXLTransformerBlock(
+                norm(blk["norm1"]), SDXLAttention(lin(a1["out"]), qkv=lin(a1["qkv"])),
+                norm(blk["norm2"]),
+                SDXLAttention(lin(a2["out"]), q=lin(a2["q"]), kv=lin(a2["kv"]),
+                              ipadp_kv=lin(a2["ipadp_kv"]) if "ipadp_kv" in a2 else None),
+                norm(blk["norm3"]), FeedForward(lin(blk["ff"]["proj"]), lin(blk["ff"]["out"]))))
+        return SDXLTransformer2D(norm(p["norm"]), lin(p["proj_in"]), blocks, lin(p["proj_out"]))
+
+    def stage(p):
+        attns = p.get("attns") or ([p["attn"]] if "attn" in p else None)
+        return SDXLStage([resnet(r) for r in p["resnets"]],
+                         [t2d(a) for a in attns] if attns else None,
+                         downsample=conv(p["downsample"]) if "downsample" in p else None,
+                         upsample=conv(p["upsample"]) if "upsample" in p else None)
+
+    def mlp(p):
+        return TimestepEmbedding(lin(p["linear1"]), lin(p["linear2"]))
+
+    return SDXLUNet(
+        conv_in=conv(tree["conv_in"]), time_embedding=mlp(tree["time_embedding"]),
+        add_embedding=mlp(tree["add_embedding"]),
+        down=[stage(tree[f"down{i}"]) for i in range(3)], mid=stage(tree["mid"]),
+        up=[stage(tree[f"up{i}"]) for i in range(3)], conv_norm_out=norm(tree["conv_norm_out"]),
+        conv_out=conv(tree["conv_out"]))
 
 
 def vae_params_from_numpy(tree: Dict, device="cuda") -> Dict:

@@ -82,6 +82,13 @@ class TensorSource:
         """Claim a raw (norm / conv / table) tensor."""
         return self.take(name).to(device=self.device, dtype=dtype)
 
+    def conv(self, prefix: str) -> Dict[str, Tensor]:
+        """Claim '{prefix}.weight' / '.bias' of a conv: {"w": (out, in, kh,
+        kw) bf16, "b": f32}, both read through f32 as the JAX conv_from_torch
+        does (fastdm_tpu/layers/conv2d.py)."""
+        return {"w": self.tensor(f"{prefix}.weight", torch.float32).to(torch.bfloat16),
+                "b": self.tensor(f"{prefix}.bias", torch.float32)}
+
     def linear(self, prefix: str, quant: Optional[str]) -> QLinear:
         """Claim '{prefix}.weight' (+ optional bias) as a QLinear."""
         return self.fused_linear([prefix], quant)

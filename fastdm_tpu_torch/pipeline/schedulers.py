@@ -1,5 +1,5 @@
-"""FlowMatch-Euler and UniPC schedulers (port of
-fastdm_tpu/pipeline/schedulers.py:31-86 and :147-300).
+"""FlowMatch-Euler, EulerDiscrete and UniPC schedulers (port of
+fastdm_tpu/pipeline/schedulers.py:31-86, :87-144 and :147-300).
 
 The sigma ladders are computed on the host in numpy (float64, stored
 float32), as in the JAX package. The step index is a Python int here (the
@@ -61,6 +61,58 @@ class FlowMatchEulerScheduler:
         JAX package's on-device subtraction."""
         dt = float(self.sigmas[step_index + 1]) - float(self.sigmas[step_index])
         return sample + np.float32(dt).item() * model_output.float()
+
+
+def _betas_scaled_linear(num_train_timesteps: int, beta_start: float = 0.00085,
+                         beta_end: float = 0.012) -> np.ndarray:
+    return np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps,
+                       dtype=np.float64) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class EulerDiscreteScheduler:
+    """k-diffusion Euler without ancestral noise (SDXL's default), epsilon
+    prediction, diffusers' "leading" timestep spacing with steps_offset 1.
+    sigmas: (num_steps + 1,) float32, descending, last 0; timesteps:
+    (num_steps,) float32 train-timestep values. The ladder is the JAX
+    package's numpy computation, so it is bit-exact with it."""
+
+    sigmas: np.ndarray
+    timesteps: np.ndarray
+    init_noise_sigma: float
+
+    @classmethod
+    def create(cls, num_steps: int, num_train_timesteps: int = 1000,
+               steps_offset: int = 1) -> "EulerDiscreteScheduler":
+        """Linear sigma interpolation (the SDXL config value; the JAX create
+        raises for any other)."""
+        alphas_cumprod = np.cumprod(1.0 - _betas_scaled_linear(num_train_timesteps))
+        full_sigmas = np.sqrt((1 - alphas_cumprod) / alphas_cumprod)
+        step_ratio = num_train_timesteps // num_steps
+        ts = ((np.arange(num_steps) * step_ratio).round()[::-1]
+              + steps_offset).astype(np.float64)
+        sigmas = np.interp(ts, np.arange(num_train_timesteps), full_sigmas)
+        sigmas = np.append(sigmas, 0.0).astype(np.float32)
+        return cls(sigmas=sigmas, timesteps=ts.astype(np.float32),
+                   init_noise_sigma=float(np.sqrt(sigmas[0] ** 2 + 1)))
+
+    def _sigma(self, like: Tensor, step_index: int) -> Tensor:
+        """sigmas[step_index] as a 0-dim float32 tensor: divisions by it are
+        correctly rounded on every device (see torch_backend.true_div)."""
+        return like.new_full((), float(self.sigmas[step_index]), dtype=torch.float32)
+
+    def scale_model_input(self, sample: Tensor, step_index: int) -> Tensor:
+        """sample / sqrt(sigma^2 + 1), in float32."""
+        sigma = self._sigma(sample, step_index)
+        return sample / torch.sqrt(sigma * sigma + 1)
+
+    def step(self, model_output: Tensor, step_index: int, sample: Tensor) -> Tensor:
+        """One Euler step in float32 from an epsilon prediction."""
+        sigma = self._sigma(sample, step_index)
+        pred_x0 = sample - sigma * model_output.float()
+        derivative = (sample - pred_x0) / sigma
+        dt = float(self.sigmas[step_index + 1] - self.sigmas[step_index])  # f32 difference
+        return sample + derivative * dt
 
 
 def _flow_lambda(sigma: float) -> float:

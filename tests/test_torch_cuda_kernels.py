@@ -23,7 +23,11 @@ two-operand forms bit-identical; gather_super as sdpa's FLUX-heads case, the
 other three sparse-attention walks (gather_fine, gather_coarse, sparse_mask)
 as sdpa's small cases plus relative L2 5e-3 (see _close_to_plain), and all
 four bit-identical to the dense sdpa kernel on tables that allow every key
-(the same tiles in the same order through the same tile code).
+(the same tiles in the same order through the same tile code). The SDXL
+kernels: gelu_and_mul within one bf16 ulp of its plain version (both round
+once from f32; erff and ATen's erf may differ by an f32 ulp), in f32 within
+1e-6 relative plus |h*g| * 2^-22; sdpa at head dim 64 on the fused
+projections as the small cases.
 """
 
 import numpy as np
@@ -37,6 +41,7 @@ SDPA_CASES = {
     "gqa": (1, 130, 130, 8, 2, 128, False),
     "cross-len": (1, 70, 150, 2, 2, 64, False),
     "flux-heads": (1, 1100, 1100, 24, 24, 128, False),
+    "sdxl-cross": (2, 300, 77, 20, 20, 64, False),
 }
 
 
@@ -128,6 +133,69 @@ def test_elementwise_kernels_match_plain_on_card(cuda_device):
 
 # (M, K, N): a ragged size and the FLUX single-block proj_out (the longest K)
 W8A8_SHAPES = {"ragged": (77, 96, 40), "proj_out": (8704, 15360, 3072)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [640, 1280])
+def test_sdpa_kernel_on_sdxl_fused_projections(cuda_device, c):
+    """SDXL's attentions at head dim 64: self-attention q|k|v read in place
+    from the fused (B, S, 3C) projection, cross-attention k|v from the fused
+    (B, 77, 2C) one (a 13-key tail tile), held as the small cases."""
+    from fastdm_tpu_torch.kernels.cuda_backend import sdpa_cuda
+    from fastdm_tpu_torch.kernels.torch_backend import sdpa_torch
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    h = c // 64
+    qkv = torch.randn(2, 333, 3 * c, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.randn(2, 77, 2 * c, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    for kk, vv in ((k, v), (kv[..., :c], kv[..., c:])):
+        got = sdpa_cuda(q, kk, vv, h, h, 64, False).float()
+        want = sdpa_torch(q, kk, vv, h, h, 64, False).float()
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gelu_and_mul_kernel_matches_plain_on_card(cuda_device, dtype):
+    """A ragged row count (3 x 333 rows), a column slice of a wider tensor
+    read in place (16-byte aligned: vector path) and one that is not (scalar
+    path). Both round once from f32; erff and ATen's erf may differ by an f32
+    ulp, so bf16 is held within one bf16 ulp of the plain version and f32
+    within 1e-6 relative plus |h*g| * 2^-22 (1 + erf cancels in the far
+    negative tail)."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    d = 1280
+    x = torch.randn(3, 333, 2 * d, generator=g, device=cuda_device) * 3
+    wide = torch.randn(2, 77, 2 * d + 24, generator=g, device=cuda_device) * 3
+    cuda_backend.reset_launch_counts()
+    for a in (x, wide[..., 8:8 + 2 * d], wide[..., 1:1 + 2 * d]):
+        a = a.to(dtype)
+        got, want = cuda_backend.gelu_and_mul_cuda(a).float(), torch_backend.gelu_and_mul_torch(a)
+        assert got.shape == want.shape == (*a.shape[:-1], d)
+        want = want.float()
+        e = (got - want).abs()
+        if dtype == torch.bfloat16:
+            assert (e <= _bf16_ulp(want)).all()
+        else:
+            hg = (a[..., :d].float() * a[..., d:].float()).abs()
+            assert (e <= 1e-6 * want.abs() + hg * 2.0**-22).all()
+    assert cuda_backend.gelu_and_mul_cuda.launches == 3
+
+
+@pytest.mark.gpu
+def test_gelu_and_mul_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    with pytest.raises(ValueError, match="even"):
+        cuda_backend.gelu_and_mul_cuda(torch.zeros(4, 7, device=cuda_device))
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_backend.gelu_and_mul_cuda(torch.zeros(4, 8, device=cuda_device,
+                                                   dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_backend.gelu_and_mul_cuda(torch.zeros(4, 8, dtype=torch.bfloat16))
 
 
 def _w8a8_operands(quant, m, k, n, device, bias=True):

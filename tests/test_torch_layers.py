@@ -344,7 +344,7 @@ def test_feedforward_matches_jax(dtype):
     else:
         assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-2
     with pytest.raises(NotImplementedError):
-        ff(xt, "geglu")
+        ff(xt, "swiglu")
 
 
 # ---------------------------------------------------------------- attention

@@ -323,7 +323,7 @@ def test_engine_rejects_what_later_slices_bring(tmp_path, monkeypatch):
     with pytest.raises(TypeError, match="use_int4"):
         FastDMEngine(root, use_int4=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        FastDMEngine(root, architecture="sdxl", device="cpu")
+        FastDMEngine(root, architecture="sd35", device="cpu")
     eng = FastDMEngine(root, verbose=False, device="cpu")
     with pytest.raises(NotImplementedError, match="text encoders"):
         eng.generate(prompt="a cat")
