@@ -5,7 +5,8 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. kernels: build every hand-written kernel from csrc/ (one nvcc per source,
-     all at once), run each at its main-path shapes (FLUX.1-dev 1024x2048;
+     all at once; registers and spills from ptxas, the shared memory of the
+     wgmma + TMA kernels), run each at its main-path shapes (FLUX.1-dev 1024x2048;
      Wan2.2-A14B 480x832x81, 32760 tokens, for qk_norm_rope, qk_norm_rope2 and
      the four sparse-attention walks, each on its mode's radial tables) and
      hold it to its plain PyTorch version with a stated tolerance; time the
@@ -15,7 +16,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      gives the forward's GEMM and quantize time. SDXL-base at 1024x2048 with
      CFG: gelu_and_mul at both GEGLU shapes, sdpa at its four attention shapes
      (head dim 64, q|k|v read in place from the fused projections), and the
-     int8 and fp8 GEMM and quantize at every W8A8 shape of its forward.
+     int8 and fp8 GEMM and quantize at every W8A8 shape of its forward. The
+     dense sdpa kernel (wgmma + TMA) is timed in turns with the dense walk, the
+     mma.sync design it replaced (walk, sdpa, sdpa, walk), at the FLUX,
+     SDXL 8192-token and Wan 32760-token shapes; the dense walk is held to the
+     plain sdpa, and the sparse walks on tables that allow every key to it, bit
+     for bit. No serving path may launch the dense walk.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
      heads, random weights from a seed) three times: in bf16, in int8 and in
      fp8 (W8A8 block linears drawn straight into int8 / e4m3). Each serves
@@ -145,6 +151,83 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _ptxas_entries(report: str):
+    """(mangled entry, registers, spill line) of each kernel in a ptxas -v report."""
+    import re
+
+    out, entry, spills = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        elif "spill stores" in line:
+            spills = line.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                out.append((entry, int(m.group(1)), spills))
+                entry = None
+    return out
+
+
+def _log_ptxas() -> None:
+    """Registers and spills of every kernel, from the ptxas report of its build
+    (fastdm_tpu_torch/_build/<source>.ptxas.txt), and the dynamic shared memory
+    of the two wgmma + TMA kernels, from their libraries, and every ptxas
+    performance warning (e.g. C7514: wgmma serialised). The warp-specialised
+    kernels start at the launch allocation ptxas reports and then move
+    registers with setmaxnreg (producer / consumers, read from the libraries
+    as the shared memory is)."""
+    import ctypes
+    import re
+
+    from fastdm_tpu_torch.kernels import build
+
+    gemm, attn = build.load_library("fp8_gemm"), build.load_library("flash_attn")
+    attn.fdm_flash_attn_smem_bytes.argtypes = [ctypes.c_int]
+    gemm.fdm_fp8_gemm_setmaxnreg.argtypes = [ctypes.c_int]
+    attn.fdm_flash_attn_setmaxnreg.argtypes = [ctypes.c_int]
+    regs_of = {name: f"setmaxnreg {fn(0)} / {fn(1)}" for name, fn in (
+        ("fp8_gemm", gemm.fdm_fp8_gemm_setmaxnreg), ("flash_attn", attn.fdm_flash_attn_setmaxnreg))}
+    for name in build.SOURCES:
+        path = build.BUILD_DIR / f"{name}.ptxas.txt"
+        report = path.read_text() if path.exists() else ""
+        for line in report.splitlines():
+            if "Performance Loss" in line:
+                log(f"[ptxas {name}] {line.strip()}")
+        for entry, regs, spills in _ptxas_entries(report):
+            d = re.search(r"ILi(\d+)E", entry)
+            walk = re.search(r"NS_\d+(\w+?)TablesE", entry)
+            label = name + (f" D={d.group(1)}" if d else "") + (f" {walk.group(1)}" if walk else "")
+            extra = ""
+            if name == "fp8_gemm":
+                extra = (f"; dynamic shared memory {gemm.fdm_fp8_gemm_smem_bytes()} B; "
+                         f"{regs_of[name]}")
+            elif name == "flash_attn" and d:
+                extra = (f"; dynamic shared memory "
+                         f"{attn.fdm_flash_attn_smem_bytes(int(d.group(1)))} B; {regs_of[name]}")
+            log(f"[ptxas {label}] {regs} registers at launch; {spills}{extra}")
+
+
+def _attention_turns(label: str, q, k, v, h: int, hd: int, flops: float, bound_ms: float,
+                     lib_ms: float, iters: int):
+    """The dense sdpa kernel (wgmma + TMA) and the dense walk (the mma.sync
+    design it replaced) on the same inputs, timed in turns on one card: walk,
+    sdpa, sdpa, walk. Returns (sdpa ms, walk ms), each the mean of its turns."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+
+    new = lambda: cb.sdpa_cuda(q, k, v, h, h, hd)  # noqa: E731
+    old = lambda: cb.dense_walk_attention_cuda(q, k, v, h, h, hd)  # noqa: E731
+    t = [cuda_ms(f, iters) for f in (old, new, new, old)]
+    new_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    log(f"[sdpa redesign] {label}: wgmma + TMA sdpa {t[1]:.4f} / {t[2]:.4f} ms "
+        f"({flops / new_ms / 1e9:.0f} TFLOP/s, {bound_ms / new_ms:.1%} of the bound "
+        f"{bound_ms:.4f} ms); dense walk (the replaced mma.sync design) {t[0]:.4f} / "
+        f"{t[3]:.4f} ms ({flops / old_ms / 1e9:.0f} TFLOP/s, {bound_ms / old_ms:.1%}); "
+        f"library {lib_ms:.4f} ms; sdpa / walk {new_ms / old_ms:.3f}")
+    return new_ms, old_ms
+
+
 # ------------------------------------------------------------------ phase 1
 
 
@@ -159,10 +242,7 @@ def phase_kernels(dev) -> dict:
     reports = build.build()
     log(f"[kernels] built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas {name}] {line.strip()}")
+    _log_ptxas()
 
     g = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -255,11 +335,24 @@ def phase_kernels(dev) -> dict:
             raise AssertionError(f"sdpa {name} disagrees with its plain version")
         if name == "flux":
             flux_err = e.max().item()
-    ms = cuda_ms(lambda: cuda_backend.sdpa_cuda(q, k, v, HEADS, HEADS, HEAD_DIM), 10)
-    plain_ms = cuda_ms(lambda: torch_backend.sdpa_torch(q, k, v, HEADS, HEADS, HEAD_DIM), 3, 1)
+    # the dense walk (the design sdpa ran on before its wgmma + TMA redesign,
+    # kept for checks) is dense attention too, held as the FLUX case
+    got = cuda_backend.dense_walk_attention_cuda(q, k, v, HEADS, HEADS, HEAD_DIM)
+    ref = torch_backend.sdpa_torch(q, k, v, HEADS, HEADS, HEAD_DIM)
+    e = (got.float() - ref.float()).abs()
+    rel = (e.norm() / ref.float().norm()).item()
+    log(f"[dense walk] flux q{tuple(q.shape)}: max_abs_err {e.max().item():.3e}, rel L2 "
+        f"{rel:.3e} (tolerance 1e-3 + 2 ulp, rel L2 5e-3)")
+    if not ((e - 1e-3 - 2 * bf16_ulp(ref)).max().item() <= 0 and rel <= 5e-3
+            and torch.isfinite(got).all()):
+        raise AssertionError("the dense walk disagrees with the plain sdpa")
+    del got, ref, e
     heads = lambda t: t.view(1, s, HEADS, HEAD_DIM).transpose(1, 2)  # noqa: E731
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), 10)
     b_ms, b_by = bound(4 * q.numel() * 2, 4 * s * s * HEAD_DIM * HEADS, BF16_FLOPS)
+    ms, _ = _attention_turns(f"FLUX (1, {s}, {HEADS}x{HEAD_DIM})", q, k, v, HEADS, HEAD_DIM,
+                             4 * s * s * HEAD_DIM * HEADS, b_ms, lib_ms, 10)
+    plain_ms = cuda_ms(lambda: torch_backend.sdpa_torch(q, k, v, HEADS, HEADS, HEAD_DIM), 3, 1)
     results["sdpa"] = dict(
         name="sdpa", route="cuda", source="fastdm_tpu_torch/csrc/flash_attn.cu",
         replaces="fastdm_tpu/kernels/pallas/attention.py:429",
@@ -392,10 +485,11 @@ def _w8a8_kernels(dev, g) -> dict:
             lib_ms, lib = None, f"{lib}: not available here ({str(e).splitlines()[0]})"
         b_ms, b_by = bound(_gemm_bytes(m, k, n), 2 * m * n * k, INT8_FP8_OPS)
         log(f"[{name}] qkv_mlp {m}x{k} @ {k}x{n}: {ms:.4f} ms "
-            f"({2 * m * n * k / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, "
-            f"library {lib_ms} ms ({lib})")
+            f"({2 * m * n * k / ms / 1e9:.1f} TOP/s, {b_ms / ms:.1%} of the bound {b_ms:.4f} "
+            f"ms), plain {plain_ms:.4f} ms, library {lib_ms} ms ({lib})")
         results[name] = dict(
-            name=name, route="cuda", source="fastdm_tpu_torch/csrc/w8a8_gemm.cu",
+            name=name, route="cuda",
+            source=f"fastdm_tpu_torch/csrc/{'w8a8_gemm' if quant == 'int8' else 'fp8_gemm'}.cu",
             replaces=f"fastdm_tpu/kernels/pallas/matmul.py:{158 if quant == 'int8' else 182}",
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms)
@@ -418,6 +512,9 @@ def _w8a8_kernels(dev, g) -> dict:
             f"shape): GEMMs {gemm_ms:.3f} ms (bound {gemm_bound:.3f} ms), quantize "
             f"{quant_ms:.3f} ms (bound {quant_bound:.3f} ms)")
         torch.cuda.empty_cache()
+    i8, f8 = results["int8_matmul"]["ms"], results["fp8_matmul"]["ms"]
+    log(f"[w8a8] qkv_mlp: fp8 wgmma + TMA GEMM {f8:.4f} ms vs int8 mma.sync GEMM {i8:.4f} ms "
+        f"(fp8/int8 {f8 / i8:.3f}; the same tensor-core operations at the same peak)")
     return results
 
 
@@ -596,16 +693,22 @@ def _sparse_walks(dev, g) -> dict:
     (FASTDM_SPARSE_GATHER: super, fine, coarse, mask) on that mode's radial
     tables of the 81-frame 480x832 video (32760 tokens, 40 heads of 128),
     held to its plain version with sdpa's tolerance (1e-3 + 2 bf16 ulp, rel
-    L2 5e-3); tables that allow every key give the dense sdpa kernel's result
-    bit for bit, and an emptied table row gives zeros. Timed beside the dense
-    kernel, the plain version and F.scaled_dot_product_attention with the
-    mode's dense boolean mask (the same for every head here); the bound counts
-    the allowed keys only."""
+    L2 5e-3); tables that allow every key give the dense walk's result bit for
+    bit (the walks' kernel with no table: the same tiles in the same order
+    through the same tile code), and an emptied table row gives zeros. The
+    dense sdpa kernel is held to its plain version here too, with the FLUX
+    tolerance: this shape runs 40 times in each dense Wan forward, and its
+    256 KV tiles (the last one 120 keys) pass through the ring. Timed
+    beside the dense walk, the plain version and F.scaled_dot_product_attention
+    with the mode's dense boolean mask (the same for every head here); the
+    bound counts the allowed keys only. The dense walk and the dense sdpa
+    kernel are timed in turns at this shape."""
     import torch
     import torch.nn.functional as F
 
     from fastdm_tpu_torch.engine import wan_sparse_tables
     from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend
     from fastdm_tpu_torch.models.wan import WanConfig
 
     results = {}
@@ -613,10 +716,23 @@ def _sparse_walks(dev, g) -> dict:
     h, hd = WAN_HEADS, HEAD_DIM
     q, k, v = (torch.randn(1, s, WAN_DIM, generator=g, device=dev, dtype=torch.bfloat16)
                for _ in range(3))
-    dense = cb.sdpa_cuda(q, k, v, h, h, hd)
-    dense_ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, hd), 5)
+    got = cb.sdpa_cuda(q, k, v, h, h, hd)
+    want = torch_backend.sdpa_torch(q, k, v, h, h, hd)
+    e = (got.float() - want.float()).abs()
+    rel = (e.norm() / want.float().norm()).item()
+    excess = (e - 1e-3 - 2 * bf16_ulp(want)).max().item()
+    log(f"[sdpa] wan q{tuple(q.shape)} ({s // 128} KV tiles of 128 + {s % 128}): max_abs_err "
+        f"{e.max().item():.3e}, rel L2 {rel:.3e} (tolerance 1e-3 + 2 ulp, rel L2 5e-3)")
+    if not (excess <= 0 and rel <= 5e-3 and torch.isfinite(got).all()):
+        raise AssertionError("sdpa wan disagrees with its plain version")
+    del got, want, e
+    torch.cuda.empty_cache()
+    dense = cb.dense_walk_attention_cuda(q, k, v, h, h, hd)
     heads = lambda t: t.view(1, s, h, hd).transpose(1, 2)  # noqa: E731
-    log(f"[sparse] the dense sdpa kernel at (1, {s}, {WAN_DIM}), {h} heads: {dense_ms:.4f} ms")
+    flops = 4 * s * s * hd * h
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), 3)
+    _, dense_ms = _attention_turns(f"Wan (1, {s}, {h}x{hd})", q, k, v, h, hd, flops,
+                                   bound(4 * q.numel() * 2, flops, BF16_FLOPS)[0], lib_ms, 3)
     for mode, (name, replaces) in SPARSE_KERNEL.items():
         cfg, tables = wan_sparse_tables(_radial(), WanConfig(), s, lf, dev, mode)
         allowed, bq, full, empty = _walk_tables(mode, cfg, tables, s)
@@ -641,7 +757,7 @@ def _sparse_walks(dev, g) -> dict:
         zero_row = not emptied[:, rows].any()
         others = (torch.equal(emptied[:, :rows.start], got[:, :rows.start])
                   and torch.equal(emptied[:, rows.stop:], got[:, rows.stop:]))
-        log(f"[{name}] tables allowing every key == dense sdpa kernel bit for bit: "
+        log(f"[{name}] tables allowing every key == dense walk bit for bit: "
             f"{same_dense}; emptied row 5 gives zeros: {zero_row}, other rows unchanged: "
             f"{others}")
         if not (same_dense and zero_row and others):
@@ -661,8 +777,8 @@ def _sparse_walks(dev, g) -> dict:
         del mask, allowed
         b_ms, b_by = bound(4 * q.numel() * 2, 4 * active * hd * h, BF16_FLOPS)
         log(f"[{name}] {mode}: allowed keys {active / s**2:.4f} of dense attention; {ms:.4f} ms "
-            f"(sparse/dense {ms / dense_ms:.3f}); plain {plain_ms:.1f} ms; library {lib_ms} ms "
-            f"({lib}); bound {b_ms:.4f} ms by {b_by}")
+            f"(sparse/dense walk {ms / dense_ms:.3f}); plain {plain_ms:.1f} ms; library "
+            f"{lib_ms} ms ({lib}); bound {b_ms:.4f} ms by {b_by}")
         results[name] = dict(
             name=name, route="cuda", source="fastdm_tpu_torch/csrc/gather_attn.cu",
             replaces=f"fastdm_tpu/kernels/pallas/{replaces}", max_abs_err=err, ms=ms,
@@ -789,13 +905,17 @@ def _sdxl_kernels(dev, g) -> dict:
                 tol, stated = 1e-2 + 1e-2 * want.float().abs(), "1e-2 + 1e-2*|plain|, rel L2 5e-3"
             excess = (e - tol).max().item()
             skv = k.shape[1]
-            ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, hd), 10)
             plain_ms = cuda_ms(lambda: tb.sdpa_torch(q, k, v, h, h, hd), 1, 1)
             heads = lambda t: t.unflatten(-1, (h, hd)).transpose(1, 2)  # noqa: E731
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k),
                                                                     heads(v)), 10)
             b_ms, b_by = bound(2 * (2 * q.numel() + 2 * b * skv * c), 4 * b * tokens * skv * c,
                                BF16_FLOPS)
+            if kind == "self":  # the redesign's before and after, in turns
+                ms, _ = _attention_turns(f"SDXL self {tuple(q.shape)} {h}x{hd}", q, k, v, h,
+                                         hd, 4 * b * tokens * skv * c, b_ms, lib_ms, 10)
+            else:
+                ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, hd), 10)
             log(f"[sdpa] SDXL {kind} q{tuple(q.shape)} k{tuple(k.shape)} {h}x{hd} heads "
                 f"({blocks} per forward): max_abs_err {e.max().item():.3e}, rel L2 {rel:.3e} "
                 f"(tolerance {stated}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -889,7 +1009,8 @@ def _launch_counts():
             "int8_matmul": cb.int8_matmul_cuda.launches,
             "quantize_to_fp8": cb.quantize_to_fp8_cuda.launches,
             "fp8_matmul": cb.fp8_matmul_cuda.launches,
-            "gelu_and_mul": cb.gelu_and_mul_cuda.launches}
+            "gelu_and_mul": cb.gelu_and_mul_cuda.launches,
+            "dense_walk": cb.dense_walk_attention_cuda.launches}
 
 
 def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
@@ -947,6 +1068,8 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
     mine = {k: counts[k] for k in PATH_KERNELS[quant]}
     if min(mine.values()) <= 0:
         raise AssertionError(f"a kernel of the {label} path never launched: {counts}")
+    if counts["dense_walk"]:
+        raise AssertionError(f"the {label} path reached the dense walk: {counts}")
     if quant is not None:
         want = W8A8_PER_FORWARD * computed
         other = "fp8" if quant == "int8" else "int8"
@@ -2026,7 +2149,10 @@ def phase_engine(dev) -> None:
 
     from fastdm_tpu_torch.engine import FastDMEngine
 
+    from fastdm_tpu_torch.kernels import cuda_backend
+
     here = os.path.dirname(os.path.abspath(__file__))
+    cuda_backend.reset_launch_counts()
     with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
         t0 = time.perf_counter()
         _write_checkpoint(root, dev)
@@ -2061,6 +2187,9 @@ def phase_engine(dev) -> None:
             torch.cuda.empty_cache()
     _engine_wan(dev, here)
     _engine_sdxl(dev, here)
+    if cuda_backend.dense_walk_attention_cuda.launches:
+        raise AssertionError("an engine path reached the dense walk")
+    log("[engine] dense walk launches over every engine path: 0")
 
 
 def _engine_wan(dev, here: str) -> None:

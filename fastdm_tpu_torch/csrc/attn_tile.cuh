@@ -1,7 +1,8 @@
-// The flash-attention machinery shared by the dense kernel (flash_attn.cu)
-// and the superblock gather-sparse kernel (gather_attn.cu): mma.sync and
-// ldmatrix wrappers, cp.async tile loads, and the per-tile online-softmax
-// step. The two kernels differ only in which 64-key tiles a block walks.
+// The flash-attention machinery of the table walks of gather_attn.cu (the four
+// sparse modes and the table-free dense walk): mma.sync and ldmatrix
+// wrappers, cp.async tile loads, and the per-tile online-softmax step. The
+// walks differ only in which 64-key tiles a block visits. (The dense sdpa
+// kernel, flash_attn.cu, ran on this tile until its wgmma + TMA redesign.)
 //
 // Layout (mma.sync m16n8k16, bf16 operands, f32 accumulators): a block of 4
 // warps owns 64 query rows, 16 per warp, with their Q fragments, S tile and O

@@ -29,9 +29,9 @@
 // 0.544 (fine, bq 512) and 0.982 (coarse, 512x1024 tiles) of dense
 // attention's work.
 //
-// Design: the dense kernel's machinery (attn_tile.cuh: 64-query blocks of 4
-// warps, mma.sync, 64-key tiles through two cp.async buffers) with a walk
-// over the table in place of the dense KV loop. Each block takes one
+// Design: the tile machinery of attn_tile.cuh (64-query blocks of 4 warps,
+// mma.sync, 64-key tiles through two cp.async buffers) with a walk over the
+// table in place of a dense KV loop. Each block takes one
 // (64-query tile, head, batch) and reads its own table row i = q0 / block_q
 // (block_q a multiple of 64, so several blocks walk one row). The walk yields,
 // in table order, the first key of every 64-key tile the row allows together
@@ -47,7 +47,13 @@
 //   coarse -- the block_k/64 tiles of entries j < counts[row]; padding entries
 //             are never visited; limit skv;
 //   mask   -- the block_k/64 tiles of every set bit of mask row q0/block_q of
-//             mask[b, h] (per head: no row is shared); limit skv.
+//             mask[b, h] (per head: no row is shared); limit skv;
+//   dense  -- no table: every tile in order; limit skv. It is the loop of the
+//             dense sdpa kernel before that kernel moved to wgmma and TMA
+//             (flash_attn.cu), kept for checks only: the walks on tables that
+//             allow every key equal it bit for bit (same tiles, same order,
+//             same tile code), and it is the yardstick of the redesign. No
+//             model path launches it.
 // Tiles are loaded straight from the model's (B, S, H*D) tensors (no
 // transposed, padded K/V copy as the Pallas wrappers' DMAs needed), the next
 // allowed tile streaming in while the current one is computed. The softmax
@@ -194,6 +200,22 @@ struct MaskTables {  // mask: (batch, heads, ni, nj)
     const int row = min(q0 / block_q, ni - 1);
     const int* mrow = mask + ((static_cast<long long>(b) * heads + h) * ni + row) * nj;
     return MaskWalk{mrow, nj, block_k / kBK, block_k, skv};
+  }
+};
+
+struct DenseWalk {
+  int skv;
+
+  __device__ __forceinline__ int next(int&, int& t, int& limit) const {
+    limit = skv;
+    const long long key0 = static_cast<long long>(t) * kBK;
+    return key0 < skv ? static_cast<int>(key0) : -1;
+  }
+};
+
+struct DenseTables {  // no table
+  __device__ __forceinline__ DenseWalk walk(int, int, int, int skv) const {
+    return DenseWalk{skv};
   }
 };
 
@@ -350,5 +372,9 @@ FDM_EXPORT int fdm_sparse_mask_fwd(const void* mask, int ni, int nj, int block_q
   const MaskTables t{static_cast<const int*>(mask), hq, ni, nj, block_q, block_k};
   return run(t, FDM_OPERANDS);
 }
+
+// Dense attention on this kernel's tile: every 64-key tile of each row, in
+// order (no table, no causal mask).
+FDM_EXPORT int fdm_gather_dense(FDM_OPERANDS_PARAMS) { return run(DenseTables{}, FDM_OPERANDS); }
 
 FDM_DEFINE_ERROR_STRING(fdm_gather_attn)

@@ -1,25 +1,24 @@
-// W8A8 GEMM with the fused dequantization epilogue: int8 x int8 -> s32 and
-// e4m3 x e4m3 -> f32 on the tensor cores, then
+// int8 W8A8 GEMM with the fused dequantization epilogue: int8 x int8 -> s32
+// on the tensor cores, then
 //   out = bf16( f32(acc - azp[m] * colsum[n]) * (scale_a[m] * scale_b[n]) + f32(bias[n]) )
-// (the azp term for int8 only; bias optional).
+// (azp and bias optional).
 //
-// Replaces: fastdm_tpu/kernels/pallas/matmul.py int8_matmul_pallas (:158) and
-// fp8_matmul_pallas (:182), which share _w8a8_matmul_pallas (:89) and its body
-// _mm_kernel (:52). The epilogue follows the jnp oracle's order
+// Replaces: fastdm_tpu/kernels/pallas/matmul.py int8_matmul_pallas (:158),
+// which runs _w8a8_matmul_pallas (:89) and its body _mm_kernel (:52); its fp8
+// twin fp8_matmul_pallas (:182) is fp8_gemm.cu. The epilogue follows the jnp oracle's order
 // (fastdm_tpu/kernels/jnp_backend/impl.py:232-240) with __fmul_rn/__fadd_rn,
 // so no FMA contraction moves a rounding: the int8 GEMM is bit-exact with its
 // plain version (fastdm_tpu_torch/kernels/torch_backend.py int8_matmul_torch),
 // whose s32 accumulate is exact too.
 //
 // What bounds it on the H100: operations. At the FLUX shapes (M = 512 to 8704,
-// K = 3072 to 15360, N = 3072 to 21504) it does 2*M*N*K int8 or fp8 operations
+// K = 3072 to 15360, N = 3072 to 21504) it does 2*M*N*K int8 operations
 // on M*K + K*N + 2*M*N bytes, 800 to 2000 operations per byte, far above the
 // ~590 op/byte ridge of the 1979 TOP/s tensor-core rate: the floor of the
 // single-block qkv_mlp product (8704 x 3072 -> 21504) is 0.58 ms.
 //
-// Design (mma.sync m16n8k32, the Ampere-style form; wgmma, TMA and warp
-// specialisation come later): both 8-bit operand types have a k-depth of 32
-// bytes, so one template serves both through its mma instruction. Each block
+// Design (mma.sync m16n8k32, the Ampere-style form; the wgmma + TMA design of
+// fp8_gemm.cu is this kernel's next step). Each block
 // computes a 128x128 output tile with 8 warps (2 x 4, each 64x32) and walks K
 // in 128-byte steps through a 3-stage cp.async ring in shared memory; the
 // loop inside the block takes the place of the Pallas grid's sequential K
@@ -28,16 +27,12 @@
 // own (out, in) layout — because the m16n8k32 B fragment holds 4 consecutive
 // k of one column and ldmatrix only transposes 16-bit elements: with A and B
 // both K-contiguous, plain (non-.trans) ldmatrix.x4 yields both fragments. A
-// row pitch of 144 bytes makes those reads bank-conflict free. The fp8 path
-// adds each 128-deep partial sum into a separate f32 accumulator, so no more
-// than 128 products ever meet inside the tensor core's own accumulation.
+// row pitch of 144 bytes makes those reads bank-conflict free.
 // M and N edges are zero-filled by the async copy and masked at the store;
 // K must be a multiple of 16 (whole 16-byte chunks), its tail is zero-filled.
 // Blocks are rasterised in groups of 8 M-tiles so the A panels of a group
 // stay in L2 while the B panels stream past.
 #include "common.cuh"
-
-#include <type_traits>
 
 namespace {
 
@@ -87,15 +82,6 @@ __device__ __forceinline__ void mma_k32(int32_t (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void mma_k32(float (&d)[4], const uint32_t (&a)[4],
-                                        const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Start copying a (rows x kBK) slab at (row0, k0) of a K-contiguous operand
 // with row pitch `ld` bytes into shared memory; rows past n_rows and 16-byte
 // chunks past k are zero-filled.
@@ -111,14 +97,12 @@ __device__ __forceinline__ void load_slab(uint8_t* dst, const uint8_t* __restric
   }
 }
 
-template <typename Acc>
 __global__ void __launch_bounds__(kThreads)
 w8a8_gemm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                  const float* __restrict__ scale_a, const float* __restrict__ scale_b,
                  const int32_t* __restrict__ azp, const int32_t* __restrict__ colsum,
                  const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
                  int m, int n, int k, int64_t lda, int64_t ldb) {
-  constexpr bool kFp8 = std::is_same<Acc, float>::value;
   extern __shared__ __align__(16) uint8_t smem[];
 
   // grouped rasterisation: kGroupM M-tiles share each sweep over N
@@ -133,7 +117,7 @@ w8a8_gemm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
 
-  Acc acc[kMT][kNT][4];
+  int32_t acc[kMT][kNT][4];
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
 #pragma unroll
@@ -169,14 +153,6 @@ w8a8_gemm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
 
     const uint8_t* as = smem + (kt % kStages) * kStageBytes + (wm * kWM) * kLds;
     const uint8_t* bs = smem + (kt % kStages) * kStageBytes + (kBM + wn * kWN) * kLds;
-    Acc part[kMT][kNT][4];  // fp8: this K step's partial sums, promoted below
-    if constexpr (kFp8) {
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-          part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0;
-    }
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 32) {
       uint32_t af[kMT][4], bf[kNT][2];
@@ -195,21 +171,7 @@ w8a8_gemm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          if constexpr (kFp8) {
-            mma_k32(part[i][j], af[i], bf[j]);
-          } else {
-            mma_k32(acc[i][j], af[i], bf[j]);
-          }
-        }
-    }
-    if constexpr (kFp8) {
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+        for (int j = 0; j < kNT; ++j) mma_k32(acc[i][j], af[i], bf[j]);
     }
   }
   cp_async_wait<0>();
@@ -233,16 +195,11 @@ w8a8_gemm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = min(col + e, n - 1);  // clamped reads; stores are masked
-          float f;
-          if constexpr (kFp8) {
-            f = acc[i][j][2 * h + e];
-          } else {
-            int32_t x = static_cast<int32_t>(acc[i][j][2 * h + e]);
-            if (azp != nullptr)  // two's-complement wrap, as the s32 oracle
-              x = static_cast<int32_t>(static_cast<uint32_t>(x) -
-                                       static_cast<uint32_t>(zr) * static_cast<uint32_t>(colsum[c]));
-            f = __int2float_rn(x);
-          }
+          int32_t x = acc[i][j][2 * h + e];
+          if (azp != nullptr)  // two's-complement wrap, as the s32 oracle
+            x = static_cast<int32_t>(static_cast<uint32_t>(x) -
+                                     static_cast<uint32_t>(zr) * static_cast<uint32_t>(colsum[c]));
+          float f = __int2float_rn(x);
           f = __fmul_rn(f, __fmul_rn(sa, scale_b[c]));
           if (bias != nullptr) f = __fadd_rn(f, __bfloat162float(bias[c]));
           v[e] = f;
@@ -259,44 +216,34 @@ w8a8_gemm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   }
 }
 
-template <typename Acc>
-int launch(const void* a, const void* b, const void* sa, const void* sb, const void* azp,
-           const void* colsum, const void* bias, void* out, int m, int n, int k, long long lda,
-           long long ldb, cudaStream_t stream) {
-  // above 48 KB, dynamic shared memory has to be allowed per kernel
-  const cudaError_t attr = cudaFuncSetAttribute(
-      w8a8_gemm_kernel<Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+}  // namespace
+
+// a: (m, k) int8, row pitch lda; b: (n, k) int8, row pitch ldb (the (K, N)
+// operand stored K-contiguous); both 16-byte aligned with lda, ldb and k
+// multiples of 16. scale_a f32 (m,), scale_b f32 (n,), azp int32 (m,) or NULL,
+// colsum int32 (n,) (read only with azp), bias bf16 (n,) or NULL; out: contiguous
+// bf16 (m, n).
+FDM_EXPORT int fdm_w8a8_gemm(const void* a, const void* b, const void* scale_a,
+                             const void* scale_b, const void* azp, const void* colsum,
+                             const void* bias, void* out, int m, int n, int k, long long lda,
+                             long long ldb, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (k <= 0 || k % 16 != 0 || lda % 16 != 0 || ldb % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = static_cast<long long>((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  w8a8_gemm_kernel<Acc><<<static_cast<unsigned>(tiles), kThreads, kSmemBytes, stream>>>(
+  // above 48 KB, dynamic shared memory has to be allowed per kernel
+  const cudaError_t attr = cudaFuncSetAttribute(
+      w8a8_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  w8a8_gemm_kernel<<<static_cast<unsigned>(tiles), kThreads, kSmemBytes,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
-      static_cast<const float*>(sa), static_cast<const float*>(sb),
+      static_cast<const float*>(scale_a), static_cast<const float*>(scale_b),
       static_cast<const int32_t*>(azp), static_cast<const int32_t*>(colsum),
       static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), m, n, k, lda,
       ldb);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// a: (m, k) bytes, row pitch lda; b: (n, k) bytes, row pitch ldb (the (K, N)
-// operand stored K-contiguous); both 16-byte aligned with lda, ldb and k
-// multiples of 16. scale_a f32 (m,), scale_b f32 (n,), azp int32 (m,) or NULL,
-// colsum int32 (n,) (read only with azp), bias bf16 (n,) or NULL; out: contiguous
-// bf16 (m, n). fp8 = 0: int8 operands, s32 accumulate; 1: e4m3, f32 accumulate.
-FDM_EXPORT int fdm_w8a8_gemm(const void* a, const void* b, const void* scale_a,
-                             const void* scale_b, const void* azp, const void* colsum,
-                             const void* bias, void* out, int m, int n, int k, long long lda,
-                             long long ldb, int fp8, void* stream) {
-  if (m <= 0 || n <= 0) return 0;
-  if (k <= 0 || k % 16 != 0 || lda % 16 != 0 || ldb % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fp8)
-    return launch<float>(a, b, scale_a, scale_b, nullptr, nullptr, bias, out, m, n, k, lda, ldb,
-                         st);
-  return launch<int32_t>(a, b, scale_a, scale_b, azp, colsum, bias, out, m, n, k, lda, ldb, st);
 }
 
 FDM_DEFINE_ERROR_STRING(fdm_w8a8_gemm)

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from fastdm_tpu_torch.kernels import contracts
+from fastdm_tpu_torch.kernels import contracts, tma
 from fastdm_tpu_torch.kernels.build import load_library
 from fastdm_tpu_torch.kernels.registry import kernel_registry
 
@@ -25,6 +25,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 
 _LOG2E = 1.4426950408889634
 
@@ -288,13 +289,13 @@ def sdpa_cuda(
     out = torch.empty(query.shape, dtype=query.dtype, device=dev)
     if b * sq == 0:
         return out
+    geom = [x for t in (query, key, value) for x in tma.attention_geometry(t, head_dim).packed()]
     lib, fn = _entry("flash_attn", "fdm_flash_attn_fwd",
-                     [_P] * 4 + [_I] * 6 + [_L] * 8 + [_F, _I, _P])
+                     [_P] * 4 + [_LP] + [_I] * 6 + [_L] * 2 + [_F, _I, _P])
     with torch.cuda.device(dev):
         code = fn(query.data_ptr(), key.data_ptr(), value.data_ptr(), out.data_ptr(),
-                  b, sq, skv, num_q_heads, num_kv_heads, head_dim,
-                  query.stride(0), query.stride(1), key.stride(0), key.stride(1),
-                  value.stride(0), value.stride(1), out.stride(0), out.stride(1),
+                  (ctypes.c_longlong * len(geom))(*geom), b, sq, skv, num_q_heads,
+                  num_kv_heads, head_dim, out.stride(0), out.stride(1),
                   float(scale * _LOG2E), int(is_causal), _stream(dev))
     _check_launch(lib, "fdm_flash_attn", code, kernel)
     sdpa_cuda.launches += 1
@@ -374,6 +375,25 @@ def gather_super_attention_cuda(
 
 
 gather_super_attention_cuda.launches = 0
+
+
+def dense_walk_attention_cuda(
+    query: Tensor, key: Tensor, value: Tensor, num_q_heads: int, num_kv_heads: int,
+    head_dim: int, scale: Optional[float] = None,
+) -> Tensor:
+    """Dense, non-causal attention on the walks' mma.sync tile (csrc/gather_attn.cu,
+    the table-free walk over every 64-key tile): the design sdpa ran on before
+    its wgmma + TMA redesign. A check and a yardstick, not a registered op: the
+    walks on tables that allow every key equal it bit for bit, and no model
+    path reaches it."""
+    contracts.check_sdpa("dense_walk_attention_cuda", query, key, value, num_q_heads,
+                         num_kv_heads, head_dim)
+    return _sparse_attention(
+        dense_walk_attention_cuda, "dense_walk", "fdm_gather_dense", (), [], {}, query, key,
+        value, num_q_heads, num_kv_heads, head_dim, scale, {})
+
+
+dense_walk_attention_cuda.launches = 0
 
 
 @kernel_registry.register("sdpa_gather_fine", "cuda")
@@ -511,6 +531,14 @@ def _check_vector(t: Optional[Tensor], kernel: str, name: str, n: int, dtype,
                      f"got {t.dtype} {tuple(t.shape)}")
 
 
+def _w8a8_entry(op_dtype: torch.dtype):
+    """(library, C launcher) of the W8A8 GEMM for 8-bit operands of op_dtype:
+    the wgmma + TMA kernel for e4m3, the mma.sync one for int8."""
+    if op_dtype == torch.float8_e4m3fn:
+        return _entry("fp8_gemm", "fdm_fp8_gemm", [_P] * 6 + [_I] * 3 + [_L] * 2 + [_P])
+    return _entry("w8a8_gemm", "fdm_w8a8_gemm", [_P] * 8 + [_I] * 3 + [_L] * 2 + [_P])
+
+
 def _w8a8_gemm(kernel: str, wrapper, a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor,
                out_dtype, azp_adj: Optional[Tensor], azp: Optional[Tensor],
                bias: Optional[Tensor], fp8: bool) -> Tensor:
@@ -540,14 +568,14 @@ def _w8a8_gemm(kernel: str, wrapper, a: Tensor, b: Tensor, scale_a: Tensor, scal
     out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
     if m == 0 or n == 0:
         return out
-    lib, fn = _entry("w8a8_gemm", "fdm_w8a8_gemm", [_P] * 8 + [_I] * 3 + [_L] * 2 + [_I, _P])
+    lib, fn = _w8a8_entry(op_dtype)
+    zero_point = () if fp8 else (azp.data_ptr() if azp is not None else None,
+                                 azp_adj.data_ptr() if azp is not None else None)
     with torch.cuda.device(dev):
-        code = fn(a.data_ptr(), b.data_ptr(), scale_a.data_ptr(), scale_b.data_ptr(),
-                  azp.data_ptr() if azp is not None else None,
-                  azp_adj.data_ptr() if azp is not None else None,
+        code = fn(a.data_ptr(), b.data_ptr(), scale_a.data_ptr(), scale_b.data_ptr(), *zero_point,
                   bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                  m, n, k, a.stride(0), b.stride(1), int(fp8), _stream(dev))
-    _check_launch(lib, "fdm_w8a8_gemm", code, kernel)
+                  m, n, k, a.stride(0), b.stride(1), _stream(dev))
+    _check_launch(lib, "fdm_fp8_gemm" if fp8 else "fdm_w8a8_gemm", code, kernel)
     wrapper.launches += 1
     return out
 
@@ -576,7 +604,7 @@ KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, qk_norm_rope_cuda,
                    qk_norm_rope2_cuda, gelu_and_mul_cuda, sdpa_cuda, gather_super_attention_cuda,
                    gather_fine_attention_cuda, gather_sparse_attention_cuda,
                    sparse_attention_cuda, quantize_to_int8_cuda, quantize_to_fp8_cuda,
-                   int8_matmul_cuda, fp8_matmul_cuda)
+                   int8_matmul_cuda, fp8_matmul_cuda, dense_walk_attention_cuda)
 
 
 def reset_launch_counts() -> None:

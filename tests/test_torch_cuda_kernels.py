@@ -8,8 +8,10 @@ On a GPU machine, which needs no JAX:
 Tolerances: rotembd bit-exact (same f32 operations, no contraction, one
 rounding); rmsnorm within one bf16 ulp (rsqrt vs 1/sqrt); sdpa (f32 sums in
 another order; p rounded to bf16 in both) within 1e-2 + 1e-2*|x| on the small
-cases, and on the FLUX-heads case, whose outputs average 1100 keys and are
-small, within 1e-3 + 2 bf16 ulp of |x| and relative L2 5e-3. The W8A8
+cases (ragged, causal with sq < skv, GQA, 77 keys, q|k|v slices of one fused
+projection at D 64, a softmax scale <= 0), and on the FLUX-heads and
+Wan-dense cases, whose outputs average 1100 and 32760 keys and are small,
+within 1e-3 + 2 bf16 ulp of |x| and relative L2 5e-3. The W8A8
 kernels: both quantizers (q, scale, zp) and the int8 GEMM bit-exact (integer
 math, correctly rounded divisions, the epilogue in the same order without
 contraction); the fp8 GEMM (f32 sums in another order) within 1 bf16 ulp of
@@ -22,8 +24,10 @@ one ulp away before the bit-exact rotation mixes the pair), and the fused and
 two-operand forms bit-identical; gather_super as sdpa's FLUX-heads case, the
 other three sparse-attention walks (gather_fine, gather_coarse, sparse_mask)
 as sdpa's small cases plus relative L2 5e-3 (see _close_to_plain), and all
-four bit-identical to the dense sdpa kernel on tables that allow every key
-(the same tiles in the same order through the same tile code). The SDXL
+four bit-identical to the dense walk (dense_walk_attention_cuda: the walks'
+kernel with no table, the design sdpa ran on before its wgmma + TMA redesign)
+on tables that allow every key (the same tiles in the same order through the
+same tile code); the dense walk itself as sdpa's FLUX-heads case. The SDXL
 kernels: gelu_and_mul within one bf16 ulp of its plain version (both round
 once from f32; erff and ATen's erf may differ by an f32 ulp), in f32 within
 1e-6 relative plus |h*g| * 2^-22; sdpa at head dim 64 on the fused
@@ -42,7 +46,16 @@ SDPA_CASES = {
     "cross-len": (1, 70, 150, 2, 2, 64, False),
     "flux-heads": (1, 1100, 1100, 24, 24, 128, False),
     "sdxl-cross": (2, 300, 77, 20, 20, 64, False),
+    "causal-cross-len": (1, 100, 300, 4, 2, 64, True),
+    "fused-d64": (2, 333, 333, 10, 10, 64, False),
+    # Wan2.2-A14B's dense self-attention at 480x832x81: 255 KV tiles of 128
+    # and a tail of 120 through the ring
+    "wan-dense": (1, 32760, 32760, 40, 40, 128, False),
 }
+# cases whose outputs average many keys, held as FLUX's
+LONG_SDPA_CASES = {"flux-heads", "wan-dense"}
+# cases whose q|k|v are column slices of one fused (B, S, (hq + 2 hkv) * d) projection
+FUSED_SDPA_CASES = {"fused-d64"}
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -73,10 +86,14 @@ def test_sdpa_kernel_matches_plain_on_card(cuda_device, case):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     mk = lambda s, h: torch.randn(b, s, h * d, generator=g, device=cuda_device,  # noqa: E731
                                   dtype=torch.bfloat16)
-    q, k, v = mk(sq, hq), mk(skv, hkv), mk(skv, hkv)
+    if case in FUSED_SDPA_CASES:
+        qkv = mk(sq, hq + 2 * hkv)
+        q, k, v = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
+    else:
+        q, k, v = mk(sq, hq), mk(skv, hkv), mk(skv, hkv)
     got = sdpa_cuda(q, k, v, hq, hkv, d, causal).float()
     want = sdpa_torch(q, k, v, hq, hkv, d, causal).float()
-    if case == "flux-heads":
+    if case in LONG_SDPA_CASES:
         assert ((got - want).abs() <= 1e-3 + 2 * _bf16_ulp(want)).all()
         assert (got - want).norm() / want.norm() <= 5e-3
     else:
@@ -93,6 +110,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(1, 8, 4 * 32, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         cuda_backend.sdpa_cuda(q, q, q, 4, 4, 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_sdpa_kernel_takes_any_scale_on_card(cuda_device, scale, d):
+    """A softmax scale <= 0 (the plain version and the JAX op take any): a
+    negative one weights the smallest logits most, 0 averages the visible
+    keys; causal with sq < skv and GQA, so masked keys must stay out."""
+    from fastdm_tpu_torch.kernels.cuda_backend import sdpa_cuda
+    from fastdm_tpu_torch.kernels.torch_backend import sdpa_torch
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(1, s, h * d, generator=g, device=cuda_device, dtype=torch.bfloat16)
+               for s, h in ((100, 4), (300, 2), (300, 2)))
+    got = sdpa_cuda(q, k, v, 4, 2, d, True, scale).float()
+    want = sdpa_torch(q, k, v, 4, 2, d, True, scale).float()
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.gpu
@@ -133,6 +168,9 @@ def test_elementwise_kernels_match_plain_on_card(cuda_device):
 
 # (M, K, N): a ragged size and the FLUX single-block proj_out (the longest K)
 W8A8_SHAPES = {"ragged": (77, 96, 40), "proj_out": (8704, 15360, 3072)}
+# the GEMMs also at SDXL's shortest row counts: the time embedding (M = batch
+# 2) and the text K/V projection (M = 2 x 77)
+W8A8_GEMM_SHAPES = {**W8A8_SHAPES, "sdxl-temb": (2, 1280, 640), "sdxl-text": (154, 2048, 1280)}
 
 
 @pytest.mark.gpu
@@ -242,12 +280,12 @@ def test_quantize_kernels_match_plain_on_card(cuda_device, shape, mode):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", sorted(W8A8_SHAPES))
+@pytest.mark.parametrize("shape", sorted(W8A8_GEMM_SHAPES))
 @pytest.mark.parametrize("quant", ["int8", "fp8"])
 def test_w8a8_gemm_kernels_match_plain_on_card(cuda_device, shape, quant):
     from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
 
-    m, k, n = W8A8_SHAPES[shape]
+    m, k, n = W8A8_GEMM_SHAPES[shape]
     for bias in (True, False) if shape == "ragged" else (True,):
         a, sa, azp, lin = _w8a8_operands(quant, m, k, n, cuda_device, bias)
         assert lin.w.stride(0) == 1  # the (K, N) view of a K-contiguous buffer
@@ -406,8 +444,8 @@ def test_gather_super_kernel_matches_plain_on_card(cuda_device, case):
 
 @pytest.mark.gpu
 def test_gather_super_all_active_equals_dense_kernel(cuda_device):
-    """Tables that allow every key give the dense sdpa kernel's result: the
-    same tiles in the same order through the same tile code, so bit for bit."""
+    """Tables that allow every key give the dense walk's result: the same
+    tiles in the same order through the same tile code, so bit for bit."""
     from fastdm_tpu_torch.kernels import cuda_backend
     from fastdm_tpu_torch.sparse.xsparse import super_tables_from_mask
 
@@ -420,7 +458,26 @@ def test_gather_super_all_active_equals_dense_kernel(cuda_device):
                for s in (sq, skv, skv))
     got = cuda_backend.gather_super_attention_cuda(q, k, v, *tables, h, h, d, block_q=bq,
                                                    group=2, fine=fine, superblock=sb)
-    assert torch.equal(got, cuda_backend.sdpa_cuda(q, k, v, h, h, d))
+    assert torch.equal(got, cuda_backend.dense_walk_attention_cuda(q, k, v, h, h, d))
+
+
+@pytest.mark.gpu
+def test_dense_walk_matches_plain_on_card(cuda_device):
+    """The dense walk (the walks' tile with no table) is dense attention: held
+    to the plain version as sdpa's FLUX-heads case, GQA and a ragged tail."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    b, s, hq, hkv, d = 1, 1100, 24, 8, 128
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(b, s, h * d, generator=g, device=cuda_device, dtype=torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    cuda_backend.reset_launch_counts()
+    got = cuda_backend.dense_walk_attention_cuda(q, k, v, hq, hkv, d).float()
+    assert cuda_backend.dense_walk_attention_cuda.launches == 1
+    assert cuda_backend.sdpa_cuda.launches == 0
+    want = torch_backend.sdpa_torch(q, k, v, hq, hkv, d).float()
+    assert ((got - want).abs() <= 1e-3 + 2 * _bf16_ulp(want)).all()
+    assert (got - want).norm() / want.norm() <= 5e-3
 
 
 @pytest.mark.gpu
@@ -552,14 +609,14 @@ def test_gather_fine_kernel_matches_plain_on_card(cuda_device, case):
 @pytest.mark.gpu
 def test_walks_allowing_every_key_equal_dense_kernel(cuda_device):
     """All-ones mask, coarse lists of every tile and fine tables of every
-    block give the dense sdpa kernel's result bit for bit (skv = 1000: the
-    last tile is partial)."""
+    block give the dense walk's result bit for bit (skv = 1000: the last tile
+    is partial)."""
     from fastdm_tpu_torch.kernels import cuda_backend
     from fastdm_tpu_torch.sparse.xsparse import fine_tables_from_mask, mask_to_block_lists
 
     b, s, h, d = 1, 1000, 4, 128
     q, k, v = _walk_operands((b, s, s, h, h, d), cuda_device, seed=12)
-    dense = cuda_backend.sdpa_cuda(q, k, v, h, h, d)
+    dense = cuda_backend.dense_walk_attention_cuda(q, k, v, h, h, d)
     to = lambda ts: [torch.from_numpy(t).to(cuda_device) for t in ts]  # noqa: E731
     mask = torch.ones(b, h, 8, 8, dtype=torch.int32, device=cuda_device)
     assert torch.equal(cuda_backend.sparse_attention_cuda(q, k, v, h, h, d, sparse_mask=mask),

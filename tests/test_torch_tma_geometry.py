@@ -1,0 +1,135 @@
+"""What the CPU can check of the port's Hopper kernels that load through the
+Tensor Memory Accelerator (csrc/fp8_gemm.cu, csrc/flash_attn.cu, csrc/sm90.cuh):
+the tensor-map geometry the dense attention wrapper computes from its operand
+views (kernels/tma.py) against the strides of real CPU tensor views, the build
+list and the library hash, and which C launcher the W8A8 wrapper picks per
+operand type. Nothing is built or launched here; the kernels themselves are
+held to their plain versions on the card (tests/test_torch_cuda_kernels.py,
+chip_smoke.py)."""
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from fastdm_tpu_torch.kernels import build, cuda_backend, kernel_registry
+from fastdm_tpu_torch.kernels.tma import ATTN_ROWS, attention_geometry
+
+
+def _element_at(view: torch.Tensor, geom, coord) -> torch.Tensor:
+    """The element a tensor map with `geom` over view's data pointer reads at
+    coord (innermost first), found through the byte strides alone in the
+    buffer the view lies in."""
+    es = view.element_size()
+    byte_off = coord[0] * es + sum(c * s for c, s in zip(coord[1:], geom.strides))
+    assert byte_off % es == 0
+    flat = view.as_strided((view.untyped_storage().nbytes() // es,), (1,), 0)
+    return flat[view.storage_offset() + byte_off // es]
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_attention_geometry_of_a_contiguous_view(head_dim):
+    b, s, h = 2, 300, 4
+    t = torch.zeros(b, s, h * head_dim, dtype=torch.bfloat16)
+    g = attention_geometry(t, head_dim)
+    assert g.dims == (h * head_dim, s, b)
+    assert g.strides == (h * head_dim * 2, s * h * head_dim * 2)
+    assert g.box == (64, ATTN_ROWS, 1)  # one 128-byte swizzle atom of columns
+    assert g.packed() == (*g.dims, *g.strides, *g.box)
+
+
+def test_attention_geometry_of_fused_projection_slices():
+    """q|k|v column slices of one (B, S, 3C) projection, cut to fewer rows than
+    the buffer holds: the S extent is the view's, the strides the buffer's."""
+    b, s_buf, s, c, hd = 2, 90, 77, 640, 64
+    qkv = torch.zeros(b, s_buf, 3 * c, dtype=torch.bfloat16)
+    for i in range(3):
+        view = qkv[:, :s, i * c:(i + 1) * c]
+        g = attention_geometry(view, hd)
+        assert g.dims == (c, s, b)  # not s_buf: the tail tile is zero-filled
+        assert g.strides == (3 * c * 2, s_buf * 3 * c * 2)
+        assert all(x % 16 == 0 for x in g.strides)  # TMA's stride rule
+        assert view.data_ptr() % 16 == 0  # and its base-address rule
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_geometry_addresses_the_heads_of_the_view(fused):
+    """Head h's tile starts at coordinate (h*D + 64a, row, b): every such
+    coordinate, walked through the geometry's strides from the view's data
+    pointer, lands on view[b, row, h*D + 64a + col]; GQA's kv heads alike."""
+    rng = np.random.default_rng(0)
+    b, s, hq, hkv, d = 2, 130, 4, 2, 128
+    width = (hq + 2 * hkv) * d
+    buf = torch.from_numpy(rng.standard_normal((b, s, width)).astype(np.float32)).bfloat16()
+    if fused:
+        views = {"q": (buf[..., :hq * d], hq), "k": (buf[..., hq * d:(hq + hkv) * d], hkv),
+                 "v": (buf[..., (hq + hkv) * d:], hkv)}
+    else:
+        views = {"q": (buf[..., :hq * d].contiguous(), hq),
+                 "k": (buf[..., hq * d:(hq + hkv) * d].contiguous(), hkv)}
+    for name, (view, heads) in views.items():
+        g = attention_geometry(view, d)
+        assert g.dims == (heads * d, s, b)
+        for _ in range(50):
+            hh, a, col = rng.integers(heads), rng.integers(d // 64), rng.integers(64)
+            row, bb = rng.integers(s), rng.integers(b)
+            c0 = hh * d + a * g.box[0] + col
+            got = _element_at(view, g, (c0, row, bb))
+            assert torch.equal(got, view[bb, row, c0]), (name, hh, a, col, row, bb)
+
+
+def test_attention_geometry_of_one_batch_entry_and_rejections():
+    t = torch.zeros(1, 40, 2 * 64, dtype=torch.bfloat16)
+    g = attention_geometry(t, 64)
+    assert g.dims == (128, 40, 1) and g.strides == (256, 40 * 256)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        attention_geometry(t.transpose(1, 2), 64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        attention_geometry(torch.zeros(1, 8, 4 * 32, dtype=torch.bfloat16), 32)
+
+
+def test_build_lists_the_fp8_gemm_and_the_shared_header():
+    assert "fp8_gemm" in build.SOURCES and "w8a8_gemm" in build.SOURCES
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").exists()
+    for name in ("fp8_gemm", "flash_attn"):
+        assert '#include "sm90.cuh"' in (build.CSRC / f"{name}.cu").read_text()
+    assert (build.CSRC / "sm90.cuh").exists()
+
+
+def test_library_path_changes_when_sm90_header_changes(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    assert before["fp8_gemm"].name.startswith("fp8_gemm-")
+    assert before == {name: build.library_path(name) for name in build.SOURCES}  # stable
+    (csrc / "sm90.cuh").write_text((csrc / "sm90.cuh").read_text() + "\n// edited\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(after[name] != before[name] for name in build.SOURCES)
+
+
+def test_w8a8_wrapper_picks_its_launcher_by_operand_type(monkeypatch):
+    picked = []
+
+    def fake_entry(lib_name, fn_name, argtypes):
+        picked.append((lib_name, fn_name, len(argtypes)))
+        return None, None
+
+    monkeypatch.setattr(cuda_backend, "_entry", fake_entry)
+    cuda_backend._w8a8_entry(torch.float8_e4m3fn)
+    cuda_backend._w8a8_entry(torch.int8)
+    # fp8: a, b, scale_a, scale_b, bias, out, m, n, k, lda, ldb, stream;
+    # int8 adds azp and colsum
+    assert picked == [("fp8_gemm", "fdm_fp8_gemm", 12), ("w8a8_gemm", "fdm_w8a8_gemm", 14)]
+
+
+def test_dense_walk_is_counted_but_no_op_dispatches_to_it():
+    assert cuda_backend.dense_walk_attention_cuda in cuda_backend.KERNEL_WRAPPERS
+    cuda_backend.dense_walk_attention_cuda.launches = 3
+    cuda_backend.reset_launch_counts()
+    assert cuda_backend.dense_walk_attention_cuda.launches == 0
+    registered = {fn for impls in kernel_registry._ops.values() for fn in impls.values()}
+    assert cuda_backend.sdpa_cuda in registered
+    assert cuda_backend.dense_walk_attention_cuda not in registered
