@@ -5,10 +5,11 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. kernels: build every hand-written kernel from csrc/ (one nvcc per source,
-     all at once; registers and spills from ptxas, the shared memory of the
-     wgmma + TMA kernels), run each at its main-path shapes (FLUX.1-dev 1024x2048;
-     Wan2.2-A14B 480x832x81, 32760 tokens, for qk_norm_rope, qk_norm_rope2 and
-     the four sparse-attention walks, each on its mode's radial tables) and
+     all at once; registers and spills from ptxas, the shared memory and
+     setmaxnreg split of the wgmma + TMA kernels), run each at its main-path
+     shapes (FLUX.1-dev 1024x2048; Wan2.2-A14B 480x832x81, 32760 tokens, for
+     qk_norm_rope, qk_norm_rope2 and the four sparse-attention walks, each on
+     its mode's radial tables) and
      hold it to its plain PyTorch version with a stated tolerance; time the
      kernel, the plain version and, where one PyTorch call computes the same
      function, that call (a yardstick the port never calls). The W8A8 kernels
@@ -17,11 +18,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
      CFG: gelu_and_mul at both GEGLU shapes, sdpa at its four attention shapes
      (head dim 64, q|k|v read in place from the fused projections), and the
      int8 and fp8 GEMM and quantize at every W8A8 shape of its forward. The
-     dense sdpa kernel (wgmma + TMA) is timed in turns with the dense walk, the
-     mma.sync design it replaced (walk, sdpa, sdpa, walk), at the FLUX,
+     int8 GEMM is held bit-exact, with and without the zero point, at every
+     int8 shape of the FLUX, SDXL and Wan forwards. The dense sdpa kernel
+     (wgmma + TMA) is timed in turns with the dense walk, the mma.sync design
+     it replaced (walk, sdpa, sdpa, walk), at the FLUX,
      SDXL 8192-token and Wan 32760-token shapes; the dense walk is held to the
-     plain sdpa, and the sparse walks on tables that allow every key to it, bit
-     for bit. No serving path may launch the dense walk.
+     plain sdpa; on tables that allow every key the super, fine and mask walks
+     equal it bit for bit, and the coarse walk, which runs on sdpa's kernel,
+     equals sdpa. No serving path may launch the dense walk.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
      heads, random weights from a seed) three times: in bf16, in int8 and in
      fp8 (W8A8 block linears drawn straight into int8 / e4m3). Each serves
@@ -172,23 +176,23 @@ def _ptxas_entries(report: str):
 
 def _log_ptxas() -> None:
     """Registers and spills of every kernel, from the ptxas report of its build
-    (fastdm_tpu_torch/_build/<source>.ptxas.txt), and the dynamic shared memory
-    of the two wgmma + TMA kernels, from their libraries, and every ptxas
-    performance warning (e.g. C7514: wgmma serialised). The warp-specialised
-    kernels start at the launch allocation ptxas reports and then move
-    registers with setmaxnreg (producer / consumers, read from the libraries
-    as the shared memory is)."""
+    (fastdm_tpu_torch/_build/<source>.ptxas.txt), the dynamic shared memory of
+    the wgmma + TMA kernels (both W8A8 GEMMs, the attention kernel per head dim, walk and consumer count), from their libraries, and
+    every ptxas performance warning (e.g. C7514: wgmma serialised; C7508:
+    setmaxnreg ignored). The warp-specialised kernels start at the launch
+    allocation ptxas reports and then move registers with setmaxnreg
+    (producer / consumers, read from the libraries as the shared memory is)."""
     import ctypes
     import re
 
     from fastdm_tpu_torch.kernels import build
 
-    gemm, attn = build.load_library("fp8_gemm"), build.load_library("flash_attn")
-    attn.fdm_flash_attn_smem_bytes.argtypes = [ctypes.c_int]
-    gemm.fdm_fp8_gemm_setmaxnreg.argtypes = [ctypes.c_int]
+    fp8, int8 = build.load_library("fp8_gemm"), build.load_library("w8a8_gemm")
+    attn = build.load_library("flash_attn")
+    attn.fdm_flash_attn_smem_bytes.argtypes = [ctypes.c_int] * 3
+    fp8.fdm_fp8_gemm_setmaxnreg.argtypes = [ctypes.c_int]
+    int8.fdm_w8a8_gemm_setmaxnreg.argtypes = [ctypes.c_int]
     attn.fdm_flash_attn_setmaxnreg.argtypes = [ctypes.c_int]
-    regs_of = {name: f"setmaxnreg {fn(0)} / {fn(1)}" for name, fn in (
-        ("fp8_gemm", gemm.fdm_fp8_gemm_setmaxnreg), ("flash_attn", attn.fdm_flash_attn_setmaxnreg))}
     for name in build.SOURCES:
         path = build.BUILD_DIR / f"{name}.ptxas.txt"
         report = path.read_text() if path.exists() else ""
@@ -196,16 +200,26 @@ def _log_ptxas() -> None:
             if "Performance Loss" in line:
                 log(f"[ptxas {name}] {line.strip()}")
         for entry, regs, spills in _ptxas_entries(report):
+            label, extra = name, ""
             d = re.search(r"ILi(\d+)E", entry)
             walk = re.search(r"NS_\d+(\w+?)TablesE", entry)
-            label = name + (f" D={d.group(1)}" if d else "") + (f" {walk.group(1)}" if walk else "")
-            extra = ""
             if name == "fp8_gemm":
-                extra = (f"; dynamic shared memory {gemm.fdm_fp8_gemm_smem_bytes()} B; "
-                         f"{regs_of[name]}")
-            elif name == "flash_attn" and d:
+                extra = (f"; dynamic shared memory {fp8.fdm_fp8_gemm_smem_bytes()} B; setmaxnreg "
+                         f"{fp8.fdm_fp8_gemm_setmaxnreg(0)} / {fp8.fdm_fp8_gemm_setmaxnreg(1)}")
+            elif name == "w8a8_gemm":
+                extra = (f"; dynamic shared memory {int8.fdm_w8a8_gemm_smem_bytes()} B; "
+                         f"setmaxnreg {int8.fdm_w8a8_gemm_setmaxnreg(0)} / "
+                         f"{int8.fdm_w8a8_gemm_setmaxnreg(1)}")
+            elif name == "flash_attn" and d and walk:
+                cons = int(re.search(r"ILi\d+ELi(\d)E", entry).group(1))
+                table = int(walk.group(1) != "Dense")
+                label += f" D={d.group(1)} {walk.group(1)} {cons} consumer(s)"
                 extra = (f"; dynamic shared memory "
-                         f"{attn.fdm_flash_attn_smem_bytes(int(d.group(1)))} B; {regs_of[name]}")
+                         f"{attn.fdm_flash_attn_smem_bytes(int(d.group(1)), cons, table)} B; "
+                         f"setmaxnreg {attn.fdm_flash_attn_setmaxnreg(0)} / "
+                         f"{attn.fdm_flash_attn_setmaxnreg(1)}")
+            else:
+                label += (f" D={d.group(1)}" if d else "") + (f" {walk.group(1)}" if walk else "")
             log(f"[ptxas {label}] {regs} registers at launch; {spills}{extra}")
 
 
@@ -398,13 +412,30 @@ def _w8a8_operands(quant: str, m: int, k: int, n: int, g, dev):
     return a, sa, lin, args
 
 
+def _int8_exact(args, label: str) -> None:
+    """The int8 GEMM held bit-exact to its plain version on `args`, with the
+    zero point and with azp None; raises on any mismatch."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+
+    for zp_args in (args, (*args[:6], None, args[7])):
+        got, want = cb.int8_matmul_cuda(*zp_args), tb.int8_matmul_torch(*zp_args)
+        if not (torch.equal(got, want) and torch.isfinite(got).all()):
+            raise AssertionError(f"int8_matmul disagrees with its plain version at {label} "
+                                 f"(azp {'given' if zp_args[6] is not None else 'None'})")
+        del got, want
+
+
 def _w8a8_kernels(dev, g) -> dict:
     """The per-token quantizers and the W8A8 GEMMs against their plain
     versions at the FLUX single-block shapes (K = 3072 and K = 15360, the
     longest on the path), timed at the qkv_mlp shape and at every GEMM and
     quantize shape of a forward. Quantizers and the int8 GEMM are held
-    bit-exact; the fp8 GEMM (f32 sums in another order) to 1 bf16 ulp of
-    |plain| plus 2^-16 * scale_a*scale_b*(|a| @ |b|) for outputs that cancel."""
+    bit-exact (the GEMM with and without the zero point); the fp8 GEMM (f32
+    sums in another order) to 1 bf16 ulp of |plain| plus 2^-16 *
+    scale_a*scale_b*(|a| @ |b|) for outputs that cancel."""
     import torch
 
     from fastdm_tpu_torch.kernels import cuda_backend as cb
@@ -457,7 +488,8 @@ def _w8a8_kernels(dev, g) -> dict:
             err = (got - want).abs()
             worst = max(worst, err.max().item())
             if quant == "int8":
-                ok, stated = torch.equal(got, want), "bit-exact"
+                _int8_exact(args, f"{m}x{k_} @ {k_}x{n_}")  # raises on a mismatch
+                ok, stated = True, "bit-exact, with and without azp"
             else:
                 mag = (a.float().abs() @ lin.w.float().abs()) * (sa * lin.scale[None, :])
                 ok = bool((err <= bf16_ulp(want) + 2.0**-16 * mag).all())
@@ -513,8 +545,9 @@ def _w8a8_kernels(dev, g) -> dict:
             f"{quant_ms:.3f} ms (bound {quant_bound:.3f} ms)")
         torch.cuda.empty_cache()
     i8, f8 = results["int8_matmul"]["ms"], results["fp8_matmul"]["ms"]
-    log(f"[w8a8] qkv_mlp: fp8 wgmma + TMA GEMM {f8:.4f} ms vs int8 mma.sync GEMM {i8:.4f} ms "
-        f"(fp8/int8 {f8 / i8:.3f}; the same tensor-core operations at the same peak)")
+    log(f"[w8a8] qkv_mlp: fp8 wgmma + TMA GEMM {f8:.4f} ms vs int8 wgmma + TMA GEMM {i8:.4f} ms "
+        f"(fp8/int8 {f8 / i8:.3f}; the same tensor-core rate on one ring: the fp8 kernel "
+        f"waits to promote every 32 products, the exact s32 sums need no wait)")
     return results
 
 
@@ -693,16 +726,17 @@ def _sparse_walks(dev, g) -> dict:
     (FASTDM_SPARSE_GATHER: super, fine, coarse, mask) on that mode's radial
     tables of the 81-frame 480x832 video (32760 tokens, 40 heads of 128),
     held to its plain version with sdpa's tolerance (1e-3 + 2 bf16 ulp, rel
-    L2 5e-3); tables that allow every key give the dense walk's result bit for
-    bit (the walks' kernel with no table: the same tiles in the same order
-    through the same tile code), and an emptied table row gives zeros. The
+    L2 5e-3); tables that allow every key give, bit for bit, the dense walk's
+    result (super, fine, mask: their kernel with no table, the same tiles in
+    the same order through the same tile code) or sdpa's (coarse, which runs
+    on sdpa's wgmma + TMA kernel), and an emptied table row gives zeros. The
     dense sdpa kernel is held to its plain version here too, with the FLUX
     tolerance: this shape runs 40 times in each dense Wan forward, and its
     256 KV tiles (the last one 120 keys) pass through the ring. Timed
     beside the dense walk, the plain version and F.scaled_dot_product_attention
-    with the mode's dense boolean mask (the same for every head here); the
-    bound counts the allowed keys only. The dense walk and the dense sdpa
-    kernel are timed in turns at this shape."""
+    with the mode's dense boolean mask (the same for every head here), and
+    coarse beside sdpa; the bound counts the allowed keys only. The dense walk
+    and the dense sdpa kernel are timed in turns at this shape."""
     import torch
     import torch.nn.functional as F
 
@@ -725,14 +759,16 @@ def _sparse_walks(dev, g) -> dict:
         f"{e.max().item():.3e}, rel L2 {rel:.3e} (tolerance 1e-3 + 2 ulp, rel L2 5e-3)")
     if not (excess <= 0 and rel <= 5e-3 and torch.isfinite(got).all()):
         raise AssertionError("sdpa wan disagrees with its plain version")
-    del got, want, e
+    sdpa_out = got
+    del want, e
     torch.cuda.empty_cache()
     dense = cb.dense_walk_attention_cuda(q, k, v, h, h, hd)
     heads = lambda t: t.view(1, s, h, hd).transpose(1, 2)  # noqa: E731
     flops = 4 * s * s * hd * h
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), 3)
-    _, dense_ms = _attention_turns(f"Wan (1, {s}, {h}x{hd})", q, k, v, h, hd, flops,
-                                   bound(4 * q.numel() * 2, flops, BF16_FLOPS)[0], lib_ms, 3)
+    sdpa_ms, dense_ms = _attention_turns(f"Wan (1, {s}, {h}x{hd})", q, k, v, h, hd, flops,
+                                         bound(4 * q.numel() * 2, flops, BF16_FLOPS)[0], lib_ms,
+                                         3)
     for mode, (name, replaces) in SPARSE_KERNEL.items():
         cfg, tables = wan_sparse_tables(_radial(), WanConfig(), s, lf, dev, mode)
         allowed, bq, full, empty = _walk_tables(mode, cfg, tables, s)
@@ -751,13 +787,15 @@ def _sparse_walks(dev, g) -> dict:
         if not (excess <= 0 and rel <= 5e-3 and torch.isfinite(got).all()):
             raise AssertionError(f"{name} disagrees with its plain version")
         del want, e
-        same_dense = torch.equal(kern(full), dense)
+        # coarse runs on sdpa's kernel, the other walks on the dense walk's tile
+        same_as = "sdpa" if mode == "coarse" else "dense walk"
+        same_dense = torch.equal(kern(full), sdpa_out if mode == "coarse" else dense)
         emptied = kern(empty)
         rows = slice(5 * bq, 6 * bq)
         zero_row = not emptied[:, rows].any()
         others = (torch.equal(emptied[:, :rows.start], got[:, :rows.start])
                   and torch.equal(emptied[:, rows.stop:], got[:, rows.stop:]))
-        log(f"[{name}] tables allowing every key == dense walk bit for bit: "
+        log(f"[{name}] tables allowing every key == {same_as} bit for bit: "
             f"{same_dense}; emptied row 5 gives zeros: {zero_row}, other rows unchanged: "
             f"{others}")
         if not (same_dense and zero_row and others):
@@ -777,15 +815,17 @@ def _sparse_walks(dev, g) -> dict:
         del mask, allowed
         b_ms, b_by = bound(4 * q.numel() * 2, 4 * active * hd * h, BF16_FLOPS)
         log(f"[{name}] {mode}: allowed keys {active / s**2:.4f} of dense attention; {ms:.4f} ms "
-            f"(sparse/dense walk {ms / dense_ms:.3f}); plain {plain_ms:.1f} ms; library "
-            f"{lib_ms} ms ({lib}); bound {b_ms:.4f} ms by {b_by}")
+            f"(sparse/dense walk {ms / dense_ms:.3f}, sparse/sdpa {ms / sdpa_ms:.3f}, sdpa "
+            f"{sdpa_ms:.4f} ms); plain {plain_ms:.1f} ms; library {lib_ms} ms ({lib}); bound "
+            f"{b_ms:.4f} ms by {b_by}")
+        source = "flash_attn.cu" if mode == "coarse" else "gather_attn.cu"
         results[name] = dict(
-            name=name, route="cuda", source="fastdm_tpu_torch/csrc/gather_attn.cu",
+            name=name, route="cuda", source=f"fastdm_tpu_torch/csrc/{source}",
             replaces=f"fastdm_tpu/kernels/pallas/{replaces}", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del got
         torch.cuda.empty_cache()
-    del q, k, v, dense
+    del q, k, v, dense, sdpa_out
     torch.cuda.empty_cache()
     return results
 
@@ -941,15 +981,15 @@ def _sdxl_kernels(dev, g) -> dict:
             got, want = kern(*args).float(), plain(*args).float()
             err = (got - want).abs()
             if quant == "int8":
-                ok = torch.equal(got, want)
+                _int8_exact(args, f"SDXL {m}x{k} @ {k}x{n}")  # raises on a mismatch
+                ok, stated = True, "bit-exact with and without azp"
             else:
                 mag = (a.float().abs() @ lin.w.float().abs()) * (sa * lin.scale[None, :])
                 ok = bool((err <= bf16_ulp(want) + 2.0**-16 * mag).all())
+                stated = "within 1 ulp + 2^-16 sa*sb*(|a|@|b|)"
                 del mag
             log(f"[{quant} w8a8] SDXL {m}x{k} @ {k}x{n} ({count} per forward): quantize "
-                f"bit-exact {same_q}, GEMM max_abs_err {err.max().item():.3e} "
-                f"({'bit-exact' if quant == 'int8' else 'within 1 ulp + 2^-16 sa*sb*(|a|@|b|)'}"
-                f": {ok})")
+                f"bit-exact {same_q}, GEMM max_abs_err {err.max().item():.3e} ({stated}: {ok})")
             if not (same_q and ok and torch.isfinite(got).all()):
                 raise AssertionError(f"{quant} W8A8 kernels disagree with their plain versions "
                                      f"at SDXL {m}x{k} @ {k}x{n}")
@@ -1191,7 +1231,8 @@ def _wan_forward_split(dev, cfg, tokens: int, tables, secs: dict) -> None:
     """Each kernel of a Wan forward timed alone at every shape the forward
     gives it, times its launches per forward (wan_forward_launches): the
     forward's kernel split, dense and sparse; the rest is the measured
-    forward minus these."""
+    forward minus these. The int8 GEMM is held bit-exact to its plain version
+    at each of those shapes, with and without the zero point."""
     import torch
 
     from fastdm_tpu_torch.kernels import cuda_backend as cb
@@ -1213,6 +1254,7 @@ def _wan_forward_split(dev, cfg, tokens: int, tables, secs: dict) -> None:
         lin = qlinear_random(g, k, nn, quant="int8", device=dev)
         a, sa, azp = tb.quantize_to_int8_torch(x, symmetric=False)
         args = (a, lin.w, sa, lin.scale, torch.bfloat16, lin.colsum, azp, lin.bias)
+        _int8_exact(args, f"Wan {m}x{k} @ {k}x{nn}")  # raises on a mismatch
         gemm += layers * count * cuda_ms(lambda: cb.int8_matmul_cuda(*args), 5)
         quant += layers * count * cuda_ms(lambda: cb.quantize_to_int8_cuda(x, False), 5)
         gemm_bound += layers * count * bound(_gemm_bytes(m, k, nn), 2 * m * nn * k,
@@ -1242,7 +1284,8 @@ def _wan_forward_split(dev, cfg, tokens: int, tables, secs: dict) -> None:
                          + (layers - cfg.dense_layers) * sparse_attn)):
         total = secs[label] * 1e3
         log(f"[wan] {label} forward {total:.1f} ms, from the kernels timed alone x launches: "
-            f"int8 GEMMs {gemm:.1f} (bound {gemm_bound:.1f}), int8 quantize {quant:.1f}, "
+            f"int8 GEMMs {gemm:.1f} (bound {gemm_bound:.1f}; each of {len(linears)} shapes "
+            f"bit-exact with and without azp), int8 quantize {quant:.1f}, "
             f"self-attention {attn:.1f}, cross-attention sdpa {cross:.1f}, rmsnorm {norms:.1f}, "
             f"qk_norm_rope {qk:.1f}; the rest by subtraction {total - shared - attn:.1f} ms")
 

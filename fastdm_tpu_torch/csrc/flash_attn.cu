@@ -1,30 +1,37 @@
 // Flash-attention forward, bf16 q/k/v/out, f32 softmax state, warpgroup MMA
-// fed by the Tensor Memory Accelerator.
+// fed by the Tensor Memory Accelerator; one kernel, two walks over the KV
+// tiles: dense (sdpa) and the coarse gather lists (sdpa_gather).
 //
-// Replaces: fastdm_tpu/kernels/pallas/attention.py sdpa_pallas (:429), which
-// runs _flash_attention (:338) -> _flash_kernel (:69) / _attn_body (:43) /
-// _softmax_update (:130), and the native-layout twin _flash_attention_nq
-// (:267) / _flash_kernel_nq (:198). One kernel covers both TPU variants: it reads
-// q, k and v straight from the (B, S, H*D) tensors through 3-D tensor maps
-// over (H*D, S, B) with the views' own strides (q|k|v slices of one fused
-// projection included), so neither the head transposes nor the sequence
-// padding the Pallas wrapper built for Mosaic (attention.py:349-355, :423-425)
-// exist here.
+// Replaces, in fastdm_tpu/kernels/pallas/attention.py:
+//   dense  -- sdpa_pallas (:429), which runs _flash_attention (:338) ->
+//             _flash_kernel (:69) / _attn_body (:43) / _softmax_update (:130),
+//             and the native-layout twin _flash_attention_nq (:267) /
+//             _flash_kernel_nq (:198);
+//   coarse -- sdpa_gather_pallas (:1069; _gather_sparse_attention :515,
+//             pallas_call :561, kernel :473): per-q-tile lists of block_k-token
+//             KV tiles and their counts (sparse/xsparse.py block_lists).
+// It reads q, k and v straight from the (B, S, H*D) tensors through 3-D
+// tensor maps over (H*D, S, B) with the views' own strides (q|k|v slices of
+// one fused projection included), so neither the head transposes nor the
+// sequence padding the Pallas wrappers built for Mosaic (attention.py:349-355,
+// :423-425) nor the gathered K/V copies of the coarse kernel exist here.
 //
-// Kept from the TPU kernel: the online softmax in base 2 with scale*log2(e)
-// folded into the f32 logits (p = 2^(s*scale*log2(e) - max) by one FFMA and
-// the special-function unit's ex2), any softmax scale (one <= 0 scales the
-// logits before their max, as the plain version does), the f32 running max /
-// sum / accumulator, p rounded to bf16 only as the operand of the P.V product
-// (its row sum stays f32), masking of the KV tail at any sequence length (8704
-// at the FLUX 1024x2048 shape, 32760 at Wan's 480x832x81 and 77 at SDXL's
-// text are not multiples of the tile), an optional bottom-right causal mask,
-// GQA (query head h reads kv head h / (Hq/Hkv)), and the l == 0 guard of :126
-// (a row that sees no key returns 0).
+// Kept from the TPU kernels: the online softmax in base 2 with
+// scale*log2(e) folded into the f32 logits (p = 2^(s*scale*log2(e) - max) by
+// one FFMA and the special-function unit's ex2), any softmax scale (one <= 0
+// scales the logits before their max, as the plain version does), the f32
+// running max / sum / accumulator, p rounded to bf16 only as the operand of
+// the P.V product (its row sum stays f32), masking of keys at or past skv at
+// any sequence length (8704 at the FLUX 1024x2048 shape, 32760 at Wan's
+// 480x832x81 and 77 at SDXL's text are not multiples of the tile), an optional
+// bottom-right causal mask (dense only), GQA (query head h reads kv head h /
+// (Hq/Hkv)), and the l == 0 guard of :126 / :506 (a row that sees no key
+// returns 0).
 //
 // What bounds it on the H100: operations. At the FLUX shape (S=8704, 24 heads,
 // D=128) it does 4*S^2*D*H = 9.3e11 flops on 214 MB of q/k/v/out, about 4350
-// flops per byte, so the floor is 0.94 ms at 989 bf16 TFLOP/s.
+// flops per byte, so the floor is 0.94 ms at 989 bf16 TFLOP/s; a walk counts
+// the keys its table allows (0.982 of dense at Wan's coarse tables).
 //
 // Design (sm90.cuh): each block takes 128 query rows of one (head, batch)
 // with three warpgroups. Warpgroup 0 is the producer: one thread loads the Q
@@ -43,20 +50,39 @@
 // consumers take turns issuing their MMAs (two named barriers), so one
 // warpgroup's softmax overlaps the other's MMAs. With 128-query blocks every
 // head's K and V pass through L2 half as often as with the 64-query blocks of
-// the design this replaced (the mma.sync tile of attn_tile.cuh, which the
-// sparse walks of gather_attn.cu keep). Tiles lie in shared memory as the TMA writes them with
+// the mma.sync tile of attn_tile.cuh, which the other sparse walks of
+// gather_attn.cu keep. Tiles lie in shared memory as the TMA writes them with
 // the 128-byte swizzle: a row of D = 128 bf16 is 256 bytes, so it loads as two
 // 64-column boxes and the descriptors step across them. The tensor maps' S
-// extent is the view's own length, so the tile past the last key is zero-filled
+// extent is the view's own length, so keys past the last are zero-filled
 // (never the next batch entry's rows, whose 0*Inf could give NaN) and masked.
+//
+// The walk is a template parameter. Dense is the walk with no table: the
+// consumers count the tiles, tile j holds keys j*128 .., and the code is the
+// sdpa kernel's as before. The coarse walk reads its table in the producer,
+// off the consumers' path: for the block at q0 it takes row q0 / block_q,
+// counts the 64-key halves its first counts[row] entries hold below skv (ids
+// clamped to the KV tiles that exist; padding entries never visited), and
+// publishes the tile count with a second arrival on the Q barrier; then each
+// stage is two 64-key boxes per column atom, the next two halves in table
+// order, so a block_k that is an odd multiple of 64 pairs halves of two
+// entries. The producer writes each stage's two first keys into a per-stage
+// shared-memory slot before the stage's K arrival; the consumers read it
+// before they release the stage and mask keys at or past skv per half (a
+// lone last half is loaded twice and its copy masked). On a table that allows
+// every key in order the coarse walk runs the same tiles, in the same order,
+// through the same code as dense sdpa, so it gives the same bits. A block_q
+// that is not a multiple of 128 would let a 128-query block straddle two
+// table rows, so such tables run blocks of one consumer and 64 query rows
+// (the third warpgroup idles), at about half the rate.
 #include "sm90.cuh"
 
 namespace {
 
 using namespace fdm_sm90;
 
-constexpr int kBQ = 128;       // query rows per block, 64 per consumer warpgroup
 constexpr int kBK = 128;       // keys per KV tile
+constexpr int kHalf = 64;      // keys of half a KV tile: a table walk's unit
 constexpr int kThreads = 384;  // producer + two consumer warpgroups
 constexpr int kAtomCols = 64;  // bf16 columns of one 128-byte swizzle atom (one TMA box)
 // setmaxnreg: the producer gives up registers, the consumers take them (at
@@ -65,21 +91,94 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 static_assert(128 * (kProducerRegs + 2 * kConsumerRegs) <= 65536,
               "the register file holds the setmaxnreg split");
 
-template <int D>
+// A block of `Consumers` consumer warpgroups (64 query rows each) at head
+// dim D; a table walk loads K and V in 64-key boxes and keeps its tile count
+// and each stage's keys in shared memory.
+template <int D, int Consumers, bool Table>
 struct Cfg {
+  static constexpr int kBQ = 64 * Consumers;       // query rows per block
   static constexpr int kAtoms = D / kAtomCols;      // 128-byte column atoms per row
   static constexpr int kStages = D == 128 ? 2 : 3;  // as shared memory allows
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kKVBytes = kBK * D * 2;      // one K or V tile
-  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + (1 + 4 * kStages) * 8;
+  static constexpr int kKVRows = Table ? kHalf : kBK;  // rows of one K / V box
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + (1 + 4 * kStages) * 8 +
+                               (Table ? 8 + 8 * kStages : 0);
+};
+
+// Dense attention: every 128-key tile in order, up to the causal limit; the
+// consumers count the tiles themselves.
+struct DenseTables {
+  static constexpr bool kTable = false;
+};
+
+// The producer's walk over one row of the coarse lists, in 64-key halves:
+// next() returns the first key of the next half the row allows (entries in
+// table order, each entry's halves below skv in order), or -1 when the row is
+// exhausted. Entry ids are clamped to the KV tiles that exist, so a malformed
+// table gives a wrong answer, never an out-of-bounds access.
+struct CoarseWalk {
+  const int* idx;  // this row's entries
+  int count, last_tile, halves_per_entry, block_k, skv;
+  int e, t;        // the next entry and half
+
+  __device__ __forceinline__ int key(int entry, int half) const {
+    return min(max(idx[entry], 0), last_tile) * block_k + half * kHalf;
+  }
+
+  // Tiles of 128 keys the row's halves fill, two halves a tile.
+  __device__ __forceinline__ int tiles() const {
+    int halves = 0;
+    for (int j = 0; j < count; ++j)
+      halves += min(halves_per_entry, (skv - key(j, 0) + kHalf - 1) / kHalf);
+    return (halves + 1) / 2;
+  }
+
+  __device__ __forceinline__ int next() {
+    for (; e < count; ++e, t = 0) {
+      if (t < halves_per_entry) {
+        const int k0 = key(e, t);
+        if (k0 < skv) {
+          ++t;
+          return k0;
+        }
+      }
+    }
+    return -1;
+  }
+};
+
+// The coarse gather lists of sdpa_gather (RadialAttn.block_lists): row i of
+// idx (nq, max_nb) lists the KV tiles of block_k keys that query rows
+// [i*block_q, (i+1)*block_q) attend to; its first counts[i] entries are
+// visited, padding entries never.
+struct CoarseTables {
+  static constexpr bool kTable = true;
+  const int* idx;
+  const int* counts;
+  int nq, max_nb, block_q, block_k;
+
+  __device__ __forceinline__ CoarseWalk walk(int q0, int skv) const {
+    const int row = min(q0 / block_q, nq - 1);
+    return CoarseWalk{idx + static_cast<long long>(row) * max_nb,
+                      min(max(counts[row], 0), max_nb), (skv + block_k - 1) / block_k - 1,
+                      block_k / kHalf, block_k, skv, 0, 0};
+  }
 };
 
 // Named barriers 1 and 2 order the two consumer warpgroups' MMA issue: a
 // warpgroup waits for its turn (its own barrier, completed by the other
 // warpgroup's arrival), issues, and passes the turn (arrives on the other's).
-__device__ __forceinline__ void turn_wait(int cw) { named_barrier_sync(1 + cw, 256); }
+// A block with one consumer takes no turns.
+template <int Consumers>
+__device__ __forceinline__ void turn_wait(int cw) {
+  if constexpr (Consumers == 2) named_barrier_sync(1 + cw, 256);
+}
 
-__device__ __forceinline__ void turn_pass(int cw) { named_barrier_arrive(2 - cw, 256); }
+template <int Consumers>
+__device__ __forceinline__ void turn_pass(int cw) {
+  if constexpr (Consumers == 2) named_barrier_arrive(2 - cw, 256);
+}
 
 // 2^x by the special-function unit (ex2.approx: 2^-22 relative error; results
 // below 2^-126 flush to 0, as 2^-inf does).
@@ -104,29 +203,36 @@ __device__ __forceinline__ void mma_pv(float (&o)[32], const uint32_t (&p)[4], u
   wgmma_m64n64k16_bf16_rs_tb(o, p, desc_sw128(v_addr, kBK * 128), 1);
 }
 
-// The logits of the KV tile at key k0 (this thread's rows r0, r0 + 8): the
-// KV tail and the causal upper triangle masked, the running max updated in
+// The logits of the KV tile whose halves start at keys k_lo and k_hi (this
+// thread's rows r0, r0 + 8; the dense walk's halves are adjacent, k_hi = k_lo
+// + 64, a table walk's need not be): keys at or past skv and the causal upper
+// triangle masked, the running max updated in
 // base-2 units (scale_log2 times the raw row max: the same number as the max
 // of the scaled logits when the scale is positive), and each logit turned into
 // p = 2^(s * scale_log2 - max) by one FFMA and ex2; returns each row's rescale
 // factor alpha and its p sum (a per-thread partial, quad-summed at the end).
 // A scale <= 0 would turn the raw max into the scaled minimum (and 0 * -inf
 // into NaN), so then the logits are scaled first and the rest runs at scale 1.
+template <bool kHalves>
 __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m_run)[2],
-                                             float (&alpha)[2], float (&rs)[2], int k0, int skv,
-                                             int causal, int wrow, int r0, int diag, int t,
-                                             float scale_log2) {
+                                             float (&alpha)[2], float (&rs)[2], int k_lo,
+                                             int k_hi, int skv, int causal, int wrow, int r0,
+                                             int diag, int t, float scale_log2) {
   if (scale_log2 <= 0.f) {  // uniform over the grid: a branch no warp diverges on
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) sc[i] *= scale_log2;
     scale_log2 = 1.f;
   }
-  if (k0 + kBK > skv || (causal && k0 + kBK - 1 > wrow + diag)) {
+  // accumulator column 8n + c is key k_lo + 8n + c in the first half and
+  // hi0 + 8n + c in the second
+  const int hi0 = kHalves ? k_hi - kHalf : k_lo;
+  const int k_end = kHalves ? max(k_lo, k_hi) + kHalf : k_lo + kBK;
+  if (k_end > skv || (causal && k_lo + kBK - 1 > wrow + diag)) {
 #pragma unroll
     for (int n = 0; n < kBK / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
+        const int col = (n < kHalf / 8 ? k_lo : hi0) + n * 8 + 2 * t + (e & 1);
         const int row = r0 + (e >> 1) * 8;
         if (col >= skv || (causal && col > row + diag)) sc[4 * n + e] = -INFINITY;
       }
@@ -189,13 +295,13 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[D / 2], float (&l_ru
 
 // S = Q K^T for one KV tile: D/16 k-steps; step kk reads bytes 32*(kk%4) of
 // column atom kk/4 of both tiles. Issued and committed, not waited for.
-template <int D>
+template <int D, int BQ>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_addr, uint32_t k_addr) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_m64n128k16_bf16_ss(sc, desc_sw128(q_addr + (kk / 4) * kBQ * 128 + off, 0),
+    wgmma_m64n128k16_bf16_ss(sc, desc_sw128(q_addr + (kk / 4) * BQ * 128 + off, 0),
                              desc_sw128(k_addr + (kk / 4) * kBK * 128 + off, 0), kk > 0);
   }
   wgmma_commit();
@@ -212,14 +318,37 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)
   wgmma_commit();
 }
 
+// The first keys of tile j's two 64-key halves: a table walk's are in its
+// stage's slot, written by the producer before the stage's K arrival (read
+// before the stage is released); the dense walk's are j*kBK and j*kBK + 64.
+template <class Tables>
+__device__ __forceinline__ int2 tile_keys(const int2* keys_s, int s, int j) {
+  if constexpr (Tables::kTable) return keys_s[s];
+  else return make_int2(j * kBK, j * kBK + kHalf);
+}
+
+// K or V of one tile as two 64-key halves, at keys lo and hi, each box one
+// column atom by 64 rows (the halves of a 128-row tile, as a 128-row box
+// would lay them out: the swizzle follows the 1024-byte aligned address).
 template <int D>
+__device__ __forceinline__ void load_halves(uint8_t* dst, const CUtensorMap* map, uint64_t* full,
+                                            int col0, int lo, int hi, int b, int bytes) {
+  mbar_arrive_expect_tx(full, bytes);
+#pragma unroll
+  for (int a = 0; a < D / kAtomCols; ++a) {
+    tma_load_3d(dst + a * kBK * 128, map, full, col0 + a * kAtomCols, lo, b);
+    tma_load_3d(dst + a * kBK * 128 + kHalf * 128, map, full, col0 + a * kAtomCols, hi, b);
+  }
+}
+
+template <int D, int Consumers, class Tables>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
-                      int sq, int skv, int hq, int hkv, int64_t o_sb, int64_t o_ss,
-                      float scale_log2, int causal) {
-  using C = Cfg<D>;
+                      const Tables tables, int sq, int skv, int hq, int hkv, int64_t o_sb,
+                      int64_t o_ss, float scale_log2, int causal) {
+  using C = Cfg<D, Consumers, Tables::kTable>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
   uint8_t* q_s = smem;                                  // [atom][kBQ rows][128 B]
@@ -228,39 +357,70 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + C::kStages * C::kKVBytes);
   uint64_t* k_full = q_full + 1;                        // [stage]: K bytes landed
   uint64_t* v_full = k_full + C::kStages;               // [stage]: V bytes landed
-  uint64_t* k_empty = v_full + C::kStages;              // [stage]: both consumers read K
-  uint64_t* v_empty = k_empty + C::kStages;             // [stage]: both consumers read V
+  uint64_t* k_empty = v_full + C::kStages;              // [stage]: every consumer read K
+  uint64_t* v_empty = k_empty + C::kStages;             // [stage]: every consumer read V
+  int* n_tiles_s = reinterpret_cast<int*>(v_empty + C::kStages);  // table walks: the tile count
+  int2* keys_s = reinterpret_cast<int2*>(n_tiles_s + 2);          // [stage]: the halves' keys
 
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * C::kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv);
   // causal: query row i sees keys j <= i + (skv - sq) (bottom-right aligned,
   // as the plain version's tril(k=skv-sq); identical to top-left when sq == skv)
   const int diag = skv - sq;
   int kv_end = skv;
-  if (causal) kv_end = min(skv, min(q0 + kBQ, sq) + diag);
-  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  if (causal) kv_end = min(skv, min(q0 + C::kBQ, sq) + diag);
+  // the dense walk's tiles; a table walk's producer counts its row's and
+  // publishes the count with its second arrival on q_full
+  int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
+    mbar_init(q_full, Tables::kTable ? 2 : 1);
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
-      mbar_init(&k_empty[s], 8);  // lane 0 of each consumer warp
-      mbar_init(&v_empty[s], 8);
+      mbar_init(&k_empty[s], 4 * Consumers);  // lane 0 of each consumer warp
+      mbar_init(&v_empty[s], 4 * Consumers);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 0) {  // producer
+  // the producer, and the idle third warpgroup of a one-consumer block
+  if (wg == 0 || (Consumers == 1 && wg == 2)) {
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0 && n_tiles > 0) {
+    if (threadIdx.x != 0) return;
+    if (Tables::kTable || n_tiles > 0) {
       mbar_arrive_expect_tx(q_full, C::kQBytes);
 #pragma unroll
       for (int a = 0; a < C::kAtoms; ++a)
-        tma_load_3d(q_s + a * kBQ * 128, &map_q, q_full, h * D + a * kAtomCols, q0, b);
+        tma_load_3d(q_s + a * C::kBQ * 128, &map_q, q_full, h * D + a * kAtomCols, q0, b);
+    }
+    if constexpr (Tables::kTable) {
+      // the row's table read here, off the consumers' path: its tile count,
+      // then each tile's two halves in the walk's order (a lone last half is
+      // loaded again as the second one, which the consumers mask: its key is
+      // skv)
+      auto walk = tables.walk(q0, skv);
+      n_tiles = walk.tiles();
+      *n_tiles_s = n_tiles;
+      mbar_arrive(q_full);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % C::kStages;
+        const uint32_t parity = ((j / C::kStages) & 1) ^ 1;
+        const int lo = walk.next();
+        int hi = walk.next();
+        mbar_wait(&k_empty[s], parity);
+        keys_s[s] = make_int2(lo, hi < 0 ? skv : hi);
+        if (hi < 0) hi = lo;
+        load_halves<D>(k_s + s * C::kKVBytes, &map_k, &k_full[s], hk * D, lo, hi, b,
+                       C::kKVBytes);
+        mbar_wait(&v_empty[s], parity);
+        load_halves<D>(v_s + s * C::kKVBytes, &map_v, &v_full[s], hk * D, lo, hi, b,
+                       C::kKVBytes);
+      }
+    } else {
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % C::kStages;
         const uint32_t parity = ((j / C::kStages) & 1) ^ 1;
@@ -291,6 +451,10 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int r0 = wrow + warp * 16 + g;    // this thread's rows r0 and r0 + 8
   const uint32_t q_addr = smem_u32(q_s) + (wg - 1) * 64 * 128;
   const uint32_t k_base = smem_u32(k_s), v_base = smem_u32(v_s);
+  if constexpr (Tables::kTable) {
+    mbar_wait(q_full, 0);
+    n_tiles = *n_tiles_s;
+  }
 
   float o[D / 2];  // 64 x D: accumulator 4j + e at row r0 + 8(e/2), column 8j + 2t + e%2
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
@@ -299,35 +463,39 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   uint32_t pa[kBK / 16][4];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  // the two warpgroups take turns issuing their MMAs, warpgroup 1 first: one
+  // two consumers take turns issuing their MMAs, warpgroup 1 first: one
   // warpgroup's softmax runs while the other's MMAs hold the tensor cores.
   // Each issues n_tiles + 1 times; the last turn of warpgroup 2 passes none.
   const int cw = wg - 1;
   if (n_tiles > 0) {
-    if (cw == 1) turn_pass(cw);  // warpgroup 1's first turn
+    if (cw == 1) turn_pass<Consumers>(cw);  // warpgroup 1's first turn
     mbar_wait(q_full, 0);
-    turn_wait(cw);
+    turn_wait<Consumers>(cw);
     mbar_wait(&k_full[0], 0);
-    issue_qk<D>(sc, q_addr, k_base);
-    turn_pass(cw);
+    const int2 key = tile_keys<Tables>(keys_s, 0, 0);
+    issue_qk<D, C::kBQ>(sc, q_addr, k_base);
+    turn_pass<Consumers>(cw);
     wgmma_wait<0>();
     fence_regs(sc);
     if (lane == 0) mbar_arrive(&k_empty[0]);
-    softmax_tile(sc, m_run, alpha, rs, 0, skv, causal, wrow, r0, diag, t, scale_log2);
+    softmax_tile<Tables::kTable>(sc, m_run, alpha, rs, key.x, key.y, skv, causal, wrow, r0,
+                                 diag, t, scale_log2);
     rescale_and_pack<D>(o, l_run, alpha, rs, sc, pa);
   }
   for (int j = 1; j < n_tiles; ++j) {
     const int s = j % C::kStages, sp = (j - 1) % C::kStages;
-    turn_wait(cw);
+    turn_wait<Consumers>(cw);
     mbar_wait(&k_full[s], (j / C::kStages) & 1);
-    issue_qk<D>(sc, q_addr, k_base + s * C::kKVBytes);
+    const int2 key = tile_keys<Tables>(keys_s, s, j);
+    issue_qk<D, C::kBQ>(sc, q_addr, k_base + s * C::kKVBytes);
     mbar_wait(&v_full[sp], ((j - 1) / C::kStages) & 1);
     issue_pv<D>(o, pa, v_base + sp * C::kKVBytes);
-    turn_pass(cw);
+    turn_pass<Consumers>(cw);
     wgmma_wait<1>();  // S of tile j
     fence_regs(sc);
     if (lane == 0) mbar_arrive(&k_empty[s]);
-    softmax_tile(sc, m_run, alpha, rs, j * kBK, skv, causal, wrow, r0, diag, t, scale_log2);
+    softmax_tile<Tables::kTable>(sc, m_run, alpha, rs, key.x, key.y, skv, causal, wrow, r0,
+                                 diag, t, scale_log2);
     wgmma_wait<0>();  // P V of tile j-1
     fence_regs(o);
     if (lane == 0) mbar_arrive(&v_empty[sp]);
@@ -335,10 +503,10 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   if (n_tiles > 0) {
     const int sp = (n_tiles - 1) % C::kStages;
-    turn_wait(cw);
+    turn_wait<Consumers>(cw);
     mbar_wait(&v_full[sp], ((n_tiles - 1) / C::kStages) & 1);
     issue_pv<D>(o, pa, v_base + sp * C::kKVBytes);
-    if (cw == 0) turn_pass(cw);
+    if (cw == 0) turn_pass<Consumers>(cw);
     wgmma_wait<0>();
     fence_regs(o);
     if (lane == 0) mbar_arrive(&v_empty[sp]);
@@ -365,64 +533,110 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D>
-int launch(const void* const* ptrs, const long long* geom, int batch, int sq, int skv, int hq,
-           int hkv, long long o_sb, long long o_ss, float scale_log2, int causal,
-           cudaStream_t stream) {
-  using C = Cfg<D>;
+// The operands both entries share: q: (B, sq, hq*D), k/v: (B, skv, hkv*D),
+// out: (B, sq, hq*D), all bf16 with a contiguous last dim, 16-byte aligned,
+// strides multiples of 8 elements; geom holds the tensor-map geometry of q, k
+// and v (8 values each, see launch); out is written through its batch /
+// sequence strides in elements. scale_log2 = softmax scale * log2(e). D is 64
+// or 128.
+struct Operands {
+  const void* ptrs[4];  // q, k, v, out
+  const long long* geom;
+  int batch, sq, skv, hq, hkv, head_dim;
+  long long o_sb, o_ss;
+  float scale_log2;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <int D, int Consumers, class Tables>
+int launch(const Tables& tables, const Operands& a) {
+  using C = Cfg<D, Consumers, Tables::kTable>;
   // geom: q, k, v, 8 values each (kernels/tma.py attention_geometry): dims
   // (H*D, S, B) in elements, byte strides of S and B, box (64, rows, 1). The
   // box and extents must be the ones this kernel tiles by.
-  const long long want[3][4] = {{static_cast<long long>(hq) * D, sq, batch, kBQ},
-                                {static_cast<long long>(hkv) * D, skv, batch, kBK},
-                                {static_cast<long long>(hkv) * D, skv, batch, kBK}};
+  const long long want[3][4] = {
+      {static_cast<long long>(a.hq) * D, a.sq, a.batch, C::kBQ},
+      {static_cast<long long>(a.hkv) * D, a.skv, a.batch, C::kKVRows},
+      {static_cast<long long>(a.hkv) * D, a.skv, a.batch, C::kKVRows}};
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
-    const long long* gm = geom + 8 * i;
+    const long long* gm = a.geom + 8 * i;
     if (gm[0] != want[i][0] || gm[1] != want[i][1] || gm[2] != want[i][2] ||
         gm[5] != kAtomCols || gm[6] != want[i][3] || gm[7] != 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    const int r = encode_tiled(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], gm, gm + 3,
-                               gm + 5);
+    const int r = encode_tiled(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.ptrs[i], gm,
+                               gm + 3, gm + 5);
     if (r != 0) return r;
   }
-  // above 48 KB, dynamic shared memory has to be allowed per kernel
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>((sq + kBQ - 1) / kBQ), static_cast<unsigned>(hq),
-                  static_cast<unsigned>(batch));
-  flash_attn_fwd_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[3])), sq,
-      skv, hq, hkv, o_sb, o_ss, scale_log2, causal);
+  static std::atomic<int> setup[kMaxDevices];
+  int sms = 0;
+  const int r = device_setup(flash_attn_fwd_kernel<D, Consumers, Tables>, C::kSmem, setup, &sms);
+  if (r != 0) return r;
+  const dim3 grid(static_cast<unsigned>((a.sq + C::kBQ - 1) / C::kBQ),
+                  static_cast<unsigned>(a.hq), static_cast<unsigned>(a.batch));
+  flash_attn_fwd_kernel<D, Consumers, Tables><<<grid, kThreads, C::kSmem, a.stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(const_cast<void*>(a.ptrs[3])),
+      tables, a.sq, a.skv, a.hq, a.hkv, a.o_sb, a.o_ss, a.scale_log2, a.causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int Consumers, class Tables>
+int run(const Tables& tables, const Operands& a) {
+  if (a.batch <= 0 || a.sq <= 0) return 0;
+  if (a.skv <= 0 || a.hkv <= 0 || a.hq % a.hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.head_dim == 128) return launch<128, Consumers>(tables, a);
+  if (a.head_dim == 64) return launch<64, Consumers>(tables, a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q: (B, sq, hq*D), k/v: (B, skv, hkv*D), out: (B, sq, hq*D), all bf16 with a
-// contiguous last dim, 16-byte aligned, strides multiples of 8 elements; geom
-// holds the tensor-map geometry of q, k and v (8 values each, see launch); out
-// is written through its batch / sequence strides in elements.
-// scale_log2 = softmax scale * log2(e). D is 64 or 128.
-FDM_EXPORT int fdm_flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
-                                  const long long* geom, int batch, int sq, int skv, int hq,
-                                  int hkv, int head_dim, long long o_sb, long long o_ss,
-                                  float scale_log2, int causal, void* stream) {
-  if (batch <= 0 || sq <= 0) return 0;
-  if (skv <= 0 || hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const void* ptrs[4] = {q, k, v, out};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128)
-    return launch<128>(ptrs, geom, batch, sq, skv, hq, hkv, o_sb, o_ss, scale_log2, causal, st);
-  if (head_dim == 64)
-    return launch<64>(ptrs, geom, batch, sq, skv, hq, hkv, o_sb, o_ss, scale_log2, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+#define FDM_ATTN_PARAMS                                                                    \
+  const void *q, const void *k, const void *v, void *out, const long long *geom, int batch, \
+      int sq, int skv, int hq, int hkv, int head_dim, long long o_sb, long long o_ss,       \
+      float scale_log2, int causal, void *stream
+#define FDM_ATTN_OPERANDS                                                                  \
+  Operands {                                                                               \
+    {q, k, v, out}, geom, batch, sq, skv, hq, hkv, head_dim, o_sb, o_ss, scale_log2, causal, \
+        static_cast<cudaStream_t>(stream)                                                  \
+  }
+
+// Dense attention, with an optional bottom-right causal mask. q, k and v's
+// maps have boxes of 128 rows.
+FDM_EXPORT int fdm_flash_attn_fwd(FDM_ATTN_PARAMS) {
+  return run<2>(DenseTables{}, FDM_ATTN_OPERANDS);
 }
 
-// Dynamic shared memory of one block at head dim D, bytes (0 for another D).
-FDM_EXPORT int fdm_flash_attn_smem_bytes(int head_dim) {
-  return head_dim == 128 ? Cfg<128>::kSmem : head_dim == 64 ? Cfg<64>::kSmem : 0;
+// The coarse gather walk (non-causal: causal must be 0). idx: int32 (nq,
+// max_nb) KV tile ids of block_k tokens; counts: int32 (nq, 1), nq =
+// ceil(sq/block_q); block_q and block_k multiples of 64. A block_q that is a
+// multiple of 128 runs blocks of two consumers (q's box 128 rows), another one
+// blocks of one consumer, so that no block straddles two table rows (q's box
+// 64 rows); k's and v's boxes are 64 rows.
+FDM_EXPORT int fdm_flash_attn_coarse_fwd(const void* idx, const void* counts, int nq, int max_nb,
+                                         int block_q, int block_k, FDM_ATTN_PARAMS) {
+  if (block_q < kHalf || block_q % kHalf != 0 || block_k < kHalf || block_k % kHalf != 0 ||
+      nq < 1 || max_nb < 1 || causal != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CoarseTables t{static_cast<const int*>(idx), static_cast<const int*>(counts), nq, max_nb,
+                       block_q, block_k};
+  return block_q % (2 * kHalf) == 0 ? run<2>(t, FDM_ATTN_OPERANDS) : run<1>(t, FDM_ATTN_OPERANDS);
+}
+
+// Dynamic shared memory of one block, bytes: dense (table 0, two consumers)
+// or the coarse walk (table 1, one or two consumers), at head dim D (0 for
+// another shape).
+FDM_EXPORT int fdm_flash_attn_smem_bytes(int head_dim, int consumers, int table) {
+  const bool d128 = head_dim == 128;
+  if (!d128 && head_dim != 64) return 0;
+  if (!table) {
+    if (consumers != 2) return 0;
+    return d128 ? Cfg<128, 2, false>::kSmem : Cfg<64, 2, false>::kSmem;
+  }
+  if (consumers == 2) return d128 ? Cfg<128, 2, true>::kSmem : Cfg<64, 2, true>::kSmem;
+  if (consumers == 1) return d128 ? Cfg<128, 1, true>::kSmem : Cfg<64, 1, true>::kSmem;
+  return 0;
 }
 
 // Registers per thread after setmaxnreg: a consumer's (consumer != 0) or the

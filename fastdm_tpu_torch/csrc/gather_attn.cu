@@ -1,6 +1,7 @@
 // Block-sparse flash attention, bf16 q/k/v/out, f32 softmax state, tensor
-// cores: one kernel, four table walks (the radial sparse modes of the Wan
-// engine).
+// cores: one kernel, three table walks (radial sparse modes of the Wan
+// engine). The fourth mode, coarse (sdpa_gather_pallas, attention.py:1069),
+// runs on the wgmma + TMA kernel of flash_attn.cu.
 //
 // Replaces, in fastdm_tpu/kernels/pallas/attention.py:
 //   super  -- sdpa_gather_super_pallas (:1002; _gather_super_attention :934,
@@ -11,9 +12,6 @@
 //   fine   -- sdpa_gather_fine_pallas (:759; _gather_fine_attention :696,
 //             pallas_call :746, kernel :570): CSR rows of fine block ids with
 //             the valid tokens of each entry (block_lists_fine);
-//   coarse -- sdpa_gather_pallas (:1069; _gather_sparse_attention :515,
-//             pallas_call :561, kernel :473): per-q-tile lists of block_k-token
-//             KV tiles and their counts (block_lists);
 //   mask   -- sdpa_sparse_pallas (:1122; _flash_attention :338, pallas_call
 //             :390, kernel _sparse_flash_kernel :155): a (B, H, nq, nk) block
 //             mask, per batch entry and head (block_mask).
@@ -25,9 +23,8 @@
 //
 // What bounds it on the H100: operations, counted on the allowed keys only
 // (allowed (query, key) pairs x 4 x head_dim, per head). At the A14B shape
-// the radial tables allow 0.326 (mask, 128x128 tiles), 0.400 (super, bq 256),
-// 0.544 (fine, bq 512) and 0.982 (coarse, 512x1024 tiles) of dense
-// attention's work.
+// the radial tables allow 0.326 (mask, 128x128 tiles), 0.400 (super, bq 256)
+// and 0.544 (fine, bq 512) of dense attention's work.
 //
 // Design: the tile machinery of attn_tile.cuh (64-query blocks of 4 warps,
 // mma.sync, 64-key tiles through two cp.async buffers) with a walk over the
@@ -44,16 +41,14 @@
 //             entry's valid count, as the jnp oracle does (impl.py:343-348);
 //             the Pallas kernel derives validity from the global tail alone
 //             (attention.py:654-681);
-//   coarse -- the block_k/64 tiles of entries j < counts[row]; padding entries
-//             are never visited; limit skv;
 //   mask   -- the block_k/64 tiles of every set bit of mask row q0/block_q of
 //             mask[b, h] (per head: no row is shared); limit skv;
 //   dense  -- no table: every tile in order; limit skv. It is the loop of the
 //             dense sdpa kernel before that kernel moved to wgmma and TMA
-//             (flash_attn.cu), kept for checks only: the walks on tables that
-//             allow every key equal it bit for bit (same tiles, same order,
-//             same tile code), and it is the yardstick of the redesign. No
-//             model path launches it.
+//             (flash_attn.cu), kept for checks only: the three walks on
+//             tables that allow every key equal it bit for bit (same tiles,
+//             same order, same tile code), and it is the yardstick of their
+//             redesign. No model path launches it.
 // Tiles are loaded straight from the model's (B, S, H*D) tensors (no
 // transposed, padded K/V copy as the Pallas wrappers' DMAs needed), the next
 // allowed tile streaming in while the current one is computed. The softmax
@@ -142,36 +137,6 @@ struct FineTables {  // idx, valid: (n_slots,); rows: (ceil(sq/block_q), 2)
     const int start = min(max(rows[2 * row], 0), n_slots);
     const int count = min(max(rows[2 * row + 1], 0), n_slots - start);
     return FineWalk{idx, valid, start, count, fine / kBK, fine, skv};
-  }
-};
-
-struct CoarseWalk {
-  const int* idx;  // this row's max_nb entries
-  int count, nk, tiles_per_entry, block_k, skv;
-
-  __device__ __forceinline__ int next(int& e, int& t, int& limit) const {
-    limit = skv;
-    for (; e < count; ++e, t = 0) {
-      const long long base = static_cast<long long>(min(max(idx[e], 0), nk - 1)) * block_k;
-      for (; t < tiles_per_entry; ++t) {
-        const long long key0 = base + t * kBK;
-        if (key0 < skv) return static_cast<int>(key0);
-      }
-    }
-    return -1;
-  }
-};
-
-struct CoarseTables {  // idx: (nq, max_nb); counts: (nq, 1)
-  const int* idx;
-  const int* counts;
-  int nq, max_nb, block_q, block_k;
-
-  __device__ __forceinline__ CoarseWalk walk(int q0, int, int, int skv) const {
-    const int row = min(q0 / block_q, nq - 1);
-    const int count = min(max(counts[row], 0), max_nb);
-    return CoarseWalk{idx + static_cast<long long>(row) * max_nb, count,
-                      (skv + block_k - 1) / block_k, block_k / kBK, block_k, skv};
   }
 };
 
@@ -349,17 +314,6 @@ FDM_EXPORT int fdm_gather_fine_fwd(const void* idx, const void* valid, const voi
   if (block_q % kBQ != 0 || fine % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
   const FineTables t{static_cast<const int*>(idx), static_cast<const int*>(valid),
                      static_cast<const int*>(rows), n_slots, block_q, fine};
-  return run(t, FDM_OPERANDS);
-}
-
-// idx: int32 (nq, max_nb) KV tile ids of block_k tokens; counts: int32 (nq, 1),
-// nq = ceil(sq/block_q). block_q and block_k multiples of 64.
-FDM_EXPORT int fdm_gather_coarse_fwd(const void* idx, const void* counts, int nq, int max_nb,
-                                     int block_q, int block_k, FDM_OPERANDS_PARAMS) {
-  if (block_q % kBQ != 0 || block_k % kBK != 0 || nq < 1 || max_nb < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const CoarseTables t{static_cast<const int*>(idx), static_cast<const int*>(counts), nq, max_nb,
-                       block_q, block_k};
   return run(t, FDM_OPERANDS);
 }
 

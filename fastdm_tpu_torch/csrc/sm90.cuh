@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels that load through the
-// Tensor Memory Accelerator and multiply with warpgroup MMA: the fp8 GEMM
-// (fp8_gemm.cu) and the dense flash attention (flash_attn.cu).
+// Tensor Memory Accelerator and multiply with warpgroup MMA: the two W8A8
+// GEMMs (fp8_gemm.cu, w8a8_gemm.cu, over the ring of w8a8_sm90.cuh) and the
+// flash attention (flash_attn.cu: dense sdpa and the coarse gather walk).
 //
 //   - mbarrier init / arrive / expect-tx / parity wait: the full and empty
 //     barriers of a producer-consumer ring of shared-memory stages;
@@ -24,6 +25,8 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing is linked from libcuda)
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -127,6 +130,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
 // Named barrier `id` (1-15; 0 is __syncthreads) of `threads` threads, whole
 // warps: sync waits until that many have arrived, arrive does not wait.
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
@@ -151,6 +160,8 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // l of warp w of the warpgroup) sits at row 16w + l/4 + 8*(e/2), column
 // 8j + 2*(l%4) + e%2 of the 64 x N tile. scale_d = 0 overwrites d.
 //   e4m3, A and B K-major in shared memory (the fp8 GEMM);
+//   s8 x s8 -> s32, A and B K-major in shared memory (the int8 GEMM; 8-bit
+//   operands must both be K-major; integer wgmma takes no immediate scales);
 //   bf16 SS, both K-major (Q.K^T);
 //   bf16 RS: A from registers in the mma.sync m16n8k16 fragment layout, B
 //   MN-major in shared memory (P.V, V key-major).
@@ -174,6 +185,28 @@ __device__ __forceinline__ void wgmma_m64n128k32_e4m3(float (&d)[64], uint64_t d
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64], uint64_t da, uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -287,6 +320,38 @@ inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType type, int rank, co
                         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
+
+// Launch set-up of `kernel`, which takes `smem_bytes` of dynamic shared
+// memory: the SM count of the current device (into *sms) and, as shared
+// memory above 48 KB has to be allowed per kernel, that allowance. Done once
+// per device and process: `cache` is the calling launcher's own static array
+// (one per kernel instantiation; 0 = not yet), and racing first calls only
+// repeat the same idempotent set-up.
+constexpr int kMaxDevices = 64;
+
+template <class Kernel>
+inline int device_setup(Kernel* kernel, int smem_bytes, std::atomic<int> (&cache)[kMaxDevices],
+                        int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (cached) {
+    const int n = cache[dev].load(std::memory_order_acquire);
+    if (n > 0) {
+      *sms = n;
+      return 0;
+    }
+  }
+  int n = 0;
+  e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (cached) cache[dev].store(n, std::memory_order_release);
+  *sms = n;
+  return 0;
 }
 
 }  // namespace fdm_sm90

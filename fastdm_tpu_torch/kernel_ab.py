@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Time the attention and W8A8 GEMM kernels of one or more checkouts of this
+repository on one NVIDIA GPU, on the same inputs (from seeds) in every
+checkout:
+  - Wan2.2-A14B at 480x832x81 (32760 tokens, 40 heads of 128): dense sdpa,
+    the superblock walk (gather_super) on the radial superblock tables of
+    examples/sparse/radial_attn_wan.json (q tiles of 256 tokens, 8 entries per
+    group, fine blocks of 128, superblocks of 4) and the coarse walk
+    (gather_coarse) on its coarse lists (512 x 1024 tiles), as the engine
+    builds them;
+  - FLUX.1-dev at 1024x2048: sdpa at (1, 8704, 24x128), and the int8 and fp8
+    W8A8 GEMMs at the single-block qkv_mlp product (8704 x 3072 @ 3072 x
+    21504), each on its per-token quantized activation and a random
+    quantized weight.
+
+    python3 fastdm_tpu_torch/kernel_ab.py ROOT [ROOT ...]
+
+Each ROOT (a checkout, e.g. a `git archive` of a commit) is timed in a process
+of its own, in the order given (for an A/B comparison on one card: parent,
+change, change, parent, repeated); one JSON line per ROOT given (each kernel's
+mean ms over 20 calls, CUDA events, and an exact checksum of its output), then
+one JSON line per distinct ROOT with each kernel's median, min and max over
+that ROOT's runs and whether its checksums agree across all runs of all ROOTs,
+then the card's name and power limit. Needs nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+def _one(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+    from fastdm_tpu_torch.sparse.xsparse import SparseAttn
+
+    with open(os.path.join(root, "examples", "sparse", "radial_attn_wan.json")) as f:
+        radial = SparseAttn.from_dict(json.load(f))
+    s, frames, h, hd = 21 * 30 * 52, 21, 40, 128
+    bq, group, sb = 256, 8, 4
+    fine = radial.config.block_size
+    radial.post_init(s, frames)
+    dev = torch.device("cuda")
+    to = lambda ts: [torch.from_numpy(t).to(dev) for t in ts]  # noqa: E731
+    super_tables, coarse_tables = to(radial.block_lists_super(bq, group, sb)), \
+        to(radial.block_lists(512, 1024))
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(1, s, h * hd, generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    fq, fk, fv = (torch.randn(1, 8704, 24 * hd, generator=g, device=dev, dtype=torch.bfloat16)
+                  for _ in range(3))
+    m, kk, n = 8704, 3072, 21504
+    x = torch.randn(m, kk, generator=g, device=dev, dtype=torch.bfloat16)
+    w8 = qlinear_random(g, kk, n, quant="int8", device=dev)
+    a8, s8, z8 = tb.quantize_to_int8_torch(x, symmetric=False)
+    wf = qlinear_random(g, kk, n, quant="fp8", device=dev)
+    af, sf = tb.quantize_to_fp8_torch(x)
+
+    kernels = {
+        "gather_super": lambda: cb.gather_super_attention_cuda(
+            q, k, v, *super_tables, h, h, hd, block_q=bq, group=group, fine=fine, superblock=sb),
+        "gather_coarse": lambda: cb.gather_sparse_attention_cuda(
+            q, k, v, *coarse_tables, h, h, hd, block_q=512, block_k=1024),
+        "sdpa_wan": lambda: cb.sdpa_cuda(q, k, v, h, h, hd),
+        "sdpa_flux": lambda: cb.sdpa_cuda(fq, fk, fv, 24, 24, hd),
+        "int8_matmul": lambda: cb.int8_matmul_cuda(a8, w8.w, s8, w8.scale, torch.bfloat16,
+                                                   w8.colsum, z8, w8.bias),
+        "fp8_matmul": lambda: cb.fp8_matmul_cuda(af, wf.w, sf, wf.scale, torch.bfloat16,
+                                                 wf.bias),
+    }
+
+    def ms(fn, iters):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    out = {"root": root}
+    for name, fn in kernels.items():
+        out[f"{name}_checksum"] = int(fn().view(torch.int16).long().sum())
+        out[f"{name}_ms"] = ms(fn, 20)
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--one":
+        print(json.dumps(_one(sys.argv[2])), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available() or len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 1
+    runs = []
+    for root in sys.argv[1:]:
+        one = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+                             check=True, stdout=subprocess.PIPE, text=True)
+        line = one.stdout.splitlines()[-1]
+        print(line, flush=True)
+        runs.append(json.loads(line))
+    names = [key[:-3] for key in runs[0] if key.endswith("_ms")]
+    for root in dict.fromkeys(sys.argv[1:]):
+        mine = [r for r in runs if r["root"] == root]
+        summary = {"root": root, "runs": len(mine)}
+        for name in names:
+            ms = sorted(r[f"{name}_ms"] for r in mine)
+            summary[name] = {"median_ms": statistics.median(ms), "min_ms": ms[0],
+                             "max_ms": ms[-1],
+                             "same_output": len({r[f"{name}_checksum"] for r in runs}) == 1}
+        print(json.dumps(summary), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -268,60 +268,11 @@ gelu_and_mul_cuda.launches = 0
 # ------------------------------------------------------------------- sdpa
 
 
-@kernel_registry.register("sdpa", "cuda")
-def sdpa_cuda(
-    query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
-    num_kv_heads: int, head_dim: int, is_causal: bool = False,
-    scale: Optional[float] = None,
-) -> Tensor:
-    kernel = "sdpa"
-    contracts.check_sdpa("sdpa_cuda", query, key, value, num_q_heads, num_kv_heads, head_dim)
-    dev = query.device
-    for name, t in (("query", query), ("key", key), ("value", value)):
-        _check_tensor(t, kernel, name, dev)
-        _require(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0,
-                 kernel, f"{name} must be 16-byte aligned with strides multiple of 8")
-    _require(head_dim in (64, 128), kernel, f"head_dim {head_dim} not in (64, 128)")
-    b, sq, _ = query.shape
-    skv = key.shape[1]
-    if scale is None:
-        scale = head_dim**-0.5
-    out = torch.empty(query.shape, dtype=query.dtype, device=dev)
-    if b * sq == 0:
-        return out
-    geom = [x for t in (query, key, value) for x in tma.attention_geometry(t, head_dim).packed()]
-    lib, fn = _entry("flash_attn", "fdm_flash_attn_fwd",
-                     [_P] * 4 + [_LP] + [_I] * 6 + [_L] * 2 + [_F, _I, _P])
-    with torch.cuda.device(dev):
-        code = fn(query.data_ptr(), key.data_ptr(), value.data_ptr(), out.data_ptr(),
-                  (ctypes.c_longlong * len(geom))(*geom), b, sq, skv, num_q_heads,
-                  num_kv_heads, head_dim, out.stride(0), out.stride(1),
-                  float(scale * _LOG2E), int(is_causal), _stream(dev))
-    _check_launch(lib, "fdm_flash_attn", code, kernel)
-    sdpa_cuda.launches += 1
-    return out
-
-
-sdpa_cuda.launches = 0
-
-
-# --------------------------------------------------------- sparse attention
-#
-# One kernel with four table walks (csrc/gather_attn.cu). The wrappers check
-# shapes, dtypes and devices; the table VALUES are not read (that would sync
-# the card): the kernel clamps its table reads, and the engine checks its
-# tables once on the host (contracts, strict=True).
-
-_OPERAND_TYPES = [_P] * 4 + [_I] * 6 + [_L] * 8 + [_F, _P]
-
-
-def _sparse_attention(wrapper, kernel: str, entry: str, table_args, table_types, tables,
-                      query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
-                      num_kv_heads: int, head_dim: int, scale: Optional[float],
-                      tiles: dict) -> Tensor:
-    """The checks every walk shares, then one launch of `entry` with the
-    table arguments first, counted on `wrapper`. tiles: {name: size} of the
-    tile sizes that must be multiples of 64."""
+def _check_attention(kernel: str, query: Tensor, key: Tensor, value: Tensor, head_dim: int,
+                     tables: dict, tiles: dict) -> None:
+    """The checks every attention kernel shares. tables: {name: tensor} of
+    the table operands; tiles: {name: size} of the tile sizes that must be
+    multiples of 64."""
     dev = query.device
     for name, t in (("query", query), ("key", key), ("value", value)):
         _check_tensor(t, kernel, name, dev)
@@ -333,6 +284,72 @@ def _sparse_attention(wrapper, kernel: str, entry: str, table_args, table_types,
     _require(head_dim in (64, 128), kernel, f"head_dim {head_dim} not in (64, 128)")
     _require(all(v >= 64 and v % 64 == 0 for v in tiles.values()), kernel,
              " and ".join(f"{k} {v}" for k, v in tiles.items()) + " must be multiples of 64")
+
+
+def _flash_attention(wrapper, kernel: str, entry: str, table_args, table_types, query: Tensor,
+                     key: Tensor, value: Tensor, num_q_heads: int, num_kv_heads: int,
+                     head_dim: int, scale: Optional[float], causal: bool,
+                     rows: Tuple[int, int]) -> Tensor:
+    """One launch of the wgmma + TMA attention kernel (csrc/flash_attn.cu) in
+    the walk of `entry`, with the table arguments first, counted on `wrapper`.
+    rows: (query rows, K / V rows) of the tensor-map boxes."""
+    dev = query.device
+    b, sq, _ = query.shape
+    if scale is None:
+        scale = head_dim**-0.5
+    out = torch.empty(query.shape, dtype=query.dtype, device=dev)
+    if b * sq == 0:
+        return out
+    geom = [x for t, r in ((query, rows[0]), (key, rows[1]), (value, rows[1]))
+            for x in tma.attention_geometry(t, head_dim, r).packed()]
+    lib, fn = _entry("flash_attn", entry,
+                     list(table_types) + [_P] * 4 + [_LP] + [_I] * 6 + [_L] * 2 + [_F, _I, _P])
+    with torch.cuda.device(dev):
+        code = fn(*table_args, query.data_ptr(), key.data_ptr(), value.data_ptr(),
+                  out.data_ptr(), (ctypes.c_longlong * len(geom))(*geom), b, sq, key.shape[1],
+                  num_q_heads, num_kv_heads, head_dim, out.stride(0), out.stride(1),
+                  float(scale * _LOG2E), int(causal), _stream(dev))
+    _check_launch(lib, "fdm_flash_attn", code, kernel)
+    wrapper.launches += 1
+    return out
+
+
+@kernel_registry.register("sdpa", "cuda")
+def sdpa_cuda(
+    query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
+    num_kv_heads: int, head_dim: int, is_causal: bool = False,
+    scale: Optional[float] = None,
+) -> Tensor:
+    contracts.check_sdpa("sdpa_cuda", query, key, value, num_q_heads, num_kv_heads, head_dim)
+    _check_attention("sdpa", query, key, value, head_dim, {}, {})
+    return _flash_attention(sdpa_cuda, "sdpa", "fdm_flash_attn_fwd", (), [], query, key, value,
+                            num_q_heads, num_kv_heads, head_dim, scale, is_causal,
+                            (tma.ATTN_ROWS, tma.ATTN_ROWS))
+
+
+sdpa_cuda.launches = 0
+
+
+# --------------------------------------------------------- sparse attention
+#
+# The coarse walk runs on the wgmma + TMA attention kernel (csrc/flash_attn.cu);
+# super, fine and mask on the table walks of csrc/gather_attn.cu. The wrappers
+# check shapes, dtypes and devices; the table VALUES are not read (that would
+# sync the card): the kernels clamp their table reads, and the engine checks
+# its tables once on the host (contracts, strict=True).
+
+_OPERAND_TYPES = [_P] * 4 + [_I] * 6 + [_L] * 8 + [_F, _P]
+
+
+def _sparse_attention(wrapper, kernel: str, entry: str, table_args, table_types, tables,
+                      query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
+                      num_kv_heads: int, head_dim: int, scale: Optional[float],
+                      tiles: dict) -> Tensor:
+    """The checks every walk shares, then one launch of `entry` of
+    gather_attn.cu with the table arguments first, counted on `wrapper`.
+    tiles: {name: size} of the tile sizes that must be multiples of 64."""
+    _check_attention(kernel, query, key, value, head_dim, tables, tiles)
+    dev = query.device
     b, sq, _ = query.shape
     if scale is None:
         scale = head_dim**-0.5
@@ -382,10 +399,10 @@ def dense_walk_attention_cuda(
     head_dim: int, scale: Optional[float] = None,
 ) -> Tensor:
     """Dense, non-causal attention on the walks' mma.sync tile (csrc/gather_attn.cu,
-    the table-free walk over every 64-key tile): the design sdpa ran on before
-    its wgmma + TMA redesign. A check and a yardstick, not a registered op: the
-    walks on tables that allow every key equal it bit for bit, and no model
-    path reaches it."""
+    the table-free walk over every 64-key tile): the design sdpa and the coarse
+    walk ran on before their wgmma + TMA redesign. A check and a yardstick, not
+    a registered op: the super, fine and mask walks on tables that allow every
+    key equal it bit for bit, and no model path reaches it."""
     contracts.check_sdpa("dense_walk_attention_cuda", query, key, value, num_q_heads,
                          num_kv_heads, head_dim)
     return _sparse_attention(
@@ -428,13 +445,16 @@ def gather_sparse_attention_cuda(
                          num_kv_heads, head_dim)
     contracts.check_gather_lists("gather_sparse_attention_cuda", block_indices, block_counts,
                                  query.shape[1], key.shape[1], block_q, block_k)
+    kernel = "gather_coarse"
+    _check_attention(kernel, query, key, value, head_dim,
+                     {"block_indices": block_indices, "block_counts": block_counts},
+                     {"block_q": block_q, "block_k": block_k})
     nq, max_nb = block_indices.shape
-    return _sparse_attention(
-        gather_sparse_attention_cuda, "gather_coarse", "fdm_gather_coarse_fwd",
+    return _flash_attention(
+        gather_sparse_attention_cuda, kernel, "fdm_flash_attn_coarse_fwd",
         (block_indices.data_ptr(), block_counts.data_ptr(), nq, max_nb, block_q, block_k),
-        [_P] * 2 + [_I] * 4, {"block_indices": block_indices, "block_counts": block_counts},
-        query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
-        {"block_q": block_q, "block_k": block_k})
+        [_P] * 2 + [_I] * 4, query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
+        False, tma.coarse_rows(block_q))
 
 
 gather_sparse_attention_cuda.launches = 0
@@ -533,7 +553,8 @@ def _check_vector(t: Optional[Tensor], kernel: str, name: str, n: int, dtype,
 
 def _w8a8_entry(op_dtype: torch.dtype):
     """(library, C launcher) of the W8A8 GEMM for 8-bit operands of op_dtype:
-    the wgmma + TMA kernel for e4m3, the mma.sync one for int8."""
+    fp8_gemm.cu for e4m3, w8a8_gemm.cu (which also takes the zero point) for
+    int8; both wgmma + TMA kernels."""
     if op_dtype == torch.float8_e4m3fn:
         return _entry("fp8_gemm", "fdm_fp8_gemm", [_P] * 6 + [_I] * 3 + [_L] * 2 + [_P])
     return _entry("w8a8_gemm", "fdm_w8a8_gemm", [_P] * 8 + [_I] * 3 + [_L] * 2 + [_P])

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the SDXL-base int8 UNet forward of one or more checkouts of this
-repository on one NVIDIA GPU: full width and depth (random weights from seed
-5), 1024x2048 (128x256 latents), batched CFG (batch 2), 77 random text tokens
-(seed 51), the first Euler step of 4, as chip_smoke.py's SDXL phase runs it.
+"""Time the SDXL-base UNet forward (int8 by default) of one or more checkouts
+of this repository on one NVIDIA GPU: full width and depth (random weights
+from seed 5), 1024x2048 (128x256 latents), batched CFG (batch 2), 77 random
+text tokens (seed 51), the first Euler step of 4, as chip_smoke.py's SDXL
+phase runs it.
 
-    python3 fastdm_tpu_torch/sdxl_ab.py [--forwards N] ROOT [ROOT ...]
+    python3 fastdm_tpu_torch/sdxl_ab.py [--forwards N] [--quant int8|fp8|bf16] ROOT [ROOT ...]
 
 Each ROOT (a checkout, e.g. a `git archive` of a commit) is timed in a process
 of its own, in the order given (for an A/B comparison on one card: parent,
@@ -34,7 +35,7 @@ def _stats(xs: list) -> dict:
     return {"median": statistics.median(xs), "min": min(xs), "max": max(xs), "all": xs}
 
 
-def _one(root: str, forwards: int) -> dict:
+def _one(root: str, forwards: int, quant: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -42,7 +43,7 @@ def _one(root: str, forwards: int) -> dict:
     from fastdm_tpu_torch.pipeline.schedulers import EulerDiscreteScheduler
 
     dev = torch.device("cuda")
-    cfg = SDXLConfig(quant="int8")
+    cfg = SDXLConfig(quant=None if quant == "bf16" else quant)
     params = sdxl_init_random(5, cfg, device=dev)
     sched = EulerDiscreteScheduler.create(STEPS)
     g = torch.Generator(device=dev).manual_seed(51)
@@ -92,7 +93,7 @@ def _one(root: str, forwards: int) -> dict:
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                      key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
-    return {"root": root, "forwards": forwards, "host_s": _stats(host_s),
+    return {"root": root, "quant": quant, "forwards": forwards, "host_s": _stats(host_s),
             "queued_s": _stats(queued_s), "device_ms": _stats(device_ms),
             "profiled": {"wall_ms": wall_ms, "kernel_ms": busy_ms,
                          "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
@@ -104,11 +105,18 @@ def _one(root: str, forwards: int) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    forwards = 20
-    if args[:1] == ["--forwards"] and len(args) > 1:
-        forwards, args = int(args[1]), args[2:]
+    forwards, quant = 20, "int8"
+    while args[:1] in (["--forwards"], ["--quant"]) and len(args) > 1:
+        if args[0] == "--forwards":
+            forwards = int(args[1])
+        else:
+            quant = args[1]
+        args = args[2:]
+    if quant not in ("int8", "fp8", "bf16"):
+        print(__doc__, file=sys.stderr)
+        return 1
     if len(args) == 2 and args[0] == "--one":
-        print(json.dumps(_one(args[1], forwards)), flush=True)
+        print(json.dumps(_one(args[1], forwards, quant)), flush=True)
         return 0
     import torch
 
@@ -117,7 +125,7 @@ def main() -> int:
         return 1
     for root in args:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--forwards", str(forwards),
-                        "--one", root], check=True)
+                        "--quant", quant, "--one", root], check=True)
     subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                    check=False)
     return 0

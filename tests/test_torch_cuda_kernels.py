@@ -23,15 +23,16 @@ value plus two of its rotation pair's magnitude (the normalized value may sit
 one ulp away before the bit-exact rotation mixes the pair), and the fused and
 two-operand forms bit-identical; gather_super as sdpa's FLUX-heads case, the
 other three sparse-attention walks (gather_fine, gather_coarse, sparse_mask)
-as sdpa's small cases plus relative L2 5e-3 (see _close_to_plain), and all
-four bit-identical to the dense walk (dense_walk_attention_cuda: the walks'
-kernel with no table, the design sdpa ran on before its wgmma + TMA redesign)
-on tables that allow every key (the same tiles in the same order through the
-same tile code); the dense walk itself as sdpa's FLUX-heads case. The SDXL
-kernels: gelu_and_mul within one bf16 ulp of its plain version (both round
-once from f32; erff and ATen's erf may differ by an f32 ulp), in f32 within
-1e-6 relative plus |h*g| * 2^-22; sdpa at head dim 64 on the fused
-projections as the small cases.
+as sdpa's small cases plus relative L2 5e-3 (see _close_to_plain); on tables
+that allow every key, gather_super, gather_fine and sparse_mask bit-identical
+to the dense walk (dense_walk_attention_cuda: their kernel with no table, the
+design sdpa ran on before its wgmma + TMA redesign) and gather_coarse, which
+runs on sdpa's kernel, bit-identical to sdpa_cuda (the same tiles in the same
+order through the same tile code); the dense walk itself as sdpa's
+FLUX-heads case. The SDXL kernels: gelu_and_mul within one bf16 ulp of its
+plain version (both round once from f32; erff and ATen's erf may differ by an
+f32 ulp), in f32 within 1e-6 relative plus |h*g| * 2^-22; sdpa at head dim 64
+on the fused projections as the small cases.
 """
 
 import numpy as np
@@ -171,6 +172,13 @@ W8A8_SHAPES = {"ragged": (77, 96, 40), "proj_out": (8704, 15360, 3072)}
 # the GEMMs also at SDXL's shortest row counts: the time embedding (M = batch
 # 2) and the text K/V projection (M = 2 x 77)
 W8A8_GEMM_SHAPES = {**W8A8_SHAPES, "sdxl-temb": (2, 1280, 640), "sdxl-text": (154, 2048, 1280)}
+# the int8 GEMM's edges, at both of its tile shapes: K tails that are not
+# multiples of the 128-byte stage (48, 80 and SDXL's 640), one and ragged row
+# counts (M = 1, 77, 154, 193), N not a multiple of either tile's width, and a
+# Wan2.2-A14B FFN width (K 5120 -> N 13824 on a 32760-token chunk's rows)
+INT8_GEMM_EDGES = {"k48-m1": (1, 48, 40), "k80-m77": (77, 80, 300),
+                   "sdxl-k640-m154": (154, 640, 1920), "k640-m193": (193, 640, 1000),
+                   "wan-ffn": (4095, 5120, 13824)}
 
 
 @pytest.mark.gpu
@@ -309,6 +317,28 @@ def test_w8a8_gemm_kernels_match_plain_on_card(cuda_device, shape, quant):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(INT8_GEMM_EDGES))
+def test_int8_gemm_edges_bit_exact_on_card(cuda_device, shape):
+    """The wgmma + TMA int8 GEMM, with and without azp and bias, and on a strided `a` (a column slice of a wider activation, 16-
+    byte aligned rows): bit-exact with the plain version."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    m, k, n = INT8_GEMM_EDGES[shape]
+    cuda_backend.reset_launch_counts()
+    for bias in (True, False):
+        a, sa, azp, lin = _w8a8_operands("int8", m, k, n, cuda_device, bias)
+        wide = torch.zeros(m, k + 32, dtype=torch.int8, device=cuda_device)
+        wide[:, 16:16 + k] = a
+        for x in (a, wide[:, 16:16 + k]):
+            for zp in (azp, None):
+                args = (x, lin.w, sa, lin.scale, torch.bfloat16, lin.colsum, zp, lin.bias)
+                got = cuda_backend.int8_matmul_cuda(*args)
+                want = torch_backend.int8_matmul_torch(*args)
+                assert got.shape == (m, n) and torch.equal(got, want), (bias, zp is None)
+    assert cuda_backend.int8_matmul_cuda.launches == 8
+
+
+@pytest.mark.gpu
 def test_w8a8_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     from fastdm_tpu_torch.kernels import cuda_backend
 
@@ -322,6 +352,10 @@ def test_w8a8_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                                       lin.bias)
     with pytest.raises(ValueError, match="multiple of 16"):
         cuda_backend.int8_matmul_cuda(a[:, :40], lin.w[:40], sa, lin.scale, torch.bfloat16,
+                                      lin.colsum, azp, lin.bias)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # a row pitch of 72 bytes
+        cuda_backend.int8_matmul_cuda(torch.zeros(32, 72, dtype=torch.int8, device=cuda_device)
+                                      [:, :64], lin.w, sa, lin.scale, torch.bfloat16,
                                       lin.colsum, azp, lin.bias)
     f8, _, _, lin8 = _w8a8_operands("fp8", 32, 64, 48, cuda_device)
     with pytest.raises(ValueError, match="K-contiguous"):
@@ -558,17 +592,27 @@ def test_sparse_mask_kernel_matches_plain_on_card(cuda_device, case):
     _close_to_plain(got, torch_backend.sdpa_sparse_torch(q, k, v, hq, hkv, d, **kw), empty, bq)
 
 
+# the coarse walk: each WALK_CASES case with block_k doubled, and tables
+# whose block_q and block_k are odd multiples of 64 (blocks of one consumer;
+# tiles pairing the 64-key halves of two entries), one of them GQA at D 64
+COARSE_CASES = {
+    **{name: (*c[:7], 2 * c[7], *c[8:]) for name, c in WALK_CASES.items()},
+    "odd-192x320": (1, 1000, 1111, 4, 4, 128, 192, 320, None, 0.5, 2),
+    "odd-gqa-d64": (2, 700, 900, 8, 2, 64, 64, 192, None, 0.5, 3),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", sorted(WALK_CASES))
+@pytest.mark.parametrize("case", sorted(COARSE_CASES))
 def test_gather_coarse_kernel_matches_plain_on_card(cuda_device, case):
     """Coarse lists with padding entries past each row's count (index 0
-    repeated, never computed), a ragged last KV tile, an empty row."""
+    repeated, never computed), a ragged last KV tile, an empty row, and tile
+    sizes that are odd multiples of 64."""
     from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
     from fastdm_tpu_torch.sparse.xsparse import mask_to_block_lists
 
-    b, sq, skv, hq, hkv, d, bq, bk, _, density, empty = WALK_CASES[case]
-    bk *= 2
-    q, k, v = _walk_operands(WALK_CASES[case], cuda_device)
+    b, sq, skv, hq, hkv, d, bq, bk, _, density, empty = COARSE_CASES[case]
+    q, k, v = _walk_operands(COARSE_CASES[case], cuda_device)
     m = np.random.default_rng(10).random((-(-sq // bq), -(-skv // bk))) < density
     m[:, -1] = True
     if empty is not None:
@@ -608,11 +652,11 @@ def test_gather_fine_kernel_matches_plain_on_card(cuda_device, case):
 
 @pytest.mark.gpu
 def test_walks_allowing_every_key_equal_dense_kernel(cuda_device):
-    """All-ones mask, coarse lists of every tile and fine tables of every
-    block give the dense walk's result bit for bit (skv = 1000: the last tile
-    is partial)."""
+    """All-ones mask and fine tables of every block give the dense walk's
+    result bit for bit (skv = 1000: the last tile is partial); the coarse walk
+    is held to sdpa's kernel in test_coarse_allowing_every_key_equals_sdpa_kernel."""
     from fastdm_tpu_torch.kernels import cuda_backend
-    from fastdm_tpu_torch.sparse.xsparse import fine_tables_from_mask, mask_to_block_lists
+    from fastdm_tpu_torch.sparse.xsparse import fine_tables_from_mask
 
     b, s, h, d = 1, 1000, 4, 128
     q, k, v = _walk_operands((b, s, s, h, h, d), cuda_device, seed=12)
@@ -621,12 +665,40 @@ def test_walks_allowing_every_key_equal_dense_kernel(cuda_device):
     mask = torch.ones(b, h, 8, 8, dtype=torch.int32, device=cuda_device)
     assert torch.equal(cuda_backend.sparse_attention_cuda(q, k, v, h, h, d, sparse_mask=mask),
                        dense)
-    idx, cnt, _ = mask_to_block_lists(np.ones((4, 4), bool))
-    assert torch.equal(cuda_backend.gather_sparse_attention_cuda(
-        q, k, v, *to((idx, cnt)), h, h, d, block_q=256, block_k=256), dense)
     tables = to(fine_tables_from_mask(np.ones((2, 8), bool), 4, 128, s))
     assert torch.equal(cuda_backend.gather_fine_attention_cuda(
         q, k, v, *tables, h, h, d, block_q=512, group=4, fine=128), dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(256, 256), (192, 320), (64, 64)])
+@pytest.mark.parametrize("gqa_d64", [False, True])
+def test_coarse_allowing_every_key_equals_sdpa_kernel(cuda_device, blocks, gqa_d64):
+    """Coarse lists of every KV tile in order give dense sdpa's kernel result
+    bit for bit: the same 128-key tiles in the same order through the same
+    code (skv = 1000: the last tile is partial), also when block_k is an odd
+    multiple of 64 (tiles pair the halves of two entries) and when block_q is
+    one (blocks of one consumer); an emptied row gives zeros and leaves the
+    other rows as they were."""
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.sparse.xsparse import mask_to_block_lists
+
+    bq, bk = blocks
+    b, s, hq, hkv, d = (2, 1000, 8, 2, 64) if gqa_d64 else (1, 1000, 4, 4, 128)
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v = (torch.randn(b, s, h * d, generator=g, device=cuda_device, dtype=torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    idx, cnt, _ = mask_to_block_lists(np.ones((-(-s // bq), -(-s // bk)), bool))
+    idx, cnt = (torch.from_numpy(t).to(cuda_device) for t in (idx, cnt))
+    got = cuda_backend.gather_sparse_attention_cuda(q, k, v, idx, cnt, hq, hkv, d, block_q=bq,
+                                                    block_k=bk)
+    assert torch.equal(got, cuda_backend.sdpa_cuda(q, k, v, hq, hkv, d))
+    cnt[1] = 0
+    emptied = cuda_backend.gather_sparse_attention_cuda(q, k, v, idx, cnt, hq, hkv, d,
+                                                        block_q=bq, block_k=bk)
+    assert not emptied[:, bq:2 * bq].any()
+    assert torch.equal(emptied[:, :bq], got[:, :bq])
+    assert torch.equal(emptied[:, 2 * bq:], got[:, 2 * bq:])
 
 
 @pytest.mark.gpu

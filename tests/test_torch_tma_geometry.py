@@ -1,12 +1,14 @@
 """What the CPU can check of the port's Hopper kernels that load through the
-Tensor Memory Accelerator (csrc/fp8_gemm.cu, csrc/flash_attn.cu, csrc/sm90.cuh):
-the tensor-map geometry the dense attention wrapper computes from its operand
-views (kernels/tma.py) against the strides of real CPU tensor views, the build
-list and the library hash, and which C launcher the W8A8 wrapper picks per
-operand type. Nothing is built or launched here; the kernels themselves are
+Tensor Memory Accelerator (csrc/fp8_gemm.cu, csrc/w8a8_gemm.cu over
+csrc/w8a8_sm90.cuh, csrc/flash_attn.cu, csrc/sm90.cuh): the tensor-map
+geometry the attention wrappers (dense sdpa, the coarse walk) compute from
+their operand views (kernels/tma.py) against the strides of real CPU tensor
+views, the build list and the library hash, and which C launcher, with which
+arguments, the W8A8 and attention wrappers pick. Nothing is built or launched here; the kernels themselves are
 held to their plain versions on the card (tests/test_torch_cuda_kernels.py,
 chip_smoke.py)."""
 
+import contextlib
 import shutil
 
 import numpy as np
@@ -14,7 +16,7 @@ import pytest
 import torch
 
 from fastdm_tpu_torch.kernels import build, cuda_backend, kernel_registry
-from fastdm_tpu_torch.kernels.tma import ATTN_ROWS, attention_geometry
+from fastdm_tpu_torch.kernels.tma import ATTN_ROWS, HALF_ROWS, attention_geometry, coarse_rows
 
 
 def _element_at(view: torch.Tensor, geom, coord) -> torch.Tensor:
@@ -93,9 +95,23 @@ def test_build_lists_the_fp8_gemm_and_the_shared_header():
     assert "fp8_gemm" in build.SOURCES and "w8a8_gemm" in build.SOURCES
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
-    for name in ("fp8_gemm", "flash_attn"):
-        assert '#include "sm90.cuh"' in (build.CSRC / f"{name}.cu").read_text()
+    assert '#include "sm90.cuh"' in (build.CSRC / "flash_attn.cu").read_text()
+    assert '#include "sm90.cuh"' in (build.CSRC / "w8a8_sm90.cuh").read_text()
+    for name in ("fp8_gemm", "w8a8_gemm"):  # both GEMMs on the one ring
+        assert '#include "w8a8_sm90.cuh"' in (build.CSRC / f"{name}.cu").read_text()
     assert (build.CSRC / "sm90.cuh").exists()
+
+
+def test_no_mma_sync_int8_gemm_or_coarse_walk_remains():
+    """The int8 GEMM issues wgmma only, and the coarse walk left the
+    mma.sync tile of gather_attn.cu for flash_attn.cu."""
+    gemm = (build.CSRC / "w8a8_gemm.cu").read_text()
+    for instruction in ("mma.sync.aligned", "ldmatrix.sync", "cp.async.cg"):
+        assert instruction not in gemm
+    assert "s32.s8.s8" in (build.CSRC / "sm90.cuh").read_text()
+    walks = (build.CSRC / "gather_attn.cu").read_text()
+    assert "Coarse" not in walks and "fdm_gather_coarse_fwd" not in walks
+    assert "CoarseTables" in (build.CSRC / "flash_attn.cu").read_text()
 
 
 def test_library_path_changes_when_sm90_header_changes(tmp_path, monkeypatch):
@@ -133,3 +149,101 @@ def test_dense_walk_is_counted_but_no_op_dispatches_to_it():
     registered = {fn for impls in kernel_registry._ops.values() for fn in impls.values()}
     assert cuda_backend.sdpa_cuda in registered
     assert cuda_backend.dense_walk_attention_cuda not in registered
+
+
+@pytest.mark.parametrize("block_q,rows", [(512, 128), (256, 128), (128, 128), (64, 64),
+                                          (192, 64), (320, 64)])
+def test_coarse_rows_keep_each_block_in_one_table_row(block_q, rows):
+    """A block of the coarse walk takes 128 query rows when block_q is a
+    multiple of 128, else 64, and loads K / V in 64-key boxes; every block
+    then lies inside one table row (row q0 // block_q)."""
+    assert coarse_rows(block_q) == (rows, HALF_ROWS)
+    for q0 in range(0, 4 * block_q, rows):
+        assert q0 // block_q == (q0 + rows - 1) // block_q
+
+
+@pytest.mark.parametrize("block_q", [0, 32, 96, 100])
+def test_coarse_rows_reject_blocks_not_multiples_of_64(block_q):
+    with pytest.raises(ValueError, match="multiple of 64"):
+        coarse_rows(block_q)
+
+
+class _FakeLaunch:
+    """Stands in for a ctypes launcher: records its arguments, returns 0."""
+
+    def __init__(self):
+        self.args = None
+
+    def __call__(self, *args):
+        self.args = args
+        return 0
+
+
+def _fake_cuda_wrapper(monkeypatch):
+    """Routes cuda_backend's launches to a _FakeLaunch, with CPU tensors
+    passing the device checks, so the host-side arguments of a wrapper can
+    be read on the CPU."""
+    fake = _FakeLaunch()
+    monkeypatch.setattr(cuda_backend, "_entry", lambda lib, fn, types: ((lib, fn, len(types)),
+                                                                        fake))
+    monkeypatch.setattr(cuda_backend, "_check_tensor", lambda *a: None)
+    monkeypatch.setattr(cuda_backend, "_stream", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    return fake
+
+
+@pytest.mark.parametrize("block_q,block_k,q_rows", [(512, 1024, 128), (192, 320, 64)])
+def test_coarse_wrapper_passes_the_walk_its_tables_and_box_rows(monkeypatch, block_q, block_k,
+                                                                  q_rows):
+    """gather_sparse_attention_cuda launches the coarse walk of flash_attn.cu
+    with the table arguments first and q's box rows from coarse_rows, K's and
+    V's 64; the geometry it packs equals attention_geometry of each view."""
+    fake = _fake_cuda_wrapper(monkeypatch)
+    b, sq, skv, hq, hkv, d = 1, 700, 1300, 4, 2, 128
+    q = torch.zeros(b, sq, hq * d, dtype=torch.bfloat16)
+    kv = torch.zeros(b, skv, 2 * hkv * d, dtype=torch.bfloat16)
+    k, v = kv[..., :hkv * d], kv[..., hkv * d:]
+    nq, nk = -(-sq // block_q), -(-skv // block_k)
+    idx = torch.zeros(nq, nk, dtype=torch.int32)
+    cnt = torch.ones(nq, 1, dtype=torch.int32)
+    cuda_backend.reset_launch_counts()
+    out = cuda_backend.gather_sparse_attention_cuda(q, k, v, idx, cnt, hq, hkv, d,
+                                                    block_q=block_q, block_k=block_k)
+    assert out.shape == q.shape and cuda_backend.gather_sparse_attention_cuda.launches == 1
+    args = fake.args
+    assert args[:6] == (idx.data_ptr(), cnt.data_ptr(), nq, nk, block_q, block_k)
+    geom = list(args[10])
+    want = [x for t, r in ((q, q_rows), (k, HALF_ROWS), (v, HALF_ROWS))
+            for x in attention_geometry(t, d, r).packed()]
+    assert geom == want
+    assert args[11:17] == (b, sq, skv, hq, hkv, d)
+    assert args[-2] == 0  # not causal
+
+
+def test_sdpa_wrapper_keeps_128_row_boxes(monkeypatch):
+    fake = _fake_cuda_wrapper(monkeypatch)
+    q = torch.zeros(2, 300, 4 * 64, dtype=torch.bfloat16)
+    cuda_backend.sdpa_cuda(q, q, q, 4, 4, 64, True)
+    assert list(fake.args[4]) == [x for _ in range(3)
+                                  for x in attention_geometry(q, 64, ATTN_ROWS).packed()]
+    assert fake.args[-2] == 1  # causal
+
+
+def test_int8_wrapper_passes_shape_pitches_and_zero_point(monkeypatch):
+    """int8_matmul_cuda hands the launcher m, n, k, a's row pitch (a strided
+    view keeps its own), the weight buffer's row pitch and the stream; the
+    zero-point pointers are NULL without azp."""
+    fake = _fake_cuda_wrapper(monkeypatch)
+    wide = torch.zeros(3, 96, dtype=torch.int8)
+    w = torch.zeros(48, 64, dtype=torch.int8).t()  # the (K, N) view of an (N, K) buffer
+    sa, sb = torch.ones(3, 1), torch.ones(48)
+    colsum, azp = torch.zeros(48, dtype=torch.int32), torch.zeros(3, 1, dtype=torch.int32)
+    for a, lda in ((wide[:, :64].contiguous(), 64), (wide[:, 16:80], 96)):
+        for zp in (azp, None):
+            cuda_backend.int8_matmul_cuda(a, w, sa, sb, torch.bfloat16, colsum, zp, None)
+            assert len(fake.args) == 14
+            assert fake.args[0] == a.data_ptr()
+            assert fake.args[4:6] == ((azp.data_ptr(), colsum.data_ptr()) if zp is not None
+                                      else (None, None))
+            assert fake.args[8:] == (3, 48, 64, lda, 64, 0)  # m, n, k, lda, ldb, stream

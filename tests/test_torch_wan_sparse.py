@@ -18,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from fastdm_tpu.kernels.jnp_backend.impl import sdpa_gather_jnp
 from fastdm_tpu.models import wan as jwan
 from fastdm_tpu.sparse.xsparse import RadialAttn as JRadialAttn
 from fastdm_tpu_torch.kernels import kernel_registry
+from fastdm_tpu_torch.kernels.torch_backend import sdpa_gather_torch
 from fastdm_tpu_torch.models import wan as twan
 from fastdm_tpu_torch.models.convert import wan_params_from_numpy
 from fastdm_tpu_torch.sparse.xsparse import RadialAttn
@@ -105,6 +107,28 @@ def _mode_tables(mode: str, heads: int):
         t, j = (a.block_lists_super(64, 2, 4) for a in (mine, theirs))
     _same(t, j)
     return tuple(torch.from_numpy(a) for a in t), tuple(jnp.asarray(a) for a in j)
+
+
+@pytest.mark.parametrize("blocks", [(64, 192), (192, 320)])
+def test_coarse_op_on_radial_lists_of_odd_tiles_matches_jax(blocks):
+    """The coarse op on both packages' radial lists (equal) at tile sizes
+    that are odd multiples of 64, as the card's coarse walk pairs the 64-key
+    halves of two entries: block_k 192 or 320 leaves a ragged last KV tile of
+    128 of the 2048 keys. sdpa_gather_torch (the plain version, the oracle
+    of the kernel) against the JAX package's jnp oracle on the same numpy
+    inputs in f32, within 1e-5 (sums in another order)."""
+    bq, bk = blocks
+    mine, theirs = _pair(RADIAL32, TOKENS, FHW[0])
+    t, j = (a.block_lists(bq, bk) for a in (mine, theirs))
+    _same(t, j)
+    assert TOKENS % bk and (t[1] < t[0].shape[1]).any()  # a ragged tail; padding entries
+    rng = np.random.default_rng(12)
+    q, k, v = (rng.standard_normal((1, TOKENS, 2 * 64)).astype(np.float32) for _ in range(3))
+    got = sdpa_gather_torch(*(torch.from_numpy(a) for a in (q, k, v)),
+                            *(torch.from_numpy(a) for a in t), 2, 2, 64, block_q=bq, block_k=bk)
+    want = sdpa_gather_jnp(*(jnp.asarray(a) for a in (q, k, v)), *(jnp.asarray(a) for a in j),
+                           2, 2, 64, block_q=bq, block_k=bk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
