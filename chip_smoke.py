@@ -23,9 +23,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (wgmma + TMA) is timed in turns with the dense walk, the mma.sync design
      it replaced (walk, sdpa, sdpa, walk), at the FLUX,
      SDXL 8192-token and Wan 32760-token shapes; the dense walk is held to the
-     plain sdpa; on tables that allow every key the super, fine and mask walks
-     equal it bit for bit, and the coarse walk, which runs on sdpa's kernel,
-     equals sdpa. No serving path may launch the dense walk.
+     plain sdpa; on tables that allow every key the mask walk equals it bit
+     for bit, and the coarse, superblock and fine walks, which run on sdpa's
+     kernel, equal sdpa. No serving path may launch the dense walk.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
      heads, random weights from a seed) three times: in bf16, in int8 and in
      fp8 (W8A8 block linears drawn straight into int8 / e4m3). Each serves
@@ -726,17 +726,17 @@ def _sparse_walks(dev, g) -> dict:
     (FASTDM_SPARSE_GATHER: super, fine, coarse, mask) on that mode's radial
     tables of the 81-frame 480x832 video (32760 tokens, 40 heads of 128),
     held to its plain version with sdpa's tolerance (1e-3 + 2 bf16 ulp, rel
-    L2 5e-3); tables that allow every key give, bit for bit, the dense walk's
-    result (super, fine, mask: their kernel with no table, the same tiles in
-    the same order through the same tile code) or sdpa's (coarse, which runs
-    on sdpa's wgmma + TMA kernel), and an emptied table row gives zeros. The
-    dense sdpa kernel is held to its plain version here too, with the FLUX
-    tolerance: this shape runs 40 times in each dense Wan forward, and its
-    256 KV tiles (the last one 120 keys) pass through the ring. Timed
-    beside the dense walk, the plain version and F.scaled_dot_product_attention
-    with the mode's dense boolean mask (the same for every head here), and
-    coarse beside sdpa; the bound counts the allowed keys only. The dense walk
-    and the dense sdpa kernel are timed in turns at this shape."""
+    L2 5e-3); tables that allow every key give, bit for bit, sdpa's result
+    (coarse, super, fine: they run on sdpa's wgmma + TMA kernel, the same
+    128-key tiles in the same order through the same code) or the dense
+    walk's (mask: its kernel with no table), and an emptied table row gives
+    zeros. The dense sdpa kernel is held to its plain version here too, with
+    the FLUX tolerance: this shape runs 40 times in each dense Wan forward,
+    and its 256 KV tiles (the last one 120 keys) pass through the ring. Timed
+    beside the dense walk, sdpa, the plain version and
+    F.scaled_dot_product_attention with the mode's dense boolean mask (the
+    same for every head here); the bound counts the allowed keys only. The
+    dense walk and the dense sdpa kernel are timed in turns at this shape."""
     import torch
     import torch.nn.functional as F
 
@@ -787,9 +787,9 @@ def _sparse_walks(dev, g) -> dict:
         if not (excess <= 0 and rel <= 5e-3 and torch.isfinite(got).all()):
             raise AssertionError(f"{name} disagrees with its plain version")
         del want, e
-        # coarse runs on sdpa's kernel, the other walks on the dense walk's tile
-        same_as = "sdpa" if mode == "coarse" else "dense walk"
-        same_dense = torch.equal(kern(full), sdpa_out if mode == "coarse" else dense)
+        # coarse, super and fine run on sdpa's kernel, mask on the dense walk's tile
+        same_as = "dense walk" if mode == "mask" else "sdpa"
+        same_dense = torch.equal(kern(full), dense if mode == "mask" else sdpa_out)
         emptied = kern(empty)
         rows = slice(5 * bq, 6 * bq)
         zero_row = not emptied[:, rows].any()
@@ -818,7 +818,7 @@ def _sparse_walks(dev, g) -> dict:
             f"(sparse/dense walk {ms / dense_ms:.3f}, sparse/sdpa {ms / sdpa_ms:.3f}, sdpa "
             f"{sdpa_ms:.4f} ms); plain {plain_ms:.1f} ms; library {lib_ms} ms ({lib}); bound "
             f"{b_ms:.4f} ms by {b_by}")
-        source = "flash_attn.cu" if mode == "coarse" else "gather_attn.cu"
+        source = "gather_attn.cu" if mode == "mask" else "flash_attn.cu"
         results[name] = dict(
             name=name, route="cuda", source=f"fastdm_tpu_torch/csrc/{source}",
             replaces=f"fastdm_tpu/kernels/pallas/{replaces}", max_abs_err=err, ms=ms,

@@ -1,9 +1,9 @@
-// The flash-attention machinery of the table walks of gather_attn.cu (the
-// sparse modes mask, fine and super, and the table-free dense walk): mma.sync
-// and ldmatrix wrappers, cp.async tile loads, and the per-tile online-softmax
-// step. The walks differ only in which 64-key tiles a block visits. (The
-// dense sdpa kernel and the coarse walk, flash_attn.cu, ran on this tile
-// until their wgmma + TMA redesign.)
+// The flash-attention machinery of the walks of gather_attn.cu (the sparse
+// mode mask and the table-free dense walk): mma.sync and ldmatrix wrappers,
+// cp.async tile loads, and the per-tile online-softmax step. The walks differ
+// only in which 64-key tiles a block visits. (The dense sdpa kernel and the
+// coarse, superblock and fine walks, flash_attn.cu, ran on this tile until
+// their wgmma + TMA redesign.)
 //
 // Layout (mma.sync m16n8k16, bf16 operands, f32 accumulators): a block of 4
 // warps owns 64 query rows, 16 per warp, with their Q fragments, S tile and O

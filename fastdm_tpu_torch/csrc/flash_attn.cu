@@ -1,6 +1,7 @@
 // Flash-attention forward, bf16 q/k/v/out, f32 softmax state, warpgroup MMA
-// fed by the Tensor Memory Accelerator; one kernel, two walks over the KV
-// tiles: dense (sdpa) and the coarse gather lists (sdpa_gather).
+// fed by the Tensor Memory Accelerator; one kernel, four walks over the KV
+// tiles: dense (sdpa) and three radial-sparse table walks of the Wan engine
+// (coarse, superblock and fine gather lists).
 //
 // Replaces, in fastdm_tpu/kernels/pallas/attention.py:
 //   dense  -- sdpa_pallas (:429), which runs _flash_attention (:338) ->
@@ -9,12 +10,23 @@
 //             _flash_kernel_nq (:198);
 //   coarse -- sdpa_gather_pallas (:1069; _gather_sparse_attention :515,
 //             pallas_call :561, kernel :473): per-q-tile lists of block_k-token
-//             KV tiles and their counts (sparse/xsparse.py block_lists).
+//             KV tiles and their counts (sparse/xsparse.py block_lists);
+//   super  -- sdpa_gather_super_pallas (:1002; _gather_super_attention :934,
+//             pallas_call :989, kernel :806): CSR rows [start, count] of
+//             superblock ids, each an aligned run of `superblock` fine blocks
+//             of `fine` tokens, with a bitmask of the active fine sub-blocks
+//             (block_lists_super);
+//   fine   -- sdpa_gather_fine_pallas (:759; _gather_fine_attention :696,
+//             pallas_call :746, kernel :570): CSR rows of fine block ids with
+//             the valid tokens of each entry (block_lists_fine). This kernel
+//             honours every entry's valid count, as the jnp oracle does
+//             (impl.py:343-348); the Pallas kernel derives validity from the
+//             global tail alone (attention.py:654-681).
 // It reads q, k and v straight from the (B, S, H*D) tensors through 3-D
 // tensor maps over (H*D, S, B) with the views' own strides (q|k|v slices of
 // one fused projection included), so neither the head transposes nor the
 // sequence padding the Pallas wrappers built for Mosaic (attention.py:349-355,
-// :423-425) nor the gathered K/V copies of the coarse kernel exist here.
+// :423-425) nor the gathered K/V copies of the gather kernels exist here.
 //
 // Kept from the TPU kernels: the online softmax in base 2 with
 // scale*log2(e) folded into the f32 logits (p = 2^(s*scale*log2(e) - max) by
@@ -31,7 +43,8 @@
 // What bounds it on the H100: operations. At the FLUX shape (S=8704, 24 heads,
 // D=128) it does 4*S^2*D*H = 9.3e11 flops on 214 MB of q/k/v/out, about 4350
 // flops per byte, so the floor is 0.94 ms at 989 bf16 TFLOP/s; a walk counts
-// the keys its table allows (0.982 of dense at Wan's coarse tables).
+// the keys its table allows (of dense attention at Wan's 480x832x81 tables:
+// coarse 0.982, super 0.400, fine 0.544).
 //
 // Design (sm90.cuh): each block takes 128 query rows of one (head, batch)
 // with three warpgroups. Warpgroup 0 is the producer: one thread loads the Q
@@ -50,8 +63,8 @@
 // consumers take turns issuing their MMAs (two named barriers), so one
 // warpgroup's softmax overlaps the other's MMAs. With 128-query blocks every
 // head's K and V pass through L2 half as often as with the 64-query blocks of
-// the mma.sync tile of attn_tile.cuh, which the other sparse walks of
-// gather_attn.cu keep. Tiles lie in shared memory as the TMA writes them with
+// the mma.sync tile of attn_tile.cuh, which the mask walk of gather_attn.cu
+// keeps. Tiles lie in shared memory as the TMA writes them with
 // the 128-byte swizzle: a row of D = 128 bf16 is 256 bytes, so it loads as two
 // 64-column boxes and the descriptors step across them. The tensor maps' S
 // extent is the view's own length, so keys past the last are zero-filled
@@ -59,22 +72,32 @@
 //
 // The walk is a template parameter. Dense is the walk with no table: the
 // consumers count the tiles, tile j holds keys j*128 .., and the code is the
-// sdpa kernel's as before. The coarse walk reads its table in the producer,
-// off the consumers' path: for the block at q0 it takes row q0 / block_q,
-// counts the 64-key halves its first counts[row] entries hold below skv (ids
-// clamped to the KV tiles that exist; padding entries never visited), and
-// publishes the tile count with a second arrival on the Q barrier; then each
-// stage is two 64-key boxes per column atom, the next two halves in table
-// order, so a block_k that is an odd multiple of 64 pairs halves of two
-// entries. The producer writes each stage's two first keys into a per-stage
+// sdpa kernel's as before. A table walk reads its table in the producer, off
+// the consumers' path: for the block at q0 it takes row q0 / block_q, counts
+// the 64-key halves the row allows below skv, and publishes the tile count
+// with a second arrival on the Q barrier; then each stage is two 64-key boxes
+// per column atom, the next two halves in table order, so halves of two
+// entries (or two fine sub-blocks) may share a tile. The walks differ only in
+// how a row lists its halves:
+//   coarse -- the first counts[row] entries of the row, each block_k / 64
+//             halves (ids clamped to the KV tiles that exist);
+//   super  -- entries [start, start+count) of the CSR row, each a superblock
+//             whose set bits name its active fine sub-blocks, each of
+//             fine / 64 halves; the set bits are stepped with __ffs / __popc;
+//   fine   -- entries [start, start+count), each a fine block whose keys end
+//             at fid*fine + valid: the end of each of its halves.
+// Keys outside [0, skv) are skipped and padding entries never visited, so a
+// malformed table gives a wrong answer, never an out-of-bounds access. The
+// producer writes each stage's two first keys and ends into a per-stage
 // shared-memory slot before the stage's K arrival; the consumers read it
-// before they release the stage and mask keys at or past skv per half (a
-// lone last half is loaded twice and its copy masked). On a table that allows
-// every key in order the coarse walk runs the same tiles, in the same order,
-// through the same code as dense sdpa, so it gives the same bits. A block_q
-// that is not a multiple of 128 would let a 128-query block straddle two
-// table rows, so such tables run blocks of one consumer and 64 query rows
-// (the third warpgroup idles), at about half the rate.
+// before they release the stage and mask each column at or past its half's
+// end (skv for coarse and super; a lone last half is loaded twice and its copy
+// masked). On a table that allows every key in order a walk runs the same
+// tiles, in the same order, through the same code as dense sdpa, so it gives
+// the same bits. A block_q that is not a multiple of 128 would let a
+// 128-query block straddle two table rows, so such tables run blocks of one
+// consumer and 64 query rows (the third warpgroup idles), at about half the
+// rate.
 #include "sm90.cuh"
 
 namespace {
@@ -93,7 +116,7 @@ static_assert(128 * (kProducerRegs + 2 * kConsumerRegs) <= 65536,
 
 // A block of `Consumers` consumer warpgroups (64 query rows each) at head
 // dim D; a table walk loads K and V in 64-key boxes and keeps its tile count
-// and each stage's keys in shared memory.
+// and each stage's keys and ends in shared memory.
 template <int D, int Consumers, bool Table>
 struct Cfg {
   static constexpr int kBQ = 64 * Consumers;       // query rows per block
@@ -102,8 +125,11 @@ struct Cfg {
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kKVBytes = kBK * D * 2;      // one K or V tile
   static constexpr int kKVRows = Table ? kHalf : kBK;  // rows of one K / V box
-  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + (1 + 4 * kStages) * 8 +
-                               (Table ? 8 + 8 * kStages : 0);
+  static constexpr int kBarBytes = (1 + 4 * kStages) * 8;  // the mbarriers
+  // a table walk's per-stage slots (int4, 16-byte aligned), then the tile count
+  static constexpr int kSlotsAt = (kBarBytes + 15) & ~15;
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes +
+                               (Table ? kSlotsAt + 16 * kStages + 16 : kBarBytes);
 };
 
 // Dense attention: every 128-key tile in order, up to the causal limit; the
@@ -112,11 +138,14 @@ struct DenseTables {
   static constexpr bool kTable = false;
 };
 
-// The producer's walk over one row of the coarse lists, in 64-key halves:
-// next() returns the first key of the next half the row allows (entries in
-// table order, each entry's halves below skv in order), or -1 when the row is
-// exhausted. Entry ids are clamped to the KV tiles that exist, so a malformed
-// table gives a wrong answer, never an out-of-bounds access.
+// A table walk is the producer's walk over one row of its table, in 64-key
+// halves: tiles() counts the tiles of 128 keys the row's halves fill, two
+// halves a tile; next(end) returns the first key of the next half the row
+// allows, in table order, and sets `end` (keys at or past it are masked), or
+// returns -1 when the row is exhausted.
+
+// Coarse: entries in table order, each entry's halves below skv in order.
+// Entry ids are clamped to the KV tiles that exist.
 struct CoarseWalk {
   const int* idx;  // this row's entries
   int count, last_tile, halves_per_entry, block_k, skv;
@@ -126,7 +155,6 @@ struct CoarseWalk {
     return min(max(idx[entry], 0), last_tile) * block_k + half * kHalf;
   }
 
-  // Tiles of 128 keys the row's halves fill, two halves a tile.
   __device__ __forceinline__ int tiles() const {
     int halves = 0;
     for (int j = 0; j < count; ++j)
@@ -134,7 +162,8 @@ struct CoarseWalk {
     return (halves + 1) / 2;
   }
 
-  __device__ __forceinline__ int next() {
+  __device__ __forceinline__ int next(int& end) {
+    end = skv;
     for (; e < count; ++e, t = 0) {
       if (t < halves_per_entry) {
         const int k0 = key(e, t);
@@ -163,6 +192,146 @@ struct CoarseTables {
     return CoarseWalk{idx + static_cast<long long>(row) * max_nb,
                       min(max(counts[row], 0), max_nb), (skv + block_k - 1) / block_k - 1,
                       block_k / kHalf, block_k, skv, 0, 0};
+  }
+};
+
+// The first entry and the entry count of CSR row `row` ([start, count]),
+// clamped to the n_slots entries of the table.
+__device__ __forceinline__ int2 csr_row(const int* rows, int row, int n_slots) {
+  const int start = min(max(rows[2 * row], 0), n_slots);
+  return make_int2(start, min(max(rows[2 * row + 1], 0), n_slots - start));
+}
+
+// Superblock: entries in table order; entry e is superblock idx[e] of
+// `super_keys` keys, whose set bits in val[e] (below `superblock`) name its
+// active fine sub-blocks of `fine` keys, each fine / 64 halves below skv, in
+// key order. An id whose keys all lie outside [0, skv) is skipped.
+struct SuperWalk {
+  const int* idx;  // this row's entries
+  const int* val;
+  int count, last_super, fine, super_keys, bits_mask, skv;
+  int e, bits, base, key, left;  // the next entry; the current entry's bits not
+                                 // yet visited and first key; the next half's
+                                 // key and the halves left in its sub-block
+
+  __device__ __forceinline__ bool exists(int sid) const { return sid >= 0 && sid <= last_super; }
+
+  // halves of the fine sub-block at key k0 that lie below skv
+  __device__ __forceinline__ int sub_halves(int k0) const {
+    return min(fine / kHalf, max((skv - k0 + kHalf - 1) / kHalf, 0));
+  }
+
+  __device__ __forceinline__ int tiles() const {
+    int halves = 0;
+    for (int j = 0; j < count; ++j) {
+      const int sid = idx[j];
+      if (!exists(sid)) continue;
+      const int k0 = sid * super_keys;
+      int b = val[j] & bits_mask;
+      if (k0 + super_keys <= skv) {  // every sub-block lies below skv
+        halves += __popc(b) * (fine / kHalf);
+        continue;
+      }
+      for (; b != 0; b &= b - 1) halves += sub_halves(k0 + (__ffs(b) - 1) * fine);
+    }
+    return (halves + 1) / 2;
+  }
+
+  __device__ __forceinline__ int next(int& end) {
+    end = skv;
+    while (left == 0) {
+      while (bits == 0) {
+        if (e >= count) return -1;
+        const int sid = idx[e];
+        if (exists(sid)) {
+          bits = val[e] & bits_mask;
+          base = sid * super_keys;
+        }
+        ++e;
+      }
+      key = base + (__ffs(bits) - 1) * fine;
+      bits &= bits - 1;
+      left = sub_halves(key);
+    }
+    --left;
+    key += kHalf;
+    return key - kHalf;
+  }
+};
+
+// The superblock CSR tables of sdpa_gather_super (RadialAttn.block_lists_super):
+// idx, val (n_slots,) superblock ids and sub-block bitmasks; rows (nq, 2)
+// [start, count] of each q tile of block_q rows. Slots past a row's count are
+// padding (valbits 0) and never visited.
+struct SuperTables {
+  static constexpr bool kTable = true;
+  const int* idx;
+  const int* val;
+  const int* rows;
+  int n_slots, block_q, fine, superblock;
+
+  __device__ __forceinline__ SuperWalk walk(int q0, int skv) const {
+    const int2 r = csr_row(rows, q0 / block_q, n_slots);
+    const int super_keys = superblock * fine;
+    return SuperWalk{idx + r.x, val + r.x, r.y, (skv - 1) / super_keys, fine, super_keys,
+                     (1 << superblock) - 1, skv, 0, 0, 0, 0, 0};
+  }
+};
+
+// Fine: entries in table order; entry e is fine block idx[e], whose keys run
+// from fid*fine up to its end min(fid*fine + clamp(valid[e], 0, fine), skv),
+// which is also the end of each of its halves. An id whose keys all lie
+// outside [0, skv) is skipped.
+struct FineWalk {
+  const int* idx;  // this row's entries
+  const int* valid;
+  int count, last_fine, fine, skv;
+  int e, key, end;  // the next entry; the next half's key and its entry's end
+
+  __device__ __forceinline__ bool exists(int fid) const { return fid >= 0 && fid <= last_fine; }
+
+  __device__ __forceinline__ int entry_end(int j, int k0) const {
+    return min(k0 + min(max(valid[j], 0), fine), skv);
+  }
+
+  __device__ __forceinline__ int tiles() const {
+    int halves = 0;
+    for (int j = 0; j < count; ++j) {
+      const int fid = idx[j];
+      if (exists(fid)) halves += (entry_end(j, fid * fine) - fid * fine + kHalf - 1) / kHalf;
+    }
+    return (halves + 1) / 2;
+  }
+
+  __device__ __forceinline__ int next(int& half_end) {
+    while (key >= end) {
+      if (e >= count) return -1;
+      const int fid = idx[e];
+      if (exists(fid)) {
+        key = fid * fine;
+        end = entry_end(e, key);
+      }
+      ++e;
+    }
+    half_end = end;
+    key += kHalf;
+    return key - kHalf;
+  }
+};
+
+// The fine CSR tables of sdpa_gather_fine (RadialAttn.block_lists_fine): idx,
+// valid (n_slots,) fine block ids and their valid tokens; rows (nq, 2)
+// [start, count] of each q tile of block_q rows.
+struct FineTables {
+  static constexpr bool kTable = true;
+  const int* idx;
+  const int* valid;
+  const int* rows;
+  int n_slots, block_q, fine;
+
+  __device__ __forceinline__ FineWalk walk(int q0, int skv) const {
+    const int2 r = csr_row(rows, q0 / block_q, n_slots);
+    return FineWalk{idx + r.x, valid + r.x, r.y, (skv - 1) / fine, fine, skv, 0, 0, 0};
   }
 };
 
@@ -203,10 +372,11 @@ __device__ __forceinline__ void mma_pv(float (&o)[32], const uint32_t (&p)[4], u
   wgmma_m64n64k16_bf16_rs_tb(o, p, desc_sw128(v_addr, kBK * 128), 1);
 }
 
-// The logits of the KV tile whose halves start at keys k_lo and k_hi (this
-// thread's rows r0, r0 + 8; the dense walk's halves are adjacent, k_hi = k_lo
-// + 64, a table walk's need not be): keys at or past skv and the causal upper
-// triangle masked, the running max updated in
+// The logits of the KV tile whose halves start at keys key.x and key.y and
+// end at key.z and key.w (this thread's rows r0, r0 + 8; the dense walk's
+// halves are adjacent, key.y = key.x + 64, both ending at skv; a table walk's
+// need not be, and a fine walk's end inside a half): keys at or past their
+// half's end and the causal upper triangle masked, the running max updated in
 // base-2 units (scale_log2 times the raw row max: the same number as the max
 // of the scaled logits when the scale is positive), and each logit turned into
 // p = 2^(s * scale_log2 - max) by one FFMA and ex2; returns each row's rescale
@@ -215,26 +385,27 @@ __device__ __forceinline__ void mma_pv(float (&o)[32], const uint32_t (&p)[4], u
 // into NaN), so then the logits are scaled first and the rest runs at scale 1.
 template <bool kHalves>
 __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m_run)[2],
-                                             float (&alpha)[2], float (&rs)[2], int k_lo,
-                                             int k_hi, int skv, int causal, int wrow, int r0,
-                                             int diag, int t, float scale_log2) {
+                                             float (&alpha)[2], float (&rs)[2], int4 key,
+                                             int causal, int wrow, int r0, int diag, int t,
+                                             float scale_log2) {
   if (scale_log2 <= 0.f) {  // uniform over the grid: a branch no warp diverges on
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) sc[i] *= scale_log2;
     scale_log2 = 1.f;
   }
-  // accumulator column 8n + c is key k_lo + 8n + c in the first half and
+  // accumulator column 8n + c is key key.x + 8n + c in the first half and
   // hi0 + 8n + c in the second
-  const int hi0 = kHalves ? k_hi - kHalf : k_lo;
-  const int k_end = kHalves ? max(k_lo, k_hi) + kHalf : k_lo + kBK;
-  if (k_end > skv || (causal && k_lo + kBK - 1 > wrow + diag)) {
+  const int hi0 = kHalves ? key.y - kHalf : key.x;
+  const bool cut = kHalves ? key.x + kHalf > key.z || key.y + kHalf > key.w : key.x + kBK > key.z;
+  if (cut || (causal && key.x + kBK - 1 > wrow + diag)) {
 #pragma unroll
     for (int n = 0; n < kBK / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = (n < kHalf / 8 ? k_lo : hi0) + n * 8 + 2 * t + (e & 1);
+        const int col = (n < kHalf / 8 ? key.x : hi0) + n * 8 + 2 * t + (e & 1);
+        const int end = n < kHalf / 8 ? key.z : key.w;
         const int row = r0 + (e >> 1) * 8;
-        if (col >= skv || (causal && col > row + diag)) sc[4 * n + e] = -INFINITY;
+        if (col >= end || (causal && col > row + diag)) sc[4 * n + e] = -INFINITY;
       }
     }
   }
@@ -318,13 +489,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)
   wgmma_commit();
 }
 
-// The first keys of tile j's two 64-key halves: a table walk's are in its
-// stage's slot, written by the producer before the stage's K arrival (read
-// before the stage is released); the dense walk's are j*kBK and j*kBK + 64.
+// The first keys of tile j's two 64-key halves and their ends: a table
+// walk's are in its stage's slot, written by the producer before the stage's
+// K arrival (read before the stage is released); the dense walk's are j*kBK
+// and j*kBK + 64, both ending at skv.
 template <class Tables>
-__device__ __forceinline__ int2 tile_keys(const int2* keys_s, int s, int j) {
+__device__ __forceinline__ int4 tile_keys(const int4* keys_s, int s, int j, int skv) {
   if constexpr (Tables::kTable) return keys_s[s];
-  else return make_int2(j * kBK, j * kBK + kHalf);
+  else return make_int4(j * kBK, j * kBK + kHalf, skv, skv);
 }
 
 // K or V of one tile as two 64-key halves, at keys lo and hi, each box one
@@ -359,8 +531,9 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* v_full = k_full + C::kStages;               // [stage]: V bytes landed
   uint64_t* k_empty = v_full + C::kStages;              // [stage]: every consumer read K
   uint64_t* v_empty = k_empty + C::kStages;             // [stage]: every consumer read V
-  int* n_tiles_s = reinterpret_cast<int*>(v_empty + C::kStages);  // table walks: the tile count
-  int2* keys_s = reinterpret_cast<int2*>(n_tiles_s + 2);          // [stage]: the halves' keys
+  // table walks: [stage] the halves' first keys and ends, then the tile count
+  int4* keys_s = reinterpret_cast<int4*>(reinterpret_cast<uint8_t*>(q_full) + C::kSlotsAt);
+  int* n_tiles_s = reinterpret_cast<int*>(keys_s + C::kStages);
 
   const int q0 = blockIdx.x * C::kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -400,8 +573,8 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     if constexpr (Tables::kTable) {
       // the row's table read here, off the consumers' path: its tile count,
       // then each tile's two halves in the walk's order (a lone last half is
-      // loaded again as the second one, which the consumers mask: its key is
-      // skv)
+      // loaded again as the second one, which the consumers mask: its key and
+      // end are skv)
       auto walk = tables.walk(q0, skv);
       n_tiles = walk.tiles();
       *n_tiles_s = n_tiles;
@@ -409,10 +582,11 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % C::kStages;
         const uint32_t parity = ((j / C::kStages) & 1) ^ 1;
-        const int lo = walk.next();
-        int hi = walk.next();
+        int lo_end, hi_end;
+        const int lo = walk.next(lo_end);
+        int hi = walk.next(hi_end);
         mbar_wait(&k_empty[s], parity);
-        keys_s[s] = make_int2(lo, hi < 0 ? skv : hi);
+        keys_s[s] = hi < 0 ? make_int4(lo, skv, lo_end, skv) : make_int4(lo, hi, lo_end, hi_end);
         if (hi < 0) hi = lo;
         load_halves<D>(k_s + s * C::kKVBytes, &map_k, &k_full[s], hk * D, lo, hi, b,
                        C::kKVBytes);
@@ -472,21 +646,21 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(q_full, 0);
     turn_wait<Consumers>(cw);
     mbar_wait(&k_full[0], 0);
-    const int2 key = tile_keys<Tables>(keys_s, 0, 0);
+    const int4 key = tile_keys<Tables>(keys_s, 0, 0, skv);
     issue_qk<D, C::kBQ>(sc, q_addr, k_base);
     turn_pass<Consumers>(cw);
     wgmma_wait<0>();
     fence_regs(sc);
     if (lane == 0) mbar_arrive(&k_empty[0]);
-    softmax_tile<Tables::kTable>(sc, m_run, alpha, rs, key.x, key.y, skv, causal, wrow, r0,
-                                 diag, t, scale_log2);
+    softmax_tile<Tables::kTable>(sc, m_run, alpha, rs, key, causal, wrow, r0, diag, t,
+                                 scale_log2);
     rescale_and_pack<D>(o, l_run, alpha, rs, sc, pa);
   }
   for (int j = 1; j < n_tiles; ++j) {
     const int s = j % C::kStages, sp = (j - 1) % C::kStages;
     turn_wait<Consumers>(cw);
     mbar_wait(&k_full[s], (j / C::kStages) & 1);
-    const int2 key = tile_keys<Tables>(keys_s, s, j);
+    const int4 key = tile_keys<Tables>(keys_s, s, j, skv);
     issue_qk<D, C::kBQ>(sc, q_addr, k_base + s * C::kKVBytes);
     mbar_wait(&v_full[sp], ((j - 1) / C::kStages) & 1);
     issue_pv<D>(o, pa, v_base + sp * C::kKVBytes);
@@ -494,8 +668,8 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait<1>();  // S of tile j
     fence_regs(sc);
     if (lane == 0) mbar_arrive(&k_empty[s]);
-    softmax_tile<Tables::kTable>(sc, m_run, alpha, rs, key.x, key.y, skv, causal, wrow, r0,
-                                 diag, t, scale_log2);
+    softmax_tile<Tables::kTable>(sc, m_run, alpha, rs, key, causal, wrow, r0, diag, t,
+                                 scale_log2);
     wgmma_wait<0>();  // P V of tile j-1
     fence_regs(o);
     if (lane == 0) mbar_arrive(&v_empty[sp]);
@@ -590,6 +764,16 @@ int run(const Tables& tables, const Operands& a) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A table walk (non-causal): blocks of two consumers when block_q is a
+// multiple of 128 (q's box 128 rows), else blocks of one consumer, so that no
+// block straddles two table rows (q's box 64 rows); k's and v's boxes are 64
+// rows.
+template <class Tables>
+int run_walk(const Tables& tables, int block_q, const Operands& a) {
+  if (a.causal != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return block_q % (2 * kHalf) == 0 ? run<2>(tables, a) : run<1>(tables, a);
+}
+
 }  // namespace
 
 #define FDM_ATTN_PARAMS                                                                    \
@@ -608,24 +792,47 @@ FDM_EXPORT int fdm_flash_attn_fwd(FDM_ATTN_PARAMS) {
   return run<2>(DenseTables{}, FDM_ATTN_OPERANDS);
 }
 
-// The coarse gather walk (non-causal: causal must be 0). idx: int32 (nq,
-// max_nb) KV tile ids of block_k tokens; counts: int32 (nq, 1), nq =
-// ceil(sq/block_q); block_q and block_k multiples of 64. A block_q that is a
-// multiple of 128 runs blocks of two consumers (q's box 128 rows), another one
-// blocks of one consumer, so that no block straddles two table rows (q's box
-// 64 rows); k's and v's boxes are 64 rows.
+// The table walks below are non-causal (causal must be 0) and take block_q
+// and their tile sizes as multiples of 64; nq = ceil(sq/block_q).
+
+// The coarse gather walk. idx: int32 (nq, max_nb) KV tile ids of block_k
+// tokens; counts: int32 (nq, 1).
 FDM_EXPORT int fdm_flash_attn_coarse_fwd(const void* idx, const void* counts, int nq, int max_nb,
                                          int block_q, int block_k, FDM_ATTN_PARAMS) {
   if (block_q < kHalf || block_q % kHalf != 0 || block_k < kHalf || block_k % kHalf != 0 ||
-      nq < 1 || max_nb < 1 || causal != 0)
+      nq < 1 || max_nb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const CoarseTables t{static_cast<const int*>(idx), static_cast<const int*>(counts), nq, max_nb,
                        block_q, block_k};
-  return block_q % (2 * kHalf) == 0 ? run<2>(t, FDM_ATTN_OPERANDS) : run<1>(t, FDM_ATTN_OPERANDS);
+  return run_walk(t, block_q, FDM_ATTN_OPERANDS);
+}
+
+// The superblock walk. idx / val: int32 (n_slots,) superblock ids and
+// sub-block bitmasks; rows: int32 (nq, 2) [start, count]; superblock in [1, 30].
+FDM_EXPORT int fdm_flash_attn_super_fwd(const void* idx, const void* val, const void* rows,
+                                        int n_slots, int block_q, int fine, int superblock,
+                                        FDM_ATTN_PARAMS) {
+  if (block_q < kHalf || block_q % kHalf != 0 || fine < kHalf || fine % kHalf != 0 ||
+      superblock < 1 || superblock > 30)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SuperTables t{static_cast<const int*>(idx), static_cast<const int*>(val),
+                      static_cast<const int*>(rows), n_slots, block_q, fine, superblock};
+  return run_walk(t, block_q, FDM_ATTN_OPERANDS);
+}
+
+// The fine walk. idx / valid: int32 (n_slots,) fine block ids and their valid
+// tokens; rows: int32 (nq, 2) [start, count].
+FDM_EXPORT int fdm_flash_attn_fine_fwd(const void* idx, const void* valid, const void* rows,
+                                       int n_slots, int block_q, int fine, FDM_ATTN_PARAMS) {
+  if (block_q < kHalf || block_q % kHalf != 0 || fine < kHalf || fine % kHalf != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FineTables t{static_cast<const int*>(idx), static_cast<const int*>(valid),
+                     static_cast<const int*>(rows), n_slots, block_q, fine};
+  return run_walk(t, block_q, FDM_ATTN_OPERANDS);
 }
 
 // Dynamic shared memory of one block, bytes: dense (table 0, two consumers)
-// or the coarse walk (table 1, one or two consumers), at head dim D (0 for
+// or a table walk (table 1, one or two consumers), at head dim D (0 for
 // another shape).
 FDM_EXPORT int fdm_flash_attn_smem_bytes(int head_dim, int consumers, int table) {
   const bool d128 = head_dim == 128;

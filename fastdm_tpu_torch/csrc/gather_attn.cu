@@ -1,144 +1,59 @@
 // Block-sparse flash attention, bf16 q/k/v/out, f32 softmax state, tensor
-// cores: one kernel, three table walks (radial sparse modes of the Wan
-// engine). The fourth mode, coarse (sdpa_gather_pallas, attention.py:1069),
-// runs on the wgmma + TMA kernel of flash_attn.cu.
+// cores: one kernel, one table walk (the mask mode of the Wan engine) and the
+// dense walk that is its bit-for-bit reference. The other three radial sparse
+// modes -- coarse (sdpa_gather_pallas, attention.py:1069), super
+// (sdpa_gather_super_pallas, :1002) and fine (sdpa_gather_fine_pallas, :759)
+// -- run on the wgmma + TMA kernel of flash_attn.cu.
 //
 // Replaces, in fastdm_tpu/kernels/pallas/attention.py:
-//   super  -- sdpa_gather_super_pallas (:1002; _gather_super_attention :934,
-//             pallas_call :989, kernel :806): CSR rows [start, count] of
-//             superblock ids, each an aligned run of `superblock` fine blocks
-//             of `fine` tokens, with a bitmask of the active fine sub-blocks
-//             (sparse/xsparse.py block_lists_super);
-//   fine   -- sdpa_gather_fine_pallas (:759; _gather_fine_attention :696,
-//             pallas_call :746, kernel :570): CSR rows of fine block ids with
-//             the valid tokens of each entry (block_lists_fine);
 //   mask   -- sdpa_sparse_pallas (:1122; _flash_attention :338, pallas_call
 //             :390, kernel _sparse_flash_kernel :155): a (B, H, nq, nk) block
 //             mask, per batch entry and head (block_mask).
 // Query rows [i*block_q, (i+1)*block_q) attend only to the keys row i of the
-// table allows. Keys past skv do not exist (the global tail fine block is
-// partial: 120 of 128 tokens at the Wan2.2-A14B 480x832x81 shape), and a row
-// that sees no key returns 0, as the plain versions
-// (fastdm_tpu_torch/kernels/torch_backend.py) and the jnp oracles do.
+// mask allows. Keys past skv do not exist, and a row that sees no key returns
+// 0, as the plain version (fastdm_tpu_torch/kernels/torch_backend.py) and the
+// jnp oracle do.
 //
 // What bounds it on the H100: operations, counted on the allowed keys only
 // (allowed (query, key) pairs x 4 x head_dim, per head). At the A14B shape
-// the radial tables allow 0.326 (mask, 128x128 tiles), 0.400 (super, bq 256)
-// and 0.544 (fine, bq 512) of dense attention's work.
+// the radial mask allows 0.326 of dense attention's work (128x128 tiles).
 //
 // Design: the tile machinery of attn_tile.cuh (64-query blocks of 4 warps,
 // mma.sync, 64-key tiles through two cp.async buffers) with a walk over the
 // table in place of a dense KV loop. Each block takes one
-// (64-query tile, head, batch) and reads its own table row i = q0 / block_q
+// (64-query tile, head, batch) and reads its own mask row i = q0 / block_q
 // (block_q a multiple of 64, so several blocks walk one row). The walk yields,
-// in table order, the first key of every 64-key tile the row allows together
-// with that tile's column limit; a tile the table does not allow is skipped,
-// which is exact (a fully masked tile leaves m, l and O unchanged), and only a
-// tile crossing its limit is masked per column:
-//   super  -- every tile of an entry whose fine sub-block bit is set; limit skv;
-//   fine   -- the tiles of entries [start, start+count) below fid*fine + valid,
-//             which is also the limit (capped at skv): the kernel honours each
-//             entry's valid count, as the jnp oracle does (impl.py:343-348);
-//             the Pallas kernel derives validity from the global tail alone
-//             (attention.py:654-681);
+// in order, the first key of every 64-key tile the row allows together with
+// that tile's column limit; a tile the mask does not allow is skipped, which
+// is exact (a fully masked tile leaves m, l and O unchanged), and only a tile
+// crossing its limit is masked per column:
 //   mask   -- the block_k/64 tiles of every set bit of mask row q0/block_q of
 //             mask[b, h] (per head: no row is shared); limit skv;
 //   dense  -- no table: every tile in order; limit skv. It is the loop of the
 //             dense sdpa kernel before that kernel moved to wgmma and TMA
-//             (flash_attn.cu), kept for checks only: the three walks on
-//             tables that allow every key equal it bit for bit (same tiles,
-//             same order, same tile code), and it is the yardstick of their
+//             (flash_attn.cu), kept for checks only: the mask walk on a mask
+//             that allows every key equals it bit for bit (same tiles, same
+//             order, same tile code), and it is the yardstick of the walks'
 //             redesign. No model path launches it.
 // Tiles are loaded straight from the model's (B, S, H*D) tensors (no
 // transposed, padded K/V copy as the Pallas wrappers' DMAs needed), the next
 // allowed tile streaming in while the current one is computed. The softmax
 // scale multiplies the f32 logits, as in the plain versions (the Pallas
 // kernels round q*scale*log2(e) to bf16 first). Every tile size is a multiple
-// of 64, so a 64-key tile never straddles two table entries. The walks clamp
-// every table read to the table, so a malformed table gives a wrong answer,
-// never an out-of-bounds access; the strict value checks run on the host where
-// the tables are built (kernels/contracts.py, strict=True).
+// of 64, so a 64-key tile never straddles two mask blocks. The walk clamps its
+// row to the mask, so a malformed mask gives a wrong answer, never an
+// out-of-bounds access; the strict value checks run on the host where the
+// mask is built (kernels/contracts.py, strict=True).
 #include "attn_tile.cuh"
 
 namespace {
 
 using namespace fdm_attn;
 
-// Each walk: next(e, t, limit) returns, from entry e and tile t of the entry
+// Each walk: next(e, t, limit) returns, from block e and tile t of the block
 // on, the first key of the next allowed tile and sets `limit` (keys at or past
 // it are masked), or returns -1 when the row is exhausted. Every thread of the
 // block runs it alike (uniform control flow).
-
-struct SuperWalk {
-  const int* idx;
-  const int* val;
-  int start, count, tiles_per_entry, tiles_per_fine, superblock_tokens, skv;
-
-  __device__ __forceinline__ int next(int& e, int& t, int& limit) const {
-    limit = skv;
-    for (; e < count; ++e, t = 0) {
-      const int sid = idx[start + e], bits = val[start + e];
-      for (; t < tiles_per_entry; ++t) {
-        const long long key0 = static_cast<long long>(sid) * superblock_tokens + t * kBK;
-        if (((bits >> (t / tiles_per_fine)) & 1) && key0 >= 0 && key0 < skv)
-          return static_cast<int>(key0);
-      }
-    }
-    return -1;
-  }
-};
-
-struct SuperTables {  // idx, val: (n_slots,); rows: (ceil(sq/block_q), 2)
-  const int* idx;
-  const int* val;
-  const int* rows;
-  int n_slots, block_q, fine, superblock;
-
-  __device__ __forceinline__ SuperWalk walk(int q0, int, int, int skv) const {
-    const int row = q0 / block_q;
-    const int start = min(max(rows[2 * row], 0), n_slots);
-    const int count = min(max(rows[2 * row + 1], 0), n_slots - start);
-    return SuperWalk{idx, val, start, count, superblock * fine / kBK, fine / kBK,
-                     superblock * fine, skv};
-  }
-};
-
-struct FineWalk {
-  const int* idx;
-  const int* valid;
-  int start, count, tiles_per_entry, fine, skv;
-
-  __device__ __forceinline__ int next(int& e, int& t, int& limit) const {
-    for (; e < count; ++e, t = 0) {
-      const long long base = static_cast<long long>(idx[start + e]) * fine;
-      const long long lim = min(base + min(max(valid[start + e], 0), fine),
-                                static_cast<long long>(skv));
-      for (; t < tiles_per_entry; ++t) {
-        const long long key0 = base + t * kBK;
-        if (key0 >= lim) break;
-        if (key0 >= 0) {
-          limit = static_cast<int>(lim);
-          return static_cast<int>(key0);
-        }
-      }
-    }
-    return -1;
-  }
-};
-
-struct FineTables {  // idx, valid: (n_slots,); rows: (ceil(sq/block_q), 2)
-  const int* idx;
-  const int* valid;
-  const int* rows;
-  int n_slots, block_q, fine;
-
-  __device__ __forceinline__ FineWalk walk(int q0, int, int, int skv) const {
-    const int row = q0 / block_q;
-    const int start = min(max(rows[2 * row], 0), n_slots);
-    const int count = min(max(rows[2 * row + 1], 0), n_slots - start);
-    return FineWalk{idx, valid, start, count, fine / kBK, fine, skv};
-  }
-};
 
 struct MaskWalk {
   const int* mrow;  // mask[b, h, row, :]
@@ -294,28 +209,6 @@ int run(const Tables& tables, const Operands& a) {
     q, k, v, out, batch, sq, skv, hq, hkv, head_dim, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, \
         o_ss, scale_log2, static_cast<cudaStream_t>(stream)                                   \
   }
-
-// idx/val: int32 (n_slots,) superblock ids and sub-block bitmasks; rows: int32
-// (ceil(sq/block_q), 2) [start, count]. block_q and fine multiples of 64.
-FDM_EXPORT int fdm_gather_super_fwd(const void* idx, const void* val, const void* rows,
-                                    int n_slots, int block_q, int fine, int superblock,
-                                    FDM_OPERANDS_PARAMS) {
-  if (block_q % kBQ != 0 || fine % kBK != 0 || superblock < 1 || superblock > 30)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const SuperTables t{static_cast<const int*>(idx), static_cast<const int*>(val),
-                      static_cast<const int*>(rows), n_slots, block_q, fine, superblock};
-  return run(t, FDM_OPERANDS);
-}
-
-// idx/valid: int32 (n_slots,) fine block ids and their valid tokens; rows:
-// int32 (ceil(sq/block_q), 2) [start, count]. block_q and fine multiples of 64.
-FDM_EXPORT int fdm_gather_fine_fwd(const void* idx, const void* valid, const void* rows,
-                                   int n_slots, int block_q, int fine, FDM_OPERANDS_PARAMS) {
-  if (block_q % kBQ != 0 || fine % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const FineTables t{static_cast<const int*>(idx), static_cast<const int*>(valid),
-                     static_cast<const int*>(rows), n_slots, block_q, fine};
-  return run(t, FDM_OPERANDS);
-}
 
 // mask: int32 (batch, hq, ni, nj) block mask, ni = ceil(sq/block_q), nj =
 // ceil(skv/block_k); nonzero computes a tile. block_q and block_k multiples of 64.

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that load through the
 // Tensor Memory Accelerator and multiply with warpgroup MMA: the two W8A8
 // GEMMs (fp8_gemm.cu, w8a8_gemm.cu, over the ring of w8a8_sm90.cuh) and the
-// flash attention (flash_attn.cu: dense sdpa and the coarse gather walk).
+// flash attention (flash_attn.cu: dense sdpa and the radial-sparse table
+// walks).
 //
 //   - mbarrier init / arrive / expect-tx / parity wait: the full and empty
 //     barriers of a producer-consumer ring of shared-memory stages;

@@ -5,9 +5,10 @@ checkout:
   - Wan2.2-A14B at 480x832x81 (32760 tokens, 40 heads of 128): dense sdpa,
     the superblock walk (gather_super) on the radial superblock tables of
     examples/sparse/radial_attn_wan.json (q tiles of 256 tokens, 8 entries per
-    group, fine blocks of 128, superblocks of 4) and the coarse walk
-    (gather_coarse) on its coarse lists (512 x 1024 tiles), as the engine
-    builds them;
+    group, fine blocks of 128, superblocks of 4), the fine walk (gather_fine)
+    on its fine tables (q tiles of 512 tokens, groups of 32, fine blocks of
+    128) and the coarse walk (gather_coarse) on its coarse lists (512 x 1024
+    tiles), as the engine builds them;
   - FLUX.1-dev at 1024x2048: sdpa at (1, 8704, 24x128), and the int8 and fp8
     W8A8 GEMMs at the single-block qkv_mlp product (8704 x 3072 @ 3072 x
     21504), each on its per-token quantized activation and a random
@@ -18,7 +19,8 @@ checkout:
 Each ROOT (a checkout, e.g. a `git archive` of a commit) is timed in a process
 of its own, in the order given (for an A/B comparison on one card: parent,
 change, change, parent, repeated); one JSON line per ROOT given (each kernel's
-mean ms over 20 calls, CUDA events, and an exact checksum of its output), then
+mean ms over 20 calls, CUDA events, after 2 s of warm-up calls of that kernel,
+and an exact checksum of its output), then
 one JSON line per distinct ROOT with each kernel's median, min and max over
 that ROOT's runs and whether its checksums agree across all runs of all ROOTs,
 then the card's name and power limit. Needs nothing of JAX.
@@ -31,6 +33,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 
 def _one(root: str) -> dict:
@@ -52,6 +55,8 @@ def _one(root: str) -> dict:
     to = lambda ts: [torch.from_numpy(t).to(dev) for t in ts]  # noqa: E731
     super_tables, coarse_tables = to(radial.block_lists_super(bq, group, sb)), \
         to(radial.block_lists(512, 1024))
+    fine_bq, fine_group = 512, 32
+    fine_tables = to(radial.block_lists_fine(fine_bq, fine_group))
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn(1, s, h * hd, generator=g, device=dev, dtype=torch.bfloat16)
                for _ in range(3))
@@ -67,6 +72,8 @@ def _one(root: str) -> dict:
     kernels = {
         "gather_super": lambda: cb.gather_super_attention_cuda(
             q, k, v, *super_tables, h, h, hd, block_q=bq, group=group, fine=fine, superblock=sb),
+        "gather_fine": lambda: cb.gather_fine_attention_cuda(
+            q, k, v, *fine_tables, h, h, hd, block_q=fine_bq, group=fine_group, fine=fine),
         "gather_coarse": lambda: cb.gather_sparse_attention_cuda(
             q, k, v, *coarse_tables, h, h, hd, block_q=512, block_k=1024),
         "sdpa_wan": lambda: cb.sdpa_cuda(q, k, v, h, h, hd),
@@ -78,9 +85,12 @@ def _one(root: str) -> dict:
     }
 
     def ms(fn, iters):
-        for _ in range(2):
+        # the card's clocks follow its load: a kernel is timed after 2 s of its
+        # own calls, not at the clocks the previous kernel's load left
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 2.0:
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         for _ in range(iters):

@@ -332,11 +332,12 @@ sdpa_cuda.launches = 0
 
 # --------------------------------------------------------- sparse attention
 #
-# The coarse walk runs on the wgmma + TMA attention kernel (csrc/flash_attn.cu);
-# super, fine and mask on the table walks of csrc/gather_attn.cu. The wrappers
-# check shapes, dtypes and devices; the table VALUES are not read (that would
-# sync the card): the kernels clamp their table reads, and the engine checks
-# its tables once on the host (contracts, strict=True).
+# The coarse, superblock and fine walks run on the wgmma + TMA attention kernel
+# (csrc/flash_attn.cu); mask on the table walk of csrc/gather_attn.cu, beside
+# the dense walk that is its bit-for-bit reference. The wrappers check shapes,
+# dtypes and devices; the table VALUES are not read (that would sync the
+# card): the kernels clamp their table reads, and the engine checks its tables
+# once on the host (contracts, strict=True).
 
 _OPERAND_TYPES = [_P] * 4 + [_I] * 6 + [_L] * 8 + [_F, _P]
 
@@ -345,8 +346,9 @@ def _sparse_attention(wrapper, kernel: str, entry: str, table_args, table_types,
                       query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
                       num_kv_heads: int, head_dim: int, scale: Optional[float],
                       tiles: dict) -> Tensor:
-    """The checks every walk shares, then one launch of `entry` of
-    gather_attn.cu with the table arguments first, counted on `wrapper`.
+    """The attention checks, then one launch of `entry` of gather_attn.cu (the
+    mask walk or the dense walk) with the table arguments first, counted on
+    `wrapper`.
     tiles: {name: size} of the tile sizes that must be multiples of 64."""
     _check_attention(kernel, query, key, value, head_dim, tables, tiles)
     dev = query.device
@@ -382,13 +384,14 @@ def gather_super_attention_cuda(
                                  block_rows, query.shape[1], key.shape[1], block_q, group, fine,
                                  superblock)
     _require(1 <= superblock <= 30, kernel, f"superblock {superblock} not in [1, 30]")
-    return _sparse_attention(
-        gather_super_attention_cuda, kernel, "fdm_gather_super_fwd",
+    _check_attention(kernel, query, key, value, head_dim,
+                     {"block_indices": block_indices, "block_valbits": block_valbits,
+                      "block_rows": block_rows}, {"block_q": block_q, "fine": fine})
+    return _flash_attention(
+        gather_super_attention_cuda, kernel, "fdm_flash_attn_super_fwd",
         (block_indices.data_ptr(), block_valbits.data_ptr(), block_rows.data_ptr(),
-         block_indices.shape[0], block_q, fine, superblock), [_P] * 3 + [_I] * 4,
-        {"block_indices": block_indices, "block_valbits": block_valbits,
-         "block_rows": block_rows}, query, key, value, num_q_heads, num_kv_heads, head_dim,
-        scale, {"block_q": block_q, "fine": fine})
+         block_indices.shape[0], block_q, fine, superblock), [_P] * 3 + [_I] * 4, query, key,
+        value, num_q_heads, num_kv_heads, head_dim, scale, False, tma.walk_rows(block_q))
 
 
 gather_super_attention_cuda.launches = 0
@@ -398,11 +401,12 @@ def dense_walk_attention_cuda(
     query: Tensor, key: Tensor, value: Tensor, num_q_heads: int, num_kv_heads: int,
     head_dim: int, scale: Optional[float] = None,
 ) -> Tensor:
-    """Dense, non-causal attention on the walks' mma.sync tile (csrc/gather_attn.cu,
-    the table-free walk over every 64-key tile): the design sdpa and the coarse
-    walk ran on before their wgmma + TMA redesign. A check and a yardstick, not
-    a registered op: the super, fine and mask walks on tables that allow every
-    key equal it bit for bit, and no model path reaches it."""
+    """Dense, non-causal attention on the mask walk's mma.sync tile
+    (csrc/gather_attn.cu, the table-free walk over every 64-key tile): the
+    design sdpa and the coarse, superblock and fine walks ran on before their
+    wgmma + TMA redesign. A check and a yardstick, not a registered op: the
+    mask walk on a mask that allows every key equals it bit for bit, and no
+    model path reaches it."""
     contracts.check_sdpa("dense_walk_attention_cuda", query, key, value, num_q_heads,
                          num_kv_heads, head_dim)
     return _sparse_attention(
@@ -423,13 +427,15 @@ def gather_fine_attention_cuda(
                          num_kv_heads, head_dim)
     contracts.check_gather_fine("gather_fine_attention_cuda", block_indices, block_valid,
                                 block_rows, query.shape[1], key.shape[1], block_q, group, fine)
-    return _sparse_attention(
-        gather_fine_attention_cuda, "gather_fine", "fdm_gather_fine_fwd",
+    kernel = "gather_fine"
+    _check_attention(kernel, query, key, value, head_dim,
+                     {"block_indices": block_indices, "block_valid": block_valid,
+                      "block_rows": block_rows}, {"block_q": block_q, "fine": fine})
+    return _flash_attention(
+        gather_fine_attention_cuda, kernel, "fdm_flash_attn_fine_fwd",
         (block_indices.data_ptr(), block_valid.data_ptr(), block_rows.data_ptr(),
-         block_indices.shape[0], block_q, fine), [_P] * 3 + [_I] * 3,
-        {"block_indices": block_indices, "block_valid": block_valid, "block_rows": block_rows},
-        query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
-        {"block_q": block_q, "fine": fine})
+         block_indices.shape[0], block_q, fine), [_P] * 3 + [_I] * 3, query, key, value,
+        num_q_heads, num_kv_heads, head_dim, scale, False, tma.walk_rows(block_q))
 
 
 gather_fine_attention_cuda.launches = 0
@@ -454,7 +460,7 @@ def gather_sparse_attention_cuda(
         gather_sparse_attention_cuda, kernel, "fdm_flash_attn_coarse_fwd",
         (block_indices.data_ptr(), block_counts.data_ptr(), nq, max_nb, block_q, block_k),
         [_P] * 2 + [_I] * 4, query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
-        False, tma.coarse_rows(block_q))
+        False, tma.walk_rows(block_q))
 
 
 gather_sparse_attention_cuda.launches = 0

@@ -478,8 +478,9 @@ def test_gather_super_kernel_matches_plain_on_card(cuda_device, case):
 
 @pytest.mark.gpu
 def test_gather_super_all_active_equals_dense_kernel(cuda_device):
-    """Tables that allow every key give the dense walk's result: the same
-    tiles in the same order through the same tile code, so bit for bit."""
+    """Tables that allow every key give the dense sdpa kernel's result: the
+    same 128-key tiles in the same order through the same code, so bit for
+    bit."""
     from fastdm_tpu_torch.kernels import cuda_backend
     from fastdm_tpu_torch.sparse.xsparse import super_tables_from_mask
 
@@ -492,7 +493,7 @@ def test_gather_super_all_active_equals_dense_kernel(cuda_device):
                for s in (sq, skv, skv))
     got = cuda_backend.gather_super_attention_cuda(q, k, v, *tables, h, h, d, block_q=bq,
                                                    group=2, fine=fine, superblock=sb)
-    assert torch.equal(got, cuda_backend.dense_walk_attention_cuda(q, k, v, h, h, d))
+    assert torch.equal(got, cuda_backend.sdpa_cuda(q, k, v, h, h, d))
 
 
 @pytest.mark.gpu
@@ -650,24 +651,64 @@ def test_gather_fine_kernel_matches_plain_on_card(cuda_device, case):
                                                               **kw), empty, bq)
 
 
-@pytest.mark.gpu
-def test_walks_allowing_every_key_equal_dense_kernel(cuda_device):
-    """All-ones mask and fine tables of every block give the dense walk's
-    result bit for bit (skv = 1000: the last tile is partial); the coarse walk
-    is held to sdpa's kernel in test_coarse_allowing_every_key_equals_sdpa_kernel."""
-    from fastdm_tpu_torch.kernels import cuda_backend
-    from fastdm_tpu_torch.sparse.xsparse import fine_tables_from_mask
+# walks on tables that allow every key: (walk, block_q, fine, superblock, GQA at D 64)
+ALL_KEY_WALKS = {
+    "super-sb4-fine128": ("super", 256, 128, 4, False),
+    "super-sb3-fine64": ("super", 256, 64, 3, False),
+    "super-bq192": ("super", 192, 128, 4, False),
+    "super-gqa-d64": ("super", 256, 64, 3, True),
+    "fine-bq512": ("fine", 512, 128, 1, False),
+    "fine-64-bq192": ("fine", 192, 64, 1, False),
+    "fine-gqa-d64": ("fine", 256, 128, 1, True),
+    "mask": ("mask", 128, 128, 1, False),
+}
 
-    b, s, h, d = 1, 1000, 4, 128
-    q, k, v = _walk_operands((b, s, s, h, h, d), cuda_device, seed=12)
-    dense = cuda_backend.dense_walk_attention_cuda(q, k, v, h, h, d)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(ALL_KEY_WALKS))
+def test_walks_allowing_every_key_equal_dense_kernel(cuda_device, case):
+    """Tables that allow every key give, bit for bit, the result of the dense
+    kernel their walk runs on (skv = 1000: the last tile is partial): the
+    superblock and fine walks sdpa's (the same 128-key tiles in the same order
+    through the same code), also when halves pair across fine sub-blocks and
+    entries (fine 64, superblock 3), in blocks of one consumer (block_q 192)
+    and with GQA at head dim 64; the mask walk the dense walk's. An emptied
+    row gives zeros and leaves the other rows as they were. The coarse walk is
+    held to sdpa in test_coarse_allowing_every_key_equals_sdpa_kernel."""
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.sparse.xsparse import fine_tables_from_mask, super_tables_from_mask
+
+    walk, bq, fine, sb, gqa_d64 = ALL_KEY_WALKS[case]
+    b, s, hq, hkv, d = (2, 1000, 8, 2, 64) if gqa_d64 else (1, 1000, 4, 4, 128)
+    q, k, v = _walk_operands((b, s, s, hq, hkv, d), cuda_device, seed=12)
     to = lambda ts: [torch.from_numpy(t).to(cuda_device) for t in ts]  # noqa: E731
-    mask = torch.ones(b, h, 8, 8, dtype=torch.int32, device=cuda_device)
-    assert torch.equal(cuda_backend.sparse_attention_cuda(q, k, v, h, h, d, sparse_mask=mask),
-                       dense)
-    tables = to(fine_tables_from_mask(np.ones((2, 8), bool), 4, 128, s))
-    assert torch.equal(cuda_backend.gather_fine_attention_cuda(
-        q, k, v, *tables, h, h, d, block_q=512, group=4, fine=128), dense)
+    nq, every = -(-s // bq), np.ones((-(-s // bq), -(-s // fine)), bool)
+    if walk == "mask":
+        full = torch.ones(b, hq, nq, -(-s // 128), dtype=torch.int32, device=cuda_device)
+        empty = full.clone()
+        empty[:, :, 1] = 0
+        run = lambda m: cuda_backend.sparse_attention_cuda(  # noqa: E731
+            q, k, v, hq, hkv, d, sparse_mask=m, block_q=bq, block_k=128)
+        want = cuda_backend.dense_walk_attention_cuda(q, k, v, hq, hkv, d)
+    else:
+        if walk == "super":
+            full = to(super_tables_from_mask(every, 2, sb))
+            run = lambda t: cuda_backend.gather_super_attention_cuda(  # noqa: E731
+                q, k, v, *t, hq, hkv, d, block_q=bq, group=2, fine=fine, superblock=sb)
+        else:
+            full = to(fine_tables_from_mask(every, 4, fine, s))
+            run = lambda t: cuda_backend.gather_fine_attention_cuda(  # noqa: E731
+                q, k, v, *t, hq, hkv, d, block_q=bq, group=4, fine=fine)
+        rows = full[2].clone()
+        rows[1, 1] = 0
+        empty = (full[0], full[1], rows)
+        want = cuda_backend.sdpa_cuda(q, k, v, hq, hkv, d)
+    got = run(full)
+    assert torch.equal(got, want)
+    emptied = run(empty)
+    assert not emptied[:, bq:2 * bq].any()
+    assert torch.equal(emptied[:, :bq], got[:, :bq])
+    assert torch.equal(emptied[:, 2 * bq:], got[:, 2 * bq:])
 
 
 @pytest.mark.gpu

@@ -1,7 +1,8 @@
 """What the CPU can check of the port's Hopper kernels that load through the
 Tensor Memory Accelerator (csrc/fp8_gemm.cu, csrc/w8a8_gemm.cu over
 csrc/w8a8_sm90.cuh, csrc/flash_attn.cu, csrc/sm90.cuh): the tensor-map
-geometry the attention wrappers (dense sdpa, the coarse walk) compute from
+geometry the attention wrappers (dense sdpa, the coarse, superblock and fine
+walks) compute from
 their operand views (kernels/tma.py) against the strides of real CPU tensor
 views, the build list and the library hash, and which C launcher, with which
 arguments, the W8A8 and attention wrappers pick. Nothing is built or launched here; the kernels themselves are
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from fastdm_tpu_torch.kernels import build, cuda_backend, kernel_registry
-from fastdm_tpu_torch.kernels.tma import ATTN_ROWS, HALF_ROWS, attention_geometry, coarse_rows
+from fastdm_tpu_torch.kernels.tma import ATTN_ROWS, HALF_ROWS, attention_geometry, walk_rows
 
 
 def _element_at(view: torch.Tensor, geom, coord) -> torch.Tensor:
@@ -114,6 +115,19 @@ def test_no_mma_sync_int8_gemm_or_coarse_walk_remains():
     assert "CoarseTables" in (build.CSRC / "flash_attn.cu").read_text()
 
 
+@pytest.mark.parametrize("source,name,present", [
+    ("gather_attn.cu", "SuperWalk", False), ("gather_attn.cu", "FineWalk", False),
+    ("gather_attn.cu", "fdm_gather_super_fwd", False),
+    ("gather_attn.cu", "fdm_gather_fine_fwd", False),
+    ("flash_attn.cu", "SuperTables", True), ("flash_attn.cu", "FineTables", True),
+    ("flash_attn.cu", "fdm_flash_attn_super_fwd", True),
+    ("flash_attn.cu", "fdm_flash_attn_fine_fwd", True)])
+def test_superblock_and_fine_walks_left_the_mma_sync_tile(source, name, present):
+    """The superblock and fine walks moved from the mma.sync tile of
+    gather_attn.cu to the wgmma + TMA kernel of flash_attn.cu."""
+    assert (name in (build.CSRC / source).read_text()) == present
+
+
 def test_library_path_changes_when_sm90_header_changes(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
@@ -153,26 +167,28 @@ def test_dense_walk_is_counted_but_no_op_dispatches_to_it():
 
 @pytest.mark.parametrize("block_q,rows", [(512, 128), (256, 128), (128, 128), (64, 64),
                                           (192, 64), (320, 64)])
-def test_coarse_rows_keep_each_block_in_one_table_row(block_q, rows):
-    """A block of the coarse walk takes 128 query rows when block_q is a
+def test_walk_rows_keep_each_block_in_one_table_row(block_q, rows):
+    """A block of a table walk takes 128 query rows when block_q is a
     multiple of 128, else 64, and loads K / V in 64-key boxes; every block
     then lies inside one table row (row q0 // block_q)."""
-    assert coarse_rows(block_q) == (rows, HALF_ROWS)
+    assert walk_rows(block_q) == (rows, HALF_ROWS)
     for q0 in range(0, 4 * block_q, rows):
         assert q0 // block_q == (q0 + rows - 1) // block_q
 
 
 @pytest.mark.parametrize("block_q", [0, 32, 96, 100])
-def test_coarse_rows_reject_blocks_not_multiples_of_64(block_q):
+def test_walk_rows_reject_blocks_not_multiples_of_64(block_q):
     with pytest.raises(ValueError, match="multiple of 64"):
-        coarse_rows(block_q)
+        walk_rows(block_q)
 
 
 class _FakeLaunch:
-    """Stands in for a ctypes launcher: records its arguments, returns 0."""
+    """Stands in for a ctypes launcher: records its arguments, returns 0, and
+    (library, entry, argument count) of the last launcher looked up."""
 
     def __init__(self):
         self.args = None
+        self.entry = None
 
     def __call__(self, *args):
         self.args = args
@@ -184,8 +200,12 @@ def _fake_cuda_wrapper(monkeypatch):
     passing the device checks, so the host-side arguments of a wrapper can
     be read on the CPU."""
     fake = _FakeLaunch()
-    monkeypatch.setattr(cuda_backend, "_entry", lambda lib, fn, types: ((lib, fn, len(types)),
-                                                                        fake))
+
+    def entry(lib, fn, types):
+        fake.entry = (lib, fn, len(types))
+        return fake.entry, fake
+
+    monkeypatch.setattr(cuda_backend, "_entry", entry)
     monkeypatch.setattr(cuda_backend, "_check_tensor", lambda *a: None)
     monkeypatch.setattr(cuda_backend, "_stream", lambda dev: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
@@ -197,7 +217,7 @@ def _fake_cuda_wrapper(monkeypatch):
 def test_coarse_wrapper_passes_the_walk_its_tables_and_box_rows(monkeypatch, block_q, block_k,
                                                                   q_rows):
     """gather_sparse_attention_cuda launches the coarse walk of flash_attn.cu
-    with the table arguments first and q's box rows from coarse_rows, K's and
+    with the table arguments first and q's box rows from walk_rows, K's and
     V's 64; the geometry it packs equals attention_geometry of each view."""
     fake = _fake_cuda_wrapper(monkeypatch)
     b, sq, skv, hq, hkv, d = 1, 700, 1300, 4, 2, 128
@@ -218,6 +238,52 @@ def test_coarse_wrapper_passes_the_walk_its_tables_and_box_rows(monkeypatch, blo
             for x in attention_geometry(t, d, r).packed()]
     assert geom == want
     assert args[11:17] == (b, sq, skv, hq, hkv, d)
+    assert args[-2] == 0  # not causal
+
+
+@pytest.mark.parametrize("walk", ["super", "fine"])
+@pytest.mark.parametrize("block_q,q_rows", [(256, 128), (512, 128), (192, 64)])
+def test_super_and_fine_wrappers_pass_the_walk_its_tables_and_box_rows(monkeypatch, walk,
+                                                                         block_q, q_rows):
+    """gather_super_attention_cuda and gather_fine_attention_cuda launch their
+    walk of flash_attn.cu with the CSR tables, n_slots, block_q, fine (and
+    superblock) first, q's box rows from walk_rows (128 for a block_q that is
+    a multiple of 128, else 64) and K's and V's 64; not causal."""
+    fake = _fake_cuda_wrapper(monkeypatch)
+    b, sq, skv, hq, hkv, d, fine, sb = 1, 700, 1300, 4, 2, 128, 128, 4
+    q = torch.zeros(b, sq, hq * d, dtype=torch.bfloat16)
+    kv = torch.zeros(b, skv, 2 * hkv * d, dtype=torch.bfloat16)
+    k, v = kv[..., :hkv * d], kv[..., hkv * d:]
+    nq, group = -(-sq // block_q), 2
+    rows = torch.zeros(nq, 2, dtype=torch.int32)
+    rows[:, 0] = torch.arange(nq) * group
+    rows[:, 1] = 1
+    idx = torch.zeros(nq * group, dtype=torch.int32)
+    cuda_backend.reset_launch_counts()
+    if walk == "super":
+        wrapper, n_table = cuda_backend.gather_super_attention_cuda, 7
+        per_entry = torch.ones(nq * group, dtype=torch.int32)  # sub-block bitmasks
+        out = wrapper(q, k, v, idx, per_entry, rows, hq, hkv, d, block_q=block_q, group=group,
+                      fine=fine, superblock=sb)
+        want_sizes = (block_q, fine, sb)
+    else:
+        wrapper, n_table = cuda_backend.gather_fine_attention_cuda, 6
+        per_entry = torch.full((nq * group,), fine, dtype=torch.int32)  # valid tokens
+        out = wrapper(q, k, v, idx, per_entry, rows, hq, hkv, d, block_q=block_q,
+                      group=group, fine=fine)
+        want_sizes = (block_q, fine)
+    assert out.shape == q.shape and wrapper.launches == 1
+    # the table arguments, then q, k, v, out, the geometry, batch, sq, skv, hq, hkv, D, out's
+    # two strides, scale, causal and stream
+    assert fake.entry == ("flash_attn", f"fdm_flash_attn_{walk}_fwd", n_table + 16)
+    args = fake.args
+    assert args[:4] == (idx.data_ptr(), per_entry.data_ptr(), rows.data_ptr(), idx.shape[0])
+    assert args[4:n_table] == want_sizes
+    geom = list(args[n_table + 4])
+    want = [x for t, r in ((q, q_rows), (k, HALF_ROWS), (v, HALF_ROWS))
+            for x in attention_geometry(t, d, r).packed()]
+    assert geom == want
+    assert args[n_table + 5:n_table + 11] == (b, sq, skv, hq, hkv, d)
     assert args[-2] == 0  # not causal
 
 
