@@ -19,13 +19,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (head dim 64, q|k|v read in place from the fused projections), and the
      int8 and fp8 GEMM and quantize at every W8A8 shape of its forward. The
      int8 GEMM is held bit-exact, with and without the zero point, at every
-     int8 shape of the FLUX, SDXL and Wan forwards. The dense sdpa kernel
-     (wgmma + TMA) is timed in turns with the dense walk, the mma.sync design
-     it replaced (walk, sdpa, sdpa, walk), at the FLUX,
-     SDXL 8192-token and Wan 32760-token shapes; the dense walk is held to the
-     plain sdpa; on tables that allow every key the mask walk equals it bit
-     for bit, and the coarse, superblock and fine walks, which run on sdpa's
-     kernel, equal sdpa. No serving path may launch the dense walk.
+     int8 shape of the FLUX, SDXL and Wan forwards. On tables that allow
+     every key the mask, coarse, superblock and fine walks, which run on
+     sdpa's kernel, equal sdpa bit for bit.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
      heads, random weights from a seed) three times: in bf16, in int8 and in
      fp8 (W8A8 block linears drawn straight into int8 / e4m3). Each serves
@@ -126,14 +122,22 @@ def log(*a):
     print(*a, flush=True)
 
 
+# cycles of the busy-wait that holds the stream per timed run (~0.1 ms)
+QUEUE_CYCLES_PER_RUN = 200_000
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device milliseconds of fn() over `iters` runs (CUDA events)."""
+    """Mean device milliseconds of fn() over `iters` runs (CUDA events). A
+    busy-wait kernel holds the stream while the host queues the runs, so a
+    kernel shorter than its wrapper's host time is timed on the device, not
+    at the rate the host enqueues it."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES_PER_RUN * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -212,7 +216,7 @@ def _log_ptxas() -> None:
                          f"{int8.fdm_w8a8_gemm_setmaxnreg(1)}")
             elif name == "flash_attn" and d and walk:
                 cons = int(re.search(r"ILi\d+ELi(\d)E", entry).group(1))
-                table = int(walk.group(1) != "Dense")
+                table = {"Dense": 0, "Mask": 2}.get(walk.group(1), 1)
                 label += f" D={d.group(1)} {walk.group(1)} {cons} consumer(s)"
                 extra = (f"; dynamic shared memory "
                          f"{attn.fdm_flash_attn_smem_bytes(int(d.group(1)), cons, table)} B; "
@@ -223,23 +227,16 @@ def _log_ptxas() -> None:
             log(f"[ptxas {label}] {regs} registers at launch; {spills}{extra}")
 
 
-def _attention_turns(label: str, q, k, v, h: int, hd: int, flops: float, bound_ms: float,
-                     lib_ms: float, iters: int):
-    """The dense sdpa kernel (wgmma + TMA) and the dense walk (the mma.sync
-    design it replaced) on the same inputs, timed in turns on one card: walk,
-    sdpa, sdpa, walk. Returns (sdpa ms, walk ms), each the mean of its turns."""
+def _sdpa_ms(label: str, q, k, v, h: int, hd: int, flops: float, bound_ms: float,
+             lib_ms: float, iters: int) -> float:
+    """The dense sdpa kernel's mean ms on (q, k, v), logged beside its rate,
+    its bound and the library call's ms."""
     from fastdm_tpu_torch.kernels import cuda_backend as cb
 
-    new = lambda: cb.sdpa_cuda(q, k, v, h, h, hd)  # noqa: E731
-    old = lambda: cb.dense_walk_attention_cuda(q, k, v, h, h, hd)  # noqa: E731
-    t = [cuda_ms(f, iters) for f in (old, new, new, old)]
-    new_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-    log(f"[sdpa redesign] {label}: wgmma + TMA sdpa {t[1]:.4f} / {t[2]:.4f} ms "
-        f"({flops / new_ms / 1e9:.0f} TFLOP/s, {bound_ms / new_ms:.1%} of the bound "
-        f"{bound_ms:.4f} ms); dense walk (the replaced mma.sync design) {t[0]:.4f} / "
-        f"{t[3]:.4f} ms ({flops / old_ms / 1e9:.0f} TFLOP/s, {bound_ms / old_ms:.1%}); "
-        f"library {lib_ms:.4f} ms; sdpa / walk {new_ms / old_ms:.3f}")
-    return new_ms, old_ms
+    ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, hd), iters)
+    log(f"[sdpa] {label}: {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s, {bound_ms / ms:.1%} of "
+        f"the bound {bound_ms:.4f} ms); library {lib_ms:.4f} ms")
+    return ms
 
 
 # ------------------------------------------------------------------ phase 1
@@ -349,23 +346,12 @@ def phase_kernels(dev) -> dict:
             raise AssertionError(f"sdpa {name} disagrees with its plain version")
         if name == "flux":
             flux_err = e.max().item()
-    # the dense walk (the design sdpa ran on before its wgmma + TMA redesign,
-    # kept for checks) is dense attention too, held as the FLUX case
-    got = cuda_backend.dense_walk_attention_cuda(q, k, v, HEADS, HEADS, HEAD_DIM)
-    ref = torch_backend.sdpa_torch(q, k, v, HEADS, HEADS, HEAD_DIM)
-    e = (got.float() - ref.float()).abs()
-    rel = (e.norm() / ref.float().norm()).item()
-    log(f"[dense walk] flux q{tuple(q.shape)}: max_abs_err {e.max().item():.3e}, rel L2 "
-        f"{rel:.3e} (tolerance 1e-3 + 2 ulp, rel L2 5e-3)")
-    if not ((e - 1e-3 - 2 * bf16_ulp(ref)).max().item() <= 0 and rel <= 5e-3
-            and torch.isfinite(got).all()):
-        raise AssertionError("the dense walk disagrees with the plain sdpa")
-    del got, ref, e
     heads = lambda t: t.view(1, s, HEADS, HEAD_DIM).transpose(1, 2)  # noqa: E731
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), 10)
-    b_ms, b_by = bound(4 * q.numel() * 2, 4 * s * s * HEAD_DIM * HEADS, BF16_FLOPS)
-    ms, _ = _attention_turns(f"FLUX (1, {s}, {HEADS}x{HEAD_DIM})", q, k, v, HEADS, HEAD_DIM,
-                             4 * s * s * HEAD_DIM * HEADS, b_ms, lib_ms, 10)
+    flops = 4 * s * s * HEAD_DIM * HEADS
+    b_ms, b_by = bound(4 * q.numel() * 2, flops, BF16_FLOPS)
+    ms = _sdpa_ms(f"FLUX (1, {s}, {HEADS}x{HEAD_DIM})", q, k, v, HEADS, HEAD_DIM, flops, b_ms,
+                  lib_ms, 10)
     plain_ms = cuda_ms(lambda: torch_backend.sdpa_torch(q, k, v, HEADS, HEADS, HEAD_DIM), 3, 1)
     results["sdpa"] = dict(
         name="sdpa", route="cuda", source="fastdm_tpu_torch/csrc/flash_attn.cu",
@@ -726,17 +712,15 @@ def _sparse_walks(dev, g) -> dict:
     (FASTDM_SPARSE_GATHER: super, fine, coarse, mask) on that mode's radial
     tables of the 81-frame 480x832 video (32760 tokens, 40 heads of 128),
     held to its plain version with sdpa's tolerance (1e-3 + 2 bf16 ulp, rel
-    L2 5e-3); tables that allow every key give, bit for bit, sdpa's result
-    (coarse, super, fine: they run on sdpa's wgmma + TMA kernel, the same
-    128-key tiles in the same order through the same code) or the dense
-    walk's (mask: its kernel with no table), and an emptied table row gives
-    zeros. The dense sdpa kernel is held to its plain version here too, with
-    the FLUX tolerance: this shape runs 40 times in each dense Wan forward,
-    and its 256 KV tiles (the last one 120 keys) pass through the ring. Timed
-    beside the dense walk, sdpa, the plain version and
-    F.scaled_dot_product_attention with the mode's dense boolean mask (the
-    same for every head here); the bound counts the allowed keys only. The
-    dense walk and the dense sdpa kernel are timed in turns at this shape."""
+    L2 5e-3); tables that allow every key give sdpa's result bit for bit (all
+    four walks run on sdpa's wgmma + TMA kernel: the same 128-key tiles in the
+    same order through the same code), and an emptied table row gives zeros.
+    The dense sdpa kernel is held to its plain version here too, with the
+    FLUX tolerance: this shape runs 40 times in each dense Wan forward, and
+    its 256 KV tiles (the last one 120 keys) pass through the ring. Timed
+    beside sdpa, the plain version and F.scaled_dot_product_attention with the
+    mode's dense boolean mask (the same for every head here); the bound counts
+    the allowed keys only."""
     import torch
     import torch.nn.functional as F
 
@@ -762,13 +746,11 @@ def _sparse_walks(dev, g) -> dict:
     sdpa_out = got
     del want, e
     torch.cuda.empty_cache()
-    dense = cb.dense_walk_attention_cuda(q, k, v, h, h, hd)
     heads = lambda t: t.view(1, s, h, hd).transpose(1, 2)  # noqa: E731
     flops = 4 * s * s * hd * h
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), 3)
-    sdpa_ms, dense_ms = _attention_turns(f"Wan (1, {s}, {h}x{hd})", q, k, v, h, hd, flops,
-                                         bound(4 * q.numel() * 2, flops, BF16_FLOPS)[0], lib_ms,
-                                         3)
+    sdpa_ms = _sdpa_ms(f"Wan (1, {s}, {h}x{hd})", q, k, v, h, hd, flops,
+                       bound(4 * q.numel() * 2, flops, BF16_FLOPS)[0], lib_ms, 3)
     for mode, (name, replaces) in SPARSE_KERNEL.items():
         cfg, tables = wan_sparse_tables(_radial(), WanConfig(), s, lf, dev, mode)
         allowed, bq, full, empty = _walk_tables(mode, cfg, tables, s)
@@ -787,15 +769,14 @@ def _sparse_walks(dev, g) -> dict:
         if not (excess <= 0 and rel <= 5e-3 and torch.isfinite(got).all()):
             raise AssertionError(f"{name} disagrees with its plain version")
         del want, e
-        # coarse, super and fine run on sdpa's kernel, mask on the dense walk's tile
-        same_as = "dense walk" if mode == "mask" else "sdpa"
-        same_dense = torch.equal(kern(full), dense if mode == "mask" else sdpa_out)
+        # every walk runs on sdpa's kernel
+        same_dense = torch.equal(kern(full), sdpa_out)
         emptied = kern(empty)
         rows = slice(5 * bq, 6 * bq)
         zero_row = not emptied[:, rows].any()
         others = (torch.equal(emptied[:, :rows.start], got[:, :rows.start])
                   and torch.equal(emptied[:, rows.stop:], got[:, rows.stop:]))
-        log(f"[{name}] tables allowing every key == {same_as} bit for bit: "
+        log(f"[{name}] tables allowing every key == sdpa bit for bit: "
             f"{same_dense}; emptied row 5 gives zeros: {zero_row}, other rows unchanged: "
             f"{others}")
         if not (same_dense and zero_row and others):
@@ -815,17 +796,16 @@ def _sparse_walks(dev, g) -> dict:
         del mask, allowed
         b_ms, b_by = bound(4 * q.numel() * 2, 4 * active * hd * h, BF16_FLOPS)
         log(f"[{name}] {mode}: allowed keys {active / s**2:.4f} of dense attention; {ms:.4f} ms "
-            f"(sparse/dense walk {ms / dense_ms:.3f}, sparse/sdpa {ms / sdpa_ms:.3f}, sdpa "
+            f"(sparse/sdpa {ms / sdpa_ms:.3f}, sdpa "
             f"{sdpa_ms:.4f} ms); plain {plain_ms:.1f} ms; library {lib_ms} ms ({lib}); bound "
             f"{b_ms:.4f} ms by {b_by}")
-        source = "gather_attn.cu" if mode == "mask" else "flash_attn.cu"
         results[name] = dict(
-            name=name, route="cuda", source=f"fastdm_tpu_torch/csrc/{source}",
+            name=name, route="cuda", source="fastdm_tpu_torch/csrc/flash_attn.cu",
             replaces=f"fastdm_tpu/kernels/pallas/{replaces}", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del got
         torch.cuda.empty_cache()
-    del q, k, v, dense, sdpa_out
+    del q, k, v, sdpa_out
     torch.cuda.empty_cache()
     return results
 
@@ -951,11 +931,7 @@ def _sdxl_kernels(dev, g) -> dict:
                                                                     heads(v)), 10)
             b_ms, b_by = bound(2 * (2 * q.numel() + 2 * b * skv * c), 4 * b * tokens * skv * c,
                                BF16_FLOPS)
-            if kind == "self":  # the redesign's before and after, in turns
-                ms, _ = _attention_turns(f"SDXL self {tuple(q.shape)} {h}x{hd}", q, k, v, h,
-                                         hd, 4 * b * tokens * skv * c, b_ms, lib_ms, 10)
-            else:
-                ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, hd), 10)
+            ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, hd), 10)
             log(f"[sdpa] SDXL {kind} q{tuple(q.shape)} k{tuple(k.shape)} {h}x{hd} heads "
                 f"({blocks} per forward): max_abs_err {e.max().item():.3e}, rel L2 {rel:.3e} "
                 f"(tolerance {stated}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -1049,8 +1025,7 @@ def _launch_counts():
             "int8_matmul": cb.int8_matmul_cuda.launches,
             "quantize_to_fp8": cb.quantize_to_fp8_cuda.launches,
             "fp8_matmul": cb.fp8_matmul_cuda.launches,
-            "gelu_and_mul": cb.gelu_and_mul_cuda.launches,
-            "dense_walk": cb.dense_walk_attention_cuda.launches}
+            "gelu_and_mul": cb.gelu_and_mul_cuda.launches}
 
 
 def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
@@ -1108,8 +1083,6 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
     mine = {k: counts[k] for k in PATH_KERNELS[quant]}
     if min(mine.values()) <= 0:
         raise AssertionError(f"a kernel of the {label} path never launched: {counts}")
-    if counts["dense_walk"]:
-        raise AssertionError(f"the {label} path reached the dense walk: {counts}")
     if quant is not None:
         want = W8A8_PER_FORWARD * computed
         other = "fp8" if quant == "int8" else "int8"
@@ -2230,9 +2203,6 @@ def phase_engine(dev) -> None:
             torch.cuda.empty_cache()
     _engine_wan(dev, here)
     _engine_sdxl(dev, here)
-    if cuda_backend.dense_walk_attention_cuda.launches:
-        raise AssertionError("an engine path reached the dense walk")
-    log("[engine] dense walk launches over every engine path: 0")
 
 
 def _engine_wan(dev, here: str) -> None:

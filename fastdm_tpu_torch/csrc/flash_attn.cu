@@ -1,13 +1,16 @@
 // Flash-attention forward, bf16 q/k/v/out, f32 softmax state, warpgroup MMA
-// fed by the Tensor Memory Accelerator; one kernel, four walks over the KV
-// tiles: dense (sdpa) and three radial-sparse table walks of the Wan engine
-// (coarse, superblock and fine gather lists).
+// fed by the Tensor Memory Accelerator; one kernel, five walks over the KV
+// tiles: dense (sdpa) and four radial-sparse table walks of the Wan engine
+// (mask, coarse, superblock and fine).
 //
 // Replaces, in fastdm_tpu/kernels/pallas/attention.py:
 //   dense  -- sdpa_pallas (:429), which runs _flash_attention (:338) ->
 //             _flash_kernel (:69) / _attn_body (:43) / _softmax_update (:130),
 //             and the native-layout twin _flash_attention_nq (:267) /
 //             _flash_kernel_nq (:198);
+//   mask   -- sdpa_sparse_pallas (:1122; _flash_attention :338, pallas_call
+//             :390, kernel _sparse_flash_kernel :155): a (B, Hq, ni, nj) block
+//             mask, one row per query block and query head (block_mask);
 //   coarse -- sdpa_gather_pallas (:1069; _gather_sparse_attention :515,
 //             pallas_call :561, kernel :473): per-q-tile lists of block_k-token
 //             KV tiles and their counts (sparse/xsparse.py block_lists);
@@ -62,9 +65,8 @@
 // still on the tensor cores; only the rescale of O waits for it. The two
 // consumers take turns issuing their MMAs (two named barriers), so one
 // warpgroup's softmax overlaps the other's MMAs. With 128-query blocks every
-// head's K and V pass through L2 half as often as with the 64-query blocks of
-// the mma.sync tile of attn_tile.cuh, which the mask walk of gather_attn.cu
-// keeps. Tiles lie in shared memory as the TMA writes them with
+// head's K and V pass through L2 half as often as with 64-query blocks.
+// Tiles lie in shared memory as the TMA writes them with
 // the 128-byte swizzle: a row of D = 128 bf16 is 256 bytes, so it loads as two
 // 64-column boxes and the descriptors step across them. The tensor maps' S
 // extent is the view's own length, so keys past the last are zero-filled
@@ -73,12 +75,18 @@
 // The walk is a template parameter. Dense is the walk with no table: the
 // consumers count the tiles, tile j holds keys j*128 .., and the code is the
 // sdpa kernel's as before. A table walk reads its table in the producer, off
-// the consumers' path: for the block at q0 it takes row q0 / block_q, counts
-// the 64-key halves the row allows below skv, and publishes the tile count
-// with a second arrival on the Q barrier; then each stage is two 64-key boxes
-// per column atom, the next two halves in table order, so halves of two
-// entries (or two fine sub-blocks) may share a tile. The walks differ only in
-// how a row lists its halves:
+// the consumers' path: for the block at q0 (query head h, batch entry b) it
+// takes row q0 / block_q, counts the 64-key halves the row allows below skv,
+// and publishes the tile count with a second arrival on the Q barrier; then
+// each stage is two 64-key boxes per column atom, the next two halves in
+// table order, so halves of two entries (or two fine sub-blocks) may share a
+// tile. The walks differ only in how a row lists its halves:
+//   mask   -- the set entries of row q0 / block_q of mask[b, h], in key order,
+//             each block_k / 64 halves. The row is dense (nj entries, most of
+//             them 0 at Wan's 256), so warp 0 of the producer loads it 32
+//             entries at a time and packs it with __ballot_sync into a bitmask
+//             in shared memory before lane 0 walks its set bits with __ffs /
+//             __popc; the other lanes then exit;
 //   coarse -- the first counts[row] entries of the row, each block_k / 64
 //             halves (ids clamped to the KV tiles that exist);
 //   super  -- entries [start, start+count) of the CSR row, each a superblock
@@ -115,9 +123,10 @@ static_assert(128 * (kProducerRegs + 2 * kConsumerRegs) <= 65536,
               "the register file holds the setmaxnreg split");
 
 // A block of `Consumers` consumer warpgroups (64 query rows each) at head
-// dim D; a table walk loads K and V in 64-key boxes and keeps its tile count
-// and each stage's keys and ends in shared memory.
-template <int D, int Consumers, bool Table>
+// dim D; a table walk loads K and V in 64-key boxes and keeps its tile count,
+// each stage's keys and ends and (mask walk) its packed table row of RowWords
+// words in shared memory.
+template <int D, int Consumers, bool Table, int RowWords = 0>
 struct Cfg {
   static constexpr int kBQ = 64 * Consumers;       // query rows per block
   static constexpr int kAtoms = D / kAtomCols;      // 128-byte column atoms per row
@@ -126,23 +135,103 @@ struct Cfg {
   static constexpr int kKVBytes = kBK * D * 2;      // one K or V tile
   static constexpr int kKVRows = Table ? kHalf : kBK;  // rows of one K / V box
   static constexpr int kBarBytes = (1 + 4 * kStages) * 8;  // the mbarriers
-  // a table walk's per-stage slots (int4, 16-byte aligned), then the tile count
+  // a table walk's per-stage slots (int4, 16-byte aligned), then the tile
+  // count (16 bytes), then the packed table row
   static constexpr int kSlotsAt = (kBarBytes + 15) & ~15;
   static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes +
-                               (Table ? kSlotsAt + 16 * kStages + 16 : kBarBytes);
+                               (Table ? kSlotsAt + 16 * kStages + 16 + 4 * RowWords : kBarBytes);
 };
 
 // Dense attention: every 128-key tile in order, up to the causal limit; the
 // consumers count the tiles themselves.
 struct DenseTables {
   static constexpr bool kTable = false;
+  static constexpr int kRowWords = 0;
 };
 
 // A table walk is the producer's walk over one row of its table, in 64-key
 // halves: tiles() counts the tiles of 128 keys the row's halves fill, two
 // halves a tile; next(end) returns the first key of the next half the row
 // allows, in table order, and sets `end` (keys at or past it are masked), or
-// returns -1 when the row is exhausted.
+// returns -1 when the row is exhausted. walk(q0, h, b, skv, row_bits) starts
+// the walk of the block at query row q0 of query head h and batch entry b;
+// only the mask walk reads h, b and row_bits (its row, packed by pack_row).
+
+// Mask: the set bits of a packed mask row in key order, each entry's halves
+// below skv in order (only entries whose first key lies below skv are packed).
+struct MaskWalk {
+  const uint32_t* bits;  // the packed row (shared memory): bit e of word e / 32 is entry e
+  int words, halves_per_entry, block_k, skv;
+  int w;          // the next word
+  uint32_t cur;   // the current word's set bits not yet visited
+  int key, left;  // the next half's key and the halves left in its entry
+
+  __device__ __forceinline__ int entry_halves(int k0) const {
+    return min(halves_per_entry, (skv - k0 + kHalf - 1) / kHalf);
+  }
+
+  __device__ __forceinline__ int tiles() const {
+    int set = 0;
+    for (int i = 0; i < words; ++i) set += __popc(bits[i]);
+    int halves = set * halves_per_entry;
+    // only the last entry below skv may end before its last half
+    const int last = (skv - 1) / block_k;
+    if (last < 32 * words && ((bits[last / 32] >> (last % 32)) & 1u))
+      halves -= halves_per_entry - entry_halves(last * block_k);
+    return (halves + 1) / 2;
+  }
+
+  __device__ __forceinline__ int next(int& end) {
+    end = skv;
+    while (left == 0) {
+      while (cur == 0) {
+        if (w >= words) return -1;
+        cur = bits[w++];
+      }
+      key = (32 * (w - 1) + __ffs(static_cast<int>(cur)) - 1) * block_k;
+      cur &= cur - 1;
+      left = entry_halves(key);
+    }
+    --left;
+    key += kHalf;
+    return key - kHalf;
+  }
+};
+
+// The block masks of sdpa_sparse (RadialAttn.block_mask): mask (batch, heads,
+// ni, nj), nonzero where query rows [i*block_q, (i+1)*block_q) of query head h
+// attend to keys [j*block_k, (j+1)*block_k); a row holds at most
+// 32 * kRowWords entries (4096: 524288 keys at Wan's 128-key tiles).
+struct MaskTables {
+  static constexpr bool kTable = true;
+  static constexpr int kRowWords = 128;
+  const int* mask;
+  int heads, ni, nj, block_q, block_k;
+
+  // entries whose first key lies below skv
+  __device__ __forceinline__ int entries(int skv) const {
+    return min(nj, (skv + block_k - 1) / block_k);
+  }
+
+  // Warp 0: row min(q0 / block_q, ni - 1) of mask[b, h] into bits, one
+  // coalesced load of 32 entries and one ballot per word, stored by lane 0.
+  __device__ __forceinline__ void pack_row(uint32_t* bits, int q0, int h, int b, int skv) const {
+    const int lane = threadIdx.x & 31;
+    const int row = min(q0 / block_q, ni - 1);
+    const int* mrow = mask + ((static_cast<long long>(b) * heads + h) * ni + row) * nj;
+    const int n = entries(skv);
+#pragma unroll 4
+    for (int w = 0; 32 * w < n; ++w) {
+      const int e = 32 * w + lane;
+      const uint32_t word = __ballot_sync(0xffffffffu, e < n && mrow[e] != 0);
+      if (lane == 0) bits[w] = word;
+    }
+  }
+
+  __device__ __forceinline__ MaskWalk walk(int, int, int, int skv, const uint32_t* bits) const {
+    return MaskWalk{bits, (entries(skv) + 31) / 32, block_k / kHalf, block_k, skv, 0, 0u, 0, 0};
+  }
+};
 
 // Coarse: entries in table order, each entry's halves below skv in order.
 // Entry ids are clamped to the KV tiles that exist.
@@ -183,11 +272,12 @@ struct CoarseWalk {
 // visited, padding entries never.
 struct CoarseTables {
   static constexpr bool kTable = true;
+  static constexpr int kRowWords = 0;
   const int* idx;
   const int* counts;
   int nq, max_nb, block_q, block_k;
 
-  __device__ __forceinline__ CoarseWalk walk(int q0, int skv) const {
+  __device__ __forceinline__ CoarseWalk walk(int q0, int, int, int skv, const uint32_t*) const {
     const int row = min(q0 / block_q, nq - 1);
     return CoarseWalk{idx + static_cast<long long>(row) * max_nb,
                       min(max(counts[row], 0), max_nb), (skv + block_k - 1) / block_k - 1,
@@ -265,12 +355,13 @@ struct SuperWalk {
 // padding (valbits 0) and never visited.
 struct SuperTables {
   static constexpr bool kTable = true;
+  static constexpr int kRowWords = 0;
   const int* idx;
   const int* val;
   const int* rows;
   int n_slots, block_q, fine, superblock;
 
-  __device__ __forceinline__ SuperWalk walk(int q0, int skv) const {
+  __device__ __forceinline__ SuperWalk walk(int q0, int, int, int skv, const uint32_t*) const {
     const int2 r = csr_row(rows, q0 / block_q, n_slots);
     const int super_keys = superblock * fine;
     return SuperWalk{idx + r.x, val + r.x, r.y, (skv - 1) / super_keys, fine, super_keys,
@@ -324,12 +415,13 @@ struct FineWalk {
 // [start, count] of each q tile of block_q rows.
 struct FineTables {
   static constexpr bool kTable = true;
+  static constexpr int kRowWords = 0;
   const int* idx;
   const int* valid;
   const int* rows;
   int n_slots, block_q, fine;
 
-  __device__ __forceinline__ FineWalk walk(int q0, int skv) const {
+  __device__ __forceinline__ FineWalk walk(int q0, int, int, int skv, const uint32_t*) const {
     const int2 r = csr_row(rows, q0 / block_q, n_slots);
     return FineWalk{idx + r.x, valid + r.x, r.y, (skv - 1) / fine, fine, skv, 0, 0, 0};
   }
@@ -520,7 +612,7 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
                       const Tables tables, int sq, int skv, int hq, int hkv, int64_t o_sb,
                       int64_t o_ss, float scale_log2, int causal) {
-  using C = Cfg<D, Consumers, Tables::kTable>;
+  using C = Cfg<D, Consumers, Tables::kTable, Tables::kRowWords>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
   uint8_t* q_s = smem;                                  // [atom][kBQ rows][128 B]
@@ -531,9 +623,11 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* v_full = k_full + C::kStages;               // [stage]: V bytes landed
   uint64_t* k_empty = v_full + C::kStages;              // [stage]: every consumer read K
   uint64_t* v_empty = k_empty + C::kStages;             // [stage]: every consumer read V
-  // table walks: [stage] the halves' first keys and ends, then the tile count
+  // table walks: [stage] the halves' first keys and ends, then the tile
+  // count, then (mask walk) the packed table row
   int4* keys_s = reinterpret_cast<int4*>(reinterpret_cast<uint8_t*>(q_full) + C::kSlotsAt);
   int* n_tiles_s = reinterpret_cast<int*>(keys_s + C::kStages);
+  uint32_t* row_bits_s = reinterpret_cast<uint32_t*>(n_tiles_s + 4);
 
   const int q0 = blockIdx.x * C::kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -563,6 +657,12 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   // the producer, and the idle third warpgroup of a one-consumer block
   if (wg == 0 || (Consumers == 1 && wg == 2)) {
     setmaxnreg_dec<kProducerRegs>();
+    if constexpr (Tables::kRowWords > 0) {
+      // warp 0 packs the block's table row; lane 0, which stores every
+      // word, walks it
+      if (threadIdx.x >= 32) return;
+      tables.pack_row(row_bits_s, q0, h, b, skv);
+    }
     if (threadIdx.x != 0) return;
     if (Tables::kTable || n_tiles > 0) {
       mbar_arrive_expect_tx(q_full, C::kQBytes);
@@ -575,7 +675,7 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       // then each tile's two halves in the walk's order (a lone last half is
       // loaded again as the second one, which the consumers mask: its key and
       // end are skv)
-      auto walk = tables.walk(q0, skv);
+      auto walk = tables.walk(q0, h, b, skv, row_bits_s);
       n_tiles = walk.tiles();
       *n_tiles_s = n_tiles;
       mbar_arrive(q_full);
@@ -725,7 +825,7 @@ struct Operands {
 
 template <int D, int Consumers, class Tables>
 int launch(const Tables& tables, const Operands& a) {
-  using C = Cfg<D, Consumers, Tables::kTable>;
+  using C = Cfg<D, Consumers, Tables::kTable, Tables::kRowWords>;
   // geom: q, k, v, 8 values each (kernels/tma.py attention_geometry): dims
   // (H*D, S, B) in elements, byte strides of S and B, box (64, rows, 1). The
   // box and extents must be the ones this kernel tiles by.
@@ -795,6 +895,18 @@ FDM_EXPORT int fdm_flash_attn_fwd(FDM_ATTN_PARAMS) {
 // The table walks below are non-causal (causal must be 0) and take block_q
 // and their tile sizes as multiples of 64; nq = ceil(sq/block_q).
 
+// The mask walk. mask: int32 (batch, hq, ni, nj) block mask of block_q x
+// block_k tiles, nonzero where a tile is computed; nj at most
+// 32 * MaskTables::kRowWords.
+FDM_EXPORT int fdm_flash_attn_mask_fwd(const void* mask, int ni, int nj, int block_q, int block_k,
+                                       FDM_ATTN_PARAMS) {
+  if (block_q < kHalf || block_q % kHalf != 0 || block_k < kHalf || block_k % kHalf != 0 ||
+      ni < 1 || nj < 1 || nj > 32 * MaskTables::kRowWords)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MaskTables t{static_cast<const int*>(mask), hq, ni, nj, block_q, block_k};
+  return run_walk(t, block_q, FDM_ATTN_OPERANDS);
+}
+
 // The coarse gather walk. idx: int32 (nq, max_nb) KV tile ids of block_k
 // tokens; counts: int32 (nq, 1).
 FDM_EXPORT int fdm_flash_attn_coarse_fwd(const void* idx, const void* counts, int nq, int max_nb,
@@ -831,18 +943,28 @@ FDM_EXPORT int fdm_flash_attn_fine_fwd(const void* idx, const void* valid, const
   return run_walk(t, block_q, FDM_ATTN_OPERANDS);
 }
 
-// Dynamic shared memory of one block, bytes: dense (table 0, two consumers)
-// or a table walk (table 1, one or two consumers), at head dim D (0 for
-// another shape).
+namespace {
+
+template <bool Table, int RowWords>
+int smem_bytes(bool d128, int consumers) {
+  if (consumers == 2)
+    return d128 ? Cfg<128, 2, Table, RowWords>::kSmem : Cfg<64, 2, Table, RowWords>::kSmem;
+  if (consumers == 1 && Table)
+    return d128 ? Cfg<128, 1, Table, RowWords>::kSmem : Cfg<64, 1, Table, RowWords>::kSmem;
+  return 0;
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block, bytes: dense (table 0, two consumers),
+// a coarse, superblock or fine walk (table 1) or the mask walk (table 2), one
+// or two consumers, at head dim D (0 for another shape).
 FDM_EXPORT int fdm_flash_attn_smem_bytes(int head_dim, int consumers, int table) {
   const bool d128 = head_dim == 128;
   if (!d128 && head_dim != 64) return 0;
-  if (!table) {
-    if (consumers != 2) return 0;
-    return d128 ? Cfg<128, 2, false>::kSmem : Cfg<64, 2, false>::kSmem;
-  }
-  if (consumers == 2) return d128 ? Cfg<128, 2, true>::kSmem : Cfg<64, 2, true>::kSmem;
-  if (consumers == 1) return d128 ? Cfg<128, 1, true>::kSmem : Cfg<64, 1, true>::kSmem;
+  if (table == 0) return smem_bytes<false, 0>(d128, consumers);
+  if (table == 1) return smem_bytes<true, 0>(d128, consumers);
+  if (table == 2) return smem_bytes<true, MaskTables::kRowWords>(d128, consumers);
   return 0;
 }
 

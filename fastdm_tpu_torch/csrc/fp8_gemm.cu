@@ -12,8 +12,8 @@
 // What bounds it on the H100: operations. At the FLUX single-block qkv_mlp
 // shape (8704 x 3072 @ 3072 x 21504) it does 2*M*N*K = 1.15e12 fp8
 // operations on 457 MB, ~2500 per byte, far above the ~590 op/byte ridge of
-// the 1979 TFLOP/s fp8 rate: the floor is 0.58 ms. mma.sync cannot reach
-// that rate on Hopper; only wgmma can.
+// the 1979 TFLOP/s fp8 rate: the floor is 0.58 ms. The warp-level MMA cannot
+// reach that rate on Hopper; only wgmma can.
 //
 // Design (w8a8_sm90.cuh, sm90.cuh): a persistent grid, one block per SM, each
 // block walking output tiles of 192 x 128 in grouped order (kGroupM M-tiles

@@ -4,9 +4,9 @@
 // Replaces: fastdm_tpu/kernels/pallas/elementwise.py qk_norm_rope_pallas
 // (:341, pallas_call :398) and qk_norm_rope2_pallas (:416, pallas_call :465),
 // kernel bodies _qk_norm_rope_kernel (:277), _qk_norm_rope2_kernel (:299) and
-// their shared _norm_rope_both (:311). Both entry points below launch one
-// kernel on one device function, so the split-QKV form computes exactly what
-// the fused form computes.
+// their shared _norm_rope_both (:311). Both entry points below go through one
+// launcher on one device function per path, so the split-QKV form computes
+// exactly what the fused form computes.
 //
 // Per token row: the sum of squares runs over all D = heads * head_dim
 // elements (Wan's rms_norm_across_heads, not per head); y = x * (1 /
@@ -17,62 +17,258 @@
 // (__fmul_rn / __fsub_rn, as csrc/rope.cu) and rounded once. Against the plain
 // version (fastdm_tpu_torch/kernels/torch_backend.py qk_norm_rope2_torch) the
 // rotation is bit-exact on equal inputs; the normalized value may sit one bf16
-// ulp away (f32 sum order, 1/sqrt vs rsqrt), as in csrc/rmsnorm.cu.
+// ulp away (f32 sum order, 1/sqrt vs rsqrt), as in csrc/rmsnorm.cu. gamma is
+// read in the dtype it has (bf16 or f32; bf16 -> f32 is exact) or is absent.
 //
 // What bounds it on the H100: memory bytes. A Wan2.2-A14B row reads 2 x 5120
 // bf16 and writes 2 x 5120 bf16 (40 KB) for ~10 flops per element; at
 // 32760 tokens that is 1.34 GB, 0.40 ms at 3.35 TB/s.
 //
-// Design: one block per token; q and k are read straight from the model's
-// strided rows (the q and k columns of the fused (B, S, 3D) QKV output, or two
-// separate (B, S, D) tensors), so neither the q|k slice copy nor the
-// (B*S, head_dim) expanded cos/sin tables of the Pallas wrapper exist. Pass 1
-// reduces both sums of squares at once (warp shuffles, then one shared-memory
-// step); pass 2 re-reads the 20 KB row (an L1/L2 hit) and writes both outputs.
-// Each thread moves 4-byte bf16 pairs, so a warp covers 128 contiguous bytes.
+// Design: q and k are read straight from the model's strided rows (the q and
+// k columns of the fused (B, S, 3D) QKV output, or two separate (B, S, D)
+// tensors), so neither the q|k slice copy nor the (B*S, head_dim) expanded
+// cos/sin tables of the Pallas wrapper exist. One block per token.
+//   Fast path (D a multiple of 8 up to 8192, head_dim a multiple of 8, rows,
+//   gamma and tables 16-byte aligned; Wan2.2-A14B's 5120, Wan2.2-5B's 3072
+//   and Wan2.1-1.3B's 1536 with 320, 192 and 96 threads): a thread owns
+//   kVecs fixed 8-column vectors of q and of k and moves them with 16-byte
+//   accesses. It issues every load of the row at once (q, k, their cos/sin
+//   and gamma vectors, gamma in the dtype it has), so the row is read once
+//   (single pass); reduces both sums of squares (warp shuffles, then one
+//   shared-memory step and the block's one barrier); then normalizes,
+//   rotates and stores from registers. At 64 registers three 320-thread
+//   blocks fit on an SM, so one block's loads are in flight while another
+//   computes.
+//   Built and measured slower on the H100 (PERF.md §6): a persistent grid
+//   holding gamma in registers with the next token's row in a second
+//   register buffer (174-216 registers, one or two blocks of 5 warps per SM),
+//   with or without an L2 prefetch of later rows, and a persistent
+//   cp.async.bulk ring of rows in shared memory.
+//   Tail path (any other width or alignment the wrapper accepts: even
+//   head_dim, 4-byte aligned rows): 256 threads, 4-byte pairs, pass 1
+//   reducing both sums and pass 2 re-reading the row.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kVec = 8;        // bf16 columns of one 16-byte access
+constexpr int kVecs = 2;       // vectors of q (and of k) per thread, fast path
+constexpr int kMaxThreads = 512;
+constexpr int kMaxFastDim = kMaxThreads * kVecs * kVec;  // 8192
+constexpr int kRowThreads = 256;  // tail path
+constexpr int kRowWarps = kRowThreads / 32;
+
+enum GammaKind { kNoGamma = 0, kGammaBf16 = 1, kGammaF32 = 2 };
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// y * gamma[col] in f32 (y unchanged without gamma)
+template <int G>
+__device__ __forceinline__ float times_gamma(float y, const void* g, int col) {
+  if constexpr (G == kGammaBf16)
+    return y * __bfloat162float(static_cast<const __nv_bfloat16*>(g)[col]);
+  else if constexpr (G == kGammaF32)
+    return y * static_cast<const float*>(g)[col];
+  else
+    return y;
+}
+
+// The normalized pair (y0, y1) rounded to bf16, rotated by (c, sn) without
+// contraction, rounded once.
+__device__ __forceinline__ __nv_bfloat162 rope_pair(float y0, float y1, float c, float sn) {
+  const float2 r = __bfloat1622float2(__floats2bfloat162_rn(y0, y1));
+  const float o1 = __fsub_rn(__fmul_rn(r.x, c), __fmul_rn(r.y, sn));
+  const float o2 = __fadd_rn(__fmul_rn(r.y, c), __fmul_rn(r.x, sn));
+  return __floats2bfloat162_rn(o1, o2);
+}
+
+__device__ __forceinline__ float rms_inverse(float sum_sq, int dim, float eps) {
+  // IEEE sqrt and division (no fast-math), as csrc/rmsnorm.cu
+  return 1.0f / sqrtf(sum_sq / static_cast<float>(dim) + eps);
+}
+
+// ----------------------------------------------------------------- fast path
+
+// The gamma of one 8-column vector, held in registers as loaded: 8 bf16
+// (4 words) or 8 f32, widened when applied.
+template <int G>
+struct GammaVec {  // kNoGamma
+  __device__ __forceinline__ void load(const void*, int) {}
+  __device__ __forceinline__ float apply(float y, int) const { return y; }
+};
+
+template <>
+struct GammaVec<kGammaBf16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const void* g, int col) {
+    v = __ldg(reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(g) + col));
+  }
+  __device__ __forceinline__ float apply(float y, int e) const {
+    const uint32_t w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
+    return y * (e % 2 ? bf16_hi(w) : bf16_lo(w));
+  }
+};
+
+template <>
+struct GammaVec<kGammaF32> {
+  float4 lo, hi;
+  __device__ __forceinline__ void load(const void* g, int col) {
+    const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(g) + col);
+    lo = __ldg(p);
+    hi = __ldg(p + 1);
+  }
+  __device__ __forceinline__ float apply(float y, int e) const {
+    const float4& f = e < 4 ? lo : hi;
+    const int i = e % 4;
+    return y * (i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w);
+  }
+};
+
+// The q and k rows of token t = b * seq + s.
+struct Rows {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  int64_t q_sb, q_ss, k_sb, k_ss;
+  int seq, dim;
+
+  __device__ __forceinline__ const __nv_bfloat16* q_row(int t) const {
+    const int b = t / seq;
+    return q + b * q_sb + static_cast<int64_t>(t - b * seq) * q_ss;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* k_row(int t) const {
+    const int b = t / seq;
+    return k + b * k_sb + static_cast<int64_t>(t - b * seq) * k_ss;
+  }
+};
+
+__device__ __forceinline__ float sum_sq(const uint4& v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float a = bf16_lo(w[j]), b = bf16_hi(w[j]);
+    s += a * a + b * b;
+  }
+  return s;
+}
+
+// Normalize, scale, rotate and round one vector (its 4 pairs' table entries
+// in c4, s4), packed for one 16-byte store.
+template <int G>
+__device__ __forceinline__ uint4 norm_rope_vec(const uint4& x, const GammaVec<G>& g, float inv,
+                                               const float4& c4, const float4& s4) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  const float c[4] = {c4.x, c4.y, c4.z, c4.w}, sn[4] = {s4.x, s4.y, s4.z, s4.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float y0 = g.apply(bf16_lo(w[j]) * inv, 2 * j);
+    const float y1 = g.apply(bf16_hi(w[j]) * inv, 2 * j + 1);
+    const __nv_bfloat162 r = rope_pair(y0, y1, c[j], sn[j]);
+    o[j] = *reinterpret_cast<const uint32_t*>(&r);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// At least two blocks of kMaxThreads per SM: 64 registers, which ptxas meets
+// without spills unless gamma is f32 (81 registers then, one block).
+template <int G>
+__global__ void __launch_bounds__(kMaxThreads, G == kGammaF32 ? 1 : 2)
+qk_norm_rope_vec_kernel(const Rows rows, const void* __restrict__ gq, const void* __restrict__ gk,
+                        const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                        __nv_bfloat16* __restrict__ qo, __nv_bfloat16* __restrict__ ko,
+                        int head_dim, float eps) {
+  __shared__ float red[2][kMaxThreads / 32];
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int dim = rows.dim, half = head_dim / 2, t = blockIdx.x, s = t % rows.seq;
+  const __nv_bfloat16* qr = rows.q_row(t);
+  const __nv_bfloat16* kr = rows.k_row(t);
+  // vector i of this thread starts at column (i * blockDim.x + threadIdx.x) * 8
+  uint4 xq[kVecs], xk[kVecs];
+  float4 cv[kVecs], sv[kVecs];
+  GammaVec<G> gqv[kVecs], gkv[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int c = (i * blockDim.x + threadIdx.x) * kVec;
+    xq[i] = xk[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (c < dim) {
+      xq[i] = __ldg(reinterpret_cast<const uint4*>(qr + c));
+      xk[i] = __ldg(reinterpret_cast<const uint4*>(kr + c));
+      const int64_t at = static_cast<int64_t>(s) * half + (c % head_dim) / 2;
+      cv[i] = __ldg(reinterpret_cast<const float4*>(cos_t + at));
+      sv[i] = __ldg(reinterpret_cast<const float4*>(sin_t + at));
+      gqv[i].load(gq, c);
+      gkv[i].load(gk, c);
+    }
+  }
+  float sq = 0.f, sk = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    sq += sum_sq(xq[i]);
+    sk += sum_sq(xk[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    sk += __shfl_xor_sync(0xffffffffu, sk, o);
+  }
+  if (lane == 0) {
+    red[0][warp] = sq;
+    red[1][warp] = sk;
+  }
+  __syncthreads();
+  sq = 0.f;
+  sk = 0.f;
+  for (int w = 0; w < warps; ++w) {
+    sq += red[0][w];
+    sk += red[1][w];
+  }
+  const float inv_q = rms_inverse(sq, dim, eps), inv_k = rms_inverse(sk, dim, eps);
+  __nv_bfloat16* qd = qo + static_cast<int64_t>(t) * dim;
+  __nv_bfloat16* kd = ko + static_cast<int64_t>(t) * dim;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int c = (i * blockDim.x + threadIdx.x) * kVec;
+    if (c < dim) {
+      *reinterpret_cast<uint4*>(qd + c) = norm_rope_vec<G>(xq[i], gqv[i], inv_q, cv[i], sv[i]);
+      *reinterpret_cast<uint4*>(kd + c) = norm_rope_vec<G>(xk[i], gkv[i], inv_k, cv[i], sv[i]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- tail path
 
 __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// One row of q or k: normalize the pair at column 2p, round to bf16, rotate
-// with table entry (s, p mod half), round and store.
+// One row of q or k: normalize the pair at column col, scale by gamma, round
+// to bf16, rotate with (c, sn), round and store.
+template <int G>
 __device__ __forceinline__ void norm_rope_pair(const __nv_bfloat16* src, __nv_bfloat16* dst,
-                                               const float* gamma, float inv, float c,
-                                               float sn, int col) {
+                                               const void* gamma, float inv, float c, float sn,
+                                               int col) {
   const float2 x = load_pair(src + col);
-  float y0 = x.x * inv, y1 = x.y * inv;
-  if (gamma != nullptr) {
-    y0 *= gamma[col];
-    y1 *= gamma[col + 1];
-  }
-  const float2 r = __bfloat1622float2(__floats2bfloat162_rn(y0, y1));
-  const float o1 = __fsub_rn(__fmul_rn(r.x, c), __fmul_rn(r.y, sn));
-  const float o2 = __fadd_rn(__fmul_rn(r.y, c), __fmul_rn(r.x, sn));
-  *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(o1, o2);
+  const float y0 = times_gamma<G>(x.x * inv, gamma, col);
+  const float y1 = times_gamma<G>(x.y * inv, gamma, col + 1);
+  *reinterpret_cast<__nv_bfloat162*>(dst + col) = rope_pair(y0, y1, c, sn);
 }
 
-__global__ void __launch_bounds__(kThreads)
-qk_norm_rope_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-                    const float* __restrict__ gq, const float* __restrict__ gk,
-                    const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                    __nv_bfloat16* __restrict__ qo, __nv_bfloat16* __restrict__ ko,
-                    int seq, int dim, int head_dim, float eps) {
-  __shared__ float red[2][kWarps];
+template <int G>
+__global__ void __launch_bounds__(kRowThreads)
+qk_norm_rope_row_kernel(const Rows rows, const void* __restrict__ gq, const void* __restrict__ gk,
+                        const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                        __nv_bfloat16* __restrict__ qo, __nv_bfloat16* __restrict__ ko,
+                        int head_dim, float eps) {
+  __shared__ float red[2][kRowWarps];
   const int token = blockIdx.x;  // b * seq + s
-  const int b = token / seq, s = token - b * seq;
-  const __nv_bfloat16* qr = q + b * q_sb + s * q_ss;
-  const __nv_bfloat16* kr = k + b * k_sb + s * k_ss;
+  const int s = token % rows.seq, dim = rows.dim;
+  const __nv_bfloat16* qr = rows.q_row(token);
+  const __nv_bfloat16* kr = rows.k_row(token);
 
   float sq = 0.f, sk = 0.f;
-  for (int c = threadIdx.x * 2; c < dim; c += kThreads * 2) {
+  for (int c = threadIdx.x * 2; c < dim; c += kRowThreads * 2) {
     const float2 a = load_pair(qr + c), e = load_pair(kr + c);
     sq += a.x * a.x + a.y * a.y;
     sk += e.x * e.x + e.y * e.y;
@@ -91,68 +287,105 @@ qk_norm_rope_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   sq = 0.f;
   sk = 0.f;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
+  for (int w = 0; w < kRowWarps; ++w) {
     sq += red[0][w];
     sk += red[1][w];
   }
-  // IEEE sqrt and division (no fast-math), as csrc/rmsnorm.cu
-  const float inv_q = 1.0f / sqrtf(sq / static_cast<float>(dim) + eps);
-  const float inv_k = 1.0f / sqrtf(sk / static_cast<float>(dim) + eps);
+  const float inv_q = rms_inverse(sq, dim, eps), inv_k = rms_inverse(sk, dim, eps);
 
   const int half = head_dim / 2;
   const float* cs = cos_t + static_cast<int64_t>(s) * half;
   const float* sn = sin_t + static_cast<int64_t>(s) * half;
   __nv_bfloat16* qd = qo + static_cast<int64_t>(token) * dim;
   __nv_bfloat16* kd = ko + static_cast<int64_t>(token) * dim;
-  for (int c = threadIdx.x * 2; c < dim; c += kThreads * 2) {
+  for (int c = threadIdx.x * 2; c < dim; c += kRowThreads * 2) {
     const int p = (c % head_dim) / 2;
     const float cv = cs[p], sv = sn[p];
-    norm_rope_pair(qr, qd, gq, inv_q, cv, sv, c);
-    norm_rope_pair(kr, kd, gk, inv_k, cv, sv, c);
+    norm_rope_pair<G>(qr, qd, gq, inv_q, cv, sv, c);
+    norm_rope_pair<G>(kr, kd, gk, inv_k, cv, sv, c);
   }
 }
 
+// --------------------------------------------------------------------- launch
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+bool fast_path(const Rows& r, const void* gq, const void* gk, const void* cos_t,
+               const void* sin_t, const void* qo, const void* ko, int head_dim) {
+  return r.dim % kVec == 0 && r.dim <= kMaxFastDim && head_dim % kVec == 0 &&
+         r.q_sb % kVec == 0 && r.q_ss % kVec == 0 && r.k_sb % kVec == 0 && r.k_ss % kVec == 0 &&
+         aligned16(r.q) && aligned16(r.k) && aligned16(gq) && aligned16(gk) &&
+         aligned16(cos_t) && aligned16(sin_t) && aligned16(qo) && aligned16(ko);
+}
+
+template <int G>
+int launch_kind(const Rows& r, const void* gq, const void* gk, const float* cos_t,
+                const float* sin_t, __nv_bfloat16* qo, __nv_bfloat16* ko, int tokens,
+                int head_dim, float eps, cudaStream_t stream) {
+  if (fast_path(r, gq, gk, cos_t, sin_t, qo, ko, head_dim)) {
+    // whole warps covering dim / 8 vectors, kVecs per thread
+    const int threads = 32 * ((r.dim + 32 * kVecs * kVec - 1) / (32 * kVecs * kVec));
+    qk_norm_rope_vec_kernel<G><<<static_cast<unsigned>(tokens), threads, 0, stream>>>(
+        r, gq, gk, cos_t, sin_t, qo, ko, head_dim, eps);
+  } else {
+    qk_norm_rope_row_kernel<G><<<static_cast<unsigned>(tokens), kRowThreads, 0, stream>>>(
+        r, gq, gk, cos_t, sin_t, qo, ko, head_dim, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch(const void* q, const void* k, long long q_sb, long long q_ss, long long k_sb,
-           long long k_ss, const void* gq, const void* gk, const void* cos_t,
+           long long k_ss, const void* gq, const void* gk, int gamma_kind, const void* cos_t,
            const void* sin_t, void* qo, void* ko, int batch, int seq, int dim, int head_dim,
            float eps, void* stream) {
   if (batch <= 0 || seq <= 0) return 0;
-  qk_norm_rope_kernel<<<static_cast<unsigned>(batch * seq), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), q_sb, q_ss,
-      k_sb, k_ss, static_cast<const float*>(gq), static_cast<const float*>(gk),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<__nv_bfloat16*>(qo), static_cast<__nv_bfloat16*>(ko), seq, dim, head_dim,
-      eps);
-  return static_cast<int>(cudaGetLastError());
+  if (dim <= 0 || head_dim <= 0 || head_dim % 2 != 0 || dim % head_dim != 0 ||
+      (gamma_kind != kNoGamma) != (gq != nullptr && gk != nullptr) ||
+      gamma_kind < kNoGamma || gamma_kind > kGammaF32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Rows r{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+               q_sb, q_ss, k_sb, k_ss, seq, dim};
+  const float* cs = static_cast<const float*>(cos_t);
+  const float* sn = static_cast<const float*>(sin_t);
+  __nv_bfloat16* qd = static_cast<__nv_bfloat16*>(qo);
+  __nv_bfloat16* kd = static_cast<__nv_bfloat16*>(ko);
+  const int tokens = batch * seq;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gamma_kind == kGammaBf16)
+    return launch_kind<kGammaBf16>(r, gq, gk, cs, sn, qd, kd, tokens, head_dim, eps, st);
+  if (gamma_kind == kGammaF32)
+    return launch_kind<kGammaF32>(r, gq, gk, cs, sn, qd, kd, tokens, head_dim, eps, st);
+  return launch_kind<kNoGamma>(r, gq, gk, cs, sn, qd, kd, tokens, head_dim, eps, st);
 }
 
 }  // namespace
 
 // Fused form: qkv (B, S, W) bf16 with batch/seq strides qkv_sb/qkv_ss
 // (elements), last dim contiguous; q = columns [0, dim), k = [dim, 2 dim).
-// gq/gk: f32 (dim,) or both NULL; cos/sin: contiguous f32 (S, head_dim/2);
-// qo/ko: contiguous bf16 (B, S, dim). dim a multiple of head_dim, head_dim
-// even, pointers and strides 4-byte aligned.
+// gq/gk: (dim,) contiguous, both bf16 (gamma_kind 1) or both f32 (2), or both
+// NULL (0); cos/sin: contiguous f32 (S, head_dim/2); qo/ko: contiguous bf16
+// (B, S, dim). dim a multiple of head_dim, head_dim even, pointers and strides
+// 4-byte aligned.
 FDM_EXPORT int fdm_qk_norm_rope_bf16(const void* qkv, long long qkv_sb, long long qkv_ss,
-                                     const void* gq, const void* gk, const void* cos_t,
-                                     const void* sin_t, void* qo, void* ko, int batch, int seq,
-                                     int dim, int head_dim, float eps, void* stream) {
+                                     const void* gq, const void* gk, int gamma_kind,
+                                     const void* cos_t, const void* sin_t, void* qo, void* ko,
+                                     int batch, int seq, int dim, int head_dim, float eps,
+                                     void* stream) {
   const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(qkv);
-  return launch(base, base + dim, qkv_sb, qkv_ss, qkv_sb, qkv_ss, gq, gk, cos_t, sin_t, qo, ko,
-                batch, seq, dim, head_dim, eps, stream);
+  return launch(base, base + dim, qkv_sb, qkv_ss, qkv_sb, qkv_ss, gq, gk, gamma_kind, cos_t,
+                sin_t, qo, ko, batch, seq, dim, head_dim, eps, stream);
 }
 
 // Two-operand form: q and k (B, S, dim) bf16, each with its own batch/seq
 // strides; otherwise as above.
 FDM_EXPORT int fdm_qk_norm_rope2_bf16(const void* q, const void* k, long long q_sb,
                                       long long q_ss, long long k_sb, long long k_ss,
-                                      const void* gq, const void* gk, const void* cos_t,
-                                      const void* sin_t, void* qo, void* ko, int batch,
-                                      int seq, int dim, int head_dim, float eps,
+                                      const void* gq, const void* gk, int gamma_kind,
+                                      const void* cos_t, const void* sin_t, void* qo, void* ko,
+                                      int batch, int seq, int dim, int head_dim, float eps,
                                       void* stream) {
-  return launch(q, k, q_sb, q_ss, k_sb, k_ss, gq, gk, cos_t, sin_t, qo, ko, batch, seq, dim,
-                head_dim, eps, stream);
+  return launch(q, k, q_sb, q_ss, k_sb, k_ss, gq, gk, gamma_kind, cos_t, sin_t, qo, ko, batch,
+                seq, dim, head_dim, eps, stream);
 }
 
 FDM_DEFINE_ERROR_STRING(fdm_qk_norm_rope)

@@ -164,7 +164,7 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 //   s8 x s8 -> s32, A and B K-major in shared memory (the int8 GEMM; 8-bit
 //   operands must both be K-major; integer wgmma takes no immediate scales);
 //   bf16 SS, both K-major (Q.K^T);
-//   bf16 RS: A from registers in the mma.sync m16n8k16 fragment layout, B
+//   bf16 RS: A from registers in the warp-level m16n8k16 fragment layout, B
 //   MN-major in shared memory (P.V, V key-major).
 
 __device__ __forceinline__ void wgmma_m64n128k32_e4m3(float (&d)[64], uint64_t da, uint64_t db, uint32_t scale_d) {

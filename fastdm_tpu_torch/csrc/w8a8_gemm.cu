@@ -19,7 +19,8 @@
 // 800 to 3000 operations per byte, far above the ~590 op/byte ridge of the
 // 1979 TOP/s tensor-core rate: the floor of the single-block qkv_mlp product
 // (8704 x 3072 -> 21504) is 0.58 ms. Only wgmma fed from shared memory by the
-// TMA reaches that rate on Hopper (mma.sync through registers does not).
+// TMA reaches that rate on Hopper (the warp-level MMA through registers does
+// not).
 //
 // Design (w8a8_sm90.cuh, sm90.cuh; the fp8 GEMM's skeleton): a persistent
 // grid, one block per SM, walking output tiles in grouped order; warpgroup 0

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time the attention and W8A8 GEMM kernels of one or more checkouts of this
-repository on one NVIDIA GPU, on the same inputs (from seeds) in every
-checkout:
+"""Time the attention, qk-norm+RoPE and W8A8 GEMM kernels of one or more
+checkouts of this repository on one NVIDIA GPU, on the same inputs (from
+seeds) in every checkout:
   - Wan2.2-A14B at 480x832x81 (32760 tokens, 40 heads of 128): dense sdpa,
     the superblock walk (gather_super) on the radial superblock tables of
     examples/sparse/radial_attn_wan.json (q tiles of 256 tokens, 8 entries per
     group, fine blocks of 128, superblocks of 4), the fine walk (gather_fine)
     on its fine tables (q tiles of 512 tokens, groups of 32, fine blocks of
-    128) and the coarse walk (gather_coarse) on its coarse lists (512 x 1024
-    tiles), as the engine builds them;
+    128), the coarse walk (gather_coarse) on its coarse lists (512 x 1024
+    tiles) and the mask walk (sparse_mask) on its (1, 40, 256, 256) block
+    mask of 128 x 128 tiles, as the engine builds them; qk_norm_rope on a
+    (1, 32760, 15360) fused QKV output and qk_norm_rope2 on the split path's
+    (1, 4095, 5120) chunk, with bf16 norm weights and the real 3D RoPE tables;
   - FLUX.1-dev at 1024x2048: sdpa at (1, 8704, 24x128), and the int8 and fp8
     W8A8 GEMMs at the single-block qkv_mlp product (8704 x 3072 @ 3072 x
     21504), each on its per-token quantized activation and a random
@@ -20,10 +23,13 @@ Each ROOT (a checkout, e.g. a `git archive` of a commit) is timed in a process
 of its own, in the order given (for an A/B comparison on one card: parent,
 change, change, parent, repeated); one JSON line per ROOT given (each kernel's
 mean ms over 20 calls, CUDA events, after 2 s of warm-up calls of that kernel,
+the calls queued behind a busy-wait so that the device, not the host, is timed,
 and an exact checksum of its output), then
 one JSON line per distinct ROOT with each kernel's median, min and max over
 that ROOT's runs and whether its checksums agree across all runs of all ROOTs,
-then the card's name and power limit. Needs nothing of JAX.
+then the card's name and power limit. The qk-norm+RoPE and mask outputs may
+differ between checkouts whose kernels sum in another order. Needs nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ def _one(root: str) -> dict:
     from fastdm_tpu_torch.kernels import cuda_backend as cb
     from fastdm_tpu_torch.kernels import torch_backend as tb
     from fastdm_tpu_torch.layers.qlinear import qlinear_random
+    from fastdm_tpu_torch.models.wan import WanConfig, wan_rope_cos_sin
     from fastdm_tpu_torch.sparse.xsparse import SparseAttn
 
     with open(os.path.join(root, "examples", "sparse", "radial_attn_wan.json")) as f:
@@ -57,6 +64,7 @@ def _one(root: str) -> dict:
         to(radial.block_lists(512, 1024))
     fine_bq, fine_group = 512, 32
     fine_tables = to(radial.block_lists_fine(fine_bq, fine_group))
+    (mask,) = to([radial.block_mask(1, h, block_tokens=128)])
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn(1, s, h * hd, generator=g, device=dev, dtype=torch.bfloat16)
                for _ in range(3))
@@ -68,6 +76,11 @@ def _one(root: str) -> dict:
     a8, s8, z8 = tb.quantize_to_int8_torch(x, symmetric=False)
     wf = qlinear_random(g, kk, n, quant="fp8", device=dev)
     af, sf = tb.quantize_to_fp8_torch(x)
+    d, chunk = h * hd, 4095
+    cos, sin = wan_rope_cos_sin(WanConfig(), frames, 60, 104, device=dev)
+    qkv = (torch.randn(1, s, 3 * d, generator=g, device=dev) * 2).bfloat16()
+    gq, gk = ((1 + 0.1 * torch.randn(d, generator=g, device=dev)).bfloat16() for _ in range(2))
+    cq, ck = (qkv[:, :chunk, i * d:(i + 1) * d].contiguous() for i in range(2))
 
     kernels = {
         "gather_super": lambda: cb.gather_super_attention_cuda(
@@ -76,6 +89,11 @@ def _one(root: str) -> dict:
             q, k, v, *fine_tables, h, h, hd, block_q=fine_bq, group=fine_group, fine=fine),
         "gather_coarse": lambda: cb.gather_sparse_attention_cuda(
             q, k, v, *coarse_tables, h, h, hd, block_q=512, block_k=1024),
+        "sparse_mask": lambda: cb.sparse_attention_cuda(
+            q, k, v, h, h, hd, sparse_mask=mask, block_q=128, block_k=128),
+        "qk_norm_rope": lambda: cb.qk_norm_rope_cuda(qkv, gq, gk, hd, cos, sin, inner_dim=d),
+        "qk_norm_rope2": lambda: cb.qk_norm_rope2_cuda(cq, ck, gq, gk, hd, cos[:chunk],
+                                                       sin[:chunk]),
         "sdpa_wan": lambda: cb.sdpa_cuda(q, k, v, h, h, hd),
         "sdpa_flux": lambda: cb.sdpa_cuda(fq, fk, fv, 24, 24, hd),
         "int8_matmul": lambda: cb.int8_matmul_cuda(a8, w8.w, s8, w8.scale, torch.bfloat16,
@@ -92,6 +110,10 @@ def _one(root: str) -> dict:
             fn()
             torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        # a busy-wait (~0.1 ms a call) holds the stream while the host queues
+        # the calls: a kernel shorter than its wrapper's host time is timed on
+        # the device
+        torch.cuda._sleep(200_000 * iters)
         start.record()
         for _ in range(iters):
             fn()
@@ -101,7 +123,9 @@ def _one(root: str) -> dict:
 
     out = {"root": root}
     for name, fn in kernels.items():
-        out[f"{name}_checksum"] = int(fn().view(torch.int16).long().sum())
+        got = fn()
+        out[f"{name}_checksum"] = sum(int(t.view(torch.int16).long().sum())
+                                      for t in (got if isinstance(got, tuple) else (got,)))
         out[f"{name}_ms"] = ms(fn, 20)
     return out
 

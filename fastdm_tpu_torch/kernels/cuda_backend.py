@@ -150,6 +150,9 @@ rotary_pos_embedding_cuda.launches = 0
 
 # ---------------------------------------------------------- qk_norm_rope
 
+# the norm weights' dtype -> the kernel's gamma_kind (0: no weights)
+_GAMMA_KINDS = {torch.bfloat16: 1, torch.float32: 2}
+
 
 def _qk_norm_rope_launch(wrapper, entry: str, lead_args, lead_types, q: Tensor, k: Tensor,
                          d: int, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor],
@@ -179,20 +182,27 @@ def _qk_norm_rope_launch(wrapper, entry: str, lead_args, lead_types, q: Tensor, 
              f"cos/sin must be ({s}, {half})")
     _require((gamma_q is None) == (gamma_k is None), kernel, "gamma_q/gamma_k: both or neither")
     gq = gk = None
+    gamma_kind = 0
     if gamma_q is not None:
         _require(gamma_q.numel() == d and gamma_k.numel() == d and gamma_q.device == dev
                  and gamma_k.device == dev, kernel, f"gamma_q/gamma_k must be ({d},) on {dev}")
-        gq = gamma_q.reshape(d).float().contiguous()
-        gk = gamma_k.reshape(d).float().contiguous()
+        # the kernel reads bf16 or f32 weights as they are (bf16 -> f32 is exact)
+        _require(gamma_q.dtype == gamma_k.dtype and gamma_q.dtype in _GAMMA_KINDS, kernel,
+                 f"gamma_q/gamma_k must share a dtype in (bfloat16, float32), got "
+                 f"{gamma_q.dtype}/{gamma_k.dtype}")
+        gamma_kind = _GAMMA_KINDS[gamma_q.dtype]
+        gq, gk = gamma_q.reshape(d).contiguous(), gamma_k.reshape(d).contiguous()
     qo = torch.empty(b, s, d, dtype=q.dtype, device=dev)
     ko = torch.empty(b, s, d, dtype=q.dtype, device=dev)
     if b * s == 0:
         return qo, ko
-    lib, fn = _entry("qk_norm_rope", entry, list(lead_types) + [_P] * 6 + [_I] * 4 + [_F, _P])
+    lib, fn = _entry("qk_norm_rope", entry,
+                     list(lead_types) + [_P, _P, _I] + [_P] * 4 + [_I] * 4 + [_F, _P])
     with torch.cuda.device(dev):
         code = fn(*lead_args, gq.data_ptr() if gq is not None else None,
-                  gk.data_ptr() if gk is not None else None, cos.data_ptr(), sin.data_ptr(),
-                  qo.data_ptr(), ko.data_ptr(), b, s, d, head_size, float(eps), _stream(dev))
+                  gk.data_ptr() if gk is not None else None, gamma_kind, cos.data_ptr(),
+                  sin.data_ptr(), qo.data_ptr(), ko.data_ptr(), b, s, d, head_size, float(eps),
+                  _stream(dev))
     _check_launch(lib, "fdm_qk_norm_rope", code, kernel)
     wrapper.launches += 1
     return qo, ko
@@ -332,43 +342,11 @@ sdpa_cuda.launches = 0
 
 # --------------------------------------------------------- sparse attention
 #
-# The coarse, superblock and fine walks run on the wgmma + TMA attention kernel
-# (csrc/flash_attn.cu); mask on the table walk of csrc/gather_attn.cu, beside
-# the dense walk that is its bit-for-bit reference. The wrappers check shapes,
-# dtypes and devices; the table VALUES are not read (that would sync the
-# card): the kernels clamp their table reads, and the engine checks its tables
-# once on the host (contracts, strict=True).
-
-_OPERAND_TYPES = [_P] * 4 + [_I] * 6 + [_L] * 8 + [_F, _P]
-
-
-def _sparse_attention(wrapper, kernel: str, entry: str, table_args, table_types, tables,
-                      query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
-                      num_kv_heads: int, head_dim: int, scale: Optional[float],
-                      tiles: dict) -> Tensor:
-    """The attention checks, then one launch of `entry` of gather_attn.cu (the
-    mask walk or the dense walk) with the table arguments first, counted on
-    `wrapper`.
-    tiles: {name: size} of the tile sizes that must be multiples of 64."""
-    _check_attention(kernel, query, key, value, head_dim, tables, tiles)
-    dev = query.device
-    b, sq, _ = query.shape
-    if scale is None:
-        scale = head_dim**-0.5
-    out = torch.empty(query.shape, dtype=query.dtype, device=dev)
-    if b * sq == 0:
-        return out
-    lib, fn = _entry("gather_attn", entry, list(table_types) + _OPERAND_TYPES)
-    with torch.cuda.device(dev):
-        code = fn(*table_args, query.data_ptr(), key.data_ptr(), value.data_ptr(),
-                  out.data_ptr(), b, sq, key.shape[1], num_q_heads, num_kv_heads, head_dim,
-                  query.stride(0), query.stride(1), key.stride(0), key.stride(1),
-                  value.stride(0), value.stride(1), out.stride(0), out.stride(1),
-                  float(scale * _LOG2E), _stream(dev))
-    _check_launch(lib, "fdm_gather_attn", code, kernel)
-    wrapper.launches += 1
-    return out
-
+# The mask, coarse, superblock and fine walks run on the wgmma + TMA attention
+# kernel (csrc/flash_attn.cu). The wrappers check shapes, dtypes and devices;
+# the table VALUES are not read (that would sync the card): the kernel clamps
+# its table reads, and the engine checks its tables once on the host
+# (contracts, strict=True).
 
 @kernel_registry.register("sdpa_gather_super", "cuda")
 def gather_super_attention_cuda(
@@ -395,26 +373,6 @@ def gather_super_attention_cuda(
 
 
 gather_super_attention_cuda.launches = 0
-
-
-def dense_walk_attention_cuda(
-    query: Tensor, key: Tensor, value: Tensor, num_q_heads: int, num_kv_heads: int,
-    head_dim: int, scale: Optional[float] = None,
-) -> Tensor:
-    """Dense, non-causal attention on the mask walk's mma.sync tile
-    (csrc/gather_attn.cu, the table-free walk over every 64-key tile): the
-    design sdpa and the coarse, superblock and fine walks ran on before their
-    wgmma + TMA redesign. A check and a yardstick, not a registered op: the
-    mask walk on a mask that allows every key equals it bit for bit, and no
-    model path reaches it."""
-    contracts.check_sdpa("dense_walk_attention_cuda", query, key, value, num_q_heads,
-                         num_kv_heads, head_dim)
-    return _sparse_attention(
-        dense_walk_attention_cuda, "dense_walk", "fdm_gather_dense", (), [], {}, query, key,
-        value, num_q_heads, num_kv_heads, head_dim, scale, {})
-
-
-dense_walk_attention_cuda.launches = 0
 
 
 @kernel_registry.register("sdpa_gather_fine", "cuda")
@@ -466,6 +424,10 @@ def gather_sparse_attention_cuda(
 gather_sparse_attention_cuda.launches = 0
 
 
+# the most entries a mask row may hold (flash_attn.cu: 32 * MaskTables::kRowWords)
+MASK_ROW_ENTRIES = 4096
+
+
 @kernel_registry.register("sdpa_sparse", "cuda")
 def sparse_attention_cuda(
     query: Tensor, key: Tensor, value: Tensor, num_q_heads: int, num_kv_heads: int,
@@ -486,11 +448,15 @@ def sparse_attention_cuda(
     _require(sparse_mask.dtype == torch.int32, kernel,
              f"sparse_mask must be int32, got {sparse_mask.dtype}")
     ni, nj = sparse_mask.shape[2:]
-    return _sparse_attention(
-        sparse_attention_cuda, kernel, "fdm_sparse_mask_fwd",
-        (sparse_mask.data_ptr(), ni, nj, block_q, block_k), [_P] + [_I] * 4,
-        {"sparse_mask": sparse_mask}, query, key, value, num_q_heads, num_kv_heads, head_dim,
-        scale, {"block_q": block_q, "block_k": block_k})
+    _require(nj <= MASK_ROW_ENTRIES, kernel,
+             f"a mask row of {nj} entries exceeds the kernel's {MASK_ROW_ENTRIES} "
+             f"(ceil(skv / block_k)): take a larger block_k")
+    _check_attention(kernel, query, key, value, head_dim, {"sparse_mask": sparse_mask},
+                     {"block_q": block_q, "block_k": block_k})
+    return _flash_attention(
+        sparse_attention_cuda, kernel, "fdm_flash_attn_mask_fwd",
+        (sparse_mask.data_ptr(), ni, nj, block_q, block_k), [_P] + [_I] * 4, query, key, value,
+        num_q_heads, num_kv_heads, head_dim, scale, False, tma.walk_rows(block_q))
 
 
 sparse_attention_cuda.launches = 0
@@ -631,7 +597,7 @@ KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, qk_norm_rope_cuda,
                    qk_norm_rope2_cuda, gelu_and_mul_cuda, sdpa_cuda, gather_super_attention_cuda,
                    gather_fine_attention_cuda, gather_sparse_attention_cuda,
                    sparse_attention_cuda, quantize_to_int8_cuda, quantize_to_fp8_cuda,
-                   int8_matmul_cuda, fp8_matmul_cuda, dense_walk_attention_cuda)
+                   int8_matmul_cuda, fp8_matmul_cuda)
 
 
 def reset_launch_counts() -> None:

@@ -1,6 +1,6 @@
 """Tensor-map geometry of the attention kernel's TMA loads (csrc/flash_attn.cu:
-dense sdpa and the coarse, superblock and fine table walks), computed on the
-host from the tensor views, so that the CPU tests reach it; the C side only
+dense sdpa and the mask, coarse, superblock and fine table walks), computed on
+the host from the tensor views, so that the CPU tests reach it; the C side only
 checks it against its tiles and encodes it with cuTensorMapEncodeTiled.
 
 A (B, S, H*D) view with a contiguous last dim is a 3-D map over (H*D, S, B),

@@ -21,15 +21,13 @@ relative to its absolute sum, and 60x under the worst case at K = 15360.
 The Wan kernels: qk_norm_rope / qk_norm_rope2 within one bf16 ulp of the
 value plus two of its rotation pair's magnitude (the normalized value may sit
 one ulp away before the bit-exact rotation mixes the pair), and the fused and
-two-operand forms bit-identical; gather_super as sdpa's FLUX-heads case, the
-other three sparse-attention walks (gather_fine, gather_coarse, sparse_mask)
-as sdpa's small cases plus relative L2 5e-3 (see _close_to_plain); on tables
-that allow every key, gather_super, gather_fine and sparse_mask bit-identical
-to the dense walk (dense_walk_attention_cuda: their kernel with no table, the
-design sdpa ran on before its wgmma + TMA redesign) and gather_coarse, which
-runs on sdpa's kernel, bit-identical to sdpa_cuda (the same tiles in the same
-order through the same tile code); the dense walk itself as sdpa's
-FLUX-heads case. The SDXL kernels: gelu_and_mul within one bf16 ulp of its
+two-operand forms bit-identical, at widths on and off the kernel's fast path
+and with bf16, f32 or no norm weights; gather_super as sdpa's FLUX-heads
+case, the other three sparse-attention walks (gather_fine, gather_coarse,
+sparse_mask) as sdpa's small cases plus relative L2 5e-3 (see
+_close_to_plain); on tables that allow every key, all four walks, which run on
+sdpa's kernel, bit-identical to sdpa_cuda (the same tiles in the same order
+through the same tile code). The SDXL kernels: gelu_and_mul within one bf16 ulp of its
 plain version (both round once from f32; erff and ATen's erf may differ by an
 f32 ulp), in f32 within 1e-6 relative plus |h*g| * 2^-22; sdpa at head dim 64
 on the fused projections as the small cases.
@@ -395,22 +393,30 @@ def _pair_ulp_excess(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return (got.float() - w).abs() - (_bf16_ulp(w) + 2 * _bf16_ulp(mag))
 
 
+# (heads, head_dim): 768; Wan2.2-A14B's 5120 and Wan2.2-5B's 3072 (the fast
+# path); 8320 (past the fast path's 8192) and 30 (not a multiple of 8, head
+# dim 6), which take the tail path
+QK_WIDTHS = [(6, 128), (40, 128), (24, 128), (65, 128), (5, 6)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("affine", [True, False])
-def test_qk_norm_rope_kernels_match_plain_on_card(cuda_device, affine):
-    """The fused form reads q|k in place from a strided (B, S, 3D) qkv
-    (inner_dim) and from a (B, S, 2D) one; the two-operand form takes strided
-    q and k views; both forms give the same bits on the same rows."""
+@pytest.mark.parametrize("heads,hd", QK_WIDTHS)
+@pytest.mark.parametrize("gamma", [torch.bfloat16, torch.float32, None])
+def test_qk_norm_rope_kernels_match_plain_on_card(cuda_device, gamma, heads, hd):
+    """The fused form reads q|k in place from a strided (2, S, 3D) qkv
+    (inner_dim) and from a (2, S, 2D) one; the two-operand form takes strided
+    q and k views; both forms give the same bits on the same rows, with the
+    norm weights in bf16, in f32 or absent."""
     from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
 
-    b, s, heads, hd = 2, 77, 6, 128
+    b, s = 2, 77
     d = heads * hd
     g = torch.Generator(device=cuda_device).manual_seed(3)
     qkv = (torch.randn(b, s, 3 * d, generator=g, device=cuda_device) * 2).bfloat16()
     gq = gk = None
-    if affine:
-        gq = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).bfloat16()
-        gk = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).bfloat16()
+    if gamma is not None:
+        gq = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).to(gamma)
+        gk = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).to(gamma)
     cos, sin = _rope_tables(s, hd, cuda_device)
     want = torch_backend.qk_norm_rope_torch(qkv, gq, gk, hd, cos, sin, inner_dim=d)
     fused = cuda_backend.qk_norm_rope_cuda(qkv, gq, gk, hd, cos, sin, inner_dim=d)
@@ -497,25 +503,6 @@ def test_gather_super_all_active_equals_dense_kernel(cuda_device):
 
 
 @pytest.mark.gpu
-def test_dense_walk_matches_plain_on_card(cuda_device):
-    """The dense walk (the walks' tile with no table) is dense attention: held
-    to the plain version as sdpa's FLUX-heads case, GQA and a ragged tail."""
-    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
-
-    b, s, hq, hkv, d = 1, 1100, 24, 8, 128
-    g = torch.Generator(device=cuda_device).manual_seed(7)
-    q, k, v = (torch.randn(b, s, h * d, generator=g, device=cuda_device, dtype=torch.bfloat16)
-               for h in (hq, hkv, hkv))
-    cuda_backend.reset_launch_counts()
-    got = cuda_backend.dense_walk_attention_cuda(q, k, v, hq, hkv, d).float()
-    assert cuda_backend.dense_walk_attention_cuda.launches == 1
-    assert cuda_backend.sdpa_cuda.launches == 0
-    want = torch_backend.sdpa_torch(q, k, v, hq, hkv, d).float()
-    assert ((got - want).abs() <= 1e-3 + 2 * _bf16_ulp(want)).all()
-    assert (got - want).norm() / want.norm() <= 5e-3
-
-
-@pytest.mark.gpu
 def test_wan_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     from fastdm_tpu_torch.kernels import cuda_backend
     from fastdm_tpu_torch.sparse.xsparse import super_tables_from_mask
@@ -550,6 +537,12 @@ WALK_CASES = {
     "gqa-d64": (1, 513, 1500, 8, 2, 64, 128, 64, 8, 0.5, 0),
     "wan-heads": (1, 2048, 2048, 40, 40, 128, 512, 128, 32, 0.4, None),
 }
+# block_q and block_k odd multiples of 64 (blocks of one consumer; tiles
+# pairing the 64-key halves of two entries), one of them GQA at D 64
+ODD_TILE_CASES = {
+    "odd-192x320": (1, 1000, 1111, 4, 4, 128, 192, 320, None, 0.5, 2),
+    "odd-gqa-d64": (2, 700, 900, 8, 2, 64, 64, 192, None, 0.5, 3),
+}
 
 
 def _walk_operands(case, device, seed=8):
@@ -573,15 +566,19 @@ def _close_to_plain(got, want, empty, bq):
         assert not got[:, empty * bq:(empty + 1) * bq].any()
 
 
+MASK_CASES = {**WALK_CASES, **ODD_TILE_CASES}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", sorted(WALK_CASES))
+@pytest.mark.parametrize("case", sorted(MASK_CASES))
 def test_sparse_mask_kernel_matches_plain_on_card(cuda_device, case):
-    """A different random 128-tile mask per batch entry and head (ragged skv,
-    a partial tail q tile, an empty row, GQA, head_dim 64)."""
+    """A different random mask per batch entry and head (ragged skv, a
+    partial tail q tile, an empty row, GQA, head_dim 64, tiles that are odd
+    multiples of 64)."""
     from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
 
-    b, sq, skv, hq, hkv, d, bq, bk, _, density, empty = WALK_CASES[case]
-    q, k, v = _walk_operands(WALK_CASES[case], cuda_device)
+    b, sq, skv, hq, hkv, d, bq, bk, _, density, empty = MASK_CASES[case]
+    q, k, v = _walk_operands(MASK_CASES[case], cuda_device)
     rng = np.random.default_rng(9)
     mask = (rng.random((b, hq, -(-sq // bq), -(-skv // bk))) < density).astype(np.int32)
     mask[..., -1] = 1
@@ -593,13 +590,10 @@ def test_sparse_mask_kernel_matches_plain_on_card(cuda_device, case):
     _close_to_plain(got, torch_backend.sdpa_sparse_torch(q, k, v, hq, hkv, d, **kw), empty, bq)
 
 
-# the coarse walk: each WALK_CASES case with block_k doubled, and tables
-# whose block_q and block_k are odd multiples of 64 (blocks of one consumer;
-# tiles pairing the 64-key halves of two entries), one of them GQA at D 64
+# the coarse walk: each WALK_CASES case with block_k doubled, and the odd tiles
 COARSE_CASES = {
     **{name: (*c[:7], 2 * c[7], *c[8:]) for name, c in WALK_CASES.items()},
-    "odd-192x320": (1, 1000, 1111, 4, 4, 128, 192, 320, None, 0.5, 2),
-    "odd-gqa-d64": (2, 700, 900, 8, 2, 64, 64, 192, None, 0.5, 3),
+    **ODD_TILE_CASES,
 }
 
 
@@ -651,7 +645,8 @@ def test_gather_fine_kernel_matches_plain_on_card(cuda_device, case):
                                                               **kw), empty, bq)
 
 
-# walks on tables that allow every key: (walk, block_q, fine, superblock, GQA at D 64)
+# walks on tables that allow every key: (walk, block_q, fine (the mask's
+# block_k), superblock, GQA at D 64)
 ALL_KEY_WALKS = {
     "super-sb4-fine128": ("super", 256, 128, 4, False),
     "super-sb3-fine64": ("super", 256, 64, 3, False),
@@ -661,6 +656,9 @@ ALL_KEY_WALKS = {
     "fine-64-bq192": ("fine", 192, 64, 1, False),
     "fine-gqa-d64": ("fine", 256, 128, 1, True),
     "mask": ("mask", 128, 128, 1, False),
+    "mask-gqa-d64": ("mask", 128, 128, 1, True),
+    "mask-bq192": ("mask", 192, 128, 1, False),
+    "mask-bq192-bk320": ("mask", 192, 320, 1, False),
 }
 
 
@@ -668,13 +666,13 @@ ALL_KEY_WALKS = {
 @pytest.mark.parametrize("case", sorted(ALL_KEY_WALKS))
 def test_walks_allowing_every_key_equal_dense_kernel(cuda_device, case):
     """Tables that allow every key give, bit for bit, the result of the dense
-    kernel their walk runs on (skv = 1000: the last tile is partial): the
-    superblock and fine walks sdpa's (the same 128-key tiles in the same order
-    through the same code), also when halves pair across fine sub-blocks and
-    entries (fine 64, superblock 3), in blocks of one consumer (block_q 192)
-    and with GQA at head dim 64; the mask walk the dense walk's. An emptied
-    row gives zeros and leaves the other rows as they were. The coarse walk is
-    held to sdpa in test_coarse_allowing_every_key_equals_sdpa_kernel."""
+    sdpa kernel their walk runs on (skv = 1000: the last tile is partial): the
+    same 128-key tiles in the same order through the same code, also when
+    halves pair across fine sub-blocks and entries (fine 64, superblock 3, a
+    mask's block_k 320), in blocks of one consumer (block_q 192) and with GQA
+    at head dim 64. An emptied row gives zeros and leaves the other rows as
+    they were. The coarse walk is held to sdpa in
+    test_coarse_allowing_every_key_equals_sdpa_kernel."""
     from fastdm_tpu_torch.kernels import cuda_backend
     from fastdm_tpu_torch.sparse.xsparse import fine_tables_from_mask, super_tables_from_mask
 
@@ -684,12 +682,11 @@ def test_walks_allowing_every_key_equal_dense_kernel(cuda_device, case):
     to = lambda ts: [torch.from_numpy(t).to(cuda_device) for t in ts]  # noqa: E731
     nq, every = -(-s // bq), np.ones((-(-s // bq), -(-s // fine)), bool)
     if walk == "mask":
-        full = torch.ones(b, hq, nq, -(-s // 128), dtype=torch.int32, device=cuda_device)
+        full = torch.ones(b, hq, nq, -(-s // fine), dtype=torch.int32, device=cuda_device)
         empty = full.clone()
         empty[:, :, 1] = 0
         run = lambda m: cuda_backend.sparse_attention_cuda(  # noqa: E731
-            q, k, v, hq, hkv, d, sparse_mask=m, block_q=bq, block_k=128)
-        want = cuda_backend.dense_walk_attention_cuda(q, k, v, hq, hkv, d)
+            q, k, v, hq, hkv, d, sparse_mask=m, block_q=bq, block_k=fine)
     else:
         if walk == "super":
             full = to(super_tables_from_mask(every, 2, sb))
@@ -702,7 +699,7 @@ def test_walks_allowing_every_key_equal_dense_kernel(cuda_device, case):
         rows = full[2].clone()
         rows[1, 1] = 0
         empty = (full[0], full[1], rows)
-        want = cuda_backend.sdpa_cuda(q, k, v, hq, hkv, d)
+    want = cuda_backend.sdpa_cuda(q, k, v, hq, hkv, d)
     got = run(full)
     assert torch.equal(got, want)
     emptied = run(empty)

@@ -213,9 +213,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
 
     replaces = {"rmsnorm": ("rms_norm_pallas",), "rope": ("rotary_pos_embedding_pallas",),
                 "qk_norm_rope": ("qk_norm_rope_pallas", "qk_norm_rope2_pallas"),
-                "flash_attn": ("sdpa_pallas",),
-                "gather_attn": ("sdpa_gather_super_pallas", "sdpa_gather_fine_pallas",
-                                "sdpa_gather_pallas", "sdpa_sparse_pallas"),
+                "flash_attn": ("sdpa_pallas", "sdpa_sparse_pallas", "sdpa_gather_pallas",
+                               "sdpa_gather_super_pallas", "sdpa_gather_fine_pallas"),
                 "quant": ("quantize_to_int8_pallas", "quantize_to_fp8_pallas"),
                 "w8a8_gemm": ("int8_matmul_pallas",), "fp8_gemm": ("fp8_matmul_pallas",),
                 "gelu_mul": ("gelu_and_mul_pallas",)}

@@ -1,11 +1,11 @@
 """What the CPU can check of the port's Hopper kernels that load through the
 Tensor Memory Accelerator (csrc/fp8_gemm.cu, csrc/w8a8_gemm.cu over
 csrc/w8a8_sm90.cuh, csrc/flash_attn.cu, csrc/sm90.cuh): the tensor-map
-geometry the attention wrappers (dense sdpa, the coarse, superblock and fine
-walks) compute from
-their operand views (kernels/tma.py) against the strides of real CPU tensor
-views, the build list and the library hash, and which C launcher, with which
-arguments, the W8A8 and attention wrappers pick. Nothing is built or launched here; the kernels themselves are
+geometry the attention wrappers (dense sdpa, the mask, coarse, superblock and
+fine walks) compute from their operand views (kernels/tma.py) against the
+strides of real CPU tensor views, the build list and the library hash, and
+which C launcher, with which arguments, the W8A8, attention and qk-norm+RoPE
+wrappers pick. Nothing is built or launched here; the kernels themselves are
 held to their plain versions on the card (tests/test_torch_cuda_kernels.py,
 chip_smoke.py)."""
 
@@ -103,29 +103,42 @@ def test_build_lists_the_fp8_gemm_and_the_shared_header():
     assert (build.CSRC / "sm90.cuh").exists()
 
 
+def _csrc_files():
+    return sorted((*build.CSRC.glob("*.cu"), *build.CSRC.glob("*.cuh")))
+
+
 def test_no_mma_sync_int8_gemm_or_coarse_walk_remains():
-    """The int8 GEMM issues wgmma only, and the coarse walk left the
-    mma.sync tile of gather_attn.cu for flash_attn.cu."""
-    gemm = (build.CSRC / "w8a8_gemm.cu").read_text()
-    for instruction in ("mma.sync.aligned", "ldmatrix.sync", "cp.async.cg"):
-        assert instruction not in gemm
+    """No kernel issues the warp-level mma.sync, ldmatrix or cp.async of the
+    retired attention tile: the int8 GEMM issues wgmma (s32.s8.s8) only, and
+    every attention walk runs on flash_attn.cu."""
+    for f in _csrc_files():
+        text = f.read_text()
+        for instruction in ("mma.sync", "ldmatrix.sync", "cp.async.cg"):
+            assert instruction not in text, (f.name, instruction)
     assert "s32.s8.s8" in (build.CSRC / "sm90.cuh").read_text()
-    walks = (build.CSRC / "gather_attn.cu").read_text()
-    assert "Coarse" not in walks and "fdm_gather_coarse_fwd" not in walks
     assert "CoarseTables" in (build.CSRC / "flash_attn.cu").read_text()
+    assert not (build.CSRC / "gather_attn.cu").exists()
+    assert "gather_attn" not in build.SOURCES
 
 
 @pytest.mark.parametrize("source,name,present", [
-    ("gather_attn.cu", "SuperWalk", False), ("gather_attn.cu", "FineWalk", False),
-    ("gather_attn.cu", "fdm_gather_super_fwd", False),
-    ("gather_attn.cu", "fdm_gather_fine_fwd", False),
+    ("*", "mma.sync", False), ("*", "attn_tile.cuh", False),
+    ("*", "fdm_gather_dense", False), ("*", "fdm_sparse_mask_fwd", False),
+    ("flash_attn.cu", "MaskTables", True), ("flash_attn.cu", "CoarseTables", True),
     ("flash_attn.cu", "SuperTables", True), ("flash_attn.cu", "FineTables", True),
+    ("flash_attn.cu", "fdm_flash_attn_mask_fwd", True),
+    ("flash_attn.cu", "fdm_flash_attn_coarse_fwd", True),
     ("flash_attn.cu", "fdm_flash_attn_super_fwd", True),
     ("flash_attn.cu", "fdm_flash_attn_fine_fwd", True)])
 def test_superblock_and_fine_walks_left_the_mma_sync_tile(source, name, present):
-    """The superblock and fine walks moved from the mma.sync tile of
-    gather_attn.cu to the wgmma + TMA kernel of flash_attn.cu."""
-    assert (name in (build.CSRC / source).read_text()) == present
+    """The four table walks (mask, coarse, superblock, fine) and their
+    exports live in the wgmma + TMA kernel of flash_attn.cu; the mma.sync
+    tile (attn_tile.cuh), its dense walk and the old mask export are gone from
+    every csrc/ file ("*")."""
+    if source == "*":
+        assert not any(name in f.read_text() for f in _csrc_files())
+    else:
+        assert (name in (build.CSRC / source).read_text()) == present
 
 
 def test_library_path_changes_when_sm90_header_changes(tmp_path, monkeypatch):
@@ -153,16 +166,6 @@ def test_w8a8_wrapper_picks_its_launcher_by_operand_type(monkeypatch):
     # fp8: a, b, scale_a, scale_b, bias, out, m, n, k, lda, ldb, stream;
     # int8 adds azp and colsum
     assert picked == [("fp8_gemm", "fdm_fp8_gemm", 12), ("w8a8_gemm", "fdm_w8a8_gemm", 14)]
-
-
-def test_dense_walk_is_counted_but_no_op_dispatches_to_it():
-    assert cuda_backend.dense_walk_attention_cuda in cuda_backend.KERNEL_WRAPPERS
-    cuda_backend.dense_walk_attention_cuda.launches = 3
-    cuda_backend.reset_launch_counts()
-    assert cuda_backend.dense_walk_attention_cuda.launches == 0
-    registered = {fn for impls in kernel_registry._ops.values() for fn in impls.values()}
-    assert cuda_backend.sdpa_cuda in registered
-    assert cuda_backend.dense_walk_attention_cuda not in registered
 
 
 @pytest.mark.parametrize("block_q,rows", [(512, 128), (256, 128), (128, 128), (64, 64),
@@ -239,6 +242,111 @@ def test_coarse_wrapper_passes_the_walk_its_tables_and_box_rows(monkeypatch, blo
     assert geom == want
     assert args[11:17] == (b, sq, skv, hq, hkv, d)
     assert args[-2] == 0  # not causal
+
+
+@pytest.mark.parametrize("block_q,block_k,q_rows", [(128, 128, 128), (512, 1024, 128),
+                                                  (192, 320, 64)])
+def test_mask_wrapper_passes_the_walk_its_mask_and_box_rows(monkeypatch, block_q, block_k,
+                                                            q_rows):
+    """sparse_attention_cuda launches the mask walk of flash_attn.cu with the
+    mask pointer, ni, nj, block_q and block_k first, q's box rows from
+    walk_rows and K's and V's 64; not causal. It is a registered op, counted
+    and reset like every wrapper."""
+    fake = _fake_cuda_wrapper(monkeypatch)
+    b, sq, skv, hq, hkv, d = 2, 700, 1300, 4, 2, 128
+    q = torch.zeros(b, sq, hq * d, dtype=torch.bfloat16)
+    kv = torch.zeros(b, skv, 2 * hkv * d, dtype=torch.bfloat16)
+    k, v = kv[..., :hkv * d], kv[..., hkv * d:]
+    ni, nj = -(-sq // block_q), -(-skv // block_k)
+    mask = torch.ones(b, hq, ni, nj, dtype=torch.int32)
+    assert cuda_backend.sparse_attention_cuda in cuda_backend.KERNEL_WRAPPERS
+    assert kernel_registry._ops["sdpa_sparse"]["cuda"] is cuda_backend.sparse_attention_cuda
+    cuda_backend.sparse_attention_cuda.launches = 3
+    cuda_backend.reset_launch_counts()
+    out = cuda_backend.sparse_attention_cuda(q, k, v, hq, hkv, d, sparse_mask=mask,
+                                             block_q=block_q, block_k=block_k)
+    assert out.shape == q.shape and cuda_backend.sparse_attention_cuda.launches == 1
+    # mask, ni, nj, block_q, block_k, then q, k, v, out, the geometry, batch, sq, skv, hq,
+    # hkv, D, out's two strides, scale, causal and stream
+    assert fake.entry == ("flash_attn", "fdm_flash_attn_mask_fwd", 5 + 16)
+    args = fake.args
+    assert args[:5] == (mask.data_ptr(), ni, nj, block_q, block_k)
+    assert list(args[9]) == [x for t, r in ((q, q_rows), (k, HALF_ROWS), (v, HALF_ROWS))
+                             for x in attention_geometry(t, d, r).packed()]
+    assert args[10:16] == (b, sq, skv, hq, hkv, d)
+    assert args[-2] == 0  # not causal
+
+
+def test_mask_wrapper_bounds_a_row_by_the_kernel_buffer(monkeypatch):
+    """A mask row is packed into a fixed shared-memory bitmask of
+    32 * MaskTables::kRowWords entries (flash_attn.cu); the wrapper rejects a
+    longer row before the launch, and its limit is the kernel's."""
+    import re
+
+    text = (build.CSRC / "flash_attn.cu").read_text()
+    words = int(re.search(r"struct MaskTables \{[^}]*kRowWords = (\d+);", text).group(1))
+    assert cuda_backend.MASK_ROW_ENTRIES == 32 * words
+    fake = _fake_cuda_wrapper(monkeypatch)
+    hq, d, bk = 1, 64, 64
+    for nj, ok in ((cuda_backend.MASK_ROW_ENTRIES, True), (cuda_backend.MASK_ROW_ENTRIES + 1,
+                                                           False)):
+        q = torch.zeros(1, 64, hq * d, dtype=torch.bfloat16)
+        k = torch.zeros(1, nj * bk, hq * d, dtype=torch.bfloat16)
+        mask = torch.ones(1, hq, 1, nj, dtype=torch.int32)
+        fake.args = None
+        if ok:
+            cuda_backend.sparse_attention_cuda(q, k, k, hq, hq, d, sparse_mask=mask, block_q=64,
+                                               block_k=bk)
+            assert fake.args[2] == nj
+        else:
+            with pytest.raises(ValueError, match="exceeds the kernel's"):
+                cuda_backend.sparse_attention_cuda(q, k, k, hq, hq, d, sparse_mask=mask,
+                                                   block_q=64, block_k=bk)
+            assert fake.args is None
+
+
+@pytest.mark.parametrize("form", ["fused", "split"])
+@pytest.mark.parametrize("gamma", ["bf16", "f32", None])
+def test_qk_wrappers_pass_the_norm_weights_own_storage(monkeypatch, form, gamma):
+    """qk_norm_rope_cuda and qk_norm_rope2_cuda hand the kernel the norm
+    weights' own storage, with no f32 copy, and their dtype as gamma_kind
+    (0 none, 1 bf16, 2 f32), then cos, sin, the outputs, B, S, D, head_size,
+    eps and the stream; weights of two dtypes, or another dtype, are refused."""
+    fake = _fake_cuda_wrapper(monkeypatch)
+    b, s, heads, hd = 2, 5, 3, 16
+    d = heads * hd
+    qkv = torch.zeros(b, s, 3 * d, dtype=torch.bfloat16)
+    cos = sin = torch.zeros(s, hd // 2)
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32, None: None}[gamma]
+    gq = gk = None
+    if dt is not None:
+        gq, gk = torch.ones(d, dtype=dt), torch.ones(d, dtype=dt)
+    if form == "fused":
+        wrapper = cuda_backend.qk_norm_rope_cuda
+        wrapper(qkv, gq, gk, hd, cos, sin, inner_dim=d)
+        lead = (qkv.data_ptr(), qkv.stride(0), qkv.stride(1))
+        entry = "fdm_qk_norm_rope_bf16"
+    else:
+        wrapper = cuda_backend.qk_norm_rope2_cuda
+        q, k = qkv[..., :d], qkv[..., d:2 * d]
+        wrapper(q, k, gq, gk, hd, cos, sin)
+        lead = (q.data_ptr(), k.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1))
+        entry = "fdm_qk_norm_rope2_bf16"
+    assert fake.entry == ("qk_norm_rope", entry, len(lead) + 13)
+    args = fake.args
+    n = len(lead)
+    assert args[:n] == lead
+    want = (None, None, 0) if dt is None else (gq.data_ptr(), gk.data_ptr(),
+                                               {"bf16": 1, "f32": 2}[gamma])
+    assert args[n:n + 3] == want
+    assert args[n + 3:n + 5] == (cos.data_ptr(), sin.data_ptr())
+    assert args[n + 7:n + 11] == (b, s, d, hd)
+    if dt is not None:
+        operands = (qkv,) if form == "fused" else (qkv[..., :d], qkv[..., d:2 * d])
+        kw = {"inner_dim": d} if form == "fused" else {}
+        for bad in ((gq, gk.half()), (gq.half(), gk.half())):
+            with pytest.raises(ValueError, match="share a dtype"):
+                wrapper(*operands, *bad, hd, cos, sin, **kw)
 
 
 @pytest.mark.parametrize("walk", ["super", "fine"])
