@@ -178,6 +178,20 @@ def _ptxas_entries(report: str):
     return out
 
 
+def _kernel_name(entry: str) -> str:
+    """A mangled kernel entry's name with its template arguments, e.g.
+    rms_norm_head_rows_kernel<2> (each name is prefixed by its length)."""
+    import re
+
+    for m in re.finditer(r"(?=(\d{1,3}))", entry):  # a length may follow other digits
+        start = m.start() + len(m.group(1))
+        name = entry[start:start + int(m.group(1))]
+        if name.endswith("_kernel") and name.isidentifier():
+            args = re.findall(r"L[ib](\d+)E", entry[start + len(name):])
+            return name + (f"<{', '.join(args)}>" if args else "")
+    return entry
+
+
 def _log_ptxas() -> None:
     """Registers and spills of every kernel, from the ptxas report of its build
     (fastdm_tpu_torch/_build/<source>.ptxas.txt), the dynamic shared memory of
@@ -223,7 +237,7 @@ def _log_ptxas() -> None:
                          f"setmaxnreg {attn.fdm_flash_attn_setmaxnreg(0)} / "
                          f"{attn.fdm_flash_attn_setmaxnreg(1)}")
             else:
-                label += (f" D={d.group(1)}" if d else "") + (f" {walk.group(1)}" if walk else "")
+                label += f" {_kernel_name(entry)}"
             log(f"[ptxas {label}] {regs} registers at launch; {spills}{extra}")
 
 
@@ -258,61 +272,84 @@ def phase_kernels(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
-    # --- rmsnorm: per-head q norm on the strided q view of a fused QKV output
+    # --- rmsnorm: per-head q norm on the strided q view of a FLUX dual block's
+    # fused QKV output (head rows), and Wan2.2-A14B's cross-attention q norm
+    # on (1, 32760, 5120) (wide rows); each with a bf16 weight and without,
+    # within one bf16 ulp of the plain version
     qkv = torch.randn(1, IMG_TOKENS, 3 * HEADS * HEAD_DIM, generator=g, device=dev,
                       dtype=torch.bfloat16)
-    x = qkv[..., :HEADS * HEAD_DIM].reshape(1, IMG_TOKENS, HEADS, HEAD_DIM)
-    w = (1 + 0.05 * torch.randn(HEAD_DIM, generator=g, device=dev)).to(torch.bfloat16)
     eps = 1e-6
-    got = cuda_backend.rms_norm_cuda(x, w, eps)
-    ref = torch_backend.rms_norm_torch(x, w, eps)
-    err = (got.float() - ref.float()).abs()
-    ulps = (err / bf16_ulp(ref)).max().item()
-    log(f"[rmsnorm] {tuple(x.shape)} bf16: max_abs_err {err.max().item():.3e}, "
-        f"max {ulps:.2f} bf16 ulp (tolerance 1 ulp)")
-    if not ulps <= 1.0:
-        raise AssertionError(f"rmsnorm disagrees with its plain version: {ulps} ulp")
-    ms = cuda_ms(lambda: cuda_backend.rms_norm_cuda(x, w, eps), 50)
-    plain_ms = cuda_ms(lambda: torch_backend.rms_norm_torch(x, w, eps), 10)
-    lib_ms = None
-    if hasattr(F, "rms_norm"):
-        lib_ms = cuda_ms(lambda: F.rms_norm(x, (HEAD_DIM,), w, eps), 50)
-    n = x.numel()
-    b_ms, b_by = bound(2 * n * 2 + HEAD_DIM * 2, 4 * n, F32_FLOPS)
-    results["rmsnorm"] = dict(
-        name="rmsnorm", route="cuda", source="fastdm_tpu_torch/csrc/rmsnorm.cu",
-        replaces="fastdm_tpu/kernels/pallas/elementwise.py:66",
-        max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms)
-    del qkv, x, got, ref, err
+    gw = torch.Generator(device=dev).manual_seed(1)  # the Wan case's; g's draws stay as they were
+    rms_cases = {
+        "flux": (qkv[..., :HEADS * HEAD_DIM].reshape(1, IMG_TOKENS, HEADS, HEAD_DIM),
+                 (1 + 0.05 * torch.randn(HEAD_DIM, generator=g, device=dev)).bfloat16()),
+        "wan": (torch.randn(1, _wan_shape(WAN_FRAMES)[3], WAN_DIM, generator=gw, device=dev,
+                            dtype=torch.bfloat16),
+                (1 + 0.05 * torch.randn(WAN_DIM, generator=gw, device=dev)).bfloat16())}
+    for case, (x, w) in rms_cases.items():
+        d = x.shape[-1]
+        max_err = 0.0
+        for weight in (w, None):
+            got = cuda_backend.rms_norm_cuda(x, weight, eps)
+            ref = torch_backend.rms_norm_torch(x, weight, eps)
+            err = (got.float() - ref.float()).abs()
+            ulps = (err / bf16_ulp(ref)).max().item()
+            max_err = max(max_err, err.max().item())
+            log(f"[rmsnorm] {case} {tuple(x.shape)} bf16, weight "
+                f"{'bf16' if weight is not None else 'none'}: max_abs_err "
+                f"{err.max().item():.3e}, max {ulps:.2f} bf16 ulp (tolerance 1 ulp)")
+            if not ulps <= 1.0:
+                raise AssertionError(f"rmsnorm ({case}) disagrees with its plain version: "
+                                     f"{ulps} ulp")
+            del got, ref, err
+        ms = cuda_ms(lambda: cuda_backend.rms_norm_cuda(x, w, eps), 50)
+        plain_ms = cuda_ms(lambda: torch_backend.rms_norm_torch(x, w, eps), 10)
+        lib_ms = None
+        if hasattr(F, "rms_norm"):
+            lib_ms = cuda_ms(lambda: F.rms_norm(x, (d,), w, eps), 50)
+        n = x.numel()
+        b_ms, b_by = bound(2 * n * 2 + d * 2, 4 * n, F32_FLOPS)
+        log(f"[rmsnorm] {case}: {ms:.4f} ms ({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, "
+            f"{b_by}); plain {plain_ms:.4f} ms; library {lib_ms} ms")
+        if case == "flux":
+            results["rmsnorm"] = dict(
+                name="rmsnorm", route="cuda", source="fastdm_tpu_torch/csrc/rmsnorm.cu",
+                replaces="fastdm_tpu/kernels/pallas/elementwise.py:66",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+    del qkv, rms_cases, x
 
-    # --- rotembd: joint (txt + img) q and k with the real FLUX cos/sin
+    # --- rotembd: joint (txt + img) q and k with the real FLUX cos/sin, in the
+    # interleaved layout FLUX runs and the half-split (neox) one; bit-exact
     s = TXT_TOKENS + IMG_TOKENS
     cos, sin = flux_rope_cache(FluxConfig(), TXT_TOKENS, 64, 128, device=dev)
     q = torch.randn(1, s, HEADS * HEAD_DIM, generator=g, device=dev, dtype=torch.bfloat16)
     k = torch.randn(1, s, HEADS * HEAD_DIM, generator=g, device=dev, dtype=torch.bfloat16)
-    worst, max_err = 0.0, 0.0
-    gq, gk = cuda_backend.rotary_pos_embedding_cuda(q, k, HEAD_DIM, cos, sin)
-    rq, rk = torch_backend.rotary_pos_embedding_torch(q, k, HEAD_DIM, cos, sin)
-    for a, r in ((gq, rq), (gk, rk)):
-        e = (a.float() - r.float()).abs()
-        worst = max(worst, (e / bf16_ulp(r)).max().item())
-        max_err = max(max_err, e.max().item())
-    log(f"[rotembd] {tuple(q.shape)} bf16 interleaved: max_abs_err {max_err:.3e}, "
-        f"max {worst:.2f} bf16 ulp (tolerance 1 ulp)")
-    del gq, gk, rq, rk
-    if not worst <= 1.0:
-        raise AssertionError(f"rotembd disagrees with its plain version: {worst} ulp")
-    ms = cuda_ms(lambda: cuda_backend.rotary_pos_embedding_cuda(q, k, HEAD_DIM, cos, sin), 50)
-    plain_ms = cuda_ms(lambda: torch_backend.rotary_pos_embedding_torch(
-        q, k, HEAD_DIM, cos, sin), 10)
     n = q.numel() + k.numel()
     b_ms, b_by = bound(2 * n * 2 + 2 * cos.numel() * 4, 3 * n, F32_FLOPS)
-    results["rotembd"] = dict(
-        name="rotembd", route="cuda", source="fastdm_tpu_torch/csrc/rope.cu",
-        replaces="fastdm_tpu/kernels/pallas/elementwise.py:483",
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
+    for neox in (False, True):
+        layout = "half-split" if neox else "interleaved"
+        gq, gk = cuda_backend.rotary_pos_embedding_cuda(q, k, HEAD_DIM, cos, sin, neox)
+        rq, rk = torch_backend.rotary_pos_embedding_torch(q, k, HEAD_DIM, cos, sin, neox)
+        max_err = max((a.float() - r.float()).abs().max().item() for a, r in ((gq, rq), (gk, rk)))
+        exact = torch.equal(gq, rq) and torch.equal(gk, rk)
+        log(f"[rotembd] {tuple(q.shape)} bf16 {layout}: max_abs_err {max_err:.3e}, "
+            f"bit-exact {exact} (tolerance: bit-exact)")
+        del gq, gk, rq, rk
+        if not exact:
+            raise AssertionError(f"rotembd ({layout}) is not bit-exact with its plain version")
+        ms = cuda_ms(lambda: cuda_backend.rotary_pos_embedding_cuda(q, k, HEAD_DIM, cos, sin,
+                                                                    neox), 50)
+        plain_ms = cuda_ms(lambda: torch_backend.rotary_pos_embedding_torch(
+            q, k, HEAD_DIM, cos, sin, neox), 10)
+        log(f"[rotembd] {layout}: {ms:.4f} ms ({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, "
+            f"{b_by}); plain {plain_ms:.4f} ms")
+        if not neox:
+            results["rotembd"] = dict(
+                name="rotembd", route="cuda", source="fastdm_tpu_torch/csrc/rope.cu",
+                replaces="fastdm_tpu/kernels/pallas/elementwise.py:483",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
     # --- sdpa: the joint self-attention, plus causal, GQA and D=64 cases. At
     # the FLUX shape the outputs average 8704 keys (std ~0.018), so that case is

@@ -19,6 +19,7 @@
 // rotation is bit-exact on equal inputs; the normalized value may sit one bf16
 // ulp away (f32 sum order, 1/sqrt vs rsqrt), as in csrc/rmsnorm.cu. gamma is
 // read in the dtype it has (bf16 or f32; bf16 -> f32 is exact) or is absent.
+// The row helpers are csrc/bf16_rows.cuh's, shared with rmsnorm.cu and rope.cu.
 //
 // What bounds it on the H100: memory bytes. A Wan2.2-A14B row reads 2 x 5120
 // bf16 and writes 2 x 5120 bf16 (40 KB) for ~10 flops per element; at
@@ -47,83 +48,26 @@
 //   Tail path (any other width or alignment the wrapper accepts: even
 //   head_dim, 4-byte aligned rows): 256 threads, 4-byte pairs, pass 1
 //   reducing both sums and pass 2 re-reading the row.
-#include "common.cuh"
+#include "bf16_rows.cuh"
 
 namespace {
 
-constexpr int kVec = 8;        // bf16 columns of one 16-byte access
+using namespace bf16_rows;
+
 constexpr int kVecs = 2;       // vectors of q (and of k) per thread, fast path
 constexpr int kMaxThreads = 512;
 constexpr int kMaxFastDim = kMaxThreads * kVecs * kVec;  // 8192
 constexpr int kRowThreads = 256;  // tail path
 constexpr int kRowWarps = kRowThreads / 32;
 
-enum GammaKind { kNoGamma = 0, kGammaBf16 = 1, kGammaF32 = 2 };
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-// y * gamma[col] in f32 (y unchanged without gamma)
-template <int G>
-__device__ __forceinline__ float times_gamma(float y, const void* g, int col) {
-  if constexpr (G == kGammaBf16)
-    return y * __bfloat162float(static_cast<const __nv_bfloat16*>(g)[col]);
-  else if constexpr (G == kGammaF32)
-    return y * static_cast<const float*>(g)[col];
-  else
-    return y;
-}
-
 // The normalized pair (y0, y1) rounded to bf16, rotated by (c, sn) without
 // contraction, rounded once.
 __device__ __forceinline__ __nv_bfloat162 rope_pair(float y0, float y1, float c, float sn) {
   const float2 r = __bfloat1622float2(__floats2bfloat162_rn(y0, y1));
-  const float o1 = __fsub_rn(__fmul_rn(r.x, c), __fmul_rn(r.y, sn));
-  const float o2 = __fadd_rn(__fmul_rn(r.y, c), __fmul_rn(r.x, sn));
-  return __floats2bfloat162_rn(o1, o2);
-}
-
-__device__ __forceinline__ float rms_inverse(float sum_sq, int dim, float eps) {
-  // IEEE sqrt and division (no fast-math), as csrc/rmsnorm.cu
-  return 1.0f / sqrtf(sum_sq / static_cast<float>(dim) + eps);
+  return __floats2bfloat162_rn(rot1(r.x, r.y, c, sn), rot2(r.x, r.y, c, sn));
 }
 
 // ----------------------------------------------------------------- fast path
-
-// The gamma of one 8-column vector, held in registers as loaded: 8 bf16
-// (4 words) or 8 f32, widened when applied.
-template <int G>
-struct GammaVec {  // kNoGamma
-  __device__ __forceinline__ void load(const void*, int) {}
-  __device__ __forceinline__ float apply(float y, int) const { return y; }
-};
-
-template <>
-struct GammaVec<kGammaBf16> {
-  uint4 v;
-  __device__ __forceinline__ void load(const void* g, int col) {
-    v = __ldg(reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(g) + col));
-  }
-  __device__ __forceinline__ float apply(float y, int e) const {
-    const uint32_t w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
-    return y * (e % 2 ? bf16_hi(w) : bf16_lo(w));
-  }
-};
-
-template <>
-struct GammaVec<kGammaF32> {
-  float4 lo, hi;
-  __device__ __forceinline__ void load(const void* g, int col) {
-    const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(g) + col);
-    lo = __ldg(p);
-    hi = __ldg(p + 1);
-  }
-  __device__ __forceinline__ float apply(float y, int e) const {
-    const float4& f = e < 4 ? lo : hi;
-    const int i = e % 4;
-    return y * (i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w);
-  }
-};
 
 // The q and k rows of token t = b * seq + s.
 struct Rows {
@@ -141,17 +85,6 @@ struct Rows {
     return k + b * k_sb + static_cast<int64_t>(t - b * seq) * k_ss;
   }
 };
-
-__device__ __forceinline__ float sum_sq(const uint4& v) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float a = bf16_lo(w[j]), b = bf16_hi(w[j]);
-    s += a * a + b * b;
-  }
-  return s;
-}
 
 // Normalize, scale, rotate and round one vector (its 4 pairs' table entries
 // in c4, s4), packed for one 16-byte store.
@@ -308,14 +241,12 @@ qk_norm_rope_row_kernel(const Rows rows, const void* __restrict__ gq, const void
 
 // --------------------------------------------------------------------- launch
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 bool fast_path(const Rows& r, const void* gq, const void* gk, const void* cos_t,
                const void* sin_t, const void* qo, const void* ko, int head_dim) {
   return r.dim % kVec == 0 && r.dim <= kMaxFastDim && head_dim % kVec == 0 &&
          r.q_sb % kVec == 0 && r.q_ss % kVec == 0 && r.k_sb % kVec == 0 && r.k_ss % kVec == 0 &&
-         aligned16(r.q) && aligned16(r.k) && aligned16(gq) && aligned16(gk) &&
-         aligned16(cos_t) && aligned16(sin_t) && aligned16(qo) && aligned16(ko);
+         aligned(r.q, 16) && aligned(r.k, 16) && aligned(gq, 16) && aligned(gk, 16) &&
+         aligned(cos_t, 16) && aligned(sin_t, 16) && aligned(qo, 16) && aligned(ko, 16);
 }
 
 template <int G>

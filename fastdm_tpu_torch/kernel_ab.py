@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the attention, qk-norm+RoPE and W8A8 GEMM kernels of one or more
+"""Time the attention, norm, RoPE and W8A8 GEMM kernels of one or more
 checkouts of this repository on one NVIDIA GPU, on the same inputs (from
 seeds) in every checkout:
   - Wan2.2-A14B at 480x832x81 (32760 tokens, 40 heads of 128): dense sdpa,
@@ -12,24 +12,32 @@ seeds) in every checkout:
     mask of 128 x 128 tiles, as the engine builds them; qk_norm_rope on a
     (1, 32760, 15360) fused QKV output and qk_norm_rope2 on the split path's
     (1, 4095, 5120) chunk, with bf16 norm weights and the real 3D RoPE tables;
+    rmsnorm_wan, the cross-attention's q norm on (1, 32760, 5120) with a bf16
+    weight;
   - FLUX.1-dev at 1024x2048: sdpa at (1, 8704, 24x128), and the int8 and fp8
     W8A8 GEMMs at the single-block qkv_mlp product (8704 x 3072 @ 3072 x
     21504), each on its per-token quantized activation and a random
-    quantized weight.
+    quantized weight; rmsnorm_flux, the per-head q norm on the strided
+    (1, 8192, 24, 128) view of a dual block's fused QKV output with a bf16
+    weight; rotembd_flux and rotembd_neox, q and k of (1, 8704, 3072) with
+    the real FLUX tables, interleaved and half-split.
 
-    python3 fastdm_tpu_torch/kernel_ab.py ROOT [ROOT ...]
+    python3 fastdm_tpu_torch/kernel_ab.py [--kernels NAME,...] ROOT [ROOT ...]
 
 Each ROOT (a checkout, e.g. a `git archive` of a commit) is timed in a process
 of its own, in the order given (for an A/B comparison on one card: parent,
 change, change, parent, repeated); one JSON line per ROOT given (each kernel's
 mean ms over 20 calls, CUDA events, after 2 s of warm-up calls of that kernel,
 the calls queued behind a busy-wait so that the device, not the host, is timed,
-and an exact checksum of its output), then
+and an exact checksum of its output; for the rmsnorm kernels also the
+largest distance from the plain version in bf16 ulp), then
 one JSON line per distinct ROOT with each kernel's median, min and max over
 that ROOT's runs and whether its checksums agree across all runs of all ROOTs,
-then the card's name and power limit. The qk-norm+RoPE and mask outputs may
-differ between checkouts whose kernels sum in another order. Needs nothing of
-JAX.
+then the card's name and power limit. The norm, qk-norm+RoPE and mask outputs
+may differ between checkouts whose kernels sum in another order. A kernel a
+checkout does not take (NotImplementedError, e.g. the half-split RoPE before
+the CUDA kernel took it) is left out of that checkout's line. --kernels times
+only the kernels named. Needs nothing of JAX.
 """
 
 from __future__ import annotations
@@ -42,13 +50,14 @@ import sys
 import time
 
 
-def _one(root: str) -> dict:
+def _one(root: str, only) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
     from fastdm_tpu_torch.kernels import cuda_backend as cb
     from fastdm_tpu_torch.kernels import torch_backend as tb
     from fastdm_tpu_torch.layers.qlinear import qlinear_random
+    from fastdm_tpu_torch.models.flux import FluxConfig, flux_rope_cache
     from fastdm_tpu_torch.models.wan import WanConfig, wan_rope_cos_sin
     from fastdm_tpu_torch.sparse.xsparse import SparseAttn
 
@@ -81,6 +90,12 @@ def _one(root: str) -> dict:
     qkv = (torch.randn(1, s, 3 * d, generator=g, device=dev) * 2).bfloat16()
     gq, gk = ((1 + 0.1 * torch.randn(d, generator=g, device=dev)).bfloat16() for _ in range(2))
     cq, ck = (qkv[:, :chunk, i * d:(i + 1) * d].contiguous() for i in range(2))
+    fh = 24
+    fqkv = torch.randn(1, 8192, 3 * fh * hd, generator=g, device=dev, dtype=torch.bfloat16)
+    fx = fqkv[..., :fh * hd].reshape(1, 8192, fh, hd)  # the strided per-head view
+    fw = (1 + 0.05 * torch.randn(hd, generator=g, device=dev)).bfloat16()
+    wx = torch.randn(1, s, d, generator=g, device=dev, dtype=torch.bfloat16)
+    fcos, fsin = flux_rope_cache(FluxConfig(), 512, 64, 128, device=dev)
 
     kernels = {
         "gather_super": lambda: cb.gather_super_attention_cuda(
@@ -100,7 +115,14 @@ def _one(root: str) -> dict:
                                                    w8.colsum, z8, w8.bias),
         "fp8_matmul": lambda: cb.fp8_matmul_cuda(af, wf.w, sf, wf.scale, torch.bfloat16,
                                                  wf.bias),
+        "rmsnorm_flux": lambda: cb.rms_norm_cuda(fx, fw, 1e-6),
+        "rmsnorm_wan": lambda: cb.rms_norm_cuda(wx, gq, 1e-6),
+        "rotembd_flux": lambda: cb.rotary_pos_embedding_cuda(fq, fk, hd, fcos, fsin),
+        "rotembd_neox": lambda: cb.rotary_pos_embedding_cuda(fq, fk, hd, fcos, fsin,
+                                                             is_neox=True),
     }
+    plain = {"rmsnorm_flux": lambda: tb.rms_norm_torch(fx, fw, 1e-6),
+             "rmsnorm_wan": lambda: tb.rms_norm_torch(wx, gq, 1e-6)}
 
     def ms(fn, iters):
         # the card's clocks follow its load: a kernel is timed after 2 s of its
@@ -123,38 +145,59 @@ def _one(root: str) -> dict:
 
     out = {"root": root}
     for name, fn in kernels.items():
-        got = fn()
+        if only and name not in only:
+            continue
+        try:
+            got = fn()
+        except NotImplementedError:
+            continue
         out[f"{name}_checksum"] = sum(int(t.view(torch.int16).long().sum())
                                       for t in (got if isinstance(got, tuple) else (got,)))
+        if name in plain:
+            want = plain[name]().float()
+            ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0**-126))) - 7)
+            out[f"{name}_max_ulp"] = ((got.float() - want).abs() / ulp).max().item()
+            del want, ulp
         out[f"{name}_ms"] = ms(fn, 20)
+        del got
     return out
 
 
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        print(json.dumps(_one(sys.argv[2])), flush=True)
+    args = sys.argv[1:]
+    only = ""
+    if args[:1] == ["--kernels"] and len(args) > 1:
+        only, args = args[1], args[2:]
+    if len(args) > 1 and args[0] == "--one":
+        print(json.dumps(_one(args[1], set(filter(None, only.split(","))))), flush=True)
         return 0
     import torch
 
-    if not torch.cuda.is_available() or len(sys.argv) < 2:
+    if not torch.cuda.is_available() or not args:
         print(__doc__, file=sys.stderr)
         return 1
     runs = []
-    for root in sys.argv[1:]:
-        one = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
-                             check=True, stdout=subprocess.PIPE, text=True)
+    for root in args:
+        one = subprocess.run([sys.executable, os.path.abspath(__file__), "--kernels", only,
+                              "--one", root], check=True, stdout=subprocess.PIPE, text=True)
         line = one.stdout.splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
-    names = [key[:-3] for key in runs[0] if key.endswith("_ms")]
-    for root in dict.fromkeys(sys.argv[1:]):
+    names = list(dict.fromkeys(key[:-3] for r in runs for key in r if key.endswith("_ms")))
+    for root in dict.fromkeys(args):
         mine = [r for r in runs if r["root"] == root]
         summary = {"root": root, "runs": len(mine)}
         for name in names:
-            ms = sorted(r[f"{name}_ms"] for r in mine)
+            ms = sorted(r[f"{name}_ms"] for r in mine if f"{name}_ms" in r)
+            if not ms:
+                continue
             summary[name] = {"median_ms": statistics.median(ms), "min_ms": ms[0],
                              "max_ms": ms[-1],
-                             "same_output": len({r[f"{name}_checksum"] for r in runs}) == 1}
+                             "same_output": len({r[f"{name}_checksum"] for r in runs
+                                                 if f"{name}_checksum" in r}) == 1}
+            ulps = [r[f"{name}_max_ulp"] for r in mine if f"{name}_max_ulp" in r]
+            if ulps:
+                summary[name]["max_ulp"] = max(ulps)
         print(json.dumps(summary), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)

@@ -63,7 +63,42 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# the norm weights' dtype -> the kernels' gamma_kind (0: no weights); the
+# rmsnorm and qk-norm+RoPE kernels read bf16 or f32 weights as they are
+_GAMMA_KINDS = {torch.bfloat16: 1, torch.float32: 2}
+
+
+def _strides(t: Tensor, dims) -> Tuple[int, ...]:
+    """t's strides along `dims`, 0 along a dim of size 1 (whose stride
+    addresses nothing and may be any value)."""
+    return tuple(t.stride(d) if t.shape[d] > 1 else 0 for d in dims)
+
+
 # ---------------------------------------------------------------- rmsnorm
+
+# csrc/rmsnorm.cu's paths
+RMS_HEAD_ROWS, RMS_WIDE_ROWS, RMS_TAIL = 0, 1, 2
+RMS_HEAD_ROWS_PER_BLOCK = 64  # at most; whole tokens where a token has fewer rows
+RMS_WIDE_VECS = 2             # 16-byte vectors per thread on the wide path (kWideVecs)
+
+
+def rms_norm_plan(dim: int, heads: int, vector_ok: bool) -> Tuple[int, int, int]:
+    """(path, threads per block, rows per block) of csrc/rmsnorm.cu for rows of
+    `dim` bf16 elements, `heads` rows per token. vector_ok: rows, strides and
+    weight 16-byte aligned. Head rows (dim a multiple of 8 up to 256): a
+    power-of-two group of >= dim / 8 lanes per row, two rows per thread, a
+    block of whole tokens; wide rows (up to 8192): one block per row of
+    RMS_WIDE_VECS vectors per thread; otherwise the tail, one warp per row
+    (its block shape fixed in the kernel: (RMS_TAIL, 0, 0))."""
+    if vector_ok and dim % 8 == 0 and dim <= 8192:
+        vecs = dim // 8
+        if vecs <= 32:
+            lanes = 1 << (vecs - 1).bit_length()
+            rows = (heads * (RMS_HEAD_ROWS_PER_BLOCK // heads)
+                    if heads <= RMS_HEAD_ROWS_PER_BLOCK else RMS_HEAD_ROWS_PER_BLOCK)
+            return RMS_HEAD_ROWS, 32 * -(-(-(-rows // 2) * lanes) // 32), rows
+        return RMS_WIDE_ROWS, 32 * -(-vecs // (32 * RMS_WIDE_VECS)), 1
+    return RMS_TAIL, 0, 0
 
 
 @kernel_registry.register("rmsnorm", "cuda")
@@ -73,24 +108,33 @@ def rms_norm_cuda(x: Tensor, weight: Optional[Tensor], eps: float) -> Tensor:
     _check_tensor(x, kernel, "x", dev)
     dim = x.shape[-1]
     _require(dim % 2 == 0, kernel, f"last dim {dim} must be even")
-    if x.dim() >= 2 and x.stride(-2) != dim:
-        x = x.contiguous()
     heads = x.shape[-2] if x.dim() >= 2 else 1
-    x3 = x.reshape(-1, heads, dim)  # a view whenever the leading dims collapse
-    _require(x3.stride(0) % 2 == 0 and x3.data_ptr() % 4 == 0, kernel,
+    # (tokens, heads, dim): a view whenever the leading dims collapse; the
+    # kernel reads rows at any token and head stride (a per-head view of a
+    # fused QKV output, a column slice of a wider row) in place
+    x3 = x.reshape(-1, heads, dim)
+    token_stride, head_stride = _strides(x3, (0, 1))
+    _require(token_stride % 2 == 0 and head_stride % 2 == 0 and x3.data_ptr() % 4 == 0, kernel,
              "rows must be 4-byte aligned")
-    w = None
+    w, gamma_kind = None, 0
     if weight is not None:
         _require(weight.numel() == dim and weight.device == dev, kernel,
                  f"weight must be ({dim},) on {dev}")
-        w = weight.reshape(dim).float().contiguous()
+        _require(weight.dtype in _GAMMA_KINDS, kernel,
+                 f"weight must be bfloat16 or float32, got {weight.dtype}")
+        w, gamma_kind = weight.reshape(dim).contiguous(), _GAMMA_KINDS[weight.dtype]
     out = torch.empty(x.shape, dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    lib, fn = _entry("rmsnorm", "fdm_rms_norm_bf16", [_P, _P, _P, _L, _I, _L, _I, _F, _P])
+    vector_ok = (x3.data_ptr() % 16 == 0 and token_stride % 8 == 0 and head_stride % 8 == 0
+                 and (w is None or w.data_ptr() % 16 == 0))
+    path, threads, rows = rms_norm_plan(dim, heads, vector_ok)
+    lib, fn = _entry("rmsnorm", "fdm_rms_norm_bf16",
+                     [_P, _P, _I, _P, _L, _I, _L, _L, _I, _F, _I, _I, _I, _P])
     with torch.cuda.device(dev):
-        code = fn(x3.data_ptr(), w.data_ptr() if w is not None else None, out.data_ptr(),
-                  x3.shape[0] * heads, heads, x3.stride(0), dim, float(eps), _stream(dev))
+        code = fn(x3.data_ptr(), w.data_ptr() if w is not None else None, gamma_kind,
+                  out.data_ptr(), x3.shape[0] * heads, heads, token_stride, head_stride, dim,
+                  float(eps), path, threads, rows, _stream(dev))
     _check_launch(lib, "fdm_rms_norm", code, kernel)
     rms_norm_cuda.launches += 1
     return out
@@ -101,6 +145,26 @@ rms_norm_cuda.launches = 0
 
 # ---------------------------------------------------------------- rotembd
 
+# csrc/rope.cu's paths
+ROPE_VECTOR, ROPE_TAIL = 0, 1
+ROPE_THREADS = 256       # per block on the vector path at most (rope.cu kMaxThreads)
+ROPE_TOKEN_THREADS = 64  # per token: column groups x head slots
+
+
+def rope_plan(head_size: int, heads: int, is_neox: bool,
+              vector_ok: bool) -> Tuple[int, int, int]:
+    """(path, head slots, tokens per block) of csrc/rope.cu. heads: q's and
+    k's together; vector_ok: rows, strides and tables 16-byte aligned. The
+    vector path takes a head_size that is a multiple of 8 (interleaved) or 16
+    (half-split): a thread owns one 16-byte column group (of each half) of
+    every head_slots-th head of a token; a block covers whole tokens."""
+    per = 16 if is_neox else 8
+    groups = head_size // per
+    if vector_ok and heads > 0 and head_size % per == 0 and groups <= ROPE_THREADS:
+        slots = min(heads, max(1, ROPE_TOKEN_THREADS // groups))
+        return ROPE_VECTOR, slots, max(1, ROPE_THREADS // (groups * slots))
+    return ROPE_TAIL, 0, 0
+
 
 @kernel_registry.register("rotembd", "cuda")
 def rotary_pos_embedding_cuda(
@@ -108,10 +172,6 @@ def rotary_pos_embedding_cuda(
     is_neox: bool = False,
 ) -> Tuple[Tensor, Tensor]:
     kernel = "rotembd"
-    if is_neox:
-        raise NotImplementedError(
-            "[rotembd] the CUDA kernel rotates interleaved pairs (FLUX); the half-split "
-            "(neox) layout has only its plain version until a slice that runs it")
     dev = query.device
     _check_tensor(query, kernel, "query", dev)
     _check_tensor(key, kernel, "key", dev)
@@ -126,20 +186,24 @@ def rotary_pos_embedding_cuda(
     sin = sin.to(device=dev, dtype=torch.float32).contiguous()
     _require(tuple(cos.shape) == (s, half) and tuple(sin.shape) == (s, half), kernel,
              f"cos/sin must be ({s}, {half})")
-    for t in (query, key):
-        _require(t.data_ptr() % 4 == 0 and t.stride(0) % 2 == 0 and t.stride(1) % 2 == 0,
+    strides = [_strides(t, (0, 1)) for t in (query, key)]
+    for t, st in zip((query, key), strides):
+        _require(t.data_ptr() % 4 == 0 and st[0] % 2 == 0 and st[1] % 2 == 0,
                  kernel, "query/key rows must be 4-byte aligned")
     qo = torch.empty(query.shape, dtype=query.dtype, device=dev)
     ko = torch.empty(key.shape, dtype=key.dtype, device=dev)
-    if b * s == 0:
+    hq, hkv = qd // head_size, key.shape[2] // head_size
+    if b * s == 0 or hq + hkv == 0:
         return qo, ko
+    vector_ok = (all(t.data_ptr() % 16 == 0 for t in (query, key, cos, sin))
+                 and all(x % 8 == 0 for st in strides for x in st))
+    path, slots, tokens = rope_plan(head_size, hq + hkv, is_neox, vector_ok)
     lib, fn = _entry("rope", "fdm_rope_bf16",
-                     [_P] * 6 + [_I] * 5 + [_L] * 4 + [_P])
+                     [_P] * 6 + [_I] * 5 + [_L] * 4 + [_I] * 4 + [_P])
     with torch.cuda.device(dev):
         code = fn(query.data_ptr(), key.data_ptr(), qo.data_ptr(), ko.data_ptr(),
-                  cos.data_ptr(), sin.data_ptr(), b, s, qd // head_size,
-                  key.shape[2] // head_size, head_size, query.stride(0), query.stride(1),
-                  key.stride(0), key.stride(1), _stream(dev))
+                  cos.data_ptr(), sin.data_ptr(), b, s, hq, hkv, head_size, *strides[0],
+                  *strides[1], int(is_neox), path, slots, tokens, _stream(dev))
     _check_launch(lib, "fdm_rope", code, kernel)
     rotary_pos_embedding_cuda.launches += 1
     return qo, ko
@@ -149,10 +213,6 @@ rotary_pos_embedding_cuda.launches = 0
 
 
 # ---------------------------------------------------------- qk_norm_rope
-
-# the norm weights' dtype -> the kernel's gamma_kind (0: no weights)
-_GAMMA_KINDS = {torch.bfloat16: 1, torch.float32: 2}
-
 
 def _qk_norm_rope_launch(wrapper, entry: str, lead_args, lead_types, q: Tensor, k: Tensor,
                          d: int, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor],

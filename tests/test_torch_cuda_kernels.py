@@ -5,8 +5,9 @@ On a GPU machine, which needs no JAX:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m gpu
 
-Tolerances: rotembd bit-exact (same f32 operations, no contraction, one
-rounding); rmsnorm within one bf16 ulp (rsqrt vs 1/sqrt); sdpa (f32 sums in
+Tolerances: rotembd bit-exact in both pair layouts (same f32 operations, no
+contraction, one rounding); rmsnorm within one bf16 ulp (rsqrt vs 1/sqrt, f32
+sums in another order) on each of its kernel's paths; sdpa (f32 sums in
 another order; p rounded to bf16 in both) within 1e-2 + 1e-2*|x| on the small
 cases (ragged, causal with sq < skv, GQA, 77 keys, q|k|v slices of one fused
 projection at D 64, a softmax scale <= 0), and on the FLUX-heads and
@@ -160,9 +161,142 @@ def test_elementwise_kernels_match_plain_on_card(cuda_device):
         qkv[..., :512], qkv[..., 512:768], 128, cos, sin)
     torch.testing.assert_close(gq, wq, rtol=0, atol=0)
     torch.testing.assert_close(gk, wk, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="neox"):
-        cuda_backend.rotary_pos_embedding_cuda(
-            qkv[..., :512], qkv[..., 512:768], 128, cos, sin, is_neox=True)
+    # the half-split (neox) layout on the same strided views, bit-exact too
+    gq, gk = cuda_backend.rotary_pos_embedding_cuda(
+        qkv[..., :512], qkv[..., 512:768], 128, cos, sin, is_neox=True)
+    wq, wk = torch_backend.rotary_pos_embedding_torch(
+        qkv[..., :512], qkv[..., 512:768], 128, cos, sin, is_neox=True)
+    torch.testing.assert_close(gq, wq, rtol=0, atol=0)
+    torch.testing.assert_close(gk, wk, rtol=0, atol=0)
+
+
+# name: (x's shape as a view, (buffer shape, slice of its last dim), path of
+# csrc/rmsnorm.cu): strided per-head views of a fused QKV output at head dims
+# 128 and 64 (head rows), a Wan2.2-A14B q row and a column slice of its kv
+# projection at 5120 and a 3072 row (wide rows), a 130-wide row and a 128-wide
+# row at a 4-byte offset (tail)
+RMS_CASES = {
+    "heads128-strided": ((2, 100, 24, 128), ((2, 100, 3 * 24 * 128), 0), 0),
+    "heads64-strided": ((1, 77, 6, 64), ((1, 77, 3 * 6 * 64), 0), 0),
+    "wan-5120": ((1, 300, 5120), ((1, 300, 5120), 0), 1),
+    "wan-k-5120-slice": ((1, 77, 5120), ((1, 77, 2 * 5120), 0), 1),
+    "wide-3072": ((3, 50, 3072), ((3, 50, 3072), 0), 1),
+    "tail-130": ((2, 40, 4, 130), ((2, 40, 4 * 130), 0), 2),
+    "tail-offset": ((5, 128), ((5, 3 * 128 + 8), 2), 2),
+}
+
+
+def _rms_input(case, g, device):
+    shape, (buf, off), _ = RMS_CASES[case]
+    x = torch.randn(*buf, generator=g, device=device) * 2
+    n = 1
+    for v in shape[len(buf) - 1:]:
+        n *= v
+    return x.bfloat16()[..., off:off + n].reshape(shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(RMS_CASES))
+@pytest.mark.parametrize("gamma", [torch.bfloat16, torch.float32, None])
+def test_rmsnorm_kernel_paths_match_plain_on_card(cuda_device, case, gamma):
+    """Each path of csrc/rmsnorm.cu (the plan the wrapper picks is asserted)
+    within one bf16 ulp of the plain version, with the weight in bf16, in f32
+    or absent; strided views are read in place, one launch per call."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = _rms_input(case, g, cuda_device)
+    d = x.shape[-1]
+    w = None if gamma is None else (1 + 0.1 * torch.randn(d, generator=g,
+                                                          device=cuda_device)).to(gamma)
+    plans = []
+    plan = cuda_backend.rms_norm_plan
+    cuda_backend.reset_launch_counts()
+    try:
+        cuda_backend.rms_norm_plan = lambda *a: plans.append(plan(*a)) or plans[-1]
+        got = cuda_backend.rms_norm_cuda(x, w, 1e-6)
+    finally:
+        cuda_backend.rms_norm_plan = plan
+    want = torch_backend.rms_norm_torch(x, w, 1e-6)
+    assert plans[0][0] == RMS_CASES[case][2]
+    assert got.shape == x.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert ((got.float() - want.float()).abs() <= _bf16_ulp(want)).all()
+    assert cuda_backend.rms_norm_cuda.launches == 1
+
+
+@pytest.mark.gpu
+def test_rmsnorm_kernel_takes_empty_input_and_launches_no_weight_cast(cuda_device):
+    """An empty input gives an empty output and no launch; a bf16 or f32
+    weight reaches the kernel as it is: one device kernel per call, the
+    rmsnorm one (no cast kernel before it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    cuda_backend.reset_launch_counts()
+    empty = cuda_backend.rms_norm_cuda(torch.zeros(0, 24, 128, device=cuda_device,
+                                                   dtype=torch.bfloat16), None, 1e-6)
+    assert empty.shape == (0, 24, 128) and cuda_backend.rms_norm_cuda.launches == 0
+    x = torch.randn(1, 64, 24, 128, device=cuda_device).bfloat16()
+    for dtype in (torch.bfloat16, torch.float32):
+        w = torch.ones(128, device=cuda_device, dtype=dtype)
+        cuda_backend.rms_norm_cuda(x, w, 1e-6)  # built and loaded before the trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cuda_backend.rms_norm_cuda(x, w, 1e-6)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        assert len(kernels) == 1 and "rms_norm" in kernels[0], (dtype, kernels)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        cuda_backend.rms_norm_cuda(x, torch.ones(128, device=cuda_device).half(), 1e-6)
+
+
+# name: (batch, seq, q heads, kv heads, head_dim, view): GQA head counts on
+# q|k column slices of one fused projection ("fused"), separate tensors
+# ("separate"), or slices at a 4-byte offset ("offset", the tail path); head
+# dims 128 and 64 (vector path in both layouts), 24 (half-split: not a
+# multiple of 16, the tail path) and 6 (the tail path in both)
+ROPE_CASES = {
+    "gqa-fused-128": (2, 77, 8, 2, 128, "fused"),
+    "flux-heads-128": (1, 300, 24, 24, 128, "separate"),
+    "gqa-fused-64": (2, 50, 10, 5, 64, "fused"),
+    "hd24": (1, 33, 3, 1, 24, "fused"),
+    "tail-hd6": (2, 20, 3, 2, 6, "separate"),
+    "offset-128": (1, 40, 4, 2, 128, "offset"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(ROPE_CASES))
+@pytest.mark.parametrize("is_neox", [False, True])
+def test_rotembd_kernel_layouts_match_plain_on_card(cuda_device, case, is_neox):
+    """Both pair layouts bit-exact with the plain version, on the vector path
+    and the tail path (the plan the wrapper picks is asserted)."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    b, s, hq, hkv, d, view = ROPE_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    mk = lambda *shape: torch.randn(*shape, generator=g,  # noqa: E731
+                                    device=cuda_device).bfloat16()
+    if view == "separate":
+        q, k = mk(b, s, hq * d), mk(b, s, hkv * d)
+    else:
+        off = 2 if view == "offset" else 0  # 2 bf16: 4-byte aligned rows, not 16
+        buf = mk(b, s, (hq + 2 * hkv) * d + 2 * off)
+        q, k = buf[..., off:off + hq * d], buf[..., off + hq * d:off + (hq + hkv) * d]
+    cos, sin = _rope_tables(s, d, cuda_device)
+    plans = []
+    plan = cuda_backend.rope_plan
+    try:
+        cuda_backend.rope_plan = lambda *a: plans.append(plan(*a)) or plans[-1]
+        got = cuda_backend.rotary_pos_embedding_cuda(q, k, d, cos, sin, is_neox)
+    finally:
+        cuda_backend.rope_plan = plan
+    tail = view == "offset" or d % (16 if is_neox else 8) != 0
+    assert plans[0][0] == (cuda_backend.ROPE_TAIL if tail else cuda_backend.ROPE_VECTOR)
+    want = torch_backend.rotary_pos_embedding_torch(q, k, d, cos, sin, is_neox)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.is_contiguous() and torch.equal(a, w)
 
 
 # (M, K, N): a ragged size and the FLUX single-block proj_out (the longest K)

@@ -5,7 +5,9 @@ geometry the attention wrappers (dense sdpa, the mask, coarse, superblock and
 fine walks) compute from their operand views (kernels/tma.py) against the
 strides of real CPU tensor views, the build list and the library hash, and
 which C launcher, with which arguments, the W8A8, attention and qk-norm+RoPE
-wrappers pick. Nothing is built or launched here; the kernels themselves are
+wrappers pick; the path and block shape the rmsnorm and rotembd wrappers
+choose for csrc/rmsnorm.cu and csrc/rope.cu (rms_norm_plan, rope_plan) and
+the arguments they pass. Nothing is built or launched here; the kernels themselves are
 held to their plain versions on the card (tests/test_torch_cuda_kernels.py,
 chip_smoke.py)."""
 
@@ -421,3 +423,141 @@ def test_int8_wrapper_passes_shape_pitches_and_zero_point(monkeypatch):
             assert fake.args[4:6] == ((azp.data_ptr(), colsum.data_ptr()) if zp is not None
                                       else (None, None))
             assert fake.args[8:] == (3, 48, 64, lda, 64, 0)  # m, n, k, lda, ldb, stream
+
+
+# (dim, rows per token, 16-byte aligned) -> (path, threads, rows per block):
+# FLUX's per-head rows (24 heads of 128), head dims 64 and 256, 96 (12
+# vectors: a group of 16 lanes), a 2-D input of many 128-wide rows, Wan2.2's
+# 5120 and 3072 and the widest vector row 8192 (wide rows), then the tail: a
+# row that is not 16-byte aligned, an odd number of vectors past 8192, a dim
+# that is not a multiple of 8
+RMS_PLANS = {
+    (128, 24, True): (0, 384, 48), (64, 24, True): (0, 192, 48),
+    (256, 1, True): (0, 1024, 64), (96, 40, True): (0, 320, 40),
+    (128, 5000, True): (0, 512, 64), (5120, 32760, True): (1, 320, 1),
+    (3072, 50, True): (1, 192, 1), (8192, 1, True): (1, 512, 1),
+    (128, 24, False): (2, 0, 0), (8200, 1, True): (2, 0, 0),
+    (130, 4, True): (2, 0, 0),
+}
+
+
+@pytest.mark.parametrize("dim,heads,aligned", sorted(RMS_PLANS))
+def test_rms_norm_plan_picks_path_and_block(dim, heads, aligned):
+    """csrc/rmsnorm.cu's head-row blocks cover whole tokens (up to 64 rows),
+    two rows per thread in groups of a power of two >= dim / 8 lanes, whole
+    warps; a wide row is one block of 2 vectors a thread."""
+    plan = cuda_backend.rms_norm_plan(dim, heads, aligned)
+    assert plan == RMS_PLANS[(dim, heads, aligned)]
+    path, threads, rows = plan
+    assert threads % 32 == 0 and threads <= 1024
+    if path == cuda_backend.RMS_HEAD_ROWS:
+        lanes = 1 << (dim // 8 - 1).bit_length()
+        assert lanes >= dim // 8 and rows <= 2 * (threads // lanes)
+        assert rows % heads == 0 or heads > cuda_backend.RMS_HEAD_ROWS_PER_BLOCK
+    elif path == cuda_backend.RMS_WIDE_ROWS:
+        assert threads * cuda_backend.RMS_WIDE_VECS * 8 >= dim > 256
+
+
+@pytest.mark.parametrize("dim", [8, 40, 64, 96, 128, 136, 248, 256])
+@pytest.mark.parametrize("heads", [1, 3, 24, 40, 64, 65, 32760])
+def test_rms_norm_head_row_plan_covers_every_row_once(dim, heads):
+    """The head-row kernel's mapping (group g of a block holds local rows g
+    and g + groups; lane c holds columns 8c..8c+7) under the plan visits each
+    (row, vector) of a block exactly once, with whole warps, never past
+    1024 threads."""
+    path, threads, rows = cuda_backend.rms_norm_plan(dim, heads, True)
+    assert path == cuda_backend.RMS_HEAD_ROWS
+    lanes = 1 << (dim // 8 - 1).bit_length()
+    groups = threads // lanes
+    seen = np.zeros((rows, dim // 8), int)
+    for tid in range(threads):
+        g, c = tid // lanes, tid % lanes
+        for i in range(2):
+            local = g + i * groups
+            if c < dim // 8 and local < rows:
+                seen[local, c] += 1
+    assert (seen == 1).all() and threads % 32 == 0 and threads <= 1024
+
+
+# (head_size, q + k heads, neox, aligned) -> (path, head slots, tokens per block)
+ROPE_PLANS = {
+    (128, 48, False, True): (0, 4, 4), (128, 48, True, True): (0, 8, 4),
+    (64, 15, False, True): (0, 8, 4), (64, 15, True, True): (0, 15, 4),
+    (128, 2, False, True): (0, 2, 8), (24, 4, False, True): (0, 4, 21),
+    (24, 4, True, True): (1, 0, 0), (6, 5, False, True): (1, 0, 0),
+    (128, 48, False, False): (1, 0, 0),
+}
+
+
+@pytest.mark.parametrize("key", sorted(ROPE_PLANS))
+def test_rope_plan_picks_path_and_block(key):
+    """csrc/rope.cu's vector path takes head dims that are multiples of 8
+    (interleaved) or 16 (half-split) on 16-byte aligned rows: at most 64
+    threads per token (column groups x head slots), whole tokens in blocks
+    of at most 256 threads; anything else the tail."""
+    head_size, heads, neox, aligned = key
+    plan = cuda_backend.rope_plan(head_size, heads, neox, aligned)
+    assert plan == ROPE_PLANS[key]
+    path, slots, tokens = plan
+    if path == cuda_backend.ROPE_VECTOR:
+        groups = head_size // (16 if neox else 8)
+        assert slots <= heads and groups * slots * tokens <= cuda_backend.ROPE_THREADS
+
+
+@pytest.mark.parametrize("gamma", ["bf16", "f32", None])
+@pytest.mark.parametrize("view", ["flux-heads", "wan-k-slice", "tail-130"])
+def test_rms_norm_wrapper_passes_rows_and_weight_storage(monkeypatch, gamma, view):
+    """rms_norm_cuda hands the kernel the input's own storage with its token
+    and head strides (no copy of a strided view), the weight's own storage
+    with no f32 copy and its dtype as gamma_kind (0 none, 1 bf16, 2 f32), and
+    the plan's path and block shape; another weight dtype is refused."""
+    fake = _fake_cuda_wrapper(monkeypatch)
+    if view == "flux-heads":  # the q heads of a fused (B, S, 3*H*D) QKV output
+        buf = torch.zeros(1, 10, 3 * 24 * 128, dtype=torch.bfloat16)
+        x, rows, ts, hs, d = buf[..., :24 * 128].reshape(1, 10, 24, 128), 240, 3 * 24 * 128, \
+            128, 128
+        heads = 24
+    elif view == "wan-k-slice":  # Wan's k = kv[..., :D] of the (B, 77, 2D) kv projection
+        buf = torch.zeros(1, 77, 2 * 5120, dtype=torch.bfloat16)
+        x, rows, ts, hs, d, heads = buf[..., :5120], 77, 0, 2 * 5120, 5120, 77
+    else:
+        x = torch.zeros(2, 3, 4, 130, dtype=torch.bfloat16)
+        rows, ts, hs, d, heads = 24, 4 * 130, 130, 130, 4
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32, None: None}[gamma]
+    w = None if dt is None else torch.ones(d, dtype=dt)
+    cuda_backend.reset_launch_counts()
+    out = cuda_backend.rms_norm_cuda(x, w, 1e-6)
+    assert out.shape == x.shape and cuda_backend.rms_norm_cuda.launches == 1
+    assert fake.entry == ("rmsnorm", "fdm_rms_norm_bf16", 14)
+    args = fake.args
+    assert args[0] == x.data_ptr()
+    assert args[1:3] == ((None, 0) if dt is None else (w.data_ptr(), {"bf16": 1, "f32": 2}[gamma]))
+    assert args[3] == out.data_ptr()
+    assert args[4:9] == (rows, heads, ts, hs, d)
+    assert args[10:13] == cuda_backend.rms_norm_plan(d, heads, True)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        cuda_backend.rms_norm_cuda(x, torch.ones(d, dtype=torch.float16), 1e-6)
+
+
+@pytest.mark.parametrize("neox", [False, True])
+def test_rope_wrapper_passes_layout_strides_and_plan(monkeypatch, neox):
+    """rotary_pos_embedding_cuda takes the half-split (neox) layout on the
+    card too: it passes the layout flag, q's and k's own storage with their
+    batch and sequence strides (column slices of one fused projection, GQA
+    head counts) and the plan's path and block shape."""
+    fake = _fake_cuda_wrapper(monkeypatch)
+    b, s, hq, hkv, d = 2, 9, 8, 2, 128
+    qkv = torch.zeros(b, s, (hq + 2 * hkv) * d, dtype=torch.bfloat16)
+    q, k = qkv[..., :hq * d], qkv[..., hq * d:(hq + hkv) * d]
+    cos = sin = torch.zeros(s, d // 2)
+    cuda_backend.reset_launch_counts()
+    qo, ko = cuda_backend.rotary_pos_embedding_cuda(q, k, d, cos, sin, is_neox=neox)
+    assert qo.shape == q.shape and ko.shape == k.shape
+    assert cuda_backend.rotary_pos_embedding_cuda.launches == 1
+    assert fake.entry == ("rope", "fdm_rope_bf16", 20)
+    args = fake.args
+    assert args[:2] == (q.data_ptr(), k.data_ptr())
+    assert args[6:11] == (b, s, hq, hkv, d)
+    assert args[11:15] == (qkv.stride(0), qkv.stride(1)) * 2
+    assert args[15] == int(neox)
+    assert args[16:19] == cuda_backend.rope_plan(d, hq + hkv, neox, True)
