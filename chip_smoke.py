@@ -19,19 +19,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (head dim 64, q|k|v read in place from the fused projections), and the
      int8 and fp8 GEMM and quantize at every W8A8 shape of its forward. The
      int8 GEMM is held bit-exact, with and without the zero point, at every
-     int8 shape of the FLUX, SDXL and Wan forwards. On tables that allow
+     int8 shape of the FLUX, SDXL and Wan forwards. The W4A4 kernels (the
+     int4 quantizer, the int4 GEMM on the int8 GEMM's ring, the int4p
+     unpack) are held bit-exact at every int4 shape of a FLUX int4p
+     quant_mods forward, and qk_norm_rope / qk_norm_rope2 in the half-split
+     layout too. On tables that allow
      every key the mask, coarse, superblock and fine walks, which run on
      sdpa's kernel, equal sdpa bit for bit.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
-     heads, random weights from a seed) three times: in bf16, in int8 and in
-     fp8 (W8A8 block linears drawn straight into int8 / e4m3). Each serves
+     heads, random weights from a seed) four times: in bf16, in int8, in
+     fp8 (W8A8 block linears drawn straight into int8 / e4m3) and in int4p
+     with quant_mods (bench.py's headline config: W4A4 block linears and
+     AdaLN modulations, packed two int4 values a byte). Each serves
      1024x2048 requests through make_flux_denoiser with TeaCache, then the
      full-size FLUX VAE decoder; launch counters are zeroed just before each
-     path and read just after: every kernel of the path must have run, and the
-     W8A8 quantize and GEMM exactly 228 times per computed forward. One
-     full-width forward on the kernels is then held to the same forward on
-     the plain versions and, for W8A8, to the forward with only the W8A8 ops
-     on their plain versions (bit-identical for int8).
+     path and read just after: every kernel of the path must have run, the
+     W8A8 quantize and GEMM exactly 228 times per computed forward, the W4A4
+     quantize, GEMM and unpack 304 times (plus TeaCache's quantized probe
+     once a step). One full-width forward on the kernels is then held to the
+     same forward on the plain versions and to the forward with only the
+     W8A8 / W4A4 ops on their plain versions (bit-identical for int8 and
+     int4p). On the int4p model: a request under dicache_flux.json and forced
+     FBCache / DiCache skips that must replay the cached residual.
   3. wan: frees FLUX, draws the two Wan2.2-T2V-A14B experts in int8 at full
      width and depth (40 blocks, 40x128 heads) from seeds and serves one
      480x832, 81-frame request through make_wan_dual_phase_denoiser (UniPC
@@ -59,7 +68,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      times its count).
   4. engine: synthetic diffusers-layout checkpoints are written to a scratch
      dir — FLUX (full width, one dual and one single block, full-size VAE),
-     loaded in bf16, with use_int8 and with use_fp8; Wan2.2-A14B (two experts
+     loaded in bf16, with use_int8, with use_fp8 and with use_int4,
+     pack_int4 and quant_mods (the SVDQuant split on the card); Wan2.2-A14B (two experts
      at full width with one block each, model_index.json, full-size VAE),
      loaded with use_int8 and the radial config — and generate() is called
      once each; for Wan once in each sparse mode (FASTDM_SPARSE_GATHER) and
@@ -96,7 +106,8 @@ WAN_STEPS, WAN_CFG, WAN_BOUNDARY = 4, (4.0, 3.0), 0.875
 WAN_DENSE_STEPS = 1
 
 # FLUX.1-dev at 1024x2048: 64x128 latent tokens, 512 text tokens
-IMG_TOKENS, TXT_TOKENS = 64 * 128, 512
+FLUX_HT, FLUX_WT = 64, 128  # latent tokens of 16x16 pixels
+IMG_TOKENS, TXT_TOKENS = FLUX_HT * FLUX_WT, 512
 HEADS, HEAD_DIM = 24, 128
 DIM, MLP = HEADS * HEAD_DIM, 4 * HEADS * HEAD_DIM
 DUAL, SINGLE = 19, 38
@@ -109,6 +120,16 @@ W8A8_GEMMS[(IMG_TOKENS + TXT_TOKENS, DIM, 3 * DIM + MLP)] = SINGLE  # qkv_mlp
 W8A8_GEMMS[(IMG_TOKENS + TXT_TOKENS, DIM + MLP, DIM)] = SINGLE      # proj_out
 W8A8_PER_FORWARD = sum(W8A8_GEMMS.values())                        # 228
 QKV_MLP = (IMG_TOKENS + TXT_TOKENS, DIM, 3 * DIM + MLP)            # the timing shape
+# the W4A4 linears of one int4p forward with quant_mods (bench.py's FLUX
+# default): the block linears plus the AdaLN modulations, one token each
+# (dual blocks: norm1 and norm1_context, 3072 -> 18432; single: 3072 -> 9216)
+W4A4_GEMMS = dict(W8A8_GEMMS)
+W4A4_GEMMS[(1, DIM, 6 * DIM)] = 2 * DUAL
+W4A4_GEMMS[(1, DIM, 3 * DIM)] = SINGLE
+W4A4_PER_FORWARD = sum(W4A4_GEMMS.values())                        # 304
+# the W4A4 linears of one dual block (8 block linears, 2 modulations): what
+# an FBCache or DiCache probe of depth 1 launches
+W4A4_PER_DUAL_BLOCK = 10
 
 # SDXL-base at 1024x2048 with batched CFG (batch 2): 128x256 latents, the
 # Transformer2Ds at 64x128 = 8192 tokens (640 wide, 10 heads of 64) and at
@@ -398,6 +419,7 @@ def phase_kernels(dev) -> dict:
     del q, k, v, cases
     torch.cuda.empty_cache()
     results.update(_w8a8_kernels(dev, g))
+    results.update(_w4a4_kernels(dev))
     results.update(_wan_kernels(dev, g))
     results.update(_sdxl_kernels(dev, g))
     for r in results.values():
@@ -574,6 +596,99 @@ def _w8a8_kernels(dev, g) -> dict:
     return results
 
 
+def _w4a4_kernels(dev) -> dict:
+    """The W4A4 kernels -- the int4 quantizer (A), the int4 GEMM on the s8
+    wgmma ring (B) and the int4p unpack (C) -- held bit-exact to their plain
+    versions at every int4 shape of a FLUX int4p quant_mods forward (the M = 1
+    modulation GEMMs and K = 15360 included, an all-zero activation row in
+    each), each kernel timed at each shape (the forward's split), and at the
+    qkv_mlp shape beside its bound, its plain version and, for the GEMM,
+    torch._int_mm (the s32 product only)."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+
+    g = torch.Generator(device=dev).manual_seed(2)  # the other phases' draws stay as they were
+    split = {"quantize_to_int4": [0.0, 0.0], "int4_matmul": [0.0, 0.0],
+             "unpack_int4": [0.0, 0.0]}  # [ms, bound ms] per forward
+
+    def operands(m, k, n):
+        x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+        x[0] = 0  # an all-zero row: the 1e-12 scale floor
+        return x, qlinear_random(g, k, n, quant="int4p", device=dev)
+
+    def bounds(m, k, n):
+        return {"quantize_to_int4": bound(_quantize_bytes(m, k, True), 8 * m * k, F32_FLOPS),
+                "int4_matmul": bound(_gemm_bytes(m, k, n), 2 * m * n * k, INT8_FP8_OPS),
+                "unpack_int4": bound(1.5 * k * n, k * n, F32_FLOPS)}
+
+    for (m, k, n), count in W4A4_GEMMS.items():
+        x, lin = operands(m, k, n)
+        q, scale = cb.quantize_to_int4_cuda(x)
+        w = cb.unpack_int4_cuda(lin.w4p)
+        args = (q, w, scale, lin.scale, torch.bfloat16, lin.bias)
+        checks = {"quantize_to_int4": all(torch.equal(a, b) for a, b in
+                                          zip((q, scale), tb.quantize_to_int4_torch(x))),
+                  "unpack_int4": (torch.equal(w, tb.unpack_int4_torch(lin.w4p))
+                                  and w.stride() == (1, k)),
+                  "int4_matmul": torch.equal(cb.int4_matmul_cuda(*args),
+                                             tb.int4_matmul_torch(*args))}
+        log(f"[w4a4] {m}x{k} @ {k}x{n} (x{count} per forward): bit-exact with the plain "
+            f"versions: {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"a W4A4 kernel disagrees with its plain version at "
+                                 f"{(m, k, n)}: {checks}")
+        calls = {"quantize_to_int4": lambda: cb.quantize_to_int4_cuda(x),
+                 "int4_matmul": lambda: cb.int4_matmul_cuda(*args),
+                 "unpack_int4": lambda: cb.unpack_int4_cuda(lin.w4p)}
+        for name, (b_ms, _) in bounds(m, k, n).items():
+            split[name][0] += count * cuda_ms(calls[name], 5)
+            split[name][1] += count * b_ms
+        del x, lin, q, scale, w, args
+    log(f"[w4a4] int4p forward ({W4A4_PER_FORWARD} linears each, from kernel times at each "
+        "shape): " + ", ".join(f"{k} {v[0]:.3f} ms (bound {v[1]:.3f} ms)"
+                               for k, v in split.items()))
+
+    m, k, n = QKV_MLP
+    x, lin = operands(m, k, n)
+    q, scale = tb.quantize_to_int4_torch(x)
+    w = tb.unpack_int4_torch(lin.w4p)
+    args = (q, w, scale, lin.scale, torch.bfloat16, lin.bias)
+    timed = {"quantize_to_int4": (lambda: cb.quantize_to_int4_cuda(x),
+                                  lambda: tb.quantize_to_int4_torch(x), "quant.cu", None),
+             "int4_matmul": (lambda: cb.int4_matmul_cuda(*args),
+                             lambda: tb.int4_matmul_torch(*args), "w8a8_gemm.cu",
+                             lambda: torch._int_mm(q, w)),
+             "unpack_int4": (lambda: cb.unpack_int4_cuda(lin.w4p),
+                             lambda: tb.unpack_int4_torch(lin.w4p), "int4_pack.cu", None)}
+    # the ops replace jnp-only code of the W4A4 path (no Pallas kernel)
+    replaces = {"quantize_to_int4": "fastdm_tpu/kernels/jnp_backend/impl.py:143",
+                "int4_matmul": "fastdm_tpu/kernels/jnp_backend/impl.py:163",
+                "unpack_int4": "fastdm_tpu/layers/qlinear.py:75"}
+    results = {}
+    for name, (kern, plain, src, lib_call) in timed.items():
+        b_ms, b_by = bounds(m, k, n)[name]
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 2, 1)
+        lib_ms = None
+        if lib_call is not None:  # a yardstick only; the port never calls it
+            try:
+                lib_ms = cuda_ms(lib_call, 20)
+            except RuntimeError as e:
+                log(f"[w4a4] torch._int_mm not available here ({str(e).splitlines()[0]})")
+        log(f"[{name}] qkv_mlp {m}x{k} @ {k}x{n}: {ms:.4f} ms ({b_ms / ms:.1%} of the bound "
+            f"{b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f} ms, library {lib_ms} ms"
+            + (" (torch._int_mm, s32 product only)" if lib_call is not None else ""))
+        results[name] = dict(name=name, route="cuda", source=f"fastdm_tpu_torch/csrc/{src}",
+                             replaces=replaces[name], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    del x, lin, q, scale, w, args, timed
+    torch.cuda.empty_cache()
+    return results
+
+
 def _radial():
     """examples/sparse/radial_attn_wan.json (radial, block_size 128, decay 0.3,
     dense_layers 1), with dense_steps cut to WAN_DENSE_STEPS."""
@@ -593,16 +708,21 @@ def _wan_shape(frames: int):
     return lf, lh, lw, lf * (lh // 2) * (lw // 2)
 
 
-def _qk_excess(got, want):
+def _qk_excess(got, want, head_dim: int = 0):
     """(max of |got - want| minus its tolerance, max |got - want|): the
     tolerance is one bf16 ulp of the value plus two of its rotation pair's
     magnitude — the normalized value, rounded to bf16 before the rotation,
-    may sit one ulp away (f32 sum order), and the rotation mixes the pair."""
+    may sit one ulp away (f32 sum order), and the rotation mixes the pair.
+    Pairs are interleaved, or with a head_dim half-split within each head."""
     worst = err = 0.0
     for a, w in zip(got, want):
         w = w.float()
-        pair = w.reshape(*w.shape[:-1], -1, 2)
-        mag = pair.norm(dim=-1, keepdim=True).expand_as(pair).reshape(w.shape)
+        if head_dim:
+            pair = w.reshape(*w.shape[:-1], -1, 2, head_dim // 2)
+            mag = pair.norm(dim=-2, keepdim=True).expand_as(pair).reshape(w.shape)
+        else:
+            pair = w.reshape(*w.shape[:-1], -1, 2)
+            mag = pair.norm(dim=-1, keepdim=True).expand_as(pair).reshape(w.shape)
         e = (a.float() - w).abs()
         worst = max(worst, (e - bf16_ulp(w) - 2 * bf16_ulp(mag)).max().item())
         err = max(err, e.max().item())
@@ -645,6 +765,18 @@ def _wan_kernels(dev, g) -> dict:
         replaces="fastdm_tpu/kernels/pallas/elementwise.py:341", max_abs_err=err,
         ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 3, 1), bound_ms=b_ms, bound_by=b_by,
         library_ms=None)
+    # the half-split (neox) layout on the same rows, held to the same bound
+    kern = lambda: cb.qk_norm_rope_cuda(qkv, gq, gk, hd, cos, sin, True, inner_dim=d)  # noqa: E731
+    plain = lambda: tb.qk_norm_rope_torch(qkv, gq, gk, hd, cos, sin, True,  # noqa: E731
+                                          inner_dim=d)
+    worst, err = _qk_excess(kern(), plain(), hd)
+    ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3, 1)
+    log(f"[qk_norm_rope] half-split qkv (1, {s}, {3 * d}) inner_dim {d}: max_abs_err {err:.3e}, "
+        f"excess over 1 ulp + 2 ulp of the pair's magnitude {worst:.3e} (must be <= 0); "
+        f"{ms:.4f} ms ({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, {b_by}), interleaved "
+        f"{results['qk_norm_rope']['ms']:.4f} ms; plain {plain_ms:.4f} ms")
+    if not worst <= 0:
+        raise AssertionError("qk_norm_rope (half-split) disagrees with its plain version")
     del qkv
 
     # --- qk_norm_rope2, the split form's per-chunk operands
@@ -660,6 +792,12 @@ def _wan_kernels(dev, g) -> dict:
             f"(must be <= 0); {ms:.4f} ms")
         if not worst <= 0:
             raise AssertionError(f"qk_norm_rope2 disagrees with its plain version at S={s2}")
+        nw, _ = _qk_excess(cb.qk_norm_rope2_cuda(q, k, gq, gk, hd, c2, n2, True),
+                           tb.qk_norm_rope2_torch(q, k, gq, gk, hd, c2, n2, True), hd)
+        log(f"[qk_norm_rope2] half-split q, k (1, {s2}, {d}): excess {nw:.3e} (must be <= 0)")
+        if not nw <= 0:
+            raise AssertionError(f"qk_norm_rope2 (half-split) disagrees with its plain version "
+                                 f"at S={s2}")
         if s2 == 4095:
             b_ms, b_by = bound(4 * s2 * d * 2 + 2 * s2 * (hd // 2) * 4 + 2 * d * 2,
                                qk_ops * 2 * s2 * d, F32_FLOPS)
@@ -1021,18 +1159,25 @@ TEACACHE = dict(cache_algorithm="teacache", enable_caching=True, threshold=0.25,
 STEPS = 4
 # Relative L2 of a full-width forward on the kernels against the same forward
 # on the plain versions, per weight format: twice the first value measured on
-# an H100 80GB HBM3 (bf16 1.533e-2, int8 2.895e-2, fp8 5.336e-2). The W8A8
-# formats sit higher although their kernels match their plain versions (int8
-# bit for bit): each per-token quantization turns a one-ulp difference
-# upstream (rmsnorm, sdpa) into a whole quantization step in a few elements,
-# and e4m3's steps are the coarsest. A wrong tile, scale or layout gives O(1).
-FORWARD_REL_L2_TOL = {None: 3e-2, "int8": 6e-2, "fp8": 1.1e-1}
+# an H100 80GB HBM3 (bf16 1.533e-2, int8 2.895e-2, fp8 5.336e-2, int4p with
+# quant_mods 7.448e-2). The quantized formats sit higher although their
+# kernels match their plain versions (the integer ones bit for bit): each
+# per-token quantization turns a one-ulp difference upstream (rmsnorm, sdpa)
+# into a whole quantization step in a few elements, and int4's steps are the
+# coarsest. A wrong tile, scale or layout gives O(1).
+FORWARD_REL_L2_TOL = {None: 3e-2, "int8": 6e-2, "fp8": 1.1e-1, "int4p": 1.49e-1}
 W8A8_OPS = ("quantize_to_int8", "quantize_to_fp8", "int8_matmul", "fp8_matmul")
-# (quant, request seeds): the bf16 path of the first slice, then W8A8
-PATHS = ((None, (11, 12, 13)), ("int8", (21, 22, 23)), ("fp8", (31,)))
-PATH_KERNELS = {None: ("rmsnorm", "rotembd", "sdpa"),
-                "int8": ("rmsnorm", "rotembd", "sdpa", "quantize_to_int8", "int8_matmul"),
-                "fp8": ("rmsnorm", "rotembd", "sdpa", "quantize_to_fp8", "fp8_matmul")}
+W4A4_OPS = ("quantize_to_int4", "int4_matmul", "unpack_int4")
+# (quant, request seeds): the bf16 path of the first slice, then W8A8, then
+# int4p with the AdaLN modulations quantized too
+PATHS = ((None, (11, 12, 13)), ("int8", (21, 22, 23)), ("fp8", (31,)), ("int4p", (41, 42, 43)))
+# the quantized paths' kernels: (quantize, GEMM[, unpack]) and their launches
+# per computed forward
+QUANT_KERNELS = {"int8": (("quantize_to_int8", "int8_matmul"), W8A8_PER_FORWARD),
+                 "fp8": (("quantize_to_fp8", "fp8_matmul"), W8A8_PER_FORWARD),
+                 "int4p": (W4A4_OPS, W4A4_PER_FORWARD)}
+PATH_KERNELS = {q: ("rmsnorm", "rotembd", "sdpa") + (QUANT_KERNELS[q][0] if q else ())
+                for q, _ in PATHS}
 
 
 def _conditioning(dev, seed: int, cfg, seq: int):
@@ -1062,6 +1207,9 @@ def _launch_counts():
             "int8_matmul": cb.int8_matmul_cuda.launches,
             "quantize_to_fp8": cb.quantize_to_fp8_cuda.launches,
             "fp8_matmul": cb.fp8_matmul_cuda.launches,
+            "quantize_to_int4": cb.quantize_to_int4_cuda.launches,
+            "int4_matmul": cb.int4_matmul_cuda.launches,
+            "unpack_int4": cb.unpack_int4_cuda.launches,
             "gelu_and_mul": cb.gelu_and_mul_cuda.launches}
 
 
@@ -1080,8 +1228,9 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
     from fastdm_tpu_torch.pipeline.vae import vae_decode
 
     label = quant or "bf16"
-    cfg = FluxConfig(quant=quant)  # FLUX.1-dev: 19 dual + 38 single blocks, 24x128 heads
-    ht, wt = 64, 128               # 1024x2048 pixels
+    # FLUX.1-dev: 19 dual + 38 single blocks, 24x128 heads
+    cfg = FluxConfig(quant=quant, quant_mods=quant == "int4p")
+    ht, wt = FLUX_HT, FLUX_WT      # 1024x2048 pixels
     t0 = time.perf_counter()
     params = flux_init_random(0, cfg, device=dev)
     torch.cuda.synchronize()
@@ -1112,7 +1261,7 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
         log(f"[slice {label}] request seed={seed} 1024x2048 {STEPS} steps: {t2 - t0:.3f} s "
             f"(denoise {t1 - t0:.3f} s, VAE decode {t2 - t1:.3f} s), TeaCache skipped "
             f"{skips}/{STEPS}, image {tuple(img.shape)} finite={finite}")
-        if not finite or tuple(img.shape) != (1, 1024, 2048, 3):
+        if not finite or tuple(img.shape) != (1, 16 * ht, 16 * wt, 3):
             raise AssertionError(f"{label} request seed={seed} produced a bad image")
     counts = _launch_counts()
     log(f"[slice {label}] kernel launches over {len(seeds)} requests ({computed} computed "
@@ -1121,14 +1270,19 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
     if min(mine.values()) <= 0:
         raise AssertionError(f"a kernel of the {label} path never launched: {counts}")
     if quant is not None:
-        want = W8A8_PER_FORWARD * computed
-        other = "fp8" if quant == "int8" else "int8"
-        if (counts[f"quantize_to_{quant}"], counts[f"{quant}_matmul"]) != (want, want) \
-                or counts[f"quantize_to_{other}"] or counts[f"{other}_matmul"]:
-            raise AssertionError(f"{label}: expected {W8A8_PER_FORWARD} x {computed} = {want} "
-                                 f"quantize and GEMM launches, got {counts}")
-        log(f"[slice {label}] W8A8 launch check: {W8A8_PER_FORWARD} x {computed} computed "
-            f"forwards = {want} quantize and {want} GEMM launches, as counted")
+        ops, per = QUANT_KERNELS[quant]
+        # with quant_mods, TeaCache's probe (dual block 0's norm1 modulation)
+        # is a quantized linear too, run once by every forward, skipped or not
+        probes = len(seeds) * STEPS if cfg.quant_mods else 0
+        want = per * computed + probes
+        others = {k for o, _ in QUANT_KERNELS.values() for k in o} - set(ops)
+        if any(counts[k] != want for k in ops) or any(counts[k] for k in others):
+            raise AssertionError(f"{label}: expected {per} x {computed} + {probes} = {want} "
+                                 f"launches of each of {ops} and none of {sorted(others)}, got "
+                                 f"{counts}")
+        log(f"[slice {label}] launch check: {per} x {computed} computed forwards + {probes} "
+            f"TeaCache probes = {want} launches of each of {ops}, none of the other formats' "
+            "kernels, as counted")
     log(f"[slice {label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
     # one full-width forward on the kernels vs the same forward on the plain
@@ -1156,22 +1310,107 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if quant is not None:
-            out_w = forward(plain_ops=W8A8_OPS)
+            exact = quant != "fp8"  # integer GEMMs
+            fmt = "W4A4" if quant == "int4p" else "W8A8"
+            out_w = forward(plain_ops=W4A4_OPS if quant == "int4p" else W8A8_OPS)
             rel_w, same_w = rel_l2(out_k, out_w), torch.equal(out_k, out_w)
-            log(f"[slice {label}] full-width forward with only the W8A8 ops plain: relative L2 "
+            log(f"[slice {label}] full-width forward with only the {fmt} ops plain: relative L2 "
                 f"difference {rel_w:.3e}, bit-identical {same_w} (required: "
-                f"{'bit-identical' if quant == 'int8' else f'<= {tol}'})")
-            if not (same_w if quant == "int8" else rel_w <= tol):
-                raise AssertionError(f"{label} W8A8 kernels change the forward: {rel_w}")
+                f"{'bit-identical' if exact else f'<= {tol}'})")
+            if not (same_w if exact else rel_w <= tol):
+                raise AssertionError(f"{label} {fmt} kernels change the forward: {rel_w}")
             del out_w
     rel = rel_l2(out_k, out_p)
     log(f"[slice {label}] full-width forward: kernels {t1 - t0:.3f} s, plain versions "
         f"{t2 - t1:.3f} s, relative L2 difference {rel:.3e} (tolerance {tol})")
     if not rel <= tol or not torch.isfinite(out_k).all():
         raise AssertionError(f"{label} kernel forward departs from the plain forward: {rel}")
-    del params, out_k, out_p
+    del out_k, out_p
+    if quant == "int4p":
+        _flux_step_caches(dev, params, cfg, sched, cos, sin, x, encoder, pooled, t, guidance)
+    del params
     torch.cuda.empty_cache()
     return mine
+
+
+def _flux_step_caches(dev, params, cfg, sched, cos, sin, x, encoder, pooled, t,
+                      guidance) -> None:
+    """FLUX's FBCache and DiCache probes on the int4p model: a 1024x2048
+    request under examples/xcaching/configs/dicache_flux.json (threshold 0.2,
+    probe depth 1, ret_ratio 0.2) whose skips equal the forwards whose
+    remaining blocks did not run (hooks), with W4A4 launches derived from the
+    code (a forward runs its probe's dual blocks, a computed one the rest
+    too); then, under each of FBCache and DiCache, a forced skip (threshold
+    1e9, no warmup): the second of two forwards on the same input launches
+    only the probe block's W4A4 linears and returns the replayed residual
+    through the output head bit for bit."""
+    import torch
+
+    from fastdm_tpu_torch.caching.config import CacheConfig, DiCacheConfig, FBCacheConfig
+    from fastdm_tpu_torch.caching.xcaching import cache_init_state
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.flux import _flux_embed, _run_dual, flux_forward_cached
+    from fastdm_tpu_torch.pipeline.denoise import make_flux_denoiser
+
+    cc = CacheConfig.from_dict(_cache_json("dicache_flux.json"))
+    run = make_flux_denoiser(cfg, sched, STEPS, cc, guidance_scale=3.5)
+    calls, rest = [0], [0]
+    hooks = [params.x_embedder.register_forward_hook(
+                 lambda *_: calls.__setitem__(0, calls[0] + 1)),
+             params.dual_blocks[cc.probe_depth].norm1.register_forward_hook(
+                 lambda *_: rest.__setitem__(0, rest[0] + 1))]
+    latents, enc, pool = _conditioning(dev, 44, cfg, x.shape[1])
+    torch.cuda.synchronize()
+    cuda_backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    lat, skips = run(params, latents, enc, pool, cos, sin)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = _launch_counts()
+    for hk in hooks:
+        hk.remove()
+    probe = W4A4_PER_DUAL_BLOCK * cc.probe_depth
+    want = STEPS * probe + (STEPS - skips) * (W4A4_PER_FORWARD - probe)
+    log(f"[slice int4p cache] dicache_flux.json ({cc}): request {STEPS} steps {sec:.3f} s "
+        f"denoise, skipped {skips} of {calls[0]} forwards, remaining-block stacks run "
+        f"{rest[0]}; W4A4 launches {[counts[k] for k in W4A4_OPS]} (derived {want} each)")
+    if (calls[0] != STEPS or skips != STEPS - rest[0]
+            or any(counts[k] != want for k in W4A4_OPS) or not torch.isfinite(lat).all()):
+        raise AssertionError(f"DiCache request: forwards {calls}, stacks {rest}, skips {skips}, "
+                             f"launches {counts} != derived {want}")
+    del lat
+
+    shape = (1, x.shape[1], cfg.inner_dim)
+    for cc in (FBCacheConfig(enable_caching=True, threshold=1e9, warmup_steps=0),
+               DiCacheConfig(enable_caching=True, threshold=1e9, probe_depth=1, ret_ratio=0.0)):
+        name = type(cc).__name__
+        with torch.inference_mode():
+            st0 = cache_init_state(cc, shape, shape, device=dev)
+            out0, st1 = flux_forward_cached(params, cfg, cc, st0, 0, 2, x, encoder, pooled, t,
+                                            cos, sin, guidance)
+            torch.cuda.synchronize()
+            cuda_backend.reset_launch_counts()
+            out1, st2 = flux_forward_cached(params, cfg, cc, st1, 1, 2, x, encoder, pooled, t,
+                                            cos, sin, guidance)
+            torch.cuda.synchronize()
+            counts = _launch_counts()
+            hidden, temb, enc_h = _flux_embed(params, cfg, x, encoder, pooled, t, guidance)
+            if isinstance(cc, DiCacheConfig):  # DiCache replays onto the probe's output
+                hidden, _ = _run_dual(params, cfg, hidden, enc_h, temb, cos, sin, stop=1)
+            replay = params.proj_out(params.norm_out(
+                (hidden + st1["prev_residual"]).to(hidden.dtype), temb))
+        same = torch.equal(out1, replay)
+        rel = ((out1.float() - out0.float()).norm() / out0.float().norm()).item()
+        log(f"[slice int4p cache] forced skip ({name}, threshold 1e9, no warmup): skips "
+            f"{st1['skips']} -> {st2['skips']}; the skipped forward launched W4A4 "
+            f"{[counts[k] for k in W4A4_OPS]} (one dual block: {W4A4_PER_DUAL_BLOCK} each); its "
+            f"output is the replay bit for bit: {same}; relative L2 to the computed forward "
+            f"{rel:.3e}")
+        if not (st1["skips"] == 0 and st2["skips"] == 1 and same
+                and all(counts[k] == W4A4_PER_DUAL_BLOCK for k in W4A4_OPS)
+                and torch.isfinite(out1).all()):
+            raise AssertionError(f"the forced {name} skip did not replay the cached residual")
+        del out0, out1, replay
 
 
 def phase_slice(dev) -> dict:
@@ -2210,18 +2449,31 @@ def phase_engine(dev) -> None:
         t0 = time.perf_counter()
         _write_checkpoint(root, dev)
         log(f"[engine] wrote the synthetic checkpoint in {time.perf_counter() - t0:.1f} s")
-        for seed, flags in ((1, {}), (2, {"use_int8": True}), (3, {"use_fp8": True})):
+        for seed, flags in ((1, {}), (2, {"use_int8": True}), (3, {"use_fp8": True}),
+                            (4, {"use_int4": True, "pack_int4": True, "quant_mods": True})):
             t0 = time.perf_counter()
             eng = FastDMEngine(root, architecture="flux", cache_config=dict(TEACACHE),
                                verbose=False, **flags)
+            torch.cuda.synchronize()
             label = eng.cfg.quant or "bf16"
+            int4p = label == "int4p"
+            # int4p: quantize_weight's SVDQuant split (QR and SVD) ran on the card
+            lin, mod = eng.params.dual_blocks[0].attn.qkv, eng.params.dual_blocks[0].norm1.linear
+            w, wm = (lin.w4p, mod.w4p) if int4p else (lin.w, mod.w)
             log(f"[engine {label}] FastDMEngine loaded in {time.perf_counter() - t0:.1f} s "
                 f"({eng.cfg.num_layers} dual + {eng.cfg.num_single_layers} single blocks, "
-                f"inner dim {eng.cfg.inner_dim}, block linears "
-                f"{eng.params.single_blocks[0].qkv_mlp.w.dtype})")
-            want = {None: torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
-            if eng.params.dual_blocks[0].attn.qkv.w.dtype != want[eng.cfg.quant]:
+                f"inner dim {eng.cfg.inner_dim}, block linears {w.dtype}"
+                f"{' packed int4, lora rank ' + str(lin.lora_u.shape[1]) if int4p else ''}, "
+                f"modulations {wm.dtype if wm is not None else None})")
+            want = {None: torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn,
+                    "int4p": torch.int8}
+            # quant_mods only with int4p: its modulations packed, the others' in bf16
+            mods_ok = wm is not None if int4p else wm.dtype == torch.bfloat16
+            if (w is None or w.dtype != want[eng.cfg.quant] or not mods_ok
+                    or (int4p and not (torch.isfinite(lin.lora_u).all()
+                                       and torch.isfinite(lin.lora_v).all()))):
                 raise AssertionError(f"engine {flags} loaded the wrong weight format")
+            cuda_backend.reset_launch_counts()
             g = torch.Generator(device=dev).manual_seed(100 + seed)
             embeds = torch.randn(1, TXT_TOKENS, eng.cfg.joint_attention_dim, generator=g,
                                  device=dev, dtype=torch.bfloat16)
@@ -2236,6 +2488,15 @@ def phase_engine(dev) -> None:
             if not (isinstance(img, np.ndarray) and img.dtype == np.uint8
                     and img.shape == (1, 1024, 1024, 3)):
                 raise AssertionError(f"generate returned {type(img)} {getattr(img, 'shape', '')}")
+            if int4p:  # one dual + one single block: 13 W4A4 linears per computed
+                # forward, and TeaCache's probe (a modulation) in every step
+                counts = _launch_counts()
+                n = (STEPS - eng.last_cache_skips) * 13 + STEPS
+                log(f"[engine int4p] W4A4 launches {[counts[k] for k in W4A4_OPS]} "
+                    f"(13 x {STEPS - eng.last_cache_skips} computed forwards + {STEPS} "
+                    f"TeaCache probes = {n} each)")
+                if any(counts[k] != n for k in W4A4_OPS):
+                    raise AssertionError(f"engine int4p: W4A4 launches {counts} != {n} each")
             del eng
             torch.cuda.empty_cache()
     _engine_wan(dev, here)

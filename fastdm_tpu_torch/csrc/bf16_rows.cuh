@@ -1,7 +1,8 @@
 // Helpers of the row kernels that move bf16 rows with 16-byte accesses and
 // compute in f32 (csrc/rmsnorm.cu, csrc/rope.cu, csrc/qk_norm_rope.cu): bf16
 // unpacking and packing, streaming (evict-first) loads and stores, the
-// rotation of one pair without contraction, and for the norms the weight
+// rotation of one pair without contraction, the RoPE tables of a column group
+// and its half-split rotation, and for the norms the weight
 // (gamma) in the dtype it has, the sum of squares of one 8-column vector, the
 // IEEE inverse root and the normalised vector packed for one 16-byte store.
 #pragma once
@@ -42,6 +43,45 @@ __device__ __forceinline__ float rot1(float x1, float x2, float c, float s) {
 }
 __device__ __forceinline__ float rot2(float x1, float x2, float c, float s) {
   return __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s));
+}
+
+// The RoPE table entries of one column group of a head, loaded once per
+// token with 16-byte loads: 4 pairs interleaved (one float4 of cos, one of
+// sin), 8 half-split (two of each). Shared by rope.cu and qk_norm_rope.cu.
+template <bool kNeox>
+struct GroupTables {
+  static constexpr int kPairs = kNeox ? 8 : 4;
+  float c[kPairs], s[kPairs];
+
+  __device__ __forceinline__ void load(const float* cos_row, const float* sin_row) {
+#pragma unroll
+    for (int i = 0; i < kPairs / 4; ++i) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(cos_row) + i);
+      const float4 b = __ldg(reinterpret_cast<const float4*>(sin_row) + i);
+      c[4 * i] = a.x, c[4 * i + 1] = a.y, c[4 * i + 2] = a.z, c[4 * i + 3] = a.w;
+      s[4 * i] = b.x, s[4 * i + 1] = b.y, s[4 * i + 2] = b.z, s[4 * i + 3] = b.w;
+    }
+  }
+};
+
+// Half-split pairs p and p + 1: wa holds their x1 (2 bf16 of a head's first
+// half), wb their x2 (the same columns of its second half); rotated in place,
+// each result rounded once.
+__device__ __forceinline__ void rotate_half_split_word(uint32_t& wa, uint32_t& wb,
+                                                       const GroupTables<true>& t, int p) {
+  const float a0 = bf16_lo(wa), a1 = bf16_hi(wa), b0 = bf16_lo(wb), b1 = bf16_hi(wb);
+  wa = pack_bf16x2(rot1(a0, b0, t.c[p], t.s[p]), rot1(a1, b1, t.c[p + 1], t.s[p + 1]));
+  wb = pack_bf16x2(rot2(a0, b0, t.c[p], t.s[p]), rot2(a1, b1, t.c[p + 1], t.s[p + 1]));
+}
+
+// Half-split: a holds x1 of pairs 0..7 (8 bf16 of a head's first half), b
+// their x2; rotated in place.
+__device__ __forceinline__ void rotate_half_split(uint4& a, uint4& b, const GroupTables<true>& t) {
+  uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) rotate_half_split_word(wa[j], wb[j], t, 2 * j);
+  a = make_uint4(wa[0], wa[1], wa[2], wa[3]);
+  b = make_uint4(wb[0], wb[1], wb[2], wb[3]);
 }
 
 // y * gamma[col] in f32 (y unchanged without gamma): the scalar form

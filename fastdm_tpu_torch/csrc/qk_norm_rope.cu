@@ -1,5 +1,6 @@
 // Fused RMSNorm(q) + RMSNorm(k) over the full width D, each rounded to bf16,
-// then interleaved rotary embedding of both, bf16 in and out, f32 math.
+// then rotary embedding of both in either pair layout (interleaved, as Wan
+// runs it, or half-split), bf16 in and out, f32 math.
 //
 // Replaces: fastdm_tpu/kernels/pallas/elementwise.py qk_norm_rope_pallas
 // (:341, pallas_call :398) and qk_norm_rope2_pallas (:416, pallas_call :465),
@@ -12,14 +13,19 @@
 // elements (Wan's rms_norm_across_heads, not per head); y = x * (1 /
 // sqrt(mean + eps)) * gamma in f32, rounded to bf16 (the Pallas kernel's
 // rounding point, elementwise.py:318, and the plain version's); then each
-// interleaved pair (y1, y2) of a head becomes (y1*cos - y2*sin, y2*cos +
-// y1*sin) with the f32 (S, head_dim/2) tables, computed without contraction
+// pair (y1, y2) of a head -- columns (2p, 2p + 1) interleaved, (p, p +
+// head_dim/2) half-split (the Pallas kernel's is_neox branch,
+// elementwise.py:328-331) -- becomes (y1*cos - y2*sin, y2*cos + y1*sin) with
+// the f32 (S, head_dim/2) tables, computed without contraction
 // (__fmul_rn / __fsub_rn, as csrc/rope.cu) and rounded once. Against the plain
 // version (fastdm_tpu_torch/kernels/torch_backend.py qk_norm_rope2_torch) the
 // rotation is bit-exact on equal inputs; the normalized value may sit one bf16
 // ulp away (f32 sum order, 1/sqrt vs rsqrt), as in csrc/rmsnorm.cu. gamma is
 // read in the dtype it has (bf16 or f32; bf16 -> f32 is exact) or is absent.
-// The row helpers are csrc/bf16_rows.cuh's, shared with rmsnorm.cu and rope.cu.
+// The row helpers are csrc/bf16_rows.cuh's, shared with rmsnorm.cu and rope.cu
+// (the half-split rotation of a column group and its tables included).
+// Every kernel is a template on the layout; the interleaved instantiations
+// compute exactly what they computed before the half-split one existed.
 //
 // What bounds it on the H100: memory bytes. A Wan2.2-A14B row reads 2 x 5120
 // bf16 and writes 2 x 5120 bf16 (40 KB) for ~10 flops per element; at
@@ -29,17 +35,23 @@
 // k columns of the fused (B, S, 3D) QKV output, or two separate (B, S, D)
 // tensors), so neither the q|k slice copy nor the (B*S, head_dim) expanded
 // cos/sin tables of the Pallas wrapper exist. One block per token.
-//   Fast path (D a multiple of 8 up to 8192, head_dim a multiple of 8, rows,
-//   gamma and tables 16-byte aligned; Wan2.2-A14B's 5120, Wan2.2-5B's 3072
-//   and Wan2.1-1.3B's 1536 with 320, 192 and 96 threads): a thread owns
-//   kVecs fixed 8-column vectors of q and of k and moves them with 16-byte
-//   accesses. It issues every load of the row at once (q, k, their cos/sin
-//   and gamma vectors, gamma in the dtype it has), so the row is read once
-//   (single pass); reduces both sums of squares (warp shuffles, then one
+//   Fast path (D a multiple of 8 up to 8192, head_dim a multiple of 8
+//   interleaved or of 16 half-split, rows, gamma and tables 16-byte aligned;
+//   Wan2.2-A14B's 5120, Wan2.2-5B's 3072 and Wan2.1-1.3B's 1536 with 320, 192
+//   and 96 threads): a thread owns kVecs fixed 8-column vectors of q and of k
+//   and moves them with 16-byte accesses: interleaved, vectors blockDim.x * 8
+//   columns apart; half-split, one 8-column group of a head's first half and
+//   the same columns of its second half, which share 8 table entries. It
+//   issues every load of the row at once (q, k, their cos/sin and gamma
+//   vectors, gamma in the dtype it has), so the row is read once (single
+//   pass); reduces both sums of squares (warp shuffles, then one
 //   shared-memory step and the block's one barrier); then normalizes,
 //   rotates and stores from registers. At 64 registers three 320-thread
 //   blocks fit on an SM, so one block's loads are in flight while another
-//   computes.
+//   computes. The half-split form loads its table entries after the
+//   reduction (L1 hits: every head of the token reads them) and rotates a
+//   word as soon as both halves of it are normalized; with the entries live
+//   across the reduction, ptxas spilled 88-96 B at 64 registers.
 //   Built and measured slower on the H100 (PERF.md §6): a persistent grid
 //   holding gamma in registers with the next token's row in a second
 //   register buffer (174-216 registers, one or two blocks of 5 warps per SM),
@@ -47,7 +59,8 @@
 //   cp.async.bulk ring of rows in shared memory.
 //   Tail path (any other width or alignment the wrapper accepts: even
 //   head_dim, 4-byte aligned rows): 256 threads, 4-byte pairs, pass 1
-//   reducing both sums and pass 2 re-reading the row.
+//   reducing both sums and pass 2 re-reading the row (half-split: one pair of
+//   two scalar elements half a head apart per thread and step).
 #include "bf16_rows.cuh"
 
 namespace {
@@ -104,9 +117,46 @@ __device__ __forceinline__ uint4 norm_rope_vec(const uint4& x, const GammaVec<G>
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
+// Column of this thread's vector i: interleaved, vectors blockDim.x * 8
+// columns apart; half-split, column group threadIdx.x of a head's first half
+// (i = 0) and the same columns of its second half (i = 1). At or past dim:
+// no vector.
+template <bool kNeox>
+__device__ __forceinline__ int vec_col(int i, int head_dim) {
+  if constexpr (kNeox) {
+    const int groups = head_dim / (2 * kVec);  // column groups of a head's half
+    const int h = threadIdx.x / groups;
+    return h * head_dim + (threadIdx.x - h * groups) * kVec + i * (head_dim / 2);
+  } else {
+    return (i * blockDim.x + threadIdx.x) * kVec;
+  }
+}
+
+// Half-split: vectors x1 (8 columns of a head's first half) and x2 (the same
+// columns of its second half) normalized, scaled and rounded to bf16 a word at
+// a time, each word rotated against its partner as soon as both exist (as
+// norm_rope_vec does for a pair), so that few values are live at once;
+// results in x1, x2.
+template <int G>
+__device__ __forceinline__ void norm_rope_half_split(uint4& x1, uint4& x2, const GammaVec<G>& g1,
+                                                     const GammaVec<G>& g2, float inv,
+                                                     const GroupTables<true>& t) {
+  uint32_t w1[4] = {x1.x, x1.y, x1.z, x1.w}, w2[4] = {x2.x, x2.y, x2.z, x2.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w1[j] = pack_bf16x2(g1.apply(bf16_lo(w1[j]) * inv, 2 * j),
+                        g1.apply(bf16_hi(w1[j]) * inv, 2 * j + 1));
+    w2[j] = pack_bf16x2(g2.apply(bf16_lo(w2[j]) * inv, 2 * j),
+                        g2.apply(bf16_hi(w2[j]) * inv, 2 * j + 1));
+    rotate_half_split_word(w1[j], w2[j], t, 2 * j);
+  }
+  x1 = make_uint4(w1[0], w1[1], w1[2], w1[3]);
+  x2 = make_uint4(w2[0], w2[1], w2[2], w2[3]);
+}
+
 // At least two blocks of kMaxThreads per SM: 64 registers, which ptxas meets
 // without spills unless gamma is f32 (81 registers then, one block).
-template <int G>
+template <int G, bool kNeox>
 __global__ void __launch_bounds__(kMaxThreads, G == kGammaF32 ? 1 : 2)
 qk_norm_rope_vec_kernel(const Rows rows, const void* __restrict__ gq, const void* __restrict__ gk,
                         const float* __restrict__ cos_t, const float* __restrict__ sin_t,
@@ -117,20 +167,22 @@ qk_norm_rope_vec_kernel(const Rows rows, const void* __restrict__ gq, const void
   const int dim = rows.dim, half = head_dim / 2, t = blockIdx.x, s = t % rows.seq;
   const __nv_bfloat16* qr = rows.q_row(t);
   const __nv_bfloat16* kr = rows.k_row(t);
-  // vector i of this thread starts at column (i * blockDim.x + threadIdx.x) * 8
+  // vector i of this thread starts at column vec_col<kNeox>(i, head_dim)
   uint4 xq[kVecs], xk[kVecs];
-  float4 cv[kVecs], sv[kVecs];
+  float4 cv[kVecs], sv[kVecs];  // interleaved: each vector's 4 pairs
   GammaVec<G> gqv[kVecs], gkv[kVecs];
 #pragma unroll
   for (int i = 0; i < kVecs; ++i) {
-    const int c = (i * blockDim.x + threadIdx.x) * kVec;
+    const int c = vec_col<kNeox>(i, head_dim);
     xq[i] = xk[i] = make_uint4(0u, 0u, 0u, 0u);
     if (c < dim) {
       xq[i] = __ldg(reinterpret_cast<const uint4*>(qr + c));
       xk[i] = __ldg(reinterpret_cast<const uint4*>(kr + c));
-      const int64_t at = static_cast<int64_t>(s) * half + (c % head_dim) / 2;
-      cv[i] = __ldg(reinterpret_cast<const float4*>(cos_t + at));
-      sv[i] = __ldg(reinterpret_cast<const float4*>(sin_t + at));
+      if constexpr (!kNeox) {
+        const int64_t at = static_cast<int64_t>(s) * half + (c % head_dim) / 2;
+        cv[i] = __ldg(reinterpret_cast<const float4*>(cos_t + at));
+        sv[i] = __ldg(reinterpret_cast<const float4*>(sin_t + at));
+      }
       gqv[i].load(gq, c);
       gkv[i].load(gk, c);
     }
@@ -160,12 +212,30 @@ qk_norm_rope_vec_kernel(const Rows rows, const void* __restrict__ gq, const void
   const float inv_q = rms_inverse(sq, dim, eps), inv_k = rms_inverse(sk, dim, eps);
   __nv_bfloat16* qd = qo + static_cast<int64_t>(t) * dim;
   __nv_bfloat16* kd = ko + static_cast<int64_t>(t) * dim;
-#pragma unroll
-  for (int i = 0; i < kVecs; ++i) {
-    const int c = (i * blockDim.x + threadIdx.x) * kVec;
+  if constexpr (kNeox) {
+    // the group's 8 table entries are loaded after the reduction (from L1:
+    // every head of the token reads them), so that they are not live across
+    // it; loaded with the row, they made ptxas spill at 64 registers
+    const int c = vec_col<true>(0, head_dim), c2 = c + half;
     if (c < dim) {
-      *reinterpret_cast<uint4*>(qd + c) = norm_rope_vec<G>(xq[i], gqv[i], inv_q, cv[i], sv[i]);
-      *reinterpret_cast<uint4*>(kd + c) = norm_rope_vec<G>(xk[i], gkv[i], inv_k, cv[i], sv[i]);
+      GroupTables<true> tab;
+      const int64_t at = static_cast<int64_t>(s) * half + c % head_dim;
+      tab.load(cos_t + at, sin_t + at);
+      norm_rope_half_split<G>(xq[0], xq[1], gqv[0], gqv[1], inv_q, tab);
+      *reinterpret_cast<uint4*>(qd + c) = xq[0];
+      *reinterpret_cast<uint4*>(qd + c2) = xq[1];
+      norm_rope_half_split<G>(xk[0], xk[1], gkv[0], gkv[1], inv_k, tab);
+      *reinterpret_cast<uint4*>(kd + c) = xk[0];
+      *reinterpret_cast<uint4*>(kd + c2) = xk[1];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int c = (i * blockDim.x + threadIdx.x) * kVec;
+      if (c < dim) {
+        *reinterpret_cast<uint4*>(qd + c) = norm_rope_vec<G>(xq[i], gqv[i], inv_q, cv[i], sv[i]);
+        *reinterpret_cast<uint4*>(kd + c) = norm_rope_vec<G>(xk[i], gkv[i], inv_k, cv[i], sv[i]);
+      }
     }
   }
 }
@@ -188,7 +258,21 @@ __device__ __forceinline__ void norm_rope_pair(const __nv_bfloat16* src, __nv_bf
   *reinterpret_cast<__nv_bfloat162*>(dst + col) = rope_pair(y0, y1, c, sn);
 }
 
+// The half-split pair (c1, c2 = c1 + head_dim/2) of one row: both normalized,
+// scaled by gamma and rounded to bf16, then rotated, rounded and stored.
 template <int G>
+__device__ __forceinline__ void norm_rope_split(const __nv_bfloat16* src, __nv_bfloat16* dst,
+                                                const void* gamma, float inv, float c, float sn,
+                                                int c1, int c2) {
+  const float y1 = times_gamma<G>(__bfloat162float(src[c1]) * inv, gamma, c1);
+  const float y2 = times_gamma<G>(__bfloat162float(src[c2]) * inv, gamma, c2);
+  const float r1 = __bfloat162float(__float2bfloat16_rn(y1));
+  const float r2 = __bfloat162float(__float2bfloat16_rn(y2));
+  dst[c1] = __float2bfloat16_rn(rot1(r1, r2, c, sn));
+  dst[c2] = __float2bfloat16_rn(rot2(r1, r2, c, sn));
+}
+
+template <int G, bool kNeox>
 __global__ void __launch_bounds__(kRowThreads)
 qk_norm_rope_row_kernel(const Rows rows, const void* __restrict__ gq, const void* __restrict__ gk,
                         const float* __restrict__ cos_t, const float* __restrict__ sin_t,
@@ -231,44 +315,66 @@ qk_norm_rope_row_kernel(const Rows rows, const void* __restrict__ gq, const void
   const float* sn = sin_t + static_cast<int64_t>(s) * half;
   __nv_bfloat16* qd = qo + static_cast<int64_t>(token) * dim;
   __nv_bfloat16* kd = ko + static_cast<int64_t>(token) * dim;
-  for (int c = threadIdx.x * 2; c < dim; c += kRowThreads * 2) {
-    const int p = (c % head_dim) / 2;
-    const float cv = cs[p], sv = sn[p];
-    norm_rope_pair<G>(qr, qd, gq, inv_q, cv, sv, c);
-    norm_rope_pair<G>(kr, kd, gk, inv_k, cv, sv, c);
+  if constexpr (kNeox) {
+    for (int j = threadIdx.x; j < dim / 2; j += kRowThreads) {  // pair j of the row
+      const int h = j / half, p = j - h * half, c1 = h * head_dim + p;
+      norm_rope_split<G>(qr, qd, gq, inv_q, cs[p], sn[p], c1, c1 + half);
+      norm_rope_split<G>(kr, kd, gk, inv_k, cs[p], sn[p], c1, c1 + half);
+    }
+  } else {
+    for (int c = threadIdx.x * 2; c < dim; c += kRowThreads * 2) {
+      const int p = (c % head_dim) / 2;
+      const float cv = cs[p], sv = sn[p];
+      norm_rope_pair<G>(qr, qd, gq, inv_q, cv, sv, c);
+      norm_rope_pair<G>(kr, kd, gk, inv_k, cv, sv, c);
+    }
   }
 }
 
 // --------------------------------------------------------------------- launch
 
 bool fast_path(const Rows& r, const void* gq, const void* gk, const void* cos_t,
-               const void* sin_t, const void* qo, const void* ko, int head_dim) {
-  return r.dim % kVec == 0 && r.dim <= kMaxFastDim && head_dim % kVec == 0 &&
+               const void* sin_t, const void* qo, const void* ko, int head_dim, bool neox) {
+  return r.dim % kVec == 0 && r.dim <= kMaxFastDim && head_dim % (neox ? 2 * kVec : kVec) == 0 &&
          r.q_sb % kVec == 0 && r.q_ss % kVec == 0 && r.k_sb % kVec == 0 && r.k_ss % kVec == 0 &&
          aligned(r.q, 16) && aligned(r.k, 16) && aligned(gq, 16) && aligned(gk, 16) &&
          aligned(cos_t, 16) && aligned(sin_t, 16) && aligned(qo, 16) && aligned(ko, 16);
 }
 
-template <int G>
+template <int G, bool kNeox>
 int launch_kind(const Rows& r, const void* gq, const void* gk, const float* cos_t,
                 const float* sin_t, __nv_bfloat16* qo, __nv_bfloat16* ko, int tokens,
                 int head_dim, float eps, cudaStream_t stream) {
-  if (fast_path(r, gq, gk, cos_t, sin_t, qo, ko, head_dim)) {
+  if (fast_path(r, gq, gk, cos_t, sin_t, qo, ko, head_dim, kNeox)) {
     // whole warps covering dim / 8 vectors, kVecs per thread
     const int threads = 32 * ((r.dim + 32 * kVecs * kVec - 1) / (32 * kVecs * kVec));
-    qk_norm_rope_vec_kernel<G><<<static_cast<unsigned>(tokens), threads, 0, stream>>>(
+    qk_norm_rope_vec_kernel<G, kNeox><<<static_cast<unsigned>(tokens), threads, 0, stream>>>(
         r, gq, gk, cos_t, sin_t, qo, ko, head_dim, eps);
   } else {
-    qk_norm_rope_row_kernel<G><<<static_cast<unsigned>(tokens), kRowThreads, 0, stream>>>(
+    qk_norm_rope_row_kernel<G, kNeox><<<static_cast<unsigned>(tokens), kRowThreads, 0, stream>>>(
         r, gq, gk, cos_t, sin_t, qo, ko, head_dim, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kNeox>
+int launch_layout(const Rows& r, const void* gq, const void* gk, int gamma_kind,
+                  const float* cos_t, const float* sin_t, __nv_bfloat16* qo, __nv_bfloat16* ko,
+                  int tokens, int head_dim, float eps, cudaStream_t st) {
+  if (gamma_kind == kGammaBf16)
+    return launch_kind<kGammaBf16, kNeox>(r, gq, gk, cos_t, sin_t, qo, ko, tokens, head_dim,
+                                          eps, st);
+  if (gamma_kind == kGammaF32)
+    return launch_kind<kGammaF32, kNeox>(r, gq, gk, cos_t, sin_t, qo, ko, tokens, head_dim, eps,
+                                         st);
+  return launch_kind<kNoGamma, kNeox>(r, gq, gk, cos_t, sin_t, qo, ko, tokens, head_dim, eps,
+                                      st);
+}
+
 int launch(const void* q, const void* k, long long q_sb, long long q_ss, long long k_sb,
            long long k_ss, const void* gq, const void* gk, int gamma_kind, const void* cos_t,
            const void* sin_t, void* qo, void* ko, int batch, int seq, int dim, int head_dim,
-           float eps, void* stream) {
+           int neox, float eps, void* stream) {
   if (batch <= 0 || seq <= 0) return 0;
   if (dim <= 0 || head_dim <= 0 || head_dim % 2 != 0 || dim % head_dim != 0 ||
       (gamma_kind != kNoGamma) != (gq != nullptr && gk != nullptr) ||
@@ -282,11 +388,9 @@ int launch(const void* q, const void* k, long long q_sb, long long q_ss, long lo
   __nv_bfloat16* kd = static_cast<__nv_bfloat16*>(ko);
   const int tokens = batch * seq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (gamma_kind == kGammaBf16)
-    return launch_kind<kGammaBf16>(r, gq, gk, cs, sn, qd, kd, tokens, head_dim, eps, st);
-  if (gamma_kind == kGammaF32)
-    return launch_kind<kGammaF32>(r, gq, gk, cs, sn, qd, kd, tokens, head_dim, eps, st);
-  return launch_kind<kNoGamma>(r, gq, gk, cs, sn, qd, kd, tokens, head_dim, eps, st);
+  if (neox)
+    return launch_layout<true>(r, gq, gk, gamma_kind, cs, sn, qd, kd, tokens, head_dim, eps, st);
+  return launch_layout<false>(r, gq, gk, gamma_kind, cs, sn, qd, kd, tokens, head_dim, eps, st);
 }
 
 }  // namespace
@@ -296,15 +400,15 @@ int launch(const void* q, const void* k, long long q_sb, long long q_ss, long lo
 // gq/gk: (dim,) contiguous, both bf16 (gamma_kind 1) or both f32 (2), or both
 // NULL (0); cos/sin: contiguous f32 (S, head_dim/2); qo/ko: contiguous bf16
 // (B, S, dim). dim a multiple of head_dim, head_dim even, pointers and strides
-// 4-byte aligned.
+// 4-byte aligned. neox: 0 interleaved pairs, 1 half-split.
 FDM_EXPORT int fdm_qk_norm_rope_bf16(const void* qkv, long long qkv_sb, long long qkv_ss,
                                      const void* gq, const void* gk, int gamma_kind,
                                      const void* cos_t, const void* sin_t, void* qo, void* ko,
-                                     int batch, int seq, int dim, int head_dim, float eps,
-                                     void* stream) {
+                                     int batch, int seq, int dim, int head_dim, int neox,
+                                     float eps, void* stream) {
   const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(qkv);
   return launch(base, base + dim, qkv_sb, qkv_ss, qkv_sb, qkv_ss, gq, gk, gamma_kind, cos_t,
-                sin_t, qo, ko, batch, seq, dim, head_dim, eps, stream);
+                sin_t, qo, ko, batch, seq, dim, head_dim, neox, eps, stream);
 }
 
 // Two-operand form: q and k (B, S, dim) bf16, each with its own batch/seq
@@ -313,10 +417,10 @@ FDM_EXPORT int fdm_qk_norm_rope2_bf16(const void* q, const void* k, long long q_
                                       long long q_ss, long long k_sb, long long k_ss,
                                       const void* gq, const void* gk, int gamma_kind,
                                       const void* cos_t, const void* sin_t, void* qo, void* ko,
-                                      int batch, int seq, int dim, int head_dim, float eps,
-                                      void* stream) {
+                                      int batch, int seq, int dim, int head_dim, int neox,
+                                      float eps, void* stream) {
   return launch(q, k, q_sb, q_ss, k_sb, k_ss, gq, gk, gamma_kind, cos_t, sin_t, qo, ko, batch,
-                seq, dim, head_dim, eps, stream);
+                seq, dim, head_dim, neox, eps, stream);
 }
 
 FDM_DEFINE_ERROR_STRING(fdm_qk_norm_rope)

@@ -1,11 +1,13 @@
 // Per-token (row) activation quantizers: bf16 -> int8 (symmetric or
-// asymmetric) and bf16 -> float8_e4m3fn, with one f32 scale (and one int32
-// zero point) per row.
+// asymmetric), bf16 -> float8_e4m3fn and bf16 -> int4 (in int8 carriers),
+// with one f32 scale (and one int32 zero point) per row.
 //
 // Replaces: fastdm_tpu/kernels/pallas/elementwise.py quantize_to_int8_pallas
 // (:162, kernel body _quant_int8_kernel :144) and quantize_to_fp8_pallas
-// (:208, body _quant_fp8_kernel :199). The math is the jnp oracle's
-// (fastdm_tpu/kernels/jnp_backend/impl.py:123-140, :191-197), which the plain
+// (:208, body _quant_fp8_kernel :199), and the jnp-only int4 quantizer of the
+// W4A4 path, quantize_to_int4_jnp (impl.py:143-162), which has no Pallas
+// kernel. The math is the jnp oracle's
+// (fastdm_tpu/kernels/jnp_backend/impl.py:123-162, :191-197), which the plain
 // versions in fastdm_tpu_torch/kernels/torch_backend.py copy: scale floor
 // 1e-12 (the Pallas kernels use 1e-8, which differs only on all-zero rows),
 //   int8 sym:  scale = max(amax, 1e-12) / 127,  q = clip(rint(x / scale))
@@ -13,7 +15,9 @@
 //              zp = int32(-128 - rint(min / scale))   (saturating, as XLA),
 //              q = clip(rint(x / scale) + float(zp), -128, 127)
 //   fp8:       scale = max(amax, 1e-12) / 448,
-//              q = e4m3_rne(clip(x / scale, -448, 448)).
+//              q = e4m3_rne(clip(x / scale, -448, 448))
+//   int4:      scale = max(amax, 1e-12) / 7,  q = clip(rint(x / scale), -8, 7),
+//              one value per int8 carrier byte (the W4A4 GEMM's s8 operand).
 // Every division is __fdiv_rn (correctly rounded) and rint rounds half to
 // even, as jnp.round does; the build uses no --use_fast_math. So q, scale and
 // zp are bit-exact with the plain versions.
@@ -21,7 +25,8 @@
 // What bounds it on the H100: memory bytes. Each element is read once (2
 // bytes) and written once (1 byte) for a handful of f32 operations, far below
 // the ~295 flop/byte ridge: the floor is 3*M*K bytes / 3.35 TB/s (24 us for the
-// FLUX single-block input, 8704 x 3072).
+// FLUX single-block input, 8704 x 3072; the same for int4, whose carriers are
+// bytes).
 //
 // Design: one block of 128 threads per row (rows on the FLUX path hold 3072
 // to 15360 bf16, at most 30 KB). Pass 1 reads the row in 16-byte vectors and
@@ -39,7 +44,7 @@ constexpr int kThreads = 128;
 constexpr float kEpsScale = 1e-12f;
 constexpr float kFp8Max = 448.f;
 
-enum Mode { kInt8Sym = 0, kInt8Asym = 1, kFp8 = 2 };
+enum Mode { kInt8Sym = 0, kInt8Asym = 1, kFp8 = 2, kInt4 = 3 };
 
 __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -105,7 +110,8 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int64_t x_stride, int 
     if (threadIdx.x == 0) zp_out[row] = zp;
   } else {
     const float amax = fmaxf(fabsf(lo), fabsf(hi));
-    scale = __fdiv_rn(fmaxf(amax, kEpsScale), MODE == kFp8 ? kFp8Max : 127.f);
+    scale = __fdiv_rn(fmaxf(amax, kEpsScale),
+                      MODE == kFp8 ? kFp8Max : MODE == kInt4 ? 7.f : 127.f);
   }
   if (threadIdx.x == 0) scale_out[row] = scale;
 
@@ -122,8 +128,9 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int64_t x_stride, int 
         const float v = fminf(fmaxf(__fdiv_rn(f[j], scale), -kFp8Max), kFp8Max);
         byte = static_cast<uint32_t>(__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3));
       } else {
+        constexpr float kMin = MODE == kInt4 ? -8.f : -128.f, kMax = MODE == kInt4 ? 7.f : 127.f;
         float v = __fadd_rn(rintf(__fdiv_rn(f[j], scale)), zpf);
-        v = fminf(fmaxf(v, -128.f), 127.f);
+        v = fminf(fmaxf(v, kMin), kMax);
         byte = static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(__float2int_rn(v))));
       }
       packed[j / 4] |= byte << (8 * (j % 4));
@@ -135,9 +142,9 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int64_t x_stride, int 
 }  // namespace
 
 // x: bf16 (m, k) rows with row stride x_stride elements, 16-byte aligned rows,
-// k a multiple of 8. q: contiguous (m, k) bytes (int8 or e4m3); scale: f32 (m,);
-// zp: int32 (m,), written only by the asymmetric int8 form (mode 1).
-// mode: 0 int8 symmetric, 1 int8 asymmetric, 2 fp8 e4m3.
+// k a multiple of 8. q: contiguous (m, k) bytes (int8, e4m3 or int4 carriers);
+// scale: f32 (m,); zp: int32 (m,), written only by the asymmetric int8 form
+// (mode 1). mode: 0 int8 symmetric, 1 int8 asymmetric, 2 fp8 e4m3, 3 int4.
 FDM_EXPORT int fdm_quantize_rows(const void* x, long long x_stride, long long m, int k,
                                  void* q, void* scale, void* zp, int mode, void* stream) {
   if (m <= 0) return 0;
@@ -157,6 +164,9 @@ FDM_EXPORT int fdm_quantize_rows(const void* x, long long x_stride, long long m,
       break;
     case kFp8:
       quantize_rows_kernel<kFp8><<<grid, kThreads, 0, st>>>(xp, x_stride, k, qp, sp, zpp);
+      break;
+    case kInt4:
+      quantize_rows_kernel<kInt4><<<grid, kThreads, 0, st>>>(xp, x_stride, k, qp, sp, zpp);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -55,24 +55,6 @@ struct Operands {
 
 // ---------------------------------------------------------------- vector path
 
-// The table entries of one column group, loaded once per token: 4 pairs
-// interleaved (one float4 of cos, one of sin), 8 half-split (two of each).
-template <bool kNeox>
-struct GroupTables {
-  static constexpr int kPairs = kNeox ? 8 : 4;
-  float c[kPairs], s[kPairs];
-
-  __device__ __forceinline__ void load(const float* cos_row, const float* sin_row) {
-#pragma unroll
-    for (int i = 0; i < kPairs / 4; ++i) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(cos_row) + i);
-      const float4 b = __ldg(reinterpret_cast<const float4*>(sin_row) + i);
-      c[4 * i] = a.x, c[4 * i + 1] = a.y, c[4 * i + 2] = a.z, c[4 * i + 3] = a.w;
-      s[4 * i] = b.x, s[4 * i + 1] = b.y, s[4 * i + 2] = b.z, s[4 * i + 3] = b.w;
-    }
-  }
-};
-
 // One head's column group: interleaved, x holds pairs (lo, hi) of 4 words.
 __device__ __forceinline__ uint4 rotate_interleaved(const uint4& x, const GroupTables<false>& t) {
   const uint32_t w[4] = {x.x, x.y, x.z, x.w};
@@ -83,22 +65,6 @@ __device__ __forceinline__ uint4 rotate_interleaved(const uint4& x, const GroupT
     o[j] = pack_bf16x2(rot1(x1, x2, t.c[j], t.s[j]), rot2(x1, x2, t.c[j], t.s[j]));
   }
   return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// Half-split: a holds x1 of pairs 0..7, b their x2; outputs in place.
-__device__ __forceinline__ void rotate_half_split(uint4& a, uint4& b, const GroupTables<true>& t) {
-  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
-  uint32_t o1[4], o2[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int p = 2 * j;
-    const float a0 = bf16_lo(wa[j]), a1 = bf16_hi(wa[j]);
-    const float b0 = bf16_lo(wb[j]), b1 = bf16_hi(wb[j]);
-    o1[j] = pack_bf16x2(rot1(a0, b0, t.c[p], t.s[p]), rot1(a1, b1, t.c[p + 1], t.s[p + 1]));
-    o2[j] = pack_bf16x2(rot2(a0, b0, t.c[p], t.s[p]), rot2(a1, b1, t.c[p + 1], t.s[p + 1]));
-  }
-  a = make_uint4(o1[0], o1[1], o1[2], o1[3]);
-  b = make_uint4(o2[0], o2[1], o2[2], o2[3]);
 }
 
 // Thread layout of a block: token slot (threadIdx.x / per_token), then head

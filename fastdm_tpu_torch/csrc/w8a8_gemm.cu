@@ -1,7 +1,8 @@
 // int8 W8A8 GEMM with the fused dequantization epilogue: int8 x int8 -> s32
 // on the tensor cores through wgmma, then
 //   out = bf16( f32(acc - azp[m] * colsum[n]) * (scale_a[m] * scale_b[n]) + f32(bias[n]) )
-// (azp and bias optional).
+// (azp and bias optional). The W4A4 int4 GEMM is the same kernel without the
+// zero point (fdm_w4a4_gemm, below).
 //
 // Replaces: fastdm_tpu/kernels/pallas/matmul.py int8_matmul_pallas (:158),
 // which runs _w8a8_matmul_pallas (:89) and its body _mm_kernel (:52); its fp8
@@ -128,6 +129,24 @@ FDM_EXPORT int fdm_w8a8_gemm(const void* a, const void* b, const void* scale_a,
                    static_cast<const float*>(scale_b), static_cast<const int32_t*>(azp),
                    static_cast<const int32_t*>(colsum), static_cast<const __nv_bfloat16*>(bias),
                    static_cast<__nv_bfloat16*>(out));
+}
+
+// The W4A4 int4 GEMM: out = bf16(f32(a.b) * (scale_a[m] * scale_b[n]) +
+// f32(bias[n])), a and b int4-range values in int8 carriers, laid out as for
+// fdm_w8a8_gemm. Replaces the jnp-only int4_matmul_jnp
+// (fastdm_tpu/kernels/jnp_backend/impl.py:163-188), which has no Pallas
+// kernel: the TPU ran s4 x s4 on its matrix unit faster than s8, but Hopper's
+// wgmma takes 8-bit integers at the least, so a carrier of an int4 value is an
+// exact s8 operand and the product runs at the s8 rate on this kernel's ring.
+// Symmetric on both sides (no zero point), the epilogue above is already the
+// int4 oracle's order, so the result is bit-exact with int4_matmul_torch
+// (|acc| <= 64 K < 2^24 at FLUX widths: __int2float_rn is exact there). An
+// entry of its own, so that the launch counts tell int8 from int4.
+FDM_EXPORT int fdm_w4a4_gemm(const void* a, const void* b, const void* scale_a,
+                             const void* scale_b, const void* bias, void* out, int m, int n,
+                             int k, long long lda, long long ldb, void* stream) {
+  return fdm_w8a8_gemm(a, b, scale_a, scale_b, nullptr, nullptr, bias, out, m, n, k, lda, ldb,
+                       stream);
 }
 
 // Dynamic shared memory of one block, bytes.

@@ -2,6 +2,7 @@
 text-to-image and Wan2.2 text-to-video subsets of fastdm_tpu/engine.py).
 
     eng = FastDMEngine("/path/to/FLUX.1-dev", architecture="flux",
+                       use_int4=True, pack_int4=True, quant_mods=True,
                        cache_config={"cache_algorithm": "teacache", ...})
     images = eng.generate(prompt_embeds=..., pooled_prompt_embeds=...,
                           height=1024, width=1024, num_inference_steps=25)
@@ -23,11 +24,13 @@ Wan2.2-A14B dual expert, transformer_2/ — or SDXL's unet/, and vae/, with
 their config.json and model_index.json) onto the GPU ("cuda" unless the
 caller passes device="cpu"): in bf16, or with use_int8 / use_fp8 the
 transformer blocks' linears (SDXL: also proj_in/out and the resnets'
-time_emb_proj) quantized at load time to W8A8 (quant_mods=True quantizes
-FLUX's AdaLN modulations too). FLUX takes TeaCache, Wan FBCache or DiCache;
-SDXL has no step cache (a cache_config raises). Wan's
+time_emb_proj) quantized at load time to W8A8, or with use_int4 to W4A4
+(+ SVDQuant low-rank branch; pack_int4 stores the int4 values two per byte)
+(quant_mods=True quantizes FLUX's AdaLN modulations too). FLUX takes
+TeaCache, FBCache or DiCache, Wan FBCache or DiCache; SDXL has no step cache
+(a cache_config raises). Wan's
 radial sparse attention runs in the mode FASTDM_SPARSE_GATHER names: super
-(the default), fine, coarse or mask. The T5/CLIP/UMT5 text encoders, int4,
+(the default), fine, coarse or mask. The T5/CLIP/UMT5 text encoders,
 img2img, Kontext, ControlNet, the SDXL IP-Adapter, Wan i2v/ti2v and the other
 model families arrive with later slices and raise NotImplementedError here.
 """
@@ -133,14 +136,19 @@ class FastDMEngine:
         use_int8: bool = False, cache_config: Optional[Union[str, Dict[str, Any]]] = None,
         verbose: bool = True, device="cuda", quant_mods: bool = False,
         sparse_attn_config: Optional[Union[str, Dict[str, Any]]] = None,
+        use_int4: bool = False, pack_int4: bool = False,
     ):
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"architecture {architecture!r} is not in this slice of the port "
                 f"(have {ARCHITECTURES})")
-        if use_fp8 and use_int8:
-            raise ValueError("use_fp8 / use_int8 are mutually exclusive")
-        self.quant = "fp8" if use_fp8 else ("int8" if use_int8 else None)
+        # the JAX engine's checks (fastdm_tpu/engine.py:141-176)
+        if sum((use_fp8, use_int8, use_int4)) > 1:
+            raise ValueError("use_fp8 / use_int8 / use_int4 are mutually exclusive")
+        if pack_int4 and not use_int4:
+            raise ValueError("pack_int4 requires use_int4")
+        self.quant = ("fp8" if use_fp8 else "int8" if use_int8 else
+                      ("int4p" if pack_int4 else "int4") if use_int4 else None)
         self.quant_mods = quant_mods
         self.architecture = "wan" if architecture.startswith("wan") else architecture
         self.model_path = model_path

@@ -15,9 +15,12 @@ seeds) in every checkout:
     rmsnorm_wan, the cross-attention's q norm on (1, 32760, 5120) with a bf16
     weight;
   - FLUX.1-dev at 1024x2048: sdpa at (1, 8704, 24x128), and the int8 and fp8
-    W8A8 GEMMs at the single-block qkv_mlp product (8704 x 3072 @ 3072 x
-    21504), each on its per-token quantized activation and a random
-    quantized weight; rmsnorm_flux, the per-head q norm on the strided
+    W8A8 GEMMs and the W4A4 int4 GEMM (int4_gemm_flux) at the single-block
+    qkv_mlp product (8704 x 3072 @ 3072 x 21504), each on its per-token
+    quantized activation and a random quantized weight (int4: the int4p
+    weight unpacked); the int4 quantizer (quantize_int4_flux) on the (8704,
+    3072) activation and the int4p unpack (unpack_int4_flux) of the qkv_mlp
+    weight; rmsnorm_flux, the per-head q norm on the strided
     (1, 8192, 24, 128) view of a dual block's fused QKV output with a bf16
     weight; rotembd_flux and rotembd_neox, q and k of (1, 8704, 3072) with
     the real FLUX tables, interleaved and half-split.
@@ -36,7 +39,8 @@ that ROOT's runs and whether its checksums agree across all runs of all ROOTs,
 then the card's name and power limit. The norm, qk-norm+RoPE and mask outputs
 may differ between checkouts whose kernels sum in another order. A kernel a
 checkout does not take (NotImplementedError, e.g. the half-split RoPE before
-the CUDA kernel took it) is left out of that checkout's line. --kernels times
+the CUDA kernel took it, or a wrapper it does not have yet, e.g. the W4A4
+ones before they existed) is left out of that checkout's line. --kernels times
 only the kernels named. Needs nothing of JAX.
 """
 
@@ -96,6 +100,11 @@ def _one(root: str, only) -> dict:
     fw = (1 + 0.05 * torch.randn(hd, generator=g, device=dev)).bfloat16()
     wx = torch.randn(1, s, d, generator=g, device=dev, dtype=torch.bfloat16)
     fcos, fsin = flux_rope_cache(FluxConfig(), 512, 64, 128, device=dev)
+    w4 = qlinear_random(g, kk, n, quant="int4p", device=dev) if hasattr(tb, "unpack_int4_torch") \
+        else None
+    if w4 is not None:
+        a4, s4 = tb.quantize_to_int4_torch(x)
+        u4 = tb.unpack_int4_torch(w4.w4p)
 
     kernels = {
         "gather_super": lambda: cb.gather_super_attention_cuda(
@@ -120,6 +129,10 @@ def _one(root: str, only) -> dict:
         "rotembd_flux": lambda: cb.rotary_pos_embedding_cuda(fq, fk, hd, fcos, fsin),
         "rotembd_neox": lambda: cb.rotary_pos_embedding_cuda(fq, fk, hd, fcos, fsin,
                                                              is_neox=True),
+        "int4_gemm_flux": lambda: cb.int4_matmul_cuda(a4, u4, s4, w4.scale, torch.bfloat16,
+                                                      w4.bias),
+        "quantize_int4_flux": lambda: cb.quantize_to_int4_cuda(x),
+        "unpack_int4_flux": lambda: cb.unpack_int4_cuda(w4.w4p),
     }
     plain = {"rmsnorm_flux": lambda: tb.rms_norm_torch(fx, fw, 1e-6),
              "rmsnorm_wan": lambda: tb.rms_norm_torch(wx, gq, 1e-6)}
@@ -149,9 +162,10 @@ def _one(root: str, only) -> dict:
             continue
         try:
             got = fn()
-        except NotImplementedError:
+        except (NotImplementedError, AttributeError, NameError):
             continue
-        out[f"{name}_checksum"] = sum(int(t.view(torch.int16).long().sum())
+        # (contiguous: the unpack returns the (K, N) view of an (N, K) buffer)
+        out[f"{name}_checksum"] = sum(int(t.contiguous().view(torch.int16).long().sum())
                                       for t in (got if isinstance(got, tuple) else (got,)))
         if name in plain:
             want = plain[name]().float()

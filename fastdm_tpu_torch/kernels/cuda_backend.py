@@ -221,10 +221,6 @@ def _qk_norm_rope_launch(wrapper, entry: str, lead_args, lead_types, q: Tensor, 
     """The checks both forms share, then one launch of `entry` (q/k given by
     `lead_args`, their pointers and strides), counted on `wrapper`."""
     kernel = wrapper.__name__[:-len("_cuda")]
-    if is_neox:
-        raise NotImplementedError(
-            f"[{kernel}] the CUDA kernel rotates interleaved pairs (Wan); the half-split "
-            "(neox) layout has only its plain version until a slice that runs it")
     dev = q.device
     for name, t in (("q", q), ("k", k)):
         _check_tensor(t, kernel, name, dev)
@@ -257,12 +253,12 @@ def _qk_norm_rope_launch(wrapper, entry: str, lead_args, lead_types, q: Tensor, 
     if b * s == 0:
         return qo, ko
     lib, fn = _entry("qk_norm_rope", entry,
-                     list(lead_types) + [_P, _P, _I] + [_P] * 4 + [_I] * 4 + [_F, _P])
+                     list(lead_types) + [_P, _P, _I] + [_P] * 4 + [_I] * 5 + [_F, _P])
     with torch.cuda.device(dev):
         code = fn(*lead_args, gq.data_ptr() if gq is not None else None,
                   gk.data_ptr() if gk is not None else None, gamma_kind, cos.data_ptr(),
-                  sin.data_ptr(), qo.data_ptr(), ko.data_ptr(), b, s, d, head_size, float(eps),
-                  _stream(dev))
+                  sin.data_ptr(), qo.data_ptr(), ko.data_ptr(), b, s, d, head_size,
+                  int(is_neox), float(eps), _stream(dev))
     _check_launch(lib, "fdm_qk_norm_rope", code, kernel)
     wrapper.launches += 1
     return qo, ko
@@ -524,7 +520,7 @@ sparse_attention_cuda.launches = 0
 
 # -------------------------------------------------------------- quantize
 
-_QUANT_MODES = {"int8_sym": 0, "int8_asym": 1, "fp8": 2}
+_QUANT_MODES = {"int8_sym": 0, "int8_asym": 1, "fp8": 2, "int4": 3}
 
 
 def _quantize_rows(x: Tensor, kernel: str, mode: str,
@@ -571,6 +567,15 @@ def quantize_to_fp8_cuda(x: Tensor) -> Tuple[Tensor, Tensor]:
 quantize_to_fp8_cuda.launches = 0
 
 
+@kernel_registry.register("quantize_to_int4", "cuda")
+def quantize_to_int4_cuda(x: Tensor) -> Tuple[Tensor, Tensor]:
+    q, scale, _ = _quantize_rows(x, "quantize_to_int4", "int4", quantize_to_int4_cuda)
+    return q, scale
+
+
+quantize_to_int4_cuda.launches = 0
+
+
 # ------------------------------------------------------------- W8A8 GEMM
 
 
@@ -583,19 +588,23 @@ def _check_vector(t: Optional[Tensor], kernel: str, name: str, n: int, dtype,
                      f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _w8a8_entry(op_dtype: torch.dtype):
-    """(library, C launcher) of the W8A8 GEMM for 8-bit operands of op_dtype:
+def _w8a8_entry(op_dtype: torch.dtype, int4: bool = False):
+    """(library, C launcher) of the GEMM for 8-bit operands of op_dtype:
     fp8_gemm.cu for e4m3, w8a8_gemm.cu (which also takes the zero point) for
-    int8; both wgmma + TMA kernels."""
+    int8, and its zero-point-free W4A4 entry for int4 values in int8 carriers;
+    all wgmma + TMA kernels."""
     if op_dtype == torch.float8_e4m3fn:
         return _entry("fp8_gemm", "fdm_fp8_gemm", [_P] * 6 + [_I] * 3 + [_L] * 2 + [_P])
+    if int4:
+        return _entry("w8a8_gemm", "fdm_w4a4_gemm", [_P] * 6 + [_I] * 3 + [_L] * 2 + [_P])
     return _entry("w8a8_gemm", "fdm_w8a8_gemm", [_P] * 8 + [_I] * 3 + [_L] * 2 + [_P])
 
 
 def _w8a8_gemm(kernel: str, wrapper, a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor,
                out_dtype, azp_adj: Optional[Tensor], azp: Optional[Tensor],
-               bias: Optional[Tensor], fp8: bool) -> Tensor:
-    """Checks, then one launch of the W8A8 GEMM, counted on `wrapper`."""
+               bias: Optional[Tensor], fp8: bool, int4: bool = False) -> Tensor:
+    """Checks, then one launch of the W8A8 (or W4A4: int4=True, no zero
+    point) GEMM, counted on `wrapper`."""
     contracts.check_scaled_mm(kernel, a, b, scale_a, scale_b, azp_adj=azp_adj, azp=azp,
                               bias=bias, int8=not fp8)
     dev = a.device
@@ -621,9 +630,9 @@ def _w8a8_gemm(kernel: str, wrapper, a: Tensor, b: Tensor, scale_a: Tensor, scal
     out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
     if m == 0 or n == 0:
         return out
-    lib, fn = _w8a8_entry(op_dtype)
-    zero_point = () if fp8 else (azp.data_ptr() if azp is not None else None,
-                                 azp_adj.data_ptr() if azp is not None else None)
+    lib, fn = _w8a8_entry(op_dtype, int4)
+    zero_point = () if fp8 or int4 else (azp.data_ptr() if azp is not None else None,
+                                         azp_adj.data_ptr() if azp is not None else None)
     with torch.cuda.device(dev):
         code = fn(a.data_ptr(), b.data_ptr(), scale_a.data_ptr(), scale_b.data_ptr(), *zero_point,
                   bias.data_ptr() if bias is not None else None, out.data_ptr(),
@@ -653,11 +662,55 @@ def fp8_matmul_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_
 
 fp8_matmul_cuda.launches = 0
 
+
+@kernel_registry.register("int4_matmul", "cuda")
+def int4_matmul_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                     bias: Optional[Tensor] = None) -> Tensor:
+    """The W4A4 GEMM: int4-range values in int8 carriers on the int8 kernel's
+    s8 wgmma ring, without the zero point (csrc/w8a8_gemm.cu fdm_w4a4_gemm)."""
+    return _w8a8_gemm("int4_matmul", int4_matmul_cuda, a, b, scale_a, scale_b, out_dtype,
+                      None, None, bias, fp8=False, int4=True)
+
+
+int4_matmul_cuda.launches = 0
+
+
+# ------------------------------------------------------------ int4 unpack
+
+
+@kernel_registry.register("unpack_int4", "cuda")
+def unpack_int4_cuda(p: Tensor) -> Tensor:
+    """(K/2, N) packed nibbles, the view of a contiguous (N, K/2) buffer (a
+    QLinear's w4p, or rows of it) -> the (K, N) view of a fresh (N, K) int8
+    buffer (csrc/int4_pack.cu), the K-contiguous B operand the W4A4 GEMM reads."""
+    kernel = "unpack_int4"
+    dev = p.device
+    _require(p.is_cuda, kernel, f"p must lie on a CUDA device, got {dev}")
+    _require(p.dtype == torch.int8, kernel, f"p must be int8, got {p.dtype}")
+    _require(p.dim() == 2, kernel, f"p must be 2D (K/2, N), got {tuple(p.shape)}")
+    half, n = p.shape
+    _require((n <= 1 or p.stride(1) == half) and (half <= 1 or p.stride(0) == 1), kernel,
+             "p (K/2, N) must be a view of a contiguous (N, K/2) buffer (stride(0) == 1, "
+             f"row pitch K/2); got strides {p.stride()}")
+    out = torch.empty(n, 2 * half, dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out.t()
+    lib, fn = _entry("int4_pack", "fdm_unpack_int4", [_P, _P, _L, _L, _P])
+    with torch.cuda.device(dev):
+        code = fn(p.data_ptr(), out.data_ptr(), n, half, _stream(dev))
+    _check_launch(lib, "fdm_unpack_int4", code, kernel)
+    unpack_int4_cuda.launches += 1
+    return out.t()
+
+
+unpack_int4_cuda.launches = 0
+
 KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, qk_norm_rope_cuda,
                    qk_norm_rope2_cuda, gelu_and_mul_cuda, sdpa_cuda, gather_super_attention_cuda,
                    gather_fine_attention_cuda, gather_sparse_attention_cuda,
                    sparse_attention_cuda, quantize_to_int8_cuda, quantize_to_fp8_cuda,
-                   int8_matmul_cuda, fp8_matmul_cuda)
+                   int8_matmul_cuda, fp8_matmul_cuda, quantize_to_int4_cuda, int4_matmul_cuda,
+                   unpack_int4_cuda)
 
 
 def reset_launch_counts() -> None:

@@ -1,11 +1,13 @@
 """Kernel-op interface: the ported ops (port of the rmsnorm, rotembd,
-qk_norm_rope, qk_norm_rope2, gelu_and_mul, W8A8, sdpa and the four
-sparse-attention contracts of fastdm_tpu/kernels/ops.py:29-338).
+qk_norm_rope, qk_norm_rope2, gelu_and_mul, W8A8, W4A4, sdpa and the four
+sparse-attention contracts of fastdm_tpu/kernels/ops.py:29-338), and
+unpack_int4, the int4p weight unpack (fastdm_tpu/layers/qlinear.py:75-83),
+which has a kernel of its own on the card.
 
 Same argument lists and semantics as the JAX ops: RoPE returns new (q, k)
 instead of writing into its inputs, cos/sin are two (S, head_size/2) float32
 tables, attention takes and returns the flattened-head (B, S, H*D) layout,
-the W8A8 GEMMs take b as a (K, N) tensor (on the card a view of a
+the W8A8 and W4A4 GEMMs take b as a (K, N) tensor (on the card a view of a
 K-contiguous (N, K) buffer, see layers/qlinear.py).
 Each call dispatches on the device of its first tensor (see registry.py).
 """
@@ -83,6 +85,33 @@ def quantize_to_int8(x: Tensor, symmetric: bool = True
     asymmetric: scale = (rowmax-rowmin)/255, zp = -128 - round(rowmin/scale).
     Scales are floored at 1e-12. Returns (q int8 (M,K), scale f32 (M,1),
     zp int32 (M,1) | None)."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("quantize_to_int4")
+def quantize_to_int4(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-token symmetric int4 quantization of a 2D tensor: scale =
+    max(rowmax(|x|), 1e-12)/7, q = clip(round(x/scale), -8, 7). Returns
+    (q (M,K) int4-range values in an int8 carrier, scale f32 (M,1))."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("int4_matmul")
+def int4_matmul(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                bias: Optional[Tensor] = None) -> Tensor:
+    """W4A4 matmul, symmetric on both sides (no zero point): a (M,K) and b
+    (K,N) int4-range values in int8 carriers, s32 accumulate,
+    out = f32(a.b) * (scale_a (x) scale_b) + f32(bias), one cast to out_dtype."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("unpack_int4")
+def unpack_int4(p: Tensor) -> Tensor:
+    """Inverse of layers.qlinear.pack_int4: (..., K/2, N) int8 of packed
+    nibbles (low = row k, high = row k + K/2) -> (..., K, N) int4-range
+    values in int8 carriers, each sign-extended. On the card p is the (K/2, N)
+    view of a contiguous (N, K/2) buffer and the result the (K, N) view of a
+    fresh (N, K) buffer."""
     raise NotImplementedError
 
 

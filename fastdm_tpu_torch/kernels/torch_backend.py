@@ -2,18 +2,21 @@
 fastdm_tpu/kernels/jnp_backend/impl.py: rms_norm_jnp :19-26, _rotate and
 rotary_pos_embedding_jnp :29-54/:100-114, qk_norm_rope_jnp and
 qk_norm_rope2_jnp :57-97, gelu_and_mul_jnp :117-120, quantize_to_int8_jnp
-:123-140, quantize_to_fp8_jnp :191-197, fp8_matmul_jnp :200-218,
+:123-140, quantize_to_int4_jnp :143-162, int4_matmul_jnp :163-188,
+quantize_to_fp8_jnp :191-197, fp8_matmul_jnp :200-218,
 int8_matmul_jnp :221-240, sdpa_jnp
 :248-280, sdpa_gather_jnp :283-311, sdpa_gather_fine_jnp :314-370,
-sdpa_gather_super_jnp :373-437, sdpa_sparse_jnp :440-486).
+sdpa_gather_super_jnp :373-437, sdpa_sparse_jnp :440-486; and the int4p
+weight unpack of fastdm_tpu/layers/qlinear.py unpack_int4 :75-83).
 
 They keep the oracle's rounding points — float32 math, one cast back to the
 input dtype — so the CPU tests can hold them to the JAX package, and
-chip_smoke.py holds each Hopper kernel to them on the card. The W8A8 versions
-are bit-exact with jnp wherever the math is integer: the int8 product is
-taken in float64, where every partial sum of s8*s8 products over K <= 2^38
-is an integer below 2^53 and therefore exact in any summation order (torch
-has no integer matmul on CUDA, and int8 @ int8 on the CPU wraps in int8).
+chip_smoke.py holds each Hopper kernel to them on the card. The W8A8 and
+W4A4 versions are bit-exact with jnp wherever the math is integer: the int8
+(and int4) product is taken in float64, where every partial sum of s8*s8
+products over K <= 2^38 is an integer below 2^53 and therefore exact in any
+summation order (torch has no integer matmul on CUDA, and int8 @ int8 on the
+CPU wraps in int8).
 """
 
 from __future__ import annotations
@@ -139,6 +142,14 @@ def quantize_to_int8_torch(x: Tensor, symmetric: bool = True
     return q, scale, zp
 
 
+@kernel_registry.register("quantize_to_int4", "torch")
+def quantize_to_int4_torch(x: Tensor) -> Tuple[Tensor, Tensor]:
+    x32 = x.float()
+    scale = true_div(x32.abs().amax(dim=-1, keepdim=True).clamp_min(_EPS_SCALE), 7.0)
+    q = torch.round(x32 / scale).clamp(-8, 7).to(torch.int8)
+    return q, scale
+
+
 @kernel_registry.register("quantize_to_fp8", "torch")
 def quantize_to_fp8_torch(x: Tensor) -> Tuple[Tensor, Tensor]:
     x32 = x.float()
@@ -166,6 +177,23 @@ def int8_matmul_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, ou
     if azp is not None:
         acc = acc - azp.to(torch.int32).reshape(-1, 1) * azp_adj.to(torch.int32).reshape(1, -1)
     return _dequant_epilogue(acc, scale_a, scale_b, out_dtype, bias)
+
+
+@kernel_registry.register("int4_matmul", "torch")
+def int4_matmul_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                      bias: Optional[Tensor] = None) -> Tensor:
+    contracts.check_scaled_mm("int4_matmul_torch", a, b, scale_a, scale_b, bias=bias, int8=True)
+    acc = (a.double() @ b.double()).to(torch.int32)  # exact: see the module note
+    return _dequant_epilogue(acc, scale_a, scale_b, out_dtype, bias)
+
+
+@kernel_registry.register("unpack_int4", "torch")
+def unpack_int4_torch(p: Tensor) -> Tensor:
+    # (..., K/2, N) -> (..., K, N): low nibbles are rows [0, K/2), high nibbles
+    # rows [K/2, K), each sign-extended by arithmetic shifts of the int8 byte;
+    # built K-contiguous, the layout the card's GEMM reads
+    pt = p.transpose(-1, -2)
+    return torch.cat([(pt << 4) >> 4, pt >> 4], dim=-1).transpose(-1, -2)
 
 
 @kernel_registry.register("fp8_matmul", "torch")

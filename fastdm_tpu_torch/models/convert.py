@@ -60,23 +60,29 @@ def _n_layers(tree) -> int:
     return tree.shape[0]
 
 
+_LINEAR_LEAVES = ("w", "bias", "scale", "colsum", "w4", "w4p", "lora_u", "lora_v")
+
+
 def _linear_converter(dev):
+    """A JAX QLinear dict (bf16, int8, fp8, int4 or int4p leaves) -> QLinear on
+    dev; an 8- or 4-bit (K, N) or (K/2, N) weight is copied once into its
+    K-contiguous buffer by the QLinear constructor."""
     def lin(p) -> QLinear:
-        if set(p) - {"w", "bias", "scale", "colsum"}:
+        if set(p) - set(_LINEAR_LEAVES):
             raise NotImplementedError(
-                f"only bf16, int8 and fp8 QLinears convert (int4 waits for its slice); "
-                f"got {sorted(p)}")
-        return QLinear(*(as_tensor(p[k]).to(dev) if k in p else None
-                         for k in ("w", "bias", "scale", "colsum")))
+                f"unknown QLinear leaves {sorted(set(p) - set(_LINEAR_LEAVES))}")
+        w, bias, scale, colsum, w4, w4p, lora_u, lora_v = (
+            as_tensor(p[k]).to(dev) if k in p else None for k in _LINEAR_LEAVES)
+        return QLinear(w, bias, scale, colsum, w4=w4, w4p=w4p, lora_u=lora_u, lora_v=lora_v)
 
     return lin
 
 
 def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
-    """FLUX param tree of fastdm_tpu.models.flux (bf16, int8 or fp8 QLinears,
-    numpy leaves, stacked block axis) -> FluxTransformer on `device`. An 8-bit
-    JAX weight is (K, N) N-contiguous; QLinear copies it once into its
-    K-contiguous (N, K) buffer."""
+    """FLUX param tree of fastdm_tpu.models.flux (bf16, int8, fp8, int4 or
+    int4p QLinears, numpy leaves, stacked block axis) -> FluxTransformer on
+    `device`. An 8- or 4-bit JAX weight is (K, N) (or packed (K/2, N))
+    N-contiguous; QLinear copies it once into its K-contiguous buffer."""
     dev = resolve_device(device)
 
     def t(a):

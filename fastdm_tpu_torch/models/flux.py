@@ -52,7 +52,7 @@ class FluxConfig:
     guidance_embeds: bool = True
     axes_dims_rope: Tuple[int, ...] = (16, 56, 56)
     mlp_ratio: float = 4.0
-    quant: Optional[str] = "int8"  # None/"bf16" | "int8" | "fp8", as the JAX FluxConfig
+    quant: Optional[str] = "int8"  # None/"bf16" | "int8" | "fp8" | "int4" | "int4p", as JAX
     # also quantize the AdaLN modulation projections (bf16 otherwise), as
     # fastdm_tpu/models/flux.py:56-60
     quant_mods: bool = False
@@ -258,11 +258,19 @@ def _flux_embed(params: FluxTransformer, cfg: FluxConfig, hidden_states, encoder
     return hidden, temb, encoder
 
 
-def flux_run_blocks(params: FluxTransformer, cfg: FluxConfig, hidden, encoder, temb, cos,
-                    sin) -> Tensor:
-    """Dual then single blocks; returns the final image-stream hidden."""
-    for block in params.dual_blocks:
+def _run_dual(params: FluxTransformer, cfg: FluxConfig, hidden, encoder, temb, cos, sin,
+              start: int = 0, stop: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """Dual blocks [start, stop) (the JAX _scan_dual's start / stop)."""
+    for block in params.dual_blocks[start:stop]:
         hidden, encoder = block(hidden, encoder, temb, cos, sin, cfg)
+    return hidden, encoder
+
+
+def flux_run_blocks(params: FluxTransformer, cfg: FluxConfig, hidden, encoder, temb, cos,
+                    sin, start_dual: int = 0) -> Tensor:
+    """Dual then single blocks; returns the final image-stream hidden.
+    start_dual skips the first dual blocks (a cache probe already ran them)."""
+    hidden, encoder = _run_dual(params, cfg, hidden, encoder, temb, cos, sin, start_dual)
     ctx_len = encoder.shape[1]
     joint = torch.cat([encoder, hidden], dim=1)
     for block in params.single_blocks:
@@ -293,25 +301,33 @@ def flux_forward_cached(
     pooled_projections: Tensor, timestep: Tensor, rope_cos: Tensor, rope_sin: Tensor,
     guidance: Optional[Tensor] = None,
 ) -> Tuple[Tensor, dict]:
-    """flux_forward under a step-skipping cache -> (output, new_cache_state).
-    TeaCache probes block 0's modulated input; FLUX's FBCache and DiCache
-    probes are not ported yet (Wan's are, models/wan.py)."""
-    from fastdm_tpu_torch.caching.config import TeaCacheConfig
+    """flux_forward under a step-skipping cache -> (output, new_cache_state)
+    (fastdm_tpu/models/flux.py:525-561). TeaCache probes block 0's modulated
+    input, FBCache dual block 0's output, DiCache the output of the first
+    probe_depth dual blocks; a computed step runs the remaining blocks."""
+    from fastdm_tpu_torch.caching.config import DiCacheConfig, FBCacheConfig, TeaCacheConfig
     from fastdm_tpu_torch.caching.xcaching import cached_run
 
-    if not isinstance(cache_cfg, TeaCacheConfig):
-        raise NotImplementedError(
-            f"{type(cache_cfg).__name__} for FLUX is not in the port yet (TeaCache is)")
+    if isinstance(cache_cfg, TeaCacheConfig):
+        start = 0
+    elif isinstance(cache_cfg, FBCacheConfig):
+        start = 1
+    elif isinstance(cache_cfg, DiCacheConfig):
+        start = cache_cfg.probe_depth
+    else:
+        raise ValueError(f"unsupported cache config {type(cache_cfg).__name__}")
     hidden, temb, encoder = _flux_embed(params, cfg, hidden_states, encoder_hidden_states,
                                         pooled_projections, timestep, guidance)
-    block0_norm1 = params.dual_blocks[0].norm1
 
     def probe_fn(h, e):
-        probe, *_ = block0_norm1(h, temb)
-        return probe, (h, e)
+        if isinstance(cache_cfg, TeaCacheConfig):
+            probe, *_ = params.dual_blocks[0].norm1(h, temb)
+            return probe, (h, e)
+        h, e = _run_dual(params, cfg, h, e, temb, rope_cos, rope_sin, stop=start)
+        return h, (h, e)
 
     def rest_fn(h, e):
-        return flux_run_blocks(params, cfg, h, e, temb, rope_cos, rope_sin)
+        return flux_run_blocks(params, cfg, h, e, temb, rope_cos, rope_sin, start_dual=start)
 
     hidden, new_state = cached_run(cache_cfg, cache_state, step, total_steps, hidden, encoder,
                                    probe_fn, rest_fn)

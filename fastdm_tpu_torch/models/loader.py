@@ -95,9 +95,11 @@ class TensorSource:
 
     def fused_linear(self, prefixes: Sequence[str], quant: Optional[str]) -> QLinear:
         """Claim several projections and fuse them along the output dim.
-        int8/fp8 weights are quantized here, on the source's device, by
-        layers.qlinear.quantize_weight — the reference's jnp path
-        (fastdm_tpu/layers/qlinear.py:121-135). The JAX loader's native host
+        int8, fp8, int4 and int4p weights are quantized here, on the source's
+        device, by layers.qlinear.quantize_weight — the reference's jnp path
+        (fastdm_tpu/layers/qlinear.py:121-157, fuse_and_quantize of
+        fastdm_tpu/models/loader.py:118; int4's low-rank QR and SVD run on
+        that device too). The JAX loader's native host
         quantizer (fastdm_tpu/native/quant.cpp:148-153) multiplies by a
         reciprocal for fp8 and so differs by one e4m3 step on a few weights;
         the port does not copy that."""

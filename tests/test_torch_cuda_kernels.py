@@ -19,9 +19,12 @@ contraction); the fp8 GEMM (f32 sums in another order) within 1 bf16 ulp of
 |plain| plus 2^-16 * scale_a*scale_b * (|a| @ |b|) for outputs that cancel
 towards zero — about twice the random-walk rounding of a K-term f32 sum
 relative to its absolute sum, and 60x under the worst case at K = 15360.
-The Wan kernels: qk_norm_rope / qk_norm_rope2 within one bf16 ulp of the
-value plus two of its rotation pair's magnitude (the normalized value may sit
-one ulp away before the bit-exact rotation mixes the pair), and the fused and
+The W4A4 kernels: the int4 quantizer (q, scale), the int4 GEMM and the int4p
+unpack bit-exact (integer math, correctly rounded divisions, the epilogue in
+the same order; the unpack moves bits). The Wan kernels: qk_norm_rope /
+qk_norm_rope2 within one bf16 ulp of the value plus two of its rotation
+pair's magnitude (the normalized value may sit one ulp away before the
+bit-exact rotation mixes the pair), in both pair layouts, and the fused and
 two-operand forms bit-identical, at widths on and off the kernel's fast path
 and with bf16, f32 or no norm weights; gather_super as sdpa's FLUX-heads
 case, the other three sparse-attention walks (gather_fine, gather_coarse,
@@ -514,16 +517,133 @@ def test_qlinear_w8a8_launches_its_kernels(cuda_device):
         == (1, 1, 1, 1)
 
 
+# ----------------------------------------------------------- W4A4 kernels
+
+# (M, K, N): one token (FLUX's AdaLN modulations, (1, 3072) -> 18432), a
+# ragged row count, and FLUX's longest K (the single blocks' proj_out, 15360)
+W4A4_SHAPES = {"mod-m1": (1, 3072, 18432), "ragged": (77, 96, 40),
+               "proj_out": (8704, 15360, 3072)}
+
+
+def _w4a4_operands(m, k, n, device, bias=True, packed=True):
+    """A bf16 activation quantized by the plain int4 quantizer and a random
+    W4A4 QLinear (int4p: its packed weight unpacked by the plain version), as
+    qlinear_apply feeds the GEMM."""
+    from fastdm_tpu_torch.kernels import torch_backend
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+
+    g = torch.Generator(device=device).manual_seed(4)
+    x = (torch.randn(m, k, generator=g, device=device) * 2).bfloat16()
+    lin = qlinear_random(g, k, n, bias=bias, quant="int4p" if packed else "int4", device=device)
+    xq, xs = torch_backend.quantize_to_int4_torch(x)
+    w = torch_backend.unpack_int4_torch(lin.w4p) if packed else lin.w4
+    return x, xq, xs, w, lin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(W4A4_SHAPES))
+def test_w4a4_kernels_bit_exact_on_card(cuda_device, shape):
+    """Kernel A (the int4 quantizer, an all-zero row included), kernel C (the
+    int4p unpack into a K-contiguous buffer) and kernel B (the int4 GEMM, with
+    and without bias, on a strided activation too) bit-exact with their plain
+    versions; one launch each per call."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    m, k, n = W4A4_SHAPES[shape]
+    cuda_backend.reset_launch_counts()
+    x, xq, xs, w, lin = _w4a4_operands(m, k, n, cuda_device)
+    x[0] = 0
+    got, want = cuda_backend.quantize_to_int4_cuda(x), torch_backend.quantize_to_int4_torch(x)
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[0].min()) >= -8 and int(got[0].max()) <= 7
+    unpacked = cuda_backend.unpack_int4_cuda(lin.w4p)
+    assert unpacked.shape == (k, n) and unpacked.stride() == (1, k) and torch.equal(unpacked, w)
+    wide = torch.zeros(m, k + 32, dtype=torch.int8, device=cuda_device)
+    wide[:, 16:16 + k] = xq
+    for a in (xq, wide[:, 16:16 + k]):
+        for bias in (lin.bias, None):
+            args = (a, unpacked, xs, lin.scale, torch.bfloat16, bias)
+            assert torch.equal(cuda_backend.int4_matmul_cuda(*args),
+                               torch_backend.int4_matmul_torch(*args))
+    assert (cuda_backend.quantize_to_int4_cuda.launches, cuda_backend.unpack_int4_cuda.launches,
+            cuda_backend.int4_matmul_cuda.launches, cuda_backend.int8_matmul_cuda.launches) \
+        == (1, 1, 4, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half,n", [(8, 5), (24, 3), (1, 1), (48, 0), (32, 3)])
+def test_unpack_int4_kernel_byte_path_on_card(cuda_device, half, n):
+    """Packed rows whose K/2 is not a multiple of 16, or that start off a
+    16-byte boundary, take the byte path (K/2 of 32 the vector path); a slice
+    of packed rows (qlinear_slice_out) unpacks in place; bit-exact with the
+    plain version on every byte value."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    buf = torch.arange(256, dtype=torch.int32, device=cuda_device).repeat(
+        -(-(half * (n + 2)) // 256))[:half * (n + 2)].to(torch.uint8).view(torch.int8)
+    p = buf.reshape(n + 2, half).t()[:, 1:n + 1]  # rows 1..n of an (n + 2, K/2) buffer
+    got = cuda_backend.unpack_int4_cuda(p)
+    assert got.shape == (2 * half, n) and torch.equal(got, torch_backend.unpack_int4_torch(p))
+
+
+@pytest.mark.gpu
+def test_w4a4_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    _, xq, xs, w, lin = _w4a4_operands(32, 64, 48, cuda_device)
+    with pytest.raises(ValueError, match="K-contiguous"):
+        cuda_backend.int4_matmul_cuda(xq, w.contiguous(), xs, lin.scale, torch.bfloat16)
+    with pytest.raises(ValueError, match="int8"):
+        cuda_backend.int4_matmul_cuda(xq.float(), w, xs, lin.scale, torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # a row pitch of 72 bytes
+        cuda_backend.int4_matmul_cuda(torch.zeros(32, 72, dtype=torch.int8, device=cuda_device)
+                                      [:, :64], w, xs, lin.scale, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_backend.unpack_int4_cuda(lin.w4p.contiguous())
+    with pytest.raises(ValueError, match="int8"):
+        cuda_backend.unpack_int4_cuda(lin.w4p.view(torch.uint8))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_backend.quantize_to_int4_cuda(torch.zeros(4, 12, device=cuda_device,
+                                                       dtype=torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_qlinear_w4a4_launches_its_kernels(cuda_device):
+    """One int4 and one int4p QLinear call on the card: the quantizer and the
+    GEMM once each, the unpack once for int4p only; int4p equals int4 on the
+    same values bit for bit."""
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.layers.qlinear import QLinear, qlinear_random, unpack_int4
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(3, 50, 128, generator=g, device=cuda_device).bfloat16()
+    packed = qlinear_random(g, 128, 96, quant="int4p", device=cuda_device)
+    cuda_backend.reset_launch_counts()
+    y = packed(x)
+    plain = QLinear(None, packed.bias, packed.scale, w4=unpack_int4(packed.w4p),
+                    lora_u=packed.lora_u, lora_v=packed.lora_v)(x)
+    assert y.shape == (3, 50, 96) and y.dtype == torch.bfloat16 and torch.equal(y, plain)
+    assert (cuda_backend.quantize_to_int4_cuda.launches, cuda_backend.int4_matmul_cuda.launches,
+            cuda_backend.unpack_int4_cuda.launches) == (2, 2, 2)
+
+
 # ------------------------------------------------------------ Wan kernels
 
 
-def _pair_ulp_excess(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+def _pair_ulp_excess(got: torch.Tensor, want: torch.Tensor,
+                     head_dim: int = 0) -> torch.Tensor:
     """|got - want| minus the qk_norm_rope tolerance: one bf16 ulp of the
-    value plus two of its interleaved rotation pair's magnitude (the
-    normalized input may sit one ulp away, and the rotation mixes the pair)."""
+    value plus two of its rotation pair's magnitude (the normalized input may
+    sit one ulp away, and the rotation mixes the pair). The pairs are
+    interleaved, or with a head_dim the half-split pairs (p, p + head_dim/2)
+    of each head."""
     w = want.float()
-    pair = w.reshape(*w.shape[:-1], -1, 2)
-    mag = pair.norm(dim=-1, keepdim=True).expand_as(pair).reshape(w.shape)
+    if head_dim:
+        pair = w.reshape(*w.shape[:-1], -1, 2, head_dim // 2)
+        mag = pair.norm(dim=-2, keepdim=True).expand_as(pair).reshape(w.shape)
+    else:
+        pair = w.reshape(*w.shape[:-1], -1, 2)
+        mag = pair.norm(dim=-1, keepdim=True).expand_as(pair).reshape(w.shape)
     return (got.float() - w).abs() - (_bf16_ulp(w) + 2 * _bf16_ulp(mag))
 
 
@@ -540,7 +660,8 @@ def test_qk_norm_rope_kernels_match_plain_on_card(cuda_device, gamma, heads, hd)
     """The fused form reads q|k in place from a strided (2, S, 3D) qkv
     (inner_dim) and from a (2, S, 2D) one; the two-operand form takes strided
     q and k views; both forms give the same bits on the same rows, with the
-    norm weights in bf16, in f32 or absent."""
+    norm weights in bf16, in f32 or absent, in the interleaved and the
+    half-split layout (fast path at head dim 128, tail at 6)."""
     from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
 
     b, s = 2, 77
@@ -552,19 +673,19 @@ def test_qk_norm_rope_kernels_match_plain_on_card(cuda_device, gamma, heads, hd)
         gq = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).to(gamma)
         gk = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).to(gamma)
     cos, sin = _rope_tables(s, hd, cuda_device)
-    want = torch_backend.qk_norm_rope_torch(qkv, gq, gk, hd, cos, sin, inner_dim=d)
-    fused = cuda_backend.qk_norm_rope_cuda(qkv, gq, gk, hd, cos, sin, inner_dim=d)
-    two_d = cuda_backend.qk_norm_rope_cuda(qkv[..., :2 * d].contiguous(), gq, gk, hd, cos, sin)
-    split = cuda_backend.qk_norm_rope2_cuda(qkv[..., :d], qkv[..., d:2 * d], gq, gk, hd, cos, sin)
-    for got in (fused, two_d, split):
-        for a, w in zip(got, want):
-            assert a.shape == (b, s, d) and a.dtype == torch.bfloat16 and a.is_contiguous()
-            assert (_pair_ulp_excess(a, w) <= 0).all()
-    for a, c, e in zip(fused, two_d, split):
-        assert torch.equal(a, c) and torch.equal(a, e)
-    with pytest.raises(NotImplementedError, match="neox"):
-        cuda_backend.qk_norm_rope2_cuda(qkv[..., :d], qkv[..., d:2 * d], gq, gk, hd, cos, sin,
-                                        is_neox=True)
+    for neox in (False, True):
+        want = torch_backend.qk_norm_rope_torch(qkv, gq, gk, hd, cos, sin, neox, inner_dim=d)
+        fused = cuda_backend.qk_norm_rope_cuda(qkv, gq, gk, hd, cos, sin, neox, inner_dim=d)
+        two_d = cuda_backend.qk_norm_rope_cuda(qkv[..., :2 * d].contiguous(), gq, gk, hd, cos,
+                                               sin, neox)
+        split = cuda_backend.qk_norm_rope2_cuda(qkv[..., :d], qkv[..., d:2 * d], gq, gk, hd,
+                                                cos, sin, neox)
+        for got in (fused, two_d, split):
+            for a, w in zip(got, want):
+                assert a.shape == (b, s, d) and a.dtype == torch.bfloat16 and a.is_contiguous()
+                assert (_pair_ulp_excess(a, w, hd if neox else 0) <= 0).all(), neox
+        for a, c, e in zip(fused, two_d, split):
+            assert torch.equal(a, c) and torch.equal(a, e)
 
 
 def _random_super_tables(nq, skv, fine, group, sb, density, seed, empty_rows=()):

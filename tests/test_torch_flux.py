@@ -164,9 +164,10 @@ def test_flux_load_matches_jax_loader():
 
 
 def test_w8a8_and_other_caches_wait_for_their_slices(models):
-    """W8A8 has arrived (an int8 model builds and runs); FBCache and DiCache
-    configs load (Wan runs them), but FLUX's cached forward still waits for
-    their FLUX probes."""
+    """W8A8 has arrived (an int8 model builds and runs), and since the W4A4
+    slice FLUX's FBCache and DiCache probes: a first step under each computes
+    the uncached forward bit for bit and stores its residual; an unknown
+    config raises."""
     _, _, tcfg, tparams = models
     import dataclasses
 
@@ -174,10 +175,22 @@ def test_w8a8_and_other_caches_wait_for_their_slices(models):
     assert params.single_blocks[0].qkv_mlp.w.dtype == torch.int8
     from fastdm_tpu_torch.caching.config import CacheConfig
 
-    for algo in ("fbcache", "dicache"):
-        cfg = CacheConfig.from_dict({"cache_algorithm": algo})
-        with pytest.raises(NotImplementedError):
-            tflux.flux_forward_cached(tparams, tcfg, cfg, {}, 0, 1, *([None] * 6))
+    _, t = _inputs(5, "bf16")
+    _, (tt, tg) = _scalars()
+    tcos, tsin = tflux.flux_rope_cache(tcfg, TXT, HT, WT, device="cpu")
+    args = (t["hidden"], t["encoder"], t["pooled"], tt, tcos, tsin)
+    shape = (1, HT * WT, tcfg.inner_dim)
+    with torch.inference_mode():
+        want = tflux.flux_forward(tparams, tcfg, *args, guidance=tg)
+        for algo in ("fbcache", "dicache"):
+            cfg = CacheConfig.from_dict({"cache_algorithm": algo, "enable_caching": True})
+            state = t_cache_init_state(cfg, shape, shape, device="cpu")
+            got, new = tflux.flux_forward_cached(tparams, tcfg, cfg, state, 0, 4, *args,
+                                                 guidance=tg)
+            assert torch.equal(got, want) and new["skips"] == 0
+            assert new["prev_residual"].abs().sum() > 0
+        with pytest.raises(ValueError, match="unsupported cache config"):
+            tflux.flux_forward_cached(tparams, tcfg, object(), {}, 0, 1, *args, guidance=tg)
 
 
 def test_flux_init_random_is_seeded_bf16(models):

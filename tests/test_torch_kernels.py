@@ -208,16 +208,19 @@ def test_sdpa_contract_rejects_bad_shapes():
 
 def test_kernel_sources_name_the_tpu_kernel_they_replace():
     """Each CUDA source carries its header note: the Pallas function it
-    replaces, and what bounds it on the card."""
+    replaces (for the W4A4 ops, the jnp function: they have no Pallas
+    kernel), and what bounds it on the card."""
     from fastdm_tpu_torch.kernels.build import CSRC, SOURCES
 
     replaces = {"rmsnorm": ("rms_norm_pallas",), "rope": ("rotary_pos_embedding_pallas",),
                 "qk_norm_rope": ("qk_norm_rope_pallas", "qk_norm_rope2_pallas"),
                 "flash_attn": ("sdpa_pallas", "sdpa_sparse_pallas", "sdpa_gather_pallas",
                                "sdpa_gather_super_pallas", "sdpa_gather_fine_pallas"),
-                "quant": ("quantize_to_int8_pallas", "quantize_to_fp8_pallas"),
-                "w8a8_gemm": ("int8_matmul_pallas",), "fp8_gemm": ("fp8_matmul_pallas",),
-                "gelu_mul": ("gelu_and_mul_pallas",)}
+                "quant": ("quantize_to_int8_pallas", "quantize_to_fp8_pallas",
+                          "quantize_to_int4_jnp"),
+                "w8a8_gemm": ("int8_matmul_pallas", "int4_matmul_jnp"),
+                "fp8_gemm": ("fp8_matmul_pallas",), "gelu_mul": ("gelu_and_mul_pallas",),
+                "int4_pack": ("layers/qlinear.py unpack_int4",)}
     assert set(SOURCES) == set(replaces)
     for name in SOURCES:
         text = (CSRC / f"{name}.cu").read_text()

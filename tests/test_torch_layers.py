@@ -110,14 +110,26 @@ def test_qlinear_slice_out_is_exact_view():
 
 @pytest.mark.parametrize("quant", ["int8", "fp8", "int4"])
 def test_qlinear_w8a8_waits_for_its_slice(quant):
-    """int8 and fp8 have arrived (8-bit w as the (K, N) view of a K-contiguous
-    buffer, per-channel f32 scale, int8 colsum); int4 still waits for its slice."""
+    """int8 and fp8 (8-bit w as the (K, N) view of a K-contiguous buffer,
+    per-channel f32 scale, int8 colsum) and, since the W4A4 slice, int4 and
+    int4p (w4 / w4p as the (K, N) / (K/2, N) view of a K-contiguous buffer,
+    no w, per-channel f32 scale, bf16 lora_u (K, 32) and lora_v (32, N))."""
     gen = torch.Generator().manual_seed(0)
     if quant == "int4":
-        with pytest.raises(NotImplementedError, match="int4"):
-            tql.quantize_weight(torch.zeros(4, 4), quant)
-        with pytest.raises(NotImplementedError, match="int4"):
-            tql.qlinear_random(gen, 4, 4, quant=quant, device="cpu")
+        for q in ("int4", "int4p"):
+            for lin in (tql.quantize_weight(torch.randn(64, 48), q),
+                        tql.qlinear_random(gen, 64, 48, quant=q, device="cpu")):
+                w4 = lin.w4 if q == "int4" else lin.w4p
+                assert lin.w is None and (lin.w4p if q == "int4" else lin.w4) is None
+                assert w4.dtype == torch.int8 and w4.stride(0) == 1
+                assert tuple(w4.shape) == ((64, 48) if q == "int4" else (32, 48))
+                assert lin.scale.dtype == torch.float32 and tuple(lin.scale.shape) == (48,)
+                assert lin.colsum is None
+                assert tuple(lin.lora_u.shape) == (64, 32) and tuple(lin.lora_v.shape) == (32, 48)
+                assert lin.lora_u.dtype == lin.lora_v.dtype == torch.bfloat16
+                y = lin(torch.randn(3, 64).bfloat16())
+                assert y.dtype == torch.bfloat16 and tuple(y.shape) == (3, 48)
+                assert torch.isfinite(y).all()
         return
     dtype = torch.int8 if quant == "int8" else torch.float8_e4m3fn
     for lin in (tql.quantize_weight(torch.randn(32, 16), quant),

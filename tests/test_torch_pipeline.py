@@ -312,6 +312,38 @@ def test_engine_w8a8_end_to_end(tmp_path, monkeypatch, quant, quant_mods):
     assert np.abs(images.astype(np.float32) - ref.astype(np.float32)).mean() < 2
 
 
+@pytest.mark.parametrize("pack", [False, True])
+def test_engine_w4a4_end_to_end(tmp_path, monkeypatch, pack):
+    """use_int4 (pack_int4) with quant_mods, bench.py's FLUX default: the engine
+    quantizes the checkpoint at load exactly as flux_load does (the SVDQuant
+    split from the seeded generator: two loads agree bit for bit), block
+    linears and modulations in W4A4, and generates finite images close to the
+    bf16 ones (the same checkpoint and noise; mean absolute difference under
+    2 of 255 levels, as W8A8)."""
+    import fastdm_tpu_torch.engine as engine_mod
+    from fastdm_tpu_torch.engine import FastDMEngine
+
+    root, rng = _tiny_checkpoint(tmp_path)
+    monkeypatch.setitem(engine_mod.VAE_CONFIGS, "flux", tvae.VAEConfig(**VAE_TINY))
+    eng = FastDMEngine(root, verbose=False, device="cpu", quant_mods=True, use_int4=True,
+                       pack_int4=pack)
+    assert (eng.cfg.quant, eng.cfg.quant_mods) == ("int4p" if pack else "int4", True)
+    want = tflux.flux_load(TSource.from_path(os.path.join(root, "transformer"), "cpu"), eng.cfg)
+    for (k, a), (_, b) in zip(eng.params.state_dict().items(), want.state_dict().items()):
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+    key = "w4p" if pack else "w4"
+    for lin in (eng.params.single_blocks[0].qkv_mlp, eng.params.dual_blocks[0].norm1.linear):
+        assert lin.w is None and getattr(lin, key).dtype == torch.int8
+    embeds = rng.standard_normal((1, 12, TINY["joint_attention_dim"])).astype(np.float32)
+    pooled = rng.standard_normal((1, TINY["pooled_projection_dim"])).astype(np.float32)
+    kw = dict(prompt_embeds=embeds, pooled_prompt_embeds=pooled, height=64, width=64,
+              num_inference_steps=2, seed=1)
+    images = eng.generate(**kw)
+    assert images.shape == (1, 64, 64, 3) and images.dtype == np.uint8
+    ref = FastDMEngine(root, verbose=False, device="cpu").generate(**kw)
+    assert np.abs(images.astype(np.float32) - ref.astype(np.float32)).mean() < 2
+
+
 def test_engine_rejects_what_later_slices_bring(tmp_path, monkeypatch):
     import fastdm_tpu_torch.engine as engine_mod
     from fastdm_tpu_torch.engine import FastDMEngine
@@ -320,8 +352,8 @@ def test_engine_rejects_what_later_slices_bring(tmp_path, monkeypatch):
     monkeypatch.setitem(engine_mod.VAE_CONFIGS, "flux", tvae.VAEConfig(**VAE_TINY))
     with pytest.raises(ValueError, match="mutually exclusive"):
         FastDMEngine(root, use_int8=True, use_fp8=True, device="cpu")
-    with pytest.raises(TypeError, match="use_int4"):
-        FastDMEngine(root, use_int4=True, device="cpu")
+    with pytest.raises(ValueError, match="pack_int4 requires use_int4"):
+        FastDMEngine(root, pack_int4=True, device="cpu")  # int4 arrived; its flag checks hold
     with pytest.raises(NotImplementedError):
         FastDMEngine(root, architecture="sd35", device="cpu")
     eng = FastDMEngine(root, verbose=False, device="cpu")

@@ -313,7 +313,8 @@ def test_qk_wrappers_pass_the_norm_weights_own_storage(monkeypatch, form, gamma)
     """qk_norm_rope_cuda and qk_norm_rope2_cuda hand the kernel the norm
     weights' own storage, with no f32 copy, and their dtype as gamma_kind
     (0 none, 1 bf16, 2 f32), then cos, sin, the outputs, B, S, D, head_size,
-    eps and the stream; weights of two dtypes, or another dtype, are refused."""
+    the pair layout (0 interleaved, 1 half-split), eps and the stream;
+    weights of two dtypes, or another dtype, are refused."""
     fake = _fake_cuda_wrapper(monkeypatch)
     b, s, heads, hd = 2, 5, 3, 16
     d = heads * hd
@@ -334,7 +335,7 @@ def test_qk_wrappers_pass_the_norm_weights_own_storage(monkeypatch, form, gamma)
         wrapper(q, k, gq, gk, hd, cos, sin)
         lead = (q.data_ptr(), k.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1))
         entry = "fdm_qk_norm_rope2_bf16"
-    assert fake.entry == ("qk_norm_rope", entry, len(lead) + 13)
+    assert fake.entry == ("qk_norm_rope", entry, len(lead) + 14)
     args = fake.args
     n = len(lead)
     assert args[:n] == lead
@@ -342,7 +343,12 @@ def test_qk_wrappers_pass_the_norm_weights_own_storage(monkeypatch, form, gamma)
                                                {"bf16": 1, "f32": 2}[gamma])
     assert args[n:n + 3] == want
     assert args[n + 3:n + 5] == (cos.data_ptr(), sin.data_ptr())
-    assert args[n + 7:n + 11] == (b, s, d, hd)
+    assert args[n + 7:n + 12] == (b, s, d, hd, 0)
+    if form == "fused":
+        wrapper(qkv, gq, gk, hd, cos, sin, is_neox=True, inner_dim=d)
+    else:
+        wrapper(q, k, gq, gk, hd, cos, sin, is_neox=True)
+    assert fake.args[n + 7:n + 12] == (b, s, d, hd, 1)
     if dt is not None:
         operands = (qkv,) if form == "fused" else (qkv[..., :d], qkv[..., d:2 * d])
         kw = {"inner_dim": d} if form == "fused" else {}
@@ -423,6 +429,69 @@ def test_int8_wrapper_passes_shape_pitches_and_zero_point(monkeypatch):
             assert fake.args[4:6] == ((azp.data_ptr(), colsum.data_ptr()) if zp is not None
                                       else (None, None))
             assert fake.args[8:] == (3, 48, 64, lda, 64, 0)  # m, n, k, lda, ldb, stream
+
+
+def test_w4a4_wrappers_pass_their_launchers_shapes_and_pitches(monkeypatch):
+    """int4_matmul_cuda takes the W4A4 entry of the int8 GEMM's library (no
+    zero point: a, b, scale_a, scale_b, bias, out, m, n, k, lda, ldb, stream);
+    quantize_to_int4_cuda the quantizer in mode 3; unpack_int4_cuda hands its
+    kernel the packed buffer, a fresh (N, K) buffer, N and K/2, and returns
+    that buffer's (K, N) view."""
+    fake = _fake_cuda_wrapper(monkeypatch)
+    wide = torch.zeros(3, 96, dtype=torch.int8)
+    w = torch.zeros(48, 64, dtype=torch.int8).t()  # the (K, N) view of an (N, K) buffer
+    sa, sb, bias = torch.ones(3, 1), torch.ones(48), torch.zeros(48, dtype=torch.bfloat16)
+    a = wide[:, 16:80]
+    cuda_backend.int4_matmul_cuda(a, w, sa, sb, torch.bfloat16, bias)
+    assert fake.entry == ("w8a8_gemm", "fdm_w4a4_gemm", 12)
+    assert fake.args[:5] == (a.data_ptr(), w.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+                             bias.data_ptr())
+    assert fake.args[6:] == (3, 48, 64, 96, 64, 0)  # m, n, k, lda, ldb, stream
+    x = torch.zeros(5, 32, dtype=torch.bfloat16)
+    q, scale = cuda_backend.quantize_to_int4_cuda(x)
+    assert fake.entry == ("quant", "fdm_quantize_rows", 9)
+    assert fake.args[2:4] == (5, 32) and fake.args[-2] == 3
+    assert q.dtype == torch.int8 and tuple(q.shape) == (5, 32) and tuple(scale.shape) == (5, 1)
+    buf = torch.zeros(48, 32, dtype=torch.int8)  # N = 48 rows of K/2 = 32 packed bytes
+    for p, n in ((buf.t(), 48), (buf[8:20].t(), 12)):
+        out = cuda_backend.unpack_int4_cuda(p)
+        assert fake.entry == ("int4_pack", "fdm_unpack_int4", 5)
+        assert fake.args[0] == p.data_ptr() and fake.args[2:] == (n, 32, 0)
+        assert out.shape == (64, n) and out.stride() == (1, 64) and out.dtype == torch.int8
+        assert fake.args[1] == out.data_ptr()
+
+
+def test_w4a4_wrappers_and_pack_refuse_what_they_do_not_take(monkeypatch):
+    """An odd K for pack_int4, a packed view whose row pitch is not K/2 (a
+    slice along K) or that is N-contiguous, the wrong dtype, an activation
+    row pitch that is not a multiple of 16 bytes or an N-contiguous weight:
+    refused before any launch."""
+    from fastdm_tpu_torch.layers.qlinear import pack_int4
+
+    fake = _fake_cuda_wrapper(monkeypatch)
+    with pytest.raises(ValueError, match="even K"):
+        pack_int4(torch.zeros(63, 8, dtype=torch.int8))
+    buf = torch.zeros(48, 32, dtype=torch.int8)
+    for bad in (buf.t()[:16], buf.t().contiguous()):
+        with pytest.raises(ValueError, match="contiguous"):
+            cuda_backend.unpack_int4_cuda(bad)
+    with pytest.raises(ValueError, match="int8"):
+        cuda_backend.unpack_int4_cuda(buf.t().view(torch.uint8))
+    w = torch.zeros(48, 64, dtype=torch.int8).t()
+    sa, sb = torch.ones(3, 1), torch.ones(48)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_backend.int4_matmul_cuda(torch.zeros(3, 72, dtype=torch.int8)[:, :64], w, sa, sb,
+                                      torch.bfloat16)
+    with pytest.raises(ValueError, match="K-contiguous"):
+        cuda_backend.int4_matmul_cuda(torch.zeros(3, 64, dtype=torch.int8), w.contiguous(), sa,
+                                      sb, torch.bfloat16)
+    with pytest.raises(ValueError, match="int8"):
+        cuda_backend.int4_matmul_cuda(torch.zeros(3, 64, dtype=torch.float8_e4m3fn), w, sa, sb,
+                                      torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_backend.int4_matmul_cuda(torch.zeros(3, 64, dtype=torch.int8), w, sa, sb,
+                                      torch.float32)
+    assert fake.args is None
 
 
 # (dim, rows per token, 16-byte aligned) -> (path, threads, rows per block):
