@@ -25,7 +25,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      quant_mods forward, and qk_norm_rope / qk_norm_rope2 in the half-split
      layout too. On tables that allow
      every key the mask, coarse, superblock and fine walks, which run on
-     sdpa's kernel, equal sdpa bit for bit.
+     sdpa's kernel, equal sdpa bit for bit. SD3.5-medium and Qwen-Image at
+     1024x2048: every kernel at every shape of their forwards (rmsnorm on
+     64-wide head rows and Qwen's 3584-wide txt_norm rows, sdpa on the joint
+     333 + 8192 and 512 + 8192 tokens, rotembd bit-exact on Qwen's scale_rope
+     tables, the int8 GEMM and quantizer bit-exact at every SD3.5 shape,
+     N = 64 and M = 2 included, the W4A4 kernels at every Qwen shape), timed
+     beside bounds and library calls: each forward's split.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
      heads, random weights from a seed) four times: in bf16, in int8, in
      fp8 (W8A8 block linears drawn straight into int8 / e4m3) and in int4p
@@ -66,6 +72,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
      for bit to the forward with only the W8A8 ops plain; the int8 forward's
      split (each kernel and conv call of a recorded forward replayed alone,
      times its count).
+  sd35: frees SDXL, draws SD3.5-medium int8 at full width and depth (24
+     blocks, 13 dual-attention, 24x64 heads) from a seed and serves 1024x2048
+     requests through make_sd3_denoiser as bench.py's main_sd35 (batched CFG
+     7.0, shift 3.0, TeaCache with teacache_sd35.json, 333 text tokens, 25
+     steps cut to 4), then the full-size 16-channel VAE decode; launches per
+     computed forward from sd35_forward_launches (217 quantize, 217 GEMM, 122
+     rmsnorm, 37 sdpa; a skipped step 2); one CFG forward on the kernels held
+     to the plain one, and bit for bit to the one with only the W8A8 ops plain.
+  qwen: frees SD3.5, draws Qwen-Image at full width and depth (60 blocks,
+     24x128 heads) in int4p with quant_mods from a seed and serves 1024x2048
+     requests through make_qwen_denoiser as bench.py's main_qwen (true CFG
+     1.0, 512 text tokens, TeaCache 0.1 with teacache_qwenimage.json's
+     polynomial, dynamic shift, 4 steps), then the full-size Wan VAE decoder
+     on a singleton frame; launches from qwen_forward_launches (600 of each
+     W4A4 op, 240 rmsnorm, 60 rotembd, 60 sdpa per computed forward, plus the
+     txt_norm rmsnorm and TeaCache's W4A4 probe every step); one forward held
+     to the plain one, and bit for bit to the one with only the W4A4 ops plain.
   4. engine: synthetic diffusers-layout checkpoints are written to a scratch
      dir — FLUX (full width, one dual and one single block, full-size VAE),
      loaded in bf16, with use_int8, with use_fp8 and with use_int4,
@@ -74,7 +97,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      loaded with use_int8 and the radial config — and generate() is called
      once each; for Wan once in each sparse mode (FASTDM_SPARSE_GATHER) and
      once under each cache JSON; SDXL-base (the full UNet in bf16, 5.1 GB,
-     full-size VAE), loaded with use_int8, one 1024x2048 generate.
+     full-size VAE), loaded with use_int8, one 1024x2048 generate; SD3.5-medium
+     (full width, one dual, one standard and the last block, dual_attention_layers
+     in its config.json, the checkpoint's 384x384 position table, full-size
+     VAE) with use_int8 and Qwen-Image (full width, two blocks, the full-size
+     Wan-layout VAE with base_dim in its config.json) with use_int4,
+     pack_int4 and quant_mods, one 1024x2048 generate each.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -137,6 +165,17 @@ W4A4_PER_DUAL_BLOCK = 10
 SDXL_H, SDXL_W, SDXL_TEXT, SDXL_BATCH = 1024, 2048, 77, 2
 SDXL_STEPS, SDXL_CFG = 4, 5.0
 GELU_MUL_OPS = 20  # f32 operations per output: erff's polynomial, the gate's scale, products
+
+# SD3.5-medium at 1024x2048 with batched CFG 7.0 (batch 2; bench.py:159-226):
+# 128x256 latents, 64x128 = 8192 patch tokens, 333 text tokens first in the
+# joint attention (8525 tokens), 24 heads of 64; 25 FlowMatch steps cut to 4
+SD35_H, SD35_W, SD35_TEXT, SD35_BATCH = 1024, 2048, 333, 2
+SD35_STEPS, SD35_CFG = 4, 7.0
+# Qwen-Image at 1024x2048 (bench.py:484-575): 64x128 = 8192 packed tokens,
+# 512 text tokens, true CFG 1.0 (one forward a step), TeaCache 0.1 with
+# teacache_qwenimage.json's polynomial; 25 steps cut to 4
+QWEN_HT, QWEN_WT, QWEN_TEXT, QWEN_STEPS, QWEN_CFG = 64, 128, 512, 4, 1.0
+QWEN_TEACACHE_THRESHOLD = 0.1
 
 
 def log(*a):
@@ -422,6 +461,8 @@ def phase_kernels(dev) -> dict:
     results.update(_w4a4_kernels(dev))
     results.update(_wan_kernels(dev, g))
     results.update(_sdxl_kernels(dev, g))
+    _sd35_kernels(dev, g)
+    _qwen_kernels(dev)
     for r in results.values():
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']})")
@@ -596,6 +637,65 @@ def _w8a8_kernels(dev, g) -> dict:
     return results
 
 
+def _w4a4_operands(dev, g, m: int, k: int, n: int):
+    """A bf16 activation with an all-zero row (the 1e-12 scale floor) and a
+    random int4p QLinear."""
+    import torch
+
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+
+    x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+    x[0] = 0
+    return x, qlinear_random(g, k, n, quant="int4p", device=dev)
+
+
+def _w4a4_bounds(m: int, k: int, n: int) -> dict:
+    return {"quantize_to_int4": bound(_quantize_bytes(m, k, True), 8 * m * k, F32_FLOPS),
+            "int4_matmul": bound(_gemm_bytes(m, k, n), 2 * m * n * k, INT8_FP8_OPS),
+            "unpack_int4": bound(1.5 * k * n, k * n, F32_FLOPS)}
+
+
+def _w4a4_split(dev, g, gemms: dict, label: str) -> dict:
+    """The three W4A4 kernels held bit-exact to their plain versions at every
+    (M, K, N) of `gemms` and timed there: {kernel: [ms, bound ms] per
+    forward}, each shape's time times its count."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+
+    split = {"quantize_to_int4": [0.0, 0.0], "int4_matmul": [0.0, 0.0],
+             "unpack_int4": [0.0, 0.0]}
+    for (m, k, n), count in gemms.items():
+        x, lin = _w4a4_operands(dev, g, m, k, n)
+        q, scale = cb.quantize_to_int4_cuda(x)
+        w = cb.unpack_int4_cuda(lin.w4p)
+        args = (q, w, scale, lin.scale, torch.bfloat16, lin.bias)
+        checks = {"quantize_to_int4": all(torch.equal(a, b) for a, b in
+                                          zip((q, scale), tb.quantize_to_int4_torch(x))),
+                  "unpack_int4": (torch.equal(w, tb.unpack_int4_torch(lin.w4p))
+                                  and w.stride() == (1, k)),
+                  "int4_matmul": torch.equal(cb.int4_matmul_cuda(*args),
+                                             tb.int4_matmul_torch(*args))}
+        log(f"[w4a4] {label} {m}x{k} @ {k}x{n} (x{count} per forward): bit-exact with the "
+            f"plain versions: {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"a W4A4 kernel disagrees with its plain version at "
+                                 f"{label} {(m, k, n)}: {checks}")
+        calls = {"quantize_to_int4": lambda: cb.quantize_to_int4_cuda(x),
+                 "int4_matmul": lambda: cb.int4_matmul_cuda(*args),
+                 "unpack_int4": lambda: cb.unpack_int4_cuda(lin.w4p)}
+        for name, (b_ms, _) in _w4a4_bounds(m, k, n).items():
+            split[name][0] += count * cuda_ms(calls[name], 5)
+            split[name][1] += count * b_ms
+        del x, lin, q, scale, w, args
+    log(f"[w4a4] {label} forward ({sum(gemms.values())} linears each, from kernel times at "
+        "each shape): " + ", ".join(f"{k} {v[0]:.3f} ms (bound {v[1]:.3f} ms)"
+                                    for k, v in split.items()))
+    torch.cuda.empty_cache()
+    return split
+
+
 def _w4a4_kernels(dev) -> dict:
     """The W4A4 kernels -- the int4 quantizer (A), the int4 GEMM on the s8
     wgmma ring (B) and the int4p unpack (C) -- held bit-exact to their plain
@@ -608,54 +708,15 @@ def _w4a4_kernels(dev) -> dict:
 
     from fastdm_tpu_torch.kernels import cuda_backend as cb
     from fastdm_tpu_torch.kernels import torch_backend as tb
-    from fastdm_tpu_torch.layers.qlinear import qlinear_random
 
     g = torch.Generator(device=dev).manual_seed(2)  # the other phases' draws stay as they were
-    split = {"quantize_to_int4": [0.0, 0.0], "int4_matmul": [0.0, 0.0],
-             "unpack_int4": [0.0, 0.0]}  # [ms, bound ms] per forward
-
-    def operands(m, k, n):
-        x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
-        x[0] = 0  # an all-zero row: the 1e-12 scale floor
-        return x, qlinear_random(g, k, n, quant="int4p", device=dev)
-
-    def bounds(m, k, n):
-        return {"quantize_to_int4": bound(_quantize_bytes(m, k, True), 8 * m * k, F32_FLOPS),
-                "int4_matmul": bound(_gemm_bytes(m, k, n), 2 * m * n * k, INT8_FP8_OPS),
-                "unpack_int4": bound(1.5 * k * n, k * n, F32_FLOPS)}
-
-    for (m, k, n), count in W4A4_GEMMS.items():
-        x, lin = operands(m, k, n)
-        q, scale = cb.quantize_to_int4_cuda(x)
-        w = cb.unpack_int4_cuda(lin.w4p)
-        args = (q, w, scale, lin.scale, torch.bfloat16, lin.bias)
-        checks = {"quantize_to_int4": all(torch.equal(a, b) for a, b in
-                                          zip((q, scale), tb.quantize_to_int4_torch(x))),
-                  "unpack_int4": (torch.equal(w, tb.unpack_int4_torch(lin.w4p))
-                                  and w.stride() == (1, k)),
-                  "int4_matmul": torch.equal(cb.int4_matmul_cuda(*args),
-                                             tb.int4_matmul_torch(*args))}
-        log(f"[w4a4] {m}x{k} @ {k}x{n} (x{count} per forward): bit-exact with the plain "
-            f"versions: {checks}")
-        if not all(checks.values()):
-            raise AssertionError(f"a W4A4 kernel disagrees with its plain version at "
-                                 f"{(m, k, n)}: {checks}")
-        calls = {"quantize_to_int4": lambda: cb.quantize_to_int4_cuda(x),
-                 "int4_matmul": lambda: cb.int4_matmul_cuda(*args),
-                 "unpack_int4": lambda: cb.unpack_int4_cuda(lin.w4p)}
-        for name, (b_ms, _) in bounds(m, k, n).items():
-            split[name][0] += count * cuda_ms(calls[name], 5)
-            split[name][1] += count * b_ms
-        del x, lin, q, scale, w, args
-    log(f"[w4a4] int4p forward ({W4A4_PER_FORWARD} linears each, from kernel times at each "
-        "shape): " + ", ".join(f"{k} {v[0]:.3f} ms (bound {v[1]:.3f} ms)"
-                               for k, v in split.items()))
-
+    _w4a4_split(dev, g, W4A4_GEMMS, "FLUX int4p")
     m, k, n = QKV_MLP
-    x, lin = operands(m, k, n)
+    x, lin = _w4a4_operands(dev, g, m, k, n)
     q, scale = tb.quantize_to_int4_torch(x)
     w = tb.unpack_int4_torch(lin.w4p)
     args = (q, w, scale, lin.scale, torch.bfloat16, lin.bias)
+    bounds = _w4a4_bounds(m, k, n)
     timed = {"quantize_to_int4": (lambda: cb.quantize_to_int4_cuda(x),
                                   lambda: tb.quantize_to_int4_torch(x), "quant.cu", None),
              "int4_matmul": (lambda: cb.int4_matmul_cuda(*args),
@@ -669,7 +730,7 @@ def _w4a4_kernels(dev) -> dict:
                 "unpack_int4": "fastdm_tpu/layers/qlinear.py:75"}
     results = {}
     for name, (kern, plain, src, lib_call) in timed.items():
-        b_ms, b_by = bounds(m, k, n)[name]
+        b_ms, b_by = bounds[name]
         ms = cuda_ms(kern, 20)
         plain_ms = cuda_ms(plain, 2, 1)
         lib_ms = None
@@ -2080,6 +2141,668 @@ def phase_sdxl(dev) -> dict:
     return {"gelu_and_mul": launches["gelu_and_mul"]}
 
 
+# ------------------------------------------------------------------ sd35, qwen
+
+# Relative L2 of a full-width forward on the kernels against the same forward
+# on the plain versions: SD3.5-medium int8 (batched CFG) and Qwen-Image int4p
+# with quant_mods, twice the first value measured on an H100 80GB HBM3
+# (1.460e-2 and 4.822e-2). A wrong tile, scale or layout gives O(1).
+SD35_FORWARD_REL_L2_TOL = 2.92e-2
+QWEN_FORWARD_REL_L2_TOL = 9.644e-2
+# the output head's W8A8 linears (norm_out, proj_out): run by every SD3.5
+# forward, a TeaCache skip too
+SD35_HEAD_LINEARS = 2
+
+
+def _cache_config(name: str, **cuts):
+    from fastdm_tpu_torch.caching.config import CacheConfig
+
+    return CacheConfig.from_dict(_cache_json(name, **cuts))
+
+
+def sd35_w8a8_gemms(cfg) -> dict:
+    """The W8A8 linears of one SD3.5 CFG forward at SD35_H x SD35_W (batch
+    SD35_BATCH): (M, K, N) -> count. Every block: image qkv, to_out, ff proj
+    and out, context add_qkv; all but the last: to_add_out and ff_context;
+    the dual blocks: attn2 qkv and to_out; then norm_out (one row per image)
+    and proj_out (N = p*p*out = 64). The block AdaLNs, patch_proj and the
+    embedders stay bf16."""
+    b, d, p = SD35_BATCH, cfg.inner_dim, cfg.patch_size
+    img = b * (SD35_H // 8 // p) * (SD35_W // 8 // p)
+    txt = b * SD35_TEXT
+    n, nd = cfg.num_layers, cfg.num_dual_layers
+    gemms = {}
+
+    def add(key, count):
+        gemms[key] = gemms.get(key, 0) + count
+
+    add((img, d, 3 * d), n + nd)
+    add((img, d, d), n + nd)
+    add((img, d, 4 * d), n)
+    add((img, 4 * d, d), n)
+    add((txt, d, 3 * d), n)
+    add((txt, d, d), n - 1)
+    add((txt, d, 4 * d), n - 1)
+    add((txt, 4 * d, d), n - 1)
+    add((b, d, 2 * d), 1)
+    add((img, d, p * p * cfg.out_channels), 1)
+    return gemms
+
+
+def sd35_forward_launches(cfg) -> dict:
+    """Kernel launches of one computed SD3.5 forward: per joint block four
+    rmsnorm (q, k of each stream) and one sdpa, per dual block two more
+    rmsnorm and a self-attention sdpa; the W8A8 linears of sd35_w8a8_gemms
+    in cfg.quant. A TeaCache skip launches only the SD35_HEAD_LINEARS."""
+    counts = dict.fromkeys(_launch_counts(), 0)
+    n, nd = cfg.num_layers, cfg.num_dual_layers
+    counts.update(rmsnorm=4 * n + 2 * nd, sdpa=n + nd)
+    if cfg.quant is not None:
+        w8a8 = sum(sd35_w8a8_gemms(cfg).values())
+        counts[f"quantize_to_{cfg.quant}"] = counts[f"{cfg.quant}_matmul"] = w8a8
+    return counts
+
+
+def qwen_w4a4_gemms(cfg) -> dict:
+    """The W4A4 linears of one Qwen-Image forward at 1024x2048 with
+    QWEN_TEXT text tokens, quant_mods on: (M, K, N) -> count. Per block each
+    stream's qkv, out, mlp proj and out, and the img_mod / txt_mod
+    modulations (one row); norm_out, proj_out and the embedders stay bf16."""
+    d, n = cfg.inner_dim, cfg.num_layers
+    gemms = {}
+    for m in (QWEN_HT * QWEN_WT, QWEN_TEXT):
+        for kn in ((d, 3 * d), (d, d), (d, 4 * d), (4 * d, d)):
+            gemms[(m, *kn)] = n
+    gemms[(1, d, 6 * d)] = 2 * n
+    return gemms
+
+
+def qwen_forward_launches(cfg, teacache: bool) -> tuple:
+    """(launches of one computed Qwen-Image int4p quant_mods forward, launches
+    every forward makes, a TeaCache skip too): per block four rmsnorm, one
+    rotembd and one sdpa, the W4A4 linears of qwen_w4a4_gemms; every forward
+    the txt_norm rmsnorm and, under TeaCache, its probe's block-0 txt_mod
+    linear (W4A4 under quant_mods)."""
+    computed = dict.fromkeys(_launch_counts(), 0)
+    n = cfg.num_layers
+    computed.update(rmsnorm=4 * n, rotembd=n, sdpa=n)
+    every = dict.fromkeys(computed, 0)
+    every["rmsnorm"] = 1
+    w4a4 = sum(qwen_w4a4_gemms(cfg).values())
+    for op in W4A4_OPS:
+        computed[op], every[op] = w4a4, int(teacache)
+    return computed, every
+
+
+def _rms_case(label: str, x, w, ulp_tol: float = 1.0) -> float:
+    """rmsnorm on x (bf16) held within one bf16 ulp of its plain version,
+    timed beside its bound and F.rms_norm; returns the kernel's ms."""
+    import torch.nn.functional as F
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+
+    got, ref = cb.rms_norm_cuda(x, w, 1e-6), tb.rms_norm_torch(x, w, 1e-6)
+    err = (got.float() - ref.float()).abs()
+    ulps = (err / bf16_ulp(ref)).max().item()
+    if not ulps <= ulp_tol:
+        raise AssertionError(f"rmsnorm {label} disagrees with its plain version: {ulps} ulp")
+    d, n = x.shape[-1], x.numel()
+    ms = cuda_ms(lambda: cb.rms_norm_cuda(x, w, 1e-6), 50)
+    lib_ms = cuda_ms(lambda: F.rms_norm(x, (d,), w, 1e-6), 50) if hasattr(F, "rms_norm") \
+        else None
+    b_ms, b_by = bound(2 * n * 2 + d * 2, 4 * n, F32_FLOPS)
+    log(f"[rmsnorm] {label} {tuple(x.shape)} strides {x.stride()}: max {ulps:.2f} bf16 ulp "
+        f"(tolerance 1 ulp); {ms:.4f} ms ({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, {b_by}); "
+        f"library {lib_ms} ms")
+    return ms
+
+
+def _sdpa_case(label: str, q, k, v, h: int, hd: int) -> float:
+    """The dense sdpa kernel held to its plain version at the FLUX shape's
+    tolerance (max|err| <= 1e-3 + 2 bf16 ulp, relative L2 <= 5e-3: long rows
+    of thousands of keys), timed beside its bound and the library call;
+    returns the kernel's ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+
+    got = cb.sdpa_cuda(q, k, v, h, h, hd)
+    want = tb.sdpa_torch(q, k, v, h, h, hd)
+    e = (got.float() - want.float()).abs()
+    rel = (e.norm() / want.float().norm()).item()
+    excess = (e - (1e-3 + 2 * bf16_ulp(want))).max().item()
+    if not (excess <= 0 and rel <= 5e-3 and torch.isfinite(got).all()):
+        raise AssertionError(f"sdpa disagrees with its plain version at {label}: max "
+                             f"{e.max().item()}, rel L2 {rel}")
+    b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
+    heads = lambda t: t.unflatten(-1, (h, hd)).transpose(1, 2)  # noqa: E731
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), 10)
+    plain_ms = cuda_ms(lambda: tb.sdpa_torch(q, k, v, h, h, hd), 1, 1)
+    flops = 4 * b * sq * skv * h * hd
+    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * b * skv * h * hd), flops, BF16_FLOPS)
+    log(f"[sdpa] {label} q{tuple(q.shape)} k{tuple(k.shape)} {h}x{hd} heads: max_abs_err "
+        f"{e.max().item():.3e}, rel L2 {rel:.3e} (tolerance 1e-3 + 2 ulp, rel L2 5e-3); plain "
+        f"{plain_ms:.4f} ms")
+    return _sdpa_ms(label, q, k, v, h, hd, flops, b_ms, lib_ms, 10)
+
+
+def _sd35_kernels(dev, g) -> None:
+    """Every kernel an SD3.5-medium int8 CFG forward at 1024x2048 launches, at
+    each of its shapes: rmsnorm on the 64-wide head rows read in place from
+    the fused (B, S, 3*1536) projections of both streams; sdpa on the joint
+    [333 context; 8192 image] = 8525 tokens (66 tiles of 128 and a tail of
+    77) and on attn2's image self-attention with q|k|v column slices of one
+    projection; the int8 quantizer and GEMM bit-exact (the GEMM with and
+    without the zero point) at every W8A8 shape, N = 64 and M = 2 included.
+    Logs the forward's split (kernel times at each shape x counts)."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.models.sd35 import SD3Config
+
+    cfg = SD3Config()
+    b, d, h, hd = SD35_BATCH, cfg.inner_dim, cfg.num_attention_heads, cfg.attention_head_dim
+    n, nd = cfg.num_layers, cfg.num_dual_layers
+    img = (SD35_H // 16) * (SD35_W // 16)
+    qkv = torch.randn(b, img, 3 * d, generator=g, device=dev, dtype=torch.bfloat16)
+    ctx = torch.randn(b, SD35_TEXT, 3 * d, generator=g, device=dev, dtype=torch.bfloat16)
+    w = (1 + 0.05 * torch.randn(hd, generator=g, device=dev)).bfloat16()
+    split = {}
+    split["rmsnorm"] = (2 * (n + nd)) * _rms_case("SD3.5 image head rows", qkv[..., :d].unflatten(
+        -1, (h, hd)), w) + 2 * n * _rms_case("SD3.5 context head rows",
+                                             ctx[..., :d].unflatten(-1, (h, hd)), w)
+    joint = [torch.cat([ctx[..., i * d:(i + 1) * d], qkv[..., i * d:(i + 1) * d]], dim=1)
+             for i in range(3)]
+    split["sdpa joint"] = n * _sdpa_case(f"SD3.5 joint ({SD35_TEXT} context first)", *joint, h,
+                                         hd)
+    split["sdpa attn2"] = nd * _sdpa_case("SD3.5 attn2 (in-place q|k|v)", qkv[..., :d],
+                                          qkv[..., d:2 * d], qkv[..., 2 * d:], h, hd)
+    del qkv, ctx, joint
+    torch.cuda.empty_cache()
+    gemm_ms = quant_ms = gemm_bound = quant_bound = 0.0
+    gemms = sd35_w8a8_gemms(cfg)
+    for (m, k, n_), count in gemms.items():
+        a, sa, lin, args = _w8a8_operands("int8", m, k, n_, g, dev)
+        x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+        same_q = all(torch.equal(u, v) for u, v in
+                     zip(cb.quantize_to_int8_cuda(x, symmetric=False),
+                         tb.quantize_to_int8_torch(x, symmetric=False)))
+        _int8_exact(args, f"SD3.5 {m}x{k} @ {k}x{n_}")  # raises on a mismatch
+        g_ms = cuda_ms(lambda: cb.int8_matmul_cuda(*args), 5)
+        q_ms = cuda_ms(lambda: cb.quantize_to_int8_cuda(x, symmetric=False), 5)
+        gb = bound(_gemm_bytes(m, k, n_), 2 * m * n_ * k, INT8_FP8_OPS)[0]
+        log(f"[int8 w8a8] SD3.5 {m}x{k} @ {k}x{n_} ({count} per forward): quantize bit-exact "
+            f"{same_q}, GEMM bit-exact with and without azp; GEMM {g_ms:.4f} ms (bound "
+            f"{gb:.4f}), quantize {q_ms:.4f} ms")
+        if not same_q:
+            raise AssertionError(f"quantize_to_int8 disagrees with its plain version at SD3.5 "
+                                 f"{m}x{k}")
+        gemm_ms += count * g_ms
+        quant_ms += count * q_ms
+        gemm_bound += count * gb
+        quant_bound += count * bound(_quantize_bytes(m, k, False), 8 * m * k, F32_FLOPS)[0]
+        del a, sa, lin, args, x
+    torch.cuda.empty_cache()
+    split["int8 GEMMs"], split["int8 quantize"] = gemm_ms, quant_ms
+    log(f"[sd35] int8 CFG forward from the kernels timed alone x launches "
+        f"({sum(gemms.values())} W8A8 linears; GEMM bound {gemm_bound:.1f} ms, quantize bound "
+        f"{quant_bound:.1f} ms): " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+        + f"; total {sum(split.values()):.1f} ms")
+
+
+def _qwen_kernels(dev) -> None:
+    """Every kernel a Qwen-Image int4p quant_mods forward at 1024x2048
+    launches, at each of its shapes: rmsnorm on txt_norm's 3584-wide rows
+    (the wide-row path) and the head rows of both streams; rotembd bit-exact
+    on Qwen's scale_rope tables (negative image positions, text from 32 on)
+    over the joint 512 + 8192 = 8704 tokens; sdpa there; the W4A4 kernels
+    bit-exact at every int4 shape (the M = 1, N = 18432 modulations
+    included). Logs the forward's split."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.models.qwenimage import QwenImageConfig, qwen_rope_cos_sin
+
+    cfg = QwenImageConfig(quant="int4p", quant_mods=True)
+    g = torch.Generator(device=dev).manual_seed(3)  # the other phases' draws stay as they were
+    d, h, hd, n = cfg.inner_dim, cfg.num_attention_heads, cfg.attention_head_dim, cfg.num_layers
+    img, s = QWEN_HT * QWEN_WT, QWEN_TEXT + QWEN_HT * QWEN_WT
+    split = {}
+    txt = torch.randn(1, QWEN_TEXT, cfg.joint_attention_dim, generator=g, device=dev,
+                      dtype=torch.bfloat16) * 3
+    txt_w = (1 + 0.05 * torch.randn(cfg.joint_attention_dim, generator=g, device=dev)).bfloat16()
+    split["rmsnorm txt_norm"] = _rms_case("Qwen txt_norm (wide rows)", txt, txt_w)
+    qkv = torch.randn(1, img, 3 * d, generator=g, device=dev, dtype=torch.bfloat16)
+    ctx = torch.randn(1, QWEN_TEXT, 3 * d, generator=g, device=dev, dtype=torch.bfloat16)
+    w = (1 + 0.05 * torch.randn(hd, generator=g, device=dev)).bfloat16()
+    split["rmsnorm heads"] = 2 * n * (
+        _rms_case("Qwen image head rows", qkv[..., :d].unflatten(-1, (h, hd)), w)
+        + _rms_case("Qwen text head rows", ctx[..., :d].unflatten(-1, (h, hd)), w))
+    joint = [torch.cat([ctx[..., i * d:(i + 1) * d], qkv[..., i * d:(i + 1) * d]], dim=1)
+             for i in range(3)]
+    del qkv, ctx
+    cos, sin = qwen_rope_cos_sin(cfg, 1, QWEN_HT, QWEN_WT, QWEN_TEXT, device=dev)
+    gq, gk = cb.rotary_pos_embedding_cuda(joint[0], joint[1], hd, cos, sin, False)
+    rq, rk = tb.rotary_pos_embedding_torch(joint[0], joint[1], hd, cos, sin, False)
+    exact = torch.equal(gq, rq) and torch.equal(gk, rk)
+    rot_ms = cuda_ms(lambda: cb.rotary_pos_embedding_cuda(joint[0], joint[1], hd, cos, sin,
+                                                          False), 50)
+    nb = 2 * joint[0].numel()
+    b_ms, b_by = bound(2 * nb * 2 + 2 * cos.numel() * 4, 3 * nb, F32_FLOPS)
+    log(f"[rotembd] Qwen {tuple(joint[0].shape)} on the scale_rope tables {tuple(cos.shape)} "
+        f"(negative image positions): bit-exact {exact} (tolerance: bit-exact); {rot_ms:.4f} "
+        f"ms ({b_ms / rot_ms:.1%} of the bound {b_ms:.4f} ms, {b_by})")
+    if not exact:
+        raise AssertionError("rotembd is not bit-exact with its plain version on Qwen's tables")
+    split["rotembd"] = n * rot_ms
+    split["sdpa"] = n * _sdpa_case(f"Qwen joint ({QWEN_TEXT} text first)", gq, gk, joint[2], h,
+                                   hd)
+    del joint, gq, gk, rq, rk
+    torch.cuda.empty_cache()
+    gemms = dict(qwen_w4a4_gemms(cfg))
+    w4a4 = _w4a4_split(dev, g, gemms, "Qwen int4p")
+    split.update({k: v[0] for k, v in w4a4.items()})
+    log(f"[qwen] int4p quant_mods forward from the kernels timed alone x launches "
+        f"({sum(gemms.values())} W4A4 linears; bounds "
+        + ", ".join(f"{k} {v[1]:.1f}" for k, v in w4a4.items()) + " ms): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+        + f"; total {sum(split.values()):.1f} ms")
+
+
+def _forward_gate(label: str, forward, tol: float, quant_ops) -> None:
+    """One full-width forward on the kernels (timed after a warm one) held to
+    the same forward on the plain versions within relative L2 `tol`, and bit
+    for bit to the forward with only `quant_ops` (the integer quantize and
+    GEMM ops) plain."""
+    import torch
+
+    rel_l2 = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    forward()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_k = forward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out_p = forward(plain_ops=None)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out_w = forward(plain_ops=quant_ops)
+    same_w = torch.equal(out_k, out_w)
+    rel = rel_l2(out_k, out_p)
+    log(f"[{label}] full-width forward: kernels {t1 - t0:.3f} s, plain versions {t2 - t1:.3f} s, "
+        f"relative L2 difference {rel:.3e} (tolerance {tol}); with only {list(quant_ops)} plain: "
+        f"bit-identical {same_w} (required), relative L2 {rel_l2(out_k, out_w):.3e}")
+    if not (rel <= tol and same_w and torch.isfinite(out_k).all()):
+        raise AssertionError(f"{label} kernel forward departs from the plain forward: {rel}, "
+                             f"bit-identical with only {quant_ops} plain: {same_w}")
+
+
+def phase_sd35(dev) -> None:
+    """SD3.5-medium int8 at full width and depth (24 blocks, 13 dual, 24x64
+    heads, random weights from a seed) serving 1024x2048 requests through
+    make_sd3_denoiser as bench.py's main_sd35 does (batched CFG 7.0,
+    FlowMatch shift 3.0, TeaCache with teacache_sd35.json, 333 text tokens,
+    4 steps), then the full-size 16-channel VAE decode with SD3.5's scaling
+    and shift; exact launches; one CFG forward against the plain one."""
+    import torch
+
+    from fastdm_tpu_torch.engine import VAE_CONFIGS
+    from fastdm_tpu_torch.kernels import cuda_backend, kernel_registry
+    from fastdm_tpu_torch.models.sd35 import SD3Config, sd3_cropped_pos_embed, sd3_forward, \
+        sd3_init_random
+    from fastdm_tpu_torch.pipeline.denoise_sd3 import make_sd3_denoiser
+    from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler
+    from fastdm_tpu_torch.pipeline.vae import vae_decode, vae_decoder_random
+
+    cfg = SD3Config(quant="int8")
+    lh, lw = SD35_H // 8, SD35_W // 8
+    t0 = time.perf_counter()
+    params = sd3_init_random(7, cfg, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[sd35] SD3.5-medium int8 random init: {n / 1e9:.3f} B params "
+        f"({nbytes / 2**30:.2f} GiB), {cfg.num_layers} blocks ({cfg.num_dual_layers} dual), in "
+        f"{time.perf_counter() - t0:.1f} s")
+    vae_cfg = VAE_CONFIGS["sd35"]
+    vae = vae_decoder_random(9, vae_cfg, device=dev)
+    t0 = time.perf_counter()
+    pos = sd3_cropped_pos_embed(cfg, None, lh, lw, device=dev)
+    log(f"[sd35] cropped position table {tuple(pos.shape)} from the {cfg.pos_embed_max_size}^2 "
+        f"host table: {time.perf_counter() - t0:.2f} s, once per resolution (outside requests)")
+    tea = _cache_config("teacache_sd35.json")
+    sched = FlowMatchEulerScheduler.create(SD35_STEPS, shift=3.0)
+    run = make_sd3_denoiser(cfg, sched, SD35_STEPS, SD35_CFG, tea)
+
+    def conditioning(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn(1, cfg.in_channels, lh, lw, generator=g, device=dev),
+                torch.randn(SD35_BATCH, SD35_TEXT, cfg.joint_attention_dim, generator=g,
+                            device=dev, dtype=torch.bfloat16),
+                torch.randn(SD35_BATCH, cfg.pooled_projection_dim, generator=g, device=dev,
+                            dtype=torch.bfloat16))
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    seeds, skipped = (61, 62), 0
+    for seed in seeds:
+        latents, embeds, pooled = conditioning(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat, skips = run(params, latents, embeds, pooled, pos)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = vae_decode(vae, vae_cfg, lat)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        skipped += skips
+        finite = bool(torch.isfinite(img).all())
+        log(f"[sd35] request seed={seed} {SD35_H}x{SD35_W} {SD35_STEPS} steps, CFG {SD35_CFG}: "
+            f"{t2 - t0:.3f} s (denoise {t1 - t0:.3f} s, VAE decode {t2 - t1:.3f} s), TeaCache "
+            f"skipped {skips}/{SD35_STEPS}, image {tuple(img.shape)} finite={finite}")
+        if not finite or tuple(img.shape) != (1, SD35_H, SD35_W, 3):
+            raise AssertionError(f"SD3.5 request seed={seed} produced a bad image")
+    counts = _launch_counts()
+    forwards = SD35_STEPS * len(seeds)
+    per = sd35_forward_launches(cfg)
+    want = {k: v * (forwards - skipped) for k, v in per.items()}
+    for op in ("quantize_to_int8", "int8_matmul"):
+        want[op] += SD35_HEAD_LINEARS * skipped
+    log(f"[sd35] kernel launches over {len(seeds)} requests ({forwards} forwards, {skipped} "
+        f"skipped): {counts}; per computed forward {({k: v for k, v in per.items() if v})}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != want:
+        raise AssertionError(f"SD3.5 launch counts {counts} != derived {want}")
+
+    x = torch.cat([latents] * 2).to(torch.bfloat16)
+    t = torch.full((SD35_BATCH,), float(sched.sigmas[0]) * 1000.0, device=dev)
+
+    def forward(plain_ops=()):
+        with torch.inference_mode(), kernel_registry.plain_on_device(plain_ops):
+            return sd3_forward(params, cfg, x, embeds, pooled, t, pos).float()
+
+    _forward_gate("sd35 int8", forward, SD35_FORWARD_REL_L2_TOL,
+                  ("quantize_to_int8", "int8_matmul"))
+    del params, vae, pos
+    torch.cuda.empty_cache()
+
+
+def phase_qwen(dev) -> None:
+    """Qwen-Image int4p with quant_mods at full width and depth (60 blocks,
+    24x128 heads, random weights from a seed) serving 1024x2048 requests
+    through make_qwen_denoiser as bench.py's main_qwen does (true CFG 1.0,
+    512 text tokens, TeaCache 0.1 with teacache_qwenimage.json's polynomial,
+    dynamic shift, 4 steps), then the full-size Wan VAE decoder on a
+    singleton frame; exact launches; one forward against the plain one."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend, kernel_registry
+    from fastdm_tpu_torch.models.qwenimage import QwenImageConfig, qwen_forward, \
+        qwen_init_random, qwen_rope_cos_sin
+    from fastdm_tpu_torch.pipeline.denoise import flux_unpack_latents
+    from fastdm_tpu_torch.pipeline.denoise_qwen import make_qwen_denoiser
+    from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, \
+        flow_match_shift_mu
+    from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_decode, \
+        wan_vae_decoder_random
+
+    cfg = QwenImageConfig(quant="int4p", quant_mods=True)
+    ht, wt = QWEN_HT, QWEN_WT
+    t0 = time.perf_counter()
+    params = qwen_init_random(8, cfg, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[qwen] Qwen-Image int4p quant_mods random init: {n / 1e9:.3f} B stored values "
+        f"({nbytes / 2**30:.2f} GiB), {cfg.num_layers} blocks, in {time.perf_counter() - t0:.1f} s")
+    vae_cfg = WanVAEConfig()
+    vae = wan_vae_decoder_random(10, vae_cfg, device=dev)
+    t0 = time.perf_counter()
+    cos, sin = qwen_rope_cos_sin(cfg, 1, ht, wt, QWEN_TEXT, device=dev)
+    log(f"[qwen] RoPE tables {tuple(cos.shape)}: {time.perf_counter() - t0:.3f} s on the host")
+    tea = _cache_config("teacache_qwenimage.json", threshold=QWEN_TEACACHE_THRESHOLD)
+    sched = FlowMatchEulerScheduler.create(QWEN_STEPS, use_dynamic_shifting=True,
+                                           mu=flow_match_shift_mu(ht * wt))
+    run = make_qwen_denoiser(cfg, sched, QWEN_STEPS, QWEN_CFG, tea)
+
+    def conditioning(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn(1, ht * wt, cfg.in_channels, generator=g, device=dev),
+                torch.randn(1, QWEN_TEXT, cfg.joint_attention_dim, generator=g, device=dev,
+                            dtype=torch.bfloat16))
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    seeds, skipped = (71, 72), 0
+    for seed in seeds:
+        latents, embeds = conditioning(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat, skips = run(params, latents, embeds, embeds, cos, sin)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = wan_vae_decode(vae, vae_cfg, flux_unpack_latents(lat, ht, wt)[:, :, None])[:, 0]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        skipped += skips
+        finite = bool(torch.isfinite(img).all())
+        log(f"[qwen] request seed={seed} {16 * ht}x{16 * wt} {QWEN_STEPS} steps, true CFG "
+            f"{QWEN_CFG}: {t2 - t0:.3f} s (denoise {t1 - t0:.3f} s, Wan VAE decode of one "
+            f"frame {t2 - t1:.3f} s), TeaCache skipped {skips}/{QWEN_STEPS}, image "
+            f"{tuple(img.shape)} finite={finite}")
+        if not finite or tuple(img.shape) != (1, 16 * ht, 16 * wt, 3):
+            raise AssertionError(f"Qwen-Image request seed={seed} produced a bad image")
+    counts = _launch_counts()
+    forwards = QWEN_STEPS * len(seeds)
+    computed, every = qwen_forward_launches(cfg, teacache=True)
+    want = {k: computed[k] * (forwards - skipped) + every[k] * forwards for k in computed}
+    log(f"[qwen] kernel launches over {len(seeds)} requests ({forwards} forwards, {skipped} "
+        f"skipped): {counts}; per computed forward {({k: v for k, v in computed.items() if v})} "
+        f"plus every forward {({k: v for k, v in every.items() if v})} (txt_norm, TeaCache's "
+        f"W4A4 txt_mod probe); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != want:
+        raise AssertionError(f"Qwen-Image launch counts {counts} != derived {want}")
+
+    x = latents.to(torch.bfloat16)
+    t = torch.full((1,), float(sched.sigmas[0]), device=dev)
+
+    def forward(plain_ops=()):
+        with torch.inference_mode(), kernel_registry.plain_on_device(plain_ops):
+            return qwen_forward(params, cfg, x, embeds, t, cos, sin).float()
+
+    _forward_gate("qwen int4p", forward, QWEN_FORWARD_REL_L2_TOL, W4A4_OPS)
+    del params, vae
+    torch.cuda.empty_cache()
+
+
+def _linear_writer(sd: dict, g, dev):
+    """lin(name, k, n): a diffusers Linear (out, in) weight ~ N(0, 1/k) and a
+    zero bias, bf16 on the host."""
+    import torch
+
+    def lin(name, k, n):
+        sd[f"{name}.weight"] = (torch.randn(n, k, generator=g, device=dev) * k**-0.5
+                                ).bfloat16().cpu()
+        sd[f"{name}.bias"] = torch.zeros(n, dtype=torch.bfloat16)
+
+    return lin
+
+
+def _write_sd35_checkpoint(root: str, dev) -> None:
+    """Synthetic diffusers-layout SD3.5-medium checkpoint: the published
+    widths with one dual, one standard and the last block (transformer/
+    config.json with dual_attention_layers [0]), pos_embed.pos_embed as the
+    full 384 x 384 f32 table, and the full-size 16-channel AutoencoderKL
+    decoder in vae/."""
+    import torch
+    from safetensors.torch import save_file
+
+    from fastdm_tpu_torch.layers.embeddings import sincos_pos_embed_2d
+    from fastdm_tpu_torch.models.sd35 import SD3Config
+    from fastdm_tpu_torch.pipeline.vae import VAEConfig
+
+    cfg = SD3Config(num_layers=3, num_dual_layers=1)
+    g = torch.Generator(device=dev).manual_seed(13)
+    d, hd, m, p = cfg.inner_dim, cfg.attention_head_dim, cfg.pos_embed_max_size, cfg.patch_size
+    sd = {"pos_embed.proj.weight": (torch.randn(d, cfg.in_channels, p, p, generator=g,
+                                                device=dev) * 0.05).bfloat16().cpu(),
+          "pos_embed.proj.bias": torch.zeros(d, dtype=torch.bfloat16),
+          "pos_embed.pos_embed": torch.from_numpy(sincos_pos_embed_2d(
+              d, m, m, base_size=cfg.sample_size // p).astype("float32"))[None]}
+    lin = _linear_writer(sd, g, dev)
+    for e, k in (("timestep_embedder", 256), ("text_embedder", cfg.pooled_projection_dim)):
+        lin(f"time_text_embed.{e}.linear_1", k, d)
+        lin(f"time_text_embed.{e}.linear_2", d, d)
+    lin("context_embedder", cfg.joint_attention_dim, cfg.caption_projection_dim)
+    for i in range(cfg.num_layers):
+        pre, last, dual = f"transformer_blocks.{i}", i == cfg.num_layers - 1, i == 0
+        lin(f"{pre}.norm1.linear", d, (9 if dual else 6) * d)
+        lin(f"{pre}.norm1_context.linear", d, (2 if last else 6) * d)
+        names = ["to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0"]
+        for nm in names + ([] if last else ["to_add_out"]):
+            lin(f"{pre}.attn.{nm}", d, d)
+        norms = [("attn", nm) for nm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k")]
+        if dual:
+            for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+                lin(f"{pre}.attn2.{nm}", d, d)
+            norms += [("attn2", "norm_q"), ("attn2", "norm_k")]
+        for a, nm in norms:
+            sd[f"{pre}.{a}.{nm}.weight"] = torch.ones(hd, dtype=torch.bfloat16)
+        for ff in ("ff",) + (() if last else ("ff_context",)):
+            lin(f"{pre}.{ff}.net.0.proj", d, 4 * d)
+            lin(f"{pre}.{ff}.net.2", 4 * d, d)
+    lin("norm_out.linear", d, 2 * d)
+    lin("proj_out", d, p * p * cfg.out_channels)
+    os.makedirs(os.path.join(root, "transformer"))
+    save_file(sd, os.path.join(root, "transformer", "model.safetensors"))
+    with open(os.path.join(root, "transformer", "config.json"), "w") as f:
+        json.dump({"num_layers": cfg.num_layers, "dual_attention_layers": [0]}, f)
+    os.makedirs(os.path.join(root, "vae"))
+    save_file(_vae_state_dict(VAEConfig(latent_channels=16), g, dev),
+              os.path.join(root, "vae", "model.safetensors"))
+
+
+def _write_qwen_checkpoint(root: str, dev) -> None:
+    """Synthetic diffusers-layout Qwen-Image checkpoint: the published widths
+    with two blocks (bf16; the engine quantizes at load) and the full-size
+    Wan-layout VAE decoder with a vae/config.json carrying base_dim."""
+    import torch
+    from safetensors.torch import save_file
+
+    from fastdm_tpu_torch.models.qwenimage import QwenImageConfig
+
+    cfg = QwenImageConfig(num_layers=2)
+    g = torch.Generator(device=dev).manual_seed(14)
+    d, hd = cfg.inner_dim, cfg.attention_head_dim
+    sd = {"txt_norm.weight": torch.ones(cfg.joint_attention_dim, dtype=torch.bfloat16)}
+    lin = _linear_writer(sd, g, dev)
+    lin("img_in", cfg.in_channels, d)
+    lin("txt_in", cfg.joint_attention_dim, d)
+    lin("time_text_embed.timestep_embedder.linear_1", 256, d)
+    lin("time_text_embed.timestep_embedder.linear_2", d, d)
+    for i in range(cfg.num_layers):
+        pre = f"transformer_blocks.{i}"
+        lin(f"{pre}.img_mod.1", d, 6 * d)
+        lin(f"{pre}.txt_mod.1", d, 6 * d)
+        for nm in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0",
+                   "to_add_out"):
+            lin(f"{pre}.attn.{nm}", d, d)
+        for nm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            sd[f"{pre}.attn.{nm}.weight"] = torch.ones(hd, dtype=torch.bfloat16)
+        for mlp in ("img_mlp", "txt_mlp"):
+            lin(f"{pre}.{mlp}.net.0.proj", d, 4 * d)
+            lin(f"{pre}.{mlp}.net.2", 4 * d, d)
+    lin("norm_out.linear", d, 2 * d)
+    lin("proj_out", d, cfg.patch_size**2 * cfg.out_channels)
+    os.makedirs(os.path.join(root, "transformer"))
+    save_file(sd, os.path.join(root, "transformer", "model.safetensors"))
+    with open(os.path.join(root, "transformer", "config.json"), "w") as f:
+        json.dump({"num_layers": cfg.num_layers}, f)
+    _write_wan_vae(root, dev, 15)
+
+
+def _engine_mmdit(dev, here: str) -> None:
+    """FastDMEngine on the synthetic SD3.5-medium checkpoint with use_int8 (one
+    1024x2048 CFG generate) and on the synthetic Qwen-Image checkpoint with
+    use_int4, pack_int4 and quant_mods (quantize_weight's SVDQuant split on
+    the card; one 1024x2048 generate, true CFG 1.0, decoded by the Wan VAE
+    route its vae/config.json names); launches as derived per step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.engine import FastDMEngine
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig
+
+    for arch, writer, flags in (("sd35", _write_sd35_checkpoint, {"use_int8": True}),
+                                ("qwen-image", _write_qwen_checkpoint,
+                                 {"use_int4": True, "pack_int4": True, "quant_mods": True})):
+        with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
+            t0 = time.perf_counter()
+            writer(root, dev)
+            size = os.path.getsize(os.path.join(root, "transformer", "model.safetensors"))
+            log(f"[engine {arch}] wrote the synthetic checkpoint (transformer/ {size / 1e9:.2f} "
+                f"GB, full-size vae/) in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            eng = FastDMEngine(root, architecture=arch, verbose=False, device=dev, **flags)
+            torch.cuda.synchronize()
+            cfg = eng.cfg
+            g = torch.Generator(device=dev).manual_seed(400)
+            if arch == "sd35":
+                qkv = eng.params.dual_blocks[0].attn2.qkv.w
+                ok = (qkv.dtype == torch.int8 and cfg.num_dual_layers == 1
+                      and eng.params.pos_embed_table is not None
+                      and eng.vae_cfg.latent_channels == 16)
+                pos, neg = (torch.randn(1, SD35_TEXT, cfg.joint_attention_dim, generator=g,
+                                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+                pos_pooled, neg_pooled = (torch.randn(1, cfg.pooled_projection_dim, generator=g,
+                                                      device=dev, dtype=torch.bfloat16)
+                                          for _ in range(2))
+                kw = dict(prompt_embeds=pos, pooled_prompt_embeds=pos_pooled,
+                          negative_prompt_embeds=neg, negative_pooled_prompt_embeds=neg_pooled,
+                          guidance_scale=SD35_CFG, num_inference_steps=SD35_STEPS)
+                want = {k: v * SD35_STEPS for k, v in sd35_forward_launches(cfg).items()}
+                shape = (1, SD35_H, SD35_W, 3)
+            else:
+                lin = eng.params.blocks[1].txt_mod
+                ok = (lin.w4p is not None and torch.isfinite(lin.lora_u).all()
+                      and isinstance(eng.vae_cfg, WanVAEConfig))
+                kw = dict(prompt_embeds=torch.randn(1, QWEN_TEXT, cfg.joint_attention_dim,
+                                                    generator=g, device=dev,
+                                                    dtype=torch.bfloat16),
+                          true_cfg_scale=QWEN_CFG, num_inference_steps=QWEN_STEPS)
+                computed, every = qwen_forward_launches(cfg, teacache=False)
+                want = {k: (computed[k] + every[k]) * QWEN_STEPS for k in computed}
+                shape = (1, 16 * QWEN_HT, 16 * QWEN_WT, 3)
+            log(f"[engine {arch}] FastDMEngine {flags} loaded in {time.perf_counter() - t0:.1f} s: "
+                f"{cfg.num_layers} blocks, inner dim {cfg.inner_dim}, VAE "
+                f"{type(eng.vae_cfg).__name__}; formats as asked: {bool(ok)}")
+            if not ok:
+                raise AssertionError(f"the {arch} engine loaded the wrong formats or VAE")
+            cuda_backend.reset_launch_counts()
+            t0 = time.perf_counter()
+            img = eng.generate(height=shape[1], width=shape[2], seed=11, **kw)
+            sec = time.perf_counter() - t0
+            counts = _launch_counts()
+            log(f"[engine {arch}] generate {shape[1]}x{shape[2]} {kw['num_inference_steps']} "
+                f"steps: {sec:.3f} s, image {img.shape} {img.dtype}; launches {counts}")
+            if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.shape == shape) \
+                    or counts != want:
+                raise AssertionError(f"the {arch} generate returned "
+                                     f"{getattr(img, 'shape', type(img))}, launches {counts} != "
+                                     f"derived {want}")
+            del eng
+            torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -2193,7 +2916,6 @@ def _write_wan_checkpoint(root: str, dev) -> None:
     from safetensors.torch import save_file
 
     from fastdm_tpu_torch.models.wan import WanConfig
-    from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_decoder_random
 
     cfg = WanConfig()
     d, ffn = cfg.inner_dim, cfg.ffn_dim
@@ -2235,10 +2957,19 @@ def _write_wan_checkpoint(root: str, dev) -> None:
                        "patch_size": list(cfg.patch_size)}, f)
     with open(os.path.join(root, "model_index.json"), "w") as f:
         json.dump({"boundary_ratio": WAN_BOUNDARY}, f)
+    _write_wan_vae(root, dev, 8)
 
-    # the decoder of a full-size AutoencoderKLWan, under diffusers' names
+
+def _write_wan_vae(root: str, dev, seed: int) -> None:
+    """vae/: the decoder of a full-size AutoencoderKLWan (the layout Qwen-Image's
+    AutoencoderKLQwenImage shares), under diffusers' names, with a config.json
+    that carries base_dim."""
+    from safetensors.torch import save_file
+
+    from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_decoder_random
+
     vcfg = WanVAEConfig()
-    vae = wan_vae_decoder_random(8, vcfg, device=dev)
+    vae = wan_vae_decoder_random(seed, vcfg, device=dev)
     sd = {}
 
     def conv(name, p):
@@ -2501,6 +3232,7 @@ def phase_engine(dev) -> None:
             torch.cuda.empty_cache()
     _engine_wan(dev, here)
     _engine_sdxl(dev, here)
+    _engine_mmdit(dev, here)
 
 
 def _engine_wan(dev, here: str) -> None:
@@ -2599,6 +3331,8 @@ def main() -> int:
     launches = phase_slice(dev)
     launches.update(phase_wan(dev))
     launches.update(phase_sdxl(dev))
+    phase_sd35(dev)
+    phase_qwen(dev)
     phase_engine(dev)
     for name, r in kernels.items():
         r["launches"] = launches[name]

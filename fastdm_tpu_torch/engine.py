@@ -1,5 +1,6 @@
-"""FastDMEngine — the end-user engine of the port (the FLUX and SDXL
-text-to-image and Wan2.2 text-to-video subsets of fastdm_tpu/engine.py).
+"""FastDMEngine — the end-user engine of the port (the FLUX, SD3.5, SDXL and
+Qwen-Image text-to-image and Wan2.2 text-to-video subsets of
+fastdm_tpu/engine.py).
 
     eng = FastDMEngine("/path/to/FLUX.1-dev", architecture="flux",
                        use_int4=True, pack_int4=True, quant_mods=True,
@@ -13,6 +14,16 @@ text-to-image and Wan2.2 text-to-video subsets of fastdm_tpu/engine.py).
                           negative_prompt_embeds=..., negative_pooled_prompt_embeds=...,
                           height=1024, width=2048, guidance_scale=5.0)
 
+    eng = FastDMEngine("/path/to/stable-diffusion-3.5-medium", architecture="sd35",
+                       use_int8=True, cache_config="teacache_sd35.json")
+    images = eng.generate(prompt_embeds=..., pooled_prompt_embeds=...,
+                          negative_prompt_embeds=..., negative_pooled_prompt_embeds=...,
+                          height=1024, width=2048, guidance_scale=7.0)
+
+    eng = FastDMEngine("/path/to/Qwen-Image", architecture="qwen-image", use_int4=True,
+                       pack_int4=True, quant_mods=True)
+    images = eng.generate(prompt_embeds=..., height=1024, width=2048, true_cfg_scale=1.0)
+
     eng = FastDMEngine("/path/to/Wan2.2-T2V-A14B", architecture="wan2.2-t2v",
                        use_int8=True, sparse_attn_config="radial_attn_wan.json",
                        cache_config="fbcache_wan.json")
@@ -24,15 +35,18 @@ Wan2.2-A14B dual expert, transformer_2/ — or SDXL's unet/, and vae/, with
 their config.json and model_index.json) onto the GPU ("cuda" unless the
 caller passes device="cpu"): in bf16, or with use_int8 / use_fp8 the
 transformer blocks' linears (SDXL: also proj_in/out and the resnets'
-time_emb_proj) quantized at load time to W8A8, or with use_int4 to W4A4
-(+ SVDQuant low-rank branch; pack_int4 stores the int4 values two per byte)
-(quant_mods=True quantizes FLUX's AdaLN modulations too). FLUX takes
-TeaCache, FBCache or DiCache, Wan FBCache or DiCache; SDXL has no step cache
-(a cache_config raises). Wan's
-radial sparse attention runs in the mode FASTDM_SPARSE_GATHER names: super
-(the default), fine, coarse or mask. The T5/CLIP/UMT5 text encoders,
-img2img, Kontext, ControlNet, the SDXL IP-Adapter, Wan i2v/ti2v and the other
-model families arrive with later slices and raise NotImplementedError here.
+time_emb_proj; SD3.5: also norm_out and proj_out) quantized at load time to
+W8A8, or with use_int4 to W4A4 (+ SVDQuant low-rank branch; pack_int4 stores
+the int4 values two per byte) (quant_mods=True quantizes the FLUX and
+Qwen-Image modulations too). FLUX, SD3.5 and Qwen-Image take TeaCache,
+FBCache or DiCache, Wan FBCache or DiCache; SDXL has no step cache (a
+cache_config raises). Qwen-Image decodes through the Wan VAE decoder when
+vae/config.json carries base_dim (AutoencoderKLQwenImage), else through the
+AutoencoderKL. Wan's radial sparse attention runs in the mode
+FASTDM_SPARSE_GATHER names: super (the default), fine, coarse or mask. The
+T5/CLIP/UMT5/Qwen text encoders, img2img, Qwen-Image-Edit, Kontext,
+ControlNet, the SDXL IP-Adapter, Wan i2v/ti2v and the other model families
+arrive with later slices and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -52,7 +66,9 @@ from fastdm_tpu_torch.models.loader import TensorSource, as_tensor
 from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, flow_match_shift_mu
 from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_load
 
-ARCHITECTURES = ("flux", "sdxl", "wan2.2-t2v", "wan")
+# accepted names -> the model family (JAX's ARCH_ALIASES, the loaded subset)
+ARCHITECTURES = {"flux": "flux", "sd35": "sd35", "sd3.5": "sd35", "sdxl": "sdxl",
+                 "qwen-image": "qwen", "wan2.2-t2v": "wan", "wan": "wan"}
 
 # Long-video capacity thresholds (tokens) at which a Wan generate turns on
 # FFN token chunking and, for the dual expert, the split-QKV projection; kept
@@ -63,7 +79,9 @@ _SPLIT_QKV_MIN_TOKENS = 60000
 # per-model VAE configs (diffusers AutoencoderKL variants)
 VAE_CONFIGS = {
     "flux": VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159),
+    "sd35": VAEConfig(latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609),
     "sdxl": VAEConfig(latent_channels=4, scaling_factor=0.13025, shift_factor=0.0),
+    "qwen": VAEConfig(latent_channels=16, scaling_factor=1.0, shift_factor=0.0),
 }
 
 
@@ -141,7 +159,7 @@ class FastDMEngine:
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"architecture {architecture!r} is not in this slice of the port "
-                f"(have {ARCHITECTURES})")
+                f"(have {sorted(ARCHITECTURES)})")
         # the JAX engine's checks (fastdm_tpu/engine.py:141-176)
         if sum((use_fp8, use_int8, use_int4)) > 1:
             raise ValueError("use_fp8 / use_int8 / use_int4 are mutually exclusive")
@@ -150,7 +168,7 @@ class FastDMEngine:
         self.quant = ("fp8" if use_fp8 else "int8" if use_int8 else
                       ("int4p" if pack_int4 else "int4") if use_int4 else None)
         self.quant_mods = quant_mods
-        self.architecture = "wan" if architecture.startswith("wan") else architecture
+        self.architecture = ARCHITECTURES[architecture]
         self.model_path = model_path
         self.device = resolve_device(device)
         self.verbose = verbose
@@ -183,6 +201,10 @@ class FastDMEngine:
                 raise ValueError("the SDXL denoiser has no step cache (the JAX one ignores a "
                                  "cache_config); pass cache_config=None")
             self._init_sdxl()
+        elif self.architecture == "sd35":
+            self._init_sd35()
+        elif self.architecture == "qwen":
+            self._init_qwen()
         else:
             self._init_flux()
         self._denoisers: Dict[tuple, Any] = {}
@@ -222,7 +244,16 @@ class FastDMEngine:
 
     def _load_vae(self) -> None:
         """The AutoencoderKL of vae/, VAE_CONFIGS[architecture] overridden by
-        its config.json."""
+        its config.json. Qwen-Image's own VAE (AutoencoderKLQwenImage, a
+        Wan-style causal 3D VAE: base_dim in its config.json) loads as the
+        Wan VAE decoder instead, as the JAX engine routes it."""
+        if self.architecture == "qwen" and "base_dim" in self._cfg_overrides("vae", ("base_dim",)):
+            from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_load
+
+            self.vae_cfg = self._wan_vae_cfg()
+            self.vae_params = wan_vae_load(TensorSource.from_path(
+                os.path.join(self.model_path, "vae"), self.device), self.vae_cfg)
+            return
         vae_kw = self._cfg_overrides(
             "vae", ("latent_channels", "layers_per_block", "norm_num_groups",
                     "scaling_factor", "shift_factor", "mid_block_add_attention"),
@@ -241,9 +272,48 @@ class FastDMEngine:
             os.path.join(self.model_path, "unet"), self.device), self.cfg)
         self._load_vae()
 
+    def _wan_vae_cfg(self):
+        """WanVAEConfig overridden by vae/config.json (diffusers' names)."""
+        from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig
+
+        return WanVAEConfig(**self._cfg_overrides(
+            "vae", ("base_dim", "z_dim", "num_res_blocks", "patch_size", "is_residual"),
+            {"latents_mean": lambda v: {"latents_mean": tuple(v)},
+             "latents_std": lambda v: {"latents_std": tuple(v)},
+             "dim_mult": lambda v: {"dim_mult": tuple(v)},
+             # diffusers spells it 'temperal_downsample'
+             "temperal_downsample": lambda v: {"temporal_downsample": tuple(v)}}))
+
+    def _init_sd35(self) -> None:
+        from fastdm_tpu_torch.models.sd35 import SD3Config, sd3_load
+
+        kw = self._cfg_overrides(
+            "transformer",
+            ("sample_size", "patch_size", "in_channels", "out_channels", "num_layers",
+             "attention_head_dim", "num_attention_heads", "joint_attention_dim",
+             "caption_projection_dim", "pooled_projection_dim", "pos_embed_max_size"),
+            {"dual_attention_layers": lambda v: {"num_dual_layers": len(v)}})
+        self.cfg = SD3Config(quant=self.quant, **kw)
+        self.params = sd3_load(TensorSource.from_path(
+            os.path.join(self.model_path, "transformer"), self.device), self.cfg)
+        self._load_vae()
+
+    def _init_qwen(self) -> None:
+        from fastdm_tpu_torch.models.qwenimage import QwenImageConfig, qwen_load
+
+        kw = self._cfg_overrides(
+            "transformer",
+            ("patch_size", "in_channels", "out_channels", "num_layers", "attention_head_dim",
+             "num_attention_heads", "joint_attention_dim"),
+            {"axes_dims_rope": lambda v: {"axes_dims_rope": tuple(v)}})
+        self.cfg = QwenImageConfig(quant=self.quant, quant_mods=self.quant_mods, **kw)
+        self.params = qwen_load(TensorSource.from_path(
+            os.path.join(self.model_path, "transformer"), self.device), self.cfg)
+        self._load_vae()
+
     def _init_wan(self) -> None:
         from fastdm_tpu_torch.models.wan import WanConfig, wan_load
-        from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_load
+        from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_load
 
         kw = self._cfg_overrides(
             "transformer",
@@ -267,14 +337,7 @@ class FastDMEngine:
         index = os.path.join(self.model_path, "model_index.json")
         self.boundary_ratio = (_read_json(index).get("boundary_ratio")
                                if os.path.exists(index) else None)
-        vae_kw = self._cfg_overrides(
-            "vae", ("base_dim", "z_dim", "num_res_blocks", "patch_size", "is_residual"),
-            {"latents_mean": lambda v: {"latents_mean": tuple(v)},
-             "latents_std": lambda v: {"latents_std": tuple(v)},
-             "dim_mult": lambda v: {"dim_mult": tuple(v)},
-             # diffusers spells it 'temperal_downsample'
-             "temperal_downsample": lambda v: {"temporal_downsample": tuple(v)}})
-        self.vae_cfg = WanVAEConfig(**vae_kw)
+        self.vae_cfg = self._wan_vae_cfg()
         # as the JAX engine: a VAE that does not load leaves generate() with
         # latent output, and says so
         try:
@@ -290,11 +353,14 @@ class FastDMEngine:
     def generate(self, prompt=None, task: Optional[str] = None, **kw):
         """FLUX text-to-image (height, width, num_inference_steps,
         guidance_scale, seed, prompt_embeds, pooled_prompt_embeds,
-        output_type), SDXL text-to-image (the same, plus
-        negative_prompt_embeds and negative_pooled_prompt_embeds for CFG) or
-        Wan text-to-video (height, width, num_frames,
-        num_inference_steps, guidance_scale, guidance_scale_2, seed,
-        prompt_embeds, negative_prompt_embeds, output_type)."""
+        output_type), SD3.5 and SDXL text-to-image (the same, plus
+        negative_prompt_embeds and negative_pooled_prompt_embeds for CFG),
+        Qwen-Image text-to-image (height, width, num_inference_steps,
+        guidance_scale or true_cfg_scale, seed, prompt_embeds,
+        negative_prompt_embeds for true CFG, output_type) or Wan
+        text-to-video (height, width, num_frames, num_inference_steps,
+        guidance_scale, guidance_scale_2, seed, prompt_embeds,
+        negative_prompt_embeds, output_type)."""
         want = "t2v" if self.architecture == "wan" else "t2i"
         if (task or want) != want or kw.get("image") is not None:
             raise NotImplementedError(
@@ -304,6 +370,10 @@ class FastDMEngine:
             return self._generate_wan(prompt, **kw)
         if self.architecture == "sdxl":
             return self._generate_sdxl(prompt, **kw)
+        if self.architecture == "sd35":
+            return self._generate_sd35(prompt, **kw)
+        if self.architecture == "qwen":
+            return self._generate_qwen(prompt, **kw)
         return self._generate_flux(prompt, **kw)
 
     def _to_uint8(self, x: torch.Tensor) -> np.ndarray:
@@ -345,10 +415,7 @@ class FastDMEngine:
         latents = torch.randn((b, ht * wt, self.cfg.in_channels), generator=gen,
                               device=self.device, dtype=torch.float32)
         latents, skips = self._denoisers[key](self.params, latents, encoder, pooled, cos, sin)
-        if self.cache_config is not None:
-            self.last_cache_skips = int(skips)
-            if self.verbose:
-                print(f"cache skipped {self.last_cache_skips} transformer passes")
+        self._note_skips(skips)
         if output_type == "latent":
             return latents.cpu().numpy()
         img = vae_decode(self.vae_params, self.vae_cfg, flux_unpack_latents(latents, ht, wt))
@@ -399,6 +466,105 @@ class FastDMEngine:
         if output_type == "latent":
             return latents.cpu().numpy()
         return self._to_uint8(vae_decode(self.vae_params, self.vae_cfg, latents))
+
+    def _note_skips(self, skips: int) -> None:
+        if self.cache_config is not None:
+            self.last_cache_skips = int(skips)
+            if self.verbose:
+                print(f"cache skipped {self.last_cache_skips} transformer passes")
+
+    def _generate_sd35(self, prompt=None, height: int = 1024, width: int = 1024,
+                       num_inference_steps: int = 25, guidance_scale: float = 7.0,
+                       seed: int = 42, prompt_embeds=None, pooled_prompt_embeds=None,
+                       negative_prompt_embeds=None, negative_pooled_prompt_embeds=None,
+                       output_type: str = "np"):
+        from fastdm_tpu_torch.models.sd35 import sd3_cropped_pos_embed
+        from fastdm_tpu_torch.pipeline.denoise_sd3 import make_sd3_denoiser
+
+        do_cfg = guidance_scale > 1.0
+        if prompt_embeds is None or pooled_prompt_embeds is None or (do_cfg and (
+                negative_prompt_embeds is None or negative_pooled_prompt_embeds is None)):
+            raise NotImplementedError(
+                "the SD3 text encoders are not in this slice of the port; pass prompt_embeds "
+                "and pooled_prompt_embeds (and, for CFG, negative_prompt_embeds and "
+                "negative_pooled_prompt_embeds)")
+        del prompt
+        embeds = self._device_tensor(prompt_embeds, torch.bfloat16)
+        pooled = self._device_tensor(pooled_prompt_embeds, torch.bfloat16)
+        b = embeds.shape[0]
+        if do_cfg:  # one batch of 2B, the negative half first (diffusers order)
+            embeds = torch.cat([self._device_tensor(negative_prompt_embeds, torch.bfloat16),
+                                embeds])
+            pooled = torch.cat([self._device_tensor(negative_pooled_prompt_embeds,
+                                                    torch.bfloat16), pooled])
+        lh, lw = height // 8, width // 8
+        key = ("sd35", lh, lw, num_inference_steps, guidance_scale)
+        if key not in self._denoisers:
+            # the denoiser and the cropped position table, once per resolution
+            sched = FlowMatchEulerScheduler.create(num_inference_steps, shift=3.0)
+            self._denoisers[key] = (
+                make_sd3_denoiser(self.cfg, sched, num_inference_steps, guidance_scale,
+                                  self.cache_config),
+                sd3_cropped_pos_embed(self.cfg, self.params.pos_embed_table, lh, lw,
+                                      device=self.device))
+        run, pos_embed = self._denoisers[key]
+        # a seeded torch.Generator: the same seed gives other noise than the
+        # JAX engine's jax.random key
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        latents = torch.randn((b, self.cfg.in_channels, lh, lw), generator=gen,
+                              device=self.device, dtype=torch.float32)
+        latents, skips = run(self.params, latents, embeds, pooled, pos_embed)
+        self._note_skips(skips)
+        if output_type == "latent":
+            return latents.cpu().numpy()
+        return self._to_uint8(vae_decode(self.vae_params, self.vae_cfg, latents))
+
+    def _generate_qwen(self, prompt=None, height: int = 1024, width: int = 1024,
+                       num_inference_steps: int = 25, guidance_scale: float = 4.0,
+                       true_cfg_scale: Optional[float] = None, seed: int = 42,
+                       prompt_embeds=None, negative_prompt_embeds=None,
+                       output_type: str = "np"):
+        from fastdm_tpu_torch.models.qwenimage import qwen_rope_cos_sin
+        from fastdm_tpu_torch.pipeline.denoise import flux_unpack_latents
+        from fastdm_tpu_torch.pipeline.denoise_qwen import make_qwen_denoiser
+        from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_decode
+
+        scale = true_cfg_scale if true_cfg_scale is not None else guidance_scale
+        if prompt_embeds is None or (scale > 1.0 and negative_prompt_embeds is None):
+            raise NotImplementedError(
+                "the Qwen2.5-VL text encoder is not in this slice of the port; pass "
+                "prompt_embeds (and, for true CFG, negative_prompt_embeds)")
+        del prompt
+        pos = self._device_tensor(prompt_embeds, torch.bfloat16)
+        neg = self._device_tensor(negative_prompt_embeds, torch.bfloat16) if scale > 1.0 \
+            else pos
+        # pad both to one length
+        s = max(pos.shape[1], neg.shape[1])
+        pos = torch.nn.functional.pad(pos, (0, 0, 0, s - pos.shape[1]))
+        neg = torch.nn.functional.pad(neg, (0, 0, 0, s - neg.shape[1]))
+        b = pos.shape[0]
+        ht, wt = height // 16, width // 16
+        cos, sin = qwen_rope_cos_sin(self.cfg, 1, ht, wt, s, device=self.device)
+        key = ("qwen", ht, wt, num_inference_steps, scale, s)
+        if key not in self._denoisers:
+            sched = FlowMatchEulerScheduler.create(
+                num_inference_steps, use_dynamic_shifting=True, mu=flow_match_shift_mu(ht * wt))
+            self._denoisers[key] = make_qwen_denoiser(self.cfg, sched, num_inference_steps,
+                                                      scale, self.cache_config)
+        # a seeded torch.Generator: the same seed gives other noise than the
+        # JAX engine's jax.random key
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        latents = torch.randn((b, ht * wt, self.cfg.in_channels), generator=gen,
+                              device=self.device, dtype=torch.float32)
+        latents, skips = self._denoisers[key](self.params, latents, pos, neg, cos, sin)
+        self._note_skips(skips)
+        if output_type == "latent":
+            return latents.cpu().numpy()
+        z = flux_unpack_latents(latents, ht, wt)
+        if isinstance(self.vae_cfg, WanVAEConfig):  # one frame through the causal 3D VAE
+            return self._to_uint8(wan_vae_decode(self.vae_params, self.vae_cfg,
+                                                 z[:, :, None])[:, 0])
+        return self._to_uint8(vae_decode(self.vae_params, self.vae_cfg, z))
 
     def _generate_wan(self, prompt=None, height: int = 480, width: int = 832,
                       num_frames: int = 81, num_inference_steps: int = 40,
@@ -452,10 +618,7 @@ class FastDMEngine:
         latents = torch.randn((1, self.cfg.out_channels, lf, lh, lw), generator=gen,
                               device=self.device, dtype=torch.float32)
         latents, skips = run(*experts, latents, pos, neg, cos, sin, sparse_mask)
-        if self.cache_config is not None:
-            self.last_cache_skips = int(skips)
-            if self.verbose:
-                print(f"cache skipped {self.last_cache_skips} transformer passes")
+        self._note_skips(skips)
         if output_type == "latent" or self.vae_params is None:
             return latents.cpu().numpy()
         decode = wan_vae_decode_chunked if lf > 8 else wan_vae_decode

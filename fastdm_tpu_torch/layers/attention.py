@@ -1,5 +1,6 @@
-"""Joint (dual-stream) attention of the FLUX blocks (port of
-fastdm_tpu/layers/attention.py attention_apply).
+"""Joint (dual-stream) attention of the FLUX, SD3.5 and Qwen-Image blocks
+(port of fastdm_tpu/layers/attention.py attention_apply and
+qwen_attention_apply).
 
 Fused-QKV projections, per-head RMSNorm on q/k (the rmsnorm kernel), the
 context stream concatenated IN FRONT of the image stream, interleaved RoPE
@@ -94,3 +95,16 @@ def attention_apply(
     if not pre_only:
         out = attn.to_out(out)
     return out
+
+
+def qwen_attention_apply(attn: JointAttention, hidden_states: Tensor,
+                         encoder_hidden_states: Tensor, *, heads: int, head_dim: int,
+                         rope_cos: Tensor, rope_sin: Tensor,
+                         eps: float = 1e-6) -> Tuple[Tensor, Tensor]:
+    """Qwen-Image joint attention: the joint branch of attention_apply in the
+    same op order (text first, per-head q/k norms, interleaved RoPE over the
+    joint sequence, both outputs projected), so it delegates. Returns
+    (image output, text output)."""
+    return attention_apply(attn, hidden_states, encoder_hidden_states, heads=heads,
+                           head_dim=head_dim, rope_cos=rope_cos, rope_sin=rope_sin,
+                           context_pre_only=False, eps=eps)

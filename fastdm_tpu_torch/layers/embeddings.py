@@ -1,5 +1,6 @@
-"""Embeddings: timesteps, text projections, RoPE tables (port of
-fastdm_tpu/layers/embeddings.py, the parts FLUX and Wan use).
+"""Embeddings: timesteps, text projections, RoPE tables and the SD3 2D
+sin-cos position table (port of fastdm_tpu/layers/embeddings.py, the parts
+FLUX, SD3.5, Qwen-Image and Wan use).
 
 RoPE tables are computed on the host in float64 numpy (positions are fixed
 per resolution, so this runs once per generation) and moved to the device as
@@ -111,3 +112,29 @@ def flux_rope_cos_sin(
     dev = resolve_device(device)
     return (torch.from_numpy(np.cos(a).astype(np.float32)).to(dev),
             torch.from_numpy(np.sin(a).astype(np.float32)).to(dev))
+
+
+def sincos_pos_embed_2d(embed_dim: int, grid_h: int, grid_w: int, *, base_size=None,
+                        interpolation_scale: float = 1.0) -> np.ndarray:
+    """2D sin-cos position table of SD3's PatchEmbed, (grid_h * grid_w,
+    embed_dim) float64 on the host: the first half of each row encodes the
+    column (w goes first, the diffusers convention), the second the row.
+    base_size rescales the grid to base_size positions per side;
+    interpolation_scale is taken only together with it."""
+    gh = np.arange(grid_h, dtype=np.float64)
+    gw = np.arange(grid_w, dtype=np.float64)
+    if base_size is not None:
+        gh = gh / (grid_h / base_size) / interpolation_scale
+        gw = gw / (grid_w / base_size) / interpolation_scale
+    elif interpolation_scale != 1.0:
+        raise ValueError("interpolation_scale requires base_size (diffusers applies them "
+                         "together); without it the scale would be silently dropped")
+    grid = np.stack(np.meshgrid(gw, gh), axis=0).reshape(2, 1, grid_h, grid_w)
+
+    def one_axis(dim, positions):
+        omega = 1.0 / 10000 ** (np.arange(dim // 2, dtype=np.float64) / (dim / 2.0))
+        out = np.einsum("m,d->md", positions.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    return np.concatenate([one_axis(embed_dim // 2, grid[0]),
+                           one_axis(embed_dim // 2, grid[1])], axis=1)

@@ -1,8 +1,8 @@
 """FeedForward (port of fastdm_tpu/layers/feedforward.py, with token
-chunking): the tanh-GELU activation of the FLUX and Wan blocks and the GEGLU
-of the SDXL blocks (hidden * GELU(gate), the gate in the second half of the
-projection, through the gelu_and_mul kernel). The other activations of the
-JAX module arrive with the models that use them."""
+chunking): the tanh-GELU activation of the FLUX, SD3.5, Qwen-Image and Wan
+blocks and the GEGLU of the SDXL blocks (hidden * GELU(gate), the gate in
+the second half of the projection, through the gelu_and_mul kernel). The
+other activations of the JAX module arrive with the models that use them."""
 
 from __future__ import annotations
 

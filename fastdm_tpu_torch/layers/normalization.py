@@ -1,5 +1,5 @@
-"""Normalization layers (port of fastdm_tpu/layers/normalization.py, the FLUX
-and Wan families). LayerNorm runs in float32 and casts back (fp32_layer_norm
+"""Normalization layers (port of fastdm_tpu/layers/normalization.py, the FLUX,
+SD3.5, Qwen-Image and Wan families). LayerNorm runs in float32 and casts back (fp32_layer_norm
 returns the float32 result: the fp32 island the Wan modulation reads); the
 AdaLN modules hold a QLinear modulation projection and return the modulated
 input plus the gate/shift/scale chunks, in the JAX functions' order."""
@@ -50,6 +50,27 @@ class AdaLayerNormZero(nn.Module):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         x = layer_norm(x, eps=eps) * (1 + scale_msa[:, None]) + shift_msa[:, None]
         return x, gate_msa, shift_mlp, scale_mlp, gate_mlp
+
+
+class SD35AdaLayerNormZeroX(nn.Module):
+    """SD3.5's 9-chunk adaLN of the dual-attention blocks. forward ->
+    (modulated_x, gate_msa, shift_mlp, scale_mlp, gate_mlp, modulated_x2,
+    gate_msa2) (port of sd35_ada_layer_norm_zero_x). Unlike AdaLayerNormZero
+    it casts silu(emb) to x's dtype before the linear; both modulated
+    outputs share one layer_norm."""
+
+    def __init__(self, linear: QLinear):
+        super().__init__()
+        self.linear = linear
+
+    def forward(self, x: Tensor, emb: Tensor, eps: float = 1e-6) -> Tuple[Tensor, ...]:
+        mod = self.linear(F.silu(emb).to(x.dtype))
+        (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp,
+         shift_msa2, scale_msa2, gate_msa2) = mod.chunk(9, dim=-1)
+        norm_x = layer_norm(x, eps=eps)
+        x_mod = norm_x * (1 + scale_msa[:, None]) + shift_msa[:, None]
+        x_mod2 = norm_x * (1 + scale_msa2[:, None]) + shift_msa2[:, None]
+        return x_mod, gate_msa, shift_mlp, scale_mlp, gate_mlp, x_mod2, gate_msa2
 
 
 class AdaLayerNormZeroSingle(nn.Module):

@@ -23,10 +23,13 @@ from fastdm_tpu_torch.layers.normalization import (
     AdaLayerNormContinuous,
     AdaLayerNormZero,
     AdaLayerNormZeroSingle,
+    SD35AdaLayerNormZeroX,
 )
 from fastdm_tpu_torch.layers.qlinear import QLinear
 from fastdm_tpu_torch.models.flux import FluxDualBlock, FluxSingleBlock, FluxTransformer
 from fastdm_tpu_torch.models.loader import as_tensor
+from fastdm_tpu_torch.models.qwenimage import QwenBlock, QwenImageTransformer
+from fastdm_tpu_torch.models.sd35 import SD3JointBlock, SD3Transformer
 from fastdm_tpu_torch.models.sdxl import (
     SDXLAttention,
     SDXLResnet,
@@ -122,6 +125,81 @@ def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
             mlp(tte["guidance_embedder"]) if "guidance_embedder" in tte else None),
         dual_blocks=dual, single_blocks=single,
         norm_out=AdaLayerNormContinuous(lin(tree["norm_out"]["linear"])),
+        proj_out=lin(tree["proj_out"]))
+
+
+def _joint_attention(a: Dict, lin, t) -> JointAttention:
+    """A JAX attention dict (qkv, to_out, norms; add_qkv, to_add_out and the
+    added norms where present) -> JointAttention."""
+    def opt(key, fn):
+        return fn(a[key]) if key in a else None
+
+    return JointAttention(qkv=lin(a["qkv"]), add_qkv=opt("add_qkv", lin),
+                          to_out=lin(a["to_out"]), to_add_out=opt("to_add_out", lin),
+                          norm_q=t(a["norm_q"]), norm_k=t(a["norm_k"]),
+                          norm_added_q=opt("norm_added_q", t), norm_added_k=opt("norm_added_k", t))
+
+
+def sd3_params_from_numpy(tree: Dict, device="cuda") -> SD3Transformer:
+    """SD3 param tree of fastdm_tpu.models.sd35 (numpy leaves; the
+    layer-stacked "dual_attn_blocks" and "std_blocks" segments, either may be
+    None, and the unstacked "last_block"; "pos_embed_table" when it came from
+    sd3_load) -> SD3Transformer on `device`."""
+    dev = resolve_device(device)
+    lin = _linear_converter(dev)
+
+    def t(a):
+        return as_tensor(a).to(dev)
+
+    def block(blk, dual, last) -> SD3JointBlock:
+        d1, dc = lin(blk["norm1"]["linear"]), lin(blk["norm1_context"]["linear"])
+        return SD3JointBlock(
+            SD35AdaLayerNormZeroX(d1) if dual else AdaLayerNormZero(d1),
+            AdaLayerNormContinuous(dc) if last else AdaLayerNormZero(dc),
+            _joint_attention(blk["attn"], lin, t),
+            FeedForward(lin(blk["ff"]["proj"]), lin(blk["ff"]["out"])),
+            attn2=_joint_attention(blk["attn2"], lin, t) if dual else None,
+            ff_context=None if last else FeedForward(lin(blk["ff_context"]["proj"]),
+                                                     lin(blk["ff_context"]["out"])))
+
+    def segment(key, dual):
+        group = tree.get(key)
+        if group is None:
+            return []
+        return [block(b, dual, False) for b in unstack_blocks(group, _n_layers(group))]
+
+    tte = tree["time_text_embed"]
+    return SD3Transformer(
+        patch_proj=lin(tree["patch_proj"]),
+        time_text_embed=CombinedTimestepTextProj(
+            *(TimestepEmbedding(lin(tte[k]["linear1"]), lin(tte[k]["linear2"]))
+              for k in ("timestep_embedder", "text_embedder"))),
+        context_embedder=lin(tree["context_embedder"]),
+        dual_blocks=segment("dual_attn_blocks", True), std_blocks=segment("std_blocks", False),
+        last_block=block(tree["last_block"], False, True),
+        norm_out=AdaLayerNormContinuous(lin(tree["norm_out"]["linear"])),
+        proj_out=lin(tree["proj_out"]),
+        pos_embed_table=t(tree["pos_embed_table"]) if "pos_embed_table" in tree else None)
+
+
+def qwen_params_from_numpy(tree: Dict, device="cuda") -> QwenImageTransformer:
+    """Qwen-Image param tree of fastdm_tpu.models.qwenimage (numpy leaves,
+    layer-stacked "blocks") -> QwenImageTransformer on `device`."""
+    dev = resolve_device(device)
+    lin = _linear_converter(dev)
+
+    def t(a):
+        return as_tensor(a).to(dev)
+
+    blocks = [QwenBlock(lin(b["img_mod"]), lin(b["txt_mod"]), _joint_attention(b["attn"], lin, t),
+                        FeedForward(lin(b["img_mlp"]["proj"]), lin(b["img_mlp"]["out"])),
+                        FeedForward(lin(b["txt_mlp"]["proj"]), lin(b["txt_mlp"]["out"])))
+              for b in unstack_blocks(tree["blocks"], _n_layers(tree["blocks"]))]
+    te = tree["time_text_embed"]["timestep_embedder"]
+    return QwenImageTransformer(
+        img_in=lin(tree["img_in"]), txt_in=lin(tree["txt_in"]), txt_norm=t(tree["txt_norm"]),
+        timestep_embedder=TimestepEmbedding(lin(te["linear1"]), lin(te["linear2"])),
+        blocks=blocks, norm_out=AdaLayerNormContinuous(lin(tree["norm_out"]["linear"])),
         proj_out=lin(tree["proj_out"]))
 
 

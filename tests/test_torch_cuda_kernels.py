@@ -309,11 +309,16 @@ W8A8_SHAPES = {"ragged": (77, 96, 40), "proj_out": (8704, 15360, 3072)}
 W8A8_GEMM_SHAPES = {**W8A8_SHAPES, "sdxl-temb": (2, 1280, 640), "sdxl-text": (154, 2048, 1280)}
 # the int8 GEMM's edges, at both of its tile shapes: K tails that are not
 # multiples of the 128-byte stage (48, 80 and SDXL's 640), one and ragged row
-# counts (M = 1, 77, 154, 193), N not a multiple of either tile's width, and a
-# Wan2.2-A14B FFN width (K 5120 -> N 13824 on a 32760-token chunk's rows)
+# counts (M = 1, 77, 154, 193), N not a multiple of either tile's width, a
+# Wan2.2-A14B FFN width (K 5120 -> N 13824 on a 32760-token chunk's rows), and
+# SD3.5-medium's edges: proj_out's N = 64 (under one tile), the int8 norm_out
+# modulation at M = 2 (one row per CFG image) and the context stream's
+# M = 2 x 333 rows at K = 1536 and 6144
 INT8_GEMM_EDGES = {"k48-m1": (1, 48, 40), "k80-m77": (77, 80, 300),
                    "sdxl-k640-m154": (154, 640, 1920), "k640-m193": (193, 640, 1000),
-                   "wan-ffn": (4095, 5120, 13824)}
+                   "wan-ffn": (4095, 5120, 13824), "sd35-proj-out-n64": (16384, 1536, 64),
+                   "sd35-norm-out-m2": (2, 1536, 3072), "sd35-ctx-m666": (666, 1536, 4608),
+                   "sd35-ctx-ff-m666": (666, 6144, 1536)}
 
 
 @pytest.mark.gpu
@@ -333,6 +338,30 @@ def test_sdpa_kernel_on_sdxl_fused_projections(cuda_device, c):
     for kk, vv in ((k, v), (kv[..., :c], kv[..., c:])):
         got = sdpa_cuda(q, kk, vv, h, h, 64, False).float()
         want = sdpa_torch(q, kk, vv, h, h, 64, False).float()
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_sdpa_kernel_on_sd35_joint_layout(cuda_device):
+    """SD3.5's joint attention at head dim 64: 333 context tokens first, then
+    a 640-token image stream (973 = 7 tiles of 128 and a 77-token tail), q
+    and k concatenated from the per-head-normalized streams, v from column
+    slices of the fused projections; and attn2's image self-attention with
+    q|k|v read in place from one (B, S, 3C) projection. Held as the small
+    cases."""
+    from fastdm_tpu_torch.kernels.cuda_backend import sdpa_cuda
+    from fastdm_tpu_torch.kernels.torch_backend import sdpa_torch
+
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    c, h = 1536, 24
+    img = torch.randn(2, 640, 3 * c, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    ctx = torch.randn(2, 333, 3 * c, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    q, k, v = (torch.cat([ctx[..., i * c:(i + 1) * c], img[..., i * c:(i + 1) * c]], dim=1)
+               for i in range(3))
+    assert q.shape[1] % 128 == 77
+    for args in ((q, k, v), (img[..., :c], img[..., c:2 * c], img[..., 2 * c:])):
+        got = sdpa_cuda(*args, h, h, 64, False).float()
+        want = sdpa_torch(*args, h, h, 64, False).float()
         torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
 
 
