@@ -1,5 +1,5 @@
 """FastDMEngine — the end-user engine of the port (the FLUX, SD3.5, SDXL and
-Qwen-Image text-to-image and Wan2.2 text-to-video subsets of
+Qwen-Image text-to-image and the Wan2.2 text- and image-to-video subsets of
 fastdm_tpu/engine.py).
 
     eng = FastDMEngine("/path/to/FLUX.1-dev", architecture="flux",
@@ -30,6 +30,12 @@ fastdm_tpu/engine.py).
     video = eng.generate(prompt_embeds=..., negative_prompt_embeds=...,
                          height=480, width=832, num_frames=81)
 
+    eng = FastDMEngine("/path/to/Wan2.2-TI2V-5B", architecture="wan2.2-ti2v",
+                       use_int8=True, cache_config="fbcache_wan.json")
+    video = eng.generate(task="ti2v", image=first_frame_uint8_hxwx3,
+                         prompt_embeds=..., negative_prompt_embeds=...,
+                         height=768, width=768, num_frames=121, num_inference_steps=50)
+
 Reads a diffusers-layout checkpoint directory (transformer/ — and, for the
 Wan2.2-A14B dual expert, transformer_2/ — or SDXL's unet/, and vae/, with
 their config.json and model_index.json) onto the GPU ("cuda" unless the
@@ -43,10 +49,15 @@ FBCache or DiCache, Wan FBCache or DiCache; SDXL has no step cache (a
 cache_config raises). Qwen-Image decodes through the Wan VAE decoder when
 vae/config.json carries base_dim (AutoencoderKLQwenImage), else through the
 AutoencoderKL. Wan's radial sparse attention runs in the mode
-FASTDM_SPARSE_GATHER names: super (the default), fine, coarse or mask. The
+FASTDM_SPARSE_GATHER names: super (the default), fine, coarse or mask. Wan
+takes task "t2v", "i2v" (an image: a 4-channel frame mask and the VAE-encoded
+first frame concatenated to the latents, Wan2.2-I2V-A14B's in_channels 36)
+or, with architecture "wan2.2-ti2v", "ti2v" / "i2v" (Wan2.2-TI2V-5B: the
+encoded image pinned as the first latent frame, its tokens at timestep 0);
+its scheduler is UniPC, or FlowMatch-Euler with scheduler="euler". The
 T5/CLIP/UMT5/Qwen text encoders, img2img, Qwen-Image-Edit, Kontext,
-ControlNet, the SDXL IP-Adapter, Wan i2v/ti2v and the other model families
-arrive with later slices and raise NotImplementedError here.
+ControlNet, the SDXL IP-Adapter, Wan2.1's CLIP image branch and the other
+model families arrive with later slices and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -68,7 +79,8 @@ from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_load
 
 # accepted names -> the model family (JAX's ARCH_ALIASES, the loaded subset)
 ARCHITECTURES = {"flux": "flux", "sd35": "sd35", "sd3.5": "sd35", "sdxl": "sdxl",
-                 "qwen-image": "qwen", "wan2.2-t2v": "wan", "wan": "wan"}
+                 "qwen-image": "qwen", "wan2.2-t2v": "wan", "wan2.2-i2v": "wan",
+                 "wan2.2-ti2v": "wan", "wan": "wan"}
 
 # Long-video capacity thresholds (tokens) at which a Wan generate turns on
 # FFN token chunking and, for the dual expert, the split-QKV projection; kept
@@ -154,12 +166,19 @@ class FastDMEngine:
         use_int8: bool = False, cache_config: Optional[Union[str, Dict[str, Any]]] = None,
         verbose: bool = True, device="cuda", quant_mods: bool = False,
         sparse_attn_config: Optional[Union[str, Dict[str, Any]]] = None,
-        use_int4: bool = False, pack_int4: bool = False,
+        use_int4: bool = False, pack_int4: bool = False, scheduler: Optional[str] = None,
     ):
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"architecture {architecture!r} is not in this slice of the port "
                 f"(have {sorted(ARCHITECTURES)})")
+        # the JAX engine's scheduler option (fastdm_tpu/engine.py:125-136): Wan only
+        if scheduler not in (None, "unipc", "euler"):
+            raise ValueError(f"scheduler must be 'unipc' or 'euler', got {scheduler!r}")
+        if scheduler is not None and ARCHITECTURES[architecture] != "wan":
+            raise ValueError(f"scheduler={scheduler!r} is only supported for wan; "
+                             f"{ARCHITECTURES[architecture]} uses its fixed per-family scheduler")
+        self.scheduler_name = scheduler
         # the JAX engine's checks (fastdm_tpu/engine.py:141-176)
         if sum((use_fp8, use_int8, use_int4)) > 1:
             raise ValueError("use_fp8 / use_int8 / use_int4 are mutually exclusive")
@@ -169,6 +188,7 @@ class FastDMEngine:
                       ("int4p" if pack_int4 else "int4") if use_int4 else None)
         self.quant_mods = quant_mods
         self.architecture = ARCHITECTURES[architecture]
+        self.architecture_full = architecture
         self.model_path = model_path
         self.device = resolve_device(device)
         self.verbose = verbose
@@ -357,17 +377,24 @@ class FastDMEngine:
         negative_prompt_embeds and negative_pooled_prompt_embeds for CFG),
         Qwen-Image text-to-image (height, width, num_inference_steps,
         guidance_scale or true_cfg_scale, seed, prompt_embeds,
-        negative_prompt_embeds for true CFG, output_type) or Wan
-        text-to-video (height, width, num_frames, num_inference_steps,
-        guidance_scale, guidance_scale_2, seed, prompt_embeds,
-        negative_prompt_embeds, output_type)."""
-        want = "t2v" if self.architecture == "wan" else "t2i"
-        if (task or want) != want or kw.get("image") is not None:
+        negative_prompt_embeds for true CFG, output_type) or Wan text- and
+        image-to-video (task t2v, i2v or ti2v; image, an (H, W, 3) uint8 first
+        frame at height x width; height, width, num_frames,
+        num_inference_steps, guidance_scale, guidance_scale_2, seed,
+        prompt_embeds, negative_prompt_embeds, output_type). As the JAX
+        engine: a Wan image with no task means i2v, and a task other than
+        i2v / ti2v leaves the image out."""
+        tasks = ("t2v", "i2v", "ti2v") if self.architecture == "wan" else ("t2i",)
+        if self.architecture == "wan" and task is None:
+            task = "i2v" if kw.get("image") is not None else "t2v"
+        if (task or tasks[0]) not in tasks or (self.architecture != "wan"
+                                               and kw.get("image") is not None):
             raise NotImplementedError(
-                f"task {task!r} is not in this slice of the port ({want} is)")
-        kw.pop("image", None)
+                f"task {task!r} is not in this slice of the port ({', '.join(tasks)} "
+                f"{'is' if len(tasks) == 1 else 'are'})")
         if self.architecture == "wan":
-            return self._generate_wan(prompt, **kw)
+            return self._generate_wan(prompt, task=task, **kw)
+        kw.pop("image", None)
         if self.architecture == "sdxl":
             return self._generate_sdxl(prompt, **kw)
         if self.architecture == "sd35":
@@ -566,17 +593,53 @@ class FastDMEngine:
                                                  z[:, :, None])[:, 0])
         return self._to_uint8(vae_decode(self.vae_params, self.vae_cfg, z))
 
-    def _generate_wan(self, prompt=None, height: int = 480, width: int = 832,
+    def _wan_scheduler(self, num_steps: int):
+        """UniPC (the Wan default, diffusers' WanPipeline) or FlowMatch-Euler,
+        both at shift 5 (fastdm_tpu/engine.py:844-847)."""
+        from fastdm_tpu_torch.pipeline.schedulers import UniPCMultistepScheduler
+
+        if (self.scheduler_name or "unipc") == "unipc":
+            return UniPCMultistepScheduler.create(num_steps, shift=5.0)
+        return FlowMatchEulerScheduler.create(num_steps, shift=5.0)
+
+    def _wan_encode(self, video: torch.Tensor) -> torch.Tensor:
+        from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_encode
+
+        if self.vae_params is None:
+            raise RuntimeError("Wan image-to-video needs the Wan VAE to encode the "
+                               "conditioning frame, but the VAE checkpoint could not be loaded "
+                               "(see the message at engine init)")
+        return wan_vae_encode(self.vae_params, self.vae_cfg, video)
+
+    def _wan_image(self, image) -> torch.Tensor:
+        """An (H, W, 3) uint8 image -> float32 in [-1, 1] on the device."""
+        return self._device_tensor(image, torch.float32) / 127.5 - 1.0
+
+    def _wan_i2v_latents(self, image, lf: int, lh: int, lw: int, num_frames: int):
+        """The i2v conditioning channels (fastdm_tpu/engine.py:1301-1326): a
+        4-channel temporal mask (frame 0 visible, packed 4 frames a latent
+        frame) and the encoded video of the image followed by num_frames - 1
+        zero frames -> (1, 4 + C_z, lf, lh, lw) float32."""
+        img = self._wan_image(image)
+        video = torch.cat([img[None], img.new_zeros(num_frames - 1, *img.shape)])[None]
+        cond = self._wan_encode(video)
+        msk = torch.zeros(1, num_frames, lh, lw, device=self.device)
+        msk[:, 0] = 1.0
+        msk = torch.cat([msk[:, :1].expand(-1, 4, -1, -1), msk[:, 1:]], dim=1)
+        msk = msk.reshape(1, lf, 4, lh, lw).transpose(1, 2)
+        return torch.cat([msk, cond], dim=1)
+
+    def _generate_wan(self, prompt=None, task: str = "t2v", height: int = 480, width: int = 832,
                       num_frames: int = 81, num_inference_steps: int = 40,
                       guidance_scale: float = 5.0, guidance_scale_2: Optional[float] = None,
                       seed: int = 42, prompt_embeds=None, negative_prompt_embeds=None,
-                      output_type: str = "np"):
+                      output_type: str = "np", image=None):
         from fastdm_tpu_torch.models.wan import wan_rope_cos_sin
         from fastdm_tpu_torch.pipeline.denoise_wan import (
             make_wan_cached_denoiser,
             make_wan_dual_phase_denoiser,
+            make_wan_ti2v_denoiser,
         )
-        from fastdm_tpu_torch.pipeline.schedulers import UniPCMultistepScheduler
         from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_decode, wan_vae_decode_chunked
 
         if prompt_embeds is None or negative_prompt_embeds is None:
@@ -588,7 +651,9 @@ class FastDMEngine:
         neg = self._device_tensor(negative_prompt_embeds, torch.bfloat16)
         # 4k+1 frames: the VAE's temporal stride (diffusers does the same)
         num_frames = max(1, 4 * ((num_frames - 1) // 4) + 1)
-        lf, lh, lw = (num_frames - 1) // 4 + 1, height // 8, width // 8
+        # the spatial stride is 8 * patch_size (16 for the Wan2.2-TI2V VAE)
+        vs = 8 * self.vae_cfg.patch_size
+        lf, lh, lw = (num_frames - 1) // 4 + 1, height // vs, width // vs
         pt, ph, pw = self.cfg.patch_size
         tokens = (lf // pt) * (lh // ph) * (lw // pw)
         self.cfg = wan_capacity_config(self._wan_cfg, tokens, dual=self.params_2 is not None)
@@ -600,24 +665,35 @@ class FastDMEngine:
             dense_steps = self.sparse_attn.config.dense_steps
         cos, sin = wan_rope_cos_sin(self.cfg, lf, lh, lw, device=self.device)
 
-        sched = UniPCMultistepScheduler.create(num_inference_steps, shift=5.0)
-        if self.params_2 is not None:
-            boundary = self.boundary_ratio if self.boundary_ratio is not None else 0.875
-            run = make_wan_dual_phase_denoiser(self.cfg, sched, num_inference_steps,
-                                               guidance_scale, guidance_scale_2, boundary,
-                                               dense_steps, cache_cfg=self.cache_config)
-            experts = (self.params, self.params_2)
-        else:
-            run = make_wan_cached_denoiser(self.cfg, sched, num_inference_steps,
-                                           self.cache_config, guidance_scale, dense_steps)
-            experts = (self.params,)
-        self.last_phase_steps = getattr(run, "phase_steps", (num_inference_steps,))
+        sched = self._wan_scheduler(num_inference_steps)
         # a seeded torch.Generator: the same seed gives other noise than the
         # JAX engine's jax.random key
         gen = torch.Generator(device=self.device).manual_seed(seed)
         latents = torch.randn((1, self.cfg.out_channels, lf, lh, lw), generator=gen,
                               device=self.device, dtype=torch.float32)
-        latents, skips = run(*experts, latents, pos, neg, cos, sin, sparse_mask)
+        if self.architecture_full == "wan2.2-ti2v" and image is not None and \
+                task in ("i2v", "ti2v"):
+            # Wan2.2-TI2V-5B: the encoded image is the first latent frame
+            cond = self._wan_encode(self._wan_image(image)[None, None])
+            run = make_wan_ti2v_denoiser(self.cfg, sched, num_inference_steps, guidance_scale,
+                                         self.cache_config, dense_steps)
+            self.last_phase_steps = (num_inference_steps,)
+            latents, skips = run(self.params, latents, cond, pos, neg, cos, sin, sparse_mask)
+        else:
+            cond = (self._wan_i2v_latents(image, lf, lh, lw, num_frames)
+                    if task == "i2v" and image is not None else None)
+            if self.params_2 is not None:
+                boundary = self.boundary_ratio if self.boundary_ratio is not None else 0.875
+                run = make_wan_dual_phase_denoiser(self.cfg, sched, num_inference_steps,
+                                                   guidance_scale, guidance_scale_2, boundary,
+                                                   dense_steps, cache_cfg=self.cache_config)
+                experts = (self.params, self.params_2)
+            else:
+                run = make_wan_cached_denoiser(self.cfg, sched, num_inference_steps,
+                                               self.cache_config, guidance_scale, dense_steps)
+                experts = (self.params,)
+            self.last_phase_steps = getattr(run, "phase_steps", (num_inference_steps,))
+            latents, skips = run(*experts, latents, pos, neg, cos, sin, sparse_mask, cond)
         self._note_skips(skips)
         if output_type == "latent" or self.vae_params is None:
             return latents.cpu().numpy()

@@ -206,7 +206,8 @@ def qwen_params_from_numpy(tree: Dict, device="cuda") -> QwenImageTransformer:
 def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
     """Wan param tree of fastdm_tpu.models.wan (numpy leaves; the layer-stacked
     "dense_blocks" then "blocks" groups, either may be None) -> WanTransformer
-    on `device` with one block list in layer order."""
+    on `device` with one block list in layer order. A per_token_timestep
+    config has the same tree."""
     dev = resolve_device(device)
     lin = _linear_converter(dev)
 
@@ -220,7 +221,8 @@ def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
         for blk in unstack_blocks(tree[group], _n_layers(tree[group])):
             a1, a2 = blk["attn1"], blk["attn2"]
             if set(a2) - {"q", "kv", "norm_q", "norm_k", "to_out"}:
-                raise NotImplementedError("the Wan image-KV branch (I2V) converts with its slice")
+                raise NotImplementedError("the Wan2.1 I2V image-KV branch converts with the "
+                                          "image encoder (ROADMAP.md item 9)")
             norm2 = (t(blk["norm2"]["gamma"]), t(blk["norm2"]["beta"])) if "norm2" in blk else None
             blocks.append(WanBlock(
                 t(blk["scale_shift_table"]),
@@ -231,7 +233,8 @@ def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
                 FeedForward(lin(blk["ffn"]["proj"]), lin(blk["ffn"]["out"])), norm2))
     ce = tree["condition_embedder"]
     if "image_embedder" in ce:
-        raise NotImplementedError("the Wan image embedder (I2V) converts with its slice")
+        raise NotImplementedError("the Wan2.1 I2V image embedder converts with the image "
+                                  "encoder (ROADMAP.md item 9)")
     return WanTransformer(
         patch_embedding=lin(tree["patch_embedding"]),
         time_embedder=TimestepEmbedding(lin(ce["time_embedder"]["linear1"]),
@@ -319,9 +322,9 @@ def vae_params_from_numpy(tree: Dict, device="cuda") -> Dict:
 
 def wan_vae_params_from_numpy(tree: Dict, device="cuda") -> Dict:
     """Wan VAE param tree of fastdm_tpu.pipeline.wan_vae (numpy leaves, DHWIO
-    conv3d / HWIO conv2d kernels) -> the port's decoder dict (PyTorch's
-    (out, in, ...) conv layout) on `device`; the encoder and quant_conv are
-    left out, as wan_vae_load does."""
+    conv3d / HWIO conv2d kernels; either layout, residual or not) -> the
+    port's dict (PyTorch's (out, in, ...) conv layout) on `device`: the
+    encoder, quant_conv, post_quant_conv and decoder it holds."""
     dev = resolve_device(device)
 
     def walk(node):
@@ -336,4 +339,4 @@ def wan_vae_params_from_numpy(tree: Dict, device="cuda") -> Dict:
             return {k: walk(v) for k, v in node.items()}
         return as_tensor(node).to(dev)
 
-    return {k: walk(v) for k, v in tree.items() if k in ("decoder", "post_quant_conv")}
+    return {k: walk(v) for k, v in tree.items()}

@@ -1,5 +1,6 @@
-"""Wan2.1 / Wan2.2 text-to-video transformer core (port of
-fastdm_tpu/models/wan.py).
+"""Wan2.1 / Wan2.2 transformer core (port of fastdm_tpu/models/wan.py): text-
+to-video, image-to-video by channel concatenation, and Wan2.2-TI2V's
+per-token timesteps.
 
 PyTorch layout: the blocks are nn.Modules in one nn.ModuleList walked by a
 Python loop; block i < cfg.dense_layers runs dense self-attention, the rest
@@ -16,8 +17,11 @@ cfg.sparse_gather_superblock > 1) or of fine tables (block_lists_fine,
 superblock 1), a 2-tuple of coarse lists (block_lists, tiles
 cfg.sparse_gather_blocks), or a (B, H, nq, nk) block mask at 128x128 tiles
 (block_mask). wan_forward_cached runs the forward under FBCache or DiCache.
-The image branch (I2V) and per-token timesteps (TI2V) raise
-NotImplementedError until their slice.
+With cfg.per_token_timestep (Wan2.2-TI2V-5B) the timestep may be (B, S), one
+per token: the modulation becomes (B, S, 6, D) and the output shift and
+scale (B, S, D); a compact (B,) timestep broadcasts as (B, 1, D). The
+Wan2.1 I2V image branch (CLIP image tokens through image_dim / add_k) raises
+NotImplementedError: it arrives with the image encoder (ROADMAP.md item 9).
 """
 
 from __future__ import annotations
@@ -72,8 +76,8 @@ class WanConfig:
     num_layers: int = 40
     cross_attn_norm: bool = True
     eps: float = 1e-6
-    image_dim: Optional[int] = None          # I2V image branch: a later slice
-    added_kv_proj_dim: Optional[int] = None  # I2V image-KV branch: a later slice
+    image_dim: Optional[int] = None          # Wan2.1 I2V image branch: with the image encoder
+    added_kv_proj_dim: Optional[int] = None  # Wan2.1 I2V image-KV branch: the same
     text_len: int = 512                      # fixed text context length
     dense_layers: int = 0                    # the first N blocks attend densely
     # > 0: run the FFN, the output projections and the cross-attention over
@@ -93,7 +97,7 @@ class WanConfig:
     # per entry when > 1 (gather_super_attention), fine tables when 1
     # (gather_fine_attention)
     sparse_gather_superblock: int = 1
-    per_token_timestep: bool = False         # Wan2.2-TI2V: a later slice
+    per_token_timestep: bool = False         # Wan2.2-TI2V: a (B, S) timestep, temb per token
     quant: Optional[str] = "int8"            # block linears: None/"bf16" | "int8" | "fp8"
 
     @property
@@ -101,16 +105,15 @@ class WanConfig:
         return self.num_attention_heads * self.attention_head_dim
 
 
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not in this slice of the port (Wan2.2 "
-                               "text-to-video is); it arrives with a later slice")
+def _image_branch(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not in the port yet: it arrives with the image encoder (ROADMAP.md "
+        "item 9); Wan2.2 text-to-video, TI2V and channel-concat I2V run without it")
 
 
 def check_wan_config(cfg: WanConfig) -> None:
     if cfg.image_dim is not None or cfg.added_kv_proj_dim is not None:
-        raise _later_slice("the Wan image-conditioning branch (I2V, image_dim / add_k)")
-    if cfg.per_token_timestep:
-        raise _later_slice("per-token timesteps (Wan2.2-TI2V)")
+        raise _image_branch("the Wan2.1 I2V image-conditioning branch (image_dim / add_k)")
 
 
 def _param(t: Optional[Tensor]) -> Optional[nn.Parameter]:
@@ -214,7 +217,7 @@ def wan_load(src: TensorSource, cfg: WanConfig) -> WanTransformer:
     quantized to cfg.quant."""
     check_wan_config(cfg)
     if "condition_embedder.image_embedder.norm1.weight" in src:
-        raise _later_slice("the Wan image-conditioning branch (I2V checkpoint)")
+        raise _image_branch("the Wan2.1 I2V image-conditioning branch (image_embedder)")
     q = cfg.quant
     conv_w = src.tensor("patch_embedding.weight", torch.float32)  # (D, C, pt, ph, pw)
     # patch vector order (C, pt, ph, pw) matches wan_patchify
@@ -223,7 +226,7 @@ def wan_load(src: TensorSource, cfg: WanConfig) -> WanTransformer:
     for i in range(cfg.num_layers):
         p = f"blocks.{i}"
         if f"{p}.attn2.add_k_proj.weight" in src:
-            raise _later_slice("the Wan image-KV branch (add_k_proj)")
+            raise _image_branch("the Wan2.1 I2V image-KV branch (add_k_proj)")
         norm2 = None
         if cfg.cross_attn_norm:
             norm2 = (src.tensor(f"{p}.norm2.weight", torch.float32),
@@ -341,10 +344,15 @@ def _wan_cross_attention(attn: WanCrossAttention, x: Tensor, encoder: Tensor,
 
 def wan_block(block: WanBlock, hidden: Tensor, encoder: Tensor, temb6: Tensor, cos: Tensor,
               sin: Tensor, cfg: WanConfig, sparse_mask) -> Tensor:
-    """temb6: (B, 6, D); the modulation and the residual adds in f32."""
+    """temb6: (B, 6, D), or (B, S, 6, D) with cfg.per_token_timestep (S may be
+    1: a compact timestep); the modulation and the residual adds in f32."""
     mod = block.scale_shift_table[None] + temb6.float()
-    shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = (
-        mod[:, i][:, None] for i in range(6))
+    if cfg.per_token_timestep:  # six (B, S, D)
+        shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = (
+            mod[..., i, :] for i in range(6))
+    else:
+        shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = (
+            mod[:, i][:, None] for i in range(6))
     dt = hidden.dtype
 
     h32 = fp32_layer_norm(hidden, eps=cfg.eps)
@@ -398,7 +406,8 @@ def wan_unpatchify(cfg: WanConfig, tokens: Tensor, f: int, h: int, w: int) -> Te
 
 def wan_condition(params: WanTransformer, cfg: WanConfig, timestep: Tensor,
                   encoder_text: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """-> (temb (B, D), temb6 (B, 6D), encoder (B, S_txt, D))."""
+    """-> (temb (N, D), temb6 (N, 6D), encoder (B, S_txt, D)); the timestep is
+    flattened: N = B, or B*S for a per-token (B, S) timestep."""
     t_proj = get_timestep_embedding(timestep.reshape(-1).float(), cfg.freq_dim,
                                     flip_sin_to_cos=True, downscale_freq_shift=0.0)
     temb = params.time_embedder(t_proj.float()).to(encoder_text.dtype)
@@ -410,24 +419,33 @@ def wan_condition(params: WanTransformer, cfg: WanConfig, timestep: Tensor,
 def _wan_embed(params: WanTransformer, cfg: WanConfig, hidden_states: Tensor, timestep: Tensor,
                encoder_hidden_states: Tensor, encoder_hidden_states_image, rope_cos, rope_sin):
     """The preamble the plain and cached forwards share: RoPE tables (when
-    not given), patchify, conditioning -> (hidden, temb, temb6 (B, 6, D),
-    encoder, cos, sin)."""
+    not given), patchify, conditioning -> (hidden, temb, temb6, encoder, cos,
+    sin); temb6 is (B, 6, D), or (B, S, 6, D) and temb (B, S, D) with
+    cfg.per_token_timestep (S = 1 for a compact timestep)."""
     if encoder_hidden_states_image is not None:
-        raise _later_slice("the Wan image-conditioning branch (I2V)")
+        raise _image_branch("the Wan2.1 I2V image-conditioning branch (CLIP image tokens)")
     check_wan_config(cfg)
     b, _, f, h, w = hidden_states.shape
     if rope_cos is None:
         rope_cos, rope_sin = wan_rope_cos_sin(cfg, f, h, w, device=hidden_states.device)
     hidden = wan_patchify(params, cfg, hidden_states)
     temb, t6, encoder = wan_condition(params, cfg, timestep, encoder_hidden_states)
+    if cfg.per_token_timestep:
+        return (hidden, temb.reshape(b, -1, cfg.inner_dim), t6.reshape(b, -1, 6, cfg.inner_dim),
+                encoder, rope_cos, rope_sin)
     return hidden, temb, t6.reshape(b, 6, cfg.inner_dim), encoder, rope_cos, rope_sin
 
 
 def _wan_output(params: WanTransformer, cfg: WanConfig, hidden: Tensor, temb: Tensor,
                 fhw) -> Tensor:
-    """Output modulation (norm_out stays f32 through it), projection, unpatchify."""
-    mod = params.scale_shift_table[None] + temb.float()[:, None, :]
-    shift, scale = mod[:, 0][:, None], mod[:, 1][:, None]
+    """Output modulation (norm_out stays f32 through it; per token with
+    cfg.per_token_timestep), projection, unpatchify."""
+    if cfg.per_token_timestep:
+        mod = params.scale_shift_table[None, None] + temb.float()[:, :, None, :]
+        shift, scale = mod[:, :, 0], mod[:, :, 1]
+    else:
+        mod = params.scale_shift_table[None] + temb.float()[:, None, :]
+        shift, scale = mod[:, 0][:, None], mod[:, 1][:, None]
     h32 = fp32_layer_norm(hidden, eps=cfg.eps)
     hidden = (h32 * (1 + scale) + shift).to(hidden.dtype)
     return wan_unpatchify(cfg, params.proj_out(hidden), *fhw)
@@ -436,7 +454,7 @@ def _wan_output(params: WanTransformer, cfg: WanConfig, hidden: Tensor, temb: Te
 def wan_forward(
     params: WanTransformer, cfg: WanConfig,
     hidden_states: Tensor,          # (B, C, F, H, W) video latent
-    timestep: Tensor,               # (B,) train-timestep units (sigma * 1000)
+    timestep: Tensor,               # (B,) or per token (B, S), in units of sigma * 1000
     encoder_hidden_states: Tensor,  # (B, text_len, text_dim)
     encoder_hidden_states_image: Optional[Tensor] = None,
     rope_cos: Optional[Tensor] = None,

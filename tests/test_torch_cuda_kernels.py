@@ -9,10 +9,11 @@ Tolerances: rotembd bit-exact in both pair layouts (same f32 operations, no
 contraction, one rounding); rmsnorm within one bf16 ulp (rsqrt vs 1/sqrt, f32
 sums in another order) on each of its kernel's paths; sdpa (f32 sums in
 another order; p rounded to bf16 in both) within 1e-2 + 1e-2*|x| on the small
-cases (ragged, causal with sq < skv, GQA, 77 keys, q|k|v slices of one fused
-projection at D 64, a softmax scale <= 0), and on the FLUX-heads and
-Wan-dense cases, whose outputs average 1100 and 32760 keys and are small,
-within 1e-3 + 2 bf16 ulp of |x| and relative L2 5e-3. The W8A8
+cases (ragged, causal with sq < skv, GQA, 77 and 512 keys, q|k|v slices of
+one fused projection at D 64, a softmax scale <= 0), and on the FLUX-heads,
+Wan-dense and Wan5B self-attention cases, whose outputs average 1100, 32760
+and 17856 keys and are small, within 1e-3 + 2 bf16 ulp of |x| and relative
+L2 5e-3. The W8A8
 kernels: both quantizers (q, scale, zp) and the int8 GEMM bit-exact (integer
 math, correctly rounded divisions, the epilogue in the same order without
 contraction); the fp8 GEMM (f32 sums in another order) within 1 bf16 ulp of
@@ -54,9 +55,13 @@ SDPA_CASES = {
     # Wan2.2-A14B's dense self-attention at 480x832x81: 255 KV tiles of 128
     # and a tail of 120 through the ring
     "wan-dense": (1, 32760, 32760, 40, 40, 128, False),
+    # Wan2.2-TI2V-5B at 768x768x121: self-attention on 17856 tokens (139
+    # tiles of 128 and a tail of 64), cross-attention on the 512 text keys
+    "wan5b-self": (1, 17856, 17856, 24, 24, 128, False),
+    "wan5b-cross": (1, 17856, 512, 24, 24, 128, False),
 }
 # cases whose outputs average many keys, held as FLUX's
-LONG_SDPA_CASES = {"flux-heads", "wan-dense"}
+LONG_SDPA_CASES = {"flux-heads", "wan-dense", "wan5b-self"}
 # cases whose q|k|v are column slices of one fused (B, S, (hq + 2 hkv) * d) projection
 FUSED_SDPA_CASES = {"fused-d64"}
 
@@ -1054,3 +1059,59 @@ def test_sparse_walk_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         cuda_backend.gather_fine_attention_cuda(q, q, q, idx[:, 0].contiguous(), idx[:, 0].
                                                 contiguous(), rows, 2, 2, 128, block_q=128,
                                                 group=1, fine=32)
+
+
+# Wan2.2-TI2V-5B's W8A8 linears at 768x768x121 (17856 video tokens, 512 text
+# tokens, width 3072, FFN 14336): (M, K, N)
+WAN5B_W8A8 = {"qkv": (17856, 3072, 9216), "proj": (17856, 3072, 3072),
+              "text-kv": (512, 3072, 6144), "ffn-in": (17856, 3072, 14336),
+              "ffn-out": (17856, 14336, 3072)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(WAN5B_W8A8))
+def test_int8_kernels_bit_exact_at_wan5b_shapes(cuda_device, shape):
+    """The per-token int8 quantizer and the int8 GEMM (with and without the
+    zero point) at every W8A8 shape of a Wan2.2-TI2V-5B forward: bit-exact."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    m, k, n = WAN5B_W8A8[shape]
+    a, sa, azp, lin = _w8a8_operands("int8", m, k, n, cuda_device)
+    x = (torch.randn(m, k, generator=torch.Generator(device=cuda_device).manual_seed(5),
+                     device=cuda_device) * 3).bfloat16()
+    for got, want in zip(cuda_backend.quantize_to_int8_cuda(x, symmetric=False),
+                         torch_backend.quantize_to_int8_torch(x, symmetric=False)):
+        assert torch.equal(got, want)
+    for zp in (azp, None):
+        args = (a, lin.w, sa, lin.scale, torch.bfloat16, lin.colsum, zp, lin.bias)
+        assert torch.equal(cuda_backend.int8_matmul_cuda(*args),
+                           torch_backend.int8_matmul_torch(*args))
+
+
+@pytest.mark.gpu
+def test_wan5b_qk_norm_rope_and_rmsnorm_on_card(cuda_device):
+    """Wan2.2-TI2V-5B's fused q|k norm + 3D RoPE on the (1, 17856, 9216) QKV
+    with its 31 x 24 x 24 patch tables (3072-wide rows, one block per token)
+    in both pair layouts, and the cross-attention's rmsnorm on 3072-wide q
+    rows and on k read in place from the fused text K|V, at the tolerances
+    above."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+    from fastdm_tpu_torch.models.wan import WanConfig, wan_rope_cos_sin
+
+    cfg = WanConfig(num_attention_heads=24, attention_head_dim=128)
+    d, hd = cfg.inner_dim, cfg.attention_head_dim
+    cos, sin = wan_rope_cos_sin(cfg, 31, 48, 48, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    qkv = (torch.randn(1, 17856, 3 * d, generator=g, device=cuda_device) * 2).bfloat16()
+    gq = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).bfloat16()
+    gk = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).bfloat16()
+    for neox in (False, True):
+        got = cuda_backend.qk_norm_rope_cuda(qkv, gq, gk, hd, cos, sin, neox, inner_dim=d)
+        want = torch_backend.qk_norm_rope_torch(qkv, gq, gk, hd, cos, sin, neox, inner_dim=d)
+        for a, w in zip(got, want):
+            assert (_pair_ulp_excess(a, w, hd if neox else 0) <= 0).all(), neox
+    kv = torch.randn(1, 512, 2 * d, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    for x in (qkv[..., :d].contiguous(), kv[..., :d]):
+        got = cuda_backend.rms_norm_cuda(x, gq, 1e-6).float()
+        want = torch_backend.rms_norm_torch(x, gq, 1e-6).float()
+        assert ((got - want).abs() <= _bf16_ulp(want)).all()

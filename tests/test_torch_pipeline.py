@@ -355,7 +355,7 @@ def test_engine_rejects_what_later_slices_bring(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="pack_int4 requires use_int4"):
         FastDMEngine(root, pack_int4=True, device="cpu")  # int4 arrived; its flag checks hold
     with pytest.raises(NotImplementedError):
-        FastDMEngine(root, architecture="wan2.2-ti2v", device="cpu")
+        FastDMEngine(root, architecture="wan2.1-i2v", device="cpu")
     eng = FastDMEngine(root, verbose=False, device="cpu")
     with pytest.raises(NotImplementedError, match="text encoders"):
         eng.generate(prompt="a cat")

@@ -245,11 +245,8 @@ def test_rope_tables_match_jax():
 
 def test_later_slices_raise(models):
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="I2V"):
+    with pytest.raises(NotImplementedError, match="I2V.*image encoder"):
         twan.wan_init_random(0, dataclasses.replace(tcfg, image_dim=32), device="cpu")
-    with pytest.raises(NotImplementedError, match="TI2V"):
-        twan.wan_init_random(0, dataclasses.replace(tcfg, per_token_timestep=True),
-                             device="cpu")
     video, text = _inputs(0)
     args = (torch.from_numpy(video).bfloat16(), torch.full((1,), 1.0),
             torch.from_numpy(text).bfloat16())
@@ -443,7 +440,10 @@ def test_engine_without_a_vae_returns_latents_and_says_so(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="UMT5"):
         eng.generate(prompt="a cat", height=64, width=64)
     with pytest.raises(NotImplementedError, match="t2v"):
-        eng.generate(task="i2v", prompt_embeds=pos, negative_prompt_embeds=neg)
+        eng.generate(task="v2v", prompt_embeds=pos, negative_prompt_embeds=neg)
+    with pytest.raises(RuntimeError, match="needs the Wan VAE"):
+        eng.generate(task="i2v", image=np.zeros((64, 64, 3), np.uint8), prompt_embeds=pos,
+                     negative_prompt_embeds=neg, height=64, width=64, num_frames=5)
     with pytest.raises(ValueError, match="FBCache / DiCache"):
         FastDMEngine(str(tmp_path), architecture="wan", device="cpu", verbose=False,
                      cache_config={"cache_algorithm": "teacache", "enable_caching": True})

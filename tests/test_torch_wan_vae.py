@@ -15,6 +15,7 @@ full decode to 1e-4 + 1e-4*|x| in float32 (the same windows); weights loaded
 by both loaders, bit for bit.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -95,7 +96,7 @@ def test_wan_vae_load_matches_jax_loader(monkeypatch):
     via_jax = wan_vae_params_from_numpy(jax.device_get(jparams), device="cpu")
     flat = lambda t: dict(_leaves(t))  # noqa: E731
     got, want = flat(tparams), flat(via_jax)
-    assert got.keys() == want.keys() and "encoder" not in tparams
+    assert got.keys() == want.keys() and "encoder" in tparams
     for k in got:
         assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
 
@@ -111,10 +112,16 @@ def _leaves(node, prefix=""):
         yield prefix, node
 
 
+def _random_vae(seed, cfg):
+    return {**tvae.wan_vae_decoder_random(seed, cfg, device="cpu"),
+            **tvae.wan_vae_encoder_random(seed + 1, cfg, device="cpu")}
+
+
 def test_wan_vae_decoder_random_has_the_loader_layout():
-    """Seeded, and the same tree, shapes and dtypes as a loaded decoder."""
+    """Seeded, and with the random encoder the same tree, shapes and dtypes
+    as a loaded VAE."""
     cfg = _tcfg(TINY)
-    a, b = (tvae.wan_vae_decoder_random(3, cfg, device="cpu") for _ in range(2))
+    a, b = (_random_vae(3, cfg) for _ in range(2))
     loaded = tvae.wan_vae_load(TSource(_mk_diffusers_state_dict(TINY), device="cpu"), cfg)
     la, lb, ll = dict(_leaves(a)), dict(_leaves(b)), dict(_leaves(loaded))
     assert la.keys() == ll.keys()
@@ -132,6 +139,20 @@ def test_wan_vae_decode_frame_layout():
             (1, 1 + 4 * (f - 1), 16, 24, 3)
 
 
-def test_residual_vae_waits_for_ti2v():
-    with pytest.raises(NotImplementedError, match="ti2v"):
-        tvae.wan_vae_decoder_random(0, tvae.WanVAEConfig(is_residual=True), device="cpu")
+def test_residual_vae_decoder_random_has_the_loader_layout():
+    """The Wan2.2 layout (residual, 2x2 pixel patches): the random decoder and
+    encoder have a loaded VAE's tree, shapes and dtypes; the upsample convs
+    keep their channels and conv_out gives 3 * 2 * 2 channels."""
+    from test_wan_vae import RES_TINY, _mk_residual_state_dict
+
+    jcfg = dataclasses.replace(RES_TINY, patch_size=2)
+    cfg = tvae.WanVAEConfig(**{f: getattr(jcfg, f) for f in FIELDS},
+                            patch_size=2, is_residual=True)
+    rand = dict(_leaves(_random_vae(4, cfg)))
+    loaded = dict(_leaves(tvae.wan_vae_load(TSource(_mk_residual_state_dict(jcfg),
+                                                    device="cpu"), cfg)))
+    assert rand.keys() == loaded.keys()
+    for k in rand:
+        assert rand[k].shape == loaded[k].shape and rand[k].dtype == loaded[k].dtype, k
+    assert rand[".decoder.up.0.upsample.w"].shape[:2] == (cfg.decoder_dims[1],) * 2
+    assert rand[".decoder.conv_out.w"].shape[0] == 12
