@@ -50,7 +50,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      same forward on the plain versions and to the forward with only the
      W8A8 / W4A4 ops on their plain versions (bit-identical for int8 and
      int4p). On the int4p model: a request under dicache_flux.json and forced
-     FBCache / DiCache skips that must replay the cached residual.
+     FBCache / DiCache skips that must replay the cached residual. On the
+     int8 model, the image-conditioned requests: SDEdit at 1024x2048 (the
+     full-size AutoencoderKL encoder, strength 0.6 of 4 steps: steps 1-3, the
+     first computed under TeaCache, which counts from the loop's start) with
+     its decode also tiled, and FLUX-Kontext at 1024x1024 with one 1024x1024
+     reference (8704 tokens); launches per computed forward from
+     flux_forward_launches.
   3. wan: frees FLUX, draws the two Wan2.2-T2V-A14B experts in int8 at full
      width and depth (40 blocks, 40x128 heads) from seeds and serves one
      480x832, 81-frame request through make_wan_dual_phase_denoiser (UniPC
@@ -92,7 +98,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      on a singleton frame; launches from qwen_forward_launches (600 of each
      W4A4 op, 240 rmsnorm, 60 rotembd, 60 sdpa per computed forward, plus the
      txt_norm rmsnorm and TeaCache's W4A4 probe every step); one forward held
-     to the plain one, and bit for bit to the one with only the W4A4 ops plain.
+     to the plain one, and bit for bit to the one with only the W4A4 ops plain;
+     then a Qwen-Image-Edit request: one 1024x1024 source through the
+     full-size Wan2.1-layout VAE encoder, its tokens after the 1024x1024
+     noise's, true CFG 4.0 on two TeaCache streams, 4 steps.
   wan5b: frees Qwen, draws Wan2.2-TI2V-5B int8 at full width and depth (30
      blocks, 24x128 heads, ffn 14336, per-token timesteps) from a seed: one
      768x768x121 forward with the TI2V per-token timestep, launches exactly
@@ -121,7 +130,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
      in its config.json, the checkpoint's 384x384 position table, full-size
      VAE) with use_int8 and Qwen-Image (full width, two blocks, the full-size
      Wan-layout VAE with base_dim in its config.json) with use_int4,
-     pack_int4 and quant_mods, one 1024x2048 generate each.
+     pack_int4 and quant_mods, one 1024x2048 generate each. Every vae/ holds
+     the encoder too: FLUX (as flux, and int8 as flux-kontext), SD3.5, SDXL
+     and qwen-image-edit (through the Wan-layout VAE, then on a bf16 engine
+     through an AutoencoderKL vae/) each run one task="i2i" generate on a
+     1000x2040 image (not a multiple of 16: the log names the
+     _resize_to_multiple branch), with launches derived per computed
+     forward; the fp8 FLUX engine generates 1024x2048 after
+     enable_vae_tiling(). An [img2img] line after [done] sums up the
+     image-conditioned requests.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -136,6 +153,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
@@ -202,6 +220,17 @@ WAN5B_H, WAN5B_W, WAN5B_FRAMES, WAN5B_STEPS, WAN5B_CFG = 768, 768, 121, 4, 5.0
 # Wan2.2-I2V-A14B i2v at WAN_H x WAN_W x WAN_FRAMES: two experts cut to 2
 # blocks each, 2 steps (one per expert)
 I2V_LAYERS, I2V_STEPS = 2, 2
+# Image-conditioned requests on the phase-2 int8 FLUX.1-dev and the qwen
+# phase's Qwen-Image: SDEdit at 1024x2048 (strength 0.6 of 4 steps: the loop
+# runs steps 1..3), FLUX-Kontext at 1024x1024 with one 1024x1024 reference
+# (4096 noise + 4096 reference + 512 text = 8704 tokens, guidance 2.5, 4
+# steps), Qwen-Image-Edit at 1024x1024 with one 1024x1024 source (4096 + 4096
+# image tokens, true CFG 4.0, TeaCache 0.1, 4 steps)
+SDEDIT_H, SDEDIT_W, SDEDIT_STRENGTH = 1024, 2048, 0.6
+KONTEXT_SIZE, KONTEXT_GUIDANCE = 1024, 2.5
+EDIT_SIZE, EDIT_CFG = 1024, 4.0
+# phase 4's input images: sides that are not multiples of 16
+ENGINE_IMAGE_H, ENGINE_IMAGE_W = 1000, 2040
 
 
 def log(*a):
@@ -1301,9 +1330,11 @@ def _launch_counts():
             "gelu_and_mul": cb.gelu_and_mul_cuda.launches}
 
 
-def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
+def _serve_path(dev, quant, seeds, vae, vae_cfg, summary: dict) -> dict:
     """FLUX.1-dev at full width in one weight format: requests, launch check,
-    kernel forward vs plain forward. Returns the launches of the path's kernels."""
+    kernel forward vs plain forward (int8: also the image-conditioned
+    requests, their numbers into `summary`). Returns the launches of the
+    path's kernels."""
     import torch
 
     from fastdm_tpu_torch.caching.config import TeaCacheConfig
@@ -1416,6 +1447,8 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg) -> dict:
     del out_k, out_p
     if quant == "int4p":
         _flux_step_caches(dev, params, cfg, sched, cos, sin, x, encoder, pooled, t, guidance)
+    if quant == "int8":
+        _flux_image_requests(dev, params, cfg, vae, vae_cfg, sched, cos, sin, summary)
     del params
     torch.cuda.empty_cache()
     return mine
@@ -1501,18 +1534,178 @@ def _flux_step_caches(dev, params, cfg, sched, cos, sin, x, encoder, pooled, t,
         del out0, out1, replay
 
 
-def phase_slice(dev) -> dict:
+def flux_forward_launches(cfg) -> dict:
+    """Kernel launches of one computed FLUX forward in bf16 or W8A8 without
+    quant_mods, whatever its token count: per dual block four rmsnorm (q, k
+    of each stream), one rotembd, one sdpa and 8 W8A8 linears, per single
+    block two rmsnorm, one rotembd, one sdpa and 2 W8A8 linears. A TeaCache
+    skip launches nothing (its probe is a bf16 modulation)."""
+    counts = dict.fromkeys(_launch_counts(), 0)
+    d, s = cfg.num_layers, cfg.num_single_layers
+    counts.update(rmsnorm=4 * d + 2 * s, rotembd=d + s, sdpa=d + s)
+    if cfg.quant is not None:
+        counts[f"quantize_to_{cfg.quant}"] = counts[f"{cfg.quant}_matmul"] = 8 * d + 2 * s
+    return counts
+
+
+def _seeded_image(seed: int, h: int, w: int):
+    """A (h, w, 3) uint8 image drawn on the host from a seed."""
+    import numpy as np
+
+    return (np.random.default_rng(seed).random((h, w, 3)) * 255).astype(np.uint8)
+
+
+def _timed(fn, *a, **k):
+    """(fn's result, its device-synced seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _flux_image_requests(dev, params, cfg, vae, vae_cfg, sched, cos, sin, summary) -> None:
+    """On the full-depth int8 FLUX.1-dev: an SDEdit request at 1024x2048
+    (the full-size AutoencoderKL encoder, strength 0.6 of 4 steps from
+    start_step 1, TeaCache counting from the loop's start, so its first step
+    is computed) and a Kontext request at 1024x1024 with one 1024x1024
+    reference (8704 tokens); launches equal to flux_forward_launches per
+    computed forward; encode, request, one Kontext forward and the tiled
+    decode timed; peak memory."""
+    import torch
+
+    from fastdm_tpu_torch.caching.config import TeaCacheConfig
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.flux import flux_forward, flux_rope_cache
+    from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents, \
+        make_flux_denoiser, make_flux_kontext_denoiser
+    from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, \
+        flow_match_shift_mu
+    from fastdm_tpu_torch.pipeline.vae import vae_decode, vae_decode_tiled, vae_encode
+
+    per = flux_forward_launches(cfg)
+    resident = torch.cuda.memory_allocated() / 2**30
+
+    def encode(img_u8):
+        x = torch.from_numpy(img_u8).to(dev).float()[None] / 127.5 - 1.0
+        torch.cuda.reset_peak_memory_stats()
+        z, sec = _timed(vae_encode, vae["encoder"], vae_cfg, x)
+        return z, sec, torch.cuda.max_memory_allocated() / 2**30
+
+    # SDEdit at 1024x2048
+    ht, wt = SDEDIT_H // 16, SDEDIT_W // 16
+    start = min(int(STEPS * (1 - SDEDIT_STRENGTH)), STEPS - 1)
+    run = make_flux_denoiser(cfg, sched, STEPS, TeaCacheConfig(**TEACACHE), 3.5, start)
+    latents, encoder, pooled = _conditioning(dev, 24, cfg, ht * wt)
+    z, enc_sec, enc_peak = encode(_seeded_image(25, SDEDIT_H, SDEDIT_W))
+    log(f"[slice int8 sdedit] full-size AutoencoderKL encode {SDEDIT_H}x{SDEDIT_W} -> "
+        f"{tuple(z.shape)}: {enc_sec:.3f} s, peak {enc_peak:.2f} GiB ({resident:.2f} resident)")
+    sig = float(sched.sigmas[start])
+    init = (1.0 - sig) * flux_pack_latents(z) + sig * latents
+    computed = []  # per forward: did the blocks after the TeaCache probe run?
+    hooks = [params.x_embedder.register_forward_hook(lambda *_: computed.append(False)),
+             params.single_blocks[0].register_forward_hook(
+                 lambda *_: computed.__setitem__(-1, True))]
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    (lat, skips), den_sec = _timed(run, params, init, encoder, pooled, cos, sin)
+    counts = _launch_counts()
+    for hk in hooks:
+        hk.remove()
+    img, dec_sec = _timed(vae_decode, vae, vae_cfg, flux_unpack_latents(lat, ht, wt))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = STEPS - start
+    want = {k: v * (n - skips) for k, v in per.items()}
+    finite = bool(torch.isfinite(img).all())
+    log(f"[slice int8 sdedit] request {SDEDIT_H}x{SDEDIT_W} strength {SDEDIT_STRENGTH}: steps "
+        f"{start}..{STEPS - 1} at sigma {sig:.4f}, {enc_sec + den_sec + dec_sec:.3f} s (encode "
+        f"{enc_sec:.3f}, denoise {den_sec:.3f}, decode {dec_sec:.3f}), TeaCache skipped "
+        f"{skips}/{n}, forwards computed {computed}, image {tuple(img.shape)} finite={finite}, "
+        f"peak {peak:.2f} GiB; launches {counts} (derived {n - skips} x per forward)")
+    if (not finite or tuple(img.shape) != (1, SDEDIT_H, SDEDIT_W, 3) or len(computed) != n
+            or not computed[0] or counts != want):
+        raise AssertionError(f"SDEdit request: forwards {computed}, launches {counts} != {want}")
+    # the same latents through the tiled decode (64-latent tiles, 25% overlap)
+    torch.cuda.reset_peak_memory_stats()
+    tiled, tiled_sec = _timed(vae_decode_tiled, vae, vae_cfg, flux_unpack_latents(lat, ht, wt))
+    tiled_peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = ((tiled - img).norm() / img.norm()).item()
+    log(f"[slice int8 sdedit] tiled decode {SDEDIT_H}x{SDEDIT_W}: {tiled_sec:.3f} s, peak "
+        f"{tiled_peak:.2f} GiB (untiled {dec_sec:.3f} s, peak {peak:.2f}); relative L2 to the "
+        f"untiled image {rel:.3e} (the seams), finite {bool(torch.isfinite(tiled).all())}")
+    if not torch.isfinite(tiled).all() or tiled.shape != img.shape:
+        raise AssertionError("the tiled decode failed")
+    summary.update(encode_1024x2048_s=round(enc_sec, 4),
+                         encode_1024x2048_peak_gib=round(enc_peak, 2),
+                         sdedit_request_s=round(enc_sec + den_sec + dec_sec, 4),
+                         sdedit_skips=skips, decode_1024x2048_s=round(dec_sec, 4),
+                         tiled_decode_1024x2048_s=round(tiled_sec, 4),
+                         tiled_decode_peak_gib=round(tiled_peak, 2),
+                         untiled_decode_peak_gib=round(peak, 2))
+    del img, tiled, lat, init, z
+
+    # Kontext: 1024x1024 with one 1024x1024 reference
+    kt = KONTEXT_SIZE // 16
+    z, enc_sec, enc_peak = encode(_seeded_image(26, KONTEXT_SIZE, KONTEXT_SIZE))
+    log(f"[slice int8 kontext] full-size AutoencoderKL encode {KONTEXT_SIZE}x{KONTEXT_SIZE}: "
+        f"{enc_sec:.3f} s, peak {enc_peak:.2f} GiB ({resident:.2f} resident)")
+    ref = flux_pack_latents(z)
+    kcos, ksin = flux_rope_cache(cfg, TXT_TOKENS, kt, kt, ref_tokens_hw=(kt, kt), device=dev)
+    ksched = FlowMatchEulerScheduler.create(STEPS, use_dynamic_shifting=True,
+                                            mu=flow_match_shift_mu(kt * kt))
+    krun = make_flux_kontext_denoiser(cfg, ksched, STEPS, None, KONTEXT_GUIDANCE)
+    latents, encoder, pooled = _conditioning(dev, 27, cfg, kt * kt)
+    tokens = TXT_TOKENS + kt * kt + ref.shape[1]
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    (lat, _), den_sec = _timed(krun, params, latents, ref, encoder, pooled, kcos, ksin)
+    counts = _launch_counts()
+    img, dec_sec = _timed(vae_decode, vae, vae_cfg, flux_unpack_latents(lat, kt, kt))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: v * STEPS for k, v in per.items()}
+    finite = bool(torch.isfinite(img).all())
+    log(f"[slice int8 kontext] request {KONTEXT_SIZE}x{KONTEXT_SIZE} + one reference "
+        f"({tokens} tokens, cos {tuple(kcos.shape)}), guidance {KONTEXT_GUIDANCE}, {STEPS} "
+        f"steps: {enc_sec + den_sec + dec_sec:.3f} s (encode {enc_sec:.3f}, denoise "
+        f"{den_sec:.3f}, decode {dec_sec:.3f}), image {tuple(img.shape)} finite={finite}, peak "
+        f"{peak:.2f} GiB; launches {counts} (derived {STEPS} x per forward)")
+    if (not finite or tuple(img.shape) != (1, KONTEXT_SIZE, KONTEXT_SIZE, 3)
+            or kcos.shape[0] != tokens or counts != want):
+        raise AssertionError(f"Kontext request: launches {counts} != derived {want}")
+    # one Kontext forward at 8704 tokens on the kernels
+    x = torch.cat([latents.to(torch.bfloat16), ref.to(torch.bfloat16)], dim=1)
+    t = torch.full((1,), float(ksched.sigmas[0]), device=dev)
+    g = torch.full((1,), KONTEXT_GUIDANCE, device=dev)
+    with torch.inference_mode():
+        flux_forward(params, cfg, x, encoder, pooled, t, kcos, ksin, g)  # warm
+        out, fwd_sec = _timed(flux_forward, params, cfg, x, encoder, pooled, t, kcos, ksin, g)
+    log(f"[slice int8 kontext] one forward at {tokens} tokens: {fwd_sec:.3f} s, output "
+        f"{tuple(out.shape)} finite {bool(torch.isfinite(out).all())}")
+    summary.update(encode_1024x1024_s=round(enc_sec, 4),
+                         encode_1024x1024_peak_gib=round(enc_peak, 2),
+                         kontext_request_s=round(enc_sec + den_sec + dec_sec, 4),
+                         kontext_forward_s=round(fwd_sec, 4), flux_int8_peak_gib=round(peak, 2))
+    del img, lat, out, x, ref, z
+    torch.cuda.empty_cache()
+
+
+def phase_slice(dev, summary: Optional[dict] = None) -> dict:
     """Every weight format's path; returns {kernel: launches} (the bf16 path's
     counts for the first slice's kernels, each W8A8 path's for its own)."""
     import torch
 
-    from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decoder_random
+    from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decoder_random, \
+        vae_encoder_random
 
     vae_cfg = VAEConfig(latent_channels=16)
     vae = vae_decoder_random(1, vae_cfg, device=dev)
+    vae["encoder"] = vae_encoder_random(2, vae_cfg, device=dev)  # the SDEdit / Kontext requests
     launches = {}
     for quant, seeds in PATHS:
-        for k, v in _serve_path(dev, quant, seeds, vae, vae_cfg).items():
+        for k, v in _serve_path(dev, quant, seeds, vae, vae_cfg,
+                                {} if summary is None else summary).items():
             launches.setdefault(k, v)
     del vae
     torch.cuda.empty_cache()
@@ -2564,7 +2757,7 @@ def phase_sd35(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_qwen(dev) -> None:
+def phase_qwen(dev, summary: Optional[dict] = None) -> None:
     """Qwen-Image int4p with quant_mods at full width and depth (60 blocks,
     24x128 heads, random weights from a seed) serving 1024x2048 requests
     through make_qwen_denoiser as bench.py's main_qwen does (true CFG 1.0,
@@ -2649,8 +2842,78 @@ def phase_qwen(dev) -> None:
             return qwen_forward(params, cfg, x, embeds, t, cos, sin).float()
 
     _forward_gate("qwen int4p", forward, QWEN_FORWARD_REL_L2_TOL, W4A4_OPS)
+    del x
+    _qwen_edit_request(dev, params, cfg, vae, vae_cfg, tea, {} if summary is None else summary)
     del params, vae
     torch.cuda.empty_cache()
+
+
+def _qwen_edit_request(dev, params, cfg, vae, vae_cfg, tea, summary) -> None:
+    """Qwen-Image-Edit on the resident int4p quant_mods model: one 1024x1024
+    source encoded by the full-size Wan2.1-layout VAE encoder (one frame),
+    its 4096 tokens after the 4096 noise tokens, true CFG 4.0 on two
+    TeaCache streams (0.1, teacache_qwenimage.json's polynomial), 4 steps;
+    launches from qwen_forward_launches per forward; one edit forward timed."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.qwenimage import qwen_forward, qwen_rope_cos_sin
+    from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents
+    from fastdm_tpu_torch.pipeline.denoise_qwen import make_qwen_edit_denoiser
+    from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, \
+        flow_match_shift_mu
+    from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_decode, wan_vae_encode, \
+        wan_vae_encoder_random
+
+    vae = dict(vae, **wan_vae_encoder_random(11, vae_cfg, device=dev))
+    ht = EDIT_SIZE // 16
+    x = torch.from_numpy(_seeded_image(73, EDIT_SIZE, EDIT_SIZE)).to(dev).float() / 127.5 - 1
+    torch.cuda.reset_peak_memory_stats()
+    z, enc_sec = _timed(wan_vae_encode, vae, vae_cfg, x[None, None])
+    enc_peak = torch.cuda.max_memory_allocated() / 2**30
+    src = flux_pack_latents(z[:, :, 0])
+    log(f"[qwen edit] full-size Wan2.1-layout VAE encode of one {EDIT_SIZE}x{EDIT_SIZE} frame "
+        f"-> {tuple(z.shape)}: {enc_sec:.3f} s, peak {enc_peak:.2f} GiB")
+    cos, sin = qwen_rope_cos_sin(cfg, 1, ht, ht, QWEN_TEXT, extra_shapes=((1, ht, ht),),
+                                 device=dev)
+    sched = FlowMatchEulerScheduler.create(QWEN_STEPS, use_dynamic_shifting=True,
+                                           mu=flow_match_shift_mu(ht * ht))
+    run = make_qwen_edit_denoiser(cfg, sched, QWEN_STEPS, EDIT_CFG, tea)
+    g = torch.Generator(device=dev).manual_seed(74)
+    latents = torch.randn(1, ht * ht, cfg.in_channels, generator=g, device=dev)
+    pos, neg = (torch.randn(1, QWEN_TEXT, cfg.joint_attention_dim, generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    (lat, skips), den_sec = _timed(run, params, latents, src, pos, neg, cos, sin)
+    counts = _launch_counts()
+    img, dec_sec = _timed(lambda: wan_vae_decode(
+        vae, vae_cfg, flux_unpack_latents(lat, ht, ht)[:, :, None])[:, 0])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    forwards = 2 * QWEN_STEPS  # true CFG: the positive and the negative stream
+    computed, every = qwen_forward_launches(cfg, teacache=True)
+    want = {k: computed[k] * (forwards - skips) + every[k] * forwards for k in computed}
+    finite = bool(torch.isfinite(img).all())
+    log(f"[qwen edit] request {EDIT_SIZE}x{EDIT_SIZE} + one source ({QWEN_TEXT} + {ht * ht} + "
+        f"{src.shape[1]} tokens), true CFG {EDIT_CFG}, TeaCache {QWEN_TEACACHE_THRESHOLD}, "
+        f"{QWEN_STEPS} steps: {enc_sec + den_sec + dec_sec:.3f} s (encode {enc_sec:.3f}, "
+        f"denoise {den_sec:.3f}, decode {dec_sec:.3f}), skipped {skips}/{forwards} forwards, "
+        f"image {tuple(img.shape)} finite={finite}, peak {peak:.2f} GiB; launches {counts}")
+    if not finite or tuple(img.shape) != (1, EDIT_SIZE, EDIT_SIZE, 3) or counts != want:
+        raise AssertionError(f"Qwen-Image-Edit request: launches {counts} != derived {want}")
+    xin = torch.cat([latents.to(torch.bfloat16), src.to(torch.bfloat16)], dim=1)
+    t = torch.full((1,), float(sched.sigmas[0]), device=dev)
+    with torch.inference_mode():
+        qwen_forward(params, cfg, xin, pos, t, cos, sin)  # warm
+        out, fwd_sec = _timed(qwen_forward, params, cfg, xin, pos, t, cos, sin)
+    log(f"[qwen edit] one forward at {QWEN_TEXT} + {xin.shape[1]} tokens: {fwd_sec:.3f} s, "
+        f"finite {bool(torch.isfinite(out).all())}")
+    summary.update(qwen_edit_encode_s=round(enc_sec, 4),
+                         qwen_edit_encode_peak_gib=round(enc_peak, 2),
+                         qwen_edit_request_s=round(enc_sec + den_sec + dec_sec, 4),
+                         qwen_edit_skips=skips, qwen_edit_forward_s=round(fwd_sec, 4),
+                         qwen_edit_peak_gib=round(peak, 2))
+    del img, lat, out, xin, src, z
 
 
 # ------------------------------------------------------------------ wan5b
@@ -3035,7 +3298,7 @@ def _write_sd35_checkpoint(root: str, dev) -> None:
     widths with one dual, one standard and the last block (transformer/
     config.json with dual_attention_layers [0]), pos_embed.pos_embed as the
     full 384 x 384 f32 table, and the full-size 16-channel AutoencoderKL
-    decoder in vae/."""
+    (decoder and encoder) in vae/."""
     import torch
     from safetensors.torch import save_file
 
@@ -3123,23 +3386,28 @@ def _write_qwen_checkpoint(root: str, dev) -> None:
     _write_wan_vae(root, dev, 15)
 
 
-def _engine_mmdit(dev, here: str) -> None:
+def _engine_mmdit(dev, here: str, summary: dict) -> None:
     """FastDMEngine on the synthetic SD3.5-medium checkpoint with use_int8 (one
-    1024x2048 CFG generate) and on the synthetic Qwen-Image checkpoint with
-    use_int4, pack_int4 and quant_mods (quantize_weight's SVDQuant split on
-    the card; one 1024x2048 generate, true CFG 1.0, decoded by the Wan VAE
-    route its vae/config.json names); launches as derived per step."""
+    1024x2048 CFG generate, then an SDEdit i2i) and on the synthetic
+    Qwen-Image checkpoint as qwen-image-edit with use_int4, pack_int4 and
+    quant_mods (quantize_weight's SVDQuant split on the card; one 1024x2048
+    t2i generate, true CFG 1.0, decoded by the Wan VAE route its
+    vae/config.json names; then an edit through that VAE and, on a bf16
+    engine, through an AutoencoderKL vae/); launches as derived per step."""
+    import shutil
     import tempfile
 
     import numpy as np
     import torch
+    from safetensors.torch import save_file
 
     from fastdm_tpu_torch.engine import FastDMEngine
     from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.pipeline.vae import VAEConfig
     from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig
 
     for arch, writer, flags in (("sd35", _write_sd35_checkpoint, {"use_int8": True}),
-                                ("qwen-image", _write_qwen_checkpoint,
+                                ("qwen-image-edit", _write_qwen_checkpoint,
                                  {"use_int4": True, "pack_int4": True, "quant_mods": True})):
         with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
             t0 = time.perf_counter()
@@ -3148,7 +3416,7 @@ def _engine_mmdit(dev, here: str) -> None:
             log(f"[engine {arch}] wrote the synthetic checkpoint (transformer/ {size / 1e9:.2f} "
                 f"GB, full-size vae/) in {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
-            eng = FastDMEngine(root, architecture=arch, verbose=False, device=dev, **flags)
+            eng = FastDMEngine(root, architecture=arch, verbose=False, **flags)
             torch.cuda.synchronize()
             cfg = eng.cfg
             g = torch.Generator(device=dev).manual_seed(400)
@@ -3195,6 +3463,25 @@ def _engine_mmdit(dev, here: str) -> None:
                 raise AssertionError(f"the {arch} generate returned "
                                      f"{getattr(img, 'shape', type(img))}, launches {counts} != "
                                      f"derived {want}")
+            if arch == "sd35":
+                _engine_i2i(eng, "engine sd35", sd35_forward_launches(cfg), kw, 16, summary)
+            else:
+                # Qwen-Image-Edit through the Wan-layout VAE, then through an
+                # AutoencoderKL vae/ (no base_dim) on a bf16 engine
+                per = {k: computed[k] + every[k] for k in computed}
+                _engine_i2i(eng, "engine qwen-image-edit wan-vae", per, kw, 16, summary)
+                del eng
+                torch.cuda.empty_cache()
+                shutil.rmtree(os.path.join(root, "vae"))
+                os.makedirs(os.path.join(root, "vae"))
+                save_file(_vae_state_dict(VAEConfig(latent_channels=16), g, dev),
+                          os.path.join(root, "vae", "model.safetensors"))
+                eng = FastDMEngine(root, architecture=arch, verbose=False)
+                if eng.cfg.quant is not None or isinstance(eng.vae_cfg, WanVAEConfig):
+                    raise AssertionError("the second qwen-image-edit engine is not bf16 on the "
+                                         "AutoencoderKL")
+                per = {k: 0 if k in W4A4_OPS else v for k, v in per.items()}
+                _engine_i2i(eng, "engine qwen-image-edit autoencoderkl", per, kw, 16, summary)
             del eng
             torch.cuda.empty_cache()
 
@@ -3204,7 +3491,8 @@ def _engine_mmdit(dev, here: str) -> None:
 
 def _write_checkpoint(root: str, dev) -> None:
     """Synthetic diffusers-layout FLUX checkpoint: FLUX.1-dev widths with one
-    dual and one single block, plus the full-size FLUX AutoencoderKL decoder."""
+    dual and one single block, plus the full-size FLUX AutoencoderKL (decoder
+    and encoder)."""
     import torch
     from safetensors.torch import save_file
 
@@ -3258,8 +3546,9 @@ def _write_checkpoint(root: str, dev) -> None:
 
 
 def _vae_state_dict(vcfg, g, dev) -> dict:
-    """The decoder of a diffusers AutoencoderKL of config vcfg, under
-    diffusers' names, f32 on the host."""
+    """A diffusers AutoencoderKL of config vcfg, decoder and encoder (the
+    image-conditioned paths encode with it), under diffusers' names, f32 on
+    the host."""
     import torch
 
     sd = {}
@@ -3300,6 +3589,25 @@ def _vae_state_dict(vcfg, g, dev) -> dict:
     norm("decoder.conv_norm_out", rev[-1])
     conv("decoder.conv_out", rev[-1], 3)
     conv("post_quant_conv", vcfg.latent_channels, vcfg.latent_channels, k=1)
+    chans = list(vcfg.block_out_channels)
+    conv("encoder.conv_in", vcfg.in_channels, chans[0])
+    prev = chans[0]
+    for i, c in enumerate(chans):
+        for r in range(vcfg.layers_per_block):
+            resnet(f"encoder.down_blocks.{i}.resnets.{r}", prev if r == 0 else c, c)
+        if i < len(chans) - 1:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", c, c)
+        prev = c
+    resnet("encoder.mid_block.resnets.0", prev, prev)
+    resnet("encoder.mid_block.resnets.1", prev, prev)
+    norm("encoder.mid_block.attentions.0.group_norm", prev)
+    for n in ("to_q", "to_k", "to_v", "to_out.0"):
+        sd[f"encoder.mid_block.attentions.0.{n}.weight"] = (
+            torch.randn(prev, prev, generator=g, device=dev) * 0.02).cpu()
+        sd[f"encoder.mid_block.attentions.0.{n}.bias"] = torch.zeros(prev)
+    norm("encoder.conv_norm_out", prev)
+    conv("encoder.conv_out", prev, 2 * vcfg.latent_channels)
+    conv("quant_conv", 2 * vcfg.latent_channels, 2 * vcfg.latent_channels, k=1)
     return sd
 
 
@@ -3439,8 +3747,8 @@ def _write_wan_vae(root: str, dev, seed: int, vcfg=None) -> None:
 def _write_sdxl_checkpoint(root: str, dev) -> None:
     """Synthetic diffusers-layout SDXL-base checkpoint: the whole UNet at the
     published widths and depth in bf16 (the engine quantizes at load) in
-    unet/, and the full-size AutoencoderKL decoder with 4 latent channels in
-    vae/. Names as diffusers' UNet2DConditionModel."""
+    unet/, and the full-size AutoencoderKL (decoder and encoder) with 4
+    latent channels in vae/. Names as diffusers' UNet2DConditionModel."""
     import torch
     from safetensors.torch import save_file
 
@@ -3531,7 +3839,7 @@ def _write_sdxl_checkpoint(root: str, dev) -> None:
               os.path.join(root, "vae", "model.safetensors"))
 
 
-def _engine_sdxl(dev, here: str) -> None:
+def _engine_sdxl(dev, here: str, summary: dict) -> None:
     """FastDMEngine on the synthetic SDXL-base checkpoint with use_int8: one
     1024x2048 CFG generate, its launches equal to sdxl_forward_launches per
     step."""
@@ -3550,7 +3858,7 @@ def _engine_sdxl(dev, here: str) -> None:
         log(f"[engine sdxl] wrote the synthetic SDXL-base checkpoint (unet/ {size / 1e9:.2f} GB "
             f"in bf16, full-size vae/) in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        eng = FastDMEngine(root, architecture="sdxl", use_int8=True, verbose=False, device=dev)
+        eng = FastDMEngine(root, architecture="sdxl", use_int8=True, verbose=False)
         cfg = eng.cfg
         qkv = eng.params.down[2].attns[1].blocks[-1].attn1.qkv.w
         log(f"[engine sdxl] FastDMEngine loaded in {time.perf_counter() - t0:.1f} s: block "
@@ -3579,11 +3887,17 @@ def _engine_sdxl(dev, here: str) -> None:
                 and img.shape == (1, SDXL_H, SDXL_W, 3)) or counts != want:
             raise AssertionError(f"the SDXL generate returned {getattr(img, 'shape', type(img))}, "
                                  f"launches {counts} != derived {want}")
+        # SDEdit: resized to the UNet's granularity (8 pixels a latent, halved twice)
+        _engine_i2i(eng, "engine sdxl", sdxl_forward_launches(cfg),
+                    dict(prompt_embeds=pos, pooled_prompt_embeds=pos_pooled,
+                         negative_prompt_embeds=neg, negative_pooled_prompt_embeds=neg_pooled,
+                         num_inference_steps=SDXL_STEPS, guidance_scale=SDXL_CFG, seed=8), 32,
+                    summary)
         del eng
         torch.cuda.empty_cache()
 
 
-def phase_engine(dev) -> None:
+def phase_engine(dev, summary: Optional[dict] = None) -> None:
     import tempfile
 
     import numpy as np
@@ -3593,16 +3907,20 @@ def phase_engine(dev) -> None:
 
     from fastdm_tpu_torch.kernels import cuda_backend
 
+    summary = {} if summary is None else summary
     here = os.path.dirname(os.path.abspath(__file__))
     cuda_backend.reset_launch_counts()
     with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
         t0 = time.perf_counter()
         _write_checkpoint(root, dev)
         log(f"[engine] wrote the synthetic checkpoint in {time.perf_counter() - t0:.1f} s")
-        for seed, flags in ((1, {}), (2, {"use_int8": True}), (3, {"use_fp8": True}),
-                            (4, {"use_int4": True, "pack_int4": True, "quant_mods": True})):
+        # int8 as flux-kontext (its i2i appends the reference); fp8 decodes tiled
+        for seed, arch, flags in ((1, "flux", {}), (2, "flux-kontext", {"use_int8": True}),
+                                  (3, "flux", {"use_fp8": True}),
+                                  (4, "flux", {"use_int4": True, "pack_int4": True,
+                                               "quant_mods": True})):
             t0 = time.perf_counter()
-            eng = FastDMEngine(root, architecture="flux", cache_config=dict(TEACACHE),
+            eng = FastDMEngine(root, architecture=arch, cache_config=dict(TEACACHE),
                                verbose=False, **flags)
             torch.cuda.synchronize()
             label = eng.cfg.quant or "bf16"
@@ -3610,7 +3928,7 @@ def phase_engine(dev) -> None:
             # int4p: quantize_weight's SVDQuant split (QR and SVD) ran on the card
             lin, mod = eng.params.dual_blocks[0].attn.qkv, eng.params.dual_blocks[0].norm1.linear
             w, wm = (lin.w4p, mod.w4p) if int4p else (lin.w, mod.w)
-            log(f"[engine {label}] FastDMEngine loaded in {time.perf_counter() - t0:.1f} s "
+            log(f"[engine {label}] FastDMEngine({arch!r}) loaded in {time.perf_counter() - t0:.1f} s "
                 f"({eng.cfg.num_layers} dual + {eng.cfg.num_single_layers} single blocks, "
                 f"inner dim {eng.cfg.inner_dim}, block linears {w.dtype}"
                 f"{' packed int4, lora rank ' + str(lin.lora_u.shape[1]) if int4p else ''}, "
@@ -3647,11 +3965,73 @@ def phase_engine(dev) -> None:
                     f"TeaCache probes = {n} each)")
                 if any(counts[k] != n for k in W4A4_OPS):
                     raise AssertionError(f"engine int4p: W4A4 launches {counts} != {n} each")
+            if label in ("bf16", "int8"):  # SDEdit on flux, Kontext on flux-kontext
+                _engine_i2i(eng, f"engine {label} {arch}", flux_forward_launches(eng.cfg),
+                            dict(prompt_embeds=embeds, pooled_prompt_embeds=pooled,
+                                 num_inference_steps=STEPS, seed=seed), 16, summary)
+            elif label == "fp8":
+                eng.enable_vae_tiling()
+                t0 = time.perf_counter()
+                img = eng.generate(prompt_embeds=embeds, pooled_prompt_embeds=pooled,
+                                   height=SDEDIT_H, width=SDEDIT_W, num_inference_steps=STEPS,
+                                   seed=seed)
+                sec = time.perf_counter() - t0
+                finite = bool(np.isfinite(img).all())
+                log(f"[engine fp8] enable_vae_tiling(): generate {SDEDIT_H}x{SDEDIT_W} {STEPS} "
+                    f"steps with the tiled decode: {sec:.3f} s, image {img.shape} {img.dtype}")
+                if img.shape != (1, SDEDIT_H, SDEDIT_W, 3) or img.dtype != np.uint8:
+                    raise AssertionError("the tiled-decode generate returned a wrong image")
+                summary["engine_tiled_generate_1024x2048_s"] = round(sec, 4)
             del eng
             torch.cuda.empty_cache()
     _engine_wan(dev, here)
-    _engine_sdxl(dev, here)
-    _engine_mmdit(dev, here)
+    _engine_sdxl(dev, here, summary)
+    _engine_mmdit(dev, here, summary)
+
+
+def _resize_branch() -> str:
+    """Which branch of the engine's _resize_to_multiple runs on this machine."""
+    import importlib.util
+
+    return ("PIL's LANCZOS resize" if importlib.util.find_spec("PIL") is not None
+            else "no PIL: the center crop / edge pad")
+
+
+def _engine_i2i(eng, label: str, per_forward: dict, kw: dict, multiple: int,
+                summary: dict) -> None:
+    """One task="i2i" generate on a seeded ENGINE_IMAGE_H x ENGINE_IMAGE_W
+    image (sides not multiples of 16): an image of the size the model's
+    granularity `multiple` resizes it to, and launches per_forward times the
+    forwards the loop computed (SDEdit starts at int(steps * (1 -
+    strength)); Kontext and the Qwen edit at true CFG 1.0 run one forward a
+    step). Its seconds go into `summary`."""
+    import numpy as np
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    steps, strength = kw["num_inference_steps"], 0.6
+    sdedit = eng.architecture in ("flux", "sd35", "sdxl") and \
+        eng.architecture_full != "flux-kontext"
+    forwards = steps - (min(int(steps * (1 - strength)), steps - 1) if sdedit else 0)
+    image = _seeded_image(500, ENGINE_IMAGE_H, ENGINE_IMAGE_W)
+    cuda_backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = eng.generate(task="i2i", image=image, **(dict(strength=strength) if sdedit else {}),
+                       **kw)
+    sec = time.perf_counter() - t0
+    counts = _launch_counts()
+    skips = eng.last_cache_skips if eng.cache_config is not None else 0
+    want = {k: v * (forwards - skips) for k, v in per_forward.items()}
+    shape = (1, ENGINE_IMAGE_H // multiple * multiple, ENGINE_IMAGE_W // multiple * multiple, 3)
+    log(f"[{label}] generate task='i2i' on a {ENGINE_IMAGE_H}x{ENGINE_IMAGE_W} image "
+        f"(_resize_to_multiple({multiple}) ran {_resize_branch()}): {sec:.3f} s, image "
+        f"{img.shape} {img.dtype}, {forwards} forwards, {skips} skipped; launches {counts}")
+    if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.shape == shape
+            and np.isfinite(img).all()) or counts != want:
+        raise AssertionError(f"the {label} i2i generate returned "
+                             f"{getattr(img, 'shape', type(img))}, launches {counts} != "
+                             f"derived {want}")
+    summary[f"{label.replace(' ', '_')}_i2i_s"] = round(sec, 4)
 
 
 def _engine_wan(dev, here: str) -> None:
@@ -3747,18 +4127,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels = phase_kernels(dev)
-    launches = phase_slice(dev)
+    summary = {}  # the image-conditioned requests' numbers
+    launches = phase_slice(dev, summary)
     launches.update(phase_wan(dev))
     launches.update(phase_sdxl(dev))
     phase_sd35(dev)
-    phase_qwen(dev)
+    phase_qwen(dev, summary)
     wan5b = phase_wan5b(dev)
-    phase_engine(dev)
+    phase_engine(dev, summary)
     for name, r in kernels.items():
         r["launches"] = launches[name]
     log(f"[done] {len(kernels)} kernels, all phases in {time.perf_counter() - t0:.1f} s")
     log(f"[wan5b] Wan2.2-TI2V-5B int8 {WAN5B_H}x{WAN5B_W}x{WAN5B_FRAMES}, {WAN5B_STEPS} steps, "
         f"and Wan i2v {WAN_H}x{WAN_W}x{WAN_FRAMES}: {wan5b}")
+    log(f"[img2img] image-conditioned requests (seconds, GiB): {summary}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

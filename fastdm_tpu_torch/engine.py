@@ -24,6 +24,10 @@ fastdm_tpu/engine.py).
                        pack_int4=True, quant_mods=True)
     images = eng.generate(prompt_embeds=..., height=1024, width=2048, true_cfg_scale=1.0)
 
+    eng = FastDMEngine("/path/to/FLUX.1-Kontext-dev", architecture="flux-kontext", use_int8=True)
+    images = eng.generate(task="i2i", image=[ref_uint8_hxwx3, ...], prompt_embeds=...,
+                          pooled_prompt_embeds=..., guidance_scale=2.5)
+
     eng = FastDMEngine("/path/to/Wan2.2-T2V-A14B", architecture="wan2.2-t2v",
                        use_int8=True, sparse_attn_config="radial_attn_wan.json",
                        cache_config="fbcache_wan.json")
@@ -54,10 +58,17 @@ takes task "t2v", "i2v" (an image: a 4-channel frame mask and the VAE-encoded
 first frame concatenated to the latents, Wan2.2-I2V-A14B's in_channels 36)
 or, with architecture "wan2.2-ti2v", "ti2v" / "i2v" (Wan2.2-TI2V-5B: the
 encoded image pinned as the first latent frame, its tokens at timestep 0);
-its scheduler is UniPC, or FlowMatch-Euler with scheduler="euler". The
-T5/CLIP/UMT5/Qwen text encoders, img2img, Qwen-Image-Edit, Kontext,
-ControlNet, the SDXL IP-Adapter, Wan2.1's CLIP image branch and the other
-model families arrive with later slices and raise NotImplementedError here.
+its scheduler is UniPC, or FlowMatch-Euler with scheduler="euler".
+FLUX, SD3.5 and SDXL take an input image (task "i2i", or an image with no
+task): SDEdit img2img from the AutoencoderKL-encoded image, noised to the
+step that strength sets; architecture "flux-kontext" appends the clean tokens
+of one or more reference images instead, and Qwen-Image ("qwen-image-edit")
+appends the encoded source images' tokens. vae_tiling / vae_slicing (or
+enable_vae_tiling() / enable_vae_slicing()) decode and encode the
+AutoencoderKL in tiles or one sample at a time. The T5/CLIP/UMT5/Qwen text
+encoders, ControlNet, the SDXL IP-Adapter, Wan2.1's CLIP image branch and the
+other model families arrive with later slices and raise NotImplementedError
+here.
 """
 
 from __future__ import annotations
@@ -75,12 +86,13 @@ from fastdm_tpu_torch.caching.config import CacheConfig
 from fastdm_tpu_torch.device import resolve_device
 from fastdm_tpu_torch.models.loader import TensorSource, as_tensor
 from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, flow_match_shift_mu
-from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_load
+from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_encode, vae_load
 
 # accepted names -> the model family (JAX's ARCH_ALIASES, the loaded subset)
-ARCHITECTURES = {"flux": "flux", "sd35": "sd35", "sd3.5": "sd35", "sdxl": "sdxl",
-                 "qwen-image": "qwen", "wan2.2-t2v": "wan", "wan2.2-i2v": "wan",
-                 "wan2.2-ti2v": "wan", "wan": "wan"}
+ARCHITECTURES = {"flux": "flux", "flux-dev": "flux", "flux-krea": "flux",
+                 "flux-kontext": "flux", "sd35": "sd35", "sd3.5": "sd35", "sdxl": "sdxl",
+                 "qwen-image": "qwen", "qwen-image-edit": "qwen", "wan2.2-t2v": "wan",
+                 "wan2.2-i2v": "wan", "wan2.2-ti2v": "wan", "wan": "wan"}
 
 # Long-video capacity thresholds (tokens) at which a Wan generate turns on
 # FFN token chunking and, for the dual expert, the split-QKV projection; kept
@@ -160,6 +172,27 @@ def _read_json(path):
         return json.load(f)
 
 
+def _resize_to_multiple(img: np.ndarray, m: int) -> np.ndarray:
+    """An HWC uint8 image resized down to sides divisible by m (the VAE and
+    patch granularity), as diffusers' edit pipelines do before encoding
+    (fastdm_tpu/engine.py:73-91): a LANCZOS resize with PIL; without PIL a
+    center crop, edge-padded first where a side is below m."""
+    h, w = img.shape[0], img.shape[1]
+    nh, nw = max(m, h // m * m), max(m, w // m * m)
+    if (nh, nw) == (h, w):
+        return img
+    try:
+        from PIL import Image
+
+        return np.asarray(Image.fromarray(img).resize((nw, nh), Image.LANCZOS))
+    except ImportError:
+        if nh > h or nw > w:
+            img = np.pad(img, ((0, max(0, nh - h)), (0, max(0, nw - w)), (0, 0)), mode="edge")
+            h, w = img.shape[0], img.shape[1]
+        top, left = (h - nh) // 2, (w - nw) // 2
+        return img[top:top + nh, left:left + nw]
+
+
 class FastDMEngine:
     def __init__(
         self, model_path: str, architecture: str = "flux", use_fp8: bool = False,
@@ -167,6 +200,7 @@ class FastDMEngine:
         verbose: bool = True, device="cuda", quant_mods: bool = False,
         sparse_attn_config: Optional[Union[str, Dict[str, Any]]] = None,
         use_int4: bool = False, pack_int4: bool = False, scheduler: Optional[str] = None,
+        vae_tiling: bool = False, vae_slicing: bool = False,
     ):
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
@@ -179,6 +213,8 @@ class FastDMEngine:
             raise ValueError(f"scheduler={scheduler!r} is only supported for wan; "
                              f"{ARCHITECTURES[architecture]} uses its fixed per-family scheduler")
         self.scheduler_name = scheduler
+        # diffusers' enable_vae_tiling / enable_vae_slicing, engine state as in JAX
+        self.vae_tiling, self.vae_slicing = vae_tiling, vae_slicing
         # the JAX engine's checks (fastdm_tpu/engine.py:141-176)
         if sum((use_fp8, use_int8, use_int4)) > 1:
             raise ValueError("use_fp8 / use_int8 / use_int4 are mutually exclusive")
@@ -266,21 +302,76 @@ class FastDMEngine:
         """The AutoencoderKL of vae/, VAE_CONFIGS[architecture] overridden by
         its config.json. Qwen-Image's own VAE (AutoencoderKLQwenImage, a
         Wan-style causal 3D VAE: base_dim in its config.json) loads as the
-        Wan VAE decoder instead, as the JAX engine routes it."""
+        Wan VAE instead, as the JAX engine routes it."""
         if self.architecture == "qwen" and "base_dim" in self._cfg_overrides("vae", ("base_dim",)):
             from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_load
 
             self.vae_cfg = self._wan_vae_cfg()
             self.vae_params = wan_vae_load(TensorSource.from_path(
                 os.path.join(self.model_path, "vae"), self.device), self.vae_cfg)
+        else:
+            vae_kw = self._cfg_overrides(
+                "vae", ("latent_channels", "layers_per_block", "norm_num_groups",
+                        "scaling_factor", "shift_factor", "mid_block_add_attention"),
+                {"block_out_channels": lambda v: {"block_out_channels": tuple(v)}})
+            self.vae_cfg = dataclasses.replace(VAE_CONFIGS[self.architecture], **vae_kw)
+            self.vae_params = vae_load(TensorSource.from_path(
+                os.path.join(self.model_path, "vae"), self.device), self.vae_cfg)
+        self._bind_vae_fns()
+
+    def _bind_vae_fns(self) -> None:
+        """Pick self._decode ((B, C, h, w) latents -> (B, H, W, 3)) and
+        self._encode ((B, H, W, 3) in [-1, 1] -> latents) from the tiling and
+        slicing flags (fastdm_tpu/engine.py:483-590). The Wan-layout VAE runs
+        one frame through wan_vae_decode / wan_vae_encode, whole, whatever
+        the flags (the JAX engine binds it so at load; its enable_* calls
+        would then rebind the AutoencoderKL functions to a Wan config)."""
+        from fastdm_tpu_torch.pipeline.vae import vae_decode_sliced, vae_decode_tiled, \
+            vae_encode_tiled
+        from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_decode, \
+            wan_vae_encode
+
+        cfg = self.vae_cfg
+        if isinstance(cfg, WanVAEConfig):
+            if self.vae_tiling or self.vae_slicing:
+                print("warning: vae tiling/slicing not supported on the 3D (qwen/wan) VAE "
+                      "path; running full-frame", flush=True)
+            self._decode = lambda p, z: wan_vae_decode(p, cfg, z[:, :, None])[:, 0]
+            self._encode = lambda p, x: wan_vae_encode(p, cfg, x[:, None])[:, :, 0]
             return
-        vae_kw = self._cfg_overrides(
-            "vae", ("latent_channels", "layers_per_block", "norm_num_groups",
-                    "scaling_factor", "shift_factor", "mid_block_add_attention"),
-            {"block_out_channels": lambda v: {"block_out_channels": tuple(v)}})
-        self.vae_cfg = dataclasses.replace(VAE_CONFIGS[self.architecture], **vae_kw)
-        self.vae_params = vae_load(TensorSource.from_path(
-            os.path.join(self.model_path, "vae"), self.device), self.vae_cfg)
+        if self.vae_tiling:
+            self._decode = lambda p, z: vae_decode_tiled(p, cfg, z)
+        elif self.vae_slicing:
+            self._decode = lambda p, z: vae_decode_sliced(p, cfg, z)
+        else:
+            self._decode = lambda p, z: vae_decode(p, cfg, z)
+
+        def enc_params(p):
+            if "encoder" not in p:
+                raise ValueError("this VAE checkpoint has no encoder weights: i2i / edit tasks "
+                                 "need the full AutoencoderKL, not a decoder-only one")
+            return p["encoder"]
+
+        if self.vae_tiling:
+            self._encode = lambda p, x: vae_encode_tiled(enc_params(p), cfg, x)
+        else:
+            self._encode = lambda p, x: vae_encode(enc_params(p), cfg, x)
+
+    def enable_vae_tiling(self) -> None:
+        self.vae_tiling = True
+        self._bind_vae_fns()
+
+    def disable_vae_tiling(self) -> None:
+        self.vae_tiling = False
+        self._bind_vae_fns()
+
+    def enable_vae_slicing(self) -> None:
+        self.vae_slicing = True
+        self._bind_vae_fns()
+
+    def disable_vae_slicing(self) -> None:
+        self.vae_slicing = False
+        self._bind_vae_fns()
 
     def _init_sdxl(self) -> None:
         # the module's SDXLConfig, looked up here so that tests can shrink it;
@@ -381,27 +472,32 @@ class FastDMEngine:
         image-to-video (task t2v, i2v or ti2v; image, an (H, W, 3) uint8 first
         frame at height x width; height, width, num_frames,
         num_inference_steps, guidance_scale, guidance_scale_2, seed,
-        prompt_embeds, negative_prompt_embeds, output_type). As the JAX
-        engine: a Wan image with no task means i2v, and a task other than
-        i2v / ti2v leaves the image out."""
-        tasks = ("t2v", "i2v", "ti2v") if self.architecture == "wan" else ("t2i",)
-        if self.architecture == "wan" and task is None:
-            task = "i2v" if kw.get("image") is not None else "t2v"
-        if (task or tasks[0]) not in tasks or (self.architecture != "wan"
-                                               and kw.get("image") is not None):
-            raise NotImplementedError(
-                f"task {task!r} is not in this slice of the port ({', '.join(tasks)} "
-                f"{'is' if len(tasks) == 1 else 'are'})")
+        prompt_embeds, negative_prompt_embeds, output_type).
+
+        The image families take task "i2i" with image, an (H, W, 3) uint8
+        array (a list of them for Kontext and Qwen-Image-Edit): FLUX, SD3.5
+        and SDXL run SDEdit from the encoded image (strength, default 0.7,
+        sets the first step), "flux-kontext" and Qwen-Image the reference /
+        source tokens beside the noise; the output takes the (first) image's
+        size, resized down to the model's granularity. As the JAX engine: an
+        image with task None or "t2i" means i2i (i2v for Wan), "i2i" without
+        an image runs t2i, and a Wan task other than i2v / ti2v leaves the
+        image out."""
+        image = kw.get("image")
+        if self.architecture == "wan":
+            tasks = ("t2v", "i2v", "ti2v")
+            task = task or ("i2v" if image is not None else "t2v")
+        else:
+            tasks = ("t2i", "i2i")
+            task = "i2i" if image is not None and task in (None, "t2i") else task or "t2i"
+        if task not in tasks:
+            raise NotImplementedError(f"task {task!r} is not in this slice of the port "
+                                      f"({', '.join(tasks)} are)")
         if self.architecture == "wan":
             return self._generate_wan(prompt, task=task, **kw)
-        kw.pop("image", None)
-        if self.architecture == "sdxl":
-            return self._generate_sdxl(prompt, **kw)
-        if self.architecture == "sd35":
-            return self._generate_sd35(prompt, **kw)
-        if self.architecture == "qwen":
-            return self._generate_qwen(prompt, **kw)
-        return self._generate_flux(prompt, **kw)
+        if task != "i2i":
+            kw.pop("image", None)
+        return getattr(self, f"_generate_{self.architecture}")(prompt, **kw)
 
     def _to_uint8(self, x: torch.Tensor) -> np.ndarray:
         """[-1, 1] float -> uint8 in [0, 255] on the host."""
@@ -412,12 +508,37 @@ class FastDMEngine:
         return as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x).to(
             device=self.device, dtype=dtype)
 
+    def _image_tensor(self, image) -> torch.Tensor:
+        """An (H, W, 3) uint8 image -> float32 in [-1, 1] on the device."""
+        return self._device_tensor(image, torch.float32) / 127.5 - 1.0
+
+    def _encode_image(self, image) -> torch.Tensor:
+        """An (H, W, 3) uint8 image -> its (1, C, H/8, W/8) float32 latents
+        through the bound VAE encoder."""
+        return self._encode(self.vae_params, self._image_tensor(image)[None]).float()
+
+    def _noise(self, shape, seed: int) -> torch.Tensor:
+        """Latent noise from a seeded torch.Generator: the same seed gives
+        other noise than the JAX engine's jax.random key."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+
+    @staticmethod
+    def _start_step(num_inference_steps: int, strength: float) -> int:
+        """SDEdit's first step (fastdm_tpu/engine.py:912-915)."""
+        return min(int(num_inference_steps * (1 - strength)), num_inference_steps - 1)
+
+    def _flux_sched(self, ht: int, wt: int, num_inference_steps: int):
+        return FlowMatchEulerScheduler.create(
+            num_inference_steps, use_dynamic_shifting=True, mu=flow_match_shift_mu(ht * wt))
+
     def _generate_flux(self, prompt=None, height: int = 1024, width: int = 1024,
                        num_inference_steps: int = 25, guidance_scale: float = 3.5,
                        seed: int = 42, prompt_embeds=None, pooled_prompt_embeds=None,
-                       output_type: str = "np"):
+                       output_type: str = "np", image=None, strength: float = 0.7):
         from fastdm_tpu_torch.models.flux import flux_rope_cache
-        from fastdm_tpu_torch.pipeline.denoise import flux_unpack_latents, make_flux_denoiser
+        from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents, \
+            make_flux_denoiser, make_flux_kontext_denoiser
 
         if prompt_embeds is None or pooled_prompt_embeds is None:
             raise NotImplementedError(
@@ -427,72 +548,118 @@ class FastDMEngine:
         encoder = self._device_tensor(prompt_embeds, torch.bfloat16)
         pooled = self._device_tensor(pooled_prompt_embeds, torch.bfloat16)
         b = encoder.shape[0]
+        kontext = image is not None and self.architecture_full == "flux-kontext"
+        if image is not None:
+            images = list(image) if isinstance(image, (list, tuple)) else [image]
+            images = [_resize_to_multiple(np.asarray(im), 16) for im in images]
+            if not kontext:
+                images = images[:1]  # SDEdit takes one source
+            height, width = images[0].shape[0], images[0].shape[1]
         ht, wt = height // 16, width // 16
-        cos, sin = flux_rope_cache(self.cfg, encoder.shape[1], ht, wt, device=self.device)
 
-        key = ("flux", ht, wt, num_inference_steps, guidance_scale)
-        if key not in self._denoisers:
-            sched = FlowMatchEulerScheduler.create(
-                num_inference_steps, use_dynamic_shifting=True, mu=flow_match_shift_mu(ht * wt))
-            self._denoisers[key] = make_flux_denoiser(
-                self.cfg, sched, num_inference_steps, self.cache_config, guidance_scale)
-        # a seeded torch.Generator: the same seed gives other noise than the
-        # JAX engine's jax.random key
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        latents = torch.randn((b, ht * wt, self.cfg.in_channels), generator=gen,
-                              device=self.device, dtype=torch.float32)
-        latents, skips = self._denoisers[key](self.params, latents, encoder, pooled, cos, sin)
+        if kontext:
+            # the references' clean tokens after the noise, one id-plane each
+            shapes = tuple((im.shape[0] // 16, im.shape[1] // 16) for im in images)
+            cos, sin = flux_rope_cache(self.cfg, encoder.shape[1], ht, wt, ref_tokens_hw=shapes,
+                                       device=self.device)
+            ref = torch.cat([flux_pack_latents(self._encode_image(im)) for im in images], dim=1)
+            ref = ref.expand(b, *ref.shape[1:])
+            key = ("flux-kontext", ht, wt, shapes, num_inference_steps, guidance_scale)
+            if key not in self._denoisers:
+                self._denoisers[key] = make_flux_kontext_denoiser(
+                    self.cfg, self._flux_sched(ht, wt, num_inference_steps),
+                    num_inference_steps, self.cache_config, guidance_scale)
+            latents = self._noise((b, ht * wt, self.cfg.in_channels), seed)
+            latents, skips = self._denoisers[key](self.params, latents, ref, encoder, pooled,
+                                                  cos, sin)
+        else:
+            cos, sin = flux_rope_cache(self.cfg, encoder.shape[1], ht, wt, device=self.device)
+            start_step = (self._start_step(num_inference_steps, strength)
+                          if image is not None else 0)
+            key = ("flux", ht, wt, num_inference_steps, guidance_scale, start_step)
+            if key not in self._denoisers:
+                # the sigmas stay with their denoiser: mu follows the token count
+                sched = self._flux_sched(ht, wt, num_inference_steps)
+                self._denoisers[key] = (make_flux_denoiser(
+                    self.cfg, sched, num_inference_steps, self.cache_config, guidance_scale,
+                    start_step), sched.sigmas)
+            run, sigmas = self._denoisers[key]
+            latents = self._noise((b, ht * wt, self.cfg.in_channels), seed)
+            if image is not None:  # SDEdit: the packed image noised to sigmas[start_step]
+                packed = flux_pack_latents(self._encode_image(images[0]))
+                sig = float(sigmas[start_step])
+                latents = (1.0 - sig) * packed.expand(b, *packed.shape[1:]) + sig * latents
+            latents, skips = run(self.params, latents, encoder, pooled, cos, sin)
         self._note_skips(skips)
         if output_type == "latent":
             return latents.cpu().numpy()
-        img = vae_decode(self.vae_params, self.vae_cfg, flux_unpack_latents(latents, ht, wt))
-        return self._to_uint8(img)
+        return self._to_uint8(self._decode(self.vae_params, flux_unpack_latents(latents, ht, wt)))
 
     def _generate_sdxl(self, prompt=None, height: int = 1024, width: int = 1024,
                        num_inference_steps: int = 25, guidance_scale: float = 5.0,
                        seed: int = 42, prompt_embeds=None, pooled_prompt_embeds=None,
                        negative_prompt_embeds=None, negative_pooled_prompt_embeds=None,
-                       output_type: str = "np", control_image=None, ip_adapter_image=None):
+                       output_type: str = "np", control_image=None, ip_adapter_image=None,
+                       image=None, strength: float = 0.7):
         from fastdm_tpu_torch.pipeline.denoise_sdxl import make_sdxl_denoiser
         from fastdm_tpu_torch.pipeline.schedulers import EulerDiscreteScheduler
 
         if control_image is not None or ip_adapter_image is not None:
             raise NotImplementedError(
                 "the SDXL ControlNet and IP-Adapter are not in this slice of the port")
+        embeds, pooled = self._cfg_embeds(guidance_scale, prompt_embeds, pooled_prompt_embeds,
+                                          negative_prompt_embeds, negative_pooled_prompt_embeds,
+                                          "the CLIP text encoders")
+        del prompt
+        b = embeds.shape[0] // (2 if guidance_scale > 1.0 else 1)
+        if image is not None:
+            # sides at the UNet's granularity: 8 pixels a latent, halved at
+            # each downsampling stage
+            image = _resize_to_multiple(np.asarray(image),
+                                        8 * 2 ** (len(self.cfg.block_channels) - 1))
+            height, width = image.shape[0], image.shape[1]
+        time_ids = torch.tensor([[height, width, 0, 0, height, width]] * embeds.shape[0],
+                                dtype=torch.float32, device=self.device)
+        lh, lw = height // 8, width // 8
+        start_step = self._start_step(num_inference_steps, strength) if image is not None else 0
+        key = ("sdxl", lh, lw, num_inference_steps, guidance_scale, start_step)
+        if key not in self._denoisers:
+            sched = EulerDiscreteScheduler.create(num_inference_steps)
+            self._denoisers[key] = (make_sdxl_denoiser(self.cfg, sched, num_inference_steps,
+                                                       guidance_scale, start_step),
+                                    sched.init_noise_sigma, sched.sigmas)
+        run, init_noise_sigma, sigmas = self._denoisers[key]
+        noise = self._noise((b, self.cfg.in_channels, lh, lw), seed)
+        if start_step:  # SDEdit (epsilon Euler): z + noise * sigmas[start_step]
+            z = self._encode_image(image)
+            latents = z.expand(b, *z.shape[1:]) + noise * float(sigmas[start_step])
+        else:
+            latents = noise * init_noise_sigma
+        latents, _ = run(self.params, latents, embeds, pooled, time_ids)
+        if output_type == "latent":
+            return latents.cpu().numpy()
+        return self._to_uint8(self._decode(self.vae_params, latents))
+
+    def _cfg_embeds(self, guidance_scale, prompt_embeds, pooled_prompt_embeds,
+                    negative_prompt_embeds, negative_pooled_prompt_embeds, encoders: str):
+        """The batched-CFG conditioning of SD3.5 and SDXL: one batch of 2B,
+        the negative half first (diffusers order), or the positive B alone
+        without CFG."""
         do_cfg = guidance_scale > 1.0
         if prompt_embeds is None or pooled_prompt_embeds is None or (do_cfg and (
                 negative_prompt_embeds is None or negative_pooled_prompt_embeds is None)):
             raise NotImplementedError(
-                "the CLIP text encoders are not in this slice of the port; pass prompt_embeds "
-                "and pooled_prompt_embeds (and, for CFG, negative_prompt_embeds and "
+                f"{encoders} are not in this slice of the port; pass prompt_embeds and "
+                "pooled_prompt_embeds (and, for CFG, negative_prompt_embeds and "
                 "negative_pooled_prompt_embeds)")
-        del prompt
         embeds = self._device_tensor(prompt_embeds, torch.bfloat16)
         pooled = self._device_tensor(pooled_prompt_embeds, torch.bfloat16)
-        b = embeds.shape[0]
-        if do_cfg:  # one batch of 2B, the negative half first (diffusers order)
+        if do_cfg:
             embeds = torch.cat([self._device_tensor(negative_prompt_embeds, torch.bfloat16),
                                 embeds])
             pooled = torch.cat([self._device_tensor(negative_pooled_prompt_embeds,
                                                     torch.bfloat16), pooled])
-        time_ids = torch.tensor([[height, width, 0, 0, height, width]] * embeds.shape[0],
-                                dtype=torch.float32, device=self.device)
-        lh, lw = height // 8, width // 8
-        key = ("sdxl", lh, lw, num_inference_steps, guidance_scale)
-        if key not in self._denoisers:
-            sched = EulerDiscreteScheduler.create(num_inference_steps)
-            self._denoisers[key] = (make_sdxl_denoiser(self.cfg, sched, num_inference_steps,
-                                                       guidance_scale), sched.init_noise_sigma)
-        run, init_noise_sigma = self._denoisers[key]
-        # a seeded torch.Generator: the same seed gives other noise than the
-        # JAX engine's jax.random key
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        latents = torch.randn((b, self.cfg.in_channels, lh, lw), generator=gen,
-                              device=self.device, dtype=torch.float32) * init_noise_sigma
-        latents, _ = run(self.params, latents, embeds, pooled, time_ids)
-        if output_type == "latent":
-            return latents.cpu().numpy()
-        return self._to_uint8(vae_decode(self.vae_params, self.vae_cfg, latents))
+        return embeds, pooled
 
     def _note_skips(self, skips: int) -> None:
         if self.cache_config is not None:
@@ -504,57 +671,53 @@ class FastDMEngine:
                        num_inference_steps: int = 25, guidance_scale: float = 7.0,
                        seed: int = 42, prompt_embeds=None, pooled_prompt_embeds=None,
                        negative_prompt_embeds=None, negative_pooled_prompt_embeds=None,
-                       output_type: str = "np"):
+                       output_type: str = "np", image=None, strength: float = 0.7):
         from fastdm_tpu_torch.models.sd35 import sd3_cropped_pos_embed
         from fastdm_tpu_torch.pipeline.denoise_sd3 import make_sd3_denoiser
 
-        do_cfg = guidance_scale > 1.0
-        if prompt_embeds is None or pooled_prompt_embeds is None or (do_cfg and (
-                negative_prompt_embeds is None or negative_pooled_prompt_embeds is None)):
-            raise NotImplementedError(
-                "the SD3 text encoders are not in this slice of the port; pass prompt_embeds "
-                "and pooled_prompt_embeds (and, for CFG, negative_prompt_embeds and "
-                "negative_pooled_prompt_embeds)")
+        embeds, pooled = self._cfg_embeds(guidance_scale, prompt_embeds, pooled_prompt_embeds,
+                                          negative_prompt_embeds, negative_pooled_prompt_embeds,
+                                          "the SD3 text encoders")
         del prompt
-        embeds = self._device_tensor(prompt_embeds, torch.bfloat16)
-        pooled = self._device_tensor(pooled_prompt_embeds, torch.bfloat16)
-        b = embeds.shape[0]
-        if do_cfg:  # one batch of 2B, the negative half first (diffusers order)
-            embeds = torch.cat([self._device_tensor(negative_prompt_embeds, torch.bfloat16),
-                                embeds])
-            pooled = torch.cat([self._device_tensor(negative_pooled_prompt_embeds,
-                                                    torch.bfloat16), pooled])
+        b = embeds.shape[0] // (2 if guidance_scale > 1.0 else 1)
+        if image is not None:  # sides at 8 pixels a latent times the patch
+            image = _resize_to_multiple(np.asarray(image), 8 * self.cfg.patch_size)
+            height, width = image.shape[0], image.shape[1]
         lh, lw = height // 8, width // 8
-        key = ("sd35", lh, lw, num_inference_steps, guidance_scale)
+        start_step = self._start_step(num_inference_steps, strength) if image is not None else 0
+        key = ("sd35", lh, lw, num_inference_steps, guidance_scale, start_step)
         if key not in self._denoisers:
-            # the denoiser and the cropped position table, once per resolution
+            # the denoiser, its sigmas and the cropped position table, once a resolution
             sched = FlowMatchEulerScheduler.create(num_inference_steps, shift=3.0)
             self._denoisers[key] = (
                 make_sd3_denoiser(self.cfg, sched, num_inference_steps, guidance_scale,
-                                  self.cache_config),
+                                  self.cache_config, start_step),
                 sd3_cropped_pos_embed(self.cfg, self.params.pos_embed_table, lh, lw,
-                                      device=self.device))
-        run, pos_embed = self._denoisers[key]
-        # a seeded torch.Generator: the same seed gives other noise than the
-        # JAX engine's jax.random key
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        latents = torch.randn((b, self.cfg.in_channels, lh, lw), generator=gen,
-                              device=self.device, dtype=torch.float32)
+                                      device=self.device), sched.sigmas)
+        run, pos_embed, sigmas = self._denoisers[key]
+        latents = self._noise((b, self.cfg.in_channels, lh, lw), seed)
+        if image is not None:  # SDEdit (flow match): (1 - sigma) z + sigma noise
+            z = self._encode_image(image)
+            sig = float(sigmas[start_step])
+            latents = (1.0 - sig) * z.expand(b, *z.shape[1:]) + sig * latents
         latents, skips = run(self.params, latents, embeds, pooled, pos_embed)
         self._note_skips(skips)
         if output_type == "latent":
             return latents.cpu().numpy()
-        return self._to_uint8(vae_decode(self.vae_params, self.vae_cfg, latents))
+        return self._to_uint8(self._decode(self.vae_params, latents))
 
     def _generate_qwen(self, prompt=None, height: int = 1024, width: int = 1024,
                        num_inference_steps: int = 25, guidance_scale: float = 4.0,
                        true_cfg_scale: Optional[float] = None, seed: int = 42,
                        prompt_embeds=None, negative_prompt_embeds=None,
-                       output_type: str = "np"):
+                       output_type: str = "np", image=None):
+        """Qwen-Image, and with an image Qwen-Image-Edit: prompt_embeds (and
+        negative_prompt_embeds) are then the VL encoder's output on the prompt
+        and the images (JAX's encode_with_image)."""
         from fastdm_tpu_torch.models.qwenimage import qwen_rope_cos_sin
-        from fastdm_tpu_torch.pipeline.denoise import flux_unpack_latents
-        from fastdm_tpu_torch.pipeline.denoise_qwen import make_qwen_denoiser
-        from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_decode
+        from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents
+        from fastdm_tpu_torch.pipeline.denoise_qwen import make_qwen_denoiser, \
+            make_qwen_edit_denoiser
 
         scale = true_cfg_scale if true_cfg_scale is not None else guidance_scale
         if prompt_embeds is None or (scale > 1.0 and negative_prompt_embeds is None):
@@ -570,28 +733,37 @@ class FastDMEngine:
         pos = torch.nn.functional.pad(pos, (0, 0, 0, s - pos.shape[1]))
         neg = torch.nn.functional.pad(neg, (0, 0, 0, s - neg.shape[1]))
         b = pos.shape[0]
+        if image is not None:
+            images = list(image) if isinstance(image, (list, tuple)) else [image]
+            images = [_resize_to_multiple(np.asarray(im), 16) for im in images]
+            height, width = images[0].shape[0], images[0].shape[1]
         ht, wt = height // 16, width // 16
-        cos, sin = qwen_rope_cos_sin(self.cfg, 1, ht, wt, s, device=self.device)
-        key = ("qwen", ht, wt, num_inference_steps, scale, s)
-        if key not in self._denoisers:
-            sched = FlowMatchEulerScheduler.create(
-                num_inference_steps, use_dynamic_shifting=True, mu=flow_match_shift_mu(ht * wt))
-            self._denoisers[key] = make_qwen_denoiser(self.cfg, sched, num_inference_steps,
-                                                      scale, self.cache_config)
-        # a seeded torch.Generator: the same seed gives other noise than the
-        # JAX engine's jax.random key
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        latents = torch.randn((b, ht * wt, self.cfg.in_channels), generator=gen,
-                              device=self.device, dtype=torch.float32)
-        latents, skips = self._denoisers[key](self.params, latents, pos, neg, cos, sin)
+        latents = self._noise((b, ht * wt, self.cfg.in_channels), seed)
+        if image is not None:
+            # the source images' clean tokens after the noise, entries 1, 2, ... of the rope
+            src = torch.cat([flux_pack_latents(self._encode_image(im)) for im in images], dim=1)
+            src = src.expand(b, *src.shape[1:])
+            extra = tuple((1, im.shape[0] // 16, im.shape[1] // 16) for im in images)
+            cos, sin = qwen_rope_cos_sin(self.cfg, 1, ht, wt, s, extra_shapes=extra,
+                                         device=self.device)
+            key = ("qwen-edit", ht, wt, num_inference_steps, scale, s, src.shape[1])
+            if key not in self._denoisers:
+                self._denoisers[key] = make_qwen_edit_denoiser(
+                    self.cfg, self._flux_sched(ht, wt, num_inference_steps),
+                    num_inference_steps, scale, self.cache_config)
+            latents, skips = self._denoisers[key](self.params, latents, src, pos, neg, cos, sin)
+        else:
+            cos, sin = qwen_rope_cos_sin(self.cfg, 1, ht, wt, s, device=self.device)
+            key = ("qwen", ht, wt, num_inference_steps, scale, s)
+            if key not in self._denoisers:
+                self._denoisers[key] = make_qwen_denoiser(
+                    self.cfg, self._flux_sched(ht, wt, num_inference_steps),
+                    num_inference_steps, scale, self.cache_config)
+            latents, skips = self._denoisers[key](self.params, latents, pos, neg, cos, sin)
         self._note_skips(skips)
         if output_type == "latent":
             return latents.cpu().numpy()
-        z = flux_unpack_latents(latents, ht, wt)
-        if isinstance(self.vae_cfg, WanVAEConfig):  # one frame through the causal 3D VAE
-            return self._to_uint8(wan_vae_decode(self.vae_params, self.vae_cfg,
-                                                 z[:, :, None])[:, 0])
-        return self._to_uint8(vae_decode(self.vae_params, self.vae_cfg, z))
+        return self._to_uint8(self._decode(self.vae_params, flux_unpack_latents(latents, ht, wt)))
 
     def _wan_scheduler(self, num_steps: int):
         """UniPC (the Wan default, diffusers' WanPipeline) or FlowMatch-Euler,
@@ -611,16 +783,12 @@ class FastDMEngine:
                                "(see the message at engine init)")
         return wan_vae_encode(self.vae_params, self.vae_cfg, video)
 
-    def _wan_image(self, image) -> torch.Tensor:
-        """An (H, W, 3) uint8 image -> float32 in [-1, 1] on the device."""
-        return self._device_tensor(image, torch.float32) / 127.5 - 1.0
-
     def _wan_i2v_latents(self, image, lf: int, lh: int, lw: int, num_frames: int):
         """The i2v conditioning channels (fastdm_tpu/engine.py:1301-1326): a
         4-channel temporal mask (frame 0 visible, packed 4 frames a latent
         frame) and the encoded video of the image followed by num_frames - 1
         zero frames -> (1, 4 + C_z, lf, lh, lw) float32."""
-        img = self._wan_image(image)
+        img = self._image_tensor(image)
         video = torch.cat([img[None], img.new_zeros(num_frames - 1, *img.shape)])[None]
         cond = self._wan_encode(video)
         msk = torch.zeros(1, num_frames, lh, lw, device=self.device)
@@ -674,7 +842,7 @@ class FastDMEngine:
         if self.architecture_full == "wan2.2-ti2v" and image is not None and \
                 task in ("i2v", "ti2v"):
             # Wan2.2-TI2V-5B: the encoded image is the first latent frame
-            cond = self._wan_encode(self._wan_image(image)[None, None])
+            cond = self._wan_encode(self._image_tensor(image)[None, None])
             run = make_wan_ti2v_denoiser(self.cfg, sched, num_inference_steps, guidance_scale,
                                          self.cache_config, dense_steps)
             self.last_phase_steps = (num_inference_steps,)

@@ -346,8 +346,17 @@ def flux_img_ids(height_tokens: int, width_tokens: int) -> np.ndarray:
 
 
 def flux_rope_cache(cfg: FluxConfig, txt_len: int, height_tokens: int, width_tokens: int,
-                    device="cuda") -> Tuple[Tensor, Tensor]:
-    """(cos, sin) for the joint [txt, img] sequence; text ids are all zero."""
-    ids = np.concatenate([np.zeros((txt_len, 3), np.float64),
-                          flux_img_ids(height_tokens, width_tokens)], axis=0)
-    return flux_rope_cos_sin(ids, cfg.axes_dims_rope, device=device)
+                    ref_tokens_hw=None, device="cuda") -> Tuple[Tensor, Tensor]:
+    """(cos, sin) for the joint [txt, img(, refs)] sequence; text ids are all
+    zero. ref_tokens_hw adds Kontext reference-image id blocks: one (h, w)
+    pair or a sequence of them, reference i on id-plane i + 1."""
+    blocks = [np.zeros((txt_len, 3), np.float64), flux_img_ids(height_tokens, width_tokens)]
+    if ref_tokens_hw is not None:
+        refs = ref_tokens_hw
+        if refs and not isinstance(refs[0], (tuple, list)):
+            refs = (refs,)  # one (h, w) pair
+        for i, (rh, rw) in enumerate(refs):
+            ref_ids = flux_img_ids(rh, rw)
+            ref_ids[:, 0] = float(i + 1)
+            blocks.append(ref_ids)
+    return flux_rope_cos_sin(np.concatenate(blocks, axis=0), cfg.axes_dims_rope, device=device)

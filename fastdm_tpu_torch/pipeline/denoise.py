@@ -1,5 +1,5 @@
-"""FLUX denoise loop (port of fastdm_tpu/pipeline/denoise.py make_flux_denoiser
-and the latent packing helpers).
+"""FLUX denoise loops (port of fastdm_tpu/pipeline/denoise.py make_flux_denoiser,
+make_flux_kontext_denoiser and the latent packing helpers).
 
 The JAX package jits the whole N-step loop into one lax.scan; here it is a
 Python loop over eager PyTorch ops under torch.inference_mode(), with the
@@ -20,13 +20,17 @@ Tensor = torch.Tensor
 
 
 def make_flux_denoiser(cfg: FluxConfig, scheduler: FlowMatchEulerScheduler, num_steps: int,
-                       cache_cfg=None, guidance_scale: float = 3.5):
+                       cache_cfg=None, guidance_scale: float = 3.5, start_step: int = 0):
     """Returns run(params, latents, encoder, pooled, cos, sin) -> (latents, skips).
 
-    latents: (B, S_img, in_channels) packed float32 noise; the conditioning is
+    latents: (B, S_img, in_channels) packed float32; the conditioning is
     already encoded. FLUX-dev is guidance-distilled: the scale enters through
-    the guidance embedding, one forward per step. (The JAX loop's start_step,
-    for img2img, arrives with that task.)"""
+    the guidance embedding, one forward per step. start_step > 0 is SDEdit
+    img2img: the caller noises the encoded image to sigmas[start_step] and
+    the loop runs the remaining steps. A step cache counts steps from the
+    loop's start, as JAX's FLUX loop does (the reference reads
+    scheduler.step_index, which restarts at 0 on the truncated schedule), so
+    TeaCache's forced first step and FBCache / DiCache's warmup fire there."""
 
     @torch.inference_mode()
     def run(params: FluxTransformer, latents: Tensor, encoder: Tensor, pooled: Tensor,
@@ -40,19 +44,48 @@ def make_flux_denoiser(cfg: FluxConfig, scheduler: FlowMatchEulerScheduler, num_
             hidden_shape = (b, latents.shape[1], cfg.inner_dim)
             state = cache_init_state(cache_cfg, hidden_shape, hidden_shape,
                                      device=latents.device)
-        for step in range(num_steps):
+        for step in range(start_step, num_steps):
             t = torch.full((b,), float(scheduler.sigmas[step]), dtype=torch.float32,
                            device=latents.device)
             x = latents.to(torch.bfloat16)
             if cached:
                 out, state = flux_forward_cached(
-                    params, cfg, cache_cfg, state, step, num_steps, x, encoder,
+                    params, cfg, cache_cfg, state, step - start_step, num_steps, x, encoder,
                     pooled, t, cos, sin, guidance=guidance)
             else:
                 out = flux_forward(params, cfg, x, encoder, pooled, t, cos, sin,
                                    guidance=guidance)
             latents = scheduler.step(out, step, latents)
         return latents, state["skips"] if cached else 0
+
+    return run
+
+
+def make_flux_kontext_denoiser(cfg: FluxConfig, scheduler: FlowMatchEulerScheduler,
+                               num_steps: int, cache_cfg=None, guidance_scale: float = 2.5):
+    """FLUX-Kontext editing loop: the clean reference-image tokens follow the
+    noise tokens every step (their rope ids sit on id-planes 1, 2, ...), and
+    only the first S outputs, the noise part, are denoised.
+
+    Returns run(params, latents (B, S, C), ref_tokens (B, S_ref, C), encoder,
+    pooled, cos, sin) -> (latents, 0); cos / sin cover txt + S + S_ref. It
+    runs no step cache: cache_cfg is taken and ignored, as in JAX."""
+    del cache_cfg
+
+    @torch.inference_mode()
+    def run(params: FluxTransformer, latents: Tensor, ref_tokens: Tensor, encoder: Tensor,
+            pooled: Tensor, cos: Tensor, sin: Tensor) -> Tuple[Tensor, int]:
+        b, s, _ = latents.shape
+        guidance = torch.full((b,), guidance_scale, dtype=torch.float32, device=latents.device)
+        ref = ref_tokens.to(torch.bfloat16)
+        for step in range(num_steps):
+            t = torch.full((b,), float(scheduler.sigmas[step]), dtype=torch.float32,
+                           device=latents.device)
+            x = torch.cat([latents.to(torch.bfloat16), ref], dim=1)
+            out = flux_forward(params, cfg, x, encoder, pooled, t, cos, sin,
+                               guidance=guidance)[:, :s]
+            latents = scheduler.step(out, step, latents)
+        return latents, 0
 
     return run
 

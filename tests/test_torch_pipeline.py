@@ -359,8 +359,8 @@ def test_engine_rejects_what_later_slices_bring(tmp_path, monkeypatch):
     eng = FastDMEngine(root, verbose=False, device="cpu")
     with pytest.raises(NotImplementedError, match="text encoders"):
         eng.generate(prompt="a cat")
-    with pytest.raises(NotImplementedError, match="t2i"):
-        eng.generate(task="i2i", image=np.zeros((64, 64, 3), np.uint8))
+    with pytest.raises(NotImplementedError, match="t2i, i2i are"):
+        eng.generate(task="v2v", image=np.zeros((64, 64, 3), np.uint8))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             FastDMEngine(root)  # the default device is the GPU; no quiet CPU run

@@ -413,14 +413,14 @@ def test_engine_end_to_end(tmp_path, monkeypatch, wan_vae):
     dec = (twvae.wan_vae_decode(eng.vae_params, eng.vae_cfg, z[:, :, None])[:, 0] if wan_vae
            else tvae.vae_decode(eng.vae_params, eng.vae_cfg, z))
     np.testing.assert_array_equal(img, eng._to_uint8(dec))
-    with pytest.raises(NotImplementedError, match="t2i"):
-        eng.generate(task="i2i", image=np.zeros((64, 96, 3), np.uint8), **kw)
+    with pytest.raises(NotImplementedError, match="t2i, i2i are"):
+        eng.generate(task="v2v", image=np.zeros((64, 96, 3), np.uint8), **kw)
     with pytest.raises(NotImplementedError, match="text encoder"):
         eng.generate(prompt="a fox", prompt_embeds=pos, true_cfg_scale=3.0)
     eng.generate(prompt_embeds=pos, height=64, width=96, num_inference_steps=1,
                  guidance_scale=1.0, output_type="latent")  # no negative without CFG
-    with pytest.raises(NotImplementedError, match="qwen-image-edit"):
-        FastDMEngine(root, architecture="qwen-image-edit", device="cpu")
+    with pytest.raises(NotImplementedError, match="wan2.1-i2v"):
+        FastDMEngine(root, architecture="wan2.1-i2v", device="cpu")
 
 
 def test_entry_points_default_to_the_card(tmp_path):

@@ -499,8 +499,8 @@ def test_engine_end_to_end(sd35_root):
     assert eng.last_cache_skips == skips
     np.testing.assert_array_equal(img, eng._to_uint8(tvae.vae_decode(eng.vae_params,
                                                                      eng.vae_cfg, want)))
-    with pytest.raises(NotImplementedError, match="t2i"):
-        eng.generate(task="i2i", image=np.zeros((128, 192, 3), np.uint8), **kw)
+    with pytest.raises(NotImplementedError, match="t2i, i2i are"):
+        eng.generate(task="v2v", image=np.zeros((128, 192, 3), np.uint8), **kw)
     with pytest.raises(NotImplementedError, match="text encoders"):
         eng.generate(prompt="a cat", prompt_embeds=kw["prompt_embeds"],
                      pooled_prompt_embeds=kw["pooled_prompt_embeds"])

@@ -496,8 +496,9 @@ def test_engine_rejects_what_later_slices_bring(sdxl_engine_root):
         eng.generate(control_image=np.zeros((64, 64, 3), np.uint8), **kw)
     with pytest.raises(NotImplementedError, match="IP-Adapter"):
         eng.generate(ip_adapter_image=np.zeros((64, 64, 3), np.uint8), **kw)
-    with pytest.raises(NotImplementedError, match="t2i"):
-        eng.generate(task="i2i", image=np.zeros((64, 64, 3), np.uint8), **kw)
+    with pytest.raises(NotImplementedError, match="ControlNet"):
+        eng.generate(task="i2i", image=np.zeros((64, 64, 3), np.uint8),
+                     control_image=np.zeros((64, 64, 3), np.uint8), **kw)
     with pytest.raises(NotImplementedError, match="text encoders"):
         eng.generate(prompt="a cat", prompt_embeds=kw["prompt_embeds"],
                      pooled_prompt_embeds=kw["pooled_prompt_embeds"])
