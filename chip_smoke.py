@@ -35,7 +35,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      at 768x768x121 (17856 tokens, 24 heads of 128): qk_norm_rope on its
      3072-wide rows, rmsnorm, sdpa on the self-attention (a tail tile) and
      the 512-key cross-attention, the int8 quantizer and GEMM bit-exact at
-     every W8A8 shape of its forward.
+     every W8A8 shape of its forward. The ControlNet / IP-Adapter shapes:
+     sdpa on the IP-Adapter branch (4 or 16 keys read in place from the
+     fused k|v, at both SDXL levels), the IP-Adapter-Plus resampler (16 x
+     273) and the union FLUX ControlNet's 513 + 8192 = 8705-token joint,
+     rotembd and rmsnorm there, the int8 quantizer and GEMM bit-exact at
+     M = 513 and 8705.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
      heads, random weights from a seed) four times: in bf16, in int8, in
      fp8 (W8A8 block linears drawn straight into int8 / e4m3) and in int4p
@@ -56,7 +61,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      first computed under TeaCache, which counts from the loop's start) with
      its decode also tiled, and FLUX-Kontext at 1024x1024 with one 1024x1024
      reference (8704 tokens); launches per computed forward from
-     flux_forward_launches.
+     flux_forward_launches. Then the union ControlNet at
+     InstantX/FLUX.1-dev-Controlnet-Union's shape (5 dual + 10 single
+     blocks, int8) serves a 1024x2048 request on a latent hint with
+     control_mode 2, launches 4 x (flux_forward_launches +
+     flux_controlnet_launches), one ControlNet forward held to its plain one.
   3. wan: frees FLUX, draws the two Wan2.2-T2V-A14B experts in int8 at full
      width and depth (40 blocks, 40x128 heads) from seeds and serves one
      480x832, 81-frame request through make_wan_dual_phase_denoiser (UniPC
@@ -81,7 +90,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      on the kernels held to the plain one in each format, the int8 one bit
      for bit to the forward with only the W8A8 ops plain; the int8 forward's
      split (each kernel and conv call of a recorded forward replayed alone,
-     times its count).
+     times its count). On the int8 UNet: an SDXL ControlNet at
+     controlnet-canny-sdxl-1.0's shape serves a CFG request and a guess-mode
+     one, random IP-Adapter k|v on every cross-attention an ip-adapter_sdxl
+     and an ip-adapter-plus request (launches from sdxl_controlnet_launches
+     and sdxl_ip_adapter_launches); the ControlNet forward and the UNet
+     forward with its residuals and with IP tokens held to their plain ones.
   sd35: frees SDXL, draws SD3.5-medium int8 at full width and depth (24
      blocks, 13 dual-attention, 24x64 heads) from a seed and serves 1024x2048
      requests through make_sd3_denoiser as bench.py's main_sd35 (batched CFG
@@ -138,7 +152,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      _resize_to_multiple branch), with launches derived per computed
      forward; the fp8 FLUX engine generates 1024x2048 after
      enable_vae_tiling(). An [img2img] line after [done] sums up the
-     image-conditioned requests.
+     image-conditioned requests. The int8 flux-kontext engine also loads a
+     full-width 2-block raw-hint ControlNet (controlnet_path) and generates
+     with a control_image; the SDXL engine loads a full-size ControlNet and
+     an ip-adapter_sdxl checkpoint (controlnet_path, ip_adapter_path) and
+     generates with a control_image and with ip_adapter_image_embeds. A
+     [controlnet] line sums up the ControlNet / IP-Adapter numbers.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -231,6 +250,23 @@ KONTEXT_SIZE, KONTEXT_GUIDANCE = 1024, 2.5
 EDIT_SIZE, EDIT_CFG = 1024, 4.0
 # phase 4's input images: sides that are not multiples of 16
 ENGINE_IMAGE_H, ENGINE_IMAGE_W = 1000, 2040
+# ControlNet / IP-Adapter requests at 1024x2048, 4 steps, conditioning scale
+# 0.7: InstantX/FLUX.1-dev-Controlnet-Union at its published shape (5 dual +
+# 10 single blocks at FLUX width, 10 modes, guidance-distilled; its mode
+# token makes the text stream 513 and the joint sequence 8705 tokens) on the
+# phase-2 int8 FLUX.1-dev; diffusers/controlnet-canny-sdxl-1.0 (the UNet's
+# down + mid path, hint channels 16, 32, 96, 256, "text_time"), h94/IP-Adapter
+# ip-adapter_sdxl (a 1280-wide image embedding to 4 tokens of 2048) and
+# ip-adapter-plus_sdxl_vit-h (4 resampler layers, 16 latents of 1280, 20
+# heads of 64, over 257 x 1280 CLIP states) on the sdxl phase's int8
+# SDXL-base
+UNION_LAYERS, UNION_SINGLE, UNION_MODES, UNION_MODE = 5, 10, 10, 2
+UNION_TEXT = TXT_TOKENS + 1
+CN_SCALE = 0.7
+IP_EMBED, IP_TOKENS = 1280, 4
+PLUS_LAYERS, PLUS_LATENTS, PLUS_HIDDEN, PLUS_STATES = 4, 16, 1280, 257
+# the ControlNet / IP-Adapter numbers of every phase, printed after [done]
+CN_SUMMARY: dict = {}
 
 
 def log(*a):
@@ -519,6 +555,7 @@ def phase_kernels(dev) -> dict:
     _sd35_kernels(dev, g)
     _qwen_kernels(dev)
     _wan5b_kernels(dev, torch.Generator(device=dev).manual_seed(4))
+    _controlnet_kernels(dev, torch.Generator(device=dev).manual_seed(11))
     for r in results.values():
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']})")
@@ -1449,6 +1486,7 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg, summary: dict) -> dict:
         _flux_step_caches(dev, params, cfg, sched, cos, sin, x, encoder, pooled, t, guidance)
     if quant == "int8":
         _flux_image_requests(dev, params, cfg, vae, vae_cfg, sched, cos, sin, summary)
+        _flux_controlnet_request(dev, params, cfg, vae, vae_cfg)
     del params
     torch.cuda.empty_cache()
     return mine
@@ -2335,6 +2373,7 @@ def _serve_sdxl(dev, quant, seeds, vae, vae_cfg) -> dict:
         per_forward = {k: v for k, v in sdxl_forward_launches(cfg).items() if v}
         if {k: split.get(k, 0) for k in per_forward} != per_forward:
             raise AssertionError(f"the recorded forward's calls {split} != {per_forward}")
+        _sdxl_conditioned_requests(dev, params, cfg, vae, vae_cfg)
     del params
     torch.cuda.empty_cache()
     return {k: counts[k] for k, v in want.items() if v}
@@ -3489,6 +3528,53 @@ def _engine_mmdit(dev, here: str, summary: dict) -> None:
 # ------------------------------------------------------------------ phase 4
 
 
+def _flux_lin_writer(sd: dict, g, dev):
+    """lin(name, k, n): a diffusers Linear (out, in) weight ~ N(0, 0.02^2)
+    and a N(0, 0.01^2) bias, bf16 on the host."""
+    import torch
+
+    def lin(name, k, n, std=0.02):
+        sd[f"{name}.weight"] = (torch.randn(n, k, generator=g, device=dev) * std).bfloat16().cpu()
+        sd[f"{name}.bias"] = (torch.randn(n, generator=g, device=dev) * 0.01).bfloat16().cpu()
+
+    return lin
+
+
+def _flux_trunk_sd(sd: dict, lin, cfg) -> None:
+    """The embedders and cfg's dual and single blocks of a FLUX checkpoint
+    under diffusers' names (what a FLUX ControlNet holds too)."""
+    import torch
+
+    d, mlp = cfg.inner_dim, cfg.mlp_hidden_dim
+    for e, k in (("timestep_embedder", 256), ("guidance_embedder", 256),
+                 ("text_embedder", cfg.pooled_projection_dim)):
+        lin(f"time_text_embed.{e}.linear_1", k, d)
+        lin(f"time_text_embed.{e}.linear_2", d, d)
+    lin("context_embedder", cfg.joint_attention_dim, d)
+    lin("x_embedder", cfg.in_channels, d)
+    for i in range(cfg.num_layers):
+        p = f"transformer_blocks.{i}"
+        lin(f"{p}.norm1.linear", d, 6 * d)
+        lin(f"{p}.norm1_context.linear", d, 6 * d)
+        for n in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0",
+                  "to_add_out"):
+            lin(f"{p}.attn.{n}", d, d)
+        for n in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            sd[f"{p}.attn.{n}.weight"] = torch.ones(cfg.attention_head_dim, dtype=torch.bfloat16)
+        for ff in ("ff", "ff_context"):
+            lin(f"{p}.{ff}.net.0.proj", d, mlp)
+            lin(f"{p}.{ff}.net.2", mlp, d)
+    for i in range(cfg.num_single_layers):
+        p = f"single_transformer_blocks.{i}"
+        lin(f"{p}.norm.linear", d, 3 * d)
+        for n in ("to_q", "to_k", "to_v"):
+            lin(f"{p}.attn.{n}", d, d)
+        for n in ("norm_q", "norm_k"):
+            sd[f"{p}.attn.{n}.weight"] = torch.ones(cfg.attention_head_dim, dtype=torch.bfloat16)
+        lin(f"{p}.proj_mlp", d, mlp)
+        lin(f"{p}.proj_out", d + mlp, d)
+
+
 def _write_checkpoint(root: str, dev) -> None:
     """Synthetic diffusers-layout FLUX checkpoint: FLUX.1-dev widths with one
     dual and one single block, plus the full-size FLUX AutoencoderKL (decoder
@@ -3502,39 +3588,10 @@ def _write_checkpoint(root: str, dev) -> None:
     cfg = FluxConfig(num_layers=1, num_single_layers=1)
     g = torch.Generator(device=dev).manual_seed(5)
     sd = {}
-
-    def lin(name, k, n, std=0.02):
-        sd[f"{name}.weight"] = (torch.randn(n, k, generator=g, device=dev) * std).bfloat16().cpu()
-        sd[f"{name}.bias"] = (torch.randn(n, generator=g, device=dev) * 0.01).bfloat16().cpu()
-
-    d, mlp = cfg.inner_dim, cfg.mlp_hidden_dim
-    for e, k in (("timestep_embedder", 256), ("guidance_embedder", 256),
-                 ("text_embedder", cfg.pooled_projection_dim)):
-        lin(f"time_text_embed.{e}.linear_1", k, d)
-        lin(f"time_text_embed.{e}.linear_2", d, d)
-    lin("context_embedder", cfg.joint_attention_dim, d)
-    lin("x_embedder", cfg.in_channels, d)
-    p = "transformer_blocks.0"
-    lin(f"{p}.norm1.linear", d, 6 * d)
-    lin(f"{p}.norm1_context.linear", d, 6 * d)
-    for n in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0",
-              "to_add_out"):
-        lin(f"{p}.attn.{n}", d, d)
-    for n in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
-        sd[f"{p}.attn.{n}.weight"] = torch.ones(cfg.attention_head_dim, dtype=torch.bfloat16)
-    for ff in ("ff", "ff_context"):
-        lin(f"{p}.{ff}.net.0.proj", d, mlp)
-        lin(f"{p}.{ff}.net.2", mlp, d)
-    p = "single_transformer_blocks.0"
-    lin(f"{p}.norm.linear", d, 3 * d)
-    for n in ("to_q", "to_k", "to_v"):
-        lin(f"{p}.attn.{n}", d, d)
-    for n in ("norm_q", "norm_k"):
-        sd[f"{p}.attn.{n}.weight"] = torch.ones(cfg.attention_head_dim, dtype=torch.bfloat16)
-    lin(f"{p}.proj_mlp", d, mlp)
-    lin(f"{p}.proj_out", d + mlp, d)
-    lin("norm_out.linear", d, 2 * d)
-    lin("proj_out", d, cfg.out_channels)
+    lin = _flux_lin_writer(sd, g, dev)
+    _flux_trunk_sd(sd, lin, cfg)
+    lin("norm_out.linear", cfg.inner_dim, 2 * cfg.inner_dim)
+    lin("proj_out", cfg.inner_dim, cfg.out_channels)
     os.makedirs(os.path.join(root, "transformer"))
     save_file(sd, os.path.join(root, "transformer", "model.safetensors"))
     with open(os.path.join(root, "transformer", "config.json"), "w") as f:
@@ -3744,20 +3801,12 @@ def _write_wan_vae(root: str, dev, seed: int, vcfg=None) -> None:
                    "patch_size": vcfg.patch_size, "is_residual": vcfg.is_residual}, f)
 
 
-def _write_sdxl_checkpoint(root: str, dev) -> None:
-    """Synthetic diffusers-layout SDXL-base checkpoint: the whole UNet at the
-    published widths and depth in bf16 (the engine quantizes at load) in
-    unet/, and the full-size AutoencoderKL (decoder and encoder) with 4
-    latent channels in vae/. Names as diffusers' UNet2DConditionModel."""
+def _sdxl_down_mid_sd(sd: dict, g, dev, cfg, writers: Optional[dict] = None):
+    """The conv_in, embedders, down blocks and mid block of an SDXL UNet at
+    cfg's widths in bf16 under diffusers' names (what an SDXL ControlNet
+    holds too); returns the conv writer. `writers` receives the lin, norm,
+    resnet and t2d writers."""
     import torch
-    from safetensors.torch import save_file
-
-    from fastdm_tpu_torch.models.sdxl import SDXLConfig
-    from fastdm_tpu_torch.pipeline.vae import VAEConfig
-
-    cfg = SDXLConfig(quant=None)
-    g = torch.Generator(device=dev).manual_seed(12)
-    sd = {}
 
     def rand(*shape, std):
         return (torch.randn(*shape, generator=g, device=dev) * std).bfloat16().cpu()
@@ -3820,16 +3869,38 @@ def _write_sdxl_checkpoint(root: str, dev) -> None:
     resnet("mid_block.resnets.0", c2, c2)
     t2d("mid_block.attentions.0", c2, n2)
     resnet("mid_block.resnets.1", c2, c2)
+    if writers is not None:
+        writers.update(lin=lin, norm=norm, resnet=resnet, t2d=t2d)
+    return conv
+
+
+def _write_sdxl_checkpoint(root: str, dev) -> None:
+    """Synthetic diffusers-layout SDXL-base checkpoint: the whole UNet at the
+    published widths and depth in bf16 (the engine quantizes at load) in
+    unet/, and the full-size AutoencoderKL (decoder and encoder) with 4
+    latent channels in vae/. Names as diffusers' UNet2DConditionModel."""
+    import torch
+    from safetensors.torch import save_file
+
+    from fastdm_tpu_torch.models.sdxl import SDXLConfig
+    from fastdm_tpu_torch.pipeline.vae import VAEConfig
+
+    cfg = SDXLConfig(quant=None)
+    g = torch.Generator(device=dev).manual_seed(12)
+    sd, w = {}, {}
+    conv = _sdxl_down_mid_sd(sd, g, dev, cfg, w)
+    c0, c1, c2 = cfg.block_channels
+    n1, n2 = cfg.attn_layers[1], cfg.attn_layers[2]
     for i, (c, nl, cins) in enumerate(((c2, n2, (2 * c2, 2 * c2, c2 + c1)),
                                        (c1, n1, (c2 + c1, 2 * c1, c1 + c0)),
                                        (c0, 0, (c1 + c0, 2 * c0, 2 * c0)))):
         for j, cin in enumerate(cins):
-            resnet(f"up_blocks.{i}.resnets.{j}", cin, c)
+            w["resnet"](f"up_blocks.{i}.resnets.{j}", cin, c)
             if nl:
-                t2d(f"up_blocks.{i}.attentions.{j}", c, nl)
+                w["t2d"](f"up_blocks.{i}.attentions.{j}", c, nl)
         if i < 2:
             conv(f"up_blocks.{i}.upsamplers.0.conv", c, c)
-    norm("conv_norm_out", c0)
+    w["norm"]("conv_norm_out", c0)
     conv("conv_out", c0, cfg.out_channels)
     os.makedirs(os.path.join(root, "unet"))
     save_file(sd, os.path.join(root, "unet", "model.safetensors"))
@@ -3854,11 +3925,17 @@ def _engine_sdxl(dev, here: str, summary: dict) -> None:
     with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
         t0 = time.perf_counter()
         _write_sdxl_checkpoint(root, dev)
+        cn_path, ip_path = os.path.join(root, "controlnet"), os.path.join(root, "ip-adapter")
+        _write_sdxl_controlnet(cn_path, dev)
+        _write_ip_adapter(ip_path, dev)
         size = os.path.getsize(os.path.join(root, "unet", "model.safetensors"))
+        cn_size = os.path.getsize(os.path.join(cn_path, "diffusion_pytorch_model.safetensors"))
         log(f"[engine sdxl] wrote the synthetic SDXL-base checkpoint (unet/ {size / 1e9:.2f} GB "
-            f"in bf16, full-size vae/) in {time.perf_counter() - t0:.1f} s")
+            f"in bf16, full-size vae/), a ControlNet ({cn_size / 1e9:.2f} GB) and an "
+            f"IP-Adapter in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        eng = FastDMEngine(root, architecture="sdxl", use_int8=True, verbose=False)
+        eng = FastDMEngine(root, architecture="sdxl", use_int8=True, verbose=False,
+                           controlnet_path=cn_path, ip_adapter_path=ip_path)
         cfg = eng.cfg
         qkv = eng.params.down[2].attns[1].blocks[-1].attn1.qkv.w
         log(f"[engine sdxl] FastDMEngine loaded in {time.perf_counter() - t0:.1f} s: block "
@@ -3893,6 +3970,10 @@ def _engine_sdxl(dev, here: str, summary: dict) -> None:
                          negative_prompt_embeds=neg, negative_pooled_prompt_embeds=neg_pooled,
                          num_inference_steps=SDXL_STEPS, guidance_scale=SDXL_CFG, seed=8), 32,
                     summary)
+        _engine_sdxl_conditioning(eng, dict(
+            prompt_embeds=pos, pooled_prompt_embeds=pos_pooled, negative_prompt_embeds=neg,
+            negative_pooled_prompt_embeds=neg_pooled, num_inference_steps=SDXL_STEPS,
+            guidance_scale=SDXL_CFG, seed=9))
         del eng
         torch.cuda.empty_cache()
 
@@ -3913,9 +3994,15 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
     with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
         t0 = time.perf_counter()
         _write_checkpoint(root, dev)
-        log(f"[engine] wrote the synthetic checkpoint in {time.perf_counter() - t0:.1f} s")
-        # int8 as flux-kontext (its i2i appends the reference); fp8 decodes tiled
-        for seed, arch, flags in ((1, "flux", {}), (2, "flux-kontext", {"use_int8": True}),
+        cn_path = os.path.join(root, "controlnet")
+        _write_flux_controlnet(cn_path, dev)
+        log(f"[engine] wrote the synthetic checkpoint and a 2-block ControlNet in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # int8 as flux-kontext (its i2i appends the reference) with the
+        # ControlNet; fp8 decodes tiled
+        for seed, arch, flags in ((1, "flux", {}),
+                                  (2, "flux-kontext", {"use_int8": True,
+                                                       "controlnet_path": cn_path}),
                                   (3, "flux", {"use_fp8": True}),
                                   (4, "flux", {"use_int4": True, "pack_int4": True,
                                                "quant_mods": True})):
@@ -3969,6 +4056,8 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
                 _engine_i2i(eng, f"engine {label} {arch}", flux_forward_launches(eng.cfg),
                             dict(prompt_embeds=embeds, pooled_prompt_embeds=pooled,
                                  num_inference_steps=STEPS, seed=seed), 16, summary)
+            if label == "int8":
+                _engine_flux_controlnet(eng, embeds, pooled)
             elif label == "fp8":
                 eng.enable_vae_tiling()
                 t0 = time.perf_counter()
@@ -4105,6 +4194,566 @@ def _engine_wan(dev, here: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ ControlNet / IP-Adapter
+
+
+def _controlnet_kernels(dev, g) -> None:
+    """The kernels at the shapes the ControlNet and IP-Adapter requests give
+    them, each held to its plain version and timed beside its bound and the
+    library call: sdpa on the IP-Adapter branch of both SDXL levels (q on
+    8192 tokens at 640 wide and 2048 at 1280, CFG batch 2) against 4 or 16
+    image-token keys read in place from the fused k|v projection (a 128-key
+    box over 4 rows), on the Plus resampler (16 latents over 257 + 16 keys)
+    and on the union ControlNet's joint 513 + 8192 = 8705 tokens (the last
+    query tile one row); rotembd bit-exact on that sequence with the mode
+    token's extra table row; rmsnorm on its 8705- and 513-row head rows; the
+    int8 quantizer and GEMM bit-exact, with and without the zero point, at
+    every new M of the union ControlNet (513 text rows in the dual blocks,
+    8705 joint rows in the single blocks)."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.models.flux import FluxConfig, flux_rope_cache
+    from fastdm_tpu_torch.models.sdxl import SDXLConfig
+
+    cfg = SDXLConfig()
+    t = CN_SUMMARY.setdefault("kernel_ms", {})
+    for (tokens, c), (blocks, _) in zip(sdxl_levels(cfg), sdxl_level_blocks(cfg)):
+        q = torch.randn(SDXL_BATCH, tokens, c, generator=g, device=dev, dtype=torch.bfloat16)
+        for keys in (IP_TOKENS, PLUS_LATENTS):
+            kv = torch.randn(SDXL_BATCH, keys, 2 * c, generator=g, device=dev,
+                             dtype=torch.bfloat16)
+            t[f"sdpa_ip_{c}x{keys}"] = _sdpa_case(
+                f"IP-Adapter branch {c} wide, {keys} image tokens ({blocks} per forward)", q,
+                kv[..., :c], kv[..., c:], c // 64, 64, long_rows=False)
+        del q, kv
+    lat = torch.randn(1, PLUS_LATENTS, PLUS_HIDDEN, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    kv = torch.randn(1, PLUS_STATES + PLUS_LATENTS, 2 * PLUS_HIDDEN, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    t["sdpa_resampler"] = _sdpa_case(
+        f"IP-Adapter-Plus resampler ({PLUS_LAYERS} per request)", lat, kv[..., :PLUS_HIDDEN],
+        kv[..., PLUS_HIDDEN:], PLUS_HIDDEN // 64, 64, long_rows=False)
+
+    s = UNION_TEXT + IMG_TOKENS
+    cos, sin = flux_rope_cache(FluxConfig(), TXT_TOKENS, FLUX_HT, FLUX_WT, device=dev)
+    cos, sin = torch.cat([cos[:1], cos]), torch.cat([sin[:1], sin])
+    qkv = torch.randn(1, s, 3 * DIM, generator=g, device=dev, dtype=torch.bfloat16)
+    q, k, v = qkv.split(DIM, dim=-1)
+    per = UNION_LAYERS + UNION_SINGLE
+    t["sdpa_union_8705"] = _sdpa_case(f"union ControlNet joint ({per} per forward)", q, k, v,
+                                      HEADS, HEAD_DIM)
+    qc, kc = q.contiguous(), k.contiguous()
+    got = cb.rotary_pos_embedding_cuda(qc, kc, HEAD_DIM, cos, sin, False)
+    want = tb.rotary_pos_embedding_torch(qc, kc, HEAD_DIM, cos, sin, False)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("rotembd is not bit-exact at the union ControlNet's 8705 tokens")
+    ms = cuda_ms(lambda: cb.rotary_pos_embedding_cuda(qc, kc, HEAD_DIM, cos, sin, False), 50)
+    n = qc.numel() + kc.numel()
+    b_ms, b_by = bound(2 * n * 2 + 2 * cos.numel() * 4, 3 * n, F32_FLOPS)
+    log(f"[rotembd] union ControlNet {tuple(qc.shape)} interleaved, cos {tuple(cos.shape)}: "
+        f"bit-exact True; {ms:.4f} ms ({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, {b_by}); "
+        f"plain {cuda_ms(lambda: tb.rotary_pos_embedding_torch(qc, kc, HEAD_DIM, cos, sin, False), 10):.4f} ms")
+    t["rotembd_union_8705"] = ms
+    w = (1 + 0.05 * torch.randn(HEAD_DIM, generator=g, device=dev)).bfloat16()
+    for rows in (s, UNION_TEXT):
+        x = qkv[:, :rows, :DIM].reshape(1, rows, HEADS, HEAD_DIM)
+        t[f"rmsnorm_union_{rows}"] = _rms_case(f"union ControlNet {rows} head rows", x, w)
+    del qkv, q, k, v, qc, kc, got, want, cos, sin
+
+    # the int8 linears at the union ControlNet's new M: (M, K, N) -> per forward
+    gemms = {(UNION_TEXT, DIM, 3 * DIM): UNION_LAYERS, (UNION_TEXT, DIM, DIM): UNION_LAYERS,
+             (UNION_TEXT, DIM, MLP): UNION_LAYERS, (UNION_TEXT, MLP, DIM): UNION_LAYERS,
+             (s, DIM, 3 * DIM + MLP): UNION_SINGLE, (s, DIM + MLP, DIM): UNION_SINGLE}
+    for (m, k_, n_), count in gemms.items():
+        a, sa, lin, args = _w8a8_operands("int8", m, k_, n_, g, dev)
+        _int8_exact(args, f"union ControlNet {m}x{k_} @ {k_}x{n_}")  # raises on a mismatch
+        x = torch.randn(m, k_, generator=g, device=dev, dtype=torch.bfloat16)
+        if not all(torch.equal(u, v) for u, v in zip(cb.quantize_to_int8_cuda(x, symmetric=False),
+                                                     tb.quantize_to_int8_torch(x, symmetric=False))):
+            raise AssertionError(f"quantize_to_int8 disagrees at the union ControlNet's M={m}")
+        ms = cuda_ms(lambda: cb.int8_matmul_cuda(*args), 10)
+        q_ms = cuda_ms(lambda: cb.quantize_to_int8_cuda(x, symmetric=False), 10)
+        lib_ms = cuda_ms(lambda: torch._int_mm(a, lin.w), 10) if m % 8 == 0 else None
+        b_ms, b_by = bound(_gemm_bytes(m, k_, n_), 2 * m * n_ * k_, INT8_FP8_OPS)
+        log(f"[int8 w8a8] union ControlNet {m}x{k_} @ {k_}x{n_} ({count} per forward): quantize "
+            f"and GEMM bit-exact (with and without azp); GEMM {ms:.4f} ms ({b_ms / ms:.1%} of the "
+            f"bound {b_ms:.4f} ms, {b_by}), quantize {q_ms:.4f} ms, library (torch._int_mm, "
+            f"s32 product only, M a multiple of 8) {lib_ms} ms")
+        t[f"int8_matmul_{m}x{k_}x{n_}"] = ms
+        del a, sa, lin, args, x
+    torch.cuda.empty_cache()
+
+
+def flux_controlnet_launches(cn_cfg) -> dict:
+    """Kernel launches of one FLUX ControlNet forward: its dual and single
+    blocks are FLUX's, so flux_forward_launches of its depth; its
+    embedders, mode table, controlnet_x_embedder and zero heads are bf16
+    products and launch none."""
+    return flux_forward_launches(cn_cfg)
+
+
+# Relative L2 of one full-width forward on the kernels against the same
+# forward on the plain versions: the union FLUX ControlNet's stacked
+# residuals, the SDXL ControlNet's residuals, the SDXL UNet with ControlNet
+# residuals and with IP-Adapter tokens, all int8; twice the first value
+# measured on an H100 80GB HBM3 (2.125e-2, 7.612e-3, 1.386e-2, 1.596e-2). A
+# wrong tile, scale or layout gives O(1).
+FLUX_CN_REL_L2_TOL = 4.25e-2
+SDXL_CN_REL_L2_TOL = {"controlnet": 1.522e-2, "unet_cn": 2.772e-2, "unet_ip": 3.192e-2}
+
+
+INT8_OPS = ("quantize_to_int8", "int8_matmul")
+
+
+def _flux_controlnet_request(dev, params, cfg, vae, vae_cfg) -> None:
+    """On the full-depth int8 FLUX.1-dev: the union ControlNet drawn at its
+    published shape in int8, one 1024x2048 request (4 steps, guidance 3.5,
+    scale 0.7, control_mode 2) on a latent hint from the full-size
+    AutoencoderKL encoder, its launches equal to 4 x (flux_forward_launches +
+    flux_controlnet_launches), and one ControlNet forward held to its plain
+    forward."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend, kernel_registry
+    from fastdm_tpu_torch.models.controlnets import FluxControlNetConfig, \
+        flux_controlnet_forward, flux_controlnet_init_random
+    from fastdm_tpu_torch.models.flux import flux_rope_cache
+    from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents, \
+        make_flux_cn_denoiser
+    from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, \
+        flow_match_shift_mu
+    from fastdm_tpu_torch.pipeline.vae import vae_decode, vae_encode
+
+    cn_cfg = FluxControlNetConfig(quant="int8", num_layers=UNION_LAYERS,
+                                  num_single_layers=UNION_SINGLE, guidance_embeds=True)
+    cn, init_sec = _timed(flux_controlnet_init_random, 9, cn_cfg, device=dev,
+                          num_modes=UNION_MODES)
+    n = sum(p.numel() for p in cn.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in cn.parameters())
+    log(f"[slice int8 controlnet] union ControlNet ({UNION_LAYERS} dual + {UNION_SINGLE} single "
+        f"blocks, {UNION_MODES} modes) int8 random init: {n / 1e9:.3f} B params "
+        f"({nbytes / 2**30:.2f} GiB) in {init_sec:.1f} s")
+    ht, wt = FLUX_HT, FLUX_WT
+    sched = FlowMatchEulerScheduler.create(STEPS, use_dynamic_shifting=True,
+                                           mu=flow_match_shift_mu(ht * wt))
+    cos, sin = flux_rope_cache(cfg, TXT_TOKENS, ht, wt, device=dev)
+    image = torch.from_numpy(_seeded_image(29, 16 * ht, 16 * wt)).to(dev).float()[None]
+    z, enc_sec = _timed(vae_encode, vae["encoder"], vae_cfg, image / 127.5 - 1.0)
+    hint = flux_pack_latents(z.float())
+    run = make_flux_cn_denoiser(cfg, cn_cfg, sched, STEPS, 3.5, CN_SCALE, UNION_MODE)
+    latents, encoder, pooled = _conditioning(dev, 30, cfg, ht * wt)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    (lat, _), den_sec = _timed(run, params, cn, latents, hint, encoder, pooled, cos, sin)
+    counts = _launch_counts()
+    img, dec_sec = _timed(vae_decode, vae, vae_cfg, flux_unpack_latents(lat, ht, wt))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_f, per_c = flux_forward_launches(cfg), flux_controlnet_launches(cn_cfg)
+    want = {k: STEPS * (per_f[k] + per_c[k]) for k in per_f}
+    finite = bool(torch.isfinite(img).all())
+    log(f"[slice int8 controlnet] request {16 * ht}x{16 * wt} {STEPS} steps, control_mode "
+        f"{UNION_MODE}, scale {CN_SCALE}: {enc_sec + den_sec + dec_sec:.3f} s (hint encode "
+        f"{enc_sec:.3f}, denoise {den_sec:.3f}, decode {dec_sec:.3f}), image {tuple(img.shape)} "
+        f"finite={finite}, peak {peak:.2f} GiB; launches {counts} (derived {STEPS} x (FLUX "
+        f"forward + ControlNet forward))")
+    if not finite or tuple(img.shape) != (1, 16 * ht, 16 * wt, 3) or counts != want:
+        raise AssertionError(f"ControlNet request: launches {counts} != derived {want}")
+    x, t = latents.to(torch.bfloat16), torch.full((1,), float(sched.sigmas[0]), device=dev)
+    guidance = torch.full((1,), 3.5, device=dev)
+    ccos, csin = torch.cat([cos[:1], cos]), torch.cat([sin[:1], sin])
+    hb = hint.to(torch.bfloat16)
+
+    def forward(plain_ops=()):
+        with torch.inference_mode(), kernel_registry.plain_on_device(plain_ops):
+            bs, sbs = flux_controlnet_forward(cn, cn_cfg, x, hb, encoder, pooled, t, ccos, csin,
+                                              guidance=guidance, conditioning_scale=CN_SCALE,
+                                              control_mode=UNION_MODE)
+            return torch.cat([bs, sbs]).float()
+
+    fwd_sec, _ = _forward_gate("slice int8 controlnet", forward, FLUX_CN_REL_L2_TOL, INT8_OPS)
+    CN_SUMMARY.update(flux_union_request_s=round(enc_sec + den_sec + dec_sec, 4),
+                      flux_union_denoise_s=round(den_sec, 4),
+                      flux_union_forward_s=round(fwd_sec, 4),
+                      flux_union_peak_gib=round(peak, 2),
+                      flux_union_launches_per_step={k: v for k, v in per_c.items() if v})
+    _zero_heads_times(cn, dev)
+    del cn, img, lat, hint, z
+    torch.cuda.empty_cache()
+
+
+def _zero_heads_times(cn, dev) -> None:
+    """The union ControlNet's stacked zero-linear heads alone, at the
+    request's shapes ((L, 1, 8192, 3072) samples times (L, 3072, 3072)
+    weights): _zero_heads (TF32 tensor cores) beside the same f32 product on
+    the CUDA cores (TF32 off), which both compute from exact products of bf16
+    values; the two differ only in the f32 summation order, so their bf16
+    outputs agree within one bf16 ulp (relative L2 3.9e-3)."""
+    import torch
+
+    from fastdm_tpu_torch.models.controlnets import _zero_heads
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    times = CN_SUMMARY.setdefault("zero_heads_ms", {})
+    for name, heads in (("dual", cn.controlnet_blocks), ("single", cn.controlnet_single_blocks)):
+        n, d = heads["w"].shape[:2]
+        x = torch.randn(n, 1, IMG_TOKENS, d, generator=g, device=dev, dtype=torch.bfloat16)
+
+        def cuda_cores():
+            out = torch.matmul(x.float(), heads["w"].float()[:, None])
+            return ((out + heads["bias"].float()[:, None, None, :]) * CN_SCALE).to(x.dtype)
+
+        with torch.inference_mode():
+            torch.backends.cuda.matmul.allow_tf32 = False
+            rel = ((_zero_heads(x, heads, CN_SCALE).float() - cuda_cores().float()).norm()
+                   / cuda_cores().float().norm()).item()
+            tf32_ms = cuda_ms(lambda: _zero_heads(x, heads, CN_SCALE), 5)
+            f32_ms = cuda_ms(cuda_cores, 5)
+        times[name] = dict(tf32_ms=round(tf32_ms, 4), f32_cuda_cores_ms=round(f32_ms, 4),
+                           rel_l2=rel)
+        log(f"[slice int8 controlnet] zero heads {name} ({n} x {IMG_TOKENS} x {d} x {d}): TF32 "
+            f"{tf32_ms:.4f} ms, f32 on the CUDA cores {f32_ms:.4f} ms, relative L2 {rel:.3e}")
+        if not rel <= 3.9e-3:
+            raise AssertionError(f"zero heads {name}: TF32 and f32 products differ, {rel:.3e}")
+        del x
+
+
+def sdxl_controlnet_launches(cfg) -> dict:
+    """Kernel launches of one SDXL ControlNet forward, read off
+    models/controlnets.py: the UNet's down1 (2 Transformer2Ds of
+    attn_layers[1] blocks), down2 (2 of attn_layers[2]) and mid (1) blocks,
+    each two sdpa, one gelu_and_mul and 7 W8A8 linears; proj_in / proj_out
+    per Transformer2D; time_emb_proj per resnet (down 6, mid 2). The hint
+    encoder, zero convs and embedders launch none. Whatever the batch."""
+    n1, n2 = cfg.attn_layers[1], cfg.attn_layers[2]
+    blocks, t2ds, resnets = 2 * n1 + 3 * n2, 5, 8
+    counts = dict.fromkeys(_launch_counts(), 0)
+    counts.update(sdpa=2 * blocks, gelu_and_mul=blocks)
+    if cfg.quant is not None:
+        counts[f"quantize_to_{cfg.quant}"] = counts[f"{cfg.quant}_matmul"] = \
+            7 * blocks + 2 * t2ds + resnets
+    return counts
+
+
+def sdxl_ip_adapter_launches(cfg) -> dict:
+    """What the IP-Adapter adds to one UNet forward: on every cross-attention
+    the ipadp_kv linear (W8A8 in cfg.quant) and one more sdpa."""
+    blocks = sum(n for n, _ in sdxl_level_blocks(cfg))
+    counts = dict.fromkeys(_launch_counts(), 0)
+    counts["sdpa"] = blocks
+    if cfg.quant is not None:
+        counts[f"quantize_to_{cfg.quant}"] = counts[f"{cfg.quant}_matmul"] = blocks
+    return counts
+
+
+def _random_ip_adapter(params, cfg, dev, seed: int):
+    """Attach random ipadp_kv linears (no bias, cfg.quant) to every
+    cross-attention of `params` and draw both image projections at
+    h94/IP-Adapter's SDXL shapes: ip-adapter_sdxl (one 1280 -> 4 x 2048
+    linear and a LayerNorm) and ip-adapter-plus_sdxl_vit-h (the resampler)."""
+    import torch
+
+    from fastdm_tpu_torch.layers.ip_adapter import ImageProjection, IPAdapterPlusProjection, \
+        ResamplerBlock
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+    from fastdm_tpu_torch.models.sdxl import frozen_params
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ctx, hid = cfg.cross_attention_dim, PLUS_HIDDEN
+    for stage in (*params.down, *params.up, params.mid):
+        for t2d in stage.attns or []:
+            for blk in t2d.blocks:
+                c = blk.attn2.out.w.shape[1]
+                blk.attn2.ipadp_kv = qlinear_random(g, ctx, 2 * c, bias=False, quant=cfg.quant,
+                                                    device=dev)
+
+    def lin(k, n, bias=True):
+        return qlinear_random(g, k, n, bias=bias, w_std=k**-0.5, device=dev)
+
+    def norm(c):
+        return frozen_params(gamma=torch.ones(c, dtype=torch.bfloat16, device=dev),
+                             beta=torch.zeros(c, dtype=torch.bfloat16, device=dev))
+
+    simple = ImageProjection(lin(IP_EMBED, IP_TOKENS * ctx), norm(ctx), IP_TOKENS)
+    layers = [ResamplerBlock(norm(hid), norm(hid), lin(hid, hid, False), lin(hid, 2 * hid, False),
+                             lin(hid, hid, False), norm(hid), lin(hid, 4 * hid, False),
+                             lin(4 * hid, hid, False)) for _ in range(PLUS_LAYERS)]
+    latents = torch.randn(1, PLUS_LATENTS, hid, generator=g, device=dev) * hid**-0.5
+    plus = IPAdapterPlusProjection(latents.bfloat16(), lin(IP_EMBED, hid), layers,
+                                   lin(hid, ctx), norm(ctx), heads=hid // 64, head_dim=64)
+    return simple, plus
+
+
+def _sdxl_conditioned_requests(dev, params, cfg, vae, vae_cfg) -> None:
+    """On the full-depth int8 SDXL-base: the SDXL ControlNet drawn at
+    diffusers/controlnet-canny-sdxl-1.0's shape in int8; 1024x2048 CFG
+    requests of 4 steps with a [0, 1] hint, without and with guess mode,
+    launches 4 x (sdxl_forward_launches + sdxl_controlnet_launches); the
+    ControlNet forward and the UNet forward with its residuals held to their
+    plain forwards. Then random IP-Adapter k|v on every cross-attention and
+    an ip-adapter_sdxl and an ip-adapter-plus request (the image tokens
+    projected once, zeros for the negative half), launches 4 x
+    (sdxl_forward_launches + sdxl_ip_adapter_launches) plus the resampler's
+    sdpa; the forward with IP tokens held to its plain forward."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend, kernel_registry
+    from fastdm_tpu_torch.models.controlnets import sdxl_controlnet_forward, \
+        sdxl_controlnet_init_random
+    from fastdm_tpu_torch.models.sdxl import sdxl_forward
+    from fastdm_tpu_torch.pipeline.denoise_sdxl import make_sdxl_cn_denoiser, make_sdxl_denoiser
+    from fastdm_tpu_torch.pipeline.schedulers import EulerDiscreteScheduler
+    from fastdm_tpu_torch.pipeline.vae import vae_decode
+
+    cn, init_sec = _timed(sdxl_controlnet_init_random, 8, cfg, device=dev)
+    n = sum(p.numel() for p in cn.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in cn.parameters())
+    log(f"[sdxl controlnet] SDXL ControlNet int8 random init: {n / 1e9:.3f} B params "
+        f"({nbytes / 2**30:.2f} GiB) in {init_sec:.1f} s")
+    sched = EulerDiscreteScheduler.create(SDXL_STEPS)
+    hint = torch.from_numpy(_seeded_image(57, SDXL_H, SDXL_W)).to(dev).float()
+    hint = (hint / 255.0).permute(2, 0, 1)[None]
+    per_u, per_c = sdxl_forward_launches(cfg), sdxl_controlnet_launches(cfg)
+
+    def request(label, run, args, per, extra=None):
+        torch.cuda.reset_peak_memory_stats()
+        cuda_backend.reset_launch_counts()
+        (lat, _), den_sec = _timed(run, *args)
+        counts = _launch_counts()
+        img, dec_sec = _timed(vae_decode, vae, vae_cfg, lat)
+        want = {k: SDXL_STEPS * (per_u[k] + per[k]) + (extra or {}).get(k, 0) for k in per_u}
+        finite = bool(torch.isfinite(img).all())
+        log(f"[sdxl {label}] request {SDXL_H}x{SDXL_W} {SDXL_STEPS} steps, CFG {SDXL_CFG}: "
+            f"{den_sec + dec_sec:.3f} s (denoise {den_sec:.3f}, decode {dec_sec:.3f}), image "
+            f"{tuple(img.shape)} finite={finite}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
+        if not finite or tuple(img.shape) != (1, SDXL_H, SDXL_W, 3) or counts != want:
+            raise AssertionError(f"SDXL {label} request: launches {counts} != derived {want}")
+        CN_SUMMARY[f"sdxl_{label.replace(' ', '_').replace('-', '_')}_request_s"] = round(
+            den_sec + dec_sec, 4)
+
+    for guess in (False, True):
+        latents, embeds, pooled, time_ids = _sdxl_conditioning(dev, 58 + guess, cfg,
+                                                               sched.init_noise_sigma)
+        run = make_sdxl_cn_denoiser(cfg, sched, SDXL_STEPS, SDXL_CFG, CN_SCALE, guess)
+        request("controlnet guess" if guess else "controlnet", run,
+                (params, cn, latents, embeds, pooled, time_ids, hint), per_c)
+    x = torch.cat([sched.scale_model_input(latents, 0)] * 2).to(torch.bfloat16)
+    t = torch.full((SDXL_BATCH,), float(sched.timesteps[0]), device=dev)
+    hint2 = torch.cat([hint] * 2)
+
+    def cn_forward(plain_ops=()):
+        with torch.inference_mode(), kernel_registry.plain_on_device(plain_ops):
+            down, mid = sdxl_controlnet_forward(cn, cfg, x, t, embeds, pooled, time_ids, hint2,
+                                                conditioning_scale=CN_SCALE)
+            return torch.cat([r.flatten() for r in (*down, mid)]).float()
+
+    CN_SUMMARY["sdxl_controlnet_forward_s"] = round(_forward_gate(
+        "sdxl controlnet", cn_forward, SDXL_CN_REL_L2_TOL["controlnet"], INT8_OPS)[0], 4)
+    with torch.inference_mode():
+        down, mid = sdxl_controlnet_forward(cn, cfg, x, t, embeds, pooled, time_ids, hint2,
+                                            conditioning_scale=CN_SCALE)
+
+    def unet_cn(plain_ops=()):
+        with torch.inference_mode(), kernel_registry.plain_on_device(plain_ops):
+            return sdxl_forward(params, cfg, x, t, embeds, pooled, time_ids,
+                                down_block_additional_residuals=down,
+                                mid_block_additional_residual=mid).float()
+
+    _forward_gate("sdxl unet with controlnet residuals", unet_cn, SDXL_CN_REL_L2_TOL["unet_cn"],
+                  INT8_OPS)
+    del cn, down, mid, hint, hint2
+    torch.cuda.empty_cache()
+
+    simple, plus = _random_ip_adapter(params, cfg, dev, 59)
+    g = torch.Generator(device=dev).manual_seed(60)
+    per_ip = sdxl_ip_adapter_launches(cfg)
+    run = make_sdxl_denoiser(cfg, sched, SDXL_STEPS, SDXL_CFG)
+    for label, proj, shape, resampler in (
+            ("ip-adapter", simple, (1, IP_EMBED), 0),
+            ("ip-adapter-plus", plus, (1, PLUS_STATES, IP_EMBED), PLUS_LAYERS)):
+        emb = torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16)
+        latents, embeds, pooled, time_ids = _sdxl_conditioning(dev, 61, cfg,
+                                                               sched.init_noise_sigma)
+
+        def conditioned(*args):
+            with torch.inference_mode():
+                tokens = proj(emb)
+            return run(*args, torch.cat([torch.zeros_like(tokens), tokens]))
+
+        request(label, conditioned, (params, latents, embeds, pooled, time_ids), per_ip,
+                {"sdpa": resampler})
+    with torch.inference_mode():
+        tokens = simple(torch.randn(1, IP_EMBED, generator=g, device=dev, dtype=torch.bfloat16))
+    ip = torch.cat([torch.zeros_like(tokens), tokens])
+
+    def unet_ip(plain_ops=()):
+        with torch.inference_mode(), kernel_registry.plain_on_device(plain_ops):
+            return sdxl_forward(params, cfg, x, t, embeds, pooled, time_ids, ip_embeds=ip).float()
+
+    CN_SUMMARY["sdxl_ip_forward_s"] = round(_forward_gate(
+        "sdxl unet with ip-adapter tokens", unet_ip, SDXL_CN_REL_L2_TOL["unet_ip"], INT8_OPS)[0], 4)
+    for stage in (*params.down, *params.up, params.mid):
+        for t2d in stage.attns or []:
+            for blk in t2d.blocks:
+                blk.attn2.ipadp_kv = None
+    del simple, plus, ip
+    torch.cuda.empty_cache()
+
+
+def _write_flux_controlnet(path: str, dev) -> None:
+    """A FLUX ControlNet checkpoint in diffusers' layout at FLUX.1-dev width
+    with 2 dual blocks and no single block (the depth of the XLabs
+    ControlNets), guidance-distilled, with a raw-hint input_hint_block (the
+    ControlNetConditioningEmbedding layout: 3 -> 16, 16, 32, 96, 256 -> 16
+    channels, so that the 2x2-packed hint has FLUX's 64 input channels), and
+    config.json."""
+    import torch
+    from safetensors.torch import save_file
+
+    from fastdm_tpu_torch.models.flux import FluxConfig
+
+    cfg = FluxConfig(num_layers=2, num_single_layers=0)
+    g = torch.Generator(device=dev).manual_seed(13)
+    sd = {}
+    lin = _flux_lin_writer(sd, g, dev)
+    _flux_trunk_sd(sd, lin, cfg)
+    d = cfg.inner_dim
+    lin("controlnet_x_embedder", cfg.in_channels, d)
+    for i in range(cfg.num_layers):
+        lin(f"controlnet_blocks.{i}", d, d)
+
+    def conv(name, cin, cout):
+        sd[f"{name}.weight"] = (torch.randn(cout, cin, 3, 3, generator=g, device=dev)
+                                * 0.05).bfloat16().cpu()
+        sd[f"{name}.bias"] = torch.zeros(cout, dtype=torch.bfloat16)
+
+    e = (16, 32, 96, 256)
+    conv("input_hint_block.conv_in", 3, e[0])
+    for i in range(6):
+        conv(f"input_hint_block.blocks.{i}", e[i // 2], e[(i + 1) // 2])
+    conv("input_hint_block.conv_out", e[3], cfg.in_channels // 4)
+    os.makedirs(path)
+    save_file(sd, os.path.join(path, "diffusion_pytorch_model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"num_layers": cfg.num_layers, "num_single_layers": 0,
+                   "guidance_embeds": True}, f)
+
+
+def _engine_flux_controlnet(eng, embeds, pooled) -> None:
+    """The int8 engine's ControlNet (controlnet_path, the raw-hint one of
+    _write_flux_controlnet): one 1024x1024 generate on a seeded hint image,
+    launches 4 x (flux_forward_launches + flux_controlnet_launches)."""
+    import numpy as np
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    hint = _seeded_image(501, 1024, 1024)
+    cuda_backend.reset_launch_counts()
+    img, sec = _timed(eng.generate, prompt_embeds=embeds, pooled_prompt_embeds=pooled,
+                      height=1024, width=1024, num_inference_steps=STEPS, seed=11,
+                      control_image=hint, controlnet_conditioning_scale=CN_SCALE)
+    counts = _launch_counts()
+    per_f, per_c = flux_forward_launches(eng.cfg), flux_controlnet_launches(eng.cn_cfg)
+    want = {k: STEPS * (per_f[k] + per_c[k]) for k in per_f}
+    log(f"[engine int8 controlnet] controlnet_path ({eng.cn_cfg.num_layers} dual + "
+        f"{eng.cn_cfg.num_single_layers} single blocks, raw hint "
+        f"{eng.cn_params.input_hint_block is not None}): generate 1024x1024 {STEPS} steps with "
+        f"control_image: {sec:.3f} s, image {img.shape} {img.dtype}; launches {counts}")
+    if not (isinstance(img, np.ndarray) and img.shape == (1, 1024, 1024, 3)
+            and img.dtype == np.uint8) or counts != want:
+        raise AssertionError(f"the FLUX ControlNet generate: launches {counts} != {want}")
+    CN_SUMMARY["engine_flux_controlnet_1024_s"] = round(sec, 4)
+
+
+def _write_sdxl_controlnet(path: str, dev) -> None:
+    """A diffusers SDXL ControlNet checkpoint at controlnet-canny-sdxl-1.0's
+    shape in bf16: the UNet's down and mid blocks as _write_sdxl_checkpoint
+    writes them, the hint encoder (16, 32, 96, 256) and the zero convs."""
+    import torch
+    from safetensors.torch import save_file
+
+    from fastdm_tpu_torch.models.controlnets import sdxl_controlnet_skip_channels
+    from fastdm_tpu_torch.models.sdxl import SDXLConfig
+
+    cfg = SDXLConfig(quant=None)
+    sd = {}
+    conv = _sdxl_down_mid_sd(sd, torch.Generator(device=dev).manual_seed(14), dev, cfg)
+    e = (16, 32, 96, 256)
+    conv("controlnet_cond_embedding.conv_in", 3, e[0])
+    for i in range(6):
+        conv(f"controlnet_cond_embedding.blocks.{i}", e[i // 2], e[(i + 1) // 2])
+    conv("controlnet_cond_embedding.conv_out", e[3], cfg.block_channels[0])
+    for i, c in enumerate(sdxl_controlnet_skip_channels(cfg)):
+        conv(f"controlnet_down_blocks.{i}", c, c, k=1)
+    conv("controlnet_mid_block", cfg.block_channels[2], cfg.block_channels[2], k=1)
+    os.makedirs(path)
+    save_file(sd, os.path.join(path, "diffusion_pytorch_model.safetensors"))
+
+
+def _write_ip_adapter(path: str, dev) -> None:
+    """An h94/IP-Adapter ip-adapter_sdxl checkpoint in its official layout:
+    to_k_ip / to_v_ip (2048 -> C, no bias) at ip_adapter.{odd index} in
+    diffusers' processor order (down blocks, up blocks, the mid block last),
+    image_proj.proj (1280 -> 4 x 2048) and image_proj.norm."""
+    import torch
+    from safetensors.torch import save_file
+
+    from fastdm_tpu_torch.models.sdxl import SDXLConfig
+
+    cfg = SDXLConfig(quant=None)
+    g = torch.Generator(device=dev).manual_seed(15)
+    ctx = cfg.cross_attention_dim
+    _, c1, c2 = cfg.block_channels
+    n1, n2 = cfg.attn_layers[1], cfg.attn_layers[2]
+    sd, idx = {}, 0
+    for c, n_blocks in ((c1, 2 * n1), (c2, 2 * n2), (c2, 3 * n2), (c1, 3 * n1), (c2, n2)):
+        for _ in range(n_blocks):
+            idx += 1
+            for name in ("to_k_ip", "to_v_ip"):
+                sd[f"ip_adapter.{idx}.{name}.weight"] = (
+                    torch.randn(c, ctx, generator=g, device=dev) * ctx**-0.5).bfloat16().cpu()
+            idx += 1
+    sd["image_proj.proj.weight"] = (torch.randn(IP_TOKENS * ctx, IP_EMBED, generator=g,
+                                                device=dev) * IP_EMBED**-0.5).bfloat16().cpu()
+    sd["image_proj.proj.bias"] = torch.zeros(IP_TOKENS * ctx, dtype=torch.bfloat16)
+    sd["image_proj.norm.weight"] = torch.ones(ctx, dtype=torch.bfloat16)
+    sd["image_proj.norm.bias"] = torch.zeros(ctx, dtype=torch.bfloat16)
+    os.makedirs(path)
+    save_file(sd, os.path.join(path, "ip-adapter.safetensors"))
+
+
+def _engine_sdxl_conditioning(eng, kw: dict) -> None:
+    """The int8 SDXL engine's ControlNet (controlnet_path) and IP-Adapter
+    (ip_adapter_path): one 1024x2048 CFG generate with a control_image and
+    one with ip_adapter_image_embeds, launches 4 x (sdxl_forward_launches +
+    sdxl_controlnet_launches / sdxl_ip_adapter_launches)."""
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    per_u = sdxl_forward_launches(eng.cfg)
+    emb = torch.randn(1, IP_EMBED, generator=torch.Generator(device=eng.device).manual_seed(16),
+                      device=eng.device)
+    for label, extra, per in (
+            ("controlnet", dict(control_image=_seeded_image(502, SDXL_H, SDXL_W),
+                                controlnet_conditioning_scale=CN_SCALE),
+             sdxl_controlnet_launches(eng.cfg)),
+            ("ip-adapter", dict(ip_adapter_image_embeds=emb), sdxl_ip_adapter_launches(eng.cfg))):
+        cuda_backend.reset_launch_counts()
+        img, sec = _timed(eng.generate, height=SDXL_H, width=SDXL_W, **kw, **extra)
+        counts = _launch_counts()
+        want = {k: SDXL_STEPS * (per_u[k] + per[k]) for k in per_u}
+        log(f"[engine sdxl {label}] generate {SDXL_H}x{SDXL_W} {SDXL_STEPS} steps CFG: "
+            f"{sec:.3f} s, image {img.shape} {img.dtype}; launches {counts}")
+        if not (isinstance(img, np.ndarray) and img.shape == (1, SDXL_H, SDXL_W, 3)
+                and img.dtype == np.uint8) or counts != want:
+            raise AssertionError(f"the SDXL {label} generate: launches {counts} != {want}")
+        CN_SUMMARY[f"engine_sdxl_{label.replace('-', '_')}_s"] = round(sec, 4)
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -4141,6 +4790,8 @@ def main() -> int:
     log(f"[wan5b] Wan2.2-TI2V-5B int8 {WAN5B_H}x{WAN5B_W}x{WAN5B_FRAMES}, {WAN5B_STEPS} steps, "
         f"and Wan i2v {WAN_H}x{WAN_W}x{WAN_FRAMES}: {wan5b}")
     log(f"[img2img] image-conditioned requests (seconds, GiB): {summary}")
+    log(f"[controlnet] ControlNet / IP-Adapter kernels (ms), requests and forwards (seconds, "
+        f"GiB): {CN_SUMMARY}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -65,10 +65,18 @@ step that strength sets; architecture "flux-kontext" appends the clean tokens
 of one or more reference images instead, and Qwen-Image ("qwen-image-edit")
 appends the encoded source images' tokens. vae_tiling / vae_slicing (or
 enable_vae_tiling() / enable_vae_slicing()) decode and encode the
-AutoencoderKL in tiles or one sample at a time. The T5/CLIP/UMT5/Qwen text
-encoders, ControlNet, the SDXL IP-Adapter, Wan2.1's CLIP image branch and the
-other model families arrive with later slices and raise NotImplementedError
-here.
+AutoencoderKL in tiles or one sample at a time.
+
+FLUX and SDXL take a ControlNet checkpoint directory (controlnet_path; FLUX's
+hyperparameters from its config.json) and then generate(control_image=an
+(H, W, 3) uint8 hint, controlnet_conditioning_scale=, FLUX's control_mode= for
+a union checkpoint, SDXL's guess_mode=); SDXL takes an IP-Adapter checkpoint
+(ip_adapter_path, ip_adapter_scale) and then
+generate(ip_adapter_image_embeds=): the CLIP image embeddings, (B, D)
+projected for ip-adapter_sdxl or (B, S, hidden) penultimate states for
+IP-Adapter-Plus. The T5/CLIP/UMT5/Qwen text encoders, the CLIP image encoder
+(an ip_adapter_image), Wan2.1's CLIP image branch and the other model
+families arrive with later slices and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -201,6 +209,8 @@ class FastDMEngine:
         sparse_attn_config: Optional[Union[str, Dict[str, Any]]] = None,
         use_int4: bool = False, pack_int4: bool = False, scheduler: Optional[str] = None,
         vae_tiling: bool = False, vae_slicing: bool = False,
+        controlnet_path: Optional[str] = None, ip_adapter_path: Optional[str] = None,
+        ip_adapter_scale: float = 0.6,
     ):
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
@@ -225,6 +235,12 @@ class FastDMEngine:
         self.quant_mods = quant_mods
         self.architecture = ARCHITECTURES[architecture]
         self.architecture_full = architecture
+        # the JAX engine's family checks (fastdm_tpu/engine.py:249-251,479-481),
+        # made before any weight is read
+        if controlnet_path is not None and self.architecture not in ("flux", "sdxl"):
+            raise ValueError(f"ControlNet is supported for flux/sdxl, not {self.architecture}")
+        if ip_adapter_path is not None and self.architecture != "sdxl":
+            raise ValueError("ip_adapter_path is supported for sdxl only")
         self.model_path = model_path
         self.device = resolve_device(device)
         self.verbose = verbose
@@ -263,6 +279,17 @@ class FastDMEngine:
             self._init_qwen()
         else:
             self._init_flux()
+        # the optional ControlNet, then the SDXL IP-Adapter (fastdm_tpu/engine.py:240-262)
+        self.cn_params = self.cn_cfg = None
+        if controlnet_path is not None:
+            self._load_controlnet(controlnet_path)
+        self.ip_proj = None
+        if ip_adapter_path is not None:
+            from fastdm_tpu_torch.models.sdxl import sdxl_attach_ip_adapter
+
+            self.cfg = dataclasses.replace(self.cfg, ip_adapter_scale=ip_adapter_scale)
+            self.ip_proj = sdxl_attach_ip_adapter(
+                self.params, TensorSource.from_path(ip_adapter_path, self.device), self.cfg)
         self._denoisers: Dict[tuple, Any] = {}
         # skip count of the most recent generate() under a step cache
         self.last_cache_skips = 0
@@ -383,6 +410,30 @@ class FastDMEngine:
             os.path.join(self.model_path, "unet"), self.device), self.cfg)
         self._load_vae()
 
+    def _load_controlnet(self, path: str) -> None:
+        """A FLUX ControlNet (its config.json's hyperparameters over JAX's
+        defaults of 5 dual, 0 single blocks and no guidance embedder; the
+        engine's quant) or an SDXL one (the UNet's config), as the JAX
+        engine's _load_controlnet (fastdm_tpu/engine.py:448-480)."""
+        from fastdm_tpu_torch.models import controlnets
+
+        src = TensorSource.from_path(path, self.device)
+        if self.architecture == "flux":
+            cj = _read_json(os.path.join(path, "config.json")) \
+                if os.path.exists(os.path.join(path, "config.json")) else {}
+            kw = {k: cj[k] for k in ("num_layers", "num_single_layers", "guidance_embeds",
+                                     "patch_size", "in_channels", "out_channels",
+                                     "attention_head_dim", "num_attention_heads",
+                                     "joint_attention_dim", "pooled_projection_dim")
+                  if cj.get(k) is not None}
+            if cj.get("axes_dims_rope") is not None:
+                kw["axes_dims_rope"] = tuple(cj["axes_dims_rope"])
+            self.cn_cfg = controlnets.FluxControlNetConfig(quant=self.quant, **kw)
+            self.cn_params = controlnets.flux_controlnet_load(src, self.cn_cfg)
+        else:
+            self.cn_cfg = self.cfg
+            self.cn_params = controlnets.sdxl_controlnet_load(src, self.cfg)
+
     def _wan_vae_cfg(self):
         """WanVAEConfig overridden by vae/config.json (diffusers' names)."""
         from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig
@@ -482,7 +533,12 @@ class FastDMEngine:
         size, resized down to the model's granularity. As the JAX engine: an
         image with task None or "t2i" means i2i (i2v for Wan), "i2i" without
         an image runs t2i, and a Wan task other than i2v / ti2v leaves the
-        image out."""
+        image out.
+
+        With controlnet_path, FLUX and SDXL take control_image (an (H, W, 3)
+        uint8 hint at the output size) and controlnet_conditioning_scale,
+        FLUX also control_mode (union checkpoints), SDXL guess_mode; with
+        ip_adapter_path, SDXL takes ip_adapter_image_embeds."""
         image = kw.get("image")
         if self.architecture == "wan":
             tasks = ("t2v", "i2v", "ti2v")
@@ -535,16 +591,19 @@ class FastDMEngine:
     def _generate_flux(self, prompt=None, height: int = 1024, width: int = 1024,
                        num_inference_steps: int = 25, guidance_scale: float = 3.5,
                        seed: int = 42, prompt_embeds=None, pooled_prompt_embeds=None,
-                       output_type: str = "np", image=None, strength: float = 0.7):
+                       output_type: str = "np", image=None, strength: float = 0.7,
+                       control_image=None, controlnet_conditioning_scale: float = 1.0,
+                       control_mode: Optional[int] = None):
         from fastdm_tpu_torch.models.flux import flux_rope_cache
         from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents, \
-            make_flux_denoiser, make_flux_kontext_denoiser
+            make_flux_cn_denoiser, make_flux_denoiser, make_flux_kontext_denoiser
 
         if prompt_embeds is None or pooled_prompt_embeds is None:
             raise NotImplementedError(
                 "the T5/CLIP text encoders are not in this slice of the port; pass "
                 "prompt_embeds and pooled_prompt_embeds")
         del prompt
+        self._require_controlnet(control_image)
         encoder = self._device_tensor(prompt_embeds, torch.bfloat16)
         pooled = self._device_tensor(pooled_prompt_embeds, torch.bfloat16)
         b = encoder.shape[0]
@@ -572,6 +631,26 @@ class FastDMEngine:
             latents = self._noise((b, ht * wt, self.cfg.in_channels), seed)
             latents, skips = self._denoisers[key](self.params, latents, ref, encoder, pooled,
                                                   cos, sin)
+        elif control_image is not None:
+            # ControlNet t2i (JAX's branch comes before SDEdit: an image only
+            # sets the size): a latent hint is the encoded image, packed; a
+            # raw-hint ControlNet takes the image itself (NCHW, bf16)
+            cos, sin = flux_rope_cache(self.cfg, encoder.shape[1], ht, wt, device=self.device)
+            if self.cn_params.input_hint_block is not None:
+                hint = self._image_tensor(control_image).permute(2, 0, 1)[None].to(torch.bfloat16)
+            else:
+                hint = flux_pack_latents(self._encode_image(control_image))
+            hint = hint.expand(b, *hint.shape[1:])
+            key = ("flux-cn", ht, wt, num_inference_steps, guidance_scale,
+                   controlnet_conditioning_scale, control_mode)
+            if key not in self._denoisers:
+                self._denoisers[key] = make_flux_cn_denoiser(
+                    self.cfg, self.cn_cfg, self._flux_sched(ht, wt, num_inference_steps),
+                    num_inference_steps, guidance_scale, controlnet_conditioning_scale,
+                    control_mode)
+            latents = self._noise((b, ht * wt, self.cfg.in_channels), seed)
+            latents, skips = self._denoisers[key](self.params, self.cn_params, latents, hint,
+                                                  encoder, pooled, cos, sin)
         else:
             cos, sin = flux_rope_cache(self.cfg, encoder.shape[1], ht, wt, device=self.device)
             start_step = (self._start_step(num_inference_steps, strength)
@@ -599,19 +678,31 @@ class FastDMEngine:
                        num_inference_steps: int = 25, guidance_scale: float = 5.0,
                        seed: int = 42, prompt_embeds=None, pooled_prompt_embeds=None,
                        negative_prompt_embeds=None, negative_pooled_prompt_embeds=None,
-                       output_type: str = "np", control_image=None, ip_adapter_image=None,
+                       output_type: str = "np", control_image=None,
+                       controlnet_conditioning_scale: float = 1.0, guess_mode: bool = False,
+                       ip_adapter_image=None, ip_adapter_image_embeds=None,
                        image=None, strength: float = 0.7):
-        from fastdm_tpu_torch.pipeline.denoise_sdxl import make_sdxl_denoiser
+        from fastdm_tpu_torch.pipeline.denoise_sdxl import make_sdxl_cn_denoiser, \
+            make_sdxl_denoiser
         from fastdm_tpu_torch.pipeline.schedulers import EulerDiscreteScheduler
 
-        if control_image is not None or ip_adapter_image is not None:
+        if ip_adapter_image is not None:
             raise NotImplementedError(
-                "the SDXL ControlNet and IP-Adapter are not in this slice of the port")
+                "the CLIP image encoder is not in this slice of the port (ROADMAP.md section 1 "
+                "item 9); pass ip_adapter_image_embeds, the CLIP image embeddings")
+        self._require_controlnet(control_image)
+        if ip_adapter_image_embeds is not None and self.ip_proj is None:
+            raise ValueError("ip_adapter_image_embeds needs an engine loaded with "
+                             "ip_adapter_path")
         embeds, pooled = self._cfg_embeds(guidance_scale, prompt_embeds, pooled_prompt_embeds,
                                           negative_prompt_embeds, negative_pooled_prompt_embeds,
                                           "the CLIP text encoders")
         del prompt
         b = embeds.shape[0] // (2 if guidance_scale > 1.0 else 1)
+        # as JAX: a ControlNet run ignores image / strength and the IP tokens
+        use_cn = control_image is not None
+        if use_cn:
+            image = None
         if image is not None:
             # sides at the UNet's granularity: 8 pixels a latent, halved at
             # each downsampling stage
@@ -622,12 +713,15 @@ class FastDMEngine:
                                 dtype=torch.float32, device=self.device)
         lh, lw = height // 8, width // 8
         start_step = self._start_step(num_inference_steps, strength) if image is not None else 0
-        key = ("sdxl", lh, lw, num_inference_steps, guidance_scale, start_step)
+        key = ("sdxl", lh, lw, num_inference_steps, guidance_scale,
+               use_cn and (controlnet_conditioning_scale, guess_mode), start_step)
         if key not in self._denoisers:
             sched = EulerDiscreteScheduler.create(num_inference_steps)
-            self._denoisers[key] = (make_sdxl_denoiser(self.cfg, sched, num_inference_steps,
-                                                       guidance_scale, start_step),
-                                    sched.init_noise_sigma, sched.sigmas)
+            self._denoisers[key] = (
+                make_sdxl_cn_denoiser(self.cfg, sched, num_inference_steps, guidance_scale,
+                                      controlnet_conditioning_scale, guess_mode) if use_cn
+                else make_sdxl_denoiser(self.cfg, sched, num_inference_steps, guidance_scale,
+                                        start_step), sched.init_noise_sigma, sched.sigmas)
         run, init_noise_sigma, sigmas = self._denoisers[key]
         noise = self._noise((b, self.cfg.in_channels, lh, lw), seed)
         if start_step:  # SDEdit (epsilon Euler): z + noise * sigmas[start_step]
@@ -635,10 +729,30 @@ class FastDMEngine:
             latents = z.expand(b, *z.shape[1:]) + noise * float(sigmas[start_step])
         else:
             latents = noise * init_noise_sigma
-        latents, _ = run(self.params, latents, embeds, pooled, time_ids)
+        if use_cn:  # the hint in [0, 1], NCHW
+            hint = (self._device_tensor(control_image, torch.float32) / 255.0).permute(2, 0, 1)
+            latents, _ = run(self.params, self.cn_params, latents, embeds, pooled, time_ids,
+                             hint[None].expand(b, -1, -1, -1))
+        else:
+            latents, _ = run(self.params, latents, embeds, pooled, time_ids,
+                             self._ip_tokens(ip_adapter_image_embeds, guidance_scale))
         if output_type == "latent":
             return latents.cpu().numpy()
         return self._to_uint8(self._decode(self.vae_params, latents))
+
+    def _require_controlnet(self, control_image) -> None:
+        """A control_image needs a loaded ControlNet (JAX silently ignores it)."""
+        if control_image is not None and self.cn_params is None:
+            raise ValueError("control_image needs an engine loaded with controlnet_path")
+
+    def _ip_tokens(self, image_embeds, guidance_scale: float) -> Optional[torch.Tensor]:
+        """The IP-Adapter context tokens of the CLIP image embeddings (zeros
+        for the negative half under CFG, as diffusers and JAX), or None."""
+        if image_embeds is None:
+            return None
+        with torch.inference_mode():
+            tokens = self.ip_proj(self._device_tensor(image_embeds, torch.bfloat16))
+        return torch.cat([torch.zeros_like(tokens), tokens]) if guidance_scale > 1.0 else tokens
 
     def _cfg_embeds(self, guidance_scale, prompt_embeds, pooled_prompt_embeds,
                     negative_prompt_embeds, negative_pooled_prompt_embeds, encoders: str):

@@ -1,6 +1,7 @@
 """Embeddings: timesteps, text projections, RoPE tables and the SD3 2D
 sin-cos position table (port of fastdm_tpu/layers/embeddings.py, the parts
-FLUX, SD3.5, Qwen-Image and Wan use).
+FLUX, SD3.5, Qwen-Image, Wan and the SDXL ControlNet use: its addition- and
+encoder-projection variants, text / text_image / text_image_proj).
 
 RoPE tables are computed on the host in float64 numpy (positions are fixed
 per resolution, so this runs once per generation) and moved to the device as
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fastdm_tpu_torch.device import resolve_device
+from fastdm_tpu_torch.layers.normalization import layer_norm
 from fastdm_tpu_torch.layers.qlinear import QLinear
 
 Tensor = torch.Tensor
@@ -92,6 +94,82 @@ class CombinedTimestepTextProj(nn.Module):
                                             downscale_freq_shift=0.0)
             emb = emb + self.guidance_embedder(g_proj.to(dt))
         return emb + self.text_embedder(pooled_projection)
+
+
+class TextImageProjection(nn.Module):
+    """Kandinsky-2.1 text + image context: the image embedding expands to
+    num_image_text_embeds tokens, prepended to the projected text tokens
+    (port of text_image_projection_apply; encoder_hid_dim_type
+    "text_image_proj")."""
+
+    def __init__(self, image_embeds: QLinear, text_proj: QLinear,
+                 num_image_text_embeds: int = 10):
+        super().__init__()
+        self.image_embeds, self.text_proj = image_embeds, text_proj
+        self.num_image_text_embeds = num_image_text_embeds
+
+    def forward(self, text_embeds: Tensor, image_embeds: Tensor) -> Tensor:
+        img = self.image_embeds(image_embeds).reshape(text_embeds.shape[0],
+                                                      self.num_image_text_embeds, -1)
+        return torch.cat([img, self.text_proj(text_embeds)], dim=1)
+
+
+class AttentionPooling(nn.Module):
+    """One-query attention pooling of a token sequence -> (B, D): the class
+    token is mean(x) plus a learned position embedding, q and k are each
+    scaled by head_dim^-1/4, the softmax is f32 (port of
+    attention_pooling_apply). Plain PyTorch, as the JAX function is plain
+    jnp: no sdpa."""
+
+    def __init__(self, positional_embedding: Tensor, q_proj: QLinear, k_proj: QLinear,
+                 v_proj: QLinear):
+        super().__init__()
+        self.positional_embedding = nn.Parameter(positional_embedding, requires_grad=False)
+        self.q_proj, self.k_proj, self.v_proj = q_proj, k_proj, v_proj
+
+    def forward(self, x: Tensor, num_heads: int) -> Tensor:
+        b, _, d = x.shape
+        hd = d // num_heads
+        cls = x.mean(dim=1, keepdim=True) + self.positional_embedding.to(x.dtype)
+        xa = torch.cat([cls, x], dim=1)
+
+        def heads(t):
+            return t.reshape(b, -1, num_heads, hd).transpose(1, 2)
+
+        q, k, v = heads(self.q_proj(cls)), heads(self.k_proj(xa)), heads(self.v_proj(xa))
+        scale = 1.0 / math.sqrt(math.sqrt(hd))
+        logits = torch.einsum("bhqc,bhkc->bhqk", q * scale, k * scale)
+        w = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+        return torch.einsum("bhqk,bhkc->bhqc", w, v).transpose(1, 2).reshape(b, d)
+
+
+class TextTimeEmbedding(nn.Module):
+    """LN -> attention pooling -> proj -> LN (port of
+    text_time_embedding_apply; addition_embed_type "text")."""
+
+    def __init__(self, norm1: nn.ParameterDict, pool: AttentionPooling, proj: QLinear,
+                 norm2: nn.ParameterDict):
+        super().__init__()
+        self.norm1, self.pool, self.proj, self.norm2 = norm1, pool, proj, norm2
+
+    def forward(self, hidden_states: Tensor, num_heads: int = 64) -> Tensor:
+        h = layer_norm(hidden_states, self.norm1["gamma"], self.norm1["beta"], 1e-5)
+        h = self.proj(self.pool(h, num_heads))
+        return layer_norm(h, self.norm2["gamma"], self.norm2["beta"], 1e-5)
+
+
+class TextImageTimeEmbedding(nn.Module):
+    """LN(text_proj(text)) + image_proj(image) (port of
+    text_image_time_embedding_apply; addition_embed_type "text_image")."""
+
+    def __init__(self, text_proj: QLinear, text_norm: nn.ParameterDict, image_proj: QLinear):
+        super().__init__()
+        self.text_proj, self.text_norm, self.image_proj = text_proj, text_norm, image_proj
+
+    def forward(self, text_embeds: Tensor, image_embeds: Tensor) -> Tensor:
+        txt = layer_norm(self.text_proj(text_embeds), self.text_norm["gamma"],
+                         self.text_norm["beta"], 1e-5)
+        return txt + self.image_proj(image_embeds)
 
 
 def rope_1d_freqs(dim: int, pos: np.ndarray, theta: float = 10000.0) -> np.ndarray:

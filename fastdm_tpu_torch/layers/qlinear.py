@@ -270,6 +270,11 @@ def qlinear_apply(lin: QLinear, x: Tensor, chunk_tokens: int = 0) -> Tensor:
         ys = [qlinear_apply(lin, x2[i:i + chunk_tokens]) for i in range(0, rows, chunk_tokens)]
         return torch.cat(ys, dim=0).reshape(*orig_shape[:-1], ys[0].shape[-1])
     x2 = x.reshape(-1, orig_shape[-1])
+    if x2.stride(-1) != 1:
+        # a view whose rows are strided (e.g. the (1, H*W, C) token view of
+        # an NCHW map: reshape keeps it a view for one batch entry); the
+        # quantizer and GEMM kernels read rows with a contiguous last dim
+        x2 = x2.contiguous()
     if lin.w4 is not None or lin.w4p is not None:
         # int4p unpacks into a scratch buffer that lives until the GEMM is done
         w = lin.w4 if lin.w4 is not None else unpack_int4(lin.w4p)

@@ -14,11 +14,20 @@ from typing import Dict
 from fastdm_tpu_torch.device import resolve_device
 from fastdm_tpu_torch.layers.attention import JointAttention
 from fastdm_tpu_torch.layers.embeddings import (
+    AttentionPooling,
     CombinedTimestepTextProj,
     PixArtTextProjection,
+    TextImageProjection,
+    TextImageTimeEmbedding,
+    TextTimeEmbedding,
     TimestepEmbedding,
 )
 from fastdm_tpu_torch.layers.feedforward import FeedForward
+from fastdm_tpu_torch.layers.ip_adapter import (
+    ImageProjection,
+    IPAdapterPlusProjection,
+    ResamplerBlock,
+)
 from fastdm_tpu_torch.layers.normalization import (
     AdaLayerNormContinuous,
     AdaLayerNormZero,
@@ -26,6 +35,11 @@ from fastdm_tpu_torch.layers.normalization import (
     SD35AdaLayerNormZeroX,
 )
 from fastdm_tpu_torch.layers.qlinear import QLinear
+from fastdm_tpu_torch.models.controlnets import (
+    ControlNetCondEmbedding,
+    FluxControlNet,
+    SDXLControlNet,
+)
 from fastdm_tpu_torch.models.flux import FluxDualBlock, FluxSingleBlock, FluxTransformer
 from fastdm_tpu_torch.models.loader import as_tensor
 from fastdm_tpu_torch.models.qwenimage import QwenBlock, QwenImageTransformer
@@ -92,11 +106,27 @@ def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
         return as_tensor(a).to(dev)
 
     lin = _linear_converter(dev)
+    dual, single = _flux_blocks(tree, lin, t)
+    return FluxTransformer(
+        x_embedder=lin(tree["x_embedder"]), context_embedder=lin(tree["context_embedder"]),
+        time_text_embed=_flux_time_text_embed(tree["time_text_embed"], lin),
+        dual_blocks=dual, single_blocks=single,
+        norm_out=AdaLayerNormContinuous(lin(tree["norm_out"]["linear"])),
+        proj_out=lin(tree["proj_out"]))
 
+
+def _flux_time_text_embed(tte: Dict, lin) -> CombinedTimestepTextProj:
     def mlp(p) -> TimestepEmbedding:
         return TimestepEmbedding(lin(p["linear1"]), lin(p["linear2"]))
 
-    tte = tree["time_text_embed"]
+    return CombinedTimestepTextProj(
+        mlp(tte["timestep_embedder"]), mlp(tte["text_embedder"]),
+        mlp(tte["guidance_embedder"]) if "guidance_embedder" in tte else None)
+
+
+def _flux_blocks(tree: Dict, lin, t):
+    """The stacked dual / single FLUX blocks of a JAX tree (either may be
+    absent) -> two lists of block modules."""
     dual = []
     if tree.get("dual_blocks") is not None:
         for blk in unstack_blocks(tree["dual_blocks"], _n_layers(tree["dual_blocks"])):
@@ -118,14 +148,7 @@ def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
                 AdaLayerNormZeroSingle(lin(blk["norm"]["linear"])), lin(blk["qkv_mlp"]),
                 lin(blk["proj_out"]),
                 JointAttention(norm_q=t(blk["attn"]["norm_q"]), norm_k=t(blk["attn"]["norm_k"]))))
-    return FluxTransformer(
-        x_embedder=lin(tree["x_embedder"]), context_embedder=lin(tree["context_embedder"]),
-        time_text_embed=CombinedTimestepTextProj(
-            mlp(tte["timestep_embedder"]), mlp(tte["text_embedder"]),
-            mlp(tte["guidance_embedder"]) if "guidance_embedder" in tte else None),
-        dual_blocks=dual, single_blocks=single,
-        norm_out=AdaLayerNormContinuous(lin(tree["norm_out"]["linear"])),
-        proj_out=lin(tree["proj_out"]))
+    return dual, single
 
 
 def _joint_attention(a: Dict, lin, t) -> JointAttention:
@@ -250,25 +273,44 @@ def sdxl_params_from_numpy(tree: Dict, device="cuda") -> SDXLUNet:
     """SDXL UNet param tree of fastdm_tpu.models.sdxl (numpy leaves, HWIO
     convs, each Transformer2D's blocks stacked) -> SDXLUNet on `device`, with
     (out, in, kh, kw) convs and one module per block."""
-    dev = resolve_device(device)
-    lin = _linear_converter(dev)
+    c = _SDXLConverter(resolve_device(device))
+    return SDXLUNet(
+        conv_in=c.conv(tree["conv_in"]), time_embedding=c.mlp(tree["time_embedding"]),
+        add_embedding=c.mlp(tree["add_embedding"]),
+        down=[c.stage(tree[f"down{i}"]) for i in range(3)], mid=c.stage(tree["mid"]),
+        up=[c.stage(tree[f"up{i}"]) for i in range(3)], conv_norm_out=c.norm(tree["conv_norm_out"]),
+        conv_out=c.conv(tree["conv_out"]))
 
-    def t(a):
-        return as_tensor(a).to(dev)
 
-    def conv(p):  # HWIO -> (out, in, kh, kw)
-        return frozen_params(w=as_tensor(p["w"]).permute(3, 2, 0, 1).contiguous().to(dev),
-                             b=t(p["b"]))
+class _SDXLConverter:
+    """Converters of the SDXL UNet's JAX leaves (HWIO convs, stacked
+    Transformer2D blocks) onto `dev`, shared with the SDXL ControlNet."""
 
-    def norm(p):
-        return frozen_params(gamma=t(p["gamma"]), beta=t(p["beta"]))
+    def __init__(self, dev):
+        self.dev = dev
+        self.lin = _linear_converter(dev)
 
-    def resnet(p):
-        return SDXLResnet(norm(p["norm1"]), conv(p["conv1"]), lin(p["time_emb_proj"]),
+    def t(self, a):
+        return as_tensor(a).to(self.dev)
+
+    def conv(self, p):  # HWIO -> (out, in, kh, kw)
+        return frozen_params(w=as_tensor(p["w"]).permute(3, 2, 0, 1).contiguous().to(self.dev),
+                             b=self.t(p["b"]))
+
+    def norm(self, p):
+        return frozen_params(gamma=self.t(p["gamma"]), beta=self.t(p["beta"]))
+
+    def mlp(self, p):
+        return TimestepEmbedding(self.lin(p["linear1"]), self.lin(p["linear2"]))
+
+    def resnet(self, p):
+        conv, norm = self.conv, self.norm
+        return SDXLResnet(norm(p["norm1"]), conv(p["conv1"]), self.lin(p["time_emb_proj"]),
                           norm(p["norm2"]), conv(p["conv2"]),
                           conv(p["shortcut"]) if "shortcut" in p else None)
 
-    def t2d(p):
+    def t2d(self, p):
+        lin, norm = self.lin, self.norm
         blocks = []
         for blk in unstack_blocks(p["blocks"], _n_layers(p["blocks"])):
             a1, a2 = blk["attn1"], blk["attn2"]
@@ -280,22 +322,100 @@ def sdxl_params_from_numpy(tree: Dict, device="cuda") -> SDXLUNet:
                 norm(blk["norm3"]), FeedForward(lin(blk["ff"]["proj"]), lin(blk["ff"]["out"]))))
         return SDXLTransformer2D(norm(p["norm"]), lin(p["proj_in"]), blocks, lin(p["proj_out"]))
 
-    def stage(p):
+    def stage(self, p):
         attns = p.get("attns") or ([p["attn"]] if "attn" in p else None)
-        return SDXLStage([resnet(r) for r in p["resnets"]],
-                         [t2d(a) for a in attns] if attns else None,
-                         downsample=conv(p["downsample"]) if "downsample" in p else None,
-                         upsample=conv(p["upsample"]) if "upsample" in p else None)
+        return SDXLStage([self.resnet(r) for r in p["resnets"]],
+                         [self.t2d(a) for a in attns] if attns else None,
+                         downsample=self.conv(p["downsample"]) if "downsample" in p else None,
+                         upsample=self.conv(p["upsample"]) if "upsample" in p else None)
 
-    def mlp(p):
-        return TimestepEmbedding(lin(p["linear1"]), lin(p["linear2"]))
+    def cond_embedding(self, p) -> ControlNetCondEmbedding:
+        return ControlNetCondEmbedding(self.conv(p["conv_in"]),
+                                       [self.conv(b) for b in p["blocks"]],
+                                       self.conv(p["conv_out"]))
 
-    return SDXLUNet(
-        conv_in=conv(tree["conv_in"]), time_embedding=mlp(tree["time_embedding"]),
-        add_embedding=mlp(tree["add_embedding"]),
-        down=[stage(tree[f"down{i}"]) for i in range(3)], mid=stage(tree["mid"]),
-        up=[stage(tree[f"up{i}"]) for i in range(3)], conv_norm_out=norm(tree["conv_norm_out"]),
-        conv_out=conv(tree["conv_out"]))
+
+def sdxl_controlnet_params_from_numpy(tree: Dict, device="cuda") -> SDXLControlNet:
+    """SDXL ControlNet param tree of fastdm_tpu.models.controlnets (numpy
+    leaves; any of its addition / class / encoder-projection variants) ->
+    SDXLControlNet on `device`."""
+    c = _SDXLConverter(resolve_device(device))
+    lin = c.lin
+
+    def optional(key, fn):
+        return fn(tree[key]) if key in tree else None
+
+    def add_embedding(p):
+        if "pool" in p:  # "text"
+            pool = p["pool"]
+            return TextTimeEmbedding(c.norm(p["norm1"]), AttentionPooling(
+                c.t(pool["positional_embedding"]), lin(pool["q_proj"]), lin(pool["k_proj"]),
+                lin(pool["v_proj"])), lin(p["proj"]), c.norm(p["norm2"]))
+        if "text_proj" in p:  # "text_image"
+            return TextImageTimeEmbedding(lin(p["text_proj"]), c.norm(p["text_norm"]),
+                                          lin(p["image_proj"]))
+        return c.mlp(p)  # "text_time"
+
+    def class_embedding(p):
+        return frozen_params(weight=c.t(p["weight"])) if "weight" in p else c.mlp(p)
+
+    def encoder_hid_proj(p):
+        if "image_embeds" in p:
+            return TextImageProjection(lin(p["image_embeds"]), lin(p["text_proj"]))
+        return lin(p)
+
+    return SDXLControlNet(
+        conv_in=c.conv(tree["conv_in"]), time_embedding=c.mlp(tree["time_embedding"]),
+        cond_embedding=c.cond_embedding(tree["cond_embedding"]),
+        add_embedding=optional("add_embedding", add_embedding),
+        class_embedding=optional("class_embedding", class_embedding),
+        encoder_hid_proj=optional("encoder_hid_proj", encoder_hid_proj),
+        down=[c.stage(tree[f"down{i}"]) for i in range(3)], mid=c.stage(tree["mid"]),
+        controlnet_down_blocks=[c.conv(p) for p in tree["controlnet_down_blocks"]],
+        controlnet_mid_block=c.conv(tree["controlnet_mid_block"]))
+
+
+def flux_controlnet_params_from_numpy(tree: Dict, device="cuda") -> FluxControlNet:
+    """FLUX ControlNet param tree of fastdm_tpu.models.controlnets (numpy
+    leaves, stacked blocks and zero heads; input_hint_block with HWIO convs,
+    controlnet_mode_embedder where present) -> FluxControlNet on `device`."""
+    dev = resolve_device(device)
+    lin = _linear_converter(dev)
+
+    def t(a):
+        return as_tensor(a).to(dev)
+
+    def heads(key):
+        p = tree.get(key)
+        return None if p is None else frozen_params(w=t(p["w"]), bias=t(p["bias"]))
+
+    dual, single = _flux_blocks(tree, lin, t)
+    hint = tree.get("input_hint_block")
+    return FluxControlNet(
+        x_embedder=lin(tree["x_embedder"]), context_embedder=lin(tree["context_embedder"]),
+        time_text_embed=_flux_time_text_embed(tree["time_text_embed"], lin),
+        controlnet_x_embedder=lin(tree["controlnet_x_embedder"]), dual_blocks=dual,
+        single_blocks=single, controlnet_blocks=heads("controlnet_blocks"),
+        controlnet_single_blocks=heads("controlnet_single_blocks"),
+        input_hint_block=None if hint is None else _SDXLConverter(dev).cond_embedding(hint),
+        controlnet_mode_embedder=(t(tree["controlnet_mode_embedder"])
+                                  if "controlnet_mode_embedder" in tree else None))
+
+
+def ip_adapter_proj_from_numpy(proj: Dict, device="cuda"):
+    """The image projection JAX's sdxl_attach_ip_adapter returns (kind
+    "simple" or "plus", numpy leaves) -> ImageProjection or
+    IPAdapterPlusProjection on `device`."""
+    c = _SDXLConverter(resolve_device(device))
+    lin, norm = c.lin, c.norm
+    if proj["kind"] == "simple":
+        return ImageProjection(lin(proj["proj"]), norm(proj["norm"]), int(proj["num_tokens"]))
+    layers = [ResamplerBlock(norm(p["norm0"]), norm(p["norm1"]), lin(p["attn"]["q"]),
+                             lin(p["attn"]["kv"]), lin(p["attn"]["out"]), norm(p["ff_norm"]),
+                             lin(p["ff"]["proj"]), lin(p["ff"]["out"])) for p in proj["layers"]]
+    return IPAdapterPlusProjection(c.t(proj["latents"]), lin(proj["proj_in"]), layers,
+                                   lin(proj["proj_out"]), norm(proj["norm_out"]),
+                                   heads=int(proj["heads"]), head_dim=int(proj["head_dim"]))
 
 
 def vae_params_from_numpy(tree: Dict, device="cuda") -> Dict:

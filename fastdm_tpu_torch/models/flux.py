@@ -4,8 +4,9 @@ PyTorch layout: the 19 dual-stream (MMDiT) and 38 single-stream blocks are
 nn.Modules in two nn.ModuleLists, walked by a Python loop (the JAX package
 stacks them and runs lax.scan). RoPE cos/sin are computed on the host once
 per resolution in float64 and handed to the forward as float32 tensors.
-The pipeline-parallel branch, ControlNet residuals and Kontext reference
-tokens of the JAX module arrive with later slices.
+ControlNet residuals, stacked (L, B, S_img, D), are added to the image
+stream after each block. The pipeline-parallel branch of the JAX module
+arrives with parallel/.
 """
 
 from __future__ import annotations
@@ -258,23 +259,46 @@ def _flux_embed(params: FluxTransformer, cfg: FluxConfig, hidden_states, encoder
     return hidden, temb, encoder
 
 
+def cn_sample_interval(samples: Tensor, num_layers: int) -> int:
+    """Layer i of num_layers takes samples[i // interval] of a stack of
+    L_cn residuals, interval = ceil(num_layers / L_cn) (the diffusers
+    interval indexing of the JAX expand_cn_samples; a stack of num_layers
+    gives interval 1)."""
+    return -(-num_layers // samples.shape[0])
+
+
 def _run_dual(params: FluxTransformer, cfg: FluxConfig, hidden, encoder, temb, cos, sin,
-              start: int = 0, stop: Optional[int] = None) -> Tuple[Tensor, Tensor]:
-    """Dual blocks [start, stop) (the JAX _scan_dual's start / stop)."""
-    for block in params.dual_blocks[start:stop]:
-        hidden, encoder = block(hidden, encoder, temb, cos, sin, cfg)
+              start: int = 0, stop: Optional[int] = None,
+              controlnet_block_samples: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Dual blocks [start, stop) (the JAX _scan_dual's start / stop); block i
+    adds its ControlNet residual to the image stream after it."""
+    n = len(params.dual_blocks)
+    cn = controlnet_block_samples
+    for i in range(start, n if stop is None else min(stop, n)):
+        hidden, encoder = params.dual_blocks[i](hidden, encoder, temb, cos, sin, cfg)
+        if cn is not None:
+            hidden = hidden + cn[i // cn_sample_interval(cn, n)]
     return hidden, encoder
 
 
 def flux_run_blocks(params: FluxTransformer, cfg: FluxConfig, hidden, encoder, temb, cos,
-                    sin, start_dual: int = 0) -> Tensor:
+                    sin, controlnet_block_samples: Optional[Tensor] = None,
+                    controlnet_single_block_samples: Optional[Tensor] = None,
+                    start_dual: int = 0) -> Tensor:
     """Dual then single blocks; returns the final image-stream hidden.
-    start_dual skips the first dual blocks (a cache probe already ran them)."""
-    hidden, encoder = _run_dual(params, cfg, hidden, encoder, temb, cos, sin, start_dual)
+    controlnet_*: stacked (L_cn, B, S_img, D) residuals or None, spread
+    over the blocks by cn_sample_interval; a single block's residual is
+    added in place to the image part of the joint stream. start_dual skips
+    the first dual blocks (a cache probe already ran them)."""
+    hidden, encoder = _run_dual(params, cfg, hidden, encoder, temb, cos, sin, start_dual,
+                                controlnet_block_samples=controlnet_block_samples)
     ctx_len = encoder.shape[1]
     joint = torch.cat([encoder, hidden], dim=1)
-    for block in params.single_blocks:
+    cns, n = controlnet_single_block_samples, len(params.single_blocks)
+    for i, block in enumerate(params.single_blocks):
         joint = block(joint, temb, cos, sin, cfg)
+        if cns is not None:
+            joint[:, ctx_len:] += cns[i // cn_sample_interval(cns, n)]
     return joint[:, ctx_len:]
 
 
@@ -287,11 +311,14 @@ def flux_forward(
     rope_cos: Tensor,               # (S_txt + S_img, head_dim / 2)
     rope_sin: Tensor,
     guidance: Optional[Tensor] = None,
+    controlnet_block_samples: Optional[Tensor] = None,
+    controlnet_single_block_samples: Optional[Tensor] = None,
 ) -> Tensor:
     """Denoiser forward -> (B, S_img, patch^2 * out_channels)."""
     hidden, temb, encoder = _flux_embed(params, cfg, hidden_states, encoder_hidden_states,
                                         pooled_projections, timestep, guidance)
-    hidden = flux_run_blocks(params, cfg, hidden, encoder, temb, rope_cos, rope_sin)
+    hidden = flux_run_blocks(params, cfg, hidden, encoder, temb, rope_cos, rope_sin,
+                             controlnet_block_samples, controlnet_single_block_samples)
     return params.proj_out(params.norm_out(hidden, temb))
 
 
@@ -299,12 +326,14 @@ def flux_forward_cached(
     params: FluxTransformer, cfg: FluxConfig, cache_cfg, cache_state: dict, step: int,
     total_steps: int, hidden_states: Tensor, encoder_hidden_states: Tensor,
     pooled_projections: Tensor, timestep: Tensor, rope_cos: Tensor, rope_sin: Tensor,
-    guidance: Optional[Tensor] = None,
+    guidance: Optional[Tensor] = None, controlnet_block_samples: Optional[Tensor] = None,
+    controlnet_single_block_samples: Optional[Tensor] = None,
 ) -> Tuple[Tensor, dict]:
     """flux_forward under a step-skipping cache -> (output, new_cache_state)
     (fastdm_tpu/models/flux.py:525-561). TeaCache probes block 0's modulated
     input, FBCache dual block 0's output, DiCache the output of the first
-    probe_depth dual blocks; a computed step runs the remaining blocks."""
+    probe_depth dual blocks (each with its ControlNet residual); a computed
+    step runs the remaining blocks."""
     from fastdm_tpu_torch.caching.config import DiCacheConfig, FBCacheConfig, TeaCacheConfig
     from fastdm_tpu_torch.caching.xcaching import cached_run
 
@@ -318,16 +347,19 @@ def flux_forward_cached(
         raise ValueError(f"unsupported cache config {type(cache_cfg).__name__}")
     hidden, temb, encoder = _flux_embed(params, cfg, hidden_states, encoder_hidden_states,
                                         pooled_projections, timestep, guidance)
+    cn, cns = controlnet_block_samples, controlnet_single_block_samples
 
     def probe_fn(h, e):
         if isinstance(cache_cfg, TeaCacheConfig):
             probe, *_ = params.dual_blocks[0].norm1(h, temb)
             return probe, (h, e)
-        h, e = _run_dual(params, cfg, h, e, temb, rope_cos, rope_sin, stop=start)
+        h, e = _run_dual(params, cfg, h, e, temb, rope_cos, rope_sin, stop=start,
+                         controlnet_block_samples=cn)
         return h, (h, e)
 
     def rest_fn(h, e):
-        return flux_run_blocks(params, cfg, h, e, temb, rope_cos, rope_sin, start_dual=start)
+        return flux_run_blocks(params, cfg, h, e, temb, rope_cos, rope_sin, cn, cns,
+                               start_dual=start)
 
     hidden, new_state = cached_run(cache_cfg, cache_state, step, total_steps, hidden, encoder,
                                    probe_fn, rest_fn)

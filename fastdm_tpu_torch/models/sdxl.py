@@ -13,8 +13,10 @@ and the resnets' time_emb_proj are QLinears in cfg.quant; the time and add
 embedders stay bf16. The self-attention's q|k|v and the cross-attention's k|v
 are fused projections; the feed-forward is GEGLU through the gelu_and_mul
 kernel; attention is the sdpa kernel. IP-Adapter: an optional fused k|v
-projection of image tokens on every cross-attention. The SDXL ControlNet
-and the IP-Adapter attach/projection arrive with a later slice.
+projection of image tokens on every cross-attention, attached from an
+IP-Adapter checkpoint by sdxl_attach_ip_adapter (the image projections are
+layers/ip_adapter.py). The SDXL ControlNet, which runs this module's down
+and mid stages, is models/controlnets.py.
 """
 
 from __future__ import annotations
@@ -339,6 +341,64 @@ def sdxl_load(src: TensorSource, cfg: SDXLConfig) -> SDXLUNet:
 # ---------------------------------------------------------------- random init
 
 
+class _RandomParts:
+    """The random-weight draws of sdxl_init_random, shared with the SDXL
+    ControlNet's init (models/controlnets.py): one torch.Generator seeded
+    with `seed` on `dev`, drawn in call order."""
+
+    def __init__(self, seed: int, cfg: SDXLConfig, dev: torch.device):
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.cfg, self.dev = cfg, dev
+
+    def lin(self, k, n, quant="cfg", bias=True) -> QLinear:
+        quant = self.cfg.quant if quant == "cfg" else quant
+        return qlinear_random(self.gen, k, n, bias=bias, quant=quant, device=self.dev)
+
+    def conv(self, k, cin, cout) -> nn.ParameterDict:
+        w = torch.randn(cout, cin, k, k, generator=self.gen, device=self.dev,
+                        dtype=torch.bfloat16)
+        return frozen_params(w=w.mul_(0.03), b=torch.zeros(cout, device=self.dev))
+
+    def norm(self, c) -> nn.ParameterDict:
+        return frozen_params(gamma=torch.ones(c, dtype=torch.bfloat16, device=self.dev),
+                             beta=torch.zeros(c, dtype=torch.bfloat16, device=self.dev))
+
+    def resnet(self, cin, cout) -> SDXLResnet:
+        conv, norm = self.conv, self.norm
+        return SDXLResnet(norm(cin), conv(3, cin, cout), self.lin(self.cfg.time_embed_dim, cout),
+                          norm(cout), conv(3, cout, cout),
+                          conv(1, cin, cout) if cin != cout else None)
+
+    def t2d(self, c, n_layers, ip_adapter: bool = False) -> SDXLTransformer2D:
+        lin, norm, ctx = self.lin, self.norm, self.cfg.cross_attention_dim
+        blocks = [SDXLTransformerBlock(
+            norm(c), SDXLAttention(lin(c, c), qkv=lin(c, 3 * c, bias=False)),
+            norm(c), SDXLAttention(lin(c, c), q=lin(c, c, bias=False),
+                                   kv=lin(ctx, 2 * c, bias=False),
+                                   ipadp_kv=lin(ctx, 2 * c) if ip_adapter else None),
+            norm(c), FeedForward(lin(c, 8 * c), lin(4 * c, c))) for _ in range(n_layers)]
+        return SDXLTransformer2D(norm(c), lin(c, c), blocks, lin(c, c))
+
+    def embedding(self, k) -> TimestepEmbedding:
+        te = self.cfg.time_embed_dim
+        return TimestepEmbedding(self.lin(k, te, None), self.lin(te, te, None))
+
+    def down_mid(self, ip_adapter: bool = False) -> Tuple[List[SDXLStage], SDXLStage]:
+        """The three down stages and the mid stage."""
+        resnet, conv = self.resnet, self.conv
+        c0, c1, c2 = self.cfg.block_channels
+        n1, n2 = self.cfg.attn_layers[1], self.cfg.attn_layers[2]
+
+        def t2d(c, n):
+            return self.t2d(c, n, ip_adapter)
+
+        down = [SDXLStage([resnet(c0, c0), resnet(c0, c0)], downsample=conv(3, c0, c0)),
+                SDXLStage([resnet(c0, c1), resnet(c1, c1)], [t2d(c1, n1), t2d(c1, n1)],
+                          downsample=conv(3, c1, c1)),
+                SDXLStage([resnet(c1, c2), resnet(c2, c2)], [t2d(c2, n2), t2d(c2, n2)])]
+        return down, SDXLStage([resnet(c2, c2), resnet(c2, c2)], [t2d(c2, n2)])
+
+
 def sdxl_init_random(seed: int, cfg: SDXLConfig, device="cuda") -> SDXLUNet:
     """Random-weight SDXL UNet (benchmarks and smoke runs without checkpoints),
     drawn by a torch.Generator seeded with `seed` on `device`, as the JAX
@@ -347,49 +407,81 @@ def sdxl_init_random(seed: int, cfg: SDXLConfig, device="cuda") -> SDXLUNet:
     their storage dtype (qlinear_random): the blocks', proj_in/out and
     time_emb_proj in cfg.quant, the time and add embedders in bf16. The JAX
     and torch generators give different numbers for the same seed."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    q, te, ctx = cfg.quant, cfg.time_embed_dim, cfg.cross_attention_dim
+    r = _RandomParts(seed, cfg, resolve_device(device))
+    resnet, conv, norm = r.resnet, r.conv, r.norm
     c0, c1, c2 = cfg.block_channels
     n1, n2 = cfg.attn_layers[1], cfg.attn_layers[2]
 
-    def lin(k, n, quant=q, bias=True):
-        return qlinear_random(gen, k, n, bias=bias, quant=quant, device=dev)
+    def t2d(c, n):
+        return r.t2d(c, n, cfg.ip_adapter)
 
-    def conv(k, cin, cout):
-        w = torch.randn(cout, cin, k, k, generator=gen, device=dev, dtype=torch.bfloat16)
-        return frozen_params(w=w.mul_(0.03), b=torch.zeros(cout, device=dev))
-
-    def norm(c):
-        return frozen_params(gamma=torch.ones(c, dtype=torch.bfloat16, device=dev),
-                       beta=torch.zeros(c, dtype=torch.bfloat16, device=dev))
-
-    def resnet(cin, cout):
-        return SDXLResnet(norm(cin), conv(3, cin, cout), lin(te, cout), norm(cout),
-                          conv(3, cout, cout), conv(1, cin, cout) if cin != cout else None)
-
-    def t2d(c, n_layers):
-        blocks = [SDXLTransformerBlock(
-            norm(c), SDXLAttention(lin(c, c), qkv=lin(c, 3 * c, bias=False)),
-            norm(c), SDXLAttention(lin(c, c), q=lin(c, c, bias=False),
-                                   kv=lin(ctx, 2 * c, bias=False),
-                                   ipadp_kv=lin(ctx, 2 * c) if cfg.ip_adapter else None),
-            norm(c), FeedForward(lin(c, 8 * c), lin(4 * c, c))) for _ in range(n_layers)]
-        return SDXLTransformer2D(norm(c), lin(c, c), blocks, lin(c, c))
-
-    down = [SDXLStage([resnet(c0, c0), resnet(c0, c0)], downsample=conv(3, c0, c0)),
-            SDXLStage([resnet(c0, c1), resnet(c1, c1)], [t2d(c1, n1), t2d(c1, n1)],
-                      downsample=conv(3, c1, c1)),
-            SDXLStage([resnet(c1, c2), resnet(c2, c2)], [t2d(c2, n2), t2d(c2, n2)])]
-    mid = SDXLStage([resnet(c2, c2), resnet(c2, c2)], [t2d(c2, n2)])
+    down, mid = r.down_mid(cfg.ip_adapter)
     up = [SDXLStage([resnet(2 * c2, c2), resnet(2 * c2, c2), resnet(c2 + c1, c2)],
                     [t2d(c2, n2) for _ in range(3)], upsample=conv(3, c2, c2)),
           SDXLStage([resnet(c2 + c1, c1), resnet(2 * c1, c1), resnet(c1 + c0, c1)],
                     [t2d(c1, n1) for _ in range(3)], upsample=conv(3, c1, c1)),
           SDXLStage([resnet(c1 + c0, c0), resnet(2 * c0, c0), resnet(2 * c0, c0)])]
     return SDXLUNet(
-        conv_in=conv(3, cfg.in_channels, c0),
-        time_embedding=TimestepEmbedding(lin(c0, te, None), lin(te, te, None)),
-        add_embedding=TimestepEmbedding(lin(cfg.add_embedding_in_dim, te, None),
-                                        lin(te, te, None)),
+        conv_in=conv(3, cfg.in_channels, c0), time_embedding=r.embedding(c0),
+        add_embedding=r.embedding(cfg.add_embedding_in_dim),
         down=down, mid=mid, up=up, conv_norm_out=norm(c0), conv_out=conv(3, c0, cfg.out_channels))
+
+
+# ---------------------------------------------------------------- IP-Adapter
+
+
+def sdxl_attach_ip_adapter(params: SDXLUNet, src: TensorSource, cfg: SDXLConfig):
+    """Attach an IP-Adapter checkpoint to a loaded UNet (each cross-attention's
+    ipadp_kv, the fused to_k_ip | to_v_ip in cfg.quant) and return its image
+    projection: ImageProjection for the `image_proj.proj` layout
+    (ip-adapter_sdxl: num_tokens = out_dim // cross_attention_dim),
+    IPAdapterPlusProjection for the `image_proj.latents` resampler
+    (ip-adapter-plus: heads = hidden // 64). Port of
+    fastdm_tpu/models/sdxl.py sdxl_attach_ip_adapter.
+
+    The checkpoint's 'ip_adapter.{i}' index enumerates the UNet's attention
+    processors in diffusers' registration order: the down blocks, then the UP
+    blocks, the mid block LAST (UNet2DConditionModel creates both empty
+    ModuleLists before it assigns mid_block); attn1 then attn2 per
+    BasicTransformerBlock, so the cross-attention weights sit on odd
+    indices."""
+    from fastdm_tpu_torch.layers.ip_adapter import (
+        ImageProjection,
+        IPAdapterPlusProjection,
+        ResamplerBlock,
+    )
+
+    idx = 0
+    for t2d in [a for stage in (*params.down, *params.up, params.mid)
+                for a in (stage.attns or [])]:
+        for blk in t2d.blocks:
+            idx += 1  # the attn1 (self-attention) processor's slot
+            blk.attn2.ipadp_kv = src.fused_linear(
+                [f"ip_adapter.{idx}.to_k_ip", f"ip_adapter.{idx}.to_v_ip"], cfg.quant)
+            idx += 1
+
+    if "image_proj.proj.weight" in src:
+        proj = src.linear("image_proj.proj", None)
+        out = ImageProjection(proj, _norm(src, "image_proj.norm"),
+                              proj.w.shape[1] // cfg.cross_attention_dim)
+    elif "image_proj.latents" in src:
+        # official layout: layers.{i}.0.{norm1, norm2, to_q, to_kv, to_out}
+        # (attention) and layers.{i}.1.{0, 1, 3} (LayerNorm, Linear, Linear)
+        layers, i = [], 0
+        while f"image_proj.layers.{i}.0.to_q.weight" in src:
+            p = f"image_proj.layers.{i}"
+            layers.append(ResamplerBlock(
+                _norm(src, f"{p}.0.norm1"), _norm(src, f"{p}.0.norm2"),
+                src.linear(f"{p}.0.to_q", None), src.linear(f"{p}.0.to_kv", None),
+                src.linear(f"{p}.0.to_out", None), _norm(src, f"{p}.1.0"),
+                src.linear(f"{p}.1.1", None), src.linear(f"{p}.1.3", None)))
+            i += 1
+        latents = src.tensor("image_proj.latents")
+        out = IPAdapterPlusProjection(
+            latents, src.linear("image_proj.proj_in", None), layers,
+            src.linear("image_proj.proj_out", None), _norm(src, "image_proj.norm_out"),
+            heads=latents.shape[-1] // 64, head_dim=64)
+    else:
+        raise NotImplementedError("unrecognized image_proj layout in the IP-Adapter checkpoint")
+    src.assert_consumed()
+    return out

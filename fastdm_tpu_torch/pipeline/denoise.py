@@ -1,5 +1,6 @@
 """FLUX denoise loops (port of fastdm_tpu/pipeline/denoise.py make_flux_denoiser,
-make_flux_kontext_denoiser and the latent packing helpers).
+make_flux_kontext_denoiser, make_flux_cn_denoiser with expand_cn_samples,
+and the latent packing helpers).
 
 The JAX package jits the whole N-step loop into one lax.scan; here it is a
 Python loop over eager PyTorch ops under torch.inference_mode(), with the
@@ -8,12 +9,12 @@ TeaCache branch taken on the host once per step.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from fastdm_tpu_torch.models.flux import FluxConfig, FluxTransformer, flux_forward, \
-    flux_forward_cached
+from fastdm_tpu_torch.models.flux import FluxConfig, FluxTransformer, cn_sample_interval, \
+    flux_forward, flux_forward_cached
 from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler
 
 Tensor = torch.Tensor
@@ -57,6 +58,60 @@ def make_flux_denoiser(cfg: FluxConfig, scheduler: FlowMatchEulerScheduler, num_
                                    guidance=guidance)
             latents = scheduler.step(out, step, latents)
         return latents, state["skips"] if cached else 0
+
+    return run
+
+
+def expand_cn_samples(samples: Optional[Tensor], num_layers: int) -> Optional[Tensor]:
+    """(L_cn, B, S, D) ControlNet residuals -> one per transformer layer,
+    layer i taking samples[i // ceil(num_layers / L_cn)] (the diffusers
+    interval indexing). flux_forward indexes the short stack the same way
+    in place, so the loop below passes it unexpanded."""
+    if samples is None or num_layers == 0:
+        return None
+    interval = cn_sample_interval(samples, num_layers)
+    return samples[torch.arange(num_layers, device=samples.device) // interval]
+
+
+def make_flux_cn_denoiser(cfg: FluxConfig, cn_cfg, scheduler: FlowMatchEulerScheduler,
+                          num_steps: int, guidance_scale: float = 3.5,
+                          conditioning_scale: float = 1.0, control_mode: Optional[int] = None):
+    """FLUX + ControlNet loop: every step the ControlNet runs on the current
+    latents and its residuals go into the FLUX blocks, layer i taking
+    residual i // ceil(num_layers / L_cn). No step cache (as in JAX).
+
+    Returns run(params, cn_params, latents (B, S, C) f32, cn_cond, encoder,
+    pooled, cos, sin) -> (latents, 0); cn_cond is the packed latent hint (B,
+    S, C) or, for a raw-hint ControlNet, the (B, 3, H, W) image in [-1, 1].
+    With control_mode (a union checkpoint) the ControlNet's text stream has
+    one more token, whose rope id is zero like every FLUX text id: its
+    cos / sin are row 0 duplicated in front of the base ones."""
+    from fastdm_tpu_torch.models.controlnets import flux_controlnet_forward
+
+    @torch.inference_mode()
+    def run(params: FluxTransformer, cn_params, latents: Tensor, cn_cond: Tensor,
+            encoder: Tensor, pooled: Tensor, cos: Tensor, sin: Tensor) -> Tuple[Tensor, int]:
+        b = latents.shape[0]
+        guidance = torch.full((b,), guidance_scale, dtype=torch.float32, device=latents.device)
+        cnd = cn_cond.to(torch.bfloat16)
+        if control_mode is not None and cn_params.controlnet_mode_embedder is None:
+            raise ValueError("control_mode was given but the ControlNet has no "
+                             "controlnet_mode_embedder: not a union checkpoint")
+        cn_cos, cn_sin = cos, sin
+        if control_mode is not None:
+            cn_cos, cn_sin = torch.cat([cos[:1], cos]), torch.cat([sin[:1], sin])
+        for step in range(num_steps):
+            t = torch.full((b,), float(scheduler.sigmas[step]), dtype=torch.float32,
+                           device=latents.device)
+            h = latents.to(torch.bfloat16)
+            bs, sbs = flux_controlnet_forward(
+                cn_params, cn_cfg, h, cnd, encoder, pooled, t, cn_cos, cn_sin,
+                guidance=guidance if cn_cfg.guidance_embeds else None,
+                conditioning_scale=conditioning_scale, control_mode=control_mode)
+            out = flux_forward(params, cfg, h, encoder, pooled, t, cos, sin, guidance=guidance,
+                               controlnet_block_samples=bs, controlnet_single_block_samples=sbs)
+            latents = scheduler.step(out, step, latents)
+        return latents, 0
 
     return run
 

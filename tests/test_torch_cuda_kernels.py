@@ -35,7 +35,11 @@ sdpa's kernel, bit-identical to sdpa_cuda (the same tiles in the same order
 through the same tile code). The SDXL kernels: gelu_and_mul within one bf16 ulp of its
 plain version (both round once from f32; erff and ATen's erf may differ by an
 f32 ulp), in f32 within 1e-6 relative plus |h*g| * 2^-22; sdpa at head dim 64
-on the fused projections as the small cases.
+on the fused projections as the small cases. The ControlNet / IP-Adapter
+shapes: sdpa on 4 and 16 IP keys and the Plus resampler's 16 x 273 as the
+small cases, on the union ControlNet's 8705-token joint sequence as the long
+ones; rotembd bit-exact, rmsnorm within one ulp and the int8 quantizer and
+GEMM bit-exact at its 8705 and 513 rows.
 """
 
 import numpy as np
@@ -549,6 +553,22 @@ def test_qlinear_w8a8_launches_its_kernels(cuda_device):
     assert (cuda_backend.quantize_to_int8_cuda.launches, cuda_backend.int8_matmul_cuda.launches,
             cuda_backend.quantize_to_fp8_cuda.launches, cuda_backend.fp8_matmul_cuda.launches) \
         == (1, 1, 1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["int8", "fp8", "int4p"])
+def test_qlinear_takes_the_token_view_of_one_nchw_map(cuda_device, quant):
+    """The (1, H*W, C) token view of one NCHW map (the SDXL Transformer2D's
+    proj_in input at batch 1: its rows are strided, last-dim stride H*W) goes
+    through the quantized QLinear as its contiguous copy does, bit for bit."""
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    fmap = torch.randn(1, 128, 16, 24, generator=g, device=cuda_device).bfloat16()
+    view = fmap.flatten(2).transpose(1, 2)
+    assert view.reshape(-1, 128).stride(-1) != 1
+    lin = qlinear_random(g, 128, 96, quant=quant, device=cuda_device)
+    assert torch.equal(lin(view), lin(view.contiguous()))
 
 
 # ----------------------------------------------------------- W4A4 kernels
@@ -1115,3 +1135,117 @@ def test_wan5b_qk_norm_rope_and_rmsnorm_on_card(cuda_device):
         got = cuda_backend.rms_norm_cuda(x, gq, 1e-6).float()
         want = torch_backend.rms_norm_torch(x, gq, 1e-6).float()
         assert ((got - want).abs() <= _bf16_ulp(want)).all()
+
+
+# ControlNet / IP-Adapter shapes: the IP-Adapter branch of SDXL's
+# cross-attentions at 1024x2048 with CFG (q on 8192 tokens at 640 wide and on
+# 2048 at 1280, 4 image tokens of ip-adapter_sdxl or 16 of IP-Adapter-Plus,
+# k|v read in place from the fused ipadp_kv output), the Plus resampler (16
+# latents over 257 CLIP tokens + 16), the union FLUX ControlNet's joint
+# sequence (512 text + 1 mode + 8192 image tokens: the last 128-row query
+# tile holds one row)
+IP_KEYS = {"ip-640x4": (640, 8192, 4), "ip-1280x4": (1280, 2048, 4),
+           "ip-640x16": (640, 8192, 16), "ip-1280x16": (1280, 2048, 16)}
+UNION_TOKENS, UNION_TEXT = 8705, 513
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(IP_KEYS))
+def test_sdpa_kernel_on_ip_adapter_keys(cuda_device, case):
+    """4 or 16 keys against a 128-key box: the out-of-bounds rows are
+    zero-filled and masked, so no row is -inf / NaN and no key past the
+    view's end is read (the fused buffer's later rows hold 1e4 values, which
+    would dominate every softmax); held as the small cases."""
+    from fastdm_tpu_torch.kernels.cuda_backend import sdpa_cuda
+    from fastdm_tpu_torch.kernels.torch_backend import sdpa_torch
+
+    c, tokens, keys = IP_KEYS[case]
+    h = c // 64
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn(2, tokens, c, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.randn(2, keys + 20, 2 * c, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    kv[:, keys:] = 1e4
+    k, v = kv[:, :keys, :c], kv[:, :keys, c:]
+    got = sdpa_cuda(q, k, v, h, h, 64, False).float()
+    want = sdpa_torch(q, k, v, h, h, 64, False).float()
+    assert torch.isfinite(got).all() and got.abs().max() < 10
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    exact = kv[:, :keys].contiguous()  # the same keys in a buffer of their own
+    torch.testing.assert_close(sdpa_cuda(q, exact[..., :c], exact[..., c:], h, h, 64).float(),
+                               got, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_sdpa_kernel_on_the_plus_resampler(cuda_device):
+    """IP-Adapter-Plus's resampler: q (2, 16, 20x64) from the latents against
+    k|v (2, 273, 2x1280) read in place: one short query tile and a 17-key
+    tail; held as the small cases."""
+    from fastdm_tpu_torch.kernels.cuda_backend import sdpa_cuda
+    from fastdm_tpu_torch.kernels.torch_backend import sdpa_torch
+
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q = torch.randn(2, 16, 1280, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.randn(2, 273, 2560, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    got = sdpa_cuda(q, kv[..., :1280], kv[..., 1280:], 20, 20, 64).float()
+    want = sdpa_torch(q, kv[..., :1280], kv[..., 1280:], 20, 20, 64).float()
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_union_controlnet_joint_sequence_on_card(cuda_device):
+    """The union ControlNet's 8705-token joint sequence (24 heads of 128):
+    sdpa held as the long cases (the last query tile holds one row), rotembd
+    bit-exact on the mode-token-extended tables (row 0 duplicated in front),
+    rmsnorm within one ulp on the strided head rows of the 8705-row image +
+    text QKV and the 513-row text one."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+    from fastdm_tpu_torch.models.flux import FluxConfig, flux_rope_cache
+
+    s, hd, h = UNION_TOKENS, 128, 24
+    cos, sin = flux_rope_cache(FluxConfig(), UNION_TEXT - 1, 64, 128, device=cuda_device)
+    cos, sin = torch.cat([cos[:1], cos]), torch.cat([sin[:1], sin])
+    assert cos.shape[0] == s and s % 128 == 1
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    qkv = torch.randn(1, s, 3 * h * hd, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    q, k, v = qkv.split(h * hd, dim=-1)
+    got = cuda_backend.sdpa_cuda(q, k, v, h, h, hd).float()
+    want = torch_backend.sdpa_torch(q, k, v, h, h, hd).float()
+    assert ((got - want).abs() <= 1e-3 + 2 * _bf16_ulp(want)).all()
+    assert (got - want).norm() / want.norm() <= 5e-3
+    qc, kc = q.contiguous(), k.contiguous()
+    for a, w in zip(cuda_backend.rotary_pos_embedding_cuda(qc, kc, hd, cos, sin, False),
+                    torch_backend.rotary_pos_embedding_torch(qc, kc, hd, cos, sin, False)):
+        assert torch.equal(a, w)
+    gamma = (1 + 0.05 * torch.randn(hd, generator=g, device=cuda_device)).bfloat16()
+    for rows in (s, UNION_TEXT):
+        x = qkv[:, :rows, :h * hd].reshape(1, rows, h, hd)
+        got = cuda_backend.rms_norm_cuda(x, gamma, 1e-6).float()
+        want = torch_backend.rms_norm_torch(x, gamma, 1e-6).float()
+        assert ((got - want).abs() <= _bf16_ulp(want)).all(), rows
+
+
+# the union ControlNet's W8A8 linears at its new M: 513 text rows (the dual
+# blocks' context stream with the mode token) and 8705 joint rows (the
+# single blocks): (M, K, N)
+UNION_W8A8 = {"text-qkv": (513, 3072, 9216), "text-ff-out": (513, 12288, 3072),
+              "joint-qkv-mlp": (8705, 3072, 21504), "joint-proj-out": (8705, 15360, 3072)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(UNION_W8A8))
+def test_int8_kernels_bit_exact_at_union_controlnet_shapes(cuda_device, shape):
+    """The per-token int8 quantizer and the int8 GEMM (with and without the
+    zero point) at the union ControlNet's new row counts: bit-exact."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    m, k, n = UNION_W8A8[shape]
+    a, sa, azp, lin = _w8a8_operands("int8", m, k, n, cuda_device)
+    x = (torch.randn(m, k, generator=torch.Generator(device=cuda_device).manual_seed(10),
+                     device=cuda_device) * 3).bfloat16()
+    for got, want in zip(cuda_backend.quantize_to_int8_cuda(x, symmetric=False),
+                         torch_backend.quantize_to_int8_torch(x, symmetric=False)):
+        assert torch.equal(got, want)
+    for zp in (azp, None):
+        args = (a, lin.w, sa, lin.scale, torch.bfloat16, lin.colsum, zp, lin.bias)
+        assert torch.equal(cuda_backend.int8_matmul_cuda(*args),
+                           torch_backend.int8_matmul_torch(*args))

@@ -492,11 +492,14 @@ def test_engine_rejects_what_later_slices_bring(sdxl_engine_root):
     assert eng.cfg.quant is None and eng.params.up[0].resnets[0].time_emb_proj.w.dtype == \
         torch.bfloat16
     kw = dict(_embeds(11), height=64, width=64, num_inference_steps=1)
-    with pytest.raises(NotImplementedError, match="ControlNet"):
+    # the ControlNet and the IP-Adapter have arrived: a control_image needs
+    # controlnet_path, and the CLIP image encoder of an ip_adapter_image is
+    # still to come (tests/test_torch_controlnet.py drives both paths)
+    with pytest.raises(ValueError, match="controlnet_path"):
         eng.generate(control_image=np.zeros((64, 64, 3), np.uint8), **kw)
-    with pytest.raises(NotImplementedError, match="IP-Adapter"):
+    with pytest.raises(NotImplementedError, match="CLIP image encoder"):
         eng.generate(ip_adapter_image=np.zeros((64, 64, 3), np.uint8), **kw)
-    with pytest.raises(NotImplementedError, match="ControlNet"):
+    with pytest.raises(ValueError, match="controlnet_path"):
         eng.generate(task="i2i", image=np.zeros((64, 64, 3), np.uint8),
                      control_image=np.zeros((64, 64, 3), np.uint8), **kw)
     with pytest.raises(NotImplementedError, match="text encoders"):

@@ -630,3 +630,37 @@ def test_rope_wrapper_passes_layout_strides_and_plan(monkeypatch, neox):
     assert args[11:15] == (qkv.stride(0), qkv.stride(1)) * 2
     assert args[15] == int(neox)
     assert args[16:19] == cuda_backend.rope_plan(d, hq + hkv, neox, True)
+
+
+@pytest.mark.parametrize("keys", [4, 16])
+def test_sdpa_plan_for_ip_adapter_keys_and_the_union_joint_query(monkeypatch, keys):
+    """The IP-Adapter branch's k|v, column slices of the fused (2, keys, 2C)
+    ipadp_kv output, map with the view's own extent (4 or 16 rows under a
+    128-row box: the rest zero-filled) and the buffer's 16-byte-aligned row
+    stride; the union ControlNet's 8705-row query (68 tiles of 128 and one
+    row) maps with its 8705 rows; the launcher gets both row counts."""
+    c, hd = 640, 64
+    kv = torch.zeros(2, keys, 2 * c, dtype=torch.bfloat16)
+    for i, view in enumerate((kv[..., :c], kv[..., c:])):
+        g = attention_geometry(view, hd)
+        assert g.dims == (c, keys, 2) and g.box == (64, ATTN_ROWS, 1)
+        assert g.strides == (2 * c * 2, keys * 2 * c * 2)
+        assert all(x % 16 == 0 for x in g.strides) and view.data_ptr() % 16 == 0
+        assert _element_at(view, g, (hd + 3, keys - 1, 1)).item() == 0
+        kv[1, keys - 1, i * c + hd + 3] = 7.0
+        assert _element_at(view, g, (hd + 3, keys - 1, 1)).item() == 7.0
+    fake = _fake_cuda_wrapper(monkeypatch)
+    q = torch.zeros(2, 8192, c, dtype=torch.bfloat16)
+    cuda_backend.sdpa_cuda(q, kv[..., :c], kv[..., c:], c // hd, c // hd, hd)
+    assert fake.entry == ("flash_attn", "fdm_flash_attn_fwd", 16)
+    geom = list(fake.args[4])
+    assert geom == [x for t in (q, kv[..., :c], kv[..., c:])
+                    for x in attention_geometry(t, hd).packed()]
+    assert geom[8:11] == [c, keys, 2]  # k's dims: the view's 4 or 16 rows
+    assert fake.args[5:11] == (2, 8192, keys, c // hd, c // hd, hd)
+    joint = torch.zeros(1, 8705, 3 * 3072, dtype=torch.bfloat16)
+    jq, jk, jv = joint.split(3072, dim=-1)
+    cuda_backend.sdpa_cuda(jq, jk, jv, 24, 24, 128)
+    assert list(fake.args[4])[:8] == [3072, 8705, 1, 9216 * 2, 8705 * 9216 * 2, 64, ATTN_ROWS, 1]
+    assert fake.args[5:11] == (1, 8705, 8705, 24, 24, 128)
+    assert -(-8705 // ATTN_ROWS) == 69 and 8705 - 68 * ATTN_ROWS == 1
