@@ -82,6 +82,7 @@ from test_engine_e2e import _flux_cn_sd, _flux_transformer_sd, _sdxl_sd, _vae_sd
 from test_torch_sdxl import TINY, VAE_TINY  # noqa: E402
 from test_torch_sdxl import _embeds as sdxl_embeds  # noqa: E402
 from test_torch_sdxl import correctly_rounded_silu, sdxl_engine_root  # noqa: E402,F401
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 # the SDXL UNet and ControlNet here: TINY with one transformer layer in the
 # level-2 and mid Transformer2Ds (TINY has two), fewer ops for XLA to compile

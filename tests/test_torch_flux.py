@@ -36,6 +36,7 @@ from fastdm_tpu_torch.models.loader import TensorSource as TSource
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_golden_flux import _synthetic_state_dict  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 TINY = dict(num_layers=2, num_single_layers=2, attention_head_dim=32, num_attention_heads=4,
             joint_attention_dim=64, pooled_projection_dim=48, in_channels=16, out_channels=16,

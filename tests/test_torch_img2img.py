@@ -71,6 +71,7 @@ from test_torch_sd35 import _pair as sd35_pair  # noqa: E402
 from test_torch_sd35 import margins, sd35_root  # noqa: E402,F401  (fixtures)
 from test_torch_sdxl import _embeds as sdxl_embeds  # noqa: E402
 from test_torch_sdxl import sdxl_engine_root  # noqa: E402,F401  (fixture)
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 # a shift as well as a scale, so that both enter the comparisons
 VAE_TINY = dict(latent_channels=4, block_out_channels=(8, 8, 8, 8), layers_per_block=1,

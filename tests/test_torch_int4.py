@@ -60,6 +60,7 @@ from fastdm_tpu_torch.models.convert import (
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_golden_wan import TINY as WAN_TINY  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 FLUX_TINY = dict(num_layers=2, num_single_layers=2, attention_head_dim=32,
                  num_attention_heads=4, joint_attention_dim=64, pooled_projection_dim=48,
@@ -313,7 +314,9 @@ def test_flux_forward_w4a4_matches_jax(flux_models):
     jcfg, jparams, tcfg, tparams = flux_models
     j, t = _flux_inputs(9)
     (jcos, jsin), (tcos, tsin) = _flux_rope(jcfg, tcfg)
-    want = jflux.flux_forward(jparams, jcfg, *j, jcos, jsin, guidance=jnp.asarray([3.5]))
+    want = jax.jit(lambda p, a, c, s: jflux.flux_forward(p, jcfg, *a, c, s,
+                                                         guidance=jnp.asarray([3.5])))(
+        jparams, j, jcos, jsin)
     with torch.inference_mode():
         got = tflux.flux_forward(tparams, tcfg, *t, tcos, tsin, guidance=torch.tensor([3.5]))
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
@@ -347,11 +350,12 @@ def test_flux_forward_cached_fb_di_match_jax(algo):
     jstate = j_cache_init_state(jcc, shape, shape)
     tstate = t_cache_init_state(tcc, shape, shape, device="cpu")
     (jcos, jsin), (tcos, tsin) = _flux_rope(jcfg, tcfg)
+    # one compile for the three steps (the step index is traced)
+    jfwd = jax.jit(lambda p, st, i, a, c, s: jflux.flux_forward_cached(
+        p, jcfg, jcc, st, i, 3, *a, c, s, guidance=jnp.asarray([3.5])))
     for step, ts in enumerate((1.0, 0.7, 0.4)):
         j, t = _flux_inputs(30 + step, ts)
-        want, jstate = jflux.flux_forward_cached(
-            jparams, jcfg, jcc, jstate, jnp.int32(step), 3, *j, jcos, jsin,
-            guidance=jnp.asarray([3.5]))
+        want, jstate = jfwd(jparams, jstate, jnp.int32(step), j, jcos, jsin)
         with torch.inference_mode():
             got, tstate = tflux.flux_forward_cached(tparams, tcfg, tcc, tstate, step, 3, *t,
                                                     tcos, tsin, guidance=torch.tensor([3.5]))
@@ -397,16 +401,17 @@ def test_wan_int4p_forward_matches_jax():
     columns)."""
     common = dict(WAN_TINY, text_len=8, quant="int4p")
     jcfg, tcfg = jwan.WanConfig(**common), twan.WanConfig(**common)
-    jparams = jwan.wan_init_random(jax.random.key(0), jcfg)
+    jparams = jax.jit(lambda k: jwan.wan_init_random(k, jcfg))(jax.random.key(0))
     tparams = wan_params_from_numpy(jax.device_get(jparams), device="cpu")
     assert tparams.blocks[0].attn1.qkv.w4p is not None
     rng = np.random.default_rng(11)
     video = rng.standard_normal((1, WAN_TINY["in_channels"], 4, 16, 16)).astype(np.float32)
     text = rng.standard_normal((1, 8, WAN_TINY["text_dim"])).astype(np.float32)
     kw = dict(split_qkv_proj=True, ffn_chunk_tokens=64)
-    want = jwan.wan_forward(jparams, dataclasses.replace(jcfg, **kw),
-                            jnp.asarray(video, jnp.bfloat16), jnp.full((1,), 500.0),
-                            jnp.asarray(text, jnp.bfloat16))
+    split_cfg = dataclasses.replace(jcfg, **kw)
+    want = jax.jit(lambda p, *a: jwan.wan_forward(p, split_cfg, *a))(
+        jparams, jnp.asarray(video, jnp.bfloat16), jnp.full((1,), 500.0),
+        jnp.asarray(text, jnp.bfloat16))
     args = (torch.from_numpy(video).bfloat16(), torch.full((1,), 500.0),
             torch.from_numpy(text).bfloat16())
     with torch.inference_mode():

@@ -79,6 +79,7 @@ from fastdm_tpu_torch.kernels import (
     sparse_scaled_dot_product_attention,
 )
 from fastdm_tpu_torch.models.loader import as_tensor
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 

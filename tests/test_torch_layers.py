@@ -29,6 +29,7 @@ from fastdm_tpu_torch.layers import qlinear as tql
 from fastdm_tpu_torch.layers.feedforward import FeedForward
 from fastdm_tpu_torch.models.loader import as_tensor
 from fastdm_tpu_torch.kernels import quantize_to_fp8
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 

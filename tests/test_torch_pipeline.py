@@ -13,6 +13,7 @@ set torch.backends.{cudnn,cuda.matmul}.allow_tf32 = False (inert on the CPU,
 binding where the same test runs on a GPU).
 """
 
+import functools
 import json
 import os
 import sys
@@ -41,6 +42,7 @@ from fastdm_tpu_torch.pipeline import vae as tvae
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_engine_e2e import TINY, _flux_transformer_sd, _vae_sd, _write_st  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 FLUX_TEACACHE = (4.98651651e02, -2.83781631e02, 5.58554382e01, -3.82021401e00, 2.64230861e-01)
 VAE_TINY = dict(latent_channels=4, block_out_channels=(8, 8, 8, 8), layers_per_block=1,
@@ -171,10 +173,10 @@ def test_vae_layers_match_jax(no_tf32):
 
 def test_vae_decode_matches_jax(no_tf32):
     jcfg, tcfg = jvae.VAEConfig(**VAE_TINY), tvae.VAEConfig(**VAE_TINY)
-    jparams = jvae.vae_decoder_random(jax.random.key(2), jcfg)
+    jparams = jax.jit(lambda k: jvae.vae_decoder_random(k, jcfg))(jax.random.key(2))
     tparams = vae_params_from_numpy(jax.device_get(jparams), device="cpu")
     z = np.random.default_rng(5).standard_normal((1, 4, 8, 6)).astype(np.float32)
-    want = jvae.vae_decode(jparams, jcfg, jnp.asarray(z))
+    want = jax.jit(lambda p, x: jvae.vae_decode(p, jcfg, x))(jparams, jnp.asarray(z))
     got = tvae.vae_decode(tparams, tcfg, torch.from_numpy(z))
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (1, 64, 48, 3)
     assert _rel_l2(got, want) <= 6e-2
@@ -191,8 +193,9 @@ def test_vae_load_matches_jax_loader(no_tf32):
     torch.testing.assert_close(tparams["up"][2]["upsample"]["w"], via_jax["up"][2]["upsample"]["w"],
                                rtol=0, atol=0)
     z = np.random.default_rng(7).standard_normal((1, 4, 4, 4)).astype(np.float32)
-    assert _rel_l2(tvae.vae_decode(tparams, tcfg, torch.from_numpy(z)),
-                   jvae.vae_decode(jparams, jcfg, jnp.asarray(z))) <= 6e-2
+    want = jax.jit(lambda p, x: jvae.vae_decode(p, jcfg, x))(
+        {k: v for k, v in jparams.items() if k != "encoder"}, jnp.asarray(z))
+    assert _rel_l2(tvae.vae_decode(tparams, tcfg, torch.from_numpy(z)), want) <= 6e-2
 
 
 def test_vae_decoder_random_is_seeded():
@@ -206,13 +209,20 @@ def test_vae_decoder_random_is_seeded():
 # ------------------------------------------------------------- denoise loop
 
 
+@functools.lru_cache(maxsize=None)
+def _flux_random_pair():
+    """JAX's random bf16 FLUX at TINY (one init for both cases) and the
+    port's converted copy."""
+    jparams = jflux.flux_init_random(jax.random.key(1), jflux.FluxConfig(quant=None, **TINY))
+    return jparams, flux_params_from_numpy(jax.device_get(jparams), device="cpu")
+
+
 @pytest.mark.parametrize("cached", [False, True])
 def test_make_flux_denoiser_matches_jax(cached):
     """Same params, same numpy latents and conditioning, three steps."""
     fcfg = {k: v for k, v in TINY.items()}
     jcfg, tcfg = jflux.FluxConfig(quant=None, **fcfg), tflux.FluxConfig(quant=None, **fcfg)
-    jparams = jflux.flux_init_random(jax.random.key(1), jcfg)
-    tparams = flux_params_from_numpy(jax.device_get(jparams), device="cpu")
+    jparams, tparams = _flux_random_pair()
     ht = wt = 4
     mu = tsch.flow_match_shift_mu(ht * wt)
     steps = 3

@@ -56,6 +56,7 @@ from test_engine_e2e import _vae_sd, _write_st  # noqa: E402
 from test_torch_sd35 import margins  # noqa: E402,F401  (fixture)
 from test_wan_vae import TINY as WAN_VAE_TINY  # noqa: E402
 from test_wan_vae import _mk_diffusers_state_dict  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 TINY = dict(num_layers=3, attention_head_dim=32, num_attention_heads=2, joint_attention_dim=24,
             in_channels=16, out_channels=4, axes_dims_rope=(8, 12, 12))

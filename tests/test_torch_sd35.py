@@ -54,6 +54,7 @@ from fastdm_tpu_torch.pipeline.denoise_sd3 import make_sd3_denoiser
 sys.path.insert(0, os.path.dirname(__file__))
 from reference_harness import lin  # noqa: E402
 from test_engine_e2e import _vae_sd, _write_st  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 TINY = dict(sample_size=16, patch_size=2, in_channels=4, out_channels=4, num_layers=4,
             attention_head_dim=16, num_attention_heads=4, joint_attention_dim=32,

@@ -69,6 +69,7 @@ from fastdm_tpu_torch.pipeline import vae as tvae
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_engine_e2e import _sdxl_sd, _vae_sd, _write_st  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 TINY = dict(block_channels=(8, 16, 32), cross_attention_dim=16, attn_layers=(0, 1, 2),
             head_dim=8, addition_time_embed_dim=4, time_embed_dim=16,

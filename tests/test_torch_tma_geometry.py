@@ -20,6 +20,7 @@ import torch
 
 from fastdm_tpu_torch.kernels import build, cuda_backend, kernel_registry
 from fastdm_tpu_torch.kernels.tma import ATTN_ROWS, HALF_ROWS, attention_geometry, walk_rows
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 
 def _element_at(view: torch.Tensor, geom, coord) -> torch.Tensor:

@@ -52,6 +52,7 @@ from fastdm_tpu_torch.sparse.xsparse import RadialAttn, radial_block_mask
 sys.path.insert(0, os.path.dirname(__file__))
 from test_golden_wan import TINY, _state_dict  # noqa: E402
 from unipc_oracle import UniPCOracle  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEXT = 8

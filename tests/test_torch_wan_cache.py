@@ -49,6 +49,7 @@ from fastdm_tpu_torch.pipeline.schedulers import UniPCMultistepScheduler as TUni
 sys.path.insert(0, os.path.dirname(__file__))
 from test_golden_wan import TINY  # noqa: E402
 from test_torch_wan import _write_wan_checkpoint  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "examples", "xcaching", "configs")

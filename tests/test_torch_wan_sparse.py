@@ -30,6 +30,7 @@ from fastdm_tpu_torch.sparse.xsparse import RadialAttn
 sys.path.insert(0, os.path.dirname(__file__))
 from test_golden_wan import TINY  # noqa: E402
 from test_torch_wan import RADIAL, _write_wan_checkpoint  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 TEXT = 8
 

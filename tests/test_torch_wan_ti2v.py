@@ -64,6 +64,7 @@ from test_golden_wan import TINY, _state_dict  # noqa: E402
 from test_torch_wan_cache import margins  # noqa: E402,F401  (the fixture)
 from test_wan_vae import RES_TINY, _mk_diffusers_state_dict, _mk_residual_state_dict  # noqa: E402
 from test_wan_vae import TINY as VAE_TINY  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 TEXT = 8
 FHW = (3, 8, 8)  # 3 latent frames of 4x4 patches: 48 tokens, 16 a frame

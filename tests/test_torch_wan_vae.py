@@ -33,6 +33,7 @@ from fastdm_tpu_torch.pipeline import wan_vae as tvae
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_wan_vae import TINY, _mk_diffusers_state_dict  # noqa: E402
+from torch_threads import torch_threads_per_worker  # noqa: E402,F401  (autouse)
 
 # the published Wan2.1/2.2-A14B channel law (base 96, z 16, mult (1,2,4,4),
 # 2 res blocks) at a tiny spatial size
