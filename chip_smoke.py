@@ -54,8 +54,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
      once a step). One full-width forward on the kernels is then held to the
      same forward on the plain versions and to the forward with only the
      W8A8 / W4A4 ops on their plain versions (bit-identical for int8 and
-     int4p). On the int4p model: a request under dicache_flux.json and forced
-     FBCache / DiCache skips that must replay the cached residual. On the
+     int4p). On the int4p model: the quantized snapshot (save_snapshot of
+     the full-depth tree into a scratch dir of the checkout, load_tree onto
+     the card, every parameter equal, one 1024x2048 forward from the
+     reloaded tree bit-identical to the in-memory tree's; write and load
+     seconds, bytes on disk and the free disk before the write, beside the
+     tree's random init and a fresh quantize_weight("int4p") of each of its
+     W4A4 linears on the card), then a request under dicache_flux.json and
+     forced FBCache / DiCache skips that must replay the cached residual. On the
      int8 model, the image-conditioned requests: SDEdit at 1024x2048 (the
      full-size AutoencoderKL encoder, strength 0.6 of 4 steps: steps 1-3, the
      first computed under TeaCache, which counts from the loop's start) with
@@ -145,7 +151,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      VAE) with use_int8 and Qwen-Image (full width, two blocks, the full-size
      Wan-layout VAE with base_dim in its config.json) with use_int4,
      pack_int4 and quant_mods, one 1024x2048 generate each. Every vae/ holds
-     the encoder too: FLUX (as flux, and int8 as flux-kontext), SD3.5, SDXL
+     the encoder too. The int8 and int4p FLUX engines and the Wan dual-expert
+     int8 engine are built with snapshot_path on an empty dir beside the
+     checkpoint (they write the quantized snapshot), then again from it:
+     every denoiser parameter equal on the card, one generate with the same
+     seed on each, outputs equal and the same launches; both construction
+     times and the snapshot's bytes are logged, and summed up on a
+     [snapshot] line after [done]. FLUX (as flux, and int8 as flux-kontext), SD3.5, SDXL
      and qwen-image-edit (through the Wan-layout VAE, then on a bf16 engine
      through an AutoencoderKL vae/) each run one task="i2i" generate on a
      1000x2040 image (not a multiple of 16: the log names the
@@ -267,6 +279,8 @@ IP_EMBED, IP_TOKENS = 1280, 4
 PLUS_LAYERS, PLUS_LATENTS, PLUS_HIDDEN, PLUS_STATES = 4, 16, 1280, 257
 # the ControlNet / IP-Adapter numbers of every phase, printed after [done]
 CN_SUMMARY: dict = {}
+# the quantized-snapshot numbers of phases 2 and 4, printed after [done]
+SNAPSHOT_SUMMARY: dict = {}
 
 
 def log(*a):
@@ -1390,6 +1404,7 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg, summary: dict) -> dict:
     t0 = time.perf_counter()
     params = flux_init_random(0, cfg, device=dev)
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     n = sum(p.numel() for p in params.parameters())
     nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
     log(f"[slice {label}] FLUX.1-dev {label} random init: {n / 1e9:.3f} B params "
@@ -1483,6 +1498,8 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg, summary: dict) -> dict:
         raise AssertionError(f"{label} kernel forward departs from the plain forward: {rel}")
     del out_k, out_p
     if quant == "int4p":
+        _flux_snapshot(dev, params, cfg, init_s,
+                       lambda p: flux_forward(p, cfg, x, encoder, pooled, t, cos, sin, guidance))
         _flux_step_caches(dev, params, cfg, sched, cos, sin, x, encoder, pooled, t, guidance)
     if quant == "int8":
         _flux_image_requests(dev, params, cfg, vae, vae_cfg, sched, cos, sin, summary)
@@ -1490,6 +1507,139 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg, summary: dict) -> dict:
     del params
     torch.cuda.empty_cache()
     return mine
+
+
+def same_modules(a, b, label: str) -> int:
+    """Hold two modules equal parameter by parameter: names, class, dtype,
+    shape, strides, device and bytes. Returns the bytes compared."""
+    import torch
+
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    if list(pa) != list(pb):
+        raise AssertionError(f"{label}: the reloaded module's parameters differ in name: "
+                             f"{sorted(set(pa) ^ set(pb))[:8]}")
+    nbytes = 0
+    for k, x in pa.items():
+        y = pb[k]
+        if (type(x), x.dtype, x.shape, x.stride(), x.device) != \
+                (type(y), y.dtype, y.shape, y.stride(), y.device) or not torch.equal(
+                    x.detach().contiguous().view(torch.uint8),
+                    y.detach().contiguous().view(torch.uint8)):
+            raise AssertionError(f"{label}: parameter {k} differs after the snapshot round trip")
+        nbytes += x.numel() * x.element_size()
+    return nbytes
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _flux_snapshot(dev, params, cfg, init_s: float, forward) -> None:
+    """The full-depth FLUX.1-dev int4p quant_mods tree through the quantized
+    snapshot: save_snapshot into a scratch dir of the checkout, load_tree
+    onto the card (a warm read: the files were just written), every
+    parameter equal, one 1024x2048 forward from the reloaded tree equal to
+    the in-memory tree's bit for bit. Beside them, the fresh build the
+    snapshot saves an engine: quantize_weight("int4p") (the SVDQuant split:
+    QR and SVD, then the int4 residual, on the card) of every W4A4 linear of
+    the tree, each from a bf16 weight of its shape drawn on the card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fastdm_tpu_torch.layers.qlinear import QLinear, quantize_weight
+    from fastdm_tpu_torch.models import snapshot
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    g = torch.Generator(device=dev).manual_seed(7)
+    build_s, n_lin = 0.0, 0
+    for mod in params.modules():
+        if isinstance(mod, QLinear) and mod.w4p is not None:
+            k, n = mod.w4p.shape[0] * 2, mod.w4p.shape[1]
+            w = torch.randn(k, n, generator=g, device=dev, dtype=torch.bfloat16).mul_(0.02)
+            b = None if mod.bias is None else torch.zeros(n, device=dev, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q = quantize_weight(w, "int4p", b)
+            torch.cuda.synchronize()
+            build_s += time.perf_counter() - t0
+            n_lin += 1
+            if q.w4p.shape != mod.w4p.shape or q.lora_u.shape != mod.lora_u.shape:
+                raise AssertionError("quantize_weight gave another int4p layout than the tree's")
+            del w, b, q
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-snap-") as d:
+        free = shutil.disk_usage(d)
+        t0 = time.perf_counter()
+        snapshot.save_snapshot(d, {"transformer": params}, architecture="flux", quant="int4p",
+                               cfg=cfg)
+        write_s = time.perf_counter() - t0
+        on_disk = _dir_bytes(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = snapshot.load_tree(d, "transformer", device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    nbytes = same_modules(params, back, "phase 2 int4p snapshot")
+    with torch.inference_mode():
+        want, got = forward(params), forward(back)
+        torch.cuda.synchronize()
+    same = torch.equal(want, got)
+    log(f"[slice int4p] snapshot of the full-depth tree ({cfg.num_layers} + "
+        f"{cfg.num_single_layers} blocks, {nbytes / 2**30:.3f} GiB of parameters): disk before "
+        f"the write {free.free / 2**30:.1f} GiB free of {free.total / 2**30:.1f}; write "
+        f"{write_s:.3f} s, {on_disk} bytes on disk; load_tree onto the card {load_s:.3f} s "
+        f"(warm read); every parameter equal; the 1024x2048 forward from the reloaded tree "
+        f"bit-identical {same}. Beside it: random init of the tree {init_s:.3f} s, fresh "
+        f"quantize_weight('int4p') of its {n_lin} W4A4 linears {build_s:.3f} s")
+    if not same:
+        raise AssertionError("the forward of the reloaded int4p tree departs from the "
+                             "in-memory tree's")
+    SNAPSHOT_SUMMARY.update(int4p_full_depth_bytes=on_disk, int4p_write_s=round(write_s, 4),
+                            int4p_load_s=round(load_s, 4), int4p_random_init_s=round(init_s, 4),
+                            int4p_quantize_build_s=round(build_s, 4),
+                            int4p_linears=n_lin, disk_free_before_gib=round(free.free / 2**30, 1))
+    del back, want, got
+    torch.cuda.empty_cache()
+
+
+def _engine_snapshot(label: str, make, eng, first_s: float, snap_dir: str, gen_kw: dict) -> None:
+    """eng was built by make(snap_dir) on an empty snap_dir and wrote the
+    snapshot; build it again from the snapshot, hold every denoiser module
+    equal to the first engine's on the card, and run one generate with the
+    same seed on each: the outputs must be equal and launch the same
+    kernels as often."""
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    t0 = time.perf_counter()
+    eng2 = make(snap_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    names = sorted(eng._loaded_trees)
+    if sorted(eng2._loaded_trees) != names or not names:
+        raise AssertionError(f"{label}: the snapshot engine loaded {sorted(eng2._loaded_trees)}, "
+                             f"not {names}")
+    for name in names:
+        same_modules(eng._loaded_trees[name], eng2._loaded_trees[name], f"{label} {name}")
+    outs = []
+    for e in (eng, eng2):
+        cuda_backend.reset_launch_counts()
+        outs.append((e.generate(**gen_kw), _launch_counts()))
+    (a, ca), (b, cb) = outs
+    nbytes = _dir_bytes(snap_dir)
+    log(f"[engine {label}] snapshot round trip: engine that wrote it {first_s:.3f} s, engine "
+        f"from it {load_s:.3f} s, {nbytes} bytes ({', '.join(names)}); every parameter equal; "
+        f"generate outputs equal {np.array_equal(a, b)}, launches equal {ca == cb} ({ca})")
+    if not np.array_equal(a, b) or ca != cb or not isinstance(a, np.ndarray):
+        raise AssertionError(f"{label}: the engine from the snapshot generates otherwise")
+    SNAPSHOT_SUMMARY[f"engine_{label}"] = dict(write_engine_s=round(first_s, 4),
+                                               load_engine_s=round(load_s, 4), bytes=nbytes)
+    del eng2
+    torch.cuda.empty_cache()
 
 
 def _flux_step_caches(dev, params, cfg, sched, cos, sin, x, encoder, pooled, t,
@@ -2508,12 +2658,13 @@ def _rms_case(label: str, x, w, ulp_tol: float = 1.0) -> float:
         raise AssertionError(f"rmsnorm {label} disagrees with its plain version: {ulps} ulp")
     d, n = x.shape[-1], x.numel()
     ms = cuda_ms(lambda: cb.rms_norm_cuda(x, w, 1e-6), 50)
+    plain_ms = cuda_ms(lambda: tb.rms_norm_torch(x, w, 1e-6), 5, 1)
     lib_ms = cuda_ms(lambda: F.rms_norm(x, (d,), w, 1e-6), 50) if hasattr(F, "rms_norm") \
         else None
     b_ms, b_by = bound(2 * n * 2 + d * 2, 4 * n, F32_FLOPS)
     log(f"[rmsnorm] {label} {tuple(x.shape)} strides {x.stride()}: max {ulps:.2f} bf16 ulp "
         f"(tolerance 1 ulp); {ms:.4f} ms ({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, {b_by}); "
-        f"library {lib_ms} ms")
+        f"plain {plain_ms:.4f} ms, library {lib_ms} ms")
     return ms
 
 
@@ -3048,11 +3199,18 @@ def _wan5b_kernels(dev, g) -> None:
         _int8_exact(args, f"Wan5B {m}x{k} @ {k}x{n_}")  # raises on a mismatch
         g_ms = cuda_ms(lambda: cb.int8_matmul_cuda(*args), 5)
         q_ms = cuda_ms(lambda: cb.quantize_to_int8_cuda(x, symmetric=False), 5)
+        # the library yardstick: torch._int_mm (the s32 product only; M, K, N
+        # are multiples of 8 at every Wan5B shape)
+        lib_ms = cuda_ms(lambda: torch._int_mm(a, lin.w), 5)
+        g_plain = cuda_ms(lambda: tb.int8_matmul_torch(*args), 2, 1)
+        q_plain = cuda_ms(lambda: tb.quantize_to_int8_torch(x, symmetric=False), 3, 1)
         gb = bound(_gemm_bytes(m, k, n_), 2 * m * n_ * k, INT8_FP8_OPS)[0]
         qb = bound(_quantize_bytes(m, k, False), 8 * m * k, F32_FLOPS)[0]
         log(f"[int8 w8a8] Wan5B {m}x{k} @ {k}x{n_} ({count} per forward): quantize bit-exact "
             f"{same_q}, GEMM bit-exact with and without azp; GEMM {g_ms:.4f} ms (bound "
-            f"{gb:.4f}, {gb / g_ms:.1%}), quantize {q_ms:.4f} ms (bound {qb:.4f}, {qb / q_ms:.1%})")
+            f"{gb:.4f}, {gb / g_ms:.1%}; plain {g_plain:.4f} ms), library (torch._int_mm, s32 "
+            f"product only) {lib_ms:.4f} ms, quantize {q_ms:.4f} ms (bound {qb:.4f}, "
+            f"{qb / q_ms:.1%}; plain {q_plain:.4f} ms)")
         if not same_q:
             raise AssertionError(f"quantize_to_int8 disagrees with its plain version at Wan5B "
                                  f"{m}x{k}")
@@ -3991,7 +4149,10 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
     summary = {} if summary is None else summary
     here = os.path.dirname(os.path.abspath(__file__))
     cuda_backend.reset_launch_counts()
-    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
+    # the quantized snapshots, beside (not in) the checkpoint dir, whose
+    # weight files they fingerprint
+    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root, \
+            tempfile.TemporaryDirectory(dir=here, prefix=".smoke-snap-") as snaps:
         t0 = time.perf_counter()
         _write_checkpoint(root, dev)
         cn_path = os.path.join(root, "controlnet")
@@ -4006,10 +4167,18 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
                                   (3, "flux", {"use_fp8": True}),
                                   (4, "flux", {"use_int4": True, "pack_int4": True,
                                                "quant_mods": True})):
+            # the int8 and int4p engines write a quantized snapshot, and a
+            # second engine is built from it
+            snap = os.path.join(snaps, f"seed{seed}") if seed in (2, 4) else None
+
+            def make(snapshot_path, arch=arch, flags=flags):
+                return FastDMEngine(root, architecture=arch, cache_config=dict(TEACACHE),
+                                    verbose=False, snapshot_path=snapshot_path, **flags)
+
             t0 = time.perf_counter()
-            eng = FastDMEngine(root, architecture=arch, cache_config=dict(TEACACHE),
-                               verbose=False, **flags)
+            eng = make(snap)
             torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
             label = eng.cfg.quant or "bf16"
             int4p = label == "int4p"
             # int4p: quantize_weight's SVDQuant split (QR and SVD) ran on the card
@@ -4043,6 +4212,11 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
             if not (isinstance(img, np.ndarray) and img.dtype == np.uint8
                     and img.shape == (1, 1024, 1024, 3)):
                 raise AssertionError(f"generate returned {type(img)} {getattr(img, 'shape', '')}")
+            if snap is not None:
+                _engine_snapshot(f"flux {label}", make, eng, first_s, snap,
+                                 dict(prompt_embeds=embeds, pooled_prompt_embeds=pooled,
+                                      height=1024, width=1024, num_inference_steps=STEPS,
+                                      seed=seed))
             if int4p:  # one dual + one single block: 13 W4A4 linears per computed
                 # forward, and TeaCache's probe (a modulation) in every step
                 counts = _launch_counts()
@@ -4152,6 +4326,23 @@ def _engine_wan(dev, here: str) -> None:
                   num_frames=WAN_ENGINE_FRAMES, num_inference_steps=WAN_STEPS,
                   guidance_scale=WAN_CFG[0], guidance_scale_2=WAN_CFG[1], seed=9)
         shape = (1, WAN_ENGINE_FRAMES, WAN_H, WAN_W, 3)
+
+        def make(snapshot_path):
+            return FastDMEngine(root, architecture="wan2.2-t2v", use_int8=True,
+                                sparse_attn_config=radial, verbose=False, device=dev,
+                                snapshot_path=snapshot_path)
+
+        # the dual-expert int8 engine through a quantized snapshot, beside
+        # the checkpoint dir
+        with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-snap-") as snap:
+            t0 = time.perf_counter()
+            eng = make(snap)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            os.environ["FASTDM_SPARSE_GATHER"] = "super"
+            _engine_snapshot("wan int8 dual expert", make, eng, first_s, snap, kw)
+            del eng
+            torch.cuda.empty_cache()
         runs = [(mode, None) for mode in SPARSE_KERNEL] + [("super", name)
                                                            for name, _ in WAN_CACHES]
         eng, loaded = None, None
@@ -4276,11 +4467,12 @@ def _controlnet_kernels(dev, g) -> None:
         ms = cuda_ms(lambda: cb.int8_matmul_cuda(*args), 10)
         q_ms = cuda_ms(lambda: cb.quantize_to_int8_cuda(x, symmetric=False), 10)
         lib_ms = cuda_ms(lambda: torch._int_mm(a, lin.w), 10) if m % 8 == 0 else None
+        plain_ms = cuda_ms(lambda: tb.int8_matmul_torch(*args), 2, 1)
         b_ms, b_by = bound(_gemm_bytes(m, k_, n_), 2 * m * n_ * k_, INT8_FP8_OPS)
         log(f"[int8 w8a8] union ControlNet {m}x{k_} @ {k_}x{n_} ({count} per forward): quantize "
             f"and GEMM bit-exact (with and without azp); GEMM {ms:.4f} ms ({b_ms / ms:.1%} of the "
-            f"bound {b_ms:.4f} ms, {b_by}), quantize {q_ms:.4f} ms, library (torch._int_mm, "
-            f"s32 product only, M a multiple of 8) {lib_ms} ms")
+            f"bound {b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f} ms, quantize {q_ms:.4f} ms, "
+            f"library (torch._int_mm, s32 product only, M a multiple of 8) {lib_ms} ms")
         t[f"int8_matmul_{m}x{k_}x{n_}"] = ms
         del a, sa, lin, args, x
     torch.cuda.empty_cache()
@@ -4792,6 +4984,7 @@ def main() -> int:
     log(f"[img2img] image-conditioned requests (seconds, GiB): {summary}")
     log(f"[controlnet] ControlNet / IP-Adapter kernels (ms), requests and forwards (seconds, "
         f"GiB): {CN_SUMMARY}")
+    log(f"[snapshot] quantized snapshots (seconds, bytes): {SNAPSHOT_SUMMARY}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

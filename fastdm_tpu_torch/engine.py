@@ -74,7 +74,19 @@ a union checkpoint, SDXL's guess_mode=); SDXL takes an IP-Adapter checkpoint
 (ip_adapter_path, ip_adapter_scale) and then
 generate(ip_adapter_image_embeds=): the CLIP image embeddings, (B, D)
 projected for ip-adapter_sdxl or (B, S, hidden) penultimate states for
-IP-Adapter-Plus. The T5/CLIP/UMT5/Qwen text encoders, the CLIP image encoder
+IP-Adapter-Plus.
+
+snapshot_path names a quantized-snapshot directory (models/snapshot.py): when
+it holds a snapshot, the denoiser modules (transformer, Wan's transformer_2,
+SDXL's unet) are read from it onto the device, checked against the engine's
+architecture, quant and config and against the checkpoint's weight files
+(FASTDM_SNAPSHOT_ALLOW_MISMATCH=1 overrides the last check), and nothing is
+quantized; when it is empty, the freshly built modules are written there
+after init. save_quantized(dir) writes them at any time. A snapshot is
+written by the port and read only by the port; the VAE, ControlNet and
+IP-Adapter weights are not in it.
+
+The T5/CLIP/UMT5/Qwen text encoders, the CLIP image encoder
 (an ip_adapter_image), Wan2.1's CLIP image branch and the other model
 families arrive with later slices and raise NotImplementedError here.
 """
@@ -100,7 +112,10 @@ from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_encode, vae
 ARCHITECTURES = {"flux": "flux", "flux-dev": "flux", "flux-krea": "flux",
                  "flux-kontext": "flux", "sd35": "sd35", "sd3.5": "sd35", "sdxl": "sdxl",
                  "qwen-image": "qwen", "qwen-image-edit": "qwen", "wan2.2-t2v": "wan",
-                 "wan2.2-i2v": "wan", "wan2.2-ti2v": "wan", "wan": "wan"}
+                 "wan2.2-i2v": "wan", "wan2.2-ti2v": "wan", "wan": "wan", "wan2.1-t2v": "wan"}
+# JAX names whose checkpoints carry Wan2.1's CLIP image-conditioning branch
+# (image_encoder/, the cross-attention's add_k / add_v), not in the port yet
+_WAN21_IMAGE_BRANCH = ("wan-i2v", "wan2.1-i2v")
 
 # Long-video capacity thresholds (tokens) at which a Wan generate turns on
 # FFN token chunking and, for the dual expert, the split-QKV projection; kept
@@ -210,8 +225,12 @@ class FastDMEngine:
         use_int4: bool = False, pack_int4: bool = False, scheduler: Optional[str] = None,
         vae_tiling: bool = False, vae_slicing: bool = False,
         controlnet_path: Optional[str] = None, ip_adapter_path: Optional[str] = None,
-        ip_adapter_scale: float = 0.6,
+        ip_adapter_scale: float = 0.6, snapshot_path: Optional[str] = None,
     ):
+        if architecture in _WAN21_IMAGE_BRANCH:
+            raise NotImplementedError(
+                f"architecture {architecture!r} needs Wan2.1's CLIP image branch (the image "
+                "encoder and the cross-attention's add_k / add_v), not in the port yet")
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"architecture {architecture!r} is not in this slice of the port "
@@ -251,6 +270,13 @@ class FastDMEngine:
             self.cache_config = (CacheConfig.from_json(cache_config)
                                  if isinstance(cache_config, str)
                                  else CacheConfig.from_dict(cache_config))
+        # the quantized snapshot (models/snapshot.py): a snapshot at
+        # snapshot_path gives the denoiser modules straight from its files;
+        # an empty snapshot_path receives the freshly built ones after init
+        self.snapshot_path = snapshot_path
+        self._snapshot_pending: Dict[str, Any] = {}
+        self._loaded_trees: Dict[str, Any] = {}
+        self._snapshot_manifest = None
         self.sparse_attn = None
         if sparse_attn_config is not None:
             from fastdm_tpu_torch.sparse.xsparse import SparseAttn
@@ -279,6 +305,12 @@ class FastDMEngine:
             self._init_qwen()
         else:
             self._init_flux()
+        # the config a snapshot is checked against and saved with, pinned
+        # before the IP-Adapter's replace and generate's runtime tuning
+        self._manifest_cfg = self.cfg
+        if snapshot_path and self._snapshot_pending:
+            self.save_quantized(snapshot_path)
+            self._snapshot_pending = {}
         # the optional ControlNet, then the SDXL IP-Adapter (fastdm_tpu/engine.py:240-262)
         self.cn_params = self.cn_cfg = None
         if controlnet_path is not None:
@@ -298,6 +330,60 @@ class FastDMEngine:
                   f"({self.quant or 'bf16'}, device={self.device})")
 
     # ------------------------------------------------------------ loaders
+
+    def _load_tree(self, name: str, build_fn):
+        """The denoiser module `name` from the snapshot at snapshot_path when
+        there is one (checked against this engine's architecture, quant and
+        config, then against the checkpoint's weight files), else from
+        build_fn, queued for the snapshot when snapshot_path is set
+        (fastdm_tpu/engine.py:337-371)."""
+        from fastdm_tpu_torch.models import snapshot as snap
+
+        sp = self.snapshot_path
+        if sp and snap.is_snapshot(sp):
+            if self._snapshot_manifest is None:
+                manifest = snap.load_manifest(sp)
+                snap.check_compatible(manifest, architecture=self.architecture_full,
+                                      quant=self.quant, cfg=self.cfg)
+                extra = manifest.get("extra", {})
+                base, want = extra.get("model_path"), extra.get("source_files")
+                if want is not None:
+                    if (snap.source_fingerprint(self.model_path) != want
+                            and os.environ.get("FASTDM_SNAPSHOT_ALLOW_MISMATCH") != "1"):
+                        raise ValueError(
+                            f"snapshot {sp} was built from a checkpoint whose weight files "
+                            f"differ from {self.model_path!r} (built from {base!r}); delete "
+                            "the snapshot dir to rebuild it, or set "
+                            "FASTDM_SNAPSHOT_ALLOW_MISMATCH=1 if the weights are "
+                            "known-identical")
+                elif base and os.path.realpath(base) != os.path.realpath(self.model_path):
+                    print(f"snapshot {sp} was built from {base!r}; serving it for "
+                          f"model_path={self.model_path!r} — delete the snapshot dir if the "
+                          "weights differ", flush=True)
+                self._snapshot_manifest = manifest
+            tree = snap.load_tree(sp, name, self._snapshot_manifest, device=self.device)
+        else:
+            tree = build_fn()
+            if sp:
+                self._snapshot_pending[name] = tree
+        self._loaded_trees[name] = tree
+        return tree
+
+    def save_quantized(self, dir_path: str) -> None:
+        """Write the loaded, already quantized denoiser modules as a snapshot:
+        a later FastDMEngine(..., snapshot_path=dir_path) reads them without
+        parsing, fusing or quantizing the checkpoint. The snapshot is the
+        port's own; the JAX engine does not read it, nor the port JAX's."""
+        from fastdm_tpu_torch.models import snapshot as snap
+
+        trees = dict(self._loaded_trees)
+        snap.save_snapshot(dir_path, trees, architecture=self.architecture_full,
+                           quant=self.quant, cfg=self._manifest_cfg,
+                           extra={"model_path": self.model_path,
+                                  "source_files": snap.source_fingerprint(self.model_path)})
+        if self.verbose:
+            print(f"quantized snapshot written to {dir_path} ({', '.join(sorted(trees))})",
+                  flush=True)
 
     def _cfg_overrides(self, subdir: str, keys, transforms=None) -> Dict[str, Any]:
         """Model hyperparameters from the checkpoint's config.json, when present."""
@@ -321,8 +407,8 @@ class FastDMEngine:
              "pooled_projection_dim", "guidance_embeds"),
             {"axes_dims_rope": lambda v: {"axes_dims_rope": tuple(v)}})
         self.cfg = FluxConfig(quant=self.quant, quant_mods=self.quant_mods, **kw)
-        self.params = flux_load(TensorSource.from_path(
-            os.path.join(self.model_path, "transformer"), self.device), self.cfg)
+        self.params = self._load_tree("transformer", lambda: flux_load(TensorSource.from_path(
+            os.path.join(self.model_path, "transformer"), self.device), self.cfg))
         self._load_vae()
 
     def _load_vae(self) -> None:
@@ -406,8 +492,8 @@ class FastDMEngine:
         from fastdm_tpu_torch.models import sdxl
 
         self.cfg = sdxl.SDXLConfig(quant=self.quant)
-        self.params = sdxl.sdxl_load(TensorSource.from_path(
-            os.path.join(self.model_path, "unet"), self.device), self.cfg)
+        self.params = self._load_tree("unet", lambda: sdxl.sdxl_load(TensorSource.from_path(
+            os.path.join(self.model_path, "unet"), self.device), self.cfg))
         self._load_vae()
 
     def _load_controlnet(self, path: str) -> None:
@@ -456,8 +542,8 @@ class FastDMEngine:
              "caption_projection_dim", "pooled_projection_dim", "pos_embed_max_size"),
             {"dual_attention_layers": lambda v: {"num_dual_layers": len(v)}})
         self.cfg = SD3Config(quant=self.quant, **kw)
-        self.params = sd3_load(TensorSource.from_path(
-            os.path.join(self.model_path, "transformer"), self.device), self.cfg)
+        self.params = self._load_tree("transformer", lambda: sd3_load(TensorSource.from_path(
+            os.path.join(self.model_path, "transformer"), self.device), self.cfg))
         self._load_vae()
 
     def _init_qwen(self) -> None:
@@ -469,8 +555,8 @@ class FastDMEngine:
              "num_attention_heads", "joint_attention_dim"),
             {"axes_dims_rope": lambda v: {"axes_dims_rope": tuple(v)}})
         self.cfg = QwenImageConfig(quant=self.quant, quant_mods=self.quant_mods, **kw)
-        self.params = qwen_load(TensorSource.from_path(
-            os.path.join(self.model_path, "transformer"), self.device), self.cfg)
+        self.params = self._load_tree("transformer", lambda: qwen_load(TensorSource.from_path(
+            os.path.join(self.model_path, "transformer"), self.device), self.cfg))
         self._load_vae()
 
     def _init_wan(self) -> None:
@@ -488,14 +574,15 @@ class FastDMEngine:
         self.cfg = WanConfig(quant=self.quant, dense_layers=dense_layers, **kw)
         # each generate derives its config (capacity knobs, sparse tables) from this one
         self._wan_cfg = self.cfg
-        self.params = wan_load(TensorSource.from_path(
-            os.path.join(self.model_path, "transformer"), self.device), self.cfg)
+        self.params = self._load_tree("transformer", lambda: wan_load(TensorSource.from_path(
+            os.path.join(self.model_path, "transformer"), self.device), self.cfg))
         # Wan2.2-A14B: the low-noise expert, both resident (28 GB in int8
         # fits one 80 GB card; the JAX engine's host offload was for 16 GB)
         self.params_2 = None
         if os.path.isdir(os.path.join(self.model_path, "transformer_2")):
-            self.params_2 = wan_load(TensorSource.from_path(
-                os.path.join(self.model_path, "transformer_2"), self.device), self.cfg)
+            self.params_2 = self._load_tree("transformer_2", lambda: wan_load(
+                TensorSource.from_path(os.path.join(self.model_path, "transformer_2"),
+                                       self.device), self.cfg))
         index = os.path.join(self.model_path, "model_index.json")
         self.boundary_ratio = (_read_json(index).get("boundary_ratio")
                                if os.path.exists(index) else None)

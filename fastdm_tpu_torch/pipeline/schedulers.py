@@ -1,5 +1,5 @@
-"""FlowMatch-Euler, EulerDiscrete and UniPC schedulers (port of
-fastdm_tpu/pipeline/schedulers.py:31-86, :87-144 and :147-300).
+"""FlowMatch-Euler, EulerDiscrete, UniPC and DDIM schedulers (port of
+fastdm_tpu/pipeline/schedulers.py:31-86, :87-144, :147-300 and :301-331).
 
 The sigma ladders are computed on the host in numpy (float64, stored
 float32), as in the JAX package. The step index is a Python int here (the
@@ -199,3 +199,38 @@ class UniPCMultistepScheduler:
             d1_1 = (m0_prev - model_t) / (1.0 if abs(r1) < 1e-12 else r1)
             prev = prev - alpha_t * h_phi_1 * (0.5 * d1_1)
         return prev, {"m0": model_t, "m1": m0_prev, "last_sample": x}
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMScheduler:
+    """Deterministic DDIM (eta 0), epsilon prediction, scaled-linear betas,
+    diffusers' "leading" spacing with steps_offset 1 and set_alpha_to_one
+    (the final step denoises to the clean sample). The tables are the JAX
+    package's numpy computation, so they are bit-exact with it."""
+
+    timesteps: np.ndarray  # (num_steps,) int64, descending
+    alphas_cumprod: np.ndarray  # (num_train_timesteps,) float32
+    final_alpha_cumprod: float
+
+    @classmethod
+    def create(cls, num_steps: int, num_train_timesteps: int = 1000,
+               steps_offset: int = 1) -> "DDIMScheduler":
+        ac = np.cumprod(1.0 - _betas_scaled_linear(num_train_timesteps)).astype(np.float32)
+        step_ratio = num_train_timesteps // num_steps
+        ts = ((np.arange(num_steps) * step_ratio).round()[::-1]
+              + steps_offset).astype(np.int64)
+        return cls(timesteps=ts, alphas_cumprod=ac, final_alpha_cumprod=1.0)
+
+    def step(self, model_output: Tensor, timestep, prev_timestep, sample: Tensor,
+             alphas: Tensor) -> Tensor:
+        """One DDIM step in float32. timestep / prev_timestep are ints or
+        integer tensors; alphas is alphas_cumprod as a float32 tensor on the
+        sample's device. A prev_timestep < 0 takes final_alpha_cumprod."""
+        t = torch.as_tensor(timestep, device=alphas.device)
+        prev = torch.as_tensor(prev_timestep, device=alphas.device)
+        at = alphas[t]
+        at_prev = torch.where(prev >= 0, alphas[prev.clamp_min(0)],
+                              alphas.new_full((), self.final_alpha_cumprod))
+        eps = model_output.float()
+        x0 = (sample - torch.sqrt(1 - at) * eps) / torch.sqrt(at)
+        return torch.sqrt(at_prev) * x0 + torch.sqrt(1 - at_prev) * eps

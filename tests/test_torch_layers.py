@@ -341,23 +341,40 @@ def test_flux_rope_tables_equal_jax():
 # -------------------------------------------------------------- feedforward
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_feedforward_matches_jax(dtype):
-    """tanh-GELU FFN. bf16: XLA and PyTorch round the bf16 GELU differently
-    on many elements (one ulp each), so the bound is relative L2 <= 1e-2."""
+FF_CASES = [pytest.param(act, dtype, id=dtype if act == "gelu-approximate" else f"{act}-{dtype}")
+            for act in ("gelu-approximate", "gelu", "geglu", "geglu-approximate", "swiglu")
+            for dtype in ("f32", "bf16", "int8")]
+
+
+@pytest.mark.parametrize("activation,dtype", FF_CASES)
+def test_feedforward_matches_jax(activation, dtype):
+    """The five activations of the JAX FeedForward. f32: within F32. bf16:
+    XLA and PyTorch round bf16 GELU / sigmoid / SiLU differently on many
+    elements (one ulp each), so the bound is relative L2 <= 1e-2. int8: both
+    linears W8A8 (the same quantized weights on both sides) on bf16
+    activations, relative L2 <= 1e-2 (a one-ulp activation difference can
+    move an int8 step of the second linear's input). Token chunking is exact.
+    An unknown name raises ValueError, as in JAX."""
     rng = np.random.default_rng(6)
-    jp1, tp1 = _lin_pair(rng, 16, 64)
-    jp2, tp2 = _lin_pair(rng, 64, 16)
-    xj, xt = _x_pair(rng, (2, 8, 16), dtype)
-    want = _np(jff.feedforward_apply({"proj": jp1, "out": jp2}, xj, "gelu-approximate"))
-    ff = FeedForward(tp1, tp2)
-    got = _np(ff(xt, "gelu-approximate"))
+    gated = activation in ("geglu", "swiglu")
+    w1 = (rng.standard_normal((16, 128 if gated else 64)) * 0.05).astype(np.float32)
+    w2 = (rng.standard_normal((64, 16)) * 0.05).astype(np.float32)
+    b1, b2 = ((rng.standard_normal(n) * 0.02).astype(np.float32) for n in (w1.shape[1], 16))
+    quant = "int8" if dtype == "int8" else None
+    jp = {k: jql.quantize_weight(jnp.asarray(w), quant, jnp.asarray(b))
+          for k, w, b in (("proj", w1, b1), ("out", w2, b2))}
+    ff = FeedForward(*(tql.quantize_weight(torch.from_numpy(w), quant, torch.from_numpy(b))
+                       for w, b in ((w1, b1), (w2, b2))))
+    xj, xt = _x_pair(rng, (2, 8, 16), "f32" if dtype == "f32" else "bf16")
+    want = _np(jff.feedforward_apply(jp, xj, activation))
+    got = _np(ff(xt, activation))
     if dtype == "f32":
         np.testing.assert_allclose(got, want, **F32)
     else:
         assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-2
-    with pytest.raises(NotImplementedError):
-        ff(xt, "swiglu")
+    np.testing.assert_array_equal(_np(ff(xt, activation, chunk_tokens=4)), got)
+    with pytest.raises(ValueError, match="unknown activation_fn"):
+        ff(xt, "relu2")
 
 
 # ---------------------------------------------------------------- attention

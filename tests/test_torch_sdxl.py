@@ -18,7 +18,8 @@ Tolerances:
 - conv2d at stride 2: within one bf16 ulp of JAX (the same bf16 products,
   f32 sums in another order); symmetric padding differs from it by O(1).
 - The Euler ladder (sigmas, timesteps, init_noise_sigma) bit-exact;
-  scale_model_input and step in f32 within 1e-6 relative.
+  scale_model_input and step in f32 within 1e-6 relative. DDIM's timesteps
+  and alphas_cumprod bit-exact, its steps in f32 within 1e-6 + 1e-6 relative.
 - The UNet's parts on the same inputs, with the reference's SiLU computed in
   f32 and rounded once as the port's F.silu does (XLA's bf16 logistic is an
   approximation, test_xla_bf16_sigmoid_is_not_correctly_rounded): the f32
@@ -197,6 +198,30 @@ def test_euler_discrete_matches_jax(steps):
         np.testing.assert_allclose(
             _np(ts.step(torch.from_numpy(eps), i, torch.from_numpy(sample))),
             _np(js.step(jnp.asarray(eps), i, jnp.asarray(sample), sig)), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("steps", [10, 50])
+def test_ddim_matches_jax(steps):
+    """DDIM's timesteps and alphas_cumprod equal JAX's; every step of the
+    schedule (the last one on final_alpha_cumprod) in f32 within 1e-6
+    relative plus 1e-6."""
+    js, ts = jsch.DDIMScheduler.create(steps), tsch.DDIMScheduler.create(steps)
+    np.testing.assert_array_equal(ts.timesteps, js.timesteps)
+    np.testing.assert_array_equal(ts.alphas_cumprod, js.alphas_cumprod)
+    assert ts.timesteps.dtype == js.timesteps.dtype and ts.final_alpha_cumprod == 1.0
+    rng = np.random.default_rng(steps)
+    sample = rng.standard_normal((2, 4, 6, 5)).astype(np.float32)
+    eps = rng.standard_normal((2, 4, 6, 5)).astype(np.float32)
+    ja, ta = jnp.asarray(js.alphas_cumprod), torch.from_numpy(ts.alphas_cumprod)
+    for i, t in enumerate(ts.timesteps):
+        prev = int(ts.timesteps[i + 1]) if i + 1 < steps else -1
+        want = _np(js.step(jnp.asarray(eps), jnp.asarray(t), jnp.asarray(prev),
+                           jnp.asarray(sample), ja))
+        got = ts.step(torch.from_numpy(eps), int(t), torch.tensor(prev),
+                      torch.from_numpy(sample), ta)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), want, rtol=1e-6, atol=1e-6)
+        sample = want
 
 
 # ------------------------------------------------------------------ model
