@@ -62,7 +62,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      tree's random init and a fresh quantize_weight("int4p") of each of its
      W4A4 linears on the card), then a request under dicache_flux.json and
      forced FBCache / DiCache skips that must replay the cached residual. On the
-     int8 model, the image-conditioned requests: SDEdit at 1024x2048 (the
+     int8 model, a 1024x2048 request from a prompt string (the port's
+     FluxTextEncoder on CLIP-L and T5-v1.1-XXL at full width and depth in
+     f32, drawn from seeds, and tokenizers written here) against the same
+     request from its embeddings, the images equal; the image-conditioned
+     requests: SDEdit at 1024x2048 (the
      full-size AutoencoderKL encoder, strength 0.6 of 4 steps: steps 1-3, the
      first computed under TeaCache, which counts from the loop's start) with
      its decode also tiled, and FLUX-Kontext at 1024x1024 with one 1024x1024
@@ -136,7 +140,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
      two experts cut to 2 blocks, 2 steps) at 480x832x81 through the engine's
      _wan_i2v_latents. Request, forward, VAE encode / decode seconds and peak
      GiB are summed up on a line after [done].
-  4. engine: synthetic diffusers-layout checkpoints are written to a scratch
+  text: the four text encoders at full width and depth in f32 from seeds
+     (CLIP-L 12x768; CLIP-bigG 32x1280, projection 1280; T5-v1.1-XXL and
+     UMT5-XXL 24x4096, 64 heads of 64, FFN 10240, vocabularies 32128 and
+     256384), each tokenizing a CFG pair through the port's tokenizer of a
+     directory written here (CLIP's 49408-id BPE padded with <|endoftext|>
+     or "!", Unigram tokenizer.json files of 32100 and 256300 pieces with a
+     Precompiled charsmap) and encoding it at its lengths (77; T5 512 and
+     256; UMT5 512 with the mask): seconds, f32 TFLOP/s, peak GiB; no kernel
+     launches; its first two layers on the card held to the same layers on
+     the CPU within TEXT_REL_L2_TOL; then freed. A [text] line after [done]
+     sums up the encoders and the prompt-string requests.
+  4. engine: the tokenizers and the four text encoders at full width, two
+     layers each (bf16), are written once and linked into the FLUX, SD3.5,
+     SDXL and Wan checkpoints as their tokenizer*/ and text_encoder*/; the
+     bf16 FLUX, the SDXL, the SD3.5 and the Wan engine each run one generate
+     from prompt strings (prompt and negative_prompt, encoded on the card),
+     equal bit for bit to the generate from the encoder's embeddings of
+     them. Synthetic diffusers-layout checkpoints are written to a scratch
      dir — FLUX (full width, one dual and one single block, full-size VAE),
      loaded in bf16, with use_int8, with use_fp8 and with use_int4,
      pack_int4 and quant_mods (the SVDQuant split on the card); Wan2.2-A14B (two experts
@@ -281,6 +302,35 @@ PLUS_LAYERS, PLUS_LATENTS, PLUS_HIDDEN, PLUS_STATES = 4, 16, 1280, 257
 CN_SUMMARY: dict = {}
 # the quantized-snapshot numbers of phases 2 and 4, printed after [done]
 SNAPSHOT_SUMMARY: dict = {}
+# The text encoders at their published widths and depths, in f32 as the
+# reference loads them (torch_dtype=torch.float32), random weights from seeds:
+# CLIP-L (openai/clip-vit-large-patch14: FLUX.1-dev's, SD3.5's and SDXL's
+# text_encoder), CLIP-bigG (laion/CLIP-ViT-bigG-14: SDXL's and SD3.5's
+# text_encoder_2), T5-v1.1-XXL (FLUX.1-dev's text_encoder_2 at 512 tokens,
+# SD3.5's text_encoder_3 at 256) and UMT5-XXL (Wan's text_encoder at 512):
+# (name, kind, config, tokenizer, lengths). Each encodes TEXT_PROMPTS, a CFG
+# pair, at each length.
+TEXT_ENCODERS = (
+    ("clip-l", "clip", dict(hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+                            num_attention_heads=12, hidden_act="quick_gelu", eos_token_id=2,
+                            projection_dim=768), "clip-tok", (77,)),
+    ("clip-bigg", "clip", dict(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+                               num_attention_heads=20, hidden_act="gelu", eos_token_id=49407,
+                               projection_dim=1280), "clip-tok-bang", (77,)),
+    ("t5-xxl", "t5", dict(vocab_size=32128), "t5-tok", (512, 256)),
+    ("umt5-xxl", "umt5", dict(vocab_size=256384, umt5=True), "umt5-tok", (512,)),
+)
+TEXT_PROMPTS = ("a photo of an astronaut riding a horse on the moon, highly detailed, 8k, "
+                "cinematic lighting, Ｆｕｌｌ ｗｉｄｔｈ… ½ café",
+                "blurry, low quality, watermark")
+# the card's f32 two-layer encoder against the same two layers on the CPU:
+# measured 4.3e-7 to 2.7e-6 on an H100 80GB HBM3 (f32 sums in another order);
+# a wrong layer, mask or bucket gives O(1)
+TEXT_REL_L2_TOL = 1e-4
+# tokenizer sizes: CLIP's 49408 ids, T5's 32100 pieces, UMT5's 256300
+T5_PIECES, UMT5_PIECES = 32100, 256300
+# the encoders' encode seconds and peaks, printed after [done]
+TEXT_SUMMARY: dict = {}
 
 
 def log(*a):
@@ -1502,11 +1552,75 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg, summary: dict) -> dict:
                        lambda p: flux_forward(p, cfg, x, encoder, pooled, t, cos, sin, guidance))
         _flux_step_caches(dev, params, cfg, sched, cos, sin, x, encoder, pooled, t, guidance)
     if quant == "int8":
+        _flux_prompt_request(dev, params, cfg, vae, vae_cfg, run, cos, sin)
         _flux_image_requests(dev, params, cfg, vae, vae_cfg, sched, cos, sin, summary)
         _flux_controlnet_request(dev, params, cfg, vae, vae_cfg)
     del params
     torch.cuda.empty_cache()
     return mine
+
+
+def _flux_prompt_request(dev, params, cfg, vae, vae_cfg, run, cos, sin) -> None:
+    """One 1024x2048 request from a prompt string against the same request
+    from its embeddings, on FLUX.1-dev: the port's FluxTextEncoder given
+    CLIP-L and T5-v1.1-XXL at full width and depth (f32, from seeds) and the
+    tokenizers this function writes; the two images equal."""
+    import tempfile
+
+    import torch
+
+    from fastdm_tpu_torch.models.clip_text import clip_text_init_random
+    from fastdm_tpu_torch.pipeline.denoise import flux_unpack_latents
+    from fastdm_tpu_torch.pipeline.text_encoder import FluxTextEncoder
+    from fastdm_tpu_torch.pipeline.tokenizers import load_tokenizer
+    from fastdm_tpu_torch.pipeline.vae import vae_decode
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-tok-") as base:
+        paths = _write_tokenizers(base, ("clip-tok", "t5-tok"))
+        enc = FluxTextEncoder(base, TXT_TOKENS, dev)
+        enc.tokenizer, enc.tokenizer_2 = (load_tokenizer(paths[n]) for n in ("clip-tok", "t5-tok"))
+    kws = {name: kw for name, _, kw, _, _ in TEXT_ENCODERS}
+    enc.text_encoder = clip_text_init_random(510, _text_config("clip", kws["clip-l"]), False, dev)
+    enc.text_encoder_2 = _text_model("t5", _text_config("t5", kws["t5-xxl"]), 512, dev)
+    enc.loaded = True
+    latents, _, _ = _conditioning(dev, 77, cfg, FLUX_HT * FLUX_WT)
+
+    def request(encoder, pooled):
+        lat, skips = run(params, latents, encoder, pooled, cos, sin)
+        return vae_decode(vae, vae_cfg, flux_unpack_latents(lat, FLUX_HT, FLUX_WT)), skips
+
+    encoder, pooled = enc.encode(TEXT_PROMPTS[0])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # two pairs, the prompt-string request first in one and second in the other
+    prompt_s, emb_s, enc_s, imgs = [], [], [], []
+    for kind in ("prompt", "embeddings", "embeddings", "prompt"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "prompt":
+            encoder, pooled = enc.encode(TEXT_PROMPTS[0])
+            torch.cuda.synchronize()
+            enc_s.append(time.perf_counter() - t0)
+        img, skips = request(encoder, pooled)
+        torch.cuda.synchronize()
+        (prompt_s if kind == "prompt" else emb_s).append(time.perf_counter() - t0)
+        imgs.append(img)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = all(torch.equal(imgs[0], i) for i in imgs[1:])
+    log(f"[slice int8] 1024x2048 request from a prompt string (CLIP-L + T5-XXL full depth in "
+        f"f32 on the card, 512 tokens): {[round(t, 3) for t in prompt_s]} s, of it encode "
+        f"{[round(t, 4) for t in enc_s]} s; the same request from its embeddings "
+        f"{[round(t, 3) for t in emb_s]} s (order: prompt, embeddings, embeddings, prompt); "
+        f"TeaCache skipped {skips}; images equal {same}; peak {peak:.2f} GiB")
+    if not same or tuple(imgs[0].shape) != (1, 16 * FLUX_HT, 16 * FLUX_WT, 3):
+        raise AssertionError("the prompt-string request and its embeddings' request differ")
+    TEXT_SUMMARY.update({"flux_1024x2048_prompt_request_s": [round(t, 3) for t in prompt_s],
+                         "flux_1024x2048_embeddings_request_s": [round(t, 3) for t in emb_s],
+                         "flux_prompt_encode_s": [round(t, 4) for t in enc_s],
+                         "flux_prompt_request_peak_gib": round(peak, 2)})
+    del enc, imgs, img
+    torch.cuda.empty_cache()
 
 
 def same_modules(a, b, label: str) -> int:
@@ -3609,6 +3723,8 @@ def _engine_mmdit(dev, here: str, summary: dict) -> None:
         with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
             t0 = time.perf_counter()
             writer(root, dev)
+            if arch == "sd35":
+                _link_text_dirs(root, "sd35")
             size = os.path.getsize(os.path.join(root, "transformer", "model.safetensors"))
             log(f"[engine {arch}] wrote the synthetic checkpoint (transformer/ {size / 1e9:.2f} "
                 f"GB, full-size vae/) in {time.perf_counter() - t0:.1f} s")
@@ -3661,6 +3777,8 @@ def _engine_mmdit(dev, here: str, summary: dict) -> None:
                                      f"{getattr(img, 'shape', type(img))}, launches {counts} != "
                                      f"derived {want}")
             if arch == "sd35":
+                _engine_prompt(eng, "engine sd35", dict(kw, height=shape[1], width=shape[2],
+                                                        seed=11))
                 _engine_i2i(eng, "engine sd35", sd35_forward_launches(cfg), kw, 16, summary)
             else:
                 # Qwen-Image-Edit through the Wan-layout VAE, then through an
@@ -3681,6 +3799,307 @@ def _engine_mmdit(dev, here: str, summary: dict) -> None:
                 _engine_i2i(eng, "engine qwen-image-edit autoencoderkl", per, kw, 16, summary)
             del eng
             torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ text
+
+
+def _clip_vocab(seed: int):
+    """A CLIP-layout BPE of 49408 ids, drawn from a seed: the 256 byte
+    symbols, each again with </w>, 48894 merges (a lowercase piece and one
+    letter, a third of them ending a word), <|startoftext|>, <|endoftext|>."""
+    import numpy as np
+
+    from fastdm_tpu_torch.pipeline.tokenizers import bytes_to_unicode
+
+    rng = np.random.default_rng(seed)
+    chars = list(bytes_to_unicode().values())
+    vocab = chars + [c + "</w>" for c in chars]
+    seen, inner, letters = set(vocab), list("abcdefghijklmnopqrstuvwxyz"), "etaoinshrdlucmfwypvbgkqjxz"
+    merges, n_merges = [], 49408 - 2 - len(vocab)
+    while len(merges) < n_merges:
+        a = inner[int(rng.integers(len(inner)))]
+        if len(a) > 8:
+            continue
+        b = letters[min(int(rng.exponential(6.0)), 25)]
+        b = b + "</w>" if rng.random() < 0.33 else b
+        if a + b in seen:
+            continue
+        seen.add(a + b)
+        merges.append((a, b))
+        vocab.append(a + b)
+        if not b.endswith("</w>"):
+            inner.append(a + b)
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    return {t: i for i, t in enumerate(vocab)}, merges
+
+
+def _unigram_vocab(seed: int, size: int):
+    """A Unigram vocabulary of `size` pieces drawn from a seed: <pad>, </s>,
+    <unk>, ▁, the printable ASCII characters, ▁ + each word of TEXT_PROMPTS,
+    then lowercase pieces of 2-8 letters (half after ▁); scores in (-14, -2)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pieces = ["▁"] + [chr(c) for c in range(33, 127)]
+    pieces += sorted({"▁" + w for p in TEXT_PROMPTS for w in p.lower().split()})
+    seen = set(pieces)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(pieces) < size - 3:
+        for n, pre in zip(rng.integers(2, 9, 4096), rng.random(4096) < 0.5):
+            p = ("▁" if pre else "") + "".join(letters[rng.integers(0, 26, n)])
+            if p not in seen and len(pieces) < size - 3:
+                seen.add(p)
+                pieces.append(p)
+    scores = -rng.uniform(2.0, 14.0, len(pieces))
+    return [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)] + list(zip(pieces, scores.tolist()))
+
+
+# the charsmap of the synthetic T5 / UMT5 tokenizers: full-width letters, the
+# ellipsis, NBSP, a ligature (sentencepiece's nmt_nfkc maps these so)
+TEXT_CHARSMAP = dict({chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},
+                     **{chr(0xFF41 + i): chr(0x61 + i) for i in range(26)},
+                     **{"…": "...", "\u00a0": " ", "ﬁ": "fi", "\u3000": " "})
+
+
+def _write_tokenizers(base: str, names=("clip-tok", "clip-tok-bang", "t5-tok",
+                                         "umt5-tok")) -> dict:
+    """CLIP's (padded with <|endoftext|>, and with "!" as bigG's), T5's and
+    UMT5's tokenizer directories under base -> {name: path}."""
+    from fastdm_tpu_torch.pipeline.tokenizers import save_clip_tokenizer, \
+        save_unigram_tokenizer
+
+    paths = {n: os.path.join(base, n) for n in names}
+    if "clip-tok" in names or "clip-tok-bang" in names:
+        vocab, merges = _clip_vocab(600)
+        for n, pad in (("clip-tok", "<|endoftext|>"), ("clip-tok-bang", "!")):
+            if n in names:
+                save_clip_tokenizer(paths[n], vocab, merges, pad_token=pad)
+    for n, seed, size in (("t5-tok", 601, T5_PIECES), ("umt5-tok", 602, UMT5_PIECES)):
+        if n in names:
+            save_unigram_tokenizer(paths[n], _unigram_vocab(seed, size), TEXT_CHARSMAP)
+    return paths
+
+
+def _text_config(kind: str, kw: dict, layers: Optional[int] = None):
+    from fastdm_tpu_torch.models.clip_text import CLIPTextConfig
+    from fastdm_tpu_torch.models.t5 import T5Config
+
+    if kind == "clip":
+        cfg = CLIPTextConfig(**kw)
+        return cfg if layers is None else dataclasses.replace(cfg, num_hidden_layers=layers)
+    cfg = T5Config(**kw)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def _text_model(kind: str, cfg, seed: int, dev):
+    from fastdm_tpu_torch.models.clip_text import clip_text_init_random
+    from fastdm_tpu_torch.models.t5 import t5_encoder_init_random
+
+    if kind == "clip":
+        return clip_text_init_random(seed, cfg, True, dev)
+    return t5_encoder_init_random(seed, cfg, dev)
+
+
+def _text_outputs(kind: str, model, ids, mask) -> list:
+    """What the engine's encoders read: CLIP's penultimate states, pooled
+    and projected tokens; T5's states unmasked (FLUX, SD3.5); UMT5's masked
+    and zeroed past the mask (Wan)."""
+    import torch
+
+    with torch.inference_mode():
+        if kind == "clip":
+            out = model(ids)
+            return [out.penultimate, out.pooler_output, out.text_embeds]
+        if kind == "t5":
+            return [model(ids)]
+        return [model(ids, mask) * mask[..., None]]
+
+
+def _text_flops(kind: str, cfg, b: int, s: int) -> float:
+    """Multiply-adds x 2 of one encode: the projections, the FFN, q.k and p.v."""
+    if kind == "clip":
+        d, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+        per_token = 4 * d * d + 2 * d * f + 2 * s * d
+    else:
+        d, f, n = cfg.d_model, cfg.d_ff, cfg.num_layers
+        inner = cfg.num_heads * cfg.d_kv
+        per_token = 4 * d * inner + 3 * d * f + 2 * s * inner
+    return 2.0 * per_token * b * s * n
+
+
+def phase_text(dev) -> None:
+    """The four text encoders at full width and depth on the card in f32,
+    from seeds: each tokenizes TEXT_PROMPTS through the port's tokenizer of
+    a directory this phase writes, encodes the pair at each of its lengths
+    (a warm-up, then one timed encode: seconds, f32 TFLOP/s, peak GiB), its
+    outputs finite; then its first two layers (and embeddings, final norm,
+    projection) on the card are held to the same two layers on the CPU,
+    within TEXT_REL_L2_TOL; then it is freed."""
+    import tempfile
+
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.pipeline.tokenizers import load_tokenizer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-tok-") as base:
+        t0 = time.perf_counter()
+        paths = _write_tokenizers(base)
+        log(f"[text] wrote the CLIP (49408 ids), T5 ({T5_PIECES} pieces) and UMT5 "
+            f"({UMT5_PIECES}) tokenizers in {time.perf_counter() - t0:.1f} s")
+        for i, (name, kind, kw, tok_name, lengths) in enumerate(TEXT_ENCODERS):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cfg = _text_config(kind, kw)
+            t0 = time.perf_counter()
+            model = _text_model(kind, cfg, 500 + i, dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            n_params = sum(p.numel() for p in model.parameters())
+            weights = torch.cuda.memory_allocated() / 2**30
+            t0 = time.perf_counter()
+            tok = load_tokenizer(paths[tok_name])
+            load_s = time.perf_counter() - t0
+            cuda_backend.reset_launch_counts()
+            entry = {"params": n_params, "weights_gib": round(weights, 3),
+                     "init_s": round(init_s, 3), "tokenizer_load_s": round(load_s, 3)}
+            for length in lengths:
+                t0 = time.perf_counter()
+                ids, mask = tok(list(TEXT_PROMPTS), length)
+                tok_s = time.perf_counter() - t0
+                ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+                _text_outputs(kind, model, ids, mask)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                outs = _text_outputs(kind, model, ids, mask)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                tflops = _text_flops(kind, cfg, 2, length) / sec / 1e12
+                if not all(bool(torch.isfinite(o).all()) for o in outs) or \
+                        outs[0].shape[:2] != (2, length):
+                    raise AssertionError(f"{name} encoded to {[tuple(o.shape) for o in outs]} "
+                                         "or to non-finite values")
+                log(f"[text {name}] {n_params / 1e9:.3f} B params ({weights:.2f} GiB f32, "
+                    f"drawn in {init_s:.2f} s): a CFG pair at {length} tokens "
+                    f"({mask.sum(1).tolist()} real), tokenized in {tok_s * 1e3:.1f} ms, encoded "
+                    f"in {sec * 1e3:.2f} ms "
+                    f"({tflops:.1f} TFLOP/s f32), peak {peak:.2f} GiB")
+                entry[f"encode_{length}_s"] = round(sec, 5)
+                entry[f"peak_{length}_gib"] = round(peak, 3)
+            if any(_launch_counts().values()):
+                raise AssertionError(f"{name} launched a kernel: {_launch_counts()}")
+            # the first two layers, on the card and on the CPU
+            small = _text_config(kind, kw, layers=2)
+            with torch.device("meta"):
+                gpu2 = type(model)(small, True) if kind == "clip" else type(model)(small)
+                cpu2 = type(model)(small, True) if kind == "clip" else type(model)(small)
+            full = model.state_dict()
+            gpu2.load_state_dict({k: full[k] for k in gpu2.state_dict()}, assign=True)
+            cpu2.load_state_dict({k: full[k].cpu() for k in cpu2.state_dict()}, assign=True)
+            length = lengths[0]
+            ids, mask = tok(list(TEXT_PROMPTS), length)
+            ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+            t0 = time.perf_counter()
+            want = _text_outputs(kind, cpu2, ids, mask)
+            cpu_s = time.perf_counter() - t0
+            got = _text_outputs(kind, gpu2, ids.to(dev), mask.to(dev))
+            errs = [float((g.cpu() - w).norm() / w.norm()) for g, w in zip(got, want)]
+            log(f"[text {name}] 2 layers on the card vs the CPU at {length} tokens: relative L2 "
+                f"{[f'{e:.3e}' for e in errs]} (gate {TEXT_REL_L2_TOL}; CPU {cpu_s:.1f} s)")
+            if max(errs) > TEXT_REL_L2_TOL:
+                raise AssertionError(f"{name}: the card's two layers are {errs} from the CPU's")
+            entry["two_layer_rel_l2"] = [float(f"{e:.3e}") for e in errs]
+            TEXT_SUMMARY[name] = entry
+            del model, gpu2, cpu2, full, got, want, outs
+            torch.cuda.empty_cache()
+
+
+def _write_text_dirs(base: str, dev) -> dict:
+    """The tokenizers and the four encoders at full width, two layers each,
+    in bf16 (save_text_encoder), under base, for phase 4's checkpoints."""
+    import torch
+
+    from fastdm_tpu_torch.pipeline.text_encoder import save_text_encoder
+
+    paths = _write_tokenizers(base)
+    for i, (name, kind, kw, _, _) in enumerate(TEXT_ENCODERS):
+        model = _text_model(kind, _text_config(kind, kw, layers=2), 700 + i, dev)
+        paths[name] = os.path.join(base, name)
+        save_text_encoder(model, paths[name], torch.bfloat16)
+        del model
+    return paths
+
+
+# the tokenizer*/ and text_encoder*/ directories of each family, from the
+# names of _write_text_dirs (CLIP-L's directory holds its projection, which a
+# CLIPTextModel leaves unread)
+TEXT_LAYOUT = {
+    "flux": {"tokenizer": "clip-tok", "text_encoder": "clip-l", "tokenizer_2": "t5-tok",
+             "text_encoder_2": "t5-xxl"},
+    "sdxl": {"tokenizer": "clip-tok", "text_encoder": "clip-l", "tokenizer_2": "clip-tok-bang",
+             "text_encoder_2": "clip-bigg"},
+    "sd35": {"tokenizer": "clip-tok", "text_encoder": "clip-l", "tokenizer_2": "clip-tok-bang",
+             "text_encoder_2": "clip-bigg", "tokenizer_3": "t5-tok", "text_encoder_3": "t5-xxl"},
+    "wan": {"tokenizer": "umt5-tok", "text_encoder": "umt5-xxl"},
+}
+# phase 4's text directories, written once and linked into each checkpoint
+TEXT_DIRS: dict = {}
+
+
+def _link_text_dirs(root: str, family: str) -> None:
+    for sub, name in TEXT_LAYOUT[family].items():
+        os.symlink(TEXT_DIRS[name], os.path.join(root, sub))
+
+
+def _engine_prompt(eng, label: str, kw: dict) -> None:
+    """One generate from TEXT_PROMPTS as prompt and negative_prompt on the
+    engine's two-layer full-width encoders (encoded on the card, launching
+    no kernel), equal bit for bit to the generate from the encoder's own
+    embeddings of them."""
+    import numpy as np
+    import torch
+
+    kw = {k: v for k, v in kw.items() if "prompt_embeds" not in k}
+    prompt, negative = TEXT_PROMPTS
+    t0 = time.perf_counter()
+    eng.text_encoder.load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = eng.generate(prompt=prompt, negative_prompt=negative, **kw)
+    sec = time.perf_counter() - t0
+    before = _launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if eng.architecture == "wan":
+        emb = dict(prompt_embeds=eng.text_encoder.encode(prompt),
+                   negative_prompt_embeds=eng.text_encoder.encode(negative))
+    else:
+        pe, pp = eng.text_encoder.encode(prompt)
+        emb = dict(prompt_embeds=pe, pooled_prompt_embeds=pp)
+        if eng.architecture != "flux":
+            ne, npool = eng.text_encoder.encode(negative)
+            emb.update(negative_prompt_embeds=ne, negative_pooled_prompt_embeds=npool)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    if _launch_counts() != before:
+        raise AssertionError(f"{label}: the text encoders launched a kernel")
+    t0 = time.perf_counter()
+    want = eng.generate(**emb, **kw)
+    emb_s = time.perf_counter() - t0
+    same = isinstance(got, np.ndarray) and got.shape == want.shape and np.array_equal(got, want)
+    log(f"[{label}] 2-layer full-width encoders loaded in {load_s:.2f} s; generate from prompt "
+        f"strings {sec:.3f} s, from their embeddings {emb_s:.3f} s (the CFG pair encoded in "
+        f"{enc_s * 1e3:.1f} ms); {got.shape} equal: {same}; embeddings "
+        f"{tuple(emb['prompt_embeds'].shape)}")
+    if not same:
+        raise AssertionError(f"{label}: generate from prompts != generate from their embeddings")
+    TEXT_SUMMARY[f"{label} prompt generate_s"] = round(sec, 3)
+    TEXT_SUMMARY[f"{label} embeddings generate_s"] = round(emb_s, 3)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -4083,6 +4502,7 @@ def _engine_sdxl(dev, here: str, summary: dict) -> None:
     with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
         t0 = time.perf_counter()
         _write_sdxl_checkpoint(root, dev)
+        _link_text_dirs(root, "sdxl")
         cn_path, ip_path = os.path.join(root, "controlnet"), os.path.join(root, "ip-adapter")
         _write_sdxl_controlnet(cn_path, dev)
         _write_ip_adapter(ip_path, dev)
@@ -4122,6 +4542,9 @@ def _engine_sdxl(dev, here: str, summary: dict) -> None:
                 and img.shape == (1, SDXL_H, SDXL_W, 3)) or counts != want:
             raise AssertionError(f"the SDXL generate returned {getattr(img, 'shape', type(img))}, "
                                  f"launches {counts} != derived {want}")
+        _engine_prompt(eng, "engine sdxl", dict(height=SDXL_H, width=SDXL_W,
+                                                num_inference_steps=SDXL_STEPS,
+                                                guidance_scale=SDXL_CFG, seed=7))
         # SDEdit: resized to the UNet's granularity (8 pixels a latent, halved twice)
         _engine_i2i(eng, "engine sdxl", sdxl_forward_launches(cfg),
                     dict(prompt_embeds=pos, pooled_prompt_embeds=pos_pooled,
@@ -4139,6 +4562,25 @@ def _engine_sdxl(dev, here: str, summary: dict) -> None:
 def phase_engine(dev, summary: Optional[dict] = None) -> None:
     import tempfile
 
+    summary = {} if summary is None else summary
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-text-") as text_base:
+        t0 = time.perf_counter()
+        TEXT_DIRS.update(_write_text_dirs(text_base, dev))
+        log(f"[engine] wrote the tokenizers and the four text encoders (full width, 2 layers, "
+            f"bf16) in {time.perf_counter() - t0:.1f} s")
+        try:
+            _engine_flux(dev, here, summary)
+            _engine_wan(dev, here)
+            _engine_sdxl(dev, here, summary)
+            _engine_mmdit(dev, here, summary)
+        finally:
+            TEXT_DIRS.clear()
+
+
+def _engine_flux(dev, here: str, summary: dict) -> None:
+    import tempfile
+
     import numpy as np
     import torch
 
@@ -4146,8 +4588,6 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
 
     from fastdm_tpu_torch.kernels import cuda_backend
 
-    summary = {} if summary is None else summary
-    here = os.path.dirname(os.path.abspath(__file__))
     cuda_backend.reset_launch_counts()
     # the quantized snapshots, beside (not in) the checkpoint dir, whose
     # weight files they fingerprint
@@ -4155,6 +4595,7 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
             tempfile.TemporaryDirectory(dir=here, prefix=".smoke-snap-") as snaps:
         t0 = time.perf_counter()
         _write_checkpoint(root, dev)
+        _link_text_dirs(root, "flux")
         cn_path = os.path.join(root, "controlnet")
         _write_flux_controlnet(cn_path, dev)
         log(f"[engine] wrote the synthetic checkpoint and a 2-block ControlNet in "
@@ -4226,6 +4667,9 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
                     f"TeaCache probes = {n} each)")
                 if any(counts[k] != n for k in W4A4_OPS):
                     raise AssertionError(f"engine int4p: W4A4 launches {counts} != {n} each")
+            if label == "bf16":
+                _engine_prompt(eng, "engine flux bf16", dict(height=1024, width=1024,
+                                                            num_inference_steps=STEPS, seed=seed))
             if label in ("bf16", "int8"):  # SDEdit on flux, Kontext on flux-kontext
                 _engine_i2i(eng, f"engine {label} {arch}", flux_forward_launches(eng.cfg),
                             dict(prompt_embeds=embeds, pooled_prompt_embeds=pooled,
@@ -4247,9 +4691,6 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
                 summary["engine_tiled_generate_1024x2048_s"] = round(sec, 4)
             del eng
             torch.cuda.empty_cache()
-    _engine_wan(dev, here)
-    _engine_sdxl(dev, here, summary)
-    _engine_mmdit(dev, here, summary)
 
 
 def _resize_branch() -> str:
@@ -4316,6 +4757,7 @@ def _engine_wan(dev, here: str) -> None:
     with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
         t0 = time.perf_counter()
         _write_wan_checkpoint(root, dev)
+        _link_text_dirs(root, "wan")
         log(f"[engine wan] wrote the synthetic two-expert checkpoint in "
             f"{time.perf_counter() - t0:.1f} s")
         g = torch.Generator(device=dev).manual_seed(200)
@@ -4380,6 +4822,8 @@ def _engine_wan(dev, here: str) -> None:
                     sum(counts.values()) != counts[mine]:
                 raise AssertionError(f"the Wan generate in mode {mode} returned "
                                      f"{getattr(video, 'shape', type(video))}, launches {counts}")
+            if mode == "super" and cache is None:
+                _engine_prompt(eng, "engine wan", kw)
         os.environ.pop("FASTDM_SPARSE_GATHER")
         del eng
         torch.cuda.empty_cache()
@@ -4975,6 +5419,7 @@ def main() -> int:
     phase_sd35(dev)
     phase_qwen(dev, summary)
     wan5b = phase_wan5b(dev)
+    phase_text(dev)
     phase_engine(dev, summary)
     for name, r in kernels.items():
         r["launches"] = launches[name]
@@ -4985,6 +5430,7 @@ def main() -> int:
     log(f"[controlnet] ControlNet / IP-Adapter kernels (ms), requests and forwards (seconds, "
         f"GiB): {CN_SUMMARY}")
     log(f"[snapshot] quantized snapshots (seconds, bytes): {SNAPSHOT_SUMMARY}")
+    log(f"[text] text encoders (seconds, GiB) and prompt generates (seconds): {TEXT_SUMMARY}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -5,17 +5,20 @@ fastdm_tpu/engine.py).
     eng = FastDMEngine("/path/to/FLUX.1-dev", architecture="flux",
                        use_int4=True, pack_int4=True, quant_mods=True,
                        cache_config={"cache_algorithm": "teacache", ...})
+    images = eng.generate(prompt="a photo of a cat", height=1024, width=1024,
+                          num_inference_steps=25)
     images = eng.generate(prompt_embeds=..., pooled_prompt_embeds=...,
                           height=1024, width=1024, num_inference_steps=25)
 
     eng = FastDMEngine("/path/to/stable-diffusion-xl-base-1.0", architecture="sdxl",
                        use_int8=True)
-    images = eng.generate(prompt_embeds=..., pooled_prompt_embeds=...,
-                          negative_prompt_embeds=..., negative_pooled_prompt_embeds=...,
+    images = eng.generate(prompt="a photo of a cat", negative_prompt="blurry",
                           height=1024, width=2048, guidance_scale=5.0)
 
     eng = FastDMEngine("/path/to/stable-diffusion-3.5-medium", architecture="sd35",
                        use_int8=True, cache_config="teacache_sd35.json")
+    images = eng.generate(prompt=["a cat", "a dog"], num_images_per_prompt=2,
+                          height=1024, width=2048, guidance_scale=7.0)
     images = eng.generate(prompt_embeds=..., pooled_prompt_embeds=...,
                           negative_prompt_embeds=..., negative_pooled_prompt_embeds=...,
                           height=1024, width=2048, guidance_scale=7.0)
@@ -31,7 +34,7 @@ fastdm_tpu/engine.py).
     eng = FastDMEngine("/path/to/Wan2.2-T2V-A14B", architecture="wan2.2-t2v",
                        use_int8=True, sparse_attn_config="radial_attn_wan.json",
                        cache_config="fbcache_wan.json")
-    video = eng.generate(prompt_embeds=..., negative_prompt_embeds=...,
+    video = eng.generate(prompt="a fox in the snow", negative_prompt="static",
                          height=480, width=832, num_frames=81)
 
     eng = FastDMEngine("/path/to/Wan2.2-TI2V-5B", architecture="wan2.2-ti2v",
@@ -86,7 +89,19 @@ after init. save_quantized(dir) writes them at any time. A snapshot is
 written by the port and read only by the port; the VAE, ControlNet and
 IP-Adapter weights are not in it.
 
-The T5/CLIP/UMT5/Qwen text encoders, the CLIP image encoder
+Prompt strings are encoded on the engine's device by the port's own
+tokenizers and CLIP / T5 / UMT5 modules in f32 (pipeline/text_encoder.py),
+from the checkpoint's tokenizer*/ and text_encoder*/ directories, read at the
+first prompt: FLUX (and flux-kontext) CLIP-L + T5 at max_sequence_length
+(the constructor's; default 512), SD3.5 CLIP-L + bigG + T5 at 256, SDXL
+CLIP-L + bigG, Wan UMT5 at the config's text_len. generate() takes prompt,
+negative_prompt (SD3.5 and SDXL encode it, "" when None, only under CFG;
+Wan always; FLUX ignores it) and, for FLUX / SD3.5 / SDXL,
+num_images_per_prompt; embeddings passed as keywords win over the strings.
+A prompt on a checkpoint without those directories raises FileNotFoundError
+naming the missing one.
+
+The Qwen2.5-VL text encoder (Qwen-Image prompts), the CLIP image encoder
 (an ip_adapter_image), Wan2.1's CLIP image branch and the other model
 families arrive with later slices and raise NotImplementedError here.
 """
@@ -106,6 +121,8 @@ from fastdm_tpu_torch.caching.config import CacheConfig
 from fastdm_tpu_torch.device import resolve_device
 from fastdm_tpu_torch.models.loader import TensorSource, as_tensor
 from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, flow_match_shift_mu
+from fastdm_tpu_torch.pipeline.text_encoder import FluxTextEncoder, SD3TextEncoder, \
+    SDXLTextEncoder, WanTextEncoder
 from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_encode, vae_load
 
 # accepted names -> the model family (JAX's ARCH_ALIASES, the loaded subset)
@@ -226,6 +243,7 @@ class FastDMEngine:
         vae_tiling: bool = False, vae_slicing: bool = False,
         controlnet_path: Optional[str] = None, ip_adapter_path: Optional[str] = None,
         ip_adapter_scale: float = 0.6, snapshot_path: Optional[str] = None,
+        max_sequence_length: int = 512,
     ):
         if architecture in _WAN21_IMAGE_BRANCH:
             raise NotImplementedError(
@@ -263,6 +281,11 @@ class FastDMEngine:
         self.model_path = model_path
         self.device = resolve_device(device)
         self.verbose = verbose
+        # the prompt encoder of the family, read at the first prompt; the
+        # constructor's max_sequence_length is FLUX's T5 length only
+        # (fastdm_tpu/engine.py:107,626), SD3.5 keeps 256 and Wan text_len
+        self.max_sequence_length = max_sequence_length
+        self.text_encoder = None
         t0 = time.perf_counter()
 
         self.cache_config: Optional[CacheConfig] = None
@@ -410,6 +433,8 @@ class FastDMEngine:
         self.params = self._load_tree("transformer", lambda: flux_load(TensorSource.from_path(
             os.path.join(self.model_path, "transformer"), self.device), self.cfg))
         self._load_vae()
+        self.text_encoder = FluxTextEncoder(self.model_path, self.max_sequence_length,
+                                            self.device)
 
     def _load_vae(self) -> None:
         """The AutoencoderKL of vae/, VAE_CONFIGS[architecture] overridden by
@@ -495,6 +520,7 @@ class FastDMEngine:
         self.params = self._load_tree("unet", lambda: sdxl.sdxl_load(TensorSource.from_path(
             os.path.join(self.model_path, "unet"), self.device), self.cfg))
         self._load_vae()
+        self.text_encoder = SDXLTextEncoder(self.model_path, self.device)
 
     def _load_controlnet(self, path: str) -> None:
         """A FLUX ControlNet (its config.json's hyperparameters over JAX's
@@ -545,6 +571,7 @@ class FastDMEngine:
         self.params = self._load_tree("transformer", lambda: sd3_load(TensorSource.from_path(
             os.path.join(self.model_path, "transformer"), self.device), self.cfg))
         self._load_vae()
+        self.text_encoder = SD3TextEncoder(self.model_path, device=self.device)
 
     def _init_qwen(self) -> None:
         from fastdm_tpu_torch.models.qwenimage import QwenImageConfig, qwen_load
@@ -586,6 +613,7 @@ class FastDMEngine:
         index = os.path.join(self.model_path, "model_index.json")
         self.boundary_ratio = (_read_json(index).get("boundary_ratio")
                                if os.path.exists(index) else None)
+        self.text_encoder = WanTextEncoder(self.model_path, self.cfg.text_len, self.device)
         self.vae_cfg = self._wan_vae_cfg()
         # as the JAX engine: a VAE that does not load leaves generate() with
         # latent output, and says so
@@ -600,17 +628,19 @@ class FastDMEngine:
     # ------------------------------------------------------------ generate
 
     def generate(self, prompt=None, task: Optional[str] = None, **kw):
-        """FLUX text-to-image (height, width, num_inference_steps,
-        guidance_scale, seed, prompt_embeds, pooled_prompt_embeds,
-        output_type), SD3.5 and SDXL text-to-image (the same, plus
-        negative_prompt_embeds and negative_pooled_prompt_embeds for CFG),
-        Qwen-Image text-to-image (height, width, num_inference_steps,
-        guidance_scale or true_cfg_scale, seed, prompt_embeds,
-        negative_prompt_embeds for true CFG, output_type) or Wan text- and
-        image-to-video (task t2v, i2v or ti2v; image, an (H, W, 3) uint8 first
-        frame at height x width; height, width, num_frames,
+        """FLUX text-to-image (prompt, height, width, num_inference_steps,
+        guidance_scale, seed, num_images_per_prompt, or prompt_embeds and
+        pooled_prompt_embeds, output_type), SD3.5 and SDXL text-to-image (the
+        same, plus negative_prompt, or negative_prompt_embeds and
+        negative_pooled_prompt_embeds, for CFG), Qwen-Image text-to-image
+        (height, width, num_inference_steps, guidance_scale or
+        true_cfg_scale, seed, prompt_embeds, negative_prompt_embeds for true
+        CFG, output_type; prompt strings need the Qwen2.5-VL encoder, not in
+        the port yet) or Wan text- and image-to-video (task t2v, i2v or ti2v;
+        image, an (H, W, 3) uint8 first frame at height x width; prompt,
+        negative_prompt or their embeddings; height, width, num_frames,
         num_inference_steps, guidance_scale, guidance_scale_2, seed,
-        prompt_embeds, negative_prompt_embeds, output_type).
+        output_type). Given embeddings win over the strings.
 
         The image families take task "i2i" with image, an (H, W, 3) uint8
         array (a list of them for Kontext and Qwen-Image-Edit): FLUX, SD3.5
@@ -675,24 +705,27 @@ class FastDMEngine:
         return FlowMatchEulerScheduler.create(
             num_inference_steps, use_dynamic_shifting=True, mu=flow_match_shift_mu(ht * wt))
 
-    def _generate_flux(self, prompt=None, height: int = 1024, width: int = 1024,
-                       num_inference_steps: int = 25, guidance_scale: float = 3.5,
-                       seed: int = 42, prompt_embeds=None, pooled_prompt_embeds=None,
-                       output_type: str = "np", image=None, strength: float = 0.7,
-                       control_image=None, controlnet_conditioning_scale: float = 1.0,
-                       control_mode: Optional[int] = None):
+    def _generate_flux(self, prompt=None, negative_prompt=None, height: int = 1024,
+                       width: int = 1024, num_inference_steps: int = 25,
+                       guidance_scale: float = 3.5, seed: int = 42,
+                       num_images_per_prompt: int = 1, prompt_embeds=None,
+                       pooled_prompt_embeds=None, output_type: str = "np", image=None,
+                       strength: float = 0.7, control_image=None,
+                       controlnet_conditioning_scale: float = 1.0,
+                       control_mode: Optional[int] = None,
+                       max_sequence_length: Optional[int] = None):
+        """negative_prompt is accepted and unused (FLUX runs no CFG), and a
+        per-call max_sequence_length is ignored, the constructor's holding:
+        both as the JAX engine, whose FLUX generate takes the one and drops
+        the other."""
         from fastdm_tpu_torch.models.flux import flux_rope_cache
         from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents, \
             make_flux_cn_denoiser, make_flux_denoiser, make_flux_kontext_denoiser
 
-        if prompt_embeds is None or pooled_prompt_embeds is None:
-            raise NotImplementedError(
-                "the T5/CLIP text encoders are not in this slice of the port; pass "
-                "prompt_embeds and pooled_prompt_embeds")
-        del prompt
+        del negative_prompt, max_sequence_length
         self._require_controlnet(control_image)
-        encoder = self._device_tensor(prompt_embeds, torch.bfloat16)
-        pooled = self._device_tensor(pooled_prompt_embeds, torch.bfloat16)
+        encoder, pooled = self._conditioning(prompt, prompt_embeds, pooled_prompt_embeds,
+                                             num_images_per_prompt)
         b = encoder.shape[0]
         kontext = image is not None and self.architecture_full == "flux-kontext"
         if image is not None:
@@ -761,9 +794,11 @@ class FastDMEngine:
             return latents.cpu().numpy()
         return self._to_uint8(self._decode(self.vae_params, flux_unpack_latents(latents, ht, wt)))
 
-    def _generate_sdxl(self, prompt=None, height: int = 1024, width: int = 1024,
-                       num_inference_steps: int = 25, guidance_scale: float = 5.0,
-                       seed: int = 42, prompt_embeds=None, pooled_prompt_embeds=None,
+    def _generate_sdxl(self, prompt=None, negative_prompt=None, height: int = 1024,
+                       width: int = 1024, num_inference_steps: int = 25,
+                       guidance_scale: float = 5.0, seed: int = 42,
+                       num_images_per_prompt: int = 1, prompt_embeds=None,
+                       pooled_prompt_embeds=None,
                        negative_prompt_embeds=None, negative_pooled_prompt_embeds=None,
                        output_type: str = "np", control_image=None,
                        controlnet_conditioning_scale: float = 1.0, guess_mode: bool = False,
@@ -776,15 +811,16 @@ class FastDMEngine:
         if ip_adapter_image is not None:
             raise NotImplementedError(
                 "the CLIP image encoder is not in this slice of the port (ROADMAP.md section 1 "
-                "item 9); pass ip_adapter_image_embeds, the CLIP image embeddings")
+                "item 4, the CLIP vision tower); pass ip_adapter_image_embeds, the CLIP image "
+                "embeddings")
         self._require_controlnet(control_image)
         if ip_adapter_image_embeds is not None and self.ip_proj is None:
             raise ValueError("ip_adapter_image_embeds needs an engine loaded with "
                              "ip_adapter_path")
-        embeds, pooled = self._cfg_embeds(guidance_scale, prompt_embeds, pooled_prompt_embeds,
-                                          negative_prompt_embeds, negative_pooled_prompt_embeds,
-                                          "the CLIP text encoders")
-        del prompt
+        embeds, pooled = self._cfg_embeds(guidance_scale, prompt, negative_prompt,
+                                          num_images_per_prompt, prompt_embeds,
+                                          pooled_prompt_embeds, negative_prompt_embeds,
+                                          negative_pooled_prompt_embeds)
         b = embeds.shape[0] // (2 if guidance_scale > 1.0 else 1)
         # as JAX: a ControlNet run ignores image / strength and the IP tokens
         use_cn = control_image is not None
@@ -841,25 +877,40 @@ class FastDMEngine:
             tokens = self.ip_proj(self._device_tensor(image_embeds, torch.bfloat16))
         return torch.cat([torch.zeros_like(tokens), tokens]) if guidance_scale > 1.0 else tokens
 
-    def _cfg_embeds(self, guidance_scale, prompt_embeds, pooled_prompt_embeds,
-                    negative_prompt_embeds, negative_pooled_prompt_embeds, encoders: str):
+    def _conditioning(self, prompt, embeds, pooled, num_images_per_prompt: int,
+                      which: str = ""):
+        """(embeds, pooled) in bf16 on the device: the given embeddings, or
+        the prompt encoded by the family's text encoder (FLUX, SD3.5, SDXL;
+        given embeddings win, as fastdm_tpu/engine.py:899)."""
+        if embeds is not None:
+            if pooled is None:
+                raise ValueError(f"{which}prompt_embeds needs {which}pooled_prompt_embeds")
+            return (self._device_tensor(embeds, torch.bfloat16),
+                    self._device_tensor(pooled, torch.bfloat16))
+        if prompt is None:
+            raise ValueError(f"pass a {which}prompt or {which}prompt_embeds")
+        return self.text_encoder.encode(prompt, num_images_per_prompt)
+
+    def _cfg_embeds(self, guidance_scale, prompt, negative_prompt, num_images_per_prompt,
+                    prompt_embeds, pooled_prompt_embeds, negative_prompt_embeds,
+                    negative_pooled_prompt_embeds):
         """The batched-CFG conditioning of SD3.5 and SDXL: one batch of 2B,
         the negative half first (diffusers order), or the positive B alone
-        without CFG."""
-        do_cfg = guidance_scale > 1.0
-        if prompt_embeds is None or pooled_prompt_embeds is None or (do_cfg and (
-                negative_prompt_embeds is None or negative_pooled_prompt_embeds is None)):
-            raise NotImplementedError(
-                f"{encoders} are not in this slice of the port; pass prompt_embeds and "
-                "pooled_prompt_embeds (and, for CFG, negative_prompt_embeds and "
-                "negative_pooled_prompt_embeds)")
-        embeds = self._device_tensor(prompt_embeds, torch.bfloat16)
-        pooled = self._device_tensor(pooled_prompt_embeds, torch.bfloat16)
-        if do_cfg:
-            embeds = torch.cat([self._device_tensor(negative_prompt_embeds, torch.bfloat16),
-                                embeds])
-            pooled = torch.cat([self._device_tensor(negative_pooled_prompt_embeds,
-                                                    torch.bfloat16), pooled])
+        without CFG. The negative is encoded only under CFG, from
+        negative_prompt or "" (fastdm_tpu/engine.py:1048-1051,1103-1106); one
+        negative string serves every prompt of the batch."""
+        embeds, pooled = self._conditioning(prompt, prompt_embeds, pooled_prompt_embeds,
+                                            num_images_per_prompt)
+        if guidance_scale > 1.0:
+            negative = negative_prompt or ""
+            one = negative_prompt_embeds is None and isinstance(negative, str)
+            neg, neg_pooled = self._conditioning(
+                negative, negative_prompt_embeds, negative_pooled_prompt_embeds,
+                1 if one else num_images_per_prompt, "negative_")
+            if one:  # one row, serving every positive row
+                neg = neg.expand(embeds.shape[0], *neg.shape[1:])
+                neg_pooled = neg_pooled.expand(pooled.shape[0], *neg_pooled.shape[1:])
+            embeds, pooled = torch.cat([neg, embeds]), torch.cat([neg_pooled, pooled])
         return embeds, pooled
 
     def _note_skips(self, skips: int) -> None:
@@ -868,18 +919,20 @@ class FastDMEngine:
             if self.verbose:
                 print(f"cache skipped {self.last_cache_skips} transformer passes")
 
-    def _generate_sd35(self, prompt=None, height: int = 1024, width: int = 1024,
-                       num_inference_steps: int = 25, guidance_scale: float = 7.0,
-                       seed: int = 42, prompt_embeds=None, pooled_prompt_embeds=None,
+    def _generate_sd35(self, prompt=None, negative_prompt=None, height: int = 1024,
+                       width: int = 1024, num_inference_steps: int = 25,
+                       guidance_scale: float = 7.0, seed: int = 42,
+                       num_images_per_prompt: int = 1, prompt_embeds=None,
+                       pooled_prompt_embeds=None,
                        negative_prompt_embeds=None, negative_pooled_prompt_embeds=None,
                        output_type: str = "np", image=None, strength: float = 0.7):
         from fastdm_tpu_torch.models.sd35 import sd3_cropped_pos_embed
         from fastdm_tpu_torch.pipeline.denoise_sd3 import make_sd3_denoiser
 
-        embeds, pooled = self._cfg_embeds(guidance_scale, prompt_embeds, pooled_prompt_embeds,
-                                          negative_prompt_embeds, negative_pooled_prompt_embeds,
-                                          "the SD3 text encoders")
-        del prompt
+        embeds, pooled = self._cfg_embeds(guidance_scale, prompt, negative_prompt,
+                                          num_images_per_prompt, prompt_embeds,
+                                          pooled_prompt_embeds, negative_prompt_embeds,
+                                          negative_pooled_prompt_embeds)
         b = embeds.shape[0] // (2 if guidance_scale > 1.0 else 1)
         if image is not None:  # sides at 8 pixels a latent times the patch
             image = _resize_to_multiple(np.asarray(image), 8 * self.cfg.patch_size)
@@ -907,7 +960,8 @@ class FastDMEngine:
             return latents.cpu().numpy()
         return self._to_uint8(self._decode(self.vae_params, latents))
 
-    def _generate_qwen(self, prompt=None, height: int = 1024, width: int = 1024,
+    def _generate_qwen(self, prompt=None, negative_prompt=None, height: int = 1024,
+                       width: int = 1024,
                        num_inference_steps: int = 25, guidance_scale: float = 4.0,
                        true_cfg_scale: Optional[float] = None, seed: int = 42,
                        prompt_embeds=None, negative_prompt_embeds=None,
@@ -923,9 +977,10 @@ class FastDMEngine:
         scale = true_cfg_scale if true_cfg_scale is not None else guidance_scale
         if prompt_embeds is None or (scale > 1.0 and negative_prompt_embeds is None):
             raise NotImplementedError(
-                "the Qwen2.5-VL text encoder is not in this slice of the port; pass "
-                "prompt_embeds (and, for true CFG, negative_prompt_embeds)")
-        del prompt
+                "the Qwen2.5-VL text encoder is not in this slice of the port (ROADMAP.md "
+                "section 1 item 5, the Qwen2.5-VL tower); pass prompt_embeds (and, for true "
+                "CFG, negative_prompt_embeds)")
+        del prompt, negative_prompt
         pos = self._device_tensor(prompt_embeds, torch.bfloat16)
         neg = self._device_tensor(negative_prompt_embeds, torch.bfloat16) if scale > 1.0 \
             else pos
@@ -998,10 +1053,11 @@ class FastDMEngine:
         msk = msk.reshape(1, lf, 4, lh, lw).transpose(1, 2)
         return torch.cat([msk, cond], dim=1)
 
-    def _generate_wan(self, prompt=None, task: str = "t2v", height: int = 480, width: int = 832,
-                      num_frames: int = 81, num_inference_steps: int = 40,
-                      guidance_scale: float = 5.0, guidance_scale_2: Optional[float] = None,
-                      seed: int = 42, prompt_embeds=None, negative_prompt_embeds=None,
+    def _generate_wan(self, prompt=None, negative_prompt=None, task: str = "t2v",
+                      height: int = 480, width: int = 832, num_frames: int = 81,
+                      num_inference_steps: int = 40, guidance_scale: float = 5.0,
+                      guidance_scale_2: Optional[float] = None, seed: int = 42,
+                      prompt_embeds=None, negative_prompt_embeds=None,
                       output_type: str = "np", image=None):
         from fastdm_tpu_torch.models.wan import wan_rope_cos_sin
         from fastdm_tpu_torch.pipeline.denoise_wan import (
@@ -1011,13 +1067,15 @@ class FastDMEngine:
         )
         from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_decode, wan_vae_decode_chunked
 
-        if prompt_embeds is None or negative_prompt_embeds is None:
-            raise NotImplementedError(
-                "the UMT5 text encoder is not in this slice of the port; pass prompt_embeds "
-                "and negative_prompt_embeds")
-        del prompt
-        pos = self._device_tensor(prompt_embeds, torch.bfloat16)
-        neg = self._device_tensor(negative_prompt_embeds, torch.bfloat16)
+        # the negative is always encoded, "" when None (fastdm_tpu/engine.py:1336-1337);
+        # given embeddings win
+        if prompt_embeds is None and prompt is None:
+            raise ValueError("pass a prompt or prompt_embeds")
+        pos = (self._device_tensor(prompt_embeds, torch.bfloat16) if prompt_embeds is not None
+               else self.text_encoder.encode(prompt))
+        neg = (self._device_tensor(negative_prompt_embeds, torch.bfloat16)
+               if negative_prompt_embeds is not None
+               else self.text_encoder.encode(negative_prompt or ""))
         # 4k+1 frames: the VAE's temporal stride (diffusers does the same)
         num_frames = max(1, 4 * ((num_frames - 1) // 4) + 1)
         # the spatial stride is 8 * patch_size (16 for the Wan2.2-TI2V VAE)

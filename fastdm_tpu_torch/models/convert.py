@@ -245,7 +245,7 @@ def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
             a1, a2 = blk["attn1"], blk["attn2"]
             if set(a2) - {"q", "kv", "norm_q", "norm_k", "to_out"}:
                 raise NotImplementedError("the Wan2.1 I2V image-KV branch converts with the "
-                                          "image encoder (ROADMAP.md item 9)")
+                                          "image encoder (ROADMAP.md section 1 item 4)")
             norm2 = (t(blk["norm2"]["gamma"]), t(blk["norm2"]["beta"])) if "norm2" in blk else None
             blocks.append(WanBlock(
                 t(blk["scale_shift_table"]),
@@ -257,7 +257,7 @@ def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
     ce = tree["condition_embedder"]
     if "image_embedder" in ce:
         raise NotImplementedError("the Wan2.1 I2V image embedder converts with the image "
-                                  "encoder (ROADMAP.md item 9)")
+                                  "encoder (ROADMAP.md section 1 item 4)")
     return WanTransformer(
         patch_embedding=lin(tree["patch_embedding"]),
         time_embedder=TimestepEmbedding(lin(ce["time_embedder"]["linear1"]),

@@ -21,7 +21,8 @@ With cfg.per_token_timestep (Wan2.2-TI2V-5B) the timestep may be (B, S), one
 per token: the modulation becomes (B, S, 6, D) and the output shift and
 scale (B, S, D); a compact (B,) timestep broadcasts as (B, 1, D). The
 Wan2.1 I2V image branch (CLIP image tokens through image_dim / add_k) raises
-NotImplementedError: it arrives with the image encoder (ROADMAP.md item 9).
+NotImplementedError: it arrives with the CLIP vision tower (ROADMAP.md section 1
+item 4).
 """
 
 from __future__ import annotations
@@ -108,7 +109,7 @@ class WanConfig:
 def _image_branch(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not in the port yet: it arrives with the image encoder (ROADMAP.md "
-        "item 9); Wan2.2 text-to-video, TI2V and channel-concat I2V run without it")
+        "section 1 item 4); Wan2.2 text-to-video, TI2V and channel-concat I2V run without it")
 
 
 def check_wan_config(cfg: WanConfig) -> None:

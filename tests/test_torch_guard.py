@@ -1,5 +1,7 @@
 """The PyTorch/CUDA port stands alone: fastdm_tpu_torch and chip_smoke.py
-import neither JAX nor the JAX package, checked two ways — a fresh
+import neither JAX nor the JAX package, nor the text packages the GPU
+machine lacks (transformers, tokenizers, sentencepiece, regex, ftfy: the
+port tokenizes and encodes prompts itself), checked two ways — a fresh
 interpreter imports every module of the port and every module chip_smoke.py
 names (at top level or inside its functions) and then inspects sys.modules,
 and a scan of the sources finds no such import statement anywhere, including
@@ -12,7 +14,8 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "fastdm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "fastdm_tpu", "transformers", "tokenizers", "sentencepiece",
+             "regex", "ftfy")
 
 
 def _forbidden(mod: str) -> bool:

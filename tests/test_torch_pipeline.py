@@ -367,7 +367,10 @@ def test_engine_rejects_what_later_slices_bring(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError):
         FastDMEngine(root, architecture="wan2.1-i2v", device="cpu")
     eng = FastDMEngine(root, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="text encoders"):
+    # the text encoders have arrived: a prompt on a checkpoint without their
+    # directories names the missing one (tests/test_torch_text_engine.py
+    # drives prompts end to end)
+    with pytest.raises(FileNotFoundError, match="tokenizer/"):
         eng.generate(prompt="a cat")
     with pytest.raises(NotImplementedError, match="t2i, i2i are"):
         eng.generate(task="v2v", image=np.zeros((64, 64, 3), np.uint8))

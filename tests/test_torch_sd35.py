@@ -502,7 +502,9 @@ def test_engine_end_to_end(sd35_root):
                                                                      eng.vae_cfg, want)))
     with pytest.raises(NotImplementedError, match="t2i, i2i are"):
         eng.generate(task="v2v", image=np.zeros((128, 192, 3), np.uint8), **kw)
-    with pytest.raises(NotImplementedError, match="text encoders"):
+    # the text encoders have arrived: given embeddings serve the positive, and
+    # CFG's negative ("" without negative embeddings) needs tokenizer/
+    with pytest.raises(FileNotFoundError, match="tokenizer/"):
         eng.generate(prompt="a cat", prompt_embeds=kw["prompt_embeds"],
                      pooled_prompt_embeds=kw["pooled_prompt_embeds"])
 

@@ -528,6 +528,8 @@ def test_engine_rejects_what_later_slices_bring(sdxl_engine_root):
     with pytest.raises(ValueError, match="controlnet_path"):
         eng.generate(task="i2i", image=np.zeros((64, 64, 3), np.uint8),
                      control_image=np.zeros((64, 64, 3), np.uint8), **kw)
-    with pytest.raises(NotImplementedError, match="text encoders"):
+    # the text encoders have arrived: given embeddings serve the positive, and
+    # CFG's negative ("" without negative embeddings) needs tokenizer/
+    with pytest.raises(FileNotFoundError, match="tokenizer/"):
         eng.generate(prompt="a cat", prompt_embeds=kw["prompt_embeds"],
                      pooled_prompt_embeds=kw["pooled_prompt_embeds"])
