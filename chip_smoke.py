@@ -40,7 +40,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      fused k|v, at both SDXL levels), the IP-Adapter-Plus resampler (16 x
      273) and the union FLUX ControlNet's 513 + 8192 = 8705-token joint,
      rotembd and rmsnorm there, the int8 quantizer and GEMM bit-exact at
-     M = 513 and 8705.
+     M = 513 and 8705. Wan2.1-I2V-14B's image branch at batch 1 and 2: sdpa of
+     a 4095-token chunk against 257 image keys (a one-key tail tile), the
+     int8 quantizer and GEMM bit-exact at M = 257 and 514 (K = N = 5120) beside
+     torch._int_mm's time or its error, rmsnorm on (B, 257, 5120) rows.
   2. slice: FLUX.1-dev at full width (19 dual + 38 single blocks, 24x128
      heads, random weights from a seed) four times: in bf16, in int8, in
      fp8 (W8A8 block linears drawn straight into int8 / e4m3) and in int4p
@@ -105,7 +108,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      one, random IP-Adapter k|v on every cross-attention an ip-adapter_sdxl
      and an ip-adapter-plus request (launches from sdxl_controlnet_launches
      and sdxl_ip_adapter_launches); the ControlNet forward and the UNet
-     forward with its residuals and with IP tokens held to their plain ones.
+     forward with its residuals and with IP tokens held to their plain ones;
+     then both IP-Adapter requests through FastDMEngine.generate from a
+     720x1280 ip_adapter_image (ip-adapter_sdxl on the full ViT-bigG tower,
+     ip-adapter-plus on the full ViT-H tower), each equal bit for bit to the
+     request from ip_adapter_image_embeds of that tower's output.
   sd35: frees SDXL, draws SD3.5-medium int8 at full width and depth (24
      blocks, 13 dual-attention, 24x64 heads) from a seed and serves 1024x2048
      requests through make_sd3_denoiser as bench.py's main_sd35 (batched CFG
@@ -151,6 +158,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      launches; its first two layers on the card held to the same layers on
      the CPU within TEXT_REL_L2_TOL; then freed. A [text] line after [done]
      sums up the encoders and the prompt-string requests.
+  vision: the two CLIP vision towers at full width and depth in f32 from
+     seeds (ViT-H/14 32x1280, ViT-bigG/14 48x1664), each encoding a 720x1280
+     frame through the port's preprocessing: preprocessing and encode ms, f32
+     TFLOP/s, peak GiB, no kernel launches, two layers on the card held to the
+     CPU within VISION_REL_L2_TOL.
+  i2v: Wan2.1-I2V-14B-480P int8 at full width and depth on the full ViT-H
+     tower's tokens of a 480x832 frame: one 480x832x81 forward timed with
+     exact launches, bit-identical with only the int8 ops plain, held to the
+     plain forward at 17 frames; an i2v request (2 steps, CFG 5.0) through
+     make_wan_denoiser(encoder_image=...) with the i2v channels (the
+     full-size Wan VAE's encoder) and the chunked decode. An [i2v] line after
+     [done] sums up the towers, Wan2.1-I2V and the SDXL image requests.
   4. engine: the tokenizers and the four text encoders at full width, two
      layers each (bf16), are written once and linked into the FLUX, SD3.5,
      SDXL and Wan checkpoints as their tokenizer*/ and text_encoder*/; the
@@ -189,8 +208,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      full-width 2-block raw-hint ControlNet (controlnet_path) and generates
      with a control_image; the SDXL engine loads a full-size ControlNet and
      an ip-adapter_sdxl checkpoint (controlnet_path, ip_adapter_path) and
-     generates with a control_image and with ip_adapter_image_embeds. A
-     [controlnet] line sums up the ControlNet / IP-Adapter numbers.
+     generates with a control_image, with ip_adapter_image_embeds and with an
+     ip_adapter_image (a 2-layer full-width ViT-bigG image_encoder/ in the
+     checkpoint). A [controlnet] line sums up the ControlNet / IP-Adapter
+     numbers. A one-block Wan2.1-I2V checkpoint (the image branch, a 2-layer
+     ViT-H image_encoder/, the UMT5 directories) loads as wan2.1-i2v and as
+     wan-i2v, each running an i2v generate from prompt strings and a uint8
+     image, the two videos equal.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -331,6 +355,35 @@ TEXT_REL_L2_TOL = 1e-4
 T5_PIECES, UMT5_PIECES = 32100, 256300
 # the encoders' encode seconds and peaks, printed after [done]
 TEXT_SUMMARY: dict = {}
+# The CLIP vision towers at their published widths and depths, in f32 as the
+# reference loads them, random weights from seeds: (config, projection, seed).
+# ViT-H/14 (OpenCLIP, laion2B): Wan2.1-I2V's image_encoder (a CLIPVisionModel,
+# no projection) and ip-adapter-plus_sdxl_vit-h's (projection 1024); ViT-bigG/14
+# (laion/CLIP-ViT-bigG-14): ip-adapter_sdxl's (projection 1280). Each encodes
+# one 720x1280 frame through the port's preprocessing (224 px: 257 tokens).
+VISION_TOWERS = {
+    "vit-h": (dict(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+                   num_attention_heads=16, patch_size=14, image_size=224, projection_dim=1024,
+                   hidden_act="gelu"), True, 610),
+    "vit-bigg": (dict(hidden_size=1664, intermediate_size=8192, num_hidden_layers=48,
+                      num_attention_heads=16, patch_size=14, image_size=224, projection_dim=1280,
+                      hidden_act="gelu"), True, 611),
+}
+VISION_FRAME_H, VISION_FRAME_W = 720, 1280
+# the card's f32 two-layer tower against the same two layers on the CPU, as
+# the text encoders' gate (f32 sums in another order; a wrong layer is O(1))
+VISION_REL_L2_TOL = 1e-4
+# Wan2.1-I2V-14B-480P (Wan-AI/Wan2.1-I2V-14B-480P-Diffusers transformer/
+# config.json): 40 blocks, 40x128 heads, ffn 13824, in_channels 36 (16 latent
+# + 4 mask + 16 encoded), image_dim 1280 and added_kv_proj_dim 5120, text_len
+# 512; ViT-H's 257 penultimate tokens; at 480x832x81 (32760 tokens in 8
+# chunks of 4095), CFG 5.0, 40 UniPC steps cut to 2; its forward is held to
+# the plain forward at 17 frames (7800 tokens, chunks of 975): the full-size
+# plain forward takes ~80 s
+I2V21_IMAGE_DIM, I2V21_IMAGE_TOKENS, I2V21_STEPS, I2V21_CFG = 1280, 257, 2, 5.0
+I2V21_GATE_FRAMES = 17
+# the vision and Wan2.1-I2V numbers of every phase, printed after [done]
+I2V_SUMMARY: dict = {}
 
 
 def log(*a):
@@ -620,6 +673,7 @@ def phase_kernels(dev) -> dict:
     _qwen_kernels(dev)
     _wan5b_kernels(dev, torch.Generator(device=dev).manual_seed(4))
     _controlnet_kernels(dev, torch.Generator(device=dev).manual_seed(11))
+    _image_branch_kernels(dev, torch.Generator(device=dev).manual_seed(12))
     for r in results.values():
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']})")
@@ -2027,7 +2081,7 @@ WAN_FORWARD_REL_L2_TOL = 3e-2
 WAN_MODE_REL_L2_TOL = {"fine": 2.9e-2, "coarse": 2.91e-2, "mask": 2.9e-2}
 
 
-def wan_block_launches(cfg, tokens: int, attention: str) -> dict:
+def wan_block_launches(cfg, tokens: int, attention: str, image: bool = False) -> dict:
     """Kernel launches of one Wan block, read off models/wan.py: the
     self-attention's qk_norm_rope (fused QKV) or one qk_norm_rope2 per token
     chunk (split QKV); one launch of `attention` (sdpa in a dense block, else
@@ -2035,26 +2089,29 @@ def wan_block_launches(cfg, tokens: int, attention: str) -> dict:
     sdpa per token chunk; W8A8 linears: qkv (1, or q, k, v per chunk when
     split), self to_out, cross q, cross to_out and the two FFN linears once per
     token chunk each, and cross kv once (the 512 text tokens are one chunk).
-    The embedders and the output head are bf16 (no kernel)."""
+    With Wan2.1-I2V's image tokens (`image`): add_k and add_v once each (the
+    257 image tokens are one chunk), norm_added_k's rmsnorm, and one more sdpa
+    per token chunk. The embedders and the output head are bf16 (no kernel)."""
     ct = cfg.ffn_chunk_tokens
     n = tokens // ct if ct and tokens > ct and tokens % ct == 0 else 1
-    w8a8 = (3 * n if cfg.split_qkv_proj else 1) + 5 * n + 1
+    w8a8 = (3 * n if cfg.split_qkv_proj else 1) + 5 * n + 1 + (2 if image else 0)
     counts = dict.fromkeys(_launch_counts(), 0)
     counts.update(qk_norm_rope=0 if cfg.split_qkv_proj else 1,
-                  qk_norm_rope2=n if cfg.split_qkv_proj else 0, sdpa=n, rmsnorm=2,
-                  quantize_to_int8=w8a8, int8_matmul=w8a8)
+                  qk_norm_rope2=n if cfg.split_qkv_proj else 0, sdpa=n * (2 if image else 1),
+                  rmsnorm=3 if image else 2, quantize_to_int8=w8a8, int8_matmul=w8a8)
     counts[attention] += 1
     return counts
 
 
-def wan_forward_launches(cfg, tokens: int, mode=None, blocks=None) -> dict:
+def wan_forward_launches(cfg, tokens: int, mode=None, blocks=None, image: bool = False) -> dict:
     """Kernel launches of the Wan blocks `blocks` (default: every block) in one
     forward, dense (mode None) or in a sparse mode, where the blocks from
-    cfg.dense_layers on run the mode's kernel."""
+    cfg.dense_layers on run the mode's kernel; `image`: with Wan2.1-I2V's
+    image tokens."""
     total = dict.fromkeys(_launch_counts(), 0)
     for i in range(cfg.num_layers) if blocks is None else blocks:
         attention = "sdpa" if mode is None or i < cfg.dense_layers else SPARSE_KERNEL[mode][0]
-        for name, n in wan_block_launches(cfg, tokens, attention).items():
+        for name, n in wan_block_launches(cfg, tokens, attention, image).items():
             total[name] += n
     return total
 
@@ -4251,8 +4308,10 @@ def _write_wan_checkpoint(root: str, dev, cfg=None, experts: int = 2, vcfg=None,
     experts, transformer_2/ and a model_index.json with the published
     boundary_ratio) at cfg's widths and depth (bf16, the engine quantizes at
     load; extra_config joins transformer/config.json), and the full-size
-    AutoencoderKLWan of vcfg in vae/. By default Wan2.2-T2V-A14B's two experts
-    with one block each and the Wan2.1-layout VAE."""
+    AutoencoderKLWan of vcfg in vae/. With cfg.image_dim, Wan2.1-I2V's image
+    embedder and each block's add_k_proj / add_v_proj / norm_added_k, and
+    image_dim / added_kv_proj_dim in the config. By default Wan2.2-T2V-A14B's
+    two experts with one block each and the Wan2.1-layout VAE."""
     import torch
     from safetensors.torch import save_file
 
@@ -4282,6 +4341,15 @@ def _write_wan_checkpoint(root: str, dev, cfg=None, experts: int = 2, vcfg=None,
         lin(f"{ce}.text_embedder.linear_2", d, d)
         sd["scale_shift_table"] = torch.randn(1, 2, d, generator=g, device=dev).cpu() / d**0.5
         lin("proj_out", d, cfg.out_channels * 4)
+        image = {}
+        if cfg.image_dim is not None:
+            e, ie = cfg.image_dim, f"{ce}.image_embedder"
+            lin(f"{ie}.ff.net.0.proj", e, e, e**-0.5)
+            lin(f"{ie}.ff.net.2", e, d, e**-0.5)
+            for nm, width in (("norm1", e), ("norm2", d)):
+                sd[f"{ie}.{nm}.weight"], sd[f"{ie}.{nm}.bias"] = torch.ones(width), \
+                    torch.zeros(width)
+            image = {"image_dim": e, "added_kv_proj_dim": cfg.added_kv_proj_dim}
         for b in range(cfg.num_layers):
             p = f"blocks.{b}"
             sd[f"{p}.scale_shift_table"] = torch.randn(1, 6, d, generator=g,
@@ -4294,6 +4362,10 @@ def _write_wan_checkpoint(root: str, dev, cfg=None, experts: int = 2, vcfg=None,
             lin(f"{p}.ffn.net.0.proj", d, ffn)
             lin(f"{p}.ffn.net.2", ffn, d)
             sd[f"{p}.norm2.weight"], sd[f"{p}.norm2.bias"] = torch.ones(d), torch.zeros(d)
+            if cfg.added_kv_proj_dim is not None:
+                lin(f"{p}.attn2.add_k_proj", cfg.added_kv_proj_dim, d)
+                lin(f"{p}.attn2.add_v_proj", cfg.added_kv_proj_dim, d)
+                sd[f"{p}.attn2.norm_added_k.weight"] = torch.ones(d, dtype=torch.bfloat16)
         os.makedirs(os.path.join(root, sub))
         save_file(sd, os.path.join(root, sub, "model.safetensors"))
         del sd
@@ -4301,7 +4373,7 @@ def _write_wan_checkpoint(root: str, dev, cfg=None, experts: int = 2, vcfg=None,
             json.dump({"num_layers": cfg.num_layers, "num_attention_heads": cfg.num_attention_heads,
                        "attention_head_dim": cfg.attention_head_dim, "ffn_dim": ffn,
                        "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
-                       "patch_size": list(cfg.patch_size), **(extra_config or {})}, f)
+                       "patch_size": list(cfg.patch_size), **image, **(extra_config or {})}, f)
     if experts == 2:
         with open(os.path.join(root, "model_index.json"), "w") as f:
             json.dump({"boundary_ratio": WAN_BOUNDARY}, f)
@@ -4506,6 +4578,8 @@ def _engine_sdxl(dev, here: str, summary: dict) -> None:
         cn_path, ip_path = os.path.join(root, "controlnet"), os.path.join(root, "ip-adapter")
         _write_sdxl_controlnet(cn_path, dev)
         _write_ip_adapter(ip_path, dev)
+        # ip-adapter_sdxl's image encoder: ViT-bigG at full width, 2 layers
+        _write_image_encoder(os.path.join(root, "image_encoder"), "vit-bigg", dev, True)
         size = os.path.getsize(os.path.join(root, "unet", "model.safetensors"))
         cn_size = os.path.getsize(os.path.join(cn_path, "diffusion_pytorch_model.safetensors"))
         log(f"[engine sdxl] wrote the synthetic SDXL-base checkpoint (unet/ {size / 1e9:.2f} GB "
@@ -4572,6 +4646,7 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
         try:
             _engine_flux(dev, here, summary)
             _engine_wan(dev, here)
+            _engine_wan21_i2v(dev, here)
             _engine_sdxl(dev, here, summary)
             _engine_mmdit(dev, here, summary)
         finally:
@@ -4910,13 +4985,13 @@ def _controlnet_kernels(dev, g) -> None:
             raise AssertionError(f"quantize_to_int8 disagrees at the union ControlNet's M={m}")
         ms = cuda_ms(lambda: cb.int8_matmul_cuda(*args), 10)
         q_ms = cuda_ms(lambda: cb.quantize_to_int8_cuda(x, symmetric=False), 10)
-        lib_ms = cuda_ms(lambda: torch._int_mm(a, lin.w), 10) if m % 8 == 0 else None
+        lib_ms = _int_mm_ms(a, lin.w, f"M={m}")
         plain_ms = cuda_ms(lambda: tb.int8_matmul_torch(*args), 2, 1)
         b_ms, b_by = bound(_gemm_bytes(m, k_, n_), 2 * m * n_ * k_, INT8_FP8_OPS)
         log(f"[int8 w8a8] union ControlNet {m}x{k_} @ {k_}x{n_} ({count} per forward): quantize "
             f"and GEMM bit-exact (with and without azp); GEMM {ms:.4f} ms ({b_ms / ms:.1%} of the "
             f"bound {b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f} ms, quantize {q_ms:.4f} ms, "
-            f"library (torch._int_mm, s32 product only, M a multiple of 8) {lib_ms} ms")
+            f"library (torch._int_mm, s32 product only) {lib_ms} ms")
         t[f"int8_matmul_{m}x{k_}x{n_}"] = ms
         del a, sa, lin, args, x
     torch.cuda.empty_cache()
@@ -5230,11 +5305,14 @@ def _sdxl_conditioned_requests(dev, params, cfg, vae, vae_cfg) -> None:
 
     CN_SUMMARY["sdxl_ip_forward_s"] = round(_forward_gate(
         "sdxl unet with ip-adapter tokens", unet_ip, SDXL_CN_REL_L2_TOL["unet_ip"], INT8_OPS)[0], 4)
+    del ip
+    torch.cuda.empty_cache()
+    _sdxl_image_requests(dev, params, cfg, simple, plus)
     for stage in (*params.down, *params.up, params.mid):
         for t2d in stage.attns or []:
             for blk in t2d.blocks:
                 blk.attn2.ipadp_kv = None
-    del simple, plus, ip
+    del simple, plus
     torch.cuda.empty_cache()
 
 
@@ -5362,9 +5440,12 @@ def _write_ip_adapter(path: str, dev) -> None:
 
 def _engine_sdxl_conditioning(eng, kw: dict) -> None:
     """The int8 SDXL engine's ControlNet (controlnet_path) and IP-Adapter
-    (ip_adapter_path): one 1024x2048 CFG generate with a control_image and
-    one with ip_adapter_image_embeds, launches 4 x (sdxl_forward_launches +
-    sdxl_controlnet_launches / sdxl_ip_adapter_launches)."""
+    (ip_adapter_path): one 1024x2048 CFG generate with a control_image, one
+    with ip_adapter_image_embeds and one with an ip_adapter_image (the
+    checkpoint's image_encoder/, read at the first image), launches 4 x
+    (sdxl_forward_launches + sdxl_controlnet_launches /
+    sdxl_ip_adapter_launches); the image generate equals, bit for bit, the
+    generate from the image encoder's own embeddings of it."""
     import numpy as np
     import torch
 
@@ -5373,11 +5454,14 @@ def _engine_sdxl_conditioning(eng, kw: dict) -> None:
     per_u = sdxl_forward_launches(eng.cfg)
     emb = torch.randn(1, IP_EMBED, generator=torch.Generator(device=eng.device).manual_seed(16),
                       device=eng.device)
+    image = _seeded_image(503, VISION_FRAME_H, VISION_FRAME_W)
     for label, extra, per in (
             ("controlnet", dict(control_image=_seeded_image(502, SDXL_H, SDXL_W),
                                 controlnet_conditioning_scale=CN_SCALE),
              sdxl_controlnet_launches(eng.cfg)),
-            ("ip-adapter", dict(ip_adapter_image_embeds=emb), sdxl_ip_adapter_launches(eng.cfg))):
+            ("ip-adapter", dict(ip_adapter_image_embeds=emb), sdxl_ip_adapter_launches(eng.cfg)),
+            ("ip-adapter image", dict(ip_adapter_image=image),
+             sdxl_ip_adapter_launches(eng.cfg))):
         cuda_backend.reset_launch_counts()
         img, sec = _timed(eng.generate, height=SDXL_H, width=SDXL_W, **kw, **extra)
         counts = _launch_counts()
@@ -5387,7 +5471,486 @@ def _engine_sdxl_conditioning(eng, kw: dict) -> None:
         if not (isinstance(img, np.ndarray) and img.shape == (1, SDXL_H, SDXL_W, 3)
                 and img.dtype == np.uint8) or counts != want:
             raise AssertionError(f"the SDXL {label} generate: launches {counts} != {want}")
-        CN_SUMMARY[f"engine_sdxl_{label.replace('-', '_')}_s"] = round(sec, 4)
+        CN_SUMMARY[f"engine_sdxl_{label.replace('-', '_').replace(' ', '_')}_s"] = round(sec, 4)
+        if label == "ip-adapter image":
+            from_embeds = eng.generate(height=SDXL_H, width=SDXL_W, **kw,
+                                       ip_adapter_image_embeds=eng.image_encoder.encode(image))
+            same = np.array_equal(img, from_embeds)
+            log(f"[engine sdxl {label}] equal bit for bit to the generate from the 2-layer "
+                f"ViT-bigG tower's image_embeds of it: {same} (required)")
+            if not same:
+                raise AssertionError("the SDXL ip_adapter_image generate != its embeds generate")
+
+
+# ------------------------------------------- CLIP vision tower and Wan2.1-I2V
+
+
+def _int_mm_ms(a, b, label: str):
+    """torch._int_mm(a, b)'s mean ms (the s32 product alone, a yardstick the
+    port never calls), or None when it refuses the shape; the first line of
+    its error is logged."""
+    import torch
+
+    try:
+        return cuda_ms(lambda: torch._int_mm(a, b), 10)
+    except RuntimeError as e:
+        msg = str(e).strip().splitlines()[0] if str(e).strip() else type(e).__name__
+        log(f"[int8 w8a8] torch._int_mm at {label} {tuple(a.shape)} @ {tuple(b.shape)} refused: "
+            f"{msg}")
+        I2V_SUMMARY.setdefault("int_mm_errors", {})[label] = msg
+        return None
+
+
+def _image_branch_kernels(dev, g) -> None:
+    """The kernels at the shapes Wan2.1-I2V-14B's image branch gives them at
+    480x832x81 (40 heads of 128, 5120 wide, 257 image tokens, 32760 video
+    tokens in 8 chunks of 4095), at batch 1 and batch 2, each held to its
+    plain version and timed beside its bound and the library call: sdpa of a
+    4095-token chunk against the 257 image keys (two 128-key tiles and a tail
+    of one; 8 per block), and once unchunked (32760 queries); the int8
+    quantizer and GEMM at M = 257 * batch, K = N = 5120 (add_k and add_v, a
+    one-row M tail) bit-exact, with and without the zero point, beside
+    torch._int_mm's time or its error; rmsnorm (norm_added_k) on (batch,
+    257, 5120) rows within one bf16 ulp."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+
+    d, h, hd, m = WAN_DIM, WAN_HEADS, WAN_DIM // WAN_HEADS, I2V21_IMAGE_TOKENS
+    tokens = _wan_shape(WAN_FRAMES)[3]
+    chunk = tokens // 8
+    t = I2V_SUMMARY.setdefault("kernel_ms", {})
+    w = (1 + 0.05 * torch.randn(d, generator=g, device=dev)).bfloat16()
+    for b in (1, 2):
+        q = torch.randn(b, chunk, d, generator=g, device=dev, dtype=torch.bfloat16)
+        k, v = (torch.randn(b, m, d, generator=g, device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        t[f"sdpa_image_b{b}"] = _sdpa_case(
+            f"Wan2.1-I2V image keys, batch {b} ({chunk}-token chunk, 8 per block)", q, k, v, h,
+            hd, long_rows=False)
+        if b == 1:
+            qf = torch.randn(1, tokens, d, generator=g, device=dev, dtype=torch.bfloat16)
+            t["sdpa_image_unchunked"] = _sdpa_case(
+                "Wan2.1-I2V image keys, unchunked", qf, k, v, h, hd, long_rows=False)
+            del qf
+        rows = b * m
+        x = torch.randn(rows, d, generator=g, device=dev, dtype=torch.bfloat16) * 3
+        x[0] = 0  # an all-zero row: the scale floor
+        got = cb.quantize_to_int8_cuda(x, symmetric=False)
+        want = tb.quantize_to_int8_torch(x, symmetric=False)
+        if not all(torch.equal(u, v_) for u, v_ in zip(got, want)):
+            raise AssertionError(f"quantize_to_int8 disagrees at M={rows}, K={d}")
+        q_ms = cuda_ms(lambda: cb.quantize_to_int8_cuda(x, symmetric=False), 50)
+        q_plain = cuda_ms(lambda: tb.quantize_to_int8_torch(x, symmetric=False), 10)
+        qb_ms, qb_by = bound(_quantize_bytes(rows, d, False), 8 * rows * d, F32_FLOPS)
+        a, sa, lin, args = _w8a8_operands("int8", rows, d, d, g, dev)
+        _int8_exact(args, f"Wan2.1-I2V add_k/add_v {rows}x{d} @ {d}x{d}")  # raises on a mismatch
+        ms = cuda_ms(lambda: cb.int8_matmul_cuda(*args), 20)
+        plain_ms = cuda_ms(lambda: tb.int8_matmul_torch(*args), 3, 1)
+        lib_ms = _int_mm_ms(a, lin.w, f"M={rows}")
+        b_ms, b_by = bound(_gemm_bytes(rows, d, d), 2 * rows * d * d, INT8_FP8_OPS)
+        log(f"[int8 w8a8] Wan2.1-I2V add_k / add_v, batch {b}: {rows}x{d} @ {d}x{d} (2 per "
+            f"block) quantize and GEMM bit-exact (with and without azp); GEMM {ms:.4f} ms "
+            f"({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f} ms, "
+            f"library (torch._int_mm, s32 product only) {lib_ms} ms; quantize {q_ms:.4f} ms "
+            f"({qb_ms / q_ms:.1%} of the bound {qb_ms:.4f} ms, {qb_by}), plain {q_plain:.4f} ms")
+        t[f"int8_matmul_{rows}x{d}x{d}"], t[f"quantize_to_int8_{rows}x{d}"] = ms, q_ms
+        t[f"int_mm_{rows}x{d}x{d}"] = lib_ms
+        xr = torch.randn(b, m, d, generator=g, device=dev, dtype=torch.bfloat16) * 2
+        t[f"rmsnorm_image_b{b}"] = _rms_case(f"Wan2.1-I2V norm_added_k, batch {b}", xr, w)
+        del q, k, v, x, got, want, a, sa, lin, args, xr
+    torch.cuda.empty_cache()
+
+
+def _engine_shell(dev, architecture: str, **attrs):
+    """A FastDMEngine around modules drawn in memory (no checkpoint read), so
+    that generate() and the engine's own helpers (its image encoders, the
+    i2v conditioning channels) run on full-depth random models."""
+    from fastdm_tpu_torch.engine import FastDMEngine
+
+    eng = FastDMEngine.__new__(FastDMEngine)
+    vars(eng).update(architecture=architecture, architecture_full=architecture, device=dev,
+                     verbose=False, cache_config=None, cn_params=None, cn_cfg=None,
+                     text_encoder=None, _denoisers={}, last_cache_skips=0, vae_tiling=False,
+                     vae_slicing=False, ip_proj=None, image_encoder=None)
+    vars(eng).update(attrs)
+    return eng
+
+
+def _vision_config(name: str, layers: Optional[int] = None):
+    from fastdm_tpu_torch.models.clip_vision import CLIPVisionConfig
+
+    kw, _, _ = VISION_TOWERS[name]
+    return CLIPVisionConfig(**dict(kw, **({} if layers is None else
+                                          {"num_hidden_layers": layers})))
+
+
+def _vision_encoder(name: str, dev, layers: Optional[int] = None):
+    """A CLIPImageEncoder holding VISION_TOWERS[name] drawn from its seed (f32,
+    layers cut when given) and the preprocessing at its image size."""
+    from fastdm_tpu_torch.models.clip_vision import clip_vision_init_random
+    from fastdm_tpu_torch.pipeline.image_processor import CLIPImageProcessor
+    from fastdm_tpu_torch.pipeline.text_encoder import CLIPImageEncoder
+
+    _, projection, seed = VISION_TOWERS[name]
+    cfg = _vision_config(name, layers)
+    enc = CLIPImageEncoder(f"<{name} drawn from seed {seed}>", device=dev)
+    enc.model = clip_vision_init_random(seed, cfg, projection, device=dev)
+    enc.processor = CLIPImageProcessor(cfg.image_size, cfg.image_size)
+    enc.loaded = True
+    return enc
+
+
+def _vision_flops(cfg, b: int = 1) -> float:
+    """The tower's forward operations: the patch matmul, per layer q, k, v,
+    out and the MLP (2 * tokens * weights) and the attention (4 * tokens^2 *
+    width), the projection."""
+    s, d, mlp = cfg.num_positions, cfg.hidden_size, cfg.intermediate_size
+    layer = 2 * s * (4 * d * d + 2 * d * mlp) + 4 * s * s * d
+    return b * (2 * (s - 1) * d * cfg.num_channels * cfg.patch_size ** 2
+                + cfg.num_hidden_layers * layer + 2 * d * cfg.projection_dim)
+
+
+def phase_vision(dev) -> None:
+    """The two CLIP vision towers (VISION_TOWERS) at full width and depth on
+    the card in f32, from seeds: each encodes one seeded 720x1280 uint8 frame
+    through the port's preprocessing (resize, crop, normalize on the host,
+    then the (1, 3, 224, 224) batch to the card) into its penultimate
+    hidden states and its projected image_embeds (a warm-up, then timed:
+    preprocessing ms, encode ms, f32 TFLOP/s, peak GiB); no kernel launches;
+    then its first two layers (embeddings, pre_layrnorm, post_layernorm, the
+    projection) on the card are held to the same two layers on the CPU
+    within VISION_REL_L2_TOL; then it is freed."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.clip_vision import CLIPVisionModel
+
+    frame = _seeded_image(600, VISION_FRAME_H, VISION_FRAME_W)
+    for name in VISION_TOWERS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        enc, init_s = _timed(_vision_encoder, name, dev)
+        cfg, model = enc.model.cfg, enc.model
+        n_params = sum(p.numel() for p in model.parameters())
+        weights = torch.cuda.memory_allocated() / 2**30
+        cuda_backend.reset_launch_counts()
+        enc.encode(frame, hidden_states=True)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        px, pre_s = _timed(lambda: torch.from_numpy(enc.processor(frame)).to(dev))
+        with torch.inference_mode():
+            out, fwd_s = _timed(model, px)
+        hidden, enc_s = _timed(enc.encode, frame, hidden_states=True)
+        embeds, emb_s = _timed(enc.encode, frame)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tflops = _vision_flops(cfg) / fwd_s / 1e12
+        counts = _launch_counts()
+        ok = (tuple(hidden.shape) == (1, cfg.num_positions, cfg.hidden_size)
+              and tuple(embeds.shape) == (1, cfg.projection_dim)
+              and bool(torch.isfinite(hidden.float()).all())
+              and bool(torch.isfinite(embeds.float()).all()))
+        log(f"[vision {name}] {n_params / 1e9:.3f} B params ({weights:.2f} GiB f32, drawn in "
+            f"{init_s:.2f} s), {cfg.num_hidden_layers} layers of {cfg.hidden_size}, "
+            f"{cfg.num_attention_heads} heads, MLP {cfg.intermediate_size}: a "
+            f"{VISION_FRAME_H}x{VISION_FRAME_W} frame preprocessed in {pre_s * 1e3:.1f} ms, the "
+            f"tower's forward {fwd_s * 1e3:.2f} ms ({tflops:.1f} TFLOP/s f32 of "
+            f"{_vision_flops(cfg) / 1e12:.3f} TFLOP), encode to hidden states "
+            f"{tuple(hidden.shape)} {enc_s * 1e3:.2f} ms, to image_embeds "
+            f"{tuple(embeds.shape)} {emb_s * 1e3:.2f} ms; peak {peak:.2f} GiB; kernel "
+            f"launches {sum(counts.values())}")
+        if not ok or any(counts.values()):
+            raise AssertionError(f"{name}: outputs {tuple(hidden.shape)}, {tuple(embeds.shape)} "
+                                 f"(finite, as expected: {ok}), launches {counts}")
+        entry = {"params": n_params, "init_s": round(init_s, 3),
+                 "preprocess_ms": round(pre_s * 1e3, 2), "forward_ms": round(fwd_s * 1e3, 2),
+                 "encode_hidden_ms": round(enc_s * 1e3, 2), "encode_embeds_ms":
+                 round(emb_s * 1e3, 2), "tflops_f32": round(tflops, 1), "peak_gib": round(peak, 3)}
+        # the first two layers, on the card and on the CPU
+        small = _vision_config(name, 2)
+        with torch.device("meta"):
+            gpu2, cpu2 = CLIPVisionModel(small, True), CLIPVisionModel(small, True)
+        full = model.state_dict()
+        gpu2.load_state_dict({k: full[k] for k in gpu2.state_dict()}, assign=True)
+        cpu2.load_state_dict({k: full[k].cpu() for k in cpu2.state_dict()}, assign=True)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            want = cpu2(px.cpu())
+            cpu_s = time.perf_counter() - t0
+            got = gpu2(px)
+        errs = [float((g_.cpu() - w_).norm() / w_.norm()) for g_, w_ in
+                zip((got.penultimate, got.last_hidden_state, got.image_embeds),
+                    (want.penultimate, want.last_hidden_state, want.image_embeds))]
+        log(f"[vision {name}] 2 layers on the card vs the CPU: relative L2 (hidden_states[-2], "
+            f"last, image_embeds) {[f'{e:.3e}' for e in errs]} (gate {VISION_REL_L2_TOL}; CPU "
+            f"{cpu_s:.2f} s)")
+        if max(errs) > VISION_REL_L2_TOL:
+            raise AssertionError(f"{name}: the card's two layers are {errs} from the CPU's")
+        entry["two_layer_rel_l2"] = [float(f"{e:.3e}") for e in errs]
+        I2V_SUMMARY[f"vision {name}"] = entry
+        del enc, model, gpu2, cpu2, full, got, want, out, px, hidden, embeds
+        torch.cuda.empty_cache()
+
+
+def _sdxl_image_requests(dev, params, cfg, simple, plus) -> None:
+    """On the full-depth int8 SDXL-base with the random IP-Adapter k|v: an
+    ip_adapter_image request through FastDMEngine.generate for each adapter
+    (ip-adapter_sdxl with the full ViT-bigG tower's projected image_embeds,
+    ip-adapter-plus with the full ViT-H tower's penultimate states) on a
+    seeded 720x1280 frame, equal bit for bit to the same request made from
+    ip_adapter_image_embeds of that tower's output; launches 4 x
+    (sdxl_forward_launches + sdxl_ip_adapter_launches) plus the resampler's
+    sdpa, the towers launching none."""
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    per_u, per_ip = sdxl_forward_launches(cfg), sdxl_ip_adapter_launches(cfg)
+    frame = _seeded_image(601, VISION_FRAME_H, VISION_FRAME_W)
+    g = torch.Generator(device=dev).manual_seed(602)
+    pooled_dim = cfg.add_embedding_in_dim - 6 * cfg.addition_time_embed_dim
+    pos, neg = (torch.randn(1, SDXL_TEXT, cfg.cross_attention_dim, generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+    pp, npool = (torch.randn(1, pooled_dim, generator=g, device=dev, dtype=torch.bfloat16)
+                 for _ in range(2))
+    kw = dict(prompt_embeds=pos, pooled_prompt_embeds=pp, negative_prompt_embeds=neg,
+              negative_pooled_prompt_embeds=npool, height=SDXL_H, width=SDXL_W,
+              num_inference_steps=SDXL_STEPS, guidance_scale=SDXL_CFG, seed=603,
+              output_type="latent")
+    for label, proj, tower, resampler in (("ip-adapter", simple, "vit-bigg", 0),
+                                          ("ip-adapter-plus", plus, "vit-h", PLUS_LAYERS)):
+        enc, init_s = _timed(_vision_encoder, tower, dev)
+        eng = _engine_shell(dev, "sdxl", params=params, cfg=cfg, ip_proj=proj,
+                            image_encoder=enc)
+        eng.generate(ip_adapter_image=frame, **kw)  # warm
+        torch.cuda.reset_peak_memory_stats()
+        cuda_backend.reset_launch_counts()
+        got, sec = _timed(eng.generate, ip_adapter_image=frame, **kw)
+        counts = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        emb, enc_s = _timed(enc.encode, frame, hidden_states=label == "ip-adapter-plus")
+        want, emb_sec = _timed(eng.generate, ip_adapter_image_embeds=emb, **kw)
+        same = np.array_equal(got, want)
+        expect = {k: SDXL_STEPS * (per_u[k] + per_ip[k]) + (resampler if k == "sdpa" else 0)
+                  for k in per_u}
+        log(f"[sdxl {label} image] request {SDXL_H}x{SDXL_W} {SDXL_STEPS} steps, CFG "
+            f"{SDXL_CFG}, from a {VISION_FRAME_H}x{VISION_FRAME_W} ip_adapter_image through the "
+            f"full {tower} tower (drawn in {init_s:.2f} s): {sec:.3f} s, from its "
+            f"ip_adapter_image_embeds {tuple(emb.shape)} {emb_sec:.3f} s (the encode alone "
+            f"{enc_s * 1e3:.1f} ms); latents equal bit for bit: {same} (required); peak "
+            f"{peak:.2f} GiB; launches equal the derived ones: {counts == expect}")
+        if not same or counts != expect or not np.isfinite(got).all():
+            raise AssertionError(f"SDXL {label} image request: equal {same}, launches {counts} "
+                                 f"!= {expect}")
+        I2V_SUMMARY[f"sdxl {label} image request s (embeds request s, encode s)"] = (
+            round(sec, 3), round(emb_sec, 3), round(enc_s, 4))
+        del enc, eng, emb
+        torch.cuda.empty_cache()
+
+
+def phase_i2v(dev) -> None:
+    """Wan2.1-I2V-14B-480P int8 at full width and depth (40 blocks, 40x128
+    heads, in_channels 36, image_dim 1280, added_kv_proj_dim 5120), drawn
+    from a seed, conditioned on the full ViT-H tower's 257 penultimate tokens
+    of a seeded 480x832 first frame: one 480x832x81 forward (32760 tokens,
+    8 chunks of 4095, 512 text tokens) timed, with exact launches (the image
+    branch adds 2 int8 linears, 1 rmsnorm and 8 sdpa a block) and held bit
+    for bit to the forward with only the int8 ops plain; the same forward at
+    17 frames (7800 tokens, 8 chunks of 975) held to the plain forward; then
+    an i2v request through make_wan_denoiser(encoder_image=...) (UniPC shift
+    5, CFG 5.0, 2 steps) with the engine's i2v conditioning channels (the
+    full-size Wan VAE encodes the frame and 80 zero frames) and the chunked
+    decode: seconds, peak GiB, launches."""
+    import torch
+
+    from fastdm_tpu_torch.engine import wan_capacity_config
+    from fastdm_tpu_torch.kernels import cuda_backend, kernel_registry
+    from fastdm_tpu_torch.models.wan import WanConfig, wan_forward, wan_init_random, \
+        wan_rope_cos_sin
+    from fastdm_tpu_torch.pipeline.denoise_wan import make_wan_denoiser
+    from fastdm_tpu_torch.pipeline.schedulers import UniPCMultistepScheduler
+    from fastdm_tpu_torch.pipeline.wan_vae import WanVAEConfig, wan_vae_decode_chunked, \
+        wan_vae_decoder_random, wan_vae_encoder_random
+
+    lf, lh, lw, tokens = _wan_shape(WAN_FRAMES)
+    cfg = wan_capacity_config(WanConfig(quant="int8", in_channels=36, image_dim=I2V21_IMAGE_DIM,
+                                        added_kv_proj_dim=WAN_DIM), tokens, dual=False)
+    params, init_s = _timed(wan_init_random, 91, cfg, device=dev)
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[i2v] Wan2.1-I2V-14B-480P int8 random init: {n / 1e9:.3f} B params "
+        f"({nbytes / 2**30:.2f} GiB), {cfg.num_layers} blocks, in_channels {cfg.in_channels}, "
+        f"image_dim {cfg.image_dim}, added_kv_proj_dim {cfg.added_kv_proj_dim}, in {init_s:.1f} "
+        f"s; {WAN_H}x{WAN_W}x{WAN_FRAMES} = {tokens} tokens, ffn_chunk_tokens "
+        f"{cfg.ffn_chunk_tokens}")
+    enc = _vision_encoder("vit-h", dev)
+    image = _seeded_image(92, WAN_H, WAN_W)
+    img_tokens, enc_s = _timed(enc.encode, image, hidden_states=True)
+    log(f"[i2v] ViT-H image tokens {tuple(img_tokens.shape)} {img_tokens.dtype} in "
+        f"{enc_s * 1e3:.1f} ms (the first encode)")
+    if tuple(img_tokens.shape) != (1, I2V21_IMAGE_TOKENS, I2V21_IMAGE_DIM):
+        raise AssertionError(f"the ViT-H tokens are {tuple(img_tokens.shape)}")
+    g = torch.Generator(device=dev).manual_seed(93)
+    x = torch.randn(1, cfg.in_channels, lf, lh, lw, generator=g, device=dev).bfloat16()
+    pos, neg = (torch.randn(1, WAN_TEXT, cfg.text_dim, generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+    t = torch.full((1,), 937.5, device=dev)
+
+    def forward(plain_ops=(), c=cfg, frames=lf):
+        cos, sin = wan_rope_cos_sin(c, frames, lh, lw, device=dev)
+        with torch.inference_mode(), kernel_registry.plain_on_device(plain_ops):
+            return wan_forward(params, c, x[:, :, :frames], t, pos, img_tokens, rope_cos=cos,
+                               rope_sin=sin).float()
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    out_k = forward()
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    want = wan_forward_launches(cfg, tokens, image=True)
+    plain_t2v = wan_forward_launches(cfg, tokens)
+    added = {k: want[k] - plain_t2v[k] for k in want if want[k] != plain_t2v[k]}
+    log(f"[i2v] kernel launches of one forward: {({k: v for k, v in counts.items() if v})}; "
+        f"the image branch adds {added}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != want or added != {"sdpa": 320, "rmsnorm": 40, "quantize_to_int8": 80,
+                                   "int8_matmul": 80}:
+        raise AssertionError(f"Wan2.1-I2V launch counts {counts} != derived {want}")
+    _, fwd_s = _timed(forward)
+    out_w = forward(plain_ops=INT8_OPS)
+    same = torch.equal(out_k, out_w)
+    log(f"[i2v] full-depth forward at {tokens} tokens with {I2V21_IMAGE_TOKENS} image tokens: "
+        f"{fwd_s:.3f} s; with only {list(INT8_OPS)} plain: bit-identical {same} (required)")
+    if not same or not torch.isfinite(out_k).all():
+        raise AssertionError("the Wan2.1-I2V forward departs from its int8-plain forward")
+    lf17, _, _, tokens17 = _wan_shape(I2V21_GATE_FRAMES)
+    cfg17 = dataclasses.replace(cfg, ffn_chunk_tokens=tokens17 // 8)
+    out17 = forward(c=cfg17, frames=lf17)
+    out17_p, plain_s = _timed(forward, None, cfg17, lf17)
+    rel = ((out17 - out17_p).norm() / out17_p.norm()).item()
+    log(f"[i2v] full-depth forward at {I2V21_GATE_FRAMES} frames ({tokens17} tokens, chunks of "
+        f"{cfg17.ffn_chunk_tokens}): kernels vs plain versions ({plain_s:.1f} s) relative L2 "
+        f"{rel:.3e} (tolerance {WAN_FORWARD_REL_L2_TOL})")
+    if not rel <= WAN_FORWARD_REL_L2_TOL or not torch.isfinite(out17).all():
+        raise AssertionError(f"the Wan2.1-I2V kernel forward departs from the plain one: {rel}")
+    I2V_SUMMARY["wan2.1-i2v forward s"] = round(fwd_s, 3)
+    I2V_SUMMARY["wan2.1-i2v 17-frame rel L2"] = float(f"{rel:.3e}")
+    del out_k, out_w, out17, out17_p
+    torch.cuda.empty_cache()
+
+    # the request: the engine's i2v channels on a shell engine, the loop, the decode
+    vae_cfg = WanVAEConfig()
+    vae = {**wan_vae_encoder_random(94, vae_cfg, device=dev),
+           **wan_vae_decoder_random(95, vae_cfg, device=dev)}
+    eng = _engine_shell(dev, "wan", vae_params=vae, vae_cfg=vae_cfg)
+    sched = UniPCMultistepScheduler.create(I2V21_STEPS, shift=5.0)
+    run = make_wan_denoiser(cfg, sched, I2V21_STEPS, I2V21_CFG)
+    cos, sin = wan_rope_cos_sin(cfg, lf, lh, lw, device=dev)
+    latents = torch.randn(1, cfg.out_channels, lf, lh, lw, generator=g, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    img_tokens, enc_s = _timed(enc.encode, image, hidden_states=True)
+    cond, cond_s = _timed(eng._wan_i2v_latents, image, lf, lh, lw, WAN_FRAMES)
+    (lat, _), den_s = _timed(run, params, latents, pos, neg, cos, sin, None, cond, img_tokens)
+    video, dec_s = _timed(wan_vae_decode_chunked, vae, vae_cfg, lat)
+    sec = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: 2 * I2V21_STEPS * v for k, v in wan_forward_launches(cfg, tokens, image=True).items()}
+    finite = bool(torch.isfinite(video).all())
+    log(f"[i2v] request {WAN_H}x{WAN_W}x{WAN_FRAMES}, {I2V21_STEPS} steps, CFG {I2V21_CFG}: "
+        f"{sec:.3f} s (ViT-H encode {enc_s * 1e3:.1f} ms, i2v channels {cond_s:.3f} s, denoise "
+        f"{den_s:.3f} s, chunked VAE decode {dec_s:.3f} s), cond {tuple(cond.shape)}, video "
+        f"{tuple(video.shape)} finite={finite}; peak device memory {peak:.2f} GiB; launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    if not finite or tuple(video.shape) != (1, WAN_FRAMES, WAN_H, WAN_W, 3) or counts != want:
+        raise AssertionError(f"the Wan2.1-I2V request: launches {counts} != {want}")
+    I2V_SUMMARY["wan2.1-i2v request s (encode, cond, denoise, decode)"] = (
+        round(sec, 3), round(enc_s, 4), round(cond_s, 3), round(den_s, 3), round(dec_s, 3))
+    I2V_SUMMARY["wan2.1-i2v request peak GiB"] = round(peak, 2)
+    del params, enc, vae, eng, video, lat, cond
+    torch.cuda.empty_cache()
+
+
+def _write_image_encoder(path: str, name: str, dev, projection: bool, layers: int = 2) -> None:
+    """VISION_TOWERS[name] at full width, `layers` layers, bf16, as an
+    image_encoder/ directory (config.json, preprocessor_config.json)."""
+    import torch
+
+    from fastdm_tpu_torch.models.clip_vision import clip_vision_init_random, save_image_encoder
+
+    _, _, seed = VISION_TOWERS[name]
+    model = clip_vision_init_random(seed + 100, _vision_config(name, layers), projection,
+                                    device=dev)
+    save_image_encoder(model, path, torch.bfloat16)
+
+
+def _engine_wan21_i2v(dev, here: str) -> None:
+    """FastDMEngine as wan2.1-i2v and as wan-i2v on one synthetic
+    Wan2.1-I2V-14B checkpoint (full width, one block, int8 at load, the
+    image embedder and add_k / add_v, the full-size Wan2.1-layout VAE, the
+    UMT5 directories and a full-width 2-layer ViT-H image_encoder/ without
+    projection): an i2v generate from prompt strings and a uint8 480x832
+    image at 17 frames, 2 steps, CFG 5.0; launches exact, the two names'
+    videos equal."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.engine import FastDMEngine
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.wan import WanConfig
+
+    cfg = dataclasses.replace(WanConfig(), num_layers=1, in_channels=36,
+                              image_dim=I2V21_IMAGE_DIM, added_kv_proj_dim=WAN_DIM)
+    tokens = _wan_shape(WAN_ENGINE_FRAMES)[3]
+    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-ckpt-") as root:
+        t0 = time.perf_counter()
+        _write_wan_checkpoint(root, dev, cfg, experts=1, seed=96)
+        _write_image_encoder(os.path.join(root, "image_encoder"), "vit-h", dev, False)
+        _link_text_dirs(root, "wan")
+        log(f"[engine wan2.1-i2v] wrote the synthetic Wan2.1-I2V checkpoint (one block, the "
+            f"image branch, a 2-layer ViT-H image_encoder/) in {time.perf_counter() - t0:.1f} s")
+        image = _seeded_image(97, WAN_H, WAN_W)
+        prompt, negative = TEXT_PROMPTS
+        videos = {}
+        for arch in ("wan2.1-i2v", "wan-i2v"):
+            eng, load_s = _timed(FastDMEngine, root, architecture=arch, use_int8=True,
+                                 verbose=False, device=dev)
+            if not (eng.params.image_embedder is not None and eng.wan_image_encoder is not None
+                    and eng.params.blocks[0].attn2.add_k.w.dtype == torch.int8):
+                raise AssertionError(f"the {arch} engine did not load the int8 image branch")
+            eng.generate(task="i2v", image=image, prompt=prompt, negative_prompt=negative,
+                         height=WAN_H, width=WAN_W, num_frames=WAN_ENGINE_FRAMES,
+                         num_inference_steps=1, guidance_scale=I2V21_CFG, seed=98)  # warm
+            cuda_backend.reset_launch_counts()
+            video, sec = _timed(eng.generate, task="i2v", image=image, prompt=prompt,
+                                negative_prompt=negative, height=WAN_H, width=WAN_W,
+                                num_frames=WAN_ENGINE_FRAMES, num_inference_steps=I2V21_STEPS,
+                                guidance_scale=I2V21_CFG, seed=98)
+            counts = _launch_counts()
+            want = {k: 2 * I2V21_STEPS * v
+                    for k, v in wan_forward_launches(eng.cfg, tokens, image=True).items()}
+            log(f"[engine {arch}] loaded in {load_s:.1f} s; i2v generate from prompt strings "
+                f"and a {WAN_H}x{WAN_W} uint8 image, {WAN_ENGINE_FRAMES} frames, {I2V21_STEPS} "
+                f"steps: {sec:.3f} s, video {video.shape} {video.dtype}; launches "
+                f"{({k: v for k, v in counts.items() if v})}")
+            if not (isinstance(video, np.ndarray) and video.dtype == np.uint8 and video.shape ==
+                    (1, WAN_ENGINE_FRAMES, WAN_H, WAN_W, 3)) or counts != want:
+                raise AssertionError(f"the {arch} generate: launches {counts} != {want}")
+            videos[arch] = video
+            I2V_SUMMARY[f"engine {arch} generate s"] = round(sec, 3)
+            del eng
+            torch.cuda.empty_cache()
+        if not np.array_equal(*videos.values()):
+            raise AssertionError("wan2.1-i2v and wan-i2v generate different videos")
+        log("[engine wan-i2v] the wan2.1-i2v and wan-i2v videos are equal bit for bit")
+
 
 
 # ------------------------------------------------------------------- main
@@ -5420,6 +5983,8 @@ def main() -> int:
     phase_qwen(dev, summary)
     wan5b = phase_wan5b(dev)
     phase_text(dev)
+    phase_vision(dev)
+    phase_i2v(dev)
     phase_engine(dev, summary)
     for name, r in kernels.items():
         r["launches"] = launches[name]
@@ -5431,6 +5996,8 @@ def main() -> int:
         f"GiB): {CN_SUMMARY}")
     log(f"[snapshot] quantized snapshots (seconds, bytes): {SNAPSHOT_SUMMARY}")
     log(f"[text] text encoders (seconds, GiB) and prompt generates (seconds): {TEXT_SUMMARY}")
+    log(f"[i2v] CLIP vision towers, Wan2.1-I2V and the SDXL image requests (ms, seconds, GiB): "
+        f"{I2V_SUMMARY}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

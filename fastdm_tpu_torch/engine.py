@@ -1,6 +1,6 @@
 """FastDMEngine — the end-user engine of the port (the FLUX, SD3.5, SDXL and
-Qwen-Image text-to-image and the Wan2.2 text- and image-to-video subsets of
-fastdm_tpu/engine.py).
+Qwen-Image text-to-image and the Wan2.1 / Wan2.2 text- and image-to-video
+subsets of fastdm_tpu/engine.py).
 
     eng = FastDMEngine("/path/to/FLUX.1-dev", architecture="flux",
                        use_int4=True, pack_int4=True, quant_mods=True,
@@ -37,6 +37,15 @@ fastdm_tpu/engine.py).
     video = eng.generate(prompt="a fox in the snow", negative_prompt="static",
                          height=480, width=832, num_frames=81)
 
+    eng = FastDMEngine("/path/to/Wan2.1-I2V-14B-480P", architecture="wan2.1-i2v",
+                       use_int8=True)
+    video = eng.generate(task="i2v", image=first_frame_uint8_hxwx3, prompt="a fox runs",
+                         height=480, width=832, num_frames=81)
+
+    eng = FastDMEngine("/path/to/stable-diffusion-xl-base-1.0", architecture="sdxl",
+                       use_int8=True, ip_adapter_path="/path/to/IP-Adapter/sdxl_models")
+    images = eng.generate(prompt="a cat", ip_adapter_image=style_uint8_hxwx3)
+
     eng = FastDMEngine("/path/to/Wan2.2-TI2V-5B", architecture="wan2.2-ti2v",
                        use_int8=True, cache_config="fbcache_wan.json")
     video = eng.generate(task="ti2v", image=first_frame_uint8_hxwx3,
@@ -61,7 +70,12 @@ takes task "t2v", "i2v" (an image: a 4-channel frame mask and the VAE-encoded
 first frame concatenated to the latents, Wan2.2-I2V-A14B's in_channels 36)
 or, with architecture "wan2.2-ti2v", "ti2v" / "i2v" (Wan2.2-TI2V-5B: the
 encoded image pinned as the first latent frame, its tokens at timestep 0);
-its scheduler is UniPC, or FlowMatch-Euler with scheduler="euler".
+its scheduler is UniPC, or FlowMatch-Euler with scheduler="euler". A Wan
+transformer with the image embedder (Wan2.1-I2V, "wan2.1-i2v" / "wan-i2v":
+image_dim and added_kv_proj_dim in transformer/config.json) also conditions
+i2v on the CLIP vision tower of image_encoder/: the image's penultimate
+hidden states, the same for both CFG branches (one expert only: the
+dual-expert loop raises on them, as the JAX engine).
 FLUX, SD3.5 and SDXL take an input image (task "i2i", or an image with no
 task): SDEdit img2img from the AutoencoderKL-encoded image, noised to the
 step that strength sets; architecture "flux-kontext" appends the clean tokens
@@ -74,10 +88,12 @@ FLUX and SDXL take a ControlNet checkpoint directory (controlnet_path; FLUX's
 hyperparameters from its config.json) and then generate(control_image=an
 (H, W, 3) uint8 hint, controlnet_conditioning_scale=, FLUX's control_mode= for
 a union checkpoint, SDXL's guess_mode=); SDXL takes an IP-Adapter checkpoint
-(ip_adapter_path, ip_adapter_scale) and then
+(ip_adapter_path, ip_adapter_scale) and then generate(ip_adapter_image=an
+(H, W, 3) uint8 image), encoded by the CLIP vision tower of
+<model_path>/image_encoder/ (read at the first image), or
 generate(ip_adapter_image_embeds=): the CLIP image embeddings, (B, D)
 projected for ip-adapter_sdxl or (B, S, hidden) penultimate states for
-IP-Adapter-Plus.
+IP-Adapter-Plus; given embeddings win over an image.
 
 snapshot_path names a quantized-snapshot directory (models/snapshot.py): when
 it holds a snapshot, the denoiser modules (transformer, Wan's transformer_2,
@@ -99,10 +115,12 @@ negative_prompt (SD3.5 and SDXL encode it, "" when None, only under CFG;
 Wan always; FLUX ignores it) and, for FLUX / SD3.5 / SDXL,
 num_images_per_prompt; embeddings passed as keywords win over the strings.
 A prompt on a checkpoint without those directories raises FileNotFoundError
-naming the missing one.
+naming the missing one. Images for the IP-Adapters and Wan2.1-I2V go through
+the port's CLIP preprocessing (transformers' pixel_values bit for bit, with
+no PIL) and vision tower in f32 on the engine's device (CLIPImageEncoder);
+a missing image_encoder/ raises FileNotFoundError naming it.
 
-The Qwen2.5-VL text encoder (Qwen-Image prompts), the CLIP image encoder
-(an ip_adapter_image), Wan2.1's CLIP image branch and the other model
+The Qwen2.5-VL text encoder (Qwen-Image prompts) and the other model
 families arrive with later slices and raise NotImplementedError here.
 """
 
@@ -121,18 +139,16 @@ from fastdm_tpu_torch.caching.config import CacheConfig
 from fastdm_tpu_torch.device import resolve_device
 from fastdm_tpu_torch.models.loader import TensorSource, as_tensor
 from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, flow_match_shift_mu
-from fastdm_tpu_torch.pipeline.text_encoder import FluxTextEncoder, SD3TextEncoder, \
-    SDXLTextEncoder, WanTextEncoder
+from fastdm_tpu_torch.pipeline.text_encoder import CLIPImageEncoder, FluxTextEncoder, \
+    SD3TextEncoder, SDXLTextEncoder, WanTextEncoder
 from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_encode, vae_load
 
 # accepted names -> the model family (JAX's ARCH_ALIASES, the loaded subset)
 ARCHITECTURES = {"flux": "flux", "flux-dev": "flux", "flux-krea": "flux",
                  "flux-kontext": "flux", "sd35": "sd35", "sd3.5": "sd35", "sdxl": "sdxl",
                  "qwen-image": "qwen", "qwen-image-edit": "qwen", "wan2.2-t2v": "wan",
-                 "wan2.2-i2v": "wan", "wan2.2-ti2v": "wan", "wan": "wan", "wan2.1-t2v": "wan"}
-# JAX names whose checkpoints carry Wan2.1's CLIP image-conditioning branch
-# (image_encoder/, the cross-attention's add_k / add_v), not in the port yet
-_WAN21_IMAGE_BRANCH = ("wan-i2v", "wan2.1-i2v")
+                 "wan2.2-i2v": "wan", "wan2.2-ti2v": "wan", "wan": "wan", "wan2.1-t2v": "wan",
+                 "wan-i2v": "wan", "wan2.1-i2v": "wan"}
 
 # Long-video capacity thresholds (tokens) at which a Wan generate turns on
 # FFN token chunking and, for the dual expert, the split-QKV projection; kept
@@ -245,10 +261,6 @@ class FastDMEngine:
         ip_adapter_scale: float = 0.6, snapshot_path: Optional[str] = None,
         max_sequence_length: int = 512,
     ):
-        if architecture in _WAN21_IMAGE_BRANCH:
-            raise NotImplementedError(
-                f"architecture {architecture!r} needs Wan2.1's CLIP image branch (the image "
-                "encoder and the cross-attention's add_k / add_v), not in the port yet")
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"architecture {architecture!r} is not in this slice of the port "
@@ -338,13 +350,16 @@ class FastDMEngine:
         self.cn_params = self.cn_cfg = None
         if controlnet_path is not None:
             self._load_controlnet(controlnet_path)
-        self.ip_proj = None
+        self.ip_proj = self.image_encoder = None
         if ip_adapter_path is not None:
             from fastdm_tpu_torch.models.sdxl import sdxl_attach_ip_adapter
 
             self.cfg = dataclasses.replace(self.cfg, ip_adapter_scale=ip_adapter_scale)
             self.ip_proj = sdxl_attach_ip_adapter(
                 self.params, TensorSource.from_path(ip_adapter_path, self.device), self.cfg)
+            # the CLIP vision tower of an ip_adapter_image, read at the first image
+            self.image_encoder = CLIPImageEncoder(
+                os.path.join(self.model_path, "image_encoder"), self.device)
         self._denoisers: Dict[tuple, Any] = {}
         # skip count of the most recent generate() under a step cache
         self.last_cache_skips = 0
@@ -614,6 +629,13 @@ class FastDMEngine:
         self.boundary_ratio = (_read_json(index).get("boundary_ratio")
                                if os.path.exists(index) else None)
         self.text_encoder = WanTextEncoder(self.model_path, self.cfg.text_len, self.device)
+        # Wan2.1-I2V: a transformer with the image embedder conditions on the
+        # CLIP vision tower of image_encoder/ (fastdm_tpu/engine.py:745-758),
+        # read at the first image
+        self.wan_image_encoder = None
+        if self.params.image_embedder is not None:
+            self.wan_image_encoder = CLIPImageEncoder(
+                os.path.join(self.model_path, "image_encoder"), self.device)
         self.vae_cfg = self._wan_vae_cfg()
         # as the JAX engine: a VAE that does not load leaves generate() with
         # latent output, and says so
@@ -655,7 +677,10 @@ class FastDMEngine:
         With controlnet_path, FLUX and SDXL take control_image (an (H, W, 3)
         uint8 hint at the output size) and controlnet_conditioning_scale,
         FLUX also control_mode (union checkpoints), SDXL guess_mode; with
-        ip_adapter_path, SDXL takes ip_adapter_image_embeds."""
+        ip_adapter_path, SDXL takes ip_adapter_image (an (H, W, 3) uint8
+        image for the CLIP vision tower of image_encoder/) or
+        ip_adapter_image_embeds, which win. A Wan2.1-I2V checkpoint's i2v
+        conditions on the image's CLIP tokens too."""
         image = kw.get("image")
         if self.architecture == "wan":
             tasks = ("t2v", "i2v", "ti2v")
@@ -808,15 +833,11 @@ class FastDMEngine:
             make_sdxl_denoiser
         from fastdm_tpu_torch.pipeline.schedulers import EulerDiscreteScheduler
 
-        if ip_adapter_image is not None:
-            raise NotImplementedError(
-                "the CLIP image encoder is not in this slice of the port (ROADMAP.md section 1 "
-                "item 4, the CLIP vision tower); pass ip_adapter_image_embeds, the CLIP image "
-                "embeddings")
         self._require_controlnet(control_image)
-        if ip_adapter_image_embeds is not None and self.ip_proj is None:
-            raise ValueError("ip_adapter_image_embeds needs an engine loaded with "
-                             "ip_adapter_path")
+        for name, value in (("ip_adapter_image", ip_adapter_image),
+                            ("ip_adapter_image_embeds", ip_adapter_image_embeds)):
+            if value is not None and self.ip_proj is None:
+                raise ValueError(f"{name} needs an engine loaded with ip_adapter_path")
         embeds, pooled = self._cfg_embeds(guidance_scale, prompt, negative_prompt,
                                           num_images_per_prompt, prompt_embeds,
                                           pooled_prompt_embeds, negative_prompt_embeds,
@@ -857,6 +878,9 @@ class FastDMEngine:
             latents, _ = run(self.params, self.cn_params, latents, embeds, pooled, time_ids,
                              hint[None].expand(b, -1, -1, -1))
         else:
+            if ip_adapter_image_embeds is None and ip_adapter_image is not None:
+                ip_adapter_image_embeds = self._ip_image_embeds(ip_adapter_image,
+                                                                num_images_per_prompt)
             latents, _ = run(self.params, latents, embeds, pooled, time_ids,
                              self._ip_tokens(ip_adapter_image_embeds, guidance_scale))
         if output_type == "latent":
@@ -867,6 +891,16 @@ class FastDMEngine:
         """A control_image needs a loaded ControlNet (JAX silently ignores it)."""
         if control_image is not None and self.cn_params is None:
             raise ValueError("control_image needs an engine loaded with controlnet_path")
+
+    def _ip_image_embeds(self, image, num_images_per_prompt: int) -> torch.Tensor:
+        """The CLIP image embeddings of an ip_adapter_image, as the JAX engine
+        routes them (fastdm_tpu/engine.py:1164-1193): IP-Adapter-Plus takes
+        the penultimate hidden states, the base adapter the projected
+        image_embeds."""
+        from fastdm_tpu_torch.layers.ip_adapter import IPAdapterPlusProjection
+
+        plus = isinstance(self.ip_proj, IPAdapterPlusProjection)
+        return self.image_encoder.encode(image, num_images_per_prompt, hidden_states=plus)
 
     def _ip_tokens(self, image_embeds, guidance_scale: float) -> Optional[torch.Tensor]:
         """The IP-Adapter context tokens of the CLIP image embeddings (zeros
@@ -1107,8 +1141,13 @@ class FastDMEngine:
             self.last_phase_steps = (num_inference_steps,)
             latents, skips = run(self.params, latents, cond, pos, neg, cos, sin, sparse_mask)
         else:
-            cond = (self._wan_i2v_latents(image, lf, lh, lw, num_frames)
-                    if task == "i2v" and image is not None else None)
+            cond = image_tokens = None
+            if task == "i2v" and image is not None:
+                cond = self._wan_i2v_latents(image, lf, lh, lw, num_frames)
+                if self.wan_image_encoder is not None:
+                    # Wan2.1-I2V: the CLIP penultimate tokens, the same for both
+                    # CFG branches (fastdm_tpu/engine.py:1536-1545)
+                    image_tokens = self.wan_image_encoder.encode(image, hidden_states=True)
             if self.params_2 is not None:
                 boundary = self.boundary_ratio if self.boundary_ratio is not None else 0.875
                 run = make_wan_dual_phase_denoiser(self.cfg, sched, num_inference_steps,
@@ -1120,7 +1159,8 @@ class FastDMEngine:
                                                self.cache_config, guidance_scale, dense_steps)
                 experts = (self.params,)
             self.last_phase_steps = getattr(run, "phase_steps", (num_inference_steps,))
-            latents, skips = run(*experts, latents, pos, neg, cos, sin, sparse_mask, cond)
+            latents, skips = run(*experts, latents, pos, neg, cos, sin, sparse_mask, cond,
+                                 image_tokens)
         self._note_skips(skips)
         if output_type == "latent" or self.vae_params is None:
             return latents.cpu().numpy()

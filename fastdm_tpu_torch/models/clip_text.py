@@ -136,7 +136,9 @@ def _act(name: str):
     raise NotImplementedError(f"CLIP hidden_act {name!r} is not supported (quick_gelu, gelu)")
 
 
-def _layer_forward(layer: _Layer, x: Tensor, mask: Tensor, heads: int, act) -> Tensor:
+def _layer_forward(layer: _Layer, x: Tensor, mask: Optional[Tensor], heads: int, act) -> Tensor:
+    """One pre-LN encoder layer; `mask` is added to the scaled scores (the
+    text tower's causal mask; None for the vision tower)."""
     b, s, d = x.shape
     hd = d // heads
     h = layer.layer_norm1(x)
@@ -146,7 +148,9 @@ def _layer_forward(layer: _Layer, x: Tensor, mask: Tensor, heads: int, act) -> T
         return t.view(b, s, heads, hd).transpose(1, 2)
 
     q, k, v = split(att.q_proj(h)), split(att.k_proj(h)), split(att.v_proj(h))
-    w = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5 + mask
+    w = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
+    if mask is not None:
+        w = w + mask
     w = torch.softmax(w, dim=-1, dtype=torch.float32).to(q.dtype)
     o = torch.matmul(w, v).transpose(1, 2).reshape(b, s, d)
     x = x + att.out_proj(o)

@@ -56,6 +56,7 @@ from fastdm_tpu_torch.models.sdxl import (
 from fastdm_tpu_torch.models.wan import (
     WanBlock,
     WanCrossAttention,
+    WanImageEmbedder,
     WanSelfAttention,
     WanTransformer,
 )
@@ -230,7 +231,8 @@ def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
     """Wan param tree of fastdm_tpu.models.wan (numpy leaves; the layer-stacked
     "dense_blocks" then "blocks" groups, either may be None) -> WanTransformer
     on `device` with one block list in layer order. A per_token_timestep
-    config has the same tree."""
+    config has the same tree; Wan2.1-I2V's image embedder and add_k / add_v /
+    norm_added_k come across when the tree holds them."""
     dev = resolve_device(device)
     lin = _linear_converter(dev)
 
@@ -243,21 +245,26 @@ def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
             continue
         for blk in unstack_blocks(tree[group], _n_layers(tree[group])):
             a1, a2 = blk["attn1"], blk["attn2"]
-            if set(a2) - {"q", "kv", "norm_q", "norm_k", "to_out"}:
-                raise NotImplementedError("the Wan2.1 I2V image-KV branch converts with the "
-                                          "image encoder (ROADMAP.md section 1 item 4)")
+            added = {}
+            if "add_k" in a2:
+                added = dict(add_k=lin(a2["add_k"]), add_v=lin(a2["add_v"]),
+                             norm_added_k=t(a2["norm_added_k"]))
             norm2 = (t(blk["norm2"]["gamma"]), t(blk["norm2"]["beta"])) if "norm2" in blk else None
             blocks.append(WanBlock(
                 t(blk["scale_shift_table"]),
                 WanSelfAttention(lin(a1["qkv"]), t(a1["norm_q"]), t(a1["norm_k"]),
                                  lin(a1["to_out"])),
                 WanCrossAttention(lin(a2["q"]), lin(a2["kv"]), t(a2["norm_q"]), t(a2["norm_k"]),
-                                  lin(a2["to_out"])),
+                                  lin(a2["to_out"]), **added),
                 FeedForward(lin(blk["ffn"]["proj"]), lin(blk["ffn"]["out"])), norm2))
     ce = tree["condition_embedder"]
+    image_embedder = None
     if "image_embedder" in ce:
-        raise NotImplementedError("the Wan2.1 I2V image embedder converts with the image "
-                                  "encoder (ROADMAP.md section 1 item 4)")
+        ie = ce["image_embedder"]
+        image_embedder = WanImageEmbedder(
+            (t(ie["norm1"]["gamma"]), t(ie["norm1"]["beta"])), lin(ie["ff"]["proj"]),
+            lin(ie["ff"]["out"]), (t(ie["norm2"]["gamma"]), t(ie["norm2"]["beta"])),
+            t(ie["pos_embed"]) if "pos_embed" in ie else None)
     return WanTransformer(
         patch_embedding=lin(tree["patch_embedding"]),
         time_embedder=TimestepEmbedding(lin(ce["time_embedder"]["linear1"]),
@@ -266,7 +273,7 @@ def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
         text_embedder=PixArtTextProjection(lin(ce["text_embedder"]["linear1"]),
                                            lin(ce["text_embedder"]["linear2"])),
         scale_shift_table=t(tree["scale_shift_table"]), proj_out=lin(tree["proj_out"]),
-        blocks=blocks)
+        blocks=blocks, image_embedder=image_embedder)
 
 
 def sdxl_params_from_numpy(tree: Dict, device="cuda") -> SDXLUNet:

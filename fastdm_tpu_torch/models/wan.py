@@ -19,10 +19,17 @@ cfg.sparse_gather_blocks), or a (B, H, nq, nk) block mask at 128x128 tiles
 (block_mask). wan_forward_cached runs the forward under FBCache or DiCache.
 With cfg.per_token_timestep (Wan2.2-TI2V-5B) the timestep may be (B, S), one
 per token: the modulation becomes (B, S, 6, D) and the output shift and
-scale (B, S, D); a compact (B,) timestep broadcasts as (B, 1, D). The
-Wan2.1 I2V image branch (CLIP image tokens through image_dim / add_k) raises
-NotImplementedError: it arrives with the CLIP vision tower (ROADMAP.md section 1
-item 4).
+scale (B, S, D); a compact (B,) timestep broadcasts as (B, 1, D).
+
+Wan2.1-I2V's image branch: the CLIP vision tower's penultimate tokens
+(encoder_hidden_states_image, (B, 257, image_dim)) pass the image embedder
+(an f32 LayerNorm, a bf16 linear, exact GELU, a linear and an f32 LayerNorm,
+in f32 as JAX runs them; a first-last-frame checkpoint's pos_embed first)
+and are placed before the text tokens; in each block's cross-attention the
+first S_enc - text_len context tokens go through add_k (then norm_added_k) and
+add_v, the block linears' format, and their attention is added to the text
+attention inside each token chunk. A context of text_len tokens or fewer
+takes the text path alone: an image checkpoint driven without an image.
 """
 
 from __future__ import annotations
@@ -106,17 +113,6 @@ class WanConfig:
         return self.num_attention_heads * self.attention_head_dim
 
 
-def _image_branch(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the port yet: it arrives with the image encoder (ROADMAP.md "
-        "section 1 item 4); Wan2.2 text-to-video, TI2V and channel-concat I2V run without it")
-
-
-def check_wan_config(cfg: WanConfig) -> None:
-    if cfg.image_dim is not None or cfg.added_kv_proj_dim is not None:
-        raise _image_branch("the Wan2.1 I2V image-conditioning branch (image_dim / add_k)")
-
-
 def _param(t: Optional[Tensor]) -> Optional[nn.Parameter]:
     return None if t is None else nn.Parameter(t, requires_grad=False)
 
@@ -134,12 +130,32 @@ class WanSelfAttention(nn.Module):
 
 
 class WanCrossAttention(nn.Module):
-    """q from the video tokens, fused k|v from the text context."""
+    """q from the video tokens, fused k|v from the text context; with
+    Wan2.1-I2V's image branch also add_k, add_v and norm_added_k for the
+    image context."""
 
-    def __init__(self, q: QLinear, kv: QLinear, norm_q: Tensor, norm_k: Tensor, to_out: QLinear):
+    def __init__(self, q: QLinear, kv: QLinear, norm_q: Tensor, norm_k: Tensor, to_out: QLinear,
+                 add_k: Optional[QLinear] = None, add_v: Optional[QLinear] = None,
+                 norm_added_k: Optional[Tensor] = None):
         super().__init__()
         self.q, self.kv, self.to_out = q, kv, to_out
         self.norm_q, self.norm_k = _param(norm_q), _param(norm_k)
+        self.add_k, self.add_v = add_k, add_v
+        self.norm_added_k = _param(norm_added_k)
+
+
+class WanImageEmbedder(nn.Module):
+    """condition_embedder.image_embedder: norm1 (f32 LayerNorm, eps 1e-5),
+    ff.net.0.proj and ff.net.2 (bf16 linears), norm2, and the optional
+    pos_embed (1, 2 * S, image_dim) of first-last-frame checkpoints."""
+
+    def __init__(self, norm1: Tuple[Tensor, Tensor], proj: QLinear, out: QLinear,
+                 norm2: Tuple[Tensor, Tensor], pos_embed: Optional[Tensor] = None):
+        super().__init__()
+        self.norm1_gamma, self.norm1_beta = _param(norm1[0]), _param(norm1[1])
+        self.proj, self.out = proj, out
+        self.norm2_gamma, self.norm2_beta = _param(norm2[0]), _param(norm2[1])
+        self.pos_embed = _param(pos_embed)
 
 
 class WanBlock(nn.Module):
@@ -158,11 +174,13 @@ class WanTransformer(nn.Module):
 
     def __init__(self, *, patch_embedding: QLinear, time_embedder: TimestepEmbedding,
                  time_proj: QLinear, text_embedder: PixArtTextProjection,
-                 scale_shift_table: Tensor, proj_out: QLinear, blocks: List[WanBlock]):
+                 scale_shift_table: Tensor, proj_out: QLinear, blocks: List[WanBlock],
+                 image_embedder: Optional[WanImageEmbedder] = None):
         super().__init__()
         self.patch_embedding = patch_embedding
         self.time_embedder, self.time_proj = time_embedder, time_proj
         self.text_embedder = text_embedder
+        self.image_embedder = image_embedder
         self.scale_shift_table = _param(scale_shift_table)  # (2, D) f32
         self.proj_out = proj_out
         self.blocks = nn.ModuleList(blocks)
@@ -177,9 +195,10 @@ def wan_init_random(seed: int, cfg: WanConfig, device="cuda") -> WanTransformer:
     on `device`, straight into its storage dtype (qlinear_random): the seven
     linears of each block in cfg.quant, the embedders and the output head in
     bf16, unit q/k norm weights, modulation tables ~ N(0, 1/D) in f32, as the
-    JAX wan_init_random. The JAX and torch generators give different numbers
-    for the same seed."""
-    check_wan_config(cfg)
+    JAX wan_init_random; with cfg.image_dim the image embedder (bf16
+    linears, unit / zero f32 norms), with cfg.added_kv_proj_dim each block's
+    add_k / add_v in cfg.quant and a unit norm_added_k. The JAX and torch
+    generators give different numbers for the same seed."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, q = cfg.inner_dim, cfg.quant
@@ -196,11 +215,22 @@ def wan_init_random(seed: int, cfg: WanConfig, device="cuda") -> WanTransformer:
     blocks = []
     for _ in range(cfg.num_layers):
         norm2 = (ones(torch.float32), torch.zeros(d, device=dev)) if cfg.cross_attn_norm else None
+        added = {}
+        if cfg.added_kv_proj_dim is not None:
+            added = dict(add_k=lin(cfg.added_kv_proj_dim, d, q),
+                         add_v=lin(cfg.added_kv_proj_dim, d, q), norm_added_k=ones())
         blocks.append(WanBlock(
             table(6),
             WanSelfAttention(lin(d, 3 * d, q), ones(), ones(), lin(d, d, q)),
-            WanCrossAttention(lin(d, d, q), lin(d, 2 * d, q), ones(), ones(), lin(d, d, q)),
+            WanCrossAttention(lin(d, d, q), lin(d, 2 * d, q), ones(), ones(), lin(d, d, q),
+                              **added),
             FeedForward(lin(d, cfg.ffn_dim, q), lin(cfg.ffn_dim, d, q)), norm2))
+    image_embedder = None
+    if cfg.image_dim is not None:
+        e = cfg.image_dim
+        image_embedder = WanImageEmbedder(
+            (torch.ones(e, device=dev), torch.zeros(e, device=dev)), lin(e, e), lin(e, d),
+            (torch.ones(d, device=dev), torch.zeros(d, device=dev)))
     return WanTransformer(
         patch_embedding=lin(cfg.in_channels * math.prod(cfg.patch_size), d),
         time_embedder=TimestepEmbedding(lin(cfg.freq_dim, d), lin(d, d)),
@@ -208,17 +238,15 @@ def wan_init_random(seed: int, cfg: WanConfig, device="cuda") -> WanTransformer:
         text_embedder=PixArtTextProjection(lin(cfg.text_dim, d), lin(d, d)),
         scale_shift_table=table(2),
         proj_out=lin(d, cfg.out_channels * math.prod(cfg.patch_size)),
-        blocks=blocks)
+        blocks=blocks, image_embedder=image_embedder)
 
 
 def wan_load(src: TensorSource, cfg: WanConfig) -> WanTransformer:
     """Load a diffusers Wan transformer checkpoint onto src.device (port of
     the JAX wan_load): the conv3d patch embedding becomes a (C*pt*ph*pw, D)
     bf16 linear, attn1 q|k|v and attn2 k|v are fused, the block linears are
-    quantized to cfg.quant."""
-    check_wan_config(cfg)
-    if "condition_embedder.image_embedder.norm1.weight" in src:
-        raise _image_branch("the Wan2.1 I2V image-conditioning branch (image_embedder)")
+    quantized to cfg.quant, Wan2.1-I2V's add_k / add_v too; the image
+    embedder (and its pos_embed) loads when the checkpoint holds one."""
     q = cfg.quant
     conv_w = src.tensor("patch_embedding.weight", torch.float32)  # (D, C, pt, ph, pw)
     # patch vector order (C, pt, ph, pw) matches wan_patchify
@@ -226,12 +254,15 @@ def wan_load(src: TensorSource, cfg: WanConfig) -> WanTransformer:
     blocks = []
     for i in range(cfg.num_layers):
         p = f"blocks.{i}"
-        if f"{p}.attn2.add_k_proj.weight" in src:
-            raise _image_branch("the Wan2.1 I2V image-KV branch (add_k_proj)")
         norm2 = None
         if cfg.cross_attn_norm:
             norm2 = (src.tensor(f"{p}.norm2.weight", torch.float32),
                      src.tensor(f"{p}.norm2.bias", torch.float32))
+        added = {}
+        if f"{p}.attn2.add_k_proj.weight" in src:
+            added = dict(add_k=src.linear(f"{p}.attn2.add_k_proj", q),
+                         add_v=src.linear(f"{p}.attn2.add_v_proj", q),
+                         norm_added_k=src.tensor(f"{p}.attn2.norm_added_k.weight"))
         blocks.append(WanBlock(
             src.tensor(f"{p}.scale_shift_table", torch.float32).reshape(6, -1),
             WanSelfAttention(
@@ -242,10 +273,20 @@ def wan_load(src: TensorSource, cfg: WanConfig) -> WanTransformer:
                 src.linear(f"{p}.attn2.to_q", q),
                 src.fused_linear([f"{p}.attn2.to_k", f"{p}.attn2.to_v"], q),
                 src.tensor(f"{p}.attn2.norm_q.weight"), src.tensor(f"{p}.attn2.norm_k.weight"),
-                src.linear(f"{p}.attn2.to_out.0", q)),
+                src.linear(f"{p}.attn2.to_out.0", q), **added),
             FeedForward(src.linear(f"{p}.ffn.net.0.proj", q), src.linear(f"{p}.ffn.net.2", q)),
             norm2))
     ce = "condition_embedder"
+    image_embedder = None
+    ie = f"{ce}.image_embedder"
+    if f"{ie}.norm1.weight" in src:
+        image_embedder = WanImageEmbedder(
+            (src.tensor(f"{ie}.norm1.weight", torch.float32),
+             src.tensor(f"{ie}.norm1.bias", torch.float32)),
+            src.linear(f"{ie}.ff.net.0.proj", None), src.linear(f"{ie}.ff.net.2", None),
+            (src.tensor(f"{ie}.norm2.weight", torch.float32),
+             src.tensor(f"{ie}.norm2.bias", torch.float32)),
+            src.tensor(f"{ie}.pos_embed") if f"{ie}.pos_embed" in src else None)
     model = WanTransformer(
         patch_embedding=QLinear(patch_w, src.tensor("patch_embedding.bias")),
         time_embedder=TimestepEmbedding(src.linear(f"{ce}.time_embedder.linear_1", None),
@@ -255,7 +296,7 @@ def wan_load(src: TensorSource, cfg: WanConfig) -> WanTransformer:
                                            src.linear(f"{ce}.text_embedder.linear_2", None)),
         scale_shift_table=src.tensor("scale_shift_table", torch.float32).reshape(2, -1),
         proj_out=src.linear("proj_out", None),
-        blocks=blocks)
+        blocks=blocks, image_embedder=image_embedder)
     src.assert_consumed()
     return model
 
@@ -328,18 +369,36 @@ def _wan_self_attention_core(attn: WanSelfAttention, x: Tensor, q: Tensor, k: Te
 
 def _wan_cross_attention(attn: WanCrossAttention, x: Tensor, encoder: Tensor,
                          cfg: WanConfig) -> Tensor:
+    """Text cross-attention; with add_k and a context longer than text_len
+    (fastdm_tpu/models/wan.py:355-360: a shorter one would give the image
+    softmax no keys) the first S_enc - text_len tokens are image context,
+    whose attention is added to the text attention."""
     d, h, hd = cfg.inner_dim, cfg.num_attention_heads, cfg.attention_head_dim
     ct = cfg.ffn_chunk_tokens
+    ctx_img, ctx_txt = None, encoder
+    if attn.add_k is not None and encoder.shape[1] > cfg.text_len:
+        img_len = encoder.shape[1] - cfg.text_len
+        ctx_img, ctx_txt = encoder[:, :img_len], encoder[:, img_len:]
     q = rms_norm(attn.q(x, chunk_tokens=ct), attn.norm_q, cfg.eps)
-    kv = attn.kv(encoder)
+    kv = attn.kv(ctx_txt)
     k = rms_norm(kv[..., :d], attn.norm_k, cfg.eps)
     v = kv[..., d:]
+    k_img = v_img = None
+    if ctx_img is not None:
+        k_img = rms_norm(attn.add_k(ctx_img), attn.norm_added_k, cfg.eps)
+        v_img = attn.add_v(ctx_img)
+
+    def xattn(qc):
+        o = scaled_dot_product_attention(qc, k, v, h, h, hd, False, hd**-0.5)
+        if k_img is not None:
+            o = o + scaled_dot_product_attention(qc, k_img, v_img, h, h, hd, False, hd**-0.5)
+        return o
+
     ranges = _chunks(q.shape[1], ct)
     if ranges is None:
-        out = scaled_dot_product_attention(q, k, v, h, h, hd, False, hd**-0.5)
-    else:  # rows are independent: the text context is the same for every chunk
-        out = torch.cat([scaled_dot_product_attention(q[:, lo:hi], k, v, h, h, hd, False,
-                                                      hd**-0.5) for lo, hi in ranges], dim=1)
+        out = xattn(q)
+    else:  # rows are independent: the context is the same for every chunk
+        out = torch.cat([xattn(q[:, lo:hi]) for lo, hi in ranges], dim=1)
     return attn.to_out(out.to(x.dtype), chunk_tokens=ct)
 
 
@@ -406,14 +465,30 @@ def wan_unpatchify(cfg: WanConfig, tokens: Tensor, f: int, h: int, w: int) -> Te
 
 
 def wan_condition(params: WanTransformer, cfg: WanConfig, timestep: Tensor,
-                  encoder_text: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """-> (temb (N, D), temb6 (N, 6D), encoder (B, S_txt, D)); the timestep is
-    flattened: N = B, or B*S for a per-token (B, S) timestep."""
+                  encoder_text: Tensor, encoder_image: Optional[Tensor] = None
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """-> (temb (N, D), temb6 (N, 6D), encoder (B, S_img + S_txt, D)); the
+    timestep is flattened: N = B, or B*S for a per-token (B, S) timestep.
+    encoder_image, CLIP image tokens (B, S_img, image_dim), goes through the
+    image embedder in f32 (its bf16 linears take the f32 LayerNorm output,
+    as JAX's) and is placed before the text tokens."""
     t_proj = get_timestep_embedding(timestep.reshape(-1).float(), cfg.freq_dim,
                                     flip_sin_to_cos=True, downscale_freq_shift=0.0)
     temb = params.time_embedder(t_proj.float()).to(encoder_text.dtype)
     t6 = params.time_proj(F.silu(temb))
     encoder = params.text_embedder(encoder_text)
+    if encoder_image is not None:
+        ie = params.image_embedder
+        if ie is None:
+            raise ValueError("encoder_hidden_states_image needs a Wan transformer with the "
+                             "image embedder (image_dim in its config)")
+        x = encoder_image
+        if ie.pos_embed is not None:  # first-last-frame: the two images' tokens in one row
+            x = x.reshape(-1, 2 * x.shape[1], x.shape[2]) + ie.pos_embed
+        x = fp32_layer_norm(x, ie.norm1_gamma, ie.norm1_beta, 1e-5)
+        x = F.gelu(ie.proj(x))
+        x = fp32_layer_norm(ie.out(x), ie.norm2_gamma, ie.norm2_beta, 1e-5)
+        encoder = torch.cat([x.to(encoder.dtype), encoder], dim=1)
     return temb, t6, encoder
 
 
@@ -423,14 +498,12 @@ def _wan_embed(params: WanTransformer, cfg: WanConfig, hidden_states: Tensor, ti
     not given), patchify, conditioning -> (hidden, temb, temb6, encoder, cos,
     sin); temb6 is (B, 6, D), or (B, S, 6, D) and temb (B, S, D) with
     cfg.per_token_timestep (S = 1 for a compact timestep)."""
-    if encoder_hidden_states_image is not None:
-        raise _image_branch("the Wan2.1 I2V image-conditioning branch (CLIP image tokens)")
-    check_wan_config(cfg)
     b, _, f, h, w = hidden_states.shape
     if rope_cos is None:
         rope_cos, rope_sin = wan_rope_cos_sin(cfg, f, h, w, device=hidden_states.device)
     hidden = wan_patchify(params, cfg, hidden_states)
-    temb, t6, encoder = wan_condition(params, cfg, timestep, encoder_hidden_states)
+    temb, t6, encoder = wan_condition(params, cfg, timestep, encoder_hidden_states,
+                                      encoder_hidden_states_image)
     if cfg.per_token_timestep:
         return (hidden, temb.reshape(b, -1, cfg.inner_dim), t6.reshape(b, -1, 6, cfg.inner_dim),
                 encoder, rope_cos, rope_sin)

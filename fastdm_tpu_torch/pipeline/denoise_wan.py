@@ -16,7 +16,10 @@ fresh pair at the start of each expert's phase, and step indices stay global
 channels concatenated to the latents every step (Wan i2v: a 4-channel frame
 mask and the encoded first frame); the TI2V loop (Wan2.2-TI2V-5B) re-pins the
 clean encoded first latent frame every step and gives its tokens timestep 0
-through the per-token timestep. The scheduler is UniPC (stateful) or
+through the per-token timestep. Wan2.1-I2V's CLIP image tokens
+(encoder_image) go to every forward of the one-expert loops, the same tokens
+for both CFG branches; the dual-expert loop refuses them, as the JAX engine
+does (fastdm_tpu/engine.py:1546-1551). The scheduler is UniPC (stateful) or
 FlowMatch-Euler. The loops return the number of skipped forwards.
 """
 
@@ -60,23 +63,25 @@ def _sched_step(scheduler, out: Tensor, step_i: int, sample: Tensor, state, num_
 
 def _make_guided(cfg: WanConfig, num_steps: int, do_cfg: bool, cache_cfg=None):
     """guided(params, guidance, x, t, step_i, pos_text, neg_text, cos, sin,
-    mask, caches) -> the float32 CFG velocity of the bf16 input x at
-    timestep t; `caches`, a [pos, neg] list of cache states, is updated in
-    place under a step cache."""
+    mask, caches, image=None) -> the float32 CFG velocity of the bf16 input x
+    at timestep t; `caches`, a [pos, neg] list of cache states, is updated in
+    place under a step cache; `image`, CLIP image tokens, conditions both
+    branches."""
     if cache_cfg is not None:
         from fastdm_tpu_torch.caching.xcaching import negative_stream_config
 
         stream_cfgs = (cache_cfg, negative_stream_config(cache_cfg))
 
     def guided(params: WanTransformer, guidance: float, x: Tensor, t: Tensor, step_i: int,
-               pos_text: Tensor, neg_text: Tensor, cos: Tensor, sin: Tensor, mask, caches):
+               pos_text: Tensor, neg_text: Tensor, cos: Tensor, sin: Tensor, mask, caches,
+               image: Optional[Tensor] = None):
         def one(text, stream: int):
             if cache_cfg is None:
-                return wan_forward(params, cfg, x, t, text, rope_cos=cos, rope_sin=sin,
+                return wan_forward(params, cfg, x, t, text, image, rope_cos=cos, rope_sin=sin,
                                    sparse_mask=mask).float()
             out, caches[stream] = wan_forward_cached(
                 params, cfg, stream_cfgs[stream], caches[stream], step_i, num_steps, x, t, text,
-                rope_cos=cos, rope_sin=sin, sparse_mask=mask)
+                image, rope_cos=cos, rope_sin=sin, sparse_mask=mask)
             return out.float()
 
         out = one(pos_text, 0)
@@ -95,15 +100,16 @@ def _make_step(cfg: WanConfig, scheduler, num_steps: int, sparse_mask, dense_cut
 
     def step(params: WanTransformer, guidance: float, latents: Tensor, state, step_i: int,
              pos_text: Tensor, neg_text: Tensor, cos: Tensor, sin: Tensor, caches=None,
-             cond: Optional[Tensor] = None):
-        """One step; cond (i2v) is concatenated to the latents' channels."""
+             cond: Optional[Tensor] = None, image: Optional[Tensor] = None):
+        """One step; cond (i2v) is concatenated to the latents' channels,
+        image (Wan2.1-I2V's CLIP tokens) conditions the cross-attention."""
         b = latents.shape[0]
         t = torch.full((b,), float(sigmas[step_i] * np.float32(1000.0)), dtype=torch.float32,
                        device=latents.device)
         mask = None if step_i < dense_cut else sparse_mask
         x = latents if cond is None else torch.cat([latents, cond.float()], dim=1)
         out = guided(params, guidance, x.to(torch.bfloat16), t, step_i, pos_text, neg_text, cos,
-                     sin, mask, caches)
+                     sin, mask, caches, image)
         return _sched_step(scheduler, out, step_i, latents, state, num_steps)
 
     return step
@@ -129,8 +135,10 @@ def make_wan_denoiser(cfg: WanConfig, scheduler, num_steps: int, guidance_scale:
                       dense_warmup_steps: int = 0):
     """One expert. Returns run(params, latents (B, C, F, H, W) float32,
     pos_text, neg_text (B, text_len, text_dim), cos, sin, sparse_mask,
-    cond=None) -> (latents, skips = 0); cond (B, C_cond, F, H, W), the i2v
-    conditioning channels, is concatenated to the latents every step. With
+    cond=None, encoder_image=None) -> (latents, skips = 0); cond (B, C_cond,
+    F, H, W), the i2v conditioning channels, is concatenated to the latents
+    every step; encoder_image (B, S_img, image_dim), Wan2.1-I2V's CLIP
+    tokens, conditions both CFG branches of every forward. With
     guidance_scale <= 1 the negative branch is not run. The scheduler is a
     UniPCMultistepScheduler (the Wan default) or a FlowMatchEulerScheduler."""
     return make_wan_cached_denoiser(cfg, scheduler, num_steps, None, guidance_scale,
@@ -141,12 +149,14 @@ def make_wan_cached_denoiser(cfg: WanConfig, scheduler, num_steps: int, cache_cf
                              guidance_scale: float = 5.0, dense_warmup_steps: int = 0):
     """One expert under FBCache / DiCache (cache_cfg; None runs uncached):
     run(params, latents, pos_text, neg_text, cos, sin, sparse_mask,
-    cond=None) -> (latents, skipped forwards of both CFG streams)."""
+    cond=None, encoder_image=None) -> (latents, skipped forwards of both CFG
+    streams); the cached forwards carry the image tokens in the context, as
+    JAX's (fastdm_tpu/pipeline/denoise_more.py:499-650)."""
 
     @torch.inference_mode()
     def run(params: WanTransformer, latents: Tensor, pos_text: Tensor, neg_text: Tensor,
-            cos: Tensor, sin: Tensor, sparse_mask=None,
-            cond: Optional[Tensor] = None) -> Tuple[Tensor, int]:
+            cos: Tensor, sin: Tensor, sparse_mask=None, cond: Optional[Tensor] = None,
+            encoder_image: Optional[Tensor] = None) -> Tuple[Tensor, int]:
         step = _make_step(cfg, scheduler, num_steps, sparse_mask,
                           dense_warmup_cut(dense_warmup_steps, num_steps), guidance_scale > 1.0,
                           cache_cfg)
@@ -154,7 +164,7 @@ def make_wan_cached_denoiser(cfg: WanConfig, scheduler, num_steps: int, cache_cf
         caches = _fresh_caches(cfg, cache_cfg, latents)
         for i in range(num_steps):
             latents, state = step(params, guidance_scale, latents, state, i, pos_text, neg_text,
-                                  cos, sin, caches, cond)
+                                  cos, sin, caches, cond, encoder_image)
         return latents, _skips(caches)
 
     return run
@@ -178,7 +188,12 @@ def make_wan_dual_phase_denoiser(cfg: WanConfig, scheduler, num_steps: int,
     @torch.inference_mode()
     def run(params: WanTransformer, params_2: WanTransformer, latents: Tensor,
             pos_text: Tensor, neg_text: Tensor, cos: Tensor, sin: Tensor,
-            sparse_mask=None, cond: Optional[Tensor] = None) -> Tuple[Tensor, int]:
+            sparse_mask=None, cond: Optional[Tensor] = None,
+            encoder_image: Optional[Tensor] = None) -> Tuple[Tensor, int]:
+        if encoder_image is not None:
+            raise NotImplementedError(
+                "CLIP image conditioning with the dual-expert phase loop is not wired (no "
+                "released checkpoint combines them), as in the JAX engine")
         # CFG on or off for both phases by the first scale, as in JAX
         step = _make_step(cfg, scheduler, num_steps, sparse_mask,
                           dense_warmup_cut(dense_warmup_steps, num_steps), guidance_scale > 1.0,

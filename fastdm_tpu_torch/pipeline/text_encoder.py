@@ -1,5 +1,6 @@
-"""Prompt encoding on the engine's device (port of the CLIP / T5 / UMT5
-encoders of fastdm_tpu/pipeline/text_encoder.py:29-231).
+"""Prompt and image encoding on the engine's device (port of the CLIP / T5 /
+UMT5 encoders of fastdm_tpu/pipeline/text_encoder.py:29-231 and of its CLIP
+image encoder, :336-383).
 
 The JAX package runs transformers' modules on the host CPU in torch f32;
 the port runs its own tokenizers (pipeline/tokenizers.py) and modules
@@ -21,8 +22,16 @@ per num_images_per_prompt as the reference's np.repeat:
   * WanTextEncoder   -- UMT5 at text_len with the padding mask, the
     positions past it zeroed.
 
-The Qwen2.5-VL tower (QwenImageTextEncoder) and the CLIP vision tower
-(CLIPImageEncoder) are not in the port yet.
+CLIPImageEncoder runs the port's CLIP preprocessing
+(pipeline/image_processor.py, transformers' pixel_values bit for bit) and
+vision tower (models/clip_vision.py) in f32 on an image_encoder/ directory,
+lazily as the text classes: the projected image_embeds (the SDXL IP-Adapter)
+or the penultimate hidden states (IP-Adapter-Plus, Wan2.1-I2V), bf16 on the
+device. A tower without visual_projection (Wan2.1's CLIPVisionModel) raises
+on image_embeds, where JAX's CLIPVisionModelWithProjection would project
+through randomly initialized weights.
+
+The Qwen2.5-VL tower (QwenImageTextEncoder) is not in the port yet.
 """
 
 from __future__ import annotations
@@ -188,6 +197,53 @@ class WanTextEncoder(_Lazy):
             ids, mask = _ids(self.tokenizer, prompt, self.text_len, self.device)
             embeds = self.text_encoder(ids, mask) * mask[..., None]
         return _bf16(embeds, num_videos_per_prompt)
+
+
+class CLIPImageEncoder:
+    """The CLIP vision tower of an IP-Adapter or Wan2.1-I2V checkpoint's
+    image_encoder/ (a CLIPVisionModelWithProjection, or a CLIPVisionModel
+    without the projection) and its preprocessing, read at the first image;
+    a missing directory raises FileNotFoundError naming it then. `loaded`
+    as in _Lazy: a caller that assigns `model` and `processor` itself sets it."""
+
+    def __init__(self, path: str, device="cuda"):
+        self.path = path
+        self.device = resolve_device(device)
+        self.loaded = False
+
+    def load(self) -> None:
+        if self.loaded:
+            return
+        from fastdm_tpu_torch.models.clip_vision import CLIPVisionConfig, clip_vision_load
+        from fastdm_tpu_torch.pipeline.image_processor import CLIPImageProcessor
+
+        if not os.path.isdir(self.path):
+            raise FileNotFoundError(
+                f"image conditioning needs the CLIP image encoder, but {self.path!r} is not a "
+                "directory; pass precomputed image embeddings instead")
+        cfg = CLIPVisionConfig.from_dir(self.path)
+        self.model = clip_vision_load(TensorSource.from_path(self.path, self.device), cfg)
+        self.processor = CLIPImageProcessor.from_dir(self.path, cfg.image_size)
+        self.loaded = True
+
+    def encode(self, image, num_images_per_prompt: int = 1,
+               hidden_states: bool = False) -> Tensor:
+        """An (H, W, 3) uint8 image (or a list of them) -> (N, projection_dim)
+        projected image_embeds, or with hidden_states=True the (N, 1 + P,
+        hidden) penultimate states, bf16 on the device, each image's row
+        repeated num_images_per_prompt times."""
+        from fastdm_tpu_torch.models.clip_vision import PROJECTION
+
+        self.load()
+        if not hidden_states and not self.model.projection:
+            raise ValueError(
+                f"the image encoder at {self.path!r} has no {PROJECTION} (a "
+                "CLIPVisionModel): its projected image_embeds do not exist; Wan2.1-I2V "
+                "conditions on hidden_states=True")
+        with torch.inference_mode():
+            out = self.model(torch.from_numpy(self.processor(image)).to(self.device))
+            emb = out.penultimate if hidden_states else out.image_embeds
+        return _bf16(emb, num_images_per_prompt)
 
 
 def save_text_encoder(model, path: str, dtype=torch.bfloat16) -> None:

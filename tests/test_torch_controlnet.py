@@ -1000,7 +1000,12 @@ def test_engine_sdxl_ip_adapter_path(tmp_path, sdxl_cn_root, plus):
     Plus; the negative half's tokens are zeros under CFG. The latents are
     held to JAX's loop on JAX's loads of the same checkpoints, fed the
     tokens JAX's projection makes of the same embeddings, as the JAX engine
-    does, and the engine's noise. With use_int8 the fused k|v is int8."""
+    does, and the engine's noise. With an image_encoder/ (a tiny
+    CLIPVisionModelWithProjection: projection 24 for the simple adapter,
+    hidden 24 for Plus) ip_adapter_image gives the latents of the embeds
+    request made with the port tower's output, bit for bit, and JAX's loop
+    on JAX's CLIPImageEncoder's output within SDXL_TOL; given embeds win
+    over an image. With use_int8 the fused k|v is int8."""
     root, unet_sd = sdxl_cn_root
     ip_sd = _ip_sd(np.random.default_rng(28), plus)
     ip_dir = str(tmp_path / "ip")
@@ -1016,17 +1021,38 @@ def test_engine_sdxl_ip_adapter_path(tmp_path, sdxl_cn_root, plus):
     run, sched, jcfg = _jax_sdxl_ip_loop()
     jp = jsdxl.sdxl_load(JSource(dict(unet_sd)), jcfg)
     jproj = jsdxl.sdxl_attach_ip_adapter(jp, JSource(dict(ip_sd)), jcfg)
-    jemb = jnp.asarray(emb, jnp.bfloat16)
-    if plus:
-        tok = jip.ip_adapter_plus_projection_apply(jproj, jemb, heads=jproj["heads"],
-                                                   head_dim=jproj["head_dim"])
-    else:
-        tok = jip.image_projection_apply({k: jproj[k] for k in ("proj", "norm")}, jemb,
-                                         jproj["num_tokens"])
-    noise = jnp.asarray(_engine_noise((1, 4, 8, 8), 6)) * sched.init_noise_sigma
-    want, _ = run(jp, noise, embeds, pooled, ids, jnp.concatenate([jnp.zeros_like(tok), tok]))
+
+    def jax_latents(jemb):
+        if plus:
+            tok = jip.ip_adapter_plus_projection_apply(jproj, jemb, heads=jproj["heads"],
+                                                       head_dim=jproj["head_dim"])
+        else:
+            tok = jip.image_projection_apply({k: jproj[k] for k in ("proj", "norm")}, jemb,
+                                             jproj["num_tokens"])
+        noise = jnp.asarray(_engine_noise((1, 4, 8, 8), 6)) * sched.init_noise_sigma
+        return run(jp, noise, embeds, pooled, ids, jnp.concatenate([jnp.zeros_like(tok), tok]))[0]
+
+    want = jax_latents(jnp.asarray(emb, jnp.bfloat16))
     assert lat.shape == want.shape and _rel_l2(lat, want) <= SDXL_TOL, _rel_l2(lat, want)
     assert not np.array_equal(eng.generate(**kw), lat)
+    # an image through the CLIP vision tower of image_encoder/
+    from fastdm_tpu.pipeline.text_encoder import CLIPImageEncoder as JImageEncoder
+    from test_torch_clip_vision import write_tower
+
+    enc_dir = os.path.join(root, "image_encoder")
+    image = _uint8(33, 60, 90)
+    with pytest.raises(FileNotFoundError, match="image_encoder"):
+        eng.generate(ip_adapter_image=image, **kw)
+    write_tower(enc_dir, True, seed=34, **(dict(hidden_size=24, num_attention_heads=2,
+                                                intermediate_size=48) if plus else {}))
+    img_lat = eng.generate(ip_adapter_image=image, **kw)
+    port_emb = eng.image_encoder.encode(image, hidden_states=plus)
+    assert tuple(port_emb.shape) == ((1, 17, 24) if plus else (1, 24))
+    np.testing.assert_array_equal(eng.generate(ip_adapter_image_embeds=port_emb, **kw), img_lat)
+    np.testing.assert_array_equal(
+        eng.generate(ip_adapter_image=image, ip_adapter_image_embeds=emb, **kw), lat)
+    want = jax_latents(JImageEncoder(enc_dir).encode(image, hidden_states=plus))
+    assert _rel_l2(img_lat, want) <= SDXL_TOL, _rel_l2(img_lat, want)
     if not plus:
         eng8 = teng.FastDMEngine(root, architecture="sdxl", use_int8=True, verbose=False,
                                  device="cpu", ip_adapter_path=ip_dir, ip_adapter_scale=0.8)
@@ -1035,8 +1061,9 @@ def test_engine_sdxl_ip_adapter_path(tmp_path, sdxl_cn_root, plus):
 
 def test_engine_refusals(tmp_path, sdxl_engine_root):
     """A control_image without controlnet_path and ip_adapter_image_embeds
-    without ip_adapter_path raise ValueError (JAX ignores them);
-    ip_adapter_image names the CLIP image encoder; a ControlNet on another
+    or ip_adapter_image without ip_adapter_path raise ValueError (JAX ignores
+    them; an ip_adapter_image on a checkpoint without image_encoder/ names
+    the directory, test_engine_sdxl_ip_adapter_path); a ControlNet on another
     family or an IP-Adapter off SDXL raises before any weight is read."""
     root = sdxl_engine_root
     eng = teng.FastDMEngine(root, architecture="sdxl", verbose=False, device="cpu")
@@ -1045,7 +1072,7 @@ def test_engine_refusals(tmp_path, sdxl_engine_root):
         eng.generate(control_image=np.zeros((64, 64, 3), np.uint8), **kw)
     with pytest.raises(ValueError, match="ip_adapter_path"):
         eng.generate(ip_adapter_image_embeds=np.zeros((1, 24), np.float32), **kw)
-    with pytest.raises(NotImplementedError, match="CLIP image encoder"):
+    with pytest.raises(ValueError, match="ip_adapter_image needs .* ip_adapter_path"):
         eng.generate(ip_adapter_image=np.zeros((64, 64, 3), np.uint8), **kw)
     missing = str(tmp_path / "nothing-here")
     with pytest.raises(ValueError, match="flux/sdxl"):

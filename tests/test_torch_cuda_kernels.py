@@ -39,7 +39,10 @@ on the fused projections as the small cases. The ControlNet / IP-Adapter
 shapes: sdpa on 4 and 16 IP keys and the Plus resampler's 16 x 273 as the
 small cases, on the union ControlNet's 8705-token joint sequence as the long
 ones; rotembd bit-exact, rmsnorm within one ulp and the int8 quantizer and
-GEMM bit-exact at its 8705 and 513 rows.
+GEMM bit-exact at its 8705 and 513 rows. Wan2.1-I2V's image branch at batch 1
+and 2: sdpa against 257 image keys as the small cases plus relative L2 5e-3,
+the int8 quantizer and GEMM at M = 257 / 514 bit-exact, rmsnorm within one
+ulp.
 """
 
 import numpy as np
@@ -1249,3 +1252,37 @@ def test_int8_kernels_bit_exact_at_union_controlnet_shapes(cuda_device, shape):
         args = (a, lin.w, sa, lin.scale, torch.bfloat16, lin.colsum, zp, lin.bias)
         assert torch.equal(cuda_backend.int8_matmul_cuda(*args),
                            torch_backend.int8_matmul_torch(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 2])
+def test_wan21_image_branch_shapes_on_card(cuda_device, batch):
+    """Wan2.1-I2V-14B's image branch at 480x832x81, batch 1 and 2: sdpa of a
+    4095-token chunk (40 heads of 128) against 257 image keys (two 128-key
+    tiles and a tail of one), as the small cases plus relative L2 5e-3; the
+    int8 quantizer and GEMM at M = 257 * batch, K = N = 5120 (add_k / add_v:
+    a one-row M tail) bit-exact with and without the zero point; rmsnorm
+    (norm_added_k) on (batch, 257, 5120) rows within one bf16 ulp."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn(batch, 4095, 5120, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    k, v = (torch.randn(batch, 257, 5120, generator=g, device=cuda_device, dtype=torch.bfloat16)
+            for _ in range(2))
+    got = cuda_backend.sdpa_cuda(q, k, v, 40, 40, 128, False).float()
+    want = torch_backend.sdpa_torch(q, k, v, 40, 40, 128, False).float()
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    assert (got - want).norm() / want.norm() <= 5e-3
+    a, sa, azp, lin = _w8a8_operands("int8", 257 * batch, 5120, 5120, cuda_device)
+    x = (torch.randn(257 * batch, 5120, generator=g, device=cuda_device) * 3).bfloat16()
+    for gq, wq in zip(cuda_backend.quantize_to_int8_cuda(x, symmetric=False),
+                      torch_backend.quantize_to_int8_torch(x, symmetric=False)):
+        assert gq.dtype == wq.dtype and torch.equal(gq, wq)
+    for zp in (azp, None):
+        args = (a, lin.w, sa, lin.scale, torch.bfloat16, lin.colsum, zp, lin.bias)
+        assert torch.equal(cuda_backend.int8_matmul_cuda(*args),
+                           torch_backend.int8_matmul_torch(*args))
+    x = (torch.randn(batch, 257, 5120, generator=g, device=cuda_device) * 2).bfloat16()
+    w = (1 + 0.1 * torch.randn(5120, generator=g, device=cuda_device)).bfloat16()
+    got, want = cuda_backend.rms_norm_cuda(x, w, 1e-6), torch_backend.rms_norm_torch(x, w, 1e-6)
+    assert ((got.float() - want.float()).abs() <= _bf16_ulp(want)).all()

@@ -69,3 +69,29 @@ print("PORT_MODULES", sum(m.startswith("fastdm_tpu_torch") for m in sys.modules)
     assert "FORBIDDEN []" in out.stdout, out.stdout
     n = int(out.stdout.split("PORT_MODULES ")[1].split()[0])
     assert n >= 20, out.stdout  # every module of the port really was imported
+
+
+# the CLIP image preprocessing and vision tower run where PIL is missing
+NO_PIL = ("fastdm_tpu_torch/pipeline/image_processor.py", "fastdm_tpu_torch/models/clip_vision.py",
+          "fastdm_tpu_torch/pipeline/text_encoder.py")
+
+
+def test_image_preprocessing_and_vision_tower_import_no_pil():
+    bad = [(p, m) for p in NO_PIL for m in _imports(REPO / p) if m == "PIL" or
+           m.startswith("PIL.")]
+    assert not bad, bad
+    code = """
+import sys
+sys.modules["PIL"] = None
+import numpy as np
+from fastdm_tpu_torch.models import clip_vision
+from fastdm_tpu_torch.pipeline.image_processor import CLIPImageProcessor
+from fastdm_tpu_torch.pipeline.text_encoder import CLIPImageEncoder
+x = CLIPImageProcessor()(np.full((30, 50, 3), 128, np.uint8))
+print("SHAPE", tuple(x.shape), sorted(m for m in sys.modules if m.startswith("PIL")))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "SHAPE (1, 3, 224, 224) ['PIL']" in out.stdout, out.stdout

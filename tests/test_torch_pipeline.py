@@ -364,8 +364,13 @@ def test_engine_rejects_what_later_slices_bring(tmp_path, monkeypatch):
         FastDMEngine(root, use_int8=True, use_fp8=True, device="cpu")
     with pytest.raises(ValueError, match="pack_int4 requires use_int4"):
         FastDMEngine(root, pack_int4=True, device="cpu")  # int4 arrived; its flag checks hold
-    with pytest.raises(NotImplementedError):
-        FastDMEngine(root, architecture="wan2.1-i2v", device="cpu")
+    # every architecture name of the JAX engine is in the port (wan2.1-i2v
+    # since its image branch arrived); a name neither knows raises
+    from fastdm_tpu_torch.engine import ARCHITECTURES
+
+    assert ARCHITECTURES["wan2.1-i2v"] == ARCHITECTURES["wan-i2v"] == "wan"
+    with pytest.raises(NotImplementedError, match="hunyuan-video"):
+        FastDMEngine(root, architecture="hunyuan-video", device="cpu")
     eng = FastDMEngine(root, verbose=False, device="cpu")
     # the text encoders have arrived: a prompt on a checkpoint without their
     # directories names the missing one (tests/test_torch_text_engine.py

@@ -518,12 +518,12 @@ def test_engine_rejects_what_later_slices_bring(sdxl_engine_root):
     assert eng.cfg.quant is None and eng.params.up[0].resnets[0].time_emb_proj.w.dtype == \
         torch.bfloat16
     kw = dict(_embeds(11), height=64, width=64, num_inference_steps=1)
-    # the ControlNet and the IP-Adapter have arrived: a control_image needs
-    # controlnet_path, and the CLIP image encoder of an ip_adapter_image is
-    # still to come (tests/test_torch_controlnet.py drives both paths)
+    # the ControlNet, the IP-Adapter and its CLIP image encoder have arrived:
+    # a control_image needs controlnet_path, an ip_adapter_image
+    # ip_adapter_path (tests/test_torch_controlnet.py drives both paths)
     with pytest.raises(ValueError, match="controlnet_path"):
         eng.generate(control_image=np.zeros((64, 64, 3), np.uint8), **kw)
-    with pytest.raises(NotImplementedError, match="CLIP image encoder"):
+    with pytest.raises(ValueError, match="ip_adapter_image needs .* ip_adapter_path"):
         eng.generate(ip_adapter_image=np.zeros((64, 64, 3), np.uint8), **kw)
     with pytest.raises(ValueError, match="controlnet_path"):
         eng.generate(task="i2i", image=np.zeros((64, 64, 3), np.uint8),

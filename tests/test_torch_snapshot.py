@@ -79,6 +79,13 @@ def _tree(kind: str):
         cfg = twan.WanConfig(quant="int8", **WAN_TINY)
         return {"transformer": twan.wan_init_random(0, cfg, device="cpu"),
                 "transformer_2": twan.wan_init_random(1, cfg, device="cpu")}, cfg
+    if kind == "wan-i2v":  # Wan2.1-I2V's image branch, with a first-last-frame pos_embed
+        d = WAN_TINY["num_attention_heads"] * WAN_TINY["attention_head_dim"]
+        cfg = twan.WanConfig(quant="int8", image_dim=20, added_kv_proj_dim=d, **WAN_TINY)
+        tree = twan.wan_init_random(2, cfg, device="cpu")
+        tree.image_embedder.pos_embed = torch.nn.Parameter(torch.randn(1, 34, 20).bfloat16(),
+                                                           requires_grad=False)
+        return {"transformer": tree}, cfg
     if kind == "sdxl":
         cfg = tsdxl.SDXLConfig(quant="int8", **SDXL_TINY)
         return {"unet": tsdxl.sdxl_init_random(0, cfg, device="cpu")}, cfg
@@ -95,7 +102,8 @@ def _tree(kind: str):
 
 
 @pytest.mark.parametrize("kind", ["flux-bf16", "flux-int8", "flux-fp8", "flux-int4",
-                                  "flux-int4p-mods", "wan-dual", "sdxl", "sd35", "qwen"])
+                                  "flux-int4p-mods", "wan-dual", "wan-i2v", "sdxl", "sd35",
+                                  "qwen"])
 def test_tree_round_trip(tmp_path, kind):
     """Every tree comes back as the same modules with the same bytes, the
     8- and 4-bit weights as (K, N) views of K-contiguous buffers again; the
@@ -380,11 +388,36 @@ def test_manifest_cfg_is_pinned_at_init(tmp_path, monkeypatch):
 
 
 def test_wan21_names(tmp_path):
-    """wan2.1-t2v maps to the Wan core as in JAX; the Wan2.1 image-branch
-    names still raise, naming what is missing."""
-    from fastdm_tpu_torch.engine import ARCHITECTURES, FastDMEngine
+    """wan2.1-t2v and the Wan2.1 image-branch names map to the Wan core as in
+    JAX (fastdm_tpu/engine.py:54-56)."""
+    from fastdm_tpu_torch.engine import ARCHITECTURES
 
-    assert ARCHITECTURES["wan2.1-t2v"] == "wan"
-    for name in ("wan-i2v", "wan2.1-i2v"):
-        with pytest.raises(NotImplementedError, match="CLIP image branch"):
-            FastDMEngine(str(tmp_path), architecture=name, device="cpu")
+    for name in ("wan2.1-t2v", "wan-i2v", "wan2.1-i2v"):
+        assert ARCHITECTURES[name] == "wan", name
+
+
+def test_engine_round_trip_wan21_i2v(tmp_path, monkeypatch):
+    """A Wan2.1-I2V int8 engine writes its transformer with the image branch
+    (image embedder, add_k / add_v) into the snapshot; a second engine reads
+    it back with quantize_weight raising, the same parameters, and generates
+    the same i2v latents from an image (the CLIP tower of image_encoder/ is
+    not in the snapshot and is read from the checkpoint)."""
+    from fastdm_tpu_torch.engine import FastDMEngine
+    from test_torch_wan import _i2v_embeds, _write_i2v_checkpoint
+
+    root = str(tmp_path / "wan21-i2v")
+    _write_i2v_checkpoint(root)
+    snap_dir = str(tmp_path / "snap")
+    kw = dict(architecture="wan2.1-i2v", use_int8=True, verbose=False, device="cpu",
+              snapshot_path=snap_dir)
+    eng1 = FastDMEngine(root, **kw)
+    assert sorted(tsnap.load_manifest(snap_dir)["trees"]) == ["transformer"]
+    monkeypatch.setattr(tql, "quantize_weight", lambda *a, **k: 1 / 0)
+    eng2 = FastDMEngine(root, **kw)
+    assert_same_module(eng1.params, eng2.params)
+    assert eng2.params.image_embedder is not None and eng2.wan_image_encoder is not None
+    pos, neg = _i2v_embeds(3)
+    gen = dict(image=np.random.default_rng(4).integers(0, 256, (32, 48, 3), dtype=np.uint8),
+               prompt_embeds=pos, negative_prompt_embeds=neg, height=32, width=48,
+               num_frames=5, num_inference_steps=2, seed=6, output_type="latent")
+    np.testing.assert_array_equal(eng1.generate(**gen), eng2.generate(**gen))

@@ -245,19 +245,185 @@ def test_rope_tables_match_jax():
 
 
 def test_later_slices_raise(models):
+    """The Wan2.1 image branch has arrived (its cases below): image tokens on
+    a transformer without the image embedder raise ValueError; TeaCache on
+    Wan is still refused."""
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="I2V.*image encoder"):
-        twan.wan_init_random(0, dataclasses.replace(tcfg, image_dim=32), device="cpu")
     video, text = _inputs(0)
     args = (torch.from_numpy(video).bfloat16(), torch.full((1,), 1.0),
             torch.from_numpy(text).bfloat16())
-    with pytest.raises(NotImplementedError, match="I2V"):
-        twan.wan_forward(tparams, tcfg, *args, encoder_hidden_states_image=args[2])
+    with pytest.raises(ValueError, match="image embedder"):
+        twan.wan_forward(tparams, tcfg, *args,
+                         encoder_hidden_states_image=torch.zeros(1, IMG_TOKENS, IMG_DIM))
     # the step caches of Wan are FBCache and DiCache; TeaCache is refused, as in JAX
     from fastdm_tpu_torch.caching.config import TeaCacheConfig
 
     with pytest.raises(ValueError, match="FBCache / DiCache"):
         twan.wan_forward_cached(tparams, tcfg, TeaCacheConfig(), {}, 0, 1, *args)
+
+
+# ------------------------------------------------------ Wan2.1-I2V image branch
+
+# the image tokens of tests/test_torch_clip_vision.py's tiny tower: 48 wide,
+# 4x4 patches of a 56-pixel image and the class token
+IMG_DIM, IMG_TOKENS = 48, 17
+INNER = TINY["num_attention_heads"] * TINY["attention_head_dim"]
+
+
+def _image_sd(seed, pos_embed=False, in_channels=None, out_channels=None):
+    """A tiny diffusers-layout Wan2.1-I2V transformer state dict: the t2v
+    blocks plus condition_embedder.image_embedder (and its pos_embed) and
+    each block's attn2.add_k_proj / add_v_proj / norm_added_k."""
+    from reference_harness import lin
+
+    rng = np.random.default_rng(seed)
+    sd = _state_dict(rng)
+    if in_channels is not None:
+        sd["patch_embedding.weight"] = (rng.standard_normal((INNER, in_channels, 1, 2, 2))
+                                        * 0.05).astype(np.float32)
+        lin(sd, rng, "proj_out", INNER, out_channels * 4)
+    ie = "condition_embedder.image_embedder"
+    for n, width in (("norm1", IMG_DIM), ("norm2", INNER)):
+        sd[f"{ie}.{n}.weight"] = (1.0 + 0.1 * rng.standard_normal(width)).astype(np.float32)
+        sd[f"{ie}.{n}.bias"] = (0.05 * rng.standard_normal(width)).astype(np.float32)
+    lin(sd, rng, f"{ie}.ff.net.0.proj", IMG_DIM, IMG_DIM, std=0.15)
+    lin(sd, rng, f"{ie}.ff.net.2", IMG_DIM, INNER, std=0.15)
+    if pos_embed:
+        sd[f"{ie}.pos_embed"] = (0.3 * rng.standard_normal((1, 2 * IMG_TOKENS, IMG_DIM))
+                                 ).astype(np.float32)
+    for i in range(TINY["num_layers"]):
+        p = f"blocks.{i}.attn2"
+        lin(sd, rng, f"{p}.add_k_proj", INNER, INNER, std=0.15)
+        lin(sd, rng, f"{p}.add_v_proj", INNER, INNER, std=0.15)
+        sd[f"{p}.norm_added_k.weight"] = (1.0 + 0.05 * rng.standard_normal(INNER)).astype(
+            np.float32)
+    return sd
+
+
+def _image_cfgs(quant):
+    return _cfgs(quant=quant, image_dim=IMG_DIM, added_kv_proj_dim=INNER)
+
+
+@pytest.fixture(scope="module", params=[(None, False), ("int8", False), (None, True),
+                                        ("int8", True)], ids=lambda p: f"{p[0]}-pos{p[1]}")
+def image_models(request):
+    """JAX's loader on a synthetic Wan2.1-I2V state dict, the port's tree
+    converted from it (with and without pos_embed)."""
+    quant, pos = request.param
+    jcfg, tcfg = _image_cfgs(quant)
+    sd = _image_sd(20 + pos, pos_embed=pos)
+    jparams = jwan.wan_load(JSource(dict(sd)), jcfg)
+    tparams = wan_params_from_numpy(jax.device_get(jparams), device="cpu")
+    return jcfg, jparams, tcfg, tparams, sd, pos
+
+
+def _image_tokens(seed, pos):
+    """CLIP penultimate tokens: two images' (first and last frame) with a
+    pos_embed, one otherwise."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((2 if pos else 1, IMG_TOKENS, IMG_DIM)).astype(np.float32)
+
+
+def test_image_branch_loads_and_converts_bit_for_bit(image_models):
+    """wan_load from the diffusers names and wan_params_from_numpy of JAX's
+    tree give the same parameters, and the converter keeps every leaf."""
+    jcfg, jparams, tcfg, tparams, sd, pos = image_models
+    loaded = twan.wan_load(TSource(dict(sd), device="cpu"), tcfg)
+    for (name, a), (name_b, b) in zip(loaded.named_parameters(), tparams.named_parameters()):
+        assert name == name_b and a.dtype == b.dtype and torch.equal(a, b), name
+    n_jax = sum(x.size for x in jax.tree_util.tree_leaves(jparams))
+    assert sum(p.numel() for p in tparams.parameters()) == n_jax
+    ie = tparams.image_embedder
+    assert (ie.pos_embed is not None) == pos and ie.proj.w.dtype == torch.bfloat16
+    a2 = tparams.blocks[0].attn2
+    want = torch.int8 if tcfg.quant == "int8" else torch.bfloat16
+    assert a2.add_k.w.dtype == a2.add_v.w.dtype == want and a2.norm_added_k.shape == (INNER,)
+
+
+def test_wan_condition_with_image_matches_jax(image_models):
+    """The image embedder (f32) and the text projection: the context is the
+    image tokens, within relative L2 1e-3 of JAX (f32 throughout, one bf16
+    rounding at the end), then the text tokens, within 1e-2 (the bf16 text
+    projection, as the forwards)."""
+    jcfg, jparams, tcfg, tparams, _, pos = image_models
+    img = _image_tokens(1, pos)
+    _, text = _inputs(1)
+    t = np.array([700.0], np.float32)
+    _, _, want = jwan.wan_condition(jparams, jcfg, jnp.asarray(t), jnp.asarray(text, jnp.bfloat16),
+                                    jnp.asarray(img, jnp.bfloat16))
+    _, _, got = twan.wan_condition(tparams, tcfg, torch.from_numpy(t),
+                                   torch.from_numpy(text).bfloat16(),
+                                   torch.from_numpy(img).bfloat16())
+    n_img = (2 if pos else 1) * IMG_TOKENS
+    assert tuple(got.shape) == want.shape == (1, n_img + TEXT, INNER)
+    assert got.dtype == torch.bfloat16
+    assert _rel_l2(got[:, :n_img], want[:, :n_img]) <= 1e-3
+    assert _rel_l2(got[:, n_img:], want[:, n_img:]) <= 1e-2
+
+
+def _image_forward_pair(jcfg, jparams, tcfg, tparams, seed, img):
+    video, text = _inputs(seed)
+    t = 400.0
+    jimg = None if img is None else jnp.asarray(img, jnp.bfloat16)
+    timg = None if img is None else torch.from_numpy(img).bfloat16()
+    want = jwan.wan_forward(jparams, jcfg, jnp.asarray(video, jnp.bfloat16),
+                            jnp.full((1,), t, jnp.float32), jnp.asarray(text, jnp.bfloat16),
+                            jimg)
+    got = twan.wan_forward(tparams, tcfg, torch.from_numpy(video).bfloat16(),
+                           torch.full((1,), t), torch.from_numpy(text).bfloat16(), timg)
+    return got, want
+
+
+def test_wan_forward_with_image_matches_jax(image_models):
+    """The whole forward with image tokens (bf16 and int8, with and without
+    pos_embed) within relative L2 1e-2 of JAX; the image changes it; the
+    chunked cross-attention (4 chunks) gives the same forward."""
+    jcfg, jparams, tcfg, tparams, _, pos = image_models
+    img = _image_tokens(2, pos)
+    got, want = _image_forward_pair(jcfg, jparams, tcfg, tparams, 3, img)
+    assert _rel_l2(got, want) <= 1e-2
+    text_only, _ = _image_forward_pair(jcfg, jparams, tcfg, tparams, 3, None)
+    assert _rel_l2(got, text_only) > 1e-2
+    video, text = _inputs(3)
+    chunked = twan.wan_forward(tparams, dataclasses.replace(tcfg, ffn_chunk_tokens=64),
+                               torch.from_numpy(video).bfloat16(), torch.full((1,), 400.0),
+                               torch.from_numpy(text).bfloat16(),
+                               torch.from_numpy(img).bfloat16())
+    if tcfg.quant == "int8":
+        assert torch.equal(chunked, got)
+    else:
+        assert _rel_l2(chunked, got) <= 1e-2
+
+
+def test_text_only_context_skips_the_image_keys(image_models):
+    """An image checkpoint driven without an image: a context of text_len
+    tokens takes the text path alone (JAX's guard: a zero-length image
+    softmax would be NaN), equal to the forward of the same tree without
+    add_k / add_v, and to JAX's."""
+    jcfg, jparams, tcfg, tparams, _, _ = image_models
+    got, want = _image_forward_pair(jcfg, jparams, tcfg, tparams, 4, None)
+    assert bool(torch.isfinite(got).all()) and _rel_l2(got, want) <= 1e-2
+    bare = wan_params_from_numpy(jax.device_get(jparams), device="cpu")
+    for blk in bare.blocks:
+        blk.attn2.add_k = blk.attn2.add_v = None
+    video, text = _inputs(4)
+    plain = twan.wan_forward(bare, tcfg, torch.from_numpy(video).bfloat16(),
+                             torch.full((1,), 400.0), torch.from_numpy(text).bfloat16())
+    assert torch.equal(plain, got)
+
+
+def test_wan_init_random_image_branch():
+    _, tcfg = _image_cfgs("int8")
+    a, b = (twan.wan_init_random(9, tcfg, device="cpu") for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+    ie, a2 = a.image_embedder, a.blocks[1].attn2
+    assert ie.proj.w.shape == (IMG_DIM, IMG_DIM) and ie.out.w.shape == (IMG_DIM, INNER)
+    assert ie.norm1_gamma.dtype == torch.float32 and ie.pos_embed is None
+    assert a2.add_k.w.dtype == a2.add_v.w.dtype == torch.int8
+    assert a2.add_k.w.shape == (INNER, INNER) and a2.norm_added_k.dtype == torch.bfloat16
+    _, plain = _cfgs(quant="int8")
+    t2v = twan.wan_init_random(9, plain, device="cpu")
+    assert t2v.image_embedder is None and t2v.blocks[0].attn2.add_k is None
 
 
 # ------------------------------------------------------------- scheduler
@@ -450,3 +616,124 @@ def test_engine_without_a_vae_returns_latents_and_says_so(tmp_path, capsys):
     with pytest.raises(ValueError, match="FBCache / DiCache"):
         FastDMEngine(str(tmp_path), architecture="wan", device="cpu", verbose=False,
                      cache_config={"cache_algorithm": "teacache", "enable_caching": True})
+
+
+# ------------------------------------------------------- Wan2.1-I2V engine
+
+
+def _write_i2v_checkpoint(root, experts: int = 1):
+    """A tiny Wan2.1-I2V-14B layout: the transformer with in_channels 36
+    (16 latent + 4 mask + 16 encoded channels), image_dim and
+    added_kv_proj_dim in its config.json (two experts when asked), the
+    Wan2.1-layout VAE with z_dim 16 and image_encoder/, a CLIPVisionModel
+    written by transformers (no projection, as Wan2.1's)."""
+    from safetensors.torch import save_file
+    from test_torch_clip_vision import write_tower
+    from test_wan_vae import TINY as VAE_TINY
+    from test_wan_vae import _mk_diffusers_state_dict
+
+    sds = []
+    for i, sub in enumerate(("transformer", "transformer_2")[:experts]):
+        sd = _image_sd(40 + i, in_channels=36, out_channels=16)
+        os.makedirs(os.path.join(root, sub))
+        save_file({k: torch.from_numpy(v) for k, v in sd.items()},
+                  os.path.join(root, sub, "model.safetensors"))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(dict(TINY, in_channels=36, out_channels=16, patch_size=[1, 2, 2],
+                           image_dim=IMG_DIM, added_kv_proj_dim=INNER), f)
+        sds.append(sd)
+    vcfg = dataclasses.replace(VAE_TINY, z_dim=16, latents_mean=tuple(0.05 * i for i in range(16)),
+                               latents_std=tuple(1.0 + 0.05 * i for i in range(16)))
+    os.makedirs(os.path.join(root, "vae"))
+    save_file({k: torch.from_numpy(v) for k, v in _mk_diffusers_state_dict(vcfg).items()},
+              os.path.join(root, "vae", "model.safetensors"))
+    with open(os.path.join(root, "vae", "config.json"), "w") as f:
+        json.dump({"base_dim": vcfg.base_dim, "z_dim": 16, "dim_mult": list(vcfg.dim_mult),
+                   "num_res_blocks": vcfg.num_res_blocks,
+                   "temperal_downsample": list(vcfg.temporal_downsample),
+                   "latents_mean": list(vcfg.latents_mean),
+                   "latents_std": list(vcfg.latents_std)}, f)
+    write_tower(os.path.join(root, "image_encoder"), projection=False, seed=41)
+    return sds
+
+
+def _i2v_embeds(seed):
+    """UMT5-length (text_len 512) embeddings: the image keys are taken only
+    when the context is longer than text_len."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((1, 512, TINY["text_dim"])).astype(np.float32) * 0.5
+            for _ in range(2)]
+
+
+@pytest.mark.parametrize("arch,quant", [("wan2.1-i2v", "int8"), ("wan-i2v", None)])
+def test_engine_wan21_i2v_matches_jax(tmp_path, arch, quant):
+    """generate(task="i2v", image=...) on a Wan2.1-I2V checkpoint: the CLIP
+    tokens equal JAX's CLIPImageEncoder's (hidden_states=True) but for one
+    bf16 ulp on at most 2e-3 of the elements; the latents are JAX's
+    one-expert loop (JAX's loader, JAX's tokens) on the engine's noise and
+    i2v channels within relative L2 2e-2, and the port's loop on the
+    engine's own tokens bit for bit."""
+    from fastdm_tpu.pipeline import text_encoder as jtext
+    from fastdm_tpu_torch.engine import FastDMEngine
+
+    root = str(tmp_path)
+    sd = _write_i2v_checkpoint(root)[0]
+    eng = FastDMEngine(root, architecture=arch, use_int8=quant == "int8", verbose=False,
+                       device="cpu")
+    assert eng.architecture == "wan" and eng.params_2 is None
+    assert eng.cfg.image_dim == IMG_DIM and eng.cfg.added_kv_proj_dim == INNER
+    assert eng.wan_image_encoder is not None and not eng.wan_image_encoder.loaded
+    pos, neg = _i2v_embeds(6)
+    image = np.random.default_rng(7).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    kw = dict(prompt_embeds=pos, negative_prompt_embeds=neg, height=32, width=48, num_frames=5,
+              num_inference_steps=3, guidance_scale=5.0, seed=2, output_type="latent")
+    lat = eng.generate(image=image, **kw)  # no task: i2v
+    assert lat.shape == (1, 16, 2, 4, 6)
+    tokens = eng.wan_image_encoder.encode(image, hidden_states=True)
+    jtokens = jtext.CLIPImageEncoder(os.path.join(root, "image_encoder")).encode(
+        image, hidden_states=True)
+    assert tuple(tokens.shape) == (1, IMG_TOKENS, IMG_DIM)
+    diff = np.abs(tokens.float().numpy() - np.asarray(jtokens.astype(jnp.float32)))
+    spacing = np.spacing(np.abs(np.asarray(jtokens.astype(jnp.float32)))) * 2.0 ** 16
+    assert (diff <= spacing).all() and (diff > 0).mean() <= 2e-3
+    cond = eng._wan_i2v_latents(image, 2, 4, 6, 5)
+    noise = torch.randn((1, 16, 2, 4, 6), generator=torch.Generator().manual_seed(2))
+    cos, sin = twan.wan_rope_cos_sin(eng.cfg, 2, 4, 6, device="cpu")
+    tpos, tneg = torch.from_numpy(pos).bfloat16(), torch.from_numpy(neg).bfloat16()
+    ref, _ = make_wan_denoiser(eng.cfg, TUniPC.create(3, shift=5.0), 3, 5.0)(
+        eng.params, noise, tpos, tneg, cos, sin, None, cond, tokens)
+    np.testing.assert_array_equal(lat, ref.numpy())
+    no_image, _ = make_wan_denoiser(eng.cfg, TUniPC.create(3, shift=5.0), 3, 5.0)(
+        eng.params, noise, tpos, tneg, cos, sin, None, cond)
+    assert _rel_l2(no_image, ref) > 1e-2
+    jcfg = jwan.WanConfig(**dataclasses.asdict(eng.cfg))
+    jparams = jwan.wan_load(JSource(dict(sd)), jcfg)
+    jc, js = jwan.wan_rope_cos_sin(jcfg, 2, 4, 6)
+    want, _ = j_one_expert(jcfg, JUniPC.create(3, shift=5.0), 3, 5.0)(
+        jparams, None, jnp.asarray(noise.numpy()), jnp.asarray(pos, jnp.bfloat16),
+        jnp.asarray(neg, jnp.bfloat16), jc, js, None, jnp.asarray(cond.numpy()), jtokens)
+    assert _rel_l2(lat, want) <= 2e-2, _rel_l2(lat, want)
+
+
+def test_engine_wan21_i2v_refusals(tmp_path):
+    """The dual expert with image tokens raises, as the JAX engine; a
+    missing image_encoder/ names the directory."""
+    from fastdm_tpu_torch.engine import FastDMEngine
+
+    root = str(tmp_path)
+    _write_i2v_checkpoint(root, experts=2)
+    eng = FastDMEngine(root, architecture="wan2.1-i2v", verbose=False, device="cpu")
+    assert eng.params_2 is not None and eng.wan_image_encoder is not None
+    pos, neg = _i2v_embeds(8)
+    image = np.random.default_rng(9).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    kw = dict(prompt_embeds=pos, negative_prompt_embeds=neg, height=32, width=48, num_frames=5,
+              num_inference_steps=2, output_type="latent")
+    with pytest.raises(NotImplementedError, match="dual-expert"):
+        eng.generate(task="i2v", image=image, **kw)
+    import shutil
+
+    shutil.rmtree(os.path.join(root, "image_encoder"))
+    shutil.rmtree(os.path.join(root, "transformer_2"))
+    eng = FastDMEngine(root, architecture="wan-i2v", verbose=False, device="cpu")
+    with pytest.raises(FileNotFoundError, match="image_encoder"):
+        eng.generate(task="i2v", image=image, **kw)

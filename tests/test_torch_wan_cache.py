@@ -230,6 +230,31 @@ def test_cached_denoiser_matches_jax(model, name, margins):
 
 
 @pytest.mark.parametrize("name", ["fbcache", "dicache-delta_y"])
+def test_cached_denoiser_with_image_tokens_matches_jax(name, margins):
+    """Wan2.1-I2V's image branch under FBCache / DiCache: one expert, 6 UniPC
+    steps, CFG 5.0, the same CLIP tokens for both streams (the probe and
+    the rest carry them in the context); latents and skip counts against
+    JAX's make_wan_cached_denoiser(encoder_image=...)."""
+    from test_torch_wan import IMG_DIM, IMG_TOKENS, INNER
+
+    common = dict(TINY, text_len=TEXT, num_layers=3, quant="int8", image_dim=IMG_DIM,
+                  added_kv_proj_dim=INNER)
+    jcfg, tcfg = jwan.WanConfig(**common), twan.WanConfig(**common)
+    jparams = jwan.wan_init_random(jax.random.key(5), jcfg)
+    tparams = wan_params_from_numpy(jax.device_get(jparams), device="cpu")
+    assert tparams.image_embedder is not None and tparams.blocks[2].attn2.add_k is not None
+    jc, tc = _configs(name)
+    jin, tin = _denoiser_inputs(jcfg, tcfg, 13)
+    img = np.random.default_rng(14).standard_normal((1, IMG_TOKENS, IMG_DIM)).astype(np.float32)
+    want, jskips = j_cached(jcfg, JUniPC.create(6, shift=5.0), 6, jc, 5.0)(
+        jparams, *jin, None, None, jnp.asarray(img, jnp.bfloat16))
+    got, skips = make_wan_cached_denoiser(tcfg, TUniPC.create(6, shift=5.0), 6, tc, 5.0)(
+        tparams, *tin, None, None, torch.from_numpy(img).bfloat16())
+    assert skips == int(jskips) and skips > 0
+    assert got.dtype == torch.float32 and _rel_l2(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("name", ["fbcache", "dicache-delta_y"])
 def test_dual_phase_cached_denoiser_matches_jax(name, margins):
     """Two experts, 8 UniPC steps (boundary 0.875), CFG 4.0 / 3.0, the radial
     superblock tables with one dense layer and one dense warmup step; each
