@@ -132,7 +132,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      to the plain one, and bit for bit to the one with only the W4A4 ops plain;
      then a Qwen-Image-Edit request: one 1024x1024 source through the
      full-size Wan2.1-layout VAE encoder, its tokens after the 1024x1024
-     noise's, true CFG 4.0 on two TeaCache streams, 4 steps.
+     noise's, true CFG 4.0 on two TeaCache streams, 4 steps. Then
+     (phase_qwen_vl) Qwen2.5-VL-7B at full width and depth in f32 from a
+     seed (28 layers of 3584 and the 32-block vision tower, 28.9 GiB) with a
+     byte-level BPE tokenizer written here (Qwen's 151643 ids, the specials
+     after them): a short CFG pair and one at the 1058-token maximum
+     encoded, the vision forward on a 1024x1024 source (1036x1036: 5476
+     patches) and the edit encode (seconds, f32 TFLOP/s, peak GiB), no kernel
+     launched; two layers and eight vision blocks on the card held to the
+     CPU within QWEN_VL_REL_L2_TOL; on the resident int4p model through
+     FastDMEngine.generate, a 1024x2048 request and a Qwen-Image-Edit
+     1024x1024 request from prompt strings at true CFG 4.0, each equal bit
+     for bit to the request from that encoder's embeddings, launches as
+     derived; then the kernels at the text lengths those prompts give the
+     DiT (rmsnorm, rotembd, sdpa, the W4A4 ops at M = text x batch), batch 1
+     and 2, against their plain versions. A [qwen-vl] line after [done] sums
+     it up.
   wan5b: frees Qwen, draws Wan2.2-TI2V-5B int8 at full width and depth (30
      blocks, 24x128 heads, ffn 14336, per-token timesteps) from a seed: one
      768x768x121 forward with the TI2V per-token timestep, launches exactly
@@ -190,7 +205,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      in its config.json, the checkpoint's 384x384 position table, full-size
      VAE) with use_int8 and Qwen-Image (full width, two blocks, the full-size
      Wan-layout VAE with base_dim in its config.json) with use_int4,
-     pack_int4 and quant_mods, one 1024x2048 generate each. Every vae/ holds
+     pack_int4 and quant_mods, one 1024x2048 generate each; the
+     qwen-image-edit engine then reads a 2-layer full-width Qwen2.5-VL
+     text_encoder/ (two vision blocks), tokenizer/ and processor/ written
+     into its checkpoint and generates t2i and an edit from prompt strings,
+     equal to the generates from their embeddings. Every vae/ holds
      the encoder too. The int8 and int4p FLUX engines and the Wan dual-expert
      int8 engine are built with snapshot_path on an empty dir beside the
      checkpoint (they write the quantized snapshot), then again from it:
@@ -224,6 +243,7 @@ Imports nothing of JAX or of fastdm_tpu.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -384,6 +404,30 @@ I2V21_IMAGE_DIM, I2V21_IMAGE_TOKENS, I2V21_STEPS, I2V21_CFG = 1280, 257, 2, 5.0
 I2V21_GATE_FRAMES = 17
 # the vision and Wan2.1-I2V numbers of every phase, printed after [done]
 I2V_SUMMARY: dict = {}
+# Qwen-Image's prompt encoder, Qwen2.5-VL-7B-Instruct (Qwen/Qwen-Image
+# text_encoder/config.json): the language model (28 layers of 3584, 28 query
+# and 4 key / value heads of 128, SwiGLU 18944, vocab 152064, M-RoPE [16, 24,
+# 24]) and the vision tower (32 blocks of 1280, 16 heads, MLP 3420, windows of
+# 112 px, full attention in blocks 7, 15, 23, 31, merger to 3584), in f32 as
+# the reference loads them, random weights from a seed; its byte-level BPE
+# tokenizer written here with Qwen's 151643 ids, the specials after them; the
+# processor at the published min / max pixels. The prompts encode at true
+# CFG 4.0 (the negative too): Qwen-Image t2i at 1024x2048, Qwen-Image-Edit
+# at 1024x1024 with one 1024x1024 source (1036x1036 for the tower: 5476
+# patches, 1369 image tokens)
+QWEN_VL_SEED, QWEN_VL_CFG = 800, 4.0
+QWEN_VL_PROMPTS = ("a photo of an astronaut riding a horse on the moon, highly detailed, 8k, "
+                   "cinematic lighting, 日本語 café",
+                   "blurry, low quality, watermark")
+QWEN_EDIT_PROMPT = "make it snow on the mountains and add a red kite in the sky"
+QWEN_VL_MAX_TEXT = 1024 + 34  # the reference's max_sequence_length + DROP_IDX
+QWEN_VL_PIXELS = (3136, 12845056)  # processor/preprocessor_config.json's min / max pixels
+# the card's f32 encoder cut to two layers and eight vision blocks (the last a
+# full-attention one) against the same modules on the CPU, as the text
+# encoders' gate
+QWEN_VL_REL_L2_TOL = 1e-4
+# the Qwen2.5-VL numbers, printed after [done]
+QWEN_VL_SUMMARY: dict = {}
 
 
 def log(*a):
@@ -866,10 +910,12 @@ def _w4a4_bounds(m: int, k: int, n: int) -> dict:
             "unpack_int4": bound(1.5 * k * n, k * n, F32_FLOPS)}
 
 
-def _w4a4_split(dev, g, gemms: dict, label: str) -> dict:
+def _w4a4_split(dev, g, gemms: dict, label: str, plain: bool = False) -> dict:
     """The three W4A4 kernels held bit-exact to their plain versions at every
     (M, K, N) of `gemms` and timed there: {kernel: [ms, bound ms] per
-    forward}, each shape's time times its count."""
+    forward}, each shape's time times its count. With `plain`, each shape
+    is also timed in the plain versions and in torch._int_mm's s32 product
+    (or its refusal), and logged."""
     import torch
 
     from fastdm_tpu_torch.kernels import cuda_backend as cb
@@ -899,6 +945,17 @@ def _w4a4_split(dev, g, gemms: dict, label: str) -> dict:
         for name, (b_ms, _) in _w4a4_bounds(m, k, n).items():
             split[name][0] += count * cuda_ms(calls[name], 5)
             split[name][1] += count * b_ms
+        if plain:
+            plains = {"quantize_to_int4": lambda: tb.quantize_to_int4_torch(x),
+                      "int4_matmul": lambda: tb.int4_matmul_torch(*args),
+                      "unpack_int4": lambda: tb.unpack_int4_torch(lin.w4p)}
+            try:
+                lib = f"{cuda_ms(lambda: torch._int_mm(q, w), 10):.4f} ms"
+            except RuntimeError as e:
+                lib = f"refused ({(str(e).strip().splitlines() or [type(e).__name__])[0][:80]})"
+            log(f"[w4a4] {label} {m}x{k} @ {k}x{n} plain versions: " + ", ".join(
+                f"{nm} {cuda_ms(fn, 1, 1):.4f} ms" for nm, fn in plains.items())
+                + f"; torch._int_mm {lib}")
         del x, lin, q, scale, w, args
     log(f"[w4a4] {label} forward ({sum(gemms.values())} linears each, from kernel times at "
         "each shape): " + ", ".join(f"{k} {v[0]:.3f} ms (bound {v[1]:.3f} ms)"
@@ -3124,7 +3181,9 @@ def phase_qwen(dev, summary: Optional[dict] = None) -> None:
     through make_qwen_denoiser as bench.py's main_qwen does (true CFG 1.0,
     512 text tokens, TeaCache 0.1 with teacache_qwenimage.json's polynomial,
     dynamic shift, 4 steps), then the full-size Wan VAE decoder on a
-    singleton frame; exact launches; one forward against the plain one."""
+    singleton frame; exact launches; one forward against the plain one;
+    then the edit request, phase_qwen_vl and, beside its resident encoder,
+    a bf16 Qwen-Image-Edit request (_qwen_bf16_beside_encoder)."""
     import torch
 
     from fastdm_tpu_torch.kernels import cuda_backend, kernel_registry
@@ -3205,7 +3264,11 @@ def phase_qwen(dev, summary: Optional[dict] = None) -> None:
     _forward_gate("qwen int4p", forward, QWEN_FORWARD_REL_L2_TOL, W4A4_OPS)
     del x
     _qwen_edit_request(dev, params, cfg, vae, vae_cfg, tea, {} if summary is None else summary)
-    del params, vae
+    enc = phase_qwen_vl(dev, params, cfg, vae, vae_cfg, tea)
+    del params
+    torch.cuda.empty_cache()
+    _qwen_bf16_beside_encoder(dev, enc, vae, vae_cfg)
+    del enc, vae
     torch.cuda.empty_cache()
 
 
@@ -3275,6 +3338,471 @@ def _qwen_edit_request(dev, params, cfg, vae, vae_cfg, tea, summary) -> None:
                          qwen_edit_skips=skips, qwen_edit_forward_s=round(fwd_sec, 4),
                          qwen_edit_peak_gib=round(peak, 2))
     del img, lat, out, xin, src, z
+
+
+# ------------------------------------------------------------------ qwen-vl
+
+
+@functools.lru_cache(maxsize=1)
+def _qwen_vocab(seed: int = QWEN_VL_SEED):
+    """A byte-level BPE of Qwen2's 151643 tokens, drawn from a seed: the 256
+    byte symbols; merge chains that make each word of the prompt templates
+    and the prompts one token, first; then merges of a piece of up to 8
+    symbols and one letter or digit, to the full size. The ids past the
+    bytes are a seeded permutation, so the prompts' ids spread over the
+    whole embedding. -> (vocab, merges)."""
+    import numpy as np
+
+    from fastdm_tpu_torch.pipeline.text_encoder import QwenImageTextEncoder as Q
+    from fastdm_tpu_torch.pipeline.tokenizers import QWEN2_VL_FIRST_ADDED_ID, \
+        bytes_to_unicode, qwen2_split
+
+    enc = bytes_to_unicode()
+    rng = np.random.default_rng(seed)
+    tokens = list(enc.values())
+    seen = set(tokens)
+    merges = []
+
+    def add(a: str, b: str) -> None:
+        if a + b not in seen:
+            seen.add(a + b)
+            merges.append((a, b))
+            tokens.append(a + b)
+
+    text = " ".join([Q.PROMPT_TEMPLATE, Q.EDIT_TEMPLATE, QWEN_EDIT_PROMPT, *QWEN_VL_PROMPTS])
+    for piece in dict.fromkeys(qwen2_split(text)):
+        sym = [enc[b] for b in piece.encode("utf-8")]
+        for s in sym[1:]:
+            add(sym[0], s)
+            sym[0] += s
+    inner = [enc[b] for b in b" abcdefghijklmnopqrstuvwxyz"]
+    ends = [enc[b] for b in b"etaoinshrdlucmfwypvbgkqjxz0123456789"]
+    while len(tokens) < QWEN2_VL_FIRST_ADDED_ID:
+        for ai, bi in zip(rng.integers(0, 1 << 30, 4096), rng.exponential(7.0, 4096)):
+            a = inner[int(ai) % len(inner)]
+            if len(a) > 8 or len(tokens) >= QWEN2_VL_FIRST_ADDED_ID:
+                continue
+            b = ends[min(int(bi), len(ends) - 1)]
+            if a + b not in seen:
+                add(a, b)
+                inner.append(a + b)
+    ids = np.concatenate([np.arange(256), 256 + rng.permutation(len(tokens) - 256)])
+    return {t: int(i) for t, i in zip(tokens, ids)}, merges
+
+
+def _write_qwen_tokenizer(path: str) -> None:
+    from fastdm_tpu_torch.pipeline.tokenizers import save_bpe_tokenizer
+
+    save_bpe_tokenizer(path, *_qwen_vocab())
+
+
+def _qwen_vl_encoder(dev, tok_path: str, layers: Optional[int] = None):
+    """A QwenImageTextEncoder holding Qwen2.5-VL-7B drawn from QWEN_VL_SEED
+    (f32; the language model cut to `layers` when given), the tokenizer at
+    tok_path and the processor at the published pixel limits."""
+    from fastdm_tpu_torch.models.qwen2_5_vl import Qwen2_5_VLConfig, qwen2_5_vl_init_random
+    from fastdm_tpu_torch.pipeline.image_processor import Qwen2VLImageProcessor
+    from fastdm_tpu_torch.pipeline.text_encoder import QwenImageTextEncoder
+    from fastdm_tpu_torch.pipeline.tokenizers import load_tokenizer
+
+    cfg = Qwen2_5_VLConfig()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    enc = QwenImageTextEncoder(f"<Qwen2.5-VL-7B drawn from seed {QWEN_VL_SEED}>", device=dev)
+    enc.tokenizer = enc.vl_tokenizer = load_tokenizer(tok_path)
+    enc.text_encoder = qwen2_5_vl_init_random(QWEN_VL_SEED, cfg, dev)
+    enc.processor = Qwen2VLImageProcessor(*QWEN_VL_PIXELS)
+    enc.loaded = True
+    return enc
+
+
+def _qwen_lm_flops(cfg, b: int, s: int) -> float:
+    """The language model's operations on (b, s) tokens: the projections and
+    the SwiGLU (2 x tokens x weights), q.k and p.v over every key (the
+    masked ones are computed too)."""
+    d, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    return 2.0 * b * s * n * (2 * d * d + 2 * d * kv + 3 * d * f) + 4.0 * b * n * s * s * d
+
+
+def _qwen_vision_flops(v, grid) -> float:
+    """The vision tower's operations on the images of `grid`: the patch
+    matmul, per block qkv / proj / SwiGLU, attention in the windows padded
+    to the longest (as computed) or over each whole image, the merger."""
+    import numpy as np
+
+    from fastdm_tpu_torch.models.qwen2_5_vl import vision_window_index
+
+    n, d, i = int(grid.prod(1).sum()), v.hidden_size, v.intermediate_size
+    lens = np.diff(np.unique(vision_window_index(v, grid)[1]))
+    full = len([b for b in v.fullatt_block_indexes if b < v.depth])
+    attn_win = 4.0 * len(lens) * int(lens.max()) ** 2 * d
+    attn_full = 4.0 * float((grid.prod(1) ** 2).sum()) * d
+    wide = d * v.spatial_merge_size ** 2
+    return (2.0 * n * v.in_channels * v.temporal_patch_size * v.patch_size ** 2 * d
+            + v.depth * 2.0 * n * (4 * d * d + 3 * d * i)
+            + (v.depth - full) * attn_win + full * attn_full
+            + 2.0 * (n // v.spatial_merge_size ** 2) * (wide * wide + wide * v.out_hidden_size))
+
+
+def _qwen_vl_kernels(dev, cfg, cases: dict) -> None:
+    """The shapes the Qwen2.5-VL prompts send to the DiT's kernels, at batch
+    1 and 2: for each request (label -> (text tokens, (h, w) latent tokens
+    of the noise, extra source shapes)), rmsnorm on txt_norm's 3584-wide
+    text rows and the text stream's head rows within one bf16 ulp; rotembd
+    bit-exact on that request's scale_rope tables over the joint [text;
+    image] sequence; sdpa there (the long cases' tolerance); the W4A4
+    quantizer, unpack and GEMM bit-exact at M = text x batch for each
+    text-stream linear; each timed beside its bound, plain version and
+    library call."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.models.qwenimage import qwen_rope_cos_sin
+
+    g = torch.Generator(device=dev).manual_seed(830)
+    d, h, hd = cfg.inner_dim, cfg.num_attention_heads, cfg.attention_head_dim
+    t = QWEN_VL_SUMMARY.setdefault("kernel_ms", {})
+    txt_w = (1 + 0.05 * torch.randn(cfg.joint_attention_dim, generator=g, device=dev)).bfloat16()
+    head_w = (1 + 0.05 * torch.randn(hd, generator=g, device=dev)).bfloat16()
+    for label, (text, (ht, wt), extra) in cases.items():
+        img = ht * wt + sum(f * a * b for f, a, b in extra)
+        cos, sin = qwen_rope_cos_sin(cfg, 1, ht, wt, text, extra_shapes=extra, device=dev)
+        for b in (1, 2):
+            tag = f"Qwen {label} batch {b}"
+            x = torch.randn(b, text, cfg.joint_attention_dim, generator=g, device=dev,
+                            dtype=torch.bfloat16) * 3
+            t[f"rmsnorm txt_norm {label} b{b}"] = _rms_case(f"{tag} txt_norm", x, txt_w)
+            qkv = torch.randn(b, text + img, 3 * d, generator=g, device=dev,
+                              dtype=torch.bfloat16)
+            t[f"rmsnorm heads {label} b{b}"] = _rms_case(
+                f"{tag} text head rows", qkv[:, :text, :d].unflatten(-1, (h, hd)), head_w)
+            q, k, v = (qkv[..., i * d:(i + 1) * d].contiguous() for i in range(3))
+            del qkv
+            gq, gk = cb.rotary_pos_embedding_cuda(q, k, hd, cos, sin, False)
+            rq, rk = tb.rotary_pos_embedding_torch(q, k, hd, cos, sin, False)
+            if not (torch.equal(gq, rq) and torch.equal(gk, rk)):
+                raise AssertionError(f"rotembd is not bit-exact at {tag}")
+            rot_ms = cuda_ms(lambda: cb.rotary_pos_embedding_cuda(q, k, hd, cos, sin, False), 20)
+            rot_plain = cuda_ms(lambda: tb.rotary_pos_embedding_torch(q, k, hd, cos, sin, False),
+                                2, 1)
+            nb = 2 * q.numel()
+            b_ms, b_by = bound(2 * nb * 2 + 2 * cos.numel() * 4, 3 * nb, F32_FLOPS)
+            log(f"[rotembd] {tag} joint {tuple(q.shape)} ({text} text + {img} image tokens): "
+                f"bit-exact (tolerance: bit-exact); {rot_ms:.4f} ms ({b_ms / rot_ms:.1%} of the "
+                f"bound {b_ms:.4f} ms, {b_by}), plain {rot_plain:.4f} ms, library none")
+            t[f"rotembd {label} b{b}"] = rot_ms
+            t[f"sdpa {label} b{b}"] = _sdpa_case(f"{tag} joint ({text} text first)", gq, gk, v,
+                                                 h, hd)
+            del q, k, v, gq, gk, rq, rk, x
+            for kk, n in ((d, 3 * d), (d, d), (d, 4 * d), (4 * d, d)):
+                split = _w4a4_split(dev, g, {(b * text, kk, n): 1}, tag, plain=True)
+                for name, (ms, _) in split.items():
+                    t[f"{name} {label} b{b} {b * text}x{kk}x{n}"] = round(ms, 4)
+            torch.cuda.empty_cache()
+
+
+def phase_qwen_vl(dev, params, cfg, vae, vae_cfg, tea):
+    """Qwen2.5-VL-7B at full width and depth on the card in f32, from a
+    seed, with its byte-level BPE tokenizer written here: a CFG pair of
+    short prompts and one at the 1058-token maximum encoded (seconds, f32
+    TFLOP/s, peak GiB), the vision forward on a 1024x1024 source (1036 x
+    1036: 5476 patches) and the edit encode, and once the edit encode of
+    the processor's largest source (3584 x 3584), with no kernel launched; two
+    language-model layers and eight vision blocks on the card held to the
+    CPU; then, on the resident int4p Qwen-Image through FastDMEngine.generate
+    (TeaCache as the qwen phase, true CFG 4.0, 4 steps), a 1024x2048 request
+    from prompt strings and a Qwen-Image-Edit 1024x1024 request from strings
+    and the source, each equal bit for bit to the request from that
+    encoder's embeddings, launches as derived; then the new text lengths'
+    kernel shapes at batch 1 and 2 (_qwen_vl_kernels). Returns the encoder."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.qwen2_5_vl import Qwen2_5_VLModel, qwen2_5_vl_vision_forward
+    from fastdm_tpu_torch.pipeline.image_processor import expand_image_pads
+    from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_encoder_random
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-qtok-") as base:
+        tok_path = os.path.join(base, "tokenizer")
+        _, tok_s = _timed(_write_qwen_tokenizer, tok_path)
+        size = os.path.getsize(os.path.join(tok_path, "tokenizer.json"))
+        enc, init_s = _timed(_qwen_vl_encoder, dev, tok_path)
+    model = enc.text_encoder
+    mcfg, v = model.cfg, model.cfg.vision
+    n_lm = sum(p.numel() for k, p in model.named_parameters() if not k.startswith("visual."))
+    n_vis = sum(p.numel() for k, p in model.named_parameters() if k.startswith("visual."))
+    log(f"[qwen-vl] tokenizer.json of {len(_qwen_vocab()[0])} tokens + 22 specials written "
+        f"({size / 1e6:.1f} MB) in {tok_s:.1f} s; Qwen2.5-VL-7B drawn with it in {init_s:.1f} s: "
+        f"language model {n_lm / 1e9:.3f} B params, vision {n_vis / 1e9:.3f} B "
+        f"({(n_lm + n_vis) * 4 / 2**30:.2f} GiB f32)")
+    summary = QWEN_VL_SUMMARY
+    summary.update(lm_params=n_lm, vision_params=n_vis, init_s=round(init_s, 2),
+                   tokenizer_write_s=round(tok_s, 2))
+    cuda_backend.reset_launch_counts()
+    long = " ".join(["a majestic castle on a hill at dawn, ultra detailed, 8k"] * 150)
+    for label, prompts in (("short", list(QWEN_VL_PROMPTS)), ("max", [long, long + " night"])):
+        ids, _ = enc.tokenizer([enc.PROMPT_TEMPLATE.format(p) for p in prompts],
+                               QWEN_VL_MAX_TEXT)
+        enc.encode(prompts)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        emb, sec = _timed(enc.encode, prompts)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tflops = _qwen_lm_flops(mcfg, 2, ids.shape[1]) / sec / 1e12
+        ok = (tuple(emb.shape) == (2, ids.shape[1] - enc.DROP_IDX, mcfg.hidden_size)
+              and bool(torch.isfinite(emb.float()).all()))
+        log(f"[qwen-vl] encode a CFG pair ({label}: {ids.shape[1]} tokens, ids up to "
+            f"{int(ids.max())} of {mcfg.vocab_size} rows): {sec * 1e3:.2f} ms ({tflops:.1f} "
+            f"TFLOP/s f32), peak {peak:.2f} GiB; embeddings {tuple(emb.shape)} bf16, finite: {ok}")
+        if not ok or (label == "max" and ids.shape[1] != QWEN_VL_MAX_TEXT):
+            raise AssertionError(f"the {label} encode gave {tuple(emb.shape)} from "
+                                 f"{tuple(ids.shape)} ids")
+        summary[f"encode_{label}_{ids.shape[1]}_ms"] = round(sec * 1e3, 2)
+        summary[f"encode_{label}_tflops"] = round(tflops, 1)
+        summary[f"encode_{label}_peak_gib"] = round(peak, 2)
+    src = _seeded_image(810, EDIT_SIZE, EDIT_SIZE)
+    (pixels, grid), pre_s = _timed(enc.processor, src)
+    px = torch.from_numpy(pixels).to(dev)
+    with torch.inference_mode():
+        qwen2_5_vl_vision_forward(model, px, grid)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        tokens, vis_s = _timed(qwen2_5_vl_vision_forward, model, px, grid)
+    vis_peak = torch.cuda.max_memory_allocated() / 2**30
+    vis_tflops = _qwen_vision_flops(v, grid) / vis_s / 1e12
+    enc.encode_with_image(QWEN_EDIT_PROMPT, src)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    edit, edit_s = _timed(enc.encode_with_image, QWEN_EDIT_PROMPT, src)
+    edit_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_ids = edit.shape[1] + enc.EDIT_DROP_IDX
+    edit_tflops = (_qwen_lm_flops(mcfg, 1, n_ids) + _qwen_vision_flops(v, grid)) / edit_s / 1e12
+    counts = _launch_counts()
+    log(f"[qwen-vl] a {EDIT_SIZE}x{EDIT_SIZE} source preprocessed to {grid.tolist()} patches "
+        f"({pixels.shape[0]} rows of {pixels.shape[1]}) in {pre_s * 1e3:.1f} ms; the vision "
+        f"forward {vis_s * 1e3:.2f} ms ({vis_tflops:.1f} TFLOP/s f32 of "
+        f"{_qwen_vision_flops(v, grid) / 1e12:.3f} TFLOP), {tuple(tokens.shape)} tokens, peak "
+        f"{vis_peak:.2f} GiB; the edit encode ({n_ids} ids, {int(grid.prod()) // 4} image pads) "
+        f"{edit_s * 1e3:.2f} ms ({edit_tflops:.1f} TFLOP/s), peak {edit_peak:.2f} GiB, "
+        f"embeddings {tuple(edit.shape)}; kernel launches while encoding: {sum(counts.values())}")
+    if any(counts.values()) or not bool(torch.isfinite(edit.float()).all()) or \
+            tuple(tokens.shape) != (int(grid.prod()) // 4, mcfg.hidden_size):
+        raise AssertionError(f"Qwen2.5-VL encode: launches {counts}, tokens {tuple(tokens.shape)}")
+    summary.update(preprocess_ms=round(pre_s * 1e3, 1), vision_ms=round(vis_s * 1e3, 2),
+                   vision_tflops=round(vis_tflops, 1), vision_peak_gib=round(vis_peak, 2),
+                   edit_encode_ms=round(edit_s * 1e3, 2), edit_encode_tflops=round(edit_tflops, 1),
+                   edit_ids=n_ids, edit_peak_gib=round(edit_peak, 2))
+    del tokens, px, edit
+    # the processor's largest source, max_pixels on a square side (3584 x
+    # 3584: 65536 patches, 16384 image tokens), encoded once: no (keys x
+    # keys) score matrix in the tower's full-attention blocks or the LM
+    side = int(QWEN_VL_PIXELS[1] ** 0.5)
+    big = _seeded_image(812, side, side)
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    big_emb, big_s = _timed(enc.encode_with_image, QWEN_EDIT_PROMPT, big)
+    big_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_big = big_emb.shape[1] + enc.EDIT_DROP_IDX
+    counts = _launch_counts()
+    log(f"[qwen-vl] the largest source the processor keeps whole, {side}x{side} "
+        f"({QWEN_VL_PIXELS[1]} pixels): the edit encode ({n_big} ids) {big_s:.3f} s, peak "
+        f"{big_peak:.2f} GiB ({resident:.2f} resident), embeddings {tuple(big_emb.shape)}; "
+        f"kernel launches while encoding: {sum(counts.values())}")
+    if any(counts.values()) or not bool(torch.isfinite(big_emb.float()).all()) or \
+            n_big < (side // 28) ** 2:
+        raise AssertionError(f"the {side}x{side} edit encode: launches {counts}, embeddings "
+                             f"{tuple(big_emb.shape)}")
+    summary.update(max_source_encode_s=round(big_s, 3), max_source_ids=n_big,
+                   max_source_peak_gib=round(big_peak, 2))
+    del big_emb
+    # two language-model layers and eight vision blocks (block 7 full
+    # attention) on the card and on the CPU, on a 224x308 image
+    small = dataclasses.replace(mcfg, num_hidden_layers=2,
+                                vision=dataclasses.replace(v, depth=8))
+    with torch.device("meta"):
+        gpu2, cpu2 = Qwen2_5_VLModel(small), Qwen2_5_VLModel(small)
+    full = model.state_dict()
+    gpu2.load_state_dict({k: full[k] for k in gpu2.state_dict()}, assign=True)
+    cpu2.load_state_dict({k: full[k].cpu() for k in cpu2.state_dict()}, assign=True)
+    pix_s, grid_s = enc.processor(_seeded_image(811, 224, 308))
+    ids, mask = enc.vl_tokenizer(expand_image_pads([enc.EDIT_TEMPLATE.format("snow")], grid_s))
+    with torch.inference_mode():
+        want, cpu_s = _timed(cpu2, ids, mask, torch.from_numpy(pix_s), grid_s)
+        got = gpu2(ids, mask, torch.from_numpy(pix_s), grid_s)
+    err = float((got.cpu() - want).norm() / want.norm())
+    log(f"[qwen-vl] 2 layers + 8 vision blocks on the card vs the CPU ({ids.shape[1]} ids, "
+        f"{grid_s.tolist()} patches): relative L2 {err:.3e} (gate {QWEN_VL_REL_L2_TOL}; CPU "
+        f"{cpu_s:.1f} s)")
+    if not err <= QWEN_VL_REL_L2_TOL:
+        raise AssertionError(f"Qwen2.5-VL: the card's two layers are {err} from the CPU's")
+    summary["two_layer_rel_l2"] = float(f"{err:.3e}")
+    del gpu2, cpu2, full, got, want
+    torch.cuda.empty_cache()
+
+    vae = dict(vae, **wan_vae_encoder_random(11, vae_cfg, device=dev))
+    eng = _engine_shell(dev, "qwen", params=params, cfg=cfg, vae_params=vae, vae_cfg=vae_cfg,
+                        text_encoder=enc, cache_config=tea)
+    eng._bind_vae_fns()
+    computed, every = qwen_forward_launches(cfg, teacache=True)
+    negative, lengths = QWEN_VL_PROMPTS[1], {}
+    for label, prompt, kw in (
+            ("t2i", QWEN_VL_PROMPTS[0], dict(height=16 * QWEN_HT, width=16 * QWEN_WT)),
+            ("edit", QWEN_EDIT_PROMPT, dict(image=src))):
+        kw = dict(kw, num_inference_steps=QWEN_STEPS, true_cfg_scale=QWEN_VL_CFG, seed=820)
+        torch.cuda.reset_peak_memory_stats()
+        cuda_backend.reset_launch_counts()
+        got, sec = _timed(eng.generate, prompt=prompt, negative_prompt=negative, **kw)
+        counts, skips = _launch_counts(), eng.last_cache_skips
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if label == "t2i":
+            (pos, neg), enc_s = _timed(lambda: (enc.encode(prompt), enc.encode(negative)))
+        else:
+            (pos, neg), enc_s = _timed(lambda: (enc.encode_with_image(prompt, src),
+                                                enc.encode_with_image(negative, src)))
+        quiet = _launch_counts() == counts
+        cuda_backend.reset_launch_counts()
+        want, emb_s = _timed(eng.generate, prompt_embeds=pos, negative_prompt_embeds=neg, **kw)
+        forwards = 2 * QWEN_STEPS
+        derived = {k: computed[k] * (forwards - skips) + every[k] * forwards for k in computed}
+        same = np.array_equal(got, want)
+        text = max(pos.shape[1], neg.shape[1])
+        lengths[label] = text
+        log(f"[qwen-vl {label}] request from prompt strings ({pos.shape[1]} / {neg.shape[1]} "
+            f"text tokens, {text} to the DiT), true CFG {QWEN_VL_CFG}, {QWEN_STEPS} steps, "
+            f"TeaCache skipped {skips}/{forwards}: {sec:.3f} s, from the encoder's embeddings "
+            f"{emb_s:.3f} s (the pair encoded in {enc_s * 1e3:.1f} ms, no launch: {quiet}); "
+            f"image {got.shape} equal bit for bit: {same} (required); peak {peak:.2f} GiB; "
+            f"launches as derived: {counts == derived == _launch_counts()}")
+        if not (same and quiet and counts == derived == _launch_counts()
+                and np.isfinite(got).all()):
+            raise AssertionError(f"Qwen {label} from prompts: equal {same}, launches {counts} / "
+                                 f"{_launch_counts()} != {derived}")
+        summary[f"{label} prompt request_s"] = round(sec, 3)
+        summary[f"{label} embeddings request_s"] = round(emb_s, 3)
+        summary[f"{label} pair encode_s"] = round(enc_s, 4)
+        summary[f"{label} peak_gib"] = round(peak, 2)
+        summary[f"{label} text_tokens"] = text
+    del eng, model, pos, neg, got, want
+    torch.cuda.empty_cache()
+    ht = EDIT_SIZE // 16
+    _qwen_vl_kernels(dev, cfg, {"t2i": (lengths["t2i"], (QWEN_HT, QWEN_WT), ()),
+                                "edit": (lengths["edit"], (ht, ht), ((1, ht, ht),))})
+    return enc
+
+
+def _qwen_bf16_beside_encoder(dev, enc, vae, vae_cfg) -> None:
+    """Qwen-Image-Edit in bf16 (no quant) at full width and depth beside the
+    resident f32 Qwen2.5-VL-7B (`enc`), as an engine holds them: the device
+    memory at rest and the peak of one 1024x1024 edit request from prompt
+    strings at true CFG 4.0 (2 steps, no step cache), its image finite and
+    its launches as derived."""
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.qwenimage import QwenImageConfig, qwen_init_random
+    from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_encoder_random
+
+    cfg = QwenImageConfig(quant=None)
+    params, init_s = _timed(qwen_init_random, 9, cfg, device=dev)
+    vae = dict(vae, **wan_vae_encoder_random(11, vae_cfg, device=dev))
+    eng = _engine_shell(dev, "qwen", params=params, cfg=cfg, vae_params=vae, vae_cfg=vae_cfg,
+                        text_encoder=enc)
+    eng._bind_vae_fns()
+    resident = torch.cuda.memory_allocated() / 2**30
+    n = sum(p.numel() for p in params.parameters())
+    steps = 2
+    computed, every = qwen_forward_launches(cfg, teacache=False)
+    derived = {k: 0 if k in W4A4_OPS else (computed[k] + every[k]) * 2 * steps for k in computed}
+    torch.cuda.reset_peak_memory_stats()
+    cuda_backend.reset_launch_counts()
+    img, sec = _timed(eng.generate, prompt=QWEN_EDIT_PROMPT, negative_prompt=QWEN_VL_PROMPTS[1],
+                      image=_seeded_image(813, EDIT_SIZE, EDIT_SIZE), num_inference_steps=steps,
+                      true_cfg_scale=QWEN_VL_CFG, seed=821)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = _launch_counts()
+    log(f"[qwen-vl bf16] Qwen-Image bf16 ({n / 1e9:.3f} B params, drawn in {init_s:.1f} s) "
+        f"beside the f32 Qwen2.5-VL-7B: {resident:.2f} GiB resident of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; a {EDIT_SIZE}x"
+        f"{EDIT_SIZE} edit request from prompt strings, true CFG {QWEN_VL_CFG}, {steps} steps: "
+        f"{sec:.3f} s, peak {peak:.2f} GiB, image {img.shape} finite "
+        f"{bool(np.isfinite(img).all())}; launches as derived: {counts == derived}")
+    if counts != derived or not np.isfinite(img).all():
+        raise AssertionError(f"bf16 Qwen-Image-Edit beside the encoder: launches {counts} != "
+                             f"{derived}")
+    QWEN_VL_SUMMARY.update(bf16_resident_gib=round(resident, 2), bf16_edit_request_s=round(sec, 3),
+                           bf16_edit_peak_gib=round(peak, 2))
+    del eng, params, vae
+    torch.cuda.empty_cache()
+
+
+def _write_qwen_encoder_dirs(root: str, dev) -> None:
+    """tokenizer/ (the byte-level BPE of _qwen_vocab), text_encoder/
+    (Qwen2.5-VL at full width with two language-model layers and two vision
+    blocks, the second full attention, bf16, from a seed) and processor/
+    (the published pixel limits) in a Qwen-Image checkpoint."""
+    import torch
+
+    from fastdm_tpu_torch.models.qwen2_5_vl import Qwen2_5_VLConfig, qwen2_5_vl_init_random
+    from fastdm_tpu_torch.pipeline.image_processor import Qwen2VLImageProcessor
+    from fastdm_tpu_torch.pipeline.text_encoder import save_text_encoder
+
+    base = Qwen2_5_VLConfig()
+    cfg = dataclasses.replace(base, num_hidden_layers=2, vision=dataclasses.replace(
+        base.vision, depth=2, fullatt_block_indexes=(1,)))
+    _write_qwen_tokenizer(os.path.join(root, "tokenizer"))
+    model = qwen2_5_vl_init_random(QWEN_VL_SEED + 1, cfg, dev)
+    save_text_encoder(model, os.path.join(root, "text_encoder"), torch.bfloat16)
+    Qwen2VLImageProcessor(*QWEN_VL_PIXELS).save(os.path.join(root, "processor"))
+    del model
+
+
+def _engine_qwen_prompt(eng, kw: dict) -> None:
+    """The qwen-image-edit engine reading its checkpoint's tokenizer/,
+    text_encoder/ and processor/ at the first prompt: a 512x1024 t2i
+    generate and an edit of a 512x512 source, each from prompt strings at
+    true CFG 4.0 (the negative encoded too) and equal bit for bit to the
+    generate from the encoder's embeddings; launches as derived (no step
+    cache), none while encoding."""
+    import numpy as np
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+
+    kw = dict({k: v for k, v in kw.items() if "prompt_embeds" not in k},
+              true_cfg_scale=QWEN_VL_CFG, seed=413)
+    computed, every = qwen_forward_launches(eng.cfg, teacache=False)
+    per = {k: (computed[k] + every[k]) * 2 * kw["num_inference_steps"] for k in computed}
+    prompt, negative = QWEN_EDIT_PROMPT, QWEN_VL_PROMPTS[1]
+    enc = eng.text_encoder
+    _, load_s = _timed(enc.load)
+    src = _seeded_image(412, 512, 512)
+    for label, extra in (("t2i", dict(height=512, width=1024)), ("edit", dict(image=src))):
+        cuda_backend.reset_launch_counts()
+        got, sec = _timed(eng.generate, prompt=prompt, negative_prompt=negative, **kw, **extra)
+        counts = _launch_counts()
+        if label == "t2i":
+            pos, neg = enc.encode(prompt), enc.encode(negative)
+        else:
+            pos, neg = enc.encode_with_image(prompt, src), enc.encode_with_image(negative, src)
+        quiet = _launch_counts() == counts
+        cuda_backend.reset_launch_counts()
+        want, emb_s = _timed(eng.generate, prompt_embeds=pos, negative_prompt_embeds=neg, **kw,
+                             **extra)
+        same = isinstance(got, np.ndarray) and np.array_equal(got, want)
+        log(f"[engine qwen-image-edit prompt {label}] the 2-layer full-width Qwen2.5-VL loaded "
+            f"from text_encoder/ in {load_s:.2f} s; generate from prompt strings {sec:.3f} s "
+            f"({pos.shape[1]} / {neg.shape[1]} text tokens), from their embeddings {emb_s:.3f} "
+            f"s; {got.shape} equal: {same} (required); launches as derived "
+            f"{counts == per == _launch_counts()}, none while encoding: {quiet}")
+        if not (same and quiet and counts == per == _launch_counts()):
+            raise AssertionError(f"qwen-image-edit engine {label} from prompts: equal {same}, "
+                                 f"launches {counts} != {per}")
+        QWEN_VL_SUMMARY[f"engine {label} prompt generate_s"] = round(sec, 3)
+        QWEN_VL_SUMMARY[f"engine {label} embeddings generate_s"] = round(emb_s, 3)
 
 
 # ------------------------------------------------------------------ wan5b
@@ -3842,6 +4370,8 @@ def _engine_mmdit(dev, here: str, summary: dict) -> None:
                 # AutoencoderKL vae/ (no base_dim) on a bf16 engine
                 per = {k: computed[k] + every[k] for k in computed}
                 _engine_i2i(eng, "engine qwen-image-edit wan-vae", per, kw, 16, summary)
+                _write_qwen_encoder_dirs(root, dev)
+                _engine_qwen_prompt(eng, kw)
                 del eng
                 torch.cuda.empty_cache()
                 shutil.rmtree(os.path.join(root, "vae"))
@@ -5998,6 +6528,8 @@ def main() -> int:
     log(f"[text] text encoders (seconds, GiB) and prompt generates (seconds): {TEXT_SUMMARY}")
     log(f"[i2v] CLIP vision towers, Wan2.1-I2V and the SDXL image requests (ms, seconds, GiB): "
         f"{I2V_SUMMARY}")
+    log(f"[qwen-vl] Qwen2.5-VL-7B encodes, the prompt-string Qwen requests and their kernel "
+        f"shapes (ms, seconds, GiB): {QWEN_VL_SUMMARY}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

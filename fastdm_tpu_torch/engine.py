@@ -25,7 +25,10 @@ subsets of fastdm_tpu/engine.py).
 
     eng = FastDMEngine("/path/to/Qwen-Image", architecture="qwen-image", use_int4=True,
                        pack_int4=True, quant_mods=True)
-    images = eng.generate(prompt_embeds=..., height=1024, width=2048, true_cfg_scale=1.0)
+    images = eng.generate(prompt="a cat", height=1024, width=2048, true_cfg_scale=1.0)
+
+    eng = FastDMEngine("/path/to/Qwen-Image-Edit", architecture="qwen-image-edit")
+    images = eng.generate(prompt="make it snow", image=src_uint8_hxwx3, true_cfg_scale=4.0)
 
     eng = FastDMEngine("/path/to/FLUX.1-Kontext-dev", architecture="flux-kontext", use_int8=True)
     images = eng.generate(task="i2i", image=[ref_uint8_hxwx3, ...], prompt_embeds=...,
@@ -106,22 +109,25 @@ written by the port and read only by the port; the VAE, ControlNet and
 IP-Adapter weights are not in it.
 
 Prompt strings are encoded on the engine's device by the port's own
-tokenizers and CLIP / T5 / UMT5 modules in f32 (pipeline/text_encoder.py),
-from the checkpoint's tokenizer*/ and text_encoder*/ directories, read at the
-first prompt: FLUX (and flux-kontext) CLIP-L + T5 at max_sequence_length
-(the constructor's; default 512), SD3.5 CLIP-L + bigG + T5 at 256, SDXL
-CLIP-L + bigG, Wan UMT5 at the config's text_len. generate() takes prompt,
-negative_prompt (SD3.5 and SDXL encode it, "" when None, only under CFG;
-Wan always; FLUX ignores it) and, for FLUX / SD3.5 / SDXL,
-num_images_per_prompt; embeddings passed as keywords win over the strings.
+tokenizers and CLIP / T5 / UMT5 / Qwen2.5-VL modules in f32
+(pipeline/text_encoder.py), from the checkpoint's tokenizer*/ and
+text_encoder*/ directories, read at the first prompt: FLUX (and
+flux-kontext) CLIP-L + T5 at max_sequence_length (the constructor's;
+default 512), SD3.5 CLIP-L + bigG + T5 at 256, SDXL CLIP-L + bigG, Wan UMT5
+at the config's text_len, Qwen-Image Qwen2.5-VL at 1024 (and, for
+Qwen-Image-Edit, its vision tower on the images through processor/'s
+Qwen2-VL preprocessing). generate() takes prompt, negative_prompt (SD3.5
+and SDXL encode it, "" when None, only under CFG; Qwen-Image " " when None,
+only under true CFG; Wan always; FLUX ignores it) and, for FLUX / SD3.5 /
+SDXL / Qwen-Image, num_images_per_prompt; embeddings passed as keywords win
+over the strings.
 A prompt on a checkpoint without those directories raises FileNotFoundError
 naming the missing one. Images for the IP-Adapters and Wan2.1-I2V go through
 the port's CLIP preprocessing (transformers' pixel_values bit for bit, with
 no PIL) and vision tower in f32 on the engine's device (CLIPImageEncoder);
 a missing image_encoder/ raises FileNotFoundError naming it.
 
-The Qwen2.5-VL text encoder (Qwen-Image prompts) and the other model
-families arrive with later slices and raise NotImplementedError here.
+Model families outside ARCHITECTURES raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -140,7 +146,7 @@ from fastdm_tpu_torch.device import resolve_device
 from fastdm_tpu_torch.models.loader import TensorSource, as_tensor
 from fastdm_tpu_torch.pipeline.schedulers import FlowMatchEulerScheduler, flow_match_shift_mu
 from fastdm_tpu_torch.pipeline.text_encoder import CLIPImageEncoder, FluxTextEncoder, \
-    SD3TextEncoder, SDXLTextEncoder, WanTextEncoder
+    QwenImageTextEncoder, SD3TextEncoder, SDXLTextEncoder, WanTextEncoder
 from fastdm_tpu_torch.pipeline.vae import VAEConfig, vae_decode, vae_encode, vae_load
 
 # accepted names -> the model family (JAX's ARCH_ALIASES, the loaded subset)
@@ -600,6 +606,8 @@ class FastDMEngine:
         self.params = self._load_tree("transformer", lambda: qwen_load(TensorSource.from_path(
             os.path.join(self.model_path, "transformer"), self.device), self.cfg))
         self._load_vae()
+        # Qwen2.5-VL at its 1024-token default (fastdm_tpu/engine.py:674)
+        self.text_encoder = QwenImageTextEncoder(self.model_path, device=self.device)
 
     def _init_wan(self) -> None:
         from fastdm_tpu_torch.models.wan import WanConfig, wan_load
@@ -655,10 +663,10 @@ class FastDMEngine:
         pooled_prompt_embeds, output_type), SD3.5 and SDXL text-to-image (the
         same, plus negative_prompt, or negative_prompt_embeds and
         negative_pooled_prompt_embeds, for CFG), Qwen-Image text-to-image
-        (height, width, num_inference_steps, guidance_scale or
-        true_cfg_scale, seed, prompt_embeds, negative_prompt_embeds for true
-        CFG, output_type; prompt strings need the Qwen2.5-VL encoder, not in
-        the port yet) or Wan text- and image-to-video (task t2v, i2v or ti2v;
+        (prompt, negative_prompt for true CFG, height, width,
+        num_inference_steps, guidance_scale or true_cfg_scale, seed,
+        num_images_per_prompt, or prompt_embeds and negative_prompt_embeds,
+        output_type) or Wan text- and image-to-video (task t2v, i2v or ti2v;
         image, an (H, W, 3) uint8 first frame at height x width; prompt,
         negative_prompt or their embeddings; height, width, num_frames,
         num_inference_steps, guidance_scale, guidance_scale_2, seed,
@@ -994,42 +1002,59 @@ class FastDMEngine:
             return latents.cpu().numpy()
         return self._to_uint8(self._decode(self.vae_params, latents))
 
+    def _qwen_embeds(self, prompt, embeds, images, num_images_per_prompt: int,
+                     which: str = "") -> torch.Tensor:
+        """The given embeddings in bf16 on the device (they win), or the
+        prompt through the Qwen2.5-VL encoder: with the edit's images
+        (encode_with_image) or alone (encode)."""
+        if embeds is not None:
+            return self._device_tensor(embeds, torch.bfloat16)
+        if prompt is None:
+            raise ValueError(f"pass a {which}prompt or {which}prompt_embeds")
+        if images is not None:
+            return self.text_encoder.encode_with_image(prompt, images, num_images_per_prompt)
+        return self.text_encoder.encode(prompt, num_images_per_prompt)
+
     def _generate_qwen(self, prompt=None, negative_prompt=None, height: int = 1024,
                        width: int = 1024,
                        num_inference_steps: int = 25, guidance_scale: float = 4.0,
                        true_cfg_scale: Optional[float] = None, seed: int = 42,
-                       prompt_embeds=None, negative_prompt_embeds=None,
-                       output_type: str = "np", image=None):
-        """Qwen-Image, and with an image Qwen-Image-Edit: prompt_embeds (and
-        negative_prompt_embeds) are then the VL encoder's output on the prompt
-        and the images (JAX's encode_with_image)."""
+                       num_images_per_prompt: int = 1, prompt_embeds=None,
+                       negative_prompt_embeds=None, output_type: str = "np", image=None):
+        """Qwen-Image, and with an image Qwen-Image-Edit: the prompt (and,
+        under true CFG, negative_prompt, " " when None;
+        fastdm_tpu/engine.py:1203-1240) through the Qwen2.5-VL encoder, with
+        the images resized to multiples of 16 for the edit; given
+        prompt_embeds / negative_prompt_embeds win. One negative string
+        serves every prompt of a list."""
         from fastdm_tpu_torch.models.qwenimage import qwen_rope_cos_sin
         from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents
         from fastdm_tpu_torch.pipeline.denoise_qwen import make_qwen_denoiser, \
             make_qwen_edit_denoiser
 
         scale = true_cfg_scale if true_cfg_scale is not None else guidance_scale
-        if prompt_embeds is None or (scale > 1.0 and negative_prompt_embeds is None):
-            raise NotImplementedError(
-                "the Qwen2.5-VL text encoder is not in this slice of the port (ROADMAP.md "
-                "section 1 item 5, the Qwen2.5-VL tower); pass prompt_embeds (and, for true "
-                "CFG, negative_prompt_embeds)")
-        del prompt, negative_prompt
-        pos = self._device_tensor(prompt_embeds, torch.bfloat16)
-        neg = self._device_tensor(negative_prompt_embeds, torch.bfloat16) if scale > 1.0 \
-            else pos
+        images = None
+        if image is not None:
+            images = list(image) if isinstance(image, (list, tuple)) else [image]
+            images = [_resize_to_multiple(np.asarray(im), 16) for im in images]
+            height, width = images[0].shape[0], images[0].shape[1]
+        pos = self._qwen_embeds(prompt, prompt_embeds, images, num_images_per_prompt)
+        neg = pos
+        if scale > 1.0:
+            negative = negative_prompt or " "
+            one = negative_prompt_embeds is None and isinstance(negative, str)
+            neg = self._qwen_embeds(negative, negative_prompt_embeds, images,
+                                    1 if one else num_images_per_prompt, "negative_")
+            if one:  # one row, serving every positive row
+                neg = neg.expand(pos.shape[0], *neg.shape[1:])
         # pad both to one length
         s = max(pos.shape[1], neg.shape[1])
         pos = torch.nn.functional.pad(pos, (0, 0, 0, s - pos.shape[1]))
         neg = torch.nn.functional.pad(neg, (0, 0, 0, s - neg.shape[1]))
         b = pos.shape[0]
-        if image is not None:
-            images = list(image) if isinstance(image, (list, tuple)) else [image]
-            images = [_resize_to_multiple(np.asarray(im), 16) for im in images]
-            height, width = images[0].shape[0], images[0].shape[1]
         ht, wt = height // 16, width // 16
         latents = self._noise((b, ht * wt, self.cfg.in_channels), seed)
-        if image is not None:
+        if images is not None:
             # the source images' clean tokens after the noise, entries 1, 2, ... of the rope
             src = torch.cat([flux_pack_latents(self._encode_image(im)) for im in images], dim=1)
             src = src.expand(b, *src.shape[1:])

@@ -37,7 +37,7 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -218,3 +218,133 @@ class CLIPImageProcessor:
         if isinstance(images, (list, tuple)):
             return np.stack([self._one(im) for im in images])
         return self._one(images)[None]
+
+
+# ------------------------------------------------------------ Qwen2-VL
+
+
+def smart_resize(height: int, width: int, factor: int = 28, min_pixels: int = 56 * 56,
+                 max_pixels: int = 14 * 14 * 4 * 1280) -> Tuple[int, int]:
+    """transformers' Qwen2-VL smart_resize: each side rounded to a multiple
+    of `factor` (Python's round: ties to even), then scaled down (floor)
+    or up (ceil) by one factor when the area leaves [min_pixels,
+    max_pixels]."""
+    if max(height, width) / min(height, width) > 200:
+        raise ValueError(f"absolute aspect ratio must be smaller than 200, got "
+                         f"{max(height, width) / min(height, width)}")
+    h_bar = round(height / factor) * factor
+    w_bar = round(width / factor) * factor
+    if h_bar * w_bar > max_pixels:
+        beta = math.sqrt((height * width) / max_pixels)
+        h_bar = max(factor, math.floor(height / beta / factor) * factor)
+        w_bar = max(factor, math.floor(width / beta / factor) * factor)
+    elif h_bar * w_bar < min_pixels:
+        beta = math.sqrt(min_pixels / (height * width))
+        h_bar = math.ceil(height * beta / factor) * factor
+        w_bar = math.ceil(width * beta / factor) * factor
+    return h_bar, w_bar
+
+
+class Qwen2VLImageProcessor:
+    """transformers' slow Qwen2VLImageProcessor (the processor/ of
+    Qwen-Image-Edit, which Qwen2_5_VLProcessor runs) in numpy: each image
+    smart_resize'd to multiples of patch_size * merge_size with Pillow's
+    8-bit BICUBIC (resize_bicubic), rescaled in float64 and cast to
+    float32, normalized in float32, its one frame repeated to
+    temporal_patch_size, and cut into (grid_t * grid_h * grid_w, C *
+    temporal_patch_size * patch_size**2) patch rows in the merge-block
+    order of the vision tower (transpose (0, 3, 6, 4, 7, 2, 1, 5, 8)).
+    min_pixels / max_pixels come from the keys of those names, else
+    56 * 56 and 28 * 28 * 1280, as the slow processor's constructor takes
+    them (it ignores a `size` dict there)."""
+
+    def __init__(self, min_pixels: int = 56 * 56, max_pixels: int = 28 * 28 * 1280,
+                 patch_size: int = 14, temporal_patch_size: int = 2, merge_size: int = 2,
+                 do_resize: bool = True, do_rescale: bool = True,
+                 rescale_factor: float = 1 / 255, do_normalize: bool = True,
+                 image_mean: Sequence[float] = OPENAI_CLIP_MEAN,
+                 image_std: Sequence[float] = OPENAI_CLIP_STD, resample: int = BICUBIC):
+        if do_resize and int(resample) != BICUBIC:
+            raise NotImplementedError(
+                f"Qwen2-VL preprocessing with resample={resample} "
+                f"({_RESAMPLE_NAMES.get(int(resample), 'unknown')}): the port implements "
+                "Pillow's BICUBIC (3) only")
+        self.min_pixels, self.max_pixels = int(min_pixels), int(max_pixels)
+        self.patch_size, self.temporal_patch_size = patch_size, temporal_patch_size
+        self.merge_size = merge_size
+        self.do_resize, self.do_rescale, self.rescale_factor = do_resize, do_rescale, rescale_factor
+        self.do_normalize = do_normalize
+        self.image_mean = tuple(float(m) for m in image_mean)
+        self.image_std = tuple(float(s) for s in image_std)
+
+    KEYS = ("min_pixels", "max_pixels", "patch_size", "temporal_patch_size", "merge_size",
+            "do_resize", "do_rescale", "rescale_factor", "do_normalize", "image_mean",
+            "image_std", "resample")
+
+    @classmethod
+    def from_dir(cls, path: str) -> "Qwen2VLImageProcessor":
+        """The settings of path/preprocessor_config.json (a processor/
+        directory)."""
+        with open(os.path.join(path, "preprocessor_config.json"), "r", encoding="utf-8") as f:
+            cj = json.load(f)
+        return cls(**{k: cj[k] for k in cls.KEYS if cj.get(k) is not None})
+
+    def save(self, path: str) -> None:
+        """preprocessor_config.json as transformers' Qwen2VLImageProcessor
+        reads it (synthetic checkpoints)."""
+        os.makedirs(path, exist_ok=True)
+        cfg = {k: getattr(self, k) for k in self.KEYS if k != "resample"}
+        cfg.update(image_mean=list(self.image_mean), image_std=list(self.image_std),
+                   resample=BICUBIC, do_convert_rgb=True,
+                   size={"shortest_edge": self.min_pixels, "longest_edge": self.max_pixels},
+                   image_processor_type="Qwen2VLImageProcessor",
+                   processor_class="Qwen2_5_VLProcessor")
+        with open(os.path.join(path, "preprocessor_config.json"), "w", encoding="utf-8") as f:
+            json.dump(cfg, f)
+
+    def _one(self, image) -> Tuple[np.ndarray, Tuple[int, int, int]]:
+        img = np.asarray(image)
+        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+            raise ValueError(f"Qwen2-VL preprocessing takes (H, W, 3) uint8 images, got "
+                             f"{img.dtype} {img.shape}")
+        h, w = img.shape[:2]
+        p, m, tp = self.patch_size, self.merge_size, self.temporal_patch_size
+        if self.do_resize:
+            h, w = smart_resize(h, w, p * m, self.min_pixels, self.max_pixels)
+            img = resize_bicubic(img, h, w)
+        x = img
+        if self.do_rescale:
+            x = (x.astype(np.float64) * self.rescale_factor).astype(np.float32)
+        if self.do_normalize:
+            x = x.astype(np.float32) if not np.issubdtype(x.dtype, np.floating) else x
+            x = (x - np.array(self.image_mean, x.dtype)) / np.array(self.image_std, x.dtype)
+        x = np.repeat(x.transpose(2, 0, 1)[None], tp, axis=0)  # (T, C, H, W): one frame
+        gh, gw = h // p, w // p
+        x = x.reshape(1, tp, 3, gh // m, m, p, gw // m, m, p).transpose(0, 3, 6, 4, 7, 2, 1, 5, 8)
+        return np.ascontiguousarray(x.reshape(gh * gw, 3 * tp * p * p)), (1, gh, gw)
+
+    def __call__(self, images) -> Tuple[np.ndarray, np.ndarray]:
+        """One (H, W, 3) uint8 image or a list of them -> (pixel_values
+        (sum of patches, C * T * P * P) float32, image_grid_thw (n, 3) int64)."""
+        images = list(images) if isinstance(images, (list, tuple)) else [images]
+        rows, grids = zip(*(self._one(im) for im in images))
+        return np.concatenate(rows), np.array(grids, np.int64)
+
+
+def expand_image_pads(texts: Sequence[str], grid: np.ndarray,
+                      merge_size: int = 2) -> List[str]:
+    """Qwen2_5_VLProcessor's text expansion: the k-th <|image_pad|> of the
+    batch (counted across the texts in order) becomes grid[k].prod() /
+    merge_size**2 copies of itself."""
+    image_token = "<|image_pad|>"
+    out, k = [], 0
+    for t in texts:
+        parts = t.split(image_token)
+        pieces = [parts[0]]
+        for rest in parts[1:]:
+            if k >= len(grid):
+                raise ValueError(f"{k + 1} image tokens in the texts but {len(grid)} images")
+            pieces.append(image_token * int(np.prod(grid[k]) // merge_size ** 2) + rest)
+            k += 1
+        out.append("".join(pieces))
+    return out

@@ -31,7 +31,20 @@ device. A tower without visual_projection (Wan2.1's CLIPVisionModel) raises
 on image_embeds, where JAX's CLIPVisionModelWithProjection would project
 through randomly initialized weights.
 
-The Qwen2.5-VL tower (QwenImageTextEncoder) is not in the port yet.
+QwenImageTextEncoder (Qwen-Image, Qwen-Image-Edit) runs the port's
+byte-level BPE tokenizer and Qwen2.5-VL (models/qwen2_5_vl.py) in f32 on
+tokenizer/ and text_encoder/: encode() the chat template of
+fastdm_tpu/pipeline/text_encoder.py:237-244, truncated to
+max_sequence_length + 34 tokens, the last hidden states times the mask with
+the first 34 positions dropped; encode_with_image() the edit template with
+each image behind <|vision_start|><|image_pad|><|vision_end|> ("Picture i: "
+before each of several), the images through the Qwen2-VL preprocessing of
+processor/ (pipeline/image_processor.py) and the vision tower, the pads
+expanded as Qwen2_5_VLProcessor does, the first 64 positions dropped and
+the padding left unzeroed, as the reference. A checkpoint without
+processor/ or without a vision tower in its config encodes the text alone,
+said once; the reference does so on any error, the port raises on every
+other.
 """
 
 from __future__ import annotations
@@ -46,7 +59,7 @@ from fastdm_tpu_torch.device import resolve_device
 from fastdm_tpu_torch.models.clip_text import CLIPTextConfig, clip_text_load
 from fastdm_tpu_torch.models.loader import TensorSource
 from fastdm_tpu_torch.models.t5 import T5Config, t5_encoder_load
-from fastdm_tpu_torch.pipeline.tokenizers import load_tokenizer
+from fastdm_tpu_torch.pipeline.tokenizers import _as_list, load_tokenizer
 
 Tensor = torch.Tensor
 
@@ -199,6 +212,103 @@ class WanTextEncoder(_Lazy):
         return _bf16(embeds, num_videos_per_prompt)
 
 
+class QwenImageTextEncoder(_Lazy):
+    """The Qwen2.5-VL text tower (Qwen-Image) and, for Qwen-Image-Edit, its
+    vision tower, on the engine's device in f32."""
+
+    PROMPT_TEMPLATE = (
+        "<|im_start|>system\nDescribe the image by detailing the color, shape, "
+        "size, texture, quantity, text, spatial relationships of the objects "
+        "and background:<|im_end|>\n<|im_start|>user\n{}<|im_end|>\n"
+        "<|im_start|>assistant\n"
+    )
+    DROP_IDX = 34  # template prefix tokens dropped from the embedding
+    EDIT_TEMPLATE = (
+        "<|im_start|>system\nDescribe the key features of the input image "
+        "(color, shape, size, texture, objects, background), then explain how "
+        "the user's text instruction should alter or modify the image. Generate "
+        "a new image that meets the user's requirements while maintaining "
+        "consistency with the original input where appropriate.<|im_end|>\n"
+        "<|im_start|>user\n<|vision_start|><|image_pad|><|vision_end|>"
+        "{}<|im_end|>\n<|im_start|>assistant\n"
+    )
+    EDIT_DROP_IDX = 64
+    VISION = "<|vision_start|><|image_pad|><|vision_end|>"
+
+    def __init__(self, model_path: str, max_sequence_length: int = 1024, device="cuda"):
+        super().__init__(model_path, device)
+        self.max_sequence_length = max_sequence_length
+        # the edit path's processor and tokenizer, looked up at the first image:
+        # None until then, False when the checkpoint has no vision path
+        self.processor = None
+
+    def _load(self) -> None:
+        from fastdm_tpu_torch.models.qwen2_5_vl import Qwen2_5_VLConfig, qwen2_5_vl_load
+
+        self.tokenizer = self._tokenizer("tokenizer")
+        path = _subdir(self.model_path, "text_encoder")
+        self.text_encoder = qwen2_5_vl_load(TensorSource.from_path(path, self.device),
+                                            Qwen2_5_VLConfig.from_dir(path))
+
+    def encode(self, prompt, num_images_per_prompt: int = 1) -> Tensor:
+        """-> prompt_embeds (B, L - 34, hidden), bf16, zero past each prompt."""
+        from fastdm_tpu_torch.models.qwen2_5_vl import qwen2_5_vl_forward
+
+        self.load()
+        prompts = [self.PROMPT_TEMPLATE.format(p) for p in _as_list(prompt)]
+        with torch.inference_mode():
+            ids, mask = _ids(self.tokenizer, prompts,
+                             self.max_sequence_length + self.DROP_IDX, self.device)
+            hidden = qwen2_5_vl_forward(self.text_encoder, ids, mask) * mask[..., None]
+        return _bf16(hidden[:, self.DROP_IDX:], num_images_per_prompt)
+
+    def _vision_path(self) -> bool:
+        """Reads processor/ (its preprocessor_config.json, and its
+        tokenizer.json when it has one, else tokenizer/'s tokenizer) once;
+        False, said once, when the checkpoint has no processor/ or its
+        text_encoder/ config no vision tower."""
+        from fastdm_tpu_torch.pipeline.image_processor import Qwen2VLImageProcessor
+
+        if self.processor is None:
+            path = os.path.join(self.model_path, "processor")
+            if not os.path.isdir(path) or self.text_encoder.cfg.vision is None:
+                why = ("has no processor/" if not os.path.isdir(path) else
+                       "text_encoder/config.json has no vision_config")
+                print(f"QwenImageTextEncoder: {self.model_path!r} {why}; "
+                      "qwen-image-edit prompts are encoded without the image", flush=True)
+                self.processor = False
+            else:
+                self.processor = Qwen2VLImageProcessor.from_dir(path)
+                self.vl_tokenizer = load_tokenizer(path) if os.path.exists(
+                    os.path.join(path, "tokenizer.json")) else self.tokenizer
+        return self.processor is not False
+
+    def encode_with_image(self, prompt, image, num_images_per_prompt: int = 1) -> Tensor:
+        """-> prompt_embeds (B, L - 64, hidden), bf16: each prompt in the
+        edit template with every image (an (H, W, 3) uint8 array or a list of
+        them; images * len(prompts) in the batch, as the reference pairs
+        them). Without a vision path, encode(prompt)."""
+        from fastdm_tpu_torch.models.qwen2_5_vl import qwen2_5_vl_forward
+        from fastdm_tpu_torch.pipeline.image_processor import expand_image_pads
+
+        self.load()
+        if not self._vision_path():
+            return self.encode(prompt, num_images_per_prompt)
+        images = list(image) if isinstance(image, (list, tuple)) else [image]
+        prefix = self.VISION if len(images) == 1 else "".join(
+            f"Picture {i + 1}: {self.VISION}" for i in range(len(images)))
+        template = self.EDIT_TEMPLATE.replace("<|im_start|>user\n" + self.VISION,
+                                              "<|im_start|>user\n" + prefix)
+        prompts = [template.format(p) for p in _as_list(prompt)]
+        pixel_values, grid = self.processor(images * len(prompts))
+        texts = expand_image_pads(prompts, grid, self.processor.merge_size)
+        with torch.inference_mode():
+            ids, mask = _ids(self.vl_tokenizer, texts, None, self.device)
+            hidden = qwen2_5_vl_forward(self.text_encoder, ids, mask,
+                                        torch.from_numpy(pixel_values), grid)
+        return _bf16(hidden[:, self.EDIT_DROP_IDX:], num_images_per_prompt)
+
+
 class CLIPImageEncoder:
     """The CLIP vision tower of an IP-Adapter or Wan2.1-I2V checkpoint's
     image_encoder/ (a CLIPVisionModelWithProjection, or a CLIPVisionModel
@@ -247,9 +357,11 @@ class CLIPImageEncoder:
 
 
 def save_text_encoder(model, path: str, dtype=torch.bfloat16) -> None:
-    """A CLIP or T5 module as a text_encoder*/ directory (model.safetensors in
-    `dtype`, config.json) that transformers' from_pretrained and the port's
-    loaders read (synthetic checkpoints)."""
+    """A CLIP, T5 or Qwen2.5-VL module as a text_encoder*/ directory
+    (model.safetensors in `dtype`, config.json; Qwen2.5-VL's in its
+    published key layout and flat config, without lm_head) that
+    transformers' from_pretrained and the port's loaders read (synthetic
+    checkpoints)."""
     import json
 
     from safetensors.torch import save_file

@@ -33,6 +33,7 @@ load_tokenizer(dir) picks one by the files in the directory. Both return
 from __future__ import annotations
 
 import base64
+import heapq
 import json
 import os
 import re
@@ -269,12 +270,14 @@ class CLIPTokenizer:
         return _pad(rows, max_length, self.pad_id)
 
 
-def _pad(rows: List[List[int]], max_length: int, pad_id: int) -> Tuple[np.ndarray, np.ndarray]:
+def _pad(rows: List[List[int]], max_length: int, pad_id: int,
+         left: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     ids = np.full((len(rows), max_length), pad_id, np.int64)
     mask = np.zeros((len(rows), max_length), np.int64)
     for i, r in enumerate(rows):
-        ids[i, :len(r)] = r
-        mask[i, :len(r)] = 1
+        span = slice(max_length - len(r), max_length) if left else slice(0, len(r))
+        ids[i, span] = r
+        mask[i, span] = 1
     return ids, mask
 
 
@@ -487,8 +490,8 @@ def _normalizer(spec: Optional[dict]):
             rx = re.compile(pat["Regex"])
             return lambda s: rx.sub(lambda m: content, s)
         return lambda s: s.replace(pat["String"], content)
-    if kind == "NFKC":
-        return lambda s: unicodedata.normalize("NFKC", s)
+    if kind in ("NFC", "NFKC"):
+        return lambda s: unicodedata.normalize(kind, s)
     if kind == "Strip":
         left, right = spec.get("strip_left", True), spec.get("strip_right", True)
         return lambda s: _strip(s, left, right)
@@ -591,36 +594,17 @@ def _template(spec: Optional[dict]) -> List[Optional[List[int]]]:
     return out
 
 
-class UnigramTokenizer:
-    """A tokenizer.json with a Unigram model (T5TokenizerFast, and UMT5's
-    AutoTokenizer, which resolves to it)."""
+class _AddedVocabulary:
+    """tokenizers' AddedVocabulary: the added tokens of a tokenizer.json
+    split off before normalization (or after it, for the normalized ones),
+    leftmost-longest, their lstrip / rstrip eating white space."""
 
-    def __init__(self, spec: dict, pad_token: str = "<pad>"):
-        model = spec["model"]
-        if model.get("type") != "Unigram" or model.get("byte_fallback"):
-            raise NotImplementedError(
-                f"tokenizer.json model {model.get('type')!r} (byte_fallback "
-                f"{model.get('byte_fallback')}) is not supported; the port reads Unigram ones")
-        vocab = [(p, s) for p, s in model["vocab"]]
-        self.model = Unigram(vocab, model.get("unk_id"))
-        self.normalize = _normalizer(spec.get("normalizer"))
-        self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
-        self.template = _template(spec.get("post_processor"))
-        self.n_added = sum(len(t) for t in self.template if t is not None)
-        added = spec.get("added_tokens") or []
+    def _init_added(self, added: List[dict]) -> None:
         if any(t.get("single_word") for t in added):
             raise NotImplementedError("single_word added tokens are not supported")
         self.added = {t["content"]: t for t in added}
         self.raw_re = self._matcher([t for t in added if not t.get("normalized")])
         self.norm_re = self._matcher([t for t in added if t.get("normalized")])
-        ids = {p: i for i, (p, _) in enumerate(vocab)}
-        ids.update({t["content"]: t["id"] for t in added})
-        self.pad_id = ids.get(pad_token, 0)
-
-    @classmethod
-    def from_dir(cls, path: str) -> "UnigramTokenizer":
-        pad = _special_tokens(path).get("pad_token", "<pad>")
-        return cls(_read_json(os.path.join(path, "tokenizer.json")), pad)
 
     @staticmethod
     def _matcher(tokens: List[dict]):
@@ -654,19 +638,55 @@ class UnigramTokenizer:
             out.append((text[pos:], None, at_origin and pos == 0))
         return out
 
+    def _words(self, text: str, normalize, pre_tokenize) -> List[Tuple[Optional[int], str]]:
+        """(added token id, "") for each added token, else (None, word) for
+        each word the pre-tokenizer makes of the normalized pieces between
+        them, in order."""
+        out: List[Tuple[Optional[int], str]] = []
+        for piece, tid, first in self._split_added(text, self.raw_re, True):
+            if tid is not None:
+                out.append((tid, ""))
+                continue
+            for sub, sid, sfirst in self._split_added(normalize(piece), self.norm_re, first):
+                if sid is not None:
+                    out.append((sid, ""))
+                    continue
+                out.extend((None, w) for w in pre_tokenize(sub, sfirst))
+        return out
+
+
+class UnigramTokenizer(_AddedVocabulary):
+    """A tokenizer.json with a Unigram model (T5TokenizerFast, and UMT5's
+    AutoTokenizer, which resolves to it)."""
+
+    def __init__(self, spec: dict, pad_token: str = "<pad>"):
+        model = spec["model"]
+        if model.get("type") != "Unigram" or model.get("byte_fallback"):
+            raise NotImplementedError(
+                f"tokenizer.json model {model.get('type')!r} (byte_fallback "
+                f"{model.get('byte_fallback')}) is not supported; the port reads Unigram ones")
+        vocab = [(p, s) for p, s in model["vocab"]]
+        self.model = Unigram(vocab, model.get("unk_id"))
+        self.normalize = _normalizer(spec.get("normalizer"))
+        self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
+        self.template = _template(spec.get("post_processor"))
+        self.n_added = sum(len(t) for t in self.template if t is not None)
+        added = spec.get("added_tokens") or []
+        self._init_added(added)
+        ids = {p: i for i, (p, _) in enumerate(vocab)}
+        ids.update({t["content"]: t["id"] for t in added})
+        self.pad_id = ids.get(pad_token, 0)
+
+    @classmethod
+    def from_dir(cls, path: str) -> "UnigramTokenizer":
+        pad = _special_tokens(path).get("pad_token", "<pad>")
+        return cls(_read_json(os.path.join(path, "tokenizer.json")), pad)
+
     def encode(self, text: str) -> List[int]:
         """The ids of one prompt, without the template's tokens."""
         ids: List[int] = []
-        for piece, tid, first in self._split_added(text, self.raw_re, True):
-            if tid is not None:
-                ids.append(tid)
-                continue
-            for sub, sid, sfirst in self._split_added(self.normalize(piece), self.norm_re, first):
-                if sid is not None:
-                    ids.append(sid)
-                    continue
-                for word in self.pre_tokenize(sub, sfirst):
-                    ids.extend(self.model.encode(word))
+        for tid, word in self._words(text, self.normalize, self.pre_tokenize):
+            ids.extend([tid] if tid is not None else self.model.encode(word))
         return ids
 
     def __call__(self, prompt, max_length: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -677,16 +697,276 @@ class UnigramTokenizer:
         return _pad(rows, max_length, self.pad_id)
 
 
+# ------------------------------------------------ tokenizer.json (byte-level BPE)
+
+# Qwen2's pre-tokenizer pattern (transformers' qwen2 PRETOKENIZE_REGEX), which
+# qwen2_split matches by hand
+QWEN2_SPLIT_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}|"
+                       r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+_QWEN2_CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+
+
+def _qwen2_class(ch: str) -> str:
+    """'L' (\\p{L}), 'N' (\\p{N}), 'S' (\\s: Unicode White_Space, as the
+    crate's Oniguruma and the regex module take it) or 'O' (none of them)."""
+    cat = unicodedata.category(ch)[0]
+    if cat in "LN":
+        return cat
+    return "S" if ch in _WHITE_SPACE else "O"
+
+
+def qwen2_split(text: str) -> List[str]:
+    """regex.findall(QWEN2_SPLIT_PATTERN, text): at each position the first
+    alternative that matches, with the backtracking of each:
+    [^\\r\\n\\p{L}\\p{N}]?\\p{L}+ takes one such character before a letter run;
+    \\s*[\\r\\n]+ ends at the last CR / LF of a white-space run; \\s+(?!\\S)
+    leaves a run's last space to the word after it (a run at the end is
+    taken whole). A character no alternative matches stays a piece of its
+    own (the Split pre-tokenizer's Isolated gaps); the pattern leaves none."""
+    cls = [_qwen2_class(ch) for ch in text]
+    out, i, n = [], 0, len(text)
+
+    def run(j: int, kind: str) -> int:
+        while j < n and cls[j] == kind:
+            j += 1
+        return j
+
+    while i < n:
+        c = cls[i]
+        end = 0
+        for lit in _QWEN2_CONTRACTIONS:
+            if _ci_startswith(text, lit, i):
+                end = i + len(lit)
+                break
+        if not end:
+            if c == "L":
+                end = run(i, "L")
+            elif c != "N" and text[i] not in "\r\n" and i + 1 < n and cls[i + 1] == "L":
+                end = run(i + 1, "L")
+            elif c == "N":
+                end = i + 1
+            elif c == "O" or (text[i] == " " and i + 1 < n and cls[i + 1] == "O"):
+                end = run(i + 1, "O")
+                while end < n and text[end] in "\r\n":
+                    end += 1
+            elif c == "S":
+                j = run(i, "S")
+                last = max((k for k in range(i, j) if text[k] in "\r\n"), default=-1)
+                if last >= 0:
+                    end = last + 1
+                elif j == n or j - 1 == i:
+                    end = j
+                else:
+                    end = j - 1
+            else:
+                end = i + 1
+        out.append(text[i:end])
+        i = end
+    return out
+
+
+class BytePairEncoding:
+    """tokenizers' BPE model over a vocab and ranked merges: a word's
+    symbols (its characters, each an id of the vocab; one outside it is
+    dropped, as the crate does with no unk token) merged lowest rank first,
+    the leftmost of equal ranks first, one merge at a time with the pairs
+    around each merge queued anew (the crate's Word::merge_all)."""
+
+    def __init__(self, vocab: Dict[str, int], merges: Sequence[Tuple[str, str]]):
+        self.vocab = vocab
+        self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        for rank, (a, b) in enumerate(merges):
+            if a not in vocab or b not in vocab or a + b not in vocab:
+                raise ValueError(f"BPE merge {a!r} {b!r} names a token outside the vocab")
+            self.merges[(vocab[a], vocab[b])] = (rank, vocab[a + b])
+        self.cache: Dict[str, List[int]] = {}
+
+    def encode(self, word: str) -> List[int]:
+        if word in self.cache:
+            return self.cache[word]
+        sym = [self.vocab[ch] for ch in word if ch in self.vocab]
+        n = len(sym)
+        prev, nxt, alive = list(range(-1, n - 1)), list(range(1, n + 1)), [True] * n
+        if n:
+            nxt[-1] = -1
+        merges = self.merges
+        heap = []
+        for i in range(n - 1):
+            m = merges.get((sym[i], sym[i + 1]))
+            if m is not None:
+                heap.append((m[0], i, m[1]))
+        heapq.heapify(heap)
+        while heap:
+            _, pos, new_id = heapq.heappop(heap)
+            right = nxt[pos]
+            if not alive[pos] or right < 0:
+                continue
+            m = merges.get((sym[pos], sym[right]))
+            if m is None or m[1] != new_id:  # an expired entry
+                continue
+            sym[pos], alive[right] = new_id, False
+            nxt[pos] = nxt[right]
+            if nxt[pos] >= 0:
+                prev[nxt[pos]] = pos
+            for a in (prev[pos], pos):
+                if a >= 0 and nxt[a] >= 0:
+                    m = merges.get((sym[a], sym[nxt[a]]))
+                    if m is not None:
+                        heapq.heappush(heap, (m[0], a, m[1]))
+        out = [sym[i] for i in range(n) if alive[i]]
+        self.cache[word] = out
+        return out
+
+
+def _byte_level_pre_tokenizer(spec: Optional[dict]):
+    """Qwen2's pre-tokenizer, Sequence[Split(QWEN2_SPLIT_PATTERN, Isolated),
+    ByteLevel(add_prefix_space False, use_regex False)], as (piece, first)
+    -> [words], each word's UTF-8 bytes mapped by bytes_to_unicode."""
+    parts = spec.get("pretokenizers", []) if spec and spec["type"] == "Sequence" else [spec]
+    ok = (len(parts) == 2 and parts[0] and parts[0]["type"] == "Split"
+          and parts[0]["pattern"].get("Regex") == QWEN2_SPLIT_PATTERN
+          and parts[0].get("behavior") == "Isolated" and not parts[0].get("invert")
+          and parts[1] and parts[1]["type"] == "ByteLevel"
+          and not parts[1].get("add_prefix_space") and not parts[1].get("use_regex", True))
+    if not ok:
+        raise NotImplementedError(
+            "byte-level BPE tokenizer.json pre-tokenizer other than Qwen2's Split + ByteLevel: "
+            f"{json.dumps(spec)[:200]}")
+    enc = bytes_to_unicode()
+    return lambda s, first: ["".join(enc[b] for b in w.encode("utf-8")) for w in qwen2_split(s)]
+
+
+class ByteLevelBPETokenizer(_AddedVocabulary):
+    """A tokenizer.json with a byte-level BPE model, as Qwen2TokenizerFast
+    (Qwen-Image's and Qwen2.5-VL's tokenizer) reads it: the added tokens
+    split off first (not normalized), NFC, Qwen2's split pattern, the
+    ByteLevel byte map, the merges by rank; no unk token and no BOS / EOS
+    (a ByteLevel post-processor adds none). Rows are truncated from the
+    right to max_length and padded to the longest row with the pad token,
+    on tokenizer_config.json's padding_side (transformers' default: right;
+    a truncation_side other than right raises)."""
+
+    def __init__(self, spec: dict, pad_token: Optional[str] = None, padding_side: str = "right"):
+        model = spec["model"]
+        if model.get("type") != "BPE" or any(model.get(k) for k in (
+                "byte_fallback", "dropout", "continuing_subword_prefix", "end_of_word_suffix",
+                "ignore_merges")):
+            opts = {k: v for k, v in model.items() if k not in ("vocab", "merges")}
+            raise NotImplementedError(f"tokenizer.json BPE model options are not supported: {opts}")
+        merges = [tuple(m.split(" ")) if isinstance(m, str) else tuple(m)
+                  for m in model["merges"]]
+        self.model = BytePairEncoding(model["vocab"], merges)
+        self.normalize = _normalizer(spec.get("normalizer"))
+        self.pre_tokenize = _byte_level_pre_tokenizer(spec.get("pre_tokenizer"))
+        post = spec.get("post_processor")
+        if post is not None and post["type"] != "ByteLevel":
+            raise NotImplementedError(f"byte-level BPE post-processor {post['type']!r} is not "
+                                      "supported (ByteLevel, which adds no token)")
+        added = spec.get("added_tokens") or []
+        self._init_added(added)
+        ids = dict(model["vocab"])
+        ids.update({t["content"]: t["id"] for t in added})
+        self.token_ids = ids
+        if pad_token is not None and pad_token not in ids:
+            raise ValueError(f"pad token {pad_token!r} is not a token of the tokenizer")
+        self.pad_id = ids[pad_token] if pad_token is not None else None
+        if padding_side not in ("right", "left"):
+            raise ValueError(f"padding_side {padding_side!r}: expected 'right' or 'left'")
+        self.padding_side = padding_side
+
+    @classmethod
+    def from_dir(cls, path: str) -> "ByteLevelBPETokenizer":
+        """A tokenizer.json, or without one the slow Qwen2Tokenizer's
+        vocab.json + merges.txt (converted as transformers' Qwen2Converter
+        does, the added tokens from tokenizer_config.json)."""
+        cfg_path = os.path.join(path, "tokenizer_config.json")
+        cfg = _read_json(cfg_path) if os.path.exists(cfg_path) else {}
+        if cfg.get("truncation_side", "right") != "right":
+            raise NotImplementedError(f"truncation_side {cfg['truncation_side']!r} in {path!r}: "
+                                      "the port truncates from the right only")
+        spec_path = os.path.join(path, "tokenizer.json")
+        spec = _read_json(spec_path) if os.path.exists(spec_path) else _qwen2_slow_spec(path, cfg)
+        return cls(spec, _special_tokens(path).get("pad_token"), cfg.get("padding_side") or "right")
+
+    def encode(self, text: str) -> List[int]:
+        """The ids of one prompt."""
+        ids: List[int] = []
+        for tid, word in self._words(text, self.normalize, self.pre_tokenize):
+            ids.extend([tid] if tid is not None else self.model.encode(word))
+        return ids
+
+    def __call__(self, prompt, max_length: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """tokenizer(prompts, padding=True, truncation=max_length is not None,
+        max_length=max_length): (ids, attention_mask), int64, (B, longest row)."""
+        rows = [self.encode(p)[:max_length] for p in _as_list(prompt)]
+        longest = max(map(len, rows), default=0)
+        if self.pad_id is None and any(len(r) < longest for r in rows):
+            raise ValueError("rows of different lengths and no pad token to pad them with")
+        return _pad(rows, longest, self.pad_id or 0, left=self.padding_side == "left")
+
+
+def _qwen2_slow_spec(path: str, cfg: dict) -> dict:
+    """The tokenizer.json that transformers' Qwen2Converter makes of a slow
+    Qwen2Tokenizer directory: vocab.json, merges.txt as the slow tokenizer
+    reads it (a "#version:" first line and blank lines skipped, a repeated
+    merge at its first rank), the added tokens of tokenizer_config.json's
+    added_tokens_decoder."""
+    files = [os.path.join(path, f) for f in ("vocab.json", "merges.txt")]
+    if not all(os.path.exists(f) for f in files):
+        raise FileNotFoundError(f"no tokenizer in {path!r}: a Qwen2Tokenizer needs tokenizer.json "
+                                "or vocab.json + merges.txt")
+    if "added_tokens_decoder" not in cfg:
+        raise NotImplementedError(f"{path!r} has no tokenizer.json and its tokenizer_config.json "
+                                  "no added_tokens_decoder: the port reads the added tokens from "
+                                  "one of them")
+    with open(files[1], "r", encoding="utf-8") as f:
+        lines = [ln.strip() for ln in f]
+    merges = [tuple(ln.split()) for i, ln in enumerate(lines)
+              if ln and not (i == 0 and ln.startswith("#version:"))]
+    added = [dict(tok, id=int(i)) for i, tok in cfg["added_tokens_decoder"].items()]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": bool(cfg.get("add_prefix_space")),
+                  "trim_offsets": False, "use_regex": False}
+    return {"added_tokens": sorted(added, key=lambda t: t["id"]), "normalizer": {"type": "NFC"},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": QWEN2_SPLIT_PATTERN},
+                 "behavior": "Isolated", "invert": False}, byte_level]},
+            "post_processor": byte_level,
+            "model": {"type": "BPE", "vocab": _read_json(files[0]),
+                      "merges": list(dict.fromkeys(merges))}}
+
+
 def load_tokenizer(path: str):
-    """The tokenizer of a diffusers tokenizer*/ directory: CLIP's BPE
-    (vocab.json + merges.txt) or a Unigram tokenizer.json."""
-    if os.path.exists(os.path.join(path, "vocab.json")) and \
-            os.path.exists(os.path.join(path, "merges.txt")):
+    """The tokenizer of a diffusers tokenizer*/ directory, by the model type
+    that tokenizer_config.json's tokenizer_class names: Qwen2's byte-level
+    BPE (its tokenizer.json, or the slow vocab.json + merges.txt); CLIP's BPE
+    (vocab.json + merges.txt, read by transformers' slow CLIPTokenizer, also
+    when no class is named and there is no tokenizer.json); else the
+    tokenizer.json's Unigram (T5 / UMT5) or byte-level BPE model."""
+    cfg_path = os.path.join(path, "tokenizer_config.json")
+    cls_name = (_read_json(cfg_path).get("tokenizer_class") or "") \
+        if os.path.exists(cfg_path) else ""
+    spec_path = os.path.join(path, "tokenizer.json")
+    slow_files = os.path.exists(os.path.join(path, "vocab.json")) and \
+        os.path.exists(os.path.join(path, "merges.txt"))
+    if cls_name.startswith("Qwen2Tokenizer"):
+        return ByteLevelBPETokenizer.from_dir(path)
+    if slow_files and (cls_name.startswith("CLIPTokenizer")
+                       or not (cls_name or os.path.exists(spec_path))):
         return CLIPTokenizer.from_dir(path)
-    if os.path.exists(os.path.join(path, "tokenizer.json")):
-        return UnigramTokenizer.from_dir(path)
+    if os.path.exists(spec_path):
+        kind = _read_json(spec_path)["model"].get("type")
+        if kind == "Unigram":
+            return UnigramTokenizer.from_dir(path)
+        if kind == "BPE":
+            return ByteLevelBPETokenizer.from_dir(path)
+        raise NotImplementedError(f"tokenizer.json model {kind!r} in {path!r} is not supported "
+                                  "(Unigram, BPE)")
+    if slow_files:
+        raise NotImplementedError(f"tokenizer_class {cls_name!r} in {path!r} without a "
+                                  "tokenizer.json is not supported (CLIPTokenizer, "
+                                  "Qwen2Tokenizer)")
     raise FileNotFoundError(f"no tokenizer in {path!r}: expected vocab.json + merges.txt "
-                            "(CLIP) or tokenizer.json (T5 / UMT5)")
+                            "(CLIP, Qwen2) or tokenizer.json (T5 / UMT5 / Qwen2)")
 
 
 # ------------------------------------------------------------------ writers
@@ -745,3 +1025,59 @@ def save_unigram_tokenizer(path: str, vocab: Sequence[Tuple[str, float]],
     _write_json(os.path.join(path, "tokenizer_config.json"),
                 dict(special, tokenizer_class="T5Tokenizer", extra_ids=0,
                      additional_special_tokens=[], model_max_length=512))
+
+
+# Qwen2.5-VL's added tokens at their ids (Qwen/Qwen2.5-VL-7B-Instruct's
+# tokenizer.json); the last six are not special
+QWEN2_VL_ADDED_TOKENS = (
+    "<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|object_ref_start|>", "<|object_ref_end|>",
+    "<|box_start|>", "<|box_end|>", "<|quad_start|>", "<|quad_end|>", "<|vision_start|>",
+    "<|vision_end|>", "<|vision_pad|>", "<|image_pad|>", "<|video_pad|>", "<tool_call>",
+    "</tool_call>", "<|fim_prefix|>", "<|fim_middle|>", "<|fim_suffix|>", "<|fim_pad|>",
+    "<|repo_name|>", "<|file_sep|>")
+QWEN2_VL_FIRST_ADDED_ID = 151643
+
+
+def save_bpe_tokenizer(path: str, vocab: Dict[str, int], merges: Sequence[Tuple[str, str]],
+                       added: Sequence[str] = QWEN2_VL_ADDED_TOKENS,
+                       pad_token: str = "<|endoftext|>",
+                       padding_side: Optional[str] = None) -> None:
+    """A Qwen2 tokenizer.json (NFC, Qwen2's Split + ByteLevel, a byte-level
+    BPE over `vocab` and `merges`, the `added` tokens right after the vocab:
+    Qwen2.5-VL's at their ids for a vocab of QWEN2_VL_FIRST_ADDED_ID tokens)
+    and its tokenizer_config.json, as transformers' AutoTokenizer
+    (Qwen2TokenizerFast) and load_tokenizer read them (synthetic
+    checkpoints). transformers renumbers added tokens that leave a gap after
+    the vocab, so none is left."""
+    os.makedirs(path, exist_ok=True)
+    first = len(vocab)
+    if sorted(vocab.values()) != list(range(first)):
+        raise ValueError("the vocab's ids must be 0 .. len(vocab) - 1")
+    not_special = ("<tool_call>", "</tool_call>", "<|fim_prefix|>", "<|fim_middle|>",
+                   "<|fim_suffix|>", "<|fim_pad|>", "<|repo_name|>", "<|file_sep|>")
+    tokens = [dict(id=first + i, content=c, single_word=False, lstrip=False, rstrip=False,
+                   normalized=False, special=c not in not_special)
+              for i, c in enumerate(added)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                  "use_regex": False}
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": tokens,
+            "normalizer": {"type": "NFC"},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": QWEN2_SPLIT_PATTERN},
+                 "behavior": "Isolated", "invert": False}, byte_level]},
+            "post_processor": byte_level, "decoder": byte_level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": [[a, b] for a, b in merges]}}
+    _write_json(os.path.join(path, "tokenizer.json"), spec)
+    cfg = {"tokenizer_class": "Qwen2Tokenizer", "add_prefix_space": False,
+           "bos_token": None, "eos_token": "<|im_end|>", "pad_token": pad_token,
+           "unk_token": None, "errors": "replace", "split_special_tokens": False,
+           "model_max_length": 131072, "clean_up_tokenization_spaces": False,
+           "added_tokens_decoder": {str(t["id"]): {k: t[k] for k in (
+               "content", "lstrip", "normalized", "rstrip", "single_word", "special")}
+               for t in tokens}}
+    if padding_side is not None:
+        cfg["padding_side"] = padding_side
+    _write_json(os.path.join(path, "tokenizer_config.json"), cfg)

@@ -42,7 +42,11 @@ ones; rotembd bit-exact, rmsnorm within one ulp and the int8 quantizer and
 GEMM bit-exact at its 8705 and 513 rows. Wan2.1-I2V's image branch at batch 1
 and 2: sdpa against 257 image keys as the small cases plus relative L2 5e-3,
 the int8 quantizer and GEMM at M = 257 / 514 bit-exact, rmsnorm within one
-ulp.
+ulp. Qwen-Image-Edit's text stream from the Qwen2.5-VL encoder (1396 tokens
+before 4096 + 4096 image tokens) at batch 1 and 2: rmsnorm within one ulp,
+rotembd bit-exact, sdpa as the long cases, the W4A4 kernels bit-exact at
+M = 1396 * batch; Qwen2.5-VL-7B's widths at two layers on the card within
+relative L2 1e-4 of the CPU, launching no kernel.
 """
 
 import numpy as np
@@ -1286,3 +1290,98 @@ def test_wan21_image_branch_shapes_on_card(cuda_device, batch):
     w = (1 + 0.1 * torch.randn(5120, generator=g, device=cuda_device)).bfloat16()
     got, want = cuda_backend.rms_norm_cuda(x, w, 1e-6), torch_backend.rms_norm_torch(x, w, 1e-6)
     assert ((got.float() - want.float()).abs() <= _bf16_ulp(want)).all()
+
+
+# Qwen-Image-Edit at 1024x1024 with one 1024x1024 source, its prompt through
+# the Qwen2.5-VL encoder: 1396 text tokens after the template's 64 for
+# chip_smoke.py's edit prompt (1369 of them the image's), then 4096 noise and
+# 4096 source tokens
+QWEN_EDIT_TEXT, QWEN_EDIT_IMAGE = 1396, 4096
+QWEN_TEXT_W4A4 = {"qkv": (3072, 9216), "out": (3072, 3072), "mlp-in": (3072, 12288),
+                  "mlp-out": (12288, 3072)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 2])
+def test_qwen_edit_text_stream_shapes_on_card(cuda_device, batch):
+    """The shapes a Qwen-Image-Edit prompt from the VL encoder sends to the
+    DiT's kernels, batch 1 and 2: rmsnorm on txt_norm's (B, 1396, 3584) rows
+    and the text stream's 128-wide head rows in place, within one bf16 ulp;
+    rotembd bit-exact on the edit's scale_rope tables over the 1396 + 4096 +
+    4096 joint; sdpa there as the long cases; the W4A4 quantizer, unpack and
+    GEMM bit-exact at M = 1396 * B (a tail tile) for each text-stream
+    linear."""
+    from fastdm_tpu_torch.kernels import cuda_backend, torch_backend
+    from fastdm_tpu_torch.models.qwenimage import QwenImageConfig, qwen_rope_cos_sin
+
+    cfg = QwenImageConfig()
+    d, h, hd, t = cfg.inner_dim, cfg.num_attention_heads, cfg.attention_head_dim, QWEN_EDIT_TEXT
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    x = (torch.randn(batch, t, cfg.joint_attention_dim, generator=g, device=cuda_device) * 3
+         ).bfloat16()
+    gamma = (1 + 0.05 * torch.randn(cfg.joint_attention_dim, generator=g, device=cuda_device)
+             ).bfloat16()
+    got, want = cuda_backend.rms_norm_cuda(x, gamma, 1e-6), torch_backend.rms_norm_torch(
+        x, gamma, 1e-6)
+    assert ((got.float() - want.float()).abs() <= _bf16_ulp(want)).all()
+    s = t + 2 * QWEN_EDIT_IMAGE
+    qkv = torch.randn(batch, s, 3 * d, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    gamma = (1 + 0.05 * torch.randn(hd, generator=g, device=cuda_device)).bfloat16()
+    heads = qkv[:, :t, :d].unflatten(-1, (h, hd))
+    got, want = cuda_backend.rms_norm_cuda(heads, gamma, 1e-6), torch_backend.rms_norm_torch(
+        heads, gamma, 1e-6)
+    assert ((got.float() - want.float()).abs() <= _bf16_ulp(want)).all()
+    cos, sin = qwen_rope_cos_sin(cfg, 1, 64, 64, t, extra_shapes=((1, 64, 64),),
+                                 device=cuda_device)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].contiguous() for i in range(3))
+    rq, rk = cuda_backend.rotary_pos_embedding_cuda(q, k, hd, cos, sin, False)
+    wq, wk = torch_backend.rotary_pos_embedding_torch(q, k, hd, cos, sin, False)
+    assert torch.equal(rq, wq) and torch.equal(rk, wk)
+    got = cuda_backend.sdpa_cuda(rq, rk, v, h, h, hd).float()
+    want = torch_backend.sdpa_torch(rq, rk, v, h, h, hd).float()
+    assert ((got - want).abs() <= 1e-3 + 2 * _bf16_ulp(want)).all()
+    assert (got - want).norm() / want.norm() <= 5e-3
+    for kk, n in QWEN_TEXT_W4A4.values():
+        x, xq, xs, w, lin = _w4a4_operands(t * batch, kk, n, cuda_device)
+        for a, b in zip(cuda_backend.quantize_to_int4_cuda(x),
+                        torch_backend.quantize_to_int4_torch(x)):
+            assert torch.equal(a, b)
+        assert torch.equal(cuda_backend.unpack_int4_cuda(lin.w4p), w)
+        args = (xq, w, xs, lin.scale, torch.bfloat16, lin.bias)
+        assert torch.equal(cuda_backend.int4_matmul_cuda(*args),
+                           torch_backend.int4_matmul_torch(*args))
+
+
+@pytest.mark.gpu
+def test_qwen2_5_vl_two_layers_on_card_match_cpu(cuda_device):
+    """Qwen2.5-VL-7B's widths cut to two language-model layers and two
+    vision blocks (the second a full-attention one), drawn on the card: a
+    prompt with one 224x308 image (16 x 22 patches, partial windows) on the
+    card against the same modules on the CPU, f32 without TF32, within
+    relative L2 1e-4 (f32 sums in another order; a wrong layer is O(1)); no
+    kernel of the port launched."""
+    import dataclasses
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models import qwen2_5_vl as tvl
+    from fastdm_tpu_torch.pipeline.image_processor import Qwen2VLImageProcessor
+
+    base = tvl.Qwen2_5_VLConfig()
+    cfg = dataclasses.replace(base, num_hidden_layers=2, vision=dataclasses.replace(
+        base.vision, depth=2, fullatt_block_indexes=(1,)))
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gpu = tvl.qwen2_5_vl_init_random(5, cfg, device=cuda_device)
+    with torch.device("meta"):
+        cpu = tvl.Qwen2_5_VLModel(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    img = np.random.default_rng(5).integers(0, 256, (224, 308, 3), dtype=np.uint8)
+    pixels, grid = Qwen2VLImageProcessor()(img)
+    n = int(grid.prod()) // 4
+    ids = np.array([[151644, 872, 198, 151652] + [151655] * n + [151653, 1000, 2000, 151645]])
+    mask = np.ones_like(ids)
+    cuda_backend.reset_launch_counts()
+    with torch.inference_mode():
+        got = gpu(ids, mask, torch.from_numpy(pixels), grid)
+        want = cpu(ids, mask, torch.from_numpy(pixels), grid)
+    assert sum(f.launches for f in (cuda_backend.sdpa_cuda, cuda_backend.rms_norm_cuda)) == 0
+    assert (got.cpu() - want).norm() / want.norm() <= 1e-4

@@ -416,7 +416,9 @@ def test_engine_end_to_end(tmp_path, monkeypatch, wan_vae):
     np.testing.assert_array_equal(img, eng._to_uint8(dec))
     with pytest.raises(NotImplementedError, match="t2i, i2i are"):
         eng.generate(task="v2v", image=np.zeros((64, 96, 3), np.uint8), **kw)
-    with pytest.raises(NotImplementedError, match="text encoder"):
+    # true CFG without negative_prompt_embeds encodes the negative " ": this
+    # checkpoint has no tokenizer/ (nor text_encoder/)
+    with pytest.raises(FileNotFoundError, match="tokenizer/"):
         eng.generate(prompt="a fox", prompt_embeds=pos, true_cfg_scale=3.0)
     eng.generate(prompt_embeds=pos, height=64, width=96, num_inference_steps=1,
                  guidance_scale=1.0, output_type="latent")  # no negative without CFG

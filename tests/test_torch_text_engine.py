@@ -9,8 +9,8 @@ here, the card on the GPU machine):
     most BF16_ULP_FRACTION of them;
   * FastDMEngine.generate(prompt=..., negative_prompt=...) for flux, sd35,
     sdxl and wan equal, bit for bit, to generate with the port encoder's
-    embeddings; a missing encoder directory raises and names it; qwen
-    prompts raise, naming the Qwen2.5-VL item."""
+    embeddings; a missing encoder directory raises and names it, for qwen
+    too (its prompts: tests/test_torch_qwen_text_engine.py)."""
 
 import os
 import shutil
@@ -195,15 +195,22 @@ def test_engine_prompt_without_an_encoder_dir_raises(request, tmp_path, monkeypa
         eng.generate(prompt="a cat", height=64, width=64, num_inference_steps=1)
 
 
-def test_qwen_prompt_raises_naming_the_vl_encoder(tmp_path, monkeypatch):
+def test_qwen_prompt_without_text_encoder_dir_raises(tmp_path, monkeypatch):
+    """A Qwen-Image checkpoint with tokenizer/ but no text_encoder/: a prompt
+    raises FileNotFoundError naming text_encoder/; embeddings generate."""
     from test_torch_qwen import _write_checkpoint
+    from test_torch_qwen_vl import write_qwen_tokenizer
 
     root = str(tmp_path / "qwen")
     _write_checkpoint(root, wan_vae=False)
+    write_qwen_tokenizer(os.path.join(root, "tokenizer"))
     monkeypatch.setitem(engine_mod.VAE_CONFIGS, "qwen", tvae.VAEConfig(
         latent_channels=4, block_out_channels=(8, 8, 8, 8), layers_per_block=1,
         norm_num_groups=4, scaling_factor=1.0, shift_factor=0.0))
     eng = FastDMEngine(root, architecture="qwen-image", verbose=False, device="cpu")
-    assert eng.text_encoder is None
-    with pytest.raises(NotImplementedError, match="Qwen2.5-VL"):
-        eng.generate(prompt="a cat", negative_prompt="blurry", height=64, width=64)
+    assert isinstance(eng.text_encoder, ttext.QwenImageTextEncoder)
+    kw = dict(height=64, width=64, num_inference_steps=1, output_type="latent")
+    with pytest.raises(FileNotFoundError, match="text_encoder/"):
+        eng.generate(prompt="a cat", negative_prompt="blurry", **kw)
+    embeds = np.zeros((1, 5, 24), np.float32)
+    assert eng.generate(prompt_embeds=embeds, guidance_scale=1.0, **kw).shape == (1, 16, 16)
