@@ -234,6 +234,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
      ViT-H image_encoder/, the UMT5 directories) loads as wan2.1-i2v and as
      wan-i2v, each running an i2v generate from prompt strings and a uint8
      image, the two videos equal.
+  front-ends (inside the phases that hold each model, ~60 s in all): the
+     ComfyUI FLUX wrapper on phase 2's FLUX.1-dev int8 at full depth, a (1,
+     16, 128, 256) latent: one call bit for bit equal to flux_forward,
+     launches as flux_forward_launches, its time per call beside the direct
+     forward's, then 8 Euler steps of a CFG pair on two streams under the
+     node's DiCache (comfyui/nodes_torch.py's _build_cache(True, 0.2), then
+     at the node's largest threshold, 1.0), the skips printed and the
+     launches derived from them; in phase 4 the other
+     wrappers on the engines' models, each bit for bit equal to the direct
+     forward with its launches: FLUX on the fp8 engine (the fp8 kernels
+     through a wrapper), the raw-hint FLUX ControlNet on the int8 one, SDXL
+     at 1024x2048 with the IPAdapter attn2 patch outside and inside its sigma
+     window and the SDXL ControlNet, SD3 (sigma x 1000) and Qwen (int4p). The
+     API server's routes (examples/serve/api_server_torch.py, called as
+     functions) on the bf16 FLUX engine: /health, /get_model_info, three
+     /generate requests from a prompt string in the reference spellings, each
+     PNG equal to generate() in the diffusers spelling, with the request's
+     time and the host's share; the 400s; one request under
+     utils.profiling.trace() whose Chrome trace names the port's kernels;
+     create_model from the engine's checkpoint, every parameter and the
+     forward equal; /edit on the int8 flux-kontext engine with two PNG
+     sources in list, average and concatenate. A [frontend] line after
+     [done] sums it up.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -1666,6 +1689,7 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg, summary: dict) -> dict:
         _flux_prompt_request(dev, params, cfg, vae, vae_cfg, run, cos, sin)
         _flux_image_requests(dev, params, cfg, vae, vae_cfg, sched, cos, sin, summary)
         _flux_controlnet_request(dev, params, cfg, vae, vae_cfg)
+        _comfy_flux_full(dev, params, cfg)
     del params
     torch.cuda.empty_cache()
     return mine
@@ -4365,11 +4389,13 @@ def _engine_mmdit(dev, here: str, summary: dict) -> None:
                 _engine_prompt(eng, "engine sd35", dict(kw, height=shape[1], width=shape[2],
                                                         seed=11))
                 _engine_i2i(eng, "engine sd35", sd35_forward_launches(cfg), kw, 16, summary)
+                _comfy_sd3(eng)
             else:
                 # Qwen-Image-Edit through the Wan-layout VAE, then through an
                 # AutoencoderKL vae/ (no base_dim) on a bf16 engine
                 per = {k: computed[k] + every[k] for k in computed}
                 _engine_i2i(eng, "engine qwen-image-edit wan-vae", per, kw, 16, summary)
+                _comfy_qwen(eng)
                 _write_qwen_encoder_dirs(root, dev)
                 _engine_qwen_prompt(eng, kw)
                 del eng
@@ -5159,6 +5185,7 @@ def _engine_sdxl(dev, here: str, summary: dict) -> None:
             prompt_embeds=pos, pooled_prompt_embeds=pos_pooled, negative_prompt_embeds=neg,
             negative_pooled_prompt_embeds=neg_pooled, num_inference_steps=SDXL_STEPS,
             guidance_scale=SDXL_CFG, seed=9))
+        _comfy_sdxl(eng)
         del eng
         torch.cuda.empty_cache()
 
@@ -5275,13 +5302,17 @@ def _engine_flux(dev, here: str, summary: dict) -> None:
             if label == "bf16":
                 _engine_prompt(eng, "engine flux bf16", dict(height=1024, width=1024,
                                                             num_inference_steps=STEPS, seed=seed))
+                _frontend_server(eng, root)
             if label in ("bf16", "int8"):  # SDEdit on flux, Kontext on flux-kontext
                 _engine_i2i(eng, f"engine {label} {arch}", flux_forward_launches(eng.cfg),
                             dict(prompt_embeds=embeds, pooled_prompt_embeds=pooled,
                                  num_inference_steps=STEPS, seed=seed), 16, summary)
             if label == "int8":
                 _engine_flux_controlnet(eng, embeds, pooled)
+                _comfy_flux_controlnet(eng)
+                _frontend_edit(eng)
             elif label == "fp8":
+                _comfy_flux_engine(eng)
                 eng.enable_vae_tiling()
                 t0 = time.perf_counter()
                 img = eng.generate(prompt_embeds=embeds, pooled_prompt_embeds=pooled,
@@ -6486,6 +6517,495 @@ def _engine_wan21_i2v(dev, here: str) -> None:
 # ------------------------------------------------------------------- main
 
 
+# ------------------------------------------------------------------ front-ends
+
+FRONTEND_SUMMARY: dict = {}
+COMFY_STEPS, COMFY_CFG = 8, 3.5  # the ComfyUI sampler run: Euler steps, CFG pair per step
+SERVE_MODEL = "flux-smoke"
+COMFY_SIZE = 1024  # pixels a side of the engine-phase wrapper calls
+# the API server's /generate requests (seed, height, width) and /edit sources
+SERVE_REQUESTS = ((31, 1024, 1024), (32, 1024, 2048), (33, 1024, 2048))
+EDIT_SOURCES = ((701, 1024, 1024), (702, 1024, 768))
+
+
+def _repo_module(rel: str, name: str):
+    """A module of the checkout outside the package, by its path (the ComfyUI
+    nodes and the API server are files, not packages)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), rel))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _same_out(label: str, got, want, like) -> None:
+    """A wrapper's output: on x's device, in x's dtype, equal bit for bit."""
+    import torch
+
+    if not (got.device == like.device and got.dtype == like.dtype and got.shape == want.shape
+            and torch.equal(got, want.to(like.dtype))):
+        raise AssertionError(f"{label}: the wrapper's {got.dtype} {tuple(got.shape)} on "
+                             f"{got.device} != the direct forward's {tuple(want.shape)}")
+
+
+def _call_ms(fn, reps: int = 3) -> float:
+    """Median device-synced ms of reps calls."""
+    times = sorted(_timed(fn)[1] for _ in range(reps))
+    return times[len(times) // 2] * 1e3
+
+
+def _comfy_flux_full(dev, params, cfg) -> None:
+    """The ComfyUI FLUX wrapper on FLUX.1-dev int8 at full depth, a (1, 16,
+    128, 256) latent (1024x2048) and 512 text tokens: one uncached call bit
+    for bit equal to flux_forward on the same inputs, on the card in x's
+    dtype, with flux_forward_launches; its time per call beside the direct
+    forward's; then COMFY_STEPS Euler steps of a CFG pair (two streams,
+    labelled by cond_or_uncond) under the node's DiCache (_build_cache(True,
+    0.2), the node's default, then at its largest threshold, 1.0), launches
+    derived from the skips."""
+    import torch
+
+    from fastdm_tpu_torch.comfyui_entry import ComfyUIFluxForwardWrapper
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.flux import flux_forward, flux_rope_cache
+    from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents
+
+    g = torch.Generator(device=dev).manual_seed(600)
+    x = torch.randn(1, cfg.in_channels // 4, 2 * FLUX_HT, 2 * FLUX_WT, generator=g, device=dev)
+    ctx, neg = (torch.randn(1, TXT_TOKENS, cfg.joint_attention_dim, generator=g, device=dev)
+                for _ in range(2))
+    y = torch.randn(1, cfg.pooled_projection_dim, generator=g, device=dev)
+    t, gd = torch.full((1,), 0.8, device=dev), torch.full((1,), 3.5, device=dev)
+    wrapper = ComfyUIFluxForwardWrapper(params, cfg)
+    cuda_backend.reset_launch_counts()
+    got = wrapper(x, t, ctx, y, guidance=gd)
+    counts = _launch_counts()
+    cos, sin = flux_rope_cache(cfg, TXT_TOKENS, FLUX_HT, FLUX_WT, device=dev)
+
+    def direct():
+        with torch.inference_mode():
+            out = flux_forward(params, cfg, flux_pack_latents(x.bfloat16()), ctx.bfloat16(),
+                               y.bfloat16(), t, cos, sin, guidance=gd)
+            return flux_unpack_latents(out, FLUX_HT, FLUX_WT)
+
+    _same_out("comfyui flux", got, direct(), x)
+    if counts != flux_forward_launches(cfg):
+        raise AssertionError(f"comfyui flux: launches {counts} != {flux_forward_launches(cfg)}")
+    wrap_ms = _call_ms(lambda: wrapper(x, t, ctx, y, guidance=gd))
+    direct_ms = _call_ms(direct)
+    log(f"[frontend comfyui flux int8] FLUX.1-dev full depth, latent {tuple(x.shape)}: the "
+        f"wrapper's output equals flux_forward's bit for bit on {got.device} in {got.dtype}; "
+        f"launches as flux_forward_launches; per call {wrap_ms:.2f} ms, the direct forward "
+        f"{direct_ms:.2f} ms")
+    FRONTEND_SUMMARY.update(comfy_flux_call_ms=round(wrap_ms, 2),
+                            comfy_flux_direct_ms=round(direct_ms, 2))
+
+    nodes = _repo_module("comfyui/nodes_torch.py", "smoke_nodes_torch")
+    full = flux_forward_launches(cfg)
+    # a skipped call still runs the probe, dual block 0
+    probe = dict.fromkeys(full, 0)
+    probe.update(rmsnorm=4, rotembd=1, sdpa=1, quantize_to_int8=8, int8_matmul=8)
+    sigmas = torch.linspace(1.0, 0.0, COMFY_STEPS + 1, device=dev)
+    # the node's default threshold, then its largest (where random weights
+    # let steps skip)
+    for threshold in (0.2, 1.0):
+        wrapper = ComfyUIFluxForwardWrapper(params, cfg,
+                                            cache=nodes._build_cache(True, threshold))
+        lat = x.clone()
+        cuda_backend.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(COMFY_STEPS):
+            opts = {"sample_sigmas": sigmas, "sigmas": sigmas[i:i + 1]}
+            vc = wrapper(lat, sigmas[i:i + 1], ctx, y, guidance=gd,
+                         transformer_options=dict(opts, cond_or_uncond=[0]))
+            vu = wrapper(lat, sigmas[i:i + 1], neg, y, guidance=gd,
+                         transformer_options=dict(opts, cond_or_uncond=[1]))
+            lat = lat + (sigmas[i + 1] - sigmas[i]) * (vu + COMFY_CFG * (vc - vu))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        calls, skips = 2 * COMFY_STEPS, wrapper.cache.skips
+        counts = _launch_counts()
+        want = {k: (calls - skips) * full[k] + skips * probe[k] for k in full}
+        log(f"[frontend comfyui flux int8] {COMFY_STEPS} Euler steps x CFG pair under the "
+            f"node's DiCache (threshold {threshold}, probe depth 1): {sec:.3f} s, {skips} of "
+            f"{calls} calls skipped, latent finite {bool(torch.isfinite(lat).all())}; launches "
+            f"{counts}")
+        if counts != want or not torch.isfinite(lat).all() or not all(wrapper.cache.states):
+            raise AssertionError(f"comfyui flux DiCache: launches {counts} != derived {want}")
+        FRONTEND_SUMMARY[f"comfy_dicache_{threshold}"] = dict(s=round(sec, 3), skips=skips,
+                                                             calls=calls)
+
+
+def _comfy_flux_engine(eng) -> None:
+    """The FLUX wrapper on an engine's params (the fp8 one: quantize_to_fp8
+    and fp8_matmul through a wrapper): equal to flux_forward bit for bit,
+    launches as flux_forward_launches."""
+    import torch
+
+    from fastdm_tpu_torch.comfyui_entry import ComfyUIFluxForwardWrapper
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.flux import flux_forward, flux_rope_cache
+    from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents
+
+    cfg, dev = eng.cfg, eng.device
+    g = torch.Generator(device=dev).manual_seed(601)
+    lt = COMFY_SIZE // 16  # latent tokens a side
+    x = torch.randn(1, cfg.in_channels // 4, 2 * lt, 2 * lt, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    ctx = torch.randn(1, TXT_TOKENS, cfg.joint_attention_dim, generator=g, device=dev)
+    y = torch.randn(1, cfg.pooled_projection_dim, generator=g, device=dev)
+    t = torch.full((1,), 0.6, device=dev)
+    cuda_backend.reset_launch_counts()
+    got = ComfyUIFluxForwardWrapper(eng.params, cfg)(x, t, ctx, y)  # guidance 3.5
+    counts = _launch_counts()
+    cos, sin = flux_rope_cache(cfg, TXT_TOKENS, lt, lt, device=dev)
+    with torch.inference_mode():
+        want = flux_unpack_latents(flux_forward(
+            eng.params, cfg, flux_pack_latents(x), ctx.bfloat16(), y.bfloat16(), t, cos, sin,
+            guidance=torch.full((1,), 3.5, device=dev)), lt, lt)
+    _same_out(f"comfyui flux {cfg.quant}", got, want, x)
+    if counts != flux_forward_launches(cfg) or not counts[f"{cfg.quant}_matmul"]:
+        raise AssertionError(f"comfyui flux {cfg.quant}: launches {counts}")
+    log(f"[frontend comfyui flux {cfg.quant}] the engine's model through the wrapper: equal to "
+        f"flux_forward bit for bit (bf16 x), launches {counts}")
+
+
+def _comfy_flux_controlnet(eng) -> None:
+    """The FLUX ControlNet wrapper on the engine's raw-hint ControlNet: the
+    residual dict equal to flux_controlnet_forward's on the hint image."""
+    import torch
+
+    from fastdm_tpu_torch.comfyui_entry import ComfyUIFluxControlnetForwardWrapper
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.controlnets import flux_controlnet_forward
+    from fastdm_tpu_torch.models.flux import flux_rope_cache
+    from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents
+
+    cfg, dev = eng.cn_cfg, eng.device
+    g = torch.Generator(device=dev).manual_seed(602)
+    lt = COMFY_SIZE // 16
+    x = torch.randn(1, cfg.in_channels // 4, 2 * lt, 2 * lt, generator=g, device=dev)
+    hint = torch.rand(1, 3, COMFY_SIZE, COMFY_SIZE, generator=g, device=dev) * 2 - 1
+    ctx = torch.randn(1, TXT_TOKENS, cfg.joint_attention_dim, generator=g, device=dev)
+    y = torch.randn(1, cfg.pooled_projection_dim, generator=g, device=dev)
+    t, gd = torch.full((1,), 0.6, device=dev), torch.full((1,), 3.5, device=dev)
+    cuda_backend.reset_launch_counts()
+    got = ComfyUIFluxControlnetForwardWrapper(eng.cn_params, cfg)(
+        x, hint=hint, timesteps=t, context=ctx, y=y, guidance=gd)
+    counts = _launch_counts()
+    cos, sin = flux_rope_cache(cfg, TXT_TOKENS, lt, lt, device=dev)
+    with torch.inference_mode():
+        bs, sbs = flux_controlnet_forward(eng.cn_params, cfg, flux_pack_latents(x.bfloat16()),
+                                          hint.bfloat16(), ctx.bfloat16(), y.bfloat16(), t, cos,
+                                          sin, guidance=gd)
+    want = {k: v for k, v in (("input", bs), ("output", sbs)) if v is not None}
+    if sorted(got) != sorted(want) or any(len(got[k]) != len(v) for k, v in want.items()):
+        raise AssertionError(f"comfyui flux controlnet: residual dict {sorted(got)}")
+    for k, v in want.items():
+        for i, r in enumerate(got[k]):
+            _same_out(f"comfyui flux controlnet {k}[{i}]", r, v[i], x)
+    if counts != flux_controlnet_launches(cfg):
+        raise AssertionError(f"comfyui flux controlnet: launches {counts}")
+    log(f"[frontend comfyui flux controlnet] raw-hint ControlNet ({cfg.num_layers} dual, "
+        f"{cfg.num_single_layers} single blocks, {cfg.quant}): "
+        f"{sum(len(v) for v in got.values())} residuals equal to flux_controlnet_forward's bit "
+        f"for bit; launches {counts}")
+
+
+def _comfy_sdxl(eng) -> None:
+    """The SDXL wrapper on the engine's int8 UNet with its IP-Adapter k|v, at
+    1024x2048 under CFG: equal to sdxl_forward bit for bit without the
+    IPAdapter patch and outside its sigma window, and to sdxl_forward with
+    the patch's tokens inside it; then the SDXL ControlNet wrapper against
+    sdxl_controlnet_forward."""
+    import dataclasses
+
+    import torch
+
+    from fastdm_tpu_torch.comfyui_entry import ComfyUISDXLControlnetForwardWrapper, \
+        ComfyUISDXLForwardWrapper
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.controlnets import sdxl_controlnet_forward
+    from fastdm_tpu_torch.models.sdxl import sdxl_forward
+
+    dev = eng.device
+    cfg = dataclasses.replace(eng.cfg, ip_adapter=True)  # the UNet carries IP k|v
+    g = torch.Generator(device=dev).manual_seed(603)
+    b = SDXL_BATCH
+    x = torch.randn(b, 4, SDXL_H // 8, SDXL_W // 8, generator=g, device=dev)
+    t = torch.full((b,), 500.0, device=dev)
+    ctx = torch.randn(b, SDXL_TEXT, cfg.cross_attention_dim, generator=g, device=dev)
+    y = torch.randn(b, cfg.add_embedding_in_dim, generator=g, device=dev)
+    pooled_dim = cfg.add_embedding_in_dim - 6 * cfg.addition_time_embed_dim
+    cond, uncond = (torch.randn(1, 4, cfg.cross_attention_dim, generator=g, device=dev)
+                    for _ in range(2))
+
+    class Patch:
+        kwargs = [{"cond": cond, "uncond": uncond, "weight": 0.8, "sigma_start": 14.0,
+                   "sigma_end": 1.0}]
+
+    opts = {"patches_replace": {"attn2": {("input", 4, 0): Patch()}}, "cond_or_uncond": [0, 1]}
+    wrapper = ComfyUISDXLForwardWrapper(eng.params, cfg)
+    zeros = torch.zeros(b, 6, device=dev)
+
+    def direct(**kw):
+        with torch.inference_mode():
+            return sdxl_forward(eng.params, cfg, x, t, ctx.bfloat16(),
+                                y[:, :pooled_dim].bfloat16(), zeros, **kw)
+
+    cuda_backend.reset_launch_counts()
+    plain = wrapper(x, t, ctx, y)
+    counts = _launch_counts()
+    _same_out("comfyui sdxl", plain, direct(), x)
+    if counts != sdxl_forward_launches(eng.cfg):
+        raise AssertionError(f"comfyui sdxl: launches {counts}")
+    outside = wrapper(x, t, ctx, y, transformer_options=dict(opts, sigmas=torch.tensor([0.5])))
+    _same_out("comfyui sdxl outside the IP window", outside, direct(), x)
+    inside = wrapper(x, t, ctx, y, transformer_options=dict(opts, sigmas=torch.tensor([7.0])))
+    _same_out("comfyui sdxl inside the IP window", inside,
+              direct(ip_embeds=torch.cat([cond, uncond]).bfloat16(), ip_scale=0.8), x)
+    if torch.equal(inside, plain):
+        raise AssertionError("comfyui sdxl: the IP tokens changed nothing")
+
+    cn = ComfyUISDXLControlnetForwardWrapper(eng.cn_params, eng.cn_cfg)
+    hint = torch.rand(b, 3, SDXL_H, SDXL_W, generator=g, device=dev)
+    cuda_backend.reset_launch_counts()
+    res = cn(x, hint=hint, timesteps=t, context=ctx, y=y)
+    counts = _launch_counts()
+    with torch.inference_mode():
+        down, mid = sdxl_controlnet_forward(eng.cn_params, eng.cn_cfg, x, t, ctx.bfloat16(),
+                                            y[:, :pooled_dim].bfloat16(), zeros, hint)
+    if len(res["output"]) != len(down) or len(res["middle"]) != 1:
+        raise AssertionError("comfyui sdxl controlnet: residual dict")
+    for i, (r, d) in enumerate(zip(res["output"], down)):
+        _same_out(f"comfyui sdxl controlnet output[{i}]", r, d, x)
+    _same_out("comfyui sdxl controlnet middle", res["middle"][0], mid, x)
+    if counts != sdxl_controlnet_launches(eng.cn_cfg):
+        raise AssertionError(f"comfyui sdxl controlnet: launches {counts}")
+    log(f"[frontend comfyui sdxl] int8 UNet {SDXL_H}x{SDXL_W} batch {b}: the wrapper equals "
+        f"sdxl_forward bit for bit without the IPAdapter patch, outside its sigma window and "
+        f"(with its tokens, weight 0.8) inside it; the ControlNet wrapper's {len(down)} + 1 "
+        f"residuals equal sdxl_controlnet_forward's; launches as derived")
+
+
+def _comfy_sd3(eng) -> None:
+    """The SD3 wrapper (sigma x 1000, the cropped position table) on the
+    engine's int8 model at 1024x2048: equal to sd3_forward bit for bit."""
+    import torch
+
+    from fastdm_tpu_torch.comfyui_entry import ComfyUISD3ForwardWrapper
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.sd35 import sd3_cropped_pos_embed, sd3_forward
+
+    cfg, dev = eng.cfg, eng.device
+    g = torch.Generator(device=dev).manual_seed(604)
+    h, w = SD35_H // 8, SD35_W // 8
+    x = torch.randn(1, cfg.in_channels, h, w, generator=g, device=dev)
+    ctx = torch.randn(1, SD35_TEXT, cfg.joint_attention_dim, generator=g, device=dev)
+    y = torch.randn(1, cfg.pooled_projection_dim, generator=g, device=dev)
+    sigma = torch.full((1,), 0.7, device=dev)
+    cuda_backend.reset_launch_counts()
+    got = ComfyUISD3ForwardWrapper(eng.params, cfg)(x, sigma, ctx, y)
+    counts = _launch_counts()
+    with torch.inference_mode():
+        want = sd3_forward(eng.params, cfg, x, ctx.bfloat16(), y.bfloat16(), sigma * 1000.0,
+                           sd3_cropped_pos_embed(cfg, eng.params.pos_embed_table, h, w,
+                                                 device=dev))
+    _same_out("comfyui sd3", got, want, x)
+    if counts != sd35_forward_launches(cfg):
+        raise AssertionError(f"comfyui sd3: launches {counts}")
+    log(f"[frontend comfyui sd3] int8 {SD35_H}x{SD35_W}: equal to sd3_forward bit for bit; "
+        f"launches {counts}")
+
+
+def _comfy_qwen(eng) -> None:
+    """The Qwen wrapper on the engine's int4p model at 1024x2048: equal to
+    qwen_forward bit for bit."""
+    import torch
+
+    from fastdm_tpu_torch.comfyui_entry import ComfyUIQwenForwardWrapper
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.qwenimage import qwen_forward, qwen_rope_cos_sin
+    from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents
+
+    cfg, dev = eng.cfg, eng.device
+    g = torch.Generator(device=dev).manual_seed(605)
+    x = torch.randn(1, cfg.in_channels // 4, 2 * QWEN_HT, 2 * QWEN_WT, generator=g, device=dev)
+    ctx = torch.randn(1, QWEN_TEXT, cfg.joint_attention_dim, generator=g, device=dev)
+    t = torch.full((1,), 0.7, device=dev)
+    cuda_backend.reset_launch_counts()
+    got = ComfyUIQwenForwardWrapper(eng.params, cfg)(x, t, ctx)
+    counts = _launch_counts()
+    cos, sin = qwen_rope_cos_sin(cfg, 1, QWEN_HT, QWEN_WT, QWEN_TEXT, device=dev)
+    with torch.inference_mode():
+        want = flux_unpack_latents(qwen_forward(eng.params, cfg, flux_pack_latents(x.bfloat16()),
+                                                ctx.bfloat16(), t, cos, sin), QWEN_HT, QWEN_WT)
+    _same_out("comfyui qwen", got, want, x)
+    computed, every = qwen_forward_launches(cfg, teacache=False)
+    if counts != {k: computed[k] + every[k] for k in computed}:
+        raise AssertionError(f"comfyui qwen: launches {counts}")
+    log(f"[frontend comfyui qwen] {cfg.quant} {16 * QWEN_HT}x{16 * QWEN_WT}: equal to "
+        f"qwen_forward bit for bit; launches {counts}")
+
+
+def _request_s(fn, req):
+    """(response, request seconds) of one route call."""
+    t0 = time.perf_counter()
+    resp = fn(req)
+    return resp, time.perf_counter() - t0
+
+
+def _frontend_server(eng, root: str) -> None:
+    """The API server's routes on the bf16 FLUX engine (full width, the
+    text encoders linked): /health, /get_model_info, three /generate
+    requests from a prompt string in the reference spellings, each PNG
+    equal to generate() in the diffusers spelling pixel for pixel, with the
+    request's time and the host's share (PNG encode and base64); the 400s;
+    one request under utils.profiling.trace() (the Chrome trace names the
+    port's kernels; time_record fills time_records); create_model on the
+    card from the engine's checkpoint, its forward equal to the engine's."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fastdm_tpu_torch.model_entry import create_model
+    from fastdm_tpu_torch.models.flux import flux_forward, flux_rope_cache
+    from fastdm_tpu_torch.utils import profiling
+
+    api = _repo_module("examples/serve/api_server_torch.py", "smoke_api_server_torch")
+    routes = api.Routes(eng, SERVE_MODEL)
+    if routes.health() != {"status": "ok", "architecture": "flux"} or \
+            routes.get_model_info().model_name != SERVE_MODEL:
+        raise AssertionError("the server's /health or /get_model_info answered wrongly")
+    prompt = TEXT_PROMPTS[0]
+    for seed, h, w in SERVE_REQUESTS:
+        req = api.GenerateRequest(model=SERVE_MODEL, prompt=prompt, steps=STEPS, seed=seed,
+                                  width=w, height=h, guidance_scale=3.5)
+        resp, sec = _request_s(routes.generate, req)
+        t0 = time.perf_counter()
+        got = api.base64_to_image(resp.image)
+        decode_s = time.perf_counter() - t0
+        want = eng.generate(prompt=prompt, num_inference_steps=STEPS, seed=seed, width=w,
+                            height=h, guidance_scale=3.5)[0]
+        host = sec - routes.timings["generate_s"]
+        same = got.shape == want.shape and np.array_equal(got, want)
+        log(f"[frontend server] /generate {h}x{w} seed={seed} {STEPS} steps: {sec:.3f} s "
+            f"(generate {routes.timings['generate_s']:.3f} s, PNG + base64 "
+            f"{routes.timings['encode_s']:.3f} s, host share {host / sec:.1%}; "
+            f"{len(resp.image) / 2**20:.2f} MiB base64; the client's decode {decode_s:.3f} s); "
+            f"equal to generate(): {same}")
+        if not same:
+            raise AssertionError(f"/generate {h}x{w}: the PNG differs from generate()'s image")
+        FRONTEND_SUMMARY[f"server_generate_{h}x{w}_s{seed}"] = dict(
+            request_s=round(sec, 4), generate_s=round(routes.timings["generate_s"], 4),
+            encode_s=round(routes.timings["encode_s"], 4), host_share=round(host / sec, 4))
+    for bad, status in ((dict(model="other"), 400), (dict(prompt="  "), 400)):
+        try:
+            routes.generate(api.GenerateRequest(**dict(dict(model=SERVE_MODEL, prompt="x"),
+                                                       **bad)))
+        except api.HTTPError as e:
+            if e.status_code != status:
+                raise
+            log(f"[frontend server] {bad} -> {e.status_code} {e.detail!r}")
+        else:
+            raise AssertionError(f"/generate {bad} was not refused")
+
+    # one request traced
+    profiling.time_records.clear()
+    profiling.do_time_prof = True
+    timed = profiling.time_record("api.generate")(routes.generate)
+    req = api.GenerateRequest(model=SERVE_MODEL, prompt=prompt, steps=STEPS, seed=34,
+                              width=COMFY_SIZE, height=COMFY_SIZE)
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(root), prefix=".smoke-trace-") as d:
+            t0 = time.perf_counter()
+            with profiling.trace(d):
+                timed(req)
+            traced_s = time.perf_counter() - t0
+            with open(os.path.join(d, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+    finally:
+        profiling.do_time_prof = False
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    ours = {k: [n for n in kernels if k in n] for k in ("flash_attn_fwd_kernel", "rms_norm",
+                                                        "rope_")}
+    recorded = profiling.time_records.get("api.generate", [])
+    log(f"[frontend trace] one /generate under utils.profiling.trace(): {traced_s:.3f} s, "
+        f"{len(events)} events, {len(kernels)} distinct kernels, the port's: "
+        f"{ {k: len(v) for k, v in ours.items()} }; time_record: {recorded}")
+    if not all(ours.values()) or len(recorded) != 1:
+        raise AssertionError(f"the trace misses the port's kernels ({ours}) or time_record "
+                             f"recorded {recorded}")
+    FRONTEND_SUMMARY["traced_generate_s"] = round(traced_s, 3)
+
+    # create_model from the engine's checkpoint, on the card
+    over = {f.name: getattr(eng.cfg, f.name) for f in dataclasses.fields(eng.cfg)
+            if f.name != "quant"}
+    t0 = time.perf_counter()
+    cfg, params, fwd = create_model("flux", ckpt_path=os.path.join(root, "transformer"),
+                                    quant=None, device=eng.device, **over)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same_modules(params, eng.params, "create_model")
+    g = torch.Generator(device=eng.device).manual_seed(606)
+    lt = COMFY_SIZE // 16
+    hid = torch.randn(1, lt * lt, cfg.in_channels, generator=g, device=eng.device,
+                      dtype=torch.bfloat16)
+    ctx = torch.randn(1, TXT_TOKENS, cfg.joint_attention_dim, generator=g, device=eng.device,
+                      dtype=torch.bfloat16)
+    pooled = torch.randn(1, cfg.pooled_projection_dim, generator=g, device=eng.device,
+                         dtype=torch.bfloat16)
+    t, gd = torch.full((1,), 0.5, device=eng.device), torch.full((1,), 3.5, device=eng.device)
+    cos, sin = flux_rope_cache(cfg, TXT_TOKENS, lt, lt, device=eng.device)
+    with torch.inference_mode():
+        a = fwd(params, cfg, hid, ctx, pooled, t, cos, sin, guidance=gd)
+        b = flux_forward(eng.params, eng.cfg, hid, ctx, pooled, t, cos, sin, guidance=gd)
+    log(f"[frontend create_model] 'flux' from the engine's transformer/ on "
+        f"{next(params.parameters()).device} in {load_s:.2f} s: every parameter equal to the "
+        f"engine's, forward equal {torch.equal(a, b)}")
+    if not torch.equal(a, b):
+        raise AssertionError("create_model's forward differs from the engine's")
+
+
+def _frontend_edit(eng) -> None:
+    """/edit on the int8 flux-kontext engine with two PNG sources
+    (EDIT_SOURCES: 1024x1024 and 1024x768) in list, average and
+    concatenate: each PNG equal to generate() on the blended sources."""
+    import numpy as np
+
+    api = _repo_module("examples/serve/api_server_torch.py", "smoke_api_server_torch")
+    routes = api.Routes(eng, SERVE_MODEL)
+    srcs = [_seeded_image(*src) for src in EDIT_SOURCES]
+    b64 = [api.image_to_base64(s) for s in srcs]
+    prompt = TEXT_PROMPTS[0]
+    for mode in ("list", "average", "concatenate"):
+        req = api.EditRequest(model=SERVE_MODEL, prompt=prompt, steps=STEPS, seed=41,
+                              guidance_scale=KONTEXT_GUIDANCE, input_images=b64, blend_mode=mode)
+        resp, sec = _request_s(routes.edit, req)
+        got = api.base64_to_image(resp.image)
+        image = api.process_multiple_images(srcs, mode, "horizontal")
+        want = eng.generate(prompt=prompt, num_inference_steps=STEPS, seed=41,
+                            guidance_scale=KONTEXT_GUIDANCE, image=image)[0]
+        host = sec - routes.timings["generate_s"]
+        same = got.shape == want.shape and np.array_equal(got, want)
+        log(f"[frontend server] /edit {mode}: {sec:.3f} s (sources decoded and blended "
+            f"{routes.timings['decode_s']:.3f} s, generate {routes.timings['generate_s']:.3f} "
+            f"s, PNG + base64 {routes.timings['encode_s']:.3f} s, host share {host / sec:.1%}); "
+            f"image {got.shape} equal to generate(): {same}")
+        if not same:
+            raise AssertionError(f"/edit {mode}: the PNG differs from generate()'s image")
+        FRONTEND_SUMMARY[f"server_edit_{mode}"] = dict(
+            request_s=round(sec, 4), decode_s=round(routes.timings["decode_s"], 4),
+            generate_s=round(routes.timings["generate_s"], 4),
+            encode_s=round(routes.timings["encode_s"], 4), host_share=round(host / sec, 4))
+
+
 def main() -> int:
     import torch
 
@@ -6530,6 +7050,8 @@ def main() -> int:
         f"{I2V_SUMMARY}")
     log(f"[qwen-vl] Qwen2.5-VL-7B encodes, the prompt-string Qwen requests and their kernel "
         f"shapes (ms, seconds, GiB): {QWEN_VL_SUMMARY}")
+    log(f"[frontend] ComfyUI wrappers and API server requests (ms, seconds, host shares): "
+        f"{FRONTEND_SUMMARY}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -160,3 +160,29 @@ def negative_stream_config(cfg: CacheConfig) -> CacheConfig:
     if isinstance(cfg, TeaCacheConfig) and cfg.negtive_coefficients:
         return dataclasses.replace(cfg, coefficients=cfg.negtive_coefficients)
     return cfg
+
+
+class AutoCache:
+    """Config-driven factory (fastdm_tpu/caching/xcaching.py:196-226): holds
+    the frozen config; the state of a stream is made by `init_state` and
+    carried by the caller between steps."""
+
+    def __init__(self, config: CacheConfig):
+        self.config = config
+
+    @classmethod
+    def from_dict(cls, data) -> "AutoCache":
+        return cls(CacheConfig.from_dict(data))
+
+    @classmethod
+    def from_json(cls, path: str) -> "AutoCache":
+        return cls(CacheConfig.from_json(path))
+
+    def init_state(self, hidden_shape, probe_shape, dtype=torch.bfloat16,
+                   device="cuda") -> State:
+        return cache_init_state(self.config, hidden_shape, probe_shape, dtype, device)
+
+    def run(self, state: State, step: int, total_steps: int, hidden: Tensor, encoder: Tensor,
+            probe_fn: Callable, rest_fn: Callable) -> Tuple[Tensor, State]:
+        return cached_run(self.config, state, step, total_steps, hidden, encoder, probe_fn,
+                          rest_fn)

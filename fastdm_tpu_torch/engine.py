@@ -657,6 +657,17 @@ class FastDMEngine:
 
     # ------------------------------------------------------------ generate
 
+    # the reference's keyword spellings, accepted beside the diffusers ones
+    # (fastdm_tpu/engine.py:790-797)
+    _GENERATE_ALIASES = {
+        "steps": "num_inference_steps",
+        "gen_seed": "seed",
+        "gen_width": "width",
+        "gen_height": "height",
+        "src_image": "image",
+        "max_seq_len": "max_sequence_length",
+    }
+
     def generate(self, prompt=None, task: Optional[str] = None, **kw):
         """FLUX text-to-image (prompt, height, width, num_inference_steps,
         guidance_scale, seed, num_images_per_prompt, or prompt_embeds and
@@ -688,7 +699,19 @@ class FastDMEngine:
         ip_adapter_path, SDXL takes ip_adapter_image (an (H, W, 3) uint8
         image for the CLIP vision tower of image_encoder/) or
         ip_adapter_image_embeds, which win. A Wan2.1-I2V checkpoint's i2v
-        conditions on the image's CLIP tokens too."""
+        conditions on the image's CLIP tokens too.
+
+        The reference's spellings steps, gen_seed, gen_width, gen_height,
+        src_image and max_seq_len name the same arguments (both spellings of
+        one raise TypeError). A per-call max_sequence_length is taken by every
+        family and ignored, the constructor's holding, as the JAX engine's
+        generates drop it; any other unknown keyword raises TypeError."""
+        for ref_name, ours in self._GENERATE_ALIASES.items():
+            if ref_name in kw:
+                if ours in kw:
+                    raise TypeError(f"generate() got both {ref_name!r} and {ours!r}")
+                kw[ours] = kw.pop(ref_name)
+        kw.pop("max_sequence_length", None)
         image = kw.get("image")
         if self.architecture == "wan":
             tasks = ("t2v", "i2v", "ti2v")
@@ -745,17 +768,14 @@ class FastDMEngine:
                        pooled_prompt_embeds=None, output_type: str = "np", image=None,
                        strength: float = 0.7, control_image=None,
                        controlnet_conditioning_scale: float = 1.0,
-                       control_mode: Optional[int] = None,
-                       max_sequence_length: Optional[int] = None):
-        """negative_prompt is accepted and unused (FLUX runs no CFG), and a
-        per-call max_sequence_length is ignored, the constructor's holding:
-        both as the JAX engine, whose FLUX generate takes the one and drops
-        the other."""
+                       control_mode: Optional[int] = None):
+        """negative_prompt is accepted and unused (FLUX runs no CFG), as the
+        JAX engine's FLUX generate takes it and drops it."""
         from fastdm_tpu_torch.models.flux import flux_rope_cache
         from fastdm_tpu_torch.pipeline.denoise import flux_pack_latents, flux_unpack_latents, \
             make_flux_cn_denoiser, make_flux_denoiser, make_flux_kontext_denoiser
 
-        del negative_prompt, max_sequence_length
+        del negative_prompt
         self._require_controlnet(control_image)
         encoder, pooled = self._conditioning(prompt, prompt_embeds, pooled_prompt_embeds,
                                              num_images_per_prompt)

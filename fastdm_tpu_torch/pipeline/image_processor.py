@@ -44,9 +44,11 @@ import numpy as np
 # OpenAI CLIP's normalization (transformers' OPENAI_CLIP_MEAN / _STD)
 OPENAI_CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
-# PIL's resample codes (PIL.Image.Resampling); the port implements BICUBIC only
+# PIL's resample codes (PIL.Image.Resampling); the port implements BICUBIC
+# (the processors') and LANCZOS (the API server's blend modes)
 _RESAMPLE_NAMES = {0: "NEAREST", 1: "LANCZOS", 2: "BILINEAR", 3: "BICUBIC", 4: "BOX",
                    5: "HAMMING"}
+LANCZOS = 1
 BICUBIC = 3
 # Pillow's fixed point for 8-bit data: 32 - 8 - 2 fractional bits
 _PRECISION_BITS = 22
@@ -62,13 +64,34 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, inner, np.where(x < 2.0, outer, 0.0))
 
 
-def resample_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+def _sinc(x: float) -> float:
+    """Pillow's sinc_filter on one double, through the C library's sin (as
+    Pillow's; numpy's vectorized sin may round another way)."""
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """Pillow's lanczos_filter (sinc(x) * sinc(x / 3) on [-3, 3)), elementwise."""
+    vals = [_sinc(v) * _sinc(v / 3) if -3.0 <= v < 3.0 else 0.0 for v in x.ravel().tolist()]
+    return np.asarray(vals, np.float64).reshape(x.shape)
+
+
+# resample code -> (filter, support in input pixels at scale 1)
+_FILTERS = {BICUBIC: (_bicubic, 2.0), LANCZOS: (_lanczos, 3.0)}
+
+
+def resample_coeffs(in_size: int, out_size: int,
+                    resample: int = BICUBIC) -> Tuple[np.ndarray, np.ndarray]:
     """Pillow's precompute_coeffs + normalize_coeffs_8bpc for one axis of a
-    bicubic resize over the whole input: -> (xmin (out,) int64, k (out,
-    ksize) int64 fixed-point weights, zero past each output's span)."""
+    BICUBIC or LANCZOS resize over the whole input: -> (xmin (out,) int64,
+    k (out, ksize) int64 fixed-point weights, zero past each output's span)."""
+    filt, filter_support = _FILTERS[resample]
     scale = float(in_size) / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size, dtype=np.float64) + 0.5) * scale
     # C's (int) truncates toward zero
@@ -77,8 +100,8 @@ def resample_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray
     ss = 1.0 / filterscale
     x = np.arange(ksize, dtype=np.int64)[None, :]
     live = x < xmax[:, None]
-    w = np.where(live, _bicubic(((x + xmin[:, None]).astype(np.float64) - center[:, None] + 0.5)
-                                * ss), 0.0)
+    w = np.where(live, filt(((x + xmin[:, None]).astype(np.float64) - center[:, None] + 0.5)
+                            * ss), 0.0)
     ww = np.zeros(out_size, np.float64)
     for i in range(ksize):  # Pillow's sequential sum, in its order
         ww = ww + w[:, i]
@@ -88,11 +111,12 @@ def resample_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray
     return xmin, np.where(live, k, 0)
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One 8-bit pass of Pillow's bicubic resample along `axis` (0 rows, 1
-    columns) of an (H, W, C) uint8 image."""
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   resample: int = BICUBIC) -> np.ndarray:
+    """One 8-bit pass of Pillow's resample along `axis` (0 rows, 1 columns)
+    of an (H, W, C) uint8 image."""
     in_size = img.shape[axis]
-    xmin, k = resample_coeffs(in_size, out_size)
+    xmin, k = resample_coeffs(in_size, out_size, resample)
     # the banded weights as a dense (in, out) matrix: every product and
     # partial sum is an integer far below 2**53, so a float64 matmul gives
     # Pillow's integer sums exactly, in any order
@@ -109,19 +133,29 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.ascontiguousarray(np.moveaxis(out, -1, axis))
 
 
-def resize_bicubic(img: np.ndarray, height: int, width: int) -> np.ndarray:
-    """PIL.Image.fromarray(img).resize((width, height), Image.BICUBIC) of an
+def _resize(img: np.ndarray, height: int, width: int, resample: int) -> np.ndarray:
+    """PIL.Image.fromarray(img).resize((width, height), resample) of an
     (H, W, C) uint8 image, bit for bit: the horizontal pass, then the
     vertical one, each skipped when its size does not change."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3:
-        raise ValueError(f"resize_bicubic takes an (H, W, C) uint8 image, got {img.dtype} "
-                         f"{img.shape}")
+        raise ValueError(f"resize_{_RESAMPLE_NAMES[resample].lower()} takes an (H, W, C) uint8 "
+                         f"image, got {img.dtype} {img.shape}")
     if width != img.shape[1]:
-        img = _resample_axis(img, width, 1)
+        img = _resample_axis(img, width, 1, resample)
     if height != img.shape[0]:
-        img = _resample_axis(img, height, 0)
+        img = _resample_axis(img, height, 0, resample)
     return img
+
+
+def resize_bicubic(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Pillow's 8-bit BICUBIC resize to (height, width), bit for bit."""
+    return _resize(img, height, width, BICUBIC)
+
+
+def resize_lanczos(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Pillow's 8-bit LANCZOS resize to (height, width), bit for bit."""
+    return _resize(img, height, width, LANCZOS)
 
 
 def resize_output_size(h: int, w: int, size) -> Tuple[int, int]:

@@ -30,13 +30,20 @@ def _imports(path: Path):
             yield node.module
 
 
+# the port's files outside the package: the ComfyUI nodes and the serving front-ends
+FRONTEND_FILES = (REPO / "comfyui" / "nodes_torch.py",
+                  *sorted((REPO / "examples" / "serve").glob("*_torch.py")))
+
+
 def _sources():
-    """chip_smoke.py and the package's sources; the git-ignored build
-    directory holds kernel build outputs (and, for GPU runs, unpacked copies
-    of the whole tree), not sources of the port."""
+    """chip_smoke.py, the package's sources and the port's front-end files
+    outside it; the git-ignored build directory holds kernel build outputs
+    (and, for GPU runs, unpacked copies of the whole tree), not sources of
+    the port."""
     yield REPO / "chip_smoke.py"
     pkg = REPO / "fastdm_tpu_torch"
     yield from sorted(p for p in pkg.rglob("*.py") if "_build" not in p.relative_to(pkg).parts)
+    yield from FRONTEND_FILES
 
 
 def test_port_sources_import_no_jax():
@@ -103,3 +110,63 @@ print("QWEN", tuple(q.shape), grid.tolist())
     assert out.returncode == 0, out.stderr
     assert "SHAPE (1, 3, 224, 224) ['PIL']" in out.stdout, out.stdout
     assert "QWEN (24, 1176) [[1, 4, 6]]" in out.stdout, out.stdout
+
+
+# what the card's machine lacks: the front-ends import these only inside the
+# functions that need them
+SERVE_ONLY = ("PIL", "fastapi", "uvicorn", "pydantic", "imageio", "gradio")
+FRONTEND_MODULES = ("fastdm_tpu_torch/model_entry.py", "fastdm_tpu_torch/common_args.py",
+                    "fastdm_tpu_torch/comfyui_entry.py", "fastdm_tpu_torch/utils/logging.py",
+                    "fastdm_tpu_torch/utils/profiling.py", "fastdm_tpu_torch/utils/png.py",
+                    "fastdm_tpu_torch/pipeline/image_processor.py")
+
+
+def _module_level_imports(path: Path):
+    """Imports that run when the module is imported: its top-level
+    statements, and those inside top-level if / try blocks."""
+    body = list(ast.parse(path.read_text(), str(path)).body)
+    while body:
+        node = body.pop(0)
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, (ast.If, ast.Try)):
+            body.extend(node.body + node.orelse + getattr(node, "finalbody", []))
+            body.extend(s for h in getattr(node, "handlers", []) for s in h.body)
+
+
+def test_frontends_import_no_serving_package_at_module_level():
+    assert len(FRONTEND_FILES) == 3, FRONTEND_FILES  # nodes, API server, Gradio UI
+    files = [REPO / p for p in FRONTEND_MODULES] + list(FRONTEND_FILES)
+    bad = [(str(p.relative_to(REPO)), m) for p in files for m in _module_level_imports(p)
+           if m.split(".")[0] in SERVE_ONLY]
+    assert not bad, bad
+
+
+def test_server_codec_and_resampler_run_without_pil_fastapi_imageio():
+    """With PIL, fastapi, uvicorn, imageio and gradio hidden, the API
+    server, the PNG codec and the resampler import; one PNG round-trips
+    through the server's helpers and the blend modes run."""
+    code = """
+import importlib.util, sys
+for m in ("PIL", "fastapi", "uvicorn", "imageio", "gradio"):
+    sys.modules[m] = None
+import numpy as np
+spec = importlib.util.spec_from_file_location("api_server_torch", "examples/serve/api_server_torch.py")
+api = importlib.util.module_from_spec(spec)
+sys.modules["api_server_torch"] = api
+spec.loader.exec_module(api)
+from fastdm_tpu_torch.pipeline.image_processor import resize_lanczos
+from fastdm_tpu_torch.utils.png import decode_png, encode_png
+img = (np.arange(5 * 7 * 3) % 251).astype(np.uint8).reshape(5, 7, 3)
+back = api.base64_to_image(api.image_to_base64(img))
+cat = api.process_multiple_images([img, resize_lanczos(img, 10, 3)], "concatenate")
+print("ROUNDTRIP", bool((back == img).all()), cat.shape,
+      sorted(m for m in ("PIL", "fastapi", "imageio") if sys.modules.get(m) is not None))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "ROUNDTRIP True (5, 8, 3) []" in out.stdout, out.stdout
