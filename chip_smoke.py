@@ -451,6 +451,17 @@ QWEN_VL_PIXELS = (3136, 12845056)  # processor/preprocessor_config.json's min / 
 QWEN_VL_REL_L2_TOL = 1e-4
 # the Qwen2.5-VL numbers, printed after [done]
 QWEN_VL_SUMMARY: dict = {}
+# parallel/: the sdpa kernel's log-sum-exp variant (f32, absolute), the ring
+# over RING_SPS virtual ranks at Wan2.2-A14B's and FLUX's widths against one
+# sdpa call (bf16 block outputs merged in f32: one more bf16 rounding a ring
+# step), the Wan forward under a virtual ring against the forward without it
+LSE_TOL = 1e-3
+RING_SPS = (2, 4)
+RING_TOL_ABS = 2e-3  # plus 2 bf16 ulp of |one call|
+RING_FORWARD_SP, RING_FORWARD_REL_L2_TOL = 4, 2e-2
+GPIPE_PP, GPIPE_M = 4, 2
+# the parallel/ numbers, printed after [done]
+PARALLEL_SUMMARY: dict = {}
 
 
 def log(*a):
@@ -741,6 +752,8 @@ def phase_kernels(dev) -> dict:
     _wan5b_kernels(dev, torch.Generator(device=dev).manual_seed(4))
     _controlnet_kernels(dev, torch.Generator(device=dev).manual_seed(11))
     _image_branch_kernels(dev, torch.Generator(device=dev).manual_seed(12))
+    results.update(_lse_kernels(dev, torch.Generator(device=dev).manual_seed(13)))
+    _ring_kernels(dev, torch.Generator(device=dev).manual_seed(14))
     for r in results.values():
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']})")
@@ -1553,7 +1566,8 @@ def _launch_counts():
             "gather_fine": cb.gather_fine_attention_cuda.launches,
             "gather_coarse": cb.gather_sparse_attention_cuda.launches,
             "sparse_mask": cb.sparse_attention_cuda.launches,
-            "sdpa": cb.sdpa_cuda.launches, "rmsnorm": cb.rms_norm_cuda.launches,
+            "sdpa": cb.sdpa_cuda.launches, "sdpa_lse": cb.sdpa_lse_cuda.launches,
+            "rmsnorm": cb.rms_norm_cuda.launches,
             "rotembd": cb.rotary_pos_embedding_cuda.launches,
             "quantize_to_int8": cb.quantize_to_int8_cuda.launches,
             "int8_matmul": cb.int8_matmul_cuda.launches,
@@ -2338,6 +2352,10 @@ def phase_wan(dev) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     if not finite or tuple(video.shape) != shape or calls != [4, 4]:
         raise AssertionError("the Wan request produced a bad video or skipped an expert")
+    # for the offload request at the end of the phase
+    resident = dict(seconds=t2 - t0, denoise=t1 - t0,
+                    peak=torch.cuda.max_memory_allocated() / 2**30)
+    lat_ref = lat
     dense_fwd, sparse_fwd = 2 * WAN_DENSE_STEPS, 2 * (WAN_STEPS - WAN_DENSE_STEPS)
     want = {k: dense_fwd * a + sparse_fwd * b for (k, a), b in zip(
         wan_forward_launches(cfg, tokens).items(),
@@ -2349,7 +2367,7 @@ def phase_wan(dev) -> dict:
     log(f"[wan] launch check: counts equal the ones derived from the code (qk_norm_rope "
         f"{cfg.num_layers} per forward, gather_super {cfg.num_layers - cfg.dense_layers} per "
         f"sparse forward)")
-    del video, lat, vae
+    del video, lat
 
     # one dense and one sparse forward alone; then the split-QKV forward
     # (qk_norm_rope2, its own path: counts zeroed before it) held to the fused
@@ -2402,10 +2420,17 @@ def phase_wan(dev) -> dict:
     torch.cuda.empty_cache()
     launches = {"qk_norm_rope": counts["qk_norm_rope"], "gather_super": counts["gather_super"],
                 "qk_norm_rope2": split_counts["qk_norm_rope2"]}
+    launches.update(_wan_ring_forward(forward, cfg, tokens, secs))
+    torch.cuda.empty_cache()
     launches.update(_wan_modes(dev, experts[1], capacity, radial, secs, x, t, pos, cos, sin))
     _wan_cached_requests(dev, experts, cfg, tables, latents, pos, neg, cos, sin, tokens)
     _wan_forced_skip(dev, experts[1], cfg, tables, x, t, pos, cos, sin, tokens)
-    del experts
+    _wan_offload_request(
+        dev, experts, (latents, pos, neg, cos, sin, tables),
+        lambda place: make_wan_dual_phase_denoiser(cfg, sched, WAN_STEPS, *WAN_CFG, WAN_BOUNDARY,
+                                                   radial.config.dense_steps, place_params=place),
+        vae, vae_cfg, lat_ref, resident)
+    del experts, vae
     torch.cuda.empty_cache()
     return launches
 
@@ -3286,6 +3311,7 @@ def phase_qwen(dev, summary: Optional[dict] = None) -> None:
             return qwen_forward(params, cfg, x, embeds, t, cos, sin).float()
 
     _forward_gate("qwen int4p", forward, QWEN_FORWARD_REL_L2_TOL, W4A4_OPS)
+    _qwen_gpipe(dev, params, cfg, cos, sin)
     del x
     _qwen_edit_request(dev, params, cfg, vae, vae_cfg, tea, {} if summary is None else summary)
     enc = phase_qwen_vl(dev, params, cfg, vae, vae_cfg, tea)
@@ -5463,6 +5489,7 @@ def _engine_wan(dev, here: str) -> None:
         os.environ.pop("FASTDM_SPARSE_GATHER")
         del eng
         torch.cuda.empty_cache()
+        _engine_wan_meshes(root, dev, kw, radial)
 
 
 # ------------------------------------------------------ ControlNet / IP-Adapter
@@ -7006,6 +7033,306 @@ def _frontend_edit(eng) -> None:
             encode_s=round(routes.timings["encode_s"], 4), host_share=round(host / sec, 4))
 
 
+# ------------------------------------------------------------------ parallel/
+
+
+def _lse_kernels(dev, g) -> dict:
+    """The sdpa kernel's log-sum-exp variant (the ring's block) at FLUX's
+    joint 8704 tokens (24 x 128) and at Wan2.2-A14B's 32760 / 4 = 8190-row
+    ring shard (40 x 128): its output bit-identical to the sdpa kernel's and
+    within sdpa's long-case tolerance of the plain version's, its f32
+    log-sum-exp within LSE_TOL; timed beside the sdpa kernel, its bound, the
+    plain version and the library call that also returns the log-sum-exp
+    (aten._scaled_dot_product_flash_attention, which the port never calls).
+    The kernels line takes the Wan shard's numbers: the ring forward of
+    phase_wan launches it there."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+
+    out = {}
+    for label, s, h in (("flux", TXT_TOKENS + IMG_TOKENS, HEADS),
+                        ("wan-shard", _wan_shape(WAN_FRAMES)[3] // 4, WAN_HEADS)):
+        q, k, v = (torch.randn(1, s, h * HEAD_DIM, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        got, lse = cb.sdpa_lse_cuda(q, k, v, h, h, HEAD_DIM)
+        same = torch.equal(got, cb.sdpa_cuda(q, k, v, h, h, HEAD_DIM))
+        ref, ref_lse = tb.sdpa_lse_torch(q, k, v, h, h, HEAD_DIM)
+        e = (got.float() - ref.float()).abs()
+        rel = (e.norm() / ref.float().norm()).item()
+        excess = (e - (1e-3 + 2 * bf16_ulp(ref))).max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        log(f"[sdpa_lse] {label} (1, {s}, {h}x{HEAD_DIM}): output bit-identical to sdpa "
+            f"{same}; vs plain max_abs_err {e.max().item():.3e}, rel L2 {rel:.3e} (tolerance "
+            f"1e-3 + 2 ulp, rel L2 5e-3); log-sum-exp max_abs_err {lse_err:.3e} (tolerance "
+            f"{LSE_TOL})")
+        if not (same and excess <= 0 and rel <= 5e-3 and lse_err <= LSE_TOL
+                and torch.isfinite(lse).all()):
+            raise AssertionError(f"sdpa_lse ({label}) disagrees with its plain version")
+        heads = lambda t: t.view(1, s, h, HEAD_DIM).transpose(1, 2)  # noqa: E731
+        try:
+            lib_ms = cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                heads(q), heads(k), heads(v)), 10)
+        except RuntimeError as ex:  # a library without the flash path on this build
+            log(f"[sdpa_lse] {label}: library call unavailable ({str(ex)[:120]})")
+            lib_ms = None
+        flops = 4 * s * s * HEAD_DIM * h
+        b_ms, b_by = bound(4 * q.numel() * 2 + lse.numel() * 4, flops, BF16_FLOPS)
+        ms = cuda_ms(lambda: cb.sdpa_lse_cuda(q, k, v, h, h, HEAD_DIM), 10)
+        sdpa_ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, HEAD_DIM), 10)
+        plain_ms = cuda_ms(lambda: tb.sdpa_lse_torch(q, k, v, h, h, HEAD_DIM), 2, 1)
+        log(f"[sdpa_lse] {label}: {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s, {b_ms / ms:.1%} "
+            f"of the bound {b_ms:.4f} ms, {b_by}); sdpa {sdpa_ms:.4f} ms; plain "
+            f"{plain_ms:.4f} ms; library {lib_ms} ms")
+        PARALLEL_SUMMARY[f"lse_{label}"] = dict(ms=ms, sdpa_ms=sdpa_ms, plain_ms=plain_ms,
+                                                library_ms=lib_ms, bound_ms=b_ms)
+        if label == "wan-shard":
+            out["sdpa_lse"] = dict(
+                name="sdpa_lse", route="cuda", source="fastdm_tpu_torch/csrc/flash_attn.cu",
+                replaces="fastdm_tpu/parallel/context_parallel.py:25", max_abs_err=e.max().item(),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del q, k, v, got, lse, ref, ref_lse, e
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ring_kernels(dev, g) -> None:
+    """sdpa_ring's per-rank loop over RING_SPS virtual ranks in one process
+    (each rank's K/V shard handed on in memory) at Wan2.2-A14B's width (32760
+    tokens, 40 x 128) and FLUX's 8704 joint tokens (24 x 128): the gathered
+    output against one sdpa kernel call (RING_TOL_ABS + 2 bf16 ulp), exactly
+    sp * sp log-sum-exp launches and nothing else a call; timed."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.parallel.context_parallel import VirtualRing, sdpa_ring
+
+    for label, s, h in (("wan", _wan_shape(WAN_FRAMES)[3], WAN_HEADS),
+                        ("flux", TXT_TOKENS + IMG_TOKENS, HEADS)):
+        q, k, v = (torch.randn(1, s, h * HEAD_DIM, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        want = cb.sdpa_cuda(q, k, v, h, h, HEAD_DIM).float()
+        tol = RING_TOL_ABS + 2 * bf16_ulp(want)
+        one_ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, HEAD_DIM), 5)
+        for sp in RING_SPS:
+            ring = VirtualRing(sp)
+            cb.reset_launch_counts()
+            got = sdpa_ring(q, k, v, h, h, HEAD_DIM, ring=ring).float()
+            counts = {name: n for name, n in _launch_counts().items() if n}
+            e = (got - want).abs()
+            ms = cuda_ms(lambda: sdpa_ring(q, k, v, h, h, HEAD_DIM, ring=ring), 3, 1)
+            log(f"[ring] {label} (1, {s}, {h}x{HEAD_DIM}) over {sp} virtual ranks: max_abs_err "
+                f"{e.max().item():.3e} against one sdpa call (tolerance {RING_TOL_ABS} + 2 ulp), "
+                f"rel L2 {(e.norm() / want.norm()).item():.3e}; launches {counts} (want "
+                f"sdpa_lse {sp * sp}); {ms:.3f} ms for the {sp} ranks against {one_ms:.3f} ms "
+                f"for one call")
+            if counts != {"sdpa_lse": sp * sp} or not (e - tol).max().item() <= 0:
+                raise AssertionError(f"the virtual ring ({label}, sp {sp}) departs from sdpa: "
+                                     f"{counts}, {e.max().item()}")
+            PARALLEL_SUMMARY[f"ring_{label}_sp{sp}_ms"] = ms
+            del got, e
+        PARALLEL_SUMMARY[f"ring_{label}_one_call_ms"] = one_ms
+        del q, k, v, want, tol
+    torch.cuda.empty_cache()
+
+
+def _wan_ring_forward(forward, cfg, tokens: int, secs: dict) -> dict:
+    """The full-depth dense Wan2.2-A14B forward at 32760 tokens under a
+    virtual ring of RING_FORWARD_SP ranks: each self-attention through
+    sdpa_ring's per-rank loop (sp * sp log-sum-exp launches), each
+    cross-attention token chunk on its ranks' query shards (sp sdpa launches,
+    one when sp does not divide the chunk), every other kernel as in the
+    forward without the ring, which it is held to (relative L2). Returns the
+    log-sum-exp launches of this main-path run."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.wan import _chunks
+    from fastdm_tpu_torch.parallel import cp_state
+    from fastdm_tpu_torch.parallel.context_parallel import VirtualRing
+
+    sp = RING_FORWARD_SP
+    ref = forward(cfg, None)
+    torch.cuda.synchronize()
+    cuda_backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    with cp_state.cp_ring(VirtualRing(sp)):
+        out = forward(cfg, None)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = _launch_counts()
+    want = wan_forward_launches(cfg, tokens)
+    chunks = _chunks(tokens, cfg.ffn_chunk_tokens) or [(0, tokens)]
+    want["sdpa"] = cfg.num_layers * sum(sp if (hi - lo) % sp == 0 else 1 for lo, hi in chunks)
+    want["sdpa_lse"] = cfg.num_layers * sp * sp
+    rel = ((out - ref).norm() / ref.norm()).item()
+    log(f"[ring] Wan2.2-A14B dense forward at {tokens} tokens over {sp} virtual ranks: "
+        f"{sec:.3f} s (without the ring {secs['dense']:.3f} s), relative L2 {rel:.3e} against the "
+        f"forward without the ring (tolerance {RING_FORWARD_REL_L2_TOL}); launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    if counts != want or not rel <= RING_FORWARD_REL_L2_TOL or not torch.isfinite(out).all():
+        raise AssertionError(f"the Wan forward under the virtual ring: rel {rel}, launches "
+                             f"{counts} != {want}")
+    PARALLEL_SUMMARY["wan_ring_forward"] = dict(sp=sp, seconds=sec, dense_seconds=secs["dense"],
+                                                rel_l2=rel)
+    return {"sdpa_lse": counts["sdpa_lse"]}
+
+
+def _wan_offload_request(dev, experts, run_args: tuple, make_run, vae, vae_cfg, lat_ref,
+                         resident: dict) -> None:
+    """offload_inactive_expert on the Wan2.2-A14B int8 request: both experts
+    moved to host memory (pinned where the host allows it), the phase
+    denoiser moving each to the card right before its phase and dropping it
+    after; the latents bit-equal to the resident run's, the peak device
+    memory, the request seconds and each host-to-card move's seconds."""
+    import torch
+
+    from fastdm_tpu_torch.parallel.offload import module_bytes, to_device, to_host
+    from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_decode_chunked
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pinned = [to_host(e)[1] for e in experts]
+    torch.cuda.empty_cache()
+    to_host_s = time.perf_counter() - t0
+    on_card = sum(module_bytes(e, "cuda") for e in experts)
+    moves = []
+
+    def place(expert):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        placed = to_device(expert, dev)
+        torch.cuda.synchronize()
+        moves.append(time.perf_counter() - t)
+        return placed
+
+    run = make_run(place)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lat, _ = run(*experts, *run_args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    video = wan_vae_decode_chunked(vae, vae_cfg, lat)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = torch.equal(lat, lat_ref)
+    gib = module_bytes(experts[0]) / 2**30
+    log(f"[offload] Wan2.2-A14B int8 {WAN_H}x{WAN_W}x{WAN_FRAMES}, {WAN_STEPS} steps: both "
+        f"experts to {'pinned' if all(pinned) else 'pageable'} host memory in {to_host_s:.2f} s "
+        f"({gib:.2f} GiB each, {on_card} bytes left on the card); request {t2 - t0:.3f} s "
+        f"(denoise {t1 - t0:.3f} s, VAE decode {t2 - t1:.3f} s) against {resident['seconds']:.3f} "
+        f"s resident (denoise {resident['denoise']:.3f} s); host-to-card moves "
+        f"{[round(m, 3) for m in moves]} s ({gib / max(moves):.1f}+ GiB/s); peak device memory "
+        f"{peak:.1f} GiB (with {base / 2**30:.1f} GiB of other tensors) against "
+        f"{resident['peak']:.1f} GiB resident; latents bit-equal to the resident run {same}")
+    if not same or on_card or len(moves) != 2 or not torch.isfinite(video).all():
+        raise AssertionError(f"offload_inactive_expert: equal {same}, {on_card} bytes on the "
+                             f"card, moves {moves}")
+    PARALLEL_SUMMARY["offload"] = dict(
+        pinned=all(pinned), to_host_s=to_host_s, request_s=t2 - t0, denoise_s=t1 - t0,
+        moves_s=moves, peak_gib=peak, resident_request_s=resident["seconds"],
+        resident_denoise_s=resident["denoise"], resident_peak_gib=resident["peak"],
+        expert_gib=gib)
+
+
+def _qwen_gpipe(dev, params, cfg, cos, sin) -> None:
+    """The 60 blocks of the resident Qwen-Image int4p quant_mods model through
+    the GPipe schedule over GPIPE_PP virtual stages in one process (15 blocks
+    a stage, each state handed to the next stage in memory), GPIPE_M
+    microbatches at 1024x2048, routed by qwen_run_blocks under the
+    pipeline: bit-identical to the sequential run of the same microbatches."""
+    import torch
+
+    from fastdm_tpu_torch.models.qwenimage import _qwen_embed, qwen_run_blocks
+    from fastdm_tpu_torch.parallel import pp_state
+    from fastdm_tpu_torch.parallel.pipeline import VirtualPipeline
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    m = GPIPE_M
+    x = torch.randn(m, QWEN_HT * QWEN_WT, cfg.in_channels, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    embeds = torch.randn(m, QWEN_TEXT, cfg.joint_attention_dim, generator=g, device=dev,
+                         dtype=torch.bfloat16)
+    t = torch.tensor([0.6, 0.3][:m], device=dev)
+    with torch.inference_mode():
+        hidden, encoder, temb = _qwen_embed(params, x, embeds, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with pp_state.pp_pipeline(VirtualPipeline(GPIPE_PP)):
+            h_pp, e_pp = qwen_run_blocks(params, cfg, hidden, encoder, temb, cos, sin)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        seq = [qwen_run_blocks(params, cfg, hidden[i:i + 1], encoder[i:i + 1], temb[i:i + 1],
+                               cos, sin) for i in range(m)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    same = (torch.equal(h_pp, torch.cat([h for h, _ in seq])) and
+            torch.equal(e_pp, torch.cat([e for _, e in seq])))
+    log(f"[gpipe] Qwen-Image int4p quant_mods, {cfg.num_layers} blocks over {GPIPE_PP} virtual "
+        f"stages, {m} microbatches of {QWEN_HT * QWEN_WT} + {QWEN_TEXT} tokens: {t1 - t0:.3f} s "
+        f"(sequential {t2 - t1:.3f} s), bit-identical to the sequential run {same}")
+    if not same or not torch.isfinite(h_pp).all():
+        raise AssertionError("GPipe over virtual stages departs from the sequential run")
+    PARALLEL_SUMMARY["qwen_gpipe"] = dict(pp=GPIPE_PP, microbatches=m, gpipe_s=t1 - t0,
+                                          sequential_s=t2 - t1)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _engine_wan_meshes(root: str, dev, kw: dict, radial: dict) -> None:
+    """The Wan engine under NCCL: a process group of one (MASTER_ADDR
+    127.0.0.1), engines with mesh_shape (1, 1, 1) and (1, 1, 1, 1) (a device
+    mesh of one rank over NCCL) and (1, 1, 1, 1) with offload_inactive_expert,
+    each bit-equal to the engine built without mesh_shape."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fastdm_tpu_torch.engine import FastDMEngine
+
+    def make(**extra):
+        return FastDMEngine(root, architecture="wan2.2-t2v", use_int8=True,
+                            sparse_attn_config=radial, verbose=False, device=dev, **extra)
+
+    kw = dict(kw, output_type="latent")
+    want = make().generate(**kw)
+    os.environ["MASTER_ADDR"] = "127.0.0.1"
+    os.environ["MASTER_PORT"] = str(_free_port())
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        for extra in (dict(mesh_shape=(1, 1, 1)), dict(mesh_shape=(1, 1, 1, 1)),
+                      dict(mesh_shape=(1, 1, 1, 1), offload_inactive_expert=True)):
+            t0 = time.perf_counter()
+            eng = make(**extra)
+            got = eng.generate(**kw)
+            sec = time.perf_counter() - t0
+            on_host = all(p.device.type == "cpu" for p in eng.params.parameters())
+            same = np.array_equal(got, want)
+            log(f"[engine mesh] wan2.2-t2v int8 {extra} under NCCL ({dist.get_backend()}, world "
+                f"{dist.get_world_size()}): device mesh {eng.mesh.device_mesh}, load + generate "
+                f"{sec:.2f} s, experts on the host {on_host}; latents bit-equal to the engine "
+                f"without mesh_shape {same}")
+            offloaded = bool(extra.get("offload_inactive_expert")) or dev.type == "cpu"
+            if not same or eng.mesh.device_mesh is None or on_host != offloaded:
+                raise AssertionError(f"the engine with {extra} departs from the one without")
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    PARALLEL_SUMMARY["engine_nccl_meshes"] = "bit-equal"
+
+
+
 def main() -> int:
     import torch
 
@@ -7052,6 +7379,8 @@ def main() -> int:
         f"shapes (ms, seconds, GiB): {QWEN_VL_SUMMARY}")
     log(f"[frontend] ComfyUI wrappers and API server requests (ms, seconds, host shares): "
         f"{FRONTEND_SUMMARY}")
+    log(f"[parallel] the log-sum-exp variant, the virtual ring and GPipe, the engine under NCCL "
+        f"and offload_inactive_expert (ms, seconds, GiB): {PARALLEL_SUMMARY}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

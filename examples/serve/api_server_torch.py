@@ -366,7 +366,7 @@ def make_engine(args):
     wan_lightning = args.architecture in LIGHTNING
     if wan_lightning:
         args.architecture = LIGHTNING[args.architecture]
-    return FastDMEngine(**engine_kwargs(args)), wan_lightning
+    return FastDMEngine(**engine_kwargs(args, single_device="the API server")), wan_lightning
 
 
 def main(argv=None):

@@ -47,7 +47,7 @@ def main():
 
     from fastdm_tpu_torch.engine import FastDMEngine
 
-    engine = FastDMEngine(**engine_kwargs(args))
+    engine = FastDMEngine(**engine_kwargs(args, single_device="the Gradio UI"))
     history = GenerationHistory(args.history_dir, args.history_limit)
     is_qwen = args.architecture.startswith("qwen")
 

@@ -43,6 +43,16 @@
 // (Hq/Hkv)), and the l == 0 guard of :126 / :506 (a row that sees no key
 // returns 0).
 //
+// The dense walk can also write each query row's log-sum-exp, the natural
+// log of the sum over its keys of exp(logit * scale), as f32 (B, hq, sq)
+// (fdm_flash_attn_lse_fwd): the epilogue holds the row's running maximum m
+// (base-2 units, scale*log2(e) folded in) and its sum l of 2^(s - m), so the
+// value is (m + log2(l)) * ln(2); a row that saw no key writes -inf. The ring
+// attention of parallel/context_parallel.py merges the blocks of the K/V
+// shards with it, as JAX's _block_attn carries (m, l)
+// (fastdm_tpu/parallel/context_parallel.py:25-32). The table walks do not
+// take it.
+//
 // What bounds it on the H100: operations. At the FLUX shape (S=8704, 24 heads,
 // D=128) it does 4*S^2*D*H = 9.3e11 flops on 214 MB of q/k/v/out, about 4350
 // flops per byte, so the floor is 0.94 ms at 989 bf16 TFLOP/s; a walk counts
@@ -610,7 +620,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
-                      const Tables tables, int sq, int skv, int hq, int hkv, int64_t o_sb,
+                      float* __restrict__ lse, const Tables tables, int sq, int skv, int hq, int hkv, int64_t o_sb,
                       int64_t o_ss, float scale_log2, int causal) {
   using C = Cfg<D, Consumers, Tables::kTable, Tables::kRowWords>;
   extern __shared__ uint8_t smem_raw[];
@@ -787,8 +797,10 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // O / l, bf16, rows past sq skipped; a row whose l is 0 (it saw no key)
-  // stores 0
+  // stores 0; with lse, the quad's first thread also stores the row's
+  // log-sum-exp, -inf where l is 0
   __nv_bfloat16* ob = out + b * o_sb + static_cast<int64_t>(h) * D + 2 * t;
+  float* lrow = lse == nullptr ? nullptr : lse + (static_cast<int64_t>(b) * hq + h) * sq;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float l = l_run[hr];
@@ -796,6 +808,8 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float denom = l == 0.f ? 1.f : l;
     const int row = r0 + hr * 8;
+    if (lrow != nullptr && t == 0 && row < sq)
+      lrow[row] = l == 0.f ? -INFINITY : (m_run[hr] + log2f(l)) * 0.6931471805599453f;
     if (row < sq) {
       __nv_bfloat16* orow = ob + row * o_ss;
 #pragma unroll
@@ -809,12 +823,13 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // The operands both entries share: q: (B, sq, hq*D), k/v: (B, skv, hkv*D),
 // out: (B, sq, hq*D), all bf16 with a contiguous last dim, 16-byte aligned,
-// strides multiples of 8 elements; geom holds the tensor-map geometry of q, k
+// strides multiples of 8 elements; lse: null or f32 (B, hq, sq), contiguous; geom holds the tensor-map geometry of q, k
 // and v (8 values each, see launch); out is written through its batch /
 // sequence strides in elements. scale_log2 = softmax scale * log2(e). D is 64
 // or 128.
 struct Operands {
   const void* ptrs[4];  // q, k, v, out
+  float* lse;
   const long long* geom;
   int batch, sq, skv, hq, hkv, head_dim;
   long long o_sb, o_ss;
@@ -851,7 +866,7 @@ int launch(const Tables& tables, const Operands& a) {
                   static_cast<unsigned>(a.hq), static_cast<unsigned>(a.batch));
   flash_attn_fwd_kernel<D, Consumers, Tables><<<grid, kThreads, C::kSmem, a.stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(const_cast<void*>(a.ptrs[3])),
-      tables, a.sq, a.skv, a.hq, a.hkv, a.o_sb, a.o_ss, a.scale_log2, a.causal);
+      a.lse, tables, a.sq, a.skv, a.hq, a.hkv, a.o_sb, a.o_ss, a.scale_log2, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -880,16 +895,23 @@ int run_walk(const Tables& tables, int block_q, const Operands& a) {
   const void *q, const void *k, const void *v, void *out, const long long *geom, int batch, \
       int sq, int skv, int hq, int hkv, int head_dim, long long o_sb, long long o_ss,       \
       float scale_log2, int causal, void *stream
-#define FDM_ATTN_OPERANDS                                                                  \
+#define FDM_ATTN_OPERANDS(lse)                                                             \
   Operands {                                                                               \
-    {q, k, v, out}, geom, batch, sq, skv, hq, hkv, head_dim, o_sb, o_ss, scale_log2, causal, \
+    {q, k, v, out}, lse, geom, batch, sq, skv, hq, hkv, head_dim, o_sb, o_ss, scale_log2, causal, \
         static_cast<cudaStream_t>(stream)                                                  \
   }
 
 // Dense attention, with an optional bottom-right causal mask. q, k and v's
 // maps have boxes of 128 rows.
 FDM_EXPORT int fdm_flash_attn_fwd(FDM_ATTN_PARAMS) {
-  return run<2>(DenseTables{}, FDM_ATTN_OPERANDS);
+  return run<2>(DenseTables{}, FDM_ATTN_OPERANDS(nullptr));
+}
+
+// Dense non-causal attention that also writes each row's log-sum-exp into
+// lse, f32 (batch, hq, sq) contiguous.
+FDM_EXPORT int fdm_flash_attn_lse_fwd(void* lse, FDM_ATTN_PARAMS) {
+  if (lse == nullptr || causal != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return run<2>(DenseTables{}, FDM_ATTN_OPERANDS(static_cast<float*>(lse)));
 }
 
 // The table walks below are non-causal (causal must be 0) and take block_q
@@ -904,7 +926,7 @@ FDM_EXPORT int fdm_flash_attn_mask_fwd(const void* mask, int ni, int nj, int blo
       ni < 1 || nj < 1 || nj > 32 * MaskTables::kRowWords)
     return static_cast<int>(cudaErrorInvalidValue);
   const MaskTables t{static_cast<const int*>(mask), hq, ni, nj, block_q, block_k};
-  return run_walk(t, block_q, FDM_ATTN_OPERANDS);
+  return run_walk(t, block_q, FDM_ATTN_OPERANDS(nullptr));
 }
 
 // The coarse gather walk. idx: int32 (nq, max_nb) KV tile ids of block_k
@@ -916,7 +938,7 @@ FDM_EXPORT int fdm_flash_attn_coarse_fwd(const void* idx, const void* counts, in
     return static_cast<int>(cudaErrorInvalidValue);
   const CoarseTables t{static_cast<const int*>(idx), static_cast<const int*>(counts), nq, max_nb,
                        block_q, block_k};
-  return run_walk(t, block_q, FDM_ATTN_OPERANDS);
+  return run_walk(t, block_q, FDM_ATTN_OPERANDS(nullptr));
 }
 
 // The superblock walk. idx / val: int32 (n_slots,) superblock ids and
@@ -929,7 +951,7 @@ FDM_EXPORT int fdm_flash_attn_super_fwd(const void* idx, const void* val, const 
     return static_cast<int>(cudaErrorInvalidValue);
   const SuperTables t{static_cast<const int*>(idx), static_cast<const int*>(val),
                       static_cast<const int*>(rows), n_slots, block_q, fine, superblock};
-  return run_walk(t, block_q, FDM_ATTN_OPERANDS);
+  return run_walk(t, block_q, FDM_ATTN_OPERANDS(nullptr));
 }
 
 // The fine walk. idx / valid: int32 (n_slots,) fine block ids and their valid
@@ -940,7 +962,7 @@ FDM_EXPORT int fdm_flash_attn_fine_fwd(const void* idx, const void* valid, const
     return static_cast<int>(cudaErrorInvalidValue);
   const FineTables t{static_cast<const int*>(idx), static_cast<const int*>(valid),
                      static_cast<const int*>(rows), n_slots, block_q, fine};
-  return run_walk(t, block_q, FDM_ATTN_OPERANDS);
+  return run_walk(t, block_q, FDM_ATTN_OPERANDS(nullptr));
 }
 
 namespace {

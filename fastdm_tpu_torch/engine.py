@@ -229,6 +229,26 @@ def wan_sparse_tables(sparse_attn, cfg, tokens: int, num_frame: int, device, mod
     return cfg, tuple(torch.from_numpy(t).to(device) for t in tables)
 
 
+def _check_mesh_shape(mesh_shape, arch: str, controlnet_path) -> int:
+    """The JAX engine's mesh refusals, in its order and with its exception
+    types (fastdm_tpu/engine.py:141-176) -> pp (1 without a pp axis)."""
+    if mesh_shape is None:
+        return 1
+    if len(mesh_shape) not in (3, 4):
+        raise ValueError(f"mesh_shape must be (dp, sp, tp) or (dp, sp, tp, pp), got {mesh_shape}")
+    pp = mesh_shape[3] if len(mesh_shape) == 4 else 1
+    if pp > 1:
+        if mesh_shape[1] != 1 or mesh_shape[2] != 1:
+            raise ValueError(f"pp > 1 requires sp == 1 and tp == 1 (got mesh_shape={mesh_shape}); "
+                             "compose pp with dp only")
+        if arch not in ("flux", "wan", "qwen"):
+            raise ValueError(f"pp > 1 is not supported for architecture={arch!r} (PP block "
+                             "routing exists for flux/wan/qwen only)")
+        if controlnet_path is not None:
+            raise ValueError("pp > 1 is incompatible with controlnet_path")
+    return pp
+
+
 def _read_json(path):
     with open(path, "r", encoding="utf-8") as f:
         return json.load(f)
@@ -256,6 +276,10 @@ def _resize_to_multiple(img: np.ndarray, m: int) -> np.ndarray:
 
 
 class FastDMEngine:
+    # no mesh and both experts resident unless the constructor says otherwise
+    mesh = None
+    _offloaded = False
+
     def __init__(
         self, model_path: str, architecture: str = "flux", use_fp8: bool = False,
         use_int8: bool = False, cache_config: Optional[Union[str, Dict[str, Any]]] = None,
@@ -265,12 +289,36 @@ class FastDMEngine:
         vae_tiling: bool = False, vae_slicing: bool = False,
         controlnet_path: Optional[str] = None, ip_adapter_path: Optional[str] = None,
         ip_adapter_scale: float = 0.6, snapshot_path: Optional[str] = None,
-        max_sequence_length: int = 512,
+        max_sequence_length: int = 512, kernel_backend: str = "auto",
+        oom_resolve: bool = False, mesh_shape: Optional[tuple] = None,
+        offload_inactive_expert: bool = False,
     ):
+        """The JAX engine's keywords (fastdm_tpu/engine.py:95-118), with the
+        CLI's rules (common_args.check_engine_args): kernel_backend "auto" and
+        "pallas" run the hand-written kernels, "jnp" raises ValueError (the
+        plain versions serve CPU tensors only: pass device="cpu");
+        oom_resolve is taken and ignored, as in JAX. mesh_shape (dp, sp, tp)
+        or (dp, sp, tp, pp) runs the engine over torch.distributed, one
+        process a device (parallel/mesh.py): sp > 1 routes dense attention to
+        the ring, pp > 1 splits the block stacks into GPipe stages, dp
+        computes replicated; tp > 1 raises NotImplementedError. Every rank
+        returns the same output. offload_inactive_expert keeps both
+        Wan2.2-A14B experts in host memory and moves the active one to the
+        card for its phase (a one-expert model takes it and does nothing)."""
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"architecture {architecture!r} is not in this slice of the port "
                 f"(have {sorted(ARCHITECTURES)})")
+        arch = ARCHITECTURES[architecture]
+        if kernel_backend not in ("auto", "pallas", "jnp"):
+            raise ValueError(f"invalid kernel backend {kernel_backend!r}; expected one of "
+                             "('auto', 'pallas', 'jnp')")
+        if kernel_backend == "jnp":
+            raise ValueError("kernel_backend='jnp' is not available in the PyTorch port: its "
+                             "plain PyTorch versions serve CPU tensors only (pass device='cpu'); "
+                             "'auto' and 'pallas' run the hand-written CUDA kernels")
+        del oom_resolve  # accepted for parity, as in JAX
+        self.offload_inactive_expert = offload_inactive_expert
         # the JAX engine's scheduler option (fastdm_tpu/engine.py:125-136): Wan only
         if scheduler not in (None, "unipc", "euler"):
             raise ValueError(f"scheduler must be 'unipc' or 'euler', got {scheduler!r}")
@@ -283,6 +331,7 @@ class FastDMEngine:
         # the JAX engine's checks (fastdm_tpu/engine.py:141-176)
         if sum((use_fp8, use_int8, use_int4)) > 1:
             raise ValueError("use_fp8 / use_int8 / use_int4 are mutually exclusive")
+        pp = _check_mesh_shape(mesh_shape, arch, controlnet_path)
         if pack_int4 and not use_int4:
             raise ValueError("pack_int4 requires use_int4")
         self.quant = ("fp8" if use_fp8 else "int8" if use_int8 else
@@ -299,6 +348,10 @@ class FastDMEngine:
         self.model_path = model_path
         self.device = resolve_device(device)
         self.verbose = verbose
+        if mesh_shape is not None:
+            from fastdm_tpu_torch.parallel.mesh import check_no_tp
+
+            check_no_tp(mesh_shape)
         # the prompt encoder of the family, read at the first prompt; the
         # constructor's max_sequence_length is FLUX's T5 length only
         # (fastdm_tpu/engine.py:107,626), SD3.5 keeps 256 and Wan text_len
@@ -311,6 +364,22 @@ class FastDMEngine:
             self.cache_config = (CacheConfig.from_json(cache_config)
                                  if isinstance(cache_config, str)
                                  else CacheConfig.from_dict(cache_config))
+        if pp > 1:
+            from fastdm_tpu_torch.caching.config import DiCacheConfig, FBCacheConfig
+
+            if (isinstance(self.cache_config, (FBCacheConfig, DiCacheConfig))
+                    and self.cache_config.enable_caching):
+                # the JAX engine's refusal (fastdm_tpu/engine.py:196-218): the
+                # probe-prefix caches run leading blocks alone and then the
+                # rest from start_block > 0, which bypasses the GPipe route
+                raise ValueError(
+                    f"pp > 1 is incompatible with cache_algorithm="
+                    f"{type(self.cache_config).__name__[:-6].lower()!r} (probe-prefix caches "
+                    "bypass the GPipe block routing); use teacache or disable caching")
+            if snapshot_path:
+                raise NotImplementedError(
+                    "snapshot_path with pp > 1: a snapshot holds whole block stacks, a pp rank "
+                    "only its stage's (ROADMAP.md section 1, item 1)")
         # the quantized snapshot (models/snapshot.py): a snapshot at
         # snapshot_path gives the denoiser modules straight from its files;
         # an empty snapshot_path receives the freshly built ones after init
@@ -327,6 +396,26 @@ class FastDMEngine:
             self.sparse_attn = (SparseAttn.from_json(sparse_attn_config)
                                 if isinstance(sparse_attn_config, str)
                                 else SparseAttn.from_dict(sparse_attn_config))
+        if mesh_shape is not None and mesh_shape[1] > 1 and self.sparse_attn is not None:
+            # as the JAX engine (fastdm_tpu/engine.py:282-292): the sparse
+            # kernels are one-device; under sp the ring scales attention
+            print("sparse_attn_config ignored with sp > 1 (ring attention handles the long "
+                  "sequence)", flush=True)
+            self.sparse_attn = None
+        if pp > 1 and self.sparse_attn is not None and self.sparse_attn.config.dense_layers > 0:
+            raise ValueError(
+                "pp > 1 requires sparse dense_layers == 0 "
+                f"(got {self.sparse_attn.config.dense_layers}); the split stack has no GPipe "
+                "routing")
+        # the mesh and this rank's device (cuda:LOCAL_RANK), before any weight
+        # is read: a pp rank loads only its stage's blocks
+        if mesh_shape is not None:
+            from fastdm_tpu_torch.parallel.mesh import init_mesh, mesh_device
+
+            self.device = mesh_device(self.device)
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            self.mesh = init_mesh(mesh_shape, self.device)
         if self.architecture == "wan":
             from fastdm_tpu_torch.caching.config import DiCacheConfig, FBCacheConfig
 
@@ -429,6 +518,23 @@ class FastDMEngine:
             print(f"quantized snapshot written to {dir_path} ({', '.join(sorted(trees))})",
                   flush=True)
 
+    def _denoiser_source(self, subdir: str, depths: Dict[str, int]) -> TensorSource:
+        """The TensorSource of a denoiser directory; under a pp mesh it holds
+        this rank's stage of the pipelined stacks (`depths`: {stack prefix:
+        depth}, split only when pp divides every one; under TeaCache every
+        stage also holds the first stack's block 0, whose modulation the
+        probe reads)."""
+        src = TensorSource.from_path(os.path.join(self.model_path, subdir), self.device)
+        pp = self.mesh.axis("pp") if self.mesh is not None else None
+        if pp is not None and pp.size > 1:
+            from fastdm_tpu_torch.caching.config import TeaCacheConfig
+            from fastdm_tpu_torch.parallel.pipeline import stage_blocks
+
+            extra = ({next(iter(depths)): (0,)}
+                     if isinstance(self.cache_config, TeaCacheConfig) else None)
+            src.stage_blocks = stage_blocks(pp.size, pp.rank, depths, extra)
+        return src
+
     def _cfg_overrides(self, subdir: str, keys, transforms=None) -> Dict[str, Any]:
         """Model hyperparameters from the checkpoint's config.json, when present."""
         p = os.path.join(self.model_path, subdir, "config.json")
@@ -451,8 +557,10 @@ class FastDMEngine:
              "pooled_projection_dim", "guidance_embeds"),
             {"axes_dims_rope": lambda v: {"axes_dims_rope": tuple(v)}})
         self.cfg = FluxConfig(quant=self.quant, quant_mods=self.quant_mods, **kw)
-        self.params = self._load_tree("transformer", lambda: flux_load(TensorSource.from_path(
-            os.path.join(self.model_path, "transformer"), self.device), self.cfg))
+        depths = {"transformer_blocks": self.cfg.num_layers,
+                  "single_transformer_blocks": self.cfg.num_single_layers}
+        self.params = self._load_tree("transformer", lambda: flux_load(
+            self._denoiser_source("transformer", depths), self.cfg))
         self._load_vae()
         self.text_encoder = FluxTextEncoder(self.model_path, self.max_sequence_length,
                                             self.device)
@@ -603,14 +711,15 @@ class FastDMEngine:
              "num_attention_heads", "joint_attention_dim"),
             {"axes_dims_rope": lambda v: {"axes_dims_rope": tuple(v)}})
         self.cfg = QwenImageConfig(quant=self.quant, quant_mods=self.quant_mods, **kw)
-        self.params = self._load_tree("transformer", lambda: qwen_load(TensorSource.from_path(
-            os.path.join(self.model_path, "transformer"), self.device), self.cfg))
+        self.params = self._load_tree("transformer", lambda: qwen_load(
+            self._denoiser_source("transformer", {"transformer_blocks": self.cfg.num_layers}),
+            self.cfg))
         self._load_vae()
         # Qwen2.5-VL at its 1024-token default (fastdm_tpu/engine.py:674)
         self.text_encoder = QwenImageTextEncoder(self.model_path, device=self.device)
 
     def _init_wan(self) -> None:
-        from fastdm_tpu_torch.models.wan import WanConfig, wan_load
+        from fastdm_tpu_torch.models.wan import WanConfig
         from fastdm_tpu_torch.pipeline.wan_vae import wan_vae_load
 
         kw = self._cfg_overrides(
@@ -624,15 +733,14 @@ class FastDMEngine:
         self.cfg = WanConfig(quant=self.quant, dense_layers=dense_layers, **kw)
         # each generate derives its config (capacity knobs, sparse tables) from this one
         self._wan_cfg = self.cfg
-        self.params = self._load_tree("transformer", lambda: wan_load(TensorSource.from_path(
-            os.path.join(self.model_path, "transformer"), self.device), self.cfg))
-        # Wan2.2-A14B: the low-noise expert, both resident (28 GB in int8
-        # fits one 80 GB card; the JAX engine's host offload was for 16 GB)
-        self.params_2 = None
-        if os.path.isdir(os.path.join(self.model_path, "transformer_2")):
-            self.params_2 = self._load_tree("transformer_2", lambda: wan_load(
-                TensorSource.from_path(os.path.join(self.model_path, "transformer_2"),
-                                       self.device), self.cfg))
+        depths = {"blocks": self.cfg.num_layers}
+        dual = os.path.isdir(os.path.join(self.model_path, "transformer_2"))
+        # Wan2.2-A14B: the low-noise expert too, both resident on the card (28
+        # GB in int8 fits one 80 GB card), or with offload_inactive_expert both
+        # in host memory, each loaded (and quantized) on the card first
+        self._offloaded = self.offload_inactive_expert and dual
+        self.params = self._load_expert("transformer", depths)
+        self.params_2 = self._load_expert("transformer_2", depths) if dual else None
         index = os.path.join(self.model_path, "model_index.json")
         self.boundary_ratio = (_read_json(index).get("boundary_ratio")
                                if os.path.exists(index) else None)
@@ -654,6 +762,25 @@ class FastDMEngine:
             print(f"FastDMEngine: the Wan VAE did not load ({e!r}); generate() returns "
                   "latents", flush=True)
             self.vae_params = None
+
+    def _load_expert(self, subdir: str, depths: Dict[str, int]):
+        from fastdm_tpu_torch.models.wan import wan_load
+
+        tree = self._load_tree(subdir, lambda: wan_load(self._denoiser_source(subdir, depths),
+                                                        self.cfg))
+        if not self._offloaded:
+            return tree
+        from fastdm_tpu_torch.parallel.offload import module_bytes, to_host
+
+        t0 = time.perf_counter()
+        tree, pinned = to_host(tree)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        if self.verbose:
+            print(f"FastDMEngine: {subdir} ({module_bytes(tree) / 2**30:.2f} GiB) moved to "
+                  f"{'pinned' if pinned else 'pageable'} host memory in "
+                  f"{time.perf_counter() - t0:.2f}s (offload_inactive_expert)", flush=True)
+        return tree
 
     # ------------------------------------------------------------ generate
 
@@ -715,7 +842,10 @@ class FastDMEngine:
         image = kw.get("image")
         if self.architecture == "wan":
             tasks = ("t2v", "i2v", "ti2v")
-            task = task or ("i2v" if image is not None else "t2v")
+            # as JAX (fastdm_tpu/engine.py:812-813): t2i, the CLI's default
+            # task, is i2v with an image and t2v without one
+            if task in (None, "t2i"):
+                task = "i2v" if image is not None else "t2v"
         else:
             tasks = ("t2i", "i2i")
             task = "i2i" if image is not None and task in (None, "t2i") else task or "t2i"
@@ -723,10 +853,24 @@ class FastDMEngine:
             raise NotImplementedError(f"task {task!r} is not in this slice of the port "
                                       f"({', '.join(tasks)} are)")
         if self.architecture == "wan":
-            return self._generate_wan(prompt, task=task, **kw)
-        if task != "i2i":
-            kw.pop("image", None)
-        return getattr(self, f"_generate_{self.architecture}")(prompt, **kw)
+            fn, kw = self._generate_wan, dict(kw, task=task)
+        else:
+            if task != "i2i":
+                kw.pop("image", None)
+            fn = getattr(self, f"_generate_{self.architecture}")
+        if self.mesh is None or self.mesh.size == 1:
+            return fn(prompt, **kw)
+        # the ring and the pipeline are active only while this engine
+        # generates, the previous ones restored after (fastdm_tpu/engine.py:816-835)
+        from fastdm_tpu_torch.parallel import cp_state, pp_state
+        from fastdm_tpu_torch.parallel.context_parallel import GroupRing
+        from fastdm_tpu_torch.parallel.pipeline import GroupPipeline
+
+        sp, pp = self.mesh.axis("sp"), self.mesh.axis("pp")
+        ring = GroupRing(sp) if sp.size > 1 else None
+        pipe = GroupPipeline(pp, self.mesh.axis("dp")) if pp.size > 1 else None
+        with cp_state.cp_ring(ring), pp_state.pp_pipeline(pipe):
+            return fn(prompt, **kw)
 
     def _to_uint8(self, x: torch.Tensor) -> np.ndarray:
         """[-1, 1] float -> uint8 in [0, 255] on the host."""
@@ -1195,9 +1339,15 @@ class FastDMEngine:
                     image_tokens = self.wan_image_encoder.encode(image, hidden_states=True)
             if self.params_2 is not None:
                 boundary = self.boundary_ratio if self.boundary_ratio is not None else 0.875
+                place = None
+                if self._offloaded:
+                    from fastdm_tpu_torch.parallel.offload import to_device
+
+                    place = lambda p: to_device(p, self.device)  # noqa: E731
                 run = make_wan_dual_phase_denoiser(self.cfg, sched, num_inference_steps,
                                                    guidance_scale, guidance_scale_2, boundary,
-                                                   dense_steps, cache_cfg=self.cache_config)
+                                                   dense_steps, cache_cfg=self.cache_config,
+                                                   place_params=place)
                 experts = (self.params, self.params_2)
             else:
                 run = make_wan_cached_denoiser(self.cfg, sched, num_inference_steps,

@@ -1,5 +1,5 @@
 """Kernel ops of the port: rms_norm, rotary_pos_embedding, qk_norm_rope,
-qk_norm_rope2, gelu_and_mul, scaled_dot_product_attention, the sparse
+qk_norm_rope2, gelu_and_mul, scaled_dot_product_attention (and its log-sum-exp variant), the sparse
 attentions (sparse_scaled_dot_product_attention, gather_sparse_attention,
 gather_fine_attention, gather_super_attention), the W8A8 ops
 (quantize_to_int8, quantize_to_fp8, int8_matmul, fp8_matmul) and the W4A4 ops
@@ -24,6 +24,7 @@ from fastdm_tpu_torch.kernels.ops import (
     rms_norm,
     rotary_pos_embedding,
     scaled_dot_product_attention,
+    scaled_dot_product_attention_lse,
     sparse_scaled_dot_product_attention,
     unpack_int4,
 )
@@ -46,6 +47,7 @@ __all__ = [
     "rms_norm",
     "rotary_pos_embedding",
     "scaled_dot_product_attention",
+    "scaled_dot_product_attention_lse",
     "sparse_scaled_dot_product_attention",
     "unpack_int4",
 ]

@@ -8,7 +8,9 @@ instead of an out-of-bounds access on the card. The table checks take
 strict=True to read the VALUES too (on the host: the engine runs them once on
 its numpy tables, never per launch, which would sync the card); the kernels
 clamp every table read besides. The TPU's (8, 128) tile-alignment rules of
-the JAX checks are not carried over: the CUDA wrappers state their own."""
+the JAX checks are not carried over: the CUDA wrappers state their own.
+check_sdpa also guards sdpa_lse, the log-sum-exp variant that the ring
+attention's blocks run (non-causal: the op takes no mask)."""
 
 from __future__ import annotations
 

@@ -396,6 +396,28 @@ def sdpa_cuda(
 sdpa_cuda.launches = 0
 
 
+@kernel_registry.register("sdpa_lse", "cuda")
+def sdpa_lse_cuda(
+    query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
+    num_kv_heads: int, head_dim: int, scale: Optional[float] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Dense non-causal sdpa that also returns each query row's log-sum-exp,
+    f32 (B, hq, sq) (-inf for a row that saw no key): the block of one K/V
+    shard in the ring attention (parallel/context_parallel.py)."""
+    contracts.check_sdpa("sdpa_lse_cuda", query, key, value, num_q_heads, num_kv_heads,
+                         head_dim)
+    _check_attention("sdpa_lse", query, key, value, head_dim, {}, {})
+    b, sq, _ = query.shape
+    lse = torch.empty((b, num_q_heads, sq), dtype=torch.float32, device=query.device)
+    out = _flash_attention(sdpa_lse_cuda, "sdpa_lse", "fdm_flash_attn_lse_fwd",
+                           (lse.data_ptr(),), [_P], query, key, value, num_q_heads,
+                           num_kv_heads, head_dim, scale, False, (tma.ATTN_ROWS, tma.ATTN_ROWS))
+    return out, lse
+
+
+sdpa_lse_cuda.launches = 0
+
+
 # --------------------------------------------------------- sparse attention
 #
 # The mask, coarse, superblock and fine walks run on the wgmma + TMA attention
@@ -706,7 +728,8 @@ def unpack_int4_cuda(p: Tensor) -> Tensor:
 unpack_int4_cuda.launches = 0
 
 KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, qk_norm_rope_cuda,
-                   qk_norm_rope2_cuda, gelu_and_mul_cuda, sdpa_cuda, gather_super_attention_cuda,
+                   qk_norm_rope2_cuda, gelu_and_mul_cuda, sdpa_cuda, sdpa_lse_cuda,
+                   gather_super_attention_cuda,
                    gather_fine_attention_cuda, gather_sparse_attention_cuda,
                    sparse_attention_cuda, quantize_to_int8_cuda, quantize_to_fp8_cuda,
                    int8_matmul_cuda, fp8_matmul_cuda, quantize_to_int4_cuda, int4_matmul_cuda,

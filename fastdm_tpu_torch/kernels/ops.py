@@ -154,6 +154,19 @@ def scaled_dot_product_attention(
     raise NotImplementedError
 
 
+@kernel_registry.dispatch("sdpa_lse")
+def scaled_dot_product_attention_lse(
+    query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
+    num_kv_heads: int, head_dim: int, scale: Optional[float] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Non-causal sdpa that also returns each query row's log-sum-exp of the
+    scaled logits: (out (B, Sq, Hq*D) in query's dtype, lse (B, Hq, Sq)
+    float32, -inf for a row that saw no key). The block of one K/V shard in
+    the ring attention; blocks over disjoint key sets merge exactly as
+    out = sum_i exp(lse_i - logaddexp_i lse_i) * out_i."""
+    raise NotImplementedError
+
+
 @kernel_registry.dispatch("sdpa_gather_super")
 def gather_super_attention(
     query: Tensor, key: Tensor, value: Tensor, block_indices: Tensor, block_valbits: Tensor,

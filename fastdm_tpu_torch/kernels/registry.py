@@ -12,6 +12,10 @@ choice follows the device of the op's first tensor argument:
             kernel that fails to build or launch, raises: there is no silent
             fall back to the plain version on the card (the JAX registry's
             "pallas -> jnp" degradation, registry.py:77-78, is gone).
+  "ring"  — dense sdpa while a sequence-parallel ring is active
+            (parallel/cp_state.py; JAX's check at registry.py:59-67): the
+            ring attention of parallel/context_parallel.py, whose local
+            blocks take the device's backend again (routed=False).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Callable, Dict, FrozenSet, Iterable, Optional
 
 import torch
 
-BACKENDS = ("torch", "cuda")
+BACKENDS = ("torch", "cuda", "ring")
 
 
 class KernelRegistry:
@@ -40,18 +44,23 @@ class KernelRegistry:
 
         return deco
 
-    def backend_for(self, op_name: str, device: torch.device) -> str:
+    def backend_for(self, op_name: str, device: torch.device, routed: bool = True) -> str:
+        if routed and op_name == "sdpa" and "ring" in self._ops.get(op_name, {}):
+            from fastdm_tpu_torch.parallel import cp_state
+
+            if cp_state.get_cp_ring() is not None:
+                return "ring"
         if device.type == "cpu" or (device.type == "cuda" and op_name in self._plain_on_device):
             return "torch"
         if device.type == "cuda":
             return "cuda"
         raise ValueError(f"op {op_name!r}: no backend for device {device}")
 
-    def select(self, op_name: str, device: torch.device) -> Callable:
+    def select(self, op_name: str, device: torch.device, routed: bool = True) -> Callable:
         impls = self._ops.get(op_name)
         if not impls:
             raise KeyError(f"no implementations registered for op {op_name!r}")
-        backend = self.backend_for(op_name, device)
+        backend = self.backend_for(op_name, device, routed)
         if backend not in impls:
             raise NotImplementedError(
                 f"op {op_name!r} has no {backend!r} implementation (have {sorted(impls)})")

@@ -206,7 +206,8 @@ def fp8_matmul_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out
 
 def _masked_attention(query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
                       num_kv_heads: int, head_dim: int, scale: float,
-                      allowed=None, zero_empty_rows: bool = False) -> Tensor:
+                      allowed=None, zero_empty_rows: bool = False,
+                      lse: Optional[Tensor] = None) -> Tensor:
     """sdpa_jnp's math one head at a time (the (Sq, Skv) float32 logits of a
     single head alive at once): f32 logits, masked entries set to the f32
     minimum, softmax, probabilities rounded to v's dtype, f32 sums, one cast.
@@ -214,7 +215,9 @@ def _masked_attention(query: Tensor, key: Tensor, value: Tensor, num_q_heads: in
     head, or a function of the query head giving its (B, Sq, Skv) bool mask.
     zero_empty_rows: a row with no allowed key returns 0 (the sparse kernels'
     l == 0 rule) instead of the uniform average the softmax of equal minima
-    gives."""
+    gives. lse: None, or an f32 (B, Hq, Sq) tensor that receives each row's
+    log-sum-exp of the scaled f32 logits (-inf for a row with no allowed
+    key)."""
     b, sq, _ = query.shape
     skv = key.shape[1]
     q = query.reshape(b, sq, num_q_heads, head_dim)
@@ -234,6 +237,9 @@ def _masked_attention(query: Tensor, key: Tensor, value: Tensor, num_q_heads: in
         if blocked is not None:
             logits = logits.masked_fill(blocked, torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1)
+        if lse is not None:
+            lse[:, h] = torch.logsumexp(logits, dim=-1) if blocked is None else \
+                torch.logsumexp(logits.masked_fill(blocked, float("-inf")), dim=-1)
         if zero_empty_rows:
             probs = probs.masked_fill(empty_rows[..., None], 0.0)
         out[:, :, h] = torch.einsum(
@@ -254,6 +260,24 @@ def sdpa_torch(
         scale = head_dim**-0.5
     return _masked_attention(query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
                              _causal_mask(sq, skv, query.device) if is_causal else None)
+
+
+@kernel_registry.register("sdpa_lse", "torch")
+def sdpa_lse_torch(
+    query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
+    num_kv_heads: int, head_dim: int, scale: Optional[float] = None,
+) -> Tuple[Tensor, Tensor]:
+    """sdpa_torch's output (bit for bit) and each row's log-sum-exp of the
+    scaled f32 logits, f32 (B, Hq, Sq)."""
+    contracts.check_sdpa("sdpa_lse_torch", query, key, value, num_q_heads,
+                         num_kv_heads, head_dim)
+    if scale is None:
+        scale = head_dim**-0.5
+    b, sq, _ = query.shape
+    lse = torch.empty((b, num_q_heads, sq), dtype=torch.float32, device=query.device)
+    out = _masked_attention(query, key, value, num_q_heads, num_kv_heads, head_dim, scale,
+                            lse=lse)
+    return out, lse
 
 
 def _causal_mask(sq: int, skv: int, device) -> Tensor:

@@ -204,6 +204,9 @@ def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
     dual = []
     for i in range(cfg.num_layers):
         p = f"transformer_blocks.{i}"
+        if not src.holds("transformer_blocks", i):
+            dual.append(src.elsewhere("transformer_blocks", i))
+            continue
         dual.append(FluxDualBlock(
             AdaLayerNormZero(src.linear(f"{p}.norm1.linear", qm)),
             AdaLayerNormZero(src.linear(f"{p}.norm1_context.linear", qm)),
@@ -224,6 +227,9 @@ def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
     single = []
     for i in range(cfg.num_single_layers):
         p = f"single_transformer_blocks.{i}"
+        if not src.holds("single_transformer_blocks", i):
+            single.append(src.elsewhere("single_transformer_blocks", i))
+            continue
         single.append(FluxSingleBlock(
             AdaLayerNormZeroSingle(src.linear(f"{p}.norm.linear", qm)),
             # q|k|v|mlp_in concatenated along N
@@ -289,7 +295,21 @@ def flux_run_blocks(params: FluxTransformer, cfg: FluxConfig, hidden, encoder, t
     controlnet_*: stacked (L_cn, B, S_img, D) residuals or None, spread
     over the blocks by cn_sample_interval; a single block's residual is
     added in place to the image part of the joint stream. start_dual skips
-    the first dual blocks (a cache probe already ran them)."""
+    the first dual blocks (a cache probe already ran them).
+
+    While a pipeline is active (parallel/pp_state) and pp divides both stack
+    depths, the whole uncached stack runs through the GPipe schedule, the
+    batch dim as its microbatch stream (JAX's _pp_applicable and
+    _flux_run_blocks_pp, fastdm_tpu/models/flux.py:363-435); with ControlNet
+    residuals or a probe's prefix it stays sequential, as in JAX."""
+    from fastdm_tpu_torch.parallel import pp_state
+    from fastdm_tpu_torch.parallel.pipeline import pipelined
+
+    pipe = pp_state.get_pp_pipeline()
+    if (start_dual == 0 and controlnet_block_samples is None
+            and controlnet_single_block_samples is None
+            and pipelined(pipe, params.dual_blocks, params.single_blocks)):
+        return _flux_run_blocks_pp(params, cfg, hidden, encoder, temb, cos, sin, pipe)
     hidden, encoder = _run_dual(params, cfg, hidden, encoder, temb, cos, sin, start_dual,
                                 controlnet_block_samples=controlnet_block_samples)
     ctx_len = encoder.shape[1]
@@ -300,6 +320,29 @@ def flux_run_blocks(params: FluxTransformer, cfg: FluxConfig, hidden, encoder, t
         if cns is not None:
             joint[:, ctx_len:] += cns[i // cn_sample_interval(cns, n)]
     return joint[:, ctx_len:]
+
+
+def _flux_run_blocks_pp(params: FluxTransformer, cfg: FluxConfig, hidden, encoder, temb, cos,
+                        sin, pipe) -> Tensor:
+    """GPipe over the dual then the single stack: each batch entry a
+    microbatch, temb riding in its state (it is per sample)."""
+    from fastdm_tpu_torch.parallel.pipeline import gpipe_run_blocks, join_microbatches, \
+        split_microbatches
+
+    def dual_fn(block, state):
+        h, e, t = state
+        return (*block(h, e, t, cos, sin, cfg), t)
+
+    def single_fn(block, state):
+        j, t = state
+        return block(j, t, cos, sin, cfg), t
+
+    ctx_len = encoder.shape[1]
+    states = gpipe_run_blocks(dual_fn, params.dual_blocks,
+                              split_microbatches(hidden, encoder, temb), pipe)
+    states = gpipe_run_blocks(single_fn, params.single_blocks,
+                              [(torch.cat([e, h], dim=1), t) for h, e, t in states], pipe)
+    return join_microbatches(states)[:, ctx_len:]
 
 
 def flux_forward(

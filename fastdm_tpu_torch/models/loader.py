@@ -50,6 +50,9 @@ class TensorSource:
         self._tensors = dict(tensors)
         self._unclaimed = set(self._tensors)
         self.device = resolve_device(device)
+        # pipeline placement: {stack prefix: indices of the blocks this rank
+        # holds}; None holds every block
+        self.stage_blocks = None
 
     @classmethod
     def from_path(cls, path: str, device="cuda") -> "TensorSource":
@@ -115,6 +118,21 @@ class TensorSource:
         else:
             bs = [bs[0] if len(bs) == 1 else torch.cat(bs, dim=0)]
         return fuse_and_quantize(ws, bs, quant)
+
+    def holds(self, stack: str, index: int) -> bool:
+        """Whether this rank holds block `index` of the stack whose tensors
+        are named `{stack}.{index}.*` (parallel/pipeline.py stage_blocks)."""
+        keep = None if self.stage_blocks is None else self.stage_blocks.get(stack)
+        return keep is None or index in keep
+
+    def elsewhere(self, stack: str, index: int):
+        """Claim block `index` of `stack` without reading it, for a block
+        another pipeline stage holds -> its parameterless placeholder."""
+        from fastdm_tpu_torch.parallel.pipeline import StageElsewhere
+
+        prefix = f"{stack}.{index}."
+        self._unclaimed.difference_update([n for n in self._unclaimed if n.startswith(prefix)])
+        return StageElsewhere(stack, index)
 
     def assert_consumed(self) -> None:
         """Every checkpoint tensor must have been claimed."""

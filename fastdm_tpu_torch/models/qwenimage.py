@@ -150,6 +150,9 @@ def qwen_load(src: TensorSource, cfg: QwenImageConfig) -> QwenImageTransformer:
     blocks = []
     for i in range(cfg.num_layers):
         p = f"transformer_blocks.{i}"
+        if not src.holds("transformer_blocks", i):
+            blocks.append(src.elsewhere("transformer_blocks", i))
+            continue
         a = f"{p}.attn"
         blocks.append(QwenBlock(
             src.linear(f"{p}.img_mod.1", qm), src.linear(f"{p}.txt_mod.1", qm),
@@ -194,7 +197,27 @@ def _qwen_embed(params: QwenImageTransformer, hidden_states, encoder_hidden_stat
 def qwen_run_blocks(params: QwenImageTransformer, cfg: QwenImageConfig, hidden, encoder, temb,
                     cos, sin, start_block: int = 0, stop_block: Optional[int] = None
                     ) -> Tuple[Tensor, Tensor]:
-    """Blocks [start_block, stop_block) -> (image stream, text stream)."""
+    """Blocks [start_block, stop_block) -> (image stream, text stream).
+    While a pipeline is active (parallel/pp_state), the whole stack (no probe
+    prefix, depth divisible by pp) runs through the GPipe schedule, each
+    batch entry a microbatch with its temb (JAX's qwen_run_blocks /
+    _qwen_run_blocks_pp, fastdm_tpu/models/qwenimage.py:188-250)."""
+    from fastdm_tpu_torch.parallel import pp_state
+    from fastdm_tpu_torch.parallel.pipeline import pipelined
+
+    pipe = pp_state.get_pp_pipeline()
+    if (start_block == 0 and stop_block in (None, len(params.blocks))
+            and pipelined(pipe, params.blocks)):
+        from fastdm_tpu_torch.parallel.pipeline import gpipe_run_blocks, join_microbatches, \
+            split_microbatches
+
+        def block_fn(block, state):
+            h, e, t = state
+            return (*block(h, e, t, cos, sin, cfg), t)
+
+        states = gpipe_run_blocks(block_fn, params.blocks,
+                                  split_microbatches(hidden, encoder, temb), pipe)
+        return join_microbatches(states, 0), join_microbatches(states, 1)
     for block in params.blocks[start_block:stop_block]:
         hidden, encoder = block(hidden, encoder, temb, cos, sin, cfg)
     return hidden, encoder

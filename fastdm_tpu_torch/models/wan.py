@@ -254,6 +254,9 @@ def wan_load(src: TensorSource, cfg: WanConfig) -> WanTransformer:
     blocks = []
     for i in range(cfg.num_layers):
         p = f"blocks.{i}"
+        if not src.holds("blocks", i):
+            blocks.append(src.elsewhere("blocks", i))
+            continue
         norm2 = None
         if cfg.cross_attn_norm:
             norm2 = (src.tensor(f"{p}.norm2.weight", torch.float32),
@@ -437,7 +440,28 @@ def wan_run_blocks(params: WanTransformer, cfg: WanConfig, hidden: Tensor, encod
                    temb6: Tensor, cos: Tensor, sin: Tensor, sparse_mask=None,
                    start_block: int = 0, end_block: Optional[int] = None) -> Tensor:
     """Blocks [start_block, end_block) in order (all by default); blocks
-    below cfg.dense_layers ignore the mask."""
+    below cfg.dense_layers ignore the mask. While a pipeline is active
+    (parallel/pp_state), the whole uniform stack (no dense-layer segment, no
+    probe prefix, depth divisible by pp) runs through the GPipe schedule,
+    each batch entry a microbatch with its context and temb6 (JAX's
+    wan_run_blocks / _wan_run_blocks_pp, fastdm_tpu/models/wan.py:447-500)."""
+    from fastdm_tpu_torch.parallel import pp_state
+    from fastdm_tpu_torch.parallel.pipeline import pipelined
+
+    pipe = pp_state.get_pp_pipeline()
+    if (cfg.dense_layers == 0 and start_block == 0 and end_block in (None, len(params.blocks))
+            and pipelined(pipe, params.blocks)):
+        from fastdm_tpu_torch.parallel.pipeline import gpipe_run_blocks, join_microbatches, \
+            split_microbatches
+
+        def block_fn(block, state):
+            h, e, t6 = state
+            return wan_block(block, h, e, t6, cos, sin, cfg, sparse_mask), e, t6
+
+        b = hidden.shape[0]
+        mbs = split_microbatches(hidden, encoder.expand(b, *encoder.shape[1:]),
+                                 temb6.expand(b, *temb6.shape[1:]))
+        return join_microbatches(gpipe_run_blocks(block_fn, params.blocks, mbs, pipe))
     for i in range(start_block, len(params.blocks) if end_block is None else end_block):
         mask = None if i < cfg.dense_layers else sparse_mask
         hidden = wan_block(params.blocks[i], hidden, encoder, temb6, cos, sin, cfg, mask)

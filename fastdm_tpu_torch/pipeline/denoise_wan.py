@@ -173,7 +173,7 @@ def make_wan_cached_denoiser(cfg: WanConfig, scheduler, num_steps: int, cache_cf
 def make_wan_dual_phase_denoiser(cfg: WanConfig, scheduler, num_steps: int,
                                  guidance_scale: float, guidance_scale_2: Optional[float],
                                  boundary_ratio: float, dense_warmup_steps: int = 0,
-                                 cache_cfg=None):
+                                 cache_cfg=None, place_params=None):
     """Wan2.2-A14B: the high-noise expert (params) on steps [0, b) with
     guidance_scale, the low-noise expert (params_2) on [b, num_steps) with
     guidance_scale_2 (default: guidance_scale), b =
@@ -181,7 +181,12 @@ def make_wan_dual_phase_denoiser(cfg: WanConfig, scheduler, num_steps: int,
     starts from a fresh (pos, neg) pair of cache states. Returns run(params,
     params_2, latents, pos_text, neg_text, cos, sin, sparse_mask, cond=None)
     -> (latents, skipped forwards), cond as in make_wan_denoiser; the run's
-    per-expert step counts are left in run.phase_steps."""
+    per-expert step counts are left in run.phase_steps. place_params (expert
+    -> expert), when given, makes each expert's copy on the card right
+    before its phase, and the copy is dropped after it, so the card holds one
+    expert at a time: the engine's offload_inactive_expert keeps both in host
+    memory (parallel/offload.py; JAX's placer,
+    fastdm_tpu/pipeline/denoise_more.py:854-900)."""
     g2 = guidance_scale if guidance_scale_2 is None else guidance_scale_2
     b_step = expert_boundary_step(scheduler.sigmas, num_steps, boundary_ratio)
 
@@ -202,11 +207,14 @@ def make_wan_dual_phase_denoiser(cfg: WanConfig, scheduler, num_steps: int,
         skips = 0
         for lo, hi, expert, g in ((0, b_step, params, guidance_scale),
                                   (b_step, num_steps, params_2, g2)):
+            if place_params is not None and hi > lo:
+                expert = place_params(expert)
             caches = _fresh_caches(cfg, cache_cfg, latents)
             for i in range(lo, hi):
                 latents, state = step(expert, g, latents, state, i, pos_text, neg_text, cos,
                                       sin, caches, cond)
             skips += _skips(caches)
+            del expert, caches
         return latents, skips
 
     run.phase_steps = (b_step, num_steps - b_step)

@@ -46,7 +46,11 @@ ulp. Qwen-Image-Edit's text stream from the Qwen2.5-VL encoder (1396 tokens
 before 4096 + 4096 image tokens) at batch 1 and 2: rmsnorm within one ulp,
 rotembd bit-exact, sdpa as the long cases, the W4A4 kernels bit-exact at
 M = 1396 * batch; Qwen2.5-VL-7B's widths at two layers on the card within
-relative L2 1e-4 of the CPU, launching no kernel.
+relative L2 1e-4 of the CPU, launching no kernel. The log-sum-exp variant of
+sdpa: its output bit-identical to the sdpa kernel's, its f32 log-sum-exp
+within 1e-3 absolute of the plain version's; the ring over 2 and 4 virtual
+ranks (bf16 block outputs merged in f32: one more bf16 rounding a step) within
+2e-3 + 2 bf16 ulp of |x| of one sdpa kernel call.
 """
 
 import numpy as np
@@ -117,6 +121,69 @@ def test_sdpa_kernel_matches_plain_on_card(cuda_device, case):
         assert (got - want).norm() / want.norm() <= 5e-3
     else:
         torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+# sdpa_lse: (batch, sq, skv, hq, hkv, d, scale); the FLUX joint 8704 tokens cut
+# to a quarter (one ring shard), Wan's 32760 / 4 = 8190-row shard, ragged and
+# GQA / D = 64 / cross lengths, a scale <= 0
+LSE_CASES = {
+    "flux-shard": (1, 2176, 2176, 24, 24, 128, None),
+    "wan-shard": (1, 8190, 8190, 40, 40, 128, None),
+    "gqa-ragged": (2, 200, 333, 8, 2, 128, None),
+    "d64": (1, 130, 70, 4, 4, 64, None),
+    "negative-scale": (1, 100, 300, 4, 2, 64, -0.3),
+}
+LSE_TOL = 1e-3  # absolute, on the f32 log-sum-exp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(LSE_CASES))
+def test_sdpa_lse_kernel_matches_plain_on_card(cuda_device, case):
+    """The log-sum-exp variant: its output bit for bit the sdpa kernel's (the
+    same kernel, one more store), its f32 log-sum-exp within LSE_TOL of the
+    plain version's, one launch counted on its own wrapper."""
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.kernels.torch_backend import sdpa_lse_torch
+
+    b, sq, skv, hq, hkv, d, scale = LSE_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(b, s, h * d, generator=g, device=cuda_device, dtype=torch.bfloat16)
+               for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    cuda_backend.reset_launch_counts()
+    out, lse = cuda_backend.sdpa_lse_cuda(q, k, v, hq, hkv, d, scale)
+    assert cuda_backend.sdpa_lse_cuda.launches == 1 and cuda_backend.sdpa_cuda.launches == 0
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, sq)
+    assert torch.equal(out, cuda_backend.sdpa_cuda(q, k, v, hq, hkv, d, False, scale))
+    want_out, want_lse = sdpa_lse_torch(q, k, v, hq, hkv, d, scale)
+    assert (lse - want_lse).abs().max().item() <= LSE_TOL
+    got, want = out.float(), want_out.float()
+    if sq > 1000:
+        assert ((got - want).abs() <= 1e-3 + 2 * _bf16_ulp(want)).all()
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4])
+def test_virtual_ring_matches_sdpa_kernel_on_card(cuda_device, n):
+    """sdpa_ring over n virtual ranks in one process (self-attention with
+    GQA, cross-attention, a length n does not divide) against one sdpa
+    kernel call; n * n log-sum-exp launches per self-attention call."""
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.parallel.context_parallel import VirtualRing, sdpa_ring
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    mk = lambda s, h, d=128: torch.randn(1, s, h * d, generator=g,  # noqa: E731
+                                         device=cuda_device, dtype=torch.bfloat16)
+    for sq, skv, hq, hkv in ((4096, 4096, 8, 2), (1024, 333, 4, 4), (1001, 1001, 4, 4)):
+        q, k, v = mk(sq, hq), mk(skv, hkv), mk(skv, hkv)
+        cuda_backend.reset_launch_counts()
+        got = sdpa_ring(q, k, v, hq, hkv, 128, ring=VirtualRing(n)).float()
+        counts = (cuda_backend.sdpa_lse_cuda.launches, cuda_backend.sdpa_cuda.launches)
+        assert counts == ((n * n, 0) if sq == skv and sq % n == 0 else (0, n if sq % n == 0
+                                                                         else 1))
+        want = cuda_backend.sdpa_cuda(q, k, v, hq, hkv, 128).float()
+        assert ((got - want).abs() <= 2e-3 + 2 * _bf16_ulp(want)).all()
 
 
 @pytest.mark.gpu

@@ -170,3 +170,35 @@ print("ROUNDTRIP", bool((back == img).all()), cat.shape,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "ROUNDTRIP True (5, 8, 3) []" in out.stdout, out.stdout
+
+
+# parallel/ and the worker processes of tests/test_torch_parallel.py: a spawned
+# worker imports only torch and the port
+PARALLEL_FILES = (*sorted((REPO / "fastdm_tpu_torch" / "parallel").glob("*.py")),
+                  REPO / "tests" / "torch_parallel_workers.py")
+
+
+def test_parallel_and_its_workers_import_no_jax():
+    """Every module of parallel/ is among the scanned sources, and neither
+    it nor the test workers import JAX or the JAX package, at any depth; an
+    interpreter that imports them all has no JAX module loaded."""
+    scanned = set(_sources())
+    names = {p.name for p in PARALLEL_FILES}
+    assert {"mesh.py", "context_parallel.py", "pipeline.py", "cp_state.py", "pp_state.py",
+            "offload.py"} <= names
+    assert all(p in scanned for p in PARALLEL_FILES if p.parent.name == "parallel")
+    bad = [(p.name, m) for p in PARALLEL_FILES for m in _imports(p) if _forbidden(m)]
+    assert not bad, bad
+    code = f"""
+import sys
+sys.path.insert(0, {str(REPO / "tests")!r})
+import torch_parallel_workers
+from fastdm_tpu_torch.parallel import context_parallel, cp_state, mesh, offload, pipeline, pp_state
+print("FORBIDDEN", sorted(m for m in sys.modules
+                          if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "FORBIDDEN []" in out.stdout, out.stdout

@@ -15,6 +15,7 @@
     taken and ignored. The tiny engines are also the API server tests'."""
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -181,6 +182,69 @@ def test_generate_takes_the_reference_spellings(engines, family):
         eng.generate(not_an_argument=1, **_request(family, False))
 
 
+# ------------------------------------------------------------ the JAX keywords
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_jax_keywords_at_defaults_equal_their_absence(engines, tmp_path, family):
+    """kernel_backend, oom_resolve, mesh_shape and offload_inactive_expert
+    (fastdm_tpu/engine.py:103-116) at their defaults, and a mesh of one
+    device in either form, give the engine built without them bit for bit."""
+    want = engines[family].generate(**_request(family, False))
+    root = _write_root(family, str(tmp_path))
+    for kw in (dict(kernel_backend="auto", oom_resolve=False, mesh_shape=None,
+                    offload_inactive_expert=False),
+               dict(kernel_backend="pallas", oom_resolve=True, mesh_shape=(1, 1, 1),
+                    offload_inactive_expert=True),
+               dict(mesh_shape=(1, 1, 1, 1))):
+        eng = tiny_engine(family, root, **kw)
+        np.testing.assert_array_equal(eng.generate(**_request(family, False)), want)
+        assert eng.mesh is None if kw.get("mesh_shape") is None else eng.mesh.size == 1
+
+
+def test_jax_keyword_refusals():
+    """kernel_backend 'jnp' and unknown names raise ValueError (JAX's type
+    for a bad backend), a mesh not of 3 or 4 axes ValueError, tp > 1
+    NotImplementedError, a larger mesh without torch.distributed
+    RuntimeError: each before any weight is read."""
+    for kw, exc, msg in ((dict(kernel_backend="jnp"), ValueError, "jnp"),
+                         (dict(kernel_backend="cuda"), ValueError, "invalid kernel backend"),
+                         (dict(mesh_shape=(1, 2)), ValueError, "mesh_shape must be"),
+                         (dict(mesh_shape=(1, 1, 2)), NotImplementedError, "tp > 1"),
+                         (dict(mesh_shape=(2, 1, 1, 1)), RuntimeError, "torchrun")):
+        with pytest.raises(exc, match=msg):
+            teng.FastDMEngine("/nonexistent", architecture="flux", device="cpu", **kw)
+
+
+def test_wan_t2i_runs_t2v_or_i2v(engines, tmp_path):
+    """task "t2i", the CLI's default, on a Wan engine is t2v without an image
+    and i2v with one (fastdm_tpu/engine.py:812-813), bit for bit the task=None
+    generates (on the tiny t2v checkpoint, and on a Wan2.2-I2V-A14B layout
+    for the image)."""
+    from test_torch_wan_ti2v import VAE_TINY as WAN_VAE_TINY
+    from test_torch_wan_ti2v import _embeds as wan_embeds
+    from test_torch_wan_ti2v import _mk_diffusers_state_dict, _write_transformer, _write_vae
+
+    eng = engines["wan"]
+    kw = _request("wan", False)
+    np.testing.assert_array_equal(eng.generate(task="t2i", **kw), eng.generate(**kw))
+    root = str(tmp_path)
+    for sub, seed in (("transformer", 0), ("transformer_2", 1)):
+        _write_transformer(root, sub, seed, 36, 16)
+    vcfg = dataclasses.replace(WAN_VAE_TINY, z_dim=16,
+                               latents_mean=tuple(0.05 * i for i in range(16)),
+                               latents_std=tuple(1.0 + 0.05 * i for i in range(16)))
+    _write_vae(root, vcfg, _mk_diffusers_state_dict(vcfg))
+    i2v = teng.FastDMEngine(root, architecture="wan2.2-i2v", verbose=False, device="cpu")
+    pos, neg = wan_embeds(6)
+    image = np.random.default_rng(7).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    kw = dict(prompt_embeds=pos, negative_prompt_embeds=neg, height=32, width=48, num_frames=5,
+              num_inference_steps=2, seed=2, output_type="latent", image=image)
+    np.testing.assert_array_equal(i2v.generate(task="t2i", **kw), i2v.generate(**kw))
+    np.testing.assert_array_equal(i2v.generate(task="t2i", **kw),
+                                  i2v.generate(task="i2v", **kw))
+
+
 def test_src_image_is_the_image():
     """src_image maps to image: a FLUX-Kontext generate from src_image equals
     the one from image (the alias runs before the task is chosen)."""
@@ -303,11 +367,22 @@ def _args(*extra):
 def test_port_refusals_and_engine_kwargs():
     with pytest.raises(ValueError, match="jnp"):
         targs.engine_kwargs(_args("--kernel-backend", "jnp"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        targs.engine_kwargs(_args("--mesh-shape", "1,2,1"))
+    # tp > 1 waits for the tp slice of parallel/ (ROADMAP.md section 1, item 1)
+    with pytest.raises(NotImplementedError, match="item 1"):
+        targs.engine_kwargs(_args("--mesh-shape", "1,1,2"))
     kw = targs.engine_kwargs(_args("--mesh-shape", "1,1,1", "--use-int8", "--device", "cpu",
                                    "--architecture", "wan-lightning"))
     assert kw["use_int8"] and kw["device"] == "cpu" and kw["architecture"] == "wan-lightning"
+    assert kw["mesh_shape"] == (1, 1, 1) and kw["kernel_backend"] == "auto"
+    for mesh in ("1,2,1", "2,1,1", "1,1,1,4", "2,1,1,2"):
+        kw = targs.engine_kwargs(_args("--mesh-shape", mesh, "--kernel-backend", "pallas"))
+        assert kw["mesh_shape"] == targs.parse_mesh_shape(mesh)
+        assert kw["kernel_backend"] == "pallas"
+        # the single-process front-ends take a mesh of one device only
+        with pytest.raises(NotImplementedError, match="the API server takes a mesh of one"):
+            targs.engine_kwargs(_args("--mesh-shape", mesh), single_device="the API server")
+    assert targs.engine_kwargs(_args("--mesh-shape", "1,1,1,1"),
+                               single_device="the API server")["mesh_shape"] == (1, 1, 1, 1)
     with pytest.raises(SystemExit):  # not a choice without extra_architectures
         p = argparse.ArgumentParser()
         targs.add_engine_args(p)

@@ -1,0 +1,202 @@
+"""Worker processes of tests/test_torch_parallel.py: a pool of `world` ranks
+under torch.distributed (gloo, a file:// store), each running the tasks the
+test hands it. This module imports only the standard library, numpy, torch
+and the port, so that a spawned worker never imports JAX; the tests compute
+their JAX references in the parent.
+
+    pool = Pool(world, store_dir)    # one pool per world size
+    results = pool.run("task_ring", cases)   # [rank 0's result, rank 1's, ...]
+    pool.close()
+
+A task that does not answer within its timeout (a collective posted in
+another order on some rank hangs under gloo rather than failing) closes the
+pool and raises TimeoutError.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import sys
+import traceback
+
+import torch
+import torch.multiprocessing as mp
+
+TASK_TIMEOUT_S = 120
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class Pool:
+    def __init__(self, world: int, store_dir: str, timeout: float = TASK_TIMEOUT_S):
+        ctx = mp.get_context("spawn")
+        self.world, self.timeout = world, timeout
+        self.tasks = [ctx.Queue() for _ in range(world)]
+        self.results = ctx.Queue()
+        store = os.path.join(store_dir, f"store-{world}")
+        self.procs = [ctx.Process(target=_worker, args=(r, world, store, self.tasks[r],
+                                                        self.results), daemon=True)
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, task: str, *args, **kwargs) -> list:
+        """task(*args, **kwargs) on every rank -> the ranks' results in rank order."""
+        for q in self.tasks:
+            q.put((task, args, kwargs))
+        out, failed = [None] * self.world, []
+        for _ in range(self.world):  # every rank's answer, so none is left queued
+            try:
+                rank, ok, value = self.results.get(timeout=self.timeout)
+            except queue.Empty:
+                self.close()
+                raise TimeoutError(f"{task} did not finish within {self.timeout} s") from None
+            out[rank] = value
+            if not ok:
+                failed.append(f"{task} failed on rank {rank}:\n{value}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return out
+
+    def close(self) -> None:
+        for q in self.tasks:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def _worker(rank: int, world: int, store: str, tasks, results) -> None:
+    import torch.distributed as dist
+
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        while True:
+            item = tasks.get()
+            if item is None:
+                break
+            name, args, kwargs = item
+            try:
+                results.put((rank, True, globals()[name](*args, **kwargs)))
+            except Exception:  # noqa: BLE001  (the parent reports it)
+                results.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- tasks
+
+
+def _mesh(shape):
+    from fastdm_tpu_torch.parallel.mesh import init_mesh
+
+    return init_mesh(shape, "cpu")
+
+
+def task_mesh(shape):
+    """This rank's (coordinate, group ranks) on each axis of `shape`."""
+    mesh = _mesh(shape)
+    return {n: (mesh.axis(n).rank, mesh.axis(n).ranks) for n in mesh.names}
+
+
+def task_ring(cases):
+    """sdpa_ring over the sp group of a (1, world, 1) mesh, through the
+    registry's route: the whole output of each case."""
+    import torch.distributed as dist
+
+    from fastdm_tpu_torch.kernels import scaled_dot_product_attention
+    from fastdm_tpu_torch.parallel import cp_state
+    from fastdm_tpu_torch.parallel.context_parallel import GroupRing
+
+    mesh = _mesh((1, dist.get_world_size(), 1))
+    outs = []
+    with cp_state.cp_ring(GroupRing(mesh.axis("sp"))):
+        for q, k, v, hq, hkv, d in cases:
+            outs.append(scaled_dot_product_attention(q, k, v, hq, hkv, d))
+    return outs
+
+
+def _load(family: str, sd_path: str, cfg_kw: dict, stage_blocks=None):
+    from safetensors.torch import load_file
+
+    from fastdm_tpu_torch.models.loader import TensorSource
+
+    src = TensorSource(load_file(sd_path), "cpu")
+    src.stage_blocks = stage_blocks
+    if family == "flux":
+        from fastdm_tpu_torch.models.flux import FluxConfig, flux_load
+
+        cfg = FluxConfig(**cfg_kw)
+        return flux_load(src, cfg), cfg
+    if family == "wan":
+        from fastdm_tpu_torch.models.wan import WanConfig, wan_load
+
+        cfg = WanConfig(**cfg_kw)
+        return wan_load(src, cfg), cfg
+    from fastdm_tpu_torch.models.qwenimage import QwenImageConfig, qwen_load
+
+    cfg = QwenImageConfig(**cfg_kw)
+    return qwen_load(src, cfg), cfg
+
+
+STACKS = {"flux": ("dual_blocks", "single_blocks"), "wan": ("blocks",), "qwen": ("blocks",)}
+PREFIXES = {"flux": ("transformer_blocks", "single_transformer_blocks"), "wan": ("blocks",),
+            "qwen": ("transformer_blocks",)}
+
+
+def run_blocks(family: str, params, cfg, inputs: dict):
+    """The family's block runner on `inputs` (the image-stream output)."""
+    if family == "flux":
+        from fastdm_tpu_torch.models.flux import flux_run_blocks
+
+        return flux_run_blocks(params, cfg, inputs["hidden"], inputs["encoder"], inputs["temb"],
+                               inputs["cos"], inputs["sin"])
+    if family == "wan":
+        from fastdm_tpu_torch.models.wan import wan_run_blocks
+
+        return wan_run_blocks(params, cfg, inputs["hidden"], inputs["encoder"], inputs["temb"],
+                              inputs["cos"], inputs["sin"])
+    from fastdm_tpu_torch.models.qwenimage import qwen_run_blocks
+
+    return qwen_run_blocks(params, cfg, inputs["hidden"], inputs["encoder"], inputs["temb"],
+                           inputs["cos"], inputs["sin"])[0]
+
+
+def held_blocks(family: str, params) -> dict:
+    """{stack: indices of the blocks that hold parameters}."""
+    return {name: [i for i, b in enumerate(getattr(params, name))
+                   if any(True for _ in b.parameters())] for name in STACKS[family]}
+
+
+def task_gpipe(family: str, sd_path: str, cfg_kw: dict, inputs: dict, shape):
+    """The family's stacks loaded with this rank's stage placement and run
+    through the GPipe route of its block runner over a (dp, 1, 1, pp) mesh
+    -> (output, the blocks this rank holds)."""
+    from fastdm_tpu_torch.parallel import pp_state
+    from fastdm_tpu_torch.parallel.pipeline import GroupPipeline, stage_blocks
+
+    mesh = _mesh(shape)
+    pp = mesh.axis("pp")
+    depths = dict(zip(PREFIXES[family], (cfg_kw["num_layers"], cfg_kw["num_single_layers"])
+                      if family == "flux" else (cfg_kw["num_layers"],)))
+    params, cfg = _load(family, sd_path, cfg_kw, stage_blocks(pp.size, pp.rank, depths))
+    with torch.inference_mode(), pp_state.pp_pipeline(GroupPipeline(pp, mesh.axis("dp"))):
+        out = run_blocks(family, params, cfg, inputs)
+    return out, held_blocks(family, params)
+
+
+def task_engine(root: str, architecture: str, requests, mesh_shape=None, **engine_kw):
+    """A CPU FastDMEngine over root (with mesh_shape) -> the outputs of its
+    generate(**kw) for each kw of `requests`, and the blocks it holds."""
+    from fastdm_tpu_torch.engine import FastDMEngine
+
+    eng = FastDMEngine(root, architecture=architecture, verbose=False, device="cpu",
+                       mesh_shape=mesh_shape, **engine_kw)
+    outs = [eng.generate(**kw) for kw in requests]
+    held = [i for i, b in enumerate(eng.params.blocks) if any(True for _ in b.parameters())]
+    return outs, held
