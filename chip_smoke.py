@@ -85,8 +85,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      shift 5, CFG 4.0 / 3.0, boundary 0.875, 4 steps: 2 per expert, radial
      sparse attention on the superblock tables with one dense warmup step),
      then the full-size chunked Wan VAE decode; exact launch counts derived
-     from the code; one full-size forward on the kernels held to the same
-     forward on the plain versions; the split-QKV forward (qk_norm_rope2)
+     from the code; one full-size forward on the kernels, and the same
+     forward over the first WAN_PLAIN_GATE_BLOCKS blocks held to the plain
+     versions' (cut from full depth: the plain forward took ~80 s); the
+     split-QKV forward (qk_norm_rope2)
      held bit for bit to the fused one; each kernel timed at every shape of
      a forward, for the forward's split. Then one full-size forward in each
      other sparse mode (fine, coarse, mask), timed, with exact launch counts,
@@ -257,6 +259,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
      forward equal; /edit on the int8 flux-kontext engine with two PNG
      sources in list, average and concatenate. A [frontend] line after
      [done] sums it up.
+  tp: tensor parallelism over virtual ranks, threads of this process on the
+     one card, their collectives in-process f32 sums (and MAX of the
+     quantizer statistics) in rank order. Phase 1's _tp_kernels holds each
+     tp variant (the quantizer's statistics and given-statistics modes, the
+     GEMMs' f32 partials, rms_sumsq, rmsnorm_given, qk_norm_rope*_given) to
+     its plain version and, over the two ranks of FLUX's single-block
+     proj_out at tp 2, to the unsharded kernels, timed beside its bound.
+     Then FLUX.1-dev at 1024x2048 and full depth in int8 and in int4p with
+     quant_mods over 2 and 4 ranks, FLUX fp8 and bf16 at 2 + 4 blocks over
+     2, the Wan2.2-A14B int8 expert at 480x832x81 in the super mode over 4
+     (and the split-QKV path at 17 frames, 8 blocks), one rank's expert
+     shard moved the offload way, Qwen-Image int4p (12 blocks) and
+     SD3.5-medium int8 (6 blocks) over 2: each within its
+     TP_FORWARD_REL_L2_TOL of the unsharded forward, every rank identical,
+     the launches of each tp forward equal to tp_rank_launches times the
+     ranks, each rank's resident bytes equal to tp_rank_bytes; seconds and
+     GiB on a [tp] line after [done].
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -754,6 +773,7 @@ def phase_kernels(dev) -> dict:
     _image_branch_kernels(dev, torch.Generator(device=dev).manual_seed(12))
     results.update(_lse_kernels(dev, torch.Generator(device=dev).manual_seed(13)))
     _ring_kernels(dev, torch.Generator(device=dev).manual_seed(14))
+    results.update(_tp_kernels(dev))
     for r in results.values():
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']})")
@@ -2170,6 +2190,22 @@ def phase_slice(dev, summary: Optional[dict] = None) -> dict:
 # the first value measured on an H100 80GB HBM3 (1.448e-2, at 17 frames). A
 # wrong tile, table or layout gives O(1).
 WAN_FORWARD_REL_L2_TOL = 3e-2
+# the blocks of the Wan kernel-vs-plain forward gate (the plain forward of all
+# 40 took ~80 s, 1.444e-2 relative L2 at PR 21: a tenth of the script's phases)
+WAN_PLAIN_GATE_BLOCKS = 10
+
+
+def first_blocks(model, stack: str, n: int):
+    """A shallow copy of `model` whose ModuleList `stack` holds its first n
+    blocks (the same modules and tensors): a forward at reduced depth."""
+    import copy
+
+    from torch import nn
+
+    short = copy.copy(model)
+    short._modules = dict(model._modules)
+    short._modules[stack] = nn.ModuleList(list(getattr(model, stack))[:n])
+    return short
 # The same at 17 frames (7800 tokens) in the other three sparse modes, each on
 # its own tables: twice the first value measured on an H100 80GB HBM3 (fine
 # 1.450e-2, coarse 1.455e-2, mask 1.448e-2).
@@ -2404,19 +2440,26 @@ def phase_wan(dev) -> dict:
     del split, out
     _wan_forward_split(dev, cfg, tokens, tables, secs)
 
-    # the same sparse forward on the plain versions
+    # the same sparse forward on the plain versions, over the first
+    # WAN_PLAIN_GATE_BLOCKS blocks (the plain forward took ~80 s at full depth)
+    gate = first_blocks(experts[1], "blocks", WAN_PLAIN_GATE_BLOCKS)
+    with torch.inference_mode():
+        out_g = wan_forward(gate, cfg, x, t, pos, rope_cos=cos, rope_sin=sin,
+                            sparse_mask=tables).float()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with kernel_registry.plain_on_device():
-        out_p = forward(cfg, tables)
+    with torch.inference_mode(), kernel_registry.plain_on_device():
+        out_p = wan_forward(gate, cfg, x, t, pos, rope_cos=cos, rope_sin=sin,
+                            sparse_mask=tables).float()
     torch.cuda.synchronize()
-    rel = ((out_k - out_p).norm() / out_p.norm()).item()
-    log(f"[wan] full-depth sparse forward at {tokens} tokens: kernels vs plain versions "
-        f"({time.perf_counter() - t0:.1f} s) relative L2 difference {rel:.3e} (tolerance "
-        f"{WAN_FORWARD_REL_L2_TOL})")
-    if not rel <= WAN_FORWARD_REL_L2_TOL or not torch.isfinite(out_k).all():
+    rel = ((out_g - out_p).norm() / out_p.norm()).item()
+    log(f"[wan] sparse forward at {tokens} tokens, the first {WAN_PLAIN_GATE_BLOCKS} of "
+        f"{cfg.num_layers} blocks: kernels vs plain versions ({time.perf_counter() - t0:.1f} s) "
+        f"relative L2 difference {rel:.3e} (tolerance {WAN_FORWARD_REL_L2_TOL})")
+    if not (rel <= WAN_FORWARD_REL_L2_TOL and torch.isfinite(out_k).all()
+            and torch.isfinite(out_g).all()):
         raise AssertionError(f"the Wan kernel forward departs from the plain forward: {rel}")
-    del out_k, out_p
+    del out_k, out_g, out_p, gate
     torch.cuda.empty_cache()
     launches = {"qk_norm_rope": counts["qk_norm_rope"], "gather_super": counts["gather_super"],
                 "qk_norm_rope2": split_counts["qk_norm_rope2"]}
@@ -7333,6 +7376,594 @@ def _engine_wan_meshes(root: str, dev, kw: dict, radial: dict) -> None:
 
 
 
+# ------------------------------------------------------------------ phase tp
+#
+# Tensor parallelism (fastdm_tpu_torch/parallel/tensor_parallel.py) on one
+# card: each of TP virtual ranks (threads of this process) holds its shard
+# modules and runs its kernels at the real shard shapes; the collectives are
+# in-process f32 sums (and MAX of the quantizer statistics) in rank order.
+# FLUX.1-dev at 1024x2048, full depth, int8 and int4p with quant_mods over 2
+# and 4 ranks; Wan2.2-A14B int8 480x832x81 in the super mode over 4 ranks
+# (the fused QKV path; then the split-QKV path the engine takes at 720p, whose
+# two-operand norm the 480p forward does not reach, at 17 frames and 8
+# blocks); one rank's expert shard moved the offload way; Qwen-Image int4p
+# and SD3.5-medium int8 at reduced depth, and FLUX fp8 (the fp8 row partial)
+# at reduced depth, over 2 ranks.
+# The ranks' host work shares one interpreter: a virtual forward's seconds are
+# host-bound (every collective a barrier of the rank threads), not a tp card's.
+
+# the variant kernels of the tp path: name -> (cuda_backend wrapper, source, TPU kernel)
+TP_KERNELS = {
+    "quantize_stats": ("quantize_stats_cuda", "quant.cu", "elementwise.py:162"),
+    "quantize_to_int8_given": ("quantize_to_int8_given_cuda", "quant.cu", "elementwise.py:162"),
+    "quantize_to_fp8_given": ("quantize_to_fp8_given_cuda", "quant.cu", "elementwise.py:208"),
+    "quantize_to_int4_given": ("quantize_to_int4_given_cuda", "quant.cu", None),
+    "int8_matmul_partial": ("int8_matmul_partial_cuda", "w8a8_gemm.cu", "matmul.py:158"),
+    "fp8_matmul_partial": ("fp8_matmul_partial_cuda", "fp8_gemm.cu", "matmul.py:182"),
+    "int4_matmul_partial": ("int4_matmul_partial_cuda", "w8a8_gemm.cu", None),
+    "rms_sumsq": ("rms_sumsq_cuda", "rmsnorm.cu", "elementwise.py:66"),
+    "rmsnorm_given": ("rms_norm_given_cuda", "rmsnorm.cu", "elementwise.py:66"),
+    "qk_norm_rope_given": ("qk_norm_rope_given_cuda", "qk_norm_rope.cu", "elementwise.py:341"),
+    "qk_norm_rope2_given": ("qk_norm_rope2_given_cuda", "qk_norm_rope.cu", "elementwise.py:416"),
+}
+# the jnp-only W4A4 code the int4 variants extend (no Pallas kernel)
+TP_JNP_REPLACES = {"quantize_to_int4_given": "fastdm_tpu/kernels/jnp_backend/impl.py:143",
+                   "int4_matmul_partial": "fastdm_tpu/kernels/jnp_backend/impl.py:163"}
+TP_SIZES = (2, 4)
+# the fp8 f32 partial against its plain version: Hopper's fp8 wgmma sums a
+# k32 step's products in about 14 bits (DeepSeek-V3's report), and the kernel
+# adds each step into f32, so the error stays under 2^-14 of sum |a| |b|
+FP8_PARTIAL_REL = 2.0**-14
+# a tp forward against the unsharded one on the same kernels: the row layers'
+# f32 partial sums in another order (and the W4A4 low-rank intermediate
+# rounded once after its sum) move a few bf16 outputs by one ulp, and every
+# per-token quantization downstream turns such a ulp into a whole step in a
+# few elements, as between a kernel forward and its plain one: so each
+# format takes its kernel-vs-plain gate (FORWARD_REL_L2_TOL and the
+# families' own; first measured at tp 2 on an H100 80GB HBM3: FLUX int8
+# 2.964e-2, int4p with quant_mods 6.949e-2, beside their kernel-vs-plain
+# 2.895e-2 and 7.448e-2). A head or row cut wrong gives O(1).
+TP_FORWARD_REL_L2_TOL = {"flux-int8": FORWARD_REL_L2_TOL["int8"],
+                         "flux-int4p": FORWARD_REL_L2_TOL["int4p"],
+                         "flux-bf16": FORWARD_REL_L2_TOL[None],
+                         "flux-fp8": FORWARD_REL_L2_TOL["fp8"], "wan": WAN_FORWARD_REL_L2_TOL,
+                         "qwen": QWEN_FORWARD_REL_L2_TOL, "sd35": SD35_FORWARD_REL_L2_TOL}
+TP_QWEN_LAYERS, TP_SD35_LAYERS, TP_FLUX_CUT_LAYERS, TP_SPLIT_QKV_BLOCKS = 12, 6, (2, 4), 8
+TP_SUMMARY: dict = {}
+# each tp variant's launches summed over the phase's checked tp forwards
+TP_LAUNCHES: dict = {}
+
+
+def _tp_kernels(dev) -> dict:
+    """Every tp variant at its main-path shape, held to its plain version
+    (the statistics, the given-statistics quantizers and the int8 / int4
+    partials bit-exact; the fp8 partial within the fp8 GEMM's bound; the
+    norms within one bf16 ulp, the qk forms within the qk_norm_rope
+    tolerance), and over the two ranks of FLUX's single-block proj_out at tp
+    2 (8704 rows, K = 7680 of 15360) to the unsharded kernels: the quantized
+    values, scales and zero points bit-exact, the summed partials within one
+    bf16 ulp plus the partials' f32 roundings of the bf16 GEMM; timed beside
+    the bound, the plain version and a library call where one computes the
+    same function (torch.aminmax for the statistics, torch._scaled_mm to f32
+    for the fp8 partial)."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+    from fastdm_tpu_torch.models.wan import WanConfig, wan_rope_cos_sin
+    from fastdm_tpu_torch.parallel.tensor_parallel import qlinear_split_rows
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    results, errs = {}, {}
+    m, k_whole, n = IMG_TOKENS + TXT_TOKENS, DIM + MLP, DIM
+    parts = [(DIM, HEAD_DIM), (MLP, 1)]
+    k = k_whole // 2
+    x = (torch.randn(m, k_whole, generator=g, device=dev) * 2).bfloat16()
+    cols = [torch.cat([torch.arange(0, DIM // 2), DIM + torch.arange(0, MLP // 2)]),
+            torch.cat([torch.arange(DIM // 2, DIM), DIM + torch.arange(MLP // 2, MLP)])]
+    halves = [x[:, c.to(dev)].contiguous() for c in cols]
+    xr = halves[0]
+    timed = {}
+    # the statistics and the given-statistics quantizers, per rank and reduced
+    for sym in (False, True):
+        stats = [cb.quantize_stats_cuda(h, sym) for h in halves]
+        if not all(torch.equal(s, tb.quantize_stats_torch(h, sym)) for s, h in zip(stats, halves)):
+            raise AssertionError(f"quantize_stats (symmetric={sym}) is not bit-exact")
+        red = torch.maximum(*stats)
+        forms = {"quantize_to_int8_given": (
+            lambda h, sym=sym, red=red: cb.quantize_to_int8_given_cuda(h, red, sym),
+            lambda h, sym=sym, red=red: tb.quantize_to_int8_given_torch(h, red, sym),
+            cb.quantize_to_int8_cuda(x, sym))}
+        if sym:
+            forms["quantize_to_fp8_given"] = (
+                lambda h, red=red: cb.quantize_to_fp8_given_cuda(h, red),
+                lambda h, red=red: tb.quantize_to_fp8_given_torch(h, red),
+                cb.quantize_to_fp8_cuda(x))
+            forms["quantize_to_int4_given"] = (
+                lambda h, red=red: cb.quantize_to_int4_given_cuda(h, red),
+                lambda h, red=red: tb.quantize_to_int4_given_torch(h, red),
+                cb.quantize_to_int4_cuda(x))
+        for name, (kern, plain, whole) in forms.items():
+            for h, c in zip(halves, cols):
+                got, ref = kern(h), plain(h)
+                same = all((a is None and b is None) or torch.equal(a.view(torch.int8)
+                           if a.dtype == torch.float8_e4m3fn else a, b.view(torch.int8)
+                           if b.dtype == torch.float8_e4m3fn else b) for a, b in zip(got, ref))
+                whole_q = whole[0][:, c.to(dev)]
+                same_whole = torch.equal(got[0].view(torch.int8), whole_q.view(torch.int8)) \
+                    and all((a is None and b is None) or torch.equal(a, b)
+                            for a, b in zip(got[1:], whole[1:]))
+                if not (same and same_whole):
+                    raise AssertionError(f"{name} (symmetric={sym}): plain {same}, unsharded "
+                                         f"{same_whole}")
+            if name == "quantize_to_int8_given" and sym:
+                continue
+            timed[name] = (lambda kern=kern: kern(xr), lambda plain=plain: plain(xr),
+                           _quantize_bytes(m, k, name == "quantize_to_fp8_given") + 8 * m,
+                           5 * m * k, None)
+        if not sym:
+            timed["quantize_stats"] = (lambda: cb.quantize_stats_cuda(xr, False),
+                                       lambda: tb.quantize_stats_torch(xr, False),
+                                       2 * m * k + 8 * m, 2 * m * k,
+                                       lambda: torch.aminmax(xr, dim=-1))
+    log(f"[tp] quantize_stats and the given-statistics quantizers at FLUX's single-block "
+        f"proj_out over tp 2 ({m} x {k} of {k_whole}): bit-exact with their plain versions and "
+        f"the unsharded quantizers (int8 asym / sym, fp8, int4; tolerance: bit-exact)")
+    # the f32 row partials of the three GEMMs, summed over the two ranks
+    for quant, name in (("int8", "int8_matmul_partial"), ("fp8", "fp8_matmul_partial"),
+                        ("int4", "int4_matmul_partial")):
+        lin = qlinear_random(g, k_whole, n, quant=quant, device=dev)
+        shards = [qlinear_split_rows(lin, parts, 2, r) for r in range(2)]
+        sym = quant != "int8"
+        red = torch.maximum(*(cb.quantize_stats_cuda(h, sym) for h in halves))
+        partials, fp8_bound = [], 0.0
+        for h, s in zip(halves, shards):
+            if quant == "int8":
+                xq, xs, xzp = cb.quantize_to_int8_given_cuda(h, red, False)
+                args = (xq, s.w, xs, s.scale, s.colsum, xzp)
+            elif quant == "fp8":
+                xq, xs = cb.quantize_to_fp8_given_cuda(h, red)
+                args = (xq, s.w, xs, s.scale)
+            else:
+                xq, xs = cb.quantize_to_int4_given_cuda(h, red)
+                args = (xq, s.w4, xs, s.scale)
+            kern, plain = getattr(cb, f"{name}_cuda"), getattr(tb, f"{name}_torch")
+            got, ref = kern(*args), plain(*args)
+            if quant == "fp8":
+                mag = (xs * s.scale[None, :]) * (xq.float().abs() @ s.w.float().abs())
+                fp8_bound = fp8_bound + FP8_PARTIAL_REL * mag
+                ok = bool(((got - ref).abs() <= FP8_PARTIAL_REL * mag + 1e-30).all())
+            else:
+                ok = torch.equal(got, ref)
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version")
+            errs[name] = max(errs.get(name, 0.0), (got - ref).abs().max().item())
+            partials.append(got)
+        total = (partials[0] + partials[1] + lin.bias.float()).bfloat16().float()
+        if quant == "int8":
+            xq, xs, xzp = cb.quantize_to_int8_cuda(x, False)
+            one = cb.int8_matmul_cuda(xq, lin.w, xs, lin.scale, torch.bfloat16, lin.colsum, xzp,
+                                      lin.bias)
+        elif quant == "fp8":
+            xq, xs = cb.quantize_to_fp8_cuda(x)
+            one = cb.fp8_matmul_cuda(xq, lin.w, xs, lin.scale, torch.bfloat16, lin.bias)
+        else:
+            xq, xs = cb.quantize_to_int4_cuda(x)
+            one = cb.int4_matmul_cuda(xq, lin.w4, xs, lin.scale, torch.bfloat16, lin.bias)
+        one = one.float()
+        tol = bf16_ulp(one) + 2.0**-22 * (partials[0].abs() + partials[1].abs()) + 2 * fp8_bound
+        excess = ((total - one).abs() - tol).max().item()
+        log(f"[tp] {name}: two ranks' f32 partials summed against the unsharded {quant} GEMM "
+            f"({m}x{k_whole} @ {k_whole}x{n}): max_abs_err {(total - one).abs().max().item():.3e}"
+            f", excess over 1 ulp + the partials' f32 roundings {excess:.3e} (must be <= 0)")
+        if not excess <= 0:
+            raise AssertionError(f"{name}: summed partials depart from the unsharded GEMM")
+        lib = None
+        if quant == "fp8":
+            def lib(args=args):
+                return torch._scaled_mm(args[0], args[1], scale_a=args[2],
+                                        scale_b=args[3].reshape(1, -1), out_dtype=torch.float32)
+        timed[name] = (lambda kern=kern, args=args: kern(*args),
+                       lambda plain=plain, args=args: plain(*args),
+                       m * k + k * n + 4 * m * n + 8 * m + 8 * n, 2 * m * n * k, lib)
+        del lin, shards, partials, total, one, tol
+    # the norms across heads: Wan2.2-A14B's self-attention at tp 4 (1280 of 5120
+    # columns, 32760 tokens) and a split-QKV chunk (4095 tokens)
+    tokens, per = _wan_shape(WAN_FRAMES)[3], WAN_DIM // 4
+    qkv = torch.randn(1, tokens, 3 * per, generator=g, device=dev, dtype=torch.bfloat16)
+    gq, gk = ((1 + 0.05 * torch.randn(per, generator=g, device=dev)).bfloat16()
+              for _ in range(2))
+    qk = qkv[..., :2 * per].unflatten(-1, (2, per))
+    st = cb.rms_sumsq_cuda(qk)
+    ref = tb.rms_sumsq_torch(qk)
+    errs["rms_sumsq"] = ((st - ref).abs() / ref).max().item()
+    if not errs["rms_sumsq"] <= 1e-5:
+        raise AssertionError(f"rms_sumsq departs from its plain version: {errs['rms_sumsq']}")
+    st = st * 4  # the four ranks' sums, as the group's reduction gives them
+    st0 = st[..., 0].contiguous()
+    q = qkv[..., :per]
+    got = cb.rms_norm_given_cuda(q, gq, st0, WAN_DIM, 1e-6)
+    ref = tb.rms_norm_given_torch(q, gq, st0, WAN_DIM, 1e-6)
+    ulps = ((got.float() - ref.float()).abs() / bf16_ulp(ref)).max().item()
+    errs["rmsnorm_given"] = (got.float() - ref.float()).abs().max().item()
+    if not ulps <= 1.0:
+        raise AssertionError(f"rmsnorm_given departs from its plain version: {ulps} ulp")
+    cfg = WanConfig()
+    cos, sin = wan_rope_cos_sin(cfg, *_wan_shape(WAN_FRAMES)[:3], device=dev)
+    a = cb.qk_norm_rope_given_cuda(qkv, gq, gk, HEAD_DIM, cos, sin, st, WAN_DIM, inner_dim=per)
+    worst, errs["qk_norm_rope_given"] = _qk_excess(a, tb.qk_norm_rope_given_torch(
+        qkv, gq, gk, HEAD_DIM, cos, sin, st, WAN_DIM, inner_dim=per))
+    chunk = tokens // 8
+    qc, kc = (qkv[:, :chunk, i * per:(i + 1) * per].contiguous() for i in range(2))
+    stc = st[:, :chunk].contiguous()
+    b2 = cb.qk_norm_rope2_given_cuda(qc, kc, gq, gk, HEAD_DIM, cos[:chunk], sin[:chunk], stc,
+                                     WAN_DIM)
+    worst2, errs["qk_norm_rope2_given"] = _qk_excess(b2, tb.qk_norm_rope2_given_torch(
+        qc, kc, gq, gk, HEAD_DIM, cos[:chunk], sin[:chunk], stc, WAN_DIM))
+    same = all(torch.equal(u, w[:, :chunk]) for u, w in zip(b2, a))
+    log(f"[tp] Wan2.2-A14B norms at tp 4 ({tokens} tokens, {per} of {WAN_DIM} columns): "
+        f"rms_sumsq max rel err {errs['rms_sumsq']:.2e} (tolerance 1e-5), rmsnorm_given "
+        f"{ulps:.2f} ulp (tolerance 1), qk_norm_rope_given excess {worst:.3e}, "
+        f"qk_norm_rope2_given excess {worst2:.3e} (must be <= 0), the two forms bit-identical "
+        f"{same}")
+    if not (worst <= 0 and worst2 <= 0 and same):
+        raise AssertionError("the qk_norm_rope given-statistics forms depart from their plain "
+                             "versions")
+    nq = tokens * per
+    tab = 2 * cos.numel() * 4
+    timed["rms_sumsq"] = (lambda: cb.rms_sumsq_cuda(qk), lambda: tb.rms_sumsq_torch(qk),
+                          2 * 2 * nq + 8 * tokens, 4 * nq, None)
+    timed["rmsnorm_given"] = (
+        lambda: cb.rms_norm_given_cuda(q, gq, st0, WAN_DIM, 1e-6),
+        lambda: tb.rms_norm_given_torch(q, gq, st0, WAN_DIM, 1e-6),
+        2 * 2 * nq + 4 * tokens, 4 * nq, None)
+    timed["qk_norm_rope_given"] = (
+        lambda: cb.qk_norm_rope_given_cuda(qkv, gq, gk, HEAD_DIM, cos, sin, st, WAN_DIM,
+                                           inner_dim=per),
+        lambda: tb.qk_norm_rope_given_torch(qkv, gq, gk, HEAD_DIM, cos, sin, st, WAN_DIM,
+                                            inner_dim=per),
+        2 * 2 * 2 * nq + 8 * tokens + tab, 2 * 10 * nq, None)
+    nc = chunk * per
+    timed["qk_norm_rope2_given"] = (
+        lambda: cb.qk_norm_rope2_given_cuda(qc, kc, gq, gk, HEAD_DIM, cos[:chunk], sin[:chunk],
+                                            stc, WAN_DIM),
+        lambda: tb.qk_norm_rope2_given_torch(qc, kc, gq, gk, HEAD_DIM, cos[:chunk],
+                                             sin[:chunk], stc, WAN_DIM),
+        2 * 2 * 2 * nc + 8 * chunk + tab // 8, 2 * 10 * nc, None)
+    for name, (kern, plain, nbytes, ops, lib_call) in timed.items():
+        peak = INT8_FP8_OPS if name.endswith("_partial") else F32_FLOPS
+        b_ms, b_by = bound(nbytes, ops, peak)
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 2, 1)
+        lib_ms = None
+        if lib_call is not None:  # a yardstick only; the port never calls it
+            try:
+                lib_ms = cuda_ms(lib_call, 20)
+            except (RuntimeError, TypeError, ValueError) as e:
+                # torch._scaled_mm refuses an f32 output with row-wise scales
+                log(f"[tp] {name}: library call unavailable ({str(e).splitlines()[0][:120]})")
+        log(f"[tp] {name}: {ms:.4f} ms ({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, {b_by}), "
+            f"plain {plain_ms:.4f} ms, library {lib_ms} ms")
+        src, rep = TP_KERNELS[name][1:]
+        results[name] = dict(
+            name=name, route="cuda", source=f"fastdm_tpu_torch/csrc/{src}",
+            replaces=TP_JNP_REPLACES.get(name) or f"fastdm_tpu/kernels/pallas/{rep}",
+            max_abs_err=errs.get(name, 0.0), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        TP_SUMMARY[f"kernel_{name}"] = dict(ms=ms, bound_ms=b_ms, plain_ms=plain_ms,
+                                            library_ms=lib_ms)
+    del x, halves, xr, qkv, qk, st, timed
+    torch.cuda.empty_cache()
+    return results
+
+
+def _tp_launches() -> dict:
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+
+    return {name: getattr(cb, wrapper).launches for name, (wrapper, _, _) in TP_KERNELS.items()}
+
+
+def _tp_linears(quant, column: int, row: int) -> dict:
+    """Launches of `column` quantized linears that a rank computes on its own
+    weights (a column shard, or a layer kept whole) and `row` row shards, in
+    `quant` (None: bf16, whose products launch no kernel): a row shard
+    launches quantize_stats, the given-statistics quantizer and the f32
+    partial GEMM; int4p unpacks every weight first."""
+    if quant is None:
+        return {}
+    q = "int4" if quant.startswith("int4") else quant
+    counts = {f"quantize_to_{q}": column, f"{q}_matmul": column, "quantize_stats": row,
+              f"quantize_to_{q}_given": row, f"{q}_matmul_partial": row}
+    if quant == "int4p":
+        counts["unpack_int4"] = column + row
+    return counts
+
+
+def tp_rank_launches(family: str, cfg, tokens: int = 0, mode=None, blocks=None) -> dict:
+    """One tp rank's kernel launches in one forward, read off
+    parallel/tensor_parallel.py's shard_block and the families' forwards
+    (every split divides in this phase's models): the attention kernels and
+    per-head norms of the unsharded forward, on the rank's heads; per
+    column shard (or quantized layer kept whole) its quantizer and GEMM, per
+    row shard call its tp_linears (a row shard runs unchunked: Wan's
+    to_outs once, not once a token chunk). FLUX: column 4 a dual block and
+    1 a single one, plus their AdaLN linears under quant_mods; row 4 and 1.
+    Qwen-Image: column 4 a block (+2 modulations under quant_mods), row 4,
+    and txt_norm's rmsnorm. SD3.5: column qkv (and the dual blocks' attn2
+    qkv), add_qkv, ff.proj, ff_context.proj but in the last block, and the
+    head's norm_out and proj_out (whole); row their outputs. Wan
+    (wan_forward_launches over `blocks` at `tokens` in `mode`): each norm
+    across heads an rms_sumsq and the given-statistics form of its kernel;
+    row 2 + chunks a block, column the rest."""
+    counts = dict.fromkeys(list(_launch_counts()) + list(TP_KERNELS), 0)
+    if family == "flux":
+        d, s = cfg.num_layers, cfg.num_single_layers
+        counts.update(rmsnorm=4 * d + 2 * s, rotembd=d + s, sdpa=d + s)
+        column, row = 4 * d + s + (2 * d + s if cfg.quant_mods else 0), 4 * d + s
+    elif family == "qwen":
+        n = cfg.num_layers
+        counts.update(rmsnorm=4 * n + 1, rotembd=n, sdpa=n)
+        column, row = 4 * n + (2 * n if cfg.quant_mods else 0), 4 * n
+    elif family == "sd35":
+        n, nd = cfg.num_layers, cfg.num_dual_layers
+        counts.update(rmsnorm=4 * n + 2 * nd, sdpa=n + nd)
+        column, row = (n + nd) + n + n + (n - 1) + 2, (n + nd) + (n - 1) + n + (n - 1)
+    elif family == "wan":
+        base = wan_forward_launches(cfg, tokens, mode, blocks)
+        counts.update(base)
+        counts.update(qk_norm_rope=0, qk_norm_rope2=0, rmsnorm=0,
+                      qk_norm_rope_given=base["qk_norm_rope"],
+                      qk_norm_rope2_given=base["qk_norm_rope2"], rmsnorm_given=base["rmsnorm"],
+                      rms_sumsq=base["qk_norm_rope"] + base["qk_norm_rope2"] + base["rmsnorm"])
+        for op in W8A8_OPS:
+            counts[op] = 0
+        ct = cfg.ffn_chunk_tokens
+        chunks = tokens // ct if ct and tokens > ct and tokens % ct == 0 else 1
+        nblocks = cfg.num_layers if blocks is None else len(blocks)
+        row = nblocks * (2 + chunks)
+        column = base[f"{cfg.quant}_matmul"] - nblocks * 3 * chunks
+    else:
+        raise ValueError(family)
+    counts.update(_tp_linears(cfg.quant, column, row))
+    return counts
+
+
+def tp_rank_bytes(model, size: int) -> int:
+    """A rank's resident bytes by the name rules alone (parallel/mesh.py
+    tp_kind): of each QLinear of the blocks that they make column, every
+    tensor with an output dim at 1/size (lora_u whole); of each row one,
+    every tensor with an input dim (w / w4 / w4p, lora_u) at 1/size, the
+    per-column bias, scale, colsum and lora_v whole; Wan's across-heads norm
+    weights (D wide) at 1/size; the rest whole."""
+    from fastdm_tpu_torch.layers.qlinear import QLinear
+    from fastdm_tpu_torch.models.wan import WanCrossAttention, WanSelfAttention
+    from fastdm_tpu_torch.parallel.mesh import tp_kind
+    from fastdm_tpu_torch.parallel.offload import module_bytes
+    from fastdm_tpu_torch.parallel.tensor_parallel import block_paths
+
+    def nbytes(m, names):
+        ts = (getattr(m, k) for k in names)
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    cut = 0
+    for bpath in block_paths(model):
+        for name, m in model.get_submodule(bpath).named_modules():
+            if isinstance(m, QLinear):
+                kind = tp_kind(f"{bpath}.{name}")
+                if kind == "column":
+                    cut += nbytes(m, ("w", "w4", "w4p", "scale", "colsum", "bias", "lora_v"))
+                elif kind == "row":
+                    cut += nbytes(m, ("w", "w4", "w4p", "lora_u"))
+            elif isinstance(m, (WanSelfAttention, WanCrossAttention)):
+                cut += nbytes(m, [k for k in ("norm_q", "norm_k", "norm_added_k")
+                                  if hasattr(m, k)])
+    return module_bytes(model) - cut + cut // size
+
+
+def _tp_forwards(label: str, model, cfg, forward, sizes, tol: float, launches: dict,
+                 warm: bool = True) -> dict:
+    """forward(params) on the unsharded model, then on `size` virtual tp
+    ranks for each size: every rank's output identical, within relative L2
+    `tol` of the unsharded forward; the counters zeroed just before the
+    timed tp forward and its launches equal to `size` times `launches` (one
+    rank's, tp_rank_launches); each rank's resident bytes equal to
+    tp_rank_bytes; seconds (all ranks on one card), GiB
+    and launches into TP_SUMMARY, the variants' launches into TP_LAUNCHES."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.parallel.offload import module_bytes
+    from fastdm_tpu_torch.parallel.tensor_parallel import run_virtual_ranks, shard_copy, \
+        virtual_groups
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        if warm:
+            forward(model)
+        want, whole_s = timed(lambda: forward(model))
+    whole_gib = module_bytes(model) / 2**30
+    out = {"unsharded_s": whole_s, "unsharded_gib": whole_gib}
+    for size in sizes:
+        groups = virtual_groups(size)
+        shards = [shard_copy(model, cfg, gr) for gr in groups]
+        gib = [module_bytes(s) / 2**30 for s in shards]
+        want_bytes = tp_rank_bytes(model, size)
+        if any(module_bytes(s) != want_bytes for s in shards):
+            raise AssertionError(f"{label} over {size} virtual tp ranks: resident bytes a rank "
+                                 f"{[module_bytes(s) for s in shards]}, the name rules give "
+                                 f"{want_bytes}")
+        if warm:
+            run_virtual_ranks(lambda r: forward(shards[r]), groups)
+        cuda_backend.reset_launch_counts()
+        outs, secs = timed(lambda: run_virtual_ranks(lambda r: forward(shards[r]), groups))
+        got = {**_launch_counts(), **_tp_launches()}
+        want_n = {k: size * launches.get(k, 0) for k in got}
+        if got != want_n:
+            diff = {k: (got[k], want_n[k]) for k in got if got[k] != want_n[k]}
+            raise AssertionError(f"{label} over {size} virtual tp ranks: launches (counted, "
+                                 f"derived) {diff}")
+        for k in TP_KERNELS:
+            TP_LAUNCHES[k] = TP_LAUNCHES.get(k, 0) + got[k]
+        same = all(torch.equal(o, outs[0]) for o in outs)
+        rel = ((outs[0].float() - want.float()).norm() / want.float().norm()).item()
+        log(f"[tp] {label} over {size} virtual ranks: {secs:.3f} s (all ranks on this card; "
+            f"unsharded {whole_s:.3f} s), relative L2 to the unsharded forward {rel:.3e} "
+            f"(tolerance {tol}), every rank identical {same}; resident GiB "
+            f"per rank {[round(x, 3) for x in gib]} (unsharded {whole_gib:.3f}; every rank's "
+            f"bytes as the name rules give them); launches as derived: "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if not (same and rel <= tol and torch.isfinite(outs[0]).all()):
+            raise AssertionError(f"{label} over {size} virtual tp ranks departs from the "
+                                 f"unsharded forward: {rel}, ranks identical {same}")
+        out[f"tp{size}"] = dict(s=secs, rel_l2=rel, gib_per_rank=gib,
+                                launches={k: v for k, v in got.items() if v})
+        del shards, outs
+        torch.cuda.empty_cache()
+    TP_SUMMARY[label] = out
+    return out
+
+
+def phase_tp(dev) -> dict:
+    """The tp path over virtual ranks on this card (see the section note):
+    the launch counters zeroed before each timed tp forward and read after
+    it (_tp_forwards), every variant launched. Returns {variant: launches},
+    summed over those forwards."""
+    import dataclasses
+
+    import torch
+
+    from fastdm_tpu_torch.engine import wan_capacity_config, wan_sparse_tables
+    from fastdm_tpu_torch.models.flux import FluxConfig, flux_forward, flux_init_random, \
+        flux_rope_cache
+    from fastdm_tpu_torch.models.qwenimage import QwenImageConfig, qwen_forward, \
+        qwen_init_random, qwen_rope_cos_sin
+    from fastdm_tpu_torch.models.sd35 import SD3Config, sd3_forward, sd3_init_random
+    from fastdm_tpu_torch.models.wan import WanConfig, wan_forward, wan_init_random, \
+        wan_rope_cos_sin
+    from fastdm_tpu_torch.parallel.offload import module_bytes, to_device, to_host
+    from fastdm_tpu_torch.parallel.tensor_parallel import shard_copy, virtual_groups
+
+    t_phase = time.perf_counter()
+    TP_LAUNCHES.clear()
+    # FLUX.1-dev at full depth, int8 and int4p with quant_mods, then fp8 and
+    # bf16 (the bf16 row partial) cut
+    cos, sin = flux_rope_cache(FluxConfig(), TXT_TOKENS, FLUX_HT, FLUX_WT, device=dev)
+    cut = dict(num_layers=TP_FLUX_CUT_LAYERS[0], num_single_layers=TP_FLUX_CUT_LAYERS[1])
+    for quant, kw in (("int8", {}), ("int4p", {"quant_mods": True}), ("fp8", cut),
+                      (None, cut)):
+        cfg = FluxConfig(quant=quant, **kw)
+        model = flux_init_random(81, cfg, device=dev)
+        x, encoder, pooled = _conditioning(dev, 82, cfg, IMG_TOKENS)
+        x = x.bfloat16()
+        t = torch.full((1,), 0.75, device=dev)
+        guidance = torch.full((1,), 3.5, device=dev)
+        name = quant or "bf16"
+        depth = f" ({cfg.num_layers} + {cfg.num_single_layers} blocks)" if kw is cut else ""
+        _tp_forwards(f"flux-{name}{depth}", model, cfg,
+                     lambda p, cfg=cfg: flux_forward(p, cfg, x, encoder, pooled, t, cos, sin,
+                                                     guidance),
+                     TP_SIZES if kw is not cut else (2,), TP_FORWARD_REL_L2_TOL[f"flux-{name}"],
+                     tp_rank_launches("flux", cfg), warm=quant == "int8")
+        del model
+        torch.cuda.empty_cache()
+    # Wan2.2-A14B, one int8 expert, super mode, tp 4
+    radial = _radial()
+    lf, lh, lw, tokens = _wan_shape(WAN_FRAMES)
+    capacity = wan_capacity_config(
+        WanConfig(quant="int8", dense_layers=radial.config.dense_layers), tokens, dual=True)
+    wcfg, tables = wan_sparse_tables(radial, capacity, tokens, lf, dev)
+    expert = wan_init_random(2, wcfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(83)
+    lat = torch.randn(1, wcfg.out_channels, lf, lh, lw, generator=g, device=dev)
+    text = torch.randn(1, WAN_TEXT, wcfg.text_dim, generator=g, device=dev,
+                       dtype=torch.bfloat16)
+    wt = torch.full((1,), 900.0, device=dev)
+    wcos, wsin = wan_rope_cos_sin(wcfg, lf, lh, lw, device=dev)
+    _tp_forwards("wan-a14b-int8-super", expert, wcfg,
+                 lambda p: wan_forward(p, wcfg, lat.bfloat16(), wt, text, None, wcos, wsin,
+                                       tables), (4,), TP_FORWARD_REL_L2_TOL["wan"],
+                 tp_rank_launches("wan", wcfg, tokens, "super"), warm=False)
+    # the split-QKV path (the engine's above 60000 tokens: qk_norm_rope2_given),
+    # at 17 frames and TP_SPLIT_QKV_BLOCKS blocks, chunked in eighths as the
+    # engine chunks
+    lf, _, _, short = _wan_shape(WAN_ENGINE_FRAMES)
+    scfg, stables = wan_sparse_tables(radial, dataclasses.replace(
+        capacity, ffn_chunk_tokens=short // 8, split_qkv_proj=True), short, lf, dev)
+    slat = lat[:, :, :lf]
+    scos, ssin = wan_rope_cos_sin(scfg, lf, lh, lw, device=dev)
+    split = first_blocks(expert, "blocks", TP_SPLIT_QKV_BLOCKS)
+    _tp_forwards(f"wan-a14b-int8-super-split-qkv ({WAN_ENGINE_FRAMES} frames, "
+                 f"{len(split.blocks)} blocks)", split, scfg,
+                 lambda p: wan_forward(p, scfg, slat.bfloat16(), wt, text, None, scos, ssin,
+                                       stables), (4,), TP_FORWARD_REL_L2_TOL["wan"],
+                 tp_rank_launches("wan", scfg, short, "super", range(len(split.blocks))),
+                 warm=False)
+    del split
+    # one rank's expert shard the offload way: pinned host memory, then to the card
+    shard = shard_copy(expert, wcfg, virtual_groups(4)[0])
+    del expert
+    torch.cuda.empty_cache()
+    host, pinned = to_host(shard)
+    nbytes = module_bytes(host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = to_device(host, dev)
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t0
+    log(f"[tp] offload: rank 0's A14B expert shard ({nbytes / 2**30:.3f} GiB, "
+        f"{'pinned' if pinned else 'pageable'}) moved to the card in {move_s:.3f} s "
+        f"({nbytes / 2**30 / move_s:.2f} GiB/s)")
+    TP_SUMMARY["offload_shard"] = dict(gib=nbytes / 2**30, s=move_s,
+                                       gib_per_s=nbytes / 2**30 / move_s, pinned=pinned)
+    del shard, host, placed
+    torch.cuda.empty_cache()
+    # Qwen-Image int4p with quant_mods and SD3.5-medium int8, reduced depth, tp 2
+    qcfg = QwenImageConfig(quant="int4p", quant_mods=True, num_layers=TP_QWEN_LAYERS)
+    qwen = qwen_init_random(84, qcfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(85)
+    qx = torch.randn(1, QWEN_HT * QWEN_WT, qcfg.in_channels, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    qe = torch.randn(1, QWEN_TEXT, qcfg.joint_attention_dim, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    qt = torch.full((1,), 0.8, device=dev)
+    qcos, qsin = qwen_rope_cos_sin(qcfg, 1, QWEN_HT, QWEN_WT, QWEN_TEXT, device=dev)
+    _tp_forwards(f"qwen-int4p ({TP_QWEN_LAYERS} blocks)", qwen, qcfg,
+                 lambda p: qwen_forward(p, qcfg, qx, qe, qt, qcos, qsin), (2,),
+                 TP_FORWARD_REL_L2_TOL["qwen"], tp_rank_launches("qwen", qcfg))
+    del qwen
+    scfg = SD3Config(quant="int8", num_layers=TP_SD35_LAYERS, num_dual_layers=TP_SD35_LAYERS // 2)
+    sd3 = sd3_init_random(86, scfg, device=dev)
+    sh, sw = SD35_H // 8, SD35_W // 8
+    sx = torch.randn(SD35_BATCH, scfg.in_channels, sh, sw, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    se = torch.randn(SD35_BATCH, SD35_TEXT, scfg.joint_attention_dim, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    sp = torch.randn(SD35_BATCH, scfg.pooled_projection_dim, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    st = torch.full((SD35_BATCH,), 900.0, device=dev)
+    # a random additive table of the crop's shape (the host's sin-cos table takes seconds)
+    pos = torch.randn(1, (sh // 2) * (sw // 2), scfg.inner_dim, generator=g, device=dev) * 0.1
+    _tp_forwards(f"sd35-int8 ({TP_SD35_LAYERS} blocks)", sd3, scfg,
+                 lambda p: sd3_forward(p, scfg, sx, se, sp, st, pos), (2,),
+                 TP_FORWARD_REL_L2_TOL["sd35"], tp_rank_launches("sd35", scfg))
+    del sd3
+    torch.cuda.empty_cache()
+    launches = dict(TP_LAUNCHES)
+    log(f"[tp] variant launches over the phase's timed tp forwards: {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"the tp forwards launched no {missing}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -7363,6 +7994,7 @@ def main() -> int:
     phase_vision(dev)
     phase_i2v(dev)
     phase_engine(dev, summary)
+    launches.update(phase_tp(dev))
     for name, r in kernels.items():
         r["launches"] = launches[name]
     log(f"[done] {len(kernels)} kernels, all phases in {time.perf_counter() - t0:.1f} s")
@@ -7381,6 +8013,8 @@ def main() -> int:
         f"{FRONTEND_SUMMARY}")
     log(f"[parallel] the log-sum-exp variant, the virtual ring and GPipe, the engine under NCCL "
         f"and offload_inactive_expert (ms, seconds, GiB): {PARALLEL_SUMMARY}")
+    log(f"[tp] the tensor-parallel variants, the virtual-tp forwards, each rank's resident GiB "
+        f"and the offload of a rank's shard (ms, seconds, GiB, GiB/s): {TP_SUMMARY}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

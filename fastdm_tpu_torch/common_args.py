@@ -7,9 +7,9 @@ differently here:
     kernels; "jnp" is refused by `check_engine_args` (the plain PyTorch
     versions serve CPU tensors only).
   * --mesh-shape parses as in JAX and reaches the engine (one process a
-    device under torchrun); `check_engine_args` refuses tp > 1 (not ported
-    yet) and, for the single-process front-ends, any mesh of more than one
-    device.
+    device under torchrun); `check_engine_args` refuses tp > 1 for sdxl
+    (not split yet) and, for the single-process front-ends, any mesh of
+    more than one device.
   * --use-int4 states no device rate in its help text.
 """
 
@@ -51,8 +51,8 @@ def add_engine_args(parser: argparse.ArgumentParser,
     parser.add_argument("--oom-resolve", action="store_true",
                         help="accepted for parity; the text encoders run on the engine's device")
     parser.add_argument("--mesh-shape", type=str, default=None,
-                        help="dp,sp,tp device-mesh shape, e.g. 1,2,4; only a single "
-                             "device (a product of 1) runs in this port")
+                        help="dp,sp,tp[,pp] device-mesh shape, e.g. 1,2,4; a mesh of N "
+                             "devices runs one process a device (torchrun --nproc-per-node N)")
     parser.add_argument("--quant-mods", action="store_true",
                         help="also quantize AdaLN/mod projections")
     parser.add_argument("--snapshot-path", type=str, default=None,
@@ -97,8 +97,8 @@ def parse_mesh_shape(val):
 
 def check_engine_args(args, single_device: Optional[str] = None) -> None:
     """Refuse what the port does not run: --kernel-backend jnp, a mesh with
-    tp > 1, and (for a front-end named by single_device: the API server, the
-    Gradio UI) a mesh of more than one device."""
+    tp > 1 for sdxl, and (for a front-end named by single_device: the API
+    server, the Gradio UI) a mesh of more than one device."""
     if args.kernel_backend == "jnp":
         raise ValueError("--kernel-backend jnp is not available in the PyTorch port: its plain "
                          "PyTorch versions serve CPU tensors only (use --device cpu); auto and "
@@ -106,9 +106,10 @@ def check_engine_args(args, single_device: Optional[str] = None) -> None:
     mesh = parse_mesh_shape(args.mesh_shape)
     if mesh is None:
         return
+    from fastdm_tpu_torch.engine import ARCHITECTURES
     from fastdm_tpu_torch.parallel.mesh import check_no_tp
 
-    check_no_tp(mesh)
+    check_no_tp(mesh, ARCHITECTURES.get(args.architecture))
     n = 1
     for d in mesh:
         n *= d

@@ -54,11 +54,14 @@ __device__ __forceinline__ void promote(float (&acc)[T::kAcc], float (&part)[T::
   for (int i = 0; i < T::kAcc; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
 }
 
+// Out: __nv_bfloat16 (the layer's output) or float (a row-parallel layer's
+// partial sum, no bias).
+template <class Out>
 __global__ void __launch_bounds__(T::kThreads, 1)
 fp8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b, const float* __restrict__ scale_a,
                 const float* __restrict__ scale_b, const __nv_bfloat16* __restrict__ bias,
-                __nv_bfloat16* __restrict__ out, int m, int n, int k) {
+                Out* __restrict__ out, int m, int n, int k) {
   extern __shared__ uint8_t smem_raw[];
   const Ring<T> ring(smem_raw);
   const int tiles_m = (m + T::kBM - 1) / T::kBM, tiles_n = (n + T::kBN - 1) / T::kBN;
@@ -104,8 +107,8 @@ fp8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         promote(acc, part);
       }
     }
-    store_tile<T>([&](int i, int, int) { return acc[i]; }, m0 + row_off, n0, m, n, scale_a,
-                  scale_b, bias, out);
+    store_tile<T, Out>([&](int i, int, int) { return acc[i]; }, m0 + row_off, n0, m, n,
+                       scale_a, scale_b, bias, out);
   }
 }
 
@@ -120,10 +123,24 @@ FDM_EXPORT int fdm_fp8_gemm(const void* a, const void* b, const void* scale_a,
                             long long lda, long long ldb, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   static std::atomic<int> setup[kMaxDevices];
-  return launch<T>(fp8_gemm_kernel, setup, a, b, m, n, k, lda, ldb,
+  return launch<T>(fp8_gemm_kernel<__nv_bfloat16>, setup, a, b, m, n, k, lda, ldb,
                    static_cast<cudaStream_t>(stream), static_cast<const float*>(scale_a),
                    static_cast<const float*>(scale_b), static_cast<const __nv_bfloat16*>(bias),
                    static_cast<__nv_bfloat16*>(out));
+}
+
+// The row-parallel partial: out = (a.b) * (scale_a[m] * scale_b[n]) in f32,
+// unrounded and without a bias (the sum over the tp group takes the bias
+// once); out: contiguous f32 (m, n), the rest as fdm_fp8_gemm.
+FDM_EXPORT int fdm_fp8_gemm_f32(const void* a, const void* b, const void* scale_a,
+                                const void* scale_b, void* out, int m, int n, int k,
+                                long long lda, long long ldb, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  static std::atomic<int> setup[kMaxDevices];
+  return launch<T>(fp8_gemm_kernel<float>, setup, a, b, m, n, k, lda, ldb,
+                   static_cast<cudaStream_t>(stream), static_cast<const float*>(scale_a),
+                   static_cast<const float*>(scale_b),
+                   static_cast<const __nv_bfloat16*>(nullptr), static_cast<float*>(out));
 }
 
 // Dynamic shared memory of one block, bytes.

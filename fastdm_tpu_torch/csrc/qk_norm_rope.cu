@@ -61,6 +61,12 @@
 //   head_dim, 4-byte aligned rows): 256 threads, 4-byte pairs, pass 1
 //   reducing both sums and pass 2 re-reading the row (half-split: one pair of
 //   two scalar elements half a head apart per thread and step).
+//
+// Under tensor parallelism a rank holds H/tp of the heads, and the norm still
+// spans all H: fdm_qk_norm_rope_given_bf16 takes each token's q and k sums of
+// squares (csrc/rmsnorm.cu fdm_rms_sumsq_bf16 over the local heads, summed
+// over the tp group) and the whole width, and runs the tail path's pass 2
+// with them. A simple kernel: its speed is later work.
 #include "bf16_rows.cuh"
 
 namespace {
@@ -331,6 +337,56 @@ qk_norm_rope_row_kernel(const Rows rows, const void* __restrict__ gq, const void
   }
 }
 
+// ----------------------------------------------------------- given statistics
+
+// The tail path's pass 2 with each token's (q, k) sums of squares over the
+// whole width n_total read from sumsq (2 floats a token).
+template <int G, bool kNeox>
+__global__ void __launch_bounds__(kRowThreads)
+qk_norm_rope_given_kernel(const Rows rows, const void* __restrict__ gq,
+                          const void* __restrict__ gk, const float* __restrict__ cos_t,
+                          const float* __restrict__ sin_t, const float* __restrict__ sumsq,
+                          float n_total, __nv_bfloat16* __restrict__ qo,
+                          __nv_bfloat16* __restrict__ ko, int head_dim, float eps) {
+  const int token = blockIdx.x;  // b * seq + s
+  const int s = token % rows.seq, dim = rows.dim;
+  const __nv_bfloat16* qr = rows.q_row(token);
+  const __nv_bfloat16* kr = rows.k_row(token);
+  const float inv_q = 1.0f / sqrtf(sumsq[2 * static_cast<int64_t>(token)] / n_total + eps);
+  const float inv_k = 1.0f / sqrtf(sumsq[2 * static_cast<int64_t>(token) + 1] / n_total + eps);
+  const int half = head_dim / 2;
+  const float* cs = cos_t + static_cast<int64_t>(s) * half;
+  const float* sn = sin_t + static_cast<int64_t>(s) * half;
+  __nv_bfloat16* qd = qo + static_cast<int64_t>(token) * dim;
+  __nv_bfloat16* kd = ko + static_cast<int64_t>(token) * dim;
+  if constexpr (kNeox) {
+    for (int j = threadIdx.x; j < dim / 2; j += kRowThreads) {
+      const int h = j / half, p = j - h * half, c1 = h * head_dim + p;
+      norm_rope_split<G>(qr, qd, gq, inv_q, cs[p], sn[p], c1, c1 + half);
+      norm_rope_split<G>(kr, kd, gk, inv_k, cs[p], sn[p], c1, c1 + half);
+    }
+  } else {
+    for (int c = threadIdx.x * 2; c < dim; c += kRowThreads * 2) {
+      const int p = (c % head_dim) / 2;
+      norm_rope_pair<G>(qr, qd, gq, inv_q, cs[p], sn[p], c);
+      norm_rope_pair<G>(kr, kd, gk, inv_k, cs[p], sn[p], c);
+    }
+  }
+}
+
+template <int G>
+void launch_given(const Rows& r, const void* gq, const void* gk, const float* cs,
+                  const float* sn, const float* ss, float n_total, __nv_bfloat16* qo,
+                  __nv_bfloat16* ko, int tokens, int head_dim, int neox, float eps,
+                  cudaStream_t st) {
+  if (neox)
+    qk_norm_rope_given_kernel<G, true><<<static_cast<unsigned>(tokens), kRowThreads, 0, st>>>(
+        r, gq, gk, cs, sn, ss, n_total, qo, ko, head_dim, eps);
+  else
+    qk_norm_rope_given_kernel<G, false><<<static_cast<unsigned>(tokens), kRowThreads, 0, st>>>(
+        r, gq, gk, cs, sn, ss, n_total, qo, ko, head_dim, eps);
+}
+
 // --------------------------------------------------------------------- launch
 
 bool fast_path(const Rows& r, const void* gq, const void* gk, const void* cos_t,
@@ -421,6 +477,44 @@ FDM_EXPORT int fdm_qk_norm_rope2_bf16(const void* q, const void* k, long long q_
                                       float eps, void* stream) {
   return launch(q, k, q_sb, q_ss, k_sb, k_ss, gq, gk, gamma_kind, cos_t, sin_t, qo, ko, batch,
                 seq, dim, head_dim, neox, eps, stream);
+}
+
+// The two-operand form with given statistics: sumsq f32 (B*S, 2), each
+// token's (q, k) sums of squares over the whole width n_total (this call's
+// rows hold dim of its columns: the rank's heads); otherwise as
+// fdm_qk_norm_rope2_bf16. The fused form passes k = q + dim with q's strides.
+FDM_EXPORT int fdm_qk_norm_rope_given_bf16(const void* q, const void* k, long long q_sb,
+                                           long long q_ss, long long k_sb, long long k_ss,
+                                           const void* gq, const void* gk, int gamma_kind,
+                                           const void* cos_t, const void* sin_t,
+                                           const void* sumsq, float n_total, void* qo, void* ko,
+                                           int batch, int seq, int dim, int head_dim, int neox,
+                                           float eps, void* stream) {
+  if (batch <= 0 || seq <= 0) return 0;
+  if (dim <= 0 || head_dim <= 0 || head_dim % 2 != 0 || dim % head_dim != 0 ||
+      !(n_total >= static_cast<float>(dim)) ||
+      (gamma_kind != kNoGamma) != (gq != nullptr && gk != nullptr) ||
+      gamma_kind < kNoGamma || gamma_kind > kGammaF32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Rows r{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+               q_sb, q_ss, k_sb, k_ss, seq, dim};
+  const float* cs = static_cast<const float*>(cos_t);
+  const float* sn = static_cast<const float*>(sin_t);
+  const float* ss = static_cast<const float*>(sumsq);
+  auto* qd = static_cast<__nv_bfloat16*>(qo);
+  auto* kd = static_cast<__nv_bfloat16*>(ko);
+  const int tokens = batch * seq;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gamma_kind == kGammaBf16)
+    launch_given<kGammaBf16>(r, gq, gk, cs, sn, ss, n_total, qd, kd, tokens, head_dim, neox, eps,
+                             st);
+  else if (gamma_kind == kGammaF32)
+    launch_given<kGammaF32>(r, gq, gk, cs, sn, ss, n_total, qd, kd, tokens, head_dim, neox, eps,
+                            st);
+  else
+    launch_given<kNoGamma>(r, gq, gk, cs, sn, ss, n_total, qd, kd, tokens, head_dim, neox, eps,
+                           st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 FDM_DEFINE_ERROR_STRING(fdm_qk_norm_rope)

@@ -34,6 +34,15 @@
 // pass 2 reads the row again — from L2, it was just read — and writes 8
 // quantized bytes per vector in one 8-byte store. The Pallas version tiled
 // rows in VMEM by a budget (_row_grid); here a row never leaves its block.
+//
+// Row-parallel layers (fastdm_tpu_torch/parallel/tensor_parallel.py) hold a
+// K shard of each activation row, and JAX quantizes the whole row. Two more
+// entries serve them: fdm_quantize_stats writes pass 1's result alone (per
+// row [-min, max] for the asymmetric int8 form, absmax for the symmetric
+// ones: one MAX all-reduce over the tp group makes them the whole row's),
+// and fdm_quantize_rows_given runs pass 2 on such statistics. min and max
+// are exact and order-free, so a rank's q, scale and zp are bit-identical to
+// those the one-device quantizer gives the same columns of the whole row.
 #include "common.cuh"
 
 #include <cuda_fp8.h>
@@ -79,17 +88,11 @@ __device__ __forceinline__ void block_minmax(float& lo, float& hi) {
   }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int64_t x_stride, int k,
-                     uint8_t* __restrict__ q, float* __restrict__ scale_out,
-                     int32_t* __restrict__ zp_out) {
-  const int64_t row = blockIdx.x;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * x_stride);
-  const int n_vec = k / 8;
-
-  // pass 1: min and max of the row (absmax for the symmetric forms)
-  float lo = INFINITY, hi = -INFINITY;
+// Pass 1: the row's min and max (through lo, hi), on every thread.
+__device__ __forceinline__ void row_minmax(const uint4* __restrict__ xr, int n_vec, float& lo,
+                                           float& hi) {
+  lo = INFINITY;
+  hi = -INFINITY;
   for (int i = threadIdx.x; i < n_vec; i += kThreads) {
     float f[8];
     unpack8(xr[i], f);
@@ -100,6 +103,49 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int64_t x_stride, int 
     }
   }
   block_minmax(lo, hi);
+}
+
+// Per-row statistics alone: [-min, max] (two floats a row) or, with
+// absmax_only, max(|min|, |max|) (one float).
+__global__ void __launch_bounds__(kThreads)
+quantize_stats_kernel(const __nv_bfloat16* __restrict__ x, int64_t x_stride, int k,
+                      float* __restrict__ stats, int absmax_only) {
+  const int64_t row = blockIdx.x;
+  float lo, hi;
+  row_minmax(reinterpret_cast<const uint4*>(x + row * x_stride), k / 8, lo, hi);
+  if (threadIdx.x != 0) return;
+  if (absmax_only) {
+    stats[row] = fmaxf(fabsf(lo), fabsf(hi));
+  } else {
+    stats[2 * row] = -lo;
+    stats[2 * row + 1] = hi;
+  }
+}
+
+// GIVEN: the row's statistics come from `stats` (fdm_quantize_stats' layout
+// for MODE, reduced over the row's shards) instead of pass 1.
+template <int MODE, bool GIVEN = false>
+__global__ void __launch_bounds__(kThreads)
+quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int64_t x_stride, int k,
+                     uint8_t* __restrict__ q, float* __restrict__ scale_out,
+                     int32_t* __restrict__ zp_out, const float* __restrict__ stats = nullptr) {
+  const int64_t row = blockIdx.x;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * x_stride);
+  const int n_vec = k / 8;
+
+  // pass 1: min and max of the row (absmax for the symmetric forms)
+  float lo, hi, amax = 0.f;
+  if (GIVEN) {
+    if (MODE == kInt8Asym) {
+      lo = -stats[2 * row];
+      hi = stats[2 * row + 1];
+    } else {
+      amax = stats[row];
+    }
+  } else {
+    row_minmax(xr, n_vec, lo, hi);
+    if (MODE != kInt8Asym) amax = fmaxf(fabsf(lo), fabsf(hi));
+  }
 
   float scale;
   float zpf = 0.f;
@@ -109,7 +155,6 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int64_t x_stride, int 
     zpf = __int2float_rn(zp);
     if (threadIdx.x == 0) zp_out[row] = zp;
   } else {
-    const float amax = fmaxf(fabsf(lo), fabsf(hi));
     scale = __fdiv_rn(fmaxf(amax, kEpsScale),
                       MODE == kFp8 ? kFp8Max : MODE == kInt4 ? 7.f : 127.f);
   }
@@ -145,32 +190,69 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int64_t x_stride, int 
 // k a multiple of 8. q: contiguous (m, k) bytes (int8, e4m3 or int4 carriers);
 // scale: f32 (m,); zp: int32 (m,), written only by the asymmetric int8 form
 // (mode 1). mode: 0 int8 symmetric, 1 int8 asymmetric, 2 fp8 e4m3, 3 int4.
-FDM_EXPORT int fdm_quantize_rows(const void* x, long long x_stride, long long m, int k,
-                                 void* q, void* scale, void* zp, int mode, void* stream) {
+namespace {
+
+template <bool GIVEN>
+int launch_rows(const void* x, long long x_stride, long long m, int k, void* q, void* scale,
+                void* zp, const void* stats, int mode, void* stream) {
   if (m <= 0) return 0;
-  if (k <= 0 || k % 8 != 0 || m > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (k <= 0 || k % 8 != 0 || m > 0x7fffffffLL || (GIVEN && stats == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* qp = static_cast<uint8_t*>(q);
   auto* sp = static_cast<float*>(scale);
   auto* zpp = static_cast<int32_t*>(zp);
+  const auto* stp = static_cast<const float*>(stats);
   const dim3 grid(static_cast<unsigned>(m));
   switch (mode) {
     case kInt8Sym:
-      quantize_rows_kernel<kInt8Sym><<<grid, kThreads, 0, st>>>(xp, x_stride, k, qp, sp, zpp);
+      quantize_rows_kernel<kInt8Sym, GIVEN><<<grid, kThreads, 0, st>>>(xp, x_stride, k, qp, sp,
+                                                                       zpp, stp);
       break;
     case kInt8Asym:
-      quantize_rows_kernel<kInt8Asym><<<grid, kThreads, 0, st>>>(xp, x_stride, k, qp, sp, zpp);
+      quantize_rows_kernel<kInt8Asym, GIVEN><<<grid, kThreads, 0, st>>>(xp, x_stride, k, qp, sp,
+                                                                        zpp, stp);
       break;
     case kFp8:
-      quantize_rows_kernel<kFp8><<<grid, kThreads, 0, st>>>(xp, x_stride, k, qp, sp, zpp);
+      quantize_rows_kernel<kFp8, GIVEN><<<grid, kThreads, 0, st>>>(xp, x_stride, k, qp, sp, zpp,
+                                                                   stp);
       break;
     case kInt4:
-      quantize_rows_kernel<kInt4><<<grid, kThreads, 0, st>>>(xp, x_stride, k, qp, sp, zpp);
+      quantize_rows_kernel<kInt4, GIVEN><<<grid, kThreads, 0, st>>>(xp, x_stride, k, qp, sp, zpp,
+                                                                    stp);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+FDM_EXPORT int fdm_quantize_rows(const void* x, long long x_stride, long long m, int k,
+                                 void* q, void* scale, void* zp, int mode, void* stream) {
+  return launch_rows<false>(x, x_stride, m, k, q, scale, zp, nullptr, mode, stream);
+}
+
+// As fdm_quantize_rows, each row's statistics read from stats: f32 (m, 2)
+// [-min, max] for mode 1, f32 (m,) absmax for modes 0, 2 and 3
+// (fdm_quantize_stats' layouts).
+FDM_EXPORT int fdm_quantize_rows_given(const void* x, long long x_stride, long long m, int k,
+                                       const void* stats, void* q, void* scale, void* zp,
+                                       int mode, void* stream) {
+  return launch_rows<true>(x, x_stride, m, k, q, scale, zp, stats, mode, stream);
+}
+
+// Pass 1 alone: stats f32 (m, 2) [-min, max] of each row, or with
+// absmax_only f32 (m,) max |x|; x as for fdm_quantize_rows.
+FDM_EXPORT int fdm_quantize_stats(const void* x, long long x_stride, long long m, int k,
+                                  void* stats, int absmax_only, void* stream) {
+  if (m <= 0) return 0;
+  if (k <= 0 || k % 8 != 0 || m > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  quantize_stats_kernel<<<static_cast<unsigned>(m), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), x_stride, k, static_cast<float*>(stats), absmax_only);
   return static_cast<int>(cudaGetLastError());
 }
 

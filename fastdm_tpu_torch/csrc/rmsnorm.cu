@@ -36,6 +36,13 @@
 //   as these.
 //   Tail (any other even dim, 4-byte aligned rows): one warp per row, 4-byte
 //   pairs, the row read twice (sum of squares, then output).
+//
+// Tensor parallelism (fastdm_tpu_torch/parallel/tensor_parallel.py) cuts
+// Wan's q and k by heads, while its RMSNorm spans every head (width H*D). Two
+// simple entries serve that: fdm_rms_sumsq_bf16 writes each row's f32 sum of
+// squares over the rank's columns (summed over the tp group it is the whole
+// row's), and fdm_rms_norm_given_bf16 normalizes each row with a given sum
+// and the whole row's width. One warp per row, 4-byte pairs, as the tail.
 #include "bf16_rows.cuh"
 
 namespace {
@@ -173,6 +180,43 @@ rms_norm_tail_kernel(const RowsIn in, const void* __restrict__ w, __nv_bfloat16*
   }
 }
 
+// ------------------------------------------------------- given statistics
+
+__global__ void __launch_bounds__(kTailWarps * 32)
+rms_sumsq_kernel(const RowsIn in, float* __restrict__ out, int64_t n_rows, int dim) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kTailWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const __nv_bfloat16* xr = in.row(row);
+  float ss = 0.f;
+  for (int c = lane * 2; c < dim; c += 64) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + c));
+    ss += f.x * f.x + f.y * f.y;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (lane == 0) out[row] = ss;
+}
+
+// y = x / sqrt(sumsq[row] / n_total + eps) * w, n_total the whole row's width.
+template <int G>
+__global__ void __launch_bounds__(kTailWarps * 32)
+rms_norm_given_kernel(const RowsIn in, const void* __restrict__ w,
+                      const float* __restrict__ sumsq, float n_total,
+                      __nv_bfloat16* __restrict__ out, int64_t n_rows, int dim, float eps) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kTailWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const __nv_bfloat16* xr = in.row(row);
+  __nv_bfloat16* yr = out + row * dim;
+  const float inv = 1.0f / sqrtf(sumsq[row] / n_total + eps);
+  for (int c = lane * 2; c < dim; c += 64) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + c));
+    *reinterpret_cast<__nv_bfloat162*>(yr + c) =
+        __floats2bfloat162_rn(times_gamma<G>(f.x * inv, w, c), times_gamma<G>(f.y * inv, w, c + 1));
+  }
+}
+
 // ------------------------------------------------------------------- launch
 
 int log2_ceil(int n) {
@@ -246,6 +290,52 @@ FDM_EXPORT int fdm_rms_norm_bf16(const void* x, const void* w, int gamma_kind, v
   if (gamma_kind == kGammaF32)
     return launch_kind<kGammaF32>(in, w, y, n_rows, dim, eps, path, threads, rows_per_block, st);
   return launch_kind<kNoGamma>(in, w, y, n_rows, dim, eps, path, threads, rows_per_block, st);
+}
+
+// Rows as for fdm_rms_norm_bf16 (dim even, rows and strides 4-byte aligned);
+// out: f32 (n_rows,), each row's sum of squares in f32.
+FDM_EXPORT int fdm_rms_sumsq_bf16(const void* x, long long n_rows, int heads,
+                                  long long token_stride, long long head_stride, int dim,
+                                  void* out, void* stream) {
+  if (n_rows <= 0) return 0;
+  if (dim <= 0 || dim % 2 != 0 || heads <= 0 || !aligned(x, 4) || token_stride % 2 != 0 ||
+      head_stride % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowsIn in{static_cast<const __nv_bfloat16*>(x), token_stride, head_stride, heads};
+  const long long blocks = (n_rows + kTailWarps - 1) / kTailWarps;
+  rms_sumsq_kernel<<<static_cast<unsigned>(blocks), kTailWarps * 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(in, static_cast<float*>(out), n_rows,
+                                                          dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows and w as for fdm_rms_norm_bf16; sumsq: f32 (n_rows,), each row's sum
+// of squares over the whole row of n_total elements (of which x holds dim).
+FDM_EXPORT int fdm_rms_norm_given_bf16(const void* x, const void* w, int gamma_kind,
+                                       const void* sumsq, float n_total, void* out,
+                                       long long n_rows, int heads, long long token_stride,
+                                       long long head_stride, int dim, float eps,
+                                       void* stream) {
+  if (n_rows <= 0) return 0;
+  if (dim <= 0 || dim % 2 != 0 || heads <= 0 || !aligned(x, 4) || token_stride % 2 != 0 ||
+      head_stride % 2 != 0 || !(n_total >= static_cast<float>(dim)) || gamma_kind < kNoGamma ||
+      gamma_kind > kGammaF32 || (gamma_kind != kNoGamma) != (w != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowsIn in{static_cast<const __nv_bfloat16*>(x), token_stride, head_stride, heads};
+  const auto* ss = static_cast<const float*>(sumsq);
+  auto* y = static_cast<__nv_bfloat16*>(out);
+  const unsigned blocks = static_cast<unsigned>((n_rows + kTailWarps - 1) / kTailWarps);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gamma_kind == kGammaBf16)
+    rms_norm_given_kernel<kGammaBf16><<<blocks, kTailWarps * 32, 0, st>>>(in, w, ss, n_total, y,
+                                                                         n_rows, dim, eps);
+  else if (gamma_kind == kGammaF32)
+    rms_norm_given_kernel<kGammaF32><<<blocks, kTailWarps * 32, 0, st>>>(in, w, ss, n_total, y,
+                                                                        n_rows, dim, eps);
+  else
+    rms_norm_given_kernel<kNoGamma><<<blocks, kTailWarps * 32, 0, st>>>(in, w, ss, n_total, y,
+                                                                       n_rows, dim, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 FDM_DEFINE_ERROR_STRING(fdm_rms_norm)

@@ -50,12 +50,15 @@ using namespace fdm_w8a8;
 
 using T = Tile<3, 128>;  // 192 x 128: three consumers
 
+// Out: __nv_bfloat16 (the layer's output) or float (a row-parallel layer's
+// partial sum, no bias).
+template <class Out>
 __global__ void __launch_bounds__(T::kThreads, 1)
 w8a8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b, const float* __restrict__ scale_a,
                  const float* __restrict__ scale_b, const int32_t* __restrict__ azp,
                  const int32_t* __restrict__ colsum, const __nv_bfloat16* __restrict__ bias,
-                 __nv_bfloat16* __restrict__ out, int m, int n, int k) {
+                 Out* __restrict__ out, int m, int n, int k) {
   extern __shared__ uint8_t smem_raw[];
   const Ring<T> ring(smem_raw);
   const int tiles_m = (m + T::kBM - 1) / T::kBM, tiles_n = (n + T::kBN - 1) / T::kBN;
@@ -98,7 +101,7 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     wgmma_wait<0>();
     fence_regs(acc);
     if (lead) mbar_arrive(&ring.empty[(it - 1) % T::kStages]);
-    store_tile<T>(
+    store_tile<T, Out>(
         [&](int i, int row, int c) {
           int32_t x = acc[i];
           if (azp != nullptr)  // two's-complement wrap, as the s32 oracle
@@ -124,11 +127,28 @@ FDM_EXPORT int fdm_w8a8_gemm(const void* a, const void* b, const void* scale_a,
                              long long ldb, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   static std::atomic<int> setup[kMaxDevices];
-  return launch<T>(w8a8_gemm_kernel, setup, a, b, m, n, k, lda, ldb,
+  return launch<T>(w8a8_gemm_kernel<__nv_bfloat16>, setup, a, b, m, n, k, lda, ldb,
                    static_cast<cudaStream_t>(stream), static_cast<const float*>(scale_a),
                    static_cast<const float*>(scale_b), static_cast<const int32_t*>(azp),
                    static_cast<const int32_t*>(colsum), static_cast<const __nv_bfloat16*>(bias),
                    static_cast<__nv_bfloat16*>(out));
+}
+
+// The row-parallel partial: out = f32(acc - azp[m] * colsum[n]) * (scale_a[m]
+// * scale_b[n]), stored in f32 without rounding and without a bias (the
+// sum over the tp group takes the bias once); out: contiguous f32 (m, n), the
+// rest as fdm_w8a8_gemm. colsum is the column sum of this rank's K rows of b.
+FDM_EXPORT int fdm_w8a8_gemm_f32(const void* a, const void* b, const void* scale_a,
+                                 const void* scale_b, const void* azp, const void* colsum,
+                                 void* out, int m, int n, int k, long long lda, long long ldb,
+                                 void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  static std::atomic<int> setup[kMaxDevices];
+  return launch<T>(w8a8_gemm_kernel<float>, setup, a, b, m, n, k, lda, ldb,
+                   static_cast<cudaStream_t>(stream), static_cast<const float*>(scale_a),
+                   static_cast<const float*>(scale_b), static_cast<const int32_t*>(azp),
+                   static_cast<const int32_t*>(colsum),
+                   static_cast<const __nv_bfloat16*>(nullptr), static_cast<float*>(out));
 }
 
 // The W4A4 int4 GEMM: out = bf16(f32(a.b) * (scale_a[m] * scale_b[n]) +
@@ -147,6 +167,14 @@ FDM_EXPORT int fdm_w4a4_gemm(const void* a, const void* b, const void* scale_a,
                              int k, long long lda, long long ldb, void* stream) {
   return fdm_w8a8_gemm(a, b, scale_a, scale_b, nullptr, nullptr, bias, out, m, n, k, lda, ldb,
                        stream);
+}
+
+// The W4A4 row-parallel partial: fdm_w8a8_gemm_f32 without the zero point.
+FDM_EXPORT int fdm_w4a4_gemm_f32(const void* a, const void* b, const void* scale_a,
+                                 const void* scale_b, void* out, int m, int n, int k,
+                                 long long lda, long long ldb, void* stream) {
+  return fdm_w8a8_gemm_f32(a, b, scale_a, scale_b, nullptr, nullptr, out, m, n, k, lda, ldb,
+                           stream);
 }
 
 // Dynamic shared memory of one block, bytes.

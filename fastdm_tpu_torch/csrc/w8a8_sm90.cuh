@@ -15,6 +15,8 @@
 // nothing), and the epilogue masks its stores.
 #pragma once
 
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace fdm_w8a8 {
@@ -114,13 +116,15 @@ __device__ __forceinline__ void produce(const Ring<T>& ring, const CUtensorMap* 
 // rounding: value(i, row, col) is accumulator i as f32, then
 // * (scale_a[row] * scale_b[col]), + f32(bias[col]), one rounding to bf16.
 // Accumulator 4j + 2h + e sits at row 16*warp + g + 8h, column 8j + 2t + e of
-// the warpgroup's 64 x kBN tile at (row0, n0).
-template <class T, class Value>
+// the warpgroup's 64 x kBN tile at (row0, n0). Out is __nv_bfloat16, or float
+// for a row-parallel layer's partial sum (stored unrounded; its launchers
+// pass no bias: the bias joins once, after the sum over the tp group).
+template <class T, class Out, class Value>
 __device__ __forceinline__ void store_tile(const Value& value, int row0, int n0, int m, int n,
                                            const float* __restrict__ scale_a,
                                            const float* __restrict__ scale_b,
                                            const __nv_bfloat16* __restrict__ bias,
-                                           __nv_bfloat16* __restrict__ out) {
+                                           Out* __restrict__ out) {
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const bool pair_store = (n % 2) == 0;
@@ -129,7 +133,7 @@ __device__ __forceinline__ void store_tile(const Value& value, int row0, int n0,
     const int row = row0 + warp * 16 + g + h * 8;
     if (row >= m) continue;
     const float sa = scale_a[row];
-    __nv_bfloat16* orow = out + static_cast<int64_t>(row) * n;
+    Out* orow = out + static_cast<int64_t>(row) * n;
 #pragma unroll
     for (int j = 0; j < T::kBN / 8; ++j) {
       const int col = n0 + j * 8 + 2 * t;
@@ -142,7 +146,14 @@ __device__ __forceinline__ void store_tile(const Value& value, int row0, int n0,
         v[e] = f;
       }
       if (col >= n) continue;
-      if (pair_store) {
+      if constexpr (std::is_same_v<Out, float>) {
+        if (pair_store) {
+          *reinterpret_cast<float2*>(orow + col) = make_float2(v[0], v[1]);
+        } else {
+          orow[col] = v[0];
+          if (col + 1 < n) orow[col + 1] = v[1];
+        }
+      } else if (pair_store) {
         *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v[0], v[1]);
       } else {
         orow[col] = __float2bfloat16_rn(v[0]);

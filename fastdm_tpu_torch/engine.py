@@ -276,8 +276,10 @@ def _resize_to_multiple(img: np.ndarray, m: int) -> np.ndarray:
 
 
 class FastDMEngine:
-    # no mesh and both experts resident unless the constructor says otherwise
+    # no mesh, no tp group and both experts resident unless the constructor
+    # says otherwise
     mesh = None
+    tp = None
     _offloaded = False
 
     def __init__(
@@ -301,10 +303,15 @@ class FastDMEngine:
         or (dp, sp, tp, pp) runs the engine over torch.distributed, one
         process a device (parallel/mesh.py): sp > 1 routes dense attention to
         the ring, pp > 1 splits the block stacks into GPipe stages, dp
-        computes replicated; tp > 1 raises NotImplementedError. Every rank
-        returns the same output. offload_inactive_expert keeps both
-        Wan2.2-A14B experts in host memory and moves the active one to the
-        card for its phase (a one-expert model takes it and does nothing)."""
+        computes replicated, tp > 1 splits the denoiser blocks' linears by
+        heads and parts (parallel/tensor_parallel.py: FLUX, SD3.5, Qwen-Image
+        and every Wan name; SDXL and controlnet_path raise
+        NotImplementedError). Every rank returns the same output.
+        offload_inactive_expert keeps both Wan2.2-A14B experts in host memory
+        (under tp, each rank its shard of them) and moves the active one to
+        the card for its phase (a one-expert model takes it and does
+        nothing). snapshot_path under tp or pp reads a snapshot's blocks as
+        the rank keeps them; writing one needs a mesh without tp and pp."""
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"architecture {architecture!r} is not in this slice of the port "
@@ -351,7 +358,7 @@ class FastDMEngine:
         if mesh_shape is not None:
             from fastdm_tpu_torch.parallel.mesh import check_no_tp
 
-            check_no_tp(mesh_shape)
+            check_no_tp(mesh_shape, self.architecture, controlnet_path is not None)
         # the prompt encoder of the family, read at the first prompt; the
         # constructor's max_sequence_length is FLUX's T5 length only
         # (fastdm_tpu/engine.py:107,626), SD3.5 keeps 256 and Wan text_len
@@ -376,10 +383,12 @@ class FastDMEngine:
                     f"pp > 1 is incompatible with cache_algorithm="
                     f"{type(self.cache_config).__name__[:-6].lower()!r} (probe-prefix caches "
                     "bypass the GPipe block routing); use teacache or disable caching")
-            if snapshot_path:
-                raise NotImplementedError(
-                    "snapshot_path with pp > 1: a snapshot holds whole block stacks, a pp rank "
-                    "only its stage's (ROADMAP.md section 1, item 1)")
+        if (mesh_shape is not None and (mesh_shape[2] > 1 or pp > 1) and snapshot_path
+                and not os.path.isfile(os.path.join(snapshot_path, "fastdm_snapshot.json"))):
+            raise NotImplementedError(
+                f"writing a snapshot to {snapshot_path!r} under mesh_shape {tuple(mesh_shape)}: a "
+                "rank holds its tp shard or pp stage only; write it from an engine without tp "
+                "and pp, then read it under any mesh")
         # the quantized snapshot (models/snapshot.py): a snapshot at
         # snapshot_path gives the denoiser modules straight from its files;
         # an empty snapshot_path receives the freshly built ones after init
@@ -416,6 +425,10 @@ class FastDMEngine:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
             self.mesh = init_mesh(mesh_shape, self.device)
+            if self.mesh.axis("tp").size > 1:
+                from fastdm_tpu_torch.parallel.tensor_parallel import DistTPGroup
+
+                self.tp = DistTPGroup(self.mesh.axis("tp"))
         if self.architecture == "wan":
             from fastdm_tpu_torch.caching.config import DiCacheConfig, FBCacheConfig
 
@@ -464,12 +477,15 @@ class FastDMEngine:
 
     # ------------------------------------------------------------ loaders
 
-    def _load_tree(self, name: str, build_fn):
+    def _load_tree(self, name: str, build_fn, depths: Optional[Dict[str, int]] = None):
         """The denoiser module `name` from the snapshot at snapshot_path when
         there is one (checked against this engine's architecture, quant and
         config, then against the checkpoint's weight files), else from
         build_fn, queued for the snapshot when snapshot_path is set
-        (fastdm_tpu/engine.py:337-371)."""
+        (fastdm_tpu/engine.py:337-371). Under tp each block of the snapshot
+        is built on the host, cut to this rank's shard and moved; under pp
+        the blocks of other stages are not read (depths: the pipelined
+        stacks, as _denoiser_source takes them)."""
         from fastdm_tpu_torch.models import snapshot as snap
 
         sp = self.snapshot_path
@@ -494,7 +510,10 @@ class FastDMEngine:
                           f"model_path={self.model_path!r} — delete the snapshot dir if the "
                           "weights differ", flush=True)
                 self._snapshot_manifest = manifest
-            tree = snap.load_tree(sp, name, self._snapshot_manifest, device=self.device)
+            tree = snap.load_tree(sp, name, self._snapshot_manifest, device=self.device,
+                                  place=self._snapshot_place(
+                                      depths,
+                                      self._snapshot_manifest["trees"][name]["class"]))
         else:
             tree = build_fn()
             if sp:
@@ -518,22 +537,63 @@ class FastDMEngine:
             print(f"quantized snapshot written to {dir_path} ({', '.join(sorted(trees))})",
                   flush=True)
 
+    def _stage_blocks(self, depths: Optional[Dict[str, int]]):
+        """This pp rank's {stack prefix: block indices} of the pipelined stacks
+        (`depths`: {stack prefix: depth}, split only when pp divides every
+        one; under TeaCache every stage also holds the first stack's block 0,
+        whose modulation the probe reads), or None: every block."""
+        pp = self.mesh.axis("pp") if self.mesh is not None else None
+        if not depths or pp is None or pp.size <= 1:
+            return None
+        from fastdm_tpu_torch.caching.config import TeaCacheConfig
+        from fastdm_tpu_torch.parallel.pipeline import stage_blocks
+
+        extra = ({next(iter(depths)): (0,)}
+                 if isinstance(self.cache_config, TeaCacheConfig) else None)
+        return stage_blocks(pp.size, pp.rank, depths, extra)
+
     def _denoiser_source(self, subdir: str, depths: Dict[str, int]) -> TensorSource:
         """The TensorSource of a denoiser directory; under a pp mesh it holds
-        this rank's stage of the pipelined stacks (`depths`: {stack prefix:
-        depth}, split only when pp divides every one; under TeaCache every
-        stage also holds the first stack's block 0, whose modulation the
-        probe reads)."""
+        this rank's stage of the pipelined stacks (_stage_blocks), under tp
+        each block's shard as the loader builds it."""
         src = TensorSource.from_path(os.path.join(self.model_path, subdir), self.device)
-        pp = self.mesh.axis("pp") if self.mesh is not None else None
-        if pp is not None and pp.size > 1:
-            from fastdm_tpu_torch.caching.config import TeaCacheConfig
-            from fastdm_tpu_torch.parallel.pipeline import stage_blocks
+        src.stage_blocks = self._stage_blocks(depths)
+        if self.tp is not None:
+            from fastdm_tpu_torch.parallel.tensor_parallel import shard_block
 
-            extra = ({next(iter(depths)): (0,)}
-                     if isinstance(self.cache_config, TeaCacheConfig) else None)
-            src.stage_blocks = stage_blocks(pp.size, pp.rank, depths, extra)
+            src.shard = lambda path, block: shard_block(block, path, self.cfg, self.tp)
         return src
+
+    def _snapshot_place(self, depths: Optional[Dict[str, int]], model_class: str):
+        """The snapshot decoder's hook under tp or pp (models/snapshot.py
+        load_tree's place) for a tree of `model_class` (the manifest's
+        qualified class name), None without either: a block of another stage
+        becomes its placeholder unread; under tp a block is built on the
+        host, cut to this rank's shard, and the shard moved to the card."""
+        stages = self._stage_blocks(depths)
+        if self.tp is None and stages is None:
+            return None
+        from fastdm_tpu_torch.parallel.offload import to_device
+        from fastdm_tpu_torch.parallel.pipeline import StageElsewhere
+        from fastdm_tpu_torch.parallel.tensor_parallel import BLOCK_STACKS, shard_block
+
+        stacks = BLOCK_STACKS[model_class.rpartition(".")[2]]
+
+        def place(path: str, build):
+            name, _, index = path.partition("/")
+            # a block: a stack's child ("blocks/3") or SD3.5's "last_block"
+            if name not in stacks or "/" in index or (not index and name != "last_block"):
+                return None
+            prefix = stacks[name]
+            if stages is not None and prefix in stages and int(index) not in stages[prefix]:
+                return StageElsewhere(prefix, int(index))
+            if self.tp is None:
+                return None
+            block = shard_block(build(torch.device("cpu")), path.replace("/", "."), self.cfg,
+                                self.tp)
+            return to_device(block, self.device)
+
+        return place
 
     def _cfg_overrides(self, subdir: str, keys, transforms=None) -> Dict[str, Any]:
         """Model hyperparameters from the checkpoint's config.json, when present."""
@@ -560,7 +620,7 @@ class FastDMEngine:
         depths = {"transformer_blocks": self.cfg.num_layers,
                   "single_transformer_blocks": self.cfg.num_single_layers}
         self.params = self._load_tree("transformer", lambda: flux_load(
-            self._denoiser_source("transformer", depths), self.cfg))
+            self._denoiser_source("transformer", depths), self.cfg), depths)
         self._load_vae()
         self.text_encoder = FluxTextEncoder(self.model_path, self.max_sequence_length,
                                             self.device)
@@ -697,8 +757,8 @@ class FastDMEngine:
              "caption_projection_dim", "pooled_projection_dim", "pos_embed_max_size"),
             {"dual_attention_layers": lambda v: {"num_dual_layers": len(v)}})
         self.cfg = SD3Config(quant=self.quant, **kw)
-        self.params = self._load_tree("transformer", lambda: sd3_load(TensorSource.from_path(
-            os.path.join(self.model_path, "transformer"), self.device), self.cfg))
+        self.params = self._load_tree("transformer", lambda: sd3_load(
+            self._denoiser_source("transformer", {}), self.cfg))
         self._load_vae()
         self.text_encoder = SD3TextEncoder(self.model_path, device=self.device)
 
@@ -711,9 +771,9 @@ class FastDMEngine:
              "num_attention_heads", "joint_attention_dim"),
             {"axes_dims_rope": lambda v: {"axes_dims_rope": tuple(v)}})
         self.cfg = QwenImageConfig(quant=self.quant, quant_mods=self.quant_mods, **kw)
+        depths = {"transformer_blocks": self.cfg.num_layers}
         self.params = self._load_tree("transformer", lambda: qwen_load(
-            self._denoiser_source("transformer", {"transformer_blocks": self.cfg.num_layers}),
-            self.cfg))
+            self._denoiser_source("transformer", depths), self.cfg), depths)
         self._load_vae()
         # Qwen2.5-VL at its 1024-token default (fastdm_tpu/engine.py:674)
         self.text_encoder = QwenImageTextEncoder(self.model_path, device=self.device)
@@ -767,7 +827,7 @@ class FastDMEngine:
         from fastdm_tpu_torch.models.wan import wan_load
 
         tree = self._load_tree(subdir, lambda: wan_load(self._denoiser_source(subdir, depths),
-                                                        self.cfg))
+                                                        self.cfg), depths)
         if not self._offloaded:
             return tree
         from fastdm_tpu_torch.parallel.offload import module_bytes, to_host

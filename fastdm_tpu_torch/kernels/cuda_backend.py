@@ -76,6 +76,33 @@ def _strides(t: Tensor, dims) -> Tuple[int, ...]:
 
 # ---------------------------------------------------------------- rmsnorm
 
+def _rows3(x: Tensor, kernel: str) -> Tuple[Tensor, int, int, int]:
+    """x (..., heads, dim) as csrc/rmsnorm.cu's rows: (the (tokens, heads,
+    dim) view, heads, token stride, head stride), 4-byte aligned. A view
+    whenever the leading dims collapse: the kernels read rows at any token
+    and head stride (a per-head view of a fused QKV output, a column slice
+    of a wider row) in place."""
+    dim = x.shape[-1]
+    _require(dim % 2 == 0, kernel, f"last dim {dim} must be even")
+    heads = x.shape[-2] if x.dim() >= 2 else 1
+    x3 = x.reshape(-1, heads, dim)
+    token_stride, head_stride = _strides(x3, (0, 1))
+    _require(token_stride % 2 == 0 and head_stride % 2 == 0 and x3.data_ptr() % 4 == 0, kernel,
+             "rows must be 4-byte aligned")
+    return x3, heads, token_stride, head_stride
+
+
+def _gamma(weight: Optional[Tensor], dim: int, kernel: str, dev) -> Tuple[Optional[Tensor], int]:
+    if weight is None:
+        return None, 0
+    _require(weight.numel() == dim and weight.device == dev, kernel,
+             f"weight must be ({dim},) on {dev}")
+    _require(weight.dtype in _GAMMA_KINDS, kernel,
+             f"weight must be bfloat16 or float32, got {weight.dtype}")
+    return weight.reshape(dim).contiguous(), _GAMMA_KINDS[weight.dtype]
+
+
+
 # csrc/rmsnorm.cu's paths
 RMS_HEAD_ROWS, RMS_WIDE_ROWS, RMS_TAIL = 0, 1, 2
 RMS_HEAD_ROWS_PER_BLOCK = 64  # at most; whole tokens where a token has fewer rows
@@ -107,22 +134,8 @@ def rms_norm_cuda(x: Tensor, weight: Optional[Tensor], eps: float) -> Tensor:
     dev = x.device
     _check_tensor(x, kernel, "x", dev)
     dim = x.shape[-1]
-    _require(dim % 2 == 0, kernel, f"last dim {dim} must be even")
-    heads = x.shape[-2] if x.dim() >= 2 else 1
-    # (tokens, heads, dim): a view whenever the leading dims collapse; the
-    # kernel reads rows at any token and head stride (a per-head view of a
-    # fused QKV output, a column slice of a wider row) in place
-    x3 = x.reshape(-1, heads, dim)
-    token_stride, head_stride = _strides(x3, (0, 1))
-    _require(token_stride % 2 == 0 and head_stride % 2 == 0 and x3.data_ptr() % 4 == 0, kernel,
-             "rows must be 4-byte aligned")
-    w, gamma_kind = None, 0
-    if weight is not None:
-        _require(weight.numel() == dim and weight.device == dev, kernel,
-                 f"weight must be ({dim},) on {dev}")
-        _require(weight.dtype in _GAMMA_KINDS, kernel,
-                 f"weight must be bfloat16 or float32, got {weight.dtype}")
-        w, gamma_kind = weight.reshape(dim).contiguous(), _GAMMA_KINDS[weight.dtype]
+    x3, heads, token_stride, head_stride = _rows3(x, kernel)
+    w, gamma_kind = _gamma(weight, dim, kernel, dev)
     out = torch.empty(x.shape, dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
@@ -542,6 +555,18 @@ sparse_attention_cuda.launches = 0
 
 # -------------------------------------------------------------- quantize
 
+def _check_rows(x: Tensor, kernel: str) -> Tuple[int, int]:
+    """The quantizers' checks on a 2D bf16 x -> (M, K)."""
+    dev = x.device
+    _check_tensor(x, kernel, "x", dev)
+    _require(x.dim() == 2, kernel, f"x must be 2D (M, K), got {tuple(x.shape)}")
+    m, k = x.shape
+    _require(k > 0 and k % 8 == 0, kernel, f"K = {k} must be a positive multiple of 8")
+    _require(x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0, kernel,
+             "x rows must be 16-byte aligned")
+    return m, k
+
+
 _QUANT_MODES = {"int8_sym": 0, "int8_asym": 1, "fp8": 2, "int4": 3}
 
 
@@ -550,12 +575,7 @@ def _quantize_rows(x: Tensor, kernel: str, mode: str,
     """Launch the per-row quantizer on a 2D bf16 x: (q, scale (M,1), zp (M,1) | None);
     counts the launch on `wrapper`."""
     dev = x.device
-    _check_tensor(x, kernel, "x", dev)
-    _require(x.dim() == 2, kernel, f"x must be 2D (M, K), got {tuple(x.shape)}")
-    m, k = x.shape
-    _require(k > 0 and k % 8 == 0, kernel, f"K = {k} must be a positive multiple of 8")
-    _require(x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0, kernel,
-             "x rows must be 16-byte aligned")
+    m, k = _check_rows(x, kernel)
     q = torch.empty(m, k, dtype=torch.float8_e4m3fn if mode == "fp8" else torch.int8, device=dev)
     scale = torch.empty(m, 1, dtype=torch.float32, device=dev)
     zp = torch.empty(m, 1, dtype=torch.int32, device=dev) if mode == "int8_asym" else None
@@ -610,23 +630,29 @@ def _check_vector(t: Optional[Tensor], kernel: str, name: str, n: int, dtype,
                      f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _w8a8_entry(op_dtype: torch.dtype, int4: bool = False):
+def _w8a8_entry(op_dtype: torch.dtype, int4: bool = False, f32: bool = False):
     """(library, C launcher) of the GEMM for 8-bit operands of op_dtype:
     fp8_gemm.cu for e4m3, w8a8_gemm.cu (which also takes the zero point) for
     int8, and its zero-point-free W4A4 entry for int4 values in int8 carriers;
-    all wgmma + TMA kernels."""
+    all wgmma + TMA kernels. f32: the entry of the f32 partial, which takes
+    no bias."""
+    tail = [_I] * 3 + [_L] * 2 + [_P]
+    nb = 0 if f32 else 1  # the bias pointer
+    suffix = "_f32" if f32 else ""
     if op_dtype == torch.float8_e4m3fn:
-        return _entry("fp8_gemm", "fdm_fp8_gemm", [_P] * 6 + [_I] * 3 + [_L] * 2 + [_P])
+        return _entry("fp8_gemm", "fdm_fp8_gemm" + suffix, [_P] * (5 + nb) + tail)
     if int4:
-        return _entry("w8a8_gemm", "fdm_w4a4_gemm", [_P] * 6 + [_I] * 3 + [_L] * 2 + [_P])
-    return _entry("w8a8_gemm", "fdm_w8a8_gemm", [_P] * 8 + [_I] * 3 + [_L] * 2 + [_P])
+        return _entry("w8a8_gemm", "fdm_w4a4_gemm" + suffix, [_P] * (5 + nb) + tail)
+    return _entry("w8a8_gemm", "fdm_w8a8_gemm" + suffix, [_P] * (7 + nb) + tail)
 
 
 def _w8a8_gemm(kernel: str, wrapper, a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor,
                out_dtype, azp_adj: Optional[Tensor], azp: Optional[Tensor],
-               bias: Optional[Tensor], fp8: bool, int4: bool = False) -> Tensor:
+               bias: Optional[Tensor], fp8: bool, int4: bool = False,
+               partial: bool = False) -> Tensor:
     """Checks, then one launch of the W8A8 (or W4A4: int4=True, no zero
-    point) GEMM, counted on `wrapper`."""
+    point) GEMM, counted on `wrapper`. partial: a row-parallel rank's f32
+    partial (the *_matmul_partial ops), no bias."""
     contracts.check_scaled_mm(kernel, a, b, scale_a, scale_b, azp_adj=azp_adj, azp=azp,
                               bias=bias, int8=not fp8)
     dev = a.device
@@ -636,7 +662,12 @@ def _w8a8_gemm(kernel: str, wrapper, a: Tensor, b: Tensor, scale_a: Tensor, scal
     _require(a.is_cuda and b.device == dev, kernel, "a and b must lie on one CUDA device")
     _require(a.dtype == op_dtype and b.dtype == op_dtype, kernel,
              f"a/b must be {op_dtype}, got {a.dtype}/{b.dtype}")
-    _require(out_dtype == torch.bfloat16, kernel, f"out_dtype must be bfloat16, got {out_dtype}")
+    if partial:
+        _require(out_dtype == torch.float32 and bias is None, kernel,
+                 f"a partial is float32 without a bias, got {out_dtype}")
+    else:
+        _require(out_dtype == torch.bfloat16, kernel,
+                 f"out_dtype must be bfloat16, got {out_dtype}")
     _require(k > 0 and k % 16 == 0, kernel, f"K = {k} must be a positive multiple of 16")
     _require(a.stride(1) == 1 and a.stride(0) % 16 == 0 and a.data_ptr() % 16 == 0, kernel,
              "a must be K-contiguous with 16-byte aligned rows")
@@ -649,16 +680,17 @@ def _w8a8_gemm(kernel: str, wrapper, a: Tensor, b: Tensor, scale_a: Tensor, scal
     if azp is not None:
         _check_vector(azp_adj, kernel, "azp_adj", n, torch.int32, dev)
     _check_vector(bias, kernel, "bias", n, torch.bfloat16, dev)
-    out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+    f32 = out_dtype == torch.float32
+    out = torch.empty(m, n, dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    lib, fn = _w8a8_entry(op_dtype, int4)
+    lib, fn = _w8a8_entry(op_dtype, int4, f32)
     zero_point = () if fp8 or int4 else (azp.data_ptr() if azp is not None else None,
                                          azp_adj.data_ptr() if azp is not None else None)
+    bias_arg = () if f32 else (bias.data_ptr() if bias is not None else None,)
     with torch.cuda.device(dev):
         code = fn(a.data_ptr(), b.data_ptr(), scale_a.data_ptr(), scale_b.data_ptr(), *zero_point,
-                  bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                  m, n, k, a.stride(0), b.stride(1), _stream(dev))
+                  *bias_arg, out.data_ptr(), m, n, k, a.stride(0), b.stride(1), _stream(dev))
     _check_launch(lib, "fdm_fp8_gemm" if fp8 else "fdm_w8a8_gemm", code, kernel)
     wrapper.launches += 1
     return out
@@ -727,13 +759,264 @@ def unpack_int4_cuda(p: Tensor) -> Tensor:
 
 unpack_int4_cuda.launches = 0
 
+# ------------------------------------------------------ tensor parallelism
+#
+# The row-parallel and across-heads variants (parallel/tensor_parallel.py):
+# new modes of the quantizer (csrc/quant.cu), the GEMMs' f32 epilogue
+# (csrc/w8a8_gemm.cu, csrc/fp8_gemm.cu) and the norms (csrc/rmsnorm.cu,
+# csrc/qk_norm_rope.cu), each wrapper counting its own launches.
+
+
+@kernel_registry.register("rms_sumsq", "cuda")
+def rms_sumsq_cuda(x: Tensor) -> Tensor:
+    kernel = "rms_sumsq"
+    dev = x.device
+    _check_tensor(x, kernel, "x", dev)
+    x3, heads, ts, hs = _rows3(x, kernel)
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib, fn = _entry("rmsnorm", "fdm_rms_sumsq_bf16", [_P, _L, _I, _L, _L, _I, _P, _P])
+    with torch.cuda.device(dev):
+        code = fn(x3.data_ptr(), x3.shape[0] * heads, heads, ts, hs, x.shape[-1],
+                  out.data_ptr(), _stream(dev))
+    _check_launch(lib, "fdm_rms_norm", code, kernel)
+    rms_sumsq_cuda.launches += 1
+    return out
+
+
+rms_sumsq_cuda.launches = 0
+
+
+def _check_sumsq(sumsq: Tensor, shape, kernel: str, dev) -> Tensor:
+    _require(sumsq.device == dev and sumsq.dtype == torch.float32
+             and tuple(sumsq.shape) == tuple(shape), kernel,
+             f"sumsq must be float32 {tuple(shape)} on {dev}, got {sumsq.dtype} "
+             f"{tuple(sumsq.shape)}")
+    return sumsq.contiguous()
+
+
+@kernel_registry.register("rmsnorm_given", "cuda")
+def rms_norm_given_cuda(x: Tensor, weight: Optional[Tensor], sumsq: Tensor, n_total: int,
+                        eps: float) -> Tensor:
+    kernel = "rmsnorm_given"
+    dev = x.device
+    _check_tensor(x, kernel, "x", dev)
+    dim = x.shape[-1]
+    _require(n_total >= dim, kernel, f"n_total {n_total} < the rows' width {dim}")
+    x3, heads, ts, hs = _rows3(x, kernel)
+    ss = _check_sumsq(sumsq, x.shape[:-1], kernel, dev)
+    w, gamma_kind = _gamma(weight, dim, kernel, dev)
+    out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    lib, fn = _entry("rmsnorm", "fdm_rms_norm_given_bf16",
+                     [_P, _P, _I, _P, _F, _P, _L, _I, _L, _L, _I, _F, _P])
+    with torch.cuda.device(dev):
+        code = fn(x3.data_ptr(), w.data_ptr() if w is not None else None, gamma_kind,
+                  ss.data_ptr(), float(n_total), out.data_ptr(), x3.shape[0] * heads, heads, ts,
+                  hs, dim, float(eps), _stream(dev))
+    _check_launch(lib, "fdm_rms_norm", code, kernel)
+    rms_norm_given_cuda.launches += 1
+    return out
+
+
+rms_norm_given_cuda.launches = 0
+
+
+def _qk_given_launch(wrapper, q: Tensor, k: Tensor, strides, d: int, gamma_q, gamma_k,
+                     head_size: int, cos: Tensor, sin: Tensor, sumsq: Tensor, n_total: int,
+                     is_neox: bool, eps: float) -> Tuple[Tensor, Tensor]:
+    kernel = wrapper.__name__[:-len("_cuda")]
+    dev = q.device
+    for name, t in (("q", q), ("k", k)):
+        _check_tensor(t, kernel, name, dev)
+        _require(t.dim() == 3 and t.shape[:2] == q.shape[:2], kernel,
+                 f"{name} must be (B, S, W) with q's (B, S), got {tuple(t.shape)}")
+        _require(t.data_ptr() % 4 == 0 and t.stride(0) % 2 == 0 and t.stride(1) % 2 == 0,
+                 kernel, f"{name} rows must be 4-byte aligned")
+    b, s = q.shape[:2]
+    _require(head_size % 2 == 0 and d % head_size == 0, kernel,
+             f"width {d} must be a multiple of an even head_size {head_size}")
+    _require(n_total >= d, kernel, f"n_total {n_total} < the rows' width {d}")
+    half = head_size // 2
+    cos = cos.to(device=dev, dtype=torch.float32).contiguous()
+    sin = sin.to(device=dev, dtype=torch.float32).contiguous()
+    _require(tuple(cos.shape) == (s, half) and tuple(sin.shape) == (s, half), kernel,
+             f"cos/sin must be ({s}, {half})")
+    _require((gamma_q is None) == (gamma_k is None), kernel, "gamma_q/gamma_k: both or neither")
+    gq, kind_q = _gamma(gamma_q, d, kernel, dev)
+    gk, kind_k = _gamma(gamma_k, d, kernel, dev)
+    _require(kind_q == kind_k, kernel, "gamma_q/gamma_k must share a dtype")
+    ss = _check_sumsq(sumsq, (b, s, 2), kernel, dev)
+    qo = torch.empty(b, s, d, dtype=q.dtype, device=dev)
+    ko = torch.empty(b, s, d, dtype=q.dtype, device=dev)
+    if b * s == 0:
+        return qo, ko
+    lib, fn = _entry("qk_norm_rope", "fdm_qk_norm_rope_given_bf16",
+                     [_P, _P, _L, _L, _L, _L, _P, _P, _I, _P, _P, _P, _F, _P, _P]
+                     + [_I] * 5 + [_F, _P])
+    with torch.cuda.device(dev):
+        code = fn(q.data_ptr(), k.data_ptr(), *strides,
+                  gq.data_ptr() if gq is not None else None,
+                  gk.data_ptr() if gk is not None else None, kind_q, cos.data_ptr(),
+                  sin.data_ptr(), ss.data_ptr(), float(n_total), qo.data_ptr(), ko.data_ptr(),
+                  b, s, d, head_size, int(is_neox), float(eps), _stream(dev))
+    _check_launch(lib, "fdm_qk_norm_rope", code, kernel)
+    wrapper.launches += 1
+    return qo, ko
+
+
+@kernel_registry.register("qk_norm_rope_given", "cuda")
+def qk_norm_rope_given_cuda(
+    qk: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor], head_size: int,
+    cos: Tensor, sin: Tensor, sumsq: Tensor, n_total: int, is_neox: bool = False,
+    eps: float = 1e-6, inner_dim: Optional[int] = None,
+) -> Tuple[Tensor, Tensor]:
+    kernel = "qk_norm_rope_given"
+    _require(qk.dim() == 3, kernel, f"qk must be (B, S, W), got {tuple(qk.shape)}")
+    d = qk.shape[-1] // 2 if inner_dim is None else inner_dim
+    _require(0 < d and 2 * d <= qk.shape[-1] and d % 2 == 0, kernel,
+             f"inner_dim {d} must be even and fit twice in a row of width {qk.shape[-1]}")
+    st = (qk.stride(0), qk.stride(1))
+    return _qk_given_launch(qk_norm_rope_given_cuda, qk[..., :d], qk[..., d:2 * d], st + st, d,
+                            gamma_q, gamma_k, head_size, cos, sin, sumsq, n_total, is_neox, eps)
+
+
+qk_norm_rope_given_cuda.launches = 0
+
+
+@kernel_registry.register("qk_norm_rope2_given", "cuda")
+def qk_norm_rope2_given_cuda(
+    q: Tensor, k: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor],
+    head_size: int, cos: Tensor, sin: Tensor, sumsq: Tensor, n_total: int,
+    is_neox: bool = False, eps: float = 1e-6,
+) -> Tuple[Tensor, Tensor]:
+    _require(q.dim() == 3 and tuple(k.shape) == tuple(q.shape), "qk_norm_rope2_given",
+             f"q and k must be (B, S, D) of one shape, got {tuple(q.shape)}/{tuple(k.shape)}")
+    return _qk_given_launch(qk_norm_rope2_given_cuda, q, k,
+                            (q.stride(0), q.stride(1), k.stride(0), k.stride(1)), q.shape[2],
+                            gamma_q, gamma_k, head_size, cos, sin, sumsq, n_total, is_neox, eps)
+
+
+qk_norm_rope2_given_cuda.launches = 0
+
+
+@kernel_registry.register("quantize_stats", "cuda")
+def quantize_stats_cuda(x: Tensor, symmetric: bool = True) -> Tensor:
+    kernel = "quantize_stats"
+    m, k = _check_rows(x, kernel)
+    stats = torch.empty(m, 1 if symmetric else 2, dtype=torch.float32, device=x.device)
+    if m == 0:
+        return stats
+    lib, fn = _entry("quant", "fdm_quantize_stats", [_P, _L, _L, _I, _P, _I, _P])
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), x.stride(0), m, k, stats.data_ptr(), int(symmetric),
+                  _stream(x.device))
+    _check_launch(lib, "fdm_quantize", code, kernel)
+    quantize_stats_cuda.launches += 1
+    return stats
+
+
+quantize_stats_cuda.launches = 0
+
+
+def _quantize_given(x: Tensor, stats: Tensor, kernel: str, mode: str,
+                    wrapper) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """The quantizer's pass 2 on given row statistics (quantize_stats'
+    layout for `mode`), counted on `wrapper`."""
+    dev = x.device
+    m, k = _check_rows(x, kernel)
+    width = 2 if mode == "int8_asym" else 1
+    _require(stats.device == dev and stats.dtype == torch.float32
+             and tuple(stats.shape) == (m, width), kernel,
+             f"stats must be float32 ({m}, {width}) on {dev}, got {stats.dtype} "
+             f"{tuple(stats.shape)}")
+    stats = stats.contiguous()
+    q = torch.empty(m, k, dtype=torch.float8_e4m3fn if mode == "fp8" else torch.int8, device=dev)
+    scale = torch.empty(m, 1, dtype=torch.float32, device=dev)
+    zp = torch.empty(m, 1, dtype=torch.int32, device=dev) if mode == "int8_asym" else None
+    if m == 0:
+        return q, scale, zp
+    lib, fn = _entry("quant", "fdm_quantize_rows_given", [_P, _L, _L, _I, _P, _P, _P, _P, _I, _P])
+    with torch.cuda.device(dev):
+        code = fn(x.data_ptr(), x.stride(0), m, k, stats.data_ptr(), q.data_ptr(),
+                  scale.data_ptr(), zp.data_ptr() if zp is not None else None,
+                  _QUANT_MODES[mode], _stream(dev))
+    _check_launch(lib, "fdm_quantize", code, kernel)
+    wrapper.launches += 1
+    return q, scale, zp
+
+
+@kernel_registry.register("quantize_to_int8_given", "cuda")
+def quantize_to_int8_given_cuda(x: Tensor, stats: Tensor, symmetric: bool = True
+                                ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    return _quantize_given(x, stats, "quantize_to_int8_given",
+                           "int8_sym" if symmetric else "int8_asym", quantize_to_int8_given_cuda)
+
+
+quantize_to_int8_given_cuda.launches = 0
+
+
+@kernel_registry.register("quantize_to_fp8_given", "cuda")
+def quantize_to_fp8_given_cuda(x: Tensor, stats: Tensor) -> Tuple[Tensor, Tensor]:
+    q, scale, _ = _quantize_given(x, stats, "quantize_to_fp8_given", "fp8",
+                                  quantize_to_fp8_given_cuda)
+    return q, scale
+
+
+quantize_to_fp8_given_cuda.launches = 0
+
+
+@kernel_registry.register("quantize_to_int4_given", "cuda")
+def quantize_to_int4_given_cuda(x: Tensor, stats: Tensor) -> Tuple[Tensor, Tensor]:
+    q, scale, _ = _quantize_given(x, stats, "quantize_to_int4_given", "int4",
+                                  quantize_to_int4_given_cuda)
+    return q, scale
+
+
+quantize_to_int4_given_cuda.launches = 0
+
+
+@kernel_registry.register("int8_matmul_partial", "cuda")
+def int8_matmul_partial_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor,
+                             azp_adj: Tensor, azp: Optional[Tensor]) -> Tensor:
+    return _w8a8_gemm("int8_matmul_partial", int8_matmul_partial_cuda, a, b, scale_a, scale_b,
+                      torch.float32, azp_adj, azp, None, fp8=False, partial=True)
+
+
+int8_matmul_partial_cuda.launches = 0
+
+
+@kernel_registry.register("fp8_matmul_partial", "cuda")
+def fp8_matmul_partial_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor) -> Tensor:
+    return _w8a8_gemm("fp8_matmul_partial", fp8_matmul_partial_cuda, a, b, scale_a, scale_b,
+                      torch.float32, None, None, None, fp8=True, partial=True)
+
+
+fp8_matmul_partial_cuda.launches = 0
+
+
+@kernel_registry.register("int4_matmul_partial", "cuda")
+def int4_matmul_partial_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor) -> Tensor:
+    return _w8a8_gemm("int4_matmul_partial", int4_matmul_partial_cuda, a, b, scale_a, scale_b,
+                      torch.float32, None, None, None, fp8=False, int4=True, partial=True)
+
+
+int4_matmul_partial_cuda.launches = 0
+
+TP_WRAPPERS = (rms_sumsq_cuda, rms_norm_given_cuda, qk_norm_rope_given_cuda,
+               qk_norm_rope2_given_cuda, quantize_stats_cuda, quantize_to_int8_given_cuda,
+               quantize_to_fp8_given_cuda, quantize_to_int4_given_cuda, int8_matmul_partial_cuda,
+               fp8_matmul_partial_cuda, int4_matmul_partial_cuda)
+
 KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, qk_norm_rope_cuda,
                    qk_norm_rope2_cuda, gelu_and_mul_cuda, sdpa_cuda, sdpa_lse_cuda,
                    gather_super_attention_cuda,
                    gather_fine_attention_cuda, gather_sparse_attention_cuda,
                    sparse_attention_cuda, quantize_to_int8_cuda, quantize_to_fp8_cuda,
                    int8_matmul_cuda, fp8_matmul_cuda, quantize_to_int4_cuda, int4_matmul_cuda,
-                   unpack_int4_cuda)
+                   unpack_int4_cuda) + TP_WRAPPERS
 
 
 def reset_launch_counts() -> None:

@@ -4,6 +4,11 @@ sparse-attention contracts of fastdm_tpu/kernels/ops.py:29-338), and
 unpack_int4, the int4p weight unpack (fastdm_tpu/layers/qlinear.py:75-83),
 which has a kernel of its own on the card.
 
+The variants of the tensor-parallel path (parallel/tensor_parallel.py) have
+no JAX op of their own (GSPMD partitions the whole-row ops there): the row
+statistics and the given-statistics forms of the quantizers and of the
+across-heads norms, and the f32 partial sums of the W8A8 / W4A4 GEMMs.
+
 Same argument lists and semantics as the JAX ops: RoPE returns new (q, k)
 instead of writing into its inputs, cos/sin are two (S, head_size/2) float32
 tables, attention takes and returns the flattened-head (B, S, H*D) layout,
@@ -230,4 +235,97 @@ def gather_fine_attention(
     block_valid[e]). Segments are padded to a multiple of `group` entries
     (padding: valid 0). A query row with no allowed key returns 0. Tables:
     sparse.xsparse.RadialAttn.block_lists_fine."""
+    raise NotImplementedError
+
+
+# ------------------------------------------------------- tensor parallelism
+
+
+@kernel_registry.dispatch("rms_sumsq")
+def rms_sumsq(x: Tensor) -> Tensor:
+    """Each row's sum of squares over the last dim in float32: x (..., D) ->
+    (...). Rows may be strided views (the q|k columns of a fused projection
+    as (B, S, 2, D)). Summed over the tp group, the whole row's statistic of
+    an RMSNorm across heads."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("rmsnorm_given")
+def rms_norm_given(x: Tensor, weight: Optional[Tensor], sumsq: Tensor, n_total: int,
+                   eps: float) -> Tensor:
+    """rms_norm with each row's statistic given: y = x / sqrt(sumsq / n_total +
+    eps) * weight, sumsq (...) float32 over the whole row of n_total elements
+    (x holds this rank's columns of it, weight their (D,) slice)."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("qk_norm_rope_given")
+def qk_norm_rope_given(
+    qk: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor], head_size: int,
+    cos: Tensor, sin: Tensor, sumsq: Tensor, n_total: int, is_neox: bool = False,
+    eps: float = 1e-6, inner_dim: Optional[int] = None,
+) -> Tuple[Tensor, Tensor]:
+    """qk_norm_rope with each token's (q, k) sums of squares given: sumsq (B,
+    S, 2) float32 over the whole width n_total, of which qk's q and k hold
+    this rank's heads (gamma_q / gamma_k their slices)."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("qk_norm_rope2_given")
+def qk_norm_rope2_given(
+    q: Tensor, k: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor],
+    head_size: int, cos: Tensor, sin: Tensor, sumsq: Tensor, n_total: int,
+    is_neox: bool = False, eps: float = 1e-6,
+) -> Tuple[Tensor, Tensor]:
+    """qk_norm_rope_given with q and k as separate (B, S, D) operands."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("quantize_stats")
+def quantize_stats(x: Tensor, symmetric: bool = True) -> Tensor:
+    """The statistics a per-token quantizer takes of each row of a 2D x:
+    symmetric, (M, 1) float32 max|x|; asymmetric, (M, 2) float32 [-min, max].
+    Either reduces over the row's shards by one MAX (they are exact)."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("quantize_to_int8_given")
+def quantize_to_int8_given(x: Tensor, stats: Tensor, symmetric: bool = True
+                           ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """quantize_to_int8 with each row's statistics given (quantize_stats'
+    layout, reduced over the whole row): (q, scale, zp) bit-identical to the
+    whole row's quantization restricted to x's columns."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("quantize_to_fp8_given")
+def quantize_to_fp8_given(x: Tensor, stats: Tensor) -> Tuple[Tensor, Tensor]:
+    """quantize_to_fp8 with each row's (M, 1) max|x| given."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("quantize_to_int4_given")
+def quantize_to_int4_given(x: Tensor, stats: Tensor) -> Tuple[Tensor, Tensor]:
+    """quantize_to_int4 with each row's (M, 1) max|x| given."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("int8_matmul_partial")
+def int8_matmul_partial(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor,
+                        azp_adj: Tensor, azp: Optional[Tensor]) -> Tensor:
+    """A row-parallel rank's int8_matmul: the float32 (M, N) partial
+    (a.b - azp (x) azp_adj) * (scale_a (x) scale_b), no bias, no rounding;
+    azp_adj is the column sum of this rank's K rows of b."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("fp8_matmul_partial")
+def fp8_matmul_partial(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor) -> Tensor:
+    """A row-parallel rank's fp8_matmul: the float32 partial, no bias."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("int4_matmul_partial")
+def int4_matmul_partial(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor) -> Tensor:
+    """A row-parallel rank's int4_matmul: the float32 partial, no bias."""
     raise NotImplementedError

@@ -9,6 +9,12 @@ int8_matmul_jnp :221-240, sdpa_jnp
 sdpa_gather_super_jnp :373-437, sdpa_sparse_jnp :440-486; and the int4p
 weight unpack of fastdm_tpu/layers/qlinear.py unpack_int4 :75-83).
 
+The tensor-parallel variants (rms_sumsq, rms_norm_given, the
+qk_norm_rope*_given forms, quantize_stats, the quantize_to_*_given forms and
+the *_matmul_partial GEMMs) have no jnp counterpart: they are the
+whole-row versions above cut at the statistic or before the bias, so that a
+rank's given-statistics quantization equals the whole row's bit for bit.
+
 They keep the oracle's rounding points — float32 math, one cast back to the
 input dtype — so the CPU tests can hold them to the JAX package, and
 chip_smoke.py holds each Hopper kernel to them on the card. The W8A8 and
@@ -115,6 +121,47 @@ def qk_norm_rope2_torch(
     return qn.reshape(b, s, d), kn.reshape(b, s, d)
 
 
+@kernel_registry.register("rms_sumsq", "torch")
+def rms_sumsq_torch(x: Tensor) -> Tensor:
+    return x.float().square().sum(dim=-1)
+
+
+@kernel_registry.register("rmsnorm_given", "torch")
+def rms_norm_given_torch(x: Tensor, weight: Optional[Tensor], sumsq: Tensor, n_total: int,
+                         eps: float) -> Tensor:
+    # rms_norm_torch's rounding with mean = sum / n over the whole row
+    var = sumsq.float().unsqueeze(-1) / n_total
+    y = x.float() * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x.dtype)
+
+
+@kernel_registry.register("qk_norm_rope_given", "torch")
+def qk_norm_rope_given_torch(
+    qk: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor], head_size: int,
+    cos: Tensor, sin: Tensor, sumsq: Tensor, n_total: int, is_neox: bool = False,
+    eps: float = 1e-6, inner_dim: Optional[int] = None,
+) -> Tuple[Tensor, Tensor]:
+    d = qk.shape[-1] // 2 if inner_dim is None else inner_dim
+    return qk_norm_rope2_given_torch(qk[..., :d], qk[..., d:2 * d], gamma_q, gamma_k, head_size,
+                                     cos, sin, sumsq, n_total, is_neox, eps)
+
+
+@kernel_registry.register("qk_norm_rope2_given", "torch")
+def qk_norm_rope2_given_torch(
+    q: Tensor, k: Tensor, gamma_q: Optional[Tensor], gamma_k: Optional[Tensor],
+    head_size: int, cos: Tensor, sin: Tensor, sumsq: Tensor, n_total: int,
+    is_neox: bool = False, eps: float = 1e-6,
+) -> Tuple[Tensor, Tensor]:
+    b, s, d = q.shape
+    qn = rms_norm_given_torch(q, gamma_q, sumsq[..., 0], n_total, eps)
+    kn = rms_norm_given_torch(k, gamma_k, sumsq[..., 1], n_total, eps)
+    qn = _rotate(qn.reshape(b, s, -1, head_size), cos, sin, is_neox)
+    kn = _rotate(kn.reshape(b, s, -1, head_size), cos, sin, is_neox)
+    return qn.reshape(b, s, d), kn.reshape(b, s, d)
+
+
 @kernel_registry.register("gelu_and_mul", "torch")
 def gelu_and_mul_torch(x: Tensor) -> Tensor:
     # one rounding from f32, as the Pallas kernel and csrc/gelu_mul.cu; the
@@ -142,6 +189,32 @@ def quantize_to_int8_torch(x: Tensor, symmetric: bool = True
     return q, scale, zp
 
 
+@kernel_registry.register("quantize_stats", "torch")
+def quantize_stats_torch(x: Tensor, symmetric: bool = True) -> Tensor:
+    x32 = x.float()
+    lo = x32.amin(dim=-1, keepdim=True)
+    hi = x32.amax(dim=-1, keepdim=True)
+    if symmetric:
+        return torch.maximum(lo.abs(), hi.abs())
+    return torch.cat([-lo, hi], dim=-1)
+
+
+@kernel_registry.register("quantize_to_int8_given", "torch")
+def quantize_to_int8_given_torch(x: Tensor, stats: Tensor, symmetric: bool = True
+                                 ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    x32 = x.float()
+    if symmetric:
+        scale = true_div(stats.float().reshape(-1, 1).clamp_min(_EPS_SCALE), 127.0)
+        q = torch.round(x32 / scale).clamp(-128, 127).to(torch.int8)
+        return q, scale, None
+    st = stats.float().reshape(-1, 2)
+    row_min, row_max = -st[:, :1], st[:, 1:]
+    scale = true_div((row_max - row_min).clamp_min(_EPS_SCALE), 255.0)
+    zp = _to_int32_saturating(-128.0 - torch.round(row_min / scale))
+    q = (torch.round(x32 / scale) + zp.float()).clamp(-128, 127).to(torch.int8)
+    return q, scale, zp
+
+
 @kernel_registry.register("quantize_to_int4", "torch")
 def quantize_to_int4_torch(x: Tensor) -> Tuple[Tensor, Tensor]:
     x32 = x.float()
@@ -150,11 +223,25 @@ def quantize_to_int4_torch(x: Tensor) -> Tuple[Tensor, Tensor]:
     return q, scale
 
 
+@kernel_registry.register("quantize_to_int4_given", "torch")
+def quantize_to_int4_given_torch(x: Tensor, stats: Tensor) -> Tuple[Tensor, Tensor]:
+    scale = true_div(stats.float().reshape(-1, 1).clamp_min(_EPS_SCALE), 7.0)
+    q = torch.round(x.float() / scale).clamp(-8, 7).to(torch.int8)
+    return q, scale
+
+
 @kernel_registry.register("quantize_to_fp8", "torch")
 def quantize_to_fp8_torch(x: Tensor) -> Tuple[Tensor, Tensor]:
     x32 = x.float()
     scale = true_div(x32.abs().amax(dim=-1, keepdim=True).clamp_min(_EPS_SCALE), _FP8_MAX)
     q = (x32 / scale).clamp(-_FP8_MAX, _FP8_MAX).to(torch.float8_e4m3fn)
+    return q, scale
+
+
+@kernel_registry.register("quantize_to_fp8_given", "torch")
+def quantize_to_fp8_given_torch(x: Tensor, stats: Tensor) -> Tuple[Tensor, Tensor]:
+    scale = true_div(stats.float().reshape(-1, 1).clamp_min(_EPS_SCALE), _FP8_MAX)
+    q = (x.float() / scale).clamp(-_FP8_MAX, _FP8_MAX).to(torch.float8_e4m3fn)
     return q, scale
 
 
@@ -185,6 +272,34 @@ def int4_matmul_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, ou
     contracts.check_scaled_mm("int4_matmul_torch", a, b, scale_a, scale_b, bias=bias, int8=True)
     acc = (a.double() @ b.double()).to(torch.int32)  # exact: see the module note
     return _dequant_epilogue(acc, scale_a, scale_b, out_dtype, bias)
+
+
+def _int_acc(a: Tensor, b: Tensor, azp_adj: Optional[Tensor] = None,
+             azp: Optional[Tensor] = None) -> Tensor:
+    acc = (a.double() @ b.double()).to(torch.int32)  # exact: see the module note
+    if azp is not None:
+        acc = acc - azp.to(torch.int32).reshape(-1, 1) * azp_adj.to(torch.int32).reshape(1, -1)
+    return acc
+
+
+@kernel_registry.register("int8_matmul_partial", "torch")
+def int8_matmul_partial_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor,
+                              azp_adj: Tensor, azp: Optional[Tensor]) -> Tensor:
+    contracts.check_scaled_mm("int8_matmul_partial_torch", a, b, scale_a, scale_b,
+                              azp_adj=azp_adj, azp=azp, int8=True)
+    return _dequant_epilogue(_int_acc(a, b, azp_adj, azp), scale_a, scale_b, torch.float32, None)
+
+
+@kernel_registry.register("int4_matmul_partial", "torch")
+def int4_matmul_partial_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor) -> Tensor:
+    contracts.check_scaled_mm("int4_matmul_partial_torch", a, b, scale_a, scale_b, int8=True)
+    return _dequant_epilogue(_int_acc(a, b), scale_a, scale_b, torch.float32, None)
+
+
+@kernel_registry.register("fp8_matmul_partial", "torch")
+def fp8_matmul_partial_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor) -> Tensor:
+    contracts.check_scaled_mm("fp8_matmul_partial_torch", a, b, scale_a, scale_b)
+    return _dequant_epilogue(a.float() @ b.float(), scale_a, scale_b, torch.float32, None)
 
 
 @kernel_registry.register("unpack_int4", "torch")

@@ -28,7 +28,11 @@ def _param(t: Optional[Tensor]) -> Optional[nn.Parameter]:
 class JointAttention(nn.Module):
     """Parameters of one attention layer. qkv/add_qkv are the fused
     projections of the image and context streams; the FLUX single blocks hold
-    only the q/k norms (their QKV comes out of the shared qkv_mlp matmul)."""
+    only the q/k norms (their QKV comes out of the shared qkv_mlp matmul).
+    tp: the tp group of a layer split by heads (parallel/tensor_parallel.py):
+    its projections then hold heads / tp.size heads."""
+
+    tp = None
 
     def __init__(self, *, qkv: Optional[QLinear] = None, add_qkv: Optional[QLinear] = None,
                  to_out: Optional[QLinear] = None, to_add_out: Optional[QLinear] = None,
@@ -58,10 +62,13 @@ def attention_apply(
 ) -> Union[Tensor, Tuple[Tensor, Tensor]]:
     """Returns the attention output; with a context stream, the pair
     (image output, context output). qkv_override: a precomputed
-    (B, S, 3*inner) fused-QKV projection (FLUX single blocks)."""
+    (B, S, 3*inner) fused-QKV projection (FLUX single blocks). heads is the
+    model's count; a layer split by heads runs its own heads / tp.size."""
     if encoder_hidden_states is not None and attn.add_qkv is None:
         raise ValueError("encoder_hidden_states passed but the layer has no add_qkv "
                          "context projection — the joint split would be silently wrong")
+    if attn.tp is not None:
+        heads //= attn.tp.size
     inner = heads * head_dim
     qkv = qkv_override if qkv_override is not None else attn.qkv(hidden_states)
     q, k, v = qkv[..., :inner], qkv[..., inner:2 * inner], qkv[..., 2 * inner:]

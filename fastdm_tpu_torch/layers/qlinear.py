@@ -77,7 +77,15 @@ def k_contiguous(w: Tensor) -> Tensor:
 
 class QLinear(nn.Module):
     """w (bf16 / int8 / fp8) or, for W4A4, exactly one of w4 / w4p with scale,
-    lora_u and lora_v; 8-bit and 4-bit weights are stored K-contiguous."""
+    lora_u and lora_v; 8-bit and 4-bit weights are stored K-contiguous.
+
+    A tensor-parallel shard (parallel/tensor_parallel.py) holds its tp group
+    in tp_reduce (a row shard: its partial sums are reduced over the group)
+    or tp_gather (a column shard whose output is gathered whole); an unsplit
+    layer has neither."""
+
+    tp_reduce = None
+    tp_gather = None
 
     def __init__(self, w: Optional[Tensor], bias: Optional[Tensor] = None,
                  scale: Optional[Tensor] = None, colsum: Optional[Tensor] = None, *,
@@ -260,12 +268,20 @@ def qlinear_apply(lin: QLinear, x: Tensor, chunk_tokens: int = 0) -> Tensor:
 
     chunk_tokens > 0 (dividing the flattened row count) runs the rows in
     chunks and concatenates: exact (quantization and epilogue are per row),
-    and it bounds the matmul's transients to O(chunk * N)."""
+    and it bounds the matmul's transients to O(chunk * N).
+
+    A row shard of tensor parallelism (lin.tp_reduce) takes this rank's K
+    columns of x and returns the whole layer's output, quantized on the
+    whole row's statistics (parallel/tensor_parallel.py row_parallel_apply);
+    it runs unchunked, one reduction over its tp group rather than one a
+    chunk (its transients are the rank's K / tp columns). A gathered column
+    shard (lin.tp_gather) returns the whole output too."""
     orig_shape = x.shape
     rows = 1
     for s in orig_shape[:-1]:
         rows *= s
-    if chunk_tokens and rows > chunk_tokens and rows % chunk_tokens == 0:
+    if (chunk_tokens and lin.tp_reduce is None and rows > chunk_tokens
+            and rows % chunk_tokens == 0):
         x2 = x.reshape(rows, orig_shape[-1])
         ys = [qlinear_apply(lin, x2[i:i + chunk_tokens]) for i in range(0, rows, chunk_tokens)]
         return torch.cat(ys, dim=0).reshape(*orig_shape[:-1], ys[0].shape[-1])
@@ -275,26 +291,35 @@ def qlinear_apply(lin: QLinear, x: Tensor, chunk_tokens: int = 0) -> Tensor:
         # an NCHW map: reshape keeps it a view for one batch entry); the
         # quantizer and GEMM kernels read rows with a contiguous last dim
         x2 = x2.contiguous()
+    if lin.tp_reduce is not None:
+        from fastdm_tpu_torch.parallel.tensor_parallel import row_parallel_apply
+
+        out = row_parallel_apply(lin, x2, x.dtype)
+    else:
+        out = _apply_local(lin, x2, x.dtype)
+        if lin.tp_gather is not None:
+            out = lin.tp_gather.all_gather(out)
+    return out.reshape(*orig_shape[:-1], out.shape[-1])
+
+
+def _apply_local(lin: QLinear, x2: Tensor, dtype) -> Tensor:
+    """The layer's own (M, K) -> (M, N) product on its weights."""
     if lin.w4 is not None or lin.w4p is not None:
         # int4p unpacks into a scratch buffer that lives until the GEMM is done
         w = lin.w4 if lin.w4 is not None else unpack_int4(lin.w4p)
         xq, xs = quantize_to_int4(x2)
-        out = int4_matmul(xq, w, xs, lin.scale, x.dtype, lin.bias)
-        n = w.shape[-1]
+        out = int4_matmul(xq, w, xs, lin.scale, dtype, lin.bias)
         del w
         # the SVDQuant low-rank side path in bf16, added as JAX adds it
-        out = out + ((x2.to(torch.bfloat16) @ lin.lora_u) @ lin.lora_v).to(out.dtype)
-        return out.reshape(*orig_shape[:-1], n)
+        return out + ((x2.to(torch.bfloat16) @ lin.lora_u) @ lin.lora_v).to(out.dtype)
     w = lin.w
     if w.dtype == torch.int8:
         xq, xs, xzp = quantize_to_int8(x2, symmetric=False)
-        out = int8_matmul(xq, w, xs, lin.scale, x.dtype, lin.colsum, xzp, lin.bias)
-    elif w.dtype == torch.float8_e4m3fn:
+        return int8_matmul(xq, w, xs, lin.scale, dtype, lin.colsum, xzp, lin.bias)
+    if w.dtype == torch.float8_e4m3fn:
         xq, xs = quantize_to_fp8(x2)
-        out = fp8_matmul(xq, w, xs, lin.scale, x.dtype, lin.bias)
-    elif w.dtype == torch.bfloat16:
-        w = w.to(x.dtype)
-        out = torch.addmm(lin.bias.to(x.dtype), x2, w) if lin.bias is not None else x2 @ w
-    else:
-        raise NotImplementedError(f"QLinear weight dtype {w.dtype} is not in the port")
-    return out.reshape(*orig_shape[:-1], w.shape[-1])
+        return fp8_matmul(xq, w, xs, lin.scale, dtype, lin.bias)
+    if w.dtype == torch.bfloat16:
+        w = w.to(dtype)
+        return torch.addmm(lin.bias.to(dtype), x2, w) if lin.bias is not None else x2 @ w
+    raise NotImplementedError(f"QLinear weight dtype {w.dtype} is not in the port")

@@ -62,6 +62,16 @@ from fastdm_tpu_torch.models.wan import (
 )
 
 
+def _shard(model, cfg, tp):
+    """With a tp group (parallel/tensor_parallel.py), this rank's shard of the
+    whole model: a JAX tree handed to each rank of a test's tp group."""
+    if tp is None:
+        return model
+    from fastdm_tpu_torch.parallel.tensor_parallel import shard_model
+
+    return shard_model(model, cfg, tp)
+
+
 def unstack_blocks(tree: Dict, n: int):
     """Split a tree of layer-stacked leaves (leading axis n) into n trees."""
     def take(node, i):
@@ -96,7 +106,7 @@ def _linear_converter(dev):
     return lin
 
 
-def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
+def flux_params_from_numpy(tree: Dict, device="cuda", cfg=None, tp=None) -> FluxTransformer:
     """FLUX param tree of fastdm_tpu.models.flux (bf16, int8, fp8, int4 or
     int4p QLinears, numpy leaves, stacked block axis) -> FluxTransformer on
     `device`. An 8- or 4-bit JAX weight is (K, N) (or packed (K/2, N))
@@ -108,12 +118,12 @@ def flux_params_from_numpy(tree: Dict, device="cuda") -> FluxTransformer:
 
     lin = _linear_converter(dev)
     dual, single = _flux_blocks(tree, lin, t)
-    return FluxTransformer(
+    return _shard(FluxTransformer(
         x_embedder=lin(tree["x_embedder"]), context_embedder=lin(tree["context_embedder"]),
         time_text_embed=_flux_time_text_embed(tree["time_text_embed"], lin),
         dual_blocks=dual, single_blocks=single,
         norm_out=AdaLayerNormContinuous(lin(tree["norm_out"]["linear"])),
-        proj_out=lin(tree["proj_out"]))
+        proj_out=lin(tree["proj_out"])), cfg, tp)
 
 
 def _flux_time_text_embed(tte: Dict, lin) -> CombinedTimestepTextProj:
@@ -164,7 +174,7 @@ def _joint_attention(a: Dict, lin, t) -> JointAttention:
                           norm_added_q=opt("norm_added_q", t), norm_added_k=opt("norm_added_k", t))
 
 
-def sd3_params_from_numpy(tree: Dict, device="cuda") -> SD3Transformer:
+def sd3_params_from_numpy(tree: Dict, device="cuda", cfg=None, tp=None) -> SD3Transformer:
     """SD3 param tree of fastdm_tpu.models.sd35 (numpy leaves; the
     layer-stacked "dual_attn_blocks" and "std_blocks" segments, either may be
     None, and the unstacked "last_block"; "pos_embed_table" when it came from
@@ -193,7 +203,7 @@ def sd3_params_from_numpy(tree: Dict, device="cuda") -> SD3Transformer:
         return [block(b, dual, False) for b in unstack_blocks(group, _n_layers(group))]
 
     tte = tree["time_text_embed"]
-    return SD3Transformer(
+    return _shard(SD3Transformer(
         patch_proj=lin(tree["patch_proj"]),
         time_text_embed=CombinedTimestepTextProj(
             *(TimestepEmbedding(lin(tte[k]["linear1"]), lin(tte[k]["linear2"]))
@@ -203,10 +213,11 @@ def sd3_params_from_numpy(tree: Dict, device="cuda") -> SD3Transformer:
         last_block=block(tree["last_block"], False, True),
         norm_out=AdaLayerNormContinuous(lin(tree["norm_out"]["linear"])),
         proj_out=lin(tree["proj_out"]),
-        pos_embed_table=t(tree["pos_embed_table"]) if "pos_embed_table" in tree else None)
+        pos_embed_table=t(tree["pos_embed_table"]) if "pos_embed_table" in tree else None),
+        cfg, tp)
 
 
-def qwen_params_from_numpy(tree: Dict, device="cuda") -> QwenImageTransformer:
+def qwen_params_from_numpy(tree: Dict, device="cuda", cfg=None, tp=None) -> QwenImageTransformer:
     """Qwen-Image param tree of fastdm_tpu.models.qwenimage (numpy leaves,
     layer-stacked "blocks") -> QwenImageTransformer on `device`."""
     dev = resolve_device(device)
@@ -220,14 +231,14 @@ def qwen_params_from_numpy(tree: Dict, device="cuda") -> QwenImageTransformer:
                         FeedForward(lin(b["txt_mlp"]["proj"]), lin(b["txt_mlp"]["out"])))
               for b in unstack_blocks(tree["blocks"], _n_layers(tree["blocks"]))]
     te = tree["time_text_embed"]["timestep_embedder"]
-    return QwenImageTransformer(
+    return _shard(QwenImageTransformer(
         img_in=lin(tree["img_in"]), txt_in=lin(tree["txt_in"]), txt_norm=t(tree["txt_norm"]),
         timestep_embedder=TimestepEmbedding(lin(te["linear1"]), lin(te["linear2"])),
         blocks=blocks, norm_out=AdaLayerNormContinuous(lin(tree["norm_out"]["linear"])),
-        proj_out=lin(tree["proj_out"]))
+        proj_out=lin(tree["proj_out"])), cfg, tp)
 
 
-def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
+def wan_params_from_numpy(tree: Dict, device="cuda", cfg=None, tp=None) -> WanTransformer:
     """Wan param tree of fastdm_tpu.models.wan (numpy leaves; the layer-stacked
     "dense_blocks" then "blocks" groups, either may be None) -> WanTransformer
     on `device` with one block list in layer order. A per_token_timestep
@@ -265,7 +276,7 @@ def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
             (t(ie["norm1"]["gamma"]), t(ie["norm1"]["beta"])), lin(ie["ff"]["proj"]),
             lin(ie["ff"]["out"]), (t(ie["norm2"]["gamma"]), t(ie["norm2"]["beta"])),
             t(ie["pos_embed"]) if "pos_embed" in ie else None)
-    return WanTransformer(
+    return _shard(WanTransformer(
         patch_embedding=lin(tree["patch_embedding"]),
         time_embedder=TimestepEmbedding(lin(ce["time_embedder"]["linear1"]),
                                         lin(ce["time_embedder"]["linear2"])),
@@ -273,7 +284,7 @@ def wan_params_from_numpy(tree: Dict, device="cuda") -> WanTransformer:
         text_embedder=PixArtTextProjection(lin(ce["text_embedder"]["linear1"]),
                                            lin(ce["text_embedder"]["linear2"])),
         scale_shift_table=t(tree["scale_shift_table"]), proj_out=lin(tree["proj_out"]),
-        blocks=blocks, image_embedder=image_embedder)
+        blocks=blocks, image_embedder=image_embedder), cfg, tp)
 
 
 def sdxl_params_from_numpy(tree: Dict, device="cuda") -> SDXLUNet:

@@ -115,8 +115,10 @@ class FluxSingleBlock(nn.Module):
                 cfg: FluxConfig) -> Tensor:
         h_norm, gate = self.norm(hidden, temb)
         fused = self.qkv_mlp(h_norm)
-        qkv = fused[..., :3 * cfg.inner_dim]
-        mlp = F.gelu(fused[..., 3 * cfg.inner_dim:])
+        # a tp shard holds its heads' q|k|v, then its slice of the mlp
+        inner = cfg.inner_dim // (self.attn.tp.size if self.attn.tp is not None else 1)
+        qkv = fused[..., :3 * inner]
+        mlp = F.gelu(fused[..., 3 * inner:])
         attn_out = attention_apply(
             self.attn, h_norm, None, heads=cfg.num_attention_heads,
             head_dim=cfg.attention_head_dim, rope_cos=cos, rope_sin=sin, pre_only=True,
@@ -188,7 +190,8 @@ def flux_init_random(seed: int, cfg: FluxConfig, device="cuda") -> FluxTransform
 def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
     """Load a diffusers FLUX transformer checkpoint onto src.device, quantizing
     the block projections to cfg.quant (and the AdaLN modulations when
-    cfg.quant_mods) as the JAX flux_load does."""
+    cfg.quant_mods) as the JAX flux_load does; under tensor parallelism each
+    block is built whole and then cut to this rank's shard (src.block)."""
     q = cfg.quant
     qm = q if cfg.quant_mods else None
 
@@ -207,7 +210,7 @@ def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
         if not src.holds("transformer_blocks", i):
             dual.append(src.elsewhere("transformer_blocks", i))
             continue
-        dual.append(FluxDualBlock(
+        dual.append(src.block(f"dual_blocks.{i}", FluxDualBlock(
             AdaLayerNormZero(src.linear(f"{p}.norm1.linear", qm)),
             AdaLayerNormZero(src.linear(f"{p}.norm1_context.linear", qm)),
             JointAttention(
@@ -222,7 +225,7 @@ def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
                 norm_added_k=src.tensor(f"{p}.attn.norm_added_k.weight")),
             FeedForward(src.linear(f"{p}.ff.net.0.proj", q), src.linear(f"{p}.ff.net.2", q)),
             FeedForward(src.linear(f"{p}.ff_context.net.0.proj", q),
-                        src.linear(f"{p}.ff_context.net.2", q))))
+                        src.linear(f"{p}.ff_context.net.2", q)))))
 
     single = []
     for i in range(cfg.num_single_layers):
@@ -230,14 +233,14 @@ def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
         if not src.holds("single_transformer_blocks", i):
             single.append(src.elsewhere("single_transformer_blocks", i))
             continue
-        single.append(FluxSingleBlock(
+        single.append(src.block(f"single_blocks.{i}", FluxSingleBlock(
             AdaLayerNormZeroSingle(src.linear(f"{p}.norm.linear", qm)),
             # q|k|v|mlp_in concatenated along N
             src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v",
                               f"{p}.proj_mlp"], q),
             src.linear(f"{p}.proj_out", q),
             JointAttention(norm_q=src.tensor(f"{p}.attn.norm_q.weight"),
-                           norm_k=src.tensor(f"{p}.attn.norm_k.weight"))))
+                           norm_k=src.tensor(f"{p}.attn.norm_k.weight")))))
 
     model = FluxTransformer(
         x_embedder=src.linear("x_embedder", None),

@@ -53,6 +53,10 @@ class TensorSource:
         # pipeline placement: {stack prefix: indices of the blocks this rank
         # holds}; None holds every block
         self.stage_blocks = None
+        # tensor parallelism: shard(module path, block) -> this rank's shard of
+        # a block built whole (parallel/tensor_parallel.py shard_block); None
+        # keeps every block whole
+        self.shard = None
 
     @classmethod
     def from_path(cls, path: str, device="cuda") -> "TensorSource":
@@ -118,6 +122,12 @@ class TensorSource:
         else:
             bs = [bs[0] if len(bs) == 1 else torch.cat(bs, dim=0)]
         return fuse_and_quantize(ws, bs, quant)
+
+    def block(self, path: str, module):
+        """A block just built whole, as this rank keeps it: its tp shard
+        (the quantized weights are cut after quantizing the whole weight,
+        as JAX quantizes before it places), or the block itself."""
+        return module if self.shard is None else self.shard(path, module)
 
     def holds(self, stack: str, index: int) -> bool:
         """Whether this rank holds block `index` of the stack whose tensors

@@ -154,7 +154,7 @@ def qwen_load(src: TensorSource, cfg: QwenImageConfig) -> QwenImageTransformer:
             blocks.append(src.elsewhere("transformer_blocks", i))
             continue
         a = f"{p}.attn"
-        blocks.append(QwenBlock(
+        blocks.append(src.block(f"blocks.{i}", QwenBlock(
             src.linear(f"{p}.img_mod.1", qm), src.linear(f"{p}.txt_mod.1", qm),
             JointAttention(
                 qkv=src.fused_linear([f"{a}.to_q", f"{a}.to_k", f"{a}.to_v"], q),
@@ -167,7 +167,7 @@ def qwen_load(src: TensorSource, cfg: QwenImageConfig) -> QwenImageTransformer:
             FeedForward(src.linear(f"{p}.img_mlp.net.0.proj", q),
                         src.linear(f"{p}.img_mlp.net.2", q)),
             FeedForward(src.linear(f"{p}.txt_mlp.net.0.proj", q),
-                        src.linear(f"{p}.txt_mlp.net.2", q))))
+                        src.linear(f"{p}.txt_mlp.net.2", q)))))
     model = QwenImageTransformer(
         img_in=src.linear("img_in", None), txt_in=src.linear("txt_in", None),
         txt_norm=src.tensor("txt_norm.weight"),

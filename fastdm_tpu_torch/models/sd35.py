@@ -224,11 +224,11 @@ def sd3_load(src: TensorSource, cfg: SD3Config) -> SD3Transformer:
         return TimestepEmbedding(src.linear(f"{p}.linear_1", None),
                                  src.linear(f"{p}.linear_2", None))
 
-    def block(i, dual, last):
+    def block(i, dual, last, path):
         p = f"transformer_blocks.{i}"
         d1 = src.linear(f"{p}.norm1.linear", None)
         dc = src.linear(f"{p}.norm1_context.linear", None)
-        return SD3JointBlock(
+        return src.block(path, SD3JointBlock(
             SD35AdaLayerNormZeroX(d1) if dual else AdaLayerNormZero(d1),
             AdaLayerNormContinuous(dc) if last else AdaLayerNormZero(dc),
             _load_attn(src, f"{p}.attn", q, with_context=True, context_pre_only=last),
@@ -237,7 +237,7 @@ def sd3_load(src: TensorSource, cfg: SD3Config) -> SD3Transformer:
             if dual else None,
             ff_context=None if last else FeedForward(
                 src.linear(f"{p}.ff_context.net.0.proj", q),
-                src.linear(f"{p}.ff_context.net.2", q)))
+                src.linear(f"{p}.ff_context.net.2", q))))
 
     nd = cfg.num_dual_layers
     model = SD3Transformer(
@@ -249,9 +249,10 @@ def sd3_load(src: TensorSource, cfg: SD3Config) -> SD3Transformer:
         context_embedder=src.linear("context_embedder", None),
         norm_out=AdaLayerNormContinuous(src.linear("norm_out.linear", q)),
         proj_out=src.linear("proj_out", q),
-        dual_blocks=[block(i, True, False) for i in range(nd)],
-        std_blocks=[block(i, False, False) for i in range(nd, cfg.num_layers - 1)],
-        last_block=block(cfg.num_layers - 1, False, True))
+        dual_blocks=[block(i, True, False, f"dual_blocks.{i}") for i in range(nd)],
+        std_blocks=[block(i, False, False, f"std_blocks.{i - nd}")
+                    for i in range(nd, cfg.num_layers - 1)],
+        last_block=block(cfg.num_layers - 1, False, True, "last_block"))
     src.assert_consumed()
     return model
 

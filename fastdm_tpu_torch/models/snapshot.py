@@ -145,12 +145,21 @@ class _Encoder:
 
 
 class _Decoder:
-    def __init__(self, tensors: Dict[str, torch.Tensor]):
-        self.tensors = tensors
+    """get(name) -> tensor, read from the file on demand and moved to
+    `device`. place(path, build) -> module or None: asked at every module
+    node (path "dual_blocks/3", "last_block", ...); None decodes the node
+    here, a module takes its place. build(device) decodes the node with its
+    tensors on `device` (a tensor parallel rank builds a block on the host,
+    cuts its shard and moves that; a pipeline rank skips the blocks of other
+    stages)."""
+
+    def __init__(self, get, place, device: torch.device):
+        self.get = get
         self.allowed = _allowed_classes()
+        self.place, self.device = place, device
 
     def tensor(self, node) -> torch.Tensor:
-        t = self.tensors[node["name"]]
+        t = self.get(node["name"]).to(self.device)
         if node.get("scalar"):
             t = t.reshape(())
         if "perm" in node:
@@ -171,7 +180,11 @@ class _Decoder:
             return {k: self.value(x) for k, x in node["v"].items()}
         raise ValueError(f"snapshot: bad attribute node {t!r}")
 
-    def module(self, node) -> nn.Module:
+    def module(self, node, path: str = "") -> nn.Module:
+        if self.place is not None and path:
+            placed = self.place(path, lambda dev: _Decoder(self.get, None, dev).module(node))
+            if placed is not None:
+                return placed
         cls = self.allowed.get(node["class"])
         if cls is None:
             raise ValueError(f"snapshot: {node['class']!r} is not a model or layer class of "
@@ -184,7 +197,7 @@ class _Decoder:
             m.register_parameter(k, None if v is None else nn.Parameter(self.tensor(v),
                                                                         requires_grad=False))
         for k, v in node["modules"].items():
-            m.add_module(k, None if v is None else self.module(v))
+            m.add_module(k, None if v is None else self.module(v, f"{path}/{k}" if path else k))
         return m
 
 
@@ -259,9 +272,11 @@ def load_manifest(dir_path: str) -> Dict[str, Any]:
 
 
 def load_tree(dir_path: str, name: str, manifest: Optional[Dict] = None,
-              device="cuda") -> nn.Module:
-    """Rebuild one saved module, its tensors read straight onto `device`."""
-    from safetensors.torch import load_file
+              device="cuda", place=None) -> nn.Module:
+    """Rebuild one saved module, each tensor read from the file when its
+    module is decoded and moved onto `device`. place(path, build): _Decoder's
+    hook (a block another pipeline stage holds is never read)."""
+    from safetensors import safe_open
 
     manifest = manifest or load_manifest(dir_path)
     if name not in manifest["trees"]:
@@ -272,8 +287,9 @@ def load_tree(dir_path: str, name: str, manifest: Optional[Dict] = None,
                          "module of the port (a snapshot written by the JAX package?); the port "
                          "reads only the snapshots it writes")
     dev = resolve_device(device)
-    tensors = load_file(os.path.join(dir_path, f"{name}.safetensors"), device=str(dev))
-    return _Decoder(tensors).module(skel)
+    path = os.path.join(dir_path, f"{name}.safetensors")
+    with safe_open(path, framework="pt", device="cpu") as f:
+        return _Decoder(f.get_tensor, place, dev).module(skel)
 
 
 def check_compatible(manifest: Dict[str, Any], *, architecture: str, quant: Optional[str],

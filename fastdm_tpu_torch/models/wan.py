@@ -50,7 +50,10 @@ from fastdm_tpu_torch.kernels import (
     gather_super_attention,
     qk_norm_rope,
     qk_norm_rope2,
+    qk_norm_rope2_given,
+    qk_norm_rope_given,
     rms_norm,
+    rms_norm_given,
     scaled_dot_product_attention,
     sparse_scaled_dot_product_attention,
 )
@@ -121,7 +124,12 @@ def _param(t: Optional[Tensor]) -> Optional[nn.Parameter]:
 
 
 class WanSelfAttention(nn.Module):
-    """Fused q|k|v projection, full-width q/k RMSNorm weights (D,), output."""
+    """Fused q|k|v projection, full-width q/k RMSNorm weights (D,), output.
+    tp: the tp group of a layer split by heads (parallel/tensor_parallel.py):
+    it then holds heads / tp.size heads, their norm weight columns, and
+    normalizes across all heads on statistics summed over the group."""
+
+    tp = None
 
     def __init__(self, qkv: QLinear, norm_q: Tensor, norm_k: Tensor, to_out: QLinear):
         super().__init__()
@@ -132,7 +140,9 @@ class WanSelfAttention(nn.Module):
 class WanCrossAttention(nn.Module):
     """q from the video tokens, fused k|v from the text context; with
     Wan2.1-I2V's image branch also add_k, add_v and norm_added_k for the
-    image context."""
+    image context. tp: as WanSelfAttention's."""
+
+    tp = None
 
     def __init__(self, q: QLinear, kv: QLinear, norm_q: Tensor, norm_k: Tensor, to_out: QLinear,
                  add_k: Optional[QLinear] = None, add_v: Optional[QLinear] = None,
@@ -266,7 +276,7 @@ def wan_load(src: TensorSource, cfg: WanConfig) -> WanTransformer:
             added = dict(add_k=src.linear(f"{p}.attn2.add_k_proj", q),
                          add_v=src.linear(f"{p}.attn2.add_v_proj", q),
                          norm_added_k=src.tensor(f"{p}.attn2.norm_added_k.weight"))
-        blocks.append(WanBlock(
+        blocks.append(src.block(f"blocks.{i}", WanBlock(
             src.tensor(f"{p}.scale_shift_table", torch.float32).reshape(6, -1),
             WanSelfAttention(
                 src.fused_linear([f"{p}.attn1.to_q", f"{p}.attn1.to_k", f"{p}.attn1.to_v"], q),
@@ -278,7 +288,7 @@ def wan_load(src: TensorSource, cfg: WanConfig) -> WanTransformer:
                 src.tensor(f"{p}.attn2.norm_q.weight"), src.tensor(f"{p}.attn2.norm_k.weight"),
                 src.linear(f"{p}.attn2.to_out.0", q), **added),
             FeedForward(src.linear(f"{p}.ffn.net.0.proj", q), src.linear(f"{p}.ffn.net.2", q)),
-            norm2))
+            norm2)))
     ce = "condition_embedder"
     image_embedder = None
     ie = f"{ce}.image_embedder"
@@ -315,9 +325,27 @@ def _chunks(s: int, ct: int):
     return None
 
 
+def _local_heads(attn, cfg: WanConfig) -> int:
+    """The heads this rank's attention layer holds (all of them unsplit)."""
+    return cfg.num_attention_heads // (attn.tp.size if attn.tp is not None else 1)
+
+
+def _norm_across_heads(x: Tensor, weight: Tensor, attn, cfg: WanConfig) -> Tensor:
+    """RMSNorm over the whole width H*D (Wan's norms span every head); a
+    layer split by heads sums its heads' statistics over its tp group."""
+    if attn.tp is None:
+        return rms_norm(x, weight, cfg.eps)
+    from fastdm_tpu_torch.parallel.tensor_parallel import norm_stats
+
+    return rms_norm_given(x, weight, norm_stats(x, attn.tp), cfg.inner_dim, cfg.eps)
+
+
 def _wan_self_attention(attn: WanSelfAttention, x: Tensor, cos: Tensor, sin: Tensor,
                         cfg: WanConfig, sparse_mask) -> Tensor:
-    d, hd = cfg.inner_dim, cfg.attention_head_dim
+    hd = cfg.attention_head_dim
+    d = _local_heads(attn, cfg) * hd
+    if attn.tp is not None:
+        from fastdm_tpu_torch.parallel.tensor_parallel import norm_stats
     if cfg.split_qkv_proj:
         # three column-sliced projections, per token chunk, and the
         # two-operand norm+rope: no (S, 3D) buffer exists
@@ -326,8 +354,14 @@ def _wan_self_attention(attn: WanSelfAttention, x: Tensor, cos: Tensor, sin: Ten
         qs, ks, vs = [], [], []
         for lo, hi in ranges:
             xc = x[:, lo:hi]
-            qc, kc = qk_norm_rope2(qp(xc), kp(xc), attn.norm_q, attn.norm_k, hd, cos[lo:hi],
-                                   sin[lo:hi], False, cfg.eps)
+            if attn.tp is None:
+                qc, kc = qk_norm_rope2(qp(xc), kp(xc), attn.norm_q, attn.norm_k, hd,
+                                       cos[lo:hi], sin[lo:hi], False, cfg.eps)
+            else:
+                qc, kc = qp(xc), kp(xc)
+                st = norm_stats(torch.stack([qc, kc], dim=2), attn.tp)
+                qc, kc = qk_norm_rope2_given(qc, kc, attn.norm_q, attn.norm_k, hd, cos[lo:hi],
+                                             sin[lo:hi], st, cfg.inner_dim, False, cfg.eps)
             qs.append(qc)
             ks.append(kc)
             vs.append(vp(xc))
@@ -336,15 +370,23 @@ def _wan_self_attention(attn: WanSelfAttention, x: Tensor, cos: Tensor, sin: Ten
         qkv = attn.qkv(x)
         # q and k are normalized and rotated straight out of the fused
         # projection; v stays a strided view of it
-        q, k = qk_norm_rope(qkv, attn.norm_q, attn.norm_k, hd, cos, sin, False, cfg.eps,
-                            inner_dim=d)
+        if attn.tp is None:
+            q, k = qk_norm_rope(qkv, attn.norm_q, attn.norm_k, hd, cos, sin, False, cfg.eps,
+                                inner_dim=d)
+        else:
+            st = norm_stats(qkv[..., :2 * d].unflatten(-1, (2, d)), attn.tp)
+            q, k = qk_norm_rope_given(qkv, attn.norm_q, attn.norm_k, hd, cos, sin, st,
+                                      cfg.inner_dim, False, cfg.eps, inner_dim=d)
         v = qkv[..., 2 * d:]
     return _wan_self_attention_core(attn, x, q, k, v, cfg, sparse_mask)
 
 
 def _wan_self_attention_core(attn: WanSelfAttention, x: Tensor, q: Tensor, k: Tensor,
                              v: Tensor, cfg: WanConfig, sparse_mask) -> Tensor:
-    h, hd = cfg.num_attention_heads, cfg.attention_head_dim
+    h, hd = _local_heads(attn, cfg), cfg.attention_head_dim
+    if isinstance(sparse_mask, Tensor) and attn.tp is not None:
+        # the block mask of every head: this rank's heads' rows
+        sparse_mask = sparse_mask[:, attn.tp.rank * h:(attn.tp.rank + 1) * h].contiguous()
     if sparse_mask is None:
         out = scaled_dot_product_attention(q, k, v, h, h, hd, False, hd**-0.5)
     elif isinstance(sparse_mask, (tuple, list)) and len(sparse_mask) == 3:
@@ -376,19 +418,20 @@ def _wan_cross_attention(attn: WanCrossAttention, x: Tensor, encoder: Tensor,
     (fastdm_tpu/models/wan.py:355-360: a shorter one would give the image
     softmax no keys) the first S_enc - text_len tokens are image context,
     whose attention is added to the text attention."""
-    d, h, hd = cfg.inner_dim, cfg.num_attention_heads, cfg.attention_head_dim
+    h, hd = _local_heads(attn, cfg), cfg.attention_head_dim
+    d = h * hd
     ct = cfg.ffn_chunk_tokens
     ctx_img, ctx_txt = None, encoder
     if attn.add_k is not None and encoder.shape[1] > cfg.text_len:
         img_len = encoder.shape[1] - cfg.text_len
         ctx_img, ctx_txt = encoder[:, :img_len], encoder[:, img_len:]
-    q = rms_norm(attn.q(x, chunk_tokens=ct), attn.norm_q, cfg.eps)
+    q = _norm_across_heads(attn.q(x, chunk_tokens=ct), attn.norm_q, attn, cfg)
     kv = attn.kv(ctx_txt)
-    k = rms_norm(kv[..., :d], attn.norm_k, cfg.eps)
+    k = _norm_across_heads(kv[..., :d], attn.norm_k, attn, cfg)
     v = kv[..., d:]
     k_img = v_img = None
     if ctx_img is not None:
-        k_img = rms_norm(attn.add_k(ctx_img), attn.norm_added_k, cfg.eps)
+        k_img = _norm_across_heads(attn.add_k(ctx_img), attn.norm_added_k, attn, cfg)
         v_img = attn.add_v(ctx_img)
 
     def xattn(qc):

@@ -9,9 +9,11 @@ Axes, as in JAX:
         shard; the activations between attention calls stay whole on every
         rank, as JAX's engine shards only the weights.
   tp -- tensor parallel. JAX gets it from GSPMD's name rules
-        (generic_param_pspec, flux_param_pspec, shard_params_by_name); the
-        port needs Megatron-style splits written per family, which come in a
-        slice of their own (ROADMAP.md section 1, item 1), so tp > 1 raises.
+        (generic_param_pspec, shard_params_by_name), ported below as functions
+        of a port module path (tp_kind); the Megatron-style
+        splits and the row-parallel collectives are tensor_parallel.py's. The
+        families it splits: FLUX, SD3.5, Qwen-Image and every Wan name; SDXL
+        and the ControlNets raise with tp > 1 (check_no_tp).
   pp -- pipeline parallel over the block stacks (pipeline.py), the fourth
         axis of a (dp, sp, tp, pp) mesh.
 
@@ -32,7 +34,8 @@ from typing import Dict, Tuple
 import torch
 
 AXES = ("dp", "sp", "tp")
-TP_SLICE = "ROADMAP.md section 1, item 1: the tp slice of parallel/"
+TP_LEFT_OUT = ("ROADMAP.md section 1, item 1: tp for SDXL (its GEGLU halves, heads that 4 "
+               "does not divide) and the ControlNets")
 
 
 def factor_mesh(n: int) -> Tuple[int, int, int]:
@@ -139,10 +142,59 @@ def init_mesh(mesh_shape, device=None) -> Mesh:
     return Mesh(names, axes, dm)
 
 
-def check_no_tp(mesh_shape) -> None:
-    """tp > 1 raises NotImplementedError: the port's tensor parallelism is
-    not written yet."""
-    if mesh_shape is not None and len(mesh_shape) >= 3 and mesh_shape[2] > 1:
+# ---------------------------------------------------------------- tp rules
+
+_COLUMN = ("qkv", "add_qkv", ".kv", "ff.proj", "ff_context.proj", "img_mlp.proj",
+           "txt_mlp.proj", "ffn.proj", "proj_mlp", "attn2.q", "attn.q",
+           # the AdaLN modulations: per-sample outputs, gathered after the matmul
+           "img_mod", "txt_mod", "norm1.linear", "norm1_context.linear", "norm.linear")
+_ROW = ("to_out", "to_add_out", "ff.out", "ff_context.out", "img_mlp.out", "txt_mlp.out",
+        "ffn.out")
+
+
+def generic_tp_kind(path: str) -> str:
+    """JAX's generic_param_pspec (fastdm_tpu/parallel/mesh.py:57-94) as the
+    kind of the QLinear at a module path: "column" (output dim on tp: the
+    fused qkv / kv projections, FF inputs, the AdaLN modulations), "row"
+    (input dim on tp: out-projections, FF outputs, the single-stream
+    proj_out) or "replicate". The rules match substrings, as JAX's do."""
+    col = any(k in path for k in _COLUMN)
+    row = any(k in path for k in _ROW)
+    row = row or (".proj_out" in path and ("single" in path or "blocks" in path))
+    if row:
+        return "row"
+    return "column" if col else "replicate"
+
+
+# Where the port's split departs from JAX's rules: Wan2.1-I2V's image K / V
+# projections, which no JAX rule names (replicated there), are cut by heads
+# like attn2's text K / V, so that a rank computes only its heads' image
+# attention (ROADMAP.md section 3)
+TP_DEPARTURES = {"attn2.add_k": "column", "attn2.add_v": "column"}
+
+
+def tp_kind(path: str) -> str:
+    """The split of the QLinear at a port module path, as JAX's
+    shard_params_by_name places it (fastdm_tpu/parallel/mesh.py:96-112):
+    only block weights ("block" in the path) are split, by
+    generic_tp_kind, except TP_DEPARTURES. Whether a split happens also
+    depends on the shapes (heads and widths that tp divides:
+    tensor_parallel.shard_block)."""
+    if "block" not in path:
+        return "replicate"
+    for key, kind in TP_DEPARTURES.items():
+        if path.endswith(key):
+            return kind
+    return generic_tp_kind(path)
+
+
+def check_no_tp(mesh_shape, architecture: str = None, controlnet: bool = False) -> None:
+    """tp > 1 raises NotImplementedError for what the port does not split:
+    SDXL and a ControlNet."""
+    if mesh_shape is None or len(mesh_shape) < 3 or mesh_shape[2] <= 1:
+        return
+    if architecture == "sdxl" or controlnet:
+        what = "sdxl" if architecture == "sdxl" else "controlnet_path"
         raise NotImplementedError(
-            f"mesh_shape {tuple(mesh_shape)}: tp > 1 needs the column / row splits of every "
-            f"family, which are not ported yet ({TP_SLICE})")
+            f"mesh_shape {tuple(mesh_shape)}: tp > 1 with {what} is not ported yet "
+            f"({TP_LEFT_OUT})")

@@ -50,7 +50,16 @@ relative L2 1e-4 of the CPU, launching no kernel. The log-sum-exp variant of
 sdpa: its output bit-identical to the sdpa kernel's, its f32 log-sum-exp
 within 1e-3 absolute of the plain version's; the ring over 2 and 4 virtual
 ranks (bf16 block outputs merged in f32: one more bf16 rounding a step) within
-2e-3 + 2 bf16 ulp of |x| of one sdpa kernel call.
+2e-3 + 2 bf16 ulp of |x| of one sdpa kernel call. The tensor-parallel
+variants: the quantizer's statistics pass and its given-statistics modes
+bit-exact with their plain versions and, on column shards with MAX-reduced
+statistics, with the one-device quantizer; the int8 / int4 f32 partials
+bit-exact, the fp8 one within 2^-14 of sum |a| |b| (no bf16 rounding hides
+the fp8 wgmma's ~14-bit step sums there); two shards' partials
+summed within 1 bf16 ulp of the one-device GEMM plus the f32 roundings of the
+partials; rms_sumsq within 1e-5 relative, rms_norm_given within one ulp and
+the qk_norm_rope*_given forms within the qk_norm_rope tolerance; full-width
+FLUX blocks over 2 virtual tp ranks within relative L2 1e-2.
 """
 
 import numpy as np
@@ -1452,3 +1461,229 @@ def test_qwen2_5_vl_two_layers_on_card_match_cpu(cuda_device):
         want = cpu(ids, mask, torch.from_numpy(pixels), grid)
     assert sum(f.launches for f in (cuda_backend.sdpa_cuda, cuda_backend.rms_norm_cuda)) == 0
     assert (got.cpu() - want).norm() / want.norm() <= 1e-4
+
+
+# ------------------------------------------------------------ tensor parallelism
+
+# (M, K) rows of a row-parallel rank: FLUX's to_out at tp 4 (768 of 3072), its
+# single-block proj_out at tp 2 (7680 of 15360), one modulation token, and
+# Wan2.2-A14B's ffn.out at tp 4 (3456 of 13824)
+TP_ROWS = {"flux-to-out-tp4": (333, 768), "flux-proj-out-tp2": (128, 7680),
+           "token": (1, 3072), "wan-ffn-out-tp4": (77, 3456)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(TP_ROWS))
+def test_tp_quantizers_bit_exact_on_card(cuda_device, shape):
+    """The statistics pass and the given-statistics quantizers (int8 asym /
+    sym, fp8, int4) bit-exact with their plain versions, and on two column
+    shards with their statistics reduced by MAX bit for bit the one-device
+    quantizer's values on those columns, its scales and zero points."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb, torch_backend as tb
+
+    m, k = TP_ROWS[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    x = (torch.randn(m, 2 * k, generator=g, device=cuda_device) * 3).bfloat16()
+    x[0, :k] = 0  # a shard row of zeros
+    halves = [x[:, :k].contiguous(), x[:, k:].contiguous()]
+    cb.reset_launch_counts()
+    for sym in (True, False):
+        stats = [cb.quantize_stats_cuda(h, sym) for h in halves]
+        for st, h in zip(stats, halves):
+            assert torch.equal(st, tb.quantize_stats_torch(h, sym))
+        red = torch.maximum(*stats)
+        whole = {"int8": cb.quantize_to_int8_cuda(x, sym)}
+        given = {"int8": [cb.quantize_to_int8_given_cuda(h, red, sym) for h in halves]}
+        plain = {"int8": [tb.quantize_to_int8_given_torch(h, red, sym) for h in halves]}
+        if sym:
+            whole.update(fp8=cb.quantize_to_fp8_cuda(x), int4=cb.quantize_to_int4_cuda(x))
+            given.update(fp8=[cb.quantize_to_fp8_given_cuda(h, red) for h in halves],
+                         int4=[cb.quantize_to_int4_given_cuda(h, red) for h in halves])
+            plain.update(fp8=[tb.quantize_to_fp8_given_torch(h, red) for h in halves],
+                         int4=[tb.quantize_to_int4_given_torch(h, red) for h in halves])
+        for name, w in whole.items():
+            for i, (got, ref) in enumerate(zip(given[name], plain[name])):
+                cols = slice(i * k, (i + 1) * k)
+                assert torch.equal(got[0].view(torch.int8), ref[0].view(torch.int8)), name
+                assert torch.equal(got[0].view(torch.int8), w[0][:, cols].view(torch.int8))
+                for a, b, c in zip(got[1:], ref[1:], w[1:]):
+                    assert (a is None and b is None and c is None) or (
+                        torch.equal(a, b) and torch.equal(a, c)), name
+    assert cb.quantize_stats_cuda.launches == 4
+    assert cb.quantize_to_int8_given_cuda.launches == 4
+    assert (cb.quantize_to_fp8_given_cuda.launches, cb.quantize_to_int4_given_cuda.launches) \
+        == (2, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(TP_ROWS))
+def test_tp_partial_gemms_on_card(cuda_device, shape):
+    """The f32 row partials: int8 (with and without the zero point) and int4
+    bit-exact with their plain versions, fp8 within 2^-14 of sum |a| |b|
+    (Hopper's fp8 wgmma sums a k32 step in about 14 bits, DeepSeek-V3's
+    report; the kernel adds each step into f32); two shards' partials
+    summed, plus the bias, within 1 bf16 ulp (plus that bound) of the
+    one-device bf16 GEMM."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb, torch_backend as tb
+    from fastdm_tpu_torch.layers.qlinear import quantize_weight
+    from fastdm_tpu_torch.parallel.tensor_parallel import qlinear_split_rows
+
+    m, k = TP_ROWS[shape]
+    n = 384
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    x = (torch.randn(m, 2 * k, generator=g, device=cuda_device) * 2).bfloat16()
+    w = torch.randn(2 * k, n, generator=g, device=cuda_device) * 0.05
+    b = torch.randn(n, generator=g, device=cuda_device) * 0.1
+    halves = [x[:, :k].contiguous(), x[:, k:].contiguous()]
+    for quant in ("int8", "fp8", "int4"):
+        lin = quantize_weight(w, quant, b)
+        shards = [qlinear_split_rows(lin, [(2 * k, 1)], 2, r) for r in range(2)]
+        sym = quant != "int8"
+        red = torch.maximum(*(cb.quantize_stats_cuda(h, sym) for h in halves))
+        parts, bound = [], 0.0
+        for h, s in zip(halves, shards):
+            if quant == "int8":
+                xq, xs, xzp = cb.quantize_to_int8_given_cuda(h, red, False)
+                for zp in (None, xzp):  # the zero point's term last: the layer's partial
+                    args = (xq, s.w, xs, s.scale, s.colsum, zp)
+                    got = cb.int8_matmul_partial_cuda(*args)
+                    assert got.dtype == torch.float32
+                    assert torch.equal(got, tb.int8_matmul_partial_torch(*args))
+                parts.append(got)
+            elif quant == "int4":
+                xq, xs = cb.quantize_to_int4_given_cuda(h, red)
+                args = (xq, s.w4, xs, s.scale)
+                got = cb.int4_matmul_partial_cuda(*args)
+                assert torch.equal(got, tb.int4_matmul_partial_torch(*args))
+                parts.append(got)
+            else:
+                xq, xs = cb.quantize_to_fp8_given_cuda(h, red)
+                args = (xq, s.w, xs, s.scale)
+                got = cb.fp8_matmul_partial_cuda(*args)
+                ref = tb.fp8_matmul_partial_torch(*args)
+                mag = (xs * s.scale[None, :]) * (xq.float().abs() @ s.w.float().abs())
+                bound = bound + 2.0**-14 * mag
+                assert ((got - ref).abs() <= 2.0**-14 * mag + 1e-30).all()
+                parts.append(got)
+        total = (parts[0] + parts[1] + b.bfloat16().float()).bfloat16().float()
+        if quant == "int8":
+            xq, xs, xzp = cb.quantize_to_int8_cuda(x, False)
+            one = cb.int8_matmul_cuda(xq, lin.w, xs, lin.scale, torch.bfloat16, lin.colsum, xzp,
+                                      lin.bias).float()
+        elif quant == "int4":
+            xq, xs = cb.quantize_to_int4_cuda(x)
+            one = cb.int4_matmul_cuda(xq, lin.w4, xs, lin.scale, torch.bfloat16,
+                                      lin.bias).float()
+        else:
+            xq, xs = cb.quantize_to_fp8_cuda(x)
+            one = cb.fp8_matmul_cuda(xq, lin.w, xs, lin.scale, torch.bfloat16, lin.bias).float()
+        # one bf16 ulp, plus the f32 roundings of the two partials where they cancel
+        tol = _bf16_ulp(one) + 2.0**-22 * (parts[0].abs() + parts[1].abs()) + 2 * bound
+        assert ((total - one).abs() <= tol).all(), quant
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,hd", [(40, 128), (24, 128), (5, 6)])
+def test_tp_norm_kernels_on_card(cuda_device, heads, hd):
+    """rms_sumsq within f32 rounding (1e-5 relative) of the plain sum;
+    rms_norm_given within one bf16 ulp and qk_norm_rope_given /
+    qk_norm_rope2_given within the qk_norm_rope tolerance of their plain
+    versions, in both pair layouts, the fused and two-operand forms
+    bit-identical; on a rank's heads with the whole row's statistic, the
+    whole-row kernels' values on its columns within the same tolerances."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb, torch_backend as tb
+
+    b, s = 2, 77
+    d = heads * hd
+    tp = 5 if heads == 5 else 4
+    per = d // tp
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    qkv = (torch.randn(b, s, 3 * d, generator=g, device=cuda_device) * 2).bfloat16()
+    gq = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).bfloat16()
+    gk = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).bfloat16()
+    cos, sin = _rope_tables(s, hd, cuda_device)
+    q, k = qkv[..., :d], qkv[..., d:2 * d]
+    whole_st = cb.rms_sumsq_cuda(qkv[..., :2 * d].unflatten(-1, (2, d)))
+    ref_st = tb.rms_sumsq_torch(qkv[..., :2 * d].unflatten(-1, (2, d)))
+    assert ((whole_st - ref_st).abs() <= 1e-5 * ref_st).all()
+    cols = slice(0, per)  # rank 0's heads
+    local = torch.cat([q[..., cols], k[..., cols], qkv[..., 2 * d:][..., cols]], dim=-1)
+    got = cb.rms_norm_given_cuda(q[..., cols], gq[cols], whole_st[..., 0], d, 1e-6)
+    want = tb.rms_norm_given_torch(q[..., cols], gq[cols], whole_st[..., 0], d, 1e-6)
+    assert ((got.float() - want.float()).abs() <= _bf16_ulp(want)).all()
+    whole = cb.rms_norm_cuda(q.contiguous(), gq, 1e-6)[..., cols]
+    assert ((got.float() - whole.float()).abs() <= _bf16_ulp(whole)).all()
+    for neox in (False, True):
+        fused = cb.qk_norm_rope_given_cuda(local, gq[cols], gk[cols], hd, cos, sin, whole_st, d,
+                                           neox, inner_dim=per)
+        split = cb.qk_norm_rope2_given_cuda(q[..., cols], k[..., cols], gq[cols], gk[cols], hd,
+                                            cos, sin, whole_st, d, neox)
+        plain = tb.qk_norm_rope_given_torch(local, gq[cols], gk[cols], hd, cos, sin, whole_st,
+                                            d, neox, inner_dim=per)
+        one = cb.qk_norm_rope_cuda(qkv, gq, gk, hd, cos, sin, neox, inner_dim=d)
+        for a, c, p, o in zip(fused, split, plain, one):
+            assert torch.equal(a, c)
+            assert (_pair_ulp_excess(a, p, hd if neox else 0) <= 0).all(), neox
+            assert (_pair_ulp_excess(a, o[..., cols], hd if neox else 0) <= 0).all(), neox
+
+
+@pytest.mark.gpu
+def test_tp_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+
+    x = torch.zeros(4, 64, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="stats must be float32"):
+        cb.quantize_to_int8_given_cuda(x, torch.zeros(4, 1, device=cuda_device), False)
+    with pytest.raises(ValueError, match="sumsq must be float32"):
+        cb.rms_norm_given_cuda(x, None, torch.zeros(4, dtype=torch.float64, device=cuda_device),
+                               64, 1e-6)
+    with pytest.raises(ValueError, match="n_total"):
+        cb.rms_norm_given_cuda(x, None, torch.zeros(4, device=cuda_device), 32, 1e-6)
+    a = torch.zeros(4, 64, dtype=torch.int8, device=cuda_device)
+    w = torch.zeros(8, 64, dtype=torch.int8, device=cuda_device).t()
+    s = torch.ones(4, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 without a bias"):
+        cb._w8a8_gemm("int8_matmul_partial", cb.int8_matmul_partial_cuda, a, w, s,
+                      torch.ones(8, device=cuda_device), torch.float32, None, None,
+                      torch.zeros(8, dtype=torch.bfloat16, device=cuda_device), fp8=False,
+                      partial=True)
+    with pytest.raises(ValueError, match="must be bfloat16"):
+        cb.int8_matmul_cuda(a, w, s, torch.ones(8, device=cuda_device), torch.float32,
+                            torch.zeros(8, dtype=torch.int32, device=cuda_device), None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["int8", "int4p", "fp8"])
+def test_flux_blocks_over_virtual_tp_on_card(cuda_device, quant):
+    """Two FLUX blocks of each kind at the full width (24 x 128 heads), int8
+    / int4p / fp8 with quant_mods, run as 2 virtual tp ranks on the card:
+    every rank's output identical, within relative L2 1e-2 of the unsplit
+    blocks, every tp kernel of the format launched."""
+    import copy
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.models.flux import FluxConfig, flux_init_random, flux_rope_cache, \
+        flux_run_blocks
+    from fastdm_tpu_torch.parallel.tensor_parallel import run_virtual_ranks, shard_model, \
+        virtual_groups
+
+    cfg = FluxConfig(num_layers=1, num_single_layers=1, quant=quant, quant_mods=True)
+    model = flux_init_random(3, cfg, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(24)
+    h = torch.randn(1, 256, 3072, generator=g, device=cuda_device).bfloat16()
+    e = torch.randn(1, 64, 3072, generator=g, device=cuda_device).bfloat16()
+    t = torch.randn(1, 3072, generator=g, device=cuda_device).bfloat16()
+    cos, sin = flux_rope_cache(cfg, 64, 16, 16, device=cuda_device)
+    with torch.inference_mode():
+        want = flux_run_blocks(model, cfg, h, e, t, cos, sin)
+    groups = virtual_groups(2)
+    shards = [shard_model(copy.deepcopy(model), cfg, gr) for gr in groups]
+    cb.reset_launch_counts()
+    outs = run_virtual_ranks(lambda r: flux_run_blocks(shards[r], cfg, h, e, t, cos, sin), groups)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert ((outs[0].float() - want.float()).norm() / want.float().norm()).item() <= 1e-2
+    quantizer = {"int8": cb.quantize_to_int8_given_cuda, "fp8": cb.quantize_to_fp8_given_cuda,
+                 "int4p": cb.quantize_to_int4_given_cuda}[quant]
+    gemm = {"int8": cb.int8_matmul_partial_cuda, "fp8": cb.fp8_matmul_partial_cuda,
+            "int4p": cb.int4_matmul_partial_cuda}[quant]
+    assert min(cb.quantize_stats_cuda.launches, quantizer.launches, gemm.launches) > 0

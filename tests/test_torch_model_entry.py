@@ -205,15 +205,18 @@ def test_jax_keywords_at_defaults_equal_their_absence(engines, tmp_path, family)
 def test_jax_keyword_refusals():
     """kernel_backend 'jnp' and unknown names raise ValueError (JAX's type
     for a bad backend), a mesh not of 3 or 4 axes ValueError, tp > 1
-    NotImplementedError, a larger mesh without torch.distributed
-    RuntimeError: each before any weight is read."""
+    NotImplementedError for SDXL only (FLUX takes it and then needs a
+    process group), a larger mesh without torch.distributed RuntimeError:
+    each before any weight is read."""
     for kw, exc, msg in ((dict(kernel_backend="jnp"), ValueError, "jnp"),
                          (dict(kernel_backend="cuda"), ValueError, "invalid kernel backend"),
                          (dict(mesh_shape=(1, 2)), ValueError, "mesh_shape must be"),
-                         (dict(mesh_shape=(1, 1, 2)), NotImplementedError, "tp > 1"),
+                         (dict(mesh_shape=(1, 1, 2), architecture="sdxl"), NotImplementedError,
+                          "tp > 1"),
+                         (dict(mesh_shape=(1, 1, 2)), RuntimeError, "torchrun"),
                          (dict(mesh_shape=(2, 1, 1, 1)), RuntimeError, "torchrun")):
         with pytest.raises(exc, match=msg):
-            teng.FastDMEngine("/nonexistent", architecture="flux", device="cpu", **kw)
+            teng.FastDMEngine("/nonexistent", device="cpu", **dict(dict(architecture="flux"), **kw))
 
 
 def test_wan_t2i_runs_t2v_or_i2v(engines, tmp_path):
@@ -367,9 +370,11 @@ def _args(*extra):
 def test_port_refusals_and_engine_kwargs():
     with pytest.raises(ValueError, match="jnp"):
         targs.engine_kwargs(_args("--kernel-backend", "jnp"))
-    # tp > 1 waits for the tp slice of parallel/ (ROADMAP.md section 1, item 1)
+    # tp > 1 for SDXL waits for its split (ROADMAP.md section 1, item 1); the
+    # other families take it
     with pytest.raises(NotImplementedError, match="item 1"):
-        targs.engine_kwargs(_args("--mesh-shape", "1,1,2"))
+        targs.engine_kwargs(_args("--mesh-shape", "1,1,2", "--architecture", "sdxl"))
+    assert targs.engine_kwargs(_args("--mesh-shape", "1,1,2"))["mesh_shape"] == (1, 1, 2)
     kw = targs.engine_kwargs(_args("--mesh-shape", "1,1,1", "--use-int8", "--device", "cpu",
                                    "--architecture", "wan-lightning"))
     assert kw["use_int8"] and kw["device"] == "cpu" and kw["architecture"] == "wan-lightning"

@@ -121,13 +121,19 @@ def task_ring(cases):
     return outs
 
 
-def _load(family: str, sd_path: str, cfg_kw: dict, stage_blocks=None):
+def _load(family: str, sd_path: str, cfg_kw: dict, stage_blocks=None, tp=None):
+    """The family's model from a state-dict file; tp: a TPGroup whose
+    rank's shard of each block the loader keeps."""
     from safetensors.torch import load_file
 
     from fastdm_tpu_torch.models.loader import TensorSource
 
     src = TensorSource(load_file(sd_path), "cpu")
     src.stage_blocks = stage_blocks
+    if tp is not None:
+        from fastdm_tpu_torch.parallel.tensor_parallel import shard_block
+
+        src.shard = lambda path, block: shard_block(block, path, cfg, tp)
     if family == "flux":
         from fastdm_tpu_torch.models.flux import FluxConfig, flux_load
 
@@ -138,6 +144,11 @@ def _load(family: str, sd_path: str, cfg_kw: dict, stage_blocks=None):
 
         cfg = WanConfig(**cfg_kw)
         return wan_load(src, cfg), cfg
+    if family == "sd35":
+        from fastdm_tpu_torch.models.sd35 import SD3Config, sd3_load
+
+        cfg = SD3Config(**cfg_kw)
+        return sd3_load(src, cfg), cfg
     from fastdm_tpu_torch.models.qwenimage import QwenImageConfig, qwen_load
 
     cfg = QwenImageConfig(**cfg_kw)
@@ -161,6 +172,10 @@ def run_blocks(family: str, params, cfg, inputs: dict):
 
         return wan_run_blocks(params, cfg, inputs["hidden"], inputs["encoder"], inputs["temb"],
                               inputs["cos"], inputs["sin"])
+    if family == "sd35":
+        from fastdm_tpu_torch.models.sd35 import sd3_run_blocks
+
+        return sd3_run_blocks(params, cfg, inputs["hidden"], inputs["encoder"], inputs["temb"])
     from fastdm_tpu_torch.models.qwenimage import qwen_run_blocks
 
     return qwen_run_blocks(params, cfg, inputs["hidden"], inputs["encoder"], inputs["temb"],
@@ -200,3 +215,45 @@ def task_engine(root: str, architecture: str, requests, mesh_shape=None, **engin
     outs = [eng.generate(**kw) for kw in requests]
     held = [i for i, b in enumerate(eng.params.blocks) if any(True for _ in b.parameters())]
     return outs, held
+
+
+def task_tp_blocks(family: str, sd_path: str, cfg_kw: dict, inputs: dict):
+    """The family's blocks loaded as this rank's tp shards over a (1, 1,
+    world) mesh and run on `inputs` -> (the image-stream output, bytes of
+    this rank's block parameters)."""
+    import torch.distributed as dist
+
+    from fastdm_tpu_torch.parallel.offload import module_bytes
+    from fastdm_tpu_torch.parallel.tensor_parallel import DistTPGroup, block_paths
+
+    mesh = _mesh((1, 1, dist.get_world_size()))
+    params, cfg = _load(family, sd_path, cfg_kw, tp=DistTPGroup(mesh.axis("tp")))
+    with torch.inference_mode():
+        out = run_blocks(family, params, cfg, inputs)
+    return out, sum(module_bytes(params.get_submodule(p)) for p in block_paths(params))
+
+
+def task_tp_engine(root: str, architecture: str, requests, mesh_shape, vae_kw=None,
+                   sparse_gather=None, **engine_kw):
+    """A CPU FastDMEngine over root under mesh_shape -> ([(each request's
+    output, the engine's cache skips after it)], the row-parallel QLinears
+    of its denoiser). vae_kw: the tiny AutoencoderKL config of the family
+    (the tests' shrunk VAE); sparse_gather: FASTDM_SPARSE_GATHER for the
+    call (the engine's radial sparse mode)."""
+    import fastdm_tpu_torch.engine as teng
+
+    os.environ.pop("FASTDM_SPARSE_GATHER", None)
+    if sparse_gather is not None:
+        os.environ["FASTDM_SPARSE_GATHER"] = sparse_gather
+    from fastdm_tpu_torch.pipeline.vae import VAEConfig
+
+    if vae_kw is not None:
+        teng.VAE_CONFIGS[teng.ARCHITECTURES[architecture]] = VAEConfig(**vae_kw)
+    eng = teng.FastDMEngine(root, architecture=architecture, verbose=False, device="cpu",
+                            mesh_shape=mesh_shape, **engine_kw)
+    outs = []
+    for kw in requests:
+        outs.append((eng.generate(**kw), eng.last_cache_skips))
+    trees = [eng.params] + ([eng.params_2] if getattr(eng, "params_2", None) is not None else [])
+    n_row = sum(getattr(m, "tp_reduce", None) is not None for t in trees for m in t.modules())
+    return outs, n_row
