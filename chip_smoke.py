@@ -275,7 +275,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
      TP_FORWARD_REL_L2_TOL of the unsharded forward, every rank identical,
      the launches of each tp forward equal to tp_rank_launches times the
      ranks, each rank's resident bytes equal to tp_rank_bytes; seconds and
-     GiB on a [tp] line after [done].
+     GiB on a [tp] line after [done]. SDXL-base: the tp variants and
+     gelu_and_mul at its shard shapes over tp 2 (_tp_sdxl_kernels), the
+     int8 UNet at full width and depth, 1024x2048, CFG batch 2 and batch 1,
+     over 2 and 4 ranks (at 4 the ten-head 640-wide blocks keep their
+     attention whole, their GEGLU split), fp8 and bf16 at attn_layers
+     TP_SDXL_CUT; the SDXL ControlNet (controlnet-canny-sdxl-1.0's shape,
+     int8) and the union FLUX ControlNet (5 + 10 blocks, int8) over 2.
+  cli (the end of phase 4): the rank-0 request loop (parallel/request_loop.py: LeadEngine
+     on an NCCL process group of one) answering /generate on a FLUX int8
+     engine, its PNG equal to generate()'s; examples/demo/gen_torch.py
+     writing a FLUX int8 1024x2048 image (one warmup), its launches derived;
+     examples/xcaching/fit_teacache_torch.py on random full-depth FLUX.1-dev
+     int8 at 1024x1024 for 4 steps, launches 4 forwards.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -5277,6 +5289,7 @@ def phase_engine(dev, summary: Optional[dict] = None) -> None:
             _engine_mmdit(dev, here, summary)
         finally:
             TEXT_DIRS.clear()
+    _cli_fitter(dev)
 
 
 def _engine_flux(dev, here: str, summary: dict) -> None:
@@ -5396,6 +5409,127 @@ def _engine_flux(dev, here: str, summary: dict) -> None:
                 summary["engine_tiled_generate_1024x2048_s"] = round(sec, 4)
             del eng
             torch.cuda.empty_cache()
+        _engine_cli(dev, root)
+
+
+def _engine_cli(dev, root: str) -> None:
+    """On phase 4's FLUX checkpoint (FLUX.1-dev widths, one dual + one single
+    block, the text encoders linked), int8: the rank-0 request loop
+    (parallel/request_loop.py's LeadEngine under an NCCL process group of
+    one, the request's arguments broadcast before generate) answering a
+    1024x2048 /generate from a prompt string, its PNG equal to generate()'s
+    and its launches STEPS forwards, and a refused request (never
+    broadcast); then examples/demo/gen_torch.py's main() writing a 1024x2048
+    image (one warmup, as the CLI's default), the PNG read back equal to
+    what main() returned, its launches 2 x STEPS forwards."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fastdm_tpu_torch.engine import FastDMEngine
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.parallel import request_loop
+    from fastdm_tpu_torch.utils.png import read_image
+
+    eng = FastDMEngine(root, architecture="flux", use_int8=True, verbose=False, device=dev)
+    per = flux_forward_launches(eng.cfg)
+    api = _repo_module("examples/serve/api_server_torch.py", "smoke_api_server_torch")
+    os.environ["MASTER_ADDR"] = "127.0.0.1"
+    os.environ["MASTER_PORT"] = str(_free_port())
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        lead = request_loop.LeadEngine(eng)
+        routes = api.Routes(lead, SERVE_MODEL)
+        req = api.GenerateRequest(model=SERVE_MODEL, prompt=TEXT_PROMPTS[0], steps=STEPS,
+                                  seed=36, width=2048, height=1024, guidance_scale=3.5)
+        cuda_backend.reset_launch_counts()
+        resp, sec = _request_s(routes.generate, req)
+        counts = _launch_counts()
+        try:
+            routes.generate(api.GenerateRequest(model=SERVE_MODEL, prompt="  "))
+            refused = None
+        except api.HTTPError as e:
+            refused = e.status_code
+        lead.shutdown()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    got = api.base64_to_image(resp.image)
+    want = eng.generate(prompt=TEXT_PROMPTS[0], num_inference_steps=STEPS, seed=36, width=2048,
+                        height=1024, guidance_scale=3.5)[0]
+    derived = {k: STEPS * v for k, v in per.items()}
+    same = got.shape == want.shape and np.array_equal(got, want)
+    log(f"[cli loop] /generate 1024x2048 through LeadEngine ({backend}, world 1): {sec:.3f} s "
+        f"(generate {routes.timings['generate_s']:.3f} s), PNG equal to generate(): {same}; "
+        f"an empty prompt -> {refused}; launches as derived ({STEPS} forwards): "
+        f"{counts == derived}")
+    if not (same and refused == 400 and counts == derived):
+        raise AssertionError(f"the request loop: image equal {same}, refusal {refused}, "
+                             f"launches {counts} != {derived}")
+    FRONTEND_SUMMARY["loop_generate_1024x2048_s"] = round(sec, 4)
+    del eng
+    torch.cuda.empty_cache()
+
+    gen = _repo_module("examples/demo/gen_torch.py", "smoke_gen_torch")
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(root), prefix=".smoke-cli-") as out:
+        path = os.path.join(out, "flux.png")
+        cuda_backend.reset_launch_counts()
+        images, sec = _timed(gen.main, ["--model-path", root, "--use-int8", "--prompt",
+                                        TEXT_PROMPTS[0], "--height", "1024", "--width", "2048",
+                                        "--num-inference-steps", str(STEPS), "--seed", "37",
+                                        "--device", dev.type, "--output", path])
+        counts = _launch_counts()
+        img = read_image(path)
+    derived = {k: 2 * STEPS * v for k, v in per.items()}
+    same = img.shape == (1024, 2048, 3) and np.array_equal(img, images[0])
+    log(f"[cli gen] gen_torch.py --use-int8 1024x2048 {STEPS} steps (load, one warmup, the "
+        f"timed generate, the PNG save): {sec:.3f} s; the PNG {img.shape} equal to the "
+        f"returned image: {same}; launches as derived (2 x {STEPS} forwards): "
+        f"{counts == derived}")
+    if not (same and counts == derived):
+        raise AssertionError(f"gen_torch.py: image {same}, launches {counts} != {derived}")
+    FRONTEND_SUMMARY["gen_torch_1024x2048_s"] = round(sec, 4)
+
+
+def _cli_fitter(dev) -> None:
+    """examples/xcaching/fit_teacache_torch.py's main() on random full-depth
+    FLUX.1-dev int8 (19 + 38 blocks) at 1024x1024 for 4 steps: three finite
+    (x, y) pairs, the JSON written with three coefficients (a degree-2 fit),
+    launches 4 forwards (the probe is a bf16 modulation, the velocity the
+    head on the recorded block output)."""
+    import tempfile
+
+    import numpy as np
+
+    from fastdm_tpu_torch.kernels import cuda_backend
+    from fastdm_tpu_torch.models.flux import FluxConfig
+
+    fit = _repo_module("examples/xcaching/fit_teacache_torch.py", "smoke_fit_teacache_torch")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix=".smoke-fit-") as out:
+        path = os.path.join(out, "teacache_flux.json")
+        cuda_backend.reset_launch_counts()
+        (xs, ys), sec = _timed(fit.main, ["--architecture", "flux", "--use-int8", "--steps", "4",
+                                          "--height", "1024", "--width", "1024", "--device",
+                                          dev.type, "--output", path])
+        counts = _launch_counts()
+        with open(path) as f:
+            written = json.load(f)
+    full = FluxConfig(quant="int8", num_layers=19, num_single_layers=38)  # the fitter's default
+    derived = {k: 4 * v for k, v in flux_forward_launches(full).items()}
+    ok = (len(xs) == len(ys) == 3 and np.isfinite(xs + ys).all()
+          and len(written["coefficients"]) == 3)
+    log(f"[cli fit] fit_teacache_torch.py FLUX.1-dev int8 random weights, 1024x1024, 4 steps "
+        f"(init included): {sec:.3f} s; pairs {[(round(a, 5), round(b, 5)) for a, b in zip(xs, ys)]}"
+        f", coefficients {written['coefficients']}; launches as derived (4 forwards): "
+        f"{counts == derived}")
+    if not (ok and counts == derived):
+        raise AssertionError(f"fit_teacache_torch.py: pairs {xs} {ys}, launches {counts} != "
+                             f"{derived}")
+    FRONTEND_SUMMARY["fit_teacache_flux_1024_s"] = round(sec, 4)
 
 
 def _resize_branch() -> str:
@@ -7680,7 +7814,26 @@ def _tp_linears(quant, column: int, row: int) -> dict:
     return counts
 
 
-def tp_rank_launches(family: str, cfg, tokens: int = 0, mode=None, blocks=None) -> dict:
+def _sdxl_tp_linears(cfg, levels, t2ds: int, resnets: int, size: int):
+    """(column, row) quantized linears of one SDXL UNet or ControlNet
+    forward on a tp rank: per block whose heads `size` divides, q|k|v, q,
+    k|v and the GEGLU proj column, the two out-projections and ff.out row;
+    per block whose heads it does not divide, the five attention linears
+    whole (as column ones: the rank's own quantizer and GEMM), the GEGLU
+    proj column, ff.out row; proj_in / proj_out per Transformer2D and
+    time_emb_proj per resnet whole."""
+    column, row = 2 * t2ds + resnets, 0
+    for (n, _), c in zip(levels, cfg.block_channels[1:]):
+        if (4 * c) % size:
+            raise ValueError(f"tp {size} does not divide SDXL's GEGLU width {4 * c}")
+        split = (c // cfg.head_dim) % size == 0
+        column += n * (4 if split else 6)
+        row += n * (3 if split else 1)
+    return column, row
+
+
+def tp_rank_launches(family: str, cfg, tokens: int = 0, mode=None, blocks=None,
+                     size: int = 2) -> dict:
     """One tp rank's kernel launches in one forward, read off
     parallel/tensor_parallel.py's shard_block and the families' forwards
     (every split divides in this phase's models): the attention kernels and
@@ -7695,7 +7848,9 @@ def tp_rank_launches(family: str, cfg, tokens: int = 0, mode=None, blocks=None) 
     head's norm_out and proj_out (whole); row their outputs. Wan
     (wan_forward_launches over `blocks` at `tokens` in `mode`): each norm
     across heads an rms_sumsq and the given-statistics form of its kernel;
-    row 2 + chunks a block, column the rest."""
+    row 2 + chunks a block, column the rest. SDXL ("sdxl": the UNet,
+    "sdxl-cn": the ControlNet's down / mid stages) at tp `size`: per block
+    two sdpa and one gelu_and_mul, the linears of _sdxl_tp_linears."""
     counts = dict.fromkeys(list(_launch_counts()) + list(TP_KERNELS), 0)
     if family == "flux":
         d, s = cfg.num_layers, cfg.num_single_layers
@@ -7723,20 +7878,29 @@ def tp_rank_launches(family: str, cfg, tokens: int = 0, mode=None, blocks=None) 
         nblocks = cfg.num_layers if blocks is None else len(blocks)
         row = nblocks * (2 + chunks)
         column = base[f"{cfg.quant}_matmul"] - nblocks * 3 * chunks
+    elif family in ("sdxl", "sdxl-cn"):
+        n1, n2 = cfg.attn_layers[1], cfg.attn_layers[2]
+        levels = sdxl_level_blocks(cfg) if family == "sdxl" else ((2 * n1, 2), (3 * n2, 3))
+        nblocks = sum(n for n, _ in levels)
+        counts.update(sdpa=2 * nblocks, gelu_and_mul=nblocks)
+        column, row = _sdxl_tp_linears(cfg, levels, sum(t for _, t in levels),
+                                       17 if family == "sdxl" else 8, size)
     else:
         raise ValueError(family)
     counts.update(_tp_linears(cfg.quant, column, row))
     return counts
 
 
-def tp_rank_bytes(model, size: int) -> int:
+def tp_rank_bytes(model, size: int, cfg=None) -> int:
     """A rank's resident bytes by the name rules alone (parallel/mesh.py
     tp_kind): of each QLinear of the blocks that they make column, every
     tensor with an output dim at 1/size (lora_u whole); of each row one,
     every tensor with an input dim (w / w4 / w4p, lora_u) at 1/size, the
     per-column bias, scale, colsum and lora_v whole; Wan's across-heads norm
-    weights (D wide) at 1/size; the rest whole."""
+    weights (D wide) at 1/size; the attention linears of an SDXL block whose
+    heads (cfg.head_dim wide) size does not divide whole; the rest whole."""
     from fastdm_tpu_torch.layers.qlinear import QLinear
+    from fastdm_tpu_torch.models.sdxl import SDXLTransformerBlock
     from fastdm_tpu_torch.models.wan import WanCrossAttention, WanSelfAttention
     from fastdm_tpu_torch.parallel.mesh import tp_kind
     from fastdm_tpu_torch.parallel.offload import module_bytes
@@ -7748,7 +7912,12 @@ def tp_rank_bytes(model, size: int) -> int:
 
     cut = 0
     for bpath in block_paths(model):
-        for name, m in model.get_submodule(bpath).named_modules():
+        block = model.get_submodule(bpath)
+        whole_attn = isinstance(block, SDXLTransformerBlock) and \
+            (block.norm1["gamma"].numel() // cfg.head_dim) % size
+        for name, m in block.named_modules():
+            if whole_attn and name.startswith("attn"):
+                continue
             if isinstance(m, QLinear):
                 kind = tp_kind(f"{bpath}.{name}")
                 if kind == "column":
@@ -7767,9 +7936,10 @@ def _tp_forwards(label: str, model, cfg, forward, sizes, tol: float, launches: d
     ranks for each size: every rank's output identical, within relative L2
     `tol` of the unsharded forward; the counters zeroed just before the
     timed tp forward and its launches equal to `size` times `launches` (one
-    rank's, tp_rank_launches); each rank's resident bytes equal to
-    tp_rank_bytes; seconds (all ranks on one card), GiB
-    and launches into TP_SUMMARY, the variants' launches into TP_LAUNCHES."""
+    rank's, tp_rank_launches; a function of the size where they depend on
+    it); each rank's resident bytes equal to tp_rank_bytes; seconds (all
+    ranks on one card), GiB and launches into TP_SUMMARY, the variants'
+    launches into TP_LAUNCHES."""
     import torch
 
     from fastdm_tpu_torch.kernels import cuda_backend
@@ -7794,7 +7964,7 @@ def _tp_forwards(label: str, model, cfg, forward, sizes, tol: float, launches: d
         groups = virtual_groups(size)
         shards = [shard_copy(model, cfg, gr) for gr in groups]
         gib = [module_bytes(s) / 2**30 for s in shards]
-        want_bytes = tp_rank_bytes(model, size)
+        want_bytes = tp_rank_bytes(model, size, cfg)
         if any(module_bytes(s) != want_bytes for s in shards):
             raise AssertionError(f"{label} over {size} virtual tp ranks: resident bytes a rank "
                                  f"{[module_bytes(s) for s in shards]}, the name rules give "
@@ -7804,7 +7974,8 @@ def _tp_forwards(label: str, model, cfg, forward, sizes, tol: float, launches: d
         cuda_backend.reset_launch_counts()
         outs, secs = timed(lambda: run_virtual_ranks(lambda r: forward(shards[r]), groups))
         got = {**_launch_counts(), **_tp_launches()}
-        want_n = {k: size * launches.get(k, 0) for k in got}
+        per_rank = launches(size) if callable(launches) else launches
+        want_n = {k: size * per_rank.get(k, 0) for k in got}
         if got != want_n:
             diff = {k: (got[k], want_n[k]) for k in got if got[k] != want_n[k]}
             raise AssertionError(f"{label} over {size} virtual tp ranks: launches (counted, "
@@ -7828,6 +7999,207 @@ def _tp_forwards(label: str, model, cfg, forward, sizes, tol: float, launches: d
         torch.cuda.empty_cache()
     TP_SUMMARY[label] = out
     return out
+
+
+# the cut depth of the fp8 and bf16 SDXL UNets over virtual tp (the int8
+# one runs at full depth): two blocks a Transformer2D at both levels
+TP_SDXL_CUT = (0, 2, 2)
+
+
+def _tp_sdxl_kernels(dev) -> None:
+    """The tp variants and gelu_and_mul at SDXL-base's shard shapes over tp
+    2 (1024x2048, CFG batch 2): at each level the ff.out row shard's input
+    (M = 2 x 8192, K = 1280 of 2560; M = 2 x 2048, K = 2560 of 5120) through
+    quantize_stats, the int8 (asymmetric) and fp8 given-statistics
+    quantizers and the int8 / fp8 f32 partials to N = the level's width, and
+    gelu_and_mul on the GEGLU column shard (the rank's hidden | gate, M x 2K):
+    each held to its plain version as in _tp_kernels (the statistics, the
+    quantizers and the int8 partial bit-exact, the fp8 partial within
+    FP8_PARTIAL_REL of its sum of |a| |b|, gelu_and_mul within one bf16 ulp)
+    and timed beside its bound, its plain version and a library call where
+    one computes the same function. Rows into TP_SUMMARY["sdxl_shapes"]."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+    from fastdm_tpu_torch.models.sdxl import SDXLConfig
+    from fastdm_tpu_torch.parallel.tensor_parallel import qlinear_split_rows
+
+    def same(a, b):
+        return all((u is None and v is None) or torch.equal(
+            u.view(torch.int8) if u.dtype == torch.float8_e4m3fn else u,
+            v.view(torch.int8) if v.dtype == torch.float8_e4m3fn else v) for u, v in zip(a, b))
+
+    cfg = SDXLConfig()
+    g = torch.Generator(device=dev).manual_seed(71)
+    rows = TP_SUMMARY.setdefault("sdxl_shapes", {})
+    for tokens, c in sdxl_levels(cfg):
+        m, k, n = SDXL_BATCH * tokens, 2 * c, c
+        x = (torch.randn(m, k, generator=g, device=dev) * 2).bfloat16()
+        timed = {"quantize_stats": (lambda x=x: cb.quantize_stats_cuda(x, False),
+                                    lambda x=x: tb.quantize_stats_torch(x, False),
+                                    2 * m * k + 8 * m, 2 * m * k, 0.0,
+                                    lambda x=x: torch.aminmax(x, dim=-1))}
+        for sym, quant in ((False, "int8"), (True, "fp8")):
+            st = cb.quantize_stats_cuda(x, sym)
+            if not torch.equal(st, tb.quantize_stats_torch(x, sym)):
+                raise AssertionError(f"quantize_stats at SDXL {m}x{k} is not bit-exact")
+            if quant == "int8":
+                kern = functools.partial(cb.quantize_to_int8_given_cuda, x, st, False)
+                plain = functools.partial(tb.quantize_to_int8_given_torch, x, st, False)
+            else:
+                kern = functools.partial(cb.quantize_to_fp8_given_cuda, x, st)
+                plain = functools.partial(tb.quantize_to_fp8_given_torch, x, st)
+            q = kern()
+            if not same(q, plain()):
+                raise AssertionError(f"quantize_to_{quant}_given at SDXL {m}x{k} is not bit-exact")
+            timed[f"quantize_to_{quant}_given"] = (kern, plain, _quantize_bytes(m, k, sym) + 8 * m,
+                                                   5 * m * k, None, None)
+            shard = qlinear_split_rows(qlinear_random(g, 2 * k, n, quant=quant, device=dev),
+                                       [(2 * k, 1)], 2, 0)
+            args = (q[0], shard.w, q[1], shard.scale) + \
+                ((shard.colsum, q[2]) if quant == "int8" else ())
+            pk = getattr(cb, f"{quant}_matmul_partial_cuda")
+            pp = getattr(tb, f"{quant}_matmul_partial_torch")
+            got, want = pk(*args), pp(*args)
+            if quant == "int8":
+                ok = torch.equal(got, want)
+            else:
+                mag = (q[1] * shard.scale[None, :]) * (q[0].float().abs() @ shard.w.float().abs())
+                ok = bool(((got - want).abs() <= FP8_PARTIAL_REL * mag + 1e-30).all())
+                del mag
+            if not ok:
+                raise AssertionError(f"{quant}_matmul_partial at SDXL {m}x{k}x{n} disagrees with "
+                                     "its plain version")
+            lib = None
+            if quant == "fp8":
+                def lib(args=args):
+                    return torch._scaled_mm(args[0], args[1], scale_a=args[2],
+                                            scale_b=args[3].reshape(1, -1),
+                                            out_dtype=torch.float32)
+            timed[f"{quant}_matmul_partial"] = (
+                functools.partial(pk, *args), functools.partial(pp, *args),
+                m * k + k * n + 4 * m * n + 8 * m + 8 * n, 2 * m * n * k,
+                (got - want).abs().max().item(), lib)
+            del got, want
+        h = (torch.randn(m, 2 * k, generator=g, device=dev) * 2).bfloat16()
+        got, want = cb.gelu_and_mul_cuda(h), tb.gelu_and_mul_torch(h)
+        ulps = ((got.float() - want.float()).abs() / bf16_ulp(want)).max().item()
+        if not ulps <= 1.0:
+            raise AssertionError(f"gelu_and_mul on SDXL's column shard {m}x{2 * k}: {ulps} ulp")
+        timed["gelu_and_mul"] = (lambda h=h: cb.gelu_and_mul_cuda(h),
+                                 lambda h=h: tb.gelu_and_mul_torch(h), 3 * m * k * 2,
+                                 GELU_MUL_OPS * m * k, (got.float() - want.float()).abs().max().item(),
+                                 None)
+        del got, want
+        for name, (kern, plain, nbytes, ops, err, lib_call) in timed.items():
+            peak = INT8_FP8_OPS if name.endswith("_partial") else F32_FLOPS
+            b_ms, b_by = bound(nbytes, ops, peak)
+            ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 2, 1)
+            lib_ms = None
+            if lib_call is not None:  # a yardstick only; the port never calls it
+                try:
+                    lib_ms = cuda_ms(lib_call, 20)
+                except (RuntimeError, TypeError, ValueError) as e:
+                    log(f"[tp sdxl] {name}: library call unavailable "
+                        f"({str(e).splitlines()[0][:120]})")
+            shape = f"{m}x{2 * k}" if name == "gelu_and_mul" else \
+                f"{m}x{k}x{n}" if name.endswith("_partial") else f"{m}x{k}"
+            log(f"[tp sdxl] {name} at {shape} (SDXL tp 2, width {c}): {ms:.4f} ms "
+                f"({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f} ms, "
+                f"library {lib_ms} ms; against its plain version: "
+                f"{'bit-exact' if err in (None, 0.0) else f'max_abs_err {err:.3e}'}")
+            rows[f"{name}@{shape}"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                                          plain_ms=plain_ms, library_ms=lib_ms)
+        del x, h, timed
+        torch.cuda.empty_cache()
+
+
+def _tp_sdxl(dev) -> None:
+    """SDXL-base and the two ControlNets over virtual tp ranks: the int8 UNet
+    at full width and depth, 1024x2048, CFG batch 2 and batch 1 (the
+    quantizers' token view of one NCHW map), over 2 and 4 ranks; the fp8
+    and bf16 UNets at TP_SDXL_CUT the same way; the SDXL ControlNet int8
+    (batch 2, the hint at 1024x2048) and the union FLUX ControlNet int8 (5 +
+    10 blocks, control_mode 2, 1024x2048) over 2. Each held by _tp_forwards
+    to its format's kernel-vs-plain gate against the unsharded forward, its
+    launches to tp_rank_launches times the ranks; the UNets' variant
+    launches into TP_SUMMARY["sdxl_launches"]."""
+    import torch
+
+    from fastdm_tpu_torch.models.controlnets import FluxControlNetConfig, \
+        flux_controlnet_forward, flux_controlnet_init_random, sdxl_controlnet_forward, \
+        sdxl_controlnet_init_random
+    from fastdm_tpu_torch.models.flux import flux_rope_cache
+    from fastdm_tpu_torch.models.sdxl import SDXLConfig, sdxl_forward, sdxl_init_random
+
+    sdxl_launches: dict = {}
+    for quant, layers in (("int8", None), ("fp8", TP_SDXL_CUT), (None, TP_SDXL_CUT)):
+        cfg = SDXLConfig(quant=quant, **({} if layers is None else {"attn_layers": layers}))
+        unet = sdxl_init_random(61, cfg, device=dev)
+        lat, embeds, pooled, time_ids = _sdxl_conditioning(dev, 62, cfg, 1.0)
+        x = torch.cat([lat] * SDXL_BATCH).to(torch.bfloat16)
+        t = torch.full((SDXL_BATCH,), 901.0, device=dev)
+        depth = "" if layers is None else f", attn_layers {layers}"
+        for b in (SDXL_BATCH, 1):
+            out = _tp_forwards(
+                f"sdxl-{quant or 'bf16'} batch {b}{depth}", unet, cfg,
+                lambda p, b=b, cfg=cfg: sdxl_forward(p, cfg, x[:b], t[:b], embeds[:b],
+                                                     pooled[:b], time_ids[:b]),
+                TP_SIZES, SDXL_FORWARD_REL_L2_TOL[quant],
+                lambda size, cfg=cfg: tp_rank_launches("sdxl", cfg, size=size),
+                warm=quant == "int8" and b == SDXL_BATCH)
+            for size in TP_SIZES:
+                for k, v in out[f"tp{size}"]["launches"].items():
+                    sdxl_launches[k] = sdxl_launches.get(k, 0) + v
+        del unet
+        torch.cuda.empty_cache()
+    TP_SUMMARY["sdxl_launches"] = sdxl_launches
+
+    cfg = SDXLConfig(quant="int8")
+    cn = sdxl_controlnet_init_random(63, cfg, device=dev)
+    lat, embeds, pooled, time_ids = _sdxl_conditioning(dev, 64, cfg, 1.0)
+    x = torch.cat([lat] * SDXL_BATCH).to(torch.bfloat16)
+    t = torch.full((SDXL_BATCH,), 901.0, device=dev)
+    hint = torch.from_numpy(_seeded_image(65, SDXL_H, SDXL_W)).to(dev).float().div(255.0)
+    hint = hint.permute(2, 0, 1)[None].repeat(SDXL_BATCH, 1, 1, 1)
+
+    def sdxl_cn(p):
+        down, mid = sdxl_controlnet_forward(p, cfg, x, t, embeds, pooled, time_ids, hint,
+                                            conditioning_scale=CN_SCALE)
+        return torch.cat([r.flatten() for r in (*down, mid)])
+
+    _tp_forwards("sdxl-controlnet-int8 batch 2", cn, cfg, sdxl_cn, (2,),
+                 SDXL_CN_REL_L2_TOL["controlnet"],
+                 lambda size: tp_rank_launches("sdxl-cn", cfg, size=size), warm=False)
+    del cn, hint
+    torch.cuda.empty_cache()
+
+    cn_cfg = FluxControlNetConfig(quant="int8", num_layers=UNION_LAYERS,
+                                  num_single_layers=UNION_SINGLE, guidance_embeds=True)
+    fcn = flux_controlnet_init_random(66, cn_cfg, device=dev, num_modes=UNION_MODES)
+    g = torch.Generator(device=dev).manual_seed(67)
+    hx, hint = (torch.randn(1, IMG_TOKENS, cn_cfg.in_channels, generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+    enc = torch.randn(1, TXT_TOKENS, cn_cfg.joint_attention_dim, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    pooled = torch.randn(1, cn_cfg.pooled_projection_dim, generator=g, device=dev,
+                         dtype=torch.bfloat16)
+    cos, sin = flux_rope_cache(cn_cfg, UNION_TEXT, FLUX_HT, FLUX_WT, device=dev)
+    ft, guidance = torch.full((1,), 0.75, device=dev), torch.full((1,), 3.5, device=dev)
+
+    def flux_cn(p):
+        bs, sbs = flux_controlnet_forward(p, cn_cfg, hx, hint, enc, pooled, ft, cos, sin,
+                                          guidance=guidance, conditioning_scale=CN_SCALE,
+                                          control_mode=UNION_MODE)
+        return torch.cat([bs, sbs])
+
+    _tp_forwards(f"flux-union-controlnet-int8 ({UNION_LAYERS} + {UNION_SINGLE} blocks)", fcn,
+                 cn_cfg, flux_cn, (2,), FLUX_CN_REL_L2_TOL, tp_rank_launches("flux", cn_cfg),
+                 warm=False)
+    del fcn
+    torch.cuda.empty_cache()
 
 
 def phase_tp(dev) -> dict:
@@ -7955,6 +8327,8 @@ def phase_tp(dev) -> dict:
                  TP_FORWARD_REL_L2_TOL["sd35"], tp_rank_launches("sd35", scfg))
     del sd3
     torch.cuda.empty_cache()
+    _tp_sdxl_kernels(dev)
+    _tp_sdxl(dev)
     launches = dict(TP_LAUNCHES)
     log(f"[tp] variant launches over the phase's timed tp forwards: {launches}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")

@@ -18,6 +18,12 @@ imports, and refused with 400, naming its format, where it does not.
 
     python examples/serve/api_server_torch.py --model-path CKPT \\
         --architecture flux --use-int8 --served-model-name flux
+
+On a mesh, one process a device; rank 0 listens and broadcasts each
+request to the other ranks (fastdm_tpu_torch/parallel/request_loop.py):
+
+    torchrun --nproc-per-node 4 examples/serve/api_server_torch.py \\
+        --model-path CKPT --mesh-shape 1,1,4 --use-int8 --served-model-name flux
 """
 
 from __future__ import annotations
@@ -26,7 +32,6 @@ import argparse
 import base64
 import binascii
 import dataclasses
-import io
 import logging
 import os
 import sys
@@ -39,8 +44,9 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
 from fastdm_tpu_torch.common_args import add_engine_args, engine_kwargs  # noqa: E402
+from fastdm_tpu_torch.parallel import request_loop  # noqa: E402
 from fastdm_tpu_torch.pipeline.image_processor import resize_lanczos  # noqa: E402
-from fastdm_tpu_torch.utils.png import SIGNATURE, decode_png, encode_png  # noqa: E402
+from fastdm_tpu_torch.utils.png import decode_image_bytes, encode_png  # noqa: E402
 
 logger = logging.getLogger("fastdm_tpu_torch.serve")
 
@@ -103,34 +109,6 @@ class ModelInfo:
 def image_to_base64(image) -> str:
     """An (H, W, 3) uint8 array -> base64 PNG."""
     return base64.b64encode(encode_png(np.asarray(image, np.uint8))).decode()
-
-
-def _image_format(data: bytes) -> str:
-    for magic, name in ((SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"GIF87a", "GIF"),
-                        (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
-                        (b"MM\x00*", "TIFF")):
-        if data.startswith(magic):
-            return name
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WEBP"
-    return "unknown"
-
-
-def decode_image_bytes(data: bytes) -> np.ndarray:
-    """Encoded image bytes -> (H, W, 3) uint8 RGB: PNG by the port's codec,
-    any other format through PIL where PIL imports."""
-    fmt = _image_format(data)
-    if fmt == "PNG":
-        return decode_png(data)
-    try:
-        from PIL import Image
-    except ImportError:
-        raise ValueError(
-            f"{fmt} images need PIL, which is not installed here; send a PNG") from None
-    try:
-        return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
-    except OSError as e:  # PIL's UnidentifiedImageError among them
-        raise ValueError(f"{fmt} image does not decode: {e}") from e
 
 
 def base64_to_image(b64: str) -> np.ndarray:
@@ -366,7 +344,7 @@ def make_engine(args):
     wan_lightning = args.architecture in LIGHTNING
     if wan_lightning:
         args.architecture = LIGHTNING[args.architecture]
-    return FastDMEngine(**engine_kwargs(args, single_device="the API server")), wan_lightning
+    return FastDMEngine(**engine_kwargs(args)), wan_lightning
 
 
 def main(argv=None):
@@ -379,8 +357,9 @@ def main(argv=None):
     t0 = time.time()
     engine, wan_lightning = make_engine(args)
     logger.info("Model loading latency: %.4f seconds", time.time() - t0)
-    uvicorn.run(build_app(engine, args.served_model_name, wan_lightning), host=args.host,
-                port=args.port)
+    # on a mesh, rank 0 serves and the other ranks follow its broadcasts
+    request_loop.serve(engine, lambda eng: uvicorn.run(
+        build_app(eng, args.served_model_name, wan_lightning), host=args.host, port=args.port))
 
 
 if __name__ == "__main__":

@@ -8,6 +8,12 @@ The multi-model router (multi_model_gradio.py) needs no port: it speaks
 HTTP to any server with this schema, api_server_torch.py's included.
 
     python examples/serve/gradio_launch_torch.py --model-path CKPT --architecture flux
+
+On a mesh, one process a device, rank 0 serving the UI and broadcasting
+each request to the other ranks (fastdm_tpu_torch/parallel/request_loop.py):
+
+    torchrun --nproc-per-node 2 examples/serve/gradio_launch_torch.py \\
+        --model-path CKPT --architecture flux --mesh-shape 1,1,2
 """
 
 import argparse
@@ -19,6 +25,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from fastdm_tpu_torch.common_args import add_engine_args, engine_kwargs  # noqa: E402
+from fastdm_tpu_torch.parallel import request_loop  # noqa: E402
 
 EXAMPLE_PROMPTS = [
     ["a photo of an astronaut riding a horse on mars"],
@@ -34,9 +41,6 @@ def main():
     except ImportError:
         raise SystemExit("gradio not installed in this environment") from None
 
-    from api_server_torch import decode_image_bytes, process_multiple_images
-    from ui_common import GenerationHistory, format_gen_info
-
     parser = argparse.ArgumentParser("fastdm_tpu_torch gradio ui")
     add_engine_args(parser)
     parser.add_argument("--host", default="0.0.0.0")
@@ -47,7 +51,14 @@ def main():
 
     from fastdm_tpu_torch.engine import FastDMEngine
 
-    engine = FastDMEngine(**engine_kwargs(args, single_device="the Gradio UI"))
+    request_loop.serve(FastDMEngine(**engine_kwargs(args)), lambda eng: _launch(gr, args, eng))
+
+
+def _launch(gr, args, engine):
+    """The UI on `engine` (rank 0's LeadEngine on a mesh), until it closes."""
+    from api_server_torch import decode_image_bytes, process_multiple_images
+    from ui_common import GenerationHistory, format_gen_info
+
     history = GenerationHistory(args.history_dir, args.history_limit)
     is_qwen = args.architecture.startswith("qwen")
 

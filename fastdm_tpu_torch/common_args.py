@@ -7,16 +7,15 @@ differently here:
     kernels; "jnp" is refused by `check_engine_args` (the plain PyTorch
     versions serve CPU tensors only).
   * --mesh-shape parses as in JAX and reaches the engine (one process a
-    device under torchrun); `check_engine_args` refuses tp > 1 for sdxl
-    (not split yet) and, for the single-process front-ends, any mesh of
-    more than one device.
+    device under torchrun); the API server and the Gradio UI then take
+    requests on rank 0 and broadcast them to the other ranks
+    (parallel/request_loop.py).
   * --use-int4 states no device rate in its help text.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Optional
 
 
 def add_engine_args(parser: argparse.ArgumentParser,
@@ -95,37 +94,18 @@ def parse_mesh_shape(val):
     return tuple(int(x) for x in val.split(","))
 
 
-def check_engine_args(args, single_device: Optional[str] = None) -> None:
-    """Refuse what the port does not run: --kernel-backend jnp, a mesh with
-    tp > 1 for sdxl, and (for a front-end named by single_device: the API
-    server, the Gradio UI) a mesh of more than one device."""
+def check_engine_args(args) -> None:
+    """Refuse what the port does not run: --kernel-backend jnp."""
     if args.kernel_backend == "jnp":
         raise ValueError("--kernel-backend jnp is not available in the PyTorch port: its plain "
                          "PyTorch versions serve CPU tensors only (use --device cpu); auto and "
                          "pallas run the hand-written CUDA kernels")
-    mesh = parse_mesh_shape(args.mesh_shape)
-    if mesh is None:
-        return
-    from fastdm_tpu_torch.engine import ARCHITECTURES
-    from fastdm_tpu_torch.parallel.mesh import check_no_tp
-
-    check_no_tp(mesh, ARCHITECTURES.get(args.architecture))
-    n = 1
-    for d in mesh:
-        n *= d
-    if single_device is not None and n > 1:
-        # JAX's front-ends drive every device from one controller; a
-        # torch.distributed mesh runs one process a device, which these
-        # single-process front-ends do not launch
-        raise NotImplementedError(
-            f"--mesh-shape {args.mesh_shape}: {single_device} takes a mesh of one device (a "
-            "larger mesh runs one process a device under torchrun)")
 
 
-def engine_kwargs(args, single_device: Optional[str] = None) -> dict:
+def engine_kwargs(args) -> dict:
     """FastDMEngine's keywords from the flags of add_engine_args, after
     check_engine_args."""
-    check_engine_args(args, single_device)
+    check_engine_args(args)
     return dict(model_path=args.model_path, architecture=args.architecture,
                 use_fp8=args.use_fp8, use_int8=args.use_int8, use_int4=args.use_int4,
                 pack_int4=args.pack_int4, quant_mods=args.quant_mods,

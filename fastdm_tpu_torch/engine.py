@@ -133,6 +133,8 @@ Model families outside ARCHITECTURES raise NotImplementedError here.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
 import json
 import os
 import time
@@ -249,6 +251,14 @@ def _check_mesh_shape(mesh_shape, arch: str, controlnet_path) -> int:
     return pp
 
 
+@functools.lru_cache(maxsize=None)
+def _family_keywords() -> frozenset:
+    """The keywords some family's generate takes."""
+    return frozenset(k for a in ("flux", "sd35", "sdxl", "qwen", "wan")
+                     for k in inspect.signature(getattr(FastDMEngine, f"_generate_{a}")).parameters
+                     if k != "self")
+
+
 def _read_json(path):
     with open(path, "r", encoding="utf-8") as f:
         return json.load(f)
@@ -281,6 +291,7 @@ class FastDMEngine:
     mesh = None
     tp = None
     _offloaded = False
+    _recorder = None
 
     def __init__(
         self, model_path: str, architecture: str = "flux", use_fp8: bool = False,
@@ -304,14 +315,16 @@ class FastDMEngine:
         process a device (parallel/mesh.py): sp > 1 routes dense attention to
         the ring, pp > 1 splits the block stacks into GPipe stages, dp
         computes replicated, tp > 1 splits the denoiser blocks' linears by
-        heads and parts (parallel/tensor_parallel.py: FLUX, SD3.5, Qwen-Image
-        and every Wan name; SDXL and controlnet_path raise
-        NotImplementedError). Every rank returns the same output.
+        heads and parts (parallel/tensor_parallel.py: every family and both
+        ControlNets). Every rank returns the same output.
         offload_inactive_expert keeps both Wan2.2-A14B experts in host memory
         (under tp, each rank its shard of them) and moves the active one to
         the card for its phase (a one-expert model takes it and does
         nothing). snapshot_path under tp or pp reads a snapshot's blocks as
-        the rank keeps them; writing one needs a mesh without tp and pp."""
+        the rank keeps them, and an empty one receives the snapshot a
+        one-device engine writes (models/snapshot.py BlockRecorder: each block
+        recorded whole before it is cut, the pp stages' blocks gathered by
+        rank 0)."""
         if architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"architecture {architecture!r} is not in this slice of the port "
@@ -355,10 +368,6 @@ class FastDMEngine:
         self.model_path = model_path
         self.device = resolve_device(device)
         self.verbose = verbose
-        if mesh_shape is not None:
-            from fastdm_tpu_torch.parallel.mesh import check_no_tp
-
-            check_no_tp(mesh_shape, self.architecture, controlnet_path is not None)
         # the prompt encoder of the family, read at the first prompt; the
         # constructor's max_sequence_length is FLUX's T5 length only
         # (fastdm_tpu/engine.py:107,626), SD3.5 keeps 256 and Wan text_len
@@ -383,12 +392,6 @@ class FastDMEngine:
                     f"pp > 1 is incompatible with cache_algorithm="
                     f"{type(self.cache_config).__name__[:-6].lower()!r} (probe-prefix caches "
                     "bypass the GPipe block routing); use teacache or disable caching")
-        if (mesh_shape is not None and (mesh_shape[2] > 1 or pp > 1) and snapshot_path
-                and not os.path.isfile(os.path.join(snapshot_path, "fastdm_snapshot.json"))):
-            raise NotImplementedError(
-                f"writing a snapshot to {snapshot_path!r} under mesh_shape {tuple(mesh_shape)}: a "
-                "rank holds its tp shard or pp stage only; write it from an engine without tp "
-                "and pp, then read it under any mesh")
         # the quantized snapshot (models/snapshot.py): a snapshot at
         # snapshot_path gives the denoiser modules straight from its files;
         # an empty snapshot_path receives the freshly built ones after init
@@ -429,6 +432,15 @@ class FastDMEngine:
                 from fastdm_tpu_torch.parallel.tensor_parallel import DistTPGroup
 
                 self.tp = DistTPGroup(self.mesh.axis("tp"))
+            if (snapshot_path and self.mesh.size > 1
+                    and not os.path.isfile(os.path.join(snapshot_path, "fastdm_snapshot.json"))):
+                from fastdm_tpu_torch.models.snapshot import BlockRecorder
+
+                # the blocks recorded whole as they load: rank 0's of a tp
+                # mesh, each pp stage's own (the other axes replicate them)
+                cut = self.tp is not None or pp > 1
+                self._recorder = BlockRecorder(cut and all(
+                    self.mesh.axis(a).rank == 0 for a in ("dp", "sp", "tp")))
         if self.architecture == "wan":
             from fastdm_tpu_torch.caching.config import DiCacheConfig, FBCacheConfig
 
@@ -454,6 +466,7 @@ class FastDMEngine:
         if snapshot_path and self._snapshot_pending:
             self.save_quantized(snapshot_path)
             self._snapshot_pending = {}
+        self._recorder = None
         # the optional ControlNet, then the SDXL IP-Adapter (fastdm_tpu/engine.py:240-262)
         self.cn_params = self.cn_cfg = None
         if controlnet_path is not None:
@@ -525,14 +538,25 @@ class FastDMEngine:
         """Write the loaded, already quantized denoiser modules as a snapshot:
         a later FastDMEngine(..., snapshot_path=dir_path) reads them without
         parsing, fusing or quantizing the checkpoint. The snapshot is the
-        port's own; the JAX engine does not read it, nor the port JAX's."""
+        port's own; the JAX engine does not read it, nor the port JAX's.
+        Under a mesh of several devices it is a collective, called while the
+        engine loads (an empty snapshot_path): rank 0 writes what a
+        one-device engine writes (models/snapshot.py BlockRecorder)."""
         from fastdm_tpu_torch.models import snapshot as snap
 
         trees = dict(self._loaded_trees)
-        snap.save_snapshot(dir_path, trees, architecture=self.architecture_full,
-                           quant=self.quant, cfg=self._manifest_cfg,
-                           extra={"model_path": self.model_path,
-                                  "source_files": snap.source_fingerprint(self.model_path)})
+        manifest = dict(architecture=self.architecture_full, quant=self.quant,
+                        cfg=self._manifest_cfg,
+                        extra={"model_path": self.model_path,
+                               "source_files": snap.source_fingerprint(self.model_path)})
+        if self.mesh is not None and self.mesh.size > 1:
+            if self._recorder is None:
+                raise NotImplementedError(
+                    "save_quantized under a mesh of several devices runs while the engine "
+                    "loads: pass an empty snapshot_path to the constructor")
+            self._recorder.save(dir_path, trees, **manifest)
+        else:
+            snap.save_snapshot(dir_path, trees, **manifest)
         if self.verbose:
             print(f"quantized snapshot written to {dir_path} ({', '.join(sorted(trees))})",
                   flush=True)
@@ -558,11 +582,24 @@ class FastDMEngine:
         each block's shard as the loader builds it."""
         src = TensorSource.from_path(os.path.join(self.model_path, subdir), self.device)
         src.stage_blocks = self._stage_blocks(depths)
-        if self.tp is not None:
-            from fastdm_tpu_torch.parallel.tensor_parallel import shard_block
-
-            src.shard = lambda path, block: shard_block(block, path, self.cfg, self.tp)
+        self._shard_blocks(src, self.cfg, subdir)
         return src
+
+    def _shard_blocks(self, src: TensorSource, cfg, tree: Optional[str] = None) -> None:
+        """src.shard: each block the loader builds recorded whole for a
+        snapshot under a mesh (tree: its name), then cut to this rank's tp
+        shard."""
+        recorder = self._recorder if tree is not None else None
+        if self.tp is None and recorder is None:
+            return
+        from fastdm_tpu_torch.parallel.tensor_parallel import shard_block
+
+        def shard(path, block):
+            if recorder is not None:
+                recorder.record(tree, path, block)
+            return block if self.tp is None else shard_block(block, path, cfg, self.tp)
+
+        src.shard = shard
 
     def _snapshot_place(self, depths: Optional[Dict[str, int]], model_class: str):
         """The snapshot decoder's hook under tp or pp (models/snapshot.py
@@ -575,23 +612,26 @@ class FastDMEngine:
             return None
         from fastdm_tpu_torch.parallel.offload import to_device
         from fastdm_tpu_torch.parallel.pipeline import StageElsewhere
-        from fastdm_tpu_torch.parallel.tensor_parallel import BLOCK_STACKS, shard_block
+        from fastdm_tpu_torch.parallel.tensor_parallel import BLOCK_STACKS, is_block_path, \
+            shard_block
 
-        stacks = BLOCK_STACKS[model_class.rpartition(".")[2]]
+        cls = model_class.rpartition(".")[2]
 
         def place(path: str, build):
-            name, _, index = path.partition("/")
-            # a block: a stack's child ("blocks/3") or SD3.5's "last_block"
-            if name not in stacks or "/" in index or (not index and name != "last_block"):
+            path = path.replace("/", ".")
+            # a block: a stack's child ("blocks.3"), SD3.5's "last_block", an
+            # SDXL Transformer2D's ("down.1.attns.0.blocks.1")
+            if not is_block_path(cls, path):
                 return None
-            prefix = stacks[name]
-            if stages is not None and prefix in stages and int(index) not in stages[prefix]:
-                return StageElsewhere(prefix, int(index))
+            if stages is not None:
+                name, _, index = path.partition(".")
+                prefix = BLOCK_STACKS[cls][name]
+                if prefix in stages and int(index) not in stages[prefix]:
+                    return StageElsewhere(prefix, int(index))
             if self.tp is None:
                 return None
-            block = shard_block(build(torch.device("cpu")), path.replace("/", "."), self.cfg,
-                                self.tp)
-            return to_device(block, self.device)
+            return to_device(shard_block(build(torch.device("cpu")), path, self.cfg, self.tp),
+                             self.device)
 
         return place
 
@@ -706,8 +746,8 @@ class FastDMEngine:
         from fastdm_tpu_torch.models import sdxl
 
         self.cfg = sdxl.SDXLConfig(quant=self.quant)
-        self.params = self._load_tree("unet", lambda: sdxl.sdxl_load(TensorSource.from_path(
-            os.path.join(self.model_path, "unet"), self.device), self.cfg))
+        self.params = self._load_tree("unet", lambda: sdxl.sdxl_load(
+            self._denoiser_source("unet", {}), self.cfg))
         self._load_vae()
         self.text_encoder = SDXLTextEncoder(self.model_path, self.device)
 
@@ -730,9 +770,11 @@ class FastDMEngine:
             if cj.get("axes_dims_rope") is not None:
                 kw["axes_dims_rope"] = tuple(cj["axes_dims_rope"])
             self.cn_cfg = controlnets.FluxControlNetConfig(quant=self.quant, **kw)
+            self._shard_blocks(src, self.cn_cfg)
             self.cn_params = controlnets.flux_controlnet_load(src, self.cn_cfg)
         else:
             self.cn_cfg = self.cfg
+            self._shard_blocks(src, self.cfg)
             self.cn_params = controlnets.sdxl_controlnet_load(src, self.cfg)
 
     def _wan_vae_cfg(self):
@@ -891,8 +933,11 @@ class FastDMEngine:
         The reference's spellings steps, gen_seed, gen_width, gen_height,
         src_image and max_seq_len name the same arguments (both spellings of
         one raise TypeError). A per-call max_sequence_length is taken by every
-        family and ignored, the constructor's holding, as the JAX engine's
-        generates drop it; any other unknown keyword raises TypeError."""
+        family and ignored, the constructor's holding, and so is a keyword of
+        another family's generate (control_mode on SDXL, true_cfg_scale or
+        num_images_per_prompt on Wan, ...), as the JAX engine's generates take
+        both in their **_ (the reference's CLI demos pass them to every
+        family); a keyword no family takes raises TypeError."""
         for ref_name, ours in self._GENERATE_ALIASES.items():
             if ref_name in kw:
                 if ours in kw:
@@ -918,6 +963,9 @@ class FastDMEngine:
             if task != "i2i":
                 kw.pop("image", None)
             fn = getattr(self, f"_generate_{self.architecture}")
+        own = inspect.signature(fn).parameters
+        for k in [k for k in kw if k not in own and k in _family_keywords()]:
+            del kw[k]
         if self.mesh is None or self.mesh.size == 1:
             return fn(prompt, **kw)
         # the ring and the pipeline are active only while this engine

@@ -26,7 +26,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from fastdm_tpu_torch.device import resolve_device
-from fastdm_tpu_torch.layers.attention import JointAttention
 from fastdm_tpu_torch.layers.conv2d import conv2d
 from fastdm_tpu_torch.layers.embeddings import (
     AttentionPooling,
@@ -37,14 +36,14 @@ from fastdm_tpu_torch.layers.embeddings import (
     TimestepEmbedding,
     get_timestep_embedding,
 )
-from fastdm_tpu_torch.layers.feedforward import FeedForward
-from fastdm_tpu_torch.layers.normalization import AdaLayerNormZero, AdaLayerNormZeroSingle
 from fastdm_tpu_torch.layers.qlinear import QLinear, qlinear_random
 from fastdm_tpu_torch.models.flux import (
     FluxConfig,
     FluxDualBlock,
     FluxSingleBlock,
+    flux_dual_block_load,
     flux_init_random,
+    flux_single_block_load,
 )
 from fastdm_tpu_torch.models.loader import TensorSource
 from fastdm_tpu_torch.models.sdxl import (
@@ -302,8 +301,9 @@ def sdxl_controlnet_load(src: TensorSource, cfg: SDXLConfig) -> SDXLControlNet:
     def resnets(p):
         return [_resnet_load(src, f"{p}.resnets.{j}", q) for j in range(2)]
 
-    def attns(p, n, n_layers):
-        return [_t2d_load(src, f"{p}.attentions.{j}", n_layers, q, False) for j in range(n)]
+    def attns(p, n, n_layers, path):
+        return [_t2d_load(src, f"{p}.attentions.{j}", n_layers, q, False, f"{path}.attns.{j}")
+                for j in range(n)]
 
     model = SDXLControlNet(
         conv_in=_conv(src, "conv_in"),
@@ -314,10 +314,10 @@ def sdxl_controlnet_load(src: TensorSource, cfg: SDXLConfig) -> SDXLControlNet:
         encoder_hid_proj=_cn_encoder_hid(src),
         down=[SDXLStage(resnets("down_blocks.0"),
                         downsample=_conv(src, "down_blocks.0.downsamplers.0.conv")),
-              SDXLStage(resnets("down_blocks.1"), attns("down_blocks.1", 2, n1),
+              SDXLStage(resnets("down_blocks.1"), attns("down_blocks.1", 2, n1, "down.1"),
                         downsample=_conv(src, "down_blocks.1.downsamplers.0.conv")),
-              SDXLStage(resnets("down_blocks.2"), attns("down_blocks.2", 2, n2))],
-        mid=SDXLStage(resnets("mid_block"), attns("mid_block", 1, n2)),
+              SDXLStage(resnets("down_blocks.2"), attns("down_blocks.2", 2, n2, "down.2"))],
+        mid=SDXLStage(resnets("mid_block"), attns("mid_block", 1, n2, "mid")),
         controlnet_down_blocks=[_conv(src, f"controlnet_down_blocks.{i}") for i in range(9)],
         controlnet_mid_block=_conv(src, "controlnet_mid_block"))
     src.assert_consumed()
@@ -500,35 +500,13 @@ def flux_controlnet_load(src: TensorSource, cfg: FluxControlNetConfig) -> FluxCo
         mlp("time_text_embed.timestep_embedder"), mlp("time_text_embed.text_embedder"),
         mlp("time_text_embed.guidance_embedder") if guidance else None)
 
-    dual = []
-    for i in range(cfg.num_layers):
-        p = f"transformer_blocks.{i}"
-        dual.append(FluxDualBlock(
-            AdaLayerNormZero(src.linear(f"{p}.norm1.linear", qm)),
-            AdaLayerNormZero(src.linear(f"{p}.norm1_context.linear", qm)),
-            JointAttention(
-                qkv=src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v"], q),
-                add_qkv=src.fused_linear(
-                    [f"{p}.attn.add_q_proj", f"{p}.attn.add_k_proj", f"{p}.attn.add_v_proj"], q),
-                to_out=src.linear(f"{p}.attn.to_out.0", q),
-                to_add_out=src.linear(f"{p}.attn.to_add_out", q),
-                norm_q=src.tensor(f"{p}.attn.norm_q.weight"),
-                norm_k=src.tensor(f"{p}.attn.norm_k.weight"),
-                norm_added_q=src.tensor(f"{p}.attn.norm_added_q.weight"),
-                norm_added_k=src.tensor(f"{p}.attn.norm_added_k.weight")),
-            FeedForward(src.linear(f"{p}.ff.net.0.proj", q), src.linear(f"{p}.ff.net.2", q)),
-            FeedForward(src.linear(f"{p}.ff_context.net.0.proj", q),
-                        src.linear(f"{p}.ff_context.net.2", q))))
-    single = []
-    for i in range(cfg.num_single_layers):
-        p = f"single_transformer_blocks.{i}"
-        single.append(FluxSingleBlock(
-            AdaLayerNormZeroSingle(src.linear(f"{p}.norm.linear", qm)),
-            src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v",
-                              f"{p}.proj_mlp"], q),
-            src.linear(f"{p}.proj_out", q),
-            JointAttention(norm_q=src.tensor(f"{p}.attn.norm_q.weight"),
-                           norm_k=src.tensor(f"{p}.attn.norm_k.weight"))))
+    # the trunk's blocks, each built whole, as this rank keeps it (src.block: its tp shard)
+    dual = [src.block(f"dual_blocks.{i}",
+                      flux_dual_block_load(src, f"transformer_blocks.{i}", q, qm))
+            for i in range(cfg.num_layers)]
+    single = [src.block(f"single_blocks.{i}",
+                        flux_single_block_load(src, f"single_transformer_blocks.{i}", q, qm))
+              for i in range(cfg.num_single_layers)]
 
     def zero_heads(prefix):
         ws, bs, i = [], [], 0

@@ -187,6 +187,39 @@ def flux_init_random(seed: int, cfg: FluxConfig, device="cuda") -> FluxTransform
         proj_out=lin(d, cfg.patch_size**2 * cfg.out_channels))
 
 
+def flux_dual_block_load(src: TensorSource, p: str, q, qm) -> FluxDualBlock:
+    """The dual-stream block of checkpoint prefix p, its projections in q
+    and its AdaLN modulations in qm (shared with the FLUX ControlNet)."""
+    return FluxDualBlock(
+        AdaLayerNormZero(src.linear(f"{p}.norm1.linear", qm)),
+        AdaLayerNormZero(src.linear(f"{p}.norm1_context.linear", qm)),
+        JointAttention(
+            qkv=src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v"], q),
+            add_qkv=src.fused_linear(
+                [f"{p}.attn.add_q_proj", f"{p}.attn.add_k_proj", f"{p}.attn.add_v_proj"], q),
+            to_out=src.linear(f"{p}.attn.to_out.0", q),
+            to_add_out=src.linear(f"{p}.attn.to_add_out", q),
+            norm_q=src.tensor(f"{p}.attn.norm_q.weight"),
+            norm_k=src.tensor(f"{p}.attn.norm_k.weight"),
+            norm_added_q=src.tensor(f"{p}.attn.norm_added_q.weight"),
+            norm_added_k=src.tensor(f"{p}.attn.norm_added_k.weight")),
+        FeedForward(src.linear(f"{p}.ff.net.0.proj", q), src.linear(f"{p}.ff.net.2", q)),
+        FeedForward(src.linear(f"{p}.ff_context.net.0.proj", q),
+                    src.linear(f"{p}.ff_context.net.2", q)))
+
+
+def flux_single_block_load(src: TensorSource, p: str, q, qm) -> FluxSingleBlock:
+    """The single-stream block of checkpoint prefix p: q|k|v|mlp_in
+    concatenated along N."""
+    return FluxSingleBlock(
+        AdaLayerNormZeroSingle(src.linear(f"{p}.norm.linear", qm)),
+        src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v",
+                          f"{p}.proj_mlp"], q),
+        src.linear(f"{p}.proj_out", q),
+        JointAttention(norm_q=src.tensor(f"{p}.attn.norm_q.weight"),
+                       norm_k=src.tensor(f"{p}.attn.norm_k.weight")))
+
+
 def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
     """Load a diffusers FLUX transformer checkpoint onto src.device, quantizing
     the block projections to cfg.quant (and the AdaLN modulations when
@@ -210,22 +243,7 @@ def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
         if not src.holds("transformer_blocks", i):
             dual.append(src.elsewhere("transformer_blocks", i))
             continue
-        dual.append(src.block(f"dual_blocks.{i}", FluxDualBlock(
-            AdaLayerNormZero(src.linear(f"{p}.norm1.linear", qm)),
-            AdaLayerNormZero(src.linear(f"{p}.norm1_context.linear", qm)),
-            JointAttention(
-                qkv=src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v"], q),
-                add_qkv=src.fused_linear(
-                    [f"{p}.attn.add_q_proj", f"{p}.attn.add_k_proj", f"{p}.attn.add_v_proj"], q),
-                to_out=src.linear(f"{p}.attn.to_out.0", q),
-                to_add_out=src.linear(f"{p}.attn.to_add_out", q),
-                norm_q=src.tensor(f"{p}.attn.norm_q.weight"),
-                norm_k=src.tensor(f"{p}.attn.norm_k.weight"),
-                norm_added_q=src.tensor(f"{p}.attn.norm_added_q.weight"),
-                norm_added_k=src.tensor(f"{p}.attn.norm_added_k.weight")),
-            FeedForward(src.linear(f"{p}.ff.net.0.proj", q), src.linear(f"{p}.ff.net.2", q)),
-            FeedForward(src.linear(f"{p}.ff_context.net.0.proj", q),
-                        src.linear(f"{p}.ff_context.net.2", q)))))
+        dual.append(src.block(f"dual_blocks.{i}", flux_dual_block_load(src, p, q, qm)))
 
     single = []
     for i in range(cfg.num_single_layers):
@@ -233,14 +251,7 @@ def flux_load(src: TensorSource, cfg: FluxConfig) -> FluxTransformer:
         if not src.holds("single_transformer_blocks", i):
             single.append(src.elsewhere("single_transformer_blocks", i))
             continue
-        single.append(src.block(f"single_blocks.{i}", FluxSingleBlock(
-            AdaLayerNormZeroSingle(src.linear(f"{p}.norm.linear", qm)),
-            # q|k|v|mlp_in concatenated along N
-            src.fused_linear([f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v",
-                              f"{p}.proj_mlp"], q),
-            src.linear(f"{p}.proj_out", q),
-            JointAttention(norm_q=src.tensor(f"{p}.attn.norm_q.weight"),
-                           norm_k=src.tensor(f"{p}.attn.norm_k.weight")))))
+        single.append(src.block(f"single_blocks.{i}", flux_single_block_load(src, p, q, qm)))
 
     model = FluxTransformer(
         x_embedder=src.linear("x_embedder", None),

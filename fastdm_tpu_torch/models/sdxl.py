@@ -74,7 +74,11 @@ def frozen_params(**tensors: Tensor) -> nn.ParameterDict:
 
 class SDXLAttention(nn.Module):
     """Self-attention (fused qkv) or cross-attention (q + fused kv, optional
-    IP-Adapter k|v), then the output projection."""
+    IP-Adapter k|v), then the output projection. tp: the tp group of a layer
+    split by heads (parallel/tensor_parallel.py): its projections then hold
+    heads / tp.size heads."""
+
+    tp = None
 
     def __init__(self, out: QLinear, qkv: Optional[QLinear] = None, q: Optional[QLinear] = None,
                  kv: Optional[QLinear] = None, ipadp_kv: Optional[QLinear] = None):
@@ -84,7 +88,7 @@ class SDXLAttention(nn.Module):
     def forward(self, x: Tensor, ctx: Optional[Tensor], head_dim: int,
                 ip_embeds: Optional[Tensor] = None, ip_scale: float = 0.6) -> Tensor:
         """x (B, S, C) tokens -> (B, S, C) (port of _attention)."""
-        c = x.shape[-1]
+        c = x.shape[-1] // (self.tp.size if self.tp is not None else 1)
         heads = c // head_dim
         if self.qkv is not None:
             qkv = self.qkv(x)
@@ -279,7 +283,10 @@ def _resnet_load(src: TensorSource, p: str, q) -> SDXLResnet:
                       _conv(src, f"{p}.conv2"), shortcut)
 
 
-def _t2d_load(src: TensorSource, p: str, n_layers: int, q, ip_adapter: bool) -> SDXLTransformer2D:
+def _t2d_load(src: TensorSource, p: str, n_layers: int, q, ip_adapter: bool,
+              path: str) -> SDXLTransformer2D:
+    """A Transformer2D of checkpoint prefix p at module path `path`; each
+    block built whole, as this rank keeps it (src.block: its tp shard)."""
     blocks = []
     for j in range(n_layers):
         bp = f"{p}.transformer_blocks.{j}"
@@ -287,7 +294,7 @@ def _t2d_load(src: TensorSource, p: str, n_layers: int, q, ip_adapter: bool) -> 
         if ip_adapter and f"{bp}.attn2.processor.to_k_ip.0.weight" in src:
             ip = src.fused_linear([f"{bp}.attn2.processor.to_k_ip.0",
                                    f"{bp}.attn2.processor.to_v_ip.0"], q)
-        blocks.append(SDXLTransformerBlock(
+        blocks.append(src.block(f"{path}.blocks.{j}", SDXLTransformerBlock(
             _norm(src, f"{bp}.norm1"),
             SDXLAttention(src.linear(f"{bp}.attn1.to_out.0", q), qkv=src.fused_linear(
                 [f"{bp}.attn1.to_q", f"{bp}.attn1.to_k", f"{bp}.attn1.to_v"], q)),
@@ -297,7 +304,7 @@ def _t2d_load(src: TensorSource, p: str, n_layers: int, q, ip_adapter: bool) -> 
                           kv=src.fused_linear([f"{bp}.attn2.to_k", f"{bp}.attn2.to_v"], q),
                           ipadp_kv=ip),
             _norm(src, f"{bp}.norm3"),
-            FeedForward(src.linear(f"{bp}.ff.net.0.proj", q), src.linear(f"{bp}.ff.net.2", q))))
+            FeedForward(src.linear(f"{bp}.ff.net.0.proj", q), src.linear(f"{bp}.ff.net.2", q)))))
     return SDXLTransformer2D(_norm(src, f"{p}.norm"), src.linear(f"{p}.proj_in", q), blocks,
                              src.linear(f"{p}.proj_out", q))
 
@@ -305,7 +312,8 @@ def _t2d_load(src: TensorSource, p: str, n_layers: int, q, ip_adapter: bool) -> 
 def sdxl_load(src: TensorSource, cfg: SDXLConfig) -> SDXLUNet:
     """Load a diffusers SDXL UNet checkpoint onto src.device, the block,
     proj_in/out and time_emb_proj linears quantized to cfg.quant (name map of
-    fastdm_tpu/models/sdxl.py:214-325)."""
+    fastdm_tpu/models/sdxl.py:214-325); under tensor parallelism each block
+    is built whole and then cut to this rank's shard (src.block)."""
     q = cfg.quant
     n1, n2 = cfg.attn_layers[1], cfg.attn_layers[2]
 
@@ -316,19 +324,19 @@ def sdxl_load(src: TensorSource, cfg: SDXLConfig) -> SDXLUNet:
     def resnets(p, n):
         return [_resnet_load(src, f"{p}.resnets.{j}", q) for j in range(n)]
 
-    def attns(p, n, n_layers):
-        return [_t2d_load(src, f"{p}.attentions.{j}", n_layers, q, cfg.ip_adapter)
-                for j in range(n)]
+    def attns(p, n, n_layers, path):
+        return [_t2d_load(src, f"{p}.attentions.{j}", n_layers, q, cfg.ip_adapter,
+                          f"{path}.attns.{j}") for j in range(n)]
 
     down = [SDXLStage(resnets("down_blocks.0", 2),
                       downsample=_conv(src, "down_blocks.0.downsamplers.0.conv")),
-            SDXLStage(resnets("down_blocks.1", 2), attns("down_blocks.1", 2, n1),
+            SDXLStage(resnets("down_blocks.1", 2), attns("down_blocks.1", 2, n1, "down.1"),
                       downsample=_conv(src, "down_blocks.1.downsamplers.0.conv")),
-            SDXLStage(resnets("down_blocks.2", 2), attns("down_blocks.2", 2, n2))]
-    mid = SDXLStage(resnets("mid_block", 2), attns("mid_block", 1, n2))
-    up = [SDXLStage(resnets("up_blocks.0", 3), attns("up_blocks.0", 3, n2),
+            SDXLStage(resnets("down_blocks.2", 2), attns("down_blocks.2", 2, n2, "down.2"))]
+    mid = SDXLStage(resnets("mid_block", 2), attns("mid_block", 1, n2, "mid"))
+    up = [SDXLStage(resnets("up_blocks.0", 3), attns("up_blocks.0", 3, n2, "up.0"),
                     upsample=_conv(src, "up_blocks.0.upsamplers.0.conv")),
-          SDXLStage(resnets("up_blocks.1", 3), attns("up_blocks.1", 3, n1),
+          SDXLStage(resnets("up_blocks.1", 3), attns("up_blocks.1", 3, n1, "up.1"),
                     upsample=_conv(src, "up_blocks.1.upsamplers.0.conv")),
           SDXLStage(resnets("up_blocks.2", 3))]
     model = SDXLUNet(conv_in=_conv(src, "conv_in"), time_embedding=mlp("time_embedding"),
@@ -444,13 +452,16 @@ def sdxl_attach_ip_adapter(params: SDXLUNet, src: TensorSource, cfg: SDXLConfig)
     blocks, the mid block LAST (UNet2DConditionModel creates both empty
     ModuleLists before it assigns mid_block); attn1 then attn2 per
     BasicTransformerBlock, so the cross-attention weights sit on odd
-    indices."""
+    indices. Under tensor parallelism each k | v is cut to the rank's heads
+    as it is attached."""
     from fastdm_tpu_torch.layers.ip_adapter import (
         ImageProjection,
         IPAdapterPlusProjection,
         ResamplerBlock,
     )
+    from fastdm_tpu_torch.parallel.tensor_parallel import shard_ip_adapter_kv
 
+    paths = {id(m): p for p, m in params.named_modules()}
     idx = 0
     for t2d in [a for stage in (*params.down, *params.up, params.mid)
                 for a in (stage.attns or [])]:
@@ -458,6 +469,7 @@ def sdxl_attach_ip_adapter(params: SDXLUNet, src: TensorSource, cfg: SDXLConfig)
             idx += 1  # the attn1 (self-attention) processor's slot
             blk.attn2.ipadp_kv = src.fused_linear(
                 [f"ip_adapter.{idx}.to_k_ip", f"ip_adapter.{idx}.to_v_ip"], cfg.quant)
+            shard_ip_adapter_kv(blk.attn2, paths[id(blk.attn2)], cfg.head_dim)
             idx += 1
 
     if "image_proj.proj.weight" in src:

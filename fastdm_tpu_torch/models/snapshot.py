@@ -91,9 +91,14 @@ def _storage_order(t: torch.Tensor):
 
 
 class _Encoder:
-    def __init__(self):
+    """blocks: {module path ("dual_blocks/3"): (node, tensors)} of blocks
+    encoded earlier, whole (BlockRecorder), which take the place of the
+    modules at those paths."""
+
+    def __init__(self, blocks: Optional[Dict[str, tuple]] = None):
         self.tensors: Dict[str, torch.Tensor] = {}
         self.allowed = _allowed_classes()
+        self.blocks = blocks or {}
 
     def tensor(self, t: torch.Tensor, path: str) -> Dict[str, Any]:
         node: Dict[str, Any] = {"t": "tensor", "name": path}
@@ -126,6 +131,10 @@ class _Encoder:
                          "(a module holds tensors, child modules and JSON-type attributes)")
 
     def module(self, m: nn.Module, path: str) -> Dict[str, Any]:
+        if path in self.blocks:
+            node, tensors = self.blocks[path]
+            self.tensors.update(tensors)
+            return node
         name = _class_name(type(m))
         if self.allowed.get(name) is not type(m):
             raise ValueError(f"snapshot: {name} at {path!r} is not a model or layer class "
@@ -212,10 +221,13 @@ def _cfg_fingerprint(cfg) -> Any:
 
 def save_snapshot(dir_path: str, trees: Dict[str, nn.Module], *,
                   architecture: Optional[str] = None, quant: Optional[str] = None, cfg=None,
-                  extra: Optional[Dict[str, Any]] = None) -> None:
+                  extra: Optional[Dict[str, Any]] = None,
+                  blocks: Optional[Dict[str, Dict[str, tuple]]] = None) -> None:
     """Write `trees` ({"transformer": module, ...}) and the manifest to
     dir_path. Each file is written under a temporary name and moved into
-    place (os.replace), the manifest last."""
+    place (os.replace), the manifest last. blocks: {tree name: {module
+    path: (node, tensors)}}, blocks encoded whole before a mesh cut them
+    (BlockRecorder), written in place of the tree's modules there."""
     from safetensors.torch import save_file
 
     os.makedirs(dir_path, exist_ok=True)
@@ -229,7 +241,7 @@ def save_snapshot(dir_path: str, trees: Dict[str, nn.Module], *,
         "trees": {},
     }
     for name, tree in trees.items():
-        enc = _Encoder()
+        enc = _Encoder((blocks or {}).get(name))
         manifest["trees"][name] = enc.module(tree, "")
         path = os.path.join(dir_path, f"{name}.safetensors")
         save_file(enc.tensors, path + ".tmp", metadata={"fastdm_snapshot": name})
@@ -238,6 +250,69 @@ def save_snapshot(dir_path: str, trees: Dict[str, nn.Module], *,
     with open(tmp, "w", encoding="utf-8") as f:
         json.dump(manifest, f)
     os.replace(tmp, os.path.join(dir_path, MANIFEST))
+
+
+class BlockRecorder:
+    """The snapshot of an engine under a mesh: the one a one-device engine
+    writes from the same checkpoint. A tp rank holds shards of its blocks and
+    a pp rank only its stage's blocks, so each block is encoded whole (its
+    tensors copied to the host) when the loader has built it, before tp cuts
+    it: record(tree, path, block). The ranks whose mesh coordinates are 0
+    but for pp record (rank 0 every block of a tp mesh, each pp stage its
+    own); save() then has the pp stages hand theirs to rank 0 through files
+    in the snapshot directory (a directory every rank reaches), and rank 0
+    writes the snapshot: its own tree's modules, with the recorded blocks in
+    place of its shards and of the other stages' placeholders. No device
+    ever holds more than one whole block beyond the rank's own."""
+
+    def __init__(self, records: bool):
+        self.records = records
+        self.blocks: Dict[str, Dict[str, tuple]] = {}
+
+    def record(self, tree: str, path: str, block: nn.Module) -> nn.Module:
+        if self.records:
+            enc = _Encoder()
+            key = path.replace(".", "/")
+            self.blocks.setdefault(tree, {})[key] = (enc.module(block, key), enc.tensors)
+        return block
+
+    def save(self, dir_path: str, trees: Dict[str, nn.Module], **manifest) -> None:
+        """save_snapshot of rank 0's trees with every recorded block; a
+        collective over the default process group."""
+        import torch.distributed as dist
+        from safetensors.torch import load_file, save_file
+
+        rank = dist.get_rank()
+        os.makedirs(dir_path, exist_ok=True)
+        part = lambda r, name: os.path.join(dir_path, f".stage-{r}-{name}")  # noqa: E731
+        if rank != 0 and self.records:
+            for name, blocks in self.blocks.items():
+                tensors = {k: t for _, ts in blocks.values() for k, t in ts.items()}
+                save_file(tensors, part(rank, name) + ".safetensors")
+                with open(part(rank, name) + ".json", "w", encoding="utf-8") as f:
+                    json.dump({k: node for k, (node, _) in blocks.items()}, f)
+        self.blocks = {} if rank != 0 else self.blocks
+        dist.barrier()
+        if rank == 0:
+            for r in range(1, dist.get_world_size()):
+                for name in trees:
+                    if not os.path.exists(part(r, name) + ".json"):
+                        continue
+                    with open(part(r, name) + ".json", "r", encoding="utf-8") as f:
+                        nodes = json.load(f)
+                    tensors = load_file(part(r, name) + ".safetensors")
+                    mine = self.blocks.setdefault(name, {})
+                    for key, node in nodes.items():
+                        # a block two stages hold (TeaCache's probe block) is written once
+                        if key not in mine:
+                            own = {k: t for k, t in tensors.items()
+                                   if k.startswith(key + "/")}
+                            mine[key] = (node, own)
+                    for suffix in (".json", ".safetensors"):
+                        os.remove(part(r, name) + suffix)
+            save_snapshot(dir_path, trees, blocks=self.blocks, **manifest)
+            self.blocks = {}
+        dist.barrier()
 
 
 def source_fingerprint(model_path: Optional[str]):

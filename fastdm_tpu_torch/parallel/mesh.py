@@ -11,9 +11,8 @@ Axes, as in JAX:
   tp -- tensor parallel. JAX gets it from GSPMD's name rules
         (generic_param_pspec, shard_params_by_name), ported below as functions
         of a port module path (tp_kind); the Megatron-style
-        splits and the row-parallel collectives are tensor_parallel.py's. The
-        families it splits: FLUX, SD3.5, Qwen-Image and every Wan name; SDXL
-        and the ControlNets raise with tp > 1 (check_no_tp).
+        splits and the row-parallel collectives are tensor_parallel.py's.
+        Every family and both ControlNets split.
   pp -- pipeline parallel over the block stacks (pipeline.py), the fourth
         axis of a (dp, sp, tp, pp) mesh.
 
@@ -34,8 +33,6 @@ from typing import Dict, Tuple
 import torch
 
 AXES = ("dp", "sp", "tp")
-TP_LEFT_OUT = ("ROADMAP.md section 1, item 1: tp for SDXL (its GEGLU halves, heads that 4 "
-               "does not divide) and the ControlNets")
 
 
 def factor_mesh(n: int) -> Tuple[int, int, int]:
@@ -166,11 +163,15 @@ def generic_tp_kind(path: str) -> str:
     return "column" if col else "replicate"
 
 
-# Where the port's split departs from JAX's rules: Wan2.1-I2V's image K / V
-# projections, which no JAX rule names (replicated there), are cut by heads
-# like attn2's text K / V, so that a rank computes only its heads' image
-# attention (ROADMAP.md section 3)
-TP_DEPARTURES = {"attn2.add_k": "column", "attn2.add_v": "column"}
+# Where the port's split departs from JAX's rules (ROADMAP.md section 3):
+# Wan2.1-I2V's image K / V projections and the SDXL IP-Adapter's k | v, which
+# no JAX rule names (replicated there), are cut by heads like attn2's text
+# K / V, so that a rank computes only its heads' image attention; SDXL's
+# attention out-projections (the JAX tree's "out", which no rule names) are
+# row-split after their column-split q | k | v, where GSPMD gathers the
+# heads and runs the whole projection on every device
+TP_DEPARTURES = {"attn2.add_k": "column", "attn2.add_v": "column",
+                 "attn2.ipadp_kv": "column", "attn1.out": "row", "attn2.out": "row"}
 
 
 def tp_kind(path: str) -> str:
@@ -187,14 +188,3 @@ def tp_kind(path: str) -> str:
             return kind
     return generic_tp_kind(path)
 
-
-def check_no_tp(mesh_shape, architecture: str = None, controlnet: bool = False) -> None:
-    """tp > 1 raises NotImplementedError for what the port does not split:
-    SDXL and a ControlNet."""
-    if mesh_shape is None or len(mesh_shape) < 3 or mesh_shape[2] <= 1:
-        return
-    if architecture == "sdxl" or controlnet:
-        what = "sdxl" if architecture == "sdxl" else "controlnet_path"
-        raise NotImplementedError(
-            f"mesh_shape {tuple(mesh_shape)}: tp > 1 with {what} is not ported yet "
-            f"({TP_LEFT_OUT})")

@@ -39,6 +39,7 @@ virtual group's is rank order: the two agree to f32 rounding, not bit for bit.
 
 from __future__ import annotations
 
+import re
 import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -349,13 +350,16 @@ def _mod(owner: nn.Module, attr: str, path: str, tp: TPGroup) -> None:
         _split(owner, attr, path, [(n, 1)], tp, gather=True)
 
 
-def _ff(ff, path: str, tp: TPGroup) -> None:
+def _ff(ff, path: str, tp: TPGroup, halves: int = 1) -> None:
+    """A FeedForward's proj (column) and out (row) by the hidden width; a
+    GEGLU proj (halves 2: hidden | gate) has each half cut alike, so that the
+    rank's gelu_and_mul pairs its own hidden and gate columns."""
     if ff is None:
         return
     hidden = ff.out.lora_u.shape[0] if ff.out.lora_u is not None else (
         ff.out.w.shape[0] if ff.out.w is not None else ff.out.w4.shape[0])
     if hidden % tp.size == 0:
-        _split(ff, "proj", f"{path}.proj", [(hidden, 1)], tp)
+        _split(ff, "proj", f"{path}.proj", [(hidden, 1)] * halves, tp)
         _split(ff, "out", f"{path}.out", [(hidden, 1)], tp)
 
 
@@ -402,6 +406,35 @@ def _wan_block(block, path: str, cfg, tp: TPGroup) -> None:
     _ff(block.ffn, f"{path}.ffn", tp)
 
 
+def _sdxl_block(block, path: str, cfg, tp: TPGroup) -> None:
+    """An SDXL BasicTransformerBlock: attn1's q | k | v, attn2's q, k | v and
+    IP-Adapter k | v by heads, both out-projections by head rows; the GEGLU
+    feed-forward by halves. A block whose heads tp does not divide (SDXL's
+    10 heads of 640 at tp 4) keeps its attention whole."""
+    c = block.norm1["gamma"].numel()
+    hd = cfg.head_dim
+    if (c // hd) % tp.size == 0:
+        a1, a2 = block.attn1, block.attn2
+        _split(a1, "qkv", f"{path}.attn1.qkv", [(c, hd)] * 3, tp)
+        _split(a1, "out", f"{path}.attn1.out", [(c, hd)], tp)
+        a1.tp = tp
+        _split(a2, "q", f"{path}.attn2.q", [(c, hd)], tp)
+        _split(a2, "kv", f"{path}.attn2.kv", [(c, hd)] * 2, tp)
+        _split(a2, "ipadp_kv", f"{path}.attn2.ipadp_kv", [(c, hd)] * 2, tp)
+        _split(a2, "out", f"{path}.attn2.out", [(c, hd)], tp)
+        a2.tp = tp
+    _ff(block.ff, f"{path}.ff", tp, halves=2)
+
+
+def shard_ip_adapter_kv(attn2, path: str, head_dim: int) -> None:
+    """The IP-Adapter k | v just attached to a cross-attention that tp split
+    by heads (attn2.tp), cut to the rank's heads like its text k | v."""
+    if attn2.tp is not None and attn2.ipadp_kv is not None:
+        c = attn2.ipadp_kv.scale.numel() // 2 if attn2.ipadp_kv.scale is not None else \
+            attn2.ipadp_kv.w.shape[1] // 2
+        _split(attn2, "ipadp_kv", f"{path}.ipadp_kv", [(c, head_dim)] * 2, attn2.tp)
+
+
 def shard_block(block: nn.Module, path: str, cfg, tp: TPGroup) -> nn.Module:
     """Rank tp.rank's shard of one denoiser block at module path `path`, in
     place (the whole weights are dropped): the family's layers split by
@@ -410,9 +443,13 @@ def shard_block(block: nn.Module, path: str, cfg, tp: TPGroup) -> nn.Module:
     from fastdm_tpu_torch.models.flux import FluxDualBlock, FluxSingleBlock
     from fastdm_tpu_torch.models.qwenimage import QwenBlock
     from fastdm_tpu_torch.models.sd35 import SD3JointBlock
+    from fastdm_tpu_torch.models.sdxl import SDXLTransformerBlock
     from fastdm_tpu_torch.models.wan import WanBlock
 
     if tp is None or tp.size == 1:
+        return block
+    if isinstance(block, SDXLTransformerBlock):
+        _sdxl_block(block, path, cfg, tp)
         return block
     heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
     if isinstance(block, FluxDualBlock):
@@ -455,14 +492,34 @@ def shard_block(block: nn.Module, path: str, cfg, tp: TPGroup) -> nn.Module:
 # the pipeline does not split). SD3.5's last_block is one block, not a stack.
 BLOCK_STACKS = {"FluxTransformer": {"dual_blocks": "transformer_blocks",
                                     "single_blocks": "single_transformer_blocks"},
+                "FluxControlNet": {"dual_blocks": None, "single_blocks": None},
                 "SD3Transformer": {"dual_blocks": None, "std_blocks": None, "last_block": None},
                 "QwenImageTransformer": {"blocks": "transformer_blocks"},
                 "WanTransformer": {"blocks": "blocks"}}
+# the SDXL UNet's and ControlNet's blocks sit in their stages' Transformer2Ds
+SDXL_MODELS = ("SDXLUNet", "SDXLControlNet")
+_SDXL_BLOCK = re.compile(r"(down\.\d+|mid|up\.\d+)\.attns\.\d+\.blocks\.\d+")
+
+
+def is_block_path(model_class: str, path: str) -> bool:
+    """Whether module path `path` ("dual_blocks.3", "last_block",
+    "down.1.attns.0.blocks.1") of a model of class `model_class` is one of
+    its blocks."""
+    if model_class in SDXL_MODELS:
+        return _SDXL_BLOCK.fullmatch(path) is not None
+    if model_class not in BLOCK_STACKS:
+        raise NotImplementedError(f"{model_class} has no tp split in the port")
+    stack, _, index = path.partition(".")
+    if stack not in BLOCK_STACKS[model_class]:
+        return False
+    return index.isdigit() or (not index and stack == "last_block")
 
 
 def block_paths(model: nn.Module) -> List[str]:
     """The module paths of model's blocks, in order."""
     name = type(model).__name__
+    if name in SDXL_MODELS:
+        return [p for p, _ in model.named_modules() if is_block_path(name, p)]
     if name not in BLOCK_STACKS:
         raise NotImplementedError(f"{name} has no tp split in the port")
     paths = []

@@ -1,4 +1,4 @@
-"""A PNG codec in numpy and zlib, for the API server's images where PIL is
+"""A PNG codec in numpy and zlib, for the front-ends' images where PIL is
 missing (the GPU machine has no PIL).
 
   * encode_png -- an (H, W, 3) uint8 array -> PNG bytes: 8-bit RGB,
@@ -10,6 +10,10 @@ missing (the GPU machine has no PIL).
     Other bit depths and interlaced images raise ValueError naming them;
     a wrong chunk CRC raises too.
 
+read_image / write_image and decode_image_bytes serve the API server and
+the CLI demos: PNG through this codec, another format through PIL where
+PIL imports (else ValueError naming the format).
+
 Decoding undoes the row filters along anti-diagonals: a pixel's
 predictor reads its left, upper and upper-left neighbours, which all lie
 on earlier anti-diagonals, so each anti-diagonal is one vectorized step
@@ -18,6 +22,7 @@ on earlier anti-diagonals, so each anti-diagonal is one vectorized step
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 from typing import Dict, Tuple
@@ -141,3 +146,43 @@ def decode_png(data: bytes) -> np.ndarray:
     if color in (0, 4):
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
+
+
+def _image_format(data: bytes) -> str:
+    for magic, name in ((SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"GIF87a", "GIF"),
+                        (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+                        (b"MM\x00*", "TIFF")):
+        if data.startswith(magic):
+            return name
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WEBP"
+    return "unknown"
+
+
+def decode_image_bytes(data: bytes) -> np.ndarray:
+    """Encoded image bytes -> (H, W, 3) uint8 RGB: PNG by this codec, any
+    other format through PIL where PIL imports."""
+    fmt = _image_format(data)
+    if fmt == "PNG":
+        return decode_png(data)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"{fmt} images need PIL, which is not installed here; send a PNG") from None
+    try:
+        return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    except OSError as e:  # PIL's UnidentifiedImageError among them
+        raise ValueError(f"{fmt} image does not decode: {e}") from e
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB (decode_image_bytes)."""
+    with open(path, "rb") as f:
+        return decode_image_bytes(f.read())
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """An (H, W, 3) uint8 array -> a PNG file."""
+    with open(path, "wb") as f:
+        f.write(encode_png(np.asarray(img, np.uint8)))

@@ -17,7 +17,14 @@ I/O without PIL:
     with the (F, H, W, 3) frames handed to the video encoder; /edit in all
     four blend modes; 400 for an empty prompt, a wrong model, i2v without
     an image, bad base64 and a non-PNG image without PIL; 500 with the
-    cause."""
+    cause;
+  * the rank-0 request loop (fastdm_tpu_torch/parallel/request_loop.py) on a
+    2-rank gloo pool (tests/torch_parallel_workers.py): /generate and /edit
+    answered with the one-process server's images, bit for bit; a refused
+    request answered 400 and never broadcast; the followers end at the
+    shutdown; and, in one process with the broadcast stubbed, what the
+    leader broadcasts, the engine state it carries and the failures that
+    end the run."""
 
 import base64
 import importlib.util
@@ -363,3 +370,93 @@ def test_parser_accepts_the_lightning_names():
         args = p.parse_args(["--model-path", "m", "--served-model-name", "s",
                              "--architecture", name])
         assert args.architecture == name and args.device == "cuda"
+
+
+# ------------------------------------------------------------ rank 0's loop
+
+
+@pytest.fixture(scope="module")
+def pool2(tmp_path_factory):
+    from torch_parallel_workers import Pool
+
+    pool = Pool(2, str(tmp_path_factory.mktemp("serve-store")))
+    yield pool
+    pool.close()
+
+
+def test_server_loop_on_two_ranks_answers_as_one_process(pool2, served, tmp_path):
+    """A flux-kontext engine on a (2, 1, 1) mesh of two gloo ranks behind
+    request_loop.serve: rank 0's /generate and /edit images equal the
+    one-process server's bit for bit; an empty prompt answers 400 between
+    them and reaches no rank; the follower returns at the shutdown, having
+    run the two broadcast calls."""
+    from test_torch_pipeline import VAE_TINY as PIPE_VAE
+
+    srcs = [_image(18, 64, 64), _image(19, 48, 80)]
+    calls = [("generate", dict(model="tiny", prompt="a red fox", steps=2, seed=5, width=64,
+                               height=64, guidance_scale=3.0)),
+             ("generate", dict(model="tiny", prompt="  ")),
+             ("edit", dict(model="tiny", prompt="a lighthouse at dusk", steps=2, seed=6,
+                           input_images=[api.image_to_base64(s) for s in srcs],
+                           blend_mode="average"))]
+    encoder = _StubEncoder("flux")
+    table = {kw["prompt"]: encoder._draw(kw["prompt"]) for _, kw in calls
+             if kw["prompt"].strip()}
+    root = _flux_root(str(tmp_path))
+    answers, followed = pool2.run("task_serve", root, "flux-kontext", (2, 1, 1),
+                                  dict(PIPE_VAE), table, calls)
+    assert followed == 2
+    routes = api.Routes(served["kontext"], "tiny")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # a worker's: CPU bf16 sums depend on the thread count
+    try:
+        for (route, kw), (status, got) in zip(calls, answers):
+            if not kw["prompt"].strip():
+                assert (status, got) == (400, "prompt must not be empty")
+                continue
+            req = (api.EditRequest if route == "edit" else api.GenerateRequest)(**kw)
+            want = api.base64_to_image(getattr(routes, route)(req).image)
+            assert status == 200
+            np.testing.assert_array_equal(got, want)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_lead_engine_broadcasts_and_failures_end_the_run(monkeypatch):
+    """With the broadcast stubbed: LeadEngine.generate broadcasts (shared
+    engine state, the call's keywords) before it runs, sets attributes on
+    the engine, and hands an error to `fail` before it raises; follow()
+    runs each broadcast call with its state until None, and an error on a
+    follower leaves it."""
+    from fastdm_tpu_torch.parallel import request_loop as rl
+
+    sent = []
+    monkeypatch.setattr(rl, "_broadcast", lambda m=None: sent.append(m))
+    eng = _Engine()
+    failed = []
+    lead = rl.LeadEngine(eng, fail=failed.append)
+    lead.scheduler_name = "euler"
+    out = lead.generate(prompt="a", seed=1)
+    assert out.shape == (1, 8, 8, 3) and eng.scheduler_name == "euler"
+    assert sent == [({"scheduler_name": "euler"}, {"prompt": "a", "seed": 1})]
+    assert lead.architecture == "flux" and not failed
+    lead.shutdown()
+    assert sent[-1] is None
+    boom = RuntimeError("device lost")
+    bad = rl.LeadEngine(_Engine(fail=boom), fail=failed.append)
+    with pytest.raises(RuntimeError, match="device lost"):
+        bad.generate(prompt="b")
+    assert failed == [boom]
+
+    script = iter([({"scheduler_name": "unipc"}, {"prompt": "c"}), ({}, {"prompt": "d"}), None])
+    monkeypatch.setattr(rl, "_broadcast", lambda m=None: next(script))
+    follower = _Engine()
+    assert rl.follow(follower) == 2
+    assert follower.calls == [{"prompt": "c"}, {"prompt": "d"}]
+    assert follower.scheduler_name == "unipc"
+    monkeypatch.setattr(rl, "_broadcast", lambda m=None: ({}, {"prompt": "e"}))
+    with pytest.raises(RuntimeError, match="device lost"):
+        rl.follow(_Engine(fail=boom))
+    assert not rl.on_mesh()
+    ran = []
+    assert rl.serve(eng, ran.append) == {"rank": 0, "followed": 0} and ran == [eng]

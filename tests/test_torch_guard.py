@@ -34,16 +34,21 @@ def _imports(path: Path):
 FRONTEND_FILES = (REPO / "comfyui" / "nodes_torch.py",
                   *sorted((REPO / "examples" / "serve").glob("*_torch.py")))
 
+# the port's CLI demos and TeaCache fitter
+CLI_FILES = (*sorted((REPO / "examples" / "demo").glob("*_torch.py")),
+             REPO / "examples" / "xcaching" / "fit_teacache_torch.py")
+
 
 def _sources():
-    """chip_smoke.py, the package's sources and the port's front-end files
-    outside it; the git-ignored build directory holds kernel build outputs
-    (and, for GPU runs, unpacked copies of the whole tree), not sources of
-    the port."""
+    """chip_smoke.py, the package's sources and the port's front-end and CLI
+    files outside it; the git-ignored build directory holds kernel build
+    outputs (and, for GPU runs, unpacked copies of the whole tree), not
+    sources of the port."""
     yield REPO / "chip_smoke.py"
     pkg = REPO / "fastdm_tpu_torch"
     yield from sorted(p for p in pkg.rglob("*.py") if "_build" not in p.relative_to(pkg).parts)
     yield from FRONTEND_FILES
+    yield from CLI_FILES
 
 
 def test_port_sources_import_no_jax():
@@ -194,6 +199,38 @@ import sys
 sys.path.insert(0, {str(REPO / "tests")!r})
 import torch_parallel_workers
 from fastdm_tpu_torch.parallel import context_parallel, cp_state, mesh, offload, pipeline, pp_state
+print("FORBIDDEN", sorted(m for m in sys.modules
+                          if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "FORBIDDEN []" in out.stdout, out.stdout
+
+
+def test_cli_demos_and_fitter_import_no_jax_nor_pil():
+    """The CLI demos and the TeaCache fitter are among the scanned sources and
+    import nothing of JAX at any depth; a fresh interpreter with PIL and
+    imageio hidden (the GPU machine has neither) loads each of them and
+    every port module their mains reach, and has no JAX module loaded."""
+    names = sorted(p.name for p in CLI_FILES)
+    assert names == ["controlnet_demo_torch.py", "fit_teacache_torch.py", "gen_torch.py",
+                     "image_edit_torch.py"], names
+    assert set(CLI_FILES) <= set(_sources())
+    bad = [(p.name, m) for p in CLI_FILES for m in _imports(p) if _forbidden(m)]
+    assert not bad, bad
+    code = f"""
+import importlib.util, sys
+for m in ("PIL", "imageio"):
+    sys.modules[m] = None
+for path in {[str(p) for p in CLI_FILES]!r}:
+    sys.path.insert(0, path.rsplit("/", 1)[0])
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[1][:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+import fastdm_tpu_torch.engine, fastdm_tpu_torch.models.sd35, fastdm_tpu_torch.models.qwenimage
 print("FORBIDDEN", sorted(m for m in sys.modules
                           if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})))
 """

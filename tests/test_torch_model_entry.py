@@ -204,15 +204,14 @@ def test_jax_keywords_at_defaults_equal_their_absence(engines, tmp_path, family)
 
 def test_jax_keyword_refusals():
     """kernel_backend 'jnp' and unknown names raise ValueError (JAX's type
-    for a bad backend), a mesh not of 3 or 4 axes ValueError, tp > 1
-    NotImplementedError for SDXL only (FLUX takes it and then needs a
-    process group), a larger mesh without torch.distributed RuntimeError:
+    for a bad backend), a mesh not of 3 or 4 axes ValueError, a larger mesh
+    without torch.distributed RuntimeError (tp > 1 for SDXL as for FLUX):
     each before any weight is read."""
     for kw, exc, msg in ((dict(kernel_backend="jnp"), ValueError, "jnp"),
                          (dict(kernel_backend="cuda"), ValueError, "invalid kernel backend"),
                          (dict(mesh_shape=(1, 2)), ValueError, "mesh_shape must be"),
-                         (dict(mesh_shape=(1, 1, 2), architecture="sdxl"), NotImplementedError,
-                          "tp > 1"),
+                         (dict(mesh_shape=(1, 1, 2), architecture="sdxl"), RuntimeError,
+                          "torchrun"),
                          (dict(mesh_shape=(1, 1, 2)), RuntimeError, "torchrun"),
                          (dict(mesh_shape=(2, 1, 1, 1)), RuntimeError, "torchrun")):
         with pytest.raises(exc, match=msg):
@@ -367,14 +366,27 @@ def _args(*extra):
     return p.parse_args(["--model-path", "m", *extra])
 
 
+def _load_api_server():
+    """examples/serve/api_server_torch.py, loaded by path (its dataclasses
+    look their module up in sys.modules)."""
+    import importlib.util
+
+    name = "_api_server_torch_entry"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, os.path.join(
+            os.path.dirname(__file__), "..", "examples", "serve", "api_server_torch.py"))
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
 def test_port_refusals_and_engine_kwargs():
     with pytest.raises(ValueError, match="jnp"):
         targs.engine_kwargs(_args("--kernel-backend", "jnp"))
-    # tp > 1 for SDXL waits for its split (ROADMAP.md section 1, item 1); the
-    # other families take it
-    with pytest.raises(NotImplementedError, match="item 1"):
-        targs.engine_kwargs(_args("--mesh-shape", "1,1,2", "--architecture", "sdxl"))
-    assert targs.engine_kwargs(_args("--mesh-shape", "1,1,2"))["mesh_shape"] == (1, 1, 2)
+    # every family takes tp > 1
+    for arch in ("sdxl", "flux"):
+        assert targs.engine_kwargs(_args("--mesh-shape", "1,1,2", "--architecture", arch)
+                                   )["mesh_shape"] == (1, 1, 2)
     kw = targs.engine_kwargs(_args("--mesh-shape", "1,1,1", "--use-int8", "--device", "cpu",
                                    "--architecture", "wan-lightning"))
     assert kw["use_int8"] and kw["device"] == "cpu" and kw["architecture"] == "wan-lightning"
@@ -383,11 +395,11 @@ def test_port_refusals_and_engine_kwargs():
         kw = targs.engine_kwargs(_args("--mesh-shape", mesh, "--kernel-backend", "pallas"))
         assert kw["mesh_shape"] == targs.parse_mesh_shape(mesh)
         assert kw["kernel_backend"] == "pallas"
-        # the single-process front-ends take a mesh of one device only
-        with pytest.raises(NotImplementedError, match="the API server takes a mesh of one"):
-            targs.engine_kwargs(_args("--mesh-shape", mesh), single_device="the API server")
-    assert targs.engine_kwargs(_args("--mesh-shape", "1,1,1,1"),
-                               single_device="the API server")["mesh_shape"] == (1, 1, 1, 1)
+        # the mesh reaches the engine of every front-end: the API server and
+        # the Gradio UI serve a larger one from rank 0 (parallel/request_loop.py)
+        server = _load_api_server().build_parser().parse_args(
+            ["--model-path", "m", "--served-model-name", "s", "--mesh-shape", mesh])
+        assert targs.engine_kwargs(server)["mesh_shape"] == targs.parse_mesh_shape(mesh)
     with pytest.raises(SystemExit):  # not a choice without extra_architectures
         p = argparse.ArgumentParser()
         targs.add_engine_args(p)

@@ -469,9 +469,10 @@ def test_offload_inactive_expert_bit_equal(wan_root, monkeypatch):
 
 def test_engine_mesh_refusals_match_jax(wan_root):
     """Every mesh refusal of the JAX constructor, with its exception type,
-    in its order; tp > 1 raises NotImplementedError where the port does not
-    split (SDXL); pp with a sparse config's dense_layers > 0 raises as JAX's
-    does; writing a snapshot under pp raises (a snapshot is read under pp)."""
+    in its order; tp > 1 with SDXL, and writing a snapshot under pp, pass
+    the constructor's checks as in JAX (without a process group the mesh
+    then raises); pp with a sparse config's dense_layers > 0 raises as JAX's
+    does."""
     from fastdm_tpu.engine import FastDMEngine as JEngine
     from fastdm_tpu_torch.engine import FastDMEngine as TEngine
 
@@ -496,11 +497,11 @@ def test_engine_mesh_refusals_match_jax(wan_root):
         with pytest.raises(type(want.value)) as got:
             TEngine("/nonexistent", device="cpu", **kw)
         assert str(got.value).split(" ")[:3] == str(want.value).split(" ")[:3], kw
-    with pytest.raises(NotImplementedError, match="tp > 1"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         TEngine("/nonexistent", architecture="sdxl", device="cpu", mesh_shape=(1, 1, 2))
     with pytest.raises(ValueError, match="dense_layers == 0"):
         TEngine(wan_root, architecture="wan2.2-t2v", device="cpu", mesh_shape=(1, 1, 1, 2),
                 sparse_attn_config=dict(RADIAL, dense_layers=1))
-    with pytest.raises(NotImplementedError, match="writing a snapshot"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         TEngine(wan_root, architecture="wan2.2-t2v", device="cpu", mesh_shape=(1, 1, 1, 2),
                 snapshot_path="/nonexistent-snap")

@@ -421,3 +421,65 @@ def test_engine_round_trip_wan21_i2v(tmp_path, monkeypatch):
                prompt_embeds=pos, negative_prompt_embeds=neg, height=32, width=48,
                num_frames=5, num_inference_steps=2, seed=6, output_type="latent")
     np.testing.assert_array_equal(eng1.generate(**gen), eng2.generate(**gen))
+
+
+# ------------------------------------------------------------ written on a mesh
+
+
+@pytest.fixture(scope="module")
+def pool2(tmp_path_factory):
+    from torch_parallel_workers import Pool
+
+    pool = Pool(2, str(tmp_path_factory.mktemp("snap-store")))
+    yield pool
+    pool.close()
+
+
+def assert_same_snapshot(got_dir: str, want_dir: str) -> None:
+    """The same files (no part file left behind), the same manifest, and in
+    every tree file the same tensors in dtype, shape and bytes."""
+    from safetensors.torch import load_file
+
+    assert sorted(os.listdir(got_dir)) == sorted(os.listdir(want_dir))
+    with open(os.path.join(got_dir, tsnap.MANIFEST)) as f, \
+            open(os.path.join(want_dir, tsnap.MANIFEST)) as g:
+        assert json.load(f) == json.load(g)
+    for name in os.listdir(want_dir):
+        if name.endswith(".safetensors"):
+            got = load_file(os.path.join(got_dir, name))
+            want = load_file(os.path.join(want_dir, name))
+            assert list(got) == list(want), name
+            for k in want:
+                assert (got[k].dtype, got[k].shape) == (want[k].dtype, want[k].shape), k
+                assert torch.equal(_bytes(got[k]), _bytes(want[k])), k
+
+
+MESH_CASES = [("flux", (1, 1, 2)), ("flux", (1, 1, 1, 2)), ("sdxl", (1, 1, 2))]
+
+
+@pytest.mark.parametrize("family,shape", MESH_CASES,
+                         ids=[f"{f}-{'x'.join(map(str, s))}" for f, s in MESH_CASES])
+def test_snapshot_written_on_a_mesh_equals_one_device(pool2, tmp_path, family, shape):
+    """An int8 engine under tp (1, 1, 2) or pp (1, 1, 1, 2) with an empty
+    snapshot_path writes the snapshot a one-device engine writes from the
+    same checkpoint, manifest for manifest and tensor for tensor (rank 0
+    recorded each block whole before tp cut it; the other pp stage handed
+    its blocks over); an engine on the same mesh reading it back generates
+    bit for bit what the writing (freshly loaded) engine generated."""
+    from test_torch_model_entry import _request, _write_root, tiny_engine
+    from test_torch_pipeline import VAE_TINY as PIPE_VAE
+
+    root = _write_root(family, str(tmp_path / "ckpt"))
+    one = str(tmp_path / "one-device")
+    tiny_engine(family, root, use_int8=True, snapshot_path=one)
+    snap = str(tmp_path / "on-mesh")
+    arch = "sdxl" if family == "sdxl" else "flux"
+    requests = [_request(family, False)]
+    kw = dict(sdxl_kw=SDXL_TINY if family == "sdxl" else None, use_int8=True,
+              snapshot_path=snap)
+    fresh = pool2.run("task_tp_engine", root, arch, requests, shape, dict(PIPE_VAE), **kw)
+    assert_same_snapshot(snap, one)
+    read = pool2.run("task_tp_engine", root, arch, requests, shape, dict(PIPE_VAE), **kw)
+    for (got, _), (want, _) in zip(read, fresh):
+        for (a, _), (b, _) in zip(got, want):
+            np.testing.assert_array_equal(a, b)

@@ -20,7 +20,12 @@ Tolerances:
   * the engine under tp (and dp x tp, sp x tp): every rank bit-identical and
     with the same cache skips, within relative L2 2e-2 of one process;
     offload with tp and a snapshot read under tp or pp bit for bit the
-    resident / freshly loaded run.
+    resident / freshly loaded run;
+  * the SDXL UNet under tp (int8, fp8, bf16; with and without IP-Adapter
+    tokens): every rank bit-identical, within relative L2 2e-2 of the
+    port's one-process forward and 5e-2 (SDXL's whole-forward tolerance,
+    tests/test_torch_sdxl.py) of JAX's sdxl_forward on JAX's load of the
+    same state dict.
 """
 
 import functools
@@ -267,16 +272,16 @@ def _jax_placed(family, tp):
     return jcfg, shard_params_by_name(params, mesh), mesh
 
 
-def _rule_case(family):
-    """(port model split as rank 0 of 2, the whole port model, JAX's tree
-    placed by shard_params_by_name on a (1, 1, 2) mesh)."""
+def _rule_case(family, tp=2):
+    """(port model split as rank 0 of tp, the whole port model, JAX's tree
+    placed by shard_params_by_name on a (1, 1, tp) mesh)."""
     from fastdm_tpu_torch.models.loader import TensorSource
     from fastdm_tpu_torch.parallel.tensor_parallel import shard_block, virtual_groups
 
     cfg_kw, sd, jmod, tmod = _family(family)
     tcfg = tmod.__dict__[_CFG[family]](**cfg_kw)
-    jplaced = _jax_placed(family, 2)[1]
-    g = virtual_groups(2)[0]
+    jplaced = _jax_placed(family, tp)[1]
+    g = virtual_groups(tp)[0]
     src = TensorSource(dict(sd), "cpu")
     src.shard = lambda path, block: shard_block(block, path, tcfg, g)
     split = tmod.__dict__[_LOAD[family]](src, tcfg)
@@ -300,60 +305,95 @@ def _port_kind(split, whole) -> str:
 
 JAX_STACKS = {"sd35": {"dual_blocks": "dual_attn_blocks"}}
 # the port's recorded departures (ROADMAP.md section 3): Wan2.1-I2V's image
-# K / V cut by heads (no JAX rule names them), and SD3.5's last block split
-# (JAX's rules shard only the layer-stacked leaves: its unstacked last block
-# stays replicated)
-DEPARTURES = {("wan", "attn2.add_k"): "column", ("wan", "attn2.add_v"): "column"}
+# K / V and the SDXL IP-Adapter's k | v cut by heads (no JAX rule names
+# them), SDXL's attention out-projections row-split (the JAX tree names them
+# "out", which no rule names), and SD3.5's last block split (JAX's rules
+# shard only the layer-stacked leaves: its unstacked last block stays
+# replicated)
+_SDXL_DEPARTURES = {"attn1.out": "row", "attn2.out": "row"}
+DEPARTURES = {("wan", "attn2.add_k"): "column", ("wan", "attn2.add_v"): "column",
+              ("sdxl", "attn2.ipadp_kv"): "column",
+              **{(f, k): v for f in ("sdxl", "sdxl-cn") for k, v in _SDXL_DEPARTURES.items()}}
 
 
-@pytest.mark.parametrize("family", ["flux", "sd35", "qwen", "wan"])
-def test_split_kinds_match_jax_rules(family):
-    """For every QLinear of each family's blocks, the port's split (column:
-    output columns cut; row: input rows cut and reduced; replicate) is what
-    JAX's shard_params_by_name places on the tp axis, except the recorded
-    departures; the port's name rules are JAX's generic_param_pspec
-    (generic_tp_kind), and on FLUX also flux_param_pspec's (the rules of
-    JAX's FLUX dry run), which replicate the AdaLN modulations."""
+def _jax_keys(family, path):
+    """The keys of JAX's tree (list indices as ints) to the QLinear at a
+    port module path: the block index dropped (JAX stacks the blocks); an
+    SDXL stage "down.1" / "up.0" is JAX's "down1" / "up0", its mid stage's
+    one Transformer2D "mid.attns.0" JAX's "mid.attn"."""
+    parts = path.split(".")
+    if family.startswith("sdxl"):
+        if parts[0] == "mid":
+            return ["mid", "attn", "blocks"] + parts[5:]
+        return [parts[0] + parts[1], "attns", int(parts[3]), "blocks"] + parts[6:]
+    stack, rest = parts[0], parts[1:]
+    if stack != "last_block":
+        rest = rest[1:]
+    return [JAX_STACKS.get(family, {}).get(stack, stack)] + rest
+
+
+RULE_CASES = [("flux", 2), ("sd35", 2), ("qwen", 2), ("wan", 2), ("sdxl", 2), ("sdxl", 4),
+              ("sdxl-cn", 2), ("flux-cn", 2)]
+
+
+@pytest.mark.parametrize("family,tp", RULE_CASES,
+                         ids=[f if t == 2 else f"{f}-tp{t}" for f, t in RULE_CASES])
+def test_split_kinds_match_jax_rules(family, tp):
+    """For every QLinear of each family's blocks (both ControlNets' too), the
+    port's split (column: output columns cut; row: input rows cut and
+    reduced; replicate) is what JAX's shard_params_by_name places on the tp
+    axis, except the recorded departures; the port's name rules are JAX's
+    generic_param_pspec (generic_tp_kind), and on FLUX also
+    flux_param_pspec's (the rules of JAX's FLUX dry run), which replicate the
+    AdaLN modulations. SDXL at tp 4: the tiny level-1 blocks' 2 heads do not
+    divide, so the port keeps their attention whole, where JAX cuts each
+    leaf whose dim divides (its GEGLU feed-forward splits in both)."""
     from fastdm_tpu.parallel.mesh import flux_param_pspec, generic_param_pspec
     from fastdm_tpu_torch.layers.qlinear import QLinear
     from fastdm_tpu_torch.parallel.mesh import generic_tp_kind
     from fastdm_tpu_torch.parallel.tensor_parallel import block_paths
 
-    split, whole, jplaced = _rule_case(family)
-    checked = 0
+    split, whole, jplaced = _rule_case(family, tp)
+    checked = whole_heads = 0
     for bpath in block_paths(whole):
-        for name, lin in whole.get_submodule(bpath).named_modules():
+        block = whole.get_submodule(bpath)
+        for name, lin in block.named_modules():
             if not isinstance(lin, QLinear):
                 continue
             path = f"{bpath}.{name}"
-            stack, _, rest = path.partition(".")
-            if stack != "last_block":
-                rest = rest.partition(".")[2]
-            node = jplaced[JAX_STACKS.get(family, {}).get(stack, stack)]
-            for key in rest.split("."):
+            keys = _jax_keys(family, path)
+            node = jplaced
+            for key in keys:
                 node = node[key]
             key = "w4p" if "w4p" in node else "w4" if "w4" in node else "w"
+            jpath = ".".join(map(str, keys))
             jkind = _jax_kind(node[key])
             pkind = _port_kind(split.get_submodule(path), lin)
-            spec = generic_param_pspec(f"{stack}.{rest}.{key}")
+            spec = generic_param_pspec(f"{jpath}.{key}")
             rule = "column" if spec[2:] == ("tp",) else "row" if spec[1:2] == ("tp",) else \
                 "replicate"
             assert generic_tp_kind(path) == rule, path
             if family == "flux":  # FLUX's own, narrower rules (the modulations replicated)
-                fspec = flux_param_pspec(f"{stack}.{rest}.{key}")
+                fspec = flux_param_pspec(f"{jpath}.{key}")
                 fkind = "column" if fspec[2:] == ("tp",) else "row" if fspec[1:2] == ("tp",) \
                     else "replicate"
-                assert fkind == ("replicate" if "norm" in rest else rule), path
+                assert fkind == ("replicate" if "norm" in jpath else rule), path
             dep = next((v for (f, k), v in DEPARTURES.items() if f == family
                         and path.endswith(k)), None)
-            if dep is not None:
+            heads = (block.norm1["gamma"].numel() // _family(family)[0]["head_dim"]
+                     if family.startswith("sdxl") else 0)
+            if heads % tp and name.startswith("attn"):
+                assert pkind == "replicate", path
+                whole_heads += 1
+            elif dep is not None:
                 assert (jkind, pkind) == ("replicate", dep), path
-            elif stack == "last_block":
+            elif keys[0] == "last_block":
                 assert jkind == "replicate" and pkind == rule, path
             else:
                 assert pkind == jkind, (path, pkind, jkind)
             checked += 1
     assert checked >= 8
+    assert (whole_heads > 0) == (family == "sdxl" and tp == 4)
 
 
 # ------------------------------------------------------------ families under tp
@@ -399,11 +439,47 @@ def _wan_source():
                  added_kv_proj_dim=INNER), _image_sd(21), jmod, tmod)
 
 
+def _sdxl_source():
+    """The tiny UNet (head_dim 8: 2 heads at level 1, 4 at level 2) with an
+    IP-Adapter k | v on every cross-attention."""
+    from test_torch_sdxl import TINY, _sdxl_sd_ip
+
+    from fastdm_tpu.models import sdxl as jmod
+    from fastdm_tpu_torch.models import sdxl as tmod
+
+    return dict(TINY, ip_adapter=True), _sdxl_sd_ip(6), jmod, tmod
+
+
+def _sdxl_cn_source():
+    from test_engine_e2e import _sdxl_sd
+    from test_torch_sdxl import TINY
+
+    from fastdm_tpu.models import controlnets as jmod
+    from fastdm_tpu_torch.models import controlnets as tmod
+
+    return dict(TINY), _sdxl_sd(np.random.default_rng(24), cn=True), jmod, tmod
+
+
+def _flux_cn_source():
+    """A union FLUX ControlNet of one dual and one single block."""
+    from test_engine_e2e import TINY, _flux_cn_sd
+
+    from fastdm_tpu.models import controlnets as jmod
+    from fastdm_tpu_torch.models import controlnets as tmod
+
+    return (dict(TINY, num_layers=1, num_single_layers=1),
+            _flux_cn_sd(np.random.default_rng(1), TINY, union=True), jmod, tmod)
+
+
 _FAMILY_SOURCES = {"flux": _flux_source, "sd35": _sd35_source, "qwen": _qwen_source,
-                   "wan": _wan_source}
+                   "wan": _wan_source, "sdxl": _sdxl_source, "sdxl-cn": _sdxl_cn_source,
+                   "flux-cn": _flux_cn_source}
 _CFG = {"flux": "FluxConfig", "sd35": "SD3Config", "qwen": "QwenImageConfig",
-        "wan": "WanConfig"}
-_LOAD = {"flux": "flux_load", "sd35": "sd3_load", "qwen": "qwen_load", "wan": "wan_load"}
+        "wan": "WanConfig", "sdxl": "SDXLConfig", "sdxl-cn": "SDXLConfig",
+        "flux-cn": "FluxControlNetConfig"}
+_LOAD = {"flux": "flux_load", "sd35": "sd3_load", "qwen": "qwen_load", "wan": "wan_load",
+         "sdxl": "sdxl_load", "sdxl-cn": "sdxl_controlnet_load",
+         "flux-cn": "flux_controlnet_load"}
 
 
 def _block_inputs(family, cfg_kw):
@@ -504,6 +580,72 @@ def test_family_blocks_under_tp(pools, tmp_path, family, tp):
     if tp == 2:  # JAX compiles its placement once a tp; FLUX's tp 4 is held to one process
         assert _rel_l2(per_rank[0][0], _jax_blocks(family, jin, tp)) <= \
             BLOCKS_JAX_REL_L2, family
+
+
+SDXL_JAX_REL_L2 = 5e-2
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sdxl_outputs(quant):
+    """JAX's sdxl_forward on its load of the tiny UNet state dict, jitted
+    once: the IP-Adapter tokens at scale 0.6 and at 0.0 (their branch then
+    adds zeros: the forward without them)."""
+    from test_torch_sdxl import TINY, _inputs, _sdxl_sd_ip
+
+    from fastdm_tpu.models import sdxl as jsdxl
+    from fastdm_tpu.models.loader import TensorSource as JSource
+
+    jcfg = jsdxl.SDXLConfig(quant=quant, ip_adapter=True, **TINY)
+    jp = jsdxl.sdxl_load(JSource(dict(_sdxl_sd_ip(6))), jcfg)
+    j, _ = _inputs(7)
+    run = jax.jit(lambda p, s: jsdxl.sdxl_forward(p, jcfg, j["sample"], j["t"], j["ctx"],
+                                                   j["pooled"], j["time_ids"], ip_embeds=j["ip"],
+                                                   ip_scale=s))
+    return [np.asarray(run(jp, jnp.float32(s)), np.float32) for s in (0.6, 0.0)]
+
+
+SDXL_CASES = [(q, tp) for q in (None, "int8", "fp8") for tp in (2, 4)]
+
+
+@pytest.mark.parametrize("quant,tp", SDXL_CASES,
+                         ids=[f"{q or 'bf16'}-tp{tp}" for q, tp in SDXL_CASES])
+def test_sdxl_unet_under_tp(pools, tmp_path, quant, tp):
+    """The tiny SDXL UNet (2 heads at level 1, 4 at level 2: at tp 4 the
+    level-1 attention stays whole on every rank, its GEGLU feed-forward
+    splits) loaded as tp shards in tp gloo ranks, with and without
+    IP-Adapter tokens: every rank's output bit-identical, within
+    ENGINE_REL_L2 of the port's one-process forward and SDXL_JAX_REL_L2 of
+    JAX's; each rank holds less than the whole blocks' bytes."""
+    import torch_parallel_workers as w
+    from safetensors.torch import save_file
+    from test_torch_sdxl import TINY, _inputs, _sdxl_sd_ip
+
+    from fastdm_tpu_torch.models import sdxl as tsdxl
+    from fastdm_tpu_torch.models.loader import TensorSource
+    from fastdm_tpu_torch.parallel.offload import module_bytes
+    from fastdm_tpu_torch.parallel.tensor_parallel import block_paths
+
+    del w
+    cfg_kw = dict(TINY, quant=quant, ip_adapter=True)
+    sd = _sdxl_sd_ip(6)
+    path = str(tmp_path / "unet.safetensors")
+    save_file({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, path)
+    _, t = _inputs(7)
+    per_rank = pools(tp).run("task_tp_sdxl", path, cfg_kw, t)
+    cfg = tsdxl.SDXLConfig(**cfg_kw)
+    unet = tsdxl.sdxl_load(TensorSource(dict(sd), "cpu"), cfg)
+    with torch.inference_mode():
+        want = [tsdxl.sdxl_forward(unet, cfg, t["sample"], t["t"], t["ctx"], t["pooled"],
+                                   t["time_ids"], ip_embeds=ip) for ip in (t["ip"], None)]
+    whole = sum(module_bytes(unet.get_submodule(p)) for p in block_paths(unet))
+    jax_out = _jax_sdxl_outputs(quant)
+    for r, (outs, nbytes) in enumerate(per_rank):
+        assert nbytes < whole, (r, nbytes, whole)
+        for got, r0, ref, jref in zip(outs, per_rank[0][0], want, jax_out):
+            assert torch.equal(got, r0), r
+            assert _rel_l2(got, ref) <= ENGINE_REL_L2, (quant, tp, _rel_l2(got, ref))
+            assert _rel_l2(got, jref) <= SDXL_JAX_REL_L2, (quant, tp, _rel_l2(got, jref))
+    assert _rel_l2(want[0], want[1]) > 1e-2  # the image tokens enter
 
 
 # ------------------------------------------------------------ the engine
@@ -643,24 +785,88 @@ def test_offload_and_snapshot_under_tp(pools, roots, tmp_path):
         _check_ranks(read, fresh[0][0], ("snapshot", shape), exact=True, split=len(shape) == 3)
 
 
+def _sdxl_roots(base: str) -> dict:
+    """The tiny SDXL checkpoint of tests/test_torch_model_entry.py and an
+    SDXL ControlNet of the same config beside it."""
+    from test_engine_e2e import _sdxl_sd, _write_st
+    from test_torch_model_entry import _write_root
+
+    cn = os.path.join(base, "sdxl-cn")
+    _write_st(os.path.join(cn, "diffusion_pytorch_model.safetensors"),
+              _sdxl_sd(np.random.default_rng(24), cn=True))
+    return {"sdxl": _write_root("sdxl", base), "sdxl-cn": cn}
+
+
+def _flux_union_cn(base: str) -> str:
+    """A union FLUX ControlNet (one dual, one single block, guidance) of the
+    tiny FLUX checkpoint's widths."""
+    import json
+
+    from test_engine_e2e import TINY, _flux_cn_sd, _write_st
+
+    path = os.path.join(base, "flux-cn")
+    _write_st(os.path.join(path, "diffusion_pytorch_model.safetensors"),
+              _flux_cn_sd(np.random.default_rng(20), TINY, union=True))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(TINY, num_layers=1, num_single_layers=1), f)
+    return path
+
+
+def _hint(seed: int) -> np.ndarray:
+    return (np.random.default_rng(seed).random((64, 64, 3)) * 255).astype(np.uint8)
+
+
+CONDITIONED = ["sdxl-int8", "sdxl-controlnet", "flux-union-controlnet"]
+
+
+@pytest.mark.parametrize("case", CONDITIONED)
+def test_engine_tp2_sdxl_and_controlnets(pools, roots, tmp_path, case):
+    """FastDMEngine(mesh_shape=(1, 1, 2)) over gloo for what tp did not split
+    before: SDXL (int8), SDXL with a controlnet_path and FLUX with a union
+    controlnet_path (its blocks cut like FLUX's, its zero heads and
+    x-embedder whole), against one process within ENGINE_REL_L2, every
+    rank's latents identical."""
+    from test_torch_model_entry import tiny_engine
+    from test_torch_pipeline import VAE_TINY
+    from test_torch_sdxl import TINY as SDXL_TINY
+
+    if case.startswith("sdxl"):
+        family, arch, root, sdxl_kw = "sdxl", "sdxl", _sdxl_roots(str(tmp_path)), SDXL_TINY
+        kw = dict(use_int8=True) if case == "sdxl-int8" else dict(controlnet_path=root["sdxl-cn"])
+        root = root["sdxl"]
+    else:
+        family, arch, root, sdxl_kw = "flux", "flux", roots["flux"], None
+        kw = dict(controlnet_path=_flux_union_cn(str(tmp_path)))
+    requests = _requests(family)
+    if "controlnet" in case:
+        extra = dict(control_image=_hint(31), controlnet_conditioning_scale=0.8)
+        if family == "flux":
+            extra["control_mode"] = 2
+        requests = [dict(r, **extra) for r in requests]
+    eng = tiny_engine(family, root, architecture=arch, **kw)
+    want = [(eng.generate(**r), eng.last_cache_skips) for r in requests]
+    per_rank = pools(2).run("task_tp_engine", root, arch, requests, (1, 1, 2), dict(VAE_TINY),
+                            sdxl_kw=sdxl_kw, **kw)
+    _check_ranks(per_rank, want, case)
+
+
 def test_tp_refusals():
-    """SDXL and controlnet_path with tp > 1 raise NotImplementedError naming
-    the ROADMAP item, before any weight is read; pp with tp raises JAX's
-    ValueError; the CLI refuses tp for sdxl only."""
+    """pp with tp raises JAX's ValueError; SDXL and controlnet_path take tp
+    like every family (their mesh then needs a process group); the CLI
+    passes a tp mesh through for every architecture."""
     import argparse
 
     from fastdm_tpu_torch import common_args as targs
     from fastdm_tpu_torch.engine import FastDMEngine
 
     for kw in (dict(architecture="sdxl"), dict(architecture="flux", controlnet_path="/nx-cn")):
-        with pytest.raises(NotImplementedError, match="section 1, item 1"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             FastDMEngine("/nonexistent", device="cpu", mesh_shape=(1, 1, 2), **kw)
     with pytest.raises(ValueError, match="pp > 1 requires sp == 1 and tp == 1"):
         FastDMEngine("/nonexistent", device="cpu", mesh_shape=(1, 1, 2, 2))
     p = argparse.ArgumentParser()
     targs.add_engine_args(p)
-    with pytest.raises(NotImplementedError, match="sdxl"):
-        targs.engine_kwargs(p.parse_args(["--model-path", "m", "--architecture", "sdxl",
-                                          "--mesh-shape", "1,1,2"]))
-    kw = targs.engine_kwargs(p.parse_args(["--model-path", "m", "--mesh-shape", "1,1,4"]))
-    assert kw["mesh_shape"] == (1, 1, 4)
+    for arch in ("sdxl", "flux"):
+        kw = targs.engine_kwargs(p.parse_args(["--model-path", "m", "--architecture", arch,
+                                               "--mesh-shape", "1,1,4"]))
+        assert kw["mesh_shape"] == (1, 1, 4) and kw["architecture"] == arch

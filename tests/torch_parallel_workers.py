@@ -233,27 +233,118 @@ def task_tp_blocks(family: str, sd_path: str, cfg_kw: dict, inputs: dict):
     return out, sum(module_bytes(params.get_submodule(p)) for p in block_paths(params))
 
 
-def task_tp_engine(root: str, architecture: str, requests, mesh_shape, vae_kw=None,
-                   sparse_gather=None, **engine_kw):
-    """A CPU FastDMEngine over root under mesh_shape -> ([(each request's
-    output, the engine's cache skips after it)], the row-parallel QLinears
-    of its denoiser). vae_kw: the tiny AutoencoderKL config of the family
-    (the tests' shrunk VAE); sparse_gather: FASTDM_SPARSE_GATHER for the
-    call (the engine's radial sparse mode)."""
-    import fastdm_tpu_torch.engine as teng
+def _engine(root: str, architecture: str, mesh_shape, vae_kw=None, sdxl_kw=None,
+            **engine_kw):
+    """A CPU FastDMEngine over root under mesh_shape. vae_kw: the tiny
+    AutoencoderKL config of the family (the tests' shrunk VAE); sdxl_kw: the
+    tiny SDXLConfig fields of an SDXL checkpoint (the engine reads no
+    unet/config.json)."""
+    import functools
 
-    os.environ.pop("FASTDM_SPARSE_GATHER", None)
-    if sparse_gather is not None:
-        os.environ["FASTDM_SPARSE_GATHER"] = sparse_gather
+    import fastdm_tpu_torch.engine as teng
+    from fastdm_tpu_torch.models import sdxl as tsdxl
     from fastdm_tpu_torch.pipeline.vae import VAEConfig
 
     if vae_kw is not None:
         teng.VAE_CONFIGS[teng.ARCHITECTURES[architecture]] = VAEConfig(**vae_kw)
-    eng = teng.FastDMEngine(root, architecture=architecture, verbose=False, device="cpu",
-                            mesh_shape=mesh_shape, **engine_kw)
+    base = getattr(tsdxl.SDXLConfig, "func", tsdxl.SDXLConfig)
+    tsdxl.SDXLConfig = base if sdxl_kw is None else functools.partial(base, **sdxl_kw)
+    return teng.FastDMEngine(root, architecture=architecture, verbose=False, device="cpu",
+                             mesh_shape=mesh_shape, **engine_kw)
+
+
+def task_tp_engine(root: str, architecture: str, requests, mesh_shape, vae_kw=None,
+                   sparse_gather=None, sdxl_kw=None, **engine_kw):
+    """_engine(...) -> ([(each request's output, the engine's cache skips
+    after it)], the row-parallel QLinears of its denoiser and ControlNet).
+    sparse_gather: FASTDM_SPARSE_GATHER for the call (the engine's radial
+    sparse mode)."""
+    os.environ.pop("FASTDM_SPARSE_GATHER", None)
+    if sparse_gather is not None:
+        os.environ["FASTDM_SPARSE_GATHER"] = sparse_gather
+    eng = _engine(root, architecture, mesh_shape, vae_kw, sdxl_kw, **engine_kw)
     outs = []
     for kw in requests:
         outs.append((eng.generate(**kw), eng.last_cache_skips))
-    trees = [eng.params] + ([eng.params_2] if getattr(eng, "params_2", None) is not None else [])
+    trees = [t for t in (eng.params, getattr(eng, "params_2", None), eng.cn_params)
+             if t is not None]
     n_row = sum(getattr(m, "tp_reduce", None) is not None for t in trees for m in t.modules())
     return outs, n_row
+
+
+def task_tp_sdxl(sd_path: str, cfg_kw: dict, inputs: dict):
+    """The SDXL UNet of a state-dict file loaded as this rank's tp shards
+    over a (1, 1, world) mesh, its forward on `inputs` with the IP-Adapter
+    tokens and without -> ([output with, output without], bytes of this
+    rank's block parameters)."""
+    import torch.distributed as dist
+    from safetensors.torch import load_file
+
+    from fastdm_tpu_torch.models.loader import TensorSource
+    from fastdm_tpu_torch.models.sdxl import SDXLConfig, sdxl_forward, sdxl_load
+    from fastdm_tpu_torch.parallel.offload import module_bytes
+    from fastdm_tpu_torch.parallel.tensor_parallel import DistTPGroup, block_paths, shard_block
+
+    tp = DistTPGroup(_mesh((1, 1, dist.get_world_size())).axis("tp"))
+    cfg = SDXLConfig(**cfg_kw)
+    src = TensorSource(load_file(sd_path), "cpu")
+    src.shard = lambda path, block: shard_block(block, path, cfg, tp)
+    unet = sdxl_load(src, cfg)
+    i = inputs
+    with torch.inference_mode():
+        outs = [sdxl_forward(unet, cfg, i["sample"], i["t"], i["ctx"], i["pooled"],
+                             i["time_ids"], ip_embeds=ip) for ip in (i["ip"], None)]
+    return outs, sum(module_bytes(unet.get_submodule(p)) for p in block_paths(unet))
+
+
+class TableEncoder:
+    """A text encoder that looks prompts up: table[prompt] holds the
+    embeddings a stand-in encoder of the parent gives for it."""
+
+    def __init__(self, family: str, table: dict):
+        self.family, self.table = family, table
+
+    def encode(self, prompt, num_images_per_prompt=1):
+        e = self.table[prompt]
+        t = lambda a: torch.from_numpy(a).bfloat16().repeat(  # noqa: E731
+            num_images_per_prompt, *([1] * (a.ndim - 1)))
+        if self.family == "flux":
+            return t(e["prompt_embeds"]), t(e["pooled_prompt_embeds"])
+        return t(e["prompt_embeds"])
+
+    def encode_with_image(self, prompt, images, num_images_per_prompt=1):
+        return self.encode(prompt, num_images_per_prompt)
+
+
+def task_serve(root: str, architecture: str, mesh_shape, vae_kw: dict, table: dict, calls):
+    """The API server (examples/serve/api_server_torch.py) on a mesh through
+    parallel/request_loop.serve: rank 0 runs each (route, request keywords)
+    of `calls` through its Routes on the LeadEngine -> [(200, decoded
+    image) or (status, detail)]; the other ranks follow -> the number of
+    calls they ran. Either returns only after rank 0's shutdown."""
+    import importlib.util
+
+    from fastdm_tpu_torch.parallel import request_loop
+
+    name = "_api_server_torch_worker"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(REPO, "examples", "serve", "api_server_torch.py"))
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    api = sys.modules[name]
+    eng = _engine(root, architecture, mesh_shape, vae_kw)
+    eng.text_encoder = TableEncoder(eng.architecture, table)
+    answers = []
+
+    def front_end(lead):
+        routes = api.Routes(lead, "tiny")
+        for route, kw in calls:
+            req = (api.EditRequest if route == "edit" else api.GenerateRequest)(**kw)
+            try:
+                answers.append((200, api.base64_to_image(getattr(routes, route)(req).image)))
+            except api.HTTPError as e:
+                answers.append((e.status_code, e.detail))
+
+    done = request_loop.serve(eng, front_end)
+    return answers if done["rank"] == 0 else done["followed"]
