@@ -288,6 +288,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
      writing a FLUX int8 1024x2048 image (one warmup), its launches derived;
      examples/xcaching/fit_teacache_torch.py on random full-depth FLUX.1-dev
      int8 at 1024x1024 for 4 steps, launches 4 forwards.
+  train: FLUX LoRA training (training/lora.py, kernels/autograd.py). Each
+     Function at train.py's shapes (512x512: 1024 image + 128 text = 1152
+     tokens, 24 x 128 heads): the forward on the kernel (rmsnorm, rotembd,
+     sdpa_lse), the gradients against torch.autograd of the plain version
+     under plain_on_device, each forward and backward timed beside its bound,
+     its plain version and the library call (F.rms_norm's backward,
+     aten._scaled_dot_product_flash_attention_backward). One step at
+     TRAIN_CUT (2 dual + 4 single blocks, full width, rank 16, up non-zero)
+     on the kernels against the same step with every op plain: loss and
+     LoRA gradients within TRAIN_STEP_REL_L2. Then
+     examples/lora-train/train_torch.py's train() on bf16 FLUX.1-dev at full
+     width and depth (19 + 38 blocks, random weights), train.py's defaults,
+     TRAIN_STEPS steps: seconds a step (steps 1-3; the first draws the model
+     and warms up), the last under torch.profiler (the device's busy share and
+     largest kernels), peak GiB, the losses finite, every up non-zero, exactly
+     TRAIN_PER_STEP launches a step (rmsnorm 152, sdpa_lse 57, rotembd 57
+     forward + 57 backward, sdpa 0), the export read back as down^T / up^T. A
+     [train] line after [done].
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -8338,6 +8356,401 @@ def phase_tp(dev) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- training
+
+# train.py's defaults: 512x512 (32x32 latent tokens) and 128 text tokens, rank
+# 16, scale 1.0, lr 1e-4, batch 1
+TRAIN_HT = TRAIN_WT = 32
+TRAIN_TXT = 128
+TRAIN_TOKENS = TRAIN_HT * TRAIN_WT + TRAIN_TXT
+TRAIN_RANK, TRAIN_STEPS = 16, 5  # steps 1-3 timed, the last profiled
+TRAIN_CUT = (2, 4)  # the dual / single blocks of the kernels-vs-plain step
+# one step's LoRA gradients on the kernels against the plain step: each
+# factor's relative L2 (first measured on an H100 80GB HBM3: worst 6.409e-3,
+# all factors together 2.120e-3), twice that; the loss's relative difference
+# (2.238e-5 in full f32, 3.570e-5 with the f32 GEMMs in TF32), twice the larger
+TRAIN_STEP_REL_L2 = 1.28e-2
+TRAIN_LOSS_REL = 7.2e-5
+# a Function's gradients on the kernel against torch.autograd of the plain
+# version: rotembd bit-exact (the same f32 products, one rounding); rmsnorm's
+# dx within one bf16 ulp plus TRAIN_RMS_GRAD_ABS of the largest |dx| (both
+# f32; rstd * (g w - x_hat mean(g w x_hat)) cancels near 0, where its f32
+# roundings are many ulps of the small result: 4 of 3.5 M elements at 1e-8
+# of the largest in a CPU run at these shapes);
+# sdpa's within relative L2 TRAIN_SDPA_GRAD_REL (its backward reads the
+# kernel's output and log-sum-exp, each within the forward's tolerance)
+TRAIN_SDPA_GRAD_REL = 1e-2
+TRAIN_RMS_GRAD_ABS = 1e-6
+TRAIN_PER_STEP = {"rmsnorm": 4 * DUAL + 2 * SINGLE, "sdpa_lse": DUAL + SINGLE,
+                  "rotembd": 2 * (DUAL + SINGLE)}
+TRAIN_SUMMARY: dict = {}
+
+
+def lora_params(cfg, rank: int) -> int:
+    """The factors' count train.py prints: rank * (K + N) of every target,
+    per dual block qkv, add_qkv, to_out, to_add_out and the two FFNs' proj
+    and out, per single block qkv_mlp (44.83M at FLUX.1-dev's widths, rank
+    16)."""
+    d, mlp = cfg.inner_dim, cfg.mlp_hidden_dim
+    dual = 2 * (d + 3 * d) + 2 * (d + d) + 4 * (d + mlp)
+    return rank * (cfg.num_layers * dual + cfg.num_single_layers * (d + 3 * d + mlp))
+
+
+# cycles of the busy-wait per timed backward: autograd's engine and the
+# Functions' Python take the host ~1 ms a backward, more than cuda_ms's hold
+BACKWARD_QUEUE_CYCLES = 4_000_000
+
+
+def _grad_ms(out, inputs, cot, iters: int) -> float:
+    """Mean device ms of one backward of `out`'s graph (kept), the runs
+    queued behind a busy-wait long enough to hide the host's time."""
+    import torch
+
+    def run():
+        torch.autograd.grad(out, inputs, cot, retain_graph=True)
+
+    run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(BACKWARD_QUEUE_CYCLES * iters)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _train_kernels(dev, g) -> dict:
+    """rmsnorm, rotembd and sdpa at the training shapes through their
+    Functions: the forward on the kernel, the gradients against
+    torch.autograd of the plain version (plain_on_device), forward and
+    backward timed beside bounds, plain versions and library calls. -> the
+    kernels line's training rows (launches filled in by phase_train)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import kernel_registry, rms_norm, rotary_pos_embedding, \
+        scaled_dot_product_attention
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.models.flux import FluxConfig, flux_rope_cache
+
+    s, eps, rows = TRAIN_TOKENS, 1e-6, {}
+
+    def both(fn, inputs, cots, op):
+        """(kernel outputs, kernel grads, plain outputs, plain grads, launches)."""
+        cb.reset_launch_counts()
+        out = fn(*inputs)
+        got = torch.autograd.grad(out, inputs, cots)
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        with kernel_registry.plain_on_device([op]):
+            ref_out = fn(*inputs)
+            want = torch.autograd.grad(ref_out, inputs, cots)
+        return out, got, ref_out, want, launches
+
+    # rmsnorm: the q heads of a single block's fused projection (strided rows)
+    qkv = torch.randn(1, s, 3 * DIM, generator=g, device=dev, dtype=torch.bfloat16)
+    x = qkv[..., :DIM].reshape(1, s, HEADS, HEAD_DIM).requires_grad_()
+    w = (1 + 0.05 * torch.randn(HEAD_DIM, generator=g, device=dev)).bfloat16()
+    cot = torch.randn(x.shape, generator=g, device=dev, dtype=torch.bfloat16)
+    out, (dx,), ref, (want,), launches = both(lambda x: rms_norm(x, w, eps), (x,), (cot,),
+                                              "rmsnorm")
+    e = (dx.float() - want.float()).abs()
+    excess = (e - bf16_ulp(want) - TRAIN_RMS_GRAD_ABS * want.float().abs().max()).max().item()
+    fwd_ulps = ((out.float() - ref.float()).abs() / bf16_ulp(ref)).max().item()
+    log(f"[train rmsnorm] {tuple(x.shape)} strided: forward {fwd_ulps:.2f} ulp, dx max_abs_err "
+        f"{e.max().item():.3e}, {(e > bf16_ulp(want)).sum().item()} elements over 1 ulp, "
+        f"excess {excess:.3e} (tolerance 1 ulp + {TRAIN_RMS_GRAD_ABS} of max |dx|) from "
+        f"autograd of the plain version; launches {launches}")
+    if not (excess <= 0 and fwd_ulps <= 1.0 and launches == {"rmsnorm": 1}):
+        raise AssertionError("rmsnorm's Function departs from its plain version")
+    n = x.numel()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: cb.rms_norm_cuda(x, w, eps), 50)
+        plain_ms = cuda_ms(lambda: tb.rms_norm_torch(x, w, eps), 10)
+        lib_ms = cuda_ms(lambda: F.rms_norm(x, (HEAD_DIM,), w, eps), 50)
+    b_ms, b_by = bound(2 * n * 2 + HEAD_DIM * 2, 4 * n, F32_FLOPS)
+    out = rms_norm(x, w, eps)
+    bwd_ms = _grad_ms(out, (x,), (cot,), 20)
+    with kernel_registry.plain_on_device(["rmsnorm"]):
+        ref = rms_norm(x, w, eps)
+    bwd_plain_ms = _grad_ms(ref, (x,), (cot,), 10)
+    lib = F.rms_norm(x, (HEAD_DIM,), w, eps)
+    bwd_lib_ms = _grad_ms(lib, (x,), (cot,), 20)
+    bb_ms, bb_by = bound(3 * n * 2 + HEAD_DIM * 2, 8 * n, F32_FLOPS)
+    log(f"[train rmsnorm] forward {ms:.4f} ms ({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, "
+        f"{b_by}), plain {plain_ms:.4f}, library {lib_ms:.4f}; backward {bwd_ms:.4f} ms "
+        f"({bb_ms / bwd_ms:.1%} of the bound {bb_ms:.4f} ms, {bb_by}), plain autograd "
+        f"{bwd_plain_ms:.4f}, library (F.rms_norm's backward) {bwd_lib_ms:.4f}")
+    TRAIN_SUMMARY["rmsnorm_backward"] = dict(ms=bwd_ms, plain_ms=bwd_plain_ms,
+                                             library_ms=bwd_lib_ms, bound_ms=bb_ms)
+    rows["rmsnorm_train"] = dict(
+        name="rmsnorm_train", route="cuda", source="fastdm_tpu_torch/csrc/rmsnorm.cu",
+        replaces="fastdm_tpu/kernels/pallas/elementwise.py:66",
+        max_abs_err=(out.float() - ref.float()).abs().max().item(), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    del qkv, x, cot, out, ref, dx, want, lib
+
+    # rotembd: the joint q and k with train.py's tables; the backward is the
+    # kernel with sin negated
+    cos, sin = flux_rope_cache(FluxConfig(), TRAIN_TXT, TRAIN_HT, TRAIN_WT, device=dev)
+    q, k = (torch.randn(1, s, DIM, generator=g, device=dev, dtype=torch.bfloat16)
+            .requires_grad_() for _ in range(2))
+    cots = tuple(torch.randn(1, s, DIM, generator=g, device=dev, dtype=torch.bfloat16)
+                 for _ in range(2))
+
+    def rope(q, k):
+        return rotary_pos_embedding(q, k, HEAD_DIM, cos, sin)
+
+    out, got, ref, want, launches = both(rope, (q, k), cots, "rotembd")
+    exact = all(torch.equal(a, b) for a, b in zip(out + got, ref + want))
+    log(f"[train rotembd] {tuple(q.shape)}: forward and gradients bit-exact with autograd of "
+        f"the plain version {exact} (tolerance: bit-exact); launches {launches}")
+    if not (exact and launches == {"rotembd": 2}):
+        raise AssertionError("rotembd's Function departs from its plain version")
+    n = q.numel() + k.numel()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: cb.rotary_pos_embedding_cuda(q, k, HEAD_DIM, cos, sin), 50)
+        plain_ms = cuda_ms(lambda: tb.rotary_pos_embedding_torch(q, k, HEAD_DIM, cos, sin), 10)
+    b_ms, b_by = bound(2 * n * 2 + 2 * cos.numel() * 4, 3 * n, F32_FLOPS)
+    out = rope(q, k)
+    bwd_ms = _grad_ms(out, (q, k), cots, 20)
+    with kernel_registry.plain_on_device(["rotembd"]):
+        ref = rope(q, k)
+    bwd_plain_ms = _grad_ms(ref, (q, k), cots, 10)
+    log(f"[train rotembd] forward {ms:.4f} ms ({b_ms / ms:.1%} of the bound {b_ms:.4f} ms, "
+        f"{b_by}), plain {plain_ms:.4f}; backward (the kernel with -sin) {bwd_ms:.4f} ms, "
+        f"plain autograd {bwd_plain_ms:.4f}")
+    TRAIN_SUMMARY["rotembd_backward"] = dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=b_ms)
+    rows["rotembd_train"] = dict(
+        name="rotembd_train", route="cuda", source="fastdm_tpu_torch/csrc/rope.cu",
+        replaces="fastdm_tpu/kernels/pallas/elementwise.py:483", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del out, ref, got, want, cots
+
+    # sdpa: the joint attention, forward sdpa_lse (the output bit-identical to
+    # sdpa's), the backward from its log-sum-exp
+    v = torch.randn(1, s, DIM, generator=g, device=dev, dtype=torch.bfloat16).requires_grad_()
+    cot = torch.randn(1, s, DIM, generator=g, device=dev, dtype=torch.bfloat16)
+
+    def attn(q, k, v):
+        return scaled_dot_product_attention(q, k, v, HEADS, HEADS, HEAD_DIM, False,
+                                            HEAD_DIM**-0.5)
+
+    out, got, ref, want, launches = both(attn, (q, k, v), (cot,), "sdpa")
+    same = torch.equal(out, cb.sdpa_cuda(q.detach(), k.detach(), v.detach(), HEADS, HEADS,
+                                         HEAD_DIM))
+    rels = [((a.float() - b.float()).norm() / b.float().norm()).item() for a, b in zip(got, want)]
+    fwd_err = (out.float() - ref.float()).abs().max().item()
+    log(f"[train sdpa] (1, {s}, {HEADS}x{HEAD_DIM}): forward bit-identical to sdpa {same}, "
+        f"max_abs_err {fwd_err:.3e} from plain; dq, dk, dv rel L2 "
+        f"{', '.join(f'{r:.3e}' for r in rels)} from autograd of the plain version (tolerance "
+        f"{TRAIN_SDPA_GRAD_REL}); launches {launches}")
+    if not (same and max(rels) <= TRAIN_SDPA_GRAD_REL and launches == {"sdpa_lse": 1}
+            and all(torch.isfinite(t).all() for t in got)):
+        raise AssertionError("sdpa's Function departs from its plain version")
+    heads = lambda t: t.detach().view(1, s, HEADS, HEAD_DIM).transpose(1, 2)  # noqa: E731
+    flops = 4 * s * s * HEAD_DIM * HEADS
+    n = q.numel()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: cb.sdpa_lse_cuda(q, k, v, HEADS, HEADS, HEAD_DIM), 20)
+        plain_ms = cuda_ms(lambda: tb.sdpa_lse_torch(q, k, v, HEADS, HEADS, HEAD_DIM), 3, 1)
+    b_ms, b_by = bound(4 * n * 2 + HEADS * s * 4, flops, BF16_FLOPS)
+    try:
+        lib = torch.ops.aten._scaled_dot_product_flash_attention(heads(q), heads(k), heads(v))
+        lib_ms = cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            heads(q), heads(k), heads(v)), 20)
+        lo, lse = lib[0], lib[1]
+        bwd_lib_ms = cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            heads(cot), heads(q), heads(k), heads(v), lo, lse, lib[2], lib[3], lib[4], lib[5],
+            0.0, False, lib[6], lib[7], scale=HEAD_DIM**-0.5), 20)
+        del lib, lo, lse
+    except (RuntimeError, TypeError) as ex:  # a build without the flash path
+        log(f"[train sdpa] library call unavailable ({str(ex)[:160]})")
+        lib_ms = bwd_lib_ms = None
+    out = attn(q, k, v)
+    bwd_ms = _grad_ms(out, (q, k, v), (cot,), 5)
+    with kernel_registry.plain_on_device(["sdpa"]):
+        ref = attn(q, k, v)
+    bwd_plain_ms = _grad_ms(ref, (q, k, v), (cot,), 2)
+    bb_ms, bb_by = bound(8 * n * 2 + HEADS * s * 4, 2.5 * flops, BF16_FLOPS)
+    log(f"[train sdpa] forward (sdpa_lse) {ms:.4f} ms ({b_ms / ms:.1%} of the bound "
+        f"{b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f}, library {lib_ms}; backward "
+        f"{bwd_ms:.4f} ms ({bb_ms / bwd_ms:.1%} of the bound {bb_ms:.4f} ms, {bb_by}), plain "
+        f"autograd {bwd_plain_ms:.4f}, library (aten flash backward) {bwd_lib_ms}")
+    TRAIN_SUMMARY["sdpa_backward"] = dict(ms=bwd_ms, plain_ms=bwd_plain_ms,
+                                          library_ms=bwd_lib_ms, bound_ms=bb_ms,
+                                          grad_rel_l2=max(rels))
+    rows["sdpa_lse_train"] = dict(
+        name="sdpa_lse_train", route="cuda", source="fastdm_tpu_torch/csrc/flash_attn.cu",
+        replaces="fastdm_tpu/kernels/pallas/attention.py:429", max_abs_err=fwd_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    del q, k, v, cot, out, ref, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_step_gate(dev) -> None:
+    """One LoRA step at TRAIN_CUT, full width, on the kernels against the same
+    step with every op plain (the plain versions differentiated by
+    torch.autograd): the loss and every factor's gradient (up drawn non-zero,
+    so that down's gradient is not 0) within TRAIN_STEP_REL_L2; exact
+    launches on the kernels, none on the plain versions."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import kernel_registry
+    from fastdm_tpu_torch.models.flux import FluxConfig, flux_init_random, flux_rope_cache
+    from fastdm_tpu_torch.training import lora as L
+
+    nd, ns = TRAIN_CUT
+    cfg = FluxConfig(quant=None, num_layers=nd, num_single_layers=ns)
+    model = flux_init_random(5, cfg, device=dev)
+    lora = L.init_lora(model, TRAIN_RANK, 0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    with torch.no_grad():
+        for f in lora.values():
+            f["up"].copy_(0.01 * torch.randn(f["up"].shape, generator=g, device=dev))
+    cos, sin = flux_rope_cache(cfg, TRAIN_TXT, TRAIN_HT, TRAIN_WT, device=dev)
+    batch = next(L.batches(dict(latents=(TRAIN_TOKENS - TRAIN_TXT, cfg.in_channels),
+                                embeds=(TRAIN_TXT, cfg.joint_attention_dim),
+                                pooled=(cfg.pooled_projection_dim,)), 0, dev))
+    eps, t = L.draw_noise(batch["latents"], g)
+
+    def step():
+        for p in L.lora_parameters(lora):
+            p.grad = None
+        loss = L.flow_loss(model, cfg, lora, 1.0, batch, eps, t, cos, sin)
+        loss.backward()
+        return loss.item(), torch.cat([p.grad.flatten() for p in L.lora_parameters(lora)])
+
+    cb.reset_launch_counts()
+    loss, grads = step()
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    cb.reset_launch_counts()
+    with kernel_registry.plain_on_device():
+        ref_loss, ref_grads = step()
+    plain_launches = {k: v for k, v in _launch_counts().items() if v}
+    rel = ((grads - ref_grads).norm() / ref_grads.norm()).item()
+    worst = 0.0
+    off = 0
+    for p in L.lora_parameters(lora):
+        a, b = grads[off:off + p.numel()], ref_grads[off:off + p.numel()]
+        worst = max(worst, ((a - b).norm() / b.norm()).item())
+        off += p.numel()
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    want = {"rmsnorm": 4 * nd + 2 * ns, "sdpa_lse": nd + ns, "rotembd": 2 * (nd + ns)}
+    log(f"[train step] {nd} dual + {ns} single blocks, full width, rank {TRAIN_RANK}: loss "
+        f"{loss:.6f} on the kernels, {ref_loss:.6f} plain (rel {loss_rel:.3e}, tolerance "
+        f"{TRAIN_LOSS_REL}); LoRA gradients rel L2 {rel:.3e}, worst factor {worst:.3e} "
+        f"(tolerance {TRAIN_STEP_REL_L2}); launches "
+        f"{launches} (want {want}), plain {plain_launches}")
+    TRAIN_SUMMARY["step_gate"] = dict(loss_rel=loss_rel, grad_rel_l2=rel, worst_factor=worst)
+    if not (launches == want and not plain_launches and loss_rel <= TRAIN_LOSS_REL
+            and worst <= TRAIN_STEP_REL_L2 and torch.isfinite(grads).all()):
+        raise AssertionError("the LoRA step on the kernels departs from the plain step")
+    del model, lora, grads, ref_grads
+    torch.cuda.empty_cache()
+
+
+def _device_split(prof, n: int = 14) -> tuple:
+    """(device-busy ms, the n kernels with the most device time as (name,
+    ms, calls)) of a profiled region."""
+    import torch
+
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if (us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):  # a range, not a kernel
+            rows.append((e.key[:60], round(us / 1e3, 3), e.count))
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:n]
+
+
+def phase_train(dev) -> tuple:
+    """The training phase (see the module docstring). -> (the kernels line's
+    training rows, their launches over train()'s run)."""
+    import math
+    import shutil
+
+    import torch
+    from safetensors.torch import load_file
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.training import lora as L
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows = _train_kernels(dev, torch.Generator(device=dev).manual_seed(40))
+    _train_step_gate(dev)
+
+    cli = _repo_module("examples/lora-train/train_torch.py", "train_torch")
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".smoke-train")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "lora_out.safetensors")
+    args = cli.parse_args(["--synthetic", "--steps", str(TRAIN_STEPS), "--output", path,
+                           "--seed", "0", "--device", str(dev)])
+    stamps = []
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if step == TRAIN_STEPS - 2:  # the last step runs under the profiler
+            prof.start()
+        elif step == TRAIN_STEPS - 1:
+            prof.stop()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cli.train(args, on_step=on_step)
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = [b - a for a, b in zip(stamps, stamps[1:-1])]
+    busy_ms, top = _device_split(prof)
+    profiled_s = stamps[-1] - stamps[-2]
+    log(f"[train] the profiled step: {profiled_s:.3f} s on the host clock, the device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / 1e3 / profiled_s:.1%}); largest kernels (ms, calls): "
+        f"{top}")
+    lora = res["lora"]
+    n_lora = L.lora_count(lora)
+    ups = all(f["up"].abs().max().item() > 0 for f in lora.values())
+    want = {k: TRAIN_STEPS * v for k, v in TRAIN_PER_STEP.items()}
+    log(f"[train] FLUX.1-dev bf16 {DUAL} + {SINGLE} blocks, {TRAIN_TOKENS} tokens, rank "
+        f"{TRAIN_RANK}: {n_lora / 1e6:.2f}M LoRA params; losses {res['losses']}; first step "
+        f"{stamps[0] - t0:.3f} s (model draw and warm-up included), then {step_s} s a step "
+        f"(the profiled last step apart); "
+        f"peak {peak:.2f} GiB ({base_gib:.2f} GiB resident before); launches {launches} "
+        f"(want {want}, sdpa 0); every up non-zero {ups}")
+    if not (launches == want and ups and all(math.isfinite(x) for x in res["losses"])
+            and n_lora == lora_params(res["cfg"], TRAIN_RANK)):
+        raise AssertionError("LoRA training at full depth failed its checks")
+
+    back = load_file(path)
+    exp = L.export_tensors(lora)
+    same = back.keys() == exp.keys() and all(torch.equal(back[k], exp[k]) for k in exp)
+    log(f"[train] export {path}: {len(back)} tensors, {os.path.getsize(path)} bytes, read back "
+        f"as down^T / up^T {same}")
+    if not (same and len(back) == res["tensors"] == 2 * (8 * DUAL + SINGLE)):
+        raise AssertionError("the LoRA export does not read back")
+    mean_s = sum(step_s) / len(step_s)
+    TRAIN_SUMMARY.update(step_seconds=step_s, mean_step_s=mean_s, peak_gib=peak,
+                         losses=res["losses"], profiled_step_s=profiled_s,
+                         device_busy_ms=busy_ms, phase_s=time.perf_counter() - t_phase)
+    del res, lora, back, exp
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rows, {name: launches[name.rsplit("_train", 1)[0]] for name in rows}
+
+
 def main() -> int:
     import torch
 
@@ -8369,6 +8782,9 @@ def main() -> int:
     phase_i2v(dev)
     phase_engine(dev, summary)
     launches.update(phase_tp(dev))
+    train_rows, train_launches = phase_train(dev)
+    kernels.update(train_rows)
+    launches.update(train_launches)
     for name, r in kernels.items():
         r["launches"] = launches[name]
     log(f"[done] {len(kernels)} kernels, all phases in {time.perf_counter() - t0:.1f} s")
@@ -8389,6 +8805,8 @@ def main() -> int:
         f"and offload_inactive_expert (ms, seconds, GiB): {PARALLEL_SUMMARY}")
     log(f"[tp] the tensor-parallel variants, the virtual-tp forwards, each rank's resident GiB "
         f"and the offload of a rank's shard (ms, seconds, GiB, GiB/s): {TP_SUMMARY}")
+    log(f"[train] FLUX LoRA training: the backwards, the step gate and the full-depth steps "
+        f"(ms, seconds, GiB): {TRAIN_SUMMARY}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -7,7 +7,8 @@ gather_fine_attention, gather_super_attention), the W8A8 ops
 variants (rms_sumsq, rms_norm_given, qk_norm_rope_given, qk_norm_rope2_given,
 quantize_stats, quantize_to_*_given, *_matmul_partial), dispatched by
 tensor device to the plain PyTorch versions (CPU) or the hand-written Hopper
-kernels (CUDA)."""
+kernels (CUDA); under autograd rms_norm, rotary_pos_embedding and
+scaled_dot_product_attention go through the Functions of kernels/autograd.py."""
 
 from fastdm_tpu_torch.kernels import cuda_backend, torch_backend  # noqa: F401  (registration)
 from fastdm_tpu_torch.kernels.ops import (
@@ -41,6 +42,7 @@ from fastdm_tpu_torch.kernels.ops import (
     sparse_scaled_dot_product_attention,
     unpack_int4,
 )
+from fastdm_tpu_torch.kernels import autograd  # noqa: F401,E402  (registration)
 from fastdm_tpu_torch.kernels.registry import kernel_registry
 
 __all__ = [

@@ -33,6 +33,7 @@ class KernelRegistry:
     def __init__(self) -> None:
         self._ops: Dict[str, Dict[str, Callable]] = {}
         self._plain_on_device: FrozenSet[str] = frozenset()
+        self._grads: Dict[str, Callable] = {}
 
     def register(self, op_name: str, backend: str) -> Callable:
         if backend not in BACKENDS:
@@ -40,6 +41,15 @@ class KernelRegistry:
 
         def deco(fn: Callable) -> Callable:
             self._ops.setdefault(op_name, {})[backend] = fn
+            return fn
+
+        return deco
+
+    def register_grad(self, op_name: str) -> Callable:
+        """Register the differentiable form of op_name (same arguments)."""
+
+        def deco(fn: Callable) -> Callable:
+            self._grads[op_name] = fn
             return fn
 
         return deco
@@ -73,12 +83,28 @@ class KernelRegistry:
         def deco(stub: Callable) -> Callable:
             @functools.wraps(stub)
             def wrapper(x: torch.Tensor, *args, **kwargs):
+                if torch.is_grad_enabled() and _requires_grad(x, args, kwargs):
+                    return self._differentiable(op_name, x)(x, *args, **kwargs)
                 return self.select(op_name, x.device)(x, *args, **kwargs)
 
             wrapper.op_name = op_name
             return wrapper
 
         return deco
+
+    def _differentiable(self, op_name: str, x: torch.Tensor) -> Callable:
+        backend = self.backend_for(op_name, x.device)
+        if backend == "ring":
+            raise NotImplementedError(f"op {op_name!r} has no gradient under a sequence-parallel "
+                                      "ring")
+        if op_name in self._plain_on_device:
+            return self._ops[op_name]["torch"]  # the plain version's own autograd
+        if op_name in self._grads:
+            return self._grads[op_name]
+        if backend == "torch":
+            return self.select(op_name, x.device)
+        raise NotImplementedError(f"op {op_name!r} has no gradient on {x.device}: its kernel's "
+                                  "output carries no grad_fn")
 
     @contextlib.contextmanager
     def plain_on_device(self, ops: Optional[Iterable[str]] = None):
@@ -93,6 +119,11 @@ class KernelRegistry:
             yield
         finally:
             self._plain_on_device = prev
+
+
+def _requires_grad(x: torch.Tensor, args, kwargs) -> bool:
+    return any(isinstance(t, torch.Tensor) and t.requires_grad
+               for t in (x, *args, *kwargs.values()))
 
 
 kernel_registry = KernelRegistry()

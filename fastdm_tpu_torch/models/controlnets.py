@@ -19,6 +19,7 @@ Both run the base models' own modules:
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional, Tuple
 
 import torch
@@ -361,19 +362,25 @@ class FluxControlNet(nn.Module):
                                                       requires_grad=False))
 
 
+# the process-wide TF32 switch is saved, set and restored under this lock: the
+# virtual tp ranks (parallel/tensor_parallel.py) call _zero_heads from threads
+_TF32_SWITCH = threading.Lock()
+
+
 def _zero_heads(samples: Tensor, heads: nn.ParameterDict, scale: float) -> Tensor:
     """Stacked per-layer zero linears (L, B, S, D) x (L, D, D): bf16 operands
     multiplied with f32 accumulation, the f32 bias, the scale, then one cast
     to the samples' dtype. The product runs in TF32 whatever the global
     setting: a bf16 value is exact in TF32, so the tensor cores give the
     exact products the f32 CUDA-core GEMM gives."""
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        out = torch.matmul(samples.to(torch.bfloat16).float(),
-                           heads["w"].to(torch.bfloat16).float()[:, None])
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    with _TF32_SWITCH:
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            out = torch.matmul(samples.to(torch.bfloat16).float(),
+                               heads["w"].to(torch.bfloat16).float()[:, None])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
     out = out + heads["bias"].float()[:, None, None, :]
     return (out * scale).to(samples.dtype)
 

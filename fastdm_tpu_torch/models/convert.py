@@ -11,6 +11,9 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
+import torch
+
 from fastdm_tpu_torch.device import resolve_device
 from fastdm_tpu_torch.layers.attention import JointAttention
 from fastdm_tpu_torch.layers.embeddings import (
@@ -478,3 +481,32 @@ def wan_vae_params_from_numpy(tree: Dict, device="cuda") -> Dict:
         return as_tensor(node).to(dev)
 
     return {k: walk(v) for k, v in tree.items()}
+
+
+def lora_from_numpy(tree: Dict, device="cuda") -> Dict[str, Dict]:
+    """A LoRA tree of examples/lora-train/train.py init_lora (numpy leaves:
+    stacked down (L, K, r) / up (L, r, N) per block list, or unstacked
+    (K, r) / (r, N)) -> the port's LoRA (training/lora.py): {module path:
+    {"down", "up"}} in f32 on `device`, requiring gradients, block i of
+    "dual_blocks.attn.qkv" at "dual_blocks.<i>.attn.qkv"."""
+    dev = resolve_device(device)
+    out = {}
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev).requires_grad_()
+
+    def walk(node: Dict, path: str):
+        if "down" in node:
+            down, up = np.asarray(node["down"]), np.asarray(node["up"])
+            if down.ndim == 2:
+                out[path] = {"down": leaf(down), "up": leaf(up)}
+                return
+            head, _, rest = path.partition(".")
+            for i in range(down.shape[0]):
+                out[f"{head}.{i}.{rest}"] = {"down": leaf(down[i]), "up": leaf(up[i])}
+            return
+        for k, v in node.items():
+            walk(v, f"{path}.{k}" if path else k)
+
+    walk(tree, "")
+    return out

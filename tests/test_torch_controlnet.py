@@ -1096,3 +1096,49 @@ def test_entry_points_default_to_the_card(tmp_path, sdxl_engine_root):
                                            verbose=False, controlnet_path=cn_dir)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_zero_heads_tf32_switch_safe_across_threads(monkeypatch):
+    """_zero_heads turns the process-wide TF32 switch on for its product and
+    back; the virtual tp ranks call it from threads. A second thread that
+    enters while the first is inside must leave the switch as it was found.
+    Without the lock it saved the first thread's True and restored it last:
+    TF32 stayed on for every later f32 product of the process, and a rank
+    whose product ran after another's restore ran it off TF32 (unequal
+    ranks)."""
+    import threading
+    import time
+
+    from fastdm_tpu_torch.models import controlnets
+
+    real, inside, seen = torch.matmul, threading.Event(), []
+
+    def slow_matmul(a, b):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        inside.set()
+        time.sleep(0.2)
+        return real(a, b)
+
+    monkeypatch.setattr(torch, "matmul", slow_matmul)
+    heads = {"w": torch.randn(2, 4, 4), "bias": torch.zeros(2, 4)}
+    x = torch.randn(2, 1, 3, 4)
+    outs = [None, None]
+
+    def run(i):
+        if i:
+            inside.wait(timeout=30)
+        outs[i] = controlnets._zero_heads(x, heads, 0.5)
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert seen == [True, True] and torch.equal(outs[0], outs[1])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -1687,3 +1687,92 @@ def test_flux_blocks_over_virtual_tp_on_card(cuda_device, quant):
     gemm = {"int8": cb.int8_matmul_partial_cuda, "fp8": cb.fp8_matmul_partial_cuda,
             "int4p": cb.int4_matmul_partial_cuda}[quant]
     assert min(cb.quantize_stats_cuda.launches, quantizer.launches, gemm.launches) > 0
+
+
+# the Functions of kernels/autograd.py: (shape of q, heads, kv heads, head dim)
+AUTOGRAD_CASES = {"rmsnorm": ((1, 1152, 3 * 3072), 24, 24, 128),
+                  "rotembd": ((1, 1152, 3072), 24, 8, 128),
+                  "sdpa": ((1, 1152, 3072), 24, 24, 128),
+                  "sdpa-gqa": ((2, 300, 1024), 8, 2, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(AUTOGRAD_CASES))
+def test_autograd_functions_on_card(cuda_device, case):
+    """Each Function with its forward on the kernel against torch.autograd of
+    the plain version (plain_on_device): rotembd's output and gradients
+    bit-exact (its backward is the kernel again, two launches); rmsnorm's dx
+    (on the strided q heads of a fused projection) within one bf16 ulp plus
+    1e-6 of the largest |dx| (the f32 formula cancels near 0); sdpa's dq, dk,
+    dv within relative L2 1e-2 (the backward reads the kernel's output and
+    log-sum-exp), the forward on sdpa_lse, bit-identical to sdpa."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import kernel_registry, rms_norm, rotary_pos_embedding, \
+        scaled_dot_product_attention
+
+    shape, hq, hkv, hd = AUTOGRAD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(30)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=cuda_device, dtype=torch.bfloat16)
+
+    b, s = shape[:2]
+    if case == "rmsnorm":
+        x = rnd(*shape)[..., :hq * hd].reshape(b, s, hq, hd).requires_grad_()
+        w = (1 + 0.05 * torch.randn(hd, generator=g, device=cuda_device)).bfloat16()
+        inputs, fn, op = (x,), lambda x: rms_norm(x, w, 1e-6), "rmsnorm"
+    elif case == "rotembd":
+        ang = torch.rand(s, hd // 2, generator=g, device=cuda_device) * 6.0
+        cos, sin = ang.cos(), ang.sin()
+        inputs = (rnd(b, s, hq * hd).requires_grad_(), rnd(b, s, hkv * hd).requires_grad_())
+        fn, op = (lambda q, k: rotary_pos_embedding(q, k, hd, cos, sin)), "rotembd"
+    else:
+        inputs = (rnd(b, s, hq * hd).requires_grad_(), rnd(b, s, hkv * hd).requires_grad_(),
+                  rnd(b, s, hkv * hd).requires_grad_())
+        fn, op = (lambda q, k, v: scaled_dot_product_attention(q, k, v, hq, hkv, hd)), "sdpa"
+    cb.reset_launch_counts()
+    out = fn(*inputs)
+    outs = out if isinstance(out, tuple) else (out,)
+    cots = [rnd(*o.shape) for o in outs]
+    got = torch.autograd.grad(outs, inputs, cots)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in cb.KERNEL_WRAPPERS if w.launches}
+    with kernel_registry.plain_on_device([op]):
+        ref = fn(*inputs)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        want = torch.autograd.grad(refs, inputs, cots)
+    if case == "rotembd":
+        assert launches == {"rotary_pos_embedding_cuda": 2}
+        assert all(torch.equal(a, r) for a, r in zip(outs + got, refs + want))
+    elif case == "rmsnorm":
+        assert launches == {"rms_norm_cuda": 1}
+        e = (got[0].float() - want[0].float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(want[0].float().abs().clamp_min(1e-30))) - 7)
+        assert (e <= ulp + 1e-6 * want[0].float().abs().max()).all()
+    else:
+        assert launches == {"sdpa_lse_cuda": 1}
+        q, k, v = (t.detach() for t in inputs)
+        assert torch.equal(out, cb.sdpa_cuda(q, k, v, hq, hkv, hd))
+        for a, r in zip(got, want):
+            assert torch.isfinite(a).all()
+            assert ((a.float() - r.float()).norm() / r.float().norm()).item() <= 1e-2
+
+
+@pytest.mark.gpu
+def test_serving_and_ops_without_gradients_on_card(cuda_device):
+    """Under no_grad the sdpa op launches sdpa (not sdpa_lse) and returns no
+    grad_fn; an op without a Function refuses a gradient on the card instead
+    of returning a kernel output that carries none; causal sdpa with a
+    gradient raises."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import gelu_and_mul, scaled_dot_product_attention
+
+    q = torch.randn(1, 256, 256, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    cb.reset_launch_counts()
+    with torch.no_grad():
+        out = scaled_dot_product_attention(q, q, q, 2, 2, 128)
+    assert out.grad_fn is None and cb.sdpa_cuda.launches == 1 and cb.sdpa_lse_cuda.launches == 0
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        gelu_and_mul(q)
+    with pytest.raises(NotImplementedError, match="causal"):
+        scaled_dot_product_attention(q, q, q, 2, 2, 128, True)

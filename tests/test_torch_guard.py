@@ -14,8 +14,8 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "fastdm_tpu", "transformers", "tokenizers", "sentencepiece",
-             "regex", "ftfy")
+FORBIDDEN = ("jax", "jaxlib", "fastdm_tpu", "optax", "transformers", "tokenizers",
+             "sentencepiece", "regex", "ftfy")
 
 
 def _forbidden(mod: str) -> bool:
@@ -34,9 +34,10 @@ def _imports(path: Path):
 FRONTEND_FILES = (REPO / "comfyui" / "nodes_torch.py",
                   *sorted((REPO / "examples" / "serve").glob("*_torch.py")))
 
-# the port's CLI demos and TeaCache fitter
+# the port's CLI demos, TeaCache fitter and LoRA trainer
 CLI_FILES = (*sorted((REPO / "examples" / "demo").glob("*_torch.py")),
-             REPO / "examples" / "xcaching" / "fit_teacache_torch.py")
+             REPO / "examples" / "xcaching" / "fit_teacache_torch.py",
+             REPO / "examples" / "lora-train" / "train_torch.py")
 
 
 def _sources():
@@ -210,19 +211,20 @@ print("FORBIDDEN", sorted(m for m in sys.modules
 
 
 def test_cli_demos_and_fitter_import_no_jax_nor_pil():
-    """The CLI demos and the TeaCache fitter are among the scanned sources and
-    import nothing of JAX at any depth; a fresh interpreter with PIL and
-    imageio hidden (the GPU machine has neither) loads each of them and
-    every port module their mains reach, and has no JAX module loaded."""
+    """The CLI demos, the TeaCache fitter and the LoRA trainer are among the
+    scanned sources and import nothing of JAX or optax at any depth; a fresh
+    interpreter with PIL, imageio and optax hidden (the GPU machine has
+    none of them) loads each of them and every port module their mains
+    reach, and has no JAX module loaded."""
     names = sorted(p.name for p in CLI_FILES)
     assert names == ["controlnet_demo_torch.py", "fit_teacache_torch.py", "gen_torch.py",
-                     "image_edit_torch.py"], names
+                     "image_edit_torch.py", "train_torch.py"], names
     assert set(CLI_FILES) <= set(_sources())
     bad = [(p.name, m) for p in CLI_FILES for m in _imports(p) if _forbidden(m)]
     assert not bad, bad
     code = f"""
 import importlib.util, sys
-for m in ("PIL", "imageio"):
+for m in ("PIL", "imageio", "optax"):
     sys.modules[m] = None
 for path in {[str(p) for p in CLI_FILES]!r}:
     sys.path.insert(0, path.rsplit("/", 1)[0])
@@ -231,8 +233,9 @@ for path in {[str(p) for p in CLI_FILES]!r}:
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
 import fastdm_tpu_torch.engine, fastdm_tpu_torch.models.sd35, fastdm_tpu_torch.models.qwenimage
-print("FORBIDDEN", sorted(m for m in sys.modules
-                          if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})))
+import fastdm_tpu_torch.training.lora
+print("FORBIDDEN", sorted(m for m, mod in sys.modules.items() if mod is not None
+                          and any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r})))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
