@@ -305,7 +305,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      largest kernels), peak GiB, the losses finite, every up non-zero, exactly
      TRAIN_PER_STEP launches a step (rmsnorm 152, sdpa_lse 57, rotembd 57
      forward + 57 backward, sdpa 0), the export read back as down^T / up^T. A
-     [train] line after [done].
+     [train] line after [done]. Before train(), the sharded training step
+     (parallel/mesh.py flux_dryrun_step, _train_mesh): rmsnorm, rotembd and
+     sdpa_lse at a mesh rank's shapes against their plain versions; the ring
+     backward at 1152 tokens over 2 and 4 virtual ranks against SDPAFn on the
+     whole sequence, timed beside the library's flash backward; the ring's
+     plain forward at FLUX's 8704 tokens; then every parameter's gradient of
+     bf16 FLUX.1-dev at full width and TRAIN_CUT depth, batch 2, over the
+     virtual meshes MESH_TRAIN_SHAPES (dp, sp, tp up to (1, 2, 4) and (2, 2,
+     2)), each within MESH_TRAIN_REL_L2 (gradients) and MESH_TRAIN_LOSS_REL
+     (loss) of the (1, 1, 1) step on the kernels, the loss equal on every
+     rank, replicated gradients bit-equal on every tp rank, launches exact
+     (mesh_step_launches), seconds a step (host-bound), peak GiB; and JAX's
+     tiny dryrun defaults over virtual (1, 2, 4), with JAX's printed line,
+     launches exact, within MESH_TINY_REL_L2 / MESH_TINY_LOSS_REL of the same
+     step on the plain versions, its zero-padded head-dim-32 ring block of
+     sdpa_lse held to the plain version.
 
 Before the last line it prints the card's name and power limit and a
 {"kernels": [...]} line; the last line is {"ok": true, "device": {...}}.
@@ -8654,6 +8669,348 @@ def _train_step_gate(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# the sharded training step (parallel/mesh.py flux_dryrun_step) at full width,
+# TRAIN_CUT depth, batch 2, 512x512 (1152 tokens), over virtual ranks on one
+# card; the (1, 1, 1) step on the kernels is the reference
+MESH_TRAIN_SHAPES = ((2, 1, 1), (1, 2, 1), (1, 4, 1), (1, 1, 2), (1, 1, 4), (1, 2, 4), (2, 2, 2))
+MESH_TRAIN_BATCH = 2
+MESH_RING_SPS = (2, 4)
+# every parameter's gradient (tp shards gathered) and the loss against the
+# (1, 1, 1) step, relative; each twice its first measurement on an H100 80GB
+# HBM3, 700 W (worst gradient 7.519e-3 at (1, 2, 4), context_embedder.w; worst
+# loss 4.886e-5 at (1, 4, 1))
+MESH_TRAIN_REL_L2 = 1.5e-2
+MESH_TRAIN_LOSS_REL = 9.8e-5
+# JAX's tiny dryrun (parallel/mesh.py DRYRUN_CONFIG: one head of 32 a tp-4
+# rank, which the dense wrappers zero-pad to 64; 40-row ring blocks) over
+# MESH_TINY_SHAPE on the kernels against the same step on the plain versions:
+# every rank's gradients and the loss, relative, each twice its first
+# measurement on an H100 80GB HBM3, 700 W (worst gradient 8.613e-3, rank 0
+# dual_blocks.1.attn.norm_added_q; loss 7.693e-6)
+MESH_TINY_SHAPE = (1, 2, 4)
+MESH_TINY_REL_L2 = 1.7e-2
+MESH_TINY_LOSS_REL = 1.5e-5
+
+
+def mesh_step_launches(cfg, shape) -> dict:
+    """A mesh step's kernel launches, read off the code: each of the dp x tp
+    virtual ranks runs the forward on its heads (rmsnorm 4 a dual block and 2
+    a single one; rotembd once a block; sdpa_lse once a self-attention, or
+    sp x sp blocks under a ring of sp: the sp virtual ranks run in its
+    thread) and the backward (rotembd again: its transpose is the kernel;
+    the rmsnorm and sdpa backwards are plain PyTorch). sdpa: none."""
+    dp, sp, tp = shape
+    nd, ns = cfg.num_layers, cfg.num_single_layers
+    return {"rmsnorm": dp * tp * (4 * nd + 2 * ns), "rotembd": dp * tp * 2 * (nd + ns),
+            "sdpa_lse": dp * tp * (nd + ns) * sp * sp}
+
+
+def _mesh_kernel_rows(dev, g) -> dict:
+    """The three kernels of the mesh step timed at a mesh rank's shapes (tp 4:
+    6 heads of 128; the ring of 2: 576 queries against a 576-key block),
+    each held to its plain version; the kernels line's mesh rows (launches
+    filled in from the mesh steps)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.models.flux import FluxConfig, flux_rope_cache
+
+    s, h, rows = TRAIN_TOKENS, HEADS // 4, {}
+    qkv = torch.randn(1, s, 3 * h * HEAD_DIM, generator=g, device=dev, dtype=torch.bfloat16)
+    x = qkv[..., :h * HEAD_DIM].reshape(1, s, h, HEAD_DIM)
+    w = (1 + 0.05 * torch.randn(HEAD_DIM, generator=g, device=dev)).bfloat16()
+    with torch.no_grad():
+        got, want = cb.rms_norm_cuda(x, w, 1e-6), tb.rms_norm_torch(x, w, 1e-6)
+        ulps = ((got.float() - want.float()).abs() / bf16_ulp(want)).max().item()
+        ms = cuda_ms(lambda: cb.rms_norm_cuda(x, w, 1e-6), 50)
+        plain_ms = cuda_ms(lambda: tb.rms_norm_torch(x, w, 1e-6), 10)
+        lib_ms = cuda_ms(lambda: F.rms_norm(x, (HEAD_DIM,), w, 1e-6), 50)
+    n = x.numel()
+    b_ms, b_by = bound(2 * n * 2 + HEAD_DIM * 2, 4 * n, F32_FLOPS)
+    if ulps > 1.0:
+        raise AssertionError(f"rmsnorm at the tp-4 rank's heads: {ulps} ulp from plain")
+    rows["rmsnorm_mesh"] = dict(
+        name="rmsnorm_mesh", route="cuda", source="fastdm_tpu_torch/csrc/rmsnorm.cu",
+        replaces="fastdm_tpu/kernels/pallas/elementwise.py:66",
+        max_abs_err=(got.float() - want.float()).abs().max().item(), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    cos, sin = flux_rope_cache(FluxConfig(), TRAIN_TXT, TRAIN_HT, TRAIN_WT, device=dev)
+    q, k = (torch.randn(1, s, h * HEAD_DIM, generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    with torch.no_grad():
+        got = cb.rotary_pos_embedding_cuda(q, k, HEAD_DIM, cos, sin)
+        want = tb.rotary_pos_embedding_torch(q, k, HEAD_DIM, cos, sin)
+        ms = cuda_ms(lambda: cb.rotary_pos_embedding_cuda(q, k, HEAD_DIM, cos, sin), 50)
+        plain_ms = cuda_ms(lambda: tb.rotary_pos_embedding_torch(q, k, HEAD_DIM, cos, sin), 10)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("rotembd at the tp-4 rank's heads departs from plain")
+    n = q.numel() + k.numel()
+    b_ms, b_by = bound(2 * n * 2 + 2 * cos.numel() * 4, 3 * n, F32_FLOPS)
+    rows["rotembd_mesh"] = dict(
+        name="rotembd_mesh", route="cuda", source="fastdm_tpu_torch/csrc/rope.cu",
+        replaces="fastdm_tpu/kernels/pallas/elementwise.py:483", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    sq = s // 2
+    q, k, v = (torch.randn(1, sq, DIM, generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    heads = lambda t: t.view(1, sq, HEADS, HEAD_DIM).transpose(1, 2)  # noqa: E731
+    with torch.no_grad():
+        out, lse = cb.sdpa_lse_cuda(q, k, v, HEADS, HEADS, HEAD_DIM)
+        ref, ref_lse = tb.sdpa_lse_torch(q, k, v, HEADS, HEADS, HEAD_DIM)
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        ms = cuda_ms(lambda: cb.sdpa_lse_cuda(q, k, v, HEADS, HEADS, HEAD_DIM), 20)
+        plain_ms = cuda_ms(lambda: tb.sdpa_lse_torch(q, k, v, HEADS, HEADS, HEAD_DIM), 5)
+        lib_ms = cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            heads(q), heads(k), heads(v)), 20)
+    if not (err <= 1e-2 and lse_err <= 1e-3):
+        raise AssertionError(f"sdpa_lse at the ring block departs from plain: {err}, {lse_err}")
+    n = q.numel()
+    b_ms, b_by = bound(4 * n * 2 + HEADS * sq * 4, 4 * sq * sq * HEAD_DIM * HEADS, BF16_FLOPS)
+    rows["sdpa_lse_mesh"] = dict(
+        name="sdpa_lse_mesh", route="cuda", source="fastdm_tpu_torch/csrc/flash_attn.cu",
+        replaces="fastdm_tpu/kernels/pallas/attention.py:429", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    for r in rows.values():
+        log(f"[train mesh] {r['name']}: {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the "
+            f"bound {r['bound_ms']:.4f} ms, {r['bound_by']}), plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']}; max_abs_err {r['max_abs_err']:.3e} from plain")
+    return rows
+
+
+def _ring_backward_times(dev, g) -> None:
+    """The ring backward (parallel/context_parallel.py) per call at 1152
+    tokens over 2 and 4 virtual ranks, against one SDPAFn backward on the
+    whole sequence, the plain version's autograd and the library's flash
+    backward; the plain ring forward (its blocks plain) at FLUX's 8704
+    joint tokens."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import kernel_registry, scaled_dot_product_attention
+    from fastdm_tpu_torch.kernels.torch_backend import sdpa_torch
+    from fastdm_tpu_torch.parallel import cp_state
+    from fastdm_tpu_torch.parallel.context_parallel import VirtualRing, sdpa_ring
+
+    s = TRAIN_TOKENS
+    q, k, v, cot = (torch.randn(1, s, DIM, generator=g, device=dev, dtype=torch.bfloat16)
+                    for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = scaled_dot_product_attention(q, k, v, HEADS, HEADS, HEAD_DIM)
+    want = torch.autograd.grad(out, (q, k, v), cot, retain_graph=True)
+    whole_ms = _grad_ms(out, (q, k, v), (cot,), 5)
+    plain = sdpa_torch(q, k, v, HEADS, HEADS, HEAD_DIM)
+    plain_ms = _grad_ms(plain, (q, k, v), (cot,), 2)
+    del plain
+    heads = lambda t: t.detach().view(1, s, HEADS, HEAD_DIM).transpose(1, 2)  # noqa: E731
+    lib = torch.ops.aten._scaled_dot_product_flash_attention(heads(q), heads(k), heads(v))
+    lib_ms = cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        heads(cot), heads(q), heads(k), heads(v), lib[0], lib[1], lib[2], lib[3], lib[4], lib[5],
+        0.0, False, lib[6], lib[7], scale=HEAD_DIM**-0.5), 20)
+    del lib
+    flops = 4 * s * s * HEAD_DIM * HEADS
+    bb_ms, bb_by = bound(8 * q.numel() * 2 + HEADS * s * 4, 2.5 * flops, BF16_FLOPS)
+    TRAIN_SUMMARY["ring_backward"] = dict(whole_sdpafn_ms=whole_ms, plain_autograd_ms=plain_ms,
+                                          library_ms=lib_ms, bound_ms=bb_ms)
+    for sp in MESH_RING_SPS:
+        with cp_state.cp_ring(VirtualRing(sp)):
+            out = scaled_dot_product_attention(q, k, v, HEADS, HEADS, HEAD_DIM)
+        got = torch.autograd.grad(out, (q, k, v), cot, retain_graph=True)
+        rels = [((a.float() - b.float()).norm() / b.float().norm()).item()
+                for a, b in zip(got, want)]
+        ms = _grad_ms(out, (q, k, v), (cot,), 5)
+        log(f"[train mesh] ring backward (1, {s}, {HEADS}x{HEAD_DIM}) over {sp} virtual ranks: "
+            f"{ms:.4f} ms a call ({bb_ms / ms:.1%} of the bound {bb_ms:.4f} ms, {bb_by}); one "
+            f"SDPAFn backward on the whole sequence {whole_ms:.4f}, plain autograd "
+            f"{plain_ms:.4f}, library (aten flash backward) {lib_ms:.4f}; dq, dk, dv rel L2 "
+            f"{', '.join(f'{r:.3e}' for r in rels)} from SDPAFn (tolerance 1e-2)")
+        if not (max(rels) <= 1e-2 and all(torch.isfinite(t).all() for t in got)):
+            raise AssertionError(f"the ring backward over {sp} departs from SDPAFn")
+        TRAIN_SUMMARY["ring_backward"][f"sp{sp}_ms"] = ms
+        TRAIN_SUMMARY["ring_backward"][f"sp{sp}_rel_l2"] = max(rels)
+        del out, got
+    del q, k, v, cot, want
+
+    # the ring's plain forward (blocks on the plain log-sum-exp version) at FLUX's 8704 tokens
+    s = TXT_TOKENS + IMG_TOKENS
+    q, k, v = (torch.randn(1, s, DIM, generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    with torch.no_grad(), kernel_registry.plain_on_device(["sdpa_lse"]):
+        for sp in MESH_RING_SPS:
+            ms = cuda_ms(lambda: sdpa_ring(q, k, v, HEADS, HEADS, HEAD_DIM,
+                                           ring=VirtualRing(sp)), 2, 1)
+            log(f"[train mesh] the ring's plain forward (1, {s}, {HEADS}x{HEAD_DIM}) over {sp} "
+                f"virtual ranks: {ms:.3f} ms")
+            TRAIN_SUMMARY["ring_backward"][f"plain_ring_flux_sp{sp}_ms"] = ms
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def _train_mesh_tiny(dev, step, g) -> dict:
+    """JAX's tiny dryrun defaults (2 + 2 blocks, 4 heads of 32, 16 + 64
+    tokens, batch 2) over virtual MESH_TINY_SHAPE through step (counts reset
+    just before, read just after; launches exact), held to the same step
+    under plain_on_device (every rank's gradients and the loss), and the
+    head-dim-32 ring block of sdpa_lse (zero-padded to 64) against its plain
+    version. -> its numbers."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import kernel_registry
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.models.flux import FluxConfig
+    from fastdm_tpu_torch.parallel.mesh import DRYRUN_CONFIG, DRYRUN_HT, DRYRUN_TXT, DRYRUN_WT
+
+    cfg, shape = FluxConfig(**DRYRUN_CONFIG), MESH_TINY_SHAPE
+    loss, grads, secs, launches = step(shape, device=dev)
+    want = mesh_step_launches(cfg, shape)
+    with kernel_registry.plain_on_device(["sdpa_lse", "rmsnorm", "rotembd"]):
+        ploss, plain, _, plain_launches = step(shape, device=dev)
+    loss_rel = abs(loss - ploss) / abs(ploss)
+    worst, worst_name = 0.0, None
+    for r, pg in plain.items():
+        for name, b in pg.items():
+            a = grads[r][name].float()
+            rel = ((a - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+            if rel > worst:
+                worst, worst_name = rel, f"rank {r} {name}"
+
+    # the ring block of a tp-4 rank: one head of 32 over 40 queries and keys
+    d, sq = cfg.attention_head_dim, (DRYRUN_TXT + DRYRUN_HT * DRYRUN_WT) // shape[1]
+    q, k, v = (torch.randn(2, sq, d, generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    with torch.no_grad():
+        out, lse = cb.sdpa_lse_cuda(q, k, v, 1, 1, d)
+        ref, ref_lse = tb.sdpa_lse_torch(q, k, v, 1, 1, d)
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    log(f"[train mesh] JAX's tiny dryrun over virtual {shape} (one head of {d} a tp rank, "
+        f"zero-padded to 64; {sq}-row ring blocks): loss {loss:.6f}, {secs:.3f} s; against "
+        f"the step on the plain versions: loss rel {loss_rel:.3e} (tolerance "
+        f"{MESH_TINY_LOSS_REL}), worst gradient rel L2 {worst:.3e} ({worst_name}; tolerance "
+        f"{MESH_TINY_REL_L2}); launches {launches} (want {want}), plain {plain_launches}; the "
+        f"padded ring block of sdpa_lse: max_abs_err {err:.3e}, log-sum-exp {lse_err:.3e} "
+        f"from plain (tolerances 1e-2, 1e-3)")
+    if not (launches == want and not plain_launches and loss_rel <= MESH_TINY_LOSS_REL
+            and worst <= MESH_TINY_REL_L2 and err <= 1e-2 and lse_err <= 1e-3):
+        raise AssertionError(f"JAX's tiny dryrun over {shape} departs from its plain step")
+    return dict(loss=loss, seconds=secs, loss_rel=loss_rel, worst_grad_rel_l2=worst,
+                padded_block_err=err, padded_block_lse_err=lse_err)
+
+
+def _train_mesh(dev) -> tuple:
+    """flux_dryrun_step over (dp, sp, tp) virtual ranks at full width and
+    TRAIN_CUT depth (the module docstring's train phase): each mesh's loss
+    and every gradient (tp shards gathered) within MESH_TRAIN_LOSS_REL /
+    MESH_TRAIN_REL_L2 of the (1, 1, 1) step on the kernels, the loss equal
+    on every rank, replicated gradients bit-equal on every tp rank, exact
+    launches a step; seconds a step (host-bound: virtual ranks are threads
+    of one process), peak GiB; then the ring backward's times and JAX's
+    tiny dryrun (_train_mesh_tiny). -> (the kernels line's mesh rows, their
+    launches over the mesh steps)."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.models.flux import FluxConfig, flux_init_random
+    from fastdm_tpu_torch.parallel.mesh import dryrun_inputs, flux_dryrun_step
+    from fastdm_tpu_torch.parallel.tensor_parallel import shard_copy, virtual_groups
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(44)
+    rows = _mesh_kernel_rows(dev, g)
+    _ring_backward_times(dev, g)
+
+    nd, ns = TRAIN_CUT
+    cfg = FluxConfig(quant=None, num_layers=nd, num_single_layers=ns)
+    model = flux_init_random(7, cfg, device=dev)
+    inputs = dryrun_inputs(cfg, MESH_TRAIN_BATCH, TRAIN_TXT, TRAIN_HT, TRAIN_WT)
+    kw = dict(device=dev, cfg=cfg, params=model, inputs=inputs, txt=TRAIN_TXT,
+              ht=TRAIN_HT, wt=TRAIN_WT)
+
+    def step(shape, **over):
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = flux_dryrun_step(mesh_shape=shape, **(over or kw))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return loss, grads, secs, {k: v for k, v in _launch_counts().items() if v}
+
+    ref_loss, ref, ref_s, launches = step((1, 1, 1))
+    ref = ref[0]
+    if launches != mesh_step_launches(cfg, (1, 1, 1)):
+        raise AssertionError(f"the (1, 1, 1) step launched {launches}")
+    named = dict(model.named_parameters())
+    gm = copy.deepcopy(model, {id(p): nn.Parameter(ref[n], requires_grad=False)
+                               for n, p in named.items()})
+    gm_named = dict(gm.named_parameters())
+    ref_shards = {1: [ref]}
+    for tp in sorted({s[2] for s in MESH_TRAIN_SHAPES if s[2] > 1}):
+        ref_shards[tp] = [dict(shard_copy(gm, cfg, grp).named_parameters())
+                          for grp in virtual_groups(tp)]
+    log(f"[train mesh] FLUX.1-dev bf16 {nd} + {ns} blocks, full width, batch "
+        f"{MESH_TRAIN_BATCH}, {TRAIN_TOKENS} tokens: the (1, 1, 1) step on the kernels, loss "
+        f"{ref_loss:.6f}, {len(ref)} gradients, {ref_s:.3f} s; launches {launches}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals: dict = {}
+    steps = {}
+    worst_all = 0.0
+    for shape in MESH_TRAIN_SHAPES:
+        loss, grads, secs, launches = step(shape)
+        want = mesh_step_launches(cfg, shape)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        tp = shape[2]
+        shards = ref_shards[tp]
+        worst, worst_name, rep_equal, n_rep = 0.0, None, True, 0
+        for name in ref:
+            replicated = tp == 1 or shards[0][name] is gm_named[name]
+            if replicated:
+                n_rep += tp > 1
+                rep_equal &= all(torch.equal(grads[r][name], grads[0][name]) for r in range(tp))
+                pairs = [(grads[0][name], ref[name])]
+            else:
+                pairs = [(grads[r][name], shards[r][name]) for r in range(tp)]
+            num = sum(((a.float() - b.float()) ** 2).sum().item() for a, b in pairs)
+            den = sum((b.float() ** 2).sum().item() for _, b in pairs)
+            rel = (num / den) ** 0.5 if den > 0 else num ** 0.5
+            if rel > worst:
+                worst, worst_name = rel, name
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        worst_all = max(worst_all, worst, loss_rel)
+        steps[shape] = dict(seconds=secs, loss_rel=loss_rel, worst_grad_rel_l2=worst)
+        log(f"[train mesh] mesh {shape}: loss {loss:.6f} (rel {loss_rel:.3e} from (1, 1, 1), "
+            f"tolerance {MESH_TRAIN_LOSS_REL}, equal on every rank), worst gradient rel L2 {worst:.3e} ({worst_name}; "
+            f"tolerance {MESH_TRAIN_REL_L2}); {n_rep} replicated gradients bit-equal on the "
+            f"{tp} tp ranks {rep_equal} (the sp ranks of a virtual ring share one "
+            f"computation); {secs:.3f} s a step (host-bound: threads of one process); launches "
+            f"{launches} (want {want})")
+        if not (launches == want and rep_equal and worst <= MESH_TRAIN_REL_L2
+                and loss_rel <= MESH_TRAIN_LOSS_REL):
+            raise AssertionError(f"the mesh step {shape} departs from the (1, 1, 1) step")
+        del grads
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train mesh] worst relative difference over the meshes {worst_all:.3e}; peak "
+        f"{peak:.2f} GiB; launches over the mesh steps {totals}")
+    del model, ref, gm, gm_named, ref_shards
+    torch.cuda.empty_cache()
+
+    tiny = _train_mesh_tiny(dev, step, g)
+    TRAIN_SUMMARY["mesh"] = dict(reference_s=ref_s, steps={str(k): v for k, v in steps.items()},
+                                 peak_gib=peak, worst=worst_all, tiny=tiny,
+                                 phase_s=time.perf_counter() - t_phase)
+    return rows, {"rmsnorm_mesh": totals.get("rmsnorm", 0),
+                  "rotembd_mesh": totals.get("rotembd", 0),
+                  "sdpa_lse_mesh": totals.get("sdpa_lse", 0)}
+
+
 def _device_split(prof, n: int = 14) -> tuple:
     """(device-busy ms, the n kernels with the most device time as (name,
     ms, calls)) of a profiled region."""
@@ -8687,6 +9044,7 @@ def phase_train(dev) -> tuple:
     torch.cuda.empty_cache()
     rows = _train_kernels(dev, torch.Generator(device=dev).manual_seed(40))
     _train_step_gate(dev)
+    mesh_rows, mesh_launches = _train_mesh(dev)
 
     cli = _repo_module("examples/lora-train/train_torch.py", "train_torch")
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".smoke-train")
@@ -8748,7 +9106,10 @@ def phase_train(dev) -> tuple:
     del res, lora, back, exp
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return rows, {name: launches[name.rsplit("_train", 1)[0]] for name in rows}
+    counts = {name: launches[name.rsplit("_train", 1)[0]] for name in rows}
+    rows.update(mesh_rows)
+    counts.update(mesh_launches)
+    return rows, counts
 
 
 def main() -> int:

@@ -107,42 +107,63 @@ def _heads(t: Tensor, h0: int, h1: int, n: int, group: int) -> Tensor:
     return t[:, :, h0:h1].float().permute(0, 2, 1, 3).reshape(b, n, group, s, d)
 
 
-def sdpa_backward(dout: Tensor, q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
-                  num_q_heads: int, num_kv_heads: int, head_dim: int, scale: float,
-                  chunk_bytes: int = SDPA_BWD_CHUNK_BYTES) -> Tuple[Tensor, Tensor, Tensor]:
+def sdpa_delta(dout: Tensor, out: Tensor, num_q_heads: int) -> Tensor:
+    """D = rowsum(dO * O) in f32, (B, Hq, Sq), of flattened-head dO and O."""
+    b, sq, _ = out.shape
+    return (dout.float() * out.float()).reshape(b, sq, num_q_heads, -1).sum(dim=-1) \
+        .permute(0, 2, 1)
+
+
+def sdpa_backward(dout: Tensor, q: Tensor, k: Tensor, v: Tensor, out: Optional[Tensor],
+                  lse: Tensor, num_q_heads: int, num_kv_heads: int, head_dim: int, scale: float,
+                  chunk_bytes: int = SDPA_BWD_CHUNK_BYTES, *, delta: Optional[Tensor] = None,
+                  grad_dtype=None) -> Tuple[Tensor, Tensor, Tensor]:
     """(dq, dk, dv) of non-causal sdpa in the flattened-head layout, from the
     saved inputs, output and f32 log-sum-exp (B, Hq, Sq): D = rowsum(dO*O),
     P = exp(scale*QK^T - lse), dV = P^T dO with P rounded to v's dtype (as
     sdpa_jnp rounds it, impl.py:278), dP = dO V^T, dS = P*(dP - D),
     dQ = scale*dS K, dK = scale*dS^T Q; a KV head sums over the query heads
-    it serves (GQA). f32 math, one cast to each input's dtype; KV heads
-    in chunks of at most chunk_bytes of f32 probabilities."""
+    it serves (GQA). f32 math, one cast to each input's dtype (to grad_dtype
+    when given); KV heads in chunks of at most chunk_bytes of f32
+    probabilities.
+
+    With delta (sdpa_delta of the whole attention's dO and O) and lse the
+    whole attention's log-sum-exp, k and v may be one block of its keys:
+    the result is that block's exact part of the gradients (the ring's
+    backward, parallel/context_parallel.py). A row whose lse is +inf has
+    P = 0."""
     b, sq, _ = q.shape
     skv = k.shape[1]
     rep = num_q_heads // num_kv_heads
-    q4, o4, do4 = (t.reshape(b, sq, num_q_heads, head_dim) for t in (q, out, dout))
+    q4, do4 = (t.reshape(b, sq, num_q_heads, head_dim) for t in (q, dout))
+    o4 = None if delta is not None else out.reshape(b, sq, num_q_heads, head_dim)
     k4, v4 = (t.reshape(b, skv, num_kv_heads, head_dim) for t in (k, v))
-    dq = torch.empty(b, sq, num_q_heads, head_dim, dtype=q.dtype, device=q.device)
-    dk = torch.empty(b, skv, num_kv_heads, head_dim, dtype=k.dtype, device=k.device)
-    dv = torch.empty(b, skv, num_kv_heads, head_dim, dtype=v.dtype, device=v.device)
+    dq = torch.empty(b, sq, num_q_heads, head_dim, dtype=grad_dtype or q.dtype, device=q.device)
+    dk = torch.empty(b, skv, num_kv_heads, head_dim, dtype=grad_dtype or k.dtype,
+                     device=k.device)
+    dv = torch.empty(b, skv, num_kv_heads, head_dim, dtype=grad_dtype or v.dtype,
+                     device=v.device)
     per_kv_head = b * rep * sq * skv * 4
     step = max(1, min(num_kv_heads, chunk_bytes // max(1, per_kv_head)))
     for j0 in range(0, num_kv_heads, step):
         j1 = min(num_kv_heads, j0 + step)
         n, h0, h1 = j1 - j0, j0 * rep, j1 * rep
-        qc, oc, doc = (_heads(t, h0, h1, n, rep) for t in (q4, o4, do4))
+        qc, doc = (_heads(t, h0, h1, n, rep) for t in (q4, do4))
         kc, vc = (_heads(t, j0, j1, n, 1) for t in (k4, v4))
         lc = lse[:, h0:h1].float().reshape(b, n, rep, sq, 1)
-        delta = (doc * oc).sum(dim=-1, keepdim=True)
+        if delta is None:
+            delta_c = (doc * _heads(o4, h0, h1, n, rep)).sum(dim=-1, keepdim=True)
+        else:
+            delta_c = delta[:, h0:h1].reshape(b, n, rep, sq, 1)
         p = torch.exp(torch.matmul(qc, kc.transpose(-1, -2)) * scale - lc)
         dvc = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), doc).sum(dim=2)
-        ds = p.mul_(torch.matmul(doc, vc.transpose(-1, -2)).sub_(delta))
+        ds = p.mul_(torch.matmul(doc, vc.transpose(-1, -2)).sub_(delta_c))
         dqc = torch.matmul(ds, kc).mul_(scale)
         dkc = torch.matmul(ds.transpose(-1, -2), qc).sum(dim=2).mul_(scale)
         dq[:, :, h0:h1] = dqc.reshape(b, n * rep, sq, head_dim).permute(0, 2, 1, 3)
         dk[:, :, j0:j1] = dkc.permute(0, 2, 1, 3)
         dv[:, :, j0:j1] = dvc.permute(0, 2, 1, 3)
-        del qc, oc, doc, kc, vc, p, ds, dqc, dkc, dvc
+        del qc, doc, kc, vc, p, ds, dqc, dkc, dvc
     return dq.reshape(b, sq, -1), dk.reshape(b, skv, -1), dv.reshape(b, skv, -1)
 
 

@@ -14,6 +14,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from fastdm_tpu_torch.kernels import contracts, tma
 from fastdm_tpu_torch.kernels.build import load_library
@@ -393,17 +394,57 @@ def _flash_attention(wrapper, kernel: str, entry: str, table_args, table_types, 
     return out
 
 
+def _kernel_head_dim(head_dim: int) -> int:
+    """The head dim the dense kernel runs for head_dim: 64 or 128 as they
+    are, a smaller one zero-padded to the next of them (zero columns leave
+    every logit as it is and give zero output columns, cut off after)."""
+    return head_dim if head_dim in (64, 128) or head_dim > 128 else (
+        64 if head_dim < 64 else 128)
+
+
+def _pad_heads(t: Tensor, heads: int, head_dim: int, to: int) -> Tensor:
+    b, s, _ = t.shape
+    return F.pad(t.reshape(b, s, heads, head_dim), (0, to - head_dim)).reshape(b, s, heads * to)
+
+
+def _padded_attention(fn, query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
+                      num_kv_heads: int, head_dim: int, scale: Optional[float]):
+    """fn(query, key, value, head_dim, scale) of the dense kernel, at a head
+    dim it does not take run on zero-padded heads (the padded rows' and
+    outputs' copies) with head_dim's own scale. -> (out, the rest of fn's
+    results)."""
+    kd = _kernel_head_dim(head_dim)
+    if kd == head_dim:
+        res = fn(query, key, value, head_dim, scale)
+        return res if isinstance(res, tuple) else (res,)
+    scale = head_dim**-0.5 if scale is None else scale
+    res = fn(_pad_heads(query, num_q_heads, head_dim, kd),
+             _pad_heads(key, num_kv_heads, head_dim, kd),
+             _pad_heads(value, num_kv_heads, head_dim, kd), kd, scale)
+    res = res if isinstance(res, tuple) else (res,)
+    b, sq, _ = query.shape
+    out = res[0].reshape(b, sq, num_q_heads, kd)[..., :head_dim].reshape(b, sq, -1)
+    return (out.contiguous(), *res[1:])
+
+
 @kernel_registry.register("sdpa", "cuda")
 def sdpa_cuda(
     query: Tensor, key: Tensor, value: Tensor, num_q_heads: int,
     num_kv_heads: int, head_dim: int, is_causal: bool = False,
     scale: Optional[float] = None,
 ) -> Tensor:
+    """Dense attention on the kernel; a head dim under 128 other than 64 runs
+    zero-padded to 64 or 128."""
     contracts.check_sdpa("sdpa_cuda", query, key, value, num_q_heads, num_kv_heads, head_dim)
-    _check_attention("sdpa", query, key, value, head_dim, {}, {})
-    return _flash_attention(sdpa_cuda, "sdpa", "fdm_flash_attn_fwd", (), [], query, key, value,
-                            num_q_heads, num_kv_heads, head_dim, scale, is_causal,
-                            (tma.ATTN_ROWS, tma.ATTN_ROWS))
+
+    def run(q, k, v, d, sc):
+        _check_attention("sdpa", q, k, v, d, {}, {})
+        return _flash_attention(sdpa_cuda, "sdpa", "fdm_flash_attn_fwd", (), [], q, k, v,
+                                num_q_heads, num_kv_heads, d, sc, is_causal,
+                                (tma.ATTN_ROWS, tma.ATTN_ROWS))
+
+    return _padded_attention(run, query, key, value, num_q_heads, num_kv_heads, head_dim,
+                             scale)[0]
 
 
 sdpa_cuda.launches = 0
@@ -416,16 +457,21 @@ def sdpa_lse_cuda(
 ) -> Tuple[Tensor, Tensor]:
     """Dense non-causal sdpa that also returns each query row's log-sum-exp,
     f32 (B, hq, sq) (-inf for a row that saw no key): the block of one K/V
-    shard in the ring attention (parallel/context_parallel.py)."""
+    shard in the ring attention (parallel/context_parallel.py). Head dims as
+    sdpa_cuda's."""
     contracts.check_sdpa("sdpa_lse_cuda", query, key, value, num_q_heads, num_kv_heads,
                          head_dim)
-    _check_attention("sdpa_lse", query, key, value, head_dim, {}, {})
     b, sq, _ = query.shape
-    lse = torch.empty((b, num_q_heads, sq), dtype=torch.float32, device=query.device)
-    out = _flash_attention(sdpa_lse_cuda, "sdpa_lse", "fdm_flash_attn_lse_fwd",
-                           (lse.data_ptr(),), [_P], query, key, value, num_q_heads,
-                           num_kv_heads, head_dim, scale, False, (tma.ATTN_ROWS, tma.ATTN_ROWS))
-    return out, lse
+
+    def run(q, k, v, d, sc):
+        _check_attention("sdpa_lse", q, k, v, d, {}, {})
+        lse = torch.empty((b, num_q_heads, sq), dtype=torch.float32, device=q.device)
+        out = _flash_attention(sdpa_lse_cuda, "sdpa_lse", "fdm_flash_attn_lse_fwd",
+                               (lse.data_ptr(),), [_P], q, k, v, num_q_heads, num_kv_heads, d,
+                               sc, False, (tma.ATTN_ROWS, tma.ATTN_ROWS))
+        return out, lse
+
+    return _padded_attention(run, query, key, value, num_q_heads, num_kv_heads, head_dim, scale)
 
 
 sdpa_lse_cuda.launches = 0

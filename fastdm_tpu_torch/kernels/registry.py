@@ -15,7 +15,8 @@ choice follows the device of the op's first tensor argument:
   "ring"  — dense sdpa while a sequence-parallel ring is active
             (parallel/cp_state.py; JAX's check at registry.py:59-67): the
             ring attention of parallel/context_parallel.py, whose local
-            blocks take the device's backend again (routed=False).
+            blocks take the device's backend again (routed=False). Under
+            autograd it is its own Function (the ring-attention backward).
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ class KernelRegistry:
             @functools.wraps(stub)
             def wrapper(x: torch.Tensor, *args, **kwargs):
                 if torch.is_grad_enabled() and _requires_grad(x, args, kwargs):
-                    return self._differentiable(op_name, x)(x, *args, **kwargs)
+                    return self.select_grad(op_name, x)(x, *args, **kwargs)
                 return self.select(op_name, x.device)(x, *args, **kwargs)
 
             wrapper.op_name = op_name
@@ -92,11 +93,14 @@ class KernelRegistry:
 
         return deco
 
-    def _differentiable(self, op_name: str, x: torch.Tensor) -> Callable:
-        backend = self.backend_for(op_name, x.device)
+    def select_grad(self, op_name: str, x: torch.Tensor, routed: bool = True) -> Callable:
+        """The differentiable form of op_name for x's device: the ring's own
+        Function while a ring is active (sdpa), the plain version's autograd
+        inside plain_on_device, the registered Function, or on the CPU the
+        plain version; NotImplementedError for a kernel without one."""
+        backend = self.backend_for(op_name, x.device, routed)
         if backend == "ring":
-            raise NotImplementedError(f"op {op_name!r} has no gradient under a sequence-parallel "
-                                      "ring")
+            return self._ops[op_name]["ring"]
         if op_name in self._plain_on_device:
             return self._ops[op_name]["torch"]  # the plain version's own autograd
         if op_name in self._grads:

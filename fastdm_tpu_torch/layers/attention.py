@@ -45,10 +45,18 @@ class JointAttention(nn.Module):
         self.norm_added_q, self.norm_added_k = _param(norm_added_q), _param(norm_added_k)
 
 
-def _qk_headnorm(x: Tensor, weight: Optional[Tensor], heads: int, eps: float) -> Tensor:
-    """Per-head RMSNorm: (B, S, H*D) -> (B, S, H, D), normalize the last dim."""
+def _qk_headnorm(x: Tensor, weight: Optional[Tensor], heads: int, eps: float,
+                 tp=None) -> Tensor:
+    """Per-head RMSNorm: (B, S, H*D) -> (B, S, H, D), normalize the last dim.
+    Under tp the (D,) weight, replicated, serves only the rank's heads: under
+    autograd it passes through tp_copy, so that its gradient sums every
+    rank's heads."""
     if weight is None:
         return x
+    if tp is not None:
+        from fastdm_tpu_torch.parallel.tensor_parallel import tp_copy
+
+        weight = tp_copy(weight, tp)
     b, s, hd = x.shape
     return rms_norm(x.reshape(b, s, heads, hd // heads), weight, eps).reshape(b, s, hd)
 
@@ -72,14 +80,14 @@ def attention_apply(
     inner = heads * head_dim
     qkv = qkv_override if qkv_override is not None else attn.qkv(hidden_states)
     q, k, v = qkv[..., :inner], qkv[..., inner:2 * inner], qkv[..., 2 * inner:]
-    q = _qk_headnorm(q, attn.norm_q, heads, eps)
-    k = _qk_headnorm(k, attn.norm_k, heads, eps)
+    q = _qk_headnorm(q, attn.norm_q, heads, eps, attn.tp)
+    k = _qk_headnorm(k, attn.norm_k, heads, eps, attn.tp)
 
     if encoder_hidden_states is not None:
         ctx = attn.add_qkv(encoder_hidden_states)
         cq, ck, cv = ctx[..., :inner], ctx[..., inner:2 * inner], ctx[..., 2 * inner:]
-        cq = _qk_headnorm(cq, attn.norm_added_q, heads, eps)
-        ck = _qk_headnorm(ck, attn.norm_added_k, heads, eps)
+        cq = _qk_headnorm(cq, attn.norm_added_q, heads, eps, attn.tp)
+        ck = _qk_headnorm(ck, attn.norm_added_k, heads, eps, attn.tp)
         # context tokens go FIRST
         q = torch.cat([cq, q], dim=1)
         k = torch.cat([ck, k], dim=1)

@@ -81,10 +81,11 @@ class QLinear(nn.Module):
 
     A tensor-parallel shard (parallel/tensor_parallel.py) holds its tp group
     in tp_reduce (a row shard: its partial sums are reduced over the group)
-    or tp_gather (a column shard whose output is gathered whole); an unsplit
-    layer has neither."""
+    or tp_column (a column shard), and also in tp_gather when the column
+    shard's output is gathered whole; an unsplit layer has none."""
 
     tp_reduce = None
+    tp_column = None
     tp_gather = None
 
     def __init__(self, w: Optional[Tensor], bias: Optional[Tensor] = None,
@@ -275,12 +276,21 @@ def qlinear_apply(lin: QLinear, x: Tensor, chunk_tokens: int = 0) -> Tensor:
     whole row's statistics (parallel/tensor_parallel.py row_parallel_apply);
     it runs unchunked, one reduction over its tp group rather than one a
     chunk (its transients are the rank's K / tp columns). A gathered column
-    shard (lin.tp_gather) returns the whole output too."""
+    shard (lin.tp_gather) returns the whole output too. Under autograd a
+    column shard's input passes through tp_copy and the gather is tp_gather
+    (the collectives' gradients, parallel/tensor_parallel.py)."""
+    grad = False
+    if lin.tp_column is not None:
+        from fastdm_tpu_torch.parallel.tensor_parallel import needs_grad, tp_copy, tp_gather
+
+        # one tp_copy and one tp_gather a call: no chunks under autograd
+        grad = needs_grad(x, *lin.parameters())
+        x = tp_copy(x, lin.tp_column)
     orig_shape = x.shape
     rows = 1
     for s in orig_shape[:-1]:
         rows *= s
-    if (chunk_tokens and lin.tp_reduce is None and rows > chunk_tokens
+    if (chunk_tokens and lin.tp_reduce is None and not grad and rows > chunk_tokens
             and rows % chunk_tokens == 0):
         x2 = x.reshape(rows, orig_shape[-1])
         ys = [qlinear_apply(lin, x2[i:i + chunk_tokens]) for i in range(0, rows, chunk_tokens)]
@@ -298,7 +308,7 @@ def qlinear_apply(lin: QLinear, x: Tensor, chunk_tokens: int = 0) -> Tensor:
     else:
         out = _apply_local(lin, x2, x.dtype)
         if lin.tp_gather is not None:
-            out = lin.tp_gather.all_gather(out)
+            out = tp_gather(out, lin.tp_gather)
     return out.reshape(*orig_shape[:-1], out.shape[-1])
 
 

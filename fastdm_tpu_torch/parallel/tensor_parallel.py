@@ -35,6 +35,18 @@ run_virtual_ranks, which runs its ranks as threads of one process and sums
 their tensors in rank order (chip_smoke.py drives the real shard shapes on
 one card so). Sums over a process group follow the backend's order; the
 virtual group's is rank order: the two agree to f32 rounding, not bit for bit.
+
+Under autograd (a bf16 model whose parameters or input need a gradient:
+parallel/mesh.py flux_dryrun_step) the collectives are Megatron's three
+Functions: tp_reduce (forward the sum all-reduce of a row shard's f32
+partial, backward the identity), tp_copy (forward the identity at the input
+of every column shard and of a replicated tensor used on the rank's heads,
+backward the sum all-reduce of its gradient) and tp_gather (forward the
+all-gather of a gathered column shard's output, backward the rank's slice).
+A replicated parameter used outside them gets its whole gradient on every
+rank. The quantized row layers' MAX all-reduces of the activation
+statistics and Wan's norm statistics have no gradient: they raise under
+autograd.
 """
 
 from __future__ import annotations
@@ -112,6 +124,69 @@ class DistTPGroup(TPGroup):
         return torch.cat(parts, dim=-1)
 
 
+class _TPReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: Tensor, group: TPGroup) -> Tensor:
+        # a copy: a process group reduces in place, and t is this rank's own partial
+        return group.all_reduce(t.detach().clone(memory_format=torch.contiguous_format), "sum")
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return g, None
+
+
+class _TPCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: Tensor, group: TPGroup) -> Tensor:
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return ctx.group.all_reduce(g.clone(memory_format=torch.contiguous_format), "sum"), None
+
+
+class _TPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: Tensor, group: TPGroup) -> Tensor:
+        ctx.rank, ctx.width = group.rank, t.shape[-1]
+        return group.all_gather(t.detach())
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return g[..., ctx.rank * ctx.width:(ctx.rank + 1) * ctx.width], None
+
+
+def tp_reduce(t: Tensor, group: TPGroup) -> Tensor:
+    """The sum of the ranks' t, whole on every rank; its gradient passes
+    to each rank's t unchanged. Without a gradient to record, the group's
+    all-reduce (in place over a process group)."""
+    if not needs_grad(t):
+        return group.all_reduce(t, "sum")
+    return _TPReduce.apply(t, group)
+
+
+def tp_copy(t: Tensor, group: TPGroup) -> Tensor:
+    """t itself; its gradient is summed over the group (each rank's use of t
+    gives its heads' or columns' part)."""
+    if not needs_grad(t):
+        return t
+    return _TPCopy.apply(t, group)
+
+
+def tp_gather(t: Tensor, group: TPGroup) -> Tensor:
+    """The ranks' t concatenated along the last dim; rank r's gradient is
+    its slice of the whole gradient."""
+    if not needs_grad(t):
+        return group.all_gather(t)
+    return _TPGather.apply(t, group)
+
+
+def needs_grad(*tensors) -> bool:
+    """Autograd records this call: grad mode is on and a tensor needs a gradient."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 class _Hub:
     """What the virtual ranks of one group share: a slot a rank and a barrier."""
 
@@ -130,7 +205,9 @@ class VirtualTPGroup(TPGroup):
 
     def _exchange(self, t: Tensor) -> List[Tensor]:
         hub = self.hub
-        hub.slots[self.rank] = t
+        # detached: no rank's tensor enters another rank's graph (the
+        # Functions above carry the gradients across)
+        hub.slots[self.rank] = t.detach()
         hub.barrier.wait()
         ts = list(hub.slots)
         hub.barrier.wait()  # every rank has read the slots before they are reused
@@ -152,17 +229,30 @@ def virtual_groups(size: int, timeout: float = 600.0) -> List[VirtualTPGroup]:
     return [VirtualTPGroup(hub, r) for r in range(size)]
 
 
-def run_virtual_ranks(fn: Callable[[int], object], groups: Sequence[VirtualTPGroup]) -> list:
-    """fn(rank) on one thread a rank (each in inference mode) -> the ranks'
-    results in rank order. A rank that raises breaks the others' barriers;
-    the first error is raised here."""
+def run_virtual_ranks(fn: Callable[[int], object], groups: Sequence[VirtualTPGroup],
+                      grad: bool = False) -> list:
+    """fn(rank) on one thread a rank -> the ranks' results in rank order. A
+    rank that raises breaks the others' barriers; the first error is raised
+    here.
+
+    Each rank runs in inference mode, or with grad (training) in grad mode
+    with its backward on its own thread
+    (torch.autograd.set_multithreading_enabled(False), thread-local): on
+    CUDA the autograd engine would otherwise run every rank's backward on
+    one worker thread per device, where a rank waiting in a backward
+    collective blocks the ranks queued behind it until the hub's barrier
+    times out."""
     out: list = [None] * len(groups)
     errors: list = []
 
     def body(r: int) -> None:
         try:
-            with torch.inference_mode():
-                out[r] = fn(r)
+            if grad:
+                with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
+                    out[r] = fn(r)
+            else:
+                with torch.inference_mode():
+                    out[r] = fn(r)
         except BaseException as e:  # noqa: BLE001  (re-raised below)
             errors.append((r, e))
             groups[r].hub.barrier.abort()
@@ -215,7 +305,7 @@ def _unpack_halves(p: Tensor) -> Tensor:
 
 
 def _check_whole(lin: QLinear) -> None:
-    if lin.tp_reduce is not None or lin.tp_gather is not None:
+    if lin.tp_reduce is not None or lin.tp_column is not None:
         raise ValueError("this QLinear is already a tp shard")
 
 
@@ -280,11 +370,37 @@ def _bf16_partial(x2: Tensor, w: Tensor) -> Tensor:
     return x2.float() @ w.float()
 
 
+class _Bf16Partial(torch.autograd.Function):
+    """_bf16_partial with the gradients of the bf16 product: the f32
+    partial's gradient is a widened bf16 value (the layer's output is
+    rounded to bf16 after the sum), so the backward's products run in bf16
+    as an unsplit layer's do."""
+
+    @staticmethod
+    def forward(ctx, x2: Tensor, w: Tensor) -> Tensor:
+        ctx.save_for_backward(x2, w)
+        return _bf16_partial(x2, w)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        x2, w = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        dx = g @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x2.t() @ g if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def row_parallel_apply(lin: QLinear, x2: Tensor, out_dtype) -> Tensor:
     """A row shard's output on its rows x2 (M, K_shard): the whole layer's
-    (M, N), equal on every rank of lin.tp_reduce."""
+    (M, N), equal on every rank of lin.tp_reduce. Under autograd (bf16 only)
+    the partial sums are reduced by tp_reduce."""
     g = lin.tp_reduce
     low = None
+    if needs_grad(x2, *lin.parameters()) and (lin.w is None or lin.w.dtype != torch.bfloat16):
+        raise NotImplementedError(
+            "a quantized row-parallel layer has no gradient: the MAX all-reduce of its "
+            "activation statistics (quantize_stats) and the per-token quantizer are not "
+            "differentiable; train the bf16 model (quant=None)")
     if lin.w4 is not None or lin.w4p is not None:
         w = lin.w4 if lin.w4 is not None else unpack_int4(lin.w4p)
         xq, xs = quantize_to_int4_given(x2, g.all_reduce(quantize_stats(x2, True), "max"))
@@ -299,10 +415,10 @@ def row_parallel_apply(lin: QLinear, x2: Tensor, out_dtype) -> Tensor:
         xq, xs = quantize_to_fp8_given(x2, g.all_reduce(quantize_stats(x2, True), "max"))
         part = fp8_matmul_partial(xq, lin.w, xs, lin.scale)
     elif lin.w.dtype == torch.bfloat16:
-        part = _bf16_partial(x2.to(torch.bfloat16), lin.w)
+        part = _Bf16Partial.apply(x2.to(torch.bfloat16), lin.w)
     else:
         raise NotImplementedError(f"QLinear weight dtype {lin.w.dtype} is not in the port")
-    out = g.all_reduce(part, "sum")
+    out = tp_reduce(part, g)
     if lin.bias is not None:
         out = out + lin.bias.float()
     out = out.to(out_dtype)
@@ -314,6 +430,9 @@ def row_parallel_apply(lin: QLinear, x2: Tensor, out_dtype) -> Tensor:
 
 def norm_stats(x: Tensor, tp: TPGroup) -> Tensor:
     """Per-row f32 sums of squares of the rank's columns, summed over tp."""
+    if needs_grad(x):
+        raise NotImplementedError("Wan's across-heads q / k norm statistics under tp "
+                                  "(norm_stats: rms_sumsq summed over the group) have no gradient")
     return tp.all_reduce(rms_sumsq(x), "sum")
 
 
@@ -332,6 +451,7 @@ def _split(owner: nn.Module, attr: str, path: str, parts: Parts, tp: TPGroup,
     kind = tp_kind(path)
     if kind == "column":
         new = qlinear_split_columns(lin, parts, tp.size, tp.rank)
+        new.tp_column = tp
         if gather:
             new.tp_gather = tp
     elif kind == "row":

@@ -106,11 +106,17 @@ class _Bound(nn.Module):
         return self.fn(self.model, *args, **kwargs)
 
 
+def call_with(model: nn.Module, tensors: Dict[str, Tensor], fn: Callable, *args, **kwargs):
+    """fn(model, *args, **kwargs) with the parameters named in `tensors`
+    (model.named_parameters() names) replaced by those tensors."""
+    tensors = {f"model.{k}": v for k, v in tensors.items()}
+    return torch.func.functional_call(_Bound(model, fn), tensors, args, kwargs)
+
+
 def lora_forward(model: nn.Module, lora: LoRA, scale: float, fn: Callable, *args, **kwargs):
     """fn(model, *args, **kwargs) with every target's w replaced by its
     merged weight."""
-    merged = {f"model.{k}": v for k, v in merge_lora(model, lora, scale).items()}
-    return torch.func.functional_call(_Bound(model, fn), merged, args, kwargs)
+    return call_with(model, merge_lora(model, lora, scale), fn, *args, **kwargs)
 
 
 def draw_noise(x0: Tensor, generator: torch.Generator) -> Tuple[Tensor, Tensor]:

@@ -59,7 +59,12 @@ the fp8 wgmma's ~14-bit step sums there); two shards' partials
 summed within 1 bf16 ulp of the one-device GEMM plus the f32 roundings of the
 partials; rms_sumsq within 1e-5 relative, rms_norm_given within one ulp and
 the qk_norm_rope*_given forms within the qk_norm_rope tolerance; full-width
-FLUX blocks over 2 virtual tp ranks within relative L2 1e-2.
+FLUX blocks over 2 virtual tp ranks within relative L2 1e-2. Training over
+a mesh: sdpa and sdpa_lse at head dims 32 and 96 (zero-padded to 64 / 128)
+as the small cases, the log-sum-exp within 1e-3; the ring's gradients over 2
+and 4 virtual ranks (sdpa_lse blocks, the ring-attention backward) within
+relative L2 1e-2 of SDPAFn on the whole sequence; a virtual-tp training step
+over two threads finishes with finite, bit-equal losses.
 """
 
 import numpy as np
@@ -202,9 +207,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros(2, 8, 4, 128, device=cuda_device)  # float32: the kernels take bf16
     with pytest.raises(ValueError, match="bfloat16"):
         cuda_backend.rms_norm_cuda(x, None, 1e-6)
-    q = torch.zeros(1, 8, 4 * 32, device=cuda_device, dtype=torch.bfloat16)
+    # head dims under 128 run zero-padded to 64 / 128; wider ones the kernel does not take
+    q = torch.zeros(1, 8, 4 * 160, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        cuda_backend.sdpa_cuda(q, q, q, 4, 4, 32)
+        cuda_backend.sdpa_cuda(q, q, q, 4, 4, 160)
 
 
 @pytest.mark.gpu
@@ -1776,3 +1782,64 @@ def test_serving_and_ops_without_gradients_on_card(cuda_device):
         gelu_and_mul(q)
     with pytest.raises(NotImplementedError, match="causal"):
         scaled_dot_product_attention(q, q, q, 2, 2, 128, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 96])
+def test_sdpa_pads_small_head_dims_on_card(cuda_device, d):
+    """A head dim the kernel does not tile runs zero-padded to 64 or 128:
+    one launch, the output as the small cases, the log-sum-exp within 1e-3."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels.torch_backend import sdpa_lse_torch, sdpa_torch
+
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    q, k, v = (torch.randn(2, 80, 4 * d, generator=g, device=cuda_device, dtype=torch.bfloat16)
+               for _ in range(3))
+    cb.reset_launch_counts()
+    got = cb.sdpa_cuda(q, k, v, 4, 4, d)
+    out, lse = cb.sdpa_lse_cuda(q, k, v, 4, 4, d)
+    assert cb.sdpa_cuda.launches == 1 and cb.sdpa_lse_cuda.launches == 1
+    assert got.shape == q.shape and got.is_contiguous() and torch.equal(got, out)
+    want = sdpa_torch(q, k, v, 4, 4, d).float()
+    assert ((got.float() - want).abs() <= 1e-2 + 1e-2 * want.abs()).all()
+    assert (lse - sdpa_lse_torch(q, k, v, 4, 4, d)[1]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_backward_on_card(cuda_device, n):
+    """The ring under autograd over n virtual ranks at FLUX's training width
+    (1152 tokens, 24 x 128): its forward n^2 sdpa_lse launches, its dq, dk,
+    dv within relative L2 1e-2 of SDPAFn on the whole sequence."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import scaled_dot_product_attention
+    from fastdm_tpu_torch.parallel import cp_state
+    from fastdm_tpu_torch.parallel.context_parallel import VirtualRing
+
+    g = torch.Generator(device=cuda_device).manual_seed(42)
+    q, k, v, cot = (torch.randn(1, 1152, 24 * 128, generator=g, device=cuda_device,
+                                dtype=torch.bfloat16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(scaled_dot_product_attention(q, k, v, 24, 24, 128), (q, k, v),
+                               cot)
+    cb.reset_launch_counts()
+    with cp_state.cp_ring(VirtualRing(n)):
+        out = scaled_dot_product_attention(q, k, v, 24, 24, 128)
+    assert cb.sdpa_lse_cuda.launches == n * n and cb.sdpa_cuda.launches == 0
+    got = torch.autograd.grad(out, (q, k, v), cot)
+    for a, r in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert ((a.float() - r.float()).norm() / r.float().norm()).item() <= 1e-2
+
+
+@pytest.mark.gpu
+def test_virtual_tp_training_step_finishes_on_card(cuda_device):
+    """Two virtual tp ranks train through their backward collectives on one
+    card: each thread runs its own backward (run_virtual_ranks(grad=True)),
+    so no rank waits in a collective behind another on autograd's device
+    thread. JAX's tiny dryrun at mesh (1, 1, 2)."""
+    from fastdm_tpu_torch.parallel.mesh import flux_dryrun_step
+
+    loss, grads = flux_dryrun_step(mesh_shape=(1, 1, 2), device="cuda")
+    assert sorted(grads) == [0, 1] and loss > 0
+    assert all(torch.isfinite(t).all() for g in grads.values() for t in g.values())

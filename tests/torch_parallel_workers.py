@@ -348,3 +348,67 @@ def task_serve(root: str, architecture: str, mesh_shape, vae_kw: dict, table: di
 
     done = request_loop.serve(eng, front_end)
     return answers if done["rank"] == 0 else done["followed"]
+
+
+def task_dryrun(shape, model, inputs):
+    """flux_dryrun_step over this pool's process group on the (dp, sp, tp)
+    mesh `shape`, the whole bf16 model handed in -> (loss, tp rank, this
+    rank's gradients by parameter name)."""
+    from fastdm_tpu_torch.parallel.mesh import flux_dryrun_step
+
+    loss, grads = flux_dryrun_step(mesh_shape=shape, device="cpu", params=model,
+                                   inputs=inputs)
+    ((rank, g),) = grads.items()
+    return loss, rank, g
+
+
+def tp_functions_case(group, inputs: dict) -> dict:
+    """A column shard (tp_copy on its input), GELU, a row shard (tp_reduce of
+    the f32 partial) and a gathered column shard (tp_gather) of one rank of
+    `group`, in f32 -> the gradients of <cot, out> + <cot_g, gathered> in x
+    and in the rank's weights."""
+    from fastdm_tpu_torch.parallel.tensor_parallel import tp_copy, tp_gather, tp_reduce
+
+    r, n = group.rank, group.size
+    x = inputs["x"].clone().requires_grad_()
+    w1, w2, wm = (inputs[k].chunk(n, dim=d)[r].clone().requires_grad_()
+                  for k, d in (("w1", 1), ("w2", 0), ("wm", 1)))
+    with torch.enable_grad():
+        xc = tp_copy(x, group)
+        out = tp_reduce(torch.nn.functional.gelu(xc @ w1) @ w2, group)
+        gathered = tp_gather(tp_copy(x, group) @ wm, group)
+        loss = (out * inputs["cot"]).sum() + (gathered * inputs["cot_g"]).sum()
+        grads = torch.autograd.grad(loss, (x, w1, w2, wm))
+    return dict(zip(("x", "w1", "w2", "wm"), grads), out=out.detach(),
+                gathered=gathered.detach())
+
+
+def task_tp_functions(inputs: dict):
+    """tp_functions_case over the world as one DistTPGroup."""
+    import torch.distributed as dist
+
+    from fastdm_tpu_torch.parallel.mesh import Axis
+    from fastdm_tpu_torch.parallel.tensor_parallel import DistTPGroup
+
+    world = dist.get_world_size()
+    group = DistTPGroup(Axis(world, dist.get_rank(), dist.group.WORLD, tuple(range(world))))
+    return tp_functions_case(group, inputs)
+
+
+def task_ring_grad(cases):
+    """sdpa_ring's gradients over the sp group of a (1, world, 1) mesh:
+    (dq, dk, dv) of <cot, out> for each (q, k, v, hq, hkv, d, cot) case."""
+    import torch.distributed as dist
+
+    from fastdm_tpu_torch.kernels import scaled_dot_product_attention
+    from fastdm_tpu_torch.parallel import cp_state
+    from fastdm_tpu_torch.parallel.context_parallel import GroupRing
+
+    mesh = _mesh((1, dist.get_world_size(), 1))
+    outs = []
+    with cp_state.cp_ring(GroupRing(mesh.axis("sp"))):
+        for q, k, v, hq, hkv, d, cot in cases:
+            q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+            out = scaled_dot_product_attention(q, k, v, hq, hkv, d)
+            outs.append(torch.autograd.grad(out, (q, k, v), cot))
+    return outs
