@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (fastdm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py              # all phases, one card
+    python3 chip_smoke.py --w4a4-grid  # only the W4A4 entry / split grid
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. kernels: build every hand-written kernel from csrc/ (one nvcc per source,
@@ -20,9 +21,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      int8 and fp8 GEMM and quantize at every W8A8 shape of its forward. The
      int8 GEMM is held bit-exact, with and without the zero point, at every
      int8 shape of the FLUX, SDXL and Wan forwards. The W4A4 kernels (the
-     int4 quantizer, the int4 GEMM on the int8 GEMM's ring, the int4p
-     unpack) are held bit-exact at every int4 shape of a FLUX int4p
-     quant_mods forward, and qk_norm_rope / qk_norm_rope2 in the half-split
+     int4 quantizer, w4a4_linear's two entries -- the int4 GEMM with the
+     SVDQuant low-rank branch in its epilogue, and the small-M kernel on the
+     packed weights -- and the int4p unpack ahead of the large-M entry) are
+     held to their plain versions at every int4 shape of a FLUX int4p
+     quant_mods forward (the integer ones bit-exact, w4a4_linear bit-exact
+     with lora_v = 0 and within one bf16 ulp of the output plus one of the
+     low-rank term with it), each shape timed beside the composition it
+     replaces and torch._int_mm (--w4a4-grid instead times both entries
+     on a grid of rows, and the small-M kernel's K splits: the threshold's
+     and the splits' evidence), and qk_norm_rope / qk_norm_rope2 in the half-split
      layout too. On tables that allow
      every key the mask, coarse, superblock and fine walks, which run on
      sdpa's kernel, equal sdpa bit for bit. SD3.5-medium and Qwen-Image at
@@ -53,12 +61,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
      full-size FLUX VAE decoder; launch counters are zeroed just before each
      path and read just after: every kernel of the path must have run, the
      W8A8 quantize and GEMM exactly 228 times per computed forward, the W4A4
-     quantize, GEMM and unpack 304 times (plus TeaCache's quantized probe
-     once a step). One full-width forward on the kernels is then held to the
-     same forward on the plain versions and to the forward with only the
-     W8A8 / W4A4 ops on their plain versions (bit-identical for int8 and
-     int4p). On the int4p model: the quantized snapshot (save_snapshot of
-     the full-depth tree into a scratch dir of the checkout, load_tree onto
+     quantizer 304 times, w4a4_linear's small-M entry 76 (the one-row
+     modulations) and its large-M entry and the unpack 228 (plus TeaCache's
+     quantized probe once a step, a modulation). One full-width forward on
+     the kernels is then held to the same forward on the plain versions and
+     to the forward with only the W8A8 / W4A4 ops on their plain versions
+     (bit-identical for int8, and for int4p with every lora_v zeroed;
+     with it within FLUX_W4A4_LOWRANK_REL_L2: the low-rank term's f32 sum
+     runs in another order than cuBLAS's). On the
+     int4p model: the quantized snapshot (save_snapshot of the full-depth tree into a scratch dir of the checkout, load_tree onto
      the card, every parameter equal, one 1024x2048 forward from the
      reloaded tree bit-identical to the in-memory tree's; write and load
      seconds, bytes on disk and the free disk before the write, beside the
@@ -128,10 +139,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      requests through make_qwen_denoiser as bench.py's main_qwen (true CFG
      1.0, 512 text tokens, TeaCache 0.1 with teacache_qwenimage.json's
      polynomial, dynamic shift, 4 steps), then the full-size Wan VAE decoder
-     on a singleton frame; launches from qwen_forward_launches (600 of each
-     W4A4 op, 240 rmsnorm, 60 rotembd, 60 sdpa per computed forward, plus the
+     on a singleton frame; launches from qwen_forward_launches (600 W4A4
+     linears, 120 of them one-row modulations on w4a4_linear's small-M entry,
+     240 rmsnorm, 60 rotembd, 60 sdpa per computed forward, plus the
      txt_norm rmsnorm and TeaCache's W4A4 probe every step); one forward held
-     to the plain one, and bit for bit to the one with only the W4A4 ops plain;
+     to the plain one, and bit for bit to the one with only the W4A4 ops
+     plain;
      then a Qwen-Image-Edit request: one 1024x1024 source through the
      full-size Wan2.1-layout VAE encoder, its tokens after the 1024x1024
      noise's, true CFG 4.0 on two TeaCache streams, 4 steps. Then
@@ -329,6 +342,7 @@ Imports nothing of JAX or of fastdm_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -368,16 +382,37 @@ W8A8_GEMMS[(IMG_TOKENS + TXT_TOKENS, DIM, 3 * DIM + MLP)] = SINGLE  # qkv_mlp
 W8A8_GEMMS[(IMG_TOKENS + TXT_TOKENS, DIM + MLP, DIM)] = SINGLE      # proj_out
 W8A8_PER_FORWARD = sum(W8A8_GEMMS.values())                        # 228
 QKV_MLP = (IMG_TOKENS + TXT_TOKENS, DIM, 3 * DIM + MLP)            # the timing shape
-# the W4A4 linears of one int4p forward with quant_mods (bench.py's FLUX
-# default): the block linears plus the AdaLN modulations, one token each
-# (dual blocks: norm1 and norm1_context, 3072 -> 18432; single: 3072 -> 9216)
-W4A4_GEMMS = dict(W8A8_GEMMS)
-W4A4_GEMMS[(1, DIM, 6 * DIM)] = 2 * DUAL
-W4A4_GEMMS[(1, DIM, 3 * DIM)] = SINGLE
+
+
+def flux_w4a4_gemms(img: int, txt: int, dual: int, single: int) -> dict:
+    """The W4A4 linears of one FLUX int4p forward with quant_mods (bench.py's
+    FLUX default) at `img` image and `txt` text tokens over `dual` + `single`
+    blocks, (M, K, N) -> count: the block linears plus the AdaLN
+    modulations, one token each (dual blocks: norm1 and norm1_context, 3072
+    -> 18432; single: 3072 -> 9216)."""
+    gemms = {}
+
+    def add(m, k, n, count):
+        if count:
+            gemms[(m, k, n)] = gemms.get((m, k, n), 0) + count
+
+    for m in (img, txt):
+        for kn in ((DIM, 3 * DIM), (DIM, DIM), (DIM, MLP), (MLP, DIM)):
+            add(m, *kn, dual)
+    add(img + txt, DIM, 3 * DIM + MLP, single)  # qkv_mlp
+    add(img + txt, DIM + MLP, DIM, single)      # proj_out
+    add(1, DIM, 6 * DIM, 2 * dual)
+    add(1, DIM, 3 * DIM, single)
+    return gemms
+
+
+W4A4_GEMMS = flux_w4a4_gemms(IMG_TOKENS, TXT_TOKENS, DUAL, SINGLE)
 W4A4_PER_FORWARD = sum(W4A4_GEMMS.values())                        # 304
 # the W4A4 linears of one dual block (8 block linears, 2 modulations): what
 # an FBCache or DiCache probe of depth 1 launches
-W4A4_PER_DUAL_BLOCK = 10
+W4A4_DUAL_BLOCK = flux_w4a4_gemms(IMG_TOKENS, TXT_TOKENS, 1, 0)
+# TeaCache's probe under quant_mods: dual block 0's norm1 modulation
+W4A4_TEACACHE_PROBE = {(1, DIM, 6 * DIM): 1}
 
 # SDXL-base at 1024x2048 with batched CFG (batch 2): 128x256 latents, the
 # Transformer2Ds at 64x128 = 8192 tokens (640 wide, 10 heads of 64) and at
@@ -536,18 +571,18 @@ def log(*a):
 QUEUE_CYCLES_PER_RUN = 200_000
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2, hold: int = QUEUE_CYCLES_PER_RUN) -> float:
     """Mean device milliseconds of fn() over `iters` runs (CUDA events). A
-    busy-wait kernel holds the stream while the host queues the runs, so a
-    kernel shorter than its wrapper's host time is timed on the device, not
-    at the rate the host enqueues it."""
+    busy-wait kernel (`hold` cycles a run) holds the stream while the host
+    queues the runs, so a kernel shorter than its wrapper's host time is
+    timed on the device, not at the rate the host enqueues it."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_CYCLES_PER_RUN * iters)
+    torch.cuda._sleep(hold * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -605,7 +640,8 @@ def _kernel_name(entry: str) -> str:
 def _log_ptxas() -> None:
     """Registers and spills of every kernel, from the ptxas report of its build
     (fastdm_tpu_torch/_build/<source>.ptxas.txt), the dynamic shared memory of
-    the wgmma + TMA kernels (both W8A8 GEMMs, the attention kernel per head dim, walk and consumer count), from their libraries, and
+    the wgmma + TMA kernels (both W8A8 GEMMs, the W4A4 linear's large-M entry,
+    the attention kernel per head dim, walk and consumer count), from their libraries, and
     every ptxas performance warning (e.g. C7514: wgmma serialised; C7508:
     setmaxnreg ignored). The warp-specialised kernels start at the launch
     allocation ptxas reports and then move registers with setmaxnreg
@@ -616,6 +652,8 @@ def _log_ptxas() -> None:
     from fastdm_tpu_torch.kernels import build
 
     fp8, int8 = build.load_library("fp8_gemm"), build.load_library("w8a8_gemm")
+    w4a4 = build.load_library("w4a4_gemm")
+    w4a4.fdm_w4a4_linear_setmaxnreg.argtypes = [ctypes.c_int]
     attn = build.load_library("flash_attn")
     attn.fdm_flash_attn_smem_bytes.argtypes = [ctypes.c_int] * 3
     fp8.fdm_fp8_gemm_setmaxnreg.argtypes = [ctypes.c_int]
@@ -638,6 +676,11 @@ def _log_ptxas() -> None:
                 extra = (f"; dynamic shared memory {int8.fdm_w8a8_gemm_smem_bytes()} B; "
                          f"setmaxnreg {int8.fdm_w8a8_gemm_setmaxnreg(0)} / "
                          f"{int8.fdm_w8a8_gemm_setmaxnreg(1)}")
+            elif name == "w4a4_gemm" and "w4a4_gemm_kernel" in entry:
+                label += " large-M entry"
+                extra = (f"; dynamic shared memory {w4a4.fdm_w4a4_linear_smem_bytes()} B; "
+                         f"setmaxnreg {w4a4.fdm_w4a4_linear_setmaxnreg(0)} / "
+                         f"{w4a4.fdm_w4a4_linear_setmaxnreg(1)}")
             elif name == "flash_attn" and d and walk:
                 cons = int(re.search(r"ILi\d+ELi(\d)E", entry).group(1))
                 table = {"Dense": 0, "Mask": 2}.get(walk.group(1), 1)
@@ -1005,74 +1048,205 @@ def _w4a4_operands(dev, g, m: int, k: int, n: int):
     return x, qlinear_random(g, k, n, quant="int4p", device=dev)
 
 
-def _w4a4_bounds(m: int, k: int, n: int) -> dict:
+def _w4a4_bounds(m: int, k: int, n: int, r: int = 32) -> dict:
+    """The least times of the W4A4 kernels at one (M, K, N) linear of rank r:
+    the quantizer; the unpack; w4a4_linear's entries, each reading xq, the
+    scales, bias, xu, lora_v and writing bf16 out, the large-M one the (K, N)
+    int8 carriers and the small-M one the packed K*N/2 bytes, for 2*M*N*K
+    int8 operations and the low-rank branch's 2*M*N*r bf16 ones (counted at
+    the bf16 rate)."""
+    side = m * k + 4 * m + 6 * n + 2 * m * r + 2 * r * n + 2 * m * n
+    ops = 2 * m * n * k + 2 * m * n * r * INT8_FP8_OPS / BF16_FLOPS
     return {"quantize_to_int4": bound(_quantize_bytes(m, k, True), 8 * m * k, F32_FLOPS),
-            "int4_matmul": bound(_gemm_bytes(m, k, n), 2 * m * n * k, INT8_FP8_OPS),
-            "unpack_int4": bound(1.5 * k * n, k * n, F32_FLOPS)}
+            "unpack_int4": bound(1.5 * k * n, k * n, F32_FLOPS),
+            "w4a4_linear_large": bound(side + k * n, ops, INT8_FP8_OPS),
+            "w4a4_linear_small": bound(side + k * n // 2, ops, INT8_FP8_OPS)}
+
+
+# per-forward sums of the W4A4 yardsticks, by _w4a4_split's label
+W4A4_SUMMARY: dict = {}
 
 
 def _w4a4_split(dev, g, gemms: dict, label: str, plain: bool = False) -> dict:
-    """The three W4A4 kernels held bit-exact to their plain versions at every
-    (M, K, N) of `gemms` and timed there: {kernel: [ms, bound ms] per
-    forward}, each shape's time times its count. With `plain`, each shape
-    is also timed in the plain versions and in torch._int_mm's s32 product
-    (or its refusal), and logged."""
+    """The W4A4 kernels held to their plain versions at every (M, K, N) of
+    `gemms` and timed there: {kernel: [ms, bound ms] per forward}, each
+    shape's time times its count. The quantizer bit-exact; w4a4_linear (the
+    entry its rows pick; int4p) bit-exact with lora_v = 0 and otherwise
+    within one bf16 ulp of the output plus one of the low-rank term; the
+    unpack ahead of the large-M entry bit-exact. Beside each shape, from xq
+    on: the new path (xu = x @ lora_u, then w4a4_linear) against the
+    composition it replaces (unpack_int4 + int4_matmul + the two bf16
+    matmuls + the add), and torch._int_mm's s32 product (or its refusal),
+    each the best of three timings;
+    their per-forward sums are logged and kept in W4A4_SUMMARY[label]. With
+    `plain`, each shape is also timed in the plain versions."""
     import torch
 
     from fastdm_tpu_torch.kernels import cuda_backend as cb
     from fastdm_tpu_torch.kernels import torch_backend as tb
 
-    split = {"quantize_to_int4": [0.0, 0.0], "int4_matmul": [0.0, 0.0],
-             "unpack_int4": [0.0, 0.0]}
+    split = {k: [0.0, 0.0] for k in ("quantize_to_int4", "unpack_int4", "w4a4_linear_large",
+                                      "w4a4_linear_small")}
+    sums = {"new path": 0.0, "composition": 0.0, "torch._int_mm": 0.0, "_int_mm refused": 0}
     for (m, k, n), count in gemms.items():
         x, lin = _w4a4_operands(dev, g, m, k, n)
         q, scale = cb.quantize_to_int4_cuda(x)
+        xu = x @ lin.lora_u
+        small = cb.w4a4_small_m(m, k)
+        entry = "w4a4_linear_small" if small else "w4a4_linear_large"
         w = cb.unpack_int4_cuda(lin.w4p)
-        args = (q, w, scale, lin.scale, torch.bfloat16, lin.bias)
+        head = (q, lin.w4p, scale, lin.scale, torch.bfloat16, lin.bias, xu)
+        got = cb.w4a4_linear_cuda(*head, lin.lora_v)
+        with exact_bf16_products():
+            want = tb.w4a4_linear_torch(*head, lin.lora_v)
+        zero = torch.zeros_like(lin.lora_v)
+        exact0 = torch.equal(cb.w4a4_linear_cuda(*head, zero), tb.w4a4_linear_torch(*head, zero))
+        low = bf16_ulp(xu.double() @ lin.lora_v.double())
+        excess = ((got.float() - want.float()).abs() - bf16_ulp(want) - low).max().item()
         checks = {"quantize_to_int4": all(torch.equal(a, b) for a, b in
                                           zip((q, scale), tb.quantize_to_int4_torch(x))),
-                  "unpack_int4": (torch.equal(w, tb.unpack_int4_torch(lin.w4p))
-                                  and w.stride() == (1, k)),
-                  "int4_matmul": torch.equal(cb.int4_matmul_cuda(*args),
-                                             tb.int4_matmul_torch(*args))}
-        log(f"[w4a4] {label} {m}x{k} @ {k}x{n} (x{count} per forward): bit-exact with the "
-            f"plain versions: {checks}")
+                  entry: exact0 and excess <= 0}
+        if not small:
+            checks["unpack_int4"] = (torch.equal(w, tb.unpack_int4_torch(lin.w4p))
+                                     and w.stride() == (1, k))
+        log(f"[w4a4] {label} {m}x{k} @ {k}x{n} (x{count} per forward): {checks} (quantizer and "
+            f"unpack bit-exact; {entry} bit-exact with lora_v = 0 {exact0}, with it "
+            f"max|err| {(got.float() - want.float()).abs().max().item():.3e}, excess over one "
+            "ulp of the output plus one of the low-rank term "
+            f"{excess:.3e} <= 0)")
         if not all(checks.values()):
             raise AssertionError(f"a W4A4 kernel disagrees with its plain version at "
                                  f"{label} {(m, k, n)}: {checks}")
-        calls = {"quantize_to_int4": lambda: cb.quantize_to_int4_cuda(x),
-                 "int4_matmul": lambda: cb.int4_matmul_cuda(*args),
-                 "unpack_int4": lambda: cb.unpack_int4_cuda(lin.w4p)}
-        for name, (b_ms, _) in _w4a4_bounds(m, k, n).items():
-            split[name][0] += count * cuda_ms(calls[name], 5)
-            split[name][1] += count * b_ms
+        bounds = _w4a4_bounds(m, k, n)
+        times = {"quantize_to_int4": cuda_ms(lambda: cb.quantize_to_int4_cuda(x), 5)}
+        if small:
+            times[entry] = cuda_ms(lambda: cb.w4a4_linear_small_cuda(*head, lin.lora_v), 5)
+        else:
+            times["unpack_int4"] = cuda_ms(lambda: cb.unpack_int4_cuda(lin.w4p), 5)
+            times[entry] = cuda_ms(lambda: cb.w4a4_linear_large_cuda(
+                q, w, scale, lin.scale, torch.bfloat16, lin.bias, xu, lin.lora_v), 5)
+        for name, ms in times.items():
+            split[name][0] += count * ms
+            split[name][1] += count * bounds[name][0]
+        # the two paths and the library call on the device: each the best of
+        # three timings behind a busy-wait of ~0.5 ms a run, which outlasts
+        # the host time of a path's several wrappers (the default ~0.1 ms
+        # did not at the small shapes, where the host then set the time)
+        best = lambda fn: min(cuda_ms(fn, 5, hold=5 * QUEUE_CYCLES_PER_RUN)  # noqa: E731
+                              for _ in range(3))
+        new = best(lambda: cb.w4a4_linear_cuda(q, lin.w4p, scale, lin.scale, torch.bfloat16,
+                                               lin.bias, x @ lin.lora_u, lin.lora_v))
+
+        def composition():
+            out = cb.int4_matmul_cuda(q, cb.unpack_int4_cuda(lin.w4p), scale, lin.scale,
+                                      torch.bfloat16, lin.bias)
+            return out + ((x @ lin.lora_u) @ lin.lora_v).to(out.dtype)
+
+        comp = best(composition)
+        try:
+            int_mm = best(lambda: torch._int_mm(q, w))
+            lib = f"{int_mm:.4f} ms"
+            sums["torch._int_mm"] += count * int_mm
+        except RuntimeError as e:
+            lib = f"refused ({(str(e).strip().splitlines() or [type(e).__name__])[0][:80]})"
+            sums["_int_mm refused"] += count
+        sums["new path"] += count * new
+        sums["composition"] += count * comp
+        log(f"[w4a4] {label} {m}x{k} @ {k}x{n}: " + ", ".join(
+            f"{nm} {ms:.4f} ms ({bounds[nm][0] / ms:.1%} of its bound)" for nm, ms in times.items())
+            + f"; from xq on, x @ lora_u + w4a4_linear {new:.4f} ms vs the composition it "
+            f"replaces {comp:.4f} ms ({comp / new:.2f}x); torch._int_mm {lib}")
         if plain:
             plains = {"quantize_to_int4": lambda: tb.quantize_to_int4_torch(x),
-                      "int4_matmul": lambda: tb.int4_matmul_torch(*args),
-                      "unpack_int4": lambda: tb.unpack_int4_torch(lin.w4p)}
-            try:
-                lib = f"{cuda_ms(lambda: torch._int_mm(q, w), 10):.4f} ms"
-            except RuntimeError as e:
-                lib = f"refused ({(str(e).strip().splitlines() or [type(e).__name__])[0][:80]})"
+                      "w4a4_linear": lambda: tb.w4a4_linear_torch(*head, lin.lora_v)}
             log(f"[w4a4] {label} {m}x{k} @ {k}x{n} plain versions: " + ", ".join(
-                f"{nm} {cuda_ms(fn, 1, 1):.4f} ms" for nm, fn in plains.items())
-                + f"; torch._int_mm {lib}")
-        del x, lin, q, scale, w, args
-    log(f"[w4a4] {label} forward ({sum(gemms.values())} linears each, from kernel times at "
-        "each shape): " + ", ".join(f"{k} {v[0]:.3f} ms (bound {v[1]:.3f} ms)"
-                                    for k, v in split.items()))
+                f"{nm} {cuda_ms(fn, 1, 1):.4f} ms" for nm, fn in plains.items()))
+        del x, lin, q, scale, w, xu, got, want, zero, head
+    W4A4_SUMMARY[label] = sums
+    log(f"[w4a4] {label} forward ({sum(gemms.values())} linears, {w4a4_launches(gemms)} "
+        "launches; from kernel times at each shape): " + ", ".join(
+            f"{k} {v[0]:.3f} ms (bound {v[1]:.3f} ms)" for k, v in split.items())
+        + f"; from xq on, the new path {sums['new path']:.3f} ms vs the composition "
+        f"{sums['composition']:.3f} ms; torch._int_mm {sums['torch._int_mm']:.3f} ms "
+        f"({sums['_int_mm refused']} linears refused)")
     torch.cuda.empty_cache()
     return split
 
 
+# the grid on which cuda_backend.W4A4_SMALL_M_MAX and the small-M kernel's K
+# splits were chosen (python3 chip_smoke.py --w4a4-grid): rows of one call by
+# the (K, N) of FLUX's and Qwen-Image's W4A4 linears
+W4A4_THRESHOLD_M = (1, 16, 30, 60, 64, 96, 128, 512)
+W4A4_THRESHOLD_KN = ((DIM, DIM), (DIM, 3 * DIM), (DIM, 4 * DIM), (DIM, 6 * DIM), (4 * DIM, DIM),
+                     (DIM + MLP, DIM), (DIM, 3 * DIM + MLP))
+
+
+def _w4a4_grid(dev) -> None:
+    """Both entries of w4a4_linear on one int4p weight per (K, N) of
+    W4A4_THRESHOLD_KN at each row count of W4A4_THRESHOLD_M: the small-M
+    entry on the packed weight against unpack_int4 + the large-M entry, and
+    the small-M entry at each K split (2, 4, 8) beside the kernel's own
+    choice, each the best of three timings of ten calls. Logs the grid, and
+    fails unless W4A4_SMALL_M_MAX is consistent with it: summed over the
+    (K, N), the small-M entry takes no more time than the large-M path at
+    every grid row count up to it, and more at the next one."""
+    import torch
+
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    best = lambda fn: min(cuda_ms(fn, 10) for _ in range(3))  # noqa: E731
+    sums = {m: [0.0, 0.0] for m in W4A4_THRESHOLD_M}
+    for k, n in W4A4_THRESHOLD_KN:
+        lin = qlinear_random(g, k, n, quant="int4p", device=dev)
+        row, splits = [], []
+        for m in W4A4_THRESHOLD_M:
+            x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+            q, scale = cb.quantize_to_int4_cuda(x)
+            args = (scale, lin.scale, torch.bfloat16, lin.bias, x @ lin.lora_u, lin.lora_v)
+            small = best(lambda: cb.w4a4_linear_small_cuda(q, lin.w4p, *args))
+            large = best(lambda: cb.w4a4_linear_large_cuda(q, cb.unpack_int4_cuda(lin.w4p),
+                                                           *args))
+            row.append((m, small, large))
+            sums[m][0] += small
+            sums[m][1] += large
+            if m <= cb.W4A4_SMALL_M_MAX:
+                by = {sp: best(lambda: cb.w4a4_linear_small_cuda(q, lin.w4p, *args, split=sp))
+                      for sp in (2, 4, 8)}
+                fastest = min(by, key=by.get)
+                splits.append(f"M {m}: " + " / ".join(f"{by[sp]:.4f}" for sp in (2, 4, 8))
+                              + f" (fastest {fastest}; own choice {small:.4f}, "
+                              f"{small / by[fastest]:.3f}x the fastest)")
+        log(f"[w4a4 grid] K {k} -> N {n}, small-M entry / unpack + large-M entry (ms): "
+            + ", ".join(f"M {m}: {a:.4f} / {b:.4f}" for m, a, b in row)
+            + f"; the small-M entry wins at M in {[m for m, a, b in row if a <= b]}")
+        log(f"[w4a4 grid] K {k} -> N {n}, small-M entry at K split 2 / 4 / 8 (ms): "
+            + "; ".join(splits))
+        del lin
+    wins = [m for m in W4A4_THRESHOLD_M if sums[m][0] <= sums[m][1]]
+    log("[w4a4 grid] summed over the (K, N), small-M entry / unpack + large-M entry (ms): "
+        + ", ".join(f"M {m}: {a:.4f} / {b:.4f}" for m, (a, b) in sums.items())
+        + f"; W4A4_SMALL_M_MAX = {cb.W4A4_SMALL_M_MAX}")
+    below = [m for m in W4A4_THRESHOLD_M if m <= cb.W4A4_SMALL_M_MAX]
+    above = [m for m in W4A4_THRESHOLD_M if m > cb.W4A4_SMALL_M_MAX][:1]
+    if not (set(below) <= set(wins) and not set(above) & set(wins)):
+        raise AssertionError(f"W4A4_SMALL_M_MAX = {cb.W4A4_SMALL_M_MAX} disagrees with the grid: "
+                             f"the small-M entry's sum wins at M in {wins}")
+    torch.cuda.empty_cache()
+
+
 def _w4a4_kernels(dev) -> dict:
-    """The W4A4 kernels -- the int4 quantizer (A), the int4 GEMM on the s8
-    wgmma ring (B) and the int4p unpack (C) -- held bit-exact to their plain
-    versions at every int4 shape of a FLUX int4p quant_mods forward (the M = 1
-    modulation GEMMs and K = 15360 included, an all-zero activation row in
-    each), each kernel timed at each shape (the forward's split), and at the
-    qkv_mlp shape beside its bound, its plain version and, for the GEMM,
-    torch._int_mm (the s32 product only)."""
+    """The W4A4 kernels -- the int4 quantizer, w4a4_linear's two entries and
+    the int4p unpack ahead of the large-M one -- held to their plain versions
+    at every int4 shape of a FLUX int4p quant_mods forward (the M = 1
+    modulations and K = 15360 included, an all-zero activation row in each),
+    each timed at each shape (the forward's split) beside the composition
+    w4a4_linear replaces; then the quantizer, the unpack and the large-M
+    entry at the qkv_mlp shape and the small-M entry at the dual blocks'
+    modulation (1 x 3072 -> 18432) beside their bounds, their plain versions
+    and torch._int_mm (the s32 product only; it refuses M = 1), and the
+    retired int4_matmul kernel beside the large-M entry."""
     import torch
 
     from fastdm_tpu_torch.kernels import cuda_backend as cb
@@ -1080,41 +1254,69 @@ def _w4a4_kernels(dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(2)  # the other phases' draws stay as they were
     _w4a4_split(dev, g, W4A4_GEMMS, "FLUX int4p")
-    m, k, n = QKV_MLP
-    x, lin = _w4a4_operands(dev, g, m, k, n)
-    q, scale = tb.quantize_to_int4_torch(x)
-    w = tb.unpack_int4_torch(lin.w4p)
-    args = (q, w, scale, lin.scale, torch.bfloat16, lin.bias)
-    bounds = _w4a4_bounds(m, k, n)
-    timed = {"quantize_to_int4": (lambda: cb.quantize_to_int4_cuda(x),
-                                  lambda: tb.quantize_to_int4_torch(x), "quant.cu", None),
-             "int4_matmul": (lambda: cb.int4_matmul_cuda(*args),
-                             lambda: tb.int4_matmul_torch(*args), "w8a8_gemm.cu",
-                             lambda: torch._int_mm(q, w)),
-             "unpack_int4": (lambda: cb.unpack_int4_cuda(lin.w4p),
-                             lambda: tb.unpack_int4_torch(lin.w4p), "int4_pack.cu", None)}
     # the ops replace jnp-only code of the W4A4 path (no Pallas kernel)
     replaces = {"quantize_to_int4": "fastdm_tpu/kernels/jnp_backend/impl.py:143",
-                "int4_matmul": "fastdm_tpu/kernels/jnp_backend/impl.py:163",
+                "w4a4_linear_large": "fastdm_tpu/kernels/jnp_backend/impl.py:163",
+                "w4a4_linear_small": "fastdm_tpu/layers/qlinear.py:75",
                 "unpack_int4": "fastdm_tpu/layers/qlinear.py:75"}
     results = {}
-    for name, (kern, plain, src, lib_call) in timed.items():
-        b_ms, b_by = bounds[name]
-        ms = cuda_ms(kern, 20)
-        plain_ms = cuda_ms(plain, 2, 1)
-        lib_ms = None
-        if lib_call is not None:  # a yardstick only; the port never calls it
-            try:
-                lib_ms = cuda_ms(lib_call, 20)
-            except RuntimeError as e:
-                log(f"[w4a4] torch._int_mm not available here ({str(e).splitlines()[0]})")
-        log(f"[{name}] qkv_mlp {m}x{k} @ {k}x{n}: {ms:.4f} ms ({b_ms / ms:.1%} of the bound "
-            f"{b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f} ms, library {lib_ms} ms"
-            + (" (torch._int_mm, s32 product only)" if lib_call is not None else ""))
-        results[name] = dict(name=name, route="cuda", source=f"fastdm_tpu_torch/csrc/{src}",
-                             replaces=replaces[name], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    del x, lin, q, scale, w, args, timed
+    for shape, names in ((QKV_MLP, ("quantize_to_int4", "w4a4_linear_large", "unpack_int4")),
+                         ((1, DIM, 6 * DIM), ("w4a4_linear_small",))):
+        m, k, n = shape
+        x, lin = _w4a4_operands(dev, g, m, k, n)
+        q, scale = tb.quantize_to_int4_torch(x)
+        w = tb.unpack_int4_torch(lin.w4p)
+        xu = x @ lin.lora_u
+        lin_args = (scale, lin.scale, torch.bfloat16, lin.bias, xu, lin.lora_v)
+        bounds = _w4a4_bounds(m, k, n)
+        timed = {"quantize_to_int4": (lambda: cb.quantize_to_int4_cuda(x),
+                                      lambda: tb.quantize_to_int4_torch(x), "quant.cu", None),
+                 "w4a4_linear_large": (lambda: cb.w4a4_linear_large_cuda(q, w, *lin_args),
+                                       lambda: tb.w4a4_linear_torch(q, w, *lin_args),
+                                       "w4a4_gemm.cu", lambda: torch._int_mm(q, w)),
+                 "w4a4_linear_small": (lambda: cb.w4a4_linear_small_cuda(q, lin.w4p, *lin_args),
+                                       lambda: tb.w4a4_linear_torch(q, lin.w4p, *lin_args),
+                                       "w4a4_gemm.cu", lambda: torch._int_mm(q, w)),
+                 "unpack_int4": (lambda: cb.unpack_int4_cuda(lin.w4p),
+                                 lambda: tb.unpack_int4_torch(lin.w4p), "int4_pack.cu", None)}
+        for name in names:
+            kern, plain, src, lib_call = timed[name]
+            b_ms, b_by = bounds[name]
+            got = kern()
+            with exact_bf16_products():
+                want = plain()
+            err = max((a.float() - b.float()).abs().max().item() for a, b in
+                      zip(got if isinstance(got, tuple) else (got,),
+                          want if isinstance(want, tuple) else (want,)))
+            ms = cuda_ms(kern, 20)
+            plain_ms = cuda_ms(plain, 2, 1)
+            lib_ms = None
+            if lib_call is not None:  # a yardstick only; the port never calls it
+                try:
+                    lib_ms = cuda_ms(lib_call, 20)
+                except RuntimeError as e:
+                    log(f"[w4a4] torch._int_mm refuses {m}x{k} @ {k}x{n} "
+                        f"({str(e).splitlines()[0][:80]})")
+            log(f"[{name}] {m}x{k} @ {k}x{n}: {ms:.4f} ms ({b_ms / ms:.1%} of the bound "
+                f"{b_ms:.4f} ms, {b_by}), max|err| {err:.3e}, plain {plain_ms:.4f} ms, library "
+                f"{lib_ms} ms" + (" (torch._int_mm, s32 product only)" if lib_call else ""))
+            results[name] = dict(name=name, route="cuda", source=f"fastdm_tpu_torch/csrc/{src}",
+                                 replaces=replaces[name], max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms)
+        if shape == QKV_MLP:
+            # the retired int4_matmul kernel (the W8A8 ring's W4A4 entry) beside
+            # the large-M entry that replaced it on the int4p path
+            args = (q, w, scale, lin.scale, torch.bfloat16, lin.bias)
+            old = cuda_ms(lambda: cb.int4_matmul_cuda(*args), 20)
+            comp = cuda_ms(lambda: cb.int4_matmul_cuda(*args)
+                           + (xu @ lin.lora_v).to(torch.bfloat16), 20)
+            log(f"[w4a4] qkv_mlp: the large-M entry, low-rank branch included, "
+                f"{results['w4a4_linear_large']['ms']:.4f} ms vs int4_matmul's kernel alone "
+                f"{old:.4f} ms and with the low-rank product and add beside it {comp:.4f} ms")
+            W4A4_SUMMARY["qkv_mlp"] = dict(large_entry=results["w4a4_linear_large"]["ms"],
+                                           int4_matmul=old, int4_matmul_lowrank=comp)
+        del x, lin, q, scale, w, xu, timed
     torch.cuda.empty_cache()
     return results
 
@@ -1597,7 +1799,81 @@ STEPS = 4
 # coarsest. A wrong tile, scale or layout gives O(1).
 FORWARD_REL_L2_TOL = {None: 3e-2, "int8": 6e-2, "fp8": 1.1e-1, "int4p": 1.49e-1}
 W8A8_OPS = ("quantize_to_int8", "quantize_to_fp8", "int8_matmul", "fp8_matmul")
-W4A4_OPS = ("quantize_to_int4", "int4_matmul", "unpack_int4")
+# the W4A4 linear's kernels (launch counts): the quantizer, the two entries of
+# w4a4_linear and the unpack ahead of the large-M entry; and its ops, which
+# plain_on_device names
+W4A4_OPS = ("quantize_to_int4", "w4a4_linear_large", "w4a4_linear_small", "unpack_int4")
+W4A4_PLAIN_OPS = ("quantize_to_int4", "w4a4_linear")
+# FLUX int4p's forward with only W4A4_PLAIN_OPS plain, the real lora_v in
+# place: its low-rank term's f32 sum runs in the kernel's order, one bf16 ulp
+# of the term from cuBLAS's, and moves int4 steps downstream (first reading
+# 6.798e-2 on an H100, 700 W; 1.5 times it). Bit-identical with every lora_v
+# zeroed.
+FLUX_W4A4_LOWRANK_REL_L2 = 1.02e-1
+
+
+def w4a4_launches(gemms: dict) -> dict:
+    """The W4A4 kernels' launches of int4p linears {(M, K, N): count} (M the
+    rows of one call): each its quantizer and one w4a4_linear entry, the
+    small-M one on the packed weight where cuda_backend.w4a4_small_m(M, K)
+    (M <= W4A4_SMALL_M_MAX), else unpack_int4 and the large-M one."""
+    from fastdm_tpu_torch.kernels.cuda_backend import w4a4_small_m
+
+    out = dict.fromkeys(W4A4_OPS, 0)
+    for (m, k, _), count in gemms.items():
+        out["quantize_to_int4"] += count
+        if w4a4_small_m(m, k):
+            out["w4a4_linear_small"] += count
+        else:
+            out["w4a4_linear_large"] += count
+            out["unpack_int4"] += count
+    return out
+
+
+def _times(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items()}
+
+
+def _plus(*dicts) -> dict:
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+@contextlib.contextmanager
+def exact_bf16_products():
+    """cuBLAS's bf16 products with f32 reductions only inside the block (the
+    plain W4A4 linear's low-rank term when a kernel is held to it): by
+    default PyTorch lets cuBLAS reduce split sums in bf16, which put that
+    term thousands of ulp from its exact value at an N that is not a
+    multiple of 8 on an H100."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+@contextlib.contextmanager
+def lowrank_zeroed(model):
+    """Every W4A4 QLinear of `model` with its lora_v zeroed in place for the
+    block, restored after. The W4A4 kernels then compute their plain
+    versions' function bit for bit: the rank-32 low-rank term, whose f32 sum
+    the kernels take in another order than cuBLAS, is 0 on both sides."""
+    saved = [(m.lora_v, m.lora_v.detach().clone()) for m in model.modules()
+             if getattr(m, "lora_v", None) is not None]
+    for p, _ in saved:
+        p.data.zero_()
+    try:
+        yield
+    finally:
+        for p, v in saved:
+            p.data.copy_(v)
 # (quant, request seeds): the bf16 path of the first slice, then W8A8, then
 # int4p with the AdaLN modulations quantized too
 PATHS = ((None, (11, 12, 13)), ("int8", (21, 22, 23)), ("fp8", (31,)), ("int4p", (41, 42, 43)))
@@ -1641,6 +1917,8 @@ def _launch_counts():
             "quantize_to_int4": cb.quantize_to_int4_cuda.launches,
             "int4_matmul": cb.int4_matmul_cuda.launches,
             "unpack_int4": cb.unpack_int4_cuda.launches,
+            "w4a4_linear_large": cb.w4a4_linear_large_cuda.launches,
+            "w4a4_linear_small": cb.w4a4_linear_small_cuda.launches,
             "gelu_and_mul": cb.gelu_and_mul_cuda.launches}
 
 
@@ -1708,14 +1986,19 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg, summary: dict) -> dict:
         # with quant_mods, TeaCache's probe (dual block 0's norm1 modulation)
         # is a quantized linear too, run once by every forward, skipped or not
         probes = len(seeds) * STEPS if cfg.quant_mods else 0
-        want = per * computed + probes
-        others = {k for o, _ in QUANT_KERNELS.values() for k in o} - set(ops)
-        if any(counts[k] != want for k in ops) or any(counts[k] for k in others):
-            raise AssertionError(f"{label}: expected {per} x {computed} + {probes} = {want} "
-                                 f"launches of each of {ops} and none of {sorted(others)}, got "
-                                 f"{counts}")
-        log(f"[slice {label}] launch check: {per} x {computed} computed forwards + {probes} "
-            f"TeaCache probes = {want} launches of each of {ops}, none of the other formats' "
+        if quant == "int4p":  # each entry of w4a4_linear by its linears' rows
+            want = _plus(_times(w4a4_launches(W4A4_GEMMS), computed),
+                         _times(w4a4_launches(W4A4_TEACACHE_PROBE), probes))
+        else:
+            want = dict.fromkeys(ops, per * computed + probes)
+        # int4_matmul's kernel left the int4p path for w4a4_linear's
+        others = ({k for o, _ in QUANT_KERNELS.values() for k in o} | {"int4_matmul"}) - set(ops)
+        if any(counts[k] != want[k] for k in ops) or any(counts[k] for k in others):
+            raise AssertionError(f"{label}: expected {per} linears x {computed} + {probes} "
+                                 f"probes: {want} launches of {ops} and none of "
+                                 f"{sorted(others)}, got {counts}")
+        log(f"[slice {label}] launch check: {per} linears x {computed} computed forwards + "
+            f"{probes} TeaCache probes = {want} launches of {ops}, none of the other formats' "
             "kernels, as counted")
     log(f"[slice {label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
@@ -1746,9 +2029,24 @@ def _serve_path(dev, quant, seeds, vae, vae_cfg, summary: dict) -> dict:
         if quant is not None:
             exact = quant != "fp8"  # integer GEMMs
             fmt = "W4A4" if quant == "int4p" else "W8A8"
-            out_w = forward(plain_ops=W4A4_OPS if quant == "int4p" else W8A8_OPS)
+            plain_w = W4A4_PLAIN_OPS if quant == "int4p" else W8A8_OPS
+            out_w = forward(plain_ops=plain_w)
             rel_w, same_w = rel_l2(out_k, out_w), torch.equal(out_k, out_w)
-            log(f"[slice {label}] full-width forward with only the {fmt} ops plain: relative L2 "
+            if quant == "int4p":
+                # bit for bit on the integer product and its epilogue: with every
+                # lora_v zeroed (the low-rank term's f32 sum is in another order)
+                log(f"[slice {label}] full-width forward with only the {fmt} ops plain: "
+                    f"relative L2 difference {rel_w:.3e} (the low-rank term, within one bf16 "
+                    f"ulp, moves int4 steps downstream; held to <= "
+                    f"{FLUX_W4A4_LOWRANK_REL_L2})")
+                if not rel_w <= FLUX_W4A4_LOWRANK_REL_L2:
+                    raise AssertionError(f"{label} {fmt} kernels change the forward: {rel_w}")
+                with lowrank_zeroed(params):
+                    out_k0, out_w0 = forward(), forward(plain_ops=plain_w)
+                    rel_w, same_w = rel_l2(out_k0, out_w0), torch.equal(out_k0, out_w0)
+                    del out_k0, out_w0
+            log(f"[slice {label}] full-width forward with only the {fmt} ops plain"
+                f"{', every lora_v zeroed' if quant == 'int4p' else ''}: relative L2 "
                 f"difference {rel_w:.3e}, bit-identical {same_w} (required: "
                 f"{'bit-identical' if exact else f'<= {tol}'})")
             if not (same_w if exact else rel_w <= tol):
@@ -2006,18 +2304,21 @@ def _flux_step_caches(dev, params, cfg, sched, cos, sin, x, encoder, pooled, t,
     counts = _launch_counts()
     for hk in hooks:
         hk.remove()
-    probe = W4A4_PER_DUAL_BLOCK * cc.probe_depth
-    want = STEPS * probe + (STEPS - skips) * (W4A4_PER_FORWARD - probe)
+    probe = _times(w4a4_launches(W4A4_DUAL_BLOCK), cc.probe_depth)
+    rest_launches = {k: v - probe[k] for k, v in w4a4_launches(W4A4_GEMMS).items()}
+    want = _plus(_times(probe, STEPS), _times(rest_launches, STEPS - skips))
     log(f"[slice int4p cache] dicache_flux.json ({cc}): request {STEPS} steps {sec:.3f} s "
         f"denoise, skipped {skips} of {calls[0]} forwards, remaining-block stacks run "
-        f"{rest[0]}; W4A4 launches {[counts[k] for k in W4A4_OPS]} (derived {want} each)")
+        f"{rest[0]}; W4A4 launches {[counts[k] for k in W4A4_OPS]} (derived "
+        f"{[want[k] for k in W4A4_OPS]})")
     if (calls[0] != STEPS or skips != STEPS - rest[0]
-            or any(counts[k] != want for k in W4A4_OPS) or not torch.isfinite(lat).all()):
+            or any(counts[k] != want[k] for k in W4A4_OPS) or not torch.isfinite(lat).all()):
         raise AssertionError(f"DiCache request: forwards {calls}, stacks {rest}, skips {skips}, "
                              f"launches {counts} != derived {want}")
     del lat
 
     shape = (1, x.shape[1], cfg.inner_dim)
+    dual = w4a4_launches(W4A4_DUAL_BLOCK)
     for cc in (FBCacheConfig(enable_caching=True, threshold=1e9, warmup_steps=0),
                DiCacheConfig(enable_caching=True, threshold=1e9, probe_depth=1, ret_ratio=0.0)):
         name = type(cc).__name__
@@ -2040,11 +2341,12 @@ def _flux_step_caches(dev, params, cfg, sched, cos, sin, x, encoder, pooled, t,
         rel = ((out1.float() - out0.float()).norm() / out0.float().norm()).item()
         log(f"[slice int4p cache] forced skip ({name}, threshold 1e9, no warmup): skips "
             f"{st1['skips']} -> {st2['skips']}; the skipped forward launched W4A4 "
-            f"{[counts[k] for k in W4A4_OPS]} (one dual block: {W4A4_PER_DUAL_BLOCK} each); its "
+            f"{[counts[k] for k in W4A4_OPS]} (one dual block: "
+            f"{[dual[k] for k in W4A4_OPS]}); its "
             f"output is the replay bit for bit: {same}; relative L2 to the computed forward "
             f"{rel:.3e}")
         if not (st1["skips"] == 0 and st2["skips"] == 1 and same
-                and all(counts[k] == W4A4_PER_DUAL_BLOCK for k in W4A4_OPS)
+                and all(counts[k] == dual[k] for k in W4A4_OPS)
                 and torch.isfinite(out1).all()):
             raise AssertionError(f"the forced {name} skip did not replay the cached residual")
         del out0, out1, replay
@@ -2977,35 +3279,43 @@ def sd35_forward_launches(cfg) -> dict:
     return counts
 
 
-def qwen_w4a4_gemms(cfg) -> dict:
-    """The W4A4 linears of one Qwen-Image forward at 1024x2048 with
-    QWEN_TEXT text tokens, quant_mods on: (M, K, N) -> count. Per block each
-    stream's qkv, out, mlp proj and out, and the img_mod / txt_mod
-    modulations (one row); norm_out, proj_out and the embedders stay bf16."""
+def qwen_w4a4_gemms(cfg, text: Optional[int] = None, img: Optional[int] = None) -> dict:
+    """The W4A4 linears of one Qwen-Image forward at `img` image tokens
+    (QWEN_HT x QWEN_WT by default) with `text` text tokens (QWEN_TEXT),
+    quant_mods on: (M, K, N) -> count. Per block each stream's qkv, out, mlp
+    proj and out, and the img_mod / txt_mod modulations (one row); norm_out,
+    proj_out and the embedders stay bf16."""
     d, n = cfg.inner_dim, cfg.num_layers
+    text = QWEN_TEXT if text is None else text
+    img = QWEN_HT * QWEN_WT if img is None else img
     gemms = {}
-    for m in (QWEN_HT * QWEN_WT, QWEN_TEXT):
+    for m in (img, text):
         for kn in ((d, 3 * d), (d, d), (d, 4 * d), (4 * d, d)):
-            gemms[(m, *kn)] = n
+            gemms[(m, *kn)] = gemms.get((m, *kn), 0) + n
     gemms[(1, d, 6 * d)] = 2 * n
     return gemms
 
 
-def qwen_forward_launches(cfg, teacache: bool) -> tuple:
-    """(launches of one computed Qwen-Image int4p quant_mods forward, launches
-    every forward makes, a TeaCache skip too): per block four rmsnorm, one
-    rotembd and one sdpa, the W4A4 linears of qwen_w4a4_gemms; every forward
-    the txt_norm rmsnorm and, under TeaCache, its probe's block-0 txt_mod
-    linear (W4A4 under quant_mods)."""
+def qwen_forward_launches(cfg, teacache: bool, text: Optional[int] = None) -> tuple:
+    """(launches of one computed Qwen-Image int4p quant_mods forward on `text`
+    text tokens (QWEN_TEXT by default), launches every forward makes, a
+    TeaCache skip too): per
+    block four rmsnorm, one rotembd and one sdpa, the W4A4 linears of
+    qwen_w4a4_gemms (each entry of w4a4_linear by its rows: every image of
+    these phases has more tokens than W4A4_SMALL_M_MAX, so only the text
+    length moves the split); every forward the txt_norm rmsnorm and, under
+    TeaCache, its probe's block-0 txt_mod linear (W4A4 under quant_mods, one
+    row)."""
     computed = dict.fromkeys(_launch_counts(), 0)
-    n = cfg.num_layers
+    n, d = cfg.num_layers, cfg.inner_dim
     computed.update(rmsnorm=4 * n, rotembd=n, sdpa=n)
     every = dict.fromkeys(computed, 0)
     every["rmsnorm"] = 1
-    w4a4 = sum(qwen_w4a4_gemms(cfg).values())
-    for op in W4A4_OPS:
-        computed[op], every[op] = w4a4, int(teacache)
+    computed.update(w4a4_launches(qwen_w4a4_gemms(cfg, text)))
+    if teacache:
+        every.update(w4a4_launches({(1, d, 6 * d): 1}))
     return computed, every
+
 
 
 def _rms_case(label: str, x, w, ulp_tol: float = 1.0) -> float:
@@ -3398,7 +3708,7 @@ def phase_qwen(dev, summary: Optional[dict] = None) -> None:
         with torch.inference_mode(), kernel_registry.plain_on_device(plain_ops):
             return qwen_forward(params, cfg, x, embeds, t, cos, sin).float()
 
-    _forward_gate("qwen int4p", forward, QWEN_FORWARD_REL_L2_TOL, W4A4_OPS)
+    _forward_gate("qwen int4p", forward, QWEN_FORWARD_REL_L2_TOL, W4A4_PLAIN_OPS)
     _qwen_gpipe(dev, params, cfg, cos, sin)
     del x
     _qwen_edit_request(dev, params, cfg, vae, vae_cfg, tea, {} if summary is None else summary)
@@ -3785,7 +4095,6 @@ def phase_qwen_vl(dev, params, cfg, vae, vae_cfg, tea):
     eng = _engine_shell(dev, "qwen", params=params, cfg=cfg, vae_params=vae, vae_cfg=vae_cfg,
                         text_encoder=enc, cache_config=tea)
     eng._bind_vae_fns()
-    computed, every = qwen_forward_launches(cfg, teacache=True)
     negative, lengths = QWEN_VL_PROMPTS[1], {}
     for label, prompt, kw in (
             ("t2i", QWEN_VL_PROMPTS[0], dict(height=16 * QWEN_HT, width=16 * QWEN_WT)),
@@ -3805,9 +4114,10 @@ def phase_qwen_vl(dev, params, cfg, vae, vae_cfg, tea):
         cuda_backend.reset_launch_counts()
         want, emb_s = _timed(eng.generate, prompt_embeds=pos, negative_prompt_embeds=neg, **kw)
         forwards = 2 * QWEN_STEPS
+        text = max(pos.shape[1], neg.shape[1])  # both streams padded to it
+        computed, every = qwen_forward_launches(cfg, teacache=True, text=text)
         derived = {k: computed[k] * (forwards - skips) + every[k] * forwards for k in computed}
         same = np.array_equal(got, want)
-        text = max(pos.shape[1], neg.shape[1])
         lengths[label] = text
         log(f"[qwen-vl {label}] request from prompt strings ({pos.shape[1]} / {neg.shape[1]} "
             f"text tokens, {text} to the DiT), true CFG {QWEN_VL_CFG}, {QWEN_STEPS} steps, "
@@ -3912,8 +4222,6 @@ def _engine_qwen_prompt(eng, kw: dict) -> None:
 
     kw = dict({k: v for k, v in kw.items() if "prompt_embeds" not in k},
               true_cfg_scale=QWEN_VL_CFG, seed=413)
-    computed, every = qwen_forward_launches(eng.cfg, teacache=False)
-    per = {k: (computed[k] + every[k]) * 2 * kw["num_inference_steps"] for k in computed}
     prompt, negative = QWEN_EDIT_PROMPT, QWEN_VL_PROMPTS[1]
     enc = eng.text_encoder
     _, load_s = _timed(enc.load)
@@ -3927,6 +4235,10 @@ def _engine_qwen_prompt(eng, kw: dict) -> None:
         else:
             pos, neg = enc.encode_with_image(prompt, src), enc.encode_with_image(negative, src)
         quiet = _launch_counts() == counts
+        # both streams padded to the longer text
+        computed, every = qwen_forward_launches(eng.cfg, teacache=False,
+                                                text=max(pos.shape[1], neg.shape[1]))
+        per = {k: (computed[k] + every[k]) * 2 * kw["num_inference_steps"] for k in computed}
         cuda_backend.reset_launch_counts()
         want, emb_s = _timed(eng.generate, prompt_embeds=pos, negative_prompt_embeds=neg, **kw,
                              **extra)
@@ -5406,14 +5718,18 @@ def _engine_flux(dev, here: str, summary: dict) -> None:
                                       height=1024, width=1024, num_inference_steps=STEPS,
                                       seed=seed))
             if int4p:  # one dual + one single block: 13 W4A4 linears per computed
-                # forward, and TeaCache's probe (a modulation) in every step
+                # forward (the 3 modulations on the small-M entry), and
+                # TeaCache's probe (a modulation) in every step
                 counts = _launch_counts()
-                n = (STEPS - eng.last_cache_skips) * 13 + STEPS
+                computed = STEPS - eng.last_cache_skips
+                gemms = flux_w4a4_gemms(64 * 64, TXT_TOKENS, 1, 1)  # 1024x1024
+                n = _plus(_times(w4a4_launches(gemms), computed),
+                          _times(w4a4_launches(W4A4_TEACACHE_PROBE), STEPS))
                 log(f"[engine int4p] W4A4 launches {[counts[k] for k in W4A4_OPS]} "
-                    f"(13 x {STEPS - eng.last_cache_skips} computed forwards + {STEPS} "
-                    f"TeaCache probes = {n} each)")
-                if any(counts[k] != n for k in W4A4_OPS):
-                    raise AssertionError(f"engine int4p: W4A4 launches {counts} != {n} each")
+                    f"({sum(gemms.values())} x {computed} computed forwards + {STEPS} TeaCache "
+                    f"probes = {[n[k] for k in W4A4_OPS]})")
+                if any(counts[k] != n[k] for k in W4A4_OPS):
+                    raise AssertionError(f"engine int4p: W4A4 launches {counts} != {n}")
             if label == "bf16":
                 _engine_prompt(eng, "engine flux bf16", dict(height=1024, width=1024,
                                                             num_inference_steps=STEPS, seed=seed))
@@ -7312,7 +7628,10 @@ def _ring_kernels(dev, g) -> None:
     (each rank's K/V shard handed on in memory) at Wan2.2-A14B's width (32760
     tokens, 40 x 128) and FLUX's 8704 joint tokens (24 x 128): the gathered
     output against one sdpa kernel call (RING_TOL_ABS + 2 bf16 ulp), exactly
-    sp * sp log-sum-exp launches and nothing else a call; timed."""
+    sp * sp log-sum-exp launches and nothing else a call; timed beside one
+    sdpa call and, as the library's yardstick, one
+    aten._scaled_dot_product_flash_attention call over the whole sequence
+    (which returns the log-sum-exp too)."""
     import torch
 
     from fastdm_tpu_torch.kernels import cuda_backend as cb
@@ -7325,6 +7644,12 @@ def _ring_kernels(dev, g) -> None:
         want = cb.sdpa_cuda(q, k, v, h, h, HEAD_DIM).float()
         tol = RING_TOL_ABS + 2 * bf16_ulp(want)
         one_ms = cuda_ms(lambda: cb.sdpa_cuda(q, k, v, h, h, HEAD_DIM), 5)
+        heads = [t.view(1, s, h, HEAD_DIM).transpose(1, 2) for t in (q, k, v)]
+        lib_ms = cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(*heads), 5)
+        log(f"[ring] {label} (1, {s}, {h}x{HEAD_DIM}): one sdpa call {one_ms:.3f} ms, one "
+            f"aten._scaled_dot_product_flash_attention call over the whole sequence (the "
+            f"library's yardstick for the ring) {lib_ms:.3f} ms")
+        PARALLEL_SUMMARY[f"ring_{label}_library_ms"] = lib_ms
         for sp in RING_SPS:
             ring = VirtualRing(sp)
             cb.reset_launch_counts()
@@ -7343,7 +7668,7 @@ def _ring_kernels(dev, g) -> None:
             PARALLEL_SUMMARY[f"ring_{label}_sp{sp}_ms"] = ms
             del got, e
         PARALLEL_SUMMARY[f"ring_{label}_one_call_ms"] = one_ms
-        del q, k, v, want, tol
+        del q, k, v, want, tol, heads
     torch.cuda.empty_cache()
 
 
@@ -7831,19 +8156,27 @@ def _tp_launches() -> dict:
     return {name: getattr(cb, wrapper).launches for name, (wrapper, _, _) in TP_KERNELS.items()}
 
 
-def _tp_linears(quant, column: int, row: int) -> dict:
+def _tp_linears(quant, column: int, row: int, column_small: int = 0) -> dict:
     """Launches of `column` quantized linears that a rank computes on its own
     weights (a column shard, or a layer kept whole) and `row` row shards, in
     `quant` (None: bf16, whose products launch no kernel): a row shard
     launches quantize_stats, the given-statistics quantizer and the f32
-    partial GEMM; int4p unpacks every weight first."""
+    partial GEMM; int4p runs a column one as w4a4_linear (its quantizer and
+    one entry: the small-M one for the `column_small` whose rows are at most
+    W4A4_SMALL_M_MAX, else unpack_int4 and the large-M one) and unpacks a row
+    shard's weight first."""
     if quant is None:
         return {}
     q = "int4" if quant.startswith("int4") else quant
     counts = {f"quantize_to_{q}": column, f"{q}_matmul": column, "quantize_stats": row,
               f"quantize_to_{q}_given": row, f"{q}_matmul_partial": row}
     if quant == "int4p":
-        counts["unpack_int4"] = column + row
+        # the column ones through w4a4_linear, the one-row ones (AdaLN
+        # modulations, `column_small` of them) on its small-M entry; a row
+        # shard unpacks its weight for its f32 partial
+        counts.update(int4_matmul=0, w4a4_linear_small=column_small,
+                      w4a4_linear_large=column - column_small,
+                      unpack_int4=column - column_small + row)
     return counts
 
 
@@ -7885,14 +8218,17 @@ def tp_rank_launches(family: str, cfg, tokens: int = 0, mode=None, blocks=None,
     "sdxl-cn": the ControlNet's down / mid stages) at tp `size`: per block
     two sdpa and one gelu_and_mul, the linears of _sdxl_tp_linears."""
     counts = dict.fromkeys(list(_launch_counts()) + list(TP_KERNELS), 0)
+    small = 0
     if family == "flux":
         d, s = cfg.num_layers, cfg.num_single_layers
         counts.update(rmsnorm=4 * d + 2 * s, rotembd=d + s, sdpa=d + s)
-        column, row = 4 * d + s + (2 * d + s if cfg.quant_mods else 0), 4 * d + s
+        small = 2 * d + s if cfg.quant_mods else 0  # the one-row modulations
+        column, row = 4 * d + s + small, 4 * d + s
     elif family == "qwen":
         n = cfg.num_layers
         counts.update(rmsnorm=4 * n + 1, rotembd=n, sdpa=n)
-        column, row = 4 * n + (2 * n if cfg.quant_mods else 0), 4 * n
+        small = 2 * n if cfg.quant_mods else 0
+        column, row = 4 * n + small, 4 * n
     elif family == "sd35":
         n, nd = cfg.num_layers, cfg.num_dual_layers
         counts.update(rmsnorm=4 * n + 2 * nd, sdpa=n + nd)
@@ -7920,7 +8256,7 @@ def tp_rank_launches(family: str, cfg, tokens: int = 0, mode=None, blocks=None,
                                        17 if family == "sdxl" else 8, size)
     else:
         raise ValueError(family)
-    counts.update(_tp_linears(cfg.quant, column, row))
+    counts.update(_tp_linears(cfg.quant, column, row, small))
     return counts
 
 
@@ -9128,6 +9464,10 @@ def main() -> int:
                          check=True).stdout.strip()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
+    if sys.argv[1:] == ["--w4a4-grid"]:
+        _w4a4_grid(dev)
+        print(smi, flush=True)
+        return 0
 
     t0 = time.perf_counter()
     kernels = phase_kernels(dev)
@@ -9168,6 +9508,9 @@ def main() -> int:
         f"and the offload of a rank's shard (ms, seconds, GiB, GiB/s): {TP_SUMMARY}")
     log(f"[train] FLUX LoRA training: the backwards, the step gate and the full-depth steps "
         f"(ms, seconds, GiB): {TRAIN_SUMMARY}")
+    log(f"[w4a4] per-forward sums from xq on (ms): w4a4_linear's path against the composition "
+        f"it replaces and torch._int_mm's s32 product; qkv_mlp: "
+        f"{W4A4_SUMMARY}")
 
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

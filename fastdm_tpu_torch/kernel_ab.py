@@ -15,10 +15,12 @@ seeds) in every checkout:
     rmsnorm_wan, the cross-attention's q norm on (1, 32760, 5120) with a bf16
     weight;
   - FLUX.1-dev at 1024x2048: sdpa at (1, 8704, 24x128), and the int8 and fp8
-    W8A8 GEMMs and the W4A4 int4 GEMM (int4_gemm_flux) at the single-block
-    qkv_mlp product (8704 x 3072 @ 3072 x 21504), each on its per-token
-    quantized activation and a random quantized weight (int4: the int4p
-    weight unpacked); the int4 quantizer (quantize_int4_flux) on the (8704,
+    W8A8 GEMMs and the W4A4 linear's large-M entry with its low-rank branch
+    (w4a4_large_flux) at the single-block qkv_mlp product (8704 x 3072 @
+    3072 x 21504), each on its per-token quantized activation and a random
+    quantized weight (W4A4: the int4p weight unpacked, xu = x @ lora_u);
+    w4a4_large_flux_qkv the same at a dual block's image q|k|v (8192 x 3072
+    @ 3072 x 9216); the int4 quantizer (quantize_int4_flux) on the (8704,
     3072) activation and the int4p unpack (unpack_int4_flux) of the qkv_mlp
     weight; rmsnorm_flux, the per-head q norm on the strided
     (1, 8192, 24, 128) view of a dual block's fused QKV output with a bf16
@@ -105,6 +107,11 @@ def _one(root: str, only) -> dict:
     if w4 is not None:
         a4, s4 = tb.quantize_to_int4_torch(x)
         u4 = tb.unpack_int4_torch(w4.w4p)
+        xu4 = x @ w4.lora_u
+        w4q = qlinear_random(g, kk, 9216, quant="int4p", device=dev)
+        a4q, s4q = tb.quantize_to_int4_torch(x[:8192])
+        u4q = tb.unpack_int4_torch(w4q.w4p)
+        xu4q = x[:8192] @ w4q.lora_u
 
     kernels = {
         "gather_super": lambda: cb.gather_super_attention_cuda(
@@ -129,8 +136,10 @@ def _one(root: str, only) -> dict:
         "rotembd_flux": lambda: cb.rotary_pos_embedding_cuda(fq, fk, hd, fcos, fsin),
         "rotembd_neox": lambda: cb.rotary_pos_embedding_cuda(fq, fk, hd, fcos, fsin,
                                                              is_neox=True),
-        "int4_gemm_flux": lambda: cb.int4_matmul_cuda(a4, u4, s4, w4.scale, torch.bfloat16,
-                                                      w4.bias),
+        "w4a4_large_flux": lambda: cb.w4a4_linear_large_cuda(
+            a4, u4, s4, w4.scale, torch.bfloat16, w4.bias, xu4, w4.lora_v),
+        "w4a4_large_flux_qkv": lambda: cb.w4a4_linear_large_cuda(
+            a4q, u4q, s4q, w4q.scale, torch.bfloat16, w4q.bias, xu4q, w4q.lora_v),
         "quantize_int4_flux": lambda: cb.quantize_to_int4_cuda(x),
         "unpack_int4_flux": lambda: cb.unpack_int4_cuda(w4.w4p),
     }

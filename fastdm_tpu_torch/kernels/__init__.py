@@ -3,7 +3,7 @@ qk_norm_rope2, gelu_and_mul, scaled_dot_product_attention (and its log-sum-exp v
 attentions (sparse_scaled_dot_product_attention, gather_sparse_attention,
 gather_fine_attention, gather_super_attention), the W8A8 ops
 (quantize_to_int8, quantize_to_fp8, int8_matmul, fp8_matmul) and the W4A4 ops
-(quantize_to_int4, int4_matmul, unpack_int4) and the tensor-parallel
+(quantize_to_int4, int4_matmul, unpack_int4, w4a4_linear) and the tensor-parallel
 variants (rms_sumsq, rms_norm_given, qk_norm_rope_given, qk_norm_rope2_given,
 quantize_stats, quantize_to_*_given, *_matmul_partial), dispatched by
 tensor device to the plain PyTorch versions (CPU) or the hand-written Hopper
@@ -41,6 +41,7 @@ from fastdm_tpu_torch.kernels.ops import (
     scaled_dot_product_attention_lse,
     sparse_scaled_dot_product_attention,
     unpack_int4,
+    w4a4_linear,
 )
 from fastdm_tpu_torch.kernels import autograd  # noqa: F401,E402  (registration)
 from fastdm_tpu_torch.kernels.registry import kernel_registry
@@ -76,4 +77,5 @@ __all__ = [
     "scaled_dot_product_attention_lse",
     "sparse_scaled_dot_product_attention",
     "unpack_int4",
+    "w4a4_linear",
 ]

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("rmsnorm", "rope", "qk_norm_rope", "flash_attn", "quant",
-           "w8a8_gemm", "fp8_gemm", "gelu_mul", "int4_pack")
+           "w8a8_gemm", "fp8_gemm", "gelu_mul", "int4_pack", "w4a4_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,8 +1,9 @@
 """Kernel-boundary contract checks (port of fastdm_tpu/kernels/contracts.py:
 check_sdpa, the sparse-attention table checks check_block_tiles,
 check_gather_lists, check_gather_fine, check_gather_super and
-check_sparse_mask :54-227, check_scaled_mm :230-249; check_gelu_and_mul is
-the port's own: the JAX op checks nothing). Shape checks run in
+check_sparse_mask :54-227, check_scaled_mm :230-249; check_gelu_and_mul and
+check_w4a4_linear are the port's own: the JAX op checks nothing, and the W4A4
+linear is the JAX package's qlinear_apply branch fused into one op). Shape checks run in
 Python before any pointer reaches a kernel, so a bad call dies with a message
 instead of an out-of-bounds access on the card. The table checks take
 strict=True to read the VALUES too (on the host: the engine runs them once on
@@ -212,3 +213,31 @@ def check_scaled_mm(kernel: str, a, b, scale_a, scale_b, azp_adj=None,
         _fail(kernel, f"azp (per-token zero point) size {azp.numel()} != M {m}")
     if bias is not None and bias.numel() != n:
         _fail(kernel, f"bias size {bias.numel()} != N {n}")
+
+
+def check_w4a4_linear(kernel: str, a, b, scale_a, scale_b, bias, xu, lora_v) -> bool:
+    """The W4A4 linear's operands: a (M, K) int8; b int8, either (K, N) int4
+    values or (K/2, N) packed pairs (pack_int4's halves layout); per-token /
+    per-channel scales; bias (N,); xu (M, r) and lora_v (r, N), the low-rank
+    branch. Returns whether b is packed (read off its shape)."""
+    if a.dim() != 2 or b.dim() != 2:
+        _fail(kernel, f"a/b must be 2D, got {tuple(a.shape)}/{tuple(b.shape)}")
+    m, k = a.shape
+    packed = b.shape[0] != k
+    if packed and 2 * b.shape[0] != k:
+        _fail(kernel, f"b {tuple(b.shape)} must be (K, N) int4 values or (K/2, N) packed pairs "
+                      f"for a{tuple(a.shape)}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        _fail(kernel, f"a/b must be int8 carriers, got {a.dtype}/{b.dtype}")
+    n = b.shape[1]
+    if scale_a.numel() not in (1, m):
+        _fail(kernel, f"scale_a size {scale_a.numel()} != per-token ({m}) or scalar")
+    if scale_b.numel() not in (1, n):
+        _fail(kernel, f"scale_b size {scale_b.numel()} != per-channel ({n}) or scalar")
+    if bias is not None and bias.numel() != n:
+        _fail(kernel, f"bias size {bias.numel()} != N {n}")
+    if xu.dim() != 2 or lora_v.dim() != 2 or xu.shape[0] != m or lora_v.shape[1] != n \
+            or xu.shape[1] != lora_v.shape[0]:
+        _fail(kernel, f"the low-rank branch must be xu (M, r) = ({m}, r) and lora_v (r, N) = "
+                      f"(r, {n}), got {tuple(xu.shape)} and {tuple(lora_v.shape)}")
+    return packed

@@ -805,6 +805,148 @@ def unpack_int4_cuda(p: Tensor) -> Tensor:
 
 unpack_int4_cuda.launches = 0
 
+
+# ------------------------------------------------------------- W4A4 linear
+#
+# csrc/w4a4_gemm.cu: the int4 GEMM, its dequantization epilogue and the
+# SVDQuant low-rank branch of an int4 / int4p QLinear in one launch, by two
+# entries: the large-M wgmma + TMA kernel on int8 carriers (int4p unpacks
+# first), and the small-M split-K kernel that reads the packed weights.
+
+# The rows at most for which a packed (int4p) weight takes the small-M entry.
+# Chosen from the grid of `python3 chip_smoke.py --w4a4-grid` on an NVIDIA
+# H100 80GB HBM3 (700 W), which fails unless this constant agrees with it:
+# both entries at M = 1, 16, 30, 60, 64, 96, 128 and 512 on FLUX's and
+# Qwen-Image's seven (K, N), K 3072 / 12288 / 15360, N 3072 .. 21504 (PERF.md).
+# Summed over the (K, N), the small-M entry, bound by the packed weight's
+# bytes, takes 0.0822 ms against unpack_int4 + the large-M entry's 0.3821 at
+# one row, 0.2970 against 0.3563 at 64, and 0.4636 against 0.3570 at 96.
+W4A4_SMALL_M_MAX = 64
+
+
+def w4a4_small_m(m: int, k: int) -> bool:
+    """Whether w4a4_linear runs an int4p weight of K = k on the small-M
+    entry at m rows (K a multiple of 32: its 16-byte packed loads)."""
+    return m <= W4A4_SMALL_M_MAX and k % 32 == 0
+
+
+def _check_w4a4(kernel: str, a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                bias: Optional[Tensor], xu: Tensor, lora_v: Tensor) -> Tuple[int, int, int, int]:
+    """The checks both entries share -> (M, K, N, rank)."""
+    contracts.check_w4a4_linear(kernel, a, b, scale_a, scale_b, bias, xu, lora_v)
+    dev = a.device
+    m, k = a.shape
+    n, rank = b.shape[1], xu.shape[1]
+    _require(a.is_cuda and all(t.device == dev for t in (b, xu, lora_v)), kernel,
+             "a, b, xu and lora_v must lie on one CUDA device")
+    _require(out_dtype == torch.bfloat16, kernel, f"out_dtype must be bfloat16, got {out_dtype}")
+    _require(xu.dtype == torch.bfloat16 and lora_v.dtype == torch.bfloat16, kernel,
+             f"xu / lora_v must be bfloat16, got {xu.dtype} / {lora_v.dtype}")
+    _require(rank <= 32, kernel, f"the low-rank branch's rank {rank} must be at most 32")
+    _require(k > 0 and k % 16 == 0, kernel, f"K = {k} must be a positive multiple of 16")
+    _require(a.stride(1) == 1 and a.stride(0) % 16 == 0 and a.data_ptr() % 16 == 0, kernel,
+             "a must be K-contiguous with 16-byte aligned rows")
+    _check_vector(scale_a, kernel, "scale_a", m, torch.float32, dev)
+    _check_vector(scale_b, kernel, "scale_b", n, torch.float32, dev)
+    _check_vector(bias, kernel, "bias", n, torch.bfloat16, dev)
+    return m, k, n, rank
+
+
+def _rows(t: Tensor, align: int) -> Tensor:
+    """t (2D) with a contiguous last dim, an even row pitch and `align`-byte
+    aligned rows: t itself, or a contiguous copy."""
+    ok = (t.stride(1) == 1 and (t.shape[0] <= 1 or t.stride(0) % (align // 2) == 0)
+          and t.data_ptr() % align == 0)
+    return t if ok else t.contiguous()
+
+
+def w4a4_linear_large_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                           bias: Optional[Tensor], xu: Tensor, lora_v: Tensor) -> Tensor:
+    """The large-M entry (csrc/w4a4_gemm.cu fdm_w4a4_linear): b (K, N) int4
+    values in int8 carriers, the view of a K-contiguous (N, K) buffer."""
+    kernel = "w4a4_linear"
+    m, k, n, rank = _check_w4a4(kernel, a, b, scale_a, scale_b, out_dtype, bias, xu, lora_v)
+    _require(b.shape[0] == k, kernel, f"b must be (K, N) = ({k}, {n}), got {tuple(b.shape)}")
+    _require(b.stride(0) == 1 and b.stride(1) % 16 == 0 and b.data_ptr() % 16 == 0, kernel,
+             "b (K, N) must be a view of a K-contiguous (N, K) buffer (stride(0) == 1) with "
+             "16-byte aligned columns")
+    _require(rank >= 1 and rank % 2 == 0, kernel, f"the rank {rank} must be even and positive")
+    dev = a.device
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+    if m == 0 or n == 0:
+        return out
+    xu = _rows(xu, 4)
+    if not (lora_v.stride(1) == 1 and lora_v.stride(0) % 8 == 0 and lora_v.data_ptr() % 16 == 0):
+        # the TMA reads lora_v in 16-byte rows: pad its columns to a multiple of 8
+        padded = torch.zeros(rank, -(-n // 8) * 8, dtype=torch.bfloat16, device=dev)
+        padded[:, :n] = lora_v
+        lora_v = padded
+    lib, fn = _entry("w4a4_gemm", "fdm_w4a4_linear", [_P] * 8 + [_I] * 3 + [_L] * 4 + [_I, _P])
+    with torch.cuda.device(dev):
+        code = fn(a.data_ptr(), b.data_ptr(), scale_a.data_ptr(), scale_b.data_ptr(),
+                  bias.data_ptr() if bias is not None else None, xu.data_ptr(),
+                  lora_v.data_ptr(), out.data_ptr(), m, n, k, a.stride(0), b.stride(1),
+                  xu.stride(0), lora_v.stride(0), rank, _stream(dev))
+    _check_launch(lib, "fdm_w4a4_linear", code, kernel)
+    w4a4_linear_large_cuda.launches += 1
+    return out
+
+
+w4a4_linear_large_cuda.launches = 0
+
+
+def w4a4_linear_small_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                           bias: Optional[Tensor], xu: Tensor, lora_v: Tensor,
+                           split: int = 0) -> Tensor:
+    """The small-M entry (csrc/w4a4_gemm.cu fdm_w4a4_linear_small): b (K/2,
+    N) packed pairs, the view of a contiguous (N, K/2) buffer (a QLinear's
+    w4p, or rows of it), read as it is stored. `split`: K shares a cluster
+    (2, 4 or 8), or 0 for the kernel's own choice by shape."""
+    kernel = "w4a4_linear_small"
+    _require(split in (0, 2, 4, 8), kernel, f"split must be 0, 2, 4 or 8, got {split}")
+    m, k, n, rank = _check_w4a4(kernel, a, b, scale_a, scale_b, out_dtype, bias, xu, lora_v)
+    _require(2 * b.shape[0] == k and k % 32 == 0, kernel,
+             f"b must be (K/2, N) packed pairs with K a multiple of 32, got {tuple(b.shape)} "
+             f"for K = {k}")
+    _require((b.shape[1] <= 1 or b.stride(1) % 16 == 0) and b.stride(0) == 1
+             and b.data_ptr() % 16 == 0, kernel,
+             "b (K/2, N) must be a view of an (N, K/2) buffer (stride(0) == 1) with 16-byte "
+             f"aligned rows; got strides {b.stride()}")
+    dev = a.device
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+    if m == 0 or n == 0:
+        return out
+    xu, lora_v = _rows(xu, 2), _rows(lora_v, 2)
+    lib, fn = _entry("w4a4_gemm", "fdm_w4a4_linear_small",
+                     [_P] * 8 + [_I] * 3 + [_L] * 4 + [_I, _I, _P])
+    with torch.cuda.device(dev):
+        code = fn(b.data_ptr(), a.data_ptr(), scale_a.data_ptr(), scale_b.data_ptr(),
+                  bias.data_ptr() if bias is not None else None, xu.data_ptr(),
+                  lora_v.data_ptr(), out.data_ptr(), m, n, k, a.stride(0),
+                  b.stride(1) if n > 1 else k // 2, xu.stride(0), lora_v.stride(0), rank,
+                  split, _stream(dev))
+    _check_launch(lib, "fdm_w4a4_linear", code, kernel)
+    w4a4_linear_small_cuda.launches += 1
+    return out
+
+
+w4a4_linear_small_cuda.launches = 0
+
+
+@kernel_registry.register("w4a4_linear", "cuda")
+def w4a4_linear_cuda(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                     bias: Optional[Tensor], xu: Tensor, lora_v: Tensor) -> Tensor:
+    """The W4A4 linear on its two kernels: a packed weight (K/2, N) at M <=
+    W4A4_SMALL_M_MAX rows on the small-M entry, which reads it as stored;
+    otherwise unpack_int4 (for a packed weight) and the large-M entry."""
+    m, k = a.shape
+    if contracts.check_w4a4_linear("w4a4_linear", a, b, scale_a, scale_b, bias, xu, lora_v):
+        if w4a4_small_m(m, k):
+            return w4a4_linear_small_cuda(a, b, scale_a, scale_b, out_dtype, bias, xu, lora_v)
+        b = unpack_int4_cuda(b)
+    return w4a4_linear_large_cuda(a, b, scale_a, scale_b, out_dtype, bias, xu, lora_v)
+
+
 # ------------------------------------------------------ tensor parallelism
 #
 # The row-parallel and across-heads variants (parallel/tensor_parallel.py):
@@ -1062,7 +1204,8 @@ KERNEL_WRAPPERS = (rms_norm_cuda, rotary_pos_embedding_cuda, qk_norm_rope_cuda,
                    gather_fine_attention_cuda, gather_sparse_attention_cuda,
                    sparse_attention_cuda, quantize_to_int8_cuda, quantize_to_fp8_cuda,
                    int8_matmul_cuda, fp8_matmul_cuda, quantize_to_int4_cuda, int4_matmul_cuda,
-                   unpack_int4_cuda) + TP_WRAPPERS
+                   unpack_int4_cuda, w4a4_linear_large_cuda,
+                   w4a4_linear_small_cuda) + TP_WRAPPERS
 
 
 def reset_launch_counts() -> None:

@@ -2,7 +2,9 @@
 qk_norm_rope, qk_norm_rope2, gelu_and_mul, W8A8, W4A4, sdpa and the four
 sparse-attention contracts of fastdm_tpu/kernels/ops.py:29-338), and
 unpack_int4, the int4p weight unpack (fastdm_tpu/layers/qlinear.py:75-83),
-which has a kernel of its own on the card.
+which has a kernel of its own on the card, and w4a4_linear, the whole W4A4
+branch of qlinear_apply (:280-291) as one op, whose kernels read the packed
+weights at small M and take the low-rank branch into their epilogue.
 
 The variants of the tensor-parallel path (parallel/tensor_parallel.py) have
 no JAX op of their own (GSPMD partitions the whole-row ops there): the row
@@ -107,6 +109,18 @@ def int4_matmul(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtyp
     """W4A4 matmul, symmetric on both sides (no zero point): a (M,K) and b
     (K,N) int4-range values in int8 carriers, s32 accumulate,
     out = f32(a.b) * (scale_a (x) scale_b) + f32(bias), one cast to out_dtype."""
+    raise NotImplementedError
+
+
+@kernel_registry.dispatch("w4a4_linear")
+def w4a4_linear(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                bias: Optional[Tensor], xu: Tensor, lora_v: Tensor) -> Tensor:
+    """The W4A4 linear of an int4 / int4p QLinear (the JAX package's
+    qlinear_apply branch, fastdm_tpu/layers/qlinear.py:280-291): b (K, N)
+    int4 values in int8 carriers, or (K/2, N) packed pairs (pack_int4's halves
+    layout), told apart by its shape; out = int4_matmul(a, b, scale_a,
+    scale_b, out_dtype, bias) + (xu @ lora_v), the low-rank term rounded to
+    bf16 and added in out_dtype, with xu = bf16(x) @ lora_u (M, r)."""
     raise NotImplementedError
 
 

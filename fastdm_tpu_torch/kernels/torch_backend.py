@@ -6,8 +6,9 @@ qk_norm_rope2_jnp :57-97, gelu_and_mul_jnp :117-120, quantize_to_int8_jnp
 quantize_to_fp8_jnp :191-197, fp8_matmul_jnp :200-218,
 int8_matmul_jnp :221-240, sdpa_jnp
 :248-280, sdpa_gather_jnp :283-311, sdpa_gather_fine_jnp :314-370,
-sdpa_gather_super_jnp :373-437, sdpa_sparse_jnp :440-486; and the int4p
-weight unpack of fastdm_tpu/layers/qlinear.py unpack_int4 :75-83).
+sdpa_gather_super_jnp :373-437, sdpa_sparse_jnp :440-486; the int4p
+weight unpack of fastdm_tpu/layers/qlinear.py unpack_int4 :75-83; and the
+W4A4 linear, that file's qlinear_apply branch :280-291 as one op).
 
 The tensor-parallel variants (rms_sumsq, rms_norm_given, the
 qk_norm_rope*_given forms, quantize_stats, the quantize_to_*_given forms and
@@ -309,6 +310,18 @@ def unpack_int4_torch(p: Tensor) -> Tensor:
     # built K-contiguous, the layout the card's GEMM reads
     pt = p.transpose(-1, -2)
     return torch.cat([(pt << 4) >> 4, pt >> 4], dim=-1).transpose(-1, -2)
+
+
+@kernel_registry.register("w4a4_linear", "torch")
+def w4a4_linear_torch(a: Tensor, b: Tensor, scale_a: Tensor, scale_b: Tensor, out_dtype,
+                      bias: Optional[Tensor], xu: Tensor, lora_v: Tensor) -> Tensor:
+    # the composition the card's kernels replace: the unpack of a packed b,
+    # int4_matmul, the bf16 low-rank product and the add in out_dtype
+    if contracts.check_w4a4_linear("w4a4_linear_torch", a, b, scale_a, scale_b, bias, xu,
+                                   lora_v):
+        b = unpack_int4_torch(b)
+    out = int4_matmul_torch(a, b, scale_a, scale_b, out_dtype, bias)
+    return out + (xu @ lora_v).to(out.dtype)
 
 
 @kernel_registry.register("fp8_matmul", "torch")

@@ -22,11 +22,14 @@ and lora_v (r, N) in bf16.
         residual per-channel symmetric int4, the rank-32 u, v in bf16;
         activations per token, symmetric int4 (quantize_to_int4), then
         int4_matmul (s32 accumulate, no zero point) plus the low-rank side
-        path (x @ u) @ v. On the H100 the int4 product runs on the s8 GEMM:
-        Hopper's tensor cores take no 4-bit integers.
-  int4p: the same values packed two per byte (0.5 byte per weight), unpacked
-        by unpack_int4 into a scratch buffer at each call (one linear's
-        weights in flight), as JAX unpacks in-graph.
+        path (x @ u) @ v, as one op, w4a4_linear, whose kernels take the
+        (x @ u) @ v product and the add into their epilogue. On the H100 the
+        int4 product runs on s8 MMAs: Hopper's tensor cores take no 4-bit
+        integers.
+  int4p: the same values packed two per byte (0.5 byte per weight). At few
+        rows w4a4_linear's small-M kernel reads them packed; otherwise
+        unpack_int4 writes them into a scratch buffer at each call (one
+        linear's weights in flight), as JAX unpacks in-graph.
 
 The 8-bit mode is carried by the weight dtype, as in JAX; W4A4 by which leaf
 is present (w4 or w4p), as JAX's key-driven dispatch. Layout: an 8-bit w,
@@ -45,12 +48,12 @@ from torch import nn
 
 from fastdm_tpu_torch.kernels import (
     fp8_matmul,
-    int4_matmul,
     int8_matmul,
     quantize_to_fp8,
     quantize_to_int4,
     quantize_to_int8,
-    unpack_int4,
+    unpack_int4,  # noqa: F401  (pack_int4's inverse, imported from here too)
+    w4a4_linear,
 )
 from fastdm_tpu_torch.kernels.torch_backend import true_div
 
@@ -315,13 +318,12 @@ def qlinear_apply(lin: QLinear, x: Tensor, chunk_tokens: int = 0) -> Tensor:
 def _apply_local(lin: QLinear, x2: Tensor, dtype) -> Tensor:
     """The layer's own (M, K) -> (M, N) product on its weights."""
     if lin.w4 is not None or lin.w4p is not None:
-        # int4p unpacks into a scratch buffer that lives until the GEMM is done
-        w = lin.w4 if lin.w4 is not None else unpack_int4(lin.w4p)
         xq, xs = quantize_to_int4(x2)
-        out = int4_matmul(xq, w, xs, lin.scale, dtype, lin.bias)
-        del w
-        # the SVDQuant low-rank side path in bf16, added as JAX adds it
-        return out + ((x2.to(torch.bfloat16) @ lin.lora_u) @ lin.lora_v).to(out.dtype)
+        # the SVDQuant low-rank side path's (M, r) activations, a plain product;
+        # its (r, N) half and the add run in w4a4_linear's epilogue on the card
+        xu = x2.to(torch.bfloat16) @ lin.lora_u
+        return w4a4_linear(xq, lin.w4 if lin.w4 is not None else lin.w4p, xs, lin.scale, dtype,
+                           lin.bias, xu, lin.lora_v)
     w = lin.w
     if w.dtype == torch.int8:
         xq, xs, xzp = quantize_to_int8(x2, symmetric=False)

@@ -22,7 +22,11 @@ towards zero — about twice the random-walk rounding of a K-term f32 sum
 relative to its absolute sum, and 60x under the worst case at K = 15360.
 The W4A4 kernels: the int4 quantizer (q, scale), the int4 GEMM and the int4p
 unpack bit-exact (integer math, correctly rounded divisions, the epilogue in
-the same order; the unpack moves bits). The Wan kernels: qk_norm_rope /
+the same order; the unpack moves bits); both entries of the W4A4 linear
+(w4a4_gemm.cu) bit-exact with lora_v = 0 and otherwise within one bf16 ulp of
+the output plus one of the low-rank term (its rank-32 f32 sum in another
+order than cuBLAS's, whose bf16 reductions are turned off for the plain
+version). The Wan kernels: qk_norm_rope /
 qk_norm_rope2 within one bf16 ulp of the value plus two of its rotation
 pair's magnitude (the normalized value may sit one ulp away before the
 bit-exact rotation mixes the pair), in both pair layouts, and the fused and
@@ -750,24 +754,106 @@ def test_w4a4_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                                                        dtype=torch.bfloat16))
 
 
+@pytest.fixture
+def exact_bf16_products():
+    """cuBLAS's bf16 products (the plain W4A4 linear's low-rank term) with f32
+    reductions only: PyTorch lets cuBLAS reduce split sums in bf16 by default,
+    which at an N that is not a multiple of 8 put the term thousands of ulp
+    from its exact value on an H100."""
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+
+
 @pytest.mark.gpu
-def test_qlinear_w4a4_launches_its_kernels(cuda_device):
-    """One int4 and one int4p QLinear call on the card: the quantizer and the
-    GEMM once each, the unpack once for int4p only; int4p equals int4 on the
-    same values bit for bit."""
-    from fastdm_tpu_torch.kernels import cuda_backend
+def test_qlinear_w4a4_launches_its_kernels(cuda_device, exact_bf16_products):
+    """int4 and int4p QLinear calls on the card: the quantizer and one
+    w4a4_linear entry each; at 150 rows the large-M entry, after the unpack
+    for int4p only, and int4p equals int4 on the same values bit for bit; at
+    3 rows int4p's small-M entry on the packed weight (no unpack), within one
+    bf16 ulp of the output plus one of the low-rank term of int4's large-M
+    entry; int4_matmul's kernel launches no more on this path."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
     from fastdm_tpu_torch.layers.qlinear import QLinear, qlinear_random, unpack_int4
 
     g = torch.Generator(device=cuda_device).manual_seed(5)
     x = torch.randn(3, 50, 128, generator=g, device=cuda_device).bfloat16()
     packed = qlinear_random(g, 128, 96, quant="int4p", device=cuda_device)
-    cuda_backend.reset_launch_counts()
+    unpacked = QLinear(None, packed.bias, packed.scale, w4=unpack_int4(packed.w4p),
+                       lora_u=packed.lora_u, lora_v=packed.lora_v)
+    cb.reset_launch_counts()
     y = packed(x)
-    plain = QLinear(None, packed.bias, packed.scale, w4=unpack_int4(packed.w4p),
-                    lora_u=packed.lora_u, lora_v=packed.lora_v)(x)
+    plain = unpacked(x)
     assert y.shape == (3, 50, 96) and y.dtype == torch.bfloat16 and torch.equal(y, plain)
-    assert (cuda_backend.quantize_to_int4_cuda.launches, cuda_backend.int4_matmul_cuda.launches,
-            cuda_backend.unpack_int4_cuda.launches) == (2, 2, 2)
+    few = x[:, :1]
+    z, z_plain = packed(few), unpacked(few)
+    low = (few.reshape(3, 128) @ packed.lora_u).double() @ packed.lora_v.double()
+    excess = (z.float() - z_plain.float()).abs().reshape(3, 96) - (
+        _bf16_ulp(z_plain.reshape(3, 96)) + _bf16_ulp(low))
+    assert excess.max().item() <= 0
+    assert (cb.quantize_to_int4_cuda.launches, cb.unpack_int4_cuda.launches,
+            cb.w4a4_linear_large_cuda.launches, cb.w4a4_linear_small_cuda.launches,
+            cb.int4_matmul_cuda.launches) == (4, 1, 3, 1, 0)
+
+
+# (K, N) of FLUX's (and Qwen-Image's) W4A4 linears, the AdaLN modulations'
+# 18432 and 9216 among them, and a ragged N (not a multiple of 128 or of 8)
+W4A4_LINEAR_KN = [(3072, 3072), (3072, 9216), (3072, 18432), (3072, 21504), (12288, 3072),
+                  (15360, 3072), (3072, 1003)]
+# the rows: one token, Qwen-Image's text rows (30 / 60), the small-M entry's
+# last block sizes and the threshold's neighbours, a ragged large M and
+# Qwen-Image-Edit's 1396 text rows
+W4A4_LINEAR_M = [1, 16, 30, 60, 64, 65, 513, 1396]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("m", W4A4_LINEAR_M)
+@pytest.mark.parametrize("kn", W4A4_LINEAR_KN, ids=lambda kn: f"{kn[0]}x{kn[1]}")
+def test_w4a4_linear_entries_match_plain_on_card(cuda_device, exact_bf16_products, kn, m,
+                                                 batch):
+    """Both entries of w4a4_linear against its plain version (unpack_int4,
+    int4_matmul, the bf16 low-rank product and the add) on batch * m rows,
+    with and without bias: the small-M entry on the packed weight, the
+    large-M entry on the unpacked one. Bit-exact with lora_v = 0; otherwise
+    within one bf16 ulp of the output plus one of the low-rank term.
+    w4a4_linear_cuda takes the small-M entry at batch * m <= W4A4_SMALL_M_MAX
+    (no unpack), else unpack_int4 and the large-M entry, one launch each."""
+    from fastdm_tpu_torch.kernels import cuda_backend as cb
+    from fastdm_tpu_torch.kernels import torch_backend as tb
+    from fastdm_tpu_torch.layers.qlinear import qlinear_random
+
+    k, n = kn
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = (torch.randn(batch, m, k, generator=g, device=cuda_device) * 2).bfloat16()
+    x[0, 0] = 0
+    x2 = x.reshape(-1, k)
+    lin = qlinear_random(g, k, n, quant="int4p", device=cuda_device)
+    xq, xs = tb.quantize_to_int4_torch(x2)
+    xu = x2 @ lin.lora_u
+    w = tb.unpack_int4_torch(lin.w4p)
+    zero = torch.zeros_like(lin.lora_v)
+    for lora_v in (zero, lin.lora_v):
+        low = _bf16_ulp(xu.double() @ lora_v.double())
+        for bias in (lin.bias, None):
+            args = (xs, lin.scale, torch.bfloat16, bias, xu, lora_v)
+            want = tb.w4a4_linear_torch(xq, lin.w4p, *args)
+            for got in (cb.w4a4_linear_small_cuda(xq, lin.w4p, *args),
+                        cb.w4a4_linear_large_cuda(xq, w, *args)):
+                assert got.shape == (batch * m, n) and got.dtype == torch.bfloat16
+                if lora_v is zero:
+                    assert torch.equal(got, want)
+                else:
+                    excess = (got.float() - want.float()).abs() - (_bf16_ulp(want) + low)
+                    assert excess.max().item() <= 0
+    cb.reset_launch_counts()
+    got = cb.w4a4_linear_cuda(xq, lin.w4p, xs, lin.scale, torch.bfloat16, lin.bias, xu,
+                              lin.lora_v)
+    small = cb.w4a4_small_m(batch * m, k)
+    assert (cb.w4a4_linear_small_cuda.launches, cb.w4a4_linear_large_cuda.launches,
+            cb.unpack_int4_cuda.launches) == ((1, 0, 0) if small else (0, 1, 1))
+    assert torch.isfinite(got.float()).all()
 
 
 # ------------------------------------------------------------ Wan kernels

@@ -221,7 +221,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
                           "quantize_to_int4_jnp"),
                 "w8a8_gemm": ("int8_matmul_pallas", "int4_matmul_jnp"),
                 "fp8_gemm": ("fp8_matmul_pallas",), "gelu_mul": ("gelu_and_mul_pallas",),
-                "int4_pack": ("layers/qlinear.py unpack_int4",)}
+                "int4_pack": ("layers/qlinear.py unpack_int4",),
+                "w4a4_gemm": ("int4_matmul_jnp", "layers/qlinear.py unpack_int4")}
     assert set(SOURCES) == set(replaces)
     for name in SOURCES:
         text = (CSRC / f"{name}.cu").read_text()

@@ -110,12 +110,29 @@ def _csrc_files():
     return sorted((*build.CSRC.glob("*.cu"), *build.CSRC.glob("*.cuh")))
 
 
+# the one warp-level MMA left: the small-M W4A4 entry's s8 product on packed
+# weights (w4a4_gemm.cu), a memory-bound kernel of a few rows, not a tile of
+# the retired attention
+_W4A4_SMALL_MMA = "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"
+
+
+def _source_text(f) -> str:
+    """A csrc/ file's text without the small-M W4A4 entry's MMA, which only
+    w4a4_gemm.cu may issue."""
+    text = f.read_text()
+    if f.name != "w4a4_gemm.cu":
+        assert _W4A4_SMALL_MMA not in text, f.name
+    return text.replace(_W4A4_SMALL_MMA, "")
+
+
 def test_no_mma_sync_int8_gemm_or_coarse_walk_remains():
     """No kernel issues the warp-level mma.sync, ldmatrix or cp.async of the
     retired attention tile: the int8 GEMM issues wgmma (s32.s8.s8) only, and
-    every attention walk runs on flash_attn.cu."""
+    every attention walk runs on flash_attn.cu. The one mma.sync left is the
+    small-M W4A4 entry's m16n8k32 s8 product in w4a4_gemm.cu."""
+    assert _W4A4_SMALL_MMA in (build.CSRC / "w4a4_gemm.cu").read_text()
     for f in _csrc_files():
-        text = f.read_text()
+        text = _source_text(f)
         for instruction in ("mma.sync", "ldmatrix.sync", "cp.async.cg"):
             assert instruction not in text, (f.name, instruction)
     assert "s32.s8.s8" in (build.CSRC / "sm90.cuh").read_text()
@@ -137,9 +154,10 @@ def test_superblock_and_fine_walks_left_the_mma_sync_tile(source, name, present)
     """The four table walks (mask, coarse, superblock, fine) and their
     exports live in the wgmma + TMA kernel of flash_attn.cu; the mma.sync
     tile (attn_tile.cuh), its dense walk and the old mask export are gone from
-    every csrc/ file ("*")."""
+    every csrc/ file ("*"; the small-M W4A4 entry's m16n8k32 s8 MMA in
+    w4a4_gemm.cu is no tile of theirs)."""
     if source == "*":
-        assert not any(name in f.read_text() for f in _csrc_files())
+        assert not any(name in _source_text(f) for f in _csrc_files())
     else:
         assert (name in (build.CSRC / source).read_text()) == present
 
@@ -492,6 +510,81 @@ def test_w4a4_wrappers_and_pack_refuse_what_they_do_not_take(monkeypatch):
     with pytest.raises(ValueError, match="bfloat16"):
         cuda_backend.int4_matmul_cuda(torch.zeros(3, 64, dtype=torch.int8), w, sa, sb,
                                       torch.float32)
+    assert fake.args is None
+
+
+def _w4a4_operands(m: int, k: int = 64, n: int = 48, r: int = 32):
+    sb, bias = torch.ones(n), torch.zeros(n, dtype=torch.bfloat16)
+    return (torch.zeros(m, k, dtype=torch.int8), torch.ones(m, 1), sb, bias,
+            torch.zeros(m, r, dtype=torch.bfloat16), torch.zeros(r, n, dtype=torch.bfloat16))
+
+
+def test_w4a4_linear_wrapper_picks_its_entry_and_passes_pitches(monkeypatch):
+    """w4a4_linear_cuda: a packed (K/2, N) weight at M <= W4A4_SMALL_M_MAX
+    rows goes to the small-M entry as stored (wp, xq, scale_a, scale_b, bias,
+    xu, lora_v, out, m, n, k, xq's pitch, the packed row pitch K/2, xu's and
+    lora_v's pitches, the rank, the split (0: the kernel's choice), stream);
+    one row more to unpack_int4 and then
+    the large-M entry (a, the unpacked buffer, ..., m, n, k, lda, ldb, ldxu,
+    ldv, rank, stream), as an unpacked weight at any M; a lora_v whose rows
+    are not 16-byte aligned reaches the large-M entry's TMA padded to 8
+    columns."""
+    from fastdm_tpu_torch.kernels.cuda_backend import W4A4_SMALL_M_MAX
+
+    fake = _fake_cuda_wrapper(monkeypatch)
+    k, n, r = 64, 48, 32
+    wp = torch.zeros(n, k // 2, dtype=torch.int8).t()  # the (K/2, N) view of (N, K/2)
+    w = torch.zeros(n, k, dtype=torch.int8).t()
+    for m in (1, W4A4_SMALL_M_MAX):
+        a, sa, sb, bias, xu, lv = _w4a4_operands(m)
+        out = cuda_backend.w4a4_linear_cuda(a, wp, sa, sb, torch.bfloat16, bias, xu, lv)
+        assert fake.entry == ("w4a4_gemm", "fdm_w4a4_linear_small", 18)
+        assert fake.args[:8] == (wp.data_ptr(), a.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+                                 bias.data_ptr(), xu.data_ptr(), lv.data_ptr(), out.data_ptr())
+        assert fake.args[8:] == (m, n, k, k, k // 2, r, n, r, 0, 0)
+        assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    calls, looked_up = [], cuda_backend._entry
+    monkeypatch.setattr(cuda_backend, "_entry",
+                        lambda lib, fn, types: calls.append(fn) or looked_up(lib, fn, types))
+    for m, b in ((W4A4_SMALL_M_MAX + 1, wp), (1, w), (300, w)):
+        a, sa, sb, bias, xu, lv = _w4a4_operands(m)
+        calls.clear()
+        out = cuda_backend.w4a4_linear_cuda(a, b, sa, sb, torch.bfloat16, None, xu, lv)
+        assert calls == ["fdm_unpack_int4"] * (b is wp) + ["fdm_w4a4_linear"]
+        assert fake.entry == ("w4a4_gemm", "fdm_w4a4_linear", 17)
+        assert fake.args[0] == a.data_ptr() and fake.args[4] is None
+        assert (fake.args[1] == b.data_ptr()) == (b is w)
+        assert fake.args[5:8] == (xu.data_ptr(), lv.data_ptr(), out.data_ptr())
+        assert fake.args[8:] == (m, n, k, k, k, r, n, r, 0)
+    a, sa, sb, bias, xu, _ = _w4a4_operands(300)
+    lv = torch.zeros(r, n + 12, dtype=torch.bfloat16)[:, 4:n + 4]  # 8-byte aligned rows
+    cuda_backend.w4a4_linear_cuda(a, w, sa, sb, torch.bfloat16, bias, xu, lv)
+    assert fake.args[6] != lv.data_ptr() and fake.args[14] == n
+
+
+def test_w4a4_linear_wrappers_refuse_what_they_do_not_take(monkeypatch):
+    """An f32 output, an odd or a too large rank, an fp32 xu, a packed view
+    that is N-contiguous, a K split the small-M kernel has no instance of:
+    refused before any launch."""
+    fake = _fake_cuda_wrapper(monkeypatch)
+    w = torch.zeros(48, 64, dtype=torch.int8).t()
+    wp = torch.zeros(48, 32, dtype=torch.int8).t()
+    a, sa, sb, bias, xu, lv = _w4a4_operands(70)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_backend.w4a4_linear_cuda(a, w, sa, sb, torch.float32, bias, xu, lv)
+    with pytest.raises(ValueError, match="even and positive"):
+        cuda_backend.w4a4_linear_cuda(a, w, sa, sb, torch.bfloat16, bias, xu[:, :7], lv[:7])
+    a2, sa2, sb2, bias2, xu2, lv2 = _w4a4_operands(70, r=40)
+    with pytest.raises(ValueError, match="at most 32"):
+        cuda_backend.w4a4_linear_cuda(a2, w, sa2, sb2, torch.bfloat16, bias2, xu2, lv2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_backend.w4a4_linear_cuda(a, w, sa, sb, torch.bfloat16, bias, xu.float(), lv)
+    a, sa, sb, bias, xu, lv = _w4a4_operands(3)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_backend.w4a4_linear_small_cuda(a, wp.contiguous(), sa, sb, torch.bfloat16, bias,
+                                            xu, lv)
+    with pytest.raises(ValueError, match="split"):
+        cuda_backend.w4a4_linear_small_cuda(a, wp, sa, sb, torch.bfloat16, bias, xu, lv, split=3)
     assert fake.args is None
 
 
